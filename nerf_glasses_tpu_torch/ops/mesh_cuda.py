@@ -1,0 +1,202 @@
+"""Tile-culled mesh ray-cast: the CUDA kernel, its wrapper and its plain
+PyTorch version.
+
+`raycast_tiled` replaces nerf_glasses_tpu/ops/mesh_pallas.py::
+raycast_pallas_tiled. On a CUDA tensor it launches the hand-written
+kernel in csrc/mesh_raycast.cu (built with nvcc for sm_90a at first use,
+into `_build/`, keyed by a hash of the source and flags) or raises; on a
+CPU tensor it runs `raycast_tiled_reference`. There is no fallback from
+one to the other.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+
+import torch
+
+BIG = 1e16
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_SOURCE = os.path.join(_PKG, "csrc", "mesh_raycast.cu")
+_BUILD_DIR = os.path.join(_PKG, "_build")
+# -fmad=false: see the numerics note in csrc/mesh_raycast.cu.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-Xptxas=-v", "-shared",
+              "-Xcompiler", "-fPIC")
+
+# Kernel launches made by raycast_tiled (CUDA tensors only).
+launches = 0
+
+_lib = None
+build_log = ""
+build_seconds = 0.0
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc")
+    if path is None:
+        home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+        path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found (PATH, CUDA_HOME): the mesh "
+                           "ray-cast kernel cannot be built")
+    return path
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (once per source hash) and load the kernel library."""
+    global _lib, build_log, build_seconds
+    if _lib is not None:
+        return _lib
+    with open(_SOURCE, "rb") as f:
+        src = f.read()
+    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    so = os.path.join(_BUILD_DIR, f"mesh_raycast-{key[:16]}.so")
+    if not os.path.exists(so):
+        os.makedirs(_BUILD_DIR, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+        os.close(fd)
+        t0 = time.perf_counter()
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, _SOURCE],
+                              capture_output=True, text=True)
+        build_seconds = time.perf_counter() - t0
+        build_log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"nvcc failed on {_SOURCE}:\n{build_log}")
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(so)
+    fn = lib.nmr_raycast_tiled
+    p = ctypes.c_void_p
+    i = ctypes.c_int
+    fn.argtypes = [p, p, p, p, p, i, i, i, p, p, p, p, p]
+    fn.restype = ctypes.c_int
+    _lib = lib
+    return lib
+
+
+def _moller_trumbore(o, d, tri):
+    """Back-face-culled Moller-Trumbore. o, d (..., 3) broadcast against
+    tri (..., 9) = [v0 | e1 | e2] -> (t, u, v, hit) without the running
+    best-t test; operation order as in the kernel."""
+    ox, oy, oz = o.unbind(-1)
+    dx, dy, dz = d.unbind(-1)
+    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = tri.unbind(-1)
+    px = dy * e2z - dz * e2y
+    py = dz * e2x - dx * e2z
+    pz = dx * e2y - dy * e2x
+    det = e1x * px + e1y * py + e1z * pz
+    valid = det > 1e-9
+    inv = torch.reciprocal(torch.where(valid, det, 1.0))
+    tx = ox - v0x
+    ty = oy - v0y
+    tz = oz - v0z
+    u = (tx * px + ty * py + tz * pz) * inv
+    qx = ty * e1z - tz * e1y
+    qy = tz * e1x - tx * e1z
+    qz = tx * e1y - ty * e1x
+    v = (dx * qx + dy * qy + dz * qz) * inv
+    t = (e2x * qx + e2y * qy + e2z * qz) * inv
+    hit = (valid & (u >= -1e-5) & (v >= -1e-5) & (u + v <= 1.0 + 1e-5)
+           & (t > 1e-4))
+    return t, u, v, hit
+
+
+def raycast_tiled_reference(tri_scalars, o, d, tile_lists, tile_counts,
+                            chunk: int = 32):
+    """Plain PyTorch version of the kernel: each tile's candidates are
+    gathered (padded to the largest count and masked) and tested
+    `chunk` at a time; the first minimum in list order wins, as in the
+    kernel's strict `<` walk. Only tiles with candidates are computed."""
+    n_tiles = tile_counts.shape[0]
+    n = o.shape[0]
+    rays = n // n_tiles
+    dev = o.device
+    best_t = torch.full((n_tiles, rays), BIG, device=dev)
+    best_i = torch.full((n_tiles, rays), -1, dtype=torch.int32, device=dev)
+    best_u = torch.zeros((n_tiles, rays), device=dev)
+    best_v = torch.zeros((n_tiles, rays), device=dev)
+    busy = torch.nonzero(tile_counts > 0).squeeze(1)
+    if busy.numel():
+        counts = tile_counts[busy]
+        lists = tile_lists[busy].long()
+        o4 = o.view(n_tiles, rays, 1, 3)[busy]
+        d4 = d.view(n_tiles, rays, 1, 3)[busy]
+        bt, bi = best_t[busy], best_i[busy]
+        bu, bv = best_u[busy], best_v[busy]
+        for s in range(0, int(counts.max()), chunk):
+            ids = lists[:, s:s + chunk]                       # (B, C)
+            live = (torch.arange(s, s + ids.shape[1], device=dev)[None]
+                    < counts[:, None])
+            t, u, v, hit = _moller_trumbore(o4, d4, tri_scalars[ids][:, None])
+            t = torch.where(hit & live[:, None], t, BIG)      # (B, R, C)
+            arg = torch.argmin(t, dim=-1, keepdim=True)
+            tmin = t.gather(-1, arg)[..., 0]
+            better = tmin < bt
+            bt = torch.where(better, tmin, bt)
+            bi = torch.where(better, ids.gather(1, arg[..., 0]).int(), bi)
+            bu = torch.where(better, u.gather(-1, arg)[..., 0], bu)
+            bv = torch.where(better, v.gather(-1, arg)[..., 0], bv)
+        best_t[busy], best_i[busy], best_u[busy], best_v[busy] = bt, bi, bu, bv
+    return (best_t.reshape(n), best_i.reshape(n), best_u.reshape(n),
+            best_v.reshape(n))
+
+
+def _check(name, x, dtype, ndim, device):
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if x.dtype != dtype or x.dim() != ndim or not x.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous {ndim}-d {dtype} "
+                         f"tensor, got {x.dtype} {tuple(x.shape)}")
+
+
+def raycast_tiled(tri_scalars, o, d, tile_lists, tile_counts):
+    """Nearest back-face-culled hit of each ray among its tile's candidate
+    triangles.
+
+    tri_scalars (T, 9) f32 [v0|e1|e2] world space; o, d (N, 3) f32 with N
+    a multiple of n_tiles, rays grouped tile-major; tile_lists
+    (n_tiles, L) i32 front-packed ascending candidate ids; tile_counts
+    (n_tiles,) i32 -> (t f32, idx i32, u f32, v f32), each (N,)."""
+    global launches
+    if o.device.type == "cpu":
+        return raycast_tiled_reference(tri_scalars, o, d, tile_lists,
+                                       tile_counts)
+    if o.device.type != "cuda":
+        raise ValueError(f"raycast_tiled: unsupported device {o.device}")
+    dev = o.device
+    _check("tri_scalars", tri_scalars, torch.float32, 2, dev)
+    _check("o", o, torch.float32, 2, dev)
+    _check("d", d, torch.float32, 2, dev)
+    _check("tile_lists", tile_lists, torch.int32, 2, dev)
+    _check("tile_counts", tile_counts, torch.int32, 1, dev)
+    n, n_tiles = o.shape[0], tile_counts.shape[0]
+    if (tri_scalars.shape[1] != 9 or o.shape[1] != 3 or d.shape != o.shape
+            or tile_lists.shape[0] != n_tiles or n_tiles == 0
+            or n % n_tiles or n_tiles > 65535):
+        raise ValueError(
+            f"raycast_tiled: bad shapes tri {tuple(tri_scalars.shape)}, "
+            f"o {tuple(o.shape)}, d {tuple(d.shape)}, lists "
+            f"{tuple(tile_lists.shape)}, counts {tuple(tile_counts.shape)}")
+    lib = load_library()
+    t = torch.empty(n, dtype=torch.float32, device=dev)
+    idx = torch.empty(n, dtype=torch.int32, device=dev)
+    u = torch.empty(n, dtype=torch.float32, device=dev)
+    v = torch.empty(n, dtype=torch.float32, device=dev)
+    err = lib.nmr_raycast_tiled(
+        tri_scalars.data_ptr(), o.data_ptr(), d.data_ptr(),
+        tile_lists.data_ptr(), tile_counts.data_ptr(), tile_lists.shape[1],
+        n_tiles, n // n_tiles, t.data_ptr(), idx.data_ptr(), u.data_ptr(),
+        v.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"mesh ray-cast kernel launch failed: "
+                           f"cudaError_t {err}")
+    launches += 1
+    return t, idx, u, v

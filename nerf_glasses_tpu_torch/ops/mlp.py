@@ -1,0 +1,28 @@
+"""FullyFusedMLP-equivalent multi-layer perceptron.
+
+Port of nerf_glasses_tpu/ops/mlp.py: no biases, each layer
+y = act(x @ W.T) with W (n_out, n_in). The reference multiplies
+`compute_dtype` operands with f32 accumulation and an f32 result, and
+casts hidden activations back to `compute_dtype` after the ReLU.
+`torch.matmul` on bf16 would round its result to bf16, so here the
+operands are rounded to `compute_dtype` and multiplied in f32 (TF32 is
+off package-wide): the same rounding points, an exact product of the
+rounded operands and an f32 sum.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+
+def mlp_apply(x: torch.Tensor, weights: Sequence[torch.Tensor],
+              compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """x (N, n_in) -> (N, n_out_padded) f32; ReLU after every layer but
+    the last (output_activation=None in all reference configs)."""
+    h = x.to(compute_dtype).float()
+    for w in weights[:-1]:
+        h = torch.relu(h @ w.to(compute_dtype).float().T)
+        h = h.to(compute_dtype).float()
+    return h @ weights[-1].to(compute_dtype).float().T
