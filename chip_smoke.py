@@ -22,15 +22,32 @@ procedural glasses glTF written here) + frame(), with the mesh pass at
      PSNR against the kernel's frame at the same sample index;
   6. a small frame (160x90) rendered on the card and on the CPU (the CPU
      takes the plain ray-cast; the CPU port is held against the JAX
-     package by tests/test_torch_*.py): >= 40 dB PSNR.
+     package by tests/test_torch_*.py): >= 40 dB PSNR;
+  7. the untiled ray-cast kernel against its plain version on the 2560x
+     1440 mesh rays of the smoke camera: every 8th row compared (hit mask
+     and ids equal, max |dt| <= 1e-6), the kernel timed on all rays, the
+     plain version on the compared rows;
+  8. the flash frame through the renderer: load_nerf(bake=True) at the
+     defaults (512^3 sigma, 256^3 features, fidelity probe "ok"), 1 warm-up
+     + 3 timed 720p frames on last_render_path "flash" (the tiled kernel
+     launched), >= 30 dB PSNR against the exact frame of phase 4's
+     renderer at the same camera and sample index;
+  9. the single-program hybrid frame (render_hybrid_sharded, n_shards=1)
+     with that Testbed's flash options and scene: the untiled kernel
+     launched, the frame finite and >= 40 dB from the renderer's flash
+     frame at the same pixel offset; with jitter off, n_shards=4 equals
+     n_shards=1 to 1e-5;
+ 10. a 160x90 flash frame (bake 128, float32 MLPs) on the card and on the
+     CPU: >= 40 dB PSNR.
 
-Prints one JSON line with the kernel's numbers, the card's name and power
+Prints one JSON line with the kernels' numbers, the card's name and power
 limit, and as its last line {"ok": true, "device": {...}}. Exits non-zero
 on any failure, when no CUDA device is present, and when the package is
 not beside it.
 """
 
 import base64
+import dataclasses
 import json
 import math
 import os
@@ -45,6 +62,7 @@ import torch
 from nerf_glasses_tpu_torch.models.renderer import NerfMeshRenderer
 from nerf_glasses_tpu_torch.ops import mesh_cuda
 from nerf_glasses_tpu_torch.ops import triangles as tri_ops
+from nerf_glasses_tpu_torch.parallel.sharding import render_hybrid_sharded
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SNAPSHOT = os.path.join(ROOT, "assets", "trained", "trained_head_v6.msgpack")
@@ -53,6 +71,9 @@ KERNEL_T_TOL = 1e-6     # kernel and plain version agree bit for bit
                         # (-fmad=false, same operation order)
 PSNR_PLAIN_DB = 50.0
 PSNR_CPU_DB = 40.0
+PSNR_FLASH_VS_EXACT_DB = 30.0   # the package's own bake-probe threshold
+PSNR_SHARDED_DB = 40.0
+SHARD_ATOL = 1e-5               # tests/test_parallel.py:141
 
 
 # ---------------------------------------------------------------------------
@@ -153,11 +174,11 @@ def write_glasses_gltf(path):
     return len(idx) // 3
 
 
-def make_renderer(device, width, height, glasses):
+def make_renderer(device, width, height, glasses, **load_kw):
     """The trained head with the glasses placed on it, camera as the
-    repository's bench places it."""
+    repository's bench places it; load_kw goes to load_nerf (bake=...)."""
     r = NerfMeshRenderer(width, height, device=device)
-    nerf = r.load_nerf(SNAPSHOT)
+    nerf = r.load_nerf(SNAPSHOT, **load_kw)
     nerf.render_aabb.min = np.array([0.1, 0.1, 0.1], np.float32)
     nerf.render_aabb.max = np.array([0.9, 0.9, 0.9], np.float32)
     if r.load_mesh(glasses, t=[0.0, 0.1, 0.22], s=[0.25, 0.25, 0.25]) is None:
@@ -307,13 +328,176 @@ def main(tmp):
     if p_cpu < PSNR_CPU_DB:
         raise AssertionError("card and CPU frames disagree")
 
+    # 7: the untiled kernel against its plain version, mesh rays of the
+    # smoke camera at 2x (pixel centres)
+    f32 = dict(dtype=torch.float32, device=dev)
+    tri_s = tri_ops.tiled_raycast_inputs(renderer._mesh_arrays, xf,
+                                         renderer.view_projection_mat,
+                                         W * f, H * f)["tri_scalars"]
+    cam = torch.as_tensor(renderer.view_projection_mat, **f32)
+    px = (torch.arange(W * f, **f32) + 0.5) / (W * f) * 2.0 - 1.0
+    py = (torch.arange(H * f, **f32) + 0.5) / (H * f) * 2.0 - 1.0
+    ndc = torch.stack([px[None].expand(H * f, W * f),
+                       py[:, None].expand(H * f, W * f),
+                       torch.ones((H * f, W * f), **f32)], dim=-1)
+    d_all = ndc @ cam[:, :3].T
+    d_all = (d_all / torch.linalg.vector_norm(d_all, dim=-1, keepdim=True))
+    d_sub = d_all[::8].reshape(-1, 3).contiguous()
+    d_all = d_all.reshape(-1, 3).contiguous()
+    o_all = cam[:, 3].expand(d_all.shape).contiguous()
+    o_sub = o_all[:d_sub.shape[0]]
+    kt, ki, ku, kv = mesh_cuda.raycast(tri_s, o_sub, d_sub)
+    torch.cuda.synchronize()
+    pt, pi, pu, pv = mesh_cuda.raycast_reference(tri_s, o_sub, d_sub)
+    torch.cuda.synchronize()
+    hit_k, hit_p = ki >= 0, pi >= 0
+    shared = hit_k & hit_p
+    mask_diff2 = int((hit_k != hit_p).sum())
+    id_diff2 = int((ki != pi).sum())
+    max_dt2 = float((kt[shared] - pt[shared]).abs().max()) if shared.any() else 0.0
+    max_duv2 = float(torch.maximum((ku - pu).abs(), (kv - pv).abs()).max())
+    k2_ms = cuda_ms(lambda: mesh_cuda.raycast(tri_s, o_all, d_all), 5)
+    p2_ms = cuda_ms(lambda: mesh_cuda.raycast_reference(tri_s, o_sub, d_sub), 1)
+    print(f"untiled ray-cast: {tri_s.shape[0]} triangles; compared on every 8th "
+          f"row, {d_sub.shape[0]} rays, {int(hit_p.sum())} hits: hit-mask "
+          f"mismatches {mask_diff2}, id mismatches {id_diff2}, max |dt| "
+          f"{max_dt2:.3g}, max |du|,|dv| {max_duv2:.3g}; kernel {k2_ms:.3f} ms "
+          f"on all {d_all.shape[0]} rays, plain {p2_ms:.1f} ms on the "
+          f"{d_sub.shape[0]} compared rays")
+    if not (mask_diff2 == 0 and id_diff2 == 0 and max_dt2 <= KERNEL_T_TOL
+            and int(hit_p.sum()) > 0):
+        raise AssertionError("untiled kernel disagrees with its plain version")
+    del kt, ki, ku, kv, pt, pi, pu, pv, d_all, o_all, d_sub, o_sub, ndc
+
+    # 8: the flash frame through the renderer
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    frenderer, fnerf = make_renderer(dev, W, H, glasses, bake=True)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fnerf.bake(512, feat_resolution=256)     # the same bake, timed alone
+    torch.cuda.synchronize()
+    bake_s = time.perf_counter() - t0
+    sig_b = fnerf._baked_sigma.numel() * fnerf._baked_sigma.element_size()
+    feat_b = fnerf._baked_feat.numel() * fnerf._baked_feat.element_size()
+    print(f"load_nerf(bake=True): {load_s:.2f} s (load + bake + fidelity "
+          f"probe); bake alone {bake_s:.2f} s; sigma grid "
+          f"{tuple(fnerf._baked_sigma.shape)} {sig_b / 2**20:.0f} MiB, "
+          f"features {tuple(fnerf._baked_feat.shape)} {feat_b / 2**20:.0f} "
+          f"MiB; fidelity probe {fnerf.bake_fidelity}")
+    if fnerf.bake_fidelity is None or fnerf.bake_fidelity[1] != "ok":
+        raise AssertionError(f"bake fidelity probe: {fnerf.bake_fidelity}")
+    torch.cuda.reset_peak_memory_stats()
+    mesh_cuda.launches = 0
+    mesh_cuda.raycast_launches = 0
+    frenderer.frame()
+    torch.cuda.synchronize()
+    fwarm_ms = frenderer.last_frame_ms
+    t0 = time.perf_counter()
+    fepochs = []
+    for _ in range(3):
+        frenderer.frame()
+        fepochs.append(fnerf.last_march_epochs)
+    torch.cuda.synchronize()
+    flash_ms = (time.perf_counter() - t0) * 1000.0 / 3
+    flash_launches = mesh_cuda.launches
+    fpeak = torch.cuda.max_memory_allocated()
+    print(f"flash {W}x{H}: warm-up frame {fwarm_ms:.1f} ms, {flash_ms:.1f} "
+          f"ms/frame (3 frames, host clock to synchronize), march epochs "
+          f"{fepochs}, peak device memory {fpeak / 2**30:.2f} GiB, path "
+          f"{fnerf.last_render_path}, tiled kernel launches {flash_launches}, "
+          f"untiled {mesh_cuda.raycast_launches}")
+    if fnerf.last_render_path != "flash":
+        raise AssertionError(f"render path {fnerf.last_render_path}")
+    if flash_launches < 4:
+        raise AssertionError(f"flash frames launched the tiled kernel "
+                             f"{flash_launches} times")
+    renderer.update_model_view_proj()
+    renderer.frame()
+    img_exact = renderer.display_image()
+    frenderer.update_model_view_proj()
+    frenderer.frame()
+    img_flash = frenderer.display_image()
+    fb_flash = frenderer._frame_buffer.clone()
+    if not (np.isfinite(img_flash).all() and bool(torch.isfinite(fb_flash).all())):
+        raise AssertionError("flash frame is not finite")
+    p_flash = psnr(img_flash[..., :3], img_exact[..., :3])
+    print(f"flash frame vs exact frame (same camera, sample 0): {p_flash:.2f} dB")
+    if p_flash < PSNR_FLASH_VS_EXACT_DB:
+        raise AssertionError("flash frame too far from the exact frame")
+
+    # 9: the single-program hybrid frame with the same options and scene
+    opts = fnerf._march_options()
+    scene = fnerf._scene()
+    xf2, nm2 = tri_ops.instance_transforms(frenderer._mesh_arrays,
+                                           frenderer._meshes)
+    pix = (0.5, 1.0 / 3.0)          # the Halton(2, 3) offset of sample 0
+
+    def sharded(n_shards, o):
+        return render_hybrid_sharded(
+            fnerf.net, scene, frenderer._mesh_arrays, xf2, nm2,
+            frenderer.view_projection_mat, W, H, o, n_shards=n_shards,
+            light_pos=frenderer.light_pos, pix_offset=pix)
+
+    mesh_cuda.launches = 0
+    mesh_cuda.raycast_launches = 0
+    sh_frame, sh_depth = sharded(1, opts)       # numpy: synchronised
+    t0 = time.perf_counter()
+    for _ in range(3):
+        sh_frame, sh_depth = sharded(1, opts)
+    sharded_ms = (time.perf_counter() - t0) * 1000.0 / 3
+    untiled_launches = mesh_cuda.raycast_launches
+    p_sh = psnr(sh_frame[..., :3], fb_flash[..., :3].cpu().numpy())
+    print(f"single-program frame {W}x{H}, n_shards=1: {sharded_ms:.1f} ms/frame "
+          f"(3 frames, to host), untiled kernel launches {untiled_launches}, "
+          f"tiled {mesh_cuda.launches}; vs the renderer's flash frame "
+          f"{p_sh:.2f} dB")
+    if not (sh_frame.shape == (H, W, 4) and np.isfinite(sh_frame).all()):
+        raise AssertionError("single-program frame is not finite")
+    if untiled_launches < 4:
+        raise AssertionError(f"single-program frames launched the untiled "
+                             f"kernel {untiled_launches} times")
+    if p_sh < PSNR_SHARDED_DB:
+        raise AssertionError("single-program frame disagrees with the renderer")
+    nj = dataclasses.replace(opts, jitter=False)
+    f1, d1 = sharded(1, nj)
+    f4, d4 = sharded(4, nj)
+    shard_diff = float(max(np.abs(f4 - f1).max(), np.abs(d4 - d1).max()))
+    print(f"jitter off: n_shards=4 vs n_shards=1 max |diff| {shard_diff:.3g}")
+    if shard_diff > SHARD_ATOL:
+        raise AssertionError("the frame depends on the shard count")
+    del sh_frame, sh_depth, f1, f4, d1, d4, scene, frenderer, fnerf, fb_flash
+
+    # 10: a small flash frame on the card against the CPU
+    small = []
+    for device in (dev, torch.device("cpu")):
+        r, n = make_renderer(device, 160, 90, glasses, bake=True,
+                             bake_resolution=128, feat_resolution=128,
+                             verify_fidelity=False)
+        n.march_overrides = {"compute_dtype": "float32"}
+        r.frame()
+        if n.last_render_path != "flash":
+            raise AssertionError(f"render path {n.last_render_path}")
+        small.append(r.display_image())
+    p_cpu_flash = psnr(small[0][..., :3], small[1][..., :3])
+    print(f"160x90 flash frame, card vs CPU (bake 128, float32 MLPs): "
+          f"{p_cpu_flash:.2f} dB")
+    if p_cpu_flash < PSNR_CPU_DB:
+        raise AssertionError("card and CPU flash frames disagree")
+
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "raycast_tiled", "route": "cuda",
         "source": "nerf_glasses_tpu_torch/csrc/mesh_raycast.cu",
         "replaces": "nerf_glasses_tpu/ops/mesh_pallas.py:203",
         "launches": launches, "max_abs_err": max(max_dt, max_duv),
-        "ms": k_ms, "plain_ms": p_ms}]}))
+        "ms": k_ms, "plain_ms": p_ms}, {
+        "name": "raycast", "route": "cuda",
+        "source": "nerf_glasses_tpu_torch/csrc/mesh_raycast.cu",
+        "replaces": "nerf_glasses_tpu/ops/mesh_pallas.py:91",
+        "launches": untiled_launches, "max_abs_err": max(max_dt2, max_duv2),
+        "ms": k2_ms, "plain_ms": p2_ms}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

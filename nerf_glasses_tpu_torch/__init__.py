@@ -7,10 +7,12 @@ every function here has an obvious counterpart there. The package
 imports torch and numpy and never jax.
 
 Layout:
-    ops/       compute on tensors (hash grid, SH, MLP, march, colours,
-               mesh pass) and the hand-written CUDA kernel's wrapper
+    ops/       compute on tensors (hash grid, SH, MLP, march, bake,
+               colours, mesh pass) and the hand-written CUDA kernels'
+               wrappers
     csrc/      CUDA C++ sources, built with nvcc at first use
     models/    stateful user-facing objects (Testbed, NerfMeshRenderer)
+    parallel/  the hybrid frame as one row-sharded program
     io/        snapshot (msgpack), glTF, dataset metadata
     utils/     bounding boxes, cameras, quaternions
 

@@ -2,10 +2,13 @@
 
 Port of the rendering half of nerf_glasses_tpu/models/testbed.py
 (ngp::Testbed, src/python_api.cu:301-496, src/ngp/testbed.cu):
-snapshot load, occupancy, camera state and the exact render path.
+snapshot load, occupancy, camera state, the exact render path and the
+baked fast path (bake, flash, deferred shading, the bake fidelity probe).
 """
 
 from __future__ import annotations
+
+import warnings
 
 import numpy as np
 import torch
@@ -16,6 +19,7 @@ from nerf_glasses_tpu_torch.io import snapshot as snap_io
 from nerf_glasses_tpu_torch.io.dataset import NerfDataset
 from nerf_glasses_tpu_torch.ops import occupancy as occ_ops
 from nerf_glasses_tpu_torch.ops import raymarch
+from nerf_glasses_tpu_torch.ops.bake import bake_grids
 from nerf_glasses_tpu_torch.ops.colors import accumulate, tonemap_frame
 from nerf_glasses_tpu_torch.ops.network import unpack_params
 from nerf_glasses_tpu_torch.utils.bbox import BoundingBox
@@ -61,6 +65,20 @@ class Testbed:
         self._cone_angle = 0.0
         self.march_overrides = {}
         self.last_march_epochs = 0
+        self.last_render_path = None   # set by render_frame_buffers
+
+        # baked fast path (bake()): the dense sigma grid, the feature grid
+        self._baked_sigma_arr = None
+        self._baked_feat = None
+        self._baked_sigma_log = False
+        # deferred shading: one colour evaluation per ray at its max-weight
+        # sample (MarchOptions.deferred_color)
+        self.deferred_shading = False
+        # flash: deferred shading + coarse init + vector rounds
+        self.flash = False
+        # (psnr_db, action) of the bake fidelity probe NerfMeshRenderer.
+        # load_nerf(bake=True) ran, or None
+        self.bake_fidelity = None
 
         self._surface_rgba = None
         self._surface_t = None
@@ -68,6 +86,16 @@ class Testbed:
         self._spp = 0
         self._frame_buffer = None
         self._depth_buffer = None
+
+    @property
+    def _baked_sigma(self):
+        return self._baked_sigma_arr
+
+    @_baked_sigma.setter
+    def _baked_sigma(self, v):
+        # the memoized scene carries the baked grids
+        self._baked_sigma_arr = v
+        self._scene_version += 1
 
     # ------------------------------------------------------------------
     # Snapshot and occupancy
@@ -115,21 +143,151 @@ class Testbed:
     def _march_options(self) -> raymarch.MarchOptions:
         kw = dict(config=self.config, cone_angle=self._cone_angle,
                   min_transmittance=self.render_min_transmittance)
+        if self._baked_sigma is not None:
+            kw["use_baked_sigma"] = True
+            kw["baked_sigma_log"] = self._baked_sigma_log
+            if self.deferred_shading:
+                kw["deferred_color"] = True
+            if self.flash:
+                # the JAX package's single-cascade flash bundle: deferred
+                # shading, coarse init, vector 16-sample rounds, a 24-step
+                # advance so silhouette-grazing rays walk clear of the
+                # baked grid's dilated shell, no per-sample occupancy gate
+                # (the bake fidelity probe turns it back on where needed)
+                kw.update(deferred_color=True, lowres_factor=8,
+                          advance_iters=24, vector_rounds=True,
+                          steps_per_round=16, chunk=1 << 11,
+                          vector_occ_gate=False)
         kw.update(self.march_overrides)
         return raymarch.MarchOptions(**kw)
 
     def _scene(self):
-        """Scene tensors, rebuilt when the occupancy or render aabb
-        changes (the jump grid is a dozen device ops)."""
+        """Scene tensors, rebuilt when the occupancy, the render aabb or
+        the bake changes (the jump grid is a dozen device ops)."""
         key = (self._scene_version, self.render_aabb.min.tobytes(),
                self.render_aabb.max.tobytes(),
                self.render_aabb_to_local.tobytes())
         if self._scene_cache is None or self._scene_cache[0] != key:
-            self._scene_cache = (key, raymarch.make_scene(
+            scene = raymarch.make_scene(
                 self.occ, self.render_aabb.min, self.render_aabb.max,
                 self.render_aabb_to_local, self.aabb.min, self.aabb.max,
-                self.device))
+                self.device)
+            if self._baked_sigma is not None:
+                scene["sigma"] = self._baked_sigma
+                if self._baked_feat is not None:
+                    scene["feat"] = self._baked_feat
+                # occupied mip-0 voxel centres for the flash voxel splat
+                pts = torch.nonzero(self.occ[0] > 0).float()    # (z, y, x)
+                scene["occ_pts"] = (pts.flip(-1) + 0.5) / C.NERF_GRIDSIZE
+            self._scene_cache = (key, scene)
         return self._scene_cache[1]
+
+    def bake(self, resolution: int = 256, features: bool = True,
+             feat_resolution: int = None, sigma_log: bool = True):
+        """Bake the density field (and, with features, the density MLP's
+        16-wide output) to dense grids for the fast path (ops/bake.py).
+        feat_resolution defaults to min(resolution, 256): the features vary
+        smoothly, and a 512^3 bf16 feature grid would take 4.3 GB."""
+        if feat_resolution is None:
+            feat_resolution = min(resolution, 256)
+        same = feat_resolution == resolution
+        grid, feat = bake_grids(self.net, resolution, occ=self.occ,
+                                features=features and same,
+                                log_space=sigma_log)
+        if features and not same:
+            _, feat = bake_grids(self.net, feat_resolution, occ=self.occ,
+                                 features=True)
+        self._baked_feat = feat
+        self._baked_sigma_log = sigma_log
+        self._baked_sigma = grid
+        self.reset_accumulation()
+
+    def unbake(self):
+        self._baked_feat = None
+        self._baked_sigma = None
+        self._baked_sigma_log = False
+
+    def adopt_bake(self, other: "Testbed"):
+        """Share another Testbed's baked grids (read-only tensors, a pure
+        function of the params and resolution): one bake per snapshot."""
+        self._baked_feat = other._baked_feat
+        self._baked_sigma_log = other._baked_sigma_log
+        self._baked_sigma = other._baked_sigma
+        self.reset_accumulation()
+
+    def verify_bake_fidelity(self, width: int = 160, height: int = 160,
+                             threshold_db: float = 30.0, camera=None) -> tuple:
+        """Probe the baked/flash path against the exact render on one
+        low-res frame -> (psnr_db, action). Below `threshold_db` it
+        escalates, warning at each step that fires:
+          1. re-enable the per-sample occupancy gate (vector_occ_gate),
+          2. drop flash, keep the baked sigma grid,
+          3. unbake (exact path).
+        `camera` defaults to the snapshot's first training view, else the
+        current camera. `action` is "ok" | "occ_gate" | "baked_only" |
+        "unbaked"."""
+        if camera is None:
+            xf = self.dataset.xforms
+            camera = xf[0] if len(xf) else self.camera_matrix
+        saved_cam = self.camera_matrix
+        self.camera_matrix = np.asarray(camera, np.float32)
+        saved_flash = self.flash
+        saved_overrides = dict(self.march_overrides)
+        sig, feat, sig_log = (self._baked_sigma, self._baked_feat,
+                              self._baked_sigma_log)
+        try:
+            def probe():
+                out = self.render(width, height, spp=1, linear=False)
+                return out[..., :3].astype(np.float64)
+
+            def db(a, b):
+                mse = float(np.mean((a - b) ** 2))
+                return 99.0 if mse <= 0 else 10.0 * np.log10(1.0 / mse)
+
+            self.unbake()
+            self.flash = False
+            exact = probe()
+            self._baked_feat = feat
+            self._baked_sigma_log = sig_log    # before the grid: a raw
+            self._baked_sigma = sig            # grid read as sigma is junk
+            self.flash = saved_flash
+            p = db(probe(), exact)
+            if p >= threshold_db:
+                return p, "ok"
+            if saved_flash:
+                self.march_overrides = {**saved_overrides,
+                                        "vector_occ_gate": True}
+                p_gate = db(probe(), exact)
+                if p_gate >= threshold_db:
+                    warnings.warn(
+                        f"bake fidelity probe: flash bundle scored {p:.1f} "
+                        f"dB vs the exact render (< {threshold_db:.0f} dB); "
+                        f"re-enabled the per-sample occupancy gate "
+                        f"({p_gate:.1f} dB)")
+                    saved_overrides = dict(self.march_overrides)
+                    return p_gate, "occ_gate"
+                self.march_overrides = saved_overrides
+                self.flash = saved_flash = False
+                p_baked = db(probe(), exact)
+                if p_baked >= threshold_db:
+                    warnings.warn(
+                        f"bake fidelity probe: flash scored {p:.1f} dB vs "
+                        f"the exact render; disabled flash (baked sigma + "
+                        f"per-sample network color: {p_baked:.1f} dB)")
+                    return p_baked, "baked_only"
+                p = p_baked
+            warnings.warn(
+                f"bake fidelity probe: baked render scored {p:.1f} dB vs "
+                f"the exact render (< {threshold_db:.0f} dB); unbaked, "
+                f"rendering exact")
+            self.unbake()
+            saved_flash = False
+            return p, "unbaked"
+        finally:
+            self.camera_matrix = saved_cam
+            self.flash = saved_flash
+            self.march_overrides = saved_overrides
+            self.reset_accumulation()
 
     def set_surface_buffers(self, surface_rgba, t_surface, width, height):
         """Install the mesh pass's per-pixel colour and depth
@@ -151,9 +309,17 @@ class Testbed:
         if (self._surface_rgba is not None
                 and self._surface_res == (width, height)):
             surface_rgba, t_surface = self._surface_rgba, self._surface_t
+        opts = self._march_options()
+        # the port's cameras are all plain perspective, so flash applies
+        # whenever its coarse init is on
+        if opts.use_baked_sigma:
+            self.last_render_path = ("flash" if opts.lowres_factor > 1
+                                     else "baked")
+        else:
+            self.last_render_path = "unbaked"
         frame, depth, self.last_march_epochs = raymarch.render_image_device(
-            self.net, self._scene(), self.camera_matrix, width, height,
-            self._march_options(), surface_rgba, t_surface, sample_index,
+            self.net, self._scene(), self.camera_matrix, width, height, opts,
+            surface_rgba, t_surface, sample_index,
             linear_colors=self.linear_colors)
         return frame, depth
 

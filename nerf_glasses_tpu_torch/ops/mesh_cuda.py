@@ -1,12 +1,19 @@
-"""Tile-culled mesh ray-cast: the CUDA kernel, its wrapper and its plain
-PyTorch version.
+"""Mesh ray-casts: the CUDA kernels, their wrappers and their plain
+PyTorch versions.
 
-`raycast_tiled` replaces nerf_glasses_tpu/ops/mesh_pallas.py::
-raycast_pallas_tiled. On a CUDA tensor it launches the hand-written
-kernel in csrc/mesh_raycast.cu (built with nvcc for sm_90a at first use,
-into `_build/`, keyed by a hash of the source and flags) or raises; on a
-CPU tensor it runs `raycast_tiled_reference`. There is no fallback from
-one to the other.
+- `raycast_tiled` replaces nerf_glasses_tpu/ops/mesh_pallas.py::
+  raycast_pallas_tiled (each ray against its screen tile's candidates;
+  plain version `raycast_tiled_reference`, launches counted in
+  `launches`).
+- `raycast` replaces mesh_pallas.py::raycast_pallas (each ray against all
+  triangles; plain version `raycast_reference`, launches counted in
+  `raycast_launches`).
+
+On a CUDA tensor a wrapper launches its hand-written kernel in
+csrc/mesh_raycast.cu (built with nvcc for sm_90a at first use, into
+`_build/`, keyed by a hash of the source and flags) or raises; on a CPU
+tensor it runs its plain version. There is no fallback from one to the
+other.
 """
 
 from __future__ import annotations
@@ -31,8 +38,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas=-v", "-shared",
               "-Xcompiler", "-fPIC")
 
-# Kernel launches made by raycast_tiled (CUDA tensors only).
+# Kernel launches made by raycast_tiled and by raycast (CUDA tensors only).
 launches = 0
+raycast_launches = 0
 
 _lib = None
 build_log = ""
@@ -77,6 +85,9 @@ def load_library() -> ctypes.CDLL:
     p = ctypes.c_void_p
     i = ctypes.c_int
     fn.argtypes = [p, p, p, p, p, i, i, i, p, p, p, p, p]
+    fn.restype = ctypes.c_int
+    fn = lib.nmr_raycast
+    fn.argtypes = [p, p, p, i, ctypes.c_longlong, p, p, p, p, p]
     fn.restype = ctypes.c_int
     _lib = lib
     return lib
@@ -149,6 +160,35 @@ def raycast_tiled_reference(tri_scalars, o, d, tile_lists, tile_counts,
             best_v.reshape(n))
 
 
+def raycast_reference(tri_scalars, o, d, ray_chunk: int = 1 << 16,
+                      tri_chunk: int = 256):
+    """Plain PyTorch version of the untiled kernel: every ray against
+    every triangle, in blocks of ray_chunk rays x tri_chunk triangles; the
+    first minimum in id order wins, as in the kernel's strict `<` walk."""
+    n = o.shape[0]
+    dev = o.device
+    best_t = torch.full((n,), BIG, device=dev)
+    best_i = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    best_u = torch.zeros((n,), device=dev)
+    best_v = torch.zeros((n,), device=dev)
+    for r in range(0, n, ray_chunk):
+        rs = slice(r, r + ray_chunk)
+        bt, bi, bu, bv = best_t[rs], best_i[rs], best_u[rs], best_v[rs]
+        for s in range(0, tri_scalars.shape[0], tri_chunk):
+            t, u, v, hit = _moller_trumbore(o[rs, None], d[rs, None],
+                                            tri_scalars[None, s:s + tri_chunk])
+            t = torch.where(hit, t, BIG)                      # (R, C)
+            arg = torch.argmin(t, dim=-1, keepdim=True)
+            tmin = t.gather(-1, arg)[:, 0]
+            better = tmin < bt
+            bt = torch.where(better, tmin, bt)
+            bi = torch.where(better, (arg[:, 0] + s).int(), bi)
+            bu = torch.where(better, u.gather(-1, arg)[:, 0], bu)
+            bv = torch.where(better, v.gather(-1, arg)[:, 0], bv)
+        best_t[rs], best_i[rs], best_u[rs], best_v[rs] = bt, bi, bu, bv
+    return best_t, best_i, best_u, best_v
+
+
 def _check(name, x, dtype, ndim, device):
     if x.device != device:
         raise ValueError(f"{name} is on {x.device}, expected {device}")
@@ -199,4 +239,41 @@ def raycast_tiled(tri_scalars, o, d, tile_lists, tile_counts):
         raise RuntimeError(f"mesh ray-cast kernel launch failed: "
                            f"cudaError_t {err}")
     launches += 1
+    return t, idx, u, v
+
+
+def raycast(tri_scalars, o, d):
+    """Nearest back-face-culled hit of each ray among all triangles.
+
+    tri_scalars (T, 9) f32 [v0|e1|e2] world space; o, d (N, 3) f32, any N
+    -> (t f32, idx i32, u f32, v f32), each (N,); a miss gives t = 1e16,
+    idx -1."""
+    global raycast_launches
+    if o.device.type == "cpu":
+        return raycast_reference(tri_scalars, o, d)
+    if o.device.type != "cuda":
+        raise ValueError(f"raycast: unsupported device {o.device}")
+    dev = o.device
+    _check("tri_scalars", tri_scalars, torch.float32, 2, dev)
+    _check("o", o, torch.float32, 2, dev)
+    _check("d", d, torch.float32, 2, dev)
+    if tri_scalars.shape[1] != 9 or o.shape[1] != 3 or d.shape != o.shape:
+        raise ValueError(f"raycast: bad shapes tri {tuple(tri_scalars.shape)}, "
+                         f"o {tuple(o.shape)}, d {tuple(d.shape)}")
+    lib = load_library()
+    n = o.shape[0]
+    t = torch.empty(n, dtype=torch.float32, device=dev)
+    idx = torch.empty(n, dtype=torch.int32, device=dev)
+    u = torch.empty(n, dtype=torch.float32, device=dev)
+    v = torch.empty(n, dtype=torch.float32, device=dev)
+    if n == 0:
+        return t, idx, u, v
+    err = lib.nmr_raycast(
+        tri_scalars.data_ptr(), o.data_ptr(), d.data_ptr(),
+        tri_scalars.shape[0], n, t.data_ptr(), idx.data_ptr(), u.data_ptr(),
+        v.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"mesh ray-cast kernel launch failed: "
+                           f"cudaError_t {err}")
+    raycast_launches += 1
     return t, idx, u, v

@@ -56,21 +56,28 @@ class NerfNetwork(nn.Module):
                           compute_dtype=encode_dtype)
         return mlp_apply(enc, self.density_mlp, compute_dtype=compute_dtype)
 
+    def rgb_from_features(self, feat: torch.Tensor, dir01: torch.Tensor,
+                          compute_dtype=torch.bfloat16) -> torch.Tensor:
+        """[density-MLP output (N, 16), SH(dir), pad] -> rgb_raw (N, 3):
+        the colour half of NerfNetwork::inference (nerf_network.cuh:75-135),
+        also called on features read from a baked grid (ops/bake.py)."""
+        cfg = self.config
+        sh = sh_encode(dir01, cfg.sh_degree, cfg.sh_out_padded)
+        parts = [feat.float(), sh]
+        width = feat.shape[-1] + sh.shape[-1]
+        if width < cfg.rgb_in_width:
+            parts.append(torch.zeros((feat.shape[0], cfg.rgb_in_width - width),
+                                     device=feat.device))
+        rgb_out = mlp_apply(torch.cat(parts, dim=-1), self.rgb_mlp,
+                            compute_dtype=compute_dtype)
+        return rgb_out[..., :3]
+
     def forward(self, pos01: torch.Tensor, dir01: torch.Tensor,
                 compute_dtype=torch.bfloat16):
         """-> (rgb_raw (N, 3), sigma_raw (N,)), pre-activation f32.
         Extra learnable dims, where the config has them, are zeros."""
-        cfg = self.config
         d_out = self.density_raw(pos01, compute_dtype)
-        sh = sh_encode(dir01, cfg.sh_degree, cfg.sh_out_padded)
-        parts = [d_out, sh]
-        width = d_out.shape[-1] + sh.shape[-1]
-        if width < cfg.rgb_in_width:
-            parts.append(torch.zeros((d_out.shape[0], cfg.rgb_in_width - width),
-                                     device=d_out.device))
-        rgb_out = mlp_apply(torch.cat(parts, dim=-1), self.rgb_mlp,
-                            compute_dtype=compute_dtype)
-        return rgb_out[..., :3], d_out[..., 0]
+        return self.rgb_from_features(d_out, dir01, compute_dtype), d_out[..., 0]
 
     apply_network = forward
 

@@ -130,24 +130,9 @@ def _raycast_chunked(o, d, v0, e1, e2, chunk: int = 256):
     """Brute-force back-face-culled ray-cast of every ray against every
     (world-space) triangle, `chunk` triangles at a time -> (t, tri_idx,
     uv (N, 2)); the plain reference the tiled pass is held against."""
-    n = o.shape[0]
-    tri = torch.cat([v0, e1, e2], dim=1)
-    best_t = torch.full((n,), mesh_cuda.BIG, device=o.device)
-    best_i = torch.full((n,), -1, dtype=torch.int32, device=o.device)
-    best_uv = torch.zeros((n, 2), device=o.device)
-    for s in range(0, tri.shape[0], chunk):
-        t, u, v, hit = mesh_cuda._moller_trumbore(
-            o[:, None], d[:, None], tri[None, s:s + chunk])
-        t = torch.where(hit, t, mesh_cuda.BIG)
-        arg = torch.argmin(t, dim=-1, keepdim=True)
-        tmin = t.gather(-1, arg)[:, 0]
-        better = tmin < best_t
-        best_i = torch.where(better, (arg[:, 0] + s).int(), best_i)
-        best_uv = torch.where(better[:, None],
-                              torch.cat([u.gather(-1, arg),
-                                         v.gather(-1, arg)], -1), best_uv)
-        best_t = torch.where(better, tmin, best_t)
-    return best_t, best_i, best_uv
+    t, i, u, v = mesh_cuda.raycast_reference(torch.cat([v0, e1, e2], dim=1),
+                                             o, d, tri_chunk=chunk)
+    return t, i, torch.stack([u, v], dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -277,6 +262,20 @@ def shade_hits(mesh: MeshArrays, o, d, t, tri, uv_bary, nrm_mats,
     fr = torch.where(((dot_nv > 0) & (dot_nl > 0))[:, None], fr, 0.0)
     rgb = ambient + fd + fr + emissive
     return torch.where(hit[:, None], rgb, 0.0)
+
+
+def shade_hits_compacted(mesh: MeshArrays, o, d, t, tri, uv_bary, nrm_mats,
+                         light_pos, cam_eye):
+    """shade_hits for the rays that hit a triangle only (mesh coverage is
+    a small share of the screen) -> (N, 3), zeros at misses. The JAX
+    package shades fixed-size chunks of the compacted hit ids; the port
+    shades them as one batch."""
+    rgb = torch.zeros((t.shape[0], 3), device=t.device)
+    ids = torch.nonzero(tri >= 0).squeeze(1)
+    if ids.numel():
+        rgb[ids] = shade_hits(mesh, o[ids], d[ids], t[ids], tri[ids],
+                              uv_bary[ids], nrm_mats, light_pos, cam_eye)
+    return rgb
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""The mesh ray-cast wrapper and its CUDA kernel.
+"""The mesh ray-cast wrappers and their CUDA kernels (tiled and untiled).
 
 The kernel runs only on an NVIDIA GPU with nvcc; those tests carry the
 `cuda` marker and skip elsewhere (run them on the card with
@@ -84,3 +84,63 @@ def test_kernel_rejects_bad_shapes_on_card():
         mesh_cuda.raycast_tiled(tri, o[:-1], d[:-1], lists, counts)
     with pytest.raises(ValueError):
         mesh_cuda.raycast_tiled(tri, o, d, lists.long(), counts)
+
+
+# ---------------------------------------------------------------------------
+# The untiled ray-cast (raycast, kernel nmr_raycast)
+# ---------------------------------------------------------------------------
+
+def _untiled_inputs(n_tris, n_rays, seed=1, device="cpu"):
+    tri, o, d, _, _ = _inputs(max(n_tris, 1), 1, n_rays, seed)
+    return [x.to(device).contiguous() for x in (tri[:n_tris], o, d)]
+
+
+def test_untiled_cpu_tensors_take_the_plain_version():
+    args = _untiled_inputs(40, 500)
+    before = mesh_cuda.raycast_launches
+    t, i, u, v = mesh_cuda.raycast(*args)
+    assert mesh_cuda.raycast_launches == before
+    assert (i >= 0).sum() > 0 and i.dtype == torch.int32
+    assert (t[i < 0] == mesh_cuda.BIG).all()
+    # every ray against all triangles == one tile holding every triangle
+    tile = mesh_cuda.raycast_tiled(
+        *args, torch.arange(40, dtype=torch.int32)[None],
+        torch.tensor([40], dtype=torch.int32))
+    for a, b in zip((t, i, u, v), tile):
+        assert torch.equal(a, b)
+
+
+def test_untiled_wrapper_rejects_what_the_kernel_does_not_take():
+    args = _untiled_inputs(40, 64)
+    with pytest.raises(ValueError):
+        mesh_cuda.raycast(*(a.to("meta") for a in args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3280, 65536), (700, 1000), (1, 257),
+                                   (0, 64)],
+                         ids=["glasses_size", "partial_batch",
+                              "one_triangle", "no_triangles"])
+def test_untiled_kernel_matches_plain_on_card(shape):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (run: pytest -m cuda)")
+    args = _untiled_inputs(*shape, device="cuda")
+    before = mesh_cuda.raycast_launches
+    out_k = mesh_cuda.raycast(*args)
+    torch.cuda.synchronize()
+    assert mesh_cuda.raycast_launches == before + 1
+    out_p = mesh_cuda.raycast_reference(*args)
+    assert (out_p[1] >= 0).sum() > 0 or shape[0] == 0
+    for k, p in zip(out_k, out_p):
+        assert torch.equal(k, p)
+
+
+@pytest.mark.cuda
+def test_untiled_kernel_rejects_bad_shapes_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (run: pytest -m cuda)")
+    tri, o, d = _untiled_inputs(10, 64, device="cuda")
+    with pytest.raises(ValueError):
+        mesh_cuda.raycast(tri, o[:-1], d)
+    with pytest.raises(ValueError):
+        mesh_cuda.raycast(tri[:, :8].contiguous(), o, d)

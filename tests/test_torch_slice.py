@@ -34,13 +34,14 @@ def psnr(a, b):
     return 99.0 if mse <= 0 else 10.0 * np.log10(1.0 / mse)
 
 
-def _frames(snap, meshes, overrides=FAST, setup=None, n_frames=1):
+def _frames(snap, meshes, overrides=FAST, setup=None, n_frames=1,
+            load_kw=None):
     """meshes: list of (path, t, s). -> [(jax image, torch image)]."""
     out = []
     for make in (lambda: JRenderer(W, H),
                  lambda: TRenderer(W, H, device="cpu")):
         r = make()
-        nerf = r.load_nerf(snap)
+        nerf = r.load_nerf(snap, **(load_kw or {}))
         nerf.march_overrides = dict(overrides)
         for path, t, s in meshes:
             assert r.load_mesh(path, t=t, s=s) is not None
@@ -122,9 +123,41 @@ def test_trained_head_with_quad(quad, overrides):
     assert psnr(ti[..., :3], ji[..., :3]) >= PSNR_DB
 
 
-def test_bake_is_not_ported_yet(sphere_snapshot):
-    with pytest.raises(NotImplementedError, match="item 6"):
-        TRenderer(W, H, device="cpu").load_nerf(sphere_snapshot, bake=True)
+def test_trained_head_flash_with_quad(quad):
+    """trained_head_v6 on the flash path (bake 64^3 here), placed as the
+    bench places it, two accumulated frames, float32 MLPs, no jitter."""
+    def setup(r, nerf):
+        nerf.render_aabb.min = np.array([0.1, 0.1, 0.1], np.float32)
+        nerf.render_aabb.max = np.array([0.9, 0.9, 0.9], np.float32)
+        r.orbit(0.4, -0.1, 0)
+        r.orbit(0, 0, 3.5)
+
+    (ji, jfb), (ti, tfb) = _frames(
+        TRAINED, [(quad, [0.0, 0.1, 0.22], [0.2, 0.1, 0.2])],
+        overrides={"jitter": False, "compute_dtype": "float32"},
+        setup=setup, n_frames=2,
+        load_kw=dict(bake=True, bake_resolution=64, feat_resolution=64,
+                     verify_fidelity=False))
+    assert (tfb[..., 3] > 0.5).mean() > 0.02
+    assert psnr(ti[..., :3], ji[..., :3]) >= PSNR_DB
+
+
+def test_load_nerf_bake_matches_jax(sphere_snapshot, quad):
+    """load_nerf(bake=True): bake (64^3 sigma and features here) and flash
+    on (the fidelity probe is held to the JAX package in
+    tests/test_torch_flash.py); then two hybrid frames on the flash path
+    with a quad beside the sphere."""
+    nerfs = []
+    (ji, _), (ti, tfb) = _frames(
+        sphere_snapshot, [(quad, [0.6, 0.0, 0.8], [0.35, 0.35, 0.35])],
+        setup=lambda r, nerf: nerfs.append(nerf), n_frames=2,
+        load_kw=dict(bake=True, bake_resolution=64, feat_resolution=64,
+                     verify_fidelity=False))
+    jn, tn = nerfs
+    assert jn.flash and tn.flash and tn.bake_fidelity is None
+    assert jn.last_render_path == tn.last_render_path == "flash"
+    assert (tfb[..., 3] > 0.5).mean() > 0.02
+    assert psnr(ti[..., :3], ji[..., :3]) >= PSNR_DB
 
 
 def test_testbed_render_spp(sphere_snapshot):
