@@ -38,7 +38,28 @@ procedural glasses glTF written here) + frame(), with the mesh pass at
      frame at the same pixel offset; with jitter off, n_shards=4 equals
      n_shards=1 to 1e-5;
  10. a 160x90 flash frame (bake 128, float32 MLPs) on the card and on the
-     CPU: >= 40 dB PSNR.
+     CPU: >= 40 dB PSNR;
+ 11. capture: the bench's UV-sphere head and its 24 training + 4 holdout
+     ring cameras at 400x400, rendered through the port's tiled mesh pass
+     (the tiled kernel launched);
+ 12. train from scratch (NGPConfig.native_fast(), 2048 rays x 48 samples,
+     seed 3): train_until(0.00175, max_steps=2000) must reach the loss
+     contract; steps, seconds, peak memory and the compaction gate; then a
+     fresh trainer's steps/s over 192 steps after 320 settle steps;
+ 13. save_snapshot, NerfMeshRenderer.load_nerf of that file, the 4 holdout
+     views on the exact path over white: >= 28 dB mean PSNR; the
+     density_at scan puts the hot cells on the head sphere;
+ 14. resume: Trainer.load_snapshot(trained_head_v6), 64 steps, 192 timed;
+     the compaction gate must be open; the keep-set overflow count;
+ 15. the train app's default config (16 levels x 2 features, 2^19-row
+     tables, 64-wide MLPs): 16 settle + 64 timed steps, the loss finite
+     and falling, peak memory;
+ 16. one f32 training step from the same parameters, rays and samples on
+     the card and on the CPU: loss to rtol 1e-5, every gradient array to
+     1e-4 of its max |g| (the card's own march is compared and reported);
+and a torch.profiler trace of one settled training step (top device
+operators, kernel launches, device-busy share). Each phase prints its
+seconds.
 
 Prints one JSON line with the kernels' numbers, the card's name and power
 limit, and as its last line {"ok": true, "device": {...}}. Exits non-zero
@@ -59,10 +80,20 @@ import time
 import numpy as np
 import torch
 
+from nerf_glasses_tpu_torch.config import NGPConfig
+from nerf_glasses_tpu_torch.io.dataset import ImageMetadata, NerfDataset
+from nerf_glasses_tpu_torch.io.gltf import (GltfMaterial, GltfMesh, GltfNode,
+                                            GltfPrimitive, GltfScene)
 from nerf_glasses_tpu_torch.models.renderer import NerfMeshRenderer
 from nerf_glasses_tpu_torch.ops import mesh_cuda
 from nerf_glasses_tpu_torch.ops import triangles as tri_ops
+from nerf_glasses_tpu_torch.ops.colors import linear_to_srgb, srgb_to_linear
+from nerf_glasses_tpu_torch.ops.network import NerfNetwork
 from nerf_glasses_tpu_torch.parallel.sharding import render_hybrid_sharded
+from nerf_glasses_tpu_torch.train import trainer as ttr
+from nerf_glasses_tpu_torch.utils.bbox import BoundingBox
+from nerf_glasses_tpu_torch.utils.camera import (V_LENGTH_QUIRK, look_to,
+                                                 pack_camera)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SNAPSHOT = os.path.join(ROOT, "assets", "trained", "trained_head_v6.msgpack")
@@ -74,6 +105,16 @@ PSNR_CPU_DB = 40.0
 PSNR_FLASH_VS_EXACT_DB = 30.0   # the package's own bake-probe threshold
 PSNR_SHARDED_DB = 40.0
 SHARD_ATOL = 1e-5               # tests/test_parallel.py:141
+# capture scene (bench_scene.py:28-32): 24 training + 4 holdout views
+CAP_W = 400
+CAP_TRAIN, CAP_HOLDOUT = 24, 4
+CAP_RADIUS, CAP_ELEV = 1.15, 0.18
+HEAD_RADIUS, HEAD_CENTER = 0.24, (0.0, 0.03, 0.0)
+TARGET_LOSS = 0.00175           # the reference volume/train.py contract
+CONTRACT_MAX_STEPS = 2000
+PSNR_HOLDOUT_DB = 28.0
+# "trained correctly" (SKILL.md): density > 5 only near the object
+HOT_MIN_CELLS, HOT_FAR_MAX = 20, 0.05
 
 
 # ---------------------------------------------------------------------------
@@ -188,6 +229,173 @@ def make_renderer(device, width, height, glasses, **load_kw):
     return r, nerf
 
 
+# ---------------------------------------------------------------------------
+# Capture scene: a textured UV-sphere head and a ring of cameras, built with
+# the port only (the repository's bench_scene.py, which imports the JAX
+# package)
+# ---------------------------------------------------------------------------
+
+def _checker_texture(n=64, sq=8):
+    yy, xx = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+    c = ((xx // sq) + (yy // sq)) % 2
+    r = np.where(c, 0.85, 0.15) * (0.5 + 0.5 * xx / n)
+    g = np.where(c, 0.25, 0.7) * (0.5 + 0.5 * yy / n)
+    b = np.where(c, 0.2, 0.9)
+    return np.stack([r, g, b, np.ones_like(r)], -1).astype(np.float32)
+
+
+def make_head_scene(n_lat=48, n_lon=64):
+    """UV sphere in mesh-world coordinates (NGP - 0.5), outward winding."""
+    lat = np.linspace(-0.5 * math.pi, 0.5 * math.pi, n_lat)
+    lon = np.linspace(0.0, 2.0 * math.pi, n_lon)
+    ll, tt = np.meshgrid(lon, lat)
+    unit = np.stack([np.cos(tt) * np.cos(ll), np.sin(tt),
+                     np.cos(tt) * np.sin(ll)], -1).reshape(-1, 3).astype(np.float32)
+    tan = np.stack([-np.sin(ll), np.zeros_like(ll), np.cos(ll), np.ones_like(ll)],
+                   -1).reshape(-1, 4).astype(np.float32)
+    uv = np.stack([ll / (2 * math.pi), tt / math.pi + 0.5],
+                  -1).reshape(-1, 2).astype(np.float32)
+    idx = []
+    for i in range(n_lat - 1):
+        for j in range(n_lon - 1):
+            a = i * n_lon + j
+            idx += [a, a + n_lon, a + 1, a + 1, a + n_lon, a + n_lon + 1]
+    mat = GltfMaterial(name="head", metallic_factor=0.0, roughness_factor=0.8,
+                       base_color_texture=_checker_texture())
+    prim = GltfPrimitive(positions=unit * HEAD_RADIUS
+                         + np.asarray(HEAD_CENTER, np.float32),
+                         normals=unit.copy(), tangents=tan, texcoords=uv,
+                         indices=np.asarray(idx, np.uint32), material=mat)
+    node = GltfNode()
+    node.name = "head"
+    node.mesh = GltfMesh(primitives=[prim])
+    scene = GltfScene()
+    scene.nodes = [node]
+    return scene
+
+
+def capture_cameras(n, phase=0.0):
+    """-> (packed (n, 3, 4) mesh-world cameras for the mesh pass and the
+    NeRF render, NGP training matrices (n, 3, 4), focal in pixels)."""
+    packed, xforms = [], []
+    look_at = np.array(HEAD_CENTER, np.float32)
+    for i in range(n):
+        a = 2.0 * math.pi * i / n + phase
+        eye = np.array([CAP_RADIUS * math.cos(a), CAP_ELEV,
+                        CAP_RADIUS * math.sin(a)], np.float32)
+        right, up, fwd = look_to(eye, look_at - eye, [0.0, 1.0, 0.0])
+        packed.append(pack_camera(right, up, fwd, eye, aspect=1.0))
+        xforms.append(np.stack([right, up, fwd, eye + 0.5], 1))
+    return (np.stack(packed), np.stack(xforms).astype(np.float32),
+            CAP_W / (2.0 * V_LENGTH_QUIRK))
+
+
+def render_capture(mesh, scenes, cams):
+    """Views through the tiled mesh pass -> (H, W, 4) linear premultiplied
+    float32 numpy each."""
+    xf, nm = tri_ops.instance_transforms(mesh, scenes)
+    out = []
+    for cam in cams:
+        color, _ = tri_ops.render_mesh_pass_tiled(mesh, xf, nm, cam, CAP_W, CAP_W,
+                                                  [1.0, 1.0, 1.0])
+        out.append(torch.cat([srgb_to_linear(color[..., :3]), color[..., 3:]],
+                             -1).cpu().numpy())
+    return out
+
+
+def build_capture(dev):
+    """-> (training dataset, holdout packed cameras, holdout ground truth
+    (H, W, 3) sRGB over white, kernel launches)."""
+    scenes = [make_head_scene()]
+    mesh = tri_ops.build_mesh_arrays(scenes, dev)
+    cams, xforms, focal = capture_cameras(CAP_TRAIN)
+    hcams, _, _ = capture_cameras(CAP_HOLDOUT, phase=math.pi / CAP_TRAIN)
+    mesh_cuda.launches = 0
+    images = render_capture(mesh, scenes, cams)
+    held = render_capture(mesh, scenes, hcams)
+    launches = mesh_cuda.launches
+    gts = [linear_to_srgb(torch.from_numpy(np.clip(h[..., :3] + (1.0 - h[..., 3:]),
+                                                   0.0, 1.0))).numpy()
+           for h in held]
+    ds = NerfDataset()
+    ds.n_images = CAP_TRAIN
+    ds.metadata = [ImageMetadata(resolution=(CAP_W, CAP_W),
+                                 focal_length=(focal, focal),
+                                 principal_point=(0.5, 0.5))
+                   for _ in range(CAP_TRAIN)]
+    ds.xforms = xforms
+    ds.xforms_end = xforms.copy()
+    ds.paths = [f"capture_{i}" for i in range(CAP_TRAIN)]
+    ds.images = images
+    ds.render_aabb = BoundingBox([0.13, 0.16, 0.13], [0.87, 0.9, 0.87])
+    ds.aabb_scale = 1
+    return ds, hcams, gts, launches
+
+
+def timed_steps(tr, n):
+    """steps/s of tr.train(n): host clock, ending in the loss fetch."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.train(n)
+    torch.cuda.synchronize()
+    return n / (time.perf_counter() - t0)
+
+
+def profile_step(tr):
+    """torch.profiler over one training step (not a grid-update step) ->
+    (printable table, kernel launches, device-busy us, wall us)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    if tr.step % tr.opts.grid_update_interval == 0:
+        tr.train(1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.train(1)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    by_name = {}
+    for e in kernels:
+        t, c = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    table = "\n".join(f"  {t / 1000.0:8.3f} ms {c:6d}x  {name[:110]}"
+                      for name, (t, c) in top)
+    return table, len(kernels), busy_us, wall_us
+
+
+def step_inputs(data, draws, opts):
+    """Pixels, rays, march and background of one training step from its
+    draws (aabb [0, 1], all-on occupancy: the dense first-step march)."""
+    dev = data["images"].device
+    d = {k: v.to(dev) for k, v in draws.items()}
+    occ = torch.ones((8, 128, 128, 128), dtype=torch.uint8, device=dev)
+    with torch.no_grad():
+        img, px, py, target = ttr._sample_pixels(d, data, None, 0, opts)
+        o, dd = ttr._gen_rays(data, img, px, py, False)
+        samples = ttr.march_training_samples(occ, o, dd, d["u"], opts,
+                                             torch.zeros(3, device=dev),
+                                             torch.ones(3, device=dev), 0)
+    return {"o": o, "d": dd, "target": target, "bg": d["bg"], **samples}
+
+
+def step_grads(net, inputs, opts):
+    """forward_rays + loss + autograd gradients on the device of `net`
+    from the same step inputs (phase 16) -> (loss, {name: grad})."""
+    dev = net.grid.device
+    x = {k: v.to(dev) for k, v in inputs.items()}
+    samples = {k: x[k] for k in ("t", "dt", "valid")}
+    target_rgb = x["target"][:, :3] + (1.0 - x["target"][:, 3:4]) * x["bg"]
+    pred, _, _ = ttr.forward_rays(net, samples, x["o"], x["d"], x["bg"], opts,
+                                  torch.zeros(3, device=dev),
+                                  torch.ones(3, device=dev))
+    loss = ttr._loss_fn(pred, target_rgb, opts)
+    names, params = zip(*net.named_parameters())
+    return loss.detach(), dict(zip(names, torch.autograd.grad(loss, params)))
+
+
 def psnr(a, b):
     mse = float(np.mean((np.asarray(a, np.float64) - np.asarray(b, np.float64)) ** 2))
     return math.inf if mse == 0.0 else 10.0 * math.log10(1.0 / mse)
@@ -206,12 +414,160 @@ def cuda_ms(fn, reps):
     return a.elapsed_time(b) / reps
 
 
+def training_phases(dev, tmp, lap):
+    """Phases 11-16 and the step profile: capture, train, save and render,
+    resume, the reference config, card against CPU."""
+    # 11: the capture, through the port's tiled mesh pass
+    ds, hcams, gts, cap_launches = build_capture(dev)
+    print(f"capture: {CAP_TRAIN} training + {CAP_HOLDOUT} holdout views at "
+          f"{CAP_W}x{CAP_W}, tiled kernel launches {cap_launches}, mean alpha "
+          f"{float(np.mean([im[..., 3].mean() for im in ds.images])):.3f}")
+    if cap_launches < CAP_TRAIN + CAP_HOLDOUT:
+        raise AssertionError("the capture did not launch the tiled kernel")
+    lap(11)
+
+    # 12: train from scratch to the loss contract
+    opts = ttr.TrainOptions(config=NGPConfig.native_fast())
+    torch.cuda.reset_peak_memory_stats()
+    tr = ttr.Trainer(ds, opts, seed=3, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.train_until(TARGET_LOSS, max_steps=CONTRACT_MAX_STEPS, log_every=0)
+    torch.cuda.synchronize()
+    contract_s = time.perf_counter() - t0
+    ema = float(tr.state["loss_ema"])
+    train_peak = torch.cuda.max_memory_allocated()
+    print(f"train from scratch (native_fast, {opts.rays_per_batch} rays x "
+          f"{opts.samples_per_ray} samples, seed 3): loss contract (ema < "
+          f"{TARGET_LOSS}) at step {tr.step} in {contract_s:.2f} s "
+          f"({tr.step / contract_s:.2f} steps/s), loss {tr.loss:.6f}, ema "
+          f"{ema:.6f}, peak device memory {train_peak / 2**30:.3f} GiB, "
+          f"compaction gate open {tr._compact_ready}, keep-set overflow "
+          f"(steps, samples) {tr.keep_overflow}")
+    if not (ema < TARGET_LOSS and tr.step < CONTRACT_MAX_STEPS):
+        raise AssertionError("the loss contract was not reached")
+    tr_rate = ttr.Trainer(ds, opts, seed=3, device=dev)
+    tr_rate.train(320)
+    sps_scratch = timed_steps(tr_rate, 192)
+    print(f"from-scratch steps/s (320 settle + 192 timed, host clock to the "
+          f"loss fetch): {sps_scratch:.2f}; gate open {tr_rate._compact_ready}")
+    del tr_rate
+    lap(12)
+
+    # 13: save, load through the renderer, holdout PSNR, density scan
+    snap = os.path.join(tmp, "trained.msgpack")
+    tr.save_snapshot(snap)
+    hr = NerfMeshRenderer(CAP_W, CAP_W, device=dev)
+    hnerf = hr.load_nerf(snap)
+    hnerf.background_color = np.array([1.0, 1.0, 1.0, 1.0], np.float32)
+    views = []
+    for cam in hcams:
+        hnerf.camera_matrix = np.asarray(cam, np.float32)
+        views.append(hnerf.render(CAP_W, CAP_W, spp=2, linear=False)[..., :3])
+    psnrs = [psnr(v, g) for v, g in zip(views, gts)]
+    p_hold = float(np.mean(psnrs))
+    g = np.linspace(0.05, 0.95, 16)
+    pts = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+    hot = pts[hnerf.density_at(pts.astype(np.float32)) > 5.0]
+    r_hot = np.linalg.norm(hot - (np.asarray(HEAD_CENTER) + 0.5), axis=1)
+    far = float((r_hot > HEAD_RADIUS + 0.1).mean()) if len(hot) else 1.0
+    print(f"holdout ({CAP_HOLDOUT} views, exact path, spp 2, over white): "
+          f"{p_hold:.2f} dB mean ({', '.join(f'{p:.2f}' for p in psnrs)}), "
+          f"path {hnerf.last_render_path}; density scan: {len(hot)} hot cells "
+          f"(> 5), {far:.1%} beyond r + 0.1 of the head sphere")
+    if not all(np.isfinite(v).all() for v in views):
+        raise AssertionError("holdout views are not finite")
+    if p_hold < PSNR_HOLDOUT_DB:
+        raise AssertionError(f"holdout PSNR {p_hold:.2f} dB < {PSNR_HOLDOUT_DB}")
+    if len(hot) < HOT_MIN_CELLS or far > HOT_FAR_MAX:
+        raise AssertionError("the density is not on the head sphere")
+    del hr, hnerf, views
+    lap(13)
+
+    # 14: resume the trained snapshot, settled rate, gate, overflow
+    tr_res = ttr.Trainer(ds, opts, seed=3, device=dev)
+    tr_res.load_snapshot(SNAPSHOT)
+    step0 = tr_res.step
+    tr_res.train(64)
+    sps_settled = timed_steps(tr_res, 192)
+    print(f"resumed from trained_head_v6 at step {step0}: settled steps/s "
+          f"{sps_settled:.2f} (64 + 192 timed), compaction gate open "
+          f"{tr_res._compact_ready}, keep-set overflow (steps, samples) "
+          f"{tr_res.keep_overflow} of 256 steps, loss {tr_res.loss:.6f}")
+    if not tr_res._compact_ready:
+        raise AssertionError("the compaction gate is closed on the settled scene")
+    table, n_kernels, busy_us, wall_us = profile_step(tr_res)
+    print(f"profile of one settled step (torch.profiler, CPU + CUDA): "
+          f"{n_kernels} kernel launches, device busy {busy_us / 1000.0:.2f} ms "
+          f"of {wall_us / 1000.0:.2f} ms wall ({busy_us / wall_us:.1%}); top "
+          f"device operators:\n{table}")
+    grid_ms = cuda_ms(tr_res.update_density_grid, 5)
+    print(f"density-grid refresh ({tr_res.opts.grid_samples_per_update} "
+          f"cells + occupancy rebuild): {grid_ms:.3f} ms (CUDA events)")
+    del tr_res
+    lap(14)
+
+    # 15: the train app's default config at full width
+    ref_cfg = NGPConfig.from_snapshot_config({}, 1)
+    torch.cuda.reset_peak_memory_stats()
+    tr_ref = ttr.Trainer(ds, ttr.TrainOptions(config=ref_cfg), seed=3, device=dev)
+    tr_ref.train(16)
+    sps_ref = timed_steps(tr_ref, 64)
+    ref_peak = torch.cuda.max_memory_allocated()
+    hist = np.asarray(tr_ref.loss_history)
+    first, last = float(hist[:16].mean()), float(hist[-16:].mean())
+    tab_mib = tr_ref.net.grid.numel() * 4 / 2**20
+    print(f"reference config (16 levels x 2, 2^19 rows, {tab_mib:.0f} MiB f32 "
+          f"padded table, {ref_cfg.n_grid_params * 4 / 2**20:.0f} MiB of "
+          f"params): {sps_ref:.2f} steps/s (16 + 64 timed), peak device memory "
+          f"{ref_peak / 2**30:.3f} GiB, mean loss steps 1-16 {first:.5f} -> "
+          f"65-80 {last:.5f}")
+    if not (np.isfinite(hist).all() and last < first):
+        raise AssertionError("the reference config does not train")
+    del tr_ref
+    lap(15)
+
+    # 16: one f32 step on the card against the CPU, from the same inputs
+    f32opts = dataclasses.replace(opts, compute_dtype="float32",
+                                  encode_dtype="float32",
+                                  compact_keep_fraction=0.0)
+    cpu = torch.device("cpu")
+    gen = torch.Generator(device=cpu).manual_seed(16)
+    data_cpu = ttr.prepare_dataset_arrays(ds, cpu)
+    draws = ttr.draw_step(gen, {}, data_cpu, f32opts)
+    inp_cpu = step_inputs(data_cpu, draws, f32opts)
+    inp_dev = step_inputs(tr.data, draws, f32opts)
+    valid_diff = int((inp_dev["valid"].cpu() != inp_cpu["valid"]).sum())
+    both = inp_dev["valid"].cpu() & inp_cpu["valid"]
+    t_diff = float((inp_dev["t"].cpu() - inp_cpu["t"])[both].abs().max())
+    (lc, gc), (lp, gp) = [
+        step_grads(tr.net.detached_copy().to(device).requires_grad_(True),
+                   inp_cpu, f32opts) for device in (dev, cpu)]
+    loss_rel = abs(float(lc) - float(lp)) / abs(float(lp))
+    worst = max(float((gc[k].cpu() - gp[k]).abs().max() / gp[k].abs().max())
+                for k in gp)
+    print(f"one f32 step, card vs CPU from the CPU's rays and samples: loss "
+          f"{float(lc):.8f} vs {float(lp):.8f} (rel {loss_rel:.2e}), worst "
+          f"gradient |diff| / max|g| {worst:.2e} over {len(gp)} arrays; the "
+          f"card's own march vs the CPU's: valid-mask mismatches "
+          f"{valid_diff}, max |t - t_cpu| {t_diff:.2e}")
+    if not (loss_rel <= 1e-5 and worst <= 1e-4):
+        raise AssertionError("card and CPU training steps disagree")
+    lap(16)
+
+
 def main(tmp):
     # 1
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py runs on the GPU only")
     dev = torch.device("cuda")
     t_start = time.perf_counter()
+    t_phase = [t_start]
+
+    def lap(n):
+        now = time.perf_counter()
+        print(f"[phase {n}: {now - t_phase[0]:.1f} s]")
+        t_phase[0] = now
 
     # 2
     smi = subprocess.run(
@@ -230,6 +586,7 @@ def main(tmp):
     n_tris = write_glasses_gltf(glasses)
     renderer, nerf = make_renderer(dev, W, H, glasses)
     print(f"glasses: {n_tris} triangles")
+    lap(2)
 
     # 3: kernel against plain at the main path's shapes
     f = renderer.mesh_render_size_factor
@@ -262,6 +619,7 @@ def main(tmp):
             and int(hit_p.sum()) > 0):
         raise AssertionError("kernel disagrees with its plain version")
     del kt, ki, ku, kv, pt, pi, pu, pv, inp, args
+    lap(3)
 
     # 4: the slice
     torch.cuda.reset_peak_memory_stats()
@@ -295,6 +653,7 @@ def main(tmp):
         raise AssertionError(f"only {surf_px} mesh pixels")
     if launches < 4:
         raise AssertionError(f"main path launched the kernel {launches} times")
+    lap(4)
 
     # 5: the plain ray-cast in the kernel's place, same sample index
     renderer.update_model_view_proj()
@@ -315,6 +674,7 @@ def main(tmp):
     print(f"frame with the plain ray-cast vs the kernel: {p_plain:.2f} dB")
     if p_plain < PSNR_PLAIN_DB:
         raise AssertionError("plain ray-cast frame disagrees")
+    lap(5)
 
     # 6: a small frame on the card against the CPU
     small = []
@@ -327,6 +687,7 @@ def main(tmp):
     print(f"160x90 frame, card vs CPU (float32 MLPs): {p_cpu:.2f} dB")
     if p_cpu < PSNR_CPU_DB:
         raise AssertionError("card and CPU frames disagree")
+    lap(6)
 
     # 7: the untiled kernel against its plain version, mesh rays of the
     # smoke camera at 2x (pixel centres)
@@ -368,6 +729,7 @@ def main(tmp):
             and int(hit_p.sum()) > 0):
         raise AssertionError("untiled kernel disagrees with its plain version")
     del kt, ki, ku, kv, pt, pi, pu, pv, d_all, o_all, d_sub, o_sub, ndc
+    lap(7)
 
     # 8: the flash frame through the renderer
     torch.cuda.synchronize()
@@ -426,6 +788,7 @@ def main(tmp):
     print(f"flash frame vs exact frame (same camera, sample 0): {p_flash:.2f} dB")
     if p_flash < PSNR_FLASH_VS_EXACT_DB:
         raise AssertionError("flash frame too far from the exact frame")
+    lap(8)
 
     # 9: the single-program hybrid frame with the same options and scene
     opts = fnerf._march_options()
@@ -468,6 +831,7 @@ def main(tmp):
     if shard_diff > SHARD_ATOL:
         raise AssertionError("the frame depends on the shard count")
     del sh_frame, sh_depth, f1, f4, d1, d4, scene, frenderer, fnerf, fb_flash
+    lap(9)
 
     # 10: a small flash frame on the card against the CPU
     small = []
@@ -485,6 +849,9 @@ def main(tmp):
           f"{p_cpu_flash:.2f} dB")
     if p_cpu_flash < PSNR_CPU_DB:
         raise AssertionError("card and CPU flash frames disagree")
+    lap(10)
+
+    training_phases(dev, tmp, lap)
 
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{

@@ -138,6 +138,37 @@ class NGPConfig:
         n = sum(a * b for a, b in d) + sum(a * b for a, b in r)
         return n + self.n_grid_params
 
+    def to_snapshot_config(self) -> dict:
+        """The snapshot's network config sections (the JAX package's
+        NGPConfig.to_snapshot_config, without its wide-row flag)."""
+        mlp = {"otype": "FullyFusedMLP", "activation": "ReLU",
+               "output_activation": "None"}
+        return {
+            "encoding": {
+                "otype": "HashGrid",
+                "n_levels": self.n_levels,
+                "n_features_per_level": self.n_features_per_level,
+                "log2_hashmap_size": self.log2_hashmap_size,
+                "base_resolution": self.base_resolution,
+                "per_level_scale": self.per_level_scale,
+                "n_pos_dims": 3,
+                "interpolation": "Linear",
+                **({"hash": "UniformPow2"} if self.all_hash else {}),
+            },
+            "dir_encoding": {"otype": "SphericalHarmonics",
+                             "degree": self.sh_degree},
+            "network": {**mlp, "n_neurons": self.density_neurons,
+                        "n_hidden_layers": self.density_hidden_layers},
+            "rgb_network": {**mlp, "n_neurons": self.rgb_neurons,
+                            "n_hidden_layers": self.rgb_hidden_layers},
+            "loss": {"otype": "L2"},
+            **({"n_extra_learnable_dims": self.n_extra_learnable_dims}
+               if self.n_extra_learnable_dims else {}),
+            "optimizer": {"otype": "Adam", "learning_rate": 1e-3,
+                          "beta1": 0.9, "beta2": 0.99, "epsilon": 1e-15,
+                          "l2_reg": 1e-6},
+        }
+
     @staticmethod
     def native_fast(aabb_scale: int = 1) -> "NGPConfig":
         """8 levels x 4 features, uniform 2^15-row hash tables."""

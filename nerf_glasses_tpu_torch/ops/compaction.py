@@ -9,6 +9,12 @@ from __future__ import annotations
 import torch
 
 
+def stable_partition_perm(mask: torch.Tensor) -> torch.Tensor:
+    """stable_partition_ids' permutation without its count, and without
+    a host read: a stable sort of the mask's complement."""
+    return torch.argsort((~mask).to(torch.uint8), stable=True)
+
+
 def stable_partition_ids(mask: torch.Tensor):
     """mask (N,) bool -> (perm (N,) int64, n_true int): the True ids
     ascending, then the False ids ascending."""

@@ -80,6 +80,12 @@ def corner_indices_and_weights(pos: torch.Tensor, scale: float,
     return idx, weights
 
 
+def take_rows(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """tab (S, F), idx (N, 8) -> (N, 8, F) row gather. index_select's
+    gradient is an index_add_ into the table (atomic adds on CUDA)."""
+    return tab.index_select(0, idx.reshape(-1)).view(*idx.shape, tab.shape[-1])
+
+
 def hash_encode(table: torch.Tensor, pos: torch.Tensor, config: NGPConfig,
                 compute_dtype=torch.float32) -> torch.Tensor:
     """table (L, S, F); pos (N, 3) in [0, 1] -> (N, L*F) features,
@@ -90,10 +96,29 @@ def hash_encode(table: torch.Tensor, pos: torch.Tensor, config: NGPConfig,
         idx, w = corner_indices_and_weights(
             pos, float(scales[lvl]), int(res[lvl]), int(sizes[lvl]),
             bool(dense[lvl]))
-        vals = table[lvl][idx]                             # (N, 8, F)
+        vals = take_rows(table[lvl], idx)                  # (N, 8, F)
         feats.append(torch.sum(vals.to(compute_dtype)
                                * w[..., None].to(compute_dtype), dim=1))
     return torch.cat(feats, dim=-1)
+
+
+def hash_table_init(generator: torch.Generator, config: NGPConfig,
+                    device="cpu") -> torch.Tensor:
+    """U(-1e-4, 1e-4) table (L, S, F), tcnn grid.h initialize_params.
+    Rows past a level's hashmap size are drawn too; no lookup reads them
+    and table_to_tcnn drops them."""
+    shape = (config.n_levels, padded_table_rows(config),
+             config.n_features_per_level)
+    u = torch.rand(shape, generator=generator, device=device)
+    return u * 2e-4 - 1e-4
+
+
+def table_to_tcnn(table: np.ndarray, config: NGPConfig) -> np.ndarray:
+    """(L, S, F) padded -> flat tcnn param vector (offset-table layout)."""
+    F = config.n_features_per_level
+    return np.concatenate([np.asarray(table[lvl][:size, :F]).reshape(-1)
+                           for lvl, (_off, size, _res)
+                           in enumerate(config.level_params())])
 
 
 def table_from_tcnn(flat: np.ndarray, config: NGPConfig) -> np.ndarray:

@@ -12,6 +12,7 @@ rounded operands and an f32 sum.
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
@@ -26,3 +27,15 @@ def mlp_apply(x: torch.Tensor, weights: Sequence[torch.Tensor],
         h = torch.relu(h @ w.to(compute_dtype).float().T)
         h = h.to(compute_dtype).float()
     return h @ weights[-1].to(compute_dtype).float().T
+
+
+def mlp_init(generator: torch.Generator, shapes, device="cpu"):
+    """Xavier-uniform weights, U(-s, s) with s = sqrt(6 / (n_in + n_out))
+    per (n_out, n_in) matrix (the JAX package's mlp_init, tcnn's default
+    initialisation), drawn from `generator` on `device`."""
+    ws = []
+    for n_out, n_in in shapes:
+        s = math.sqrt(6.0 / (n_in + n_out))
+        u = torch.rand((n_out, n_in), generator=generator, device=device)
+        ws.append(u * (2.0 * s) - s)
+    return ws

@@ -18,26 +18,32 @@ import torch
 from torch import nn
 
 from nerf_glasses_tpu_torch.config import NGPConfig
-from nerf_glasses_tpu_torch.ops.hashgrid import hash_encode, table_from_tcnn
-from nerf_glasses_tpu_torch.ops.mlp import mlp_apply
+from nerf_glasses_tpu_torch.ops.hashgrid import (hash_encode, hash_table_init,
+                                                 table_from_tcnn, table_to_tcnn)
+from nerf_glasses_tpu_torch.ops.mlp import mlp_apply, mlp_init
 from nerf_glasses_tpu_torch.ops.sh import sh_encode
 
 
 class NerfNetwork(nn.Module):
-    """The hash table (L, S, F) and both MLPs' weights, as buffers (the
-    port does not train yet)."""
+    """The hash table (L, S, F) and both MLPs' weights as parameters.
+
+    They are created with requires_grad off: a loaded snapshot only
+    renders. The trainer turns gradients on for its own network
+    (`requires_grad_(True)`); the render entry points run under
+    torch.no_grad(), so rendering a network that trains builds no
+    graph."""
 
     def __init__(self, config: NGPConfig, grid: torch.Tensor,
                  density_mlp, rgb_mlp):
         super().__init__()
         self.config = config
-        self.register_buffer("grid", grid)
+        self.grid = nn.Parameter(grid, requires_grad=False)
         self.n_density = len(density_mlp)
         for i, w in enumerate(density_mlp):
-            self.register_buffer(f"density_{i}", w)
+            setattr(self, f"density_{i}", nn.Parameter(w, requires_grad=False))
         self.n_rgb = len(rgb_mlp)
         for i, w in enumerate(rgb_mlp):
-            self.register_buffer(f"rgb_{i}", w)
+            setattr(self, f"rgb_{i}", nn.Parameter(w, requires_grad=False))
 
     @property
     def density_mlp(self) -> Tuple[torch.Tensor, ...]:
@@ -73,13 +79,47 @@ class NerfNetwork(nn.Module):
         return rgb_out[..., :3]
 
     def forward(self, pos01: torch.Tensor, dir01: torch.Tensor,
-                compute_dtype=torch.bfloat16):
+                compute_dtype=torch.bfloat16, encode_dtype=torch.float32):
         """-> (rgb_raw (N, 3), sigma_raw (N,)), pre-activation f32.
         Extra learnable dims, where the config has them, are zeros."""
-        d_out = self.density_raw(pos01, compute_dtype)
+        d_out = self.density_raw(pos01, compute_dtype, encode_dtype)
         return self.rgb_from_features(d_out, dir01, compute_dtype), d_out[..., 0]
 
     apply_network = forward
+
+    def detached_copy(self) -> "NerfNetwork":
+        """A copy with its own storage and gradients off (a trainer's
+        network handed to a renderer that must not see later steps)."""
+        return NerfNetwork(self.config, self.grid.detach().clone(),
+                           [w.detach().clone() for w in self.density_mlp],
+                           [w.detach().clone() for w in self.rgb_mlp])
+
+
+def init_params(config: NGPConfig, generator: torch.Generator,
+                device="cpu") -> NerfNetwork:
+    """Fresh network (the JAX package's init_params): Xavier-uniform MLP
+    weights, a U(-1e-4, 1e-4) hash table, drawn from `generator`."""
+    d_shapes, r_shapes = config.mlp_shapes()
+    density = mlp_init(generator, d_shapes, device)
+    rgb = mlp_init(generator, r_shapes, device)
+    return NerfNetwork(config, hash_table_init(generator, config, device),
+                       density, rgb)
+
+
+def pack_params(net: NerfNetwork) -> np.ndarray:
+    """NerfNetwork -> the fp16 params blob in tcnn order: density MLP,
+    rgb MLP, hash grid (NerfNetwork::set_params,
+    nerf_network.cuh:359-392)."""
+    config = net.config
+    parts = [w.detach().cpu().float().numpy().reshape(-1)
+             for w in net.density_mlp + net.rgb_mlp]
+    parts.append(table_to_tcnn(net.grid.detach().cpu().float().numpy(),
+                               config))
+    flat = np.concatenate(parts)
+    if flat.size != config.n_params:
+        raise ValueError(f"packed {flat.size} params, the config has "
+                         f"{config.n_params}")
+    return flat.astype(np.float16)
 
 
 def _network(config, grid, density, rgb, device) -> NerfNetwork:

@@ -115,6 +115,16 @@ def morton_cascades_to_linear(values_morton: np.ndarray) -> np.ndarray:
     return values_morton[:, lut].reshape(n, GRID, GRID, GRID)
 
 
+def linear_cascades_to_morton(values_linear: np.ndarray) -> np.ndarray:
+    """(n_cascades, 128, 128, 128) [z, y, x] -> (n_cascades, 128^3)
+    Morton-ordered: the inverse of morton_cascades_to_linear."""
+    lut = morton_order_lut(GRID)
+    n = values_linear.shape[0]
+    out = np.empty((n, GRID ** 3), values_linear.dtype)
+    out[:, lut] = values_linear.reshape(n, -1)
+    return out
+
+
 def build_skip_grid(occ: torch.Tensor, max_level: int = 4) -> torch.Tensor:
     """Cascade-0 empty-space jump levels -> (G, G, G) uint8: 255 where
     occupied, else the coarsest level k <= max_level whose aligned 2^k

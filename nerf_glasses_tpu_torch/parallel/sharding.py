@@ -121,11 +121,13 @@ def make_hybrid_frame_sharded(n_shards: int, tri_mesh: tri_ops.MeshArrays,
     return full
 
 
+@torch.no_grad()
 def render_hybrid_sharded(net, scene, tri_mesh, xforms, nrm_mats, camera,
                           width: int, height: int, opts, n_shards: int = 1,
                           light_pos=(1.0, 1.0, 1.0), pix_offset=(0.5, 0.5)):
     """Full hybrid frame (mesh pass + flash init + march) in n_shards row
-    bands -> (frame (H, W, 4) linear premultiplied, depth (H, W)) numpy."""
+    bands -> (frame (H, W, 4) linear premultiplied, depth (H, W)) numpy.
+    Builds no autograd graph, also for a network that trains."""
     fn = make_hybrid_frame_sharded(n_shards, tri_mesh, opts, width, height)
     frame, depth = fn(net, scene, xforms, nrm_mats, camera, light_pos,
                       pix_offset)

@@ -1,0 +1,814 @@
+"""Hash-grid NeRF training (Instant-NGP semantics) in PyTorch.
+
+Port of nerf_glasses_tpu/train/trainer.py, the default TrainOptions path:
+
+- pixels drawn uniformly over (image, pixel), or by inverse CDF over a
+  per-image error raster once past its warmup;
+- rays through an occupancy-DDA hop pass that measures each ray's
+  occupied length, then `samples_per_ray` stratified samples placed by
+  inverse CDF over the occupied segments;
+- optionally a transmittance-prefix keep set from a stop-grad density
+  forward of the live network, so that the full network (and its hash
+  table gradient) runs on a bucket of the samples only;
+- hash grid -> density MLP -> SH -> rgb MLP, front-to-back composite
+  against a random background, the tcnn loss menu, depth supervision;
+- the backward pass by autograd (the hash gathers' gradient is an index
+  scatter-add into the table), Adam with tcnn's hyperparameters and
+  ExponentialDecay, l2_reg on the MLP weights only;
+- every `grid_update_interval` steps an EMA decay plus scatter-max of
+  optical thickness into the density grid, and the occupancy rebuild.
+
+Every function that draws randomness is split into a draw from an
+explicit `torch.Generator` (`draw_pixels`, `draw_step`,
+`draw_grid_update`) and a deterministic body that takes the draws as
+tensors, so that the JAX package's own draws can be fed to the bodies.
+The step loop is plain Python with no host read per step: losses stay
+on the device and come back in one fetch per `train` call.
+
+The trainable auxiliary models of the JAX package (extrinsics,
+distortion, envmap, exposure, latent codes) are not ported:
+ROADMAP.md queue 1 item 11b. Setting any of them raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from nerf_glasses_tpu_torch import constants as C
+from nerf_glasses_tpu_torch.config import NGPConfig
+from nerf_glasses_tpu_torch.io.dataset import NerfDataset
+from nerf_glasses_tpu_torch.ops import occupancy as occ_ops
+from nerf_glasses_tpu_torch.ops.colors import linear_to_srgb
+from nerf_glasses_tpu_torch.ops.compaction import stable_partition_perm
+from nerf_glasses_tpu_torch.ops.network import (NerfNetwork,
+                                                apply_density_activation,
+                                                apply_rgb_activation,
+                                                init_params)
+from nerf_glasses_tpu_torch.utils.bbox import BoundingBox, ray_intersect_aabb
+
+G = C.NERF_GRIDSIZE
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainOptions:
+    """The JAX package's TrainOptions: same fields, same defaults (see
+    the comments there for each field's measured reason)."""
+    config: NGPConfig
+    rays_per_batch: int = 1 << 11
+    samples_per_ray: int = 48
+    march_hops: int = 128
+    learning_rate: float = 1e-3
+    beta1: float = 0.9
+    beta2: float = 0.99
+    eps: float = 1e-15
+    l2_reg: float = 1e-6
+    lr_decay: float = 1.0
+    lr_decay_start: int = 0
+    lr_decay_interval: int = 1000
+    loss_type: str = "l2"
+    huber_delta: float = 0.1
+    random_bg: bool = True
+    density_grid_decay: float = 0.95
+    grid_update_interval: int = 16
+    grid_samples_per_update: int = 1 << 18
+    cone_angle: float = 0.0
+    compute_dtype: str = "bfloat16"
+    # hash-encode trilinear-sum dtype of the training network evals and
+    # of the density-grid refresh (tcnn tables are fp16)
+    encode_dtype: str = "bfloat16"
+    # iterative OpenCV undistortion of training rays (turned on by the
+    # Trainer when the dataset carries k1/k2/p1/p2)
+    apply_lens_distortion: bool = False
+    # trainable auxiliary models: not ported (ROADMAP.md item 11b)
+    optimize_extrinsics: bool = False
+    extrinsics_lr: float = 1e-4
+    extrinsics_l2_reg: float = 1e-3
+    optimize_distortion: bool = False
+    distortion_resolution: int = 32
+    distortion_lr: float = 1e-4
+    train_envmap: bool = False
+    envmap_resolution: tuple = (32, 64)
+    envmap_lr: float = 1e-2
+    extra_dims_lr: float = 1e-3
+    # error-map importance sampling after a uniform warmup
+    sample_error_map: bool = True
+    error_map_resolution: int = 32
+    error_map_warmup: int = 256
+    error_map_beta: float = 0.1
+    error_map_floor: float = 0.2
+    optimize_exposure: bool = False
+    exposure_lr: float = 1e-3
+    # -1 = 1.0 when the dataset carries depth images, else off
+    depth_supervision_lambda: float = -1.0
+    # transmittance-prefix sample compaction (0 = off) and its gate
+    compact_keep_fraction: float = 1.0 / 3.0
+    compact_T_eps: float = 1e-5
+    compact_occ_frac_gate: float = 0.2
+
+    @property
+    def cdtype(self):
+        return torch.bfloat16 if self.compute_dtype == "bfloat16" \
+            else torch.float32
+
+    @property
+    def edtype(self):
+        return torch.bfloat16 if self.encode_dtype == "bfloat16" \
+            else torch.float32
+
+
+_AUX_FIELDS = ("optimize_extrinsics", "optimize_distortion", "train_envmap",
+               "optimize_exposure")
+
+
+def check_ported(opts: TrainOptions):
+    """Raise on the options whose models the port does not train yet."""
+    on = [f for f in _AUX_FIELDS if getattr(opts, f)]
+    if opts.config.n_extra_learnable_dims:
+        on.append("config.n_extra_learnable_dims")
+    if on:
+        raise NotImplementedError(
+            f"{', '.join(on)}: the trainable auxiliary models are not "
+            f"ported yet (ROADMAP.md queue 1 item 11b)")
+
+
+def adam_init(net: NerfNetwork):
+    return {k: {n: torch.zeros_like(p) for n, p in net.named_parameters()}
+            for k in ("m", "v")}
+
+
+def make_train_state(opts: TrainOptions, aabb_min, aabb_max,
+                     n_images: int, generator: torch.Generator,
+                     device="cpu") -> Dict[str, object]:
+    """Fresh training state: a network drawn from `generator` with
+    gradients on, zero Adam moments, a zero density grid and an all-on
+    occupancy (warmup), the error raster, the loss EMA and the keep-set
+    overflow counters, all tensors on `device`."""
+    dev = torch.device(device)
+    net = init_params(opts.config, generator, dev).requires_grad_(True)
+    n_casc = opts.config.max_cascade + 1
+    state = {
+        "net": net,
+        "opt": adam_init(net),
+        "step": 0,
+        "density_grid": torch.zeros((n_casc, G, G, G), device=dev),
+        "occ": torch.ones((C.NERF_CASCADES, G, G, G), dtype=torch.uint8,
+                          device=dev),
+        "aabb_min": torch.as_tensor(np.asarray(aabb_min, np.float32),
+                                    device=dev),
+        "aabb_max": torch.as_tensor(np.asarray(aabb_max, np.float32),
+                                    device=dev),
+        "loss_ema": torch.zeros((), device=dev),
+        # compacted steps whose keep set outgrew the bucket, and the kept
+        # samples those steps dropped (the JAX package drops them silently)
+        "overflow_steps": torch.zeros((), dtype=torch.int64, device=dev),
+        "overflow_samples": torch.zeros((), dtype=torch.int64, device=dev),
+    }
+    if opts.sample_error_map and n_images > 0:
+        R = opts.error_map_resolution
+        state["error_map"] = torch.ones((n_images, R, R), device=dev)
+    return state
+
+
+def prepare_dataset_arrays(ds: NerfDataset, device="cpu"
+                           ) -> Dict[str, torch.Tensor]:
+    """Stack the dataset's images and cameras into tensors on `device`.
+
+    LDR images are supervised in sRGB (upstream's set_image converts, and
+    the renderer's shade step treats the MLP's colour as sRGB): linear
+    premultiplied -> unpremultiply -> sRGB -> premultiply. HDR datasets
+    stay linear."""
+    if ds.images is None or len(ds.images) != ds.n_images:
+        raise ValueError("the dataset carries no training images")
+    images = np.stack(ds.images).astype(np.float32)   # (N, H, W, 4)
+    if not ds.is_hdr:
+        a = images[..., 3:4]
+        rgb = np.divide(images[..., :3], a, out=np.zeros_like(images[..., :3]),
+                        where=a > 1e-8)
+        rgb = linear_to_srgb(torch.from_numpy(np.clip(rgb, 0.0, 1.0))).numpy()
+        images = np.concatenate([rgb * a, a], axis=-1)
+    h, w = images.shape[1:3]
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    out = {}
+    depths = ds.depth_images
+    if depths is not None and any(d is not None for d in depths):
+        out["depths"] = t(np.stack([np.zeros((h, w), np.float32) if d is None
+                                    else np.asarray(d, np.float32)
+                                    for d in depths]))
+    md = ds.metadata
+    return {
+        **out,
+        "images": t(images),
+        "xforms": t(ds.xforms),
+        "fx": t([m.focal_length[0] for m in md]),
+        "fy": t([m.focal_length[1] for m in md]),
+        "cx": t([m.principal_point[0] for m in md]) * w,
+        "cy": t([m.principal_point[1] for m in md]) * h,
+        "dist": t([m.lens_params[:4] if m.lens_mode == "opencv"
+                   else (0.0, 0.0, 0.0, 0.0) for m in md]),
+    }
+
+
+def dataset_has_distortion(ds: NerfDataset) -> bool:
+    return any(m.lens_mode == "opencv" and any(m.lens_params[:4])
+               for m in ds.metadata)
+
+
+# ---------------------------------------------------------------------------
+# Draws
+# ---------------------------------------------------------------------------
+
+def draw_pixels(gen: torch.Generator, n_rays: int, n_img: int, h: int,
+                w: int, error_map: bool, device) -> Dict[str, torch.Tensor]:
+    """The pixel sampler's draws: uniform (img, px, py) and, with an
+    error map, the inverse-CDF uniform `u_cdf` and sub-cell (ux, uy)."""
+    def ri(hi):
+        return torch.randint(0, hi, (n_rays,), generator=gen, device=device)
+
+    d = {"img": ri(n_img), "px": ri(w), "py": ri(h)}
+    if error_map:
+        for k in ("u_cdf", "ux", "uy"):
+            d[k] = torch.rand((n_rays,), generator=gen, device=device)
+    return d
+
+
+def draw_step(gen: torch.Generator, state, data, opts: TrainOptions):
+    """All draws of one training step: pixels, the stratified sample
+    offsets `u` (S, B) and the random background `bg` (B, 3)."""
+    n_img, h, w = data["images"].shape[:3]
+    B, S = opts.rays_per_batch, opts.samples_per_ray
+    dev = data["images"].device
+    d = draw_pixels(gen, B, n_img, h, w, "error_map" in state, dev)
+    d["u"] = torch.rand((S, B), generator=gen, device=dev)
+    if opts.random_bg:
+        d["bg"] = torch.rand((B, 3), generator=gen, device=dev)
+    return d
+
+
+def draw_grid_update(gen: torch.Generator, n: int, n_casc: int, device):
+    """The density-grid refresh's draws: cascade (n,), cell (n, 3) and
+    jitter (n, 3)."""
+    return {"casc": torch.randint(0, n_casc, (n,), generator=gen,
+                                  device=device),
+            "cell": torch.randint(0, G, (n, 3), generator=gen, device=device),
+            "jitter": torch.rand((n, 3), generator=gen, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# Ray sampling and marching
+# ---------------------------------------------------------------------------
+
+def _sample_pixels(draws, data, error_map=None, step: int = 0,
+                   opts: TrainOptions = None):
+    """-> (img (B,), px (B,), py (B,), target rgba (B, 4)). With an error
+    map and `step` past its warmup, pixels come by inverse CDF over the
+    flat (image, cell) raster plus a uniform floor; else uniformly."""
+    images = data["images"]
+    h, w = images.shape[1:3]
+    img, px, py = draws["img"], draws["px"], draws["py"]
+    if error_map is not None and step >= opts.error_map_warmup:
+        N, Rh, Rw = error_map.shape
+        wts = error_map.reshape(-1)
+        wts = wts + opts.error_map_floor * (torch.mean(wts) + 1e-12)
+        cdf = torch.cumsum(wts, 0)
+        r = draws["u_cdf"] * cdf[-1]
+        idx = torch.clamp(torch.searchsorted(cdf, r, right=True),
+                          0, N * Rh * Rw - 1)
+        img = idx // (Rh * Rw)
+        rest = idx % (Rh * Rw)
+        cy, cx = rest // Rw, rest % Rw
+        px = torch.clamp(((cx + draws["ux"]) * (w / Rw)).long(), max=w - 1)
+        py = torch.clamp(((cy + draws["uy"]) * (h / Rh)).long(), max=h - 1)
+    return img, px, py, images[img, py, px]
+
+
+def _error_map_accum(error_map, img, px, py, per_ray_err, w: int, h: int):
+    """Per-batch (sum, count) rasters of per-ray error at the map's
+    resolution."""
+    N, Rh, Rw = error_map.shape
+    cx = torch.clamp((px * Rw) // w, 0, Rw - 1)
+    cy = torch.clamp((py * Rh) // h, 0, Rh - 1)
+    sum_g = torch.zeros_like(error_map).index_put_(
+        (img, cy, cx), per_ray_err, accumulate=True)
+    cnt_g = torch.zeros_like(error_map).index_put_(
+        (img, cy, cx), torch.ones_like(per_ray_err), accumulate=True)
+    return sum_g, cnt_g
+
+
+def _error_map_apply(error_map, sum_g, cnt_g, beta: float):
+    mean = sum_g / torch.clamp(cnt_g, min=1.0)
+    return torch.where(cnt_g > 0, (1.0 - beta) * error_map + beta * mean,
+                       error_map)
+
+
+def _gen_rays(data, img, px, py, apply_lens_distortion: bool):
+    """Pixel indices -> world rays (o (B, 3), unit d (B, 3)), with the
+    iterative OpenCV undistortion when asked."""
+    fx = data["fx"][img]
+    fy = data["fy"][img]
+    xd = (px + 0.5 - data["cx"][img]) / fx
+    yd = (py + 0.5 - data["cy"][img]) / fy
+    if apply_lens_distortion:
+        kk = data["dist"][img]
+        xu, yu = xd, yd
+        for _ in range(10):
+            r2 = xu * xu + yu * yu
+            radial = 1.0 + r2 * (kk[:, 0] + kk[:, 1] * r2)
+            dx = 2 * kk[:, 2] * xu * yu + kk[:, 3] * (r2 + 2 * xu * xu)
+            dy = kk[:, 2] * (r2 + 2 * yu * yu) + 2 * kk[:, 3] * xu * yu
+            xu = (xd - dx) / radial
+            yu = (yd - dy) / radial
+        xd, yd = xu, yu
+    dirs = torch.stack([xd, yd, torch.ones_like(xd)], dim=-1)
+    xf = data["xforms"][img]                           # (B, 3, 4)
+    d = torch.einsum("bij,bj->bi", xf[:, :, :3], dirs)
+    d = d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)
+    return xf[:, :, 3], d
+
+
+def march_training_samples(occ, o, d, u, opts: TrainOptions, aabb_min,
+                           aabb_max, max_cascade: int):
+    """Occupancy-compacted stratified training samples (no gradient).
+    -> dict(t (S, B), dt (S, B), valid (S, B)); `u` (S, B) uniform.
+
+    Pass 1 hops each ray through the occupancy grid and records the
+    occupied segments; pass 2 places S stratified samples by inverse CDF
+    over the occupied length, so the budget always covers the ray's
+    whole occupied depth (the JAX package's docstring has the failure a
+    fixed-dt march ran into)."""
+    B = o.shape[0]
+    S = opts.samples_per_ray
+    H = opts.march_hops
+    idir = 1.0 / d
+    tmin, tmax = ray_intersect_aabb(o, d, aabb_min, aabb_max)
+    t0 = torch.clamp(tmin, min=0.0) + 1e-6
+    span = torch.clamp(tmax - t0, min=0.0)
+    # fine enough to resolve mip-0 voxels, coarse enough that H hops
+    # cross the whole aabb while it is fully occupied
+    stride = torch.clamp(span / H, min=1.0 / G)
+    t = t0
+    starts, segs = [], []
+    for _ in range(H):
+        alive = t < tmax
+        pos = o + d * t[:, None]
+        dt = occ_ops.calc_dt(t, opts.cone_angle)
+        mip = occ_ops.mip_from_dt(dt, pos, max_cascade)
+        occp = occ_ops.occupied_at(occ, pos, mip) & alive
+        res = torch.bitwise_right_shift(torch.full_like(mip, G), mip).float()
+        t_skip = occ_ops.advance_to_next_voxel(t, opts.cone_angle, pos, d,
+                                               idir, res)
+        seg = torch.where(occp, torch.minimum(stride, tmax - t), 0.0)
+        t_next = torch.where(occp, t + seg, torch.maximum(t_skip, t + 1e-6))
+        starts.append(t)
+        segs.append(seg)
+        t = torch.where(alive, t_next, t)
+    t_start = torch.stack(starts)                     # (H, B)
+    seg = torch.stack(segs)
+    cum = torch.cumsum(seg, 0)                        # inclusive segment ends
+    locc = cum[-1]                                    # occupied length
+    dt_eff = torch.where(locc > 0, locc / S, 1.0)
+    s = (torch.arange(S, device=o.device)[:, None] + u) * dt_eff   # (S, B)
+    h_idx = torch.searchsorted(cum.T.contiguous(), s.T.contiguous(),
+                               right=True).T
+    h_idx = torch.clamp(h_idx, max=H - 1)
+    cum_ex = cum - seg                                # exclusive starts
+    t_s = (torch.gather(t_start, 0, h_idx)
+           + (s - torch.gather(cum_ex, 0, h_idx)))
+    valid = s < locc[None, :]
+    return {"t": t_s, "dt": torch.where(valid, dt_eff[None].expand(S, B), 0.0),
+            "valid": valid}
+
+
+def compact_bucket(n_samples: int, fraction: float) -> int:
+    """Compacted batch size: `fraction` of the dense sample count, rounded
+    up to 2048, capped at dense."""
+    b = int(np.ceil(n_samples * fraction / 2048.0)) * 2048
+    return min(max(b, 2048), n_samples)
+
+
+def _pos01(samples, o, d, aabb_min, aabb_max):
+    pos = o[None] + d[None] * samples["t"][..., None]           # (S, B, 3)
+    pos01 = (pos - aabb_min) / (aabb_max - aabb_min)
+    return torch.where(samples["valid"][..., None], pos01, 0.5)
+
+
+def compact_sample_sel(state, data, img, px, py, samples,
+                       opts: TrainOptions):
+    """Transmittance-prefix keep set and compaction ids, from a stop-grad
+    density forward of the live network (no SH, no colour MLP).
+
+    -> (sel (bucket,) flat sample ids, keep (S, B) bool, n_keep int64
+    tensor). The kept samples come first in sel, in order; when n_keep
+    exceeds the bucket the deepest kept samples drop (the trainer counts
+    that), and when it falls short sel's tail holds dead ids."""
+    S, B = samples["dt"].shape
+    with torch.no_grad():
+        o, d = _gen_rays(data, img, px, py, opts.apply_lens_distortion)
+        pos01 = _pos01(samples, o, d, state["aabb_min"], state["aabb_max"])
+        raw = state["net"].density_raw(pos01.reshape(-1, 3), opts.cdtype,
+                                       opts.edtype)[:, 0]
+        sigma = apply_density_activation(raw.reshape(S, B),
+                                         opts.config.density_activation)
+        alpha = torch.where(samples["valid"],
+                            1.0 - torch.exp(-sigma * samples["dt"]), 0.0)
+        T_ex = _exclusive_cumprod(1.0 - alpha)
+        keep = samples["valid"] & (T_ex > opts.compact_T_eps)
+        perm = stable_partition_perm(keep.reshape(-1))
+        bucket = compact_bucket(S * B, opts.compact_keep_fraction)
+        return perm[:bucket], keep, keep.sum()
+
+
+def _exclusive_cumprod(x):
+    """(S, B) -> exclusive product over axis 0 (first row ones)."""
+    return torch.cat([torch.ones_like(x[:1]), torch.cumprod(x, 0)[:-1]], 0)
+
+
+def forward_rays(net: NerfNetwork, samples, o, d, bg, opts: TrainOptions,
+                 aabb_min, aabb_max, sel=None, keep=None):
+    """Network eval + composite -> (rgb (B, 3) over bg, acc (B,), depth
+    (B,)). With sel/keep (compact_sample_sel) the network runs only on
+    the `sel` samples; the others composite with zero alpha."""
+    cfg = opts.config
+    S, B = samples["dt"].shape
+    n = S * B
+    pos01 = _pos01(samples, o, d, aabb_min, aabb_max).reshape(n, 3)
+    dir01 = ((d + 1.0) * 0.5)[None].expand(S, B, 3).reshape(n, 3)
+    valid = samples["valid"]
+    if sel is not None:
+        rgb_c, sigma_c = net(pos01[sel], dir01[sel], opts.cdtype, opts.edtype)
+        sigma_raw = torch.zeros((n,), device=o.device).index_copy(0, sel,
+                                                                  sigma_c)
+        rgb_raw = torch.zeros((n, 3), device=o.device).index_copy(0, sel,
+                                                                  rgb_c)
+        evaluated = torch.zeros((n,), dtype=torch.bool,
+                                device=o.device).index_copy(
+            0, sel, keep.reshape(-1)[sel])
+        valid = valid & evaluated.reshape(S, B)
+    else:
+        rgb_raw, sigma_raw = net(pos01, dir01, opts.cdtype, opts.edtype)
+    rgb = apply_rgb_activation(rgb_raw.reshape(S, B, 3), cfg.rgb_activation)
+    sigma = apply_density_activation(sigma_raw.reshape(S, B),
+                                     cfg.density_activation)
+    alpha = torch.where(valid, 1.0 - torch.exp(-sigma * samples["dt"]), 0.0)
+    w = alpha * _exclusive_cumprod(1.0 - alpha)                 # (S, B)
+    rgb_ray = torch.sum(w[..., None] * rgb, dim=0)
+    acc = torch.sum(w, dim=0)
+    depth_ray = torch.sum(w * samples["t"], dim=0)
+    return rgb_ray + (1.0 - acc)[:, None] * bg, acc, depth_ray
+
+
+def _loss_fn(pred, target, opts: TrainOptions):
+    """tcnn's loss menu (L2, L1, relative L2, MAPE, SMAPE, log-L1,
+    Huber), as the snapshot's loss config selects it."""
+    diff = pred - target
+    lt = opts.loss_type
+    if lt == "l2":
+        return torch.mean(diff * diff)
+    if lt == "l1":
+        return torch.mean(torch.abs(diff))
+    if lt == "relative_l2":
+        return torch.mean(diff * diff / (pred * pred + 1e-2))
+    if lt == "mape":
+        return torch.mean(torch.abs(diff) / (torch.abs(target) + 1e-2))
+    if lt == "smape":
+        return torch.mean(2.0 * torch.abs(diff)
+                          / (torch.abs(target) + torch.abs(pred) + 1e-2))
+    if lt == "log_l1":
+        return torch.mean(torch.log(1.0 + torch.abs(diff)))
+    if lt == "huber":
+        return torch.mean(_huber(diff, opts.huber_delta))
+    raise ValueError(lt)
+
+
+def _huber(diff, delta: float):
+    a = torch.abs(diff)
+    return torch.where(a <= delta, 0.5 * diff * diff / delta, a - 0.5 * delta)
+
+
+# ---------------------------------------------------------------------------
+# Adam (tcnn hyperparameters)
+# ---------------------------------------------------------------------------
+
+def _learning_rate(step: int, opts: TrainOptions) -> np.float32:
+    lr = np.float32(opts.learning_rate)
+    if opts.lr_decay >= 1.0:
+        return lr
+    n = max(step - opts.lr_decay_start, 0) // opts.lr_decay_interval
+    return lr * np.float32(opts.lr_decay) ** np.float32(n)
+
+
+def adam_update(net: NerfNetwork, grads, opt, step: int, opts: TrainOptions):
+    """One Adam step on `net`'s parameters in place. The bias correction
+    and the learning rate are f32 host scalars (the step is known on the
+    host); the hash table takes no l2 regularisation."""
+    t = np.float32(step) + np.float32(1.0)
+    b1, b2 = opts.beta1, opts.beta2
+    corr = (np.sqrt(np.float32(1.0) - np.float32(b2) ** t)
+            / (np.float32(1.0) - np.float32(b1) ** t))
+    lr_corr = float(np.float32(_learning_rate(step, opts) * corr))
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            g = grads[name]
+            if name != "grid" and opts.l2_reg:
+                g = g + opts.l2_reg * p
+            m = opt["m"][name]
+            v = opt["v"][name]
+            m.copy_(b1 * m + (1 - b1) * g)
+            v.copy_(b2 * v + (1 - b2) * g * g)
+            p.sub_(lr_corr * m / (torch.sqrt(v) + opts.eps))
+
+
+# ---------------------------------------------------------------------------
+# Train step and density grid
+# ---------------------------------------------------------------------------
+
+def _loss_and_grads(state, data, img, px, py, target, samples, bg,
+                    opts: TrainOptions):
+    """-> (loss, per_ray_err, grads {param name: tensor}, n_keep or
+    None). per_ray_err is the channel-mean squared residual feeding the
+    error map."""
+    sel = keep = n_keep = None
+    if opts.compact_keep_fraction > 0.0:
+        sel, keep, n_keep = compact_sample_sel(state, data, img, px, py,
+                                               samples, opts)
+    net = state["net"]
+    o, d = _gen_rays(data, img, px, py, opts.apply_lens_distortion)
+    target_rgb = target[:, :3] + (1.0 - target[:, 3:4]) * bg
+    pred, _, pdepth = forward_rays(net, samples, o, d, bg, opts,
+                                   state["aabb_min"], state["aabb_max"],
+                                   sel=sel, keep=keep)
+    diff = pred - target_rgb
+    per_ray_err = torch.mean(diff * diff, dim=-1).detach()
+    loss = _loss_fn(pred, target_rgb, opts)
+    lam = opts.depth_supervision_lambda
+    if lam != 0.0 and "depths" in data:
+        lam = 1.0 if lam < 0.0 else lam
+        td = data["depths"][img, py, px]
+        dvalid = (td > 0.0).float()
+        hub = _huber(pdepth - td, opts.huber_delta)
+        loss = loss + lam * (torch.sum(hub * dvalid)
+                             / torch.clamp(torch.sum(dvalid), min=1.0))
+    names, params = zip(*net.named_parameters())
+    grads = torch.autograd.grad(loss, params)
+    return loss.detach(), per_ray_err, dict(zip(names, grads)), n_keep
+
+
+def _train_step_body(state, data, opts: TrainOptions, draws):
+    """One training step from its draws (draw_step); updates `state` in
+    place and returns the loss, a 0-d device tensor."""
+    step = state["step"]
+    B = opts.rays_per_batch
+    with torch.no_grad():
+        img, px, py, target = _sample_pixels(draws, data,
+                                             state.get("error_map"), step,
+                                             opts)
+        o, d = _gen_rays(data, img, px, py, opts.apply_lens_distortion)
+        samples = march_training_samples(
+            state["occ"], o, d, draws["u"], opts, state["aabb_min"],
+            state["aabb_max"], opts.config.max_cascade)
+        bg = (draws["bg"] if opts.random_bg
+              else torch.ones((B, 3), device=o.device))
+    loss, per_ray_err, grads, n_keep = _loss_and_grads(
+        state, data, img, px, py, target, samples, bg, opts)
+    with torch.no_grad():
+        adam_update(state["net"], grads, state["opt"], step, opts)
+        state["loss_ema"] = (loss if step == 0
+                             else 0.99 * state["loss_ema"] + 0.01 * loss)
+        if n_keep is not None:
+            bucket = compact_bucket(B * opts.samples_per_ray,
+                                    opts.compact_keep_fraction)
+            over = n_keep - bucket
+            state["overflow_steps"] += over > 0
+            state["overflow_samples"] += torch.clamp(over, min=0)
+        if "error_map" in state:
+            h, w = data["images"].shape[1:3]
+            sum_g, cnt_g = _error_map_accum(state["error_map"], img, px, py,
+                                            per_ray_err, w, h)
+            state["error_map"] = _error_map_apply(state["error_map"], sum_g,
+                                                  cnt_g, opts.error_map_beta)
+    state["step"] = step + 1
+    return loss
+
+
+def _update_density_grid_body(state, opts: TrainOptions, draws,
+                              rebuild_occ: bool = True):
+    """EMA decay + scatter-max of the live network's optical thickness
+    (sigma * MIN_CONE_STEPSIZE, the scale NERF_MIN_OPTICAL_THICKNESS
+    thresholds) at the drawn cells, then the occupancy rebuild; during
+    warmup (`rebuild_occ` False) the occupancy stays all on. The density
+    query uses the training encode dtype (`opts.edtype`, bf16 by
+    default), as the JAX package's refresh does. Updates `state`."""
+    cfg = opts.config
+    casc, cell, jitter = draws["casc"], draws["cell"], draws["jitter"]
+    with torch.no_grad():
+        half = torch.exp2(casc.float())[:, None] * 0.5
+        pos = ((cell + jitter) / G - 0.5) * (2.0 * half) + 0.5
+        extent = state["aabb_max"] - state["aabb_min"]
+        pos01 = torch.clamp((pos - state["aabb_min"]) / extent, 0.0, 1.0)
+        raw = state["net"].density_raw(pos01, opts.cdtype, opts.edtype)[:, 0]
+        sigma = apply_density_activation(raw, cfg.density_activation)
+        grid = state["density_grid"] * opts.density_grid_decay
+        flat_idx = ((casc * G + cell[:, 2]) * G + cell[:, 1]) * G + cell[:, 0]
+        grid = grid.reshape(-1).scatter_reduce(
+            0, flat_idx, sigma * C.MIN_CONE_STEPSIZE, reduce="amax"
+        ).reshape(grid.shape)
+        state["density_grid"] = grid
+        if rebuild_occ:
+            state["occ"] = occ_ops.build_occupancy(grid, cfg.max_cascade)
+
+
+# ---------------------------------------------------------------------------
+# Trainer
+# ---------------------------------------------------------------------------
+
+class Trainer:
+    """Trainer(dataset).train_until(...) -> save_snapshot(path). All
+    tensors live on `device`; nothing moves to the host per step."""
+
+    # upstream keeps the grid dense for its first 256 training steps
+    occ_warmup_steps: int = 256
+    # loss-graph buffer parity (testbed.cuh:561)
+    loss_history_capacity: int = 256
+    # re-check the adaptive compaction gate at this step cadence (one
+    # scalar host read per check)
+    compact_check_interval: int = 256
+
+    def __init__(self, dataset: NerfDataset, opts: TrainOptions = None,
+                 seed: int = 1337, device="cuda"):
+        if opts is None:
+            opts = TrainOptions(config=NGPConfig.from_snapshot_config(
+                {}, dataset.aabb_scale, dataset.is_hdr))
+        check_ported(opts)
+        if dataset_has_distortion(dataset) and not opts.apply_lens_distortion:
+            opts = dataclasses.replace(opts, apply_lens_distortion=True)
+        self.opts = opts
+        self.dataset = dataset
+        self.device = torch.device(device)
+        self.gen = torch.Generator(device=self.device)
+        self.gen.manual_seed(seed)
+        self.data = prepare_dataset_arrays(dataset, self.device)
+        half = 0.5 * min(1 << (C.NERF_CASCADES - 1), dataset.aabb_scale)
+        self.aabb_min = np.full(3, 0.5 - half, np.float32)
+        self.aabb_max = np.full(3, 0.5 + half, np.float32)
+        self.state = make_train_state(opts, self.aabb_min, self.aabb_max,
+                                      dataset.n_images, self.gen, self.device)
+        self.loss = float("nan")
+        self.loss_history = []
+        self._host_step = 0
+        # the adaptive compaction gate: compaction stays off during the
+        # occupancy warmup and until the occupied fraction falls under
+        # compact_occ_frac_gate, then stays on
+        self._dense_opts = (dataclasses.replace(opts, compact_keep_fraction=0.0)
+                            if opts.compact_keep_fraction > 0.0 else opts)
+        self._compact_ready = False
+        self._last_compact_check = -(1 << 30)
+
+    @property
+    def step(self) -> int:
+        return self._host_step
+
+    @property
+    def net(self) -> NerfNetwork:
+        return self.state["net"]
+
+    @property
+    def keep_overflow(self):
+        """(compacted steps whose keep set exceeded the bucket, kept
+        samples those steps dropped); one host read."""
+        return (int(self.state["overflow_steps"]),
+                int(self.state["overflow_samples"]))
+
+    def _compaction_active(self, step: int) -> bool:
+        o = self.opts
+        if o.compact_keep_fraction <= 0.0 or step < self.occ_warmup_steps:
+            return False
+        if self._compact_ready:
+            return True
+        if step - self._last_compact_check >= self.compact_check_interval:
+            self._last_compact_check = step
+            n_casc = o.config.max_cascade + 1
+            frac = float((self.state["occ"][:n_casc] > 0).float().mean())
+            if frac <= o.compact_occ_frac_gate:
+                self._compact_ready = True
+        return self._compact_ready
+
+    def _chunk_opts(self, step: int) -> TrainOptions:
+        if (self.opts.compact_keep_fraction > 0.0
+                and not self._compaction_active(step)):
+            return self._dense_opts
+        return self.opts
+
+    def update_density_grid(self, rebuild_occ: bool = True):
+        o = self.opts
+        draws = draw_grid_update(self.gen, o.grid_samples_per_update,
+                                 o.config.max_cascade + 1, self.device)
+        _update_density_grid_body(self.state, o, draws, rebuild_occ)
+
+    def train_step(self, opts: Optional[TrainOptions] = None) -> torch.Tensor:
+        opts = opts or self.opts
+        draws = draw_step(self.gen, self.state, self.data, opts)
+        return _train_step_body(self.state, self.data, opts, draws)
+
+    def train(self, n_steps: int = 1, callback=None) -> float:
+        """Advance n_steps, the density grid refreshed at the start of
+        every grid_update_interval-aligned chunk. Losses stay on the
+        device and come back in one fetch at the end; a `callback(step,
+        loss)` reads each step's loss (one host read per step)."""
+        interval = self.opts.grid_update_interval
+        losses = []
+        remaining = n_steps
+        while remaining > 0:
+            step = self._host_step
+            n = min(interval - step % interval, remaining)
+            copts = self._chunk_opts(step)
+            if step % interval == 0:
+                self.update_density_grid(
+                    rebuild_occ=step >= self.occ_warmup_steps)
+            for i in range(n):
+                loss = self.train_step(copts)
+                losses.append(loss)
+                if callback is not None:
+                    callback(step + i + 1, float(loss))
+            self._host_step += n
+            remaining -= n
+        if losses:
+            all_losses = torch.stack(losses).cpu().numpy()
+            self.loss = float(all_losses[-1])
+            self.loss_history.extend(float(v) for v in all_losses)
+            del self.loss_history[:-self.loss_history_capacity]
+        return self.loss
+
+    def train_until(self, target_loss: float = 0.00175,
+                    max_steps: int = 10000, log_every: int = 100) -> float:
+        """The reference train.py stop criteria (volume/train.py:11-12):
+        the loss EMA under target_loss after step 100, or max_steps. The
+        EMA is read once per grid-update chunk."""
+        interval = self.opts.grid_update_interval
+        while self.step < max_steps:
+            self.train(min(interval, max_steps - self.step))
+            ema = float(self.state["loss_ema"])
+            if log_every and (self.step % log_every < interval):
+                print(f"step {self.step}: loss {self.loss:.6f} "
+                      f"(ema {ema:.6f})")
+            if ema < target_loss and self.step > 100:
+                break
+        return self.loss
+
+    def to_testbed(self):
+        """A Testbed holding a copy of the current network (gradients
+        off), the density grid and the dataset's metadata."""
+        from nerf_glasses_tpu_torch.models.testbed import Testbed
+        tb = Testbed(device=self.device)
+        tb.config = self.opts.config
+        tb.net = self.net.detached_copy()
+        tb.density_grid = self.state["density_grid"].cpu().numpy()
+        tb.dataset = self.dataset
+        tb.aabb = BoundingBox(self.aabb_min, self.aabb_max)
+        tb.render_aabb = tb.aabb.copy()
+        if not self.dataset.render_aabb.is_empty():
+            tb.render_aabb = self.dataset.render_aabb.intersection(tb.aabb)
+        tb.render_aabb_to_local = self.dataset.render_aabb_to_local.copy()
+        tb.training_step = self.step
+        tb.loss = self.loss
+        tb._cone_angle = self.opts.config.cone_angle_constant
+        tb.update_occupancy()
+        return tb
+
+    def save_snapshot(self, path: str):
+        self.to_testbed().save_snapshot(path)
+
+    def load_snapshot(self, path: str):
+        """Resume from a snapshot: params, the density grid (and its
+        rebuilt occupancy), the step and the loss; Adam moments restart
+        at zero (the format carries params only). The snapshot's network
+        config must equal the Trainer's."""
+        from nerf_glasses_tpu_torch.io import snapshot as snap_io
+        from nerf_glasses_tpu_torch.ops.network import unpack_params
+        s = snap_io.load_snapshot(path)
+        if s.config != self.opts.config:
+            raise ValueError(
+                f"snapshot config {s.config} != Trainer config "
+                f"{self.opts.config}; build the Trainer with the snapshot's "
+                f"config to resume")
+        net = unpack_params(s.params_blob, s.config,
+                            self.device).requires_grad_(True)
+        st = self.state
+        st["net"] = net
+        st["opt"] = adam_init(net)
+        n_casc = self.opts.config.max_cascade + 1
+        grid = torch.as_tensor(np.asarray(s.density_grid, np.float32)[:n_casc],
+                               device=self.device)
+        st["density_grid"] = grid
+        st["occ"] = occ_ops.build_occupancy(grid, self.opts.config.max_cascade)
+        st["step"] = int(s.training_step)
+        st["loss_ema"] = torch.tensor(float(s.loss or 0.0), device=self.device)
+        self._host_step = int(s.training_step)
+        self.loss = float(s.loss or float("nan"))
+        self._compact_ready = False
+        self._last_compact_check = -(1 << 30)

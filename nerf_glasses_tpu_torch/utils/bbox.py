@@ -30,6 +30,9 @@ class BoundingBox:
     def is_empty(self) -> bool:
         return bool(np.any(self.max < self.min))
 
+    def diag(self) -> np.ndarray:
+        return self.max - self.min
+
     def intersection(self, other: "BoundingBox") -> "BoundingBox":
         return BoundingBox(np.maximum(self.min, other.min),
                            np.minimum(self.max, other.max))
