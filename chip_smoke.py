@@ -1,6 +1,12 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (sm_90a).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [DIR ...]
+
+Each DIR is another checkout of the repository (for example the parent
+commit unpacked with `git archive` into a git-ignored directory): its
+ray-cast kernels are built from its own csrc/, held against the plain
+versions and timed in turns with this tree's in phases 3 and 7. The
+smoke run itself takes no argument.
 
 Drives the port's main path, the hybrid frame, the way a user calls it:
 NerfMeshRenderer(1280, 720).load_nerf(trained snapshot) + load_mesh(a
@@ -10,10 +16,13 @@ procedural glasses glTF written here) + frame(), with the mesh pass at
   1. a CUDA device must be present;
   2. card, power limit, torch/CUDA versions; build the mesh ray-cast
      kernel from nerf_glasses_tpu_torch/csrc (timed);
-  3. the kernel against its plain PyTorch version at the main path's
-     shapes (2560x1440 rays, tile-padded to 2560x1472, binned against
-     the glasses): hit mask and ids equal, max |dt| on shared hits
-     <= 1e-6, both timed;
+  3. the tiled kernel against its plain PyTorch version at the main
+     path's shapes (2560x1440 rays, tile-padded to 2560x1472, binned
+     against the glasses) under mesh_cuda.compare_with_plain's contract
+     (hit-mask or id mismatches <= max(4, 1e-4 x hits); where ids agree
+     |dt| <= 1e-5 max(1, t), |du|, |dv| <= 1e-5), both timed; the sum
+     and histogram of the tile counts, the kernel's bound and share of
+     it, and one call's device time by operation under torch.profiler;
   4. the slice: 1 warm-up + 3 timed frames at 1280x720; the frame is
      finite, the head covers a plausible share, mesh pixels are present
      and the kernel was launched by the frames (its launch count is
@@ -24,9 +33,9 @@ procedural glasses glTF written here) + frame(), with the mesh pass at
      takes the plain ray-cast; the CPU port is held against the JAX
      package by tests/test_torch_*.py): >= 40 dB PSNR;
   7. the untiled ray-cast kernel against its plain version on the 2560x
-     1440 mesh rays of the smoke camera: every 8th row compared (hit mask
-     and ids equal, max |dt| <= 1e-6), the kernel timed on all rays, the
-     plain version on the compared rows;
+     1440 mesh rays of the smoke camera: every 8th row compared under the
+     same contract, the kernel timed on all rays (and its bound and share
+     of it), the plain version on the compared rows;
   8. the flash frame through the renderer: load_nerf(bake=True) at the
      defaults (512^3 sigma, 256^3 features, fidelity probe "ok"), 1 warm-up
      + 3 timed 720p frames on last_render_path "flash" (the tiled kernel
@@ -35,8 +44,9 @@ procedural glasses glTF written here) + frame(), with the mesh pass at
   9. the single-program hybrid frame (render_hybrid_sharded, n_shards=1)
      with that Testbed's flash options and scene: the untiled kernel
      launched, the frame finite and >= 40 dB from the renderer's flash
-     frame at the same pixel offset; with jitter off, n_shards=4 equals
-     n_shards=1 to 1e-5;
+     frame at the same pixel offset; one frame under torch.profiler
+     (device busy, the untiled kernel's share); with jitter off,
+     n_shards=4 equals n_shards=1 to 1e-5;
  10. a 160x90 flash frame (bake 128, float32 MLPs) on the card and on the
      CPU: >= 40 dB PSNR;
  11. capture: the bench's UV-sphere head and its 24 training + 4 holdout
@@ -61,7 +71,9 @@ and a torch.profiler trace of one settled training step (top device
 operators, kernel launches, device-busy share). Each phase prints its
 seconds.
 
-Prints one JSON line with the kernels' numbers, the card's name and power
+Prints one JSON line with the kernels' numbers (time, bound and share of
+it, launches per frame; no single PyTorch call computes a nearest
+ray-triangle hit, so library_ms is null), the card's name and power
 limit, and as its last line {"ok": true, "device": {...}}. Exits non-zero
 on any failure, when no CUDA device is present, and when the package is
 not beside it.
@@ -69,6 +81,7 @@ not beside it.
 
 import base64
 import dataclasses
+import importlib.util
 import json
 import math
 import os
@@ -98,8 +111,17 @@ from nerf_glasses_tpu_torch.utils.camera import (V_LENGTH_QUIRK, look_to,
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SNAPSHOT = os.path.join(ROOT, "assets", "trained", "trained_head_v6.msgpack")
 W, H = 1280, 720
-KERNEL_T_TOL = 1e-6     # kernel and plain version agree bit for bit
-                        # (-fmad=false, same operation order)
+# Least time of a kernel: the larger of its operations over the fp32
+# peak outside the tensor cores and its bytes over the memory rate
+# (NVIDIA H100 SXM data sheet, at 700 W).
+FP32_PEAK = 67e12
+HBM_RATE = 3.35e12
+# One ray x triangle test, counting an FMA as 2 as the peak does: the
+# products of the kernels' fused form (t = o - v0: 3; s = t x d: 3 mul +
+# 3 FMA; det, u*det, v*det, t*det: 4 mul + 8 FMA), with m = e2 x e1 taken
+# once per triangle. The shared-eye form (18) would need every ray to
+# start at one point, which the function does not assume.
+TEST_FLOPS = 32
 PSNR_PLAIN_DB = 50.0
 PSNR_CPU_DB = 40.0
 PSNR_FLASH_VS_EXACT_DB = 30.0   # the package's own bake-probe threshold
@@ -341,29 +363,35 @@ def timed_steps(tr, n):
     return n / (time.perf_counter() - t0)
 
 
-def profile_step(tr):
-    """torch.profiler over one training step (not a grid-update step) ->
-    (printable table, kernel launches, device-busy us, wall us)."""
+def device_profile(fn):
+    """torch.profiler over one call of fn -> (wall ms, device-busy ms,
+    {device operation: (ms, launches)})."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    if tr.step % tr.opts.grid_update_interval == 0:
-        tr.train(1)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        tr.train(1)
+        fn()
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+        wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = {}
-    for e in kernels:
-        t, c = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            t, c = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, c + 1)
+    return wall_ms, sum(t for t, _ in by_name.values()), by_name
+
+
+def profile_step(tr):
+    """torch.profiler over one training step (not a grid-update step) ->
+    (printable table, device operations, device-busy ms, wall ms)."""
+    if tr.step % tr.opts.grid_update_interval == 0:
+        tr.train(1)
+    wall_ms, busy_ms, by_name = device_profile(lambda: tr.train(1))
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-    table = "\n".join(f"  {t / 1000.0:8.3f} ms {c:6d}x  {name[:110]}"
+    table = "\n".join(f"  {t:8.3f} ms {c:6d}x  {name[:110]}"
                       for name, (t, c) in top)
-    return table, len(kernels), busy_us, wall_us
+    return table, sum(c for _, c in by_name.values()), busy_ms, wall_ms
 
 
 def step_inputs(data, draws, opts):
@@ -401,6 +429,64 @@ def psnr(a, b):
     return math.inf if mse == 0.0 else 10.0 * math.log10(1.0 / mse)
 
 
+def bound_ms(ops, nbytes):
+    """-> (least ms for ops fp32 operations and nbytes of traffic, what
+    bounds it)."""
+    t_ops, t_bytes = ops / FP32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def tiled_bound(inp):
+    """Kernel 1's least time on these inputs: a test per ray of a tile
+    and candidate; bytes: the outputs (16 B a ray), the rays of busy
+    tiles (24 B), the lists' live entries and the triangles."""
+    counts = inp["tile_counts"]
+    tile_rays = inp["o"].shape[0] // counts.shape[0]
+    total, busy = int(counts.sum()), int((counts > 0).sum())
+    return bound_ms(TEST_FLOPS * tile_rays * total,
+                    16 * inp["o"].shape[0] + 24 * tile_rays * busy
+                    + 4 * total + 36 * inp["tri_scalars"].shape[0])
+
+
+def untiled_bound(tri, n_rays):
+    """Kernel 2's least time: every ray against every triangle; bytes:
+    the rays in (24 B) and out (16 B), the triangles."""
+    return bound_ms(TEST_FLOPS * n_rays * tri.shape[0],
+                    40 * n_rays + 36 * tri.shape[0])
+
+
+def main_path_tiled_inputs(renderer, width, height):
+    """The tiled kernel's inputs of the renderer's mesh pass at
+    (width, height)."""
+    xf, _ = tri_ops.instance_transforms(renderer._mesh_arrays, renderer._meshes)
+    return tri_ops.tiled_raycast_inputs(renderer._mesh_arrays, xf,
+                                        renderer.view_projection_mat, width,
+                                        height)
+
+
+def main_path_rays(renderer, width, height):
+    """-> (o, d) (width*height, 3): the renderer camera's rays through the
+    pixel centres of a (width, height) mesh pass, row-major."""
+    f32 = dict(dtype=torch.float32, device=renderer.device)
+    cam = torch.as_tensor(renderer.view_projection_mat, **f32)
+    px = (torch.arange(width, **f32) + 0.5) / width * 2.0 - 1.0
+    py = (torch.arange(height, **f32) + 0.5) / height * 2.0 - 1.0
+    ndc = torch.stack([px[None].expand(height, width),
+                       py[:, None].expand(height, width),
+                       torch.ones((height, width), **f32)], dim=-1)
+    d = ndc @ cam[:, :3].T
+    d = (d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)).reshape(-1, 3)
+    return cam[:, 3].expand(d.shape).contiguous(), d.contiguous()
+
+
+def report(name, r):
+    return (f"{name} vs plain: {r['hits']} hits, hit-mask mismatches "
+            f"{r['mask_mismatches']}, id mismatches {r['id_mismatches']} "
+            f"(allowed {r['allowed']}), max |dt| {r['max_dt']:.3g} "
+            f"(rel {r['max_dt_rel']:.3g}), max |du| {r['max_du']:.3g}, "
+            f"max |dv| {r['max_dv']:.3g}")
+
+
 def cuda_ms(fn, reps):
     fn()
     torch.cuda.synchronize()
@@ -412,6 +498,40 @@ def cuda_ms(fn, reps):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def other_checkouts(dirs):
+    """-> [(DIR, that checkout's ops/mesh_cuda.py as a module of its own)],
+    its kernels built from its own csrc/."""
+    others = []
+    for k, path in enumerate(dirs):
+        spec = importlib.util.spec_from_file_location(
+            f"mesh_cuda_of_{k}",
+            os.path.join(path, "nerf_glasses_tpu_torch", "ops", "mesh_cuda.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        mod.load_library()
+        print(f"kernels of {path}: nvcc {mod.build_seconds:.2f} s, flags "
+              f"{' '.join(mod.NVCC_FLAGS)}\n{mod.build_log.strip()}")
+        others.append((path, mod))
+    return others
+
+
+def in_turns(others, fn_name, check_args, plain, time_args, reps):
+    """Each other checkout's kernel against the plain version's output
+    on check_args, then every version timed on time_args by CUDA events
+    in turns: the others, this tree, this tree, the others reversed."""
+    versions = others + [("this tree", mesh_cuda)]
+    for name, mod in others:
+        print(report(f"{fn_name} of {name}", mesh_cuda.compare_with_plain(
+            getattr(mod, fn_name)(*check_args), plain)))
+    times = {name: [] for name, _ in versions}
+    for name, mod in versions + versions[::-1]:
+        fn = getattr(mod, fn_name)
+        times[name].append(cuda_ms(lambda: fn(*time_args), reps))
+    print(f"{fn_name} in turns: " + "; ".join(
+        f"{name} {', '.join(f'{t:.4f}' for t in ts)} ms"
+        for name, ts in times.items()))
 
 
 def training_phases(dev, tmp, lap):
@@ -496,10 +616,10 @@ def training_phases(dev, tmp, lap):
           f"{tr_res.keep_overflow} of 256 steps, loss {tr_res.loss:.6f}")
     if not tr_res._compact_ready:
         raise AssertionError("the compaction gate is closed on the settled scene")
-    table, n_kernels, busy_us, wall_us = profile_step(tr_res)
+    table, n_kernels, busy_ms, wall_ms = profile_step(tr_res)
     print(f"profile of one settled step (torch.profiler, CPU + CUDA): "
-          f"{n_kernels} kernel launches, device busy {busy_us / 1000.0:.2f} ms "
-          f"of {wall_us / 1000.0:.2f} ms wall ({busy_us / wall_us:.1%}); top "
+          f"{n_kernels} kernel launches, device busy {busy_ms:.2f} ms "
+          f"of {wall_ms:.2f} ms wall ({busy_ms / wall_ms:.1%}); top "
           f"device operators:\n{table}")
     grid_ms = cuda_ms(tr_res.update_density_grid, 5)
     print(f"density-grid refresh ({tr_res.opts.grid_samples_per_update} "
@@ -556,7 +676,7 @@ def training_phases(dev, tmp, lap):
     lap(16)
 
 
-def main(tmp):
+def main(tmp, dirs):
     # 1
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py runs on the GPU only")
@@ -581,6 +701,7 @@ def main(tmp):
     print(f"kernel build + load: {time.perf_counter() - t0:.2f} s "
           f"(nvcc {mesh_cuda.build_seconds:.2f} s)")
     print(mesh_cuda.build_log.strip())
+    others = other_checkouts(dirs)
 
     glasses = os.path.join(tmp, "glasses.gltf")
     n_tris = write_glasses_gltf(glasses)
@@ -588,37 +709,39 @@ def main(tmp):
     print(f"glasses: {n_tris} triangles")
     lap(2)
 
-    # 3: kernel against plain at the main path's shapes
+    # 3: the tiled kernel against plain at the main path's shapes
     f = renderer.mesh_render_size_factor
-    xf, _ = tri_ops.instance_transforms(renderer._mesh_arrays, renderer._meshes)
-    inp = tri_ops.tiled_raycast_inputs(renderer._mesh_arrays, xf,
-                                       renderer.view_projection_mat, W * f, H * f)
+    inp = main_path_tiled_inputs(renderer, W * f, H * f)
     args = (inp["tri_scalars"], inp["o"], inp["d"], inp["tile_lists"],
             inp["tile_counts"])
     n_rays, n_tiles = inp["o"].shape[0], inp["tile_counts"].shape[0]
     counts = inp["tile_counts"]
-    kt, ki, ku, kv = mesh_cuda.raycast_tiled(*args)
+    busy = counts[counts > 0].cpu()
+    hist = torch.histc(busy.float(), bins=8, min=0, max=1024).int().tolist()
+    out_k = mesh_cuda.raycast_tiled(*args)
     torch.cuda.synchronize()
-    pt, pi, pu, pv = mesh_cuda.raycast_tiled_reference(*args)
+    out_p = mesh_cuda.raycast_tiled_reference(*args)
     torch.cuda.synchronize()
-    hit_k, hit_p = ki >= 0, pi >= 0
-    shared = hit_k & hit_p
-    mask_diff = int((hit_k != hit_p).sum())
-    id_diff = int((ki != pi).sum())
-    max_dt = float((kt[shared] - pt[shared]).abs().max()) if shared.any() else 0.0
-    max_duv = float(torch.maximum((ku - pu).abs(), (kv - pv).abs()).max())
-    k_ms = cuda_ms(lambda: mesh_cuda.raycast_tiled(*args), 20)
+    cmp1 = mesh_cuda.compare_with_plain(out_k, out_p)
+    k_ms = cuda_ms(lambda: mesh_cuda.raycast_tiled(*args), 50)
     p_ms = cuda_ms(lambda: mesh_cuda.raycast_tiled_reference(*args), 3)
+    b1_ms, b1_by = tiled_bound(inp)
     print(f"ray-cast: {n_rays} rays in {n_tiles} tiles ({W * f}x{H * f}, tile-padded), "
-          f"{int((counts > 0).sum())} tiles with candidates, max count "
-          f"{int(counts.max())}, {int(hit_p.sum())} hits")
-    print(f"ray-cast kernel vs plain: hit-mask mismatches {mask_diff}, id mismatches "
-          f"{id_diff}, max |dt| {max_dt:.3g}, max |du|,|dv| {max_duv:.3g}; "
-          f"kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms")
-    if not (mask_diff == 0 and id_diff == 0 and max_dt <= KERNEL_T_TOL
-            and int(hit_p.sum()) > 0):
+          f"{busy.numel()} tiles with candidates, sum of counts {int(busy.sum())}, "
+          f"max count {int(counts.max())}, busy-tile counts in bins of 128 from 0 "
+          f"{hist}")
+    print(report("tiled ray-cast kernel", cmp1))
+    print(f"tiled kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms; bound {b1_ms:.4f} ms "
+          f"({b1_by}), share of bound {b1_ms / k_ms:.1%}")
+    _, k_dev_ms, ops = device_profile(lambda: mesh_cuda.raycast_tiled(*args))
+    print(f"tiled kernel, one call under torch.profiler: device {k_dev_ms:.4f} ms "
+          + ", ".join(f"{n.replace('(anonymous namespace)::', '').split('(')[0].strip()}"
+                      f" {t:.4f}" for n, (t, _) in ops.items()))
+    if others:
+        in_turns(others, "raycast_tiled", args, out_p, args, 50)
+    if not (cmp1["ok"] and cmp1["hits"] > 0):
         raise AssertionError("kernel disagrees with its plain version")
-    del kt, ki, ku, kv, pt, pi, pu, pv, inp, args
+    del out_k, out_p, inp, args
     lap(3)
 
     # 4: the slice
@@ -691,44 +814,30 @@ def main(tmp):
 
     # 7: the untiled kernel against its plain version, mesh rays of the
     # smoke camera at 2x (pixel centres)
-    f32 = dict(dtype=torch.float32, device=dev)
-    tri_s = tri_ops.tiled_raycast_inputs(renderer._mesh_arrays, xf,
-                                         renderer.view_projection_mat,
-                                         W * f, H * f)["tri_scalars"]
-    cam = torch.as_tensor(renderer.view_projection_mat, **f32)
-    px = (torch.arange(W * f, **f32) + 0.5) / (W * f) * 2.0 - 1.0
-    py = (torch.arange(H * f, **f32) + 0.5) / (H * f) * 2.0 - 1.0
-    ndc = torch.stack([px[None].expand(H * f, W * f),
-                       py[:, None].expand(H * f, W * f),
-                       torch.ones((H * f, W * f), **f32)], dim=-1)
-    d_all = ndc @ cam[:, :3].T
-    d_all = (d_all / torch.linalg.vector_norm(d_all, dim=-1, keepdim=True))
-    d_sub = d_all[::8].reshape(-1, 3).contiguous()
-    d_all = d_all.reshape(-1, 3).contiguous()
-    o_all = cam[:, 3].expand(d_all.shape).contiguous()
+    tri_s = main_path_tiled_inputs(renderer, W * f, H * f)["tri_scalars"]
+    o_all, d_all = main_path_rays(renderer, W * f, H * f)
+    d_sub = d_all.view(H * f, W * f, 3)[::8].reshape(-1, 3).contiguous()
     o_sub = o_all[:d_sub.shape[0]]
-    kt, ki, ku, kv = mesh_cuda.raycast(tri_s, o_sub, d_sub)
+    out_k = mesh_cuda.raycast(tri_s, o_sub, d_sub)
     torch.cuda.synchronize()
-    pt, pi, pu, pv = mesh_cuda.raycast_reference(tri_s, o_sub, d_sub)
+    out_p = mesh_cuda.raycast_reference(tri_s, o_sub, d_sub)
     torch.cuda.synchronize()
-    hit_k, hit_p = ki >= 0, pi >= 0
-    shared = hit_k & hit_p
-    mask_diff2 = int((hit_k != hit_p).sum())
-    id_diff2 = int((ki != pi).sum())
-    max_dt2 = float((kt[shared] - pt[shared]).abs().max()) if shared.any() else 0.0
-    max_duv2 = float(torch.maximum((ku - pu).abs(), (kv - pv).abs()).max())
+    cmp2 = mesh_cuda.compare_with_plain(out_k, out_p)
     k2_ms = cuda_ms(lambda: mesh_cuda.raycast(tri_s, o_all, d_all), 5)
     p2_ms = cuda_ms(lambda: mesh_cuda.raycast_reference(tri_s, o_sub, d_sub), 1)
+    b2_ms, b2_by = untiled_bound(tri_s, d_all.shape[0])
     print(f"untiled ray-cast: {tri_s.shape[0]} triangles; compared on every 8th "
-          f"row, {d_sub.shape[0]} rays, {int(hit_p.sum())} hits: hit-mask "
-          f"mismatches {mask_diff2}, id mismatches {id_diff2}, max |dt| "
-          f"{max_dt2:.3g}, max |du|,|dv| {max_duv2:.3g}; kernel {k2_ms:.3f} ms "
-          f"on all {d_all.shape[0]} rays, plain {p2_ms:.1f} ms on the "
-          f"{d_sub.shape[0]} compared rays")
-    if not (mask_diff2 == 0 and id_diff2 == 0 and max_dt2 <= KERNEL_T_TOL
-            and int(hit_p.sum()) > 0):
+          f"row, {d_sub.shape[0]} rays")
+    print(report("untiled ray-cast kernel", cmp2))
+    print(f"untiled kernel {k2_ms:.3f} ms on all {d_all.shape[0]} rays, plain "
+          f"{p2_ms:.1f} ms on the {d_sub.shape[0]} compared rays; bound "
+          f"{b2_ms:.3f} ms ({b2_by}), share of bound {b2_ms / k2_ms:.1%}")
+    if not (cmp2["ok"] and cmp2["hits"] > 0):
         raise AssertionError("untiled kernel disagrees with its plain version")
-    del kt, ki, ku, kv, pt, pi, pu, pv, d_all, o_all, d_sub, o_sub, ndc
+    if others:
+        in_turns(others, "raycast", (tri_s, o_sub, d_sub), out_p,
+                 (tri_s, o_all, d_all), 5)
+    del out_k, out_p, d_all, o_all, d_sub, o_sub
     lap(7)
 
     # 8: the flash frame through the renderer
@@ -823,6 +932,12 @@ def main(tmp):
                              f"kernel {untiled_launches} times")
     if p_sh < PSNR_SHARDED_DB:
         raise AssertionError("single-program frame disagrees with the renderer")
+    sh_wall, sh_busy, sh_ops = device_profile(lambda: sharded(1, opts))
+    sh_ray = sum(t for n, (t, _) in sh_ops.items() if "raycast_kernel" in n)
+    print(f"one single-program frame under torch.profiler: "
+          f"{sum(c for _, c in sh_ops.values())} device operations, device busy "
+          f"{sh_busy:.2f} ms of {sh_wall:.2f} ms wall, of which the untiled "
+          f"ray-cast {sh_ray:.2f} ms")
     nj = dataclasses.replace(opts, jitter=False)
     f1, d1 = sharded(1, nj)
     f4, d4 = sharded(4, nj)
@@ -858,13 +973,17 @@ def main(tmp):
         "name": "raycast_tiled", "route": "cuda",
         "source": "nerf_glasses_tpu_torch/csrc/mesh_raycast.cu",
         "replaces": "nerf_glasses_tpu/ops/mesh_pallas.py:203",
-        "launches": launches, "max_abs_err": max(max_dt, max_duv),
-        "ms": k_ms, "plain_ms": p_ms}, {
+        "launches": launches, "max_abs_err": cmp1["max_abs_err"],
+        "ms": k_ms, "plain_ms": p_ms, "bound_ms": b1_ms, "bound_by": b1_by,
+        "library_ms": None, "share": b1_ms / k_ms,
+        "launches_per_frame": launches / 4}, {
         "name": "raycast", "route": "cuda",
         "source": "nerf_glasses_tpu_torch/csrc/mesh_raycast.cu",
         "replaces": "nerf_glasses_tpu/ops/mesh_pallas.py:91",
-        "launches": untiled_launches, "max_abs_err": max(max_dt2, max_duv2),
-        "ms": k2_ms, "plain_ms": p2_ms}]}))
+        "launches": untiled_launches, "max_abs_err": cmp2["max_abs_err"],
+        "ms": k2_ms, "plain_ms": p2_ms, "bound_ms": b2_ms, "bound_by": b2_by,
+        "library_ms": None, "share": b2_ms / k2_ms,
+        "launches_per_frame": untiled_launches / 4}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -873,4 +992,4 @@ def main(tmp):
 
 if __name__ == "__main__":
     with tempfile.TemporaryDirectory() as tmpdir:
-        main(tmpdir)
+        main(tmpdir, sys.argv[1:])

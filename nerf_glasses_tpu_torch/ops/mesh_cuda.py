@@ -14,12 +14,21 @@ csrc/mesh_raycast.cu (built with nvcc for sm_90a at first use, into
 `_build/`, keyed by a hash of the source and flags) or raises; on a CPU
 tensor it runs its plain version. There is no fallback from one to the
 other.
+
+Numerics: the kernels test each candidate with fused products and
+margins that follow their rounding error, and take the plain version's
+own arithmetic only for the few that pass (the head of
+csrc/mesh_raycast.cu says why). `compare_with_plain` holds a kernel's
+output to the contract: rays whose hit mask or id differ number at most
+max(4, ceil(1e-4 x hits)); where the ids agree, |dt| <= 1e-5 max(1, t)
+and |du|, |dv| <= 1e-5.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -33,10 +42,16 @@ BIG = 1e16
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SOURCE = os.path.join(_PKG, "csrc", "mesh_raycast.cu")
 _BUILD_DIR = os.path.join(_PKG, "_build")
-# -fmad=false: see the numerics note in csrc/mesh_raycast.cu.
+# The kernels spell out every rounding with intrinsics, so no flag
+# changes their results.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-Xptxas=-v", "-shared",
-              "-Xcompiler", "-fPIC")
+              "-O3", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
+
+# The kernel-vs-plain contract (compare_with_plain).
+MISMATCH_FRACTION = 1e-4
+MISMATCH_MIN = 4
+T_REL_TOL = 1e-5
+UV_TOL = 1e-5
 
 # Kernel launches made by raycast_tiled and by raycast (CUDA tensors only).
 launches = 0
@@ -81,14 +96,17 @@ def load_library() -> ctypes.CDLL:
             raise RuntimeError(f"nvcc failed on {_SOURCE}:\n{build_log}")
         os.replace(tmp, so)
     lib = ctypes.CDLL(so)
-    fn = lib.nmr_raycast_tiled
     p = ctypes.c_void_p
     i = ctypes.c_int
-    fn.argtypes = [p, p, p, p, p, i, i, i, p, p, p, p, p]
-    fn.restype = ctypes.c_int
-    fn = lib.nmr_raycast
-    fn.argtypes = [p, p, p, i, ctypes.c_longlong, p, p, p, p, p]
-    fn.restype = ctypes.c_int
+    ll = ctypes.c_longlong
+    for name, args, res in (
+            ("nmr_raycast_tiled", [p, i, p, p, p, p, i, i, i, p, p, p, p, p, p], i),
+            ("nmr_raycast_tiled_scratch", [i, i, i, i], ll),
+            ("nmr_raycast", [p, p, p, i, ll, p, p, p, p, p, p], i),
+            ("nmr_raycast_scratch", [i], ll)):
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = res
     _lib = lib
     return lib
 
@@ -118,6 +136,44 @@ def _moller_trumbore(o, d, tri):
     hit = (valid & (u >= -1e-5) & (v >= -1e-5) & (u + v <= 1.0 + 1e-5)
            & (t > 1e-4))
     return t, u, v, hit
+
+
+def pack_hit_keys(t, idx):
+    """(t f32, id i32) -> int64 keys that order as (t, then id): t's bits
+    in the high word (t > 0, so they order as integers), the id as an
+    unsigned word in the low one (a miss, id -1 with t = 1e16, is the
+    largest key). Mirrors hit_key in csrc/mesh_raycast.cu, whose tiled
+    kernel merges chunks with a 64-bit atomicMin on these keys."""
+    return ((t.contiguous().view(torch.int32).to(torch.int64) << 32)
+            | (idx.to(torch.int64) & 0xFFFFFFFF))
+
+
+def compare_with_plain(out_k, out_p) -> dict:
+    """A kernel's (t, idx, u, v) against its plain version's on the same
+    rays -> counts, worst differences and `ok` under the contract: rays
+    whose hit mask or id differ number at most max(MISMATCH_MIN,
+    ceil(MISMATCH_FRACTION x plain hits)); on rays whose ids agree,
+    |dt| <= T_REL_TOL max(1, t) and |du|, |dv| <= UV_TOL."""
+    kt, ki, ku, kv = out_k
+    pt, pi, pu, pv = out_p
+    hits = int((pi >= 0).sum())
+    agree = ki == pi
+    mask_diff = int(((ki >= 0) != (pi >= 0)).sum())
+    id_diff = int((~agree).sum())
+    allowed = max(MISMATCH_MIN, math.ceil(MISMATCH_FRACTION * hits))
+
+    def worst(x):
+        return float(x[agree].abs().max()) if bool(agree.any()) else 0.0
+
+    dt = worst(kt - pt)
+    dt_rel = worst((kt - pt) / torch.clamp(pt.abs(), min=1.0))
+    du, dv = worst(ku - pu), worst(kv - pv)
+    ok = (id_diff <= allowed and dt_rel <= T_REL_TOL and du <= UV_TOL
+          and dv <= UV_TOL)
+    return {"hits": hits, "mask_mismatches": mask_diff,
+            "id_mismatches": id_diff, "allowed": allowed, "max_dt": dt,
+            "max_dt_rel": dt_rel, "max_du": du, "max_dv": dv,
+            "max_abs_err": max(dt, du, dv), "ok": ok}
 
 
 def raycast_tiled_reference(tri_scalars, o, d, tile_lists, tile_counts,
@@ -230,11 +286,19 @@ def raycast_tiled(tri_scalars, o, d, tile_lists, tile_counts):
     idx = torch.empty(n, dtype=torch.int32, device=dev)
     u = torch.empty(n, dtype=torch.float32, device=dev)
     v = torch.empty(n, dtype=torch.float32, device=dev)
+    n_tris, list_len, tile_rays = (tri_scalars.shape[0], tile_lists.shape[1],
+                                   n // n_tiles)
+    # the packed triangles, the mesh extent, the work list and the
+    # chunk-merge keys
+    scratch = torch.empty(
+        lib.nmr_raycast_tiled_scratch(n_tris, n_tiles, list_len, tile_rays),
+        dtype=torch.uint8, device=dev)
     err = lib.nmr_raycast_tiled(
-        tri_scalars.data_ptr(), o.data_ptr(), d.data_ptr(),
-        tile_lists.data_ptr(), tile_counts.data_ptr(), tile_lists.shape[1],
-        n_tiles, n // n_tiles, t.data_ptr(), idx.data_ptr(), u.data_ptr(),
-        v.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        tri_scalars.data_ptr(), n_tris, o.data_ptr(), d.data_ptr(),
+        tile_lists.data_ptr(), tile_counts.data_ptr(), list_len,
+        n_tiles, tile_rays, t.data_ptr(), idx.data_ptr(), u.data_ptr(),
+        v.data_ptr(), scratch.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"mesh ray-cast kernel launch failed: "
                            f"cudaError_t {err}")
@@ -268,10 +332,14 @@ def raycast(tri_scalars, o, d):
     v = torch.empty(n, dtype=torch.float32, device=dev)
     if n == 0:
         return t, idx, u, v
+    n_tris = tri_scalars.shape[0]
+    # the packed triangles and the mesh extent
+    scratch = torch.empty(lib.nmr_raycast_scratch(n_tris), dtype=torch.uint8,
+                          device=dev)
     err = lib.nmr_raycast(
-        tri_scalars.data_ptr(), o.data_ptr(), d.data_ptr(),
-        tri_scalars.shape[0], n, t.data_ptr(), idx.data_ptr(), u.data_ptr(),
-        v.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        tri_scalars.data_ptr(), o.data_ptr(), d.data_ptr(), n_tris, n,
+        t.data_ptr(), idx.data_ptr(), u.data_ptr(), v.data_ptr(),
+        scratch.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"mesh ray-cast kernel launch failed: "
                            f"cudaError_t {err}")
