@@ -55,11 +55,11 @@ procedural glasses glTF written here) + frame(), with the mesh pass at
  12. train from scratch (NGPConfig.native_fast(), 2048 rays x 48 samples,
      seed 3): train_until(0.00175, max_steps=2000) must reach the loss
      contract; steps, seconds, peak memory and the compaction gate; then a
-     fresh trainer's steps/s over 192 steps after 320 settle steps;
+     fresh trainer's steps/s over 64 steps after 128 settle steps;
  13. save_snapshot, NerfMeshRenderer.load_nerf of that file, the 4 holdout
      views on the exact path over white: >= 28 dB mean PSNR; the
      density_at scan puts the hot cells on the head sphere;
- 14. resume: Trainer.load_snapshot(trained_head_v6), 64 steps, 192 timed;
+ 14. resume: Trainer.load_snapshot(trained_head_v6), 32 steps, 64 timed;
      the compaction gate must be open; the keep-set overflow count;
  15. the train app's default config (16 levels x 2 features, 2^19-row
      tables, 64-wide MLPs): 16 settle + 64 timed steps, the loss finite
@@ -68,8 +68,36 @@ procedural glasses glTF written here) + frame(), with the mesh pass at
      the card and on the CPU: loss to rtol 1e-5, every gradient array to
      1e-4 of its max |g| (the card's own march is compared and reported);
 and a torch.profiler trace of one settled training step (top device
-operators, kernel launches, device-busy share). Each phase prints its
-seconds.
+operators, kernel launches, device-busy share). Then the try-on
+application, through pynmr_torch:
+
+ 17. render_app.run at 1280x720 with an injected landmark provider
+     (ground-truth landmarks projected through the live camera) and seeded
+     reference landmarks, 16 orbit frames: the triangulated landmarks
+     match the ground truth to 5e-3, the placement equals
+     compute_glasses_placement on the ground truth to 1e-3, the tiled
+     kernel was launched once per hybrid frame (count zeroed just before,
+     read just after), the last frame is finite and has mesh pixels;
+ 18. floaties: three blobs planted in the loaded occupancy grid away from
+     the head, remove_floaties(): their cells are 0, the cleaned grid
+     equals the cleaned grid of the unplanted one, the frame after is
+     >= 40 dB from the frame before planting; the same on a bake=True
+     renderer, whose PSNR is printed (it keeps its baked sigma);
+ 19. density dump/load: the file has 8 x 128^3 bytes and loads back to an
+     equal grid; with jitter off the next frame equals the one before;
+ 20. collide: the glasses, scaled to fit over the crown, fall from above
+     the head until collide() returns True (200 calls at most): the first
+     call translates down, no vertex ends more than two cells inside its
+     column of the head, the contact vertices have alpha > 0 at rest;
+     collide_distances on the card equals the CPU port's to 1e-4, but for
+     at most 5% of the points, which differ by less than one grid cell
+     and where the earlier of the two hits is a sample whose alpha is
+     within 1e-6 of 0 on both devices (a hit is the first sample with
+     alpha > 0 in float32, one unit of roundoff decides it);
+ 21. the viewer over HTTP on a thread: the page, a 1280x720 /frame.jpg,
+     every panel endpoint, an unknown endpoint answers 500, /api/stats;
+     no tensor a handler thread made requires grad.
+Each phase prints its seconds.
 
 Prints one JSON line with the kernels' numbers (time, bound and share of
 it, launches per frame; no single PyTorch call computes a nearest
@@ -82,28 +110,38 @@ not beside it.
 import base64
 import dataclasses
 import importlib.util
+import io
 import json
 import math
 import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
 
 import numpy as np
 import torch
 
+import pynmr_torch
+from nerf_glasses_tpu_torch import constants as C
+from nerf_glasses_tpu_torch.apps import render_app, viewer_app
 from nerf_glasses_tpu_torch.config import NGPConfig
 from nerf_glasses_tpu_torch.io.dataset import ImageMetadata, NerfDataset
 from nerf_glasses_tpu_torch.io.gltf import (GltfMaterial, GltfMesh, GltfNode,
                                             GltfPrimitive, GltfScene)
+from nerf_glasses_tpu_torch.models import floaty
 from nerf_glasses_tpu_torch.models.renderer import NerfMeshRenderer
 from nerf_glasses_tpu_torch.ops import mesh_cuda
 from nerf_glasses_tpu_torch.ops import triangles as tri_ops
 from nerf_glasses_tpu_torch.ops.colors import linear_to_srgb, srgb_to_linear
-from nerf_glasses_tpu_torch.ops.network import NerfNetwork
+from nerf_glasses_tpu_torch.ops.network import (NerfNetwork,
+                                                apply_density_activation)
 from nerf_glasses_tpu_torch.parallel.sharding import render_hybrid_sharded
 from nerf_glasses_tpu_torch.train import trainer as ttr
+from nerf_glasses_tpu_torch.utils import placement
 from nerf_glasses_tpu_torch.utils.bbox import BoundingBox
 from nerf_glasses_tpu_torch.utils.camera import (V_LENGTH_QUIRK, look_to,
                                                  pack_camera)
@@ -135,8 +173,27 @@ HEAD_RADIUS, HEAD_CENTER = 0.24, (0.0, 0.03, 0.0)
 TARGET_LOSS = 0.00175           # the reference volume/train.py contract
 CONTRACT_MAX_STEPS = 2000
 PSNR_HOLDOUT_DB = 28.0
+# (settle, timed) steps of the two rate legs
+RATE_SCRATCH, RATE_SETTLED = (128, 64), (32, 64)
 # "trained correctly" (SKILL.md): density > 5 only near the object
 HOT_MIN_CELLS, HOT_FAR_MAX = 20, 0.05
+# the application (phases 17-21)
+APP_ORBIT_FRAMES = 16
+LANDMARK_ATOL, PLACEMENT_ATOL = 5e-3, 1e-3
+PSNR_FLOATY_DB = 40.0
+COLLIDE_MAX_CALLS = 200
+COLLIDE_ATOL = 1e-4
+COLLIDE_ALPHA_EDGE = 1e-6       # a sample this close to alpha 0 may flip,
+COLLIDE_EDGE_SHARE = 0.05       # on this share of the points at most,
+COLLIDE_EDGE_DIST = 1.0 / 128   # and moves the hit by under a grid cell
+DOWN = np.array([0.0, -1.0, 0.0], np.float32)
+# temple vertices of the procedural glasses (write_glasses_gltf)
+GLASSES_LEFT = np.array([-1.0, 0.1, -0.05])
+GLASSES_RIGHT = np.array([1.0, 0.1, -0.05])
+# blobs planted for phase 18, mip-0 cells (x, y, z): above and beside the
+# head of trained_head_v6, inside the bench's render aabb
+BLOB_CELLS = ((110, 110, 20), (110, 110, 110), (20, 110, 64))
+BLOB_RADIUS = 3
 
 
 # ---------------------------------------------------------------------------
@@ -567,10 +624,11 @@ def training_phases(dev, tmp, lap):
     if not (ema < TARGET_LOSS and tr.step < CONTRACT_MAX_STEPS):
         raise AssertionError("the loss contract was not reached")
     tr_rate = ttr.Trainer(ds, opts, seed=3, device=dev)
-    tr_rate.train(320)
-    sps_scratch = timed_steps(tr_rate, 192)
-    print(f"from-scratch steps/s (320 settle + 192 timed, host clock to the "
-          f"loss fetch): {sps_scratch:.2f}; gate open {tr_rate._compact_ready}")
+    tr_rate.train(RATE_SCRATCH[0])
+    sps_scratch = timed_steps(tr_rate, RATE_SCRATCH[1])
+    print(f"from-scratch steps/s ({RATE_SCRATCH[0]} settle + {RATE_SCRATCH[1]} "
+          f"timed, host clock to the loss fetch): {sps_scratch:.2f}; gate open "
+          f"{tr_rate._compact_ready}")
     del tr_rate
     lap(12)
 
@@ -608,12 +666,13 @@ def training_phases(dev, tmp, lap):
     tr_res = ttr.Trainer(ds, opts, seed=3, device=dev)
     tr_res.load_snapshot(SNAPSHOT)
     step0 = tr_res.step
-    tr_res.train(64)
-    sps_settled = timed_steps(tr_res, 192)
+    tr_res.train(RATE_SETTLED[0])
+    sps_settled = timed_steps(tr_res, RATE_SETTLED[1])
     print(f"resumed from trained_head_v6 at step {step0}: settled steps/s "
-          f"{sps_settled:.2f} (64 + 192 timed), compaction gate open "
-          f"{tr_res._compact_ready}, keep-set overflow (steps, samples) "
-          f"{tr_res.keep_overflow} of 256 steps, loss {tr_res.loss:.6f}")
+          f"{sps_settled:.2f} ({RATE_SETTLED[0]} + {RATE_SETTLED[1]} timed), "
+          f"compaction gate open {tr_res._compact_ready}, keep-set overflow "
+          f"(steps, samples) {tr_res.keep_overflow} of {sum(RATE_SETTLED)} "
+          f"steps, loss {tr_res.loss:.6f}")
     if not tr_res._compact_ready:
         raise AssertionError("the compaction gate is closed on the settled scene")
     table, n_kernels, busy_ms, wall_ms = profile_step(tr_res)
@@ -674,6 +733,443 @@ def training_phases(dev, tmp, lap):
     if not (loss_rel <= 1e-5 and worst <= 1e-4):
         raise AssertionError("card and CPU training steps disagree")
     lap(16)
+
+
+# ---------------------------------------------------------------------------
+# The try-on application (phases 17-21)
+# ---------------------------------------------------------------------------
+
+def face_landmarks():
+    """Ground-truth 3D landmarks in renderer world space (NGP - 0.5), in
+    placement.LANDMARK_ORDER, chosen so that compute_glasses_placement puts
+    the procedural glasses where make_renderer does: t = (0, 0.1, 0.22),
+    s = 0.25, no rotation. -> {MediaPipe landmark id: point} for all 478
+    ids (the others at the origin)."""
+    nose = np.array([0.0, 0.1, 0.22])
+    pts = [nose, nose + [0.0, -0.01, 0.01], nose + [0.0, -0.02, 0.02],
+           [-0.25, 0.135, 0.2875], [0.25, 0.135, 0.2875],    # temples
+           [-0.25, 0.105, 0.2875], [0.25, 0.105, 0.2875],    # lower temples
+           [-0.08, 0.125, 0.2], [0.08, 0.125, 0.2]]          # eyes
+    gt = {i: np.zeros(3) for i in range(478)}
+    for lm_id, p in zip(placement.LANDMARK_ORDER, pts):
+        gt[lm_id] = np.asarray(p, np.float64)
+    return gt
+
+
+def projected_landmarks(gt):
+    """A landmark provider for render_app.run that stands in for MediaPipe:
+    the ground truth projected through the renderer's live camera to
+    MediaPipe-style (x, y) in [0, 1] (the inverse of placement.LandmarkRay:
+    dir = cam[:, :3] @ (2x - 1, -2y + 1, 1))."""
+    ids = sorted(gt)
+    pts = np.stack([gt[i] for i in ids])
+
+    def landmark_fn(renderer, nerf):
+        cam = np.asarray(renderer.view_projection_mat, np.float64)
+        ndc = np.linalg.solve(cam[:, :3], (pts - cam[:, 3]).T).T
+        ndc = ndc / ndc[:, 2:3]
+        lms = np.zeros((478, 3), np.float32)
+        lms[ids, 0] = (ndc[:, 0] + 1.0) / 2.0
+        lms[ids, 1] = (1.0 - ndc[:, 1]) / 2.0
+        return lms
+
+    return landmark_fn
+
+
+def plant_blobs(grid):
+    """-> (a copy of the (8, 128, 128, 128) occupancy with three balls of
+    BLOB_RADIUS cells set at mip 0 and their ancestors in the coarser mips,
+    the balls' mip-0 mask). The cells around each ball must be empty."""
+    idx = np.arange(128)
+    z, y, x = np.meshgrid(idx, idx, idx, indexing="ij")
+    mask = np.zeros((128, 128, 128), bool)
+    for cx, cy, cz in BLOB_CELLS:
+        r2 = (x - cx) ** 2 + (y - cy) ** 2 + (z - cz) ** 2
+        if grid[0][r2 < (BLOB_RADIUS + 3) ** 2].any():
+            raise AssertionError(f"the cells around blob {(cx, cy, cz)} are "
+                                 f"not empty")
+        mask |= r2 < BLOB_RADIUS ** 2
+    out = grid.copy()
+    out[0][mask] = 1
+    for lvl in range(1, 8):
+        pooled = out[lvl - 1].reshape(64, 2, 64, 2, 64, 2).max(axis=(1, 3, 5))
+        out[lvl][32:96, 32:96, 32:96] |= pooled
+    return out, mask
+
+
+def fresh_frame(renderer):
+    """One frame at sample 0 -> the displayed image."""
+    renderer.update_model_view_proj()
+    renderer.frame()
+    return renderer.display_image()
+
+
+def floaty_check(renderer, label):
+    """Phase 18 on one renderer -> PSNR of the frame after removal
+    against the frame before planting."""
+    grid0 = renderer.dump_density_grid()
+    img0 = fresh_frame(renderer)
+    planted, mask = plant_blobs(grid0)
+    renderer.load_density_grid_array(planted)
+    img_planted = fresh_frame(renderer)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    clusters = renderer.remove_floaties()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    backend = floaty.last_backend
+    cleaned = renderer.dump_density_grid()
+    img1 = fresh_frame(renderer)
+    expected, clusters0 = floaty.remove_floaties(grid0)
+    own = int(grid0[0].sum()) - int(expected[0].sum())
+    p_after, p_planted = (psnr(img1[..., :3], img0[..., :3]),
+                          psnr(img_planted[..., :3], img0[..., :3]))
+    print(f"floaties ({label}): planted {int(mask.sum())} cells in "
+          f"{len(BLOB_CELLS)} blobs; remove_floaties {ms:.1f} ms "
+          f"({clusters} clusters, {clusters0} before planting; backend "
+          f"{backend}"
+          + (f", native core: {floaty.last_native_error}"
+             if floaty.last_native_error else "")
+          + f"); mip-0 cells {int(grid0[0].sum())} -> {int(cleaned[0].sum())} "
+          f"({own} of the snapshot's own outside its main cluster); frame with "
+          f"the blobs vs before planting {p_planted:.2f} dB, after removal "
+          f"{p_after:.2f} dB, path {renderer._nerfs[0].last_render_path}")
+    if cleaned[0][mask].any():
+        raise AssertionError("remove_floaties left cells of a planted blob")
+    if clusters != clusters0 + len(BLOB_CELLS):
+        raise AssertionError("the planted blobs are not clusters of their own")
+    if not np.array_equal(cleaned, expected):
+        raise AssertionError("planting changed the main cluster")
+    if (cleaned[0] & ~grid0[0].astype(bool)).any():
+        raise AssertionError("the cleaned grid has cells the snapshot lacks")
+    if not np.isfinite(img1).all():
+        raise AssertionError("the frame after remove_floaties is not finite")
+    return p_after
+
+
+def march_alpha(nerf, pts):
+    """alpha of collide_march's samples at NGP points with float32 MLPs
+    (its hit test is alpha > 0), without the occupancy gate -> numpy."""
+    with torch.no_grad():
+        pos = torch.as_tensor(np.asarray(pts, np.float32), device=nerf.device)
+        raw = nerf.net.density_raw(pos.clamp(0.0, 1.0),
+                                   compute_dtype=torch.float32)[:, 0]
+        sigma = apply_density_activation(raw, nerf.config.density_activation)
+        return (1.0 - torch.exp(-sigma * C.MIN_CONE_STEPSIZE)).cpu().numpy()
+
+
+def http_get(base, path):
+    with urllib.request.urlopen(base + path, timeout=300) as r:
+        return r.status, r.read()
+
+
+def http_post(base, name, body):
+    req = urllib.request.Request(
+        base + "/api/" + name, data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=300) as r:
+        return r.status, json.loads(r.read())
+
+
+def application_phases(dev, tmp, lap, glasses):
+    """Phases 17-21 -> the tiled kernel's launches in the app's orbit
+    frames."""
+    # 17: the application, as a user of volume/render.py runs it
+    gt = face_landmarks()
+    gt_list = [gt[i] for i in placement.LANDMARK_ORDER]
+    render_app.W, render_app.H = W, H
+    reference = np.random.default_rng(0).standard_normal((478, 3))
+    mesh_cuda.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    app = render_app.run(SNAPSHOT, glasses, GLASSES_LEFT, GLASSES_RIGHT,
+                         landmark_fn=projected_landmarks(gt),
+                         reference_landmarks=reference,
+                         max_frames=APP_ORBIT_FRAMES)
+    torch.cuda.synchronize()
+    app_s = time.perf_counter() - t0
+    app_launches = mesh_cuda.launches
+    run = app.app_report
+    hybrid_frames = app.stats()["frame_count"] - run["sweep_frames"]
+    lm_err = max(float(np.abs(a - b).max())
+                 for a, b in zip(run["landmarks"], gt_list))
+    t_gt, s_gt, r_gt = placement.compute_glasses_placement(
+        gt_list, GLASSES_LEFT, GLASSES_RIGHT)
+    node = app._meshes[0].nodes[0]
+    r_err = min(np.abs(node.rotation - r_gt).max(),
+                np.abs(node.rotation + r_gt).max())
+    place_err = max(float(np.abs(node.translation - t_gt).max()),
+                    float(np.abs(node.scale - s_gt).max()), float(r_err))
+    img = app.display_image()
+    app_nerf = app._nerfs[0]
+    surf_px = int((app_nerf._surface_t > 0).sum())
+    print(f"application {W}x{H} ({type(app).__module__} through pynmr_torch, "
+          f"device {app.device}): {app_s:.2f} s in all; landmark sweep "
+          f"{run['sweep_s']:.2f} s for {run['sweep_frames']} NeRF frames "
+          f"({run['sweep_s'] * 1e3 / run['sweep_frames']:.1f} ms/frame, "
+          f"drained at its end), {len(run['landmarks'])} landmarks, max "
+          f"|error| {lm_err:.2e}; placement t {node.translation.tolist()} "
+          f"s {node.scale.tolist()} r {node.rotation.tolist()}, max |error| "
+          f"vs the ground truth's {place_err:.2e}; orbit loop "
+          f"{run['orbit_ms_per_frame']:.1f} ms/frame over {hybrid_frames} "
+          f"hybrid frames (host clock, drained once at the end), tiled kernel "
+          f"launches {app_launches}, mesh pixels {surf_px}, path "
+          f"{app_nerf.last_render_path}, epochs {app_nerf.last_march_epochs}")
+    if type(app) is not pynmr_torch.NerfMeshRenderer or app.device != dev:
+        raise AssertionError(f"the app did not run the port on {dev}")
+    if lm_err > LANDMARK_ATOL:
+        raise AssertionError(f"landmarks off by {lm_err}")
+    if place_err > PLACEMENT_ATOL:
+        raise AssertionError(f"placement off by {place_err}")
+    if hybrid_frames != APP_ORBIT_FRAMES or app_launches != hybrid_frames:
+        raise AssertionError(f"{app_launches} kernel launches in "
+                             f"{hybrid_frames} hybrid frames")
+    if not (img.shape == (H, W, 4) and np.isfinite(img).all()):
+        raise AssertionError("the app's last frame is not finite")
+    if surf_px < W * H // 1000:
+        raise AssertionError(f"only {surf_px} mesh pixels in the app's frame")
+    del app, app_nerf, img
+    lap(17)
+
+    # 18: floaties, on the exact path and on a baked renderer
+    renderer, nerf = make_renderer(dev, W, H, glasses)
+    p_exact = floaty_check(renderer, "exact path")
+    if p_exact < PSNR_FLOATY_DB:
+        raise AssertionError(f"frame after remove_floaties {p_exact:.2f} dB")
+    brenderer, _ = make_renderer(dev, W, H, glasses, bake=True)
+    p_baked = floaty_check(brenderer, "bake=True, flash")
+    print(f"floaties: exact {p_exact:.2f} dB, flash {p_baked:.2f} dB against "
+          f"the frame before planting (a baked Testbed keeps its baked "
+          f"sigma, masked by the grid of bake time)")
+    del brenderer
+    lap(18)
+
+    # 19: density-grid dump / load
+    nerf.march_overrides = {"jitter": False}
+    img_a = fresh_frame(renderer)
+    grid_a = renderer.dump_density_grid()
+    path = os.path.join(tmp, "density_grid.bin")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    renderer.dump_density_grid_file(path)
+    dump_ms = (time.perf_counter() - t0) * 1e3
+    size = os.path.getsize(path)
+    version = nerf._scene_version
+    t0 = time.perf_counter()
+    renderer.load_density_grid_file(path)
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    same_grid = np.array_equal(renderer.dump_density_grid(), grid_a)
+    img_b = fresh_frame(renderer)
+    diff = float(np.abs(img_b - img_a).max())
+    print(f"density grid: dump {dump_ms:.1f} ms, {size} bytes; load "
+          f"{load_ms:.1f} ms; grid equal {same_grid}; scene version "
+          f"{version} -> {nerf._scene_version}; next frame (jitter off) max "
+          f"|diff| {diff:.3g}")
+    if size != 8 * 128 ** 3 or not same_grid:
+        raise AssertionError("the density grid did not survive dump and load")
+    if nerf._scene_version == version:
+        raise AssertionError("loading a grid did not invalidate the scene")
+    if diff != 0.0:
+        raise AssertionError("the frame changed across dump and load")
+    nerf.march_overrides = {}
+    lap(19)
+
+    # 20: collide. The glasses at a scale that fits over the crown, so that
+    # every down-facing vertex has head below it (a vertex that meets
+    # nothing reports distance 0, and collide moves by the least distance),
+    # in the render aabb the app sets.
+    crenderer = pynmr_torch.NerfMeshRenderer(W, H, device=dev)
+    cnerf = crenderer.load_nerf(SNAPSHOT)
+    cnerf.render_aabb.min = np.array([-0.2, 0.15, -0.2], np.float32)
+    cnerf.render_aabb.max = np.array([1.0, 1.0, 1.0], np.float32)
+    start = np.array([0.0, 0.45, 0.09], np.float32)
+    mesh = crenderer.load_mesh(glasses, t=start, s=[0.08] * 3)
+    cnode = mesh.nodes[0]
+    occ0 = crenderer.dump_density_grid()[0]
+    top_cell = int(np.nonzero(occ0.any(axis=(0, 2)))[0].max())
+    # per (z, x) column the top occupied y cell, -1 where none
+    col_top = np.where(occ0.any(axis=1),
+                       127 - np.argmax(occ0[:, ::-1, :], axis=1), -1)
+    verts = cnode.vertices_facing_direction(-DOWN)
+
+    def world_verts():
+        xf = cnode.get_transform()
+        return verts @ xf[:3, :3].T + xf[:3, 3]
+
+    pts0 = (world_verts() + 0.5).astype(np.float32)
+    cnerf.march_overrides = {"compute_dtype": "float32"}
+    d_card = cnerf.collide_distances(pts0, DOWN)
+    turns_f32 = cnerf.last_collide_turns
+    cpu_nerf = pynmr_torch.Testbed(device="cpu")
+    cpu_nerf.load_snapshot(SNAPSHOT)
+    cpu_nerf.render_aabb = cnerf.render_aabb.copy()
+    cpu_nerf.march_overrides = {"compute_dtype": "float32"}
+    d_cpu = cpu_nerf.collide_distances(pts0, DOWN)
+    a_diff = float(np.abs(cnerf.alpha_at(pts0 - [0.0, 0.2, 0.0])
+                          - cpu_nerf.alpha_at(pts0 - [0.0, 0.2, 0.0])).max())
+    cnerf.march_overrides = {}
+    # a hit is the first sample with alpha > 0: where the devices differ,
+    # the earlier hit must be a sample at the edge of alpha 0 on both
+    differ = np.abs(d_card - d_cpu) > COLLIDE_ATOL
+    edge = pts0[differ] + DOWN * np.minimum(d_card, d_cpu)[differ, None]
+    edge_alpha = (max(float(march_alpha(cnerf, edge).max()),
+                      float(march_alpha(cpu_nerf, edge).max()))
+                  if differ.any() else 0.0)
+    d_diff = float(np.abs(d_card - d_cpu)[~differ].max())
+    d_worst = float(np.abs(d_card - d_cpu).max())
+    d_allowed = int(COLLIDE_EDGE_SHARE * len(pts0))
+    march_ms = cuda_ms(lambda: cnerf.collide_distances(pts0, DOWN), 3)
+    alpha_ms = cuda_ms(lambda: cnerf.alpha_at(pts0), 10)
+    steps, call_ms = [], []
+    lowest_margin = np.inf
+    rest = False
+    while not rest and len(steps) < COLLIDE_MAX_CALLS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rest = crenderer.collide(DOWN, cnode)
+        torch.cuda.synchronize()
+        call_ms.append((time.perf_counter() - t0) * 1e3)
+        steps.append(cnode.translation.copy())
+        w = world_verts() + 0.5
+        cells = np.clip((w * 128).astype(int), 0, 127)
+        tops = col_top[cells[:, 2], cells[:, 0]]
+        lowest_margin = min(lowest_margin,
+                            float((w[:, 1] * 128 - tops)[tops >= 0].min()))
+    contact_alpha = cnerf.alpha_at((world_verts() + 0.5).astype(np.float32))
+    n_contacts = int((contact_alpha > 0).sum())
+    print(f"collide: {len(verts)} down-facing vertices from y "
+          f"{start[1]:.2f} (head's top occupied cell {top_cell}, world y "
+          f"{(top_cell + 1) / 128 - 0.5:.3f}); collide_distances (float32 "
+          f"MLPs) card vs CPU max |diff| {d_diff:.2e} over "
+          f"{int((d_cpu > 0).sum())} hits of {len(d_cpu)} but "
+          f"{int(differ.sum())} (allowed {d_allowed}) that differ by up to "
+          f"{d_worst:.2e}, where the earlier "
+          f"hit's alpha is at most {edge_alpha:.2e} on both; alpha_at max "
+          f"|diff| {a_diff:.2e}; one collide_march {march_ms:.1f} ms in "
+          f"{cnerf.last_collide_turns} turns ({turns_f32} at float32), "
+          f"alpha_at {alpha_ms:.2f} ms (CUDA events, {len(verts)} points); "
+          f"at rest {rest} after {len(steps)} calls, first call "
+          f"{call_ms[0]:.1f} ms (fell {start[1] - steps[0][1]:.4f}), others "
+          f"mean {np.mean(call_ms[1:]) if len(call_ms) > 1 else 0.0:.2f} ms; "
+          f"end t {cnode.translation.tolist()} r {cnode.rotation.tolist()}; "
+          f"{n_contacts} contact vertices, min alpha of them "
+          f"{contact_alpha[contact_alpha > 0].min() if n_contacts else 0:.3g}; "
+          f"deepest vertex {lowest_margin:.2f} cells over its column's top "
+          f"cell")
+    if (int(differ.sum()) > d_allowed or edge_alpha > COLLIDE_ALPHA_EDGE
+            or d_worst >= COLLIDE_EDGE_DIST or not (d_cpu > 0).all()):
+        raise AssertionError("collide_distances: card and CPU disagree, or a "
+                             "vertex met nothing")
+    if not steps[0][1] < start[1] - 0.05:
+        raise AssertionError("the first collide call did not translate down")
+    if not rest:
+        raise AssertionError(f"not at rest after {COLLIDE_MAX_CALLS} calls")
+    if n_contacts < 3:
+        raise AssertionError("at rest on fewer than three contact vertices")
+    if lowest_margin < -2.0:
+        raise AssertionError("a vertex sank into the head")
+    del crenderer, cnerf, cpu_nerf
+    lap(20)
+
+    # 21: the viewer, over HTTP; handler threads render. The network's
+    # gradients are on, as on a Testbed that trains.
+    from PIL import Image
+    nerf.net.requires_grad_(True)
+    nerf.render_aabb.min = np.array([-0.2, 0.15, -0.2], np.float32)
+    nerf.render_aabb.max = np.array([1.0, 1.0, 1.0], np.float32)
+    renderer.clear_meshes()
+    server = viewer_app.make_server(renderer, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        status, page = http_get(base, "/")
+        if status != 200 or b"nerf-glasses-tpu viewer" not in page:
+            raise AssertionError("GET / is not the page")
+        _, jpg0 = http_get(base, "/frame.jpg")
+        size0 = Image.open(io.BytesIO(jpg0)).size
+        if size0 != (W, H):
+            raise AssertionError(f"/frame.jpg decodes to {size0}")
+        ok = {"ok": True}
+        answers = [http_post(base, "orbit", {"da": 0.6, "dp": 0.1, "dz": 0.0})]
+        _, jpg1 = http_get(base, "/frame.jpg")
+        if jpg1 == jpg0:
+            raise AssertionError("POST /api/orbit did not change the frame")
+        t0 = time.perf_counter()
+        answers.append(http_post(base, "load_mesh", {
+            "path": glasses, "t": [0.0, 0.1, 0.22], "s": [0.25] * 3}))
+        http_get(base, "/frame.jpg")
+        first_mesh_s = time.perf_counter() - t0
+        traj = os.path.join(tmp, "trajectory")
+        os.makedirs(traj)
+        grid_file = os.path.join(tmp, "viewer_grid.bin")
+        for name, body in (
+                ("transform", {"mesh": 0, "t": [0.0, 0.45, 0.09], "s": 0.08,
+                               "yaw_deg": 0.0}),
+                ("light", {"pos": [0.5, 2.0, 1.0]}),
+                ("density", {"op": "dump", "filename": grid_file}),
+                ("density", {"op": "load", "filename": grid_file}),
+                ("remove_floaties", {}),
+                ("collide", {"direction": [0, -1, 0], "mesh": 0}),
+                ("toggle", {"name": "visualize_depth", "value": True}),
+                ("toggle", {"name": "visualize_depth", "value": False}),
+                ("record_trajectory", {"num_images": 3, "out_dir": traj})):
+            answers.append(http_post(base, name, body))
+        fell = float(renderer._meshes[0].nodes[0].translation[1])
+        n_jpg = len([f for f in os.listdir(traj) if f.endswith(".jpg")])
+        t0 = time.perf_counter()
+        for _ in range(4):
+            http_get(base, "/frame.jpg")
+        frame_jpg_ms = (time.perf_counter() - t0) * 1e3 / 4
+        answers.append(http_post(base, "toggle", {"name": "flash",
+                                                  "value": True}))
+        _, jpg_flash = http_get(base, "/frame.jpg")
+        t0 = time.perf_counter()
+        for _ in range(4):
+            http_get(base, "/frame.jpg")
+        flash_jpg_ms = (time.perf_counter() - t0) * 1e3 / 4
+        stats = json.loads(http_get(base, "/api/stats")[1])
+        answers.append(http_post(base, "toggle", {"name": "flash",
+                                                  "value": False}))
+        try:
+            http_post(base, "no_such_endpoint", {})
+            unknown = 200
+        except urllib.error.HTTPError as e:
+            unknown = e.code
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join()
+    made = {"frame": renderer._frame_buffer, "depth": renderer._depth_buffer,
+            "accum": renderer._accum, "occ": nerf.occ,
+            "surface": nerf._surface_rgba, "sigma": nerf._baked_sigma,
+            "feat": nerf._baked_feat}
+    with_grad = [k for k, t in made.items()
+                 if t.requires_grad or t.grad_fn is not None]
+    print(f"viewer {W}x{H} over HTTP: {len(answers)} panel calls answered "
+          f"{sorted(set(json.dumps(a) for a in answers))}, unknown endpoint "
+          f"{unknown}; load_mesh + the first hybrid /frame.jpg "
+          f"{first_mesh_s:.2f} s; /frame.jpg {frame_jpg_ms:.1f} ms exact, "
+          f"{flash_jpg_ms:.1f} ms flash (4 requests each, render + fetch + "
+          f"JPEG + HTTP, {len(jpg_flash)} bytes); collide over HTTP left the "
+          f"glasses at y {fell:.3f}; trajectory images {n_jpg}; stats {stats}; "
+          f"tensors with grad {with_grad}")
+    if any(a != (200, ok) for a in answers):
+        raise AssertionError("a panel endpoint did not answer {'ok': true}")
+    if unknown != 500:
+        raise AssertionError(f"an unknown endpoint answered {unknown}")
+    if n_jpg < 3 or not os.path.exists(os.path.join(traj, "transform_3")):
+        raise AssertionError("record_trajectory wrote too few files")
+    if not fell < 0.45 - 0.05:
+        raise AssertionError("collide over HTTP did not move the glasses")
+    if not (stats["render_path"] == "flash" and stats["hbm_available"] is True
+            and stats["hbm_bytes_in_use"] > 0 and stats["n_meshes"] == 1):
+        raise AssertionError(f"stats {stats}")
+    if with_grad:
+        raise AssertionError(f"handler threads built a graph: {with_grad}")
+    lap(21)
+    return app_launches
 
 
 def main(tmp, dirs):
@@ -967,6 +1463,8 @@ def main(tmp, dirs):
     lap(10)
 
     training_phases(dev, tmp, lap)
+    del renderer, nerf
+    app_launches = application_phases(dev, tmp, lap, glasses)
 
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
@@ -976,7 +1474,9 @@ def main(tmp, dirs):
         "launches": launches, "max_abs_err": cmp1["max_abs_err"],
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": b1_ms, "bound_by": b1_by,
         "library_ms": None, "share": b1_ms / k_ms,
-        "launches_per_frame": launches / 4}, {
+        "launches_per_frame": launches / 4,
+        "app_launches": app_launches,
+        "app_launches_per_frame": app_launches / APP_ORBIT_FRAMES}, {
         "name": "raycast", "route": "cuda",
         "source": "nerf_glasses_tpu_torch/csrc/mesh_raycast.cu",
         "replaces": "nerf_glasses_tpu/ops/mesh_pallas.py:91",

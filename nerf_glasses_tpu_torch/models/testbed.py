@@ -4,12 +4,14 @@ Port of nerf_glasses_tpu/models/testbed.py (ngp::Testbed,
 src/python_api.cu:301-496, src/ngp/testbed.cu): snapshot load and save,
 occupancy, camera state, the exact render path, the baked fast path
 (bake, flash, deferred shading, the bake fidelity probe), density
-queries and the pyngp-style training surface (load_training_data,
+queries (density_at, alpha_at, collide_distances), the camera helpers
+and crop box, and the pyngp-style training surface (load_training_data,
 shall_train + frame(), train, sync_from_trainer).
 
-The render entry points run under torch.no_grad(): a Testbed that
-trains renders its trainer's live network, whose parameters require
-gradients.
+The render and query entry points run under torch.no_grad(): a Testbed
+that trains renders its trainer's live network, whose parameters require
+gradients, and grad mode is per thread (the viewer renders in handler
+threads).
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ from nerf_glasses_tpu_torch.ops import raymarch
 from nerf_glasses_tpu_torch.ops.bake import bake_grids
 from nerf_glasses_tpu_torch.ops.colors import accumulate, tonemap_frame
 from nerf_glasses_tpu_torch.ops.network import (apply_density_activation,
-                                                pack_params, unpack_params)
+                                                init_params, pack_params,
+                                                unpack_params)
 from nerf_glasses_tpu_torch.utils.bbox import BoundingBox
 from nerf_glasses_tpu_torch.utils.camera import fov_to_focal_length
 
@@ -56,8 +59,10 @@ class Testbed:
         self.config = NGPConfig()
         self.net = None
         self.density_grid = None      # (cascades, 128, 128, 128) f32 numpy
-        self.occ = None               # (8, 128, 128, 128) uint8 tensor
+        # the occupancy and the baked sigma grid bump _scene_version when
+        # assigned, so the memoized scene keys on a counter
         self._scene_version = 0
+        self._occ = None              # (8, 128, 128, 128) uint8 tensor
         self._scene_cache = None
         self.dataset = NerfDataset()
         self.aabb = BoundingBox([0, 0, 0], [1, 1, 1])
@@ -76,7 +81,8 @@ class Testbed:
              [0.0, -1.0, 0.0, 0.5],
              [0.0, 0.0, -1.0, 0.5]], np.float32)
         self._scale = 1.5
-        self.camera_matrix[:, 3] -= self._scale * self.camera_matrix[:, 2]
+        self.camera_matrix[:, 3] -= self._scale * self.view_dir
+        self.up_dir = np.array([0.0, 1.0, 0.0], np.float32)
         self.set_fov(50.625)
 
         self.background_color = np.array([1.0, 1.0, 1.0, 1.0], np.float32)
@@ -88,6 +94,7 @@ class Testbed:
         self._cone_angle = 0.0
         self.march_overrides = {}
         self.last_march_epochs = 0
+        self.last_collide_turns = 0
         self.last_render_path = None   # set by render_frame_buffers
 
         # baked fast path (bake()): the dense sigma grid, the feature grid
@@ -109,6 +116,15 @@ class Testbed:
         self._spp = 0
         self._frame_buffer = None
         self._depth_buffer = None
+
+    @property
+    def occ(self):
+        return self._occ
+
+    @occ.setter
+    def occ(self, v):
+        self._occ = v
+        self._scene_version += 1
 
     @property
     def _baked_sigma(self):
@@ -145,6 +161,7 @@ class Testbed:
         self.training_step = s.training_step
         self.loss = s.loss
         self._cone_angle = self.config.cone_angle_constant
+        self.up_dir = s.dataset.up.copy()
         self.update_occupancy()
         self.reset_accumulation()
 
@@ -159,15 +176,95 @@ class Testbed:
         self.occ = occ_ops.build_occupancy(
             torch.as_tensor(self.density_grid, device=self.device),
             self.config.max_cascade)
-        self._scene_version += 1
 
     # ------------------------------------------------------------------
-    # Camera
+    # Camera helpers (testbed.cu:1319-1401)
     # ------------------------------------------------------------------
+
+    @property
+    def view_pos(self):
+        return self.camera_matrix[:, 3]
+
+    @property
+    def view_dir(self):
+        return self.camera_matrix[:, 2]
+
+    @property
+    def look_at(self):
+        return self.view_pos + self.view_dir * self._scale
+
+    @look_at.setter
+    def look_at(self, pos):
+        self.camera_matrix[:, 3] += np.asarray(pos, np.float32) - self.look_at
+
+    def set_view_dir(self, dir):
+        d = np.asarray(dir, np.float64)
+        old_look_at = self.look_at.copy()
+        x = np.cross(d, self.up_dir)
+        self.camera_matrix[:, 0] = x / np.linalg.norm(x)
+        y = np.cross(d, self.camera_matrix[:, 0])
+        self.camera_matrix[:, 1] = y / np.linalg.norm(y)
+        self.camera_matrix[:, 2] = d / np.linalg.norm(d)
+        self.look_at = old_look_at
+
+    @property
+    def scale(self):
+        return self._scale
+
+    @scale.setter
+    def scale(self, scale):
+        prev_look_at = self.look_at.copy()
+        self.camera_matrix[:, 3] = ((self.view_pos - prev_look_at)
+                                    * (scale / self._scale) + prev_look_at)
+        self._scale = scale
 
     def set_fov(self, degrees: float):
         self.relative_focal_length = np.full(
             2, fov_to_focal_length(1, degrees), np.float32)
+
+    def translate_camera(self, rel):
+        self.camera_matrix[:, 3] += (
+            self.camera_matrix[:, :3] @ np.asarray(rel, np.float32)
+            * self.bounding_radius)
+        self.reset_accumulation()
+
+    # crop box (testbed.cu:1422-1477)
+    def crop_box(self, nerf_space: bool = True) -> np.ndarray:
+        cen = self.render_aabb_to_local.T @ self.render_aabb.center()
+        radius = self.render_aabb.diag() * 0.5
+        rv = np.zeros((3, 4), np.float32)
+        rv[:, 0] = self.render_aabb_to_local[0] * radius[0]
+        rv[:, 1] = self.render_aabb_to_local[1] * radius[1]
+        rv[:, 2] = self.render_aabb_to_local[2] * radius[2]
+        rv[:, 3] = cen
+        if nerf_space:
+            rv = ds_io.ngp_matrix_to_nerf(rv, self.dataset.scale,
+                                          self.dataset.offset,
+                                          self.dataset.from_mitsuba, True)
+        return rv
+
+    def set_crop_box(self, m: np.ndarray, nerf_space: bool = True):
+        m = np.asarray(m, np.float32)
+        if nerf_space:
+            m = ds_io.nerf_matrix_to_ngp(m, self.dataset.scale,
+                                         self.dataset.offset,
+                                         self.dataset.from_mitsuba, True)
+        radius = np.linalg.norm(m[:, :3], axis=0)
+        cen = m[:, 3]
+        for i in range(3):
+            self.render_aabb_to_local[i] = m[:, i] / radius[i]
+        cen = self.render_aabb_to_local @ cen
+        self.render_aabb = BoundingBox(cen - radius, cen + radius)
+
+    def crop_box_corners(self, nerf_space: bool = True):
+        m = self.crop_box(nerf_space)
+        corners = []
+        for i in range(8):
+            v = np.array([1.0 if i & 1 else -1.0,
+                          1.0 if i & 2 else -1.0,
+                          1.0 if i & 4 else -1.0, 1.0], np.float32)
+            corners.append(m @ v)
+        return corners
 
     # ------------------------------------------------------------------
     # Rendering
@@ -331,8 +428,22 @@ class Testbed:
         self._surface_t = t_surface
         self._surface_res = (width, height)
 
-    def reset_accumulation(self):
+    def reset_accumulation(self, due_to_camera_movement=False,
+                           immediate_redraw=True):
+        """The reference's signature; both flags steer its GUI redraw and
+        change nothing here."""
         self._spp = 0
+
+    def reset(self, reset_density_grid: bool = True):
+        """reset_network (python_api.cu:334): a fresh network from seed
+        1337; with reset_density_grid an empty grid."""
+        gen = torch.Generator(device=self.device).manual_seed(1337)
+        self.net = init_params(self.config, gen, self.device)
+        self.training_step = 0
+        if reset_density_grid and self.density_grid is not None:
+            self.density_grid = np.zeros_like(self.density_grid)
+            self.update_occupancy()
+        self.reset_accumulation()
 
     @torch.no_grad()
     def render_frame_buffers(self, width: int, height: int,
@@ -392,6 +503,42 @@ class Testbed:
         raw = self.net.density_raw((pos - lo) / extent)[:, 0]
         return apply_density_activation(
             raw, self.config.density_activation).cpu().numpy()
+
+    @torch.no_grad()
+    def collide_distances(self, origins_ngp: np.ndarray,
+                          direction: np.ndarray) -> np.ndarray:
+        """March points along `direction` to the first density hit
+        (NerfTracer::collide, testbed.cu:1814-1888) -> distances (N,)
+        numpy, 0 where a point left the aabb without one. The turns the
+        march took are kept in last_collide_turns."""
+        d = np.asarray(direction, np.float64)
+        d = (d / np.linalg.norm(d)).astype(np.float32)
+        dist, self.last_collide_turns = raymarch.collide_march(
+            self.net, self._scene(),
+            torch.as_tensor(np.asarray(origins_ngp, np.float32),
+                            device=self.device),
+            torch.as_tensor(d, device=self.device), self._march_options())
+        return dist.cpu().numpy()
+
+    @torch.no_grad()
+    def alpha_at(self, positions: np.ndarray,
+                 dt: float = C.MIN_CONE_STEPSIZE) -> np.ndarray:
+        """alpha = 1 - exp(-density * dt), 0 outside the occupancy grid
+        (NerfTracer::intersects, testbed.cu:1891-1936): positions (N, 3)
+        in NGP space -> (N,) numpy, computed on the device, one fetch."""
+        pos = torch.as_tensor(np.asarray(positions, np.float32),
+                              device=self.device)
+        lo = torch.as_tensor(self.aabb.min, device=self.device)
+        extent = torch.as_tensor(self.aabb.diag(), device=self.device)
+        raw = self.net.density_raw((pos - lo) / extent)[:, 0]
+        dens = apply_density_activation(raw, self.config.density_activation)
+        alpha = 1.0 - torch.exp(-dens * dt)
+        mip = torch.clamp(
+            occ_ops.mip_from_dt(torch.full((pos.shape[0],), dt,
+                                           device=self.device),
+                                pos, self.config.max_cascade), min=0)
+        occ = occ_ops.occupied_at(self.occ, pos, mip)
+        return torch.where(occ, alpha, 0.0).cpu().numpy()
 
     # ------------------------------------------------------------------
     # Training: the pyngp surface the reference train.py drives
@@ -476,7 +623,6 @@ class Testbed:
         self.net = tr.net
         self.density_grid = tr.state["density_grid"].cpu().numpy()
         self.occ = tr.state["occ"]
-        self._scene_version += 1
         return self.loss
 
     def frame(self) -> bool:
@@ -497,4 +643,3 @@ class Testbed:
         self.render_aabb_to_local = tb.render_aabb_to_local
         self._cone_angle = tb._cone_angle
         self.occ = tb.occ
-        self._scene_version += 1

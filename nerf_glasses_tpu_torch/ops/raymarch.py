@@ -682,8 +682,82 @@ def march_frame_impl(net: NerfNetwork, scene, o, d, surface_rgba, t_surface,
 
 
 # ---------------------------------------------------------------------------
+# Collision march (NerfTracer::collide, testbed.cu:1814-1888 +
+# check_collision, testbed.cu:721-782): march each start point along a
+# shared direction until the first sample with alpha > 0; record the
+# distance from the origin. Points that exit the aabb report 0.
+# ---------------------------------------------------------------------------
+
+def collide_march(net: NerfNetwork, scene, o, d, opts: MarchOptions):
+    """o (N, 3) NGP-space start points; d (3,) unit direction ->
+    (distances (N,), 0 where no collision; turns of the loop).
+
+    A turn is the JAX package's while-loop body on all N points; points
+    that hit or left the aabb no longer change. Each turn reads two
+    flags from the device in one fetch: whether any point is still
+    marching (else the loop ends, as the JAX condition ends it) and
+    whether any of them stands in an occupied cell (else no point can
+    hit this turn and the density network is not evaluated)."""
+    n = o.shape[0]
+    cfg = opts.config
+    dv = d.expand(n, 3)
+    idir = 1.0 / dv             # a zero component gives +-inf, as in JAX
+    train_extent = scene["train_max"] - scene["train_min"]
+    t = torch.zeros(n, device=o.device)
+    dist = torch.zeros(n, device=o.device)
+    alive = torch.ones(n, dtype=torch.bool, device=o.device)
+    turns = 0
+    while turns < C.MARCH_ITER:
+        pos = o + dv * t[:, None]
+        inside = _contains_local(pos, scene)
+        dt = occ_ops.calc_dt(t, opts.cone_angle)
+        occ, mip = _occupied(scene, pos, dt, opts)
+        cand = alive & inside & occ
+        any_alive, any_cand = torch.stack([alive.any(), cand.any()]).tolist()
+        if not any_alive:
+            break
+        turns += 1
+        if any_cand:
+            pos01 = torch.clamp((pos - scene["train_min"]) / train_extent,
+                                0.0, 1.0)
+            sigma = apply_density_activation(
+                net.density_raw(pos01, compute_dtype=opts.cdtype)[:, 0],
+                cfg.density_activation)
+            hit = cand & (1.0 - torch.exp(-sigma * dt) > 0.0)
+            dist = torch.where(
+                hit, torch.linalg.vector_norm(pos - o, dim=-1), dist)
+            alive = alive & inside & ~hit
+        else:
+            alive = alive & inside
+        res = C.NERF_GRIDSIZE * torch.exp2(-mip.float())
+        adv = occ_ops.advance_to_next_voxel(t, opts.cone_angle, pos, dv,
+                                            idir, res)
+        t = torch.where(alive & ~occ, adv, torch.where(alive, t + dt, t))
+    return dist, turns
+
+
+# ---------------------------------------------------------------------------
 # Pixel rays + full-frame rendering
 # ---------------------------------------------------------------------------
+
+def camera_rays(camera: np.ndarray, width: int, height: int):
+    """Packed 3x4 camera -> (N, 3) origins (+0.5 NGP shift) and unit
+    dirs through the pixel centres, float32 numpy.
+
+    NDC ray generation matching init_rays_with_payload's pixel_to_ray
+    (ngp_common.cuh:362-368): dir = cam[:, :3] @ (2u-1, 2v-1, 1); row 0 is
+    the bottom of the image (v = +up)."""
+    cam = np.asarray(camera, np.float32)
+    x = (np.arange(width, dtype=np.float32) + 0.5) / width * 2.0 - 1.0
+    y = (np.arange(height, dtype=np.float32) + 0.5) / height * 2.0 - 1.0
+    xx, yy = np.meshgrid(x, y)  # (H, W)
+    ndc = np.stack([xx, yy, np.ones_like(xx)], axis=-1)
+    d = ndc @ cam[:, :3].T
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o = np.broadcast_to(cam[:, 3] + 0.5, d.shape)
+    return (o.reshape(-1, 3).astype(np.float32),
+            d.reshape(-1, 3).astype(np.float32))
+
 
 def render_image_device(net: NerfNetwork, scene, camera, width: int,
                         height: int, opts: MarchOptions, surface_rgba=None,

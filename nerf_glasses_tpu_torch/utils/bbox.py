@@ -30,6 +30,9 @@ class BoundingBox:
     def is_empty(self) -> bool:
         return bool(np.any(self.max < self.min))
 
+    def center(self) -> np.ndarray:
+        return 0.5 * (self.min + self.max)
+
     def diag(self) -> np.ndarray:
         return self.max - self.min
 
