@@ -1,8 +1,10 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (sm_90a).
 
-    python3 chip_smoke.py [DIR ...]
+    python3 chip_smoke.py [--multicascade-only] [DIR ...]
 
-Each DIR is another checkout of the repository (for example the parent
+--multicascade-only runs phases 1-2, 11 and 22-26 alone (a few minutes:
+for work on the multi-cascade path; it prints no result line, and the
+smoke run proper takes no such flag). Each DIR is another checkout of the repository (for example the parent
 commit unpacked with `git archive` into a git-ignored directory): its
 ray-cast kernels are built from its own csrc/, held against the plain
 versions and timed in turns with this tree's in phases 3 and 7. The
@@ -55,14 +57,14 @@ procedural glasses glTF written here) + frame(), with the mesh pass at
  12. train from scratch (NGPConfig.native_fast(), 2048 rays x 48 samples,
      seed 3): train_until(0.00175, max_steps=2000) must reach the loss
      contract; steps, seconds, peak memory and the compaction gate; then a
-     fresh trainer's steps/s over 64 steps after 128 settle steps;
+     fresh trainer's steps/s over 32 steps after 64 settle steps;
  13. save_snapshot, NerfMeshRenderer.load_nerf of that file, the 4 holdout
      views on the exact path over white: >= 28 dB mean PSNR; the
      density_at scan puts the hot cells on the head sphere;
- 14. resume: Trainer.load_snapshot(trained_head_v6), 32 steps, 64 timed;
+ 14. resume: Trainer.load_snapshot(trained_head_v6), 16 steps, 32 timed;
      the compaction gate must be open; the keep-set overflow count;
  15. the train app's default config (16 levels x 2 features, 2^19-row
-     tables, 64-wide MLPs): 16 settle + 64 timed steps, the loss finite
+     tables, 64-wide MLPs): 16 settle + 32 timed steps, the loss finite
      and falling, peak memory;
  16. one f32 training step from the same parameters, rays and samples on
      the card and on the CPU: loss to rtol 1e-5, every gradient array to
@@ -73,7 +75,8 @@ application, through pynmr_torch:
 
  17. render_app.run at 1280x720 with an injected landmark provider
      (ground-truth landmarks projected through the live camera) and seeded
-     reference landmarks, 16 orbit frames: the triangulated landmarks
+     reference landmarks, a landmark sweep at twice the app's angle step
+     (32 views for its 63) and 8 orbit frames: the triangulated landmarks
      match the ground truth to 5e-3, the placement equals
      compute_glasses_placement on the ground truth to 1e-3, the tiled
      kernel was launched once per hybrid frame (count zeroed just before,
@@ -97,6 +100,25 @@ application, through pynmr_torch:
  21. the viewer over HTTP on a thread: the page, a 1280x720 /frame.jpg,
      every panel endpoint, an unknown endpoint answers 500, /api/stats;
      no tensor a handler thread made requires grad.
+Then multi-cascade scenes (aabb_scale 4, three cascades, cone stepping),
+at full width: NGPConfig.native_fast(aabb_scale=4), 1280x720, the mesh
+pass at 2x, the render aabb [-1.5, 2.5]^3 so that the outer cascades lie
+on every ray's path:
+
+ 22. the scene: phase 11's capture with aabb_scale 4, a Trainer on
+     native_fast(aabb_scale=4) for 384 steps, save_snapshot; steps,
+     seconds, loss and the occupied cells of each cascade;
+ 23. the exact hybrid frame of that snapshot with the glasses: 1 warm-up +
+     3 timed frames, epochs, the tiled kernel's launches (zeroed just
+     before, read just after: one per frame), peak memory; dist_advance
+     is on and the scene carries the clearance pyramid;
+ 24. baked + flash: load_nerf(bake=True, bake_resolution=256) with its
+     fidelity probe ("ok"), bake(256) timed alone, the grids' sizes, 1
+     warm-up + 3 timed frames on last_render_path "flash", >= 30 dB
+     against phase 23's exact frame at the same camera and sample index;
+ 25. 160x90 frames on the card and on the CPU, exact and flash (bake 128),
+     float32 MLPs: >= 40 dB each;
+ 26. the clearance pyramid built on the card equals the CPU's.
 Each phase prints its seconds.
 
 Prints one JSON line with the kernels' numbers (time, bound and share of
@@ -135,6 +157,8 @@ from nerf_glasses_tpu_torch.io.gltf import (GltfMaterial, GltfMesh, GltfNode,
 from nerf_glasses_tpu_torch.models import floaty
 from nerf_glasses_tpu_torch.models.renderer import NerfMeshRenderer
 from nerf_glasses_tpu_torch.ops import mesh_cuda
+from nerf_glasses_tpu_torch.ops import occupancy as occ_ops
+from nerf_glasses_tpu_torch.ops import raymarch
 from nerf_glasses_tpu_torch.ops import triangles as tri_ops
 from nerf_glasses_tpu_torch.ops.colors import linear_to_srgb, srgb_to_linear
 from nerf_glasses_tpu_torch.ops.network import (NerfNetwork,
@@ -164,6 +188,10 @@ PSNR_PLAIN_DB = 50.0
 PSNR_CPU_DB = 40.0
 PSNR_FLASH_VS_EXACT_DB = 30.0   # the package's own bake-probe threshold
 PSNR_SHARDED_DB = 40.0
+# multi-cascade scenes (phases 22-26)
+MC_AABB_SCALE = 4
+MC_TRAIN_STEPS = 384
+MC_BAKE_RES = 256               # per cascade, as the repository's bench
 SHARD_ATOL = 1e-5               # tests/test_parallel.py:141
 # capture scene (bench_scene.py:28-32): 24 training + 4 holdout views
 CAP_W = 400
@@ -174,11 +202,12 @@ TARGET_LOSS = 0.00175           # the reference volume/train.py contract
 CONTRACT_MAX_STEPS = 2000
 PSNR_HOLDOUT_DB = 28.0
 # (settle, timed) steps of the two rate legs
-RATE_SCRATCH, RATE_SETTLED = (128, 64), (32, 64)
+RATE_SCRATCH, RATE_SETTLED = (64, 32), (16, 32)
 # "trained correctly" (SKILL.md): density > 5 only near the object
 HOT_MIN_CELLS, HOT_FAR_MAX = 20, 0.05
 # the application (phases 17-21)
-APP_ORBIT_FRAMES = 16
+APP_ORBIT_FRAMES = 8
+APP_SWEEP_STEP = 0.1            # the app's own is 0.05: half the views
 LANDMARK_ATOL, PLACEMENT_ATOL = 5e-3, 1e-3
 PSNR_FLOATY_DB = 40.0
 COLLIDE_MAX_CALLS = 200
@@ -294,13 +323,15 @@ def write_glasses_gltf(path):
     return len(idx) // 3
 
 
-def make_renderer(device, width, height, glasses, **load_kw):
-    """The trained head with the glasses placed on it, camera as the
+def make_renderer(device, width, height, glasses, snapshot=SNAPSHOT,
+                  aabb=(0.1, 0.9), **load_kw):
+    """A head snapshot (the trained one by default) in the render aabb
+    [aabb[0], aabb[1]]^3 with the glasses placed on it, camera as the
     repository's bench places it; load_kw goes to load_nerf (bake=...)."""
     r = NerfMeshRenderer(width, height, device=device)
-    nerf = r.load_nerf(SNAPSHOT, **load_kw)
-    nerf.render_aabb.min = np.array([0.1, 0.1, 0.1], np.float32)
-    nerf.render_aabb.max = np.array([0.9, 0.9, 0.9], np.float32)
+    nerf = r.load_nerf(snapshot, **load_kw)
+    nerf.render_aabb.min = np.full(3, aabb[0], np.float32)
+    nerf.render_aabb.max = np.full(3, aabb[1], np.float32)
     if r.load_mesh(glasses, t=[0.0, 0.1, 0.22], s=[0.25, 0.25, 0.25]) is None:
         raise RuntimeError("the glasses glTF did not load")
     r.orbit(0.4, -0.1, 0)
@@ -420,13 +451,16 @@ def timed_steps(tr, n):
     return n / (time.perf_counter() - t0)
 
 
-def device_profile(fn):
+def device_profile(fn, host=True):
     """torch.profiler over one call of fn -> (wall ms, device-busy ms,
-    {device operation: (ms, launches)})."""
+    {device operation: (ms, launches)}). host=False traces the device
+    alone: a frame of 10^5 launches then costs seconds less to trace and
+    to read back."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = ([ProfilerActivity.CPU] if host else []) + [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -591,10 +625,9 @@ def in_turns(others, fn_name, check_args, plain, time_args, reps):
         for name, ts in times.items()))
 
 
-def training_phases(dev, tmp, lap):
-    """Phases 11-16 and the step profile: capture, train, save and render,
-    resume, the reference config, card against CPU."""
-    # 11: the capture, through the port's tiled mesh pass
+def capture_phase(dev, lap):
+    """Phase 11: the capture, through the port's tiled mesh pass ->
+    (training dataset, holdout cameras, holdout ground truth)."""
     ds, hcams, gts, cap_launches = build_capture(dev)
     print(f"capture: {CAP_TRAIN} training + {CAP_HOLDOUT} holdout views at "
           f"{CAP_W}x{CAP_W}, tiled kernel launches {cap_launches}, mean alpha "
@@ -602,6 +635,13 @@ def training_phases(dev, tmp, lap):
     if cap_launches < CAP_TRAIN + CAP_HOLDOUT:
         raise AssertionError("the capture did not launch the tiled kernel")
     lap(11)
+    return ds, hcams, gts
+
+
+def training_phases(dev, tmp, lap):
+    """Phases 11-16 and the step profile: capture, train, save and render,
+    resume, the reference config, card against CPU -> the capture."""
+    ds, hcams, gts = capture_phase(dev, lap)
 
     # 12: train from scratch to the loss contract
     opts = ttr.TrainOptions(config=NGPConfig.native_fast())
@@ -691,16 +731,16 @@ def training_phases(dev, tmp, lap):
     torch.cuda.reset_peak_memory_stats()
     tr_ref = ttr.Trainer(ds, ttr.TrainOptions(config=ref_cfg), seed=3, device=dev)
     tr_ref.train(16)
-    sps_ref = timed_steps(tr_ref, 64)
+    sps_ref = timed_steps(tr_ref, 32)
     ref_peak = torch.cuda.max_memory_allocated()
     hist = np.asarray(tr_ref.loss_history)
     first, last = float(hist[:16].mean()), float(hist[-16:].mean())
     tab_mib = tr_ref.net.grid.numel() * 4 / 2**20
     print(f"reference config (16 levels x 2, 2^19 rows, {tab_mib:.0f} MiB f32 "
           f"padded table, {ref_cfg.n_grid_params * 4 / 2**20:.0f} MiB of "
-          f"params): {sps_ref:.2f} steps/s (16 + 64 timed), peak device memory "
+          f"params): {sps_ref:.2f} steps/s (16 + 32 timed), peak device memory "
           f"{ref_peak / 2**30:.3f} GiB, mean loss steps 1-16 {first:.5f} -> "
-          f"65-80 {last:.5f}")
+          f"33-48 {last:.5f}")
     if not (np.isfinite(hist).all() and last < first):
         raise AssertionError("the reference config does not train")
     del tr_ref
@@ -733,6 +773,194 @@ def training_phases(dev, tmp, lap):
     if not (loss_rel <= 1e-5 and worst <= 1e-4):
         raise AssertionError("card and CPU training steps disagree")
     lap(16)
+    return ds
+
+
+# ---------------------------------------------------------------------------
+# Multi-cascade scenes (phases 22-26)
+# ---------------------------------------------------------------------------
+
+MC_AABB = (0.5 - 0.5 * MC_AABB_SCALE, 0.5 + 0.5 * MC_AABB_SCALE)
+
+
+def timed_frames(renderer, nerf, n=3):
+    """1 warm-up + n frames -> (warm-up ms, ms a frame by the host clock to
+    synchronize, epochs of each frame, tiled-kernel launches of all n + 1,
+    peak device memory). The launch count is zeroed here."""
+    torch.cuda.reset_peak_memory_stats()
+    mesh_cuda.launches = 0
+    renderer.frame()
+    torch.cuda.synchronize()
+    warm_ms = renderer.last_frame_ms
+    t0 = time.perf_counter()
+    epochs = []
+    for _ in range(n):
+        renderer.frame()
+        epochs.append(nerf.last_march_epochs)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1000.0 / n
+    return warm_ms, ms, epochs, mesh_cuda.launches, torch.cuda.max_memory_allocated()
+
+
+def multicascade_phases(dev, tmp, lap, glasses, ds):
+    """Phases 22-26 -> the tiled kernel's launches in the 4 + 4 timed exact
+    and flash hybrid frames."""
+    # 22: the scene, trained with the port on the capture at aabb_scale 4
+    ds4 = dataclasses.replace(
+        ds, aabb_scale=MC_AABB_SCALE,
+        render_aabb=BoundingBox([MC_AABB[0]] * 3, [MC_AABB[1]] * 3))
+    cfg = NGPConfig.native_fast(aabb_scale=MC_AABB_SCALE)
+    n_casc = cfg.max_cascade + 1
+    torch.cuda.reset_peak_memory_stats()
+    tr = ttr.Trainer(ds4, ttr.TrainOptions(config=cfg), seed=3, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.train(MC_TRAIN_STEPS)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    cells = (tr.state["occ"][:n_casc] > 0).sum(dim=(1, 2, 3)).tolist()
+    snap = os.path.join(tmp, "multicascade.msgpack")
+    tr.save_snapshot(snap)
+    print(f"multi-cascade scene (native_fast(aabb_scale={MC_AABB_SCALE}), "
+          f"{n_casc} cascades, cone angle {cfg.cone_angle_constant:.6f}, the "
+          f"capture at aabb_scale {MC_AABB_SCALE}): {tr.step} steps in "
+          f"{train_s:.2f} s ({tr.step / train_s:.2f} steps/s), loss "
+          f"{tr.loss:.6f}, ema {float(tr.state['loss_ema']):.6f}, occupied "
+          f"cells per cascade {cells}, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, snapshot "
+          f"{os.path.getsize(snap) / 2**20:.1f} MiB")
+    if not (np.isfinite(tr.loss) and cells[0] > 0):
+        raise AssertionError("the multi-cascade scene did not train")
+    del tr
+    lap(22)
+
+    # 23: the exact hybrid frame, every cascade on the rays' path
+    renderer, nerf = make_renderer(dev, W, H, glasses, snap, MC_AABB)
+    opts = nerf._march_options()
+    if not (nerf.config.max_cascade == n_casc - 1 and opts.dist_advance
+            and tuple(nerf._scene()["dist_mips"].shape) == (n_casc,) + (128,) * 3):
+        raise AssertionError("the snapshot did not load as a multi-cascade scene")
+    warm_ms, exact_ms, epochs, launches, peak = timed_frames(renderer, nerf)
+    fb = renderer._frame_buffer
+    img = renderer.display_image()
+    surf_px = int((nerf._surface_t > 0).sum())
+    head_share = float((fb[..., 3] > 0.5).float().mean())
+    print(f"multi-cascade exact hybrid {W}x{H}, render aabb [{MC_AABB[0]}, "
+          f"{MC_AABB[1]}]^3: warm-up frame {warm_ms:.1f} ms, {exact_ms:.1f} "
+          f"ms/frame (3 frames, host clock to synchronize), march epochs "
+          f"{epochs}, tiled kernel launches {launches}, peak device memory "
+          f"{peak / 2**30:.2f} GiB, head share {head_share:.3f}, mesh pixels "
+          f"{surf_px}, path {nerf.last_render_path}, cone angle "
+          f"{opts.cone_angle:.6f}, dist_advance {opts.dist_advance}")
+    if not (img.shape == (H, W, 4) and np.isfinite(img).all()
+            and bool(torch.isfinite(fb).all())):
+        raise AssertionError("multi-cascade frame is not finite")
+    if not 0.02 <= head_share <= 0.9:
+        raise AssertionError(f"implausible head coverage {head_share}")
+    if surf_px < W * H // 1000 or launches != 4:
+        raise AssertionError(f"{surf_px} mesh pixels, {launches} kernel "
+                             f"launches in 4 hybrid frames")
+    img_exact = fresh_frame(renderer)
+    wall, busy, ops = device_profile(renderer.frame, host=False)
+    print(f"one multi-cascade exact frame under torch.profiler: "
+          f"{sum(c for _, c in ops.values())} device operations, device busy "
+          f"{busy:.2f} ms of {wall:.2f} ms wall ({busy / wall:.1%})")
+    lap(23)
+
+    # 24: baked + flash through load_nerf(bake=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    frenderer, fnerf = make_renderer(dev, W, H, glasses, snap, MC_AABB,
+                                     bake=True, bake_resolution=MC_BAKE_RES)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fnerf.bake(MC_BAKE_RES)                  # the same bake, timed alone
+    torch.cuda.synchronize()
+    bake_s = time.perf_counter() - t0
+    sig, feat = fnerf._baked_sigma, fnerf._baked_feat
+    print(f"multi-cascade load_nerf(bake=True, bake_resolution={MC_BAKE_RES}): "
+          f"{load_s:.2f} s (load + bake + fidelity probe); bake alone "
+          f"{bake_s:.2f} s; sigma {tuple(sig.shape)} "
+          f"{sig.numel() * sig.element_size() / 2**20:.0f} MiB, features "
+          f"{tuple(feat.shape)} {feat.numel() * feat.element_size() / 2**20:.0f} "
+          f"MiB; splat points {fnerf._scene()['occ_pts'].shape[0]}; fidelity "
+          f"probe {fnerf.bake_fidelity}")
+    if fnerf.bake_fidelity is None or fnerf.bake_fidelity[1] != "ok":
+        raise AssertionError(f"bake fidelity probe: {fnerf.bake_fidelity}")
+    fwarm_ms, flash_ms, fepochs, flaunches, fpeak = timed_frames(frenderer, fnerf)
+    print(f"multi-cascade flash {W}x{H}: warm-up frame {fwarm_ms:.1f} ms, "
+          f"{flash_ms:.1f} ms/frame (3 frames, host clock to synchronize), "
+          f"march epochs {fepochs}, tiled kernel launches {flaunches}, peak "
+          f"device memory {fpeak / 2**30:.2f} GiB, path {fnerf.last_render_path}")
+    if fnerf.last_render_path != "flash" or flaunches != 4:
+        raise AssertionError(f"render path {fnerf.last_render_path}, "
+                             f"{flaunches} kernel launches in 4 frames")
+    img_flash = fresh_frame(frenderer)
+    p_flash = psnr(img_flash[..., :3], img_exact[..., :3])
+    print(f"multi-cascade flash frame vs exact frame (same camera, sample 0): "
+          f"{p_flash:.2f} dB")
+    if not np.isfinite(img_flash).all() or p_flash < PSNR_FLASH_VS_EXACT_DB:
+        raise AssertionError("multi-cascade flash frame too far from the exact one")
+    wall, busy, ops = device_profile(frenderer.frame, host=False)
+    print(f"one multi-cascade flash frame under torch.profiler: "
+          f"{sum(c for _, c in ops.values())} device operations, device busy "
+          f"{busy:.2f} ms of {wall:.2f} ms wall ({busy / wall:.1%})")
+    del frenderer, fnerf, sig, feat
+    lap(24)
+
+    # 25: small frames on the card against the CPU, exact and flash
+    cpu = torch.device("cpu")
+    for label, load_kw in (("exact", {}),
+                           ("flash", dict(bake=True, bake_resolution=128,
+                                          verify_fidelity=False))):
+        small, scenes = [], []
+        for device in (dev, cpu):
+            r, n = make_renderer(device, 160, 90, glasses, snap, MC_AABB,
+                                 **load_kw)
+            n.march_overrides = {"compute_dtype": "float32"}
+            r.frame()
+            if n.last_render_path != ("flash" if load_kw else "unbaked"):
+                raise AssertionError(f"render path {n.last_render_path}")
+            small.append(r.display_image())
+            scenes.append(n._scene())
+        p = psnr(small[0][..., :3], small[1][..., :3])
+        print(f"multi-cascade 160x90 {label} frame, card vs CPU (float32 "
+              f"MLPs): {p:.2f} dB")
+        if p < PSNR_CPU_DB:
+            raise AssertionError(f"card and CPU multi-cascade {label} frames "
+                                 f"disagree")
+    lap(25)
+
+    # 26: the clearance pyramid, card against CPU
+    card, host = scenes                      # the flash pair's scenes
+    pyr_card, pyr_cpu = card["dist_mips"], host["dist_mips"]
+    same = bool(torch.equal(pyr_card.cpu(), pyr_cpu))
+    pts_same = bool(torch.equal(card["occ_pts"].cpu(), host["occ_pts"]))
+    build_ms = cuda_ms(lambda: occ_ops.build_dist_grid_cascades(
+        card["occ"], n_casc - 1), 3)
+    print(f"clearance pyramid {tuple(pyr_card.shape)} {pyr_card.dtype}: card "
+          f"equals CPU {same}, largest clearance per cascade "
+          f"{pyr_card.amax(dim=(1, 2, 3)).tolist()}, splat points equal "
+          f"{pts_same}; built on the card in {build_ms:.2f} ms (CUDA events)")
+    if not (same and pts_same):
+        raise AssertionError("the card's clearance pyramid differs from the CPU's")
+    # one probe on a frame's worth of rays: its device operations
+    gen = torch.Generator(device=dev).manual_seed(26)
+    n_rays = W * H
+    pos = torch.rand((n_rays, 3), generator=gen, device=dev) * (
+        MC_AABB[1] - MC_AABB[0]) + MC_AABB[0]
+    d = torch.nn.functional.normalize(
+        torch.randn((n_rays, 3), generator=gen, device=dev), dim=-1)
+    t = torch.rand((n_rays,), generator=gen, device=dev) * 4.0
+    dt = occ_ops.calc_dt(t, opts.cone_angle)
+    wall, busy, ops = device_profile(
+        lambda: raymarch._dist_probe_mips(card, pos, t, d, dt, opts))
+    print(f"_dist_probe_mips on {n_rays} rays: "
+          f"{sum(c for _, c in ops.values())} device operations, device "
+          f"{busy:.3f} ms of {wall:.3f} ms wall")
+    lap(26)
+    return launches + flaunches
 
 
 # ---------------------------------------------------------------------------
@@ -878,6 +1106,7 @@ def application_phases(dev, tmp, lap, glasses):
     gt = face_landmarks()
     gt_list = [gt[i] for i in placement.LANDMARK_ORDER]
     render_app.W, render_app.H = W, H
+    render_app.SWEEP_STEP = APP_SWEEP_STEP
     reference = np.random.default_rng(0).standard_normal((478, 3))
     mesh_cuda.launches = 0
     torch.cuda.synchronize()
@@ -1172,7 +1401,7 @@ def application_phases(dev, tmp, lap, glasses):
     return app_launches
 
 
-def main(tmp, dirs):
+def main(tmp, dirs, multicascade_only=False):
     # 1
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py runs on the GPU only")
@@ -1201,6 +1430,12 @@ def main(tmp, dirs):
 
     glasses = os.path.join(tmp, "glasses.gltf")
     n_tris = write_glasses_gltf(glasses)
+    if multicascade_only:
+        ds, _, _ = capture_phase(dev, lap)
+        multicascade_phases(dev, tmp, lap, glasses, ds)
+        print(f"total {time.perf_counter() - t_start:.1f} s (multi-cascade "
+              f"phases only: no result)")
+        return
     renderer, nerf = make_renderer(dev, W, H, glasses)
     print(f"glasses: {n_tris} triangles")
     lap(2)
@@ -1241,20 +1476,7 @@ def main(tmp, dirs):
     lap(3)
 
     # 4: the slice
-    torch.cuda.reset_peak_memory_stats()
-    mesh_cuda.launches = 0
-    renderer.frame()
-    torch.cuda.synchronize()
-    warm_ms = renderer.last_frame_ms
-    t0 = time.perf_counter()
-    epochs = []
-    for _ in range(3):
-        renderer.frame()
-        epochs.append(nerf.last_march_epochs)
-    torch.cuda.synchronize()
-    frame_ms = (time.perf_counter() - t0) * 1000.0 / 3
-    launches = mesh_cuda.launches
-    peak = torch.cuda.max_memory_allocated()
+    warm_ms, frame_ms, epochs, launches, peak = timed_frames(renderer, nerf)
     fb = renderer._frame_buffer
     img = renderer.display_image()
     surf_px = int((nerf._surface_t > 0).sum())
@@ -1355,21 +1577,9 @@ def main(tmp, dirs):
           f"MiB; fidelity probe {fnerf.bake_fidelity}")
     if fnerf.bake_fidelity is None or fnerf.bake_fidelity[1] != "ok":
         raise AssertionError(f"bake fidelity probe: {fnerf.bake_fidelity}")
-    torch.cuda.reset_peak_memory_stats()
-    mesh_cuda.launches = 0
     mesh_cuda.raycast_launches = 0
-    frenderer.frame()
-    torch.cuda.synchronize()
-    fwarm_ms = frenderer.last_frame_ms
-    t0 = time.perf_counter()
-    fepochs = []
-    for _ in range(3):
-        frenderer.frame()
-        fepochs.append(fnerf.last_march_epochs)
-    torch.cuda.synchronize()
-    flash_ms = (time.perf_counter() - t0) * 1000.0 / 3
-    flash_launches = mesh_cuda.launches
-    fpeak = torch.cuda.max_memory_allocated()
+    fwarm_ms, flash_ms, fepochs, flash_launches, fpeak = timed_frames(
+        frenderer, fnerf)
     print(f"flash {W}x{H}: warm-up frame {fwarm_ms:.1f} ms, {flash_ms:.1f} "
           f"ms/frame (3 frames, host clock to synchronize), march epochs "
           f"{fepochs}, peak device memory {fpeak / 2**30:.2f} GiB, path "
@@ -1462,9 +1672,10 @@ def main(tmp, dirs):
         raise AssertionError("card and CPU flash frames disagree")
     lap(10)
 
-    training_phases(dev, tmp, lap)
+    ds = training_phases(dev, tmp, lap)
     del renderer, nerf
     app_launches = application_phases(dev, tmp, lap, glasses)
+    mc_launches = multicascade_phases(dev, tmp, lap, glasses, ds)
 
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
@@ -1476,7 +1687,9 @@ def main(tmp, dirs):
         "library_ms": None, "share": b1_ms / k_ms,
         "launches_per_frame": launches / 4,
         "app_launches": app_launches,
-        "app_launches_per_frame": app_launches / APP_ORBIT_FRAMES}, {
+        "app_launches_per_frame": app_launches / APP_ORBIT_FRAMES,
+        "multicascade_launches": mc_launches,
+        "multicascade_launches_per_frame": mc_launches / 8}, {
         "name": "raycast", "route": "cuda",
         "source": "nerf_glasses_tpu_torch/csrc/mesh_raycast.cu",
         "replaces": "nerf_glasses_tpu/ops/mesh_pallas.py:91",
@@ -1491,5 +1704,7 @@ def main(tmp, dirs):
 
 
 if __name__ == "__main__":
+    flag = "--multicascade-only"
     with tempfile.TemporaryDirectory() as tmpdir:
-        main(tmpdir, sys.argv[1:])
+        main(tmpdir, [a for a in sys.argv[1:] if a != flag],
+             multicascade_only=flag in sys.argv[1:])

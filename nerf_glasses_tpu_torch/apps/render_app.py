@@ -40,6 +40,9 @@ Usage: python -m nerf_glasses_tpu_torch.apps.render_app -n <msgpack> \\
 W = 1280
 H = 720
 DEVICE = "cuda"
+# angle step of the landmark sweep over [0, pi): 63 views at the
+# reference's 0.05 (render.py:147); a coarser step is a shorter sweep
+SWEEP_STEP = 0.05
 
 
 def _mediapipe_face_mesh():
@@ -97,7 +100,7 @@ def find_3d_landmarks(renderer, nerf, landmark_fn, reference_landmarks):
     renderer.orbit(-np.pi / 2, 0, 0)
     renderer.frame()
 
-    step = 0.05
+    step = SWEEP_STEP
     for i in np.arange(0, np.pi, step):
         polar_step = step * np.deg2rad(40 / 2)
         azimuth_step = step * np.deg2rad(60 / 2)

@@ -11,6 +11,11 @@ Reference semantics:
   cascaded_grid_idx_at / occupied_at       testbed.cu:234-264
   distance/advance_to_next_voxel           testbed.cu:293-315
   calc_dt                                  testbed.cu:230-232
+
+The Chebyshev clearance grids (build_dist_grid, build_dist_grid_cascades,
+dist_at) have no counterpart in the reference: they let the march hop
+the whole empty ball around a voxel per lookup (raymarch._dist_probe,
+_dist_probe_mips).
 """
 
 from __future__ import annotations
@@ -146,3 +151,50 @@ def skip_level_at(skip: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     """Jump levels at cascade-0 positions (..., 3) -> (...,) uint8."""
     c = _cell(pos)
     return skip.reshape(-1)[(c[..., 2] * GRID + c[..., 1]) * GRID + c[..., 0]]
+
+
+def _dilate_chebyshev(g: torch.Tensor) -> torch.Tensor:
+    """One 3x3x3 Chebyshev dilation of a bool grid (..., G, G, G), zero
+    beyond the edges: nothing is occupied outside a cascade's cube.
+    Separable: each axis ORs in its two shifted neighbours."""
+    for axis in (-3, -2, -1):
+        n = g.shape[axis]
+        out = g.clone()
+        out.narrow(axis, 0, n - 1).logical_or_(g.narrow(axis, 1, n - 1))
+        out.narrow(axis, 1, n - 1).logical_or_(g.narrow(axis, 0, n - 1))
+        g = out
+    return g
+
+
+def build_dist_grid(occ: torch.Tensor, max_dist: int = 31,
+                    level: int = 0) -> torch.Tensor:
+    """Chebyshev distance in voxels to the nearest occupied `level` voxel
+    -> (G, G, G) uint8 on the occupancy's device; 0 = occupied, capped at
+    max_dist. After k dilations a voxel is marked iff its distance is
+    <= k, so the unmarked indicator summed over the rounds is the capped
+    distance."""
+    return build_dist_grid_cascades(occ[level:level + 1], 0, max_dist)[0]
+
+
+def build_dist_grid_cascades(occ: torch.Tensor, max_cascade: int,
+                             max_dist: int = 31) -> torch.Tensor:
+    """Per-cascade clearance pyramid -> (max_cascade + 1, G, G, G) uint8,
+    each level in its own cascade-local voxels; the levels dilate
+    together.
+
+    build_occupancy pools each finer level into the inner half of the
+    next, so an empty cascade-c ball holds no finer-cascade content;
+    coarser cascades may still be occupied there, which is why the probe
+    clamps its hop (raymarch._dist_probe_mips)."""
+    cur = occ[:max_cascade + 1] > 0
+    dist = (~cur).to(torch.uint8)
+    for _ in range(max_dist - 1):
+        cur = _dilate_chebyshev(cur)
+        dist += ~cur
+    return dist
+
+
+def dist_at(dist: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """Clearance at cascade-0 positions (..., 3) -> (...,) uint8, indexed
+    like skip_level_at."""
+    return skip_level_at(dist, pos)

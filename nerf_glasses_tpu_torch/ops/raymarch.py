@@ -21,8 +21,18 @@ march (:600-607); crossing t_surface blends the surface colour in
 front-to-back order (:843-857); rays that end blend any unconsumed
 surface colour with the remaining transmittance (:886-897).
 
+Multi-cascade scenes (aabb_scale > 1) probe the occupancy level that
+governs each sample (mip_from_dt) and, with `MarchOptions.dist_advance`,
+cross empty space on the per-cascade clearance pyramid (`_dist_probe_mips`):
+one lookup gives the occupancy bit and a hop to the edge of the empty ball
+around the voxel, landed on the cone-stepping ladder (`_ladder_jump`).
+Testbed turns it on for every multi-cascade path: the bounded per-voxel
+init walk rarely settles there, t_start stays 0, and the march would gate
+at coarse absolute-t mips.
+
 The fast path (`MarchOptions.use_baked_sigma`, ops/bake.py) reads sigma
-from a baked grid instead of the network. Its flash form adds a coarse
+from a baked grid instead of the network (one grid per cascade, sampled
+at each sample's mip). Its flash form adds a coarse
 init (`flash_init`: occupied voxels splatted into a 1/F-resolution depth
 grid, min-filtered), 16-sample vector rounds and one deferred shade per
 ray. Where the JAX package coloured whole 4096-sample windows of a stable
@@ -44,7 +54,10 @@ import torch.nn.functional as nnf
 from nerf_glasses_tpu_torch import constants as C
 from nerf_glasses_tpu_torch.config import NGPConfig
 from nerf_glasses_tpu_torch.ops import occupancy as occ_ops
-from nerf_glasses_tpu_torch.ops.bake import sample_baked_sigma, sample_feat_grid
+from nerf_glasses_tpu_torch.ops.bake import (sample_baked_sigma,
+                                             sample_baked_sigma_mip,
+                                             sample_feat_grid,
+                                             sample_feat_grid_mip)
 from nerf_glasses_tpu_torch.ops.colors import srgb_to_linear
 from nerf_glasses_tpu_torch.ops.compaction import stable_partition_ids
 from nerf_glasses_tpu_torch.ops.hashgrid import U32, mul_u32
@@ -64,6 +77,8 @@ class MarchOptions:
     init_skip_iters: int = 16    # bounded DDA skips at ray init
     advance_iters: int = 48      # per-epoch empty-space advance
     max_rounds: int = C.MARCH_ITER // C.MAX_STEPS_INBETWEEN_COMPACTION
+    min_mip: int = 0             # floor of every occupancy probe's level
+    rounds_per_epoch: int = 1    # K-sample rounds between compactions
     jitter: bool = True
     compute_dtype: str = "bfloat16"
     # Batch sizes of the JAX package's compacted chunks, colour windows
@@ -98,6 +113,10 @@ class MarchOptions:
     lowres_splat_radius: int = 3    # voxel-splat init: min-filter radius
     # Occupancy-gate the vector rounds' samples even with a baked grid.
     vector_occ_gate: bool = True
+    # Advance on a distance-to-occupied grid instead of the jump grid or
+    # the per-voxel DDA: scene["dist"] (single cascade, constant dt only)
+    # or scene["dist_mips"] (multi-cascade), occupancy.build_dist_grid*.
+    dist_advance: bool = False
 
     @property
     def cdtype(self):
@@ -161,20 +180,144 @@ def _ray_exit_t(o, d, scene):
 
 
 def _occupied(scene, pos, dt, opts: MarchOptions):
-    if opts.config.max_cascade == 0:
+    if opts.config.max_cascade == 0 and opts.min_mip == 0:
         mip = torch.zeros(pos.shape[:-1], dtype=torch.int32,
                           device=pos.device)
     else:
-        mip = occ_ops.mip_from_dt(dt, pos, opts.config.max_cascade)
+        mip = torch.clamp(
+            occ_ops.mip_from_dt(dt, pos, opts.config.max_cascade),
+            min=opts.min_mip)
     return occ_ops.occupied_at(scene["occ"], pos, mip), mip
 
 
+def _dist_probe(scene, pos, t, d):
+    """One-gather clearance probe on cascade 0 -> (occupied, t_advanced).
+
+    scene["dist"] holds the Chebyshev distance k in voxels to the nearest
+    occupied voxel; the ray hops to where it leaves the empty (2k-1)^3
+    box around its voxel (k == 1 is the one-voxel DDA step, k == 0 is
+    occupied). Constant dt only: the advance lands on the same
+    MIN_CONE_STEPSIZE lattice as the DDA probe."""
+    fdt = C.MIN_CONE_STEPSIZE
+    G = C.NERF_GRIDSIZE
+    vox = 1.0 / G
+    k = occ_ops.dist_at(scene["dist"], pos).float()    # uint8 -> float
+    vi = torch.nan_to_num(pos * G).trunc().clamp(0.0, G - 1.0)
+    kk = k[..., None]
+    bound = torch.where(d > 0.0, (vi + kk) * vox, (vi - (kk - 1.0)) * vox)
+    dir_zero = d == 0.0
+    tt = torch.where(dir_zero, 1e9,
+                     (bound - pos) / torch.where(dir_zero, 1.0, d))
+    delta = torch.clamp(torch.amin(tt, dim=-1), min=0.0)
+    return k == 0.0, t + torch.clamp(torch.ceil(delta / fdt), min=1.0) * fdt
+
+
+def _dist_probe_mips(scene, pos, t, d, dt, opts: MarchOptions):
+    """Cascade-aware clearance probe -> (occupied, t_advanced).
+
+    scene["dist_mips"] holds, per cascade, the distance in that cascade's
+    voxels to its nearest occupied voxel. One uint8 gather at the
+    sample's governing mip gives the occupancy bit (k == 0, the same bit
+    as occupied_at) and a hop to the edge of the empty (2k-1)^3 ball.
+    An empty cascade-c ball holds no finer content but may hold coarser
+    content, so the hop is cut where the governing mip could rise:
+    - delta_cube: where the ray leaves the side-2^mip cube (mip_from_pos
+      grows past it), plus one voxel;
+    - delta_dtmip: where the cone step crosses its next power of two
+      (mip_from_dt grows there); none at the MAX_CONE_STEPSIZE clamp or
+      with constant dt.
+    Samples stay occupancy-gated at their own positions, so the step of
+    at least one dt may overshoot the cuts as the DDA probe's does."""
+    G = C.NERF_GRIDSIZE
+    pyr = scene["dist_mips"]
+    mip = torch.clamp(occ_ops.mip_from_dt(dt, pos, opts.config.max_cascade),
+                      min=opts.min_mip)
+    s = torch.exp2(mip.float())[..., None]
+    q = (pos - 0.5) / s + 0.5                       # cascade-local [0, 1]
+    cell = torch.nan_to_num(q * G).trunc().clamp(0.0, G - 1.0)
+    ci = cell.long()
+    flat = ((mip.long() * G + ci[..., 2]) * G + ci[..., 1]) * G + ci[..., 0]
+    k = pyr.reshape(-1)[flat.clamp(0, pyr.numel() - 1)].float()
+
+    vox = 1.0 / G
+    kk = k[..., None]
+    bound = torch.where(d > 0.0, (cell + kk) * vox, (cell - (kk - 1.0)) * vox)
+    dir_zero = d == 0.0
+    safe_d = torch.where(dir_zero, 1.0, d)
+    tt = torch.where(dir_zero, 1e9,
+                     (bound - q) / (safe_d / s))
+    delta_ball = torch.clamp(torch.amin(tt, dim=-1), min=0.0)
+
+    cb = torch.where(d > 0.0, 0.5 + 0.5 * s, 0.5 - 0.5 * s)
+    tc = torch.where(dir_zero, 1e9, (cb - pos) / safe_d)
+    delta = torch.minimum(delta_ball,
+                          torch.clamp(torch.amin(tc, dim=-1), min=0.0) + vox)
+
+    if opts.cone_angle > 0.0:
+        _, e = torch.frexp(dt * (2 * G))
+        tau_next = (torch.exp2(torch.clamp(e, min=0).float())
+                    / (2 * G * opts.cone_angle))
+        tau = dt / opts.cone_angle      # t - t_start while dt is unclamped
+        delta_dtmip = torch.where(
+            dt >= C.MAX_CONE_STEPSIZE - 1e-9, 1e9,
+            torch.clamp(tau_next - tau, min=0.0) + dt)
+        delta = torch.minimum(delta, delta_dtmip)
+    return k == 0.0, _ladder_jump(t, t + delta, opts.cone_angle)
+
+
+def _ladder_jump(t, target, cone_angle: float):
+    """Smallest point >= target on the stepping ladder t_{i+1} = t_i +
+    calc_dt(t_i) continued from t, at least one step on.
+
+    The exact march walks this ladder through empty space one voxel hop
+    at a time (occupancy.advance_to_next_voxel); landing a clearance hop
+    on the ladder keeps its sample positions where that walk puts them.
+    Closed form per regime: uniform MIN_CONE_STEPSIZE below t1 = MIN /
+    cone, geometric x (1 + cone) from t1 to t2 = MAX / cone, uniform MAX
+    above. float32 log and exp drift ~1e-6 relative from the iterated
+    sum, and one unit of roundoff under the ceil moves a ray one rung."""
+    f32 = np.float32
+    dmin = f32(C.MIN_CONE_STEPSIZE)
+    if cone_angle == 0.0:
+        n = torch.clamp(torch.ceil((target - t) / float(dmin)), min=1.0)
+        return t + n * float(dmin)
+    dmax = f32(C.MAX_CONE_STEPSIZE)
+    cone = f32(cone_angle)
+    t1, t2 = float(dmin / cone), float(dmax / cone)
+    lg = float(f32(np.log1p(cone_angle)))
+    # regime A (t < t1): uniform dmin to min(target, first rung >= t1)
+    tA_end = torch.clamp(target, max=float(f32(t1) + dmin))
+    nA = torch.ceil(torch.clamp(tA_end - t, min=0.0) / float(dmin))
+    out = torch.where(t < t1, t + nA * float(dmin), t)
+    # regime B (t1 <= out < t2, target beyond): geometric
+    need_b = (out < target) & (out >= t1) & (out < t2)
+    ratio = torch.clamp(
+        torch.clamp(target, max=float(f32(t2) * f32(1.0 + cone_angle)))
+        / torch.clamp(out, min=1e-30), min=1.0)
+    nB = torch.ceil(torch.log(ratio) / lg)
+    out = torch.where(need_b, out * torch.exp(nB * lg), out)
+    # regime C (out >= t2, target beyond): uniform dmax
+    need_c = (out < target) & (out >= t2)
+    nC = torch.ceil((target - out) / float(dmax))
+    out = torch.where(need_c, out + nC * float(dmax), out)
+    return torch.maximum(out, t + occ_ops.calc_dt(t, cone_angle))
+
+
 def _skip_probe(scene, pos, t, d, idir, dt, opts: MarchOptions):
-    """One-gather DDA probe -> (occupied, t_advanced). Single-cascade
-    scenes read the jump grid, which gives the occupancy bit and the
-    coarsest empty block in one uint8 gather; multi-cascade scenes probe
-    their mip and step one voxel of it."""
-    if opts.config.max_cascade == 0:
+    """One-gather empty-space probe -> (occupied, t_advanced). With
+    dist_advance the clearance grids serve it (_dist_probe on a single
+    cascade with constant dt, _dist_probe_mips on several cascades).
+    Else single-cascade scenes read the jump grid, which gives the
+    occupancy bit and the coarsest empty block in one uint8 gather, and
+    multi-cascade scenes (or a min_mip) probe their mip and step one
+    voxel of it."""
+    cfg = opts.config
+    if (opts.dist_advance and opts.cone_angle == 0.0 and cfg.max_cascade == 0
+            and opts.min_mip == 0 and "dist" in scene):
+        return _dist_probe(scene, pos, t, d)
+    if opts.dist_advance and cfg.max_cascade > 0 and "dist_mips" in scene:
+        return _dist_probe_mips(scene, pos, t, d, dt, opts)
+    if cfg.max_cascade == 0 and opts.min_mip == 0:
         lv = occ_ops.skip_level_at(scene["skip"], pos)
         occ = lv == 255
         res = C.NERF_GRIDSIZE * torch.exp2(-torch.clamp(lv, max=4).float())
@@ -276,11 +419,15 @@ def flash_init(scene, cam: torch.Tensor, width: int, height: int,
     for a plain perspective packed camera (3, 4).
 
     - Voxel splat (scene["occ_pts"], the (M, 3) centres of the occupied
-      mip-0 voxels): project every occupied voxel, scatter-min its camera
-      depth into the coarse grid (an inf-filled grid with one overflow
-      slot for points off screen), min-filter with radius
-      lowres_splat_radius over +inf padding. Every occupied voxel lands
-      in the grid, so the cull is conservative.
+      voxels of every cascade, in raw coordinates): project every
+      occupied voxel, scatter-min its camera depth, less its pad
+      scene["occ_pts_pad"] where the scene has one (the voxel's half
+      diagonal: a coarse cascade's voxel reaches further toward the eye
+      than lowres_slack covers), into the coarse grid (an inf-filled
+      grid with one overflow slot for points off screen or behind the
+      eye), min-filter with radius lowres_splat_radius over +inf padding.
+      Every occupied voxel lands in the grid, so the cull is
+      conservative.
     - Ray walk (no occ_pts): one occupancy walk per FxF block
       (lowres_t_enter), 3x3 min filter over edge padding; rays are culled
       only with lowres_cull.
@@ -302,6 +449,8 @@ def flash_init(scene, cam: torch.Tensor, width: int, height: int,
         inb = valid & (cx >= 0) & (cx < Wl) & (cy >= 0) & (cy < Hl)
         cell = torch.where(inb, cy * Wl + cx, Hl * Wl)
         tgrid = torch.full((Hl * Wl + 1,), torch.inf, device=pts.device)
+        if "occ_pts_pad" in scene:
+            qz = qz - scene["occ_pts_pad"]
         tgrid = tgrid.scatter_reduce(0, cell, qz, "amin")
         tmin = _min_filter(tgrid[:-1].reshape(Hl, Wl),
                            opts.lowres_splat_radius, "inf")
@@ -519,8 +668,15 @@ def _march_round(st, net: NerfNetwork, scene, opts: MarchOptions):
                                           - scene["train_min"])
     dir01 = ((d + 1.0) * 0.5)[None].expand(K, n, 3)
     rgb_s = torch.zeros((K, n, 3), device=d.device)
+    multi = cfg.max_cascade > 0
     if opts.use_baked_sigma:
-        sigma = sample_baked_sigma(scene["sigma"], pos01)
+        if multi:
+            # one grid per cascade: the sample's mip is the occupancy
+            # gate's (testbed.cu:188-202)
+            mip_k = occ_ops.mip_from_dt(dt_k, pos, cfg.max_cascade)
+            sigma = sample_baked_sigma_mip(scene["sigma"], pos, mip_k)
+        else:
+            sigma = sample_baked_sigma(scene["sigma"], pos01)
         if opts.baked_sigma_log:
             sigma = apply_density_activation(sigma, cfg.density_activation)
         alpha_k = torch.where(valid, 1.0 - torch.exp(-sigma * dt_k), 0.0)
@@ -537,8 +693,14 @@ def _march_round(st, net: NerfNetwork, scene, opts: MarchOptions):
     if sel.numel():
         p, dr = pos01.reshape(-1, 3)[sel], dir01.reshape(-1, 3)[sel]
         if opts.use_baked_sigma and opts.feat_color and "feat" in scene:
-            rgb_raw = net.rgb_from_features(sample_feat_grid(scene["feat"], p),
-                                            dr, compute_dtype=opts.cdtype)
+            if multi:
+                feat = sample_feat_grid_mip(
+                    scene["feat"], cfg.max_cascade + 1,
+                    pos.reshape(-1, 3)[sel], mip_k.reshape(-1)[sel])
+            else:
+                feat = sample_feat_grid(scene["feat"], p)
+            rgb_raw = net.rgb_from_features(feat, dr,
+                                            compute_dtype=opts.cdtype)
         else:
             rgb_raw, sigma_raw = net(p, dr, compute_dtype=opts.cdtype)
             if not opts.use_baked_sigma:
@@ -614,21 +776,32 @@ def _deferred_shade(st, net: NerfNetwork, scene, opts: MarchOptions):
     """One colour evaluation per ray with wn > 1e-4, at its max-weight
     sample, scaled by its NeRF weight wn and added to its colour. With a
     baked feature grid (scene["feat"]) the colour is one trilinear
-    feature lookup + the rgb MLP: no hash-table traffic at all."""
+    feature lookup + the rgb MLP: no hash-table traffic at all. On
+    several cascades the feature pyramid is read at the mip the march's
+    gate takes at the shade point's absolute t."""
+    cfg = opts.config
     wn = st["wn"]
     ids = torch.nonzero(wn > 1e-4).squeeze(1)
     if ids.numel() == 0:
         return st
     o, d, t = st["o"][ids], st["d"][ids], st["depth"][ids]
-    pos01 = torch.clamp((o + d * t[:, None] - scene["train_min"])
+    pos_raw = o + d * t[:, None]
+    pos01 = torch.clamp((pos_raw - scene["train_min"])
                         / (scene["train_max"] - scene["train_min"]), 0.0, 1.0)
     dir01 = (d + 1.0) * 0.5
     if "feat" in scene:
-        rgb_raw = net.rgb_from_features(sample_feat_grid(scene["feat"], pos01),
-                                        dir01, compute_dtype=opts.cdtype)
+        if cfg.max_cascade > 0:
+            mip = occ_ops.mip_from_dt(occ_ops.calc_dt(t, opts.cone_angle),
+                                      pos_raw, cfg.max_cascade)
+            feat = sample_feat_grid_mip(scene["feat"], cfg.max_cascade + 1,
+                                        pos_raw, mip)
+        else:
+            feat = sample_feat_grid(scene["feat"], pos01)
+        rgb_raw = net.rgb_from_features(feat, dir01,
+                                        compute_dtype=opts.cdtype)
     else:
         rgb_raw, _ = net(pos01, dir01, compute_dtype=opts.cdtype)
-    rgb = apply_rgb_activation(rgb_raw, opts.config.rgb_activation)
+    rgb = apply_rgb_activation(rgb_raw, cfg.rgb_activation)
     rgba = st["rgba"].clone()
     rgba[ids, :3] = rgba[ids, :3] + rgb * wn[ids][:, None]
     return {**st, "rgba": rgba}
@@ -657,14 +830,17 @@ def march_frame_impl(net: NerfNetwork, scene, o, d, surface_rgba, t_surface,
     With constant dt on a single cascade the init DDA is skipped: the
     per-epoch advance pass performs the identical quantized stepping (and
     the results depend on this choice, as in the reference package).
-    t_floor / alive_mask (N,): the flash coarse init (flash_init). The
-    deferred shade runs once at the end when the options ask for it."""
+    Each epoch is one advance pass and rounds_per_epoch rounds; the epoch
+    budget is max_rounds // rounds_per_epoch. t_floor / alive_mask (N,):
+    the flash coarse init (flash_init). The deferred shade runs once at
+    the end when the options ask for it."""
     if opts.cone_angle == 0.0 and opts.config.max_cascade == 0:
         opts = dataclasses.replace(opts, init_skip_iters=0)
     st = _make_state(scene, o, d, surface_rgba, t_surface, opts,
                      sample_index, t_floor, alive_mask)
     epochs = 0
-    while epochs < max(1, opts.max_rounds):
+    max_epochs = max(1, opts.max_rounds // opts.rounds_per_epoch)
+    while epochs < max_epochs:
         perm, n_alive = stable_partition_ids(st["alive"])
         if n_alive == 0:
             break
@@ -672,7 +848,8 @@ def march_frame_impl(net: NerfNetwork, scene, o, d, surface_rgba, t_surface,
         sub = {k: st[k][ids] for k in _GATHER}
         sub["alive"] = torch.ones(n_alive, dtype=torch.bool, device=o.device)
         sub = _advance_pass(sub, scene, opts, opts.advance_iters)
-        sub = _march_round(sub, net, scene, opts)
+        for _ in range(opts.rounds_per_epoch):
+            sub = _march_round(sub, net, scene, opts)
         for k in _SCATTER:
             st[k][ids] = sub[k]
         epochs += 1
