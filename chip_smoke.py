@@ -75,8 +75,8 @@ application, through pynmr_torch:
 
  17. render_app.run at 1280x720 with an injected landmark provider
      (ground-truth landmarks projected through the live camera) and seeded
-     reference landmarks, a landmark sweep at twice the app's angle step
-     (32 views for its 63) and 8 orbit frames: the triangulated landmarks
+     reference landmarks, a landmark sweep at four times the app's angle
+     step (16 views for its 63) and 8 orbit frames: the triangulated landmarks
      match the ground truth to 5e-3, the placement equals
      compute_glasses_placement on the ground truth to 1e-3, the tiled
      kernel was launched once per hybrid frame (count zeroed just before,
@@ -119,6 +119,44 @@ on every ray's path:
  25. 160x90 frames on the card and on the CPU, exact and flash (bake 128),
      float32 MLPs: >= 40 dB each;
  26. the clearance pyramid built on the card equals the CPU's.
+Then the camera model and the trainable auxiliary models, on the trained
+head at 1280x720 with the mesh pass at 2x and the glasses:
+
+ 27. seven cameras through NerfMeshRenderer.frame(): OpenCV distortion (k1
+     k2 p1 p2 = 0.1 0.02 0.002 0.002 on the dataset's first camera),
+     f-theta over the whole frame, lat-long, an 8x8 distortion grid of
+     0.02, depth of field (aperture 0.02, focus at the head), a rolling
+     shutter (the end camera 0.02 to the side, shutter (0, 0, 1, 0), passed
+     to Testbed.render_frame_buffers; then once through
+     render_with_rolling_shutter) and pixel-centre snapping: 1 warm-up + 1
+     timed frame each, finite, differing from the plain frame of the same
+     sample index by more than 1e-3 somewhere, one tiled-kernel launch per
+     frame (zeroed just before, read just after); a load_nerf(bake=True)
+     renderer with depth of field reports "baked (flash disabled: non-plain
+     camera)", its frame time beside phase 8's flash frame;
+ 28. each camera of phase 27 at 160x90 on the card and on the CPU, float32
+     MLPs, jitter off: >= 40 dB each;
+ 29. the capture with one camera's translation shifted by (0.06, -0.045,
+     0.03), native_fast() with 8 latent dims, extrinsics, exposure,
+     distortion and envmap training, 2048 rays x 48 samples, 256 steps:
+     the loss finite and falling, every aux array finite and moved; the
+     steps/s of the last 32 steps beside phase 12's plain rate, the
+     shifted camera's translation error before and after; save_snapshot,
+     load_nerf, one finite frame, the loaded latent codes equal the
+     trainer's first row to 1e-2;
+ 30. one f32 step with every aux model, card against CPU from the same
+     pixels and samples, checked at trained_head_v6's network (trained on
+     the bench capture) with phase 29's latent columns made from seed 3
+     and seeded aux models, the same in every run: the card's rays within
+     1e-5 of the CPU's; each device differentiates its own ray generation
+     with the rays' values pinned to the CPU's (an ulp of position is 1e-4
+     of a cell of the finest hash level): loss to rtol 1e-5, every
+     gradient array (the aux arrays' included) to 1e-4 of its max |g|,
+     twice (the card's atomic adds may reorder). The same step at phase 29's trained network, with seeded and with
+     its own trained aux models, is printed beside the CPU's sensitivity
+     to 2 ulp of the parameters, and not checked: the training on the
+     card differs from run to run, and where the gradient nearly cancels
+     the card's roundoff moves it past 1e-4 (aux_step_card_vs_cpu).
 Each phase prints its seconds.
 
 Prints one JSON line with the kernels' numbers (time, bound and share of
@@ -131,6 +169,7 @@ not beside it.
 
 import base64
 import dataclasses
+import functools
 import importlib.util
 import io
 import json
@@ -151,7 +190,9 @@ import pynmr_torch
 from nerf_glasses_tpu_torch import constants as C
 from nerf_glasses_tpu_torch.apps import render_app, viewer_app
 from nerf_glasses_tpu_torch.config import NGPConfig
+from nerf_glasses_tpu_torch.io import dataset as ds_io
 from nerf_glasses_tpu_torch.io.dataset import ImageMetadata, NerfDataset
+from nerf_glasses_tpu_torch.io import snapshot as snap_io
 from nerf_glasses_tpu_torch.io.gltf import (GltfMaterial, GltfMesh, GltfNode,
                                             GltfPrimitive, GltfScene)
 from nerf_glasses_tpu_torch.models import floaty
@@ -162,7 +203,8 @@ from nerf_glasses_tpu_torch.ops import raymarch
 from nerf_glasses_tpu_torch.ops import triangles as tri_ops
 from nerf_glasses_tpu_torch.ops.colors import linear_to_srgb, srgb_to_linear
 from nerf_glasses_tpu_torch.ops.network import (NerfNetwork,
-                                                apply_density_activation)
+                                                apply_density_activation,
+                                                unpack_params)
 from nerf_glasses_tpu_torch.parallel.sharding import render_hybrid_sharded
 from nerf_glasses_tpu_torch.train import trainer as ttr
 from nerf_glasses_tpu_torch.utils import placement
@@ -207,7 +249,7 @@ RATE_SCRATCH, RATE_SETTLED = (64, 32), (16, 32)
 HOT_MIN_CELLS, HOT_FAR_MAX = 20, 0.05
 # the application (phases 17-21)
 APP_ORBIT_FRAMES = 8
-APP_SWEEP_STEP = 0.1            # the app's own is 0.05: half the views
+APP_SWEEP_STEP = 0.2            # the app's own is 0.05: a quarter of the views
 LANDMARK_ATOL, PLACEMENT_ATOL = 5e-3, 1e-3
 PSNR_FLOATY_DB = 40.0
 COLLIDE_MAX_CALLS = 200
@@ -223,6 +265,20 @@ GLASSES_RIGHT = np.array([1.0, 0.1, -0.05])
 # head of trained_head_v6, inside the bench's render aabb
 BLOB_CELLS = ((110, 110, 20), (110, 110, 110), (20, 110, 64))
 BLOB_RADIUS = 3
+# the camera model and the aux models (phases 27-30)
+OPENCV_LENS = (0.1, 0.02, 0.002, 0.002, 0.0, 0.0, 0.0)
+FTHETA_R1 = 8e-4                # alpha = r1 * |pixel|: 0.59 rad at the corner
+DOF_APERTURE = 0.02
+SHUTTER_SHIFT = 0.02
+CAMERA_DIFF = 1e-3
+AUX_STEPS, AUX_TIMED = 256, 32
+AUX_SHIFT = np.array([0.06, -0.045, 0.03], np.float32)   # test_training.py
+AUX_EXTRA_DIMS = 8
+LATENT_ATOL = 1e-2              # the snapshot stores float16
+AUX_SEEDED = {"cam_rot": (-0.02, 0.02), "cam_trans": (-0.02, 0.02),
+              "distortion": (-0.01, 0.01), "envmap": (0.3, 0.7),
+              "extra_dims": (-0.2, 0.2), "exposure": (-0.2, 0.2)}
+NUDGE_ULPS = 2
 
 
 # ---------------------------------------------------------------------------
@@ -493,7 +549,7 @@ def step_inputs(data, draws, opts):
     occ = torch.ones((8, 128, 128, 128), dtype=torch.uint8, device=dev)
     with torch.no_grad():
         img, px, py, target = ttr._sample_pixels(d, data, None, 0, opts)
-        o, dd = ttr._gen_rays(data, img, px, py, False)
+        o, dd = ttr._gen_rays(data, img, px, py, {}, False)
         samples = ttr.march_training_samples(occ, o, dd, d["u"], opts,
                                              torch.zeros(3, device=dev),
                                              torch.ones(3, device=dev), 0)
@@ -773,7 +829,7 @@ def training_phases(dev, tmp, lap):
     if not (loss_rel <= 1e-5 and worst <= 1e-4):
         raise AssertionError("card and CPU training steps disagree")
     lap(16)
-    return ds
+    return ds, sps_scratch
 
 
 # ---------------------------------------------------------------------------
@@ -961,6 +1017,375 @@ def multicascade_phases(dev, tmp, lap, glasses, ds):
           f"{busy:.3f} ms of {wall:.3f} ms wall")
     lap(26)
     return launches + flaunches
+
+
+# ---------------------------------------------------------------------------
+# The camera model and the trainable auxiliary models (phases 27-30)
+# ---------------------------------------------------------------------------
+
+def _set_lens(nerf, mode, params):
+    md = nerf.dataset.metadata[0]
+    md.lens_mode, md.lens_params = mode, tuple(params)
+    nerf.nerf.render_with_lens_distortion = True
+
+
+def _cam_opencv(renderer, nerf):
+    _set_lens(nerf, "opencv", OPENCV_LENS)
+
+
+def _cam_ftheta(renderer, nerf):
+    _set_lens(nerf, "ftheta", (0.0, FTHETA_R1 * W / renderer.render_width,
+                               0.0, 0.0, 0.0, renderer.render_width,
+                               renderer.render_height))
+
+
+def _cam_latlong(renderer, nerf):
+    _set_lens(nerf, "latlong", (0.0,) * 7)
+
+
+def _cam_grid(renderer, nerf):
+    nerf.nerf.render_with_lens_distortion = True
+    nerf.distortion_map = np.full((8, 8, 2), 0.02, np.float32)
+
+
+def _cam_dof(renderer, nerf):
+    cam = renderer.view_projection_mat
+    nerf.aperture_size = DOF_APERTURE
+    nerf.focus_z = float(np.dot(np.asarray(HEAD_CENTER) - cam[:, 3], cam[:, 2]))
+
+
+def _cam_shutter(renderer, nerf):
+    """The renderer's frame() renders its NeRF through
+    render_frame_buffers; here that call gets the shutter's end camera."""
+    end = renderer.view_projection_mat.copy()
+    end[0, 3] += SHUTTER_SHIFT
+    nerf.render_frame_buffers = functools.partial(
+        type(nerf).render_frame_buffers, nerf, camera_end=end,
+        rolling_shutter=np.array([0.0, 0.0, 1.0, 0.0], np.float32))
+
+
+def _cam_snap(renderer, nerf):
+    nerf.snap_to_pixel_centers = True
+
+
+CAMERAS = {"opencv": _cam_opencv, "ftheta": _cam_ftheta,
+           "latlong": _cam_latlong, "distortion grid": _cam_grid,
+           "depth of field": _cam_dof, "rolling shutter": _cam_shutter,
+           "snap centers": _cam_snap}
+
+
+def reset_camera(nerf):
+    _set_lens(nerf, "perspective", (0.0,) * 7)
+    nerf.nerf.render_with_lens_distortion = False
+    nerf.distortion_map = None
+    nerf.aperture_size = 0.0
+    nerf.snap_to_pixel_centers = False
+    nerf.__dict__.pop("render_frame_buffers", None)
+
+
+def camera_frame(renderer, nerf):
+    """1 warm-up + 1 timed frame at sample 0 -> (ms by the host clock to
+    synchronize, the frame buffer)."""
+    renderer.frame()
+    renderer.update_model_view_proj()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    renderer.frame()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1000.0, renderer._frame_buffer.clone()
+
+
+def aux_step_grads(net, aux, data, inputs, rays, opts, device):
+    """ttr._loss_and_grads with the aux models `aux` on `device` from the
+    network `net` and the step inputs (phase 30) -> (loss, {name: grad}
+    of the network and of the aux arrays).
+
+    Each device differentiates its own _gen_rays, but the rays' values
+    are pinned to `rays` (the CPU's): the rotation's sine and cosine
+    differ by an ulp or two between the devices, and the finest hash
+    level (2048 cells across the box) makes an ulp of position 1e-4 of a
+    cell, which moves the table's gradient by as much."""
+    x = {k: v.to(device) for k, v in inputs.items()}
+    state = {"net": net.detached_copy().to(device).requires_grad_(True),
+             "aux": {k: a.to(device) for k, a in aux.items()},
+             "aabb_min": x["aabb_min"], "aabb_max": x["aabb_max"]}
+    samples = {k: x[k] for k in ("t", "dt", "valid")}
+    ref = [r.to(device) for r in rays]
+    gen_rays = ttr._gen_rays
+
+    def pinned(*args):
+        return tuple(v + (r - v).detach() for v, r in zip(gen_rays(*args), ref))
+
+    ttr._gen_rays = pinned
+    try:
+        loss, _, grads, aux_grads, _ = ttr._loss_and_grads(
+            state, data, x["img"], x["px"], x["py"], x["target"], samples,
+            x["bg"], opts)
+    finally:
+        ttr._gen_rays = gen_rays
+    return loss, {**grads, **{f"aux {k}": g for k, g in aux_grads.items()}}
+
+
+def camera_phases(dev, tmp, lap, glasses, ds, flash_ms, sps_plain):
+    """Phases 27-30 -> (the tiled kernel's launches in phase 27's hybrid
+    frames, the number of those frames)."""
+    # 27: every camera at full width through the renderer
+    renderer, nerf = make_renderer(dev, W, H, glasses)
+    plain_ms, plain = camera_frame(renderer, nerf)
+    print(f"camera features {W}x{H}, exact path: plain frame {plain_ms:.1f} ms")
+    launches = frames = 0
+    for name, setup in CAMERAS.items():
+        setup(renderer, nerf)
+        mesh_cuda.launches = 0
+        ms, fb = camera_frame(renderer, nerf)
+        n_launch = mesh_cuda.launches
+        launches, frames = launches + n_launch, frames + 2
+        diff = float((fb - plain).abs().max())
+        print(f"  {name}: {ms:.1f} ms/frame (host clock to synchronize), "
+              f"epochs {nerf.last_march_epochs}, path {nerf.last_render_path}, "
+              f"max |frame - plain| {diff:.4f}, tiled kernel launches "
+              f"{n_launch} in 2 frames")
+        if not bool(torch.isfinite(fb).all()):
+            raise AssertionError(f"the {name} frame is not finite")
+        if diff <= CAMERA_DIFF:
+            raise AssertionError(f"the {name} camera did not change the frame")
+        if n_launch != 2:
+            raise AssertionError(f"{n_launch} tiled-kernel launches in 2 "
+                                 f"{name} frames")
+        if name == "rolling shutter":
+            # the same shutter through the Testbed's own entry point, in
+            # dataset space, on the surface buffers of the last mesh pass
+            start = renderer.view_projection_mat.copy()
+            end = start.copy()
+            end[0, 3] += SHUTTER_SHIFT
+            reset_camera(nerf)
+            dsn = nerf.dataset
+
+            def to_nerf(m):
+                return ds_io.ngp_matrix_to_nerf(m, dsn.scale, dsn.offset,
+                                                dsn.from_mitsuba)
+
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            nerf.render_with_rolling_shutter(
+                to_nerf(start), to_nerf(end), [0.0, 0.0, 1.0, 0.0], W, H)
+            rs_ms = (time.perf_counter() - t0) * 1000.0
+            p_rs = psnr(nerf._frame_buffer.cpu().numpy(), fb.cpu().numpy())
+            print(f"  render_with_rolling_shutter {W}x{H}: {rs_ms:.1f} ms to "
+                  f"the host, frame buffer vs the frame() path {p_rs:.2f} dB")
+            if p_rs < PSNR_CPU_DB:
+                raise AssertionError("render_with_rolling_shutter disagrees "
+                                     "with the frame() path")
+        reset_camera(nerf)
+    del renderer, nerf
+    brenderer, bnerf = make_renderer(dev, W, H, glasses, bake=True)
+    _cam_dof(brenderer, bnerf)
+    mesh_cuda.launches = 0
+    dof_ms, fb = camera_frame(brenderer, bnerf)
+    print(f"load_nerf(bake=True) + depth of field {W}x{H}: {dof_ms:.1f} ms/frame "
+          f"(phase 8's flash frame {flash_ms:.1f} ms), path "
+          f"{bnerf.last_render_path!r}, tiled kernel launches "
+          f"{mesh_cuda.launches} in 2 frames")
+    launches, frames = launches + mesh_cuda.launches, frames + 2
+    if bnerf.last_render_path != "baked (flash disabled: non-plain camera)":
+        raise AssertionError(f"render path {bnerf.last_render_path}")
+    if not bool(torch.isfinite(fb).all()) or mesh_cuda.launches != 2:
+        raise AssertionError("the baked depth-of-field frame failed")
+    del brenderer, bnerf
+    lap(27)
+
+    # 28: every camera at 160x90, card against CPU
+    pairs = [make_renderer(device, 160, 90, glasses)
+             for device in (dev, torch.device("cpu"))]
+    for _, n in pairs:
+        n.march_overrides = {"compute_dtype": "float32", "jitter": False}
+    worst = math.inf
+    for name, setup in CAMERAS.items():
+        imgs = []
+        for r, n in pairs:
+            setup(r, n)
+            r.update_model_view_proj()
+            r.frame()
+            imgs.append(r.display_image())
+            reset_camera(n)
+        p = psnr(imgs[0][..., :3], imgs[1][..., :3])
+        worst = min(worst, p)
+        print(f"  160x90 {name}, card vs CPU (float32 MLPs, jitter off): "
+              f"{p:.2f} dB")
+        if not np.isfinite(imgs[0]).all() or p < PSNR_CPU_DB:
+            raise AssertionError(f"card and CPU {name} frames disagree")
+    del pairs
+    lap(28)
+
+    # 29: every aux model at full width on the capture, one camera shifted
+    true_xf = np.array(ds.xforms, np.float32)
+    bad = true_xf.copy()
+    bad[0, :, 3] += AUX_SHIFT
+    ds_aux = dataclasses.replace(ds, xforms=bad, xforms_end=bad.copy())
+    opts = ttr.TrainOptions(
+        config=dataclasses.replace(NGPConfig.native_fast(),
+                                   n_extra_learnable_dims=AUX_EXTRA_DIMS),
+        optimize_extrinsics=True, optimize_exposure=True,
+        optimize_distortion=True, train_envmap=True)
+    tr = ttr.Trainer(ds_aux, opts, seed=3, device=dev)
+    aux0 = {k: a.clone() for k, a in tr.state["aux"].items()}
+    snet = snapshot_net_with_codes(tr.net)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.train(AUX_STEPS - AUX_TIMED)
+    sps_aux = timed_steps(tr, AUX_TIMED)
+    train_s = time.perf_counter() - t0
+    hist = np.asarray(tr.loss_history)
+    first, last = float(hist[:16].mean()), float(hist[-16:].mean())
+    err_before = float(np.linalg.norm(AUX_SHIFT))
+    err_after = float(np.linalg.norm(tr.optimized_xforms()[0, :, 3]
+                                     - true_xf[0, :, 3]))
+    moved = {k: float((a - aux0[k]).abs().max()) for k, a in tr.state["aux"].items()}
+    print(f"aux training (native_fast + {AUX_EXTRA_DIMS} latent dims, "
+          f"extrinsics, exposure, distortion, envmap; {opts.rays_per_batch} "
+          f"rays x {opts.samples_per_ray} samples): {tr.step} steps in "
+          f"{train_s:.2f} s; steps/s of the last {AUX_TIMED} {sps_aux:.2f} "
+          f"against phase 12's plain {sps_plain:.2f}; mean loss steps 1-16 "
+          f"{first:.5f} -> last 16 {last:.5f}; shifted camera's translation "
+          f"error {err_before:.4f} -> {err_after:.4f}; largest move per aux "
+          + ", ".join(f"{k} {v:.3g}" for k, v in moved.items()))
+    if not (np.isfinite(hist).all() and last < first):
+        raise AssertionError("the aux models' run does not train")
+    if not all(bool(torch.isfinite(a).all()) and moved[k] > 0.0
+               for k, a in tr.state["aux"].items()):
+        raise AssertionError("an aux array is not finite or did not move")
+    snap = os.path.join(tmp, "aux.msgpack")
+    tr.save_snapshot(snap)
+    r = NerfMeshRenderer(W, H, device=dev)
+    lnerf = r.load_nerf(snap)
+    r.frame()
+    img = r.display_image()
+    lat = np.asarray(lnerf.extra_dims, np.float32)
+    lat_err = float(np.abs(lat - tr.state["aux"]["extra_dims"][0].cpu().numpy()).max())
+    print(f"aux snapshot: load_nerf frame finite {bool(np.isfinite(img).all())}, "
+          f"loaded latent codes {lat.shape}, max |diff| to the trainer's row "
+          f"0 {lat_err:.2e}")
+    if not np.isfinite(img).all() or lat.shape != (AUX_EXTRA_DIMS,) \
+            or lat_err > LATENT_ATOL:
+        raise AssertionError("the aux snapshot did not load back")
+    del r, lnerf
+    lap(29)
+
+    # 30: one f32 step with every aux model, card against CPU; checked at
+    # a trained network that is the same in every run, and printed at
+    # phase 29's trained one (see aux_step_card_vs_cpu)
+    f32opts = dataclasses.replace(opts, compute_dtype="float32",
+                                  encode_dtype="float32",
+                                  compact_keep_fraction=0.0)
+    seeded = seeded_aux(tr.state["aux"])
+    for name, net, aux, checked in (
+            *((f"trained_head_v6's network with latent columns from seed 3, "
+               f"seeded aux models ({i} of 2)", snet, seeded, True)
+              for i in (1, 2)),
+            ("phase 29's trained network, seeded aux models (not checked)",
+             tr.net, seeded, False),
+            ("phase 29's trained network and aux models (not checked)",
+             tr.net, tr.state["aux"], False)):
+        ray_diff, loss_rel, ratios, sens = aux_step_card_vs_cpu(
+            net, tr, ds_aux, aux, f32opts, dev)
+        print(f"one f32 aux step, card vs CPU, {name}: the card's rays vs "
+              f"the CPU's max |diff| {ray_diff:.2e}; from the CPU's ray "
+              f"values: loss rel {loss_rel:.2e}; worst gradient |diff| / "
+              f"max|g| {max(ratios.values()):.2e} over {len(ratios)} arrays: "
+              + ", ".join(f"{k} {v:.2e}" for k, v in ratios.items())
+              + f"; the CPU against itself with the parameters moved by "
+              f"{NUDGE_ULPS} ulp: worst {max(sens.values()):.2e}")
+        if checked and not (ray_diff <= 1e-5 and loss_rel <= 1e-5
+                            and max(ratios.values()) <= 1e-4):
+            raise AssertionError("card and CPU aux steps disagree")
+    lap(30)
+    return launches, frames
+
+
+def seeded_aux(aux):
+    """Aux models of the shapes of `aux`, drawn from a seed as
+    tests/test_torch_train.py draws them (exposures re-centred), on the
+    CPU."""
+    rng = np.random.default_rng(30)
+    aux = {k: torch.from_numpy(rng.uniform(*AUX_SEEDED[k], tuple(a.shape))
+                               .astype(np.float32)) for k, a in aux.items()}
+    if "exposure" in aux:
+        aux["exposure"] -= aux["exposure"].mean(dim=0)
+    return aux
+
+
+def snapshot_net_with_codes(net):
+    """trained_head_v6's network, trained on the bench capture, with the
+    latent-code columns of `net`'s first colour layer (made from the
+    seed): a trained network of phase 29's shapes that is the same in
+    every run (phase 30), on the CPU."""
+    snap = snap_io.load_snapshot(SNAPSHOT)
+    src = unpack_params(snap.params_blob, snap.config, "cpu")
+    out = net.detached_copy().cpu()
+    with torch.no_grad():
+        for name, p in out.named_parameters():
+            q = getattr(src, name)
+            p[..., :q.shape[-1]] = q
+    return out
+
+
+def nudged(net):
+    """A copy of `net` with every parameter moved by up to NUDGE_ULPS
+    units of float32 roundoff, from a seed."""
+    out = net.detached_copy().cpu()
+    gen = torch.Generator().manual_seed(31)
+    with torch.no_grad():
+        for p in out.parameters():
+            u = torch.rand(p.shape, generator=gen) * 2.0 - 1.0
+            p.mul_(1.0 + NUDGE_ULPS * 2.0 ** -23 * u)
+    return out
+
+
+def aux_step_card_vs_cpu(net, tr, ds_aux, aux, f32opts, dev):
+    """One f32 _loss_and_grads of the network `net` with the aux models
+    `aux` on the card and on the CPU, from phase 29's trainer `tr` and the
+    same draws -> (max |ray diff|, loss rel diff, {array: |grad diff| /
+    max|g|}, the same ratios of the CPU against itself with the
+    parameters nudged).
+
+    The last is the step's sensitivity to float32 roundoff. At phase 29's
+    trained network it changes with each run's training on the card, and
+    where the gradient nearly cancels, roundoff moves it past 1e-4 of max
+    |g| (it did so in one run with seeded aux models); the
+    1e-4 check is made at snapshot_net_with_codes, which every run
+    shares."""
+    cpu = torch.device("cpu")
+    gen = torch.Generator(device=cpu).manual_seed(30)
+    data_cpu = ttr.prepare_dataset_arrays(ds_aux, cpu)
+    draws = ttr.draw_step(gen, {}, data_cpu, f32opts)
+    aux_cpu = {k: a.cpu() for k, a in aux.items()}
+    with torch.no_grad():
+        img_i, px, py, target = ttr._sample_pixels(draws, data_cpu, None, 0,
+                                                   f32opts)
+        o, d = ttr._gen_rays(data_cpu, img_i, px, py, aux_cpu, False)
+        occ = torch.ones((8, 128, 128, 128), dtype=torch.uint8)
+        samples = ttr.march_training_samples(occ, o, d, draws["u"], f32opts,
+                                             tr.state["aabb_min"].cpu(),
+                                             tr.state["aabb_max"].cpu(), 0)
+        o_dev, d_dev = ttr._gen_rays(
+            tr.data, img_i.to(dev), px.to(dev), py.to(dev),
+            {k: a.to(dev) for k, a in aux.items()}, False)
+    ray_diff = float(max((o_dev.cpu() - o).abs().max(),
+                         (d_dev.cpu() - d).abs().max()))
+    inputs = {"img": img_i, "px": px, "py": py, "target": target,
+              "bg": draws["bg"], "aabb_min": tr.state["aabb_min"],
+              "aabb_max": tr.state["aabb_max"], **samples}
+    (lc, gc), (lp, gp), (_, gq) = [
+        aux_step_grads(n, aux_cpu, data, inputs, (o, d), f32opts, device)
+        for n, device, data in ((net, dev, tr.data), (net, cpu, data_cpu),
+                                (nudged(net), cpu, data_cpu))]
+
+    def rel(g):
+        return {k: float((g[k].cpu() - gp[k]).abs().max() / gp[k].abs().max())
+                for k in gp}
+
+    return (ray_diff, abs(float(lc) - float(lp)) / abs(float(lp)), rel(gc),
+            rel(gq))
 
 
 # ---------------------------------------------------------------------------
@@ -1672,10 +2097,12 @@ def main(tmp, dirs, multicascade_only=False):
         raise AssertionError("card and CPU flash frames disagree")
     lap(10)
 
-    ds = training_phases(dev, tmp, lap)
+    ds, sps_plain = training_phases(dev, tmp, lap)
     del renderer, nerf
     app_launches = application_phases(dev, tmp, lap, glasses)
     mc_launches = multicascade_phases(dev, tmp, lap, glasses, ds)
+    cam_launches, cam_frames = camera_phases(dev, tmp, lap, glasses, ds,
+                                             flash_ms, sps_plain)
 
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
@@ -1689,7 +2116,9 @@ def main(tmp, dirs, multicascade_only=False):
         "app_launches": app_launches,
         "app_launches_per_frame": app_launches / APP_ORBIT_FRAMES,
         "multicascade_launches": mc_launches,
-        "multicascade_launches_per_frame": mc_launches / 8}, {
+        "multicascade_launches_per_frame": mc_launches / 8,
+        "camera_launches": cam_launches,
+        "camera_launches_per_frame": cam_launches / cam_frames}, {
         "name": "raycast", "route": "cuda",
         "source": "nerf_glasses_tpu_torch/csrc/mesh_raycast.cu",
         "replaces": "nerf_glasses_tpu/ops/mesh_pallas.py:91",

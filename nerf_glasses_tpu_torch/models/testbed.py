@@ -6,8 +6,11 @@ occupancy, camera state, the `nerf` render settings, the exact render
 path, the baked fast path (bake, flash, deferred shading, the bake
 fidelity probe), each for one cascade or several (aabb_scale > 1),
 density queries (density_at, alpha_at, collide_distances), the camera helpers
-and crop box, and the pyngp-style training surface (load_training_data,
-shall_train + frame(), train, sync_from_trainer).
+and crop box, the camera features (lens distortion from the dataset's
+first camera and the trained distortion map, pixel-centre snapping,
+depth of field, the rolling-shutter render), latent codes, and the
+pyngp-style training surface (load_training_data, shall_train + frame(),
+train, sync_from_trainer).
 
 The render and query entry points run under torch.no_grad(): a Testbed
 that trains renders its trainer's live network, whose parameters require
@@ -18,6 +21,7 @@ threads).
 from __future__ import annotations
 
 import dataclasses
+import sys
 import warnings
 
 import numpy as np
@@ -39,10 +43,6 @@ from nerf_glasses_tpu_torch.utils.bbox import BoundingBox
 from nerf_glasses_tpu_torch.utils.camera import fov_to_focal_length
 
 
-_ITEM_9 = ("is not ported yet (lens and camera features, ROADMAP.md queue 1 "
-           "item 9)")
-
-
 class NerfRenderSettings:
     """The `testbed.nerf` sub-object (python_api.cu:479-496). `sharpen` is
     the unsharp-mask amount set_training_image applies
@@ -50,25 +50,17 @@ class NerfRenderSettings:
     march; the activations and the cone angle live on the Testbed's
     config and march options; `visualize_cameras`, `glow_y_cutoff` and
     `glow_mode` are kept for scripts and do nothing, as in the reference
-    fork. `render_with_lens_distortion` raises when set."""
+    fork. `render_with_lens_distortion` renders through the dataset's
+    first camera's lens and the Testbed's distortion_map."""
 
     def __init__(self, testbed: "Testbed"):
         self._tb = testbed
         self.sharpen = 0.0
+        self.render_with_lens_distortion = False
         self.render_min_transmittance = C.DEFAULT_MIN_TRANSMITTANCE
         self.visualize_cameras = False
         self.glow_y_cutoff = 0.0
         self.glow_mode = 0
-
-    @property
-    def render_with_lens_distortion(self):
-        return False
-
-    @render_with_lens_distortion.setter
-    def render_with_lens_distortion(self, v):
-        if v:
-            raise NotImplementedError(
-                f"nerf.render_with_lens_distortion {_ITEM_9}")
 
     @property
     def rgb_activation(self):
@@ -159,8 +151,10 @@ class Testbed:
         self._scene_version = 0
         self._occ = None              # (8, 128, 128, 128) uint8 tensor
         self._scene_cache = None
+        self._extra_dims = None        # inference latent codes (E,)
         self.dataset = NerfDataset()
         self.aabb = BoundingBox([0, 0, 0], [1, 1, 1])
+        self.raw_aabb = self.aabb.copy()
         self.render_aabb = self.aabb.copy()
         self.render_aabb_to_local = np.eye(3, dtype=np.float32)
         self.bounding_radius = 1.0
@@ -178,8 +172,31 @@ class Testbed:
              [0.0, 0.0, -1.0, 0.5]], np.float32)
         self._scale = 1.5
         self.camera_matrix[:, 3] -= self._scale * self.view_dir
+        self.smoothed_camera = self.camera_matrix.copy()
         self.up_dir = np.array([0.0, 1.0, 0.0], np.float32)
+        self.sun_dir = np.ones(3, np.float32) / np.sqrt(3)
+        self.fov_axis = 1
+        self.zoom = 1.0
+        self.screen_center = np.array([0.5, 0.5], np.float32)
         self.set_fov(50.625)
+        # GUI state kept for scripts; as in the reference fork, the
+        # windowless render path never acts on it (python_api.cu:435-442)
+        self.camera_smoothing = False
+        self.parallax_shift = np.zeros(3, np.float32)
+        self.visualized_dimension = -1
+        self.visualized_layer = 0
+        self.max_level_rand_training = False
+        self.fixed_res_factor = 8
+        self.display_gui = False
+        self.visualize_unit_cube = False
+        # camera features: pinned pixel centres (no per-sample offsets),
+        # depth of field (pixel_to_ray's aperture, ngp_common.cuh:330-345)
+        # and the trained distortion map (Hg, Wg, 2) that
+        # nerf.render_with_lens_distortion adds to the ray directions
+        self.snap_to_pixel_centers = False
+        self.aperture_size = 0.0
+        self.focus_z = 1.0
+        self.distortion_map = None
 
         self.background_color = np.array([1.0, 1.0, 1.0, 1.0], np.float32)
         self.exposure = 0.0
@@ -191,6 +208,7 @@ class Testbed:
         self.last_march_epochs = 0
         self.last_collide_turns = 0
         self.last_render_path = None   # set by render_frame_buffers
+        self._warned_flash_fallback = False
 
         # baked fast path (bake()): the dense sigma grid, the feature grid
         self._baked_sigma_arr = None
@@ -211,27 +229,6 @@ class Testbed:
         self._spp = 0
         self._frame_buffer = None
         self._depth_buffer = None
-
-    # camera features that are not ported yet raise when turned on, so
-    # that no frame silently ignores them
-    @property
-    def snap_to_pixel_centers(self):
-        return False
-
-    @snap_to_pixel_centers.setter
-    def snap_to_pixel_centers(self, v):
-        if v:
-            raise NotImplementedError(f"snap_to_pixel_centers {_ITEM_9}")
-
-    @property
-    def aperture_size(self):
-        return 0.0
-
-    @aperture_size.setter
-    def aperture_size(self, v):
-        if float(v) > 0.0:
-            raise NotImplementedError(f"aperture_size (depth of field) "
-                                      f"{_ITEM_9}")
 
     @property
     def render_min_transmittance(self):
@@ -261,39 +258,48 @@ class Testbed:
         self._baked_sigma_arr = v
         self._scene_version += 1
 
+    @property
+    def extra_dims(self):
+        return self._extra_dims
+
+    @extra_dims.setter
+    def extra_dims(self, v):
+        # the memoized scene carries the latent codes
+        self._extra_dims = v
+        self._scene_version += 1
+
     # ------------------------------------------------------------------
     # Snapshot and occupancy
     # ------------------------------------------------------------------
 
     def load_snapshot(self, path: str):
         s = snap_io.load_snapshot(path)
-        if s.config.n_extra_learnable_dims or s.extra_dims is not None:
-            raise NotImplementedError(
-                "latent codes (n_extra_learnable_dims) are not ported yet: "
-                "ROADMAP.md queue 1 item 9")
         self.config = s.config
         self.net = unpack_params(s.params_blob, s.config, self.device)
         self.density_grid = s.density_grid
         self.dataset = s.dataset
         self.aabb = s.aabb
+        self.raw_aabb = s.aabb.copy()
         self.render_aabb = s.render_aabb
         self.render_aabb_to_local = s.render_aabb_to_local
         self.bounding_radius = s.bounding_radius
         self.training_step = s.training_step
         self.loss = s.loss
+        self.extra_dims = s.extra_dims
         self._cone_angle = self.config.cone_angle_constant
         self.up_dir = s.dataset.up.copy()
         self.update_occupancy()
         self.reset_accumulation()
 
     def save_snapshot(self, path: str, include_optimizer_state: bool = False):
-        """The pyngp signature; the format carries the parameters only,
-        so include_optimizer_state changes nothing."""
+        """The pyngp signature; the format carries the parameters (and
+        the inference latent codes) only, so include_optimizer_state
+        changes nothing."""
         snap_io.save_snapshot(
             path, self.config, pack_params(self.net).astype(np.float32),
             self.density_grid, self.dataset, self.aabb, self.render_aabb,
             self.render_aabb_to_local, self.bounding_radius,
-            self.training_step, self.loss)
+            self.training_step, self.loss, extra_dims=self.extra_dims)
 
     def update_occupancy(self):
         self.occ = occ_ops.build_occupancy(
@@ -434,6 +440,9 @@ class Testbed:
                           advance_iters=24, vector_rounds=True,
                           steps_per_round=16, chunk=1 << 11,
                           vector_occ_gate=False)
+        if self.aperture_size > 0.0:
+            kw.update(aperture_size=float(self.aperture_size),
+                      focus_z=float(self.focus_z))
         kw.update(self.march_overrides)
         return raymarch.MarchOptions(**kw)
 
@@ -473,6 +482,11 @@ class Testbed:
                     scene["occ_pts"] = (local - 0.5) * side[:, None] + 0.5
                     scene["occ_pts_pad"] = side * float(
                         np.sqrt(3.0) / (2.0 * C.NERF_GRIDSIZE))
+            if (self.config.n_extra_learnable_dims
+                    and self.extra_dims is not None):
+                # inference latent codes (get_inference_extra_dims,
+                # testbed.cu:1614-1631)
+                scene = raymarch.scene_with_extra_dims(scene, self.extra_dims)
             self._scene_cache = (key, scene)
         return self._scene_cache[1]
 
@@ -624,27 +638,53 @@ class Testbed:
 
     @torch.no_grad()
     def render_frame_buffers(self, width: int, height: int,
-                             sample_index: int = 0):
+                             sample_index: int = 0, camera_end=None,
+                             rolling_shutter=None):
         """One sample -> (frame (H, W, 4) linear premultiplied, depth
-        (H, W)) tensors on the device."""
+        (H, W)) tensors on the device. camera_end and rolling_shutter (4,)
+        give each pixel its own camera (render_with_rolling_shutter)."""
         if self.net is None:
             raise RuntimeError("no snapshot loaded")
         surface_rgba = t_surface = None
         if (self._surface_rgba is not None
                 and self._surface_res == (width, height)):
             surface_rgba, t_surface = self._surface_rgba, self._surface_t
+        # lens-distorted ray generation (render_nerf's render_lens and
+        # distortion-grid gating, testbed.cu:1530-1535)
+        lens_mode, lens_params, distortion_grid = "perspective", None, None
+        if self.nerf.render_with_lens_distortion:
+            if self.dataset.metadata:
+                md = self.dataset.metadata[0]
+                lens_mode, lens_params = md.lens_mode, md.lens_params
+            distortion_grid = self.distortion_map
         opts = self._march_options()
-        # the port's cameras are all plain perspective, so flash applies
-        # whenever its coarse init is on
-        if opts.use_baked_sigma:
-            self.last_render_path = ("flash" if opts.lowres_factor > 1
-                                     else "baked")
+        # the flash coarse init serves plain perspective cameras only; say
+        # which path ran
+        plain_cam = (lens_mode == "perspective" and distortion_grid is None
+                     and camera_end is None and opts.aperture_size == 0.0)
+        if opts.use_baked_sigma and opts.lowres_factor > 1:
+            if plain_cam:
+                self.last_render_path = "flash"
+            else:
+                self.last_render_path = ("baked (flash disabled: non-plain "
+                                         "camera)")
+                if not self._warned_flash_fallback:
+                    self._warned_flash_fallback = True
+                    print("nerf-glasses-tpu: flash coarse init supports "
+                          "plain perspective cameras only; this render "
+                          "(DoF/lens/shutter/distortion) uses the baked "
+                          "march without it", file=sys.stderr)
+        elif opts.use_baked_sigma:
+            self.last_render_path = "baked"
         else:
             self.last_render_path = "unbaked"
         frame, depth, self.last_march_epochs = raymarch.render_image_device(
             self.net, self._scene(), self.camera_matrix, width, height, opts,
             surface_rgba, t_surface, sample_index,
-            linear_colors=self.linear_colors)
+            linear_colors=self.linear_colors, lens_mode=lens_mode,
+            lens_params=lens_params, snap_centers=self.snap_to_pixel_centers,
+            camera_end=camera_end, rolling_shutter=rolling_shutter,
+            distortion_grid=distortion_grid)
         return frame, depth
 
     def render(self, width: int = 1920, height: int = 1080, spp: int = 1,
@@ -652,10 +692,36 @@ class Testbed:
         """Offscreen render -> (H, W, 4) float numpy (render_to_cpu,
         python_api.cu:83-111): accumulate spp samples, then tonemap
         (sRGB unless linear)."""
+        return self._render_spp(width, height, spp, linear)
+
+    def render_with_rolling_shutter(self, camera_transform_start,
+                                    camera_transform_end, rolling_shutter,
+                                    width: int, height: int, spp: int = 1,
+                                    linear: bool = True) -> np.ndarray:
+        """render() with a per-pixel shutter time
+        (render_with_rolling_shutter_to_cpu, python_api.cu:113-126): the
+        cameras arrive in NeRF (dataset) space, and each ray renders
+        through start * ray_time + end * (1 - ray_time), ray_time = rs.x
+        + rs.y u + rs.z v + rs.w rand (testbed.cu:398-406)."""
+        ds = self.dataset
+        start, end = (ds_io.nerf_matrix_to_ngp(np.asarray(m), ds.scale,
+                                               ds.offset, ds.from_mitsuba)
+                      for m in (camera_transform_start, camera_transform_end))
+        rshut = np.asarray(rolling_shutter, np.float32).reshape(4)
+        saved = self.camera_matrix.copy()
+        self.camera_matrix = start
+        try:
+            return self._render_spp(width, height, spp, linear,
+                                    camera_end=end, rolling_shutter=rshut)
+        finally:
+            self.camera_matrix = saved
+
+    def _render_spp(self, width, height, spp, linear, **ray_kw):
         self.reset_accumulation()
         accum = None
         for i in range(spp):
-            frame, depth = self.render_frame_buffers(width, height, i)
+            frame, depth = self.render_frame_buffers(width, height, i,
+                                                     **ray_kw)
             accum = accumulate(torch.zeros_like(frame) if accum is None
                                else accum, frame, i, self.color_space)
         self._depth_buffer = depth
@@ -822,6 +888,7 @@ class Testbed:
         self.net = tb.net
         self.density_grid = tb.density_grid
         self.aabb = tb.aabb
+        self.raw_aabb = tb.raw_aabb
         self.render_aabb = tb.render_aabb
         self.render_aabb_to_local = tb.render_aabb_to_local
         self._cone_angle = tb._cone_angle

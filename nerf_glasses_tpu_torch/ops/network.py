@@ -4,7 +4,8 @@ Port of nerf_glasses_tpu/ops/network.py (NerfNetwork<T>,
 src/ngp/nerf_network.cuh:75-135):
 
     density path: pos(3) --HashGrid--> density MLP -> 16
-    color path:   [density_out(16), SH(dir)(16), pad] -> rgb MLP -> 16
+    color path:   [density_out(16), SH(dir)(16), latent codes(E), pad]
+                  -> rgb MLP -> 16
     outputs:      rgb = rgb_out[:, :3], sigma = density_out[:, 0]
                   (both pre-activation)
 """
@@ -63,27 +64,38 @@ class NerfNetwork(nn.Module):
         return mlp_apply(enc, self.density_mlp, compute_dtype=compute_dtype)
 
     def rgb_from_features(self, feat: torch.Tensor, dir01: torch.Tensor,
-                          compute_dtype=torch.bfloat16) -> torch.Tensor:
-        """[density-MLP output (N, 16), SH(dir), pad] -> rgb_raw (N, 3):
-        the colour half of NerfNetwork::inference (nerf_network.cuh:75-135),
-        also called on features read from a baked grid (ops/bake.py)."""
+                          compute_dtype=torch.bfloat16,
+                          extra: torch.Tensor = None) -> torch.Tensor:
+        """[density-MLP output (N, 16), SH(dir), extra dims, pad] ->
+        rgb_raw (N, 3): the colour half of NerfNetwork::inference
+        (nerf_network.cuh:75-135), also called on features read from a
+        baked grid (ops/bake.py). `extra` ((N, E) or (E,)) are the latent
+        codes of a config with n_extra_learnable_dims = E (upstream's
+        extra-dims path, testbed.cu:1614-1631); zeros when omitted."""
         cfg = self.config
+        n = feat.shape[0]
         sh = sh_encode(dir01, cfg.sh_degree, cfg.sh_out_padded)
         parts = [feat.float(), sh]
-        width = feat.shape[-1] + sh.shape[-1]
+        if extra is not None:
+            # omitted codes are zeros: the padding below supplies them
+            parts.append(torch.atleast_2d(extra.float()).expand(
+                n, cfg.n_extra_learnable_dims))
+        width = sum(p.shape[-1] for p in parts)
         if width < cfg.rgb_in_width:
-            parts.append(torch.zeros((feat.shape[0], cfg.rgb_in_width - width),
+            parts.append(torch.zeros((n, cfg.rgb_in_width - width),
                                      device=feat.device))
         rgb_out = mlp_apply(torch.cat(parts, dim=-1), self.rgb_mlp,
                             compute_dtype=compute_dtype)
         return rgb_out[..., :3]
 
     def forward(self, pos01: torch.Tensor, dir01: torch.Tensor,
-                compute_dtype=torch.bfloat16, encode_dtype=torch.float32):
-        """-> (rgb_raw (N, 3), sigma_raw (N,)), pre-activation f32.
-        Extra learnable dims, where the config has them, are zeros."""
+                compute_dtype=torch.bfloat16, encode_dtype=torch.float32,
+                extra: torch.Tensor = None):
+        """-> (rgb_raw (N, 3), sigma_raw (N,)), pre-activation f32; `extra`
+        as in rgb_from_features."""
         d_out = self.density_raw(pos01, compute_dtype, encode_dtype)
-        return self.rgb_from_features(d_out, dir01, compute_dtype), d_out[..., 0]
+        return (self.rgb_from_features(d_out, dir01, compute_dtype, extra),
+                d_out[..., 0])
 
     apply_network = forward
 

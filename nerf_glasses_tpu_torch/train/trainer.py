@@ -10,13 +10,22 @@ Port of nerf_glasses_tpu/train/trainer.py, the default TrainOptions path:
 - optionally a transmittance-prefix keep set from a stop-grad density
   forward of the live network, so that the full network (and its hash
   table gradient) runs on a bucket of the samples only;
-- hash grid -> density MLP -> SH -> rgb MLP, front-to-back composite
-  against a random background, the tcnn loss menu, depth supervision;
+- hash grid -> density MLP -> SH (+ per-image latent codes) -> rgb MLP,
+  front-to-back composite against a random background or a trainable
+  envmap, the tcnn loss menu, depth supervision;
 - the backward pass by autograd (the hash gathers' gradient is an index
   scatter-add into the table), Adam with tcnn's hyperparameters and
   ExponentialDecay, l2_reg on the MLP weights only;
 - every `grid_update_interval` steps an EMA decay plus scatter-max of
-  optical thickness into the density grid, and the occupancy rebuild.
+  optical thickness into the density grid, and the occupancy rebuild;
+- the trainable auxiliary models (upstream's per-image AdamOptimizers
+  and TrainableBuffers, testbed.cu:1027-1304): per-image extrinsics
+  offsets (axis-angle rotation + translation, with an L2 anchor), a
+  distortion raster added to the camera-plane ray coordinates, a
+  lat-long envmap as the background, per-image exposure (re-centred to
+  zero mean) and per-image latent codes, each with its own Adam and
+  learning rate. The rays of the geometry pass see the aux models
+  detached; the loss differentiates the network and the aux together.
 
 Every function that draws randomness is split into a draw from an
 explicit `torch.Generator` (`draw_pixels`, `draw_step`,
@@ -24,10 +33,6 @@ explicit `torch.Generator` (`draw_pixels`, `draw_step`,
 tensors, so that the JAX package's own draws can be fed to the bodies.
 The step loop is plain Python with no host read per step: losses stay
 on the device and come back in one fetch per `train` call.
-
-The trainable auxiliary models of the JAX package (extrinsics,
-distortion, envmap, exposure, latent codes) are not ported:
-ROADMAP.md queue 1 item 11b. Setting any of them raises.
 """
 
 from __future__ import annotations
@@ -83,7 +88,8 @@ class TrainOptions:
     # iterative OpenCV undistortion of training rays (turned on by the
     # Trainer when the dataset carries k1/k2/p1/p2)
     apply_lens_distortion: bool = False
-    # trainable auxiliary models: not ported (ROADMAP.md item 11b)
+    # trainable auxiliary models; latent codes train whenever
+    # config.n_extra_learnable_dims > 0
     optimize_extrinsics: bool = False
     extrinsics_lr: float = 1e-4
     extrinsics_l2_reg: float = 1e-3
@@ -120,39 +126,57 @@ class TrainOptions:
             else torch.float32
 
 
-_AUX_FIELDS = ("optimize_extrinsics", "optimize_distortion", "train_envmap",
-               "optimize_exposure")
-
-
-def check_ported(opts: TrainOptions):
-    """Raise on the options whose models the port does not train yet."""
-    on = [f for f in _AUX_FIELDS if getattr(opts, f)]
-    if opts.config.n_extra_learnable_dims:
-        on.append("config.n_extra_learnable_dims")
-    if on:
-        raise NotImplementedError(
-            f"{', '.join(on)}: the trainable auxiliary models are not "
-            f"ported yet (ROADMAP.md queue 1 item 11b)")
-
-
 def adam_init(net: NerfNetwork):
     return {k: {n: torch.zeros_like(p) for n, p in net.named_parameters()}
             for k in ("m", "v")}
+
+
+def make_aux(opts: TrainOptions, n_images: int, device="cpu"
+             ) -> Dict[str, torch.Tensor]:
+    """The trainable auxiliary models the options ask for, at their
+    initial values: cam_rot and cam_trans (n, 3) zeros, distortion (R, R,
+    2) zeros, envmap (he, we, 3) at 0.5, extra_dims (n, E) zeros,
+    exposure (n, 3) zeros."""
+    if n_images <= 0 and (opts.optimize_extrinsics or opts.optimize_exposure
+                          or opts.config.n_extra_learnable_dims):
+        raise ValueError("per-image aux models need the image count")
+    dev = torch.device(device)
+    aux = {}
+    if opts.optimize_extrinsics:
+        aux["cam_rot"] = torch.zeros((n_images, 3), device=dev)
+        aux["cam_trans"] = torch.zeros((n_images, 3), device=dev)
+    if opts.optimize_distortion:
+        R = opts.distortion_resolution
+        aux["distortion"] = torch.zeros((R, R, 2), device=dev)
+    if opts.train_envmap:
+        he, we = opts.envmap_resolution
+        aux["envmap"] = torch.full((he, we, 3), 0.5, device=dev)
+    if opts.config.n_extra_learnable_dims:
+        aux["extra_dims"] = torch.zeros(
+            (n_images, opts.config.n_extra_learnable_dims), device=dev)
+    if opts.optimize_exposure:
+        aux["exposure"] = torch.zeros((n_images, 3), device=dev)
+    return aux
 
 
 def make_train_state(opts: TrainOptions, aabb_min, aabb_max,
                      n_images: int, generator: torch.Generator,
                      device="cpu") -> Dict[str, object]:
     """Fresh training state: a network drawn from `generator` with
-    gradients on, zero Adam moments, a zero density grid and an all-on
-    occupancy (warmup), the error raster, the loss EMA and the keep-set
-    overflow counters, all tensors on `device`."""
+    gradients on, zero Adam moments, the auxiliary models (make_aux) and
+    their zero moments, a zero density grid and an all-on occupancy
+    (warmup), the error raster, the loss EMA and the keep-set overflow
+    counters, all tensors on `device`."""
     dev = torch.device(device)
     net = init_params(opts.config, generator, dev).requires_grad_(True)
     n_casc = opts.config.max_cascade + 1
+    aux = make_aux(opts, n_images, dev)
     state = {
         "net": net,
         "opt": adam_init(net),
+        "aux": aux,
+        "aux_opt": {k: {n: torch.zeros_like(a) for n, a in aux.items()}
+                    for k in ("m", "v")},
         "step": 0,
         "density_grid": torch.zeros((n_casc, G, G, G), device=dev),
         "occ": torch.ones((C.NERF_CASCADES, G, G, G), dtype=torch.uint8,
@@ -307,9 +331,60 @@ def _error_map_apply(error_map, sum_g, cnt_g, beta: float):
                        error_map)
 
 
-def _gen_rays(data, img, px, py, apply_lens_distortion: bool):
+def _rotate_small(rv, v):
+    """Rodrigues rotation of v (B, 3) by axis-angle rv (B, 3), in
+    sinc-style factors so that the gradient is finite at rv = 0, where
+    the per-image offsets start (RotationAdamOptimizer's variable,
+    adam_optimizer.h:96-159). torch.where differentiates both branches,
+    so the large-angle branch takes a clamped t2."""
+    t2 = torch.sum(rv * rv, dim=-1, keepdim=True)
+    small = t2 < 1e-8
+    t2c = torch.clamp(t2, min=1e-8)
+    theta = torch.sqrt(t2c)
+    sinc = torch.where(small, 1.0 - t2 / 6.0, torch.sin(theta) / theta)
+    cosf = torch.where(small, 0.5 - t2 / 24.0, (1.0 - torch.cos(theta)) / t2c)
+    rxv = torch.linalg.cross(rv, v, dim=-1)
+    return v + sinc * rxv + cosf * torch.linalg.cross(rv, rxv, dim=-1)
+
+
+def _bilinear2d(grid, u, v):
+    """Sample an (H, W, Cc) raster at continuous uv in [0, 1] -> (B, Cc).
+    The corners are row gathers from a flat view (index_select), whose
+    backward is an index_add."""
+    H, W = grid.shape[:2]
+    x = torch.clamp(u * W - 0.5, 0.0, W - 1.0)
+    y = torch.clamp(v * H - 0.5, 0.0, H - 1.0)
+    x0f, y0f = torch.floor(x), torch.floor(y)
+    x0, y0 = x0f.long(), y0f.long()
+    x1 = torch.clamp(x0 + 1, max=W - 1)
+    y1 = torch.clamp(y0 + 1, max=H - 1)
+    fx = (x - x0f)[:, None]
+    fy = (y - y0f)[:, None]
+    flat = grid.reshape(H * W, -1)
+
+    def at(yi, xi):
+        return flat.index_select(0, yi * W + xi)
+
+    return ((at(y0, x0) * (1 - fx) + at(y0, x1) * fx) * (1 - fy)
+            + (at(y1, x0) * (1 - fx) + at(y1, x1) * fx) * fy)
+
+
+def _sample_envmap_dir(env, d):
+    """The trainable lat-long envmap (H, W, 3) at ray dirs (B, 3), in
+    utils/lens.dir_to_latlong's convention."""
+    theta = torch.asin(torch.clamp(d[:, 1], -1.0, 1.0))
+    phi = torch.atan2(d[:, 0], d[:, 2])
+    u = phi / (2 * np.pi) + 0.5
+    v = theta / np.pi + 0.5
+    return _bilinear2d(env, u, v)
+
+
+def _gen_rays(data, img, px, py, aux, apply_lens_distortion: bool):
     """Pixel indices -> world rays (o (B, 3), unit d (B, 3)), with the
-    iterative OpenCV undistortion when asked."""
+    iterative OpenCV undistortion when asked, and differentiable in the
+    aux models present in `aux`: the distortion raster (added to the
+    camera-plane coordinates) and the per-image extrinsics offsets."""
+    h, w = data["images"].shape[1:3]
     fx = data["fx"][img]
     fy = data["fy"][img]
     xd = (px + 0.5 - data["cx"][img]) / fx
@@ -325,11 +400,20 @@ def _gen_rays(data, img, px, py, apply_lens_distortion: bool):
             xu = (xd - dx) / radial
             yu = (yd - dy) / radial
         xd, yd = xu, yu
+    if "distortion" in aux:
+        duv = _bilinear2d(aux["distortion"], (px + 0.5) / w, (py + 0.5) / h)
+        xd = xd + duv[:, 0]
+        yd = yd + duv[:, 1]
     dirs = torch.stack([xd, yd, torch.ones_like(xd)], dim=-1)
     xf = data["xforms"][img]                           # (B, 3, 4)
     d = torch.einsum("bij,bj->bi", xf[:, :, :3], dirs)
+    o = xf[:, :, 3]
+    if "cam_rot" in aux:
+        # row gathers whose backward is an index_add
+        d = _rotate_small(aux["cam_rot"].index_select(0, img), d)
+        o = o + aux["cam_trans"].index_select(0, img)
     d = d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)
-    return xf[:, :, 3], d
+    return o, d
 
 
 def march_training_samples(occ, o, d, u, opts: TrainOptions, aabb_min,
@@ -409,7 +493,8 @@ def compact_sample_sel(state, data, img, px, py, samples,
     that), and when it falls short sel's tail holds dead ids."""
     S, B = samples["dt"].shape
     with torch.no_grad():
-        o, d = _gen_rays(data, img, px, py, opts.apply_lens_distortion)
+        o, d = _gen_rays(data, img, px, py, state["aux"],
+                         opts.apply_lens_distortion)
         pos01 = _pos01(samples, o, d, state["aabb_min"], state["aabb_max"])
         raw = state["net"].density_raw(pos01.reshape(-1, 3), opts.cdtype,
                                        opts.edtype)[:, 0]
@@ -430,18 +515,31 @@ def _exclusive_cumprod(x):
 
 
 def forward_rays(net: NerfNetwork, samples, o, d, bg, opts: TrainOptions,
-                 aabb_min, aabb_max, sel=None, keep=None):
+                 aabb_min, aabb_max, extra=None, exposure_scale=None,
+                 sel=None, keep=None):
     """Network eval + composite -> (rgb (B, 3) over bg, acc (B,), depth
-    (B,)). With sel/keep (compact_sample_sel) the network runs only on
-    the `sel` samples; the others composite with zero alpha."""
+    (B,)). Positions come from (o, d, t), so gradients reach the
+    extrinsics offsets. `extra` (B, E) are each ray's latent codes;
+    `exposure_scale` (B, 3) scales the ray's colour before the
+    background composite (upstream's optimize_exposure). With sel/keep
+    (compact_sample_sel) the network runs only on the `sel` samples; the
+    others composite with zero alpha."""
     cfg = opts.config
     S, B = samples["dt"].shape
     n = S * B
     pos01 = _pos01(samples, o, d, aabb_min, aabb_max).reshape(n, 3)
     dir01 = ((d + 1.0) * 0.5)[None].expand(S, B, 3).reshape(n, 3)
+    if extra is not None:
+        extra = extra[None].expand((S,) + extra.shape).reshape(n, -1)
     valid = samples["valid"]
     if sel is not None:
-        rgb_c, sigma_c = net(pos01[sel], dir01[sel], opts.cdtype, opts.edtype)
+        # row gathers whose backward (into the extrinsics offsets and the
+        # latent codes) is an index_add
+        rgb_c, sigma_c = net(pos01.index_select(0, sel),
+                             dir01.index_select(0, sel), opts.cdtype,
+                             opts.edtype,
+                             extra=None if extra is None
+                             else extra.index_select(0, sel))
         sigma_raw = torch.zeros((n,), device=o.device).index_copy(0, sel,
                                                                   sigma_c)
         rgb_raw = torch.zeros((n, 3), device=o.device).index_copy(0, sel,
@@ -451,7 +549,8 @@ def forward_rays(net: NerfNetwork, samples, o, d, bg, opts: TrainOptions,
             0, sel, keep.reshape(-1)[sel])
         valid = valid & evaluated.reshape(S, B)
     else:
-        rgb_raw, sigma_raw = net(pos01, dir01, opts.cdtype, opts.edtype)
+        rgb_raw, sigma_raw = net(pos01, dir01, opts.cdtype, opts.edtype,
+                                 extra=extra)
     rgb = apply_rgb_activation(rgb_raw.reshape(S, B, 3), cfg.rgb_activation)
     sigma = apply_density_activation(sigma_raw.reshape(S, B),
                                      cfg.density_activation)
@@ -460,6 +559,8 @@ def forward_rays(net: NerfNetwork, samples, o, d, bg, opts: TrainOptions,
     rgb_ray = torch.sum(w[..., None] * rgb, dim=0)
     acc = torch.sum(w, dim=0)
     depth_ray = torch.sum(w * samples["t"], dim=0)
+    if exposure_scale is not None:
+        rgb_ray = rgb_ray * exposure_scale
     return rgb_ray + (1.0 - acc)[:, None] * bg, acc, depth_ray
 
 
@@ -503,15 +604,21 @@ def _learning_rate(step: int, opts: TrainOptions) -> np.float32:
     return lr * np.float32(opts.lr_decay) ** np.float32(n)
 
 
+def _adam_corr(step: int, opts: TrainOptions) -> np.float32:
+    """Adam's bias correction sqrt(1 - b2^t) / (1 - b1^t), t = step + 1,
+    as an f32 host scalar (the step is known on the host)."""
+    t = np.float32(step) + np.float32(1.0)
+    return (np.sqrt(np.float32(1.0) - np.float32(opts.beta2) ** t)
+            / (np.float32(1.0) - np.float32(opts.beta1) ** t))
+
+
 def adam_update(net: NerfNetwork, grads, opt, step: int, opts: TrainOptions):
     """One Adam step on `net`'s parameters in place. The bias correction
-    and the learning rate are f32 host scalars (the step is known on the
-    host); the hash table takes no l2 regularisation."""
-    t = np.float32(step) + np.float32(1.0)
+    and the learning rate are f32 host scalars; the hash table takes no
+    l2 regularisation."""
     b1, b2 = opts.beta1, opts.beta2
-    corr = (np.sqrt(np.float32(1.0) - np.float32(b2) ** t)
-            / (np.float32(1.0) - np.float32(b1) ** t))
-    lr_corr = float(np.float32(_learning_rate(step, opts) * corr))
+    lr_corr = float(np.float32(_learning_rate(step, opts)
+                               * _adam_corr(step, opts)))
     with torch.no_grad():
         for name, p in net.named_parameters():
             g = grads[name]
@@ -524,24 +631,71 @@ def adam_update(net: NerfNetwork, grads, opt, step: int, opts: TrainOptions):
             p.sub_(lr_corr * m / (torch.sqrt(v) + opts.eps))
 
 
+def _aux_lr(key: str, opts: TrainOptions) -> float:
+    return {"cam_rot": opts.extrinsics_lr, "cam_trans": opts.extrinsics_lr,
+            "distortion": opts.distortion_lr, "envmap": opts.envmap_lr,
+            "extra_dims": opts.extra_dims_lr,
+            "exposure": opts.exposure_lr}[key]
+
+
+def _aux_adam_update(aux, grads, opt, step: int, opts: TrainOptions):
+    """Adam for the auxiliary models, each with its own learning rate
+    (upstream keeps one AdamOptimizer per model) -> (new aux, new moments).
+    The extrinsics offsets take an L2 anchor toward zero (it removes the
+    gauge freedom of scene and cameras drifting together); the exposures
+    are re-centred to zero mean per channel after the step."""
+    b1, b2 = opts.beta1, opts.beta2
+    corr = _adam_corr(step, opts)
+    new_aux, new_m, new_v = {}, {}, {}
+    with torch.no_grad():
+        for key, a in aux.items():
+            g = grads[key]
+            if key in ("cam_rot", "cam_trans"):
+                g = g + opts.extrinsics_l2_reg * a
+            m = b1 * opt["m"][key] + (1 - b1) * g
+            v = b2 * opt["v"][key] + (1 - b2) * g * g
+            lr_corr = float(np.float32(np.float32(_aux_lr(key, opts)) * corr))
+            new = a - lr_corr * m / (torch.sqrt(v) + opts.eps)
+            if key == "exposure":
+                new = new - torch.mean(new, dim=0, keepdim=True)
+            new_aux[key], new_m[key], new_v[key] = new, m, v
+    return new_aux, {"m": new_m, "v": new_v}
+
+
 # ---------------------------------------------------------------------------
 # Train step and density grid
 # ---------------------------------------------------------------------------
 
 def _loss_and_grads(state, data, img, px, py, target, samples, bg,
                     opts: TrainOptions):
-    """-> (loss, per_ray_err, grads {param name: tensor}, n_keep or
-    None). per_ray_err is the channel-mean squared residual feeding the
-    error map."""
+    """-> (loss, per_ray_err, grads {param name: tensor}, aux_grads {aux
+    name: tensor}, n_keep or None). The network and the aux models are
+    differentiated together. In envmap mode the background is the envmap
+    at each ray's direction, and the target's composite takes it detached
+    (else the envmap cancels out of the residual and never learns the
+    true background). per_ray_err is the channel-mean squared residual
+    feeding the error map."""
     sel = keep = n_keep = None
     if opts.compact_keep_fraction > 0.0:
         sel, keep, n_keep = compact_sample_sel(state, data, img, px, py,
                                                samples, opts)
     net = state["net"]
-    o, d = _gen_rays(data, img, px, py, opts.apply_lens_distortion)
-    target_rgb = target[:, :3] + (1.0 - target[:, 3:4]) * bg
+    aux = {k: a.detach().requires_grad_(True)
+           for k, a in state["aux"].items()}
+    o, d = _gen_rays(data, img, px, py, aux, opts.apply_lens_distortion)
+    if opts.train_envmap:
+        bg = _sample_envmap_dir(aux["envmap"], d)
+        bg_t = bg.detach()
+    else:
+        bg_t = bg
+    target_rgb = target[:, :3] + (1.0 - target[:, 3:4]) * bg_t
+    extra = (aux["extra_dims"].index_select(0, img)
+             if "extra_dims" in aux else None)
+    exp_scale = (torch.exp(aux["exposure"].index_select(0, img))
+                 if "exposure" in aux else None)
     pred, _, pdepth = forward_rays(net, samples, o, d, bg, opts,
                                    state["aabb_min"], state["aabb_max"],
+                                   extra=extra, exposure_scale=exp_scale,
                                    sel=sel, keep=keep)
     diff = pred - target_rgb
     per_ray_err = torch.mean(diff * diff, dim=-1).detach()
@@ -555,29 +709,38 @@ def _loss_and_grads(state, data, img, px, py, target, samples, bg,
         loss = loss + lam * (torch.sum(hub * dvalid)
                              / torch.clamp(torch.sum(dvalid), min=1.0))
     names, params = zip(*net.named_parameters())
-    grads = torch.autograd.grad(loss, params)
-    return loss.detach(), per_ray_err, dict(zip(names, grads)), n_keep
+    keys = list(aux)
+    grads = torch.autograd.grad(loss, list(params) + [aux[k] for k in keys])
+    return (loss.detach(), per_ray_err,
+            dict(zip(names, grads[:len(names)])),
+            dict(zip(keys, grads[len(names):])), n_keep)
 
 
 def _train_step_body(state, data, opts: TrainOptions, draws):
     """One training step from its draws (draw_step); updates `state` in
-    place and returns the loss, a 0-d device tensor."""
+    place and returns the loss, a 0-d device tensor. The background is
+    the random draw when random_bg and no envmap trains, else white (an
+    envmap step draws it all the same, so the draws match the JAX
+    package's)."""
     step = state["step"]
     B = opts.rays_per_batch
     with torch.no_grad():
         img, px, py, target = _sample_pixels(draws, data,
                                              state.get("error_map"), step,
                                              opts)
-        o, d = _gen_rays(data, img, px, py, opts.apply_lens_distortion)
+        o, d = _gen_rays(data, img, px, py, state["aux"],
+                         opts.apply_lens_distortion)
         samples = march_training_samples(
             state["occ"], o, d, draws["u"], opts, state["aabb_min"],
             state["aabb_max"], opts.config.max_cascade)
-        bg = (draws["bg"] if opts.random_bg
+        bg = (draws["bg"] if opts.random_bg and not opts.train_envmap
               else torch.ones((B, 3), device=o.device))
-    loss, per_ray_err, grads, n_keep = _loss_and_grads(
+    loss, per_ray_err, grads, aux_grads, n_keep = _loss_and_grads(
         state, data, img, px, py, target, samples, bg, opts)
     with torch.no_grad():
         adam_update(state["net"], grads, state["opt"], step, opts)
+        state["aux"], state["aux_opt"] = _aux_adam_update(
+            state["aux"], aux_grads, state["aux_opt"], step, opts)
         state["loss_ema"] = (loss if step == 0
                              else 0.99 * state["loss_ema"] + 0.01 * loss)
         if n_keep is not None:
@@ -644,7 +807,6 @@ class Trainer:
         if opts is None:
             opts = TrainOptions(config=NGPConfig.from_snapshot_config(
                 {}, dataset.aabb_scale, dataset.is_hdr))
-        check_ported(opts)
         if dataset_has_distortion(dataset) and not opts.apply_lens_distortion:
             opts = dataclasses.replace(opts, apply_lens_distortion=True)
         self.opts = opts
@@ -760,9 +922,36 @@ class Trainer:
                 break
         return self.loss
 
+    def optimized_xforms(self) -> np.ndarray:
+        """The dataset's camera matrices (n, 3, 4) with the trained
+        per-image extrinsics offsets applied (d' = R(rot_i) R_i dirs, o' =
+        o_i + trans_i): the refined cameras upstream's camera optimizer
+        converges to."""
+        xf = np.array(self.dataset.xforms, np.float32).copy()
+        aux = self.state["aux"]
+        if "cam_rot" not in aux:
+            return xf
+        rot = aux["cam_rot"].cpu().numpy()
+        trans = aux["cam_trans"].cpu().numpy()
+        for i in range(len(xf)):
+            theta = float(np.linalg.norm(rot[i]))
+            if theta > 1e-12:
+                k = rot[i] / theta
+                K = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]],
+                              [-k[1], k[0], 0]], np.float32)
+                R = (np.eye(3, dtype=np.float32) + np.sin(theta) * K
+                     + (1 - np.cos(theta)) * (K @ K))
+                xf[i, :, :3] = R @ xf[i, :, :3]
+            xf[i, :, 3] += trans[i]
+        return xf
+
     def to_testbed(self):
         """A Testbed holding a copy of the current network (gradients
-        off), the density grid and the dataset's metadata."""
+        off), the density grid and the dataset's metadata; with latent
+        codes the first training view's as the inference codes
+        (get_inference_extra_dims' default, testbed.cu:1614-1631), with a
+        trained distortion raster the Testbed's distortion_map (rendered
+        when nerf.render_with_lens_distortion is set)."""
         from nerf_glasses_tpu_torch.models.testbed import Testbed
         tb = Testbed(device=self.device)
         tb.config = self.opts.config
@@ -770,12 +959,18 @@ class Trainer:
         tb.density_grid = self.state["density_grid"].cpu().numpy()
         tb.dataset = self.dataset
         tb.aabb = BoundingBox(self.aabb_min, self.aabb_max)
+        tb.raw_aabb = tb.aabb.copy()
         tb.render_aabb = tb.aabb.copy()
         if not self.dataset.render_aabb.is_empty():
             tb.render_aabb = self.dataset.render_aabb.intersection(tb.aabb)
         tb.render_aabb_to_local = self.dataset.render_aabb_to_local.copy()
         tb.training_step = self.step
         tb.loss = self.loss
+        aux = self.state["aux"]
+        if "extra_dims" in aux:
+            tb.extra_dims = aux["extra_dims"][0].cpu().numpy()
+        if "distortion" in aux:
+            tb.distortion_map = aux["distortion"].cpu().numpy()
         tb._cone_angle = self.opts.config.cone_angle_constant
         tb.update_occupancy()
         return tb
@@ -785,9 +980,10 @@ class Trainer:
 
     def load_snapshot(self, path: str):
         """Resume from a snapshot: params, the density grid (and its
-        rebuilt occupancy), the step and the loss; Adam moments restart
-        at zero (the format carries params only). The snapshot's network
-        config must equal the Trainer's."""
+        rebuilt occupancy), the step, the loss and the latent codes (the
+        snapshot's (E,) inference code goes to every image); Adam moments
+        restart at zero (the format carries params only). The snapshot's
+        network config must equal the Trainer's."""
         from nerf_glasses_tpu_torch.io import snapshot as snap_io
         from nerf_glasses_tpu_torch.ops.network import unpack_params
         s = snap_io.load_snapshot(path)
@@ -808,6 +1004,13 @@ class Trainer:
         st["occ"] = occ_ops.build_occupancy(grid, self.opts.config.max_cascade)
         st["step"] = int(s.training_step)
         st["loss_ema"] = torch.tensor(float(s.loss or 0.0), device=self.device)
+        if s.extra_dims is not None and "extra_dims" in st["aux"]:
+            ed = torch.as_tensor(np.asarray(s.extra_dims, np.float32),
+                                 device=self.device)
+            if ed.ndim == 1:
+                ed = ed.expand_as(st["aux"]["extra_dims"])
+            if ed.shape == st["aux"]["extra_dims"].shape:
+                st["aux"] = {**st["aux"], "extra_dims": ed.clone()}
         self._host_step = int(s.training_step)
         self.loss = float(s.loss or float("nan"))
         self._compact_ready = False

@@ -5,9 +5,10 @@ multi-cascade Testbeds in the PyTorch port against the JAX package.
   port's frame must change from its default frame (by more than 1e-3
   somewhere) and stay >= 50 dB from the JAX frame (float32 MLPs, no
   jitter, 40x32, the tests/helpers.py sphere snapshot).
-- What the port has not ported raises NotImplementedError on assignment
-  and is never stored: nerf.render_with_lens_distortion,
-  snap_to_pixel_centers, aperture_size > 0.
+- The camera features nerf.render_with_lens_distortion,
+  snap_to_pixel_centers and aperture_size change the port's frame as
+  they change the JAX frame (>= 50 dB); tests/test_torch_lens.py holds
+  each camera feature in detail.
 - save_snapshot(path, include_optimizer_state) takes the pyngp argument.
 - A short aabb_scale 4 training run: to_testbed, Testbed.train and
   sync_from_trainer give Testbeds that render through the multi-cascade
@@ -169,16 +170,45 @@ def test_inert_settings_are_kept():
     assert t.aperture_size == 0.0
 
 
-@pytest.mark.parametrize("case", ["render_with_lens_distortion",
-                                  "snap_to_pixel_centers", "aperture_size"])
-def test_unported_camera_features_raise(case):
-    t = TTestbed(device="cpu")
+def _lens_on(tb):
+    tb.dataset.metadata[0].lens_mode = "opencv"
+    tb.dataset.metadata[0].lens_params = (0.3, 0.05, 0.01, 0.01, 0, 0, 0)
+    tb.nerf.render_with_lens_distortion = True
+
+
+def _snap_on(tb):
+    tb.snap_to_pixel_centers = True
+
+
+def _aperture_on(tb):
+    tb.aperture_size = 0.05
+
+
+CAMERA_FEATURES = {"render_with_lens_distortion": _lens_on,
+                   "snap_to_pixel_centers": _snap_on,
+                   "aperture_size": _aperture_on}
+
+
+@pytest.mark.parametrize("case", list(CAMERA_FEATURES))
+def test_unported_camera_features_raise(snapshot, case):
+    """The three camera features that raised before the port had them:
+    each is stored, changes the frame (snapping: the frame of sample 3,
+    whose Halton offset is not the pixel centre) and stays >= 50 dB from
+    the JAX frame."""
+    j, t = _pair(snapshot)
+
+    def frame(tb):
+        return np.asarray(tb.render_frame_buffers(W, H, 3)[0])
+
+    base_t = frame(t)
+    for tb in (j, t):
+        CAMERA_FEATURES[case](tb)
     target = t.nerf if case == "render_with_lens_distortion" else t
-    on, off = (0.05, 0.0) if case == "aperture_size" else (True, False)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        setattr(target, case, on)
-    assert getattr(target, case) == off         # nothing was stored
-    setattr(target, case, off)                  # turning it off is allowed
+    assert getattr(target, case) == getattr(
+        j.nerf if case == "render_with_lens_distortion" else j, case)
+    new_j, new_t = frame(j), frame(t)
+    assert np.abs(new_t - base_t).max() > 1e-3
+    assert psnr(new_t, new_j) >= 50.0, psnr(new_t, new_j)
 
 
 def test_save_snapshot_takes_the_pyngp_argument(snapshot, tmp_path):

@@ -80,7 +80,7 @@ def setup():
     state = tr.state
     net = tnet.params_from_jax(_params_np(state["params"]),
                                _tcfg(TINY_CFG)).requires_grad_(True)
-    tstate = {"net": net,
+    tstate = {"net": net, "aux": {},
               "aabb_min": _t(state["aabb_min"]),
               "aabb_max": _t(state["aabb_max"])}
     tdata = {k: _t(v) for k, v in tr.data.items()}
@@ -178,7 +178,7 @@ def test_gen_rays_lens_distortion(setup):
     for lens in (False, True):
         jo, jd = jtr._gen_rays(data, jnp.asarray(img), jnp.asarray(px),
                                jnp.asarray(py), {}, lens)
-        to, td = ttr._gen_rays(tdata, _t(img), _t(px), _t(py), lens)
+        to, td = ttr._gen_rays(tdata, _t(img), _t(px), _t(py), {}, lens)
         np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=1e-6)
         np.testing.assert_allclose(td.numpy(), np.asarray(jd), atol=1e-6)
 
@@ -254,10 +254,10 @@ def test_loss_and_grads(setup, mode):
                                                   opts)
     (jloss, jerr), (jgrads, _) = jtr._loss_and_grads(
         tr.state, data, img, px, py, target, samples, bg, opts)
-    tloss, terr, tgrads, n_keep = ttr._loss_and_grads(
+    tloss, terr, tgrads, taux_grads, n_keep = ttr._loss_and_grads(
         tstate, dict(tdata, depths=_t(depths)), _t(img), _t(px), _t(py),
         _t(target), _port_samples(samples), _t(bg), _topts(opts))
-    assert (n_keep is None) == (mode == "dense")
+    assert (n_keep is None) == (mode == "dense") and taux_grads == {}
     np.testing.assert_allclose(float(tloss), float(jloss), rtol=1e-5)
     np.testing.assert_allclose(terr.numpy(), np.asarray(jerr), rtol=1e-4,
                                atol=1e-7)
@@ -406,7 +406,7 @@ def test_keep_set_overflow_is_counted():
     draws = ttr.draw_step(tr.gen, tr.state, tr.data, opts)
     with torch.no_grad():
         img, px, py, _ = ttr._sample_pixels(draws, tr.data, None, 0, opts)
-        o, d = ttr._gen_rays(tr.data, img, px, py, False)
+        o, d = ttr._gen_rays(tr.data, img, px, py, {}, False)
         samples = ttr.march_training_samples(
             tr.state["occ"], o, d, draws["u"], opts, tr.state["aabb_min"],
             tr.state["aabb_max"], 0)
@@ -422,15 +422,130 @@ def test_keep_set_overflow_is_counted():
     assert tr.keep_overflow == (1, n_valid - bucket)
 
 
-@pytest.mark.parametrize("field", ["optimize_extrinsics",
-                                   "optimize_distortion", "train_envmap",
-                                   "optimize_exposure", "latent_codes"])
-def test_unported_aux_models_raise(field):
-    ds = port_dataset(make_synth_dataset(n_images=2))
-    if field == "latent_codes":
-        opts = _topts(JOPTS, config=dataclasses.replace(
-            _tcfg(TINY_CFG), n_extra_learnable_dims=4))
-    else:
-        opts = _topts(JOPTS, **{field: True})
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        ttr.Trainer(ds, opts, device="cpu")
+# ---------------------------------------------------------------------------
+# Trainable auxiliary models: one step against the JAX package's
+# ---------------------------------------------------------------------------
+
+N_EXTRA = 4
+AUX_FIELDS = {"optimize_extrinsics": ("cam_rot", "cam_trans"),
+              "optimize_distortion": ("distortion",),
+              "train_envmap": ("envmap",),
+              "optimize_exposure": ("exposure",),
+              "latent_codes": ("extra_dims",)}
+
+
+def aux_options(fields):
+    """JOPTS with the aux models of `fields` on (latent_codes: a config
+    with N_EXTRA latent dims)."""
+    kw = {f: True for f in fields if f != "latent_codes"}
+    cfg = (dataclasses.replace(TINY_CFG, n_extra_learnable_dims=N_EXTRA)
+           if "latent_codes" in fields else TINY_CFG)
+    return dataclasses.replace(JOPTS, config=cfg, **kw)
+
+
+def aux_step_pair(setup, fields, seed=0):
+    """One _train_step_body on each package from the same state and the
+    JAX package's draws, with the aux models of `fields` on -> (JAX state
+    after, JAX loss, port state after, port loss, port state before).
+
+    The state is the setup trainer's after 40 steps, with seeded aux
+    models and aux moments, and for latent codes an rgb MLP widened by
+    seeded input columns. Every second moment is floored at 1e-8 on both
+    sides: where v is 0, Adam's first update is lr * sign(g), so a
+    gradient at the level of float noise would flip a whole step."""
+    tr, _, tdata = setup
+    opts = aux_options(fields)
+    rng = np.random.default_rng(seed)
+    n = tr.data["images"].shape[0]
+    base = jtr.make_train_state(jax.random.PRNGKey(0), opts,
+                                tr.state["aabb_min"], tr.state["aabb_max"],
+                                n_images=n)
+
+    def uni(lo, hi, shape):
+        return jnp.asarray(rng.uniform(lo, hi, shape).astype(np.float32))
+
+    init = {"cam_rot": (-0.02, 0.02), "cam_trans": (-0.02, 0.02),
+            "distortion": (-0.01, 0.01), "envmap": (0.3, 0.7),
+            "extra_dims": (-0.2, 0.2), "exposure": (-0.2, 0.2)}
+    aux = {k: uni(*init[k], a.shape) for k, a in base["aux"].items()}
+    if "exposure" in aux:
+        aux["exposure"] = aux["exposure"] - jnp.mean(aux["exposure"], 0)
+    aux_opt = {"m": {k: uni(-1e-4, 1e-4, a.shape) for k, a in aux.items()},
+               "v": {k: uni(1e-7, 1e-6, a.shape) for k, a in aux.items()}}
+    params, opt = tr.state["params"], tr.state["opt"]
+    if "latent_codes" in fields:
+        def widen(w, lo, hi):
+            extra = rng.uniform(lo, hi, (w.shape[0], 16)).astype(np.float32)
+            return jnp.concatenate([w, jnp.asarray(extra)], axis=1)
+
+        params = dict(params, rgb_mlp=(widen(params["rgb_mlp"][0], -0.2, 0.2),)
+                      + params["rgb_mlp"][1:])
+        opt = {"m": dict(opt["m"], rgb_mlp=(widen(opt["m"]["rgb_mlp"][0],
+                                                  -1e-4, 1e-4),)
+                         + opt["m"]["rgb_mlp"][1:]),
+               "v": dict(opt["v"], rgb_mlp=(widen(opt["v"]["rgb_mlp"][0],
+                                                  1e-8, 1e-7),)
+                         + opt["v"]["rgb_mlp"][1:])}
+    opt = {"m": opt["m"],
+           "v": jax.tree.map(lambda v: jnp.maximum(v, 1e-8), opt["v"])}
+    jstate = dict(tr.state, params=params, opt=opt, aux=aux, aux_opt=aux_opt)
+
+    tstate = {
+        "net": tnet.params_from_jax(_params_np(params), _tcfg(opts.config)
+                                    ).requires_grad_(True),
+        "opt": {k: {name: _t(v) for name, v in _grads_np(opt[k]).items()}
+                for k in ("m", "v")},
+        "aux": {k: _t(a) for k, a in aux.items()},
+        "aux_opt": {k: {name: _t(a) for name, a in aux_opt[k].items()}
+                    for k in ("m", "v")},
+        "step": int(jstate["step"]),
+        "density_grid": _t(jstate["density_grid"]),
+        "occ": _t(jstate["occ"]),
+        "error_map": _t(jstate["error_map"]),
+        "aabb_min": _t(jstate["aabb_min"]),
+        "aabb_max": _t(jstate["aabb_max"]),
+        "loss_ema": _t(jstate["loss_ema"]),
+        "overflow_steps": torch.zeros((), dtype=torch.int64),
+        "overflow_samples": torch.zeros((), dtype=torch.int64)}
+    before = {"aux": dict(tstate["aux"]),
+              "params": {k: p.detach().clone()
+                         for k, p in tstate["net"].named_parameters()}}
+
+    _, r1, r2, r3 = jax.random.split(jstate["rng"], 4)
+    n_img, h, w = tr.data["images"].shape[:3]
+    draws = {k: _t(v) for k, v in
+             _jax_pixel_draws(r1, B, n_img, h, w).items()}
+    draws["u"] = _t(jax.random.uniform(r2, (S, B)))
+    draws["bg"] = _t(jax.random.uniform(r3, (B, 3)))
+    jout, jloss = jax.jit(jtr._train_step_body, static_argnames="opts")(
+        jstate, tr.data, opts=opts)
+    tloss = ttr._train_step_body(tstate, tdata, _topts(opts), draws)
+    return jout, jloss, tstate, tloss, before
+
+
+def assert_step_matches(jout, jloss, tstate, tloss, before):
+    """Loss to rtol 1e-5; every updated parameter and aux array to 1e-5
+    of its max |value|; every aux array moved."""
+    np.testing.assert_allclose(float(tloss), float(jloss), rtol=1e-5)
+    for name, want in _grads_np(jout["params"]).items():
+        got = getattr(tstate["net"], name).detach().numpy()
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=1e-5 * np.abs(want).max(),
+                                   err_msg=name)
+    assert set(tstate["aux"]) == set(jout["aux"])
+    for k, want in jout["aux"].items():
+        want = np.asarray(want)
+        got = tstate["aux"][k].numpy()
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=1e-5 * np.abs(want).max(), err_msg=k)
+        assert not np.array_equal(got, before["aux"][k].numpy()), k
+
+
+@pytest.mark.parametrize("field", list(AUX_FIELDS))
+def test_unported_aux_models_raise(setup, field):
+    """Each trainable aux model alone (the five that raised before the
+    port had them): one step matches the JAX package's, and its aux
+    arrays are the ones the JAX package trains."""
+    out = aux_step_pair(setup, [field])
+    assert set(out[2]["aux"]) == set(AUX_FIELDS[field])
+    assert_step_matches(*out)
