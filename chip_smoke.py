@@ -157,6 +157,38 @@ head at 1280x720 with the mesh pass at 2x and the glasses:
      to 2 ulp of the parameters, and not checked: the training on the
      card differs from run to run, and where the gradient nearly cancels
      the card's roundoff moves it past 1e-4 (aux_step_card_vs_cpu).
+Then the full-frame mesh pass and data parallelism over ranks
+(torch.distributed; the card's machine has one card, so a "mesh" here is
+one NCCL rank, or two gloo ranks sharing cuda:0, each a process spawned
+by parallel.sharding.run_on_mesh, whose rank bodies are this file's
+*_rank functions):
+
+ 31. triangles.render_mesh_pass at 320x180 on the phase-4 camera and the
+     glasses: the tiled kernel's hits on the pass's rays against the plain
+     ray-cast under compare_with_plain's contract, the colour and depth
+     against the CPU's plain route to 1e-4 (pixels whose coverage flips
+     counted against the contract's allowance); timed at 2560x1440 (the
+     main path's 2x mesh resolution) by CUDA events, one tiled-kernel
+     launch per call;
+ 32. on each mesh: every rank builds phase 9's flash renderer afresh and
+     renders render_hybrid_sharded at 1280x720 (rank r its band r, jitter
+     off, the bands joined by all_reduce), 3 frames: >= 60 dB from phase 9's
+     one-process frame (n_shards=1) with depth to 1e-4, one untiled-kernel
+     launch per rank per frame; then render_image_sharded on the exact path
+     (NeRF only) against one process's march_frame_impl on all rays: >= 60
+     dB; ms per frame per mesh (two ranks on one card say nothing about
+     scaling);
+ 33. on each mesh: a ShardedTrainer on phase 11's capture from scratch
+     (native_fast, 2048 rays x 48 samples over the mesh, seed 3), 64 steps:
+     the mean loss of the last 5 under 0.8x the first 5's
+     (tests/test_parallel.py:59-75), every replicated tensor (parameters,
+     Adam moments, density grid, occupancy, error map, aux, loss EMA)
+     bit for bit equal to rank 0's (broadcast); steps/s beside phase 12's;
+ 34. one data-parallel f32 step at trained_head_v6's network, two ranks on
+     the card and two on the CPU, each rank fed the same batch (pixels,
+     samples and background made on the CPU from per-rank draws): the
+     averaged loss to rtol 1e-5, every averaged gradient to 1e-4 of its
+     max |g| (phase 16's bar), the card's ranks equal.
 Each phase prints its seconds.
 
 Prints one JSON line with the kernels' numbers (time, bound and share of
@@ -205,7 +237,11 @@ from nerf_glasses_tpu_torch.ops.colors import linear_to_srgb, srgb_to_linear
 from nerf_glasses_tpu_torch.ops.network import (NerfNetwork,
                                                 apply_density_activation,
                                                 unpack_params)
-from nerf_glasses_tpu_torch.parallel.sharding import render_hybrid_sharded
+from nerf_glasses_tpu_torch.parallel.sharding import (ShardedTrainer,
+                                                      render_hybrid_sharded,
+                                                      render_image_sharded,
+                                                      replica_mismatches,
+                                                      run_on_mesh)
 from nerf_glasses_tpu_torch.train import trainer as ttr
 from nerf_glasses_tpu_torch.utils import placement
 from nerf_glasses_tpu_torch.utils.bbox import BoundingBox
@@ -279,6 +315,19 @@ AUX_SEEDED = {"cam_rot": (-0.02, 0.02), "cam_trans": (-0.02, 0.02),
               "distortion": (-0.01, 0.01), "envmap": (0.3, 0.7),
               "extra_dims": (-0.2, 0.2), "exposure": (-0.2, 0.2)}
 NUDGE_ULPS = 2
+# the full-frame mesh pass and data parallelism (phases 31-34)
+MESH_PASS_CHECK = (320, 180)
+MESH_PASS_ATOL = 1e-4
+MESH_PASS_REPS = 5
+PIX0 = (0.5, 1.0 / 3.0)         # the Halton(2, 3) offset of sample 0
+SHARD_FRAMES = 3
+PSNR_SHARD_RANKS_DB = 60.0
+SHARD_DEPTH_ATOL = 1e-4
+SHARD_EXACT_CHUNK = 2048        # divides a rank's 460,800 or 921,600 rays
+SHARD_TRAIN_STEPS = 64
+SHARD_TRAIN_OPTS = ttr.TrainOptions(config=NGPConfig.native_fast())
+SHARD_BAKE = {}                 # load_nerf(bake=True)'s defaults, as phase 8
+RANK_TIMEOUT_S = 600.0
 
 
 # ---------------------------------------------------------------------------
@@ -1826,6 +1875,254 @@ def application_phases(dev, tmp, lap, glasses):
     return app_launches
 
 
+# ---------------------------------------------------------------------------
+# The full-frame mesh pass and data parallelism (phases 31-34)
+# ---------------------------------------------------------------------------
+
+def mesh_pass_phase(dev, lap, glasses):
+    """Phase 31: render_mesh_pass on the card against its plain route on
+    the CPU at 320x180, timed at 2560x1440 -> (kernel-1 launches, calls,
+    ms per call)."""
+    renderer, _ = make_renderer(dev, W, H, glasses)
+    mesh = renderer._mesh_arrays
+    mesh_cpu = tri_ops.build_mesh_arrays(renderer._meshes, "cpu")
+    xf, nm = tri_ops.instance_transforms(mesh, renderer._meshes)
+    cam = renderer.view_projection_mat
+    light = renderer.light_pos
+    w, h = MESH_PASS_CHECK
+    inp = tri_ops.tiled_raycast_inputs(mesh, xf, cam, w, h)
+    out_k = [a.cpu() for a in mesh_cuda.raycast_tiled(
+        inp["tri_scalars"], inp["o"], inp["d"], inp["tile_lists"],
+        inp["tile_counts"])]
+    out_p = mesh_cuda.raycast_reference(*(inp[k].cpu() for k in
+                                          ("tri_scalars", "o", "d")))
+    cmp = mesh_cuda.compare_with_plain(out_k, out_p)
+    card_c, card_d = tri_ops.render_mesh_pass(mesh, xf, nm, cam, w, h, light)
+    cpu_c, cpu_d = tri_ops.render_mesh_pass(mesh_cpu, xf, nm, cam, w, h, light)
+    same = card_c[..., 3] == cpu_c[..., 3]
+    flipped = int((~same).sum())
+    dc = float(np.abs(card_c - cpu_c)[same].max())
+    dd = float(np.abs(card_d - cpu_d)[same].max())
+    print(report(f"render_mesh_pass {w}x{h}, the tiled kernel", cmp))
+    print(f"render_mesh_pass {w}x{h}, card vs the CPU's plain route: "
+          f"{int((cpu_c[..., 3] > 0).sum())} covered pixels, coverage "
+          f"flips {flipped} (allowed {cmp['allowed']}), max |colour diff| "
+          f"{dc:.3g}, max |depth diff| {dd:.3g} elsewhere")
+    if not (cmp["ok"] and cmp["hits"] > 0):
+        raise AssertionError("render_mesh_pass: the kernel disagrees with "
+                             "the plain ray-cast")
+    if flipped > cmp["allowed"] or dc > MESH_PASS_ATOL or dd > MESH_PASS_ATOL:
+        raise AssertionError("render_mesh_pass: card and CPU disagree")
+    tw, th = W * renderer.mesh_render_size_factor, H * renderer.mesh_render_size_factor
+    mesh_cuda.launches = 0
+    ms = cuda_ms(lambda: tri_ops.render_mesh_pass(mesh, xf, nm, cam, tw, th,
+                                                  light, device_out=True),
+                 MESH_PASS_REPS)
+    launches, calls = mesh_cuda.launches, MESH_PASS_REPS + 1
+    print(f"render_mesh_pass {tw}x{th} on the card: {ms:.3f} ms a call "
+          f"(CUDA events, {MESH_PASS_REPS} calls after 1), tiled kernel "
+          f"launches {launches} in {calls} calls")
+    if launches != calls:
+        raise AssertionError(f"{launches} tiled-kernel launches in {calls} "
+                             f"render_mesh_pass calls")
+    lap(31)
+    return launches, calls, ms
+
+
+def sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def sharded_frames_rank(mesh, glasses, width, height, bake_kw):
+    """Phase 32 on one rank: the flash renderer of phase 9 built afresh
+    (load_nerf(bake=True, **bake_kw)), SHARD_FRAMES hybrid frames of its
+    band, jitter off, then one exact NeRF-only frame through
+    render_image_sharded -> numpy frames, ms and the untiled kernel's
+    launches (counted in this rank's process)."""
+    dev = mesh.device
+    r, nerf = make_renderer(dev, width, height, glasses, bake=True,
+                            verify_fidelity=False, **bake_kw)
+    opts = dataclasses.replace(nerf._march_options(), jitter=False)
+    scene = nerf._scene()
+    xf, nm = tri_ops.instance_transforms(r._mesh_arrays, r._meshes)
+
+    def frame():
+        return render_hybrid_sharded(
+            nerf.net, scene, r._mesh_arrays, xf, nm, r.view_projection_mat,
+            width, height, opts, mesh, light_pos=r.light_pos,
+            pix_offset=PIX0)
+
+    frame()
+    mesh_cuda.raycast_launches = 0
+    t0 = time.perf_counter()
+    for _ in range(SHARD_FRAMES):
+        fr, dp = frame()                # numpy: synchronised
+    frame_ms = (time.perf_counter() - t0) * 1e3 / SHARD_FRAMES
+    launches = mesh_cuda.raycast_launches
+    del r, nerf, scene
+    er, enerf = make_renderer(dev, width, height, glasses)
+    eopts = exact_sharded_options(enerf)
+    escene = enerf._scene()
+    sync(dev)
+    t0 = time.perf_counter()
+    img, img_d = render_image_sharded(enerf.net, escene,
+                                      er.view_projection_mat, width, height,
+                                      eopts, mesh)
+    image_ms = (time.perf_counter() - t0) * 1e3
+    return {"frame": fr, "depth": dp, "frame_ms": frame_ms,
+            "launches": launches, "image": img, "image_depth": img_d,
+            "image_ms": image_ms}
+
+
+def exact_sharded_options(nerf):
+    """The exact path's options, jitter off, with a chunk that divides a
+    rank's share of the 720p rays, so that each rank takes march_frame
+    (the port's march ignores the chunk otherwise)."""
+    return dataclasses.replace(nerf._march_options(), jitter=False,
+                               chunk=SHARD_EXACT_CHUNK)
+
+
+def sharded_training_rank(mesh, ds, opts, steps):
+    """Phase 33 on one rank: a ShardedTrainer on the capture from scratch
+    (seed 3), `steps` steps: 5 single steps, the timed middle, 5 single
+    steps; then the replicas against rank 0's."""
+    tr = ShardedTrainer(ds, opts, seed=3, mesh=mesh)
+    early = [tr.train(1) for _ in range(5)]
+    mid = steps - 10
+    sync(mesh.device)
+    t0 = time.perf_counter()
+    tr.train(mid)                       # ends in the losses' fetch
+    sps = mid / (time.perf_counter() - t0)
+    late = [tr.train(1) for _ in range(5)]
+    return {"early": early, "late": late, "sps": sps, "step": tr.step,
+            "local_rays": opts.rays_per_batch // mesh.size,
+            "mismatches": replica_mismatches(mesh, tr.state),
+            "overflow": tr.keep_overflow}
+
+
+def dp_grads_rank(mesh, inputs, opts):
+    """Phase 34 on one rank: the loss and gradients of one data-parallel
+    step at trained_head_v6's network on this rank's step inputs (rays,
+    samples, targets and background made on the CPU: step_inputs, as
+    phase 16 pins them), averaged over the mesh as _train_step_body
+    averages them -> (loss, {name: grad})."""
+    s = snap_io.load_snapshot(SNAPSHOT)
+    net = unpack_params(s.params_blob, s.config,
+                        mesh.device).requires_grad_(True)
+    loss, grads = step_grads(net, inputs[mesh.rank], opts)
+    loss, grads, _ = ttr._mean_over_ranks(mesh, loss, grads, {})
+    return float(loss), {k: g.cpu().numpy() for k, g in grads.items()}
+
+
+def on_both_meshes(fn, *args):
+    """fn on a one-rank NCCL mesh and on two gloo ranks sharing cuda:0 ->
+    {label: [result of each rank]}."""
+    return {"nccl x1": run_on_mesh(fn, 1, "nccl", "cuda", *args,
+                                   timeout=RANK_TIMEOUT_S),
+            "gloo x2 on cuda:0": run_on_mesh(fn, 2, "gloo", "cuda:0", *args,
+                                             timeout=RANK_TIMEOUT_S)}
+
+
+def parallel_phases(dev, lap, glasses, ds, ref_frame, sps_plain):
+    """Phases 32-34 -> {mesh label: the untiled kernel's launches per rank
+    in phase 32's frames}."""
+    # 32: sharded frames
+    ref_f, ref_d = ref_frame
+    er, enerf = make_renderer(dev, W, H, glasses)
+    eopts = exact_sharded_options(enerf)
+    o, d = (torch.as_tensor(a, device=dev) for a in
+            raymarch.camera_rays(er.view_projection_mat, W, H))
+    zeros = torch.zeros((o.shape[0], 4), device=dev)
+    ref_img = raymarch.march_frame_impl(enerf.net, enerf._scene(), o, d,
+                                        zeros, zeros[:, 0], eopts)[0]
+    ref_img = ref_img["rgba"].reshape(H, W, 4).cpu().numpy()
+    del er, enerf, o, d, zeros
+    results = on_both_meshes(sharded_frames_rank, glasses, W, H, SHARD_BAKE)
+    launches = {}
+    for label, ranks in results.items():
+        launches[label] = [r["launches"] for r in ranks]
+        for rank, r in enumerate(ranks):
+            p_f = psnr(r["frame"][..., :3], ref_f[..., :3])
+            dd = float(np.abs(r["depth"] - ref_d).max())
+            p_i = psnr(r["image"][..., :3], ref_img[..., :3])
+            print(f"{label} rank {rank}: render_hybrid_sharded {W}x{H} "
+                  f"{r['frame_ms']:.1f} ms/frame ({SHARD_FRAMES} frames, "
+                  f"host clock to numpy), untiled kernel launches "
+                  f"{r['launches']}; vs phase 9's one-process frame "
+                  f"{p_f:.2f} dB, max |depth diff| {dd:.3g}; "
+                  f"render_image_sharded (exact, NeRF only) "
+                  f"{r['image_ms']:.1f} ms, vs one process's march "
+                  f"{p_i:.2f} dB")
+            if not (np.isfinite(r["frame"]).all()
+                    and np.isfinite(r["image"]).all()):
+                raise AssertionError(f"{label}: a sharded frame is not finite")
+            if p_f < PSNR_SHARD_RANKS_DB or dd > SHARD_DEPTH_ATOL:
+                raise AssertionError(f"{label}: the sharded hybrid frame "
+                                     f"disagrees with phase 9's")
+            if p_i < PSNR_SHARD_RANKS_DB:
+                raise AssertionError(f"{label}: render_image_sharded "
+                                     f"disagrees with one process's march")
+            if r["launches"] != SHARD_FRAMES:
+                raise AssertionError(f"{label}: {r['launches']} untiled "
+                                     f"launches in {SHARD_FRAMES} frames")
+    print("two gloo ranks share one card's SMs and stage CUDA tensors "
+          "through the host: their times say nothing about scaling")
+    lap(32)
+
+    # 33: ShardedTrainer from scratch
+    results = on_both_meshes(sharded_training_rank, ds, SHARD_TRAIN_OPTS,
+                             SHARD_TRAIN_STEPS)
+    for label, ranks in results.items():
+        for rank, r in enumerate(ranks):
+            early, late = float(np.mean(r["early"])), float(np.mean(r["late"]))
+            print(f"{label} rank {rank}: ShardedTrainer {r['step']} steps, "
+                  f"{r['local_rays']} rays a rank, {r['sps']:.2f} steps/s "
+                  f"(phase 12, one process: {sps_plain:.2f}), mean loss of "
+                  f"steps 1-5 {early:.5f} -> last 5 {late:.5f}, keep-set "
+                  f"overflow {r['overflow']}, replicas unequal to rank 0's: "
+                  f"{r['mismatches'] or 'none'}")
+            if not (np.isfinite(r["late"]).all() and late < 0.8 * early):
+                raise AssertionError(f"{label}: the ShardedTrainer does not "
+                                     f"train")
+            if r["mismatches"]:
+                raise AssertionError(f"{label}: replicas drifted apart")
+    lap(33)
+
+    # 34: one data-parallel step, card against CPU, from a fixed state
+    f32opts = dataclasses.replace(SHARD_TRAIN_OPTS, compute_dtype="float32",
+                                  encode_dtype="float32",
+                                  compact_keep_fraction=0.0)
+    local = dataclasses.replace(f32opts,
+                                rays_per_batch=f32opts.rays_per_batch // 2)
+    cpu = torch.device("cpu")
+    data_cpu = ttr.prepare_dataset_arrays(ds, cpu)
+    inputs = [step_inputs(data_cpu, ttr.draw_step(
+        torch.Generator(device=cpu).manual_seed(34 + rank), {}, data_cpu,
+        local), local) for rank in range(2)]
+    card = run_on_mesh(dp_grads_rank, 2, "gloo", "cuda:0", inputs, local,
+                       timeout=RANK_TIMEOUT_S)
+    host = run_on_mesh(dp_grads_rank, 2, "gloo", "cpu", inputs, local,
+                       timeout=RANK_TIMEOUT_S)
+    (lc, gc), (lp, gp) = card[0], host[0]
+    loss_rel = abs(lc - lp) / abs(lp)
+    worst = max(float(np.abs(gc[k] - gp[k]).max() / np.abs(gp[k]).max())
+                for k in gp)
+    same = all(r[0] == lc and all(np.array_equal(r[1][k], gc[k]) for k in gc)
+               for r in card[1:])
+    print(f"one data-parallel f32 step at trained_head_v6's network, 2 "
+          f"ranks x {local.rays_per_batch} rays from the same injected "
+          f"rays and samples: card (gloo on cuda:0) loss {lc:.8f} vs CPU (gloo) "
+          f"{lp:.8f} (rel {loss_rel:.2e}), worst gradient |diff| / max|g| "
+          f"{worst:.2e} over {len(gp)} arrays; card ranks equal: {same}")
+    if not (loss_rel <= 1e-5 and worst <= 1e-4):
+        raise AssertionError("card and CPU data-parallel steps disagree")
+    if not same:
+        raise AssertionError("the card's ranks hold different gradients")
+    lap(34)
+    return launches
+
+
 def main(tmp, dirs, multicascade_only=False):
     # 1
     if not torch.cuda.is_available():
@@ -2035,7 +2332,7 @@ def main(tmp, dirs, multicascade_only=False):
     scene = fnerf._scene()
     xf2, nm2 = tri_ops.instance_transforms(frenderer._mesh_arrays,
                                            frenderer._meshes)
-    pix = (0.5, 1.0 / 3.0)          # the Halton(2, 3) offset of sample 0
+    pix = PIX0
 
     def sharded(n_shards, o):
         return render_hybrid_sharded(
@@ -2076,7 +2373,8 @@ def main(tmp, dirs, multicascade_only=False):
     print(f"jitter off: n_shards=4 vs n_shards=1 max |diff| {shard_diff:.3g}")
     if shard_diff > SHARD_ATOL:
         raise AssertionError("the frame depends on the shard count")
-    del sh_frame, sh_depth, f1, f4, d1, d4, scene, frenderer, fnerf, fb_flash
+    ref_frame = (f1, d1)            # phase 32's reference
+    del sh_frame, sh_depth, f4, d4, scene, frenderer, fnerf, fb_flash
     lap(9)
 
     # 10: a small flash frame on the card against the CPU
@@ -2103,6 +2401,9 @@ def main(tmp, dirs, multicascade_only=False):
     mc_launches = multicascade_phases(dev, tmp, lap, glasses, ds)
     cam_launches, cam_frames = camera_phases(dev, tmp, lap, glasses, ds,
                                              flash_ms, sps_plain)
+    mp_launches, mp_calls, mp_ms = mesh_pass_phase(dev, lap, glasses)
+    shard_launches = parallel_phases(dev, lap, glasses, ds, ref_frame,
+                                     sps_plain)
 
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
@@ -2118,14 +2419,18 @@ def main(tmp, dirs, multicascade_only=False):
         "multicascade_launches": mc_launches,
         "multicascade_launches_per_frame": mc_launches / 8,
         "camera_launches": cam_launches,
-        "camera_launches_per_frame": cam_launches / cam_frames}, {
+        "camera_launches_per_frame": cam_launches / cam_frames,
+        "mesh_pass_launches": mp_launches, "mesh_pass_calls": mp_calls,
+        "mesh_pass_ms": mp_ms}, {
         "name": "raycast", "route": "cuda",
         "source": "nerf_glasses_tpu_torch/csrc/mesh_raycast.cu",
         "replaces": "nerf_glasses_tpu/ops/mesh_pallas.py:91",
         "launches": untiled_launches, "max_abs_err": cmp2["max_abs_err"],
         "ms": k2_ms, "plain_ms": p2_ms, "bound_ms": b2_ms, "bound_by": b2_by,
         "library_ms": None, "share": b2_ms / k2_ms,
-        "launches_per_frame": untiled_launches / 4}]}))
+        "launches_per_frame": untiled_launches / 4,
+        "sharded_launches_per_rank": shard_launches,
+        "sharded_frames": SHARD_FRAMES}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -123,11 +123,17 @@ class NerfDataset:
     from_mitsuba: bool = False
     is_hdr: bool = False
     wants_importance_sampling: bool = True
+    n_extra_learnable_dims: int = 0
+    has_light_dirs: bool = False
     # training pixels: (H, W, 4) float32 linear premultiplied per image
     images: Optional[List[np.ndarray]] = None
     # per-image (H, W) float32 depth in NGP units (0 = no supervision),
     # or None for an image without depth (nerf_loader.cu:756-856)
     depth_images: Optional[List[Optional[np.ndarray]]] = None
+
+    @property
+    def n_extra_dims(self) -> int:
+        return (3 if self.has_light_dirs else 0) + self.n_extra_learnable_dims
 
 
 def create_empty_nerf_dataset(n_images: int, aabb_scale: int = 1,

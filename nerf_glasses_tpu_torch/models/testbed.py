@@ -326,6 +326,10 @@ class Testbed:
     def look_at(self, pos):
         self.camera_matrix[:, 3] += np.asarray(pos, np.float32) - self.look_at
 
+    @property
+    def view_dir_prop(self):
+        return self.view_dir
+
     def set_view_dir(self, dir):
         d = np.asarray(dir, np.float64)
         old_look_at = self.look_at.copy()

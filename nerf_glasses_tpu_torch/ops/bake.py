@@ -111,6 +111,15 @@ def bake_grids(net: NerfNetwork, resolution: int = 256, batch: int = 1 << 20,
     return sigma.reshape(R, R, R), feat
 
 
+def bake_density_grid(net: NerfNetwork, resolution: int = 256,
+                      batch: Optional[int] = None,
+                      occ: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Activated density at the cell centres -> (R, R, R) [z, y, x]; see
+    bake_grids."""
+    kw = {} if batch is None else {"batch": batch}
+    return bake_grids(net, resolution, occ=occ, **kw)[0]
+
+
 def bake_grids_cascades(net: NerfNetwork, resolution: int = 256,
                         occ: Optional[torch.Tensor] = None,
                         log_space: bool = True, aabb=None,

@@ -80,6 +80,15 @@ def corner_indices_and_weights(pos: torch.Tensor, scale: float,
     return idx, weights
 
 
+def level_corner_indices(pos: torch.Tensor, resolution: int, scale: float,
+                         hashmap_size: int):
+    """One level's corner rows and trilinear weights, dense indexing when
+    the level's grid fits its table."""
+    dense = resolution ** 3 <= hashmap_size
+    return corner_indices_and_weights(pos, float(scale), int(resolution),
+                                      int(hashmap_size), dense)
+
+
 def take_rows(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """tab (S, F), idx (N, 8) -> (N, 8, F) row gather. index_select's
     gradient is an index_add_ into the table (atomic adds on CUDA)."""

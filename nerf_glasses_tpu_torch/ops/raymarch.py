@@ -910,6 +910,39 @@ def _finalize(st):
     return {"rgba": rgba, "depth": depth}
 
 
+@torch.no_grad()
+def march_rays(net: NerfNetwork, scene, o, d, surface_rgba, t_surface,
+               opts: MarchOptions, sample_index=0):
+    """March a batch of rays to completion without compaction -> {"rgba"
+    (N, 4), "depth" (N,)}: _march_round on all N rays while any is alive
+    and fewer than opts.max_rounds rounds ran, then the deferred shade
+    when baked and deferred (the JAX package's tile API,
+    raymarch.py:1112). Any N; no advance pass and no init skip. The loop
+    reads alive.any() from the device once a round."""
+    st = _make_state(scene, o, d, surface_rgba, t_surface, opts, sample_index)
+    rounds = 0
+    while rounds < opts.max_rounds and bool(st["alive"].any()):
+        st = _march_round(st, net, scene, opts)
+        rounds += 1
+    if opts.deferred_color and opts.use_baked_sigma:
+        st = _deferred_shade(st, net, scene, opts)
+    return _finalize(st)
+
+
+@torch.no_grad()
+def march_frame(net: NerfNetwork, scene, o, d, surface_rgba, t_surface,
+                opts: MarchOptions, sample_index=0):
+    """The compacting march (march_frame_impl) on N rays -> {"rgba" (N, 4),
+    "depth" (N,)}. N must be a multiple of opts.chunk, as the JAX
+    package requires (raymarch.py:1142)."""
+    n = o.shape[0]
+    if n % opts.chunk:
+        raise ValueError(f"march_frame: {n} rays is not a multiple of "
+                         f"chunk {opts.chunk}")
+    return march_frame_impl(net, scene, o, d, surface_rgba, t_surface, opts,
+                            sample_index)[0]
+
+
 _GATHER = ("o", "d", "surf", "t_surf", "t_start", "t", "rgba", "depth",
            "max_weight", "surf_a", "wn")
 _SCATTER = ("t", "rgba", "depth", "max_weight", "alive", "surf_a", "wn")

@@ -52,6 +52,14 @@ class MeshArrays:
     occlusion_strength: torch.Tensor  # (M,)
     textures: List[Dict[str, torch.Tensor]]  # per material, uploaded once
 
+    @property
+    def n_tris(self) -> int:
+        return self.v0.shape[0]
+
+    @property
+    def n_instances(self) -> int:
+        return len(self.nodes)
+
 
 def _walk_nodes(scenes):
     """Yield (node, parent_transform) depth-first in a stable order."""
@@ -120,6 +128,17 @@ def instance_transforms(mesh: MeshArrays, scenes
     xf = np.stack([node_to_xform[id(n)][:3, :4] for n in mesh.nodes])
     nrm = np.stack([np.linalg.inv(x[:3, :3]).T for x in xf])
     return xf.astype(np.float32), nrm.astype(np.float32)
+
+
+def world_triangles(mesh: MeshArrays, xforms: torch.Tensor):
+    """The object-space soup through each triangle's instance transform
+    (xforms (I, 3, 4) on the mesh's device) -> world (v0, e1, e2), (T, 3)
+    each."""
+    rot = xforms[mesh.inst_id, :, :3]
+    return (torch.einsum("tij,tj->ti", rot, mesh.v0)
+            + xforms[mesh.inst_id, :, 3],
+            torch.einsum("tij,tj->ti", rot, mesh.e1),
+            torch.einsum("tij,tj->ti", rot, mesh.e2))
 
 
 # ---------------------------------------------------------------------------
@@ -338,11 +357,7 @@ def tiled_raycast_inputs(mesh: MeshArrays, xforms, camera, width: int,
     d_t = (d.reshape(nty, TILE_H, ntx, TILE_W, 3).permute(0, 2, 1, 3, 4)
            .reshape(-1, 3).contiguous())
 
-    rot = xforms[mesh.inst_id, :, :3]
-    trans = xforms[mesh.inst_id, :, 3]
-    v0 = torch.einsum("tij,tj->ti", rot, mesh.v0) + trans
-    e1 = torch.einsum("tij,tj->ti", rot, mesh.e1)
-    e2 = torch.einsum("tij,tj->ti", rot, mesh.e2)
+    v0, e1, e2 = world_triangles(mesh, xforms)
     lists, counts = _bin_triangles(v0, e1, e2, eye, torch.linalg.inv(cam3),
                                    width, height, wp, hp)
     return {"tri_scalars": torch.cat([v0, e1, e2], dim=1).contiguous(),
@@ -405,6 +420,55 @@ def render_mesh_pass_tiled(mesh: MeshArrays, xforms, nrm_mats, camera,
              .reshape(nty * th, ntx * tw))
     return (color[:height // factor, :width // factor],
             depth[:height // factor, :width // factor])
+
+
+def render_mesh_pass(mesh: MeshArrays, xforms, nrm_mats, camera,
+                     width: int, height: int, light_pos, tri_chunk: int = 256,
+                     ray_tile: int = 262144, device_out: bool = False):
+    """Trace and shade the mesh at (width, height) in the renderer's world
+    frame -> (color (H, W, 4) sRGB + coverage alpha, depth (H, W) hit
+    distance, 0 on a miss), numpy, or tensors with device_out.
+
+    On the card this is the tiled pass (render_mesh_pass_tiled, one
+    launch of the tiled kernel), as the JAX package takes on its chip;
+    on the CPU the plain route: every ray against every triangle
+    (_raycast_chunked, `tri_chunk` triangles at a time) in tiles of
+    `ray_tile` rays, each shaded whole."""
+    dev = mesh.v0.device
+    if dev.type == "cuda":
+        color, depth = render_mesh_pass_tiled(mesh, xforms, nrm_mats, camera,
+                                              width, height, light_pos)
+    else:
+        f32 = dict(dtype=torch.float32, device=dev)
+        cam = torch.as_tensor(np.asarray(camera, np.float32), **f32)
+        xf = torch.as_tensor(np.asarray(xforms, np.float32), **f32)
+        nm = torch.as_tensor(np.asarray(nrm_mats, np.float32), **f32)
+        light = torch.as_tensor(np.asarray(light_pos, np.float32), **f32)
+        eye = cam[:, 3]
+        x = (torch.arange(width, **f32) + 0.5) / width * 2.0 - 1.0
+        y = (torch.arange(height, **f32) + 0.5) / height * 2.0 - 1.0
+        ndc = torch.stack([x[None].expand(height, width),
+                           y[:, None].expand(height, width),
+                           torch.ones((height, width), **f32)], dim=-1)
+        d = (ndc @ cam[:, :3].T).reshape(-1, 3)
+        d = d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)
+        o = eye.expand(d.shape)
+        v0, e1, e2 = world_triangles(mesh, xf)
+        colors, depths = [], []
+        for s in range(0, d.shape[0], ray_tile):
+            ot, dt = o[s:s + ray_tile], d[s:s + ray_tile]
+            t, tri, uv = _raycast_chunked(ot, dt, v0, e1, e2, tri_chunk)
+            rgb = shade_hits(mesh, ot, dt, t, tri, uv, nm, light, eye)
+            hit = tri >= 0
+            colors.append(torch.cat([
+                linear_to_srgb(torch.clamp(rgb, 0.0, 1.0)),
+                hit[:, None].float()], -1))
+            depths.append(torch.where(hit, t, 0.0))
+        color = torch.cat(colors).reshape(height, width, 4)
+        depth = torch.cat(depths).reshape(height, width)
+    if device_out:
+        return color, depth
+    return color.cpu().numpy(), depth.cpu().numpy()
 
 
 def render_mesh_surface(mesh: MeshArrays, xforms, nrm_mats, camera,

@@ -416,6 +416,22 @@ def _gen_rays(data, img, px, py, aux, apply_lens_distortion: bool):
     return o, d
 
 
+def _check_batch(draws, n_rays: int):
+    if draws["img"].shape[0] != n_rays:
+        raise ValueError(f"draws hold {draws['img'].shape[0]} rays, "
+                         f"expected {n_rays}")
+
+
+def _sample_rays(draws, data, n_rays: int,
+                 apply_lens_distortion: bool = False):
+    """-> (o (B, 3), unit d (B, 3), target rgba (B, 4)) of uniformly drawn
+    pixels (draw_pixels), without the aux models."""
+    _check_batch(draws, n_rays)
+    img, px, py, target = _sample_pixels(draws, data)
+    o, d = _gen_rays(data, img, px, py, {}, apply_lens_distortion)
+    return o, d, target
+
+
 def march_training_samples(occ, o, d, u, opts: TrainOptions, aabb_min,
                            aabb_max, max_cascade: int):
     """Occupancy-compacted stratified training samples (no gradient).
@@ -716,28 +732,58 @@ def _loss_and_grads(state, data, img, px, py, target, samples, bg,
             dict(zip(keys, grads[len(names):])), n_keep)
 
 
-def _train_step_body(state, data, opts: TrainOptions, draws):
-    """One training step from its draws (draw_step); updates `state` in
-    place and returns the loss, a 0-d device tensor. The background is
-    the random draw when random_bg and no envmap trains, else white (an
-    envmap step draws it all the same, so the draws match the JAX
-    package's)."""
-    step = state["step"]
-    B = opts.rays_per_batch
+def _ray_batch(state, data, draws, n_rays: int, opts: TrainOptions):
+    """Sample pixels (with the error map past its warmup), build their rays
+    with the current aux models applied and detached, and march the
+    geometry pass -> (img, px, py, target, samples). No gradient."""
+    _check_batch(draws, n_rays)
     with torch.no_grad():
         img, px, py, target = _sample_pixels(draws, data,
-                                             state.get("error_map"), step,
-                                             opts)
+                                             state.get("error_map"),
+                                             state["step"], opts)
         o, d = _gen_rays(data, img, px, py, state["aux"],
                          opts.apply_lens_distortion)
         samples = march_training_samples(
             state["occ"], o, d, draws["u"], opts, state["aabb_min"],
             state["aabb_max"], opts.config.max_cascade)
-        bg = (draws["bg"] if opts.random_bg and not opts.train_envmap
-              else torch.ones((B, 3), device=o.device))
+    return img, px, py, target, samples
+
+
+def _mean_over_ranks(mesh, loss, grads, aux_grads):
+    """Loss, gradients and aux gradients averaged over the mesh's ranks in
+    one all-reduce: each rank's loss is a mean over its own rays, so the
+    mean of the means is the global mean."""
+    names, keys = list(grads), list(aux_grads)
+    out = mesh.reduce([loss] + [grads[k] for k in names]
+                      + [aux_grads[k] for k in keys], mean=True)
+    return (out[0], dict(zip(names, out[1:1 + len(names)])),
+            dict(zip(keys, out[1 + len(names):])))
+
+
+def _train_step_body(state, data, opts: TrainOptions, draws, mesh=None):
+    """One training step from its draws (draw_step); updates `state` in
+    place and returns the loss, a 0-d device tensor. The background is
+    the random draw when random_bg and no envmap trains, else white (an
+    envmap step draws it all the same, so the draws match the JAX
+    package's).
+
+    With `mesh` (parallel.sharding.Mesh) every rank runs this step on its
+    own draws of opts.rays_per_batch rays, from the same replicated
+    state: loss, gradients and aux gradients are averaged over the ranks,
+    the error map's (sum, count) rasters and the keep-set overflow counts
+    summed, so that every rank applies the same update
+    (nerf_glasses_tpu/parallel/sharding.py:278-333)."""
+    step = state["step"]
+    B = opts.rays_per_batch
+    img, px, py, target, samples = _ray_batch(state, data, draws, B, opts)
+    bg = (draws["bg"] if opts.random_bg and not opts.train_envmap
+          else torch.ones((B, 3), device=target.device))
     loss, per_ray_err, grads, aux_grads, n_keep = _loss_and_grads(
         state, data, img, px, py, target, samples, bg, opts)
     with torch.no_grad():
+        if mesh is not None:
+            loss, grads, aux_grads = _mean_over_ranks(mesh, loss, grads,
+                                                      aux_grads)
         adam_update(state["net"], grads, state["opt"], step, opts)
         state["aux"], state["aux_opt"] = _aux_adam_update(
             state["aux"], aux_grads, state["aux_opt"], step, opts)
@@ -747,16 +793,52 @@ def _train_step_body(state, data, opts: TrainOptions, draws):
             bucket = compact_bucket(B * opts.samples_per_ray,
                                     opts.compact_keep_fraction)
             over = n_keep - bucket
-            state["overflow_steps"] += over > 0
-            state["overflow_samples"] += torch.clamp(over, min=0)
+            counts = [(over > 0).long(), torch.clamp(over, min=0)]
+            if mesh is not None:
+                counts = mesh.reduce(counts)
+            state["overflow_steps"] += counts[0]
+            state["overflow_samples"] += counts[1]
         if "error_map" in state:
             h, w = data["images"].shape[1:3]
             sum_g, cnt_g = _error_map_accum(state["error_map"], img, px, py,
                                             per_ray_err, w, h)
+            if mesh is not None:
+                # never apply a raster local to one rank: index_put_'s
+                # accumulation order differs between ranks on the card
+                sum_g, cnt_g = mesh.reduce([sum_g, cnt_g])
             state["error_map"] = _error_map_apply(state["error_map"], sum_g,
                                                   cnt_g, opts.error_map_beta)
     state["step"] = step + 1
     return loss
+
+
+def train_step(state, data, opts: TrainOptions, draws, mesh=None):
+    """One training step from its draws (draw_step) -> (state, loss 0-d
+    tensor); `state` is updated in place. `mesh`: see _train_step_body."""
+    return state, _train_step_body(state, data, opts, draws, mesh)
+
+
+def update_density_grid(state, opts: TrainOptions, draws,
+                        rebuild_occ: bool = True):
+    """The density-grid refresh from its draws (draw_grid_update) ->
+    state, updated in place."""
+    _update_density_grid_body(state, opts, draws, rebuild_occ)
+    return state
+
+
+def train_chunk(state, data, opts: TrainOptions, n_steps: int,
+                update_grid: bool, rebuild_occ: bool, draws_fn, mesh=None):
+    """The grid refresh when `update_grid`, then n_steps training steps ->
+    (state, losses (n_steps,) on the device); no host read.
+    draws_fn(kind, opts) returns the draws of the refresh (kind "grid",
+    draw_grid_update) and of each step (kind "step", draw_step), in the
+    order they run. With `mesh` the refresh is replicated: every rank
+    must draw it alike."""
+    if update_grid:
+        update_density_grid(state, opts, draws_fn("grid", opts), rebuild_occ)
+    losses = [_train_step_body(state, data, opts, draws_fn("step", opts),
+                               mesh) for _ in range(n_steps)]
+    return state, torch.stack(losses)
 
 
 def _update_density_grid_body(state, opts: TrainOptions, draws,
@@ -866,41 +948,69 @@ class Trainer:
             return self._dense_opts
         return self.opts
 
+    def _draws(self, kind: str, opts: TrainOptions):
+        """The draws of a grid refresh (kind "grid") or of a step (kind
+        "step"), from the trainer's generator."""
+        if kind == "grid":
+            return draw_grid_update(self.gen, opts.grid_samples_per_update,
+                                    opts.config.max_cascade + 1, self.device)
+        return draw_step(self.gen, self.state, self.data, opts)
+
+    def _fns_for(self, step: int):
+        """(chunk_fn, step_fn) for the chunk that starts at `step`, on the
+        options of _chunk_opts: chunk_fn(state, data, n_steps,
+        update_grid, rebuild_occ, draws_fn) -> (state, losses) and
+        step_fn(state, data, draws_fn) -> (state, loss)."""
+        o = self._chunk_opts(step)
+
+        def chunk_fn(state, data, n_steps, update_grid, rebuild_occ,
+                     draws_fn):
+            return train_chunk(state, data, o, n_steps, update_grid,
+                               rebuild_occ, draws_fn)
+
+        def step_fn(state, data, draws_fn):
+            return train_step(state, data, o, draws_fn("step", o))
+
+        return chunk_fn, step_fn
+
     def update_density_grid(self, rebuild_occ: bool = True):
-        o = self.opts
-        draws = draw_grid_update(self.gen, o.grid_samples_per_update,
-                                 o.config.max_cascade + 1, self.device)
-        _update_density_grid_body(self.state, o, draws, rebuild_occ)
+        update_density_grid(self.state, self.opts,
+                            self._draws("grid", self.opts), rebuild_occ)
 
     def train_step(self, opts: Optional[TrainOptions] = None) -> torch.Tensor:
         opts = opts or self.opts
-        draws = draw_step(self.gen, self.state, self.data, opts)
-        return _train_step_body(self.state, self.data, opts, draws)
+        return train_step(self.state, self.data, opts,
+                          self._draws("step", opts))[1]
 
     def train(self, n_steps: int = 1, callback=None) -> float:
         """Advance n_steps, the density grid refreshed at the start of
-        every grid_update_interval-aligned chunk. Losses stay on the
-        device and come back in one fetch at the end; a `callback(step,
-        loss)` reads each step's loss (one host read per step)."""
+        every grid_update_interval-aligned chunk (_fns_for). Losses
+        stay on the device and come back in one fetch at the end; a
+        `callback(step, loss)` reads each step's loss (one host read per
+        step)."""
         interval = self.opts.grid_update_interval
         losses = []
         remaining = n_steps
         while remaining > 0:
             step = self._host_step
+            update = step % interval == 0
+            rebuild = step >= self.occ_warmup_steps
             n = min(interval - step % interval, remaining)
-            copts = self._chunk_opts(step)
-            if step % interval == 0:
-                self.update_density_grid(
-                    rebuild_occ=step >= self.occ_warmup_steps)
-            for i in range(n):
-                loss = self.train_step(copts)
-                losses.append(loss)
-                if callback is not None:
+            chunk_fn, step_fn = self._fns_for(step)
+            if callback is None:
+                losses.append(chunk_fn(self.state, self.data, n, update,
+                                       rebuild, self._draws)[1])
+            else:
+                if update:
+                    self.update_density_grid(rebuild_occ=rebuild)
+                for i in range(n):
+                    loss = step_fn(self.state, self.data, self._draws)[1]
+                    losses.append(loss[None])
                     callback(step + i + 1, float(loss))
             self._host_step += n
             remaining -= n
         if losses:
-            all_losses = torch.stack(losses).cpu().numpy()
+            all_losses = torch.cat(losses).cpu().numpy()
             self.loss = float(all_losses[-1])
             self.loss_history.extend(float(v) for v in all_losses)
             del self.loss_history[:-self.loss_history_capacity]

@@ -36,9 +36,46 @@ class BoundingBox:
     def diag(self) -> np.ndarray:
         return self.max - self.min
 
+    def relative_pos(self, pos) -> np.ndarray:
+        return (np.asarray(pos) - self.min) / self.diag()
+
+    def enlarge(self, other):
+        """Grow to hold another box or a point."""
+        if isinstance(other, BoundingBox):
+            lo, hi = other.min, other.max
+        else:
+            lo = hi = np.asarray(other, np.float32)
+        self.min = np.minimum(self.min, lo)
+        self.max = np.maximum(self.max, hi)
+
+    def inflate(self, amount: float):
+        self.min = self.min - amount
+        self.max = self.max + amount
+
     def intersection(self, other: "BoundingBox") -> "BoundingBox":
         return BoundingBox(np.maximum(self.min, other.min),
                            np.minimum(self.max, other.max))
+
+    def intersects(self, other: "BoundingBox") -> bool:
+        return not self.intersection(other).is_empty()
+
+    def contains(self, p) -> bool:
+        p = np.asarray(p)
+        return bool(np.all(p >= self.min) and np.all(p <= self.max))
+
+    def ray_intersect(self, o, d) -> np.ndarray:
+        """Slab test in float64 -> (tmin, tmax) float32; (FLT_MAX,
+        FLT_MAX) on a miss."""
+        o = np.asarray(o, np.float64)
+        d = np.asarray(d, np.float64)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            t0 = (self.min - o) / d
+            t1 = (self.max - o) / d
+        tmin = np.nanmax(np.minimum(t0, t1))
+        tmax = np.nanmin(np.maximum(t0, t1))
+        if tmin > tmax:
+            return np.array([FLT_MAX, FLT_MAX], np.float32)
+        return np.array([tmin, tmax], np.float32)
 
 
 def ray_intersect_aabb(o: torch.Tensor, d: torch.Tensor, box_min, box_max):
