@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--multicascade-only] [DIR ...]
 
---multicascade-only runs phases 1-2, 11 and 22-26 alone (a few minutes:
+--multicascade-only runs phases 1-2, 11 and 22-26 (23b with them) alone (a few minutes:
 for work on the multi-cascade path; it prints no result line, and the
 smoke run proper takes no such flag). Each DIR is another checkout of the repository (for example the parent
 commit unpacked with `git archive` into a git-ignored directory): its
@@ -17,7 +17,8 @@ procedural glasses glTF written here) + frame(), with the mesh pass at
 
   1. a CUDA device must be present;
   2. card, power limit, torch/CUDA versions; build the mesh ray-cast
-     kernel from nerf_glasses_tpu_torch/csrc (timed);
+     and march kernels from nerf_glasses_tpu_torch/csrc, one nvcc per
+     source, in parallel (timed);
   3. the tiled kernel against its plain PyTorch version at the main
      path's shapes (2560x1440 rays, tile-padded to 2560x1472, binned
      against the glasses) under mesh_cuda.compare_with_plain's contract
@@ -31,6 +32,24 @@ procedural glasses glTF written here) + frame(), with the mesh pass at
      zeroed just before and read just after);
   5. one frame with the plain ray-cast in the kernel's place: >= 50 dB
      PSNR against the kernel's frame at the same sample index;
+ 5b. the march kernels (csrc/march.cu) on the first epoch of an exact
+     720p frame, its inputs recorded from the frame's own calls (and on
+     the same state with options that reach the clearance grid, the
+     per-voxel DDA and the jump grid under cone steps): each
+     kernel against its plain version under march_cuda.
+     compare_with_plain's contract (rays that differ in a flag or a t <=
+     max(4, 1e-4 x rays), each within one MAX_CONE_STEPSIZE; composite
+     outputs within 1e-6), the mismatch counts printed, each kernel's
+     device time by torch.profiler (and by CUDA events around back-to-
+     back wrapper calls) beside its plain version's time, its bound and
+     the share of it by device time; then a
+     frame with the plain march in the kernels' place, swapped as phase 5
+     swaps the ray-cast: >= 60 dB from the kernels' frame at the same
+     sample index; both frames' device operations and wall ms under
+     torch.profiler and their host clock untraced, in this one call; the
+     kernels' frame under 10,000 device operations. Phase 4's frames
+     launched the advance, samples and composite kernels (counts zeroed
+     just before, read just after);
   6. a small frame (160x90) rendered on the card and on the CPU (the CPU
      takes the plain ray-cast; the CPU port is held against the JAX
      package by tests/test_torch_*.py): >= 40 dB PSNR;
@@ -42,7 +61,13 @@ procedural glasses glTF written here) + frame(), with the mesh pass at
      defaults (512^3 sigma, 256^3 features, fidelity probe "ok"), 1 warm-up
      + 3 timed 720p frames on last_render_path "flash" (the tiled kernel
      launched), >= 30 dB PSNR against the exact frame of phase 4's
-     renderer at the same camera and sample index;
+     renderer at the same camera and sample index; one flash frame's
+     device operations and busy share under torch.profiler;
+ 8b. the march kernels of that flash frame (the 24-probe advance, the
+     composite's surface blend alone) and of one frame of the same
+     Testbed with flash off (baked sigma, sequential rounds: advance,
+     samples, and the composite's two stages as two calls), recorded from
+     the frames' own calls, each against its plain version as in 5b;
   9. the single-program hybrid frame (render_hybrid_sharded, n_shards=1)
      with that Testbed's flash options and scene: the untiled kernel
      launched, the frame finite and >= 40 dB from the renderer's flash
@@ -110,12 +135,19 @@ on every ray's path:
      seconds, loss and the occupied cells of each cascade;
  23. the exact hybrid frame of that snapshot with the glasses: 1 warm-up +
      3 timed frames, epochs, the tiled kernel's launches (zeroed just
-     before, read just after: one per frame), peak memory; dist_advance
-     is on and the scene carries the clearance pyramid;
+     before, read just after: one per frame) and the four march kernels'
+     (the init walk's among them), peak memory; dist_advance is on and
+     the scene carries the clearance pyramid;
+23b. phase 5b on that frame: the march kernels on the clearance
+     pyramid's route (and the multi-cascade per-voxel DDA with its cone
+     loop) against their plain versions, the plain-march frame >= 60 dB,
+     both frames' device operations and ms;
  24. baked + flash: load_nerf(bake=True, bake_resolution=256) with its
      fidelity probe ("ok"), bake(256) timed alone, the grids' sizes, 1
      warm-up + 3 timed frames on last_render_path "flash", >= 30 dB
      against phase 23's exact frame at the same camera and sample index;
+     the flash frame's march kernels against their plain versions as in
+     8b;
  25. 160x90 frames on the card and on the CPU, exact and flash (bake 128),
      float32 MLPs: >= 40 dB each;
  26. the clearance pyramid built on the card equals the CPU's.
@@ -193,13 +225,14 @@ Each phase prints its seconds.
 
 Prints one JSON line with the kernels' numbers (time, bound and share of
 it, launches per frame; no single PyTorch call computes a nearest
-ray-triangle hit, so library_ms is null), the card's name and power
+ray-triangle hit or a march loop, so library_ms is null), the card's name and power
 limit, and as its last line {"ok": true, "device": {...}}. Exits non-zero
 on any failure, when no CUDA device is present, and when the package is
 not beside it.
 """
 
 import base64
+import concurrent.futures
 import dataclasses
 import functools
 import importlib.util
@@ -229,7 +262,7 @@ from nerf_glasses_tpu_torch.io.gltf import (GltfMaterial, GltfMesh, GltfNode,
                                             GltfPrimitive, GltfScene)
 from nerf_glasses_tpu_torch.models import floaty
 from nerf_glasses_tpu_torch.models.renderer import NerfMeshRenderer
-from nerf_glasses_tpu_torch.ops import mesh_cuda
+from nerf_glasses_tpu_torch.ops import march_cuda, mesh_cuda
 from nerf_glasses_tpu_torch.ops import occupancy as occ_ops
 from nerf_glasses_tpu_torch.ops import raymarch
 from nerf_glasses_tpu_torch.ops import triangles as tri_ops
@@ -730,6 +763,356 @@ def in_turns(others, fn_name, check_args, plain, time_args, reps):
         for name, ts in times.items()))
 
 
+# ---------------------------------------------------------------------------
+# The march kernels (phases 5b and 23b)
+# ---------------------------------------------------------------------------
+
+MARCH_KERNELS = {            # wrapper -> (kernel, compare kind, what it replaces)
+    "advance": ("nmr_march_advance", "walk",
+                "nerf_glasses_tpu_torch/ops/march_cuda.py::advance_reference "
+                "(raymarch._advance_pass's loop); "
+                "nerf_glasses_tpu/ops/raymarch.py:730"),
+    "init_walk": ("nmr_march_init_walk", "walk",
+                  "nerf_glasses_tpu_torch/ops/march_cuda.py::"
+                  "init_walk_reference (raymarch.init_rays' walk); "
+                  "nerf_glasses_tpu/ops/raymarch.py:565"),
+    "samples": ("nmr_march_samples", "samples",
+                "nerf_glasses_tpu_torch/ops/march_cuda.py::samples_reference "
+                "(raymarch._march_round's sequential samples); "
+                "nerf_glasses_tpu/ops/raymarch.py:782"),
+    "composite": ("nmr_march_composite", "composite",
+                  "nerf_glasses_tpu_torch/ops/march_cuda.py::"
+                  "composite_reference (raymarch._march_round's non-vector "
+                  "composite); nerf_glasses_tpu/ops/raymarch.py:873, :1005, "
+                  ":1031"),
+}
+PSNR_PLAIN_MARCH_DB = 60.0
+EXACT_FRAME_MAX_LAUNCHES = 10000
+
+
+def _clone_state(x):
+    """A wrapper's argument, its ray state and round (the dicts that
+    carry "t" or "t_end") and tensors cloned; the scene and options as
+    they are."""
+    if torch.is_tensor(x):
+        return x.clone()
+    if isinstance(x, dict) and ("t" in x or "t_end" in x):
+        return {k: _clone_state(v) for k, v in x.items()}
+    return x
+
+
+COMPOSITE_STAGES = {march_cuda.STAGE_BLEND: "composite:blend",
+                    march_cuda.STAGE_SAMPLES: "composite:samples"}
+
+
+def first_march_calls(fn):
+    """Run fn with march_cuda's wrappers recording the arguments of their
+    first call that launches a kernel on the card (a frame's first epoch)
+    -> {key: args}. The key is the wrapper's name; a composite call of one
+    stage alone (the baked path's) is "composite:blend" or
+    "composite:samples"."""
+    saved = {k: getattr(march_cuda, k) for k in MARCH_KERNELS}
+    got = {}
+
+    def key(name, args):
+        if name == "init_walk":
+            return name if args[6].init_skip_iters > 0 else None
+        if name == "advance":
+            return name if args[3] > 0 else None
+        if name == "composite" and len(args) > 3:
+            return COMPOSITE_STAGES.get(args[3], name)
+        return name
+
+    def recorder(name):
+        def call(*args):
+            k = key(name, args)
+            if k is not None and k not in got:
+                got[k] = tuple(_clone_state(a) for a in args)
+            return saved[name](*args)
+        return call
+
+    for k in MARCH_KERNELS:
+        setattr(march_cuda, k, recorder(k))
+    try:
+        fn()
+    finally:
+        for k, f in saved.items():
+            setattr(march_cuda, k, f)
+    return got
+
+
+def march_bound(name, args):
+    """A march kernel's least time on these inputs: the per-ray state it
+    reads and writes once (bytes a ray below) and its probe grid once,
+    over the card's memory rate; its flops are a few dozen a probe."""
+    if name == "composite":
+        st, rnd = args[0], args[1]
+        stage = args[3] if len(args) > 3 else march_cuda.STAGE_SAMPLES
+        n = st["t"].shape[0]
+        # in: rgba, surf 32; depth, max_weight, wn, surf_a, t, t_surf,
+        # t_end 28; alive, exited, surf_stopped 3; each slot's valid 1,
+        # and alpha, ts 8 and rgb 12 where the slot is valid on a live ray
+        # (none in the blend alone). Out: rgba 16, four floats 16, alive 1.
+        slots = used = 0
+        if stage & march_cuda.STAGE_SAMPLES:
+            slots = rnd["valid"].numel()
+            used = int((rnd["valid"] & st["alive"][None]).sum())
+        return bound_ms(0, n * (63 + 33) + slots + 20 * used)
+    if name == "init_walk":
+        o, scene, opts = args[0], args[5], args[6]
+        n = o.shape[0]
+        per_ray = 33 + 5            # o, d, t, t_surf, alive; t, alive
+    else:
+        st, scene, opts = args[0], args[1], args[2]
+        n = st["t"].shape[0]
+        per_ray = 41 + (5 if name == "advance" else
+                        21 * opts.steps_per_round + 6)
+    grid = march_cuda.probe_route(scene, opts)[1]
+    return bound_ms(0, n * per_ray + grid.numel() + 60)
+
+
+def other_routes(calls, variants, label):
+    """The walk and sample kernels on the recorded first-epoch state with
+    the options changed to reach the probe routes the frame's own options
+    do not take (variants: (route, its name, option changes)), each
+    against its plain version under the contract."""
+    st, scene, opts = calls["advance"][:3]
+    for route, route_name, kw in variants:
+        o2 = dataclasses.replace(opts, init_skip_iters=16, **kw)
+        if march_cuda.probe_route(scene, o2)[0] != route:
+            raise AssertionError(f"options {kw} do not reach route {route}")
+        runs = {"advance": (st, scene, o2, calls["advance"][3]),
+                "init_walk": (st["o"], st["d"], st["t"], st["t_surf"],
+                              st["alive"], scene, o2),
+                "samples": (st, scene, o2)}
+        for name, args in runs.items():
+            kernel, kind, _ = MARCH_KERNELS[name]
+            cmp = march_cuda.compare_with_plain(
+                kind, getattr(march_cuda, name)(*args),
+                getattr(march_cuda, f"{name}_reference")(*args))
+            print(f"{label}, probe route {route_name} ({kw}): {kernel} "
+                  f"{cmp['mismatched_rays']} of {cmp['rays']} rays differ "
+                  f"(allowed {cmp['allowed']}), max step "
+                  f"{cmp['max_step_diff']:.3g}")
+            if not cmp["ok"]:
+                raise AssertionError(f"{kernel} on route {route} disagrees "
+                                     f"with its plain version: {cmp}")
+
+
+L2_FLUSH_BYTES = 128 << 20     # over the H100's 50 MB L2
+
+
+def kernel_device_ms(name, fn, reps):
+    """The device time of one launch of march kernel `name`, each launch
+    after a write of L2_FLUSH_BYTES that leaves its inputs out of L2: the
+    mean over the launches torch.profiler records in reps calls of fn
+    (the wrapper's host work, which CUDA events around back-to-back calls
+    may time instead, left out). The trace may miss a launch or, now and
+    then, come back empty: then it is taken again, up to 3 times."""
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+
+    def run():
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+
+    for _ in range(3):
+        _, _, ops = device_profile(run, host=False)
+        mine = [(t, c) for op, (t, c) in ops.items() if f"{name}_kernel" in op]
+        count = sum(c for _, c in mine)
+        if count:
+            return sum(t for t, _ in mine) / count
+    raise AssertionError(f"torch.profiler saw no launch of {name}_kernel in "
+                         f"3 x {reps} calls: {list(ops)}")
+
+
+def hold_calls(calls, label, reps=20):
+    """Each recorded march-kernel call (first_march_calls) against its
+    plain version on the same inputs under march_cuda.compare_with_plain's
+    contract, timed (device time by torch.profiler, CUDA events around
+    back-to-back wrapper calls, the plain version by events) beside its
+    bound -> {key: numbers}. Raises on a disagreement."""
+    out = {}
+    for key, args in calls.items():
+        name = key.split(":")[0]
+        kernel, kind, _ = MARCH_KERNELS[name]
+        plain = getattr(march_cuda, f"{name}_reference")
+        wrapper = getattr(march_cuda, name)
+        got = wrapper(*args)
+        torch.cuda.synchronize()
+        cmp = march_cuda.compare_with_plain(kind, got, plain(*args))
+        ev_ms = cuda_ms(lambda: wrapper(*args), reps)
+        k_ms = kernel_device_ms(name, lambda: wrapper(*args), reps)
+        p_ms = cuda_ms(lambda: plain(*args), 2)
+        b_ms, b_by = march_bound(name, args)
+        n = args[0].shape[0] if torch.is_tensor(args[0]) else args[0]["t"].shape[0]
+        what = kernel + key[len(name):]
+        print(f"{label} {what} on the first epoch's {n} rays: "
+              f"{cmp['mismatched_rays']} rays differ ({cmp['flag_mismatches']} "
+              f"in a flag; allowed {cmp['allowed']}), max step "
+              f"{cmp['max_step_diff']:.3g}, max |diff| {cmp['max_abs_err']:.3g}; "
+              f"kernel {k_ms:.4f} ms device (torch.profiler), {ev_ms:.4f} ms "
+              f"by events, plain {p_ms:.2f} ms, bound {b_ms:.4f} ms ({b_by}), "
+              f"share of bound {b_ms / k_ms:.1%}")
+        if not cmp["ok"]:
+            raise AssertionError(f"{label}: {what} disagrees with its plain "
+                                 f"version: {cmp}")
+        out[key] = {"cmp": cmp, "ms": k_ms, "event_ms": ev_ms, "plain_ms": p_ms,
+                    "bound_ms": b_ms, "bound_by": b_by, "rays": n}
+    return out
+
+
+def flash_march_check(renderer, nerf, label, need):
+    """The march kernels of a baked renderer's flash frame, recorded from
+    the frame's own calls and held against their plain versions (hold_
+    calls); with need["baked"], those of one frame with flash off too
+    (baked sigma, sequential rounds: the composite's two stages as two
+    calls). need: {"flash": keys, "baked": keys} the frames must have
+    launched -> {"flash": numbers, "baked": numbers}."""
+    out = {}
+    saved = nerf.flash
+    try:
+        for which in ("flash", "baked"):
+            if which not in need:
+                continue
+            nerf.flash = which == "flash"
+            renderer.update_model_view_proj()
+            calls = first_march_calls(renderer.frame)
+            torch.cuda.synchronize()
+            path = nerf.last_render_path
+            if path != which or not set(need[which]) <= set(calls):
+                raise AssertionError(
+                    f"{label} {which} frame (path {path}) made the march "
+                    f"calls {sorted(calls)}, expected {need[which]}")
+            if which == "flash" and calls["advance"][3] != 24:
+                raise AssertionError(f"{label}: the flash advance took "
+                                     f"{calls['advance'][3]} probes, not 24")
+            out[which] = hold_calls(calls, f"{label} {which} frame")
+            del calls
+    finally:
+        nerf.flash = saved
+        nerf.reset_accumulation()
+    return out
+
+
+def march_kernels_phase(renderer, nerf, label, variants=(), reps=20):
+    """The march kernels on the first epoch of one of the renderer's exact
+    frames: each against its plain version under march_cuda.
+    compare_with_plain's contract, each timed beside its plain version
+    and its bound (hold_calls), and on the probe routes of `variants`;
+    then a frame with the plain march in the kernels' place (>= 60 dB at
+    the same sample index) and both frames' device operations and wall ms
+    under torch.profiler, and their host clock untraced -> ({wrapper:
+    numbers}, frame numbers)."""
+    renderer.update_model_view_proj()
+    calls = first_march_calls(renderer.frame)
+    torch.cuda.synchronize()
+    other_routes(calls, variants, label)
+    out = hold_calls(calls, label, reps)
+    del calls
+
+    # the same frame with the plain march in the kernels' place
+    def plain_march():
+        saved = {k: getattr(march_cuda, k) for k in MARCH_KERNELS}
+        for k in MARCH_KERNELS:
+            setattr(march_cuda, k, getattr(march_cuda, f"{k}_reference"))
+        return saved
+
+    def restore(saved):
+        for k, f in saved.items():
+            setattr(march_cuda, k, f)
+
+    img_k = fresh_frame(renderer)
+    saved = plain_march()
+    try:
+        before = dict(march_cuda.launches)
+        img_p = fresh_frame(renderer)
+        if march_cuda.launches != before:
+            raise AssertionError("the plain-march frame launched a march kernel")
+    finally:
+        restore(saved)
+    p = psnr(img_k[..., :3], img_p[..., :3])
+    frames = {"psnr": p}
+    for which in ("kernels", "plain"):
+        saved = plain_march() if which == "plain" else {}
+        try:
+            renderer.update_model_view_proj()     # both from sample 0
+            renderer.frame()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(2):
+                renderer.frame()
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t0) * 1000.0 / 2
+            wall, busy, ops = device_profile(renderer.frame, host=False)
+        finally:
+            restore(saved)
+        frames[which] = {"host_ms": host_ms, "profiled_ms": wall, "busy_ms": busy,
+                         "launches": sum(c for _, c in ops.values()),
+                         "epochs": nerf.last_march_epochs}
+        f = frames[which]
+        top = sorted(ops.items(), key=lambda kv: -kv[1][0])[:6]
+        print(f"{label} frame with the {'march kernels' if which == 'kernels' else 'plain march'}: "
+              f"{f['host_ms']:.1f} ms (host clock, 2 frames), under "
+              f"torch.profiler {f['launches']} device operations, busy "
+              f"{f['busy_ms']:.2f} ms of {f['profiled_ms']:.1f} ms wall "
+              f"({f['busy_ms'] / f['profiled_ms']:.1%}), {f['epochs']} epochs; "
+              f"top device operations: " + "; ".join(
+                  f"{n.split('(')[0][-60:]} {t:.2f} ms {c}x"
+                  for n, (t, c) in top))
+    print(f"{label} frame, plain march vs kernels (same camera, sample 0): "
+          f"{p:.2f} dB")
+    if p < PSNR_PLAIN_MARCH_DB:
+        raise AssertionError(f"{label}: the plain-march frame is {p:.2f} dB "
+                             f"from the kernels' frame")
+    return out, frames
+
+
+def march_entries(march, launches, frames, mc, others):
+    """The closing line's entries of the march kernels: each measured on
+    the exact 720p frame's first epoch (phase 5b) and launched by phase
+    4's frames; the init walk, which the single-cascade exact frame does
+    not take, on the multi-cascade frame (phases 23, 23b). others: {path:
+    hold_calls' numbers} of the flash and baked frames (phases 8b, 24),
+    listed under each kernel's "other_paths"."""
+    entries = []
+    for name, (kernel, _, replaces) in MARCH_KERNELS.items():
+        held = [{"path": path, "call": key, "rays": r["rays"],
+                 "mismatched_rays": r["cmp"]["mismatched_rays"],
+                 "max_abs_err": r["cmp"]["max_abs_err"], "ms": r["ms"],
+                 "bound_ms": r["bound_ms"]}
+                for path, calls in others.items()
+                for key, r in calls.items() if key.split(":")[0] == name]
+        single = name in march
+        r = march[name] if single else mc["kernels"][name]
+        f = frames if single else mc["frames"]
+        entries.append({
+            "name": kernel, "route": "cuda",
+            "source": "nerf_glasses_tpu_torch/csrc/march.cu",
+            "replaces": replaces,
+            "launches": launches[name] if single else mc["launches"][name],
+            "max_abs_err": r["cmp"]["max_abs_err"], "ms": r["ms"],
+            "event_ms": r["event_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None,
+            "share": r["bound_ms"] / r["ms"],
+            "path": ("exact 720p frame, 4 frames (phases 4, 5b)" if single else
+                     "multi-cascade exact 720p frame, 4 frames (phases 23, 23b)"),
+            "rays": r["rays"], "mismatched_rays": r["cmp"]["mismatched_rays"],
+            "multicascade_launches": mc["launches"][name],
+            "multicascade_ms": mc["kernels"][name]["ms"],
+            "multicascade_plain_ms": mc["kernels"][name]["plain_ms"],
+            "multicascade_bound_ms": mc["kernels"][name]["bound_ms"],
+            "frame_device_ops": f["kernels"]["launches"],
+            "plain_march_frame_device_ops": f["plain"]["launches"],
+            "frame_host_ms": f["kernels"]["host_ms"],
+            "plain_march_frame_host_ms": f["plain"]["host_ms"],
+            "plain_march_frame_psnr_db": (f["psnr"] if math.isfinite(f["psnr"])
+                                          else "inf"),
+            "other_paths": held})
+    return entries
+
+
 def capture_phase(dev, lap):
     """Phase 11: the capture, through the port's tiled mesh pass ->
     (training dataset, holdout cameras, holdout ground truth)."""
@@ -891,9 +1274,11 @@ MC_AABB = (0.5 - 0.5 * MC_AABB_SCALE, 0.5 + 0.5 * MC_AABB_SCALE)
 def timed_frames(renderer, nerf, n=3):
     """1 warm-up + n frames -> (warm-up ms, ms a frame by the host clock to
     synchronize, epochs of each frame, tiled-kernel launches of all n + 1,
-    peak device memory). The launch count is zeroed here."""
+    peak device memory). The launch counts (the march kernels' too, read
+    from march_cuda.launches just after) are zeroed here."""
     torch.cuda.reset_peak_memory_stats()
     mesh_cuda.launches = 0
+    march_cuda.launches.update(dict.fromkeys(march_cuda.launches, 0))
     renderer.frame()
     torch.cuda.synchronize()
     warm_ms = renderer.last_frame_ms
@@ -908,8 +1293,10 @@ def timed_frames(renderer, nerf, n=3):
 
 
 def multicascade_phases(dev, tmp, lap, glasses, ds):
-    """Phases 22-26 -> the tiled kernel's launches in the 4 + 4 timed exact
-    and flash hybrid frames."""
+    """Phases 22-26 -> (the tiled kernel's launches in the 4 + 4 timed exact
+    and flash hybrid frames, the march-kernel numbers: the exact frames'
+    launches per kernel, the plain-march comparison, each kernel's on the
+    exact frame (23b) and on the flash frame (24))."""
     # 22: the scene, trained with the port on the capture at aabb_scale 4
     ds4 = dataclasses.replace(
         ds, aabb_scale=MC_AABB_SCALE,
@@ -946,6 +1333,7 @@ def multicascade_phases(dev, tmp, lap, glasses, ds):
             and tuple(nerf._scene()["dist_mips"].shape) == (n_casc,) + (128,) * 3):
         raise AssertionError("the snapshot did not load as a multi-cascade scene")
     warm_ms, exact_ms, epochs, launches, peak = timed_frames(renderer, nerf)
+    mc_march_launches = dict(march_cuda.launches)
     fb = renderer._frame_buffer
     img = renderer.display_image()
     surf_px = int((nerf._surface_t > 0).sum())
@@ -956,7 +1344,8 @@ def multicascade_phases(dev, tmp, lap, glasses, ds):
           f"{epochs}, tiled kernel launches {launches}, peak device memory "
           f"{peak / 2**30:.2f} GiB, head share {head_share:.3f}, mesh pixels "
           f"{surf_px}, path {nerf.last_render_path}, cone angle "
-          f"{opts.cone_angle:.6f}, dist_advance {opts.dist_advance}")
+          f"{opts.cone_angle:.6f}, dist_advance {opts.dist_advance}, march "
+          f"kernel launches {mc_march_launches}")
     if not (img.shape == (H, W, 4) and np.isfinite(img).all()
             and bool(torch.isfinite(fb).all())):
         raise AssertionError("multi-cascade frame is not finite")
@@ -965,12 +1354,25 @@ def multicascade_phases(dev, tmp, lap, glasses, ds):
     if surf_px < W * H // 1000 or launches != 4:
         raise AssertionError(f"{surf_px} mesh pixels, {launches} kernel "
                              f"launches in 4 hybrid frames")
+    if min(mc_march_launches.values()) < 4:
+        raise AssertionError(f"the multi-cascade frames launched the march "
+                             f"kernels {mc_march_launches} times")
     img_exact = fresh_frame(renderer)
     wall, busy, ops = device_profile(renderer.frame, host=False)
     print(f"one multi-cascade exact frame under torch.profiler: "
           f"{sum(c for _, c in ops.values())} device operations, device busy "
           f"{busy:.2f} ms of {wall:.2f} ms wall ({busy / wall:.1%})")
     lap(23)
+
+    # 23b: the march kernels on this frame's first epoch (the clearance
+    # pyramid's route), and a frame with the plain march in their place
+    mc_march, mc_frames = march_kernels_phase(
+        renderer, nerf, "multi-cascade exact 720p",
+        variants=((march_cuda.ROUTE_DDA, "per-voxel DDA, cone steps",
+                   {"dist_advance": False}),))
+    mc_march_frames = {"launches": mc_march_launches, "frames": mc_frames,
+                       "kernels": mc_march}
+    lap("23b")
 
     # 24: baked + flash through load_nerf(bake=True)
     torch.cuda.synchronize()
@@ -997,7 +1399,8 @@ def multicascade_phases(dev, tmp, lap, glasses, ds):
     print(f"multi-cascade flash {W}x{H}: warm-up frame {fwarm_ms:.1f} ms, "
           f"{flash_ms:.1f} ms/frame (3 frames, host clock to synchronize), "
           f"march epochs {fepochs}, tiled kernel launches {flaunches}, peak "
-          f"device memory {fpeak / 2**30:.2f} GiB, path {fnerf.last_render_path}")
+          f"device memory {fpeak / 2**30:.2f} GiB, path {fnerf.last_render_path}, "
+          f"march kernel launches {march_cuda.launches}")
     if fnerf.last_render_path != "flash" or flaunches != 4:
         raise AssertionError(f"render path {fnerf.last_render_path}, "
                              f"{flaunches} kernel launches in 4 frames")
@@ -1011,6 +1414,10 @@ def multicascade_phases(dev, tmp, lap, glasses, ds):
     print(f"one multi-cascade flash frame under torch.profiler: "
           f"{sum(c for _, c in ops.values())} device operations, device busy "
           f"{busy:.2f} ms of {wall:.2f} ms wall ({busy / wall:.1%})")
+    # the march kernels of the flash frame against their plain versions
+    mc_march_frames["flash"] = flash_march_check(
+        frenderer, fnerf, "multi-cascade 720p",
+        {"flash": ("advance", "composite:blend")})["flash"]
     del frenderer, fnerf, sig, feat
     lap(24)
 
@@ -1065,7 +1472,7 @@ def multicascade_phases(dev, tmp, lap, glasses, ds):
           f"{sum(c for _, c in ops.values())} device operations, device "
           f"{busy:.3f} ms of {wall:.3f} ms wall")
     lap(26)
-    return launches + flaunches
+    return launches + flaunches, mc_march_frames
 
 
 # ---------------------------------------------------------------------------
@@ -2144,10 +2551,15 @@ def main(tmp, dirs, multicascade_only=False):
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    mesh_cuda.load_library()
-    print(f"kernel build + load: {time.perf_counter() - t0:.2f} s "
-          f"(nvcc {mesh_cuda.build_seconds:.2f} s)")
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:   # one nvcc each
+        for build in [pool.submit(m.load_library)
+                      for m in (mesh_cuda, march_cuda)]:
+            build.result()
+    print(f"kernel builds + loads, in parallel: {time.perf_counter() - t0:.2f} s "
+          f"(nvcc mesh_raycast.cu {mesh_cuda.build_seconds:.2f} s, march.cu "
+          f"{march_cuda.build_seconds:.2f} s)")
     print(mesh_cuda.build_log.strip())
+    print(march_cuda.build_log.strip())
     others = other_checkouts(dirs)
 
     glasses = os.path.join(tmp, "glasses.gltf")
@@ -2199,6 +2611,7 @@ def main(tmp, dirs, multicascade_only=False):
 
     # 4: the slice
     warm_ms, frame_ms, epochs, launches, peak = timed_frames(renderer, nerf)
+    march_launches = dict(march_cuda.launches)
     fb = renderer._frame_buffer
     img = renderer.display_image()
     surf_px = int((nerf._surface_t > 0).sum())
@@ -2206,7 +2619,8 @@ def main(tmp, dirs, multicascade_only=False):
     print(f"hybrid {W}x{H}: warm-up frame {warm_ms:.1f} ms, {frame_ms:.1f} ms/frame "
           f"(3 frames, host clock to synchronize), march epochs {epochs}, "
           f"peak device memory {peak / 2**30:.2f} GiB, head share {head_share:.3f}, "
-          f"mesh pixels {surf_px}, kernel launches {launches}")
+          f"mesh pixels {surf_px}, kernel launches {launches}, march kernel "
+          f"launches {march_launches}")
     if not (img.shape == (H, W, 4) and np.isfinite(img).all()
             and bool(torch.isfinite(fb).all())):
         raise AssertionError("frame is not finite or has the wrong shape")
@@ -2216,6 +2630,10 @@ def main(tmp, dirs, multicascade_only=False):
         raise AssertionError(f"only {surf_px} mesh pixels")
     if launches < 4:
         raise AssertionError(f"main path launched the kernel {launches} times")
+    for k in ("advance", "samples", "composite"):
+        if march_launches[k] < 4:
+            raise AssertionError(f"main path launched the march kernel {k} "
+                                 f"{march_launches[k]} times")
     lap(4)
 
     # 5: the plain ray-cast in the kernel's place, same sample index
@@ -2238,6 +2656,20 @@ def main(tmp, dirs, multicascade_only=False):
     if p_plain < PSNR_PLAIN_DB:
         raise AssertionError("plain ray-cast frame disagrees")
     lap(5)
+
+    # 5b: the march kernels on the exact frame's first epoch, and a frame
+    # with the plain march in their place
+    march, march_frames = march_kernels_phase(
+        renderer, nerf, "exact 720p", variants=(
+            (march_cuda.ROUTE_DIST, "clearance grid", {"dist_advance": True}),
+            (march_cuda.ROUTE_DDA, "per-voxel DDA", {"min_mip": 1}),
+            (march_cuda.ROUTE_JUMP, "jump grid, cone steps",
+             {"cone_angle": 1.0 / 256.0})))
+    if march_frames["kernels"]["launches"] >= EXACT_FRAME_MAX_LAUNCHES:
+        raise AssertionError(
+            f"the exact 720p frame took {march_frames['kernels']['launches']} "
+            f"device operations (aim: under {EXACT_FRAME_MAX_LAUNCHES})")
+    lap("5b")
 
     # 6: a small frame on the card against the CPU
     small = []
@@ -2306,7 +2738,8 @@ def main(tmp, dirs, multicascade_only=False):
           f"ms/frame (3 frames, host clock to synchronize), march epochs "
           f"{fepochs}, peak device memory {fpeak / 2**30:.2f} GiB, path "
           f"{fnerf.last_render_path}, tiled kernel launches {flash_launches}, "
-          f"untiled {mesh_cuda.raycast_launches}")
+          f"untiled {mesh_cuda.raycast_launches}, march kernel launches "
+          f"{march_cuda.launches}")
     if fnerf.last_render_path != "flash":
         raise AssertionError(f"render path {fnerf.last_render_path}")
     if flash_launches < 4:
@@ -2325,6 +2758,16 @@ def main(tmp, dirs, multicascade_only=False):
     print(f"flash frame vs exact frame (same camera, sample 0): {p_flash:.2f} dB")
     if p_flash < PSNR_FLASH_VS_EXACT_DB:
         raise AssertionError("flash frame too far from the exact frame")
+    wall, busy, ops = device_profile(frenderer.frame, host=False)
+    print(f"one flash frame under torch.profiler: "
+          f"{sum(c for _, c in ops.values())} device operations, device busy "
+          f"{busy:.2f} ms of {wall:.2f} ms wall ({busy / wall:.1%})")
+    # 8b: the march kernels of the flash frame and of a baked frame with
+    # sequential rounds, each against its plain version
+    flash_march = flash_march_check(frenderer, fnerf, "720p", {
+        "flash": ("advance", "composite:blend"),
+        "baked": ("advance", "samples", "composite:blend",
+                  "composite:samples")})
     lap(8)
 
     # 9: the single-program hybrid frame with the same options and scene
@@ -2398,7 +2841,7 @@ def main(tmp, dirs, multicascade_only=False):
     ds, sps_plain = training_phases(dev, tmp, lap)
     del renderer, nerf
     app_launches = application_phases(dev, tmp, lap, glasses)
-    mc_launches = multicascade_phases(dev, tmp, lap, glasses, ds)
+    mc_launches, mc_march = multicascade_phases(dev, tmp, lap, glasses, ds)
     cam_launches, cam_frames = camera_phases(dev, tmp, lap, glasses, ds,
                                              flash_ms, sps_plain)
     mp_launches, mp_calls, mp_ms = mesh_pass_phase(dev, lap, glasses)
@@ -2430,7 +2873,11 @@ def main(tmp, dirs, multicascade_only=False):
         "library_ms": None, "share": b2_ms / k2_ms,
         "launches_per_frame": untiled_launches / 4,
         "sharded_launches_per_rank": shard_launches,
-        "sharded_frames": SHARD_FRAMES}]}))
+        "sharded_frames": SHARD_FRAMES}] + march_entries(
+            march, march_launches, march_frames, mc_march, {
+                "flash 720p (phase 8b)": flash_march["flash"],
+                "baked 720p, flash off (phase 8b)": flash_march["baked"],
+                "multi-cascade flash 720p (phase 24)": mc_march["flash"]})}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -409,7 +409,7 @@ class Testbed:
         multi = self.config.max_cascade > 0
         if multi:
             # Every multi-cascade path, the exact one included, advances
-            # on the clearance pyramid (raymarch._dist_probe_mips), and
+            # on the clearance pyramid (march_cuda._dist_probe_mips), and
             # not for speed: the reference's init walk is unbounded, so
             # each ray settles at its first occupied cell and a ray that
             # settles inside mip 0 gets t_start there, which switches it

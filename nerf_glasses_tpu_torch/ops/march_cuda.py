@@ -1,0 +1,715 @@
+"""The exact march's per-ray loops: the CUDA kernels, their wrappers and
+their plain PyTorch versions, and the empty-space probes the loops call.
+
+- `advance` (kernel nmr_march_advance) walks rays through empty space to
+  the next occupied voxel, the per-epoch advance pass (raymarch.
+  _advance_pass; the JAX package's `_advance_pass`, a fori_loop inside
+  its one compiled march, nerf_glasses_tpu/ops/raymarch.py:730-764).
+- `init_walk` (nmr_march_init_walk) is init_rays' bounded walk to the
+  first occupied voxel (JAX: raymarch.py:518-565).
+- `samples` (nmr_march_samples) generates a round's K samples, each
+  after at most skip_iters probes (JAX: `_march_round`'s gen_step and
+  skip_body, raymarch.py:782-812).
+- `composite` (nmr_march_composite) is the non-vector compositing of
+  `_march_round`: the in-march surface blend, the K-sample front-to-back
+  loop and the final surface blend; the baked path, whose colour
+  selection reads the blended state, runs the blend (STAGE_BLEND) and the
+  rest (STAGE_SAMPLES) as two calls.
+None of these was a Pallas kernel: the TPU could not gather from its
+fast memory inside a kernel (docs/KERNELS.md section 2), so the JAX
+package left the loops to XLA. A GPU thread runs one ray's loop and
+leaves it as soon as the ray settles, where the plain version masks the
+ray for the remaining iterations.
+
+Every loop calls one empty-space probe, `_skip_probe`, whose route
+`probe_route` picks from the options and the scene: the cascade-0 jump
+grid, the cascade-0 clearance grid (`_dist_probe`), the per-cascade
+clearance pyramid (`_dist_probe_mips` + `_ladder_jump`) or the per-voxel
+DDA (`_occupied` + occupancy.advance_to_next_voxel). The kernels carry
+all four as device functions (csrc/march.cu).
+
+On a CUDA tensor a wrapper launches its kernel (built with nvcc for
+sm_90a at first use, ops/cuda_build.py) or raises; on a CPU tensor it
+runs its plain version (`*_reference`). There is no fallback from one to
+the other. Each wrapper counts its launches in `launches[name]`.
+
+Numerics: the kernels repeat the plain version's float32 operations one
+by one (nvcc -fmad=false, no fast math; host-made float32 constants where
+the plain version hands aten a Python scalar), so on the CPU's
+arithmetic they give the plain version's bits. On the card aten divides
+by a Python scalar as a multiplication by its reciprocal, where the
+kernels divide, so a ray whose quotient lands within an ulp of an
+integer under a ceil may take one step more or less there.
+`compare_with_plain` holds a kernel to the contract: rays whose alive,
+valid or status flags or whose t differ number at most max(4, ceil(1e-4
+x rays)), and where they differ the t values lie at most one step
+(MAX_CONE_STEPSIZE) apart; composite outputs agree to 1e-6 absolute.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+import os
+
+import numpy as np
+import torch
+
+from nerf_glasses_tpu_torch import constants as C
+from nerf_glasses_tpu_torch.ops import cuda_build
+from nerf_glasses_tpu_torch.ops import occupancy as occ_ops
+from nerf_glasses_tpu_torch.utils.bbox import contains_aabb, ray_intersect_aabb
+
+_SOURCE = os.path.join(cuda_build.PKG, "csrc", "march.cu")
+# -fmad=false: the kernels round every product and sum on its own, as
+# aten's elementwise ops do.
+NVCC_FLAGS = cuda_build.ARCH_FLAGS + ("-fmad=false",)
+
+# The kernel-vs-plain contract (compare_with_plain).
+MISMATCH_FRACTION = 1e-4
+MISMATCH_MIN = 4
+STEP_TOL = C.MAX_CONE_STEPSIZE
+COMPOSITE_ATOL = 1e-6
+
+KERNELS = ("advance", "init_walk", "samples", "composite")
+# Kernel launches per wrapper (CUDA tensors only).
+launches = dict.fromkeys(KERNELS, 0)
+
+_lib = None
+build_log = ""
+build_seconds = 0.0
+
+ROUTE_JUMP, ROUTE_DIST, ROUTE_DIST_MIPS, ROUTE_DDA = range(4)
+STAGE_BLEND, STAGE_SAMPLES = 1, 2
+
+
+class MarchParams(ctypes.Structure):
+    """csrc/march.cu's MarchParams: the route and the float32 constants
+    the plain version hands aten as Python scalars, made on the host."""
+    _fields_ = [("route", ctypes.c_int), ("max_cascade", ctypes.c_int),
+                ("min_mip", ctypes.c_int), ("iters", ctypes.c_int),
+                ("steps", ctypes.c_int), ("deferred", ctypes.c_int),
+                ("stage", ctypes.c_int),
+                ("cone", ctypes.c_float), ("dt_min", ctypes.c_float),
+                ("dt_max", ctypes.c_float), ("t1", ctypes.c_float),
+                ("t2", ctypes.c_float), ("t1_end", ctypes.c_float),
+                ("t2_cap", ctypes.c_float), ("lg", ctypes.c_float),
+                ("dtmip_cap", ctypes.c_float), ("tau_den", ctypes.c_float),
+                ("sat_alpha", ctypes.c_float),
+                ("grid_numel", ctypes.c_longlong)]
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (once per source hash) and load the kernel library."""
+    global _lib, build_log, build_seconds
+    if _lib is not None:
+        return _lib
+    lib, build_log, build_seconds = cuda_build.build_library(_SOURCE,
+                                                             NVCC_FLAGS)
+    p = ctypes.c_void_p
+    i = ctypes.c_int
+    # each takes the parameters, the ray count, its tensors' pointers
+    # and the stream
+    _lib = cuda_build.declare(lib, [
+        (name, [p, i] + [p] * (n_ptrs + 1), i)
+        for name, n_ptrs in (("nmr_march_advance", 13),
+                             ("nmr_march_init_walk", 11),
+                             ("nmr_march_samples", 18),
+                             ("nmr_march_composite", 22))])
+    return _lib
+
+
+# ---------------------------------------------------------------------------
+# The probes (plain versions of the kernels' device functions)
+# ---------------------------------------------------------------------------
+
+def _contains_local(pos, scene):
+    return contains_aabb(pos @ scene["local"].T, scene["render_min"],
+                         scene["render_max"])
+
+
+def _ray_exit_t(o, d, scene):
+    """Render-aabb exit distance per ray; -inf for rays that miss it."""
+    _, tmax = ray_intersect_aabb(o @ scene["local"].T, d @ scene["local"].T,
+                                 scene["render_min"], scene["render_max"])
+    return torch.where(tmax >= 3e38, -torch.inf, tmax)
+
+
+def _occupied(scene, pos, dt, opts):
+    if opts.config.max_cascade == 0 and opts.min_mip == 0:
+        mip = torch.zeros(pos.shape[:-1], dtype=torch.int32,
+                          device=pos.device)
+    else:
+        mip = torch.clamp(
+            occ_ops.mip_from_dt(dt, pos, opts.config.max_cascade),
+            min=opts.min_mip)
+    return occ_ops.occupied_at(scene["occ"], pos, mip), mip
+
+
+def _dist_probe(scene, pos, t, d):
+    """One-gather clearance probe on cascade 0 -> (occupied, t_advanced).
+
+    scene["dist"] holds the Chebyshev distance k in voxels to the nearest
+    occupied voxel; the ray hops to where it leaves the empty (2k-1)^3
+    box around its voxel (k == 1 is the one-voxel DDA step, k == 0 is
+    occupied). Constant dt only: the advance lands on the same
+    MIN_CONE_STEPSIZE lattice as the DDA probe."""
+    fdt = C.MIN_CONE_STEPSIZE
+    G = C.NERF_GRIDSIZE
+    vox = 1.0 / G
+    k = occ_ops.dist_at(scene["dist"], pos).float()    # uint8 -> float
+    vi = torch.nan_to_num(pos * G).trunc().clamp(0.0, G - 1.0)
+    kk = k[..., None]
+    bound = torch.where(d > 0.0, (vi + kk) * vox, (vi - (kk - 1.0)) * vox)
+    dir_zero = d == 0.0
+    tt = torch.where(dir_zero, 1e9,
+                     (bound - pos) / torch.where(dir_zero, 1.0, d))
+    delta = torch.clamp(torch.amin(tt, dim=-1), min=0.0)
+    return k == 0.0, t + torch.clamp(torch.ceil(delta / fdt), min=1.0) * fdt
+
+
+def _dist_probe_mips(scene, pos, t, d, dt, opts):
+    """Cascade-aware clearance probe -> (occupied, t_advanced).
+
+    scene["dist_mips"] holds, per cascade, the distance in that cascade's
+    voxels to its nearest occupied voxel. One uint8 gather at the
+    sample's governing mip gives the occupancy bit (k == 0, the same bit
+    as occupied_at) and a hop to the edge of the empty (2k-1)^3 ball.
+    An empty cascade-c ball holds no finer content but may hold coarser
+    content, so the hop is cut where the governing mip could rise:
+    - delta_cube: where the ray leaves the side-2^mip cube (mip_from_pos
+      grows past it), plus one voxel;
+    - delta_dtmip: where the cone step crosses its next power of two
+      (mip_from_dt grows there); none at the MAX_CONE_STEPSIZE clamp or
+      with constant dt.
+    Samples stay occupancy-gated at their own positions, so the step of
+    at least one dt may overshoot the cuts as the DDA probe's does."""
+    G = C.NERF_GRIDSIZE
+    pyr = scene["dist_mips"]
+    mip = torch.clamp(occ_ops.mip_from_dt(dt, pos, opts.config.max_cascade),
+                      min=opts.min_mip)
+    s = torch.exp2(mip.float())[..., None]
+    q = (pos - 0.5) / s + 0.5                       # cascade-local [0, 1]
+    cell = torch.nan_to_num(q * G).trunc().clamp(0.0, G - 1.0)
+    ci = cell.long()
+    flat = ((mip.long() * G + ci[..., 2]) * G + ci[..., 1]) * G + ci[..., 0]
+    k = pyr.reshape(-1)[flat.clamp(0, pyr.numel() - 1)].float()
+
+    vox = 1.0 / G
+    kk = k[..., None]
+    bound = torch.where(d > 0.0, (cell + kk) * vox, (cell - (kk - 1.0)) * vox)
+    dir_zero = d == 0.0
+    safe_d = torch.where(dir_zero, 1.0, d)
+    tt = torch.where(dir_zero, 1e9,
+                     (bound - q) / (safe_d / s))
+    delta_ball = torch.clamp(torch.amin(tt, dim=-1), min=0.0)
+
+    cb = torch.where(d > 0.0, 0.5 + 0.5 * s, 0.5 - 0.5 * s)
+    tc = torch.where(dir_zero, 1e9, (cb - pos) / safe_d)
+    delta = torch.minimum(delta_ball,
+                          torch.clamp(torch.amin(tc, dim=-1), min=0.0) + vox)
+
+    if opts.cone_angle > 0.0:
+        _, e = torch.frexp(dt * (2 * G))
+        tau_next = (torch.exp2(torch.clamp(e, min=0).float())
+                    / (2 * G * opts.cone_angle))
+        tau = dt / opts.cone_angle      # t - t_start while dt is unclamped
+        delta_dtmip = torch.where(
+            dt >= C.MAX_CONE_STEPSIZE - 1e-9, 1e9,
+            torch.clamp(tau_next - tau, min=0.0) + dt)
+        delta = torch.minimum(delta, delta_dtmip)
+    return k == 0.0, _ladder_jump(t, t + delta, opts.cone_angle)
+
+
+def _ladder_constants(cone_angle: float):
+    """_ladder_jump's float32 constants, made on the host with numpy ->
+    (dmin, dmax, t1, t2, t1 + dmin, t2 (1 + cone), lg)."""
+    f32 = np.float32
+    dmin, dmax, cone = (f32(C.MIN_CONE_STEPSIZE), f32(C.MAX_CONE_STEPSIZE),
+                        f32(cone_angle))
+    t1, t2 = f32(dmin / cone), f32(dmax / cone)
+    return (dmin, dmax, t1, t2, f32(t1 + dmin), f32(t2 * f32(1.0 + cone_angle)),
+            f32(np.log1p(cone_angle)))
+
+
+def _ladder_jump(t, target, cone_angle: float):
+    """Smallest point >= target on the stepping ladder t_{i+1} = t_i +
+    calc_dt(t_i) continued from t, at least one step on.
+
+    The exact march walks this ladder through empty space one voxel hop
+    at a time (occupancy.advance_to_next_voxel); landing a clearance hop
+    on the ladder keeps its sample positions where that walk puts them.
+    Closed form per regime: uniform MIN_CONE_STEPSIZE below t1 = MIN /
+    cone, geometric x (1 + cone) from t1 to t2 = MAX / cone, uniform MAX
+    above. float32 log and exp drift ~1e-6 relative from the iterated
+    sum, and one unit of roundoff under the ceil moves a ray one rung."""
+    dmin = np.float32(C.MIN_CONE_STEPSIZE)
+    if cone_angle == 0.0:
+        n = torch.clamp(torch.ceil((target - t) / float(dmin)), min=1.0)
+        return t + n * float(dmin)
+    _, dmax, t1, t2, t1_end, t2_cap, lg = map(float,
+                                             _ladder_constants(cone_angle))
+    # regime A (t < t1): uniform dmin to min(target, first rung >= t1)
+    tA_end = torch.clamp(target, max=t1_end)
+    nA = torch.ceil(torch.clamp(tA_end - t, min=0.0) / float(dmin))
+    out = torch.where(t < t1, t + nA * float(dmin), t)
+    # regime B (t1 <= out < t2, target beyond): geometric
+    need_b = (out < target) & (out >= t1) & (out < t2)
+    ratio = torch.clamp(
+        torch.clamp(target, max=t2_cap) / torch.clamp(out, min=1e-30),
+        min=1.0)
+    nB = torch.ceil(torch.log(ratio) / lg)
+    out = torch.where(need_b, out * torch.exp(nB * lg), out)
+    # regime C (out >= t2, target beyond): uniform dmax
+    need_c = (out < target) & (out >= t2)
+    nC = torch.ceil((target - out) / dmax)
+    out = torch.where(need_c, out + nC * dmax, out)
+    return torch.maximum(out, t + occ_ops.calc_dt(t, cone_angle))
+
+
+def probe_route(scene, opts):
+    """The empty-space probe's route and grid -> (ROUTE_*, uint8 grid).
+    The clearance grid serves a single cascade with constant dt and no
+    min_mip, the pyramid several cascades (both with dist_advance); else
+    single-cascade scenes read the jump grid, which gives the occupancy
+    bit and the coarsest empty block in one gather, and multi-cascade
+    scenes (or a min_mip) probe their mip and step one voxel of it."""
+    cfg = opts.config
+    if (opts.dist_advance and opts.cone_angle == 0.0 and cfg.max_cascade == 0
+            and opts.min_mip == 0 and "dist" in scene):
+        return ROUTE_DIST, scene["dist"]
+    if opts.dist_advance and cfg.max_cascade > 0 and "dist_mips" in scene:
+        return ROUTE_DIST_MIPS, scene["dist_mips"]
+    if cfg.max_cascade == 0 and opts.min_mip == 0:
+        return ROUTE_JUMP, scene["skip"]
+    return ROUTE_DDA, scene["occ"]
+
+
+def _skip_probe(scene, pos, t, d, idir, dt, opts):
+    """One-gather empty-space probe -> (occupied, t_advanced), on the
+    route probe_route picks."""
+    route, grid = probe_route(scene, opts)
+    if route == ROUTE_DIST:
+        return _dist_probe(scene, pos, t, d)
+    if route == ROUTE_DIST_MIPS:
+        return _dist_probe_mips(scene, pos, t, d, dt, opts)
+    if route == ROUTE_JUMP:
+        lv = occ_ops.skip_level_at(grid, pos)
+        occ = lv == 255
+        res = C.NERF_GRIDSIZE * torch.exp2(-torch.clamp(lv, max=4).float())
+    else:
+        occ, mip = _occupied(scene, pos, dt, opts)
+        res = C.NERF_GRIDSIZE * torch.exp2(-mip.float())
+    adv = occ_ops.advance_to_next_voxel(t, opts.cone_angle, pos, d, idir, res)
+    return occ, adv
+
+
+# ---------------------------------------------------------------------------
+# The plain versions of the loops
+# ---------------------------------------------------------------------------
+
+def init_walk_reference(o, d, t, t_surface, alive, scene, opts):
+    """init_rays' bounded walk (opts.init_skip_iters probes) -> (t,
+    alive): rays stop at their first occupied voxel, park at t_surface
+    once past it, and leave the render aabb (a ray with a surface parks
+    at it, one without dies)."""
+    has_surface = t_surface > 0.0
+    idir = 1.0 / d
+    settled = ~alive
+    for _ in range(opts.init_skip_iters):
+        pos = o + d * t[:, None]
+        at_surface = has_surface & (t > t_surface)
+        inside = _contains_local(pos, scene)
+        dt = occ_ops.calc_dt(t, opts.cone_angle)
+        occ, adv = _skip_probe(scene, pos, t, d, idir, dt, opts)
+        newly_surface = ~settled & alive & at_surface
+        newly_exit = ~settled & alive & ~at_surface & ~inside
+        newly_hit = ~settled & alive & ~at_surface & inside & occ
+        t = torch.where(newly_surface | (newly_exit & has_surface),
+                        t_surface, t)
+        alive = alive & ~(newly_exit & ~has_surface)
+        settled = settled | newly_surface | newly_exit | newly_hit | ~alive
+        t = torch.where(~settled & alive, adv, t)
+    return t, alive
+
+
+def advance_reference(st, scene, opts, iters: int):
+    """The advance pass on a state dict -> (t, alive): iters probes; rays
+    exiting the aabb with no pending surface die, rays with a pending
+    surface are parked at t_surface."""
+    o, d = st["o"], st["d"]
+    idir = 1.0 / d
+    t_surface = st["t_surf"]
+    surf_live = (t_surface > 0.0) & (st["surf_a"] > 0.0)
+    t_exit = _ray_exit_t(o, d, scene)
+    t, alive = st["t"], st["alive"]
+    settled = ~alive
+    for _ in range(iters):
+        active = ~settled & alive
+        pos = o + d * t[:, None]
+        surf_pending = surf_live & (t >= t_surface)
+        inside = t <= t_exit
+        dt = occ_ops.calc_dt(t - st["t_start"], opts.cone_angle)
+        occ, adv = _skip_probe(scene, pos, t, d, idir, dt, opts)
+        newly_park = active & (surf_pending | (~inside & surf_live))
+        newly_exit = active & ~surf_pending & ~inside & ~surf_live
+        newly_hit = active & ~surf_pending & inside & occ
+        t = torch.where(newly_park, t_surface, t)
+        alive = alive & ~newly_exit
+        settled = settled | newly_park | newly_hit | ~alive
+        t = torch.where(~settled & alive, adv, t)
+    return t, alive
+
+
+def samples_reference(st, scene, opts):
+    """K sequential steps of <= skip_iters probes -> samples (pos (K, n,
+    3), dt (K, n), valid (K, n), t (K, n)), t_end, exited,
+    surf_stopped."""
+    K = opts.steps_per_round
+    o, d = st["o"], st["d"]
+    idir = 1.0 / d
+    t_surface, t_start = st["t_surf"], st["t_start"]
+    has_surface = t_surface > 0.0
+    alive, surf_a = st["alive"], st["surf_a"]
+    t, gen_alive = st["t"], alive
+    exited = torch.zeros_like(alive)
+    surf_stopped = torch.zeros_like(alive)
+    pos_k, dt_k, valid_k, ts_k = [], [], [], []
+    for _ in range(K):
+        status = torch.where(gen_alive, 0, -1)
+        for _ in range(opts.skip_iters):
+            active = status == 0
+            pos = o + d * t[:, None]
+            surf_stop = has_surface & (t > t_surface) & (surf_a >= 1.0)
+            inside = _contains_local(pos, scene)
+            dt = occ_ops.calc_dt(t - t_start, opts.cone_angle)
+            occ, adv = _skip_probe(scene, pos, t, d, idir, dt, opts)
+            new_status = torch.where(surf_stop, 3, torch.where(
+                ~inside, 2, torch.where(occ, 1, 0)))
+            status = torch.where(active, new_status, status)
+            t = torch.where(active & (status == 0), adv, t)
+        found = status == 1
+        pos_k.append(o + d * t[:, None])
+        dt = occ_ops.calc_dt(t - t_start, opts.cone_angle)
+        dt_k.append(dt)
+        valid_k.append(found)
+        ts_k.append(t)
+        exited |= status == 2
+        surf_stopped |= status == 3
+        t = torch.where(found, t + dt, torch.where(status == 3, t_surface, t))
+        gen_alive = gen_alive & (found | (status == 0))
+    samples = (torch.stack(pos_k), torch.stack(dt_k), torch.stack(valid_k),
+               torch.stack(ts_k))
+    return samples, t, exited & alive, surf_stopped & alive
+
+
+def surface_blend_reference(st, rnd, opts):
+    """The in-march surface blend, once before the round's samples, for
+    rays whose payload-t has crossed t_surface (testbed.cu:843-857) ->
+    {"rgba", "wn", "surf_a", "alive"}: the state with the blend, alive
+    the rays still compositing."""
+    rgba, surf_a = st["rgba"], st["surf_a"]
+    t_surface = st["t_surf"]
+    exited, surf_stopped = rnd["exited"], rnd["surf_stopped"]
+    comp_alive = st["alive"]
+    t_payload = torch.where(exited, st["t"],
+                            torch.where(surf_stopped, t_surface, rnd["t_end"]))
+    trigger = (comp_alive & (t_surface > 0.0) & (t_payload > t_surface)
+               & (surf_a > 0.0))
+    T = 1.0 - rgba[:, 3]
+    blend = torch.cat([st["surf"][:, :3] * (surf_a * T)[:, None],
+                       (surf_a * T)[:, None]], dim=-1)
+    rgba = torch.where(trigger[:, None], rgba + blend, rgba)
+    surf_a = torch.where(trigger, 0.0, surf_a)
+    sat = trigger & (rgba[:, 3] > 0.99)
+    inv_sat = torch.where(sat, 1.0 / torch.clamp(rgba[:, 3], min=1e-9), 1.0)
+    rgba = rgba * inv_sat[:, None]
+    wn = st["wn"] * inv_sat if opts.deferred_color else st["wn"]
+    return {"rgba": rgba, "wn": wn, "surf_a": surf_a,
+            "alive": comp_alive & ~sat}
+
+
+def composite_reference(st, rnd, opts, stage: int = STAGE_BLEND | STAGE_SAMPLES):
+    """A round's non-vector compositing -> {"rgba", "depth",
+    "max_weight", "wn", "surf_a", "alive"}. rnd holds the round's
+    samples (alpha, valid, ts (K, n), rgb (K, n, 3)) and its ends (t_end,
+    exited, surf_stopped (n,)). Stage STAGE_BLEND is the in-march surface
+    blend (surface_blend_reference); STAGE_SAMPLES the front-to-back loop
+    over the K samples (composite_kernel_nerf) and the final surface
+    blend of rays that ended (testbed.cu:886-897), on a state whose
+    alive already says which rays composite."""
+    out = {k: st[k] for k in ("rgba", "depth", "max_weight", "wn", "surf_a",
+                              "alive")}
+    if stage & STAGE_BLEND:
+        out.update(surface_blend_reference(st, rnd, opts))
+    if not stage & STAGE_SAMPLES:
+        return out
+    rgba, wn, comp_alive = out["rgba"], out["wn"], out["alive"]
+    depth, max_w = out["depth"], out["max_weight"]
+    valid = rnd["valid"] & st["alive"][None]
+    alpha_k, rgb_s, ts = rnd["alpha"], rnd["rgb"], rnd["ts"]
+    for k in range(alpha_k.shape[0]):
+        use = comp_alive & valid[k]
+        w = torch.where(use, alpha_k[k] * (1.0 - rgba[:, 3]), 0.0)
+        rgba = rgba + torch.cat([rgb_s[k] * w[:, None], w[:, None]], dim=-1)
+        if opts.deferred_color:
+            wn = wn + w
+        done = use & (rgba[:, 3] > 1.0 - opts.min_transmittance)
+        upd = w > max_w
+        max_w = torch.where(upd, w, max_w)
+        depth = torch.where(upd & use, ts[k], depth)
+        inv = torch.where(done, 1.0 / torch.clamp(rgba[:, 3], min=1e-9), 1.0)
+        rgba = rgba * inv[:, None]
+        if opts.deferred_color:
+            wn = wn * inv
+        comp_alive = comp_alive & ~done
+    terminated_early = rnd["exited"] | rnd["surf_stopped"]
+    fin = comp_alive & terminated_early & (out["surf_a"] > 0.0)
+    rgba = torch.where(fin[:, None],
+                       rgba + st["surf"] * (1.0 - rgba[:, 3:4]), rgba)
+    return {**out, "rgba": rgba, "depth": depth, "max_weight": max_w,
+            "wn": wn, "alive": comp_alive & ~terminated_early}
+
+
+# ---------------------------------------------------------------------------
+# The wrappers
+# ---------------------------------------------------------------------------
+
+def _params(scene, opts, **kw) -> MarchParams:
+    """The kernels' parameters for these options: the probe route and the
+    float32 constants the plain version's Python scalars become."""
+    f32 = np.float32
+    route, grid = probe_route(scene, opts)
+    cone = opts.cone_angle
+    dmin, dmax, t1, t2, t1_end, t2_cap, lg = (
+        _ladder_constants(cone) if cone > 0.0
+        else (f32(C.MIN_CONE_STEPSIZE), f32(C.MAX_CONE_STEPSIZE)) + (f32(0),) * 5)
+    return MarchParams(
+        route=route, max_cascade=opts.config.max_cascade,
+        min_mip=opts.min_mip, cone=f32(cone), dt_min=dmin, dt_max=dmax,
+        t1=t1, t2=t2, t1_end=t1_end, t2_cap=t2_cap, lg=lg,
+        dtmip_cap=f32(C.MAX_CONE_STEPSIZE - 1e-9),
+        tau_den=f32(2 * C.NERF_GRIDSIZE * cone),
+        sat_alpha=f32(1.0 - opts.min_transmittance),
+        grid_numel=grid.numel(), **kw), grid
+
+
+def _arg(name, x, dtype, shape, device):
+    """x as the kernel takes it (contiguous) or ValueError."""
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if x.dtype != dtype or tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} must be a {dtype} tensor of shape "
+                         f"{tuple(shape)}, got {x.dtype} {tuple(x.shape)}")
+    return x.contiguous()
+
+
+_RAY_SHAPES = {"o": 3, "d": 3, "surf": 4, "rgba": 4}
+
+
+def _ray_args(name, tensors, keys):
+    """The per-ray tensors `keys` of `tensors`, checked against what the
+    kernels take (float32, bool for alive; (n,), (n, 3) or (n, 4) on one
+    device) -> (device, n, [contiguous tensors]). Raises ValueError, on
+    every device, for what the kernels do not take."""
+    t = tensors["t"]
+    if t.device.type not in ("cpu", "cuda") or t.dim() != 1:
+        raise ValueError(f"{name}: t must be a 1-d tensor on the CPU or a "
+                         f"CUDA device, got {tuple(t.shape)} on {t.device}")
+    n = t.shape[0]
+    args = []
+    for k in keys:
+        width = _RAY_SHAPES.get(k)
+        args.append(_arg(k, tensors[k],
+                         torch.bool if k == "alive" else torch.float32,
+                         (n,) if width is None else (n, width), t.device))
+    return t.device, n, args
+
+
+def _scene_args(scene, grid, device):
+    return [_arg("probe grid", grid, torch.uint8, grid.shape, device),
+            _arg("render_min", scene["render_min"], torch.float32, (3,), device),
+            _arg("render_max", scene["render_max"], torch.float32, (3,), device),
+            _arg("local", scene["local"], torch.float32, (3, 3), device)]
+
+
+def _ptrs(*xs):
+    return [None if x is None else x.data_ptr() for x in xs]
+
+
+def _launch(name, fn, dev, params, n, *ptrs):
+    """One kernel launch on dev's current stream, under dev: the library
+    launches on the CUDA runtime's current device."""
+    with torch.cuda.device(dev):
+        err = fn(ctypes.byref(params), n, *ptrs,
+                 torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"march kernel {name} launch failed: "
+                           f"cudaError_t {err}")
+    launches[name] += 1
+
+
+_STATE = ("o", "d", "t", "t_start", "t_surf", "surf_a", "alive")
+
+
+def advance(st, scene, opts, iters: int):
+    """The advance pass -> (t, alive), each (n,).
+
+    st: o, d (n, 3) f32; t, t_start, t_surf, surf_a (n,) f32; alive (n,)
+    bool. iters probes a ray at most; on a CUDA tensor one launch of
+    nmr_march_advance, a thread per ray that leaves its loop when the ray
+    settles."""
+    dev, n, args = _ray_args("advance", st, _STATE)
+    if dev.type == "cpu":
+        return advance_reference(st, scene, opts, iters)
+    if n == 0 or iters <= 0:
+        return args[2], args[6]
+    params, grid = _params(scene, opts, iters=int(iters))
+    t = torch.empty(n, dtype=torch.float32, device=dev)
+    alive = torch.empty(n, dtype=torch.bool, device=dev)
+    _launch("advance", load_library().nmr_march_advance, dev, params, n,
+            *_ptrs(*args, *_scene_args(scene, grid, dev), t, alive))
+    return t, alive
+
+
+def init_walk(o, d, t, t_surface, alive, scene, opts):
+    """init_rays' walk -> (t, alive), each (n,): o, d (n, 3) f32; t,
+    t_surface (n,) f32; alive (n,) bool; at most opts.init_skip_iters
+    probes (dt from the absolute t). On a CUDA tensor one launch of
+    nmr_march_init_walk."""
+    dev, n, args = _ray_args("init_walk", {
+        "o": o, "d": d, "t": t, "t_surf": t_surface, "alive": alive},
+        ("o", "d", "t", "t_surf", "alive"))
+    if dev.type == "cpu":
+        return init_walk_reference(o, d, t, t_surface, alive, scene, opts)
+    iters = opts.init_skip_iters
+    if n == 0 or iters <= 0:
+        return args[2], args[4]
+    params, grid = _params(scene, opts, iters=int(iters))
+    t_out = torch.empty(n, dtype=torch.float32, device=dev)
+    alive_out = torch.empty(n, dtype=torch.bool, device=dev)
+    _launch("init_walk", load_library().nmr_march_init_walk, dev, params, n,
+            *_ptrs(*args, *_scene_args(scene, grid, dev), t_out, alive_out))
+    return t_out, alive_out
+
+
+def samples(st, scene, opts):
+    """A round's K sequential samples -> ((pos (K, n, 3), dt, valid, ts
+    (K, n)), t_end, exited, surf_stopped (n,)), as samples_reference; the
+    state as advance takes it. On a CUDA tensor one launch of
+    nmr_march_samples."""
+    dev, n, args = _ray_args("samples", st, _STATE)
+    if dev.type == "cpu":
+        return samples_reference(st, scene, opts)
+    K = opts.steps_per_round
+    params, grid = _params(scene, opts, iters=int(opts.skip_iters), steps=K)
+    f32 = dict(dtype=torch.float32, device=dev)
+    b8 = dict(dtype=torch.bool, device=dev)
+    out = (torch.empty((K, n, 3), **f32), torch.empty((K, n), **f32),
+           torch.empty((K, n), **b8), torch.empty((K, n), **f32),
+           torch.empty(n, **f32), torch.empty(n, **b8), torch.empty(n, **b8))
+    if n:
+        _launch("samples", load_library().nmr_march_samples, dev, params, n,
+                *_ptrs(*args, *_scene_args(scene, grid, dev), *out))
+    return out[:4], out[4], out[5], out[6]
+
+
+def composite(st, rnd, opts, stage: int = STAGE_BLEND | STAGE_SAMPLES):
+    """A round's non-vector compositing -> {"rgba" (n, 4), "depth",
+    "max_weight", "wn", "surf_a" (n,) f32, "alive" (n,) bool}, as
+    composite_reference. st: rgba, surf (n, 4) f32; depth, max_weight,
+    wn, surf_a, t, t_surf (n,) f32; alive (n,) bool. rnd: t_end (n,) f32,
+    exited, surf_stopped (n,) bool; with STAGE_SAMPLES also alpha, ts
+    (K, n) f32, valid (K, n) bool, rgb (K, n, 3) f32. On a CUDA tensor one
+    launch of nmr_march_composite."""
+    dev, n, args = _ray_args("composite", st, (
+        "rgba", "depth", "max_weight", "wn", "surf_a", "t", "alive", "surf",
+        "t_surf"))
+    ends = [_arg(k, rnd[k], dt, (n,), dev) for k, dt in (
+        ("t_end", torch.float32), ("exited", torch.bool),
+        ("surf_stopped", torch.bool))]
+    K = 0
+    round_args = [None] * 4
+    if stage & STAGE_SAMPLES:
+        K = rnd["alpha"].shape[0]
+        round_args = [_arg(k, rnd[k], dt, shape, dev) for k, dt, shape in (
+            ("alpha", torch.float32, (K, n)), ("valid", torch.bool, (K, n)),
+            ("ts", torch.float32, (K, n)), ("rgb", torch.float32, (K, n, 3)))]
+    if dev.type == "cpu":
+        return composite_reference(st, rnd, opts, stage)
+    params = MarchParams(steps=K, deferred=int(opts.deferred_color),
+                         stage=int(stage),
+                         sat_alpha=np.float32(1.0 - opts.min_transmittance))
+    f32 = dict(dtype=torch.float32, device=dev)
+    out = {"rgba": torch.empty((n, 4), **f32),
+           **{k: torch.empty(n, **f32)
+              for k in ("depth", "max_weight", "wn", "surf_a")},
+           "alive": torch.empty(n, dtype=torch.bool, device=dev)}
+    if n:
+        _launch("composite", load_library().nmr_march_composite, dev, params, n,
+                *_ptrs(*args, *ends, *round_args, *out.values()))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The contract
+# ---------------------------------------------------------------------------
+
+def _allowed(n):
+    return max(MISMATCH_MIN, math.ceil(MISMATCH_FRACTION * n))
+
+
+def compare_with_plain(kind: str, out_k, out_p) -> dict:
+    """A kernel's outputs against its plain version's on the same inputs
+    -> counts, worst differences and `ok` under the contract.
+
+    kind "walk" (advance, init_walk: (t, alive)) or "samples"
+    (samples' outputs): rays whose flags (alive; valid, exited,
+    surf_stopped) or whose t values (t; every slot's t, position and dt,
+    t_end) differ in any bit number at most max(4, ceil(1e-4 x rays));
+    where the flags agree, the t values lie at most one MAX_CONE_STEPSIZE
+    apart. kind "composite" (dicts of composite's outputs): the alive
+    masks differ on at most as many rays, every float output within
+    COMPOSITE_ATOL."""
+    if kind == "composite":
+        n = out_p["alive"].shape[0]
+        flag_diff = out_k["alive"] != out_p["alive"]
+        err = max(float((out_k[k] - out_p[k]).abs().max()) if n else 0.0
+                  for k in ("rgba", "depth", "max_weight", "wn", "surf_a"))
+        rays = int(flag_diff.sum())
+        ok = rays <= _allowed(n) and err <= COMPOSITE_ATOL
+        return {"rays": n, "mismatched_rays": rays, "flag_mismatches": rays,
+                "allowed": _allowed(n), "max_step_diff": 0.0,
+                "max_abs_err": err, "ok": ok}
+    if kind == "walk":
+        (tk, ak), (tp, ap) = out_k, out_p
+        flags_k, flags_p = ak[None], ap[None]
+        ts_k, ts_p = tk[None], tp[None]
+        exact = [(ts_k, ts_p)]
+    elif kind == "samples":
+        (pk, dk, vk, sk), tek, exk, ssk = out_k
+        (pp, dp, vp, sp), tep, exp_, ssp = out_p
+        flags_k = torch.cat([vk, exk[None], ssk[None]])
+        flags_p = torch.cat([vp, exp_[None], ssp[None]])
+        ts_k = torch.cat([sk, tek[None]])
+        ts_p = torch.cat([sp, tep[None]])
+        exact = [(pk, pp), (dk, dp), (ts_k, ts_p)]
+    else:
+        raise ValueError(f"compare_with_plain: unknown kind {kind!r}")
+    n = ts_p.shape[1]
+    flag_diff = (flags_k != flags_p).any(dim=0)
+    value_diff = torch.zeros_like(flag_diff)
+    for a, b in exact:
+        value_diff |= (a != b).reshape(a.shape[0], n, -1).any(dim=2).any(dim=0)
+    rays = int((flag_diff | value_diff).sum())
+    agree = ~flag_diff
+    step = 0.0
+    if bool(agree.any()):
+        step = float((ts_k - ts_p)[:, agree].abs().max())
+    err = max(float((a - b).abs().max()) if a.numel() else 0.0
+              for a, b in exact)
+    ok = rays <= _allowed(n) and step <= STEP_TOL
+    return {"rays": n, "mismatched_rays": rays,
+            "flag_mismatches": int(flag_diff.sum()), "allowed": _allowed(n),
+            "max_step_diff": step, "max_abs_err": err, "ok": ok}
+

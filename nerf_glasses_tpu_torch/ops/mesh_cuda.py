@@ -27,25 +27,20 @@ and |du|, |dv| <= 1e-5.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
 import os
-import shutil
-import subprocess
-import tempfile
-import time
 
 import torch
 
+from nerf_glasses_tpu_torch.ops import cuda_build
+
 BIG = 1e16
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SOURCE = os.path.join(_PKG, "csrc", "mesh_raycast.cu")
-_BUILD_DIR = os.path.join(_PKG, "_build")
+_SOURCE = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "csrc", "mesh_raycast.cu")
 # The kernels spell out every rounding with intrinsics, so no flag
 # changes their results.
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
+NVCC_FLAGS = cuda_build.ARCH_FLAGS
 
 # The kernel-vs-plain contract (compare_with_plain).
 MISMATCH_FRACTION = 1e-4
@@ -62,53 +57,22 @@ build_log = ""
 build_seconds = 0.0
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc")
-    if path is None:
-        home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-        path = os.path.join(home, "bin", "nvcc")
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found (PATH, CUDA_HOME): the mesh "
-                           "ray-cast kernel cannot be built")
-    return path
-
-
 def load_library() -> ctypes.CDLL:
     """Build (once per source hash) and load the kernel library."""
     global _lib, build_log, build_seconds
     if _lib is not None:
         return _lib
-    with open(_SOURCE, "rb") as f:
-        src = f.read()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    so = os.path.join(_BUILD_DIR, f"mesh_raycast-{key[:16]}.so")
-    if not os.path.exists(so):
-        os.makedirs(_BUILD_DIR, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-        os.close(fd)
-        t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, _SOURCE],
-                              capture_output=True, text=True)
-        build_seconds = time.perf_counter() - t0
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed on {_SOURCE}:\n{build_log}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(so)
+    lib, build_log, build_seconds = cuda_build.build_library(_SOURCE,
+                                                             NVCC_FLAGS)
     p = ctypes.c_void_p
     i = ctypes.c_int
     ll = ctypes.c_longlong
-    for name, args, res in (
-            ("nmr_raycast_tiled", [p, i, p, p, p, p, i, i, i, p, p, p, p, p, p], i),
-            ("nmr_raycast_tiled_scratch", [i, i, i, i], ll),
-            ("nmr_raycast", [p, p, p, i, ll, p, p, p, p, p, p], i),
-            ("nmr_raycast_scratch", [i], ll)):
-        fn = getattr(lib, name)
-        fn.argtypes = args
-        fn.restype = res
-    _lib = lib
-    return lib
+    _lib = cuda_build.declare(lib, (
+        ("nmr_raycast_tiled", [p, i, p, p, p, p, i, i, i, p, p, p, p, p, p], i),
+        ("nmr_raycast_tiled_scratch", [i, i, i, i], ll),
+        ("nmr_raycast", [p, p, p, i, ll, p, p, p, p, p, p], i),
+        ("nmr_raycast_scratch", [i], ll)))
+    return _lib
 
 
 def _moller_trumbore(o, d, tri):
@@ -293,12 +257,13 @@ def raycast_tiled(tri_scalars, o, d, tile_lists, tile_counts):
     scratch = torch.empty(
         lib.nmr_raycast_tiled_scratch(n_tris, n_tiles, list_len, tile_rays),
         dtype=torch.uint8, device=dev)
-    err = lib.nmr_raycast_tiled(
-        tri_scalars.data_ptr(), n_tris, o.data_ptr(), d.data_ptr(),
-        tile_lists.data_ptr(), tile_counts.data_ptr(), list_len,
-        n_tiles, tile_rays, t.data_ptr(), idx.data_ptr(), u.data_ptr(),
-        v.data_ptr(), scratch.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):     # the runtime launches on its device
+        err = lib.nmr_raycast_tiled(
+            tri_scalars.data_ptr(), n_tris, o.data_ptr(), d.data_ptr(),
+            tile_lists.data_ptr(), tile_counts.data_ptr(), list_len,
+            n_tiles, tile_rays, t.data_ptr(), idx.data_ptr(), u.data_ptr(),
+            v.data_ptr(), scratch.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"mesh ray-cast kernel launch failed: "
                            f"cudaError_t {err}")
@@ -336,10 +301,11 @@ def raycast(tri_scalars, o, d):
     # the packed triangles and the mesh extent
     scratch = torch.empty(lib.nmr_raycast_scratch(n_tris), dtype=torch.uint8,
                           device=dev)
-    err = lib.nmr_raycast(
-        tri_scalars.data_ptr(), o.data_ptr(), d.data_ptr(), n_tris, n,
-        t.data_ptr(), idx.data_ptr(), u.data_ptr(), v.data_ptr(),
-        scratch.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        err = lib.nmr_raycast(
+            tri_scalars.data_ptr(), o.data_ptr(), d.data_ptr(), n_tris, n,
+            t.data_ptr(), idx.data_ptr(), u.data_ptr(), v.data_ptr(),
+            scratch.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"mesh ray-cast kernel launch failed: "
                            f"cudaError_t {err}")

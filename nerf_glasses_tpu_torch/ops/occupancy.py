@@ -14,7 +14,7 @@ Reference semantics:
 
 The Chebyshev clearance grids (build_dist_grid, build_dist_grid_cascades,
 dist_at) have no counterpart in the reference: they let the march hop
-the whole empty ball around a voxel per lookup (raymarch._dist_probe,
+the whole empty ball around a voxel per lookup (march_cuda._dist_probe,
 _dist_probe_mips).
 """
 
@@ -185,7 +185,7 @@ def build_dist_grid_cascades(occ: torch.Tensor, max_cascade: int,
     build_occupancy pools each finer level into the inner half of the
     next, so an empty cascade-c ball holds no finer-cascade content;
     coarser cascades may still be occupied there, which is why the probe
-    clamps its hop (raymarch._dist_probe_mips)."""
+    clamps its hop (march_cuda._dist_probe_mips)."""
     cur = occ[:max_cascade + 1] > 0
     dist = (~cur).to(torch.uint8)
     for _ in range(max_dist - 1):

@@ -1,0 +1,896 @@
+"""The exact march's per-ray loops (ops/march_cuda.py, csrc/march.cu):
+the plain versions against the JAX package, a scalar model of each
+kernel against the plain versions, the wrappers' validation, and the
+kernels themselves on the card.
+
+Scenes at small size: 64x48 rays into the 128^3 sphere occupancy of
+tests/helpers.make_sphere_density (one cascade) and into the
+three-cascade grid of tests/test_multicascade.make_cascaded_grid, each
+with and without a surface payload, on every route of the empty-space
+probe (`march_cuda.probe_route`): the jump grid, the clearance grid, the
+clearance pyramid and the per-voxel DDA (and the DDA's constant-dt form
+and the jump grid under cone stepping).
+
+Tolerances:
+- plain versions against JAX (init_rays, _advance_pass, _march_round at
+  float32 and jitter off): the packages' float32 ops round alike but for
+  the transcendental functions (_ladder_jump's log and exp) and XLA's
+  fusion, so a ray whose quotient lands within roundoff of an integer
+  under a ceil may take one step more or less. Such rays are counted and
+  held to 0.5% of the batch (tests/test_torch_multicascade.py's share
+  for the probes); the other rays agree in every flag, and their t to
+  rtol 1e-6; the round's colour, depth and weights to 1e-5 absolute
+  (tests/test_torch_march.py's frame tolerance), alpha and max weight
+  are those of float32 MLPs on both sides.
+- the scalar model against the plain versions: equal bit for bit on every
+  ray. The model is numpy float32 scalar code that follows each kernel's
+  loop with its early exits, line for line; it takes log and exp from
+  torch (the plain version's own functions on this CPU, as the kernels
+  take the card's logf and expf, which aten calls there).
+- the kernels against the plain versions (marked `cuda`, skipped without
+  a card; run with `python -m pytest tests/test_torch_march_kernels.py -m
+  cuda`): march_cuda.compare_with_plain's contract.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from nerf_glasses_tpu.config import NGPConfig as JCfg
+from nerf_glasses_tpu.ops import occupancy as jocc
+from nerf_glasses_tpu.ops import raymarch as jrm
+from nerf_glasses_tpu.ops.network import init_params
+from nerf_glasses_tpu_torch import constants as C
+from nerf_glasses_tpu_torch.ops import march_cuda as mc
+from nerf_glasses_tpu_torch.ops import occupancy as tocc
+from nerf_glasses_tpu_torch.ops import raymarch as trm
+from nerf_glasses_tpu_torch.ops.network import params_from_jax
+from tests.helpers import make_sphere_density
+from tests.test_multicascade import CFG4, make_cascaded_grid
+from tests.test_torch_march import _np_params, _tcfg
+
+torch.set_num_threads(1)
+
+W, H = 64, 48
+CONE = 1.0 / 256.0
+JC1 = JCfg(n_levels=4, log2_hashmap_size=11, base_resolution=16,
+           per_level_scale=1.5)
+JC4 = dataclasses.replace(CFG4, n_levels=4, log2_hashmap_size=11)
+SHARE = 0.005          # rays allowed one step apart (see the docstring)
+F = np.float32
+
+# route case -> (multi-cascade scene, march options)
+ROUTES = {
+    "jump": (False, {}),
+    "dist": (False, {"dist_advance": True}),
+    "dist_mips": (True, {"dist_advance": True, "cone_angle": CONE}),
+    "dda": (True, {"cone_angle": CONE}),
+    # the DDA's closed form (constant dt at a floor mip) and the jump grid
+    # under cone stepping
+    "dda_min_mip": (False, {"min_mip": 1}),
+    "jump_cone": (False, {"cone_angle": CONE}),
+}
+FOUR = ("jump", "dist", "dist_mips", "dda")
+ROUTE_OF = {"jump": mc.ROUTE_JUMP, "dist": mc.ROUTE_DIST,
+            "dist_mips": mc.ROUTE_DIST_MIPS, "dda": mc.ROUTE_DDA,
+            "dda_min_mip": mc.ROUTE_DDA, "jump_cone": mc.ROUTE_JUMP}
+
+
+# ---------------------------------------------------------------------------
+# Scenes, rays and states
+# ---------------------------------------------------------------------------
+
+_OCC = {}
+
+
+def _occupancy(multi):
+    if multi not in _OCC:
+        if multi:
+            grid, mcasc = make_cascaded_grid(), 2
+        else:
+            grid, mcasc = make_sphere_density(radius=0.2, value=1.0), 0
+        _OCC[multi] = np.asarray(jocc.build_occupancy(jnp.asarray(grid),
+                                                      mcasc))
+    return _OCC[multi]
+
+
+def _scenes(multi):
+    """-> (JAX scene, port scene) with every probe grid."""
+    occ = _occupancy(multi)
+    lo, hi = (-1.5, 2.5) if multi else (0.0, 1.0)
+    box = (np.full(3, lo), np.full(3, hi), np.eye(3), np.full(3, lo),
+           np.full(3, hi))
+    js, ts = jrm.make_scene(occ, *box), trm.make_scene(occ, *box)
+    js["dist"] = jocc.build_dist_grid(js["occ"])
+    ts["dist"] = tocc.build_dist_grid(ts["occ"])
+    if multi:
+        js["dist_mips"] = jocc.build_dist_grid_cascades(js["occ"], 2)
+        ts["dist_mips"] = tocc.build_dist_grid_cascades(ts["occ"], 2)
+    return js, ts
+
+
+def _options(route, **kw):
+    multi, extra = ROUTES[route]
+    jc = JC4 if multi else JC1
+    kw = {"jitter": False, "compute_dtype": "float32", **extra, **kw}
+    return jrm.MarchOptions(config=jc, **kw), trm.MarchOptions(
+        config=_tcfg(jc), **kw)
+
+
+def _rays(multi, surface, seed=0):
+    """64x48 camera rays through the scene, a few along the axes, and a
+    surface payload on 30% of them (alpha 1 or 0.5) -> numpy (o, d, surf
+    (n, 4), t_surf (n,))."""
+    rng = np.random.default_rng(seed)
+    if multi:
+        cam = np.array([[0.45, 0, 0, 0.1], [0, 0.4, 0, -0.05],
+                        [0, 0, 1, -3.0]], np.float32)
+    else:
+        cam = np.array([[0.5, 0, 0, 0.02], [0, 0.4, 0, 0.01],
+                        [0, 0, 1, -1.2]], np.float32)
+    o, d = trm.camera_rays(cam, W, H)
+    o, d = o.copy(), d.copy()
+    d[:3] = np.eye(3, dtype=np.float32)[[2, 2, 2]]
+    d[3] = np.array([0.0, 0.6, 0.8], np.float32)
+    n = o.shape[0]
+    surf = np.zeros((n, 4), np.float32)
+    t_surf = np.zeros(n, np.float32)
+    if surface:
+        has = rng.uniform(size=n) < 0.3
+        span = (2.5, 5.0) if multi else (0.8, 1.8)
+        t_surf[has] = rng.uniform(*span, has.sum())
+        surf[has, :3] = rng.uniform(0, 1, (has.sum(), 3))
+        surf[has, 3] = np.where(rng.uniform(size=has.sum()) < 0.5, 1.0, 0.5)
+        surf[has, :3] *= surf[has, 3:]
+    return o, d, surf, t_surf
+
+
+def _state(o, d, surf, t_surf, t, t_start, alive, seed=1):
+    """A march state dict of numpy arrays at (t, alive), its colour half
+    accumulated on some rays so that the round's saturation is reached."""
+    rng = np.random.default_rng(seed)
+    n = o.shape[0]
+    rgba = np.zeros((n, 4), np.float32)
+    part = rng.uniform(size=n) < 0.3
+    rgba[part, 3] = rng.uniform(0.2, 0.985, part.sum())
+    rgba[part, :3] = rng.uniform(0, 1, (part.sum(), 3)) * rgba[part, 3:]
+    return {"o": o, "d": d, "surf": surf, "t_surf": t_surf,
+            "t_start": np.asarray(t_start, np.float32),
+            "t": np.asarray(t, np.float32), "rgba": rgba,
+            "depth": np.where(part, 0.7, 0.0).astype(np.float32),
+            "max_weight": np.where(part, 0.05, 0.0).astype(np.float32),
+            "alive": np.asarray(alive, bool),
+            "surf_a": np.where(alive, surf[:, 3], 0.0).astype(np.float32),
+            "wn": np.where(part, rgba[:, 3] * 0.5, 0.0).astype(np.float32)}
+
+
+def _torch(st):
+    return {k: torch.as_tensor(np.array(v)) for k, v in st.items()}
+
+
+def _jax(st):
+    return {k: jnp.asarray(v) for k, v in st.items()}
+
+
+def _numpy(st):
+    return {k: np.asarray(v) for k, v in st.items()}
+
+
+def _init_state(route, surface):
+    """init_rays on the port (plain) -> the numpy state every test of the
+    route starts from, and the port's options and scene."""
+    multi = ROUTES[route][0]
+    _, tscene = _scenes(multi)
+    _, topts = _options(route)
+    o, d, surf, t_surf = _rays(multi, surface)
+    t, t_start, alive = trm.init_rays(tscene, torch.as_tensor(o),
+                                      torch.as_tensor(d),
+                                      torch.as_tensor(t_surf), topts)
+    return _state(o, d, surf, t_surf, t.numpy(), t_start.numpy(),
+                  alive.numpy()), topts, tscene
+
+
+# ---------------------------------------------------------------------------
+# (a) The plain versions against JAX
+# ---------------------------------------------------------------------------
+
+def _held(t_got, t_want, flags_got, flags_want, step):
+    """-> rays off: flags differ or t beyond rtol 1e-6 (each of those one
+    step apart where the flags agree); at most SHARE of the rays."""
+    t_got, t_want = np.asarray(t_got), np.asarray(t_want)
+    flag_off = np.zeros(t_got.shape[-1], bool)
+    for a, b in zip(flags_got, flags_want):
+        flag_off |= (np.asarray(a) != np.asarray(b)).reshape(
+            -1, t_got.shape[-1]).any(axis=0)
+    t_off = (np.abs(t_got - t_want)
+             > 1e-6 * np.maximum(np.abs(t_want), 1.0)).reshape(
+        -1, t_got.shape[-1]).any(axis=0)
+    gap = np.abs(t_got - t_want).reshape(-1, t_got.shape[-1]).max(axis=0)
+    assert (gap[t_off & ~flag_off] <= 1.01 * step).all(), gap[t_off].max()
+    off = flag_off | t_off
+    assert off.sum() <= SHARE * off.size, (flag_off.sum(), t_off.sum())
+    return off
+
+
+@pytest.mark.parametrize("surface", [False, True], ids=["plain", "surface"])
+@pytest.mark.parametrize("route", FOUR + ("dda_min_mip", "jump_cone"))
+def test_plain_loops_match_jax(route, surface):
+    """init_rays' walk, the advance pass and two sequential rounds: the
+    port's plain versions against the JAX package's functions on the
+    same state."""
+    multi = ROUTES[route][0]
+    jscene, tscene = _scenes(multi)
+    jopts, topts = _options(route)
+    assert mc.probe_route(tscene, topts)[0] == ROUTE_OF[route]
+    step = C.MAX_CONE_STEPSIZE
+    o, d, surf, t_surf = _rays(multi, surface)
+
+    jt, jts, ja = jrm.init_rays(jscene, jnp.asarray(o), jnp.asarray(d),
+                                jnp.asarray(t_surf), jnp.asarray(surf[:, 3]),
+                                jopts)
+    tt, tts, ta = trm.init_rays(tscene, torch.as_tensor(o),
+                                torch.as_tensor(d), torch.as_tensor(t_surf),
+                                topts)
+    off = _held(tt.numpy(), jt, [ta.numpy()], [ja], step)
+    _held(tts.numpy(), jts, [], [], step)
+    assert ta.any()
+
+    st = _state(o, d, surf, t_surf, np.asarray(jt), np.asarray(jts),
+                np.asarray(ja))
+    jadv = jrm._advance_pass(_jax(st), jscene, jopts, 48)
+    tadv = trm._advance_pass(_torch(st), tscene, topts, 48)
+    off |= _held(tadv["t"].numpy(), jadv["t"], [tadv["alive"].numpy()],
+                 [jadv["alive"]], step)
+
+    cfg = JC4 if multi else JC1
+    params = init_params(jax.random.PRNGKey(5), cfg)
+    params = {**params, "grid": params["grid"] * 300.0}
+    net = params_from_jax(_np_params(params), _tcfg(cfg))
+    jst = _numpy(jadv)
+    tst = _torch(jst)
+    for _ in range(2):
+        jst = _numpy(jrm._march_round(_jax(jst), params, jscene, jopts))
+        tst = trm._march_round(tst, net, tscene, topts)
+        off |= _held(tst["t"].numpy(), jst["t"], [tst["alive"].numpy()],
+                     [jst["alive"]], step)
+        keep = ~off
+        for k in ("rgba", "depth", "max_weight", "wn", "surf_a"):
+            np.testing.assert_allclose(tst[k].numpy()[keep], jst[k][keep],
+                                       atol=1e-5, err_msg=k)
+    print(f"{route}: rays one step apart {off.sum()} of {off.size}")
+    assert (tst["rgba"][:, 3] > 0.5).any()
+
+
+# ---------------------------------------------------------------------------
+# (b) A scalar model of each kernel against the plain versions
+# ---------------------------------------------------------------------------
+# csrc/march.cu, line for line, in numpy float32 scalars: every operation
+# rounds as the kernel's does (the build takes -fmad=false; fmaf only in
+# the `local` product). Each ray leaves its loop where the kernel's
+# thread does.
+
+F32_MAX = F(np.finfo(np.float32).max)
+
+
+def _nmin(a, b):
+    return a if (a != a or a < b) else b
+
+
+def _nmax(a, b):
+    return a if (a != a or a > b) else b
+
+
+def _lo(x, lo):
+    return lo if x < lo else x
+
+
+def _hi(x, hi):
+    return hi if x > hi else x
+
+
+def _nan_to_num(x):
+    if x != x:
+        return F(0)
+    if x == np.inf:
+        return F32_MAX
+    return -F32_MAX if x == -np.inf else x
+
+
+def _cell(q):
+    return _hi(_lo(np.trunc(_nan_to_num(q * F(128))), F(0)), F(127))
+
+
+def _fma(a, b, c):
+    """fmaf for the identity-like `local` products (exact there)."""
+    return F(np.float64(a) * np.float64(b) + np.float64(c))
+
+
+def _torch_fn(fn, x):
+    return F(fn(torch.tensor([x], dtype=torch.float32))[0].item())
+
+
+def _ldexp(x, e):
+    return F(np.ldexp(F(x), e))
+
+
+def _frexp_e(x):
+    return int(np.frexp(F(x))[1])
+
+
+class _P:
+    """A MarchParams as float32 scalars and ints."""
+
+    def __init__(self, params, grid):
+        for name, _ in params._fields_:
+            v = getattr(params, name)
+            setattr(self, name, F(v) if isinstance(v, float) else int(v))
+        self.grid = grid.reshape(-1).numpy()
+
+
+def _box(scene):
+    return ([F(x) for x in scene["render_min"].numpy()],
+            [F(x) for x in scene["render_max"].numpy()],
+            [F(x) for x in scene["local"].numpy().reshape(-1)])
+
+
+def _local_row(box, r, x):
+    m = box[2]
+    return _fma(x[2], m[3 * r + 2], _fma(x[1], m[3 * r + 1], x[0] * m[3 * r]))
+
+
+def _contains(box, p):
+    inside = True
+    for r in range(3):
+        q = _local_row(box, r, p)
+        inside = inside and q >= box[0][r] and q <= box[1][r]
+    return inside
+
+
+def _exit_t(box, o, d):
+    tmin = tmax = F(0)
+    for r in range(3):
+        ol = _local_row(box, r, o)
+        inv = F(1) / _local_row(box, r, d)
+        t0 = (box[0][r] - ol) * inv
+        t1 = (box[1][r] - ol) * inv
+        a, c = _nmin(t0, t1), _nmax(t0, t1)
+        tmin = a if r == 0 else _nmax(tmin, a)
+        tmax = c if r == 0 else _nmin(tmax, c)
+    if tmin > tmax:
+        tmax = F32_MAX
+    return F(-np.inf) if tmax >= F(3e38) else tmax
+
+
+def _calc_dt(t, P):
+    if P.cone == 0:
+        return P.dt_min
+    return _hi(_lo(t * P.cone, P.dt_min), P.dt_max)
+
+
+def _mip_from_pos(p, mcasc):
+    m = _nmax(_nmax(abs(p[0] - F(0.5)), abs(p[1] - F(0.5))),
+              abs(p[2] - F(0.5)))
+    return min(max(_frexp_e(m) + 1, 0), mcasc)
+
+
+def _mip_from_dt(dt, p, mcasc):
+    mip = _mip_from_pos(p, mcasc)
+    x = dt * F(256)
+    return mip if x < F(1) else min(max(_frexp_e(x), mip), mcasc)
+
+
+def _dist_to_next_voxel(p, d, idir, res):
+    t = F(0)
+    for i in range(3):
+        x = res * p[i]
+        s = (F(1) if d[i] > 0 else (F(-1) if d[i] < 0 else F(0))) \
+            + (F(1) if d[i] == 0 else F(0))
+        tt = (np.floor((x + F(0.5)) + F(0.5) * s) - x) * idir[i]
+        t = tt if i == 0 else _nmin(t, tt)
+    return _lo(t / res, F(0))
+
+
+def _advance_to_next_voxel(t, P, p, d, idir, res):
+    t_target = t + _dist_to_next_voxel(p, d, idir, res)
+    if P.cone == 0:
+        n = _lo(np.ceil((t_target - t) / P.dt_min), F(1))
+        return t + n * P.dt_min
+    t1 = t
+    for _ in range(8):
+        if not t1 < t_target:
+            break
+        t1 = t1 + _calc_dt(t1, P)
+    return _nmax(t1, t + _calc_dt(t, P))
+
+
+def _ladder(t, target, P):
+    if P.cone == 0:
+        n = _lo(np.ceil((target - t) / P.dt_min), F(1))
+        return t + n * P.dt_min
+    out = t
+    if t < P.t1:
+        na = np.ceil(_lo(_hi(target, P.t1_end) - t, F(0)) / P.dt_min)
+        out = t + na * P.dt_min
+    if out < target and out >= P.t1 and out < P.t2:
+        ratio = _lo(_hi(target, P.t2_cap) / _lo(out, F(1e-30)), F(1))
+        nb = np.ceil(_torch_fn(torch.log, ratio) / P.lg)
+        out = out * _torch_fn(torch.exp, nb * P.lg)
+    if out < target and out >= P.t2:
+        nc = np.ceil((target - out) / P.dt_max)
+        out = out + nc * P.dt_max
+    return _nmax(out, t + _calc_dt(t, P))
+
+
+def _clamp_flat(flat, P):
+    return 0 if flat < 0 else min(flat, len(P.grid) - 1)
+
+
+def _probe(P, p, t, d, idir, dt):
+    """-> (occupied, t advanced): probe<ROUTE>."""
+    g, r = P.grid, P.route
+    if r in (mc.ROUTE_JUMP, mc.ROUTE_DDA):
+        if r == mc.ROUTE_JUMP:
+            c = [int(_cell(x)) for x in p]
+            lv = int(g[(c[2] * 128 + c[1]) * 128 + c[0]])
+            occ, res = lv == 255, _ldexp(128, -min(lv, 4))
+        else:
+            mip = max(_mip_from_dt(dt, p, P.max_cascade), P.min_mip)
+            scale = _ldexp(1, -mip)
+            c = [int(_cell((x - F(0.5)) * scale + F(0.5))) for x in p]
+            flat = _clamp_flat(((mip * 128 + c[2]) * 128 + c[1]) * 128 + c[0],
+                               P)
+            occ, res = g[flat] != 0, _ldexp(128, -mip)
+        return occ, _advance_to_next_voxel(t, P, p, d, idir, res)
+    vox = F(1 / 128)
+    if r == mc.ROUTE_DIST:
+        vi = [_cell(x) for x in p]
+        k = F(g[(int(vi[2]) * 128 + int(vi[1])) * 128 + int(vi[0])])
+        delta = F(0)
+        for i in range(3):
+            bound = (vi[i] + k) * vox if d[i] > 0 else (vi[i] - (k - F(1))) * vox
+            tt = F(1e9) if d[i] == 0 else (bound - p[i]) / d[i]
+            delta = tt if i == 0 else _nmin(delta, tt)
+        delta = _lo(delta, F(0))
+        return k == 0, t + _lo(np.ceil(delta / P.dt_min), F(1)) * P.dt_min
+    mip = max(_mip_from_dt(dt, p, P.max_cascade), P.min_mip)
+    s = _ldexp(1, mip)
+    q = [(x - F(0.5)) / s + F(0.5) for x in p]
+    cell = [_cell(x) for x in q]
+    flat = _clamp_flat(((mip * 128 + int(cell[2])) * 128 + int(cell[1])) * 128
+                       + int(cell[0]), P)
+    k = F(g[flat])
+    ball = cube = F(0)
+    for i in range(3):
+        zero = d[i] == 0
+        safe_d = F(1) if zero else d[i]
+        bound = (cell[i] + k) * vox if d[i] > 0 else (cell[i] - (k - F(1))) * vox
+        tt = F(1e9) if zero else (bound - q[i]) / (safe_d / s)
+        cb = F(0.5) + F(0.5) * s if d[i] > 0 else F(0.5) - F(0.5) * s
+        tc = F(1e9) if zero else (cb - p[i]) / safe_d
+        ball = tt if i == 0 else _nmin(ball, tt)
+        cube = tc if i == 0 else _nmin(cube, tc)
+    delta = _nmin(_lo(ball, F(0)), _lo(cube, F(0)) + vox)
+    if P.cone > 0:
+        tau_next = _ldexp(1, max(_frexp_e(dt * F(256)), 0)) / P.tau_den
+        tau = dt / P.cone
+        dtmip = F(1e9) if dt >= P.dtmip_cap else _lo(tau_next - tau, F(0)) + dt
+        delta = _nmin(delta, dtmip)
+    return k == 0, _ladder(t, t + delta, P)
+
+
+def _ray(st, i):
+    o = [F(x) for x in st["o"][i]]
+    d = [F(x) for x in st["d"][i]]
+    return o, d, [F(1) / x for x in d]
+
+
+def _at(o, d, t):
+    return [o[c] + d[c] * t for c in range(3)]
+
+
+def _model_advance(P, box, st):
+    n = len(st["t"])
+    t_out, alive_out = np.array(st["t"], np.float32), np.array(st["alive"])
+    for i in range(n):
+        t, alive = F(st["t"][i]), bool(st["alive"][i])
+        if alive and P.iters > 0:
+            o, d, idir = _ray(st, i)
+            ts, t0 = F(st["t_surf"][i]), F(st["t_start"][i])
+            surf_live = ts > 0 and F(st["surf_a"][i]) > 0
+            t_exit = _exit_t(box, o, d)
+            for _ in range(P.iters):
+                pending = surf_live and t >= ts
+                inside = t <= t_exit
+                if pending or (not inside and surf_live):
+                    t = ts
+                    break
+                if not inside:
+                    alive = False
+                    break
+                occ, adv = _probe(P, _at(o, d, t), t, d, idir,
+                                  _calc_dt(t - t0, P))
+                if occ:
+                    break
+                t = adv
+        t_out[i], alive_out[i] = t, alive
+    return t_out, alive_out
+
+
+def _model_init_walk(P, box, st):
+    n = len(st["t"])
+    t_out, alive_out = np.array(st["t"], np.float32), np.array(st["alive"])
+    for i in range(n):
+        t, alive = F(st["t"][i]), bool(st["alive"][i])
+        if alive and P.iters > 0:
+            o, d, idir = _ray(st, i)
+            ts = F(st["t_surf"][i])
+            for _ in range(P.iters):
+                if ts > 0 and t > ts:
+                    t = ts
+                    break
+                p = _at(o, d, t)
+                if not _contains(box, p):
+                    if ts > 0:
+                        t = ts
+                    else:
+                        alive = False
+                    break
+                occ, adv = _probe(P, p, t, d, idir, _calc_dt(t, P))
+                if occ:
+                    break
+                t = adv
+        t_out[i], alive_out[i] = t, alive
+    return t_out, alive_out
+
+
+def _model_samples(P, box, st):
+    n, K = len(st["t"]), P.steps
+    pos_k = np.zeros((K, n, 3), np.float32)
+    dt_k, ts_k = np.zeros((K, n), np.float32), np.zeros((K, n), np.float32)
+    valid_k = np.zeros((K, n), bool)
+    t_end = np.zeros(n, np.float32)
+    exited_out, stopped_out = np.zeros(n, bool), np.zeros(n, bool)
+    for i in range(n):
+        o, d, idir = _ray(st, i)
+        ts, t0 = F(st["t_surf"][i]), F(st["t_start"][i])
+        surf_full = F(st["surf_a"][i]) >= 1
+        alive = bool(st["alive"][i])
+        t = F(st["t"][i])
+        gen_alive, exited, stopped = alive, False, False
+        for k in range(K):
+            status = 0 if gen_alive else -1
+            for _ in range(P.iters):
+                if status != 0:
+                    break
+                p = _at(o, d, t)
+                if ts > 0 and t > ts and surf_full:
+                    status = 3
+                elif not _contains(box, p):
+                    status = 2
+                else:
+                    occ, adv = _probe(P, p, t, d, idir, _calc_dt(t - t0, P))
+                    if occ:
+                        status = 1
+                    else:
+                        t = adv
+            found = status == 1
+            dt = _calc_dt(t - t0, P)
+            pos_k[k, i] = _at(o, d, t)
+            dt_k[k, i], valid_k[k, i], ts_k[k, i] = dt, found, t
+            exited = exited or status == 2
+            stopped = stopped or status == 3
+            t = t + dt if found else (ts if status == 3 else t)
+            gen_alive = gen_alive and (found or status == 0)
+        t_end[i] = t
+        exited_out[i], stopped_out[i] = exited and alive, stopped and alive
+    return (pos_k, dt_k, valid_k, ts_k), t_end, exited_out, stopped_out
+
+
+def _model_composite(P, st, rnd):
+    n = len(st["t"])
+    out = {"rgba": np.zeros((n, 4), np.float32),
+           **{k: np.zeros(n, np.float32)
+              for k in ("depth", "max_weight", "wn", "surf_a")},
+           "alive": np.zeros(n, bool)}
+    for i in range(n):
+        c = [F(x) for x in st["rgba"][i]]
+        sc = [F(x) for x in st["surf"][i]]
+        depth, max_w = F(st["depth"][i]), F(st["max_weight"][i])
+        wn, sa, ts = F(st["wn"][i]), F(st["surf_a"][i]), F(st["t_surf"][i])
+        alive = bool(st["alive"][i])
+        exited, stopped = bool(rnd["exited"][i]), bool(rnd["surf_stopped"][i])
+        comp = alive
+        if P.stage & mc.STAGE_BLEND:
+            t_payload = (F(st["t"][i]) if exited
+                         else (ts if stopped else F(rnd["t_end"][i])))
+            if comp and ts > 0 and t_payload > ts and sa > 0:
+                w = sa * (F(1) - c[3])
+                c = [c[j] + sc[j] * w for j in range(3)] + [c[3] + w]
+                sa = F(0)
+                if c[3] > F(0.99):
+                    inv = F(1) / _lo(c[3], F(1e-9))
+                    c = [x * inv for x in c]
+                    if P.deferred:
+                        wn = wn * inv
+                    comp = False
+        if P.stage & mc.STAGE_SAMPLES:
+            for k in range(P.steps):
+                use = comp and bool(rnd["valid"][k, i]) and alive
+                w = F(rnd["alpha"][k, i]) * (F(1) - c[3]) if use else F(0)
+                c = [c[j] + F(rnd["rgb"][k, i, j]) * w for j in range(3)] \
+                    + [c[3] + w]
+                if P.deferred:
+                    wn = wn + w
+                done = use and c[3] > P.sat_alpha
+                upd = w > max_w
+                if upd:
+                    max_w = w
+                if upd and use:
+                    depth = F(rnd["ts"][k, i])
+                if done:
+                    inv = F(1) / _lo(c[3], F(1e-9))
+                    c = [x * inv for x in c]
+                    if P.deferred:
+                        wn = wn * inv
+                    comp = False
+            ended = exited or stopped
+            if comp and ended and sa > 0:
+                T = F(1) - c[3]
+                c = [c[j] + sc[j] * T for j in range(4)]
+            comp = comp and not ended
+        out["rgba"][i] = c
+        out["depth"][i], out["max_weight"][i], out["wn"][i] = depth, max_w, wn
+        out["surf_a"][i], out["alive"][i] = sa, comp
+    return out
+
+
+def _bits_equal(got, want, name):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape and got.dtype == want.dtype, name
+    if got.dtype == np.float32:
+        got, want = got.view(np.int32), want.view(np.int32)
+    bad = got != want
+    assert not bad.any(), f"{name}: {int(bad.sum())} elements differ"
+
+
+@pytest.mark.parametrize("surface", [False, True], ids=["plain", "surface"])
+@pytest.mark.parametrize("route", list(ROUTES))
+def test_model_walks_equal_plain(route, surface):
+    """The advance and init-walk kernels' loops, modelled per ray with
+    their early exits, equal the masked plain versions bit for bit."""
+    st, topts, tscene = _init_state(route, surface)
+    box = _box(tscene)
+    params, grid = mc._params(tscene, topts, iters=48)
+    t, alive = mc.advance_reference(_torch(st), tscene, topts, 48)
+    with np.errstate(all="ignore"):
+        mt, ma = _model_advance(_P(params, grid), box, st)
+    _bits_equal(mt, t.numpy(), "advance t")
+    _bits_equal(ma, alive.numpy(), "advance alive")
+    assert (t.numpy() != st["t"]).any()
+
+    # the walk from init_rays' start (the state before its walk)
+    o, d, _, t_surf = (torch.as_tensor(st[k]) for k in ("o", "d", "surf",
+                                                          "t_surf"))
+    t0, _, a0 = trm.init_rays(tscene, o, d, t_surf,
+                              dataclasses.replace(topts, init_skip_iters=0))
+    t, alive = mc.init_walk_reference(o, d, t0, t_surf, a0, tscene, topts)
+    params, grid = mc._params(tscene, topts, iters=topts.init_skip_iters)
+    with np.errstate(all="ignore"):
+        mt, ma = _model_init_walk(_P(params, grid), box, {
+            "o": st["o"], "d": st["d"], "t": t0.numpy(), "t_surf": st["t_surf"],
+            "alive": a0.numpy()})
+    _bits_equal(mt, t.numpy(), "init walk t")
+    _bits_equal(ma, alive.numpy(), "init walk alive")
+
+
+def _advanced(route, surface):
+    """The state after init and the advance pass (plain), numpy."""
+    st, topts, tscene = _init_state(route, surface)
+    t, alive = mc.advance_reference(_torch(st), tscene, topts, 48)
+    return {**st, "t": t.numpy(), "alive": alive.numpy()}, topts, tscene
+
+
+@pytest.mark.parametrize("surface", [False, True], ids=["plain", "surface"])
+@pytest.mark.parametrize("route", list(ROUTES))
+def test_model_samples_equal_plain(route, surface):
+    st, topts, tscene = _advanced(route, surface)
+    want = mc.samples_reference(_torch(st), tscene, topts)
+    params, grid = mc._params(tscene, topts, iters=topts.skip_iters,
+                              steps=topts.steps_per_round)
+    with np.errstate(all="ignore"):
+        got = _model_samples(_P(params, grid), _box(tscene), st)
+    for name, g, w in zip(("pos", "dt", "valid", "ts"), got[0], want[0]):
+        _bits_equal(g, w.numpy(), name)
+    for name, g, w in zip(("t_end", "exited", "surf_stopped"), got[1:],
+                          want[1:]):
+        _bits_equal(g, w.numpy(), name)
+    assert want[0][2].any()
+
+
+def _round_inputs(route, surface, seed=3):
+    """A state after the advance pass and a round's samples, with seeded
+    alpha and colour (some alpha near 1 so that rays saturate) -> numpy
+    (state, round)."""
+    st, topts, tscene = _advanced(route, surface)
+    (pos, dt, valid, ts), t_end, exited, stopped = mc.samples_reference(
+        _torch(st), tscene, topts)
+    rng = np.random.default_rng(seed)
+    K, n = valid.shape
+    alpha = rng.uniform(0, 1, (K, n)) ** 3
+    alpha[rng.uniform(size=(K, n)) < 0.05] = 0.999
+    rnd = {"t_end": t_end.numpy(), "exited": exited.numpy(),
+           "surf_stopped": stopped.numpy(),
+           "valid": (valid & torch.as_tensor(st["alive"])[None]).numpy(),
+           "ts": ts.numpy(), "alpha": alpha.astype(np.float32),
+           "rgb": rng.uniform(0, 1, (K, n, 3)).astype(np.float32)}
+    return st, rnd, topts
+
+
+@pytest.mark.parametrize("deferred", [False, True], ids=["colour", "deferred"])
+@pytest.mark.parametrize("stage", ["all", "blend", "samples"])
+@pytest.mark.parametrize("route", ["jump", "dist_mips"])
+def test_model_composite_equals_plain(route, stage, deferred):
+    st, rnd, topts = _round_inputs(route, True)
+    topts = dataclasses.replace(topts, deferred_color=deferred)
+    code = {"all": mc.STAGE_BLEND | mc.STAGE_SAMPLES,
+            "blend": mc.STAGE_BLEND, "samples": mc.STAGE_SAMPLES}[stage]
+    want = mc.composite_reference(_torch(st), _torch(rnd), topts, code)
+    params = mc.MarchParams(steps=rnd["alpha"].shape[0], deferred=deferred,
+                            stage=code, sat_alpha=F(1 - topts.min_transmittance))
+    P = _P(params, torch.zeros(1, dtype=torch.uint8))
+    got = _model_composite(P, st, rnd)
+    for k in ("rgba", "depth", "max_weight", "wn", "surf_a", "alive"):
+        _bits_equal(got[k], want[k].numpy(), k)
+    # the blend fired, rays saturated and ended
+    if code & mc.STAGE_BLEND:
+        assert (got["surf_a"] != st["surf_a"]).any()
+    if code & mc.STAGE_SAMPLES:
+        assert (~got["alive"] & st["alive"]).any()
+        assert (got["depth"] != st["depth"]).any()
+
+
+# ---------------------------------------------------------------------------
+# (c) The wrappers: dispatch, counters, validation, the contract
+# ---------------------------------------------------------------------------
+
+def test_cpu_tensors_take_the_plain_versions():
+    """On CPU tensors every wrapper returns its plain version's result and
+    no launch is counted, through the frame's whole march too."""
+    before = dict(mc.launches)
+    st, topts, tscene = _advanced("dist_mips", True)
+    tst = _torch(st)
+    for got, want in ((mc.advance(tst, tscene, topts, 48),
+                       mc.advance_reference(tst, tscene, topts, 48)),
+                      (mc.samples(tst, tscene, topts)[1:],
+                       mc.samples_reference(tst, tscene, topts)[1:])):
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    st, rnd, topts = _round_inputs("jump", True)
+    got = mc.composite(_torch(st), _torch(rnd), topts)
+    want = mc.composite_reference(_torch(st), _torch(rnd), topts)
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    o, d, surf, t_surf = (torch.as_tensor(x) for x in _rays(False, True))
+    _, topts = _options("jump")
+    _, tscene = _scenes(False)
+    net = params_from_jax(_np_params(init_params(jax.random.PRNGKey(0), JC1)),
+                          _tcfg(JC1))
+    out, epochs = trm.march_frame_impl(net, tscene, o, d, surf, t_surf, topts)
+    assert epochs > 1 and bool(torch.isfinite(out["rgba"]).all())
+    assert mc.launches == before
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take():
+    st, topts, tscene = _advanced("jump", True)
+    tst = _torch(st)
+    bad = [{**tst, "t": tst["t"].double()},                 # dtype
+           {**tst, "alive": tst["alive"].to(torch.uint8)},   # mask dtype
+           {**tst, "o": tst["o"][:, :2]},                    # shape
+           {**tst, "surf_a": tst["surf_a"][:-1]},            # length
+           {k: v.to("meta") for k, v in tst.items()}]        # device
+    for b in bad:
+        with pytest.raises(ValueError):
+            mc.advance(b, tscene, topts, 4)
+        with pytest.raises(ValueError):
+            mc.samples(b, tscene, topts)
+    with pytest.raises(ValueError):
+        mc.init_walk(tst["o"], tst["d"], tst["t"][:, None], tst["t_surf"],
+                     tst["alive"], tscene, topts)
+    st, rnd, topts = _round_inputs("jump", False)
+    trnd = _torch(rnd)
+    for k, v in (("alpha", trnd["alpha"][:, :-1]), ("valid", trnd["alpha"]),
+                 ("rgb", trnd["rgb"][..., :2]), ("exited", trnd["t_end"])):
+        with pytest.raises(ValueError):
+            mc.composite(_torch(st), {**trnd, k: v}, topts)
+
+
+def test_compare_with_plain_counts_under_the_contract():
+    n = 20000
+    g = torch.Generator().manual_seed(0)
+    t = torch.rand(n, generator=g) * 3
+    alive = torch.rand(n, generator=g) < 0.7
+    r = mc.compare_with_plain("walk", (t, alive), (t.clone(), alive.clone()))
+    assert r["ok"] and r["mismatched_rays"] == 0 and r["allowed"] == 4
+    step = torch.zeros(n)
+    step[:3] = C.MIN_CONE_STEPSIZE
+    r = mc.compare_with_plain("walk", (t + step, alive), (t, alive))
+    assert r["ok"] and r["mismatched_rays"] == 3
+    step[:3] = 2 * C.MAX_CONE_STEPSIZE          # beyond one step
+    assert not mc.compare_with_plain("walk", (t + step, alive),
+                                     (t, alive))["ok"]
+    flip = alive.clone()
+    flip[:5] = ~flip[:5]                         # more rays than allowed
+    r = mc.compare_with_plain("walk", (t, flip), (t, alive))
+    assert not r["ok"] and r["flag_mismatches"] == 5
+    st, rnd, topts = _round_inputs("jump", True)
+    out = mc.composite_reference(_torch(st), _torch(rnd), topts)
+    near = {**out, "rgba": out["rgba"] + 5e-7}
+    far = {**out, "depth": out["depth"] + 1e-5}
+    assert mc.compare_with_plain("composite", near, out)["ok"]
+    assert not mc.compare_with_plain("composite", far, out)["ok"]
+    sm = mc.samples_reference(_torch(_advanced("dda", False)[0]),
+                              *_advanced("dda", False)[2:0:-1])
+    assert mc.compare_with_plain("samples", sm, sm)["mismatched_rays"] == 0
+
+
+# ---------------------------------------------------------------------------
+# (d) The kernels on the card
+# ---------------------------------------------------------------------------
+
+def _card(x):
+    return {k: v.to("cuda") for k, v in x.items()}
+
+
+def _card_scene(scene):
+    return {k: v.to("cuda") for k, v in scene.items()}
+
+
+def _needs_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (run: pytest -m cuda)")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("surface", [False, True], ids=["plain", "surface"])
+@pytest.mark.parametrize("route", list(ROUTES))
+def test_walk_and_sample_kernels_match_plain_on_card(route, surface):
+    _needs_card()
+    st, topts, tscene = _init_state(route, surface)
+    cst, cscene = _card(_torch(st)), _card_scene(tscene)
+    before = dict(mc.launches)
+    out_k = mc.advance(cst, cscene, topts, 48)
+    torch.cuda.synchronize()
+    assert mc.launches["advance"] == before["advance"] + 1
+    r = mc.compare_with_plain("walk", out_k,
+                              mc.advance_reference(cst, cscene, topts, 48))
+    assert r["ok"], r
+    adv = {**cst, "t": out_k[0], "alive": out_k[1]}
+    r = mc.compare_with_plain("samples", mc.samples(adv, cscene, topts),
+                              mc.samples_reference(adv, cscene, topts))
+    assert r["ok"], r
+    o, d, t_surf = cst["o"], cst["d"], cst["t_surf"]
+    t0, _, a0 = trm.init_rays(cscene, o, d, t_surf,
+                              dataclasses.replace(topts, init_skip_iters=0))
+    r = mc.compare_with_plain(
+        "walk", mc.init_walk(o, d, t0, t_surf, a0, cscene, topts),
+        mc.init_walk_reference(o, d, t0, t_surf, a0, cscene, topts))
+    assert r["ok"], r
+    assert mc.launches["samples"] == before["samples"] + 1
+    assert mc.launches["init_walk"] == before["init_walk"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("deferred", [False, True], ids=["colour", "deferred"])
+@pytest.mark.parametrize("stage", [3, 1, 2], ids=["all", "blend", "samples"])
+def test_composite_kernel_matches_plain_on_card(stage, deferred):
+    _needs_card()
+    st, rnd, topts = _round_inputs("dist_mips", True)
+    topts = dataclasses.replace(topts, deferred_color=deferred)
+    cst, crnd = _card(_torch(st)), _card(_torch(rnd))
+    r = mc.compare_with_plain("composite",
+                              mc.composite(cst, crnd, topts, stage),
+                              mc.composite_reference(cst, crnd, topts, stage))
+    assert r["ok"], r
