@@ -16,9 +16,9 @@ procedural glasses glTF written here) + frame(), with the mesh pass at
 2x supersampling. Phases:
 
   1. a CUDA device must be present;
-  2. card, power limit, torch/CUDA versions; build the mesh ray-cast
-     and march kernels from nerf_glasses_tpu_torch/csrc, one nvcc per
-     source, in parallel (timed);
+  2. card, power limit, torch/CUDA versions; build the mesh ray-cast,
+     march and network kernels from nerf_glasses_tpu_torch/csrc, one nvcc
+     per source, in parallel (timed);
   3. the tiled kernel against its plain PyTorch version at the main
      path's shapes (2560x1440 rays, tile-padded to 2560x1472, binned
      against the glasses) under mesh_cuda.compare_with_plain's contract
@@ -29,7 +29,10 @@ procedural glasses glTF written here) + frame(), with the mesh pass at
   4. the slice: 1 warm-up + 3 timed frames at 1280x720; the frame is
      finite, the head covers a plausible share, mesh pixels are present
      and the kernel was launched by the frames (its launch count is
-     zeroed just before and read just after);
+     zeroed just before and read just after), and so were the march and
+     the three network kernels, with no network call on the card taking a
+     plain version (network_cuda.plain_on_card stays 0; phases 8, 17, 20,
+     23 and 24 check the same on their renders, sweep, collide and bakes);
   5. one frame with the plain ray-cast in the kernel's place: >= 50 dB
      PSNR against the kernel's frame at the same sample index;
  5b. the march kernels (csrc/march.cu) on the first epoch of an exact
@@ -50,6 +53,20 @@ procedural glasses glTF written here) + frame(), with the mesh pass at
      kernels' frame under 10,000 device operations. Phase 4's frames
      launched the advance, samples and composite kernels (counts zeroed
      just before, read just after);
+ 5c. the network kernels (csrc/network.cu: hash encode, density MLP, SH +
+     rgb head) on the same frame's first-epoch network call, its inputs
+     recorded from the wrappers' own calls: each against its plain
+     version under network_cuda.compare_with_plain's contract (encode to
+     rtol 1e-5 / atol 1e-6 at f32, one bf16 ulp at bf16; MLP and rgb to
+     1e-4 x max(1, |ref|) at f32; at bf16 2e-2 on all but 1e-5 of the
+     rows and 8e-2 on every row; no NaN), the mismatch counts printed, device time by torch.profiler (L2
+     flushed before each launch) and by CUDA events beside the plain
+     version's time, the bound (bytes read and written once over 3.35
+     TB/s against the operations over 989 TFLOP/s for bf16 operands or 67
+     TFLOP/s in f32) and its share; then a frame with the plain network in
+     the kernels' place, swapped as 5b swaps the march: >= 50 dB from the
+     kernels' frame, both frames' device operations, busy and host ms in
+     this one call; the kernels' frame under 3,000 device operations;
   6. a small frame (160x90) rendered on the card and on the CPU (the CPU
      takes the plain ray-cast; the CPU port is held against the JAX
      package by tests/test_torch_*.py): >= 40 dB PSNR;
@@ -58,7 +75,8 @@ procedural glasses glTF written here) + frame(), with the mesh pass at
      same contract, the kernel timed on all rays (and its bound and share
      of it), the plain version on the compared rows;
   8. the flash frame through the renderer: load_nerf(bake=True) at the
-     defaults (512^3 sigma, 256^3 features, fidelity probe "ok"), 1 warm-up
+     defaults (512^3 sigma, 256^3 features, fidelity probe "ok"; the bake
+     and the probe launched the network kernels), 1 warm-up
      + 3 timed 720p frames on last_render_path "flash" (the tiled kernel
      launched), >= 30 dB PSNR against the exact frame of phase 4's
      renderer at the same camera and sample index; one flash frame's
@@ -87,10 +105,20 @@ procedural glasses glTF written here) + frame(), with the mesh pass at
      views on the exact path over white: >= 28 dB mean PSNR; the
      density_at scan puts the hot cells on the head sphere;
  14. resume: Trainer.load_snapshot(trained_head_v6), 16 steps, 32 timed;
-     the compaction gate must be open; the keep-set overflow count;
+     the compaction gate must be open; the keep-set overflow count; one
+     settled step's Memcpy HtoD and cudaStreamSynchronize counts with the
+     hash encode's corner offsets cached on the device and, in the same
+     call, rebuilt from the host on every level as before; the trainer's
+     no-grad density queries in its bf16 encode and compute dtypes (one
+     density-grid refresh, one compaction-gate query) launch the encode
+     and MLP kernels with no plain call on the card, and each recorded
+     call is held against its plain version as in phase 5c;
  15. the train app's default config (16 levels x 2 features, 2^19-row
      tables, 64-wide MLPs): 16 settle + 32 timed steps, the loss finite
-     and falling, peak memory;
+     and falling, peak memory; then on to 128 steps from scratch (the
+     depth cut), saved, and its exact 720p frame through the renderer:
+     phase 5c's network-kernel checks on that frame's first epoch and the
+     plain-network frame >= 50 dB;
  16. one f32 training step from the same parameters, rays and samples on
      the card and on the CPU: loss to rtol 1e-5, every gradient array to
      1e-4 of its max |g| (the card's own march is compared and reported);
@@ -105,7 +133,8 @@ application, through pynmr_torch:
      match the ground truth to 5e-3, the placement equals
      compute_glasses_placement on the ground truth to 1e-3, the tiled
      kernel was launched once per hybrid frame (count zeroed just before,
-     read just after), the last frame is finite and has mesh pixels;
+     read just after), the network kernels launched with no plain version
+     on the card, the last frame is finite and has mesh pixels;
  18. floaties: three blobs planted in the loaded occupancy grid away from
      the head, remove_floaties(): their cells are 0, the cleaned grid
      equals the cleaned grid of the unplanted one, the frame after is
@@ -121,7 +150,8 @@ application, through pynmr_torch:
      at most 5% of the points, which differ by less than one grid cell
      and where the earlier of the two hits is a sample whose alpha is
      within 1e-6 of 0 on both devices (a hit is the first sample with
-     alpha > 0 in float32, one unit of roundoff decides it);
+     alpha > 0 in float32, one unit of roundoff decides it); the encode
+     and density-MLP kernels launched, no plain version on the card;
  21. the viewer over HTTP on a thread: the page, a 1280x720 /frame.jpg,
      every panel endpoint, an unknown endpoint answers 500, /api/stats;
      no tensor a handler thread made requires grad.
@@ -141,7 +171,8 @@ on every ray's path:
 23b. phase 5b on that frame: the march kernels on the clearance
      pyramid's route (and the multi-cascade per-voxel DDA with its cone
      loop) against their plain versions, the plain-march frame >= 60 dB,
-     both frames' device operations and ms;
+     both frames' device operations and ms; and phase 5c: the network
+     kernels on its first epoch, the plain-network frame >= 50 dB;
  24. baked + flash: load_nerf(bake=True, bake_resolution=256) with its
      fidelity probe ("ok"), bake(256) timed alone, the grids' sizes, 1
      warm-up + 3 timed frames on last_render_path "flash", >= 30 dB
@@ -223,9 +254,10 @@ by parallel.sharding.run_on_mesh, whose rank bodies are this file's
      max |g| (phase 16's bar), the card's ranks equal.
 Each phase prints its seconds.
 
-Prints one JSON line with the kernels' numbers (time, bound and share of
-it, launches per frame; no single PyTorch call computes a nearest
-ray-triangle hit or a march loop, so library_ms is null), the card's name and power
+Prints one JSON line with the nine kernels' numbers (time, bound and
+share of it, launches per frame, the plain version's time; no single
+PyTorch call computes a nearest ray-triangle hit, a march loop, a hash
+encode or a bf16-rounded bias-free MLP chain, so library_ms is null), the card's name and power
 limit, and as its last line {"ok": true, "device": {...}}. Exits non-zero
 on any failure, when no CUDA device is present, and when the package is
 not beside it.
@@ -262,7 +294,8 @@ from nerf_glasses_tpu_torch.io.gltf import (GltfMaterial, GltfMesh, GltfNode,
                                             GltfPrimitive, GltfScene)
 from nerf_glasses_tpu_torch.models import floaty
 from nerf_glasses_tpu_torch.models.renderer import NerfMeshRenderer
-from nerf_glasses_tpu_torch.ops import march_cuda, mesh_cuda
+from nerf_glasses_tpu_torch.ops import (hashgrid, march_cuda, mesh_cuda,
+                                        network_cuda)
 from nerf_glasses_tpu_torch.ops import occupancy as occ_ops
 from nerf_glasses_tpu_torch.ops import raymarch
 from nerf_glasses_tpu_torch.ops import triangles as tri_ops
@@ -658,10 +691,11 @@ def psnr(a, b):
     return math.inf if mse == 0.0 else 10.0 * math.log10(1.0 / mse)
 
 
-def bound_ms(ops, nbytes):
-    """-> (least ms for ops fp32 operations and nbytes of traffic, what
-    bounds it)."""
-    t_ops, t_bytes = ops / FP32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
+def bound_ms(ops, nbytes, peak=None):
+    """-> (least ms for ops operations at `peak` (FP32_PEAK when None) and
+    nbytes of traffic, what bounds it)."""
+    t_ops = ops / (FP32_PEAK if peak is None else peak) * 1e3
+    t_bytes = nbytes / HBM_RATE * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -903,7 +937,8 @@ L2_FLUSH_BYTES = 128 << 20     # over the H100's 50 MB L2
 
 
 def kernel_device_ms(name, fn, reps):
-    """The device time of one launch of march kernel `name`, each launch
+    """The device time of one launch of kernel `name` (the device function
+    `{name}_kernel`), each launch
     after a write of L2_FLUSH_BYTES that leaves its inputs out of L2: the
     mean over the launches torch.profiler records in reps calls of fn
     (the wrapper's host work, which CUDA events around back-to-back calls
@@ -995,6 +1030,79 @@ def flash_march_check(renderer, nerf, label, need):
     return out
 
 
+def plain_versions(module, names):
+    """Swap `module`'s wrappers `names` for their plain versions (the
+    `*_reference` of each) -> the wrappers, for restore_wrappers."""
+    saved = {k: getattr(module, k) for k in names}
+    for k in names:
+        setattr(module, k, getattr(module, f"{k}_reference"))
+    return saved
+
+
+def restore_wrappers(module, saved):
+    for k, f in saved.items():
+        setattr(module, k, f)
+
+
+def plain_vs_kernel_frames(renderer, nerf, label, module, names, what,
+                           min_db):
+    """A frame with `module`'s wrappers `names` swapped for their plain
+    versions against the kernels' frame at the same sample index (>=
+    min_db, no kernel of `module` launched), then both frames' device
+    operations, busy and wall ms under torch.profiler and their host
+    clock untraced -> {"psnr", "kernels": numbers, "plain": numbers}."""
+    img_k = fresh_frame(renderer)
+    saved = plain_versions(module, names)
+    try:
+        before = dict(module.launches)
+        img_p = fresh_frame(renderer)
+        if module.launches != before:
+            raise AssertionError(f"the plain-{what} frame launched a {what} "
+                                 f"kernel")
+    finally:
+        restore_wrappers(module, saved)
+    p = psnr(img_k[..., :3], img_p[..., :3])
+    frames = {"psnr": p}
+    for which in ("kernels", "plain"):
+        saved = plain_versions(module, names) if which == "plain" else {}
+        try:
+            renderer.update_model_view_proj()     # both from sample 0
+            renderer.frame()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(2):
+                renderer.frame()
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t0) * 1000.0 / 2
+            wall, busy, ops = device_profile(renderer.frame, host=False)
+        finally:
+            restore_wrappers(module, saved)
+        frames[which] = {"host_ms": host_ms, "profiled_ms": wall, "busy_ms": busy,
+                         "launches": sum(c for _, c in ops.values()),
+                         "epochs": nerf.last_march_epochs}
+        f = frames[which]
+        ops = {n.replace("(anonymous namespace)::", ""): v
+               for n, v in ops.items()}
+        top = sorted(ops.items(), key=lambda kv: -kv[1][0])[:6]
+        most = sorted(ops.items(), key=lambda kv: -kv[1][1])[:8]
+        print(f"{label} frame with the "
+              f"{what + ' kernels' if which == 'kernels' else 'plain ' + what}: "
+              f"{f['host_ms']:.1f} ms (host clock, 2 frames), under "
+              f"torch.profiler {f['launches']} device operations, busy "
+              f"{f['busy_ms']:.2f} ms of {f['profiled_ms']:.1f} ms wall "
+              f"({f['busy_ms'] / f['profiled_ms']:.1%}), {f['epochs']} epochs; "
+              f"top device operations: " + "; ".join(
+                  f"{n.split('(')[0][-60:]} {t:.2f} ms {c}x"
+                  for n, (t, c) in top) + "; the most launched: " + "; ".join(
+                  f"{n.split('(')[0][-50:]} {c}x" for n, (_, c) in most))
+    print(f"{label} frame, plain {what} vs kernels (same camera, sample 0): "
+          f"{p:.2f} dB")
+    if p < min_db:
+        raise AssertionError(f"{label}: the plain-{what} frame is {p:.2f} dB "
+                             f"from the kernels' frame")
+    return frames
+
+
 def march_kernels_phase(renderer, nerf, label, variants=(), reps=20):
     """The march kernels on the first epoch of one of the renderer's exact
     frames: each against its plain version under march_cuda.
@@ -1011,60 +1119,9 @@ def march_kernels_phase(renderer, nerf, label, variants=(), reps=20):
     out = hold_calls(calls, label, reps)
     del calls
 
-    # the same frame with the plain march in the kernels' place
-    def plain_march():
-        saved = {k: getattr(march_cuda, k) for k in MARCH_KERNELS}
-        for k in MARCH_KERNELS:
-            setattr(march_cuda, k, getattr(march_cuda, f"{k}_reference"))
-        return saved
-
-    def restore(saved):
-        for k, f in saved.items():
-            setattr(march_cuda, k, f)
-
-    img_k = fresh_frame(renderer)
-    saved = plain_march()
-    try:
-        before = dict(march_cuda.launches)
-        img_p = fresh_frame(renderer)
-        if march_cuda.launches != before:
-            raise AssertionError("the plain-march frame launched a march kernel")
-    finally:
-        restore(saved)
-    p = psnr(img_k[..., :3], img_p[..., :3])
-    frames = {"psnr": p}
-    for which in ("kernels", "plain"):
-        saved = plain_march() if which == "plain" else {}
-        try:
-            renderer.update_model_view_proj()     # both from sample 0
-            renderer.frame()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(2):
-                renderer.frame()
-            torch.cuda.synchronize()
-            host_ms = (time.perf_counter() - t0) * 1000.0 / 2
-            wall, busy, ops = device_profile(renderer.frame, host=False)
-        finally:
-            restore(saved)
-        frames[which] = {"host_ms": host_ms, "profiled_ms": wall, "busy_ms": busy,
-                         "launches": sum(c for _, c in ops.values()),
-                         "epochs": nerf.last_march_epochs}
-        f = frames[which]
-        top = sorted(ops.items(), key=lambda kv: -kv[1][0])[:6]
-        print(f"{label} frame with the {'march kernels' if which == 'kernels' else 'plain march'}: "
-              f"{f['host_ms']:.1f} ms (host clock, 2 frames), under "
-              f"torch.profiler {f['launches']} device operations, busy "
-              f"{f['busy_ms']:.2f} ms of {f['profiled_ms']:.1f} ms wall "
-              f"({f['busy_ms'] / f['profiled_ms']:.1%}), {f['epochs']} epochs; "
-              f"top device operations: " + "; ".join(
-                  f"{n.split('(')[0][-60:]} {t:.2f} ms {c}x"
-                  for n, (t, c) in top))
-    print(f"{label} frame, plain march vs kernels (same camera, sample 0): "
-          f"{p:.2f} dB")
-    if p < PSNR_PLAIN_MARCH_DB:
-        raise AssertionError(f"{label}: the plain-march frame is {p:.2f} dB "
-                             f"from the kernels' frame")
+    frames = plain_vs_kernel_frames(renderer, nerf, label, march_cuda,
+                                    MARCH_KERNELS, "march",
+                                    PSNR_PLAIN_MARCH_DB)
     return out, frames
 
 
@@ -1091,6 +1148,8 @@ def march_entries(march, launches, frames, mc, others):
             "source": "nerf_glasses_tpu_torch/csrc/march.cu",
             "replaces": replaces,
             "launches": launches[name] if single else mc["launches"][name],
+            "launches_per_frame": (launches[name] if single
+                                   else mc["launches"][name]) / 4,
             "max_abs_err": r["cmp"]["max_abs_err"], "ms": r["ms"],
             "event_ms": r["event_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -1113,6 +1172,278 @@ def march_entries(march, launches, frames, mc, others):
     return entries
 
 
+# ---------------------------------------------------------------------------
+# The network kernels (phases 5c, 14, 15 and 23b; launch checks in phases
+# 4, 8, 14, 17, 20, 23 and 24)
+# ---------------------------------------------------------------------------
+
+NETWORK_KERNELS = {        # wrapper -> (kernel, compare kind, what it replaces)
+    "hash_encode": ("nmr_hash_encode", "encode",
+                    "nerf_glasses_tpu/ops/hashgrid.py:143 (hash_encode -> "
+                    ":105 hash_encode_soa, :59 corner_indices_and_weights)"),
+    "mlp": ("nmr_mlp", "mlp",
+            "nerf_glasses_tpu/ops/mlp.py:17 (mlp_apply: the density MLP of "
+            "nerf_glasses_tpu/ops/network.py:44-71)"),
+    "rgb_head": ("nmr_rgb_head", "rgb",
+                 "nerf_glasses_tpu/ops/network.py:89 (_rgb_head) + "
+                 "nerf_glasses_tpu/ops/sh.py:13 (sh_encode)"),
+}
+# the position of the dtype the contract reads in each wrapper's arguments
+NETWORK_DTYPE_ARG = {"hash_encode": 3, "mlp": 2, "rgb_head": 4}
+PSNR_PLAIN_NETWORK_DB = 50.0
+EXACT_FRAME_MAX_OPS = 3000      # the exact 720p frame with the network kernels
+# dense bf16 tensor-core peak of the H100 SXM (data sheet, 700 W): the
+# bound of an MLP whose operands are bf16
+BF16_PEAK = 989e12
+REF_CONFIG_STEPS = 128          # the reference config's depth cut (phase 15)
+
+
+def zero_network_counts():
+    network_cuda.launches.update(dict.fromkeys(network_cuda.launches, 0))
+    network_cuda.plain_on_card.update(
+        dict.fromkeys(network_cuda.plain_on_card, 0))
+
+
+def network_launch_check(label, need=tuple(NETWORK_KERNELS)):
+    """The network kernels' launches since the counts were last zeroed:
+    each kernel of `need` launched and no call took a plain version on
+    the card -> the launches."""
+    got = dict(network_cuda.launches)
+    plain = dict(network_cuda.plain_on_card)
+    print(f"{label}: network kernel launches {got}, plain versions on the "
+          f"card {plain}")
+    if any(got[k] < 1 for k in need) or any(plain.values()):
+        raise AssertionError(f"{label}: network kernels {need} launched "
+                             f"{got}, plain versions on the card {plain}")
+    return got
+
+
+def first_network_calls(fn):
+    """Run fn with network_cuda's wrappers recording the arguments of their
+    first call (a frame's first epoch) -> {wrapper: args}, the tensors
+    copied."""
+    saved = {k: getattr(network_cuda, k) for k in NETWORK_KERNELS}
+    got = {}
+
+    def recorder(name):
+        def call(*args):
+            if name not in got:
+                got[name] = tuple(a.detach().clone() if torch.is_tensor(a)
+                                  else a for a in args)
+            return saved[name](*args)
+        return call
+
+    for k in NETWORK_KERNELS:
+        setattr(network_cuda, k, recorder(k))
+    try:
+        fn()
+    finally:
+        restore_wrappers(network_cuda, saved)
+    return got
+
+
+def network_bound(name, args):
+    """A network kernel's least time on these inputs (network_cuda's work
+    counts): the encode's operations at the fp32 peak, an MLP's at the
+    bf16 tensor-core peak when its operands are bf16, else at the fp32
+    one; bytes over the memory rate."""
+    if name == "hash_encode":
+        return bound_ms(*network_cuda.encode_work(*args))
+    peak = (BF16_PEAK if args[NETWORK_DTYPE_ARG[name]] == torch.bfloat16
+            else FP32_PEAK)
+    if name == "mlp":
+        return bound_ms(*network_cuda.mlp_work(args[0], args[1]), peak)
+    return bound_ms(*network_cuda.rgb_head_work(args[0], args[1], args[2],
+                                                args[5]), peak)
+
+
+def hold_network_calls(calls, label, reps=20):
+    """Each recorded network-kernel call (first_network_calls) against its
+    plain version on the same inputs under network_cuda.
+    compare_with_plain's contract, timed (device time by torch.profiler
+    with L2 flushed before each launch, CUDA events around back-to-back
+    wrapper calls, the plain version by events) beside its bound ->
+    {wrapper: numbers}. Raises on a disagreement."""
+    out = {}
+    with torch.no_grad():
+        for name, args in calls.items():
+            kernel, kind, _ = NETWORK_KERNELS[name]
+            wrapper = getattr(network_cuda, name)
+            plain = getattr(network_cuda, f"{name}_reference")
+            dtype = args[NETWORK_DTYPE_ARG[name]]
+            got = wrapper(*args)
+            torch.cuda.synchronize()
+            cmp = network_cuda.compare_with_plain(kind, got, plain(*args),
+                                                  dtype)
+            ev_ms = cuda_ms(lambda: wrapper(*args), reps)
+            k_ms = kernel_device_ms(name, lambda: wrapper(*args), reps)
+            p_ms = cuda_ms(lambda: plain(*args), 3)
+            b_ms, b_by = network_bound(name, args)
+            rows = args[1 if name == "hash_encode" else 0].shape[0]
+            print(f"{label} {kernel} ({str(dtype).split('.')[-1]}) on its "
+                  f"first call's {rows} samples: {cmp['mismatched_rows']} "
+                  f"rows off (allowed {cmp['allowed']}), max |diff| "
+                  f"{cmp['max_abs_err']:.3g}, NaN {cmp['nan']}; kernel "
+                  f"{k_ms:.4f} ms device (torch.profiler), {ev_ms:.4f} ms by "
+                  f"events, plain {p_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}), "
+                  f"share of bound {b_ms / k_ms:.1%}")
+            if not cmp["ok"]:
+                raise AssertionError(f"{label}: {kernel} disagrees with its "
+                                     f"plain version: {cmp}")
+            out[name] = {"cmp": cmp, "ms": k_ms, "event_ms": ev_ms,
+                         "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                         "rows": rows, "dtype": str(dtype)}
+    return out
+
+
+def network_kernels_phase(renderer, nerf, label, max_ops=None, reps=20):
+    """The network kernels on the first epoch of one of the renderer's
+    exact frames, each held against its plain version and timed beside its
+    bound (hold_network_calls); then a frame with the plain network in the
+    kernels' place (>= 50 dB at the same sample index) and both frames'
+    device operations, busy and wall ms under torch.profiler and their
+    host clock untraced; with max_ops, the kernels' frame under that many
+    device operations -> ({wrapper: numbers}, frame numbers)."""
+    renderer.update_model_view_proj()
+    calls = first_network_calls(renderer.frame)
+    torch.cuda.synchronize()
+    if set(calls) != set(NETWORK_KERNELS):
+        raise AssertionError(f"{label}: the frame called {sorted(calls)} of "
+                             f"the network kernels")
+    out = hold_network_calls(calls, label, reps)
+    del calls
+    frames = plain_vs_kernel_frames(renderer, nerf, label, network_cuda,
+                                    NETWORK_KERNELS, "network",
+                                    PSNR_PLAIN_NETWORK_DB)
+    if max_ops is not None and frames["kernels"]["launches"] >= max_ops:
+        raise AssertionError(f"{label}: the frame took "
+                             f"{frames['kernels']['launches']} device "
+                             f"operations (required: under {max_ops})")
+    return out, frames
+
+
+def network_entries(net, launches, mc, ref, train):
+    """The closing line's entries of the network kernels: each measured on
+    the exact 720p frame's first epoch (phase 5c) and launched by phase
+    4's frames; the multi-cascade frame's numbers (phases 23, 23b), the
+    reference config's (phase 15) and, for the encode and the MLP, the
+    trainer's bf16 no-grad queries (phase 14) beside them."""
+    entries = []
+    for name, (kernel, _, replaces) in NETWORK_KERNELS.items():
+        r = net[name]
+        entry = {
+            "name": kernel, "route": "cuda",
+            "source": "nerf_glasses_tpu_torch/csrc/network.cu",
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": r["cmp"]["max_abs_err"], "ms": r["ms"],
+            "event_ms": r["event_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None, "share": r["bound_ms"] / r["ms"],
+            "launches_per_frame": launches[name] / 4,
+            "path": "exact 720p frame, 4 frames (phases 4, 5c)",
+            "rows": r["rows"], "dtype": r["dtype"],
+            "mismatched_rows": r["cmp"]["mismatched_rows"],
+            "multicascade_launches": mc["launches"][name],
+            "multicascade_ms": mc["kernels"][name]["ms"],
+            "multicascade_plain_ms": mc["kernels"][name]["plain_ms"],
+            "multicascade_bound_ms": mc["kernels"][name]["bound_ms"],
+            "reference_config_ms": ref["kernels"][name]["ms"],
+            "reference_config_plain_ms": ref["kernels"][name]["plain_ms"],
+            "reference_config_bound_ms": ref["kernels"][name]["bound_ms"]}
+        for which, held in train.items():
+            if name in held:
+                t = held[name]
+                entry[f"trainer_{which}"] = {
+                    "rows": t["rows"], "dtype": t["dtype"], "ms": t["ms"],
+                    "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                    "max_abs_err": t["cmp"]["max_abs_err"],
+                    "mismatched_rows": t["cmp"]["mismatched_rows"]}
+        entries.append(entry)
+    return entries
+
+
+def network_frames(frames, mc, ref):
+    """The closing line's frame-level numbers of the network kernels, once:
+    the exact 720p frame with the kernels and with the plain network
+    (phase 5c), the multi-cascade frame's operations (phase 23b) and the
+    reference config's plain-network PSNR (phase 15)."""
+    def db(x):
+        return x if math.isfinite(x) else "inf"
+    return {
+        "frame_device_ops": frames["kernels"]["launches"],
+        "plain_network_frame_device_ops": frames["plain"]["launches"],
+        "frame_host_ms": frames["kernels"]["host_ms"],
+        "plain_network_frame_host_ms": frames["plain"]["host_ms"],
+        "plain_network_frame_psnr_db": db(frames["psnr"]),
+        "multicascade_frame_device_ops": mc["frames"]["kernels"]["launches"],
+        "reference_config_frame_psnr_db": db(ref["frames"]["psnr"])}
+
+
+def sync_counts(fn):
+    """torch.profiler over one call of fn -> (host-to-device copies on the
+    device, cudaStreamSynchronize calls on the host)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    return (sum(1 for e in events if e.device_type == DeviceType.CUDA
+                and "Memcpy HtoD" in e.name),
+            sum(1 for e in events if e.name == "cudaStreamSynchronize"))
+
+
+def step_sync_counts(tr):
+    """One training step's copies and stream waits with the hash encode's
+    corner offsets cached on the device (this tree) and rebuilt from the
+    host on every level (as before it), in that order -> {which: (HtoD
+    copies, cudaStreamSynchronize)}."""
+    out = {}
+    cached = hashgrid._corner_offsets
+    for which, offsets in (
+            ("cached", cached),
+            ("per level",
+             lambda device: torch.as_tensor(hashgrid._CORNERS, device=device))):
+        if tr.step % tr.opts.grid_update_interval == 0:
+            tr.train(1)
+        hashgrid._corner_offsets = offsets
+        try:
+            out[which] = sync_counts(lambda: tr.train(1))
+        finally:
+            hashgrid._corner_offsets = cached
+    return out
+
+
+def training_queries_phase(tr):
+    """The trainer's no-grad density queries in its own encode and compute
+    dtypes (bf16 by default: each encode product rounded to bf16, bf16
+    input rows to the MLP), one density-grid refresh (train/trainer.py
+    update_density_grid) and one compaction-gate query on a step's own
+    rays and samples (compact_sample_sel): the encode and the MLP
+    launched with no plain call on the card, each recorded call held
+    against its plain version (hold_network_calls) -> {query: {wrapper:
+    numbers}}."""
+    opts = tr.opts
+    draws = ttr.draw_step(tr.gen, tr.state, tr.data, opts)
+    img, px, py, _, samples = ttr._ray_batch(tr.state, tr.data, draws,
+                                             opts.rays_per_batch, opts)
+    queries = {
+        "grid_update": tr.update_density_grid,
+        "compaction_gate": lambda: ttr.compact_sample_sel(
+            tr.state, tr.data, img, px, py, samples, opts)}
+    out = {}
+    for which, fn in queries.items():
+        zero_network_counts()
+        calls = first_network_calls(fn)
+        torch.cuda.synchronize()
+        network_launch_check(f"the trainer's {which} query",
+                             need=("hash_encode", "mlp"))
+        out[which] = hold_network_calls(calls, f"trainer {which}", reps=5)
+    return out
+
+
 def capture_phase(dev, lap):
     """Phase 11: the capture, through the port's tiled mesh pass ->
     (training dataset, holdout cameras, holdout ground truth)."""
@@ -1126,9 +1457,11 @@ def capture_phase(dev, lap):
     return ds, hcams, gts
 
 
-def training_phases(dev, tmp, lap):
+def training_phases(dev, tmp, lap, glasses):
     """Phases 11-16 and the step profile: capture, train, save and render,
-    resume, the reference config, card against CPU -> the capture."""
+    resume, the reference config (and its frame's network kernels), card
+    against CPU -> (the capture, from-scratch steps/s, the reference
+    config's network numbers)."""
     ds, hcams, gts = capture_phase(dev, lap)
 
     # 12: train from scratch to the loss contract
@@ -1208,9 +1541,15 @@ def training_phases(dev, tmp, lap):
           f"{n_kernels} kernel launches, device busy {busy_ms:.2f} ms "
           f"of {wall_ms:.2f} ms wall ({busy_ms / wall_ms:.1%}); top "
           f"device operators:\n{table}")
+    syncs = step_sync_counts(tr_res)
+    print("one settled step's host-to-device copies and stream waits "
+          "(torch.profiler: Memcpy HtoD, cudaStreamSynchronize): " + "; ".join(
+              f"corner offsets {which} {h} and {w}"
+              for which, (h, w) in syncs.items()))
     grid_ms = cuda_ms(tr_res.update_density_grid, 5)
     print(f"density-grid refresh ({tr_res.opts.grid_samples_per_update} "
           f"cells + occupancy rebuild): {grid_ms:.3f} ms (CUDA events)")
+    train_net = training_queries_phase(tr_res)
     del tr_res
     lap(14)
 
@@ -1231,7 +1570,22 @@ def training_phases(dev, tmp, lap):
           f"33-48 {last:.5f}")
     if not (np.isfinite(hist).all() and last < first):
         raise AssertionError("the reference config does not train")
+    # to REF_CONFIG_STEPS from scratch, then its exact 720p frame: the
+    # network kernels at 16 levels x 2 and 2^19 rows (the depth cut)
+    tr_ref.train(REF_CONFIG_STEPS - tr_ref.step)
+    ref_snap = os.path.join(tmp, "reference_config.msgpack")
+    tr_ref.save_snapshot(ref_snap)
+    print(f"reference config trained {tr_ref.step} steps from scratch, loss "
+          f"{tr_ref.loss:.6f}")
     del tr_ref
+    renderer, nerf = make_renderer(dev, W, H, glasses, ref_snap)
+    widths = ("n_levels", "n_features_per_level", "log2_hashmap_size")
+    if any(getattr(nerf.config, k) != getattr(ref_cfg, k) for k in widths):
+        raise AssertionError(f"the snapshot loaded as {nerf.config}")
+    ref_kernels, ref_frames = network_kernels_phase(
+        renderer, nerf, "reference config exact 720p")
+    ref_net = {"kernels": ref_kernels, "frames": ref_frames}
+    del renderer, nerf
     lap(15)
 
     # 16: one f32 step on the card against the CPU, from the same inputs
@@ -1261,7 +1615,7 @@ def training_phases(dev, tmp, lap):
     if not (loss_rel <= 1e-5 and worst <= 1e-4):
         raise AssertionError("card and CPU training steps disagree")
     lap(16)
-    return ds, sps_scratch
+    return ds, sps_scratch, ref_net, train_net
 
 
 # ---------------------------------------------------------------------------
@@ -1274,11 +1628,13 @@ MC_AABB = (0.5 - 0.5 * MC_AABB_SCALE, 0.5 + 0.5 * MC_AABB_SCALE)
 def timed_frames(renderer, nerf, n=3):
     """1 warm-up + n frames -> (warm-up ms, ms a frame by the host clock to
     synchronize, epochs of each frame, tiled-kernel launches of all n + 1,
-    peak device memory). The launch counts (the march kernels' too, read
-    from march_cuda.launches just after) are zeroed here."""
+    peak device memory). The launch counts (the march and network
+    kernels' too, read from march_cuda.launches and network_cuda.launches
+    just after) are zeroed here."""
     torch.cuda.reset_peak_memory_stats()
     mesh_cuda.launches = 0
     march_cuda.launches.update(dict.fromkeys(march_cuda.launches, 0))
+    zero_network_counts()
     renderer.frame()
     torch.cuda.synchronize()
     warm_ms = renderer.last_frame_ms
@@ -1296,7 +1652,9 @@ def multicascade_phases(dev, tmp, lap, glasses, ds):
     """Phases 22-26 -> (the tiled kernel's launches in the 4 + 4 timed exact
     and flash hybrid frames, the march-kernel numbers: the exact frames'
     launches per kernel, the plain-march comparison, each kernel's on the
-    exact frame (23b) and on the flash frame (24))."""
+    exact frame (23b) and on the flash frame (24); the network kernels'
+    numbers: the exact frames' launches, the plain-network comparison,
+    each kernel's on the exact frame's first epoch (23b))."""
     # 22: the scene, trained with the port on the capture at aabb_scale 4
     ds4 = dataclasses.replace(
         ds, aabb_scale=MC_AABB_SCALE,
@@ -1334,6 +1692,8 @@ def multicascade_phases(dev, tmp, lap, glasses, ds):
         raise AssertionError("the snapshot did not load as a multi-cascade scene")
     warm_ms, exact_ms, epochs, launches, peak = timed_frames(renderer, nerf)
     mc_march_launches = dict(march_cuda.launches)
+    mc_net_launches = network_launch_check(
+        f"multi-cascade exact {W}x{H} frames (phase 23)")
     fb = renderer._frame_buffer
     img = renderer.display_image()
     surf_px = int((nerf._surface_t > 0).sum())
@@ -1372,15 +1732,23 @@ def multicascade_phases(dev, tmp, lap, glasses, ds):
                    {"dist_advance": False}),))
     mc_march_frames = {"launches": mc_march_launches, "frames": mc_frames,
                        "kernels": mc_march}
+    # and the network kernels on the same first epoch
+    mc_net, mc_net_frames = network_kernels_phase(
+        renderer, nerf, "multi-cascade exact 720p")
+    mc_network = {"launches": mc_net_launches, "frames": mc_net_frames,
+                  "kernels": mc_net}
     lap("23b")
 
     # 24: baked + flash through load_nerf(bake=True)
+    zero_network_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     frenderer, fnerf = make_renderer(dev, W, H, glasses, snap, MC_AABB,
                                      bake=True, bake_resolution=MC_BAKE_RES)
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
+    network_launch_check("multi-cascade load_nerf(bake=True): the bake and "
+                         "the fidelity probe's frames (phase 24)")
     t0 = time.perf_counter()
     fnerf.bake(MC_BAKE_RES)                  # the same bake, timed alone
     torch.cuda.synchronize()
@@ -1472,7 +1840,7 @@ def multicascade_phases(dev, tmp, lap, glasses, ds):
           f"{sum(c for _, c in ops.values())} device operations, device "
           f"{busy:.3f} ms of {wall:.3f} ms wall")
     lap(26)
-    return launches + flaunches, mc_march_frames
+    return launches + flaunches, mc_march_frames, mc_network
 
 
 # ---------------------------------------------------------------------------
@@ -1990,6 +2358,7 @@ def application_phases(dev, tmp, lap, glasses):
     render_app.SWEEP_STEP = APP_SWEEP_STEP
     reference = np.random.default_rng(0).standard_normal((478, 3))
     mesh_cuda.launches = 0
+    zero_network_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     app = render_app.run(SNAPSHOT, glasses, GLASSES_LEFT, GLASSES_RIGHT,
@@ -1999,6 +2368,7 @@ def application_phases(dev, tmp, lap, glasses):
     torch.cuda.synchronize()
     app_s = time.perf_counter() - t0
     app_launches = mesh_cuda.launches
+    network_launch_check("the application's sweep and orbit frames (phase 17)")
     run = app.app_report
     hybrid_frames = app.stats()["frame_count"] - run["sweep_frames"]
     lm_err = max(float(np.abs(a - b).max())
@@ -2089,6 +2459,7 @@ def application_phases(dev, tmp, lap, glasses):
     # every down-facing vertex has head below it (a vertex that meets
     # nothing reports distance 0, and collide moves by the least distance),
     # in the render aabb the app sets.
+    zero_network_counts()
     crenderer = pynmr_torch.NerfMeshRenderer(W, H, device=dev)
     cnerf = crenderer.load_nerf(SNAPSHOT)
     cnerf.render_aabb.min = np.array([-0.2, 0.15, -0.2], np.float32)
@@ -2179,6 +2550,8 @@ def application_phases(dev, tmp, lap, glasses):
         raise AssertionError("at rest on fewer than three contact vertices")
     if lowest_margin < -2.0:
         raise AssertionError("a vertex sank into the head")
+    network_launch_check("collide, collide_distances and alpha_at on the card "
+                         "(phase 20)", need=("hash_encode", "mlp"))
     del crenderer, cnerf, cpu_nerf
     lap(20)
 
@@ -2551,15 +2924,16 @@ def main(tmp, dirs, multicascade_only=False):
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:   # one nvcc each
-        for build in [pool.submit(m.load_library)
-                      for m in (mesh_cuda, march_cuda)]:
+    kernel_modules = (mesh_cuda, march_cuda, network_cuda)
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:   # one nvcc each
+        for build in [pool.submit(m.load_library) for m in kernel_modules]:
             build.result()
     print(f"kernel builds + loads, in parallel: {time.perf_counter() - t0:.2f} s "
           f"(nvcc mesh_raycast.cu {mesh_cuda.build_seconds:.2f} s, march.cu "
-          f"{march_cuda.build_seconds:.2f} s)")
-    print(mesh_cuda.build_log.strip())
-    print(march_cuda.build_log.strip())
+          f"{march_cuda.build_seconds:.2f} s, network.cu "
+          f"{network_cuda.build_seconds:.2f} s)")
+    for m in kernel_modules:
+        print(m.build_log.strip())
     others = other_checkouts(dirs)
 
     glasses = os.path.join(tmp, "glasses.gltf")
@@ -2612,6 +2986,7 @@ def main(tmp, dirs, multicascade_only=False):
     # 4: the slice
     warm_ms, frame_ms, epochs, launches, peak = timed_frames(renderer, nerf)
     march_launches = dict(march_cuda.launches)
+    net_launches = network_launch_check(f"exact {W}x{H} frames (phase 4)")
     fb = renderer._frame_buffer
     img = renderer.display_image()
     surf_px = int((nerf._surface_t > 0).sum())
@@ -2634,6 +3009,9 @@ def main(tmp, dirs, multicascade_only=False):
         if march_launches[k] < 4:
             raise AssertionError(f"main path launched the march kernel {k} "
                                  f"{march_launches[k]} times")
+    if min(net_launches.values()) < 4:
+        raise AssertionError(f"main path launched the network kernels "
+                             f"{net_launches} times")
     lap(4)
 
     # 5: the plain ray-cast in the kernel's place, same sample index
@@ -2670,6 +3048,12 @@ def main(tmp, dirs, multicascade_only=False):
             f"the exact 720p frame took {march_frames['kernels']['launches']} "
             f"device operations (aim: under {EXACT_FRAME_MAX_LAUNCHES})")
     lap("5b")
+
+    # 5c: the network kernels on the exact frame's first epoch, and a frame
+    # with the plain network in their place
+    net, net_frames = network_kernels_phase(renderer, nerf, "exact 720p",
+                                            max_ops=EXACT_FRAME_MAX_OPS)
+    lap("5c")
 
     # 6: a small frame on the card against the CPU
     small = []
@@ -2713,11 +3097,14 @@ def main(tmp, dirs, multicascade_only=False):
     lap(7)
 
     # 8: the flash frame through the renderer
+    zero_network_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     frenderer, fnerf = make_renderer(dev, W, H, glasses, bake=True)
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
+    network_launch_check("load_nerf(bake=True): the bake and the fidelity "
+                         "probe's frames (phase 8)")
     t0 = time.perf_counter()
     fnerf.bake(512, feat_resolution=256)     # the same bake, timed alone
     torch.cuda.synchronize()
@@ -2745,6 +3132,7 @@ def main(tmp, dirs, multicascade_only=False):
     if flash_launches < 4:
         raise AssertionError(f"flash frames launched the tiled kernel "
                              f"{flash_launches} times")
+    network_launch_check(f"flash {W}x{H} frames (phase 8)", need=("rgb_head",))
     renderer.update_model_view_proj()
     renderer.frame()
     img_exact = renderer.display_image()
@@ -2838,10 +3226,12 @@ def main(tmp, dirs, multicascade_only=False):
         raise AssertionError("card and CPU flash frames disagree")
     lap(10)
 
-    ds, sps_plain = training_phases(dev, tmp, lap)
+    ds, sps_plain, ref_net, train_net = training_phases(dev, tmp, lap,
+                                                        glasses)
     del renderer, nerf
     app_launches = application_phases(dev, tmp, lap, glasses)
-    mc_launches, mc_march = multicascade_phases(dev, tmp, lap, glasses, ds)
+    mc_launches, mc_march, mc_net = multicascade_phases(dev, tmp, lap,
+                                                        glasses, ds)
     cam_launches, cam_frames = camera_phases(dev, tmp, lap, glasses, ds,
                                              flash_ms, sps_plain)
     mp_launches, mp_calls, mp_ms = mesh_pass_phase(dev, lap, glasses)
@@ -2877,7 +3267,9 @@ def main(tmp, dirs, multicascade_only=False):
             march, march_launches, march_frames, mc_march, {
                 "flash 720p (phase 8b)": flash_march["flash"],
                 "baked 720p, flash off (phase 8b)": flash_march["baked"],
-                "multi-cascade flash 720p (phase 24)": mc_march["flash"]})}))
+                "multi-cascade flash 720p (phase 24)": mc_march["flash"]})
+        + network_entries(net, net_launches, mc_net, ref_net, train_net),
+        "network_frames": network_frames(net_frames, mc_net, ref_net)}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -32,6 +32,18 @@ def mul_u32(x: torch.Tensor, c: int) -> torch.Tensor:
 # The 8 corner offsets of a cell; bit i of the corner index selects dim i.
 _CORNERS = np.array([[(i >> d) & 1 for d in range(3)] for i in range(8)],
                     dtype=np.int64)
+_corners_on = {}
+
+
+def _corner_offsets(device) -> torch.Tensor:
+    """_CORNERS as an (8, 3) int64 tensor on `device`, copied there once
+    per device: a copy from pageable host memory on every level of every
+    call would wait for the stream each time."""
+    dev = torch.device(device)
+    t = _corners_on.get(dev)
+    if t is None:
+        t = _corners_on[dev] = torch.as_tensor(_CORNERS, device=dev)
+    return t
 
 
 def level_constants(config: NGPConfig):
@@ -59,7 +71,7 @@ def corner_indices_and_weights(pos: torch.Tensor, scale: float,
     p = pos * float(np.float32(scale)) + 0.5
     grid_f = torch.floor(p)
     frac = p - grid_f
-    corners_off = torch.as_tensor(_CORNERS, device=pos.device)
+    corners_off = _corner_offsets(pos.device)
     corners = grid_f.to(torch.int64)[:, None, :] + corners_off[None]
     w = torch.where(corners_off[None].bool(), frac[:, None, :],
                     1.0 - frac[:, None, :])

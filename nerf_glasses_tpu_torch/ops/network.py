@@ -8,6 +8,17 @@ src/ngp/nerf_network.cuh:75-135):
                   -> rgb MLP -> 16
     outputs:      rgb = rgb_out[:, :3], sigma = density_out[:, 0]
                   (both pre-activation)
+
+Where the network runs (network_cuda.takes_kernel): a CPU tensor takes
+the plain versions (hashgrid.hash_encode, mlp.mlp_apply,
+network_cuda.rgb_head_reference); a CUDA tensor that needs no gradient
+(`not torch.is_grad_enabled()`, or no input and no parameter requires
+grad: every render, sweep, collide, bake and density query, and the
+trainer's no-grad queries) takes the three CUDA kernels of
+csrc/network.cu, one launch each; a CUDA call that needs gradients (the
+trainer's forward) takes the plain versions, which autograd
+differentiates, and counts in network_cuda.plain_on_card. There is no
+fallback: a build or launch failure raises.
 """
 
 from __future__ import annotations
@@ -19,10 +30,10 @@ import torch
 from torch import nn
 
 from nerf_glasses_tpu_torch.config import NGPConfig
+from nerf_glasses_tpu_torch.ops import network_cuda
 from nerf_glasses_tpu_torch.ops.hashgrid import (hash_encode, hash_table_init,
                                                  table_from_tcnn, table_to_tcnn)
 from nerf_glasses_tpu_torch.ops.mlp import mlp_apply, mlp_init
-from nerf_glasses_tpu_torch.ops.sh import sh_encode
 
 
 class NerfNetwork(nn.Module):
@@ -59,8 +70,14 @@ class NerfNetwork(nn.Module):
                     encode_dtype=torch.float32) -> torch.Tensor:
         """pos01 (N, 3) in [0, 1] -> density MLP output (N, 16); sigma is
         channel 0 (NerfNetwork::density, nerf_network.cuh:266-282)."""
-        enc = hash_encode(self.grid, pos01, self.config,
-                          compute_dtype=encode_dtype)
+        if network_cuda.takes_kernel("hash_encode", self.grid, pos01):
+            enc = network_cuda.hash_encode(self.grid, pos01.contiguous(),
+                                           self.config, encode_dtype)
+        else:
+            enc = hash_encode(self.grid, pos01, self.config,
+                              compute_dtype=encode_dtype)
+        if network_cuda.takes_kernel("mlp", enc, *self.density_mlp):
+            return network_cuda.mlp(enc, self.density_mlp, compute_dtype)
         return mlp_apply(enc, self.density_mlp, compute_dtype=compute_dtype)
 
     def rgb_from_features(self, feat: torch.Tensor, dir01: torch.Tensor,
@@ -72,21 +89,15 @@ class NerfNetwork(nn.Module):
         baked grid (ops/bake.py). `extra` ((N, E) or (E,)) are the latent
         codes of a config with n_extra_learnable_dims = E (upstream's
         extra-dims path, testbed.cu:1614-1631); zeros when omitted."""
-        cfg = self.config
-        n = feat.shape[0]
-        sh = sh_encode(dir01, cfg.sh_degree, cfg.sh_out_padded)
-        parts = [feat.float(), sh]
-        if extra is not None:
-            # omitted codes are zeros: the padding below supplies them
-            parts.append(torch.atleast_2d(extra.float()).expand(
-                n, cfg.n_extra_learnable_dims))
-        width = sum(p.shape[-1] for p in parts)
-        if width < cfg.rgb_in_width:
-            parts.append(torch.zeros((n, cfg.rgb_in_width - width),
-                                     device=feat.device))
-        rgb_out = mlp_apply(torch.cat(parts, dim=-1), self.rgb_mlp,
-                            compute_dtype=compute_dtype)
-        return rgb_out[..., :3]
+        if network_cuda.takes_kernel("rgb_head", feat, dir01, extra,
+                                     *self.rgb_mlp):
+            return network_cuda.rgb_head(
+                feat.float().contiguous(), dir01.float().contiguous(),
+                self.rgb_mlp, self.config, compute_dtype,
+                None if extra is None else extra.float().contiguous())
+        return network_cuda.rgb_head_reference(feat, dir01, self.rgb_mlp,
+                                               self.config, compute_dtype,
+                                               extra)
 
     def forward(self, pos01: torch.Tensor, dir01: torch.Tensor,
                 compute_dtype=torch.bfloat16, encode_dtype=torch.float32,

@@ -1,0 +1,441 @@
+"""The NeRF network's inference forward: the CUDA kernels, their wrappers
+and their plain PyTorch versions.
+
+- `hash_encode` (kernel nmr_hash_encode) is the multiresolution hash-grid
+  encode, all levels in one launch (the JAX package's hash_encode,
+  nerf_glasses_tpu/ops/hashgrid.py:143; plain version hashgrid.
+  hash_encode).
+- `mlp` (nmr_mlp) is the bias-free FullyFusedMLP forward of the density
+  MLP (JAX ops/mlp.py:17 mlp_apply; plain mlp.mlp_apply).
+- `rgb_head` (nmr_rgb_head) is the colour half of the network: the row
+  [density output, SH(dir), latent codes, zeros] through the rgb MLP
+  (JAX ops/network.py:89 _rgb_head + ops/sh.py:13; plain
+  `rgb_head_reference`, on sh.sh_encode and mlp.mlp_apply).
+None was a Pallas kernel: the JAX package leaves the network to XLA.
+
+The routing rule (`takes_kernel`, applied by ops/network.NerfNetwork to
+all three): a CPU tensor takes the plain version; a CUDA tensor that
+needs no gradient (`not torch.is_grad_enabled()`, or no input and no
+parameter requires grad) takes the kernel; a CUDA call that needs
+gradients (the trainer's forward) takes the plain version and counts in
+`plain_on_card`. The wrappers themselves launch on a CUDA tensor or
+raise, and run the plain version on a CPU tensor; there is no fallback
+from one to the other. Each counts its launches in `launches[name]`.
+The kernels build with nvcc for sm_90a at first use (ops/cuda_build.py),
+never at import.
+
+The contract (`compare_with_plain`): the encode to rtol 1e-5 / atol 1e-6
+at f32 and within one bf16 ulp at bf16; the MLP outputs and rgb to 1e-4
+x max(1, |ref|) at f32 compute, and at bf16 compute within 2e-2 absolute
+on all but 1e-5 of the rows and within 8e-2 on every row; no NaN. The
+kernels keep the plain versions' rounding points and sum the 8 corners
+and the MLP products in another order than aten: that is the one source
+of difference.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+import os
+
+import torch
+
+from nerf_glasses_tpu_torch.config import NGPConfig
+from nerf_glasses_tpu_torch.ops import cuda_build, hashgrid
+from nerf_glasses_tpu_torch.ops.hashgrid import (corner_indices_and_weights,
+                                                 level_constants)
+from nerf_glasses_tpu_torch.ops.mlp import mlp_apply
+from nerf_glasses_tpu_torch.ops.sh import sh_encode
+
+_SOURCE = os.path.join(cuda_build.PKG, "csrc", "network.cu")
+# -fmad=false: the encode rounds every product and sum on its own, as
+# aten's elementwise ops do (the MLPs' fmaf are explicit).
+NVCC_FLAGS = cuda_build.ARCH_FLAGS + ("-fmad=false",)
+
+MAX_LEVELS = 32
+MAX_LAYERS = 8
+MAX_HIDDEN = 128
+FEATURES = (1, 2, 4, 8)
+DTYPES = (torch.float32, torch.bfloat16)
+
+# The kernel-vs-plain contract (compare_with_plain).
+ENCODE_RTOL, ENCODE_ATOL = 1e-5, 1e-6
+MLP_F32_REL = 1e-4
+MLP_BF16_ATOL = 2e-2
+# At bf16 compute an f32 sum a few ulps from aten's can round a hidden
+# activation to the neighbouring bf16 value. Up to 1e-5 of the rows
+# (none under 100,000 rows; fewer than a 128-row tile at the frames'
+# 347,652) may differ by more than MLP_BF16_ATOL, and none by more than
+# MLP_BF16_CAP. Every held call so far differed by 0.0 (PERF.md section 6).
+MLP_BF16_ROW_SHARE = 1e-5
+MLP_BF16_CAP = 4 * MLP_BF16_ATOL
+
+KERNELS = ("hash_encode", "mlp", "rgb_head")
+# Kernel launches per wrapper (CUDA tensors only), and calls on a CUDA
+# tensor that took the plain version because they need gradients.
+launches = dict.fromkeys(KERNELS, 0)
+plain_on_card = dict.fromkeys(KERNELS, 0)
+
+_lib = None
+build_log = ""
+build_seconds = 0.0
+
+
+class EncodeParams(ctypes.Structure):
+    """csrc/network.cu's EncodeParams."""
+    _fields_ = [("n_levels", ctypes.c_int), ("n_features", ctypes.c_int),
+                ("rows", ctypes.c_longlong), ("encode_bf16", ctypes.c_int),
+                ("scale", ctypes.c_float * MAX_LEVELS),
+                ("res", ctypes.c_uint * MAX_LEVELS),
+                ("size", ctypes.c_uint * MAX_LEVELS),
+                ("dense", ctypes.c_int * MAX_LEVELS)]
+
+
+class MlpParams(ctypes.Structure):
+    """csrc/network.cu's MlpParams (w_off, w_total and act_rows are set
+    by the launcher)."""
+    _fields_ = [("n_layers", ctypes.c_int),
+                ("width", ctypes.c_int * (MAX_LAYERS + 1)),
+                ("w_off", ctypes.c_int * MAX_LAYERS),
+                ("w_total", ctypes.c_int), ("act_rows", ctypes.c_int),
+                ("round_bf16", ctypes.c_int), ("x_bf16", ctypes.c_int),
+                ("n_store", ctypes.c_int), ("n_feat", ctypes.c_int),
+                ("sh_degree", ctypes.c_int), ("n_extra", ctypes.c_int),
+                ("extra_rows", ctypes.c_int),
+                ("w", ctypes.c_void_p * MAX_LAYERS)]
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (once per source hash) and load the kernel library."""
+    global _lib, build_log, build_seconds
+    if _lib is not None:
+        return _lib
+    lib, build_log, build_seconds = cuda_build.build_library(_SOURCE,
+                                                             NVCC_FLAGS)
+    p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    _lib = cuda_build.declare(lib, [
+        ("nmr_hash_encode", [p, ll, p, p, p, p], i),
+        ("nmr_mlp", [p, ll, p, p, p], i),
+        ("nmr_rgb_head", [p, ll, p, p, p, p, p], i)])
+    return _lib
+
+
+# ---------------------------------------------------------------------------
+# The routing rule
+# ---------------------------------------------------------------------------
+
+def takes_kernel(name: str, *tensors) -> bool:
+    """True where kernel `name` serves a call on `tensors` (None entries
+    skipped; the first one's device decides): a CUDA tensor with no
+    gradient needed. A CUDA call that needs gradients is counted in
+    plain_on_card[name] and takes the plain version, as CPU tensors do."""
+    if tensors[0].device.type != "cuda":
+        return False
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        plain_on_card[name] += 1
+        return False
+    return True
+
+
+# ---------------------------------------------------------------------------
+# The plain versions
+# ---------------------------------------------------------------------------
+
+def hash_encode_reference(table, pos, config: NGPConfig,
+                          encode_dtype=torch.float32):
+    """(N, L*F) features in encode_dtype (ops/hashgrid.hash_encode)."""
+    return hashgrid.hash_encode(table, pos, config, compute_dtype=encode_dtype)
+
+
+def mlp_reference(x, weights, compute_dtype=torch.bfloat16):
+    """(N, n_out) f32 (ops/mlp.mlp_apply)."""
+    return mlp_apply(x, weights, compute_dtype=compute_dtype)
+
+
+def rgb_head_reference(feat, dir01, weights, config: NGPConfig,
+                       compute_dtype=torch.bfloat16, extra=None):
+    """[feat (N, density_out), SH(dir01), extra ((E,) or (N, E)), zeros
+    to rgb_in_width] through the rgb MLP -> rgb_raw (N, 3) f32."""
+    n = feat.shape[0]
+    sh = sh_encode(dir01, config.sh_degree, config.sh_out_padded)
+    parts = [feat.float(), sh]
+    if extra is not None:
+        # omitted codes are zeros: the padding below supplies them
+        parts.append(torch.atleast_2d(extra.float()).expand(
+            n, config.n_extra_learnable_dims))
+    width = sum(p.shape[-1] for p in parts)
+    if width < config.rgb_in_width:
+        parts.append(torch.zeros((n, config.rgb_in_width - width),
+                                 device=feat.device))
+    return mlp_apply(torch.cat(parts, dim=-1), weights,
+                     compute_dtype=compute_dtype)[..., :3]
+
+
+# ---------------------------------------------------------------------------
+# The wrappers
+# ---------------------------------------------------------------------------
+
+def _check(name, x, dtypes, shape, device):
+    """x as the kernel takes it or ValueError: on `device`, one of
+    `dtypes`, `shape` (None entries free), contiguous."""
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if x.dtype not in dtypes or x.dim() != len(shape) or any(
+            s is not None and s != d for s, d in zip(shape, x.shape)):
+        raise ValueError(f"{name} must be a {' or '.join(map(str, dtypes))} "
+                         f"tensor of shape {shape}, got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    return x
+
+
+def _device(name, x):
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: tensors must lie on the CPU or a CUDA "
+                         f"device, got {x.device}")
+    return x.device
+
+
+def _dtype(name, dtype):
+    if dtype not in DTYPES:
+        raise ValueError(f"{name}: dtype {dtype} is not float32 or bfloat16")
+    return dtype
+
+
+def _launch(name, fn, dev, params, *args):
+    """One kernel launch on dev's current stream, under dev: the library
+    launches on the CUDA runtime's current device."""
+    with torch.cuda.device(dev):
+        err = fn(ctypes.byref(params), *args,
+                 torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"network kernel {name} launch failed: "
+                           f"cudaError_t {err}")
+    launches[name] += 1
+
+
+# level_constants once per config: the wrappers run on every frame's
+# epochs, whose host time bounds the frame.
+_levels = functools.lru_cache(maxsize=64)(level_constants)
+
+
+@functools.lru_cache(maxsize=64)
+def _encode_params(config: NGPConfig, rows: int, bf16: bool) -> EncodeParams:
+    scales, res, sizes, dense = _levels(config)
+    L = config.n_levels
+    p = EncodeParams(n_levels=L, n_features=config.n_features_per_level,
+                     rows=rows, encode_bf16=int(bf16))
+    p.scale[:L] = [float(s) for s in scales]
+    p.res[:L] = [int(r) for r in res]
+    p.size[:L] = [int(s) for s in sizes]
+    p.dense[:L] = [int(d) for d in dense]
+    return p
+
+
+def hash_encode(table, pos, config: NGPConfig, encode_dtype=torch.float32):
+    """table (L, S, F) f32, pos (N, 3) f32 in [0, 1] -> (N, L*F) in
+    encode_dtype, level-major. On a CUDA tensor one launch of
+    nmr_hash_encode (none for N = 0): L <= 32, F in (1, 2, 4, 8), S at
+    least every level's hashmap size, the table 16-byte aligned."""
+    dev = _device("hash_encode", pos)
+    L, F = config.n_levels, config.n_features_per_level
+    _dtype("hash_encode", encode_dtype)
+    _check("pos", pos, (torch.float32,), (None, 3), dev)
+    _check("table", table, (torch.float32,), (L, None, F), dev)
+    sizes = _levels(config)[2]
+    if L > MAX_LEVELS or F not in FEATURES or table.shape[1] < int(sizes.max()):
+        raise ValueError(f"hash_encode: {L} levels x {F} features over "
+                         f"{table.shape[1]} rows (needs L <= {MAX_LEVELS}, F "
+                         f"in {FEATURES}, rows >= {int(sizes.max())})")
+    if dev.type == "cpu":
+        return hash_encode_reference(table, pos, config, encode_dtype)
+    if table.data_ptr() % 16:
+        raise ValueError("hash_encode: the table must be 16-byte aligned")
+    n = pos.shape[0]
+    out = torch.empty((n, L * F), dtype=encode_dtype, device=dev)
+    if n:
+        params = _encode_params(config, table.shape[1],
+                                encode_dtype == torch.bfloat16)
+        _launch("hash_encode", load_library().nmr_hash_encode, dev, params,
+                n, table.data_ptr(), pos.data_ptr(), out.data_ptr())
+    return out
+
+
+def _mlp_params(name, weights, n_in, dev, compute_dtype, **kw) -> MlpParams:
+    """The layer widths and weight pointers of `weights` ((n_out, n_in)
+    f32 contiguous each on dev, chained from n_in, hidden widths <=
+    MAX_HIDDEN) or ValueError."""
+    if not 1 <= len(weights) <= MAX_LAYERS:
+        raise ValueError(f"{name}: {len(weights)} layers (1-{MAX_LAYERS})")
+    widths = [n_in]
+    for k, w in enumerate(weights):
+        _check(f"{name} weight {k}", w, (torch.float32,), (None, widths[-1]),
+               dev)
+        widths.append(w.shape[0])
+    if max(widths[1:]) > MAX_HIDDEN:
+        raise ValueError(f"{name}: widths {widths} (at most {MAX_HIDDEN} "
+                         f"past the input)")
+    p = MlpParams(n_layers=len(weights),
+                  round_bf16=int(compute_dtype == torch.bfloat16), **kw)
+    p.width[:len(widths)] = widths
+    p.w[:len(weights)] = [w.data_ptr() for w in weights]
+    return p
+
+
+def mlp(x, weights, compute_dtype=torch.bfloat16):
+    """x (N, n_in) f32 or bf16 -> (N, n_out) f32, as mlp_apply: weights
+    (n_out, n_in) f32, ReLU between layers, hidden widths <= 128. On a
+    CUDA tensor one launch of nmr_mlp (none for N = 0)."""
+    dev = _device("mlp", x)
+    _dtype("mlp", compute_dtype)
+    _check("x", x, DTYPES, (None, None), dev)
+    params = _mlp_params("mlp", weights, x.shape[1], dev, compute_dtype,
+                         x_bf16=int(x.dtype == torch.bfloat16),
+                         n_store=weights[-1].shape[0])
+    if dev.type == "cpu":
+        return mlp_reference(x, weights, compute_dtype)
+    n = x.shape[0]
+    out = torch.empty((n, params.n_store), dtype=torch.float32, device=dev)
+    if n:
+        _launch("mlp", load_library().nmr_mlp, dev, params, n, x.data_ptr(),
+                out.data_ptr())
+    return out
+
+
+def rgb_head(feat, dir01, weights, config: NGPConfig,
+             compute_dtype=torch.bfloat16, extra=None):
+    """feat (N, density_out) f32, dir01 (N, 3) f32 warped to [0, 1],
+    extra None or the codes (E,), (1, E) or (N, E) f32 with E =
+    n_extra_learnable_dims -> rgb_raw (N, 3) f32, as rgb_head_reference.
+    On a CUDA tensor one launch of nmr_rgb_head (none for N = 0)."""
+    dev = _device("rgb_head", feat)
+    _dtype("rgb_head", compute_dtype)
+    n = feat.shape[0]
+    _check("feat", feat, (torch.float32,), (None, None), dev)
+    _check("dir01", dir01, (torch.float32,), (n, 3), dev)
+    E = config.n_extra_learnable_dims
+    rows = 0
+    if extra is not None:
+        if extra.dim() == 1:
+            _check("extra", extra, (torch.float32,), (E,), dev)
+        else:
+            _check("extra", extra, (torch.float32,), (None, E), dev)
+            if extra.shape[0] not in (1, n):
+                raise ValueError(f"extra has {extra.shape[0]} rows for {n} "
+                                 f"samples")
+            rows = int(extra.shape[0] == n and n > 1)
+    if not 1 <= config.sh_degree <= 4:
+        raise ValueError(f"rgb_head: SH degree {config.sh_degree} (1-4)")
+    if feat.shape[1] + config.sh_out_padded + E > config.rgb_in_width:
+        raise ValueError(f"rgb_head: {feat.shape[1]} features + SH + {E} "
+                         f"codes exceed rgb_in_width {config.rgb_in_width}")
+    params = _mlp_params("rgb_head", weights, config.rgb_in_width, dev,
+                         compute_dtype, n_store=3, n_feat=feat.shape[1],
+                         sh_degree=config.sh_degree,
+                         n_extra=0 if extra is None else E, extra_rows=rows)
+    if dev.type == "cpu":
+        return rgb_head_reference(feat, dir01, weights, config,
+                                  compute_dtype, extra)
+    out = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    if n:
+        _launch("rgb_head", load_library().nmr_rgb_head, dev, params, n,
+                feat.data_ptr(), dir01.data_ptr(),
+                None if extra is None else extra.data_ptr(), out.data_ptr())
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The contract
+# ---------------------------------------------------------------------------
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 unit in the last place at |x| (f32): 2^(e - 7) for |x| in
+    [2^e, 2^(e+1)); the subnormal spacing 2^-133 at 0."""
+    _, e = torch.frexp(x.float().abs())
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32),
+                       torch.clamp(e - 8, min=-133))
+
+
+def compare_with_plain(kind: str, out_k, out_p, dtype) -> dict:
+    """A kernel's output against its plain version's on the same inputs
+    -> counts, the worst difference and `ok` under the contract.
+
+    kind "encode" (dtype the encode dtype): every value to rtol 1e-5 /
+    atol 1e-6 at f32, within one bf16 ulp of the larger magnitude at
+    bf16. kind "mlp" or "rgb" (dtype the compute dtype): every value to
+    1e-4 x max(1, |ref|) at f32; at bf16, at most 1e-5 of the rows
+    (rounded down) hold a value more than 2e-2 from the plain one, and no
+    value is more than 8e-2 from it. Any NaN fails."""
+    if kind not in ("encode", "mlp", "rgb"):
+        raise ValueError(f"compare_with_plain: unknown kind {kind!r}")
+    k, p = out_k.float(), out_p.float()
+    if k.shape != p.shape:
+        raise ValueError(f"shapes differ: {tuple(k.shape)} vs {tuple(p.shape)}")
+    rows = k.shape[0]
+    nan = int(torch.isnan(k).sum()) + int(torch.isnan(p).sum())
+    diff = (k - p).abs()
+    if kind == "encode":
+        if dtype == torch.bfloat16:
+            tol = bf16_ulp(torch.maximum(k.abs(), p.abs()))
+        else:
+            tol = ENCODE_ATOL + ENCODE_RTOL * p.abs()
+        allowed = 0
+    elif dtype == torch.bfloat16:
+        tol = torch.full_like(p, MLP_BF16_ATOL)
+        allowed = math.floor(MLP_BF16_ROW_SHARE * rows)
+    else:
+        tol = MLP_F32_REL * torch.clamp(p.abs(), min=1.0)
+        allowed = 0
+    bad_rows = int((diff > tol).reshape(rows, -1).any(dim=1).sum()) if rows else 0
+    err = float(diff.max()) if diff.numel() else 0.0
+    capped = kind == "encode" or dtype != torch.bfloat16 or err <= MLP_BF16_CAP
+    return {"rows": rows, "mismatched_rows": bad_rows, "allowed": allowed,
+            "max_abs_err": err, "nan": nan,
+            "ok": nan == 0 and bad_rows <= allowed and capped}
+
+
+# ---------------------------------------------------------------------------
+# Work counts for the bounds
+# ---------------------------------------------------------------------------
+
+def encode_work(table, pos, config: NGPConfig, encode_dtype=torch.float32):
+    """The encode's least work on these inputs -> (flops, bytes): per
+    (sample, level) ~30 flops of coordinates and weights plus 16F of the
+    weighted sum; bytes: pos read once, the output written once, and each
+    table row these positions touch read once (counted per level)."""
+    L, F = config.n_levels, config.n_features_per_level
+    scales, res, sizes, dense = level_constants(config)
+    n = pos.shape[0]
+    rows = 0
+    for lvl in range(L):
+        idx, _ = corner_indices_and_weights(pos, float(scales[lvl]),
+                                            int(res[lvl]), int(sizes[lvl]),
+                                            bool(dense[lvl]))
+        rows += int(torch.unique(idx).numel())
+    out_b = n * L * F * (2 if encode_dtype == torch.bfloat16 else 4)
+    return n * L * (30 + 16 * F), n * 12 + out_b + rows * F * 4
+
+
+def mlp_work(x, weights):
+    """-> (flops, bytes): 2 per multiply-add; the input rows, the weights
+    and the f32 output each moved once."""
+    macs = sum(w.shape[0] * w.shape[1] for w in weights)
+    n = x.shape[0]
+    return (2 * n * macs,
+            n * x.shape[1] * x.element_size() + 4 * macs
+            + 4 * n * weights[-1].shape[0])
+
+
+def rgb_head_work(feat, dir01, weights, extra=None):
+    """-> (flops, bytes): the rgb MLP's multiply-adds (2 each) and ~60 SH
+    flops a sample; feat, dir01, the codes, the weights read once and the
+    (N, 3) f32 output written once."""
+    macs = sum(w.shape[0] * w.shape[1] for w in weights)
+    n = feat.shape[0]
+    codes = 0 if extra is None else extra.numel() * 4
+    return (n * (2 * macs + 60),
+            n * (feat.shape[1] * 4 + 12 + 12) + 4 * macs + codes)

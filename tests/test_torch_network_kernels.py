@@ -1,0 +1,768 @@
+"""The network forward's kernels (ops/network_cuda.py, csrc/network.cu):
+a numpy model of each kernel against its plain version, the plain
+versions against the JAX package, the routing rule, the wrappers'
+validation, the contract, and the kernels themselves on the card.
+
+Widths: TEST_CFG (16 levels x 2, 2^15 rows, dense and hashed levels, the
+dense ones of non-power-of-two size), NGPConfig.native_fast() (8 x 4,
+every level a 2^15 hash table) and NGPConfig() (16 x 2, 2^19 rows), with
+the MLPs 32 -> 64 -> 16 and 32 (48 with 8 latent dims) -> 64 -> 64 -> 16.
+
+Tolerances:
+- the numpy models against the plain versions: network_cuda.
+  compare_with_plain's contract (the kernels' own): the encode to rtol
+  1e-5 / atol 1e-6 at f32, one bf16 ulp at bf16; the MLPs and rgb to 1e-4
+  x max(1, |ref|) at f32 compute, 2e-2 absolute on all but 1e-5 of the
+  rows and 8e-2 on every row at bf16. The corner indices and weights the encode model computes equal
+  the plain version's bit for bit (integer and float32 arithmetic in the
+  same order); only the 8-corner sum and the MLP sums run in another
+  order than aten's. The models are float32 numpy code that follows each
+  kernel line by line, one thread's work vectorised over threads; the
+  kernels' fmaf is an exactly rounded fused multiply-add (`_fma32`).
+- the plain versions against JAX: tests/test_torch_network.py's bars,
+  1e-5 / 1e-6 for the f32 encode, 1e-4 after an f32 MLP, 2e-2 absolute
+  at bf16 (hidden activations rounded to bf16 on both sides; an f32 sum
+  one ulp apart can round to the neighbouring bf16 value), and a bf16
+  encode to 2 bf16 ulps (XLA and aten may order the bf16 sum apart).
+- the kernels against the plain versions (marked `cuda`, skipped without
+  a card; `python -m pytest tests/test_torch_network_kernels.py -m cuda`):
+  compare_with_plain's contract.
+"""
+
+import types
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from nerf_glasses_tpu.config import NGPConfig as JCfg
+from nerf_glasses_tpu.ops import hashgrid as jhash
+from nerf_glasses_tpu.ops import network as jnet
+from nerf_glasses_tpu.ops.mlp import mlp_apply as jmlp
+from nerf_glasses_tpu_torch.config import NGPConfig as TCfg
+from nerf_glasses_tpu_torch.ops import hashgrid as thash
+from nerf_glasses_tpu_torch.ops import network_cuda as nc
+from nerf_glasses_tpu_torch.ops.network import params_from_jax
+
+torch.set_num_threads(1)
+
+F32 = np.float32
+# tests/helpers.py's TEST_CFG, made here: the card's machine cannot import
+# tests.helpers, and this file's `cuda` cases run there
+TEST_CFG = JCfg(log2_hashmap_size=15)
+CONFIGS = {"test_cfg": TEST_CFG, "native_fast": JCfg.native_fast(),
+           "ngp": JCfg()}
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _tcfg(jc):
+    return TCfg(**{f: getattr(jc, f) for f in TCfg.__dataclass_fields__})
+
+
+# ---------------------------------------------------------------------------
+# Inputs, made with numpy from a seed
+# ---------------------------------------------------------------------------
+
+def _positions(jc, n=192, seed=0):
+    """Uniform positions, the cube's corners and faces (0 and 1), and
+    points on cell boundaries of every level (pos * scale + 0.5 an
+    integer or within an ulp of one)."""
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(0.0, 1.0, (n, 3)).astype(F32)
+    pos[:6] = [[0, 0, 0], [1, 1, 1], [0, 1, 0.5], [1, 0, 0.25],
+               [0.5, 0.5, 0.5], [0.25, 0.75, 1.0]]
+    scales = jhash.level_constants(jc)[0]
+    k = 6
+    for s in scales:
+        if k + 2 > n:
+            break
+        cell = rng.integers(1, max(2, int(s)), 3)
+        pos[k] = ((cell - 0.5) / s).astype(F32)
+        pos[k + 1] = np.nextafter(pos[k], F32(2.0))
+        k += 2
+    return np.clip(pos, 0.0, 1.0)
+
+
+def _table(jc, seed=1):
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal(
+        (jc.n_levels, jhash.padded_table_rows(jc), jc.n_features_per_level)
+    ).astype(F32) * F32(0.5)
+
+
+def _mlp_weights(shapes, seed):
+    rng = np.random.default_rng(seed)
+    return [(rng.standard_normal(s) * np.sqrt(2.0 / s[1])).astype(F32)
+            for s in shapes]
+
+
+def _dirs(n, seed=3):
+    rng = np.random.default_rng(seed)
+    v = rng.standard_normal((n, 3))
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    d = ((v + 1.0) / 2.0).astype(F32)
+    d[:3] = [[0, 0.5, 0.5], [1, 0.5, 0.5], [0.5, 0.5, 1]]
+    return d[:n]
+
+
+def _params(jc, seed=2):
+    d_shapes, r_shapes = jc.mlp_shapes()
+    return {"density_mlp": tuple(_mlp_weights(d_shapes, seed)),
+            "rgb_mlp": tuple(_mlp_weights(r_shapes, seed + 1)),
+            "grid": _table(jc, seed + 2)}
+
+
+# ---------------------------------------------------------------------------
+# The numpy models of the kernels (csrc/network.cu), line for line
+# ---------------------------------------------------------------------------
+
+def _bf16(x):
+    """__float2bfloat16_rn then back to float32 (round to nearest even)."""
+    x = np.asarray(x, F32)
+    b = x.view(np.uint32).astype(np.uint64)
+    r = ((b + 0x7FFF + ((b >> 16) & 1)) & 0xFFFF0000).astype(np.uint32)
+    return np.where(np.isnan(x), x, r.view(F32))
+
+
+def _round_c(x, bf16):
+    return _bf16(x) if bf16 else np.asarray(x, F32)
+
+
+def _fma32(a, b, c):
+    """fmaf(a, b, c): a * b + c rounded to float32 once. The float64
+    product is exact; TwoSum gives the float64 sum's exact error, which
+    decides the rounding where the sum lies on a float32 midpoint."""
+    p = a.astype(np.float64) * b.astype(np.float64)
+    c = np.broadcast_to(c, p.shape).astype(np.float64)
+    s = p + c
+    bb = s - p
+    e = (p - (s - bb)) + (c - bb)
+    r = s.astype(F32)
+    below = np.where(r.astype(np.float64) > s, np.nextafter(r, F32(-np.inf)), r)
+    above = np.where(r.astype(np.float64) < s, np.nextafter(r, F32(np.inf)), r)
+    mid = (below.astype(np.float64) + above.astype(np.float64)) / 2.0
+    tie = (s == mid) & (below != above) & (e != 0.0)
+    return np.where(tie, np.where(e > 0.0, above, below), r).astype(F32)
+
+
+def _encode_model(table, pos, jc, bf16):
+    """hash_encode_kernel: a thread per (sample, level) -> (out (N, L*F)
+    float32 holding the output dtype's values, idx (L, N, 8) uint32,
+    weight (L, N, 8) float32)."""
+    scales, res, sizes, dense = jhash.level_constants(jc)
+    L, F = jc.n_levels, jc.n_features_per_level
+    n = pos.shape[0]
+    out = np.zeros((n, L * F), F32)
+    idx_all = np.zeros((L, n, 8), np.uint32)
+    w_all = np.zeros((L, n, 8), F32)
+    for lvl in range(L):
+        scale = F32(scales[lvl])
+        w = [[None, None] for _ in range(3)]
+        c0 = [None] * 3
+        for d in range(3):
+            p = (pos[:, d] * scale).astype(F32) + F32(0.5)
+            g = np.floor(p)
+            frac = p - g
+            w[d][0] = F32(1.0) - frac
+            w[d][1] = frac
+            c0[d] = g.astype(np.int32).astype(np.uint32)
+        r = np.uint32(res[lvl])
+        r2 = np.uint32((int(res[lvl]) * int(res[lvl])) & 0xFFFFFFFF)
+        size = np.uint32(sizes[lvl])
+        pow2 = (int(size) & (int(size) - 1)) == 0
+        acc = np.zeros((n, F), F32)
+        for c in range(8):
+            bx, by, bz = c & 1, (c >> 1) & 1, (c >> 2) & 1
+            wc = (w[0][bx] * w[1][by]) * w[2][bz]
+            cx = c0[0] + np.uint32(bx)
+            cy = c0[1] + np.uint32(by)
+            cz = c0[2] + np.uint32(bz)
+            with np.errstate(over="ignore"):
+                if dense[lvl]:
+                    idx = cx + cy * r + cz * r2
+                else:
+                    idx = cx ^ (cy * np.uint32(2654435761)) ^ (
+                        cz * np.uint32(805459861))
+            idx = idx & (size - np.uint32(1)) if pow2 else idx % size
+            v = table[lvl][idx.astype(np.int64)]
+            if bf16:
+                acc = acc + _bf16(_bf16(v) * _bf16(wc)[:, None])
+            else:
+                acc = acc + v * wc[:, None]
+            idx_all[lvl, :, c] = idx
+            w_all[lvl, :, c] = wc
+        out[:, lvl * F:(lvl + 1) * F] = _bf16(acc) if bf16 else acc
+    return out, idx_all, w_all
+
+
+def _layers_model(a, weights, bf16, n_store):
+    """mlp_kernel's layer loop on the rows `a` (N, width[0]), already
+    rounded: each layer's sums as fmaf chains over the zero-padded input
+    in order; ReLU (NaN kept) and the compute dtype between layers; the
+    last layer's first n_store columns in f32."""
+    for k, w in enumerate(weights):
+        n_out, n_in = w.shape
+        pad = -(-n_in // 16) * 16
+        wr = np.zeros((n_out, pad), F32)
+        wr[:, :n_in] = _round_c(w, bf16)
+        x = np.zeros((a.shape[0], pad), F32)
+        x[:, :n_in] = a
+        acc = np.zeros((a.shape[0], n_out), F32)
+        for i in range(pad):
+            acc = _fma32(x[:, i:i + 1], wr[None, :, i], acc)
+        if k + 1 < len(weights):
+            relu = np.where(np.isnan(acc) | (acc > 0), acc, F32(0.0))
+            a = _round_c(relu, bf16)
+        else:
+            return acc[:, :n_store]
+
+
+def _mlp_model(x, weights, bf16):
+    """nmr_mlp: the input row rounded to the compute dtype, the layers."""
+    return _layers_model(_round_c(x, bf16), weights, bf16, weights[-1].shape[0])
+
+
+def _sh_model(d, degree):
+    """sh_encode of csrc/network.cu: the plain version's float32 ops in
+    its order, Python constants rounded to float32, padding ONE."""
+    x = d[:, 0] * F32(2.0) - F32(1.0)
+    y = d[:, 1] * F32(2.0) - F32(1.0)
+    z = d[:, 2] * F32(2.0) - F32(1.0)
+    xy, xz, yz = x * y, x * z, y * z
+    x2, y2, z2 = x * x, y * y, z * z
+    sh = np.ones((d.shape[0], 16), F32)
+    sh[:, 0] = F32(0.28209479177387814)
+    if degree >= 2:
+        c1 = F32(0.48860251190291987)
+        sh[:, 1] = y * -c1
+        sh[:, 2] = z * c1
+        sh[:, 3] = x * -c1
+    if degree >= 3:
+        c4 = F32(1.0925484305920792)
+        sh[:, 4] = xy * c4
+        sh[:, 5] = yz * -c4
+        sh[:, 6] = z2 * F32(0.94617469575755997) - F32(0.31539156525251999)
+        sh[:, 7] = xz * -c4
+        c8 = F32(0.54627421529603959)
+        sh[:, 8] = x2 * c8 - y2 * c8
+    if degree >= 4:
+        c9, c11 = F32(0.59004358992664352), F32(0.45704579946446572)
+        one_5z2 = F32(1.0) - z2 * F32(5.0)
+        sh[:, 9] = (y * c9) * (x2 * F32(-3.0) + y2)
+        sh[:, 10] = (xy * F32(2.8906114426405538)) * z
+        sh[:, 11] = (y * c11) * one_5z2
+        sh[:, 12] = (z * F32(0.3731763325901154)) * (z2 * F32(5.0) - F32(3.0))
+        sh[:, 13] = (x * c11) * one_5z2
+        sh[:, 14] = (z * F32(1.4453057213202769)) * (x2 - y2)
+        sh[:, 15] = (x * c9) * (-x2 + y2 * F32(3.0))
+    return sh
+
+
+def _rgb_head_model(feat, dirs, weights, jc, bf16, extra=None):
+    """nmr_rgb_head: the row [feat, SH(dir), codes, zeros] rounded to the
+    compute dtype, the layers, columns 0-2."""
+    n = feat.shape[0]
+    row = np.zeros((n, jc.rgb_in_width), F32)
+    nf = feat.shape[1]
+    row[:, :nf] = feat
+    row[:, nf:nf + 16] = _sh_model(dirs, jc.sh_degree)
+    if extra is not None:
+        row[:, nf + 16:nf + 16 + extra.shape[-1]] = np.broadcast_to(
+            extra, (n, extra.shape[-1]))
+    return _layers_model(_round_c(row, bf16), weights, bf16, 3)
+
+
+def _assert_contract(kind, model, plain, dtype):
+    r = nc.compare_with_plain(kind, torch.as_tensor(model), plain, dtype)
+    assert r["ok"], r
+    return r
+
+
+# ---------------------------------------------------------------------------
+# (a) The numpy models against the plain versions
+# ---------------------------------------------------------------------------
+
+def test_bf16_and_fma_models_round_as_the_card():
+    """_bf16 is torch's round-to-nearest-even bf16; _fma32 rounds once."""
+    rng = np.random.default_rng(9)
+    x = (rng.standard_normal(4096) * 10.0 ** rng.integers(-30, 30, 4096)
+         ).astype(F32)
+    x[:4] = [0.0, -0.0, 1.0 + 2 ** -8, 1.0 + 3 * 2 ** -8]   # ties
+    want = torch.as_tensor(x).to(torch.bfloat16).float().numpy()
+    np.testing.assert_array_equal(_bf16(x), want)
+    a = np.array([1.0 + 2 ** -12], F32)
+    b = np.array([1.0 + 2 ** -12], F32)
+    c = np.array([-1.0], F32)
+    # exact: 2^-11 + 2^-24; two roundings would drop the 2^-24
+    assert _fma32(a, b, c)[0] == F32(2 ** -11 + 2 ** -24)
+    # a * a = 1 + 2^-11 + 2^-24 lies on a float32 midpoint; a tiny c
+    # decides the side, where a float64 sum would round onto the midpoint
+    tiny = np.array([2.0 ** -60], F32)
+    assert _fma32(a, b, tiny)[0] == F32(1 + 2 ** -11 + 2 ** -23)
+    assert _fma32(a, b, -tiny)[0] == F32(1 + 2 ** -11)
+    assert _fma32(a, b, np.zeros(1, F32))[0] == F32(1 + 2 ** -11)   # even
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_encode_model_matches_plain(name, dtype):
+    jc = CONFIGS[name]
+    tc = _tcfg(jc)
+    table = _table(jc)
+    pos = _positions(jc)
+    bf16 = dtype == "bfloat16"
+    out, idx, wts = _encode_model(table, pos, jc, bf16)
+    tpos = torch.as_tensor(pos)
+    plain = nc.hash_encode_reference(torch.as_tensor(table), tpos, tc,
+                                     DTYPES[dtype])
+    assert plain.dtype == DTYPES[dtype] and plain.shape == out.shape
+    _assert_contract("encode", out, plain, DTYPES[dtype])
+    scales, res, sizes, dense = thash.level_constants(tc)
+    if name == "test_cfg":
+        assert dense.any() and (~dense).any()
+        assert any(int(s) & (int(s) - 1) for s in sizes[dense])
+    for lvl in range(jc.n_levels):
+        ti, tw = thash.corner_indices_and_weights(
+            tpos, float(scales[lvl]), int(res[lvl]), int(sizes[lvl]),
+            bool(dense[lvl]))
+        np.testing.assert_array_equal(idx[lvl].astype(np.int64), ti.numpy())
+        np.testing.assert_array_equal(wts[lvl], tw.numpy())
+
+
+@pytest.mark.parametrize("n", [0, 1])
+def test_encode_model_edge_counts(n):
+    jc = TEST_CFG
+    table = _table(jc)
+    pos = _positions(jc)[:n]
+    for dtype in DTYPES.values():
+        out, _, _ = _encode_model(table, pos, jc, dtype == torch.bfloat16)
+        plain = nc.hash_encode(torch.as_tensor(table), torch.as_tensor(pos),
+                               _tcfg(jc), dtype)
+        assert plain.shape == (n, jc.n_pos_features)
+        _assert_contract("encode", out, plain, dtype)
+
+
+@pytest.mark.parametrize("n", [0, 1, 300])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_mlp_model_matches_plain(dtype, n):
+    jc = JCfg.native_fast()
+    weights = _mlp_weights(jc.mlp_shapes()[0], seed=4)
+    x = np.random.default_rng(5).standard_normal((n, 32)).astype(F32)
+    x[:, :2] *= 50.0                 # large hidden sums on some rows
+    bf16 = dtype == "bfloat16"
+    tw = [torch.as_tensor(w) for w in weights]
+    for xin in (x, _bf16(x)):        # f32 rows, and bf16 rows as the
+        tx = torch.as_tensor(xin)    # bf16 encode hands them over
+        if xin is not x:
+            tx = tx.to(torch.bfloat16)
+        plain = nc.mlp_reference(tx, tw, DTYPES[dtype])
+        assert plain.shape == (n, 16) and plain.dtype == torch.float32
+        _assert_contract("mlp", _mlp_model(xin, weights, bf16), plain,
+                         DTYPES[dtype])
+
+
+def test_mlp_model_pads_odd_widths():
+    """Widths that are not multiples of 16 (a 4-level x 2 encode, a
+    hidden width of 24) go through the zero-padded chunks unchanged."""
+    rng = np.random.default_rng(6)
+    weights = [rng.standard_normal(s).astype(F32) * F32(0.3)
+               for s in ((24, 8), (24, 24), (5, 24))]
+    x = rng.standard_normal((64, 8)).astype(F32)
+    plain = nc.mlp_reference(torch.as_tensor(x),
+                             [torch.as_tensor(w) for w in weights],
+                             torch.float32)
+    _assert_contract("mlp", _mlp_model(x, weights, False), plain,
+                     torch.float32)
+
+
+def _rgb_case(degree=4, E=0):
+    jc = JCfg(sh_degree=degree, n_extra_learnable_dims=E,
+              log2_hashmap_size=15)
+    return jc, _mlp_weights(jc.mlp_shapes()[1], seed=7 + E + degree)
+
+
+@pytest.mark.parametrize("extra", ["none", "codes", "rows"])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_rgb_head_model_matches_plain(dtype, extra):
+    """E = 0, and E = 8 latent codes as (E,) and as (N, E); omitted codes
+    with E = 8 are zeros."""
+    E = 0 if extra == "none" else 8
+    jc, weights = _rgb_case(E=E)
+    n = 257
+    rng = np.random.default_rng(8)
+    feat = (rng.standard_normal((n, 16)) * 2.0).astype(F32)
+    dirs = _dirs(n)
+    codes = {"none": None,
+             "codes": rng.standard_normal(E).astype(F32),
+             "rows": rng.standard_normal((n, E)).astype(F32)}[extra]
+    bf16 = dtype == "bfloat16"
+    tw = [torch.as_tensor(w) for w in weights]
+    plain = nc.rgb_head_reference(
+        torch.as_tensor(feat), torch.as_tensor(dirs), tw, _tcfg(jc),
+        DTYPES[dtype], None if codes is None else torch.as_tensor(codes))
+    model = _rgb_head_model(feat, dirs, weights, jc, bf16, codes)
+    assert plain.shape == (n, 3)
+    _assert_contract("rgb", model, plain, DTYPES[dtype])
+    if E:
+        no_codes = nc.rgb_head_reference(torch.as_tensor(feat),
+                                         torch.as_tensor(dirs), tw, _tcfg(jc),
+                                         DTYPES[dtype])
+        _assert_contract("rgb", _rgb_head_model(feat, dirs, weights, jc, bf16),
+                         no_codes, DTYPES[dtype])
+
+
+@pytest.mark.parametrize("degree", [1, 2, 3])
+def test_rgb_head_model_low_sh_degree(degree):
+    """SH below degree 4: the padding features are ONE."""
+    jc, weights = _rgb_case(degree=degree)
+    feat = np.random.default_rng(10).standard_normal((65, 16)).astype(F32)
+    dirs = _dirs(65)
+    sh = _sh_model(dirs, degree)
+    assert (sh[:, degree * degree:] == 1.0).all()
+    plain = nc.rgb_head_reference(torch.as_tensor(feat), torch.as_tensor(dirs),
+                                  [torch.as_tensor(w) for w in weights],
+                                  _tcfg(jc), torch.float32)
+    _assert_contract("rgb", _rgb_head_model(feat, dirs, weights, jc, False),
+                     plain, torch.float32)
+
+
+def test_sh_model_is_the_plain_sh_bit_for_bit():
+    from nerf_glasses_tpu_torch.ops.sh import sh_encode
+    dirs = _dirs(512)
+    for degree in (1, 2, 3, 4):
+        np.testing.assert_array_equal(
+            _sh_model(dirs, degree),
+            sh_encode(torch.as_tensor(dirs), degree, 16).numpy())
+
+
+@pytest.mark.parametrize("n", [0, 1])
+def test_rgb_head_model_edge_counts(n):
+    jc, weights = _rgb_case(E=8)
+    feat = np.ones((n, 16), F32)
+    dirs = _dirs(3)[:n]
+    codes = np.arange(8, dtype=F32)
+    plain = nc.rgb_head(torch.as_tensor(feat), torch.as_tensor(dirs),
+                        [torch.as_tensor(w) for w in weights], _tcfg(jc),
+                        torch.bfloat16, torch.as_tensor(codes))
+    assert plain.shape == (n, 3)
+    _assert_contract("rgb", _rgb_head_model(feat, dirs, weights, jc, True,
+                                            codes), plain, torch.bfloat16)
+
+
+# ---------------------------------------------------------------------------
+# (b) The plain versions against the JAX package
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_plain_versions_match_jax(name):
+    jc = CONFIGS[name]
+    tc = _tcfg(jc)
+    params = _params(jc)
+    net = params_from_jax(params, tc)
+    jp = {"density_mlp": tuple(jnp.asarray(w) for w in params["density_mlp"]),
+          "rgb_mlp": tuple(jnp.asarray(w) for w in params["rgb_mlp"]),
+          "grid": jnp.asarray(params["grid"])}
+    pos = _positions(jc, n=160, seed=11)
+    dirs = _dirs(160, seed=12)
+    tpos, tdirs = torch.as_tensor(pos), torch.as_tensor(dirs)
+    for enc in ("float32", "bfloat16"):
+        want = np.asarray(jhash.hash_encode(jp["grid"], jnp.asarray(pos), jc,
+                                            compute_dtype=getattr(jnp, enc)),
+                          np.float32)
+        got = nc.hash_encode_reference(net.grid, tpos, tc, DTYPES[enc])
+        if enc == "float32":
+            np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+        else:
+            g = got.float()
+            assert bool((g - torch.as_tensor(want)).abs().le(
+                2 * nc.bf16_ulp(g.abs().maximum(torch.as_tensor(want).abs()))
+            ).all())
+    enc = np.array(jhash.hash_encode(jp["grid"], jnp.asarray(pos), jc))
+    for cd in ("float32", "bfloat16"):
+        tol = 1e-4 if cd == "float32" else 2e-2
+        want = np.asarray(jmlp(jnp.asarray(enc), jp["density_mlp"],
+                               compute_dtype=getattr(jnp, cd)))
+        got = nc.mlp_reference(torch.as_tensor(enc), net.density_mlp,
+                               DTYPES[cd])
+        np.testing.assert_allclose(got.numpy(), want, atol=tol, rtol=tol)
+        feat = want[:, :16]
+        want_rgb = np.asarray(jnet.rgb_from_features(
+            jp, jnp.asarray(feat), jnp.asarray(dirs), jc,
+            compute_dtype=getattr(jnp, cd)))
+        got_rgb = nc.rgb_head_reference(torch.as_tensor(feat), tdirs,
+                                        net.rgb_mlp, tc, DTYPES[cd])
+        np.testing.assert_allclose(got_rgb.numpy(), want_rgb, atol=tol,
+                                   rtol=tol)
+        rgb_j, sig_j = jnet.apply_network(jp, jnp.asarray(pos),
+                                          jnp.asarray(dirs), jc,
+                                          compute_dtype=getattr(jnp, cd))
+        rgb_t, sig_t = net(tpos, tdirs, compute_dtype=DTYPES[cd])
+        np.testing.assert_allclose(rgb_t.numpy(), np.asarray(rgb_j), atol=tol,
+                                   rtol=tol)
+        np.testing.assert_allclose(sig_t.numpy(), np.asarray(sig_j), atol=tol,
+                                   rtol=tol)
+
+
+def test_plain_rgb_head_matches_jax_with_latent_codes():
+    jc, _ = _rgb_case(E=8)
+    tc = _tcfg(jc)
+    params = _params(jc, seed=13)
+    net = params_from_jax(params, tc)
+    jp = {k: (tuple(jnp.asarray(w) for w in v) if isinstance(v, tuple)
+              else jnp.asarray(v)) for k, v in params.items()}
+    rng = np.random.default_rng(14)
+    feat = rng.standard_normal((96, 16)).astype(F32)
+    dirs = _dirs(96, seed=15)
+    for codes in (rng.standard_normal(8).astype(F32),
+                  rng.standard_normal((96, 8)).astype(F32)):
+        want = np.asarray(jnet.rgb_from_features(
+            jp, jnp.asarray(feat), jnp.asarray(dirs), jc,
+            compute_dtype=jnp.float32, extra=jnp.asarray(codes)))
+        got = nc.rgb_head_reference(torch.as_tensor(feat),
+                                    torch.as_tensor(dirs), net.rgb_mlp, tc,
+                                    torch.float32, torch.as_tensor(codes))
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# (c) The routing rule, the wrappers' validation, the contract
+# ---------------------------------------------------------------------------
+
+def _net(jc=TEST_CFG):
+    return params_from_jax(_params(jc), _tcfg(jc))
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    net = _net()
+    pos = torch.as_tensor(_positions(TEST_CFG, n=64))
+    dirs = torch.as_tensor(_dirs(64))
+    before, plain_before = dict(nc.launches), dict(nc.plain_on_card)
+    rgb, sig = net(pos, dirs)
+    d = nc.mlp_reference(nc.hash_encode_reference(net.grid, pos, net.config),
+                         net.density_mlp)
+    assert torch.equal(sig, d[:, 0])
+    assert torch.equal(rgb, nc.rgb_head_reference(d, dirs, net.rgb_mlp,
+                                                  net.config))
+    assert nc.launches == before and nc.plain_on_card == plain_before
+
+
+def test_routing_rule():
+    card = torch.device("cuda")        # a device object needs no card
+    t = types.SimpleNamespace(device=card, requires_grad=False)
+    g = types.SimpleNamespace(device=card, requires_grad=True)
+    cpu = torch.zeros(1, requires_grad=True)
+    before = dict(nc.plain_on_card)
+    assert nc.takes_kernel("mlp", t, t)
+    assert nc.takes_kernel("mlp", t, None)
+    assert not nc.takes_kernel("mlp", t, g)          # needs a gradient
+    assert nc.plain_on_card["mlp"] == before["mlp"] + 1
+    with torch.no_grad():
+        assert nc.takes_kernel("mlp", t, g)          # grad mode off
+    assert not nc.takes_kernel("hash_encode", cpu, t)
+    assert nc.plain_on_card["hash_encode"] == before["hash_encode"]
+
+
+def test_kernel_route_plumbing_on_cpu(monkeypatch):
+    """With the rule forced to the kernels, NerfNetwork hands the wrappers
+    what they take (on CPU tensors they run the plain versions): the same
+    outputs, latent codes included."""
+    jc, _ = _rgb_case(E=8)
+    net = _net(jc)
+    pos = torch.as_tensor(_positions(jc, n=48))
+    dirs = torch.as_tensor(_dirs(48)).T.contiguous().T      # strided
+    codes = torch.arange(8, dtype=torch.float32) / 8.0
+    want = net(pos, dirs, extra=codes)
+    seen = []
+    monkeypatch.setattr(nc, "takes_kernel",
+                        lambda name, *t: seen.append(name) or True)
+    got = net(pos, dirs, extra=codes)
+    assert seen == ["hash_encode", "mlp", "rgb_head"]
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    feat = net.density_raw(pos)
+    assert torch.equal(net.rgb_from_features(feat, dirs, extra=codes), got[0])
+
+
+def test_grad_needing_call_keeps_autograd():
+    net = _net()
+    net.requires_grad_(True)
+    pos = torch.as_tensor(_positions(TEST_CFG, n=32))
+    dirs = torch.as_tensor(_dirs(32))
+    rgb, sig = net(pos, dirs)
+    assert rgb.requires_grad and sig.requires_grad
+    (rgb.sum() + sig.sum()).backward()
+    assert all(p.grad is not None and bool(p.grad.abs().sum() > 0)
+               for p in (net.grid, *net.density_mlp, *net.rgb_mlp))
+    with torch.no_grad():
+        rgb2, _ = net(pos, dirs)
+    assert not rgb2.requires_grad and torch.equal(rgb2, rgb.detach())
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take():
+    tc = _tcfg(TEST_CFG)
+    net = _net()
+    pos = torch.as_tensor(_positions(TEST_CFG, n=16))
+    grid = net.grid.detach()
+    bad_encode = [
+        (grid, pos.double(), tc),                        # dtype
+        (grid, pos[:, :2], tc),                          # shape
+        (grid, pos.T.contiguous().T, tc),                # not contiguous
+        (grid[:, :100], pos, tc),                        # rows < hashmap
+        (grid[:8], pos, tc),                             # levels
+        (grid, pos.to("meta"), tc),                      # device
+        (grid.to("meta"), pos, tc),                      # table elsewhere
+        (torch.zeros((40, 8, 2)), pos,
+         TCfg(n_levels=40, log2_hashmap_size=3)),        # > 32 levels
+        (torch.zeros((2, 64, 3)), pos,
+         TCfg(n_levels=2, n_features_per_level=3, log2_hashmap_size=6)),
+    ]
+    for args in bad_encode:
+        with pytest.raises(ValueError):
+            nc.hash_encode(*args)
+    with pytest.raises(ValueError):
+        nc.hash_encode(grid, pos, tc, torch.float16)     # encode dtype
+    x = torch.zeros((16, 32))
+    ws = [w.detach() for w in net.density_mlp]
+    for bad_x, bad_ws, cd in (
+            (x.double(), ws, torch.bfloat16),
+            (x[:, :31], ws, torch.bfloat16),             # chain
+            (x, ws[::-1], torch.bfloat16),
+            (x, [ws[0].T.contiguous().T, ws[1]], torch.bfloat16),
+            (x, [torch.zeros((200, 32)), torch.zeros((16, 200))],
+             torch.bfloat16),                            # hidden > 128
+            (x, ws * 5, torch.bfloat16),                 # > 8 layers
+            (x, ws, torch.float16)):                     # compute dtype
+        with pytest.raises(ValueError):
+            nc.mlp(bad_x, bad_ws, cd)
+    feat = torch.zeros((16, 16))
+    dirs = torch.as_tensor(_dirs(16))
+    rw = [w.detach() for w in net.rgb_mlp]
+    jc8, w8 = _rgb_case(E=8)
+    tw8 = [torch.as_tensor(w) for w in w8]
+    for args in (
+            (feat, dirs[:, :2], rw, tc),                 # dir shape
+            (feat, dirs[:8], rw, tc),                    # dir rows
+            (feat.double(), dirs, rw, tc),
+            (torch.zeros((16, 40)), dirs, rw, tc),       # row too wide
+            (feat, dirs, rw, TCfg(sh_degree=5, log2_hashmap_size=15)),
+            (feat, dirs, tw8, _tcfg(jc8), torch.float32, torch.zeros(7)),
+            (feat, dirs, tw8, _tcfg(jc8), torch.float32,
+             torch.zeros((5, 8)))):                      # code rows
+        with pytest.raises(ValueError):
+            nc.rgb_head(*args)
+
+
+def test_compare_with_plain_counts_under_the_contract():
+    g = torch.Generator().manual_seed(0)
+    p = torch.randn((5000, 16), generator=g) * 3.0
+    r = nc.compare_with_plain("mlp", p.clone(), p, torch.float32)
+    assert r["ok"] and r["mismatched_rows"] == 0 and r["allowed"] == 0
+    k = p.clone()
+    k[:2, 3] += 5e-5 * torch.clamp(p[:2, 3].abs(), min=1.0)
+    assert nc.compare_with_plain("mlp", k, p, torch.float32)["ok"]
+    k[7, 0] += 2e-4 * max(1.0, float(p[7, 0].abs()))
+    r = nc.compare_with_plain("mlp", k, p, torch.float32)
+    assert not r["ok"] and r["mismatched_rows"] == 1
+    k = p.clone()
+    k[:5, 1] += 0.05                                   # 5 of 5000 rows
+    r = nc.compare_with_plain("rgb", k[:, :3], p[:, :3], torch.bfloat16)
+    assert not r["ok"] and r["mismatched_rows"] == 5 and r["allowed"] == 0
+    big = torch.randn((200_000, 3), generator=g)       # 2 of 200,000 rows
+    kb = big.clone()
+    kb[:2, 1] += 0.05
+    r = nc.compare_with_plain("rgb", kb, big, torch.bfloat16)
+    assert r["ok"] and r["mismatched_rows"] == 2 and r["allowed"] == 2
+    kb[2, 2] += 0.05
+    assert not nc.compare_with_plain("rgb", kb, big, torch.bfloat16)["ok"]
+    kb = big.clone()
+    kb[0, 0] += 0.1                                    # past the 8e-2 cap
+    r = nc.compare_with_plain("rgb", kb, big, torch.bfloat16)
+    assert not r["ok"] and r["mismatched_rows"] == 1 <= r["allowed"]
+    k = p.clone()
+    k[3, 3] = float("nan")
+    r = nc.compare_with_plain("mlp", k, p, torch.bfloat16)
+    assert not r["ok"] and r["nan"] == 1
+    e = p.to(torch.bfloat16)
+    up = (e.float() + nc.bf16_ulp(e.float())).to(torch.bfloat16)
+    assert bool((up != e).all())
+    assert nc.compare_with_plain("encode", up, e, torch.bfloat16)["ok"]
+    two = (up.float() + nc.bf16_ulp(up.float())).to(torch.bfloat16)
+    assert not nc.compare_with_plain("encode", two, e, torch.bfloat16)["ok"]
+    f = p.clone()
+    f[0, 0] += 2e-5 * abs(float(f[0, 0])) + 1e-6
+    assert not nc.compare_with_plain("encode", f, p, torch.float32)["ok"]
+    with pytest.raises(ValueError):
+        nc.compare_with_plain("march", p, p, torch.float32)
+
+
+def test_work_counts():
+    jc = JCfg.native_fast()
+    tc = _tcfg(jc)
+    pos = torch.as_tensor(_positions(jc, n=100))
+    flops, nbytes = nc.encode_work(torch.zeros(1), pos, tc)
+    L, F = 8, 4
+    assert flops == 100 * L * (30 + 16 * F)
+    # the rows touched: at most 8 a sample and level, at least 1 a level
+    assert 100 * 12 + 100 * L * F * 4 + L * F * 4 <= nbytes
+    assert nbytes <= 100 * 12 + 100 * L * F * 4 + 100 * 8 * L * F * 4
+    ws = [torch.zeros(s) for s in jc.mlp_shapes()[0]]
+    x = torch.zeros((10, 32), dtype=torch.bfloat16)
+    assert nc.mlp_work(x, ws) == (2 * 10 * 3072, 10 * 64 + 4 * 3072 + 640)
+
+
+# ---------------------------------------------------------------------------
+# (d) The kernels on the card
+# ---------------------------------------------------------------------------
+
+def _needs_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (run: pytest -m cuda)")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_encode_and_mlp_kernels_match_plain_on_card(name, dtype):
+    _needs_card()
+    jc = CONFIGS[name]
+    tc = _tcfg(jc)
+    net = params_from_jax(_params(jc), tc, device="cuda")
+    pos = torch.as_tensor(_positions(jc, n=4099), device="cuda")
+    before = dict(nc.launches)
+    enc = nc.hash_encode(net.grid, pos, tc, DTYPES[dtype])
+    torch.cuda.synchronize()
+    assert nc.launches["hash_encode"] == before["hash_encode"] + 1
+    r = nc.compare_with_plain("encode", enc, nc.hash_encode_reference(
+        net.grid, pos, tc, DTYPES[dtype]), DTYPES[dtype])
+    assert r["ok"], r
+    for cd in DTYPES.values():
+        r = nc.compare_with_plain("mlp", nc.mlp(enc, net.density_mlp, cd),
+                                  nc.mlp_reference(enc, net.density_mlp, cd),
+                                  cd)
+        assert r["ok"], r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra", ["none", "codes", "rows"])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_rgb_head_kernel_matches_plain_on_card(dtype, extra):
+    _needs_card()
+    E = 0 if extra == "none" else 8
+    jc, weights = _rgb_case(E=E)
+    tc = _tcfg(jc)
+    n = 4099
+    rng = np.random.default_rng(16)
+    feat = torch.as_tensor(rng.standard_normal((n, 16)).astype(F32),
+                           device="cuda")
+    dirs = torch.as_tensor(_dirs(n), device="cuda")
+    codes = {"none": None, "codes": rng.standard_normal(E),
+             "rows": rng.standard_normal((n, E))}[extra]
+    if codes is not None:
+        codes = torch.as_tensor(codes.astype(F32), device="cuda")
+    tw = [torch.as_tensor(w, device="cuda") for w in weights]
+    cd = DTYPES[dtype]
+    r = nc.compare_with_plain(
+        "rgb", nc.rgb_head(feat, dirs, tw, tc, cd, codes),
+        nc.rgb_head_reference(feat, dirs, tw, tc, cd, codes), cd)
+    assert r["ok"], r
