@@ -2,13 +2,16 @@
 
     python3 chip_smoke.py [--multicascade-only] [DIR ...]
 
---multicascade-only runs phases 1-2, 11 and 22-26 (23b with them) alone (a few minutes:
-for work on the multi-cascade path; it prints no result line, and the
-smoke run proper takes no such flag). Each DIR is another checkout of the repository (for example the parent
-commit unpacked with `git archive` into a git-ignored directory): its
-ray-cast kernels are built from its own csrc/, held against the plain
-versions and timed in turns with this tree's in phases 3 and 7. The
-smoke run itself takes no argument.
+--multicascade-only runs phases 1-2, 11 and 22-26 (23b with them) alone
+(a few minutes: for work on the multi-cascade path; it prints no result
+line, and the smoke run proper takes no such flag). Each DIR is another
+checkout of the repository (for example the parent commit unpacked with
+`git archive` into a git-ignored directory): its ray-cast kernels
+(ops/mesh_cuda.py) and network kernels (ops/network_cuda.py), where it
+has them, are built from its own csrc/, held against the plain versions
+and timed in turns with this tree's: the ray-casts in phases 3 and 7 by
+CUDA events, the density MLP and the rgb head on phase 5c's recorded
+calls by device time. The smoke run itself takes no argument.
 
 Drives the port's main path, the hybrid frame, the way a user calls it:
 NerfMeshRenderer(1280, 720).load_nerf(trained snapshot) + load_mesh(a
@@ -18,7 +21,11 @@ procedural glasses glTF written here) + frame(), with the mesh pass at
   1. a CUDA device must be present;
   2. card, power limit, torch/CUDA versions; build the mesh ray-cast,
      march and network kernels from nerf_glasses_tpu_torch/csrc, one nvcc
-     per source, in parallel (timed);
+     per source, in parallel (timed); every instance of the MLP kernels'
+     registers, stack and local bytes (`cuobjdump -res-usage` of the
+     loaded library), tensor-core instructions (HGMMA or HMMA) and local
+     loads and stores (LDL, STL) in its SASS (`cuobjdump -sass`): the
+     bf16 instances must hold tensor-core instructions and spill nothing;
   3. the tiled kernel against its plain PyTorch version at the main
      path's shapes (2560x1440 rays, tile-padded to 2560x1472, binned
      against the glasses) under mesh_cuda.compare_with_plain's contract
@@ -59,11 +66,16 @@ procedural glasses glTF written here) + frame(), with the mesh pass at
      version under network_cuda.compare_with_plain's contract (encode to
      rtol 1e-5 / atol 1e-6 at f32, one bf16 ulp at bf16; MLP and rgb to
      1e-4 x max(1, |ref|) at f32; at bf16 2e-2 on all but 1e-5 of the
-     rows and 8e-2 on every row; no NaN), the mismatch counts printed, device time by torch.profiler (L2
-     flushed before each launch) and by CUDA events beside the plain
-     version's time, the bound (bytes read and written once over 3.35
-     TB/s against the operations over 989 TFLOP/s for bf16 operands or 67
-     TFLOP/s in f32) and its share; then a frame with the plain network in
+     rows and 8e-2 on every row; no NaN), the mismatch counts printed,
+     device time by torch.profiler (L2 flushed before each launch) and by
+     CUDA events beside the plain version's time, the MLPs' layer chain
+     as bf16 torch.matmul + relu calls (a yardstick the port never
+     calls), the MLPs with their inputs scaled 1x, 8x and 64x: rows past
+     the contract's 2e-2 printed, every output within one bf16 step of
+     every hidden activation (network_cuda.bf16_step_bound) checked; the
+     bound (bytes read and written once over 3.35 TB/s against the
+     operations over 989 TFLOP/s for bf16 operands or 67 TFLOP/s in f32)
+     and its share; then a frame with the plain network in
      the kernels' place, swapped as 5b swaps the march: >= 50 dB from the
      kernels' frame, both frames' device operations, busy and host ms in
      this one call; the kernels' frame under 3,000 device operations;
@@ -257,10 +269,11 @@ Each phase prints its seconds.
 Prints one JSON line with the nine kernels' numbers (time, bound and
 share of it, launches per frame, the plain version's time; no single
 PyTorch call computes a nearest ray-triangle hit, a march loop, a hash
-encode or a bf16-rounded bias-free MLP chain, so library_ms is null), the card's name and power
-limit, and as its last line {"ok": true, "device": {...}}. Exits non-zero
-on any failure, when no CUDA device is present, and when the package is
-not beside it.
+encode or a bf16-rounded bias-free MLP chain, so library_ms is null; the
+MLPs' matmul + relu chain is library_chain_ms), the card's name and
+power limit, and as its last line {"ok": true, "device": {...}}. Exits
+non-zero on any failure, when no CUDA device is present, and when the
+package is not beside it.
 """
 
 import base64
@@ -272,6 +285,7 @@ import io
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -294,8 +308,8 @@ from nerf_glasses_tpu_torch.io.gltf import (GltfMaterial, GltfMesh, GltfNode,
                                             GltfPrimitive, GltfScene)
 from nerf_glasses_tpu_torch.models import floaty
 from nerf_glasses_tpu_torch.models.renderer import NerfMeshRenderer
-from nerf_glasses_tpu_torch.ops import (hashgrid, march_cuda, mesh_cuda,
-                                        network_cuda)
+from nerf_glasses_tpu_torch.ops import (cuda_build, hashgrid, march_cuda,
+                                        mesh_cuda, network_cuda)
 from nerf_glasses_tpu_torch.ops import occupancy as occ_ops
 from nerf_glasses_tpu_torch.ops import raymarch
 from nerf_glasses_tpu_torch.ops import triangles as tri_ops
@@ -763,38 +777,116 @@ def cuda_ms(fn, reps):
     return a.elapsed_time(b) / reps
 
 
-def other_checkouts(dirs):
-    """-> [(DIR, that checkout's ops/mesh_cuda.py as a module of its own)],
-    its kernels built from its own csrc/."""
+# kernel module of another checkout -> its source in that checkout's csrc/
+OTHER_KERNELS = {"mesh_cuda": "mesh_raycast.cu", "network_cuda": "network.cu"}
+
+
+def other_checkouts(dirs, module):
+    """-> [(DIR, that checkout's ops/<module>.py as a module of its own)]
+    for each DIR that has one, its kernels built from its own csrc/ (the
+    module's source path set to it: a module that locates its source by
+    the package it imports would find this tree's)."""
     others = []
     for k, path in enumerate(dirs):
-        spec = importlib.util.spec_from_file_location(
-            f"mesh_cuda_of_{k}",
-            os.path.join(path, "nerf_glasses_tpu_torch", "ops", "mesh_cuda.py"))
+        pkg = os.path.join(path, "nerf_glasses_tpu_torch")
+        file = os.path.join(pkg, "ops", f"{module}.py")
+        if not os.path.exists(file):
+            continue
+        spec = importlib.util.spec_from_file_location(f"{module}_of_{k}", file)
         mod = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(mod)
+        mod._SOURCE = os.path.join(pkg, "csrc", OTHER_KERNELS[module])
         mod.load_library()
-        print(f"kernels of {path}: nvcc {mod.build_seconds:.2f} s, flags "
-              f"{' '.join(mod.NVCC_FLAGS)}\n{mod.build_log.strip()}")
+        print(f"{module} kernels of {path}: nvcc {mod.build_seconds:.2f} s, "
+              f"flags {' '.join(mod.NVCC_FLAGS)}\n{mod.build_log.strip()}")
         others.append((path, mod))
     return others
 
 
-def in_turns(others, fn_name, check_args, plain, time_args, reps):
-    """Each other checkout's kernel against the plain version's output
-    on check_args, then every version timed on time_args by CUDA events
-    in turns: the others, this tree, this tree, the others reversed."""
-    versions = others + [("this tree", mesh_cuda)]
+def in_turns(others, this, fn_name, check, time_args, timer):
+    """Each other checkout's wrapper `fn_name` checked on time_args by
+    check(label, output), then every version timed by timer(fn) in turns:
+    the others, this tree, this tree, the others reversed -> {version:
+    [ms, ms]}."""
+    versions = others + [("this tree", this)]
     for name, mod in others:
-        print(report(f"{fn_name} of {name}", mesh_cuda.compare_with_plain(
-            getattr(mod, fn_name)(*check_args), plain)))
+        check(f"{fn_name} of {name}", getattr(mod, fn_name)(*time_args))
     times = {name: [] for name, _ in versions}
     for name, mod in versions + versions[::-1]:
         fn = getattr(mod, fn_name)
-        times[name].append(cuda_ms(lambda: fn(*time_args), reps))
+        times[name].append(timer(lambda: fn(*time_args)))
     print(f"{fn_name} in turns: " + "; ".join(
         f"{name} {', '.join(f'{t:.4f}' for t in ts)} ms"
         for name, ts in times.items()))
+    return times
+
+
+def mesh_in_turns(others, fn_name, check_args, plain, time_args, reps):
+    """in_turns for a ray-cast wrapper: each other checkout held against
+    the plain output on check_args, every version timed on time_args by
+    CUDA events."""
+    for name, mod in others:
+        print(report(f"{fn_name} of {name}", mesh_cuda.compare_with_plain(
+            getattr(mod, fn_name)(*check_args), plain)))
+    in_turns(others, mesh_cuda, fn_name, lambda label, out: None, time_args,
+             lambda fn: cuda_ms(fn, reps))
+
+
+KERNEL_NAME = re.compile(r"\d+((?:mlp|rgb_head)_kernel(?:_bf16)?)ILi(\d+)E")
+RES_USAGE = re.compile(r"REG:(\d+) STACK:(\d+) SHARED:\d+ LOCAL:(\d+)")
+TENSOR_CORE_OP = re.compile(r"\b(HGMMA|HMMA)\.")
+LOCAL_OP = re.compile(r"\b(LDL|STL)\b")
+
+
+def mlp_kernel_report(module):
+    """Every instance of mlp_kernel and rgb_head_kernel (f32 body) and of
+    mlp_kernel_bf16 and rgb_head_kernel_bf16 (the tensor-core body) in
+    the library `module` loaded, read from it in this run with cuobjdump:
+    registers, stack and local bytes (-res-usage), the tensor-core
+    instructions (HGMMA, HMMA) and the local-memory loads and stores
+    (LDL, STL: spills) in the SASS (-sass) -> {instance: numbers}. Raises
+    where a bf16 instance spills or holds no tensor-core instruction."""
+    cuobjdump = os.path.join(os.path.dirname(cuda_build.nvcc()), "cuobjdump")
+    lib = module.load_library()._name
+
+    def dump(flag):
+        return subprocess.run([cuobjdump, flag, lib], capture_output=True,
+                              text=True, check=True).stdout.splitlines()
+
+    out, cur = {}, None
+    for line in dump("-res-usage"):
+        k = KERNEL_NAME.search(line) if "Function" in line else None
+        if k:
+            cur = f"{k.group(1)}<{k.group(2)}>"
+        elif "Function" in line:
+            cur = None
+        elif cur and RES_USAGE.search(line):
+            reg, stack, local = map(int, RES_USAGE.search(line).groups())
+            out[cur] = {"registers": reg, "stack_bytes": stack,
+                        "local_bytes": local, "tensor_core_ops": 0,
+                        "local_ops": 0}
+    cur = None
+    for line in dump("-sass"):
+        if "Function :" in line:
+            k = KERNEL_NAME.search(line)
+            cur = f"{k.group(1)}<{k.group(2)}>" if k else None
+        elif cur in out and TENSOR_CORE_OP.search(line):
+            out[cur]["tensor_core_ops"] += 1
+        elif cur in out and LOCAL_OP.search(line):
+            out[cur]["local_ops"] += 1
+    for name, r in sorted(out.items()):
+        print(f"{name}: {r['registers']} registers, {r['stack_bytes']} stack "
+              f"and {r['local_bytes']} local bytes (cuobjdump -res-usage); "
+              f"{r['tensor_core_ops']} tensor-core instructions "
+              f"(HGMMA/HMMA) and {r['local_ops']} local loads and stores "
+              f"(LDL/STL) in the SASS")
+    bf16 = {k: r for k, r in out.items() if "_bf16" in k}
+    if len(bf16) != 4 or any(r["stack_bytes"] or r["local_bytes"]
+                             or r["local_ops"] or r["tensor_core_ops"] < 1
+                             for r in bf16.values()):
+        raise AssertionError(f"the bf16 MLP instances must hold tensor-core "
+                             f"instructions and spill nothing: {bf16}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1257,12 +1349,40 @@ def network_bound(name, args):
                                                 args[5]), peak)
 
 
-def hold_network_calls(calls, label, reps=20):
+def library_chain(name, args):
+    """The recorded call's layer chain as one torch.matmul and one relu a
+    layer in its compute dtype, on its input rows made once (the rgb
+    head's by network_cuda.rgb_row) and its weights cast once -> a
+    function, or None for the encode. A yardstick the port never calls:
+    bf16 operands go to cuBLAS's bf16 GEMMs, whose results are bf16."""
+    if name == "hash_encode":
+        return None
+    cd = args[NETWORK_DTYPE_ARG[name]]
+    if name == "mlp":
+        x, weights = args[0], args[1]
+    else:
+        x, weights = network_cuda.rgb_row(args[0], args[1], args[3],
+                                          args[5]), args[2]
+    h0 = x.to(cd)
+    ws = [w.detach().to(cd) for w in weights]
+
+    def run():
+        h = h0
+        for w in ws[:-1]:
+            h = torch.relu(torch.matmul(h, w.T))
+        return torch.matmul(h, ws[-1].T)
+    return run
+
+
+def hold_network_calls(calls, label, reps=20, others=()):
     """Each recorded network-kernel call (first_network_calls) against its
     plain version on the same inputs under network_cuda.
     compare_with_plain's contract, timed (device time by torch.profiler
     with L2 flushed before each launch, CUDA events around back-to-back
-    wrapper calls, the plain version by events) beside its bound ->
+    wrapper calls, the plain version and the MLPs' library_chain by
+    events) beside its bound; with `others` (other_checkouts of
+    network_cuda), their density MLP and rgb head held to the same
+    contract and timed in turns with this tree's by device time ->
     {wrapper: numbers}. Raises on a disagreement."""
     out = {}
     with torch.no_grad():
@@ -1273,11 +1393,13 @@ def hold_network_calls(calls, label, reps=20):
             dtype = args[NETWORK_DTYPE_ARG[name]]
             got = wrapper(*args)
             torch.cuda.synchronize()
-            cmp = network_cuda.compare_with_plain(kind, got, plain(*args),
-                                                  dtype)
+            want = plain(*args)
+            cmp = network_cuda.compare_with_plain(kind, got, want, dtype)
             ev_ms = cuda_ms(lambda: wrapper(*args), reps)
             k_ms = kernel_device_ms(name, lambda: wrapper(*args), reps)
             p_ms = cuda_ms(lambda: plain(*args), 3)
+            chain = library_chain(name, args)
+            c_ms = None if chain is None else cuda_ms(chain, reps)
             b_ms, b_by = network_bound(name, args)
             rows = args[1 if name == "hash_encode" else 0].shape[0]
             print(f"{label} {kernel} ({str(dtype).split('.')[-1]}) on its "
@@ -1285,32 +1407,107 @@ def hold_network_calls(calls, label, reps=20):
                   f"rows off (allowed {cmp['allowed']}), max |diff| "
                   f"{cmp['max_abs_err']:.3g}, NaN {cmp['nan']}; kernel "
                   f"{k_ms:.4f} ms device (torch.profiler), {ev_ms:.4f} ms by "
-                  f"events, plain {p_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}), "
-                  f"share of bound {b_ms / k_ms:.1%}")
+                  f"events, plain {p_ms:.3f} ms, "
+                  + ("" if c_ms is None else
+                     f"matmul + relu chain {c_ms:.4f} ms by events, ")
+                  + f"bound {b_ms:.4f} ms ({b_by}), share of bound "
+                  f"{b_ms / k_ms:.1%}")
             if not cmp["ok"]:
                 raise AssertionError(f"{label}: {kernel} disagrees with its "
                                      f"plain version: {cmp}")
             out[name] = {"cmp": cmp, "ms": k_ms, "event_ms": ev_ms,
-                         "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                         "plain_ms": p_ms, "library_chain_ms": c_ms,
+                         "bound_ms": b_ms, "bound_by": b_by,
                          "rows": rows, "dtype": str(dtype)}
+            if others and name in ("mlp", "rgb_head"):
+                def check(what, res, kind=kind, want=want, dtype=dtype):
+                    r = network_cuda.compare_with_plain(kind, res, want, dtype)
+                    print(f"{label} {what}: {r['mismatched_rows']} rows off, "
+                          f"max |diff| {r['max_abs_err']:.3g}")
+                    if not r["ok"]:
+                        raise AssertionError(f"{what} disagrees: {r}")
+                out[name]["in_turns"] = in_turns(
+                    others, network_cuda, name, check, args,
+                    lambda fn, name=name: kernel_device_ms(name, fn, reps))
     return out
 
 
-def network_kernels_phase(renderer, nerf, label, max_ops=None, reps=20):
+ACTIVATION_SCALES = (1.0, 8.0, 64.0)
+
+
+def scaled_input_probe(calls, label):
+    """On a frame's recorded bf16 calls of the density MLP and the rgb
+    head: the kernel against its plain version with its input rows (the
+    MLP's encode, the head's features) scaled by ACTIVATION_SCALES, so
+    that hidden activations grow as much and a bf16 step of one with
+    them. The contract's counts are printed at each scale (its fixed 2e-2
+    is held on the frames' own calls, not here); every output must stay
+    within network_cuda.bf16_step_bound of the plain one, or this raises
+    -> {wrapper: {"rows_off_by_input_scale": {scale: numbers}}}."""
+    out = {}
+    with torch.no_grad():
+        for name in ("mlp", "rgb_head"):
+            args = calls[name]
+            dtype = args[NETWORK_DTYPE_ARG[name]]
+            if dtype != torch.bfloat16:
+                raise AssertionError(f"{label} {name}: probe wants a bf16 "
+                                     f"call, got {dtype}")
+            wrapper = getattr(network_cuda, name)
+            plain = getattr(network_cuda, f"{name}_reference")
+            off = {}
+            for sc in ACTIVATION_SCALES:
+                a = (args[0] * sc,) + tuple(args[1:])
+                got, want = wrapper(*a), plain(*a)
+                r = network_cuda.compare_with_plain(
+                    NETWORK_KERNELS[name][1], got, want, dtype)
+                if name == "mlp":
+                    bound = network_cuda.bf16_step_bound(a[0], a[1])
+                else:
+                    feat, dirs, weights, cfg = a[:4]
+                    extra = a[5] if len(a) > 5 else None
+                    bound = network_cuda.bf16_step_bound(
+                        network_cuda.rgb_row(feat, dirs, cfg, extra),
+                        weights)[:, :3]
+                ratio = float(((got - want).abs() / bound).max())
+                off[sc] = {k: r[k] for k in ("mismatched_rows", "allowed",
+                                             "max_abs_err", "nan")}
+                off[sc]["of_step_bound"] = ratio
+                if r["nan"] or not ratio <= 1.0:
+                    raise AssertionError(
+                        f"{label} {name} at {sc:g}x inputs: outside one "
+                        f"bf16 step of every hidden activation ({ratio:.3g} "
+                        f"of the bound, NaN {r['nan']})")
+            print(f"{label} {NETWORK_KERNELS[name][0]}: inputs scaled "
+                  + ", ".join(
+                      f"{sc:g}x: {o['mismatched_rows']} of {args[0].shape[0]} "
+                      f"rows past 2e-2 ({o['allowed']} allowed; max |diff| "
+                      f"{o['max_abs_err']:.4g}, {o['of_step_bound']:.3g} of "
+                      f"the one-step bound)" for sc, o in off.items()))
+            out[name] = {"rows_off_by_input_scale": off}
+    return out
+
+
+def network_kernels_phase(renderer, nerf, label, max_ops=None, reps=20,
+                          others=(), probe=False):
     """The network kernels on the first epoch of one of the renderer's
     exact frames, each held against its plain version and timed beside its
-    bound (hold_network_calls); then a frame with the plain network in the
-    kernels' place (>= 50 dB at the same sample index) and both frames'
-    device operations, busy and wall ms under torch.profiler and their
-    host clock untraced; with max_ops, the kernels' frame under that many
-    device operations -> ({wrapper: numbers}, frame numbers)."""
+    bound (hold_network_calls; `others` timed in turns there; with
+    `probe`, scaled_input_probe on the same calls); then a frame with the
+    plain network in the kernels' place (>= 50 dB at the same sample
+    index) and both frames' device operations, busy and wall ms under
+    torch.profiler and their host clock untraced; with max_ops, the
+    kernels' frame under that many device operations -> ({wrapper:
+    numbers}, frame numbers)."""
     renderer.update_model_view_proj()
     calls = first_network_calls(renderer.frame)
     torch.cuda.synchronize()
     if set(calls) != set(NETWORK_KERNELS):
         raise AssertionError(f"{label}: the frame called {sorted(calls)} of "
                              f"the network kernels")
-    out = hold_network_calls(calls, label, reps)
+    out = hold_network_calls(calls, label, reps, others)
+    if probe:
+        for name, numbers in scaled_input_probe(calls, label).items():
+            out[name].update(numbers)
     del calls
     frames = plain_vs_kernel_frames(renderer, nerf, label, network_cuda,
                                     NETWORK_KERNELS, "network",
@@ -1322,12 +1519,15 @@ def network_kernels_phase(renderer, nerf, label, max_ops=None, reps=20):
     return out, frames
 
 
-def network_entries(net, launches, mc, ref, train):
+def network_entries(net, launches, mc, ref, train, build):
     """The closing line's entries of the network kernels: each measured on
     the exact 720p frame's first epoch (phase 5c) and launched by phase
     4's frames; the multi-cascade frame's numbers (phases 23, 23b), the
     reference config's (phase 15) and, for the encode and the MLP, the
-    trainer's bf16 no-grad queries (phase 14) beside them."""
+    trainer's bf16 no-grad queries (phase 14) beside them; for the MLPs
+    the matmul + relu chain's time, other checkouts' kernels in turns
+    (phase 5c) and each instance's registers, spills and tensor-core
+    instructions (phase 2, mlp_kernel_report)."""
     entries = []
     for name, (kernel, _, replaces) in NETWORK_KERNELS.items():
         r = net[name]
@@ -1350,6 +1550,14 @@ def network_entries(net, launches, mc, ref, train):
             "reference_config_ms": ref["kernels"][name]["ms"],
             "reference_config_plain_ms": ref["kernels"][name]["plain_ms"],
             "reference_config_bound_ms": ref["kernels"][name]["bound_ms"]}
+        if name != "hash_encode":
+            entry["library_chain_ms"] = r["library_chain_ms"]
+            entry["reference_config_library_chain_ms"] = (
+                ref["kernels"][name]["library_chain_ms"])
+            entry["in_turns"] = r.get("in_turns")
+            entry["rows_off_by_input_scale"] = r["rows_off_by_input_scale"]
+            entry["instances"] = {k: v for k, v in build.items()
+                                  if k.startswith(f"{name}_kernel")}
         for which, held in train.items():
             if name in held:
                 t = held[name]
@@ -2934,7 +3142,9 @@ def main(tmp, dirs, multicascade_only=False):
           f"{network_cuda.build_seconds:.2f} s)")
     for m in kernel_modules:
         print(m.build_log.strip())
-    others = other_checkouts(dirs)
+    mlp_build = mlp_kernel_report(network_cuda)
+    others = other_checkouts(dirs, "mesh_cuda")
+    net_others = other_checkouts(dirs, "network_cuda")
 
     glasses = os.path.join(tmp, "glasses.gltf")
     n_tris = write_glasses_gltf(glasses)
@@ -2977,7 +3187,7 @@ def main(tmp, dirs, multicascade_only=False):
           + ", ".join(f"{n.replace('(anonymous namespace)::', '').split('(')[0].strip()}"
                       f" {t:.4f}" for n, (t, _) in ops.items()))
     if others:
-        in_turns(others, "raycast_tiled", args, out_p, args, 50)
+        mesh_in_turns(others, "raycast_tiled", args, out_p, args, 50)
     if not (cmp1["ok"] and cmp1["hits"] > 0):
         raise AssertionError("kernel disagrees with its plain version")
     del out_k, out_p, inp, args
@@ -3052,7 +3262,8 @@ def main(tmp, dirs, multicascade_only=False):
     # 5c: the network kernels on the exact frame's first epoch, and a frame
     # with the plain network in their place
     net, net_frames = network_kernels_phase(renderer, nerf, "exact 720p",
-                                            max_ops=EXACT_FRAME_MAX_OPS)
+                                            max_ops=EXACT_FRAME_MAX_OPS,
+                                            others=net_others, probe=True)
     lap("5c")
 
     # 6: a small frame on the card against the CPU
@@ -3091,8 +3302,8 @@ def main(tmp, dirs, multicascade_only=False):
     if not (cmp2["ok"] and cmp2["hits"] > 0):
         raise AssertionError("untiled kernel disagrees with its plain version")
     if others:
-        in_turns(others, "raycast", (tri_s, o_sub, d_sub), out_p,
-                 (tri_s, o_all, d_all), 5)
+        mesh_in_turns(others, "raycast", (tri_s, o_sub, d_sub), out_p,
+                      (tri_s, o_all, d_all), 5)
     del out_k, out_p, d_all, o_all, d_sub, o_sub
     lap(7)
 
@@ -3268,7 +3479,8 @@ def main(tmp, dirs, multicascade_only=False):
                 "flash 720p (phase 8b)": flash_march["flash"],
                 "baked 720p, flash off (phase 8b)": flash_march["baked"],
                 "multi-cascade flash 720p (phase 24)": mc_march["flash"]})
-        + network_entries(net, net_launches, mc_net, ref_net, train_net),
+        + network_entries(net, net_launches, mc_net, ref_net, train_net,
+                          mlp_build),
         "network_frames": network_frames(net_frames, mc_net, ref_net)}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

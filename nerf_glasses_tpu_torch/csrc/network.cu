@@ -1,5 +1,5 @@
 // The NeRF network's inference forward for Hopper: the hash-grid encode,
-// the density MLP and the SH + rgb head, three kernels.
+// the density MLP and the SH + rgb head.
 //
 // None of them replaces a Pallas kernel. The JAX package leaves the
 // network to XLA (its Pallas hash encode, ops/hashgrid_pallas.py, was
@@ -18,25 +18,57 @@
 //       memory, rows loaded as one float2 / float4, the 8 corners summed
 //       in registers: the (N, 8, F) intermediate the plain version writes
 //       per level is never written. The coarse levels' rows stay in L2.
-//   mlp_kernel (nmr_mlp)                   ::mlp; JAX ops/mlp.py:17
+//   nmr_mlp                                ::mlp; JAX ops/mlp.py:17
 //       mlp_apply (the density MLP of ops/network.py:44-71).
-//   rgb_head_kernel (nmr_rgb_head)         ::rgb_head; JAX ops/network.py:
+//   nmr_rgb_head                           ::rgb_head; JAX ops/network.py:
 //       89 _rgb_head + ops/sh.py:13 sh_encode (rgb_from_features, :111).
-//       Bound: at bf16 operands, bytes (a 32-wide input row and a 16-wide
-//       output row against 3-7k multiply-adds, under the card's 295
-//       flops a byte); at f32, operations outside the tensor cores.
-//       Design: one thread per sample, a grid-stride loop over 128-sample
-//       tiles; all layers' weights rounded to the compute dtype once per
-//       block into shared memory (read straight from the parameters: the
-//       trainer updates them in place), each thread's activations in its
-//       own shared-memory column (conflict-free), the layer's sums in
-//       registers (HID of them) over 16-wide input chunks; the weights
-//       are read as float4 broadcasts. The rgb head builds its input row
-//       (density output, SH(dir), latent codes, zeros) in registers and
-//       runs the same layer loop (mlp_rows, one template for both). No
-//       tensor cores in this first version. HID is 64 (141-144 registers,
-//       no spills on sm_90a) or 128 (255 registers and ~150 bytes of
-//       spills: no configuration of the main path is that wide).
+//
+// The two MLP kernels at the bf16 compute dtype (the main path's):
+// mlp_kernel_bf16 and rgb_head_kernel_bf16, one body (mlp_tc).
+//   Bound: bytes. The density MLP reads a 128-byte f32 encode row (64 at
+//   a bf16 encode) and writes 64 bytes for 3k multiply-adds; the rgb
+//   head reads 76 bytes and writes 12 for 7k (9k with 8 latent dims). To
+//   stream those bytes at 3.35 TB/s the MLP has to run at ~107 TFLOP/s
+//   and the head at ~550: above the CUDA cores' 67 TFLOP/s f32 peak, well
+//   under the tensor cores' 989 bf16. So every layer is a wgmma.
+//   Design: persistent blocks of one warpgroup (128 threads), at most
+//   TC_BLOCKS_PER_SM (4) a multiprocessor, each walking 64-row tiles
+//   (wgmma's M): a block's tile is a chain of dependent steps (ring wait,
+//   A build, one wgmma group a layer), so four blocks keep the SM busy
+//   where one or two leave it waiting (PERF.md section 6). Each
+//   block rounds every layer's weights to bf16 once, from the live
+//   parameters (the trainer updates them in place while the viewer
+//   renders: nothing is cached between launches), into shared memory in
+//   the layout wgmma reads B from: K-major, no swizzle, 8 x 16-byte core
+//   matrices, each one contiguous 128-byte line that wgmma reads without
+//   bank conflicts (kmajor below). Input rows come through a TC_STAGES-deep
+//   ring filled by cp.async, the next tiles' loads in flight while this
+//   tile computes. The first layer's A is the tile rounded to bf16 into
+//   shared memory (the rgb head builds its row there: [feat, SH(dir)
+//   from the plain version's float32 operations, codes, zeros]); each
+//   later layer's A is the previous accumulator after ReLU (NaN kept)
+//   rounded to bf16 and packed in registers: wgmma's accumulator layout
+//   is its register A layout, as FlashAttention-3 reuses P for P.V. No
+//   activation leaves the SM. The last layer runs in 16-column blocks
+//   (the rgb head computes only the 16 holding rgb) and is written in
+//   f32. Tails of fewer than 64 rows are zero rows, masked at the store;
+//   rows and tiles are 64-bit (the bake calls on millions of points).
+//   Hidden widths up to 64 or 128 are the two instances (zero-padded; 90
+//   and 138 registers, no spills). The bound is not reached: the A build
+//   and the three dependent wgmma groups of the rgb head's tile leave the
+//   memory idle between tiles (PERF.md section 6).
+//   The tensor cores sum each k16 chunk at their own internal precision
+//   and in their own order: rows may differ from aten's f32 product of
+//   the rounded operands by a bf16 step of a hidden activation
+//   (ops/network_cuda.py::compare_with_plain's bf16 contract).
+// At the f32 compute dtype (the parity runs) mlp_kernel and
+// rgb_head_kernel keep the first design, one thread per sample on the
+// CUDA cores (mlp_rows): a grid-stride loop over 128-sample tiles, the
+// weights in shared memory read as float4 broadcasts, each thread's
+// activations in its own shared-memory column, f32 fmaf. TF32 or bf16
+// operands would break that dtype's 1e-4 contract. HID 64: 141-144
+// registers; HID 128 spills (~150 bytes). The launcher picks the body by
+// compute dtype; each raises what it does not take.
 //
 // Numerics: the plain versions' rounding points. The build takes
 // -fmad=false; the encode spells its roundings out with __fmul_rn /
@@ -46,14 +78,12 @@
 // power-of-two sizes and `%` otherwise. bf16 rounding is round to
 // nearest even (__float2bfloat16_rn): at a bf16 encode each product is
 // rounded to bf16 and the f32 sum rounded to bf16; the MLPs round inputs
-// and weights to the compute dtype, take products and sums in f32 (fmaf),
+// and weights to the compute dtype, take products and sums in f32,
 // ReLU (NaN kept, as torch.relu), then re-round hidden activations; the
 // last layer stays f32. The SH terms repeat the plain version's float32
 // operations one by one, Python constants rounded to float32. The
 // 8-corner sum and the MLP sums run in another order than aten's: the
 // one source of difference (ops/network_cuda.py::compare_with_plain).
-// Rows are 64-bit indices in a grid-stride loop: the bake calls on
-// millions of points.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -202,10 +232,6 @@ __global__ void __launch_bounds__(ENCODE_THREADS) hash_encode_kernel(
   }
 }
 
-__device__ __forceinline__ float round_c(float x, bool bf16) {
-  return bf16 ? bf16r(x) : x;
-}
-
 // torch.relu: NaN stays NaN.
 __device__ __forceinline__ float relu(float x) {
   return (x != x || x > 0.0f) ? x : 0.0f;
@@ -261,9 +287,9 @@ __device__ __forceinline__ void sh_encode(float d0, float d1, float d2,
   }
 }
 
-// The body of both MLP kernels, one thread per sample. KIND 0: the rows
-// of x are the input (f32 or bf16); KIND 1: the rgb head's row [feat,
-// SH(dir), codes, zeros].
+// The f32 body of both MLP kernels (mlp_kernel, rgb_head_kernel), one
+// thread per sample. KIND 0: the rows of x are the input (f32 or bf16);
+// KIND 1: the rgb head's row [feat, SH(dir), codes, zeros].
 // Shared memory: the weights, layer l as width[l + 1] rows of
 // pad16(width[l]) (zero-padded), then act_rows x blockDim.x activations
 // (thread t's value i at i * blockDim.x + t).
@@ -274,7 +300,6 @@ __device__ __forceinline__ void mlp_rows(
     float* __restrict__ out) {
   extern __shared__ float4 smem4[];
   float* s_w = reinterpret_cast<float*>(smem4);
-  const bool bf = P.round_bf16;
   for (int l = 0; l < P.n_layers; ++l) {
     const int n_in = P.width[l], in_pad = pad16(n_in);
     const int cnt = P.width[l + 1] * in_pad;
@@ -282,7 +307,7 @@ __device__ __forceinline__ void mlp_rows(
     for (int e = threadIdx.x; e < cnt; e += blockDim.x) {
       const int j = e / in_pad, i = e - j * in_pad;
       s_w[P.w_off[l] + e] =
-          i < n_in ? round_c(__ldg(W + (long long)j * n_in + i), bf) : 0.0f;
+          i < n_in ? __ldg(W + (long long)j * n_in + i) : 0.0f;
     }
   }
   __syncthreads();
@@ -299,25 +324,25 @@ __device__ __forceinline__ void mlp_rows(
         const __nv_bfloat16* xr =
             static_cast<const __nv_bfloat16*>(x) + s * n_in;
         for (int i = 0; i < n_in; ++i)
-          a[i * T] = round_c(__bfloat162float(xr[i]), bf);
+          a[i * T] = __bfloat162float(xr[i]);
       } else {
         const float* xr = static_cast<const float*>(x) + s * n_in;
-        for (int i = 0; i < n_in; ++i) a[i * T] = round_c(__ldg(xr + i), bf);
+        for (int i = 0; i < n_in; ++i) a[i * T] = __ldg(xr + i);
       }
       w0 = n_in;
     } else {
       const float* fr = static_cast<const float*>(x) + s * P.n_feat;
-      for (int i = 0; i < P.n_feat; ++i) a[i * T] = round_c(__ldg(fr + i), bf);
+      for (int i = 0; i < P.n_feat; ++i) a[i * T] = __ldg(fr + i);
       w0 = P.n_feat;
       float sh[SH_WIDTH];
       sh_encode(__ldg(dirs + s * 3), __ldg(dirs + s * 3 + 1),
                 __ldg(dirs + s * 3 + 2), P.sh_degree, sh);
 #pragma unroll
-      for (int k = 0; k < SH_WIDTH; ++k) a[(w0 + k) * T] = round_c(sh[k], bf);
+      for (int k = 0; k < SH_WIDTH; ++k) a[(w0 + k) * T] = sh[k];
       w0 += SH_WIDTH;
       const float* er = extra + (P.extra_rows ? s * P.n_extra : 0);
       for (int e = 0; e < P.n_extra; ++e)
-        a[(w0 + e) * T] = round_c(__ldg(er + e), bf);
+        a[(w0 + e) * T] = __ldg(er + e);
       w0 += P.n_extra;
     }
     for (int i = w0; i < pad16(P.width[0]); ++i) a[i * T] = 0.0f;
@@ -352,7 +377,7 @@ __device__ __forceinline__ void mlp_rows(
       if (l + 1 < P.n_layers) {
 #pragma unroll
         for (int j = 0; j < HID; ++j)
-          if (j < n_out) a[j * T] = round_c(relu(acc[j]), bf);
+          if (j < n_out) a[j * T] = relu(acc[j]);
         for (int j = n_out; j < pad16(n_out); ++j) a[j * T] = 0.0f;
       } else {
         float* orow = out + s * P.n_store;
@@ -378,6 +403,529 @@ __global__ void __launch_bounds__(MLP_THREADS) rgb_head_kernel(
     const float* __restrict__ dirs, const float* __restrict__ extra,
     float* __restrict__ out) {
   mlp_rows<HID, 1>(P, n, x, dirs, extra, out);
+}
+
+// ---------------------------------------------------------------------------
+// The tensor-core body (bf16 compute dtype)
+// ---------------------------------------------------------------------------
+
+constexpr int TC_ROWS = 64;           // a tile: wgmma's M
+constexpr int TC_THREADS = 128;       // one warpgroup a block
+constexpr int TC_STAGES = 3;          // the input ring's depth
+constexpr int TC_BLOCKS_PER_SM = 4;   // 4 beat 1 and 2 and equal 8 (H100)
+constexpr int SH_STRIDE = SH_WIDTH + 4;   // an f32 SH row in shared memory:
+                                          // 16-byte rows, no bank conflict
+
+// The shared-memory plan of one launch, in bytes (tc_plan).
+struct TcPlan {
+  int k[MAX_LAYERS];      // layer l's K, zero-padded to 16
+  int rows[MAX_LAYERS];   // its weight rows kept (wgmma's N, zero-padded)
+  int w_off[MAX_LAYERS];  // its bf16 weights in the kmajor layout
+  int codes_off;          // rgb head: codes given once, (E,) f32
+  int a0_off;             // the tile's first-layer A, TC_ROWS x k[0] bf16
+  int ring_off, stage;    // the ring: TC_STAGES stages of `stage` bytes
+  int seg[3], seg_row[3]; // in a stage: x (feat) | dirs | code rows, and
+                          // their bytes a row (0: no such segment)
+  int sh_off;             // in a stage: the rows' SH, f32, SH_STRIDE
+  int smem;
+};
+
+// wgmma's K-major layout without swizzle: 8 rows x 16 bytes (8 bf16) make
+// a core matrix, stored contiguously (row r at 16 r); a row block's core
+// matrices follow each other along K 128 bytes apart (the leading byte
+// offset), the row blocks K / 8 x 128 bytes apart (the stride byte
+// offset). -> the byte offset of element (r, k) of an R x K matrix.
+__device__ __forceinline__ int kmajor(int r, int k, int K) {
+  return (((r >> 3) * (K >> 3) + (k >> 3)) << 7) + ((r & 7) << 4) +
+         ((k & 7) << 1);
+}
+
+// The matrix descriptor of a kmajor matrix of K columns at p: the address,
+// leading byte offset 128 and stride byte offset 16 K, each in 16-byte
+// units; layout type 0 (no swizzle). Advance it by 16 a k16 step and by
+// 2 K a block of 16 rows.
+__device__ __forceinline__ uint64_t kmajor_desc(const void* p, int K) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)(128 >> 4) << 16) |
+         ((uint64_t)K << 32);
+}
+
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keeps the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma region.
+template <int N>
+__device__ __forceinline__ void keep(float* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D (64 x 64 f32, 32 a thread) (+)= A (kmajor in shared memory) . B^T.
+__device__ __forceinline__ void mma_ss_n64(float* d, uint64_t da, uint64_t db,
+                                           int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// The same with A in registers (4 x bf16x2 a thread).
+__device__ __forceinline__ void mma_rs_n64(float* d, const uint32_t* a,
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// 16 columns (8 a thread), A in shared memory.
+__device__ __forceinline__ void mma_ss_n16(float* d, uint64_t da, uint64_t db,
+                                           int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// 16 columns, A in registers.
+__device__ __forceinline__ void mma_rs_n16(float* d, const uint32_t* a,
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint2 pack_bf16x4(const float* v) {
+  return make_uint2(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]));
+}
+
+// A hidden layer's accumulator (N = 16 KS columns) -> the next layer's A:
+// ReLU, bf16, packed. Thread (warp w, lane g * 4 + t) holds, per 8-column
+// block j, (row 16 w + g, columns 8 j + 2 t, + 1) in d[4 j], d[4 j + 1]
+// and row + 8 in d[4 j + 2], d[4 j + 3]; A's k16 step kk wants (row,
+// 16 kk + 2 t, + 1), (row + 8, same), (row, + 8), (row + 8, + 8): blocks
+// 2 kk and 2 kk + 1, in that order.
+template <int KS>
+__device__ __forceinline__ void to_a(const float* d, uint32_t (*a)[4]) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      a[kk][q] = pack_bf16(relu(d[8 * kk + 2 * q]), relu(d[8 * kk + 2 * q + 1]));
+}
+
+// Layer with A in shared memory over nk k16 steps, NB blocks of 64 columns.
+template <int NB>
+__device__ __forceinline__ void layer_ss(float* d, uint64_t da, uint64_t db,
+                                         int nk, int K) {
+  keep<32 * NB>(d);
+  wgmma_fence();
+  for (int kk = 0; kk < nk; ++kk)
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+      mma_ss_n64(d + 32 * nb, da + 16 * kk, db + 16 * kk + (uint64_t)8 * K * nb,
+                 kk > 0);
+  wgmma_commit();
+  wgmma_wait();
+  keep<32 * NB>(d);
+}
+
+// Layer with A in registers, KS k16 steps (K = 16 KS), NB blocks of 64.
+template <int KS, int NB>
+__device__ __forceinline__ void layer_rs(float* d, const uint32_t (*a)[4],
+                                         uint64_t db) {
+  keep<32 * NB>(d);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+      mma_rs_n64(d + 32 * nb, a[kk], db + 16 * kk + (uint64_t)128 * KS * nb,
+                 kk > 0);
+  wgmma_commit();
+  wgmma_wait();
+  keep<32 * NB>(d);
+}
+
+// One 16-column block of the last layer, A in registers.
+template <int KS>
+__device__ __forceinline__ void block_rs16(float* d, const uint32_t (*a)[4],
+                                           uint64_t db) {
+  keep<8>(d);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) mma_rs_n16(d, a[kk], db + 16 * kk, kk > 0);
+  wgmma_commit();
+  wgmma_wait();
+  keep<8>(d);
+}
+
+// One 16-column block of a single-layer MLP, A in shared memory.
+__device__ __forceinline__ void block_ss16(float* d, uint64_t da, uint64_t db,
+                                           int nk) {
+  keep<8>(d);
+  wgmma_fence();
+  for (int kk = 0; kk < nk; ++kk)
+    mma_ss_n16(d, da + 16 * kk, db + 16 * kk, kk > 0);
+  wgmma_commit();
+  wgmma_wait();
+  keep<8>(d);
+}
+
+// Writes a 16-column block (columns c..c + 15 of the tile's rows, this
+// thread's 8) as f32, the columns past n_store and the rows past `rows`
+// left out.
+__device__ __forceinline__ void store_block(const float* d, float* out,
+                                            int n_store, long long row0,
+                                            int rows, int c) {
+  const int lane = threadIdx.x & 31;
+  const int r = (threadIdx.x >> 5) * 16 + (lane >> 2);
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int col = c + 8 * j + 2 * (lane & 3);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int rr = r + 8 * h;
+      if (rr < rows) {
+        float* o = out + (row0 + rr) * n_store + col;
+        if (col < n_store) o[0] = d[4 * j + 2 * h];
+        if (col + 1 < n_store) o[1] = d[4 * j + 2 * h + 1];
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// bytes (even) from src to dst (16-byte aligned) as the block's cp.async
+// pieces: 16 bytes where src is 16-byte aligned, else 4 where it is
+// 4-byte aligned; the rest (a bf16 tail, or a 2-byte aligned src) by
+// plain loads, seen after the next __syncthreads.
+__device__ __forceinline__ void copy_rows(unsigned char* dst,
+                                          const unsigned char* src,
+                                          int bytes) {
+  const uintptr_t al = reinterpret_cast<uintptr_t>(src);
+  int body = 0;
+  if ((al & 15) == 0) {
+    body = bytes & ~15;
+    for (int o = threadIdx.x * 16; o < body; o += TC_THREADS * 16)
+      cp_async16(dst + o, src + o);
+  } else if ((al & 3) == 0) {
+    body = bytes & ~3;
+    for (int o = threadIdx.x * 4; o < body; o += TC_THREADS * 4)
+      cp_async4(dst + o, src + o);
+  }
+  for (int o = body + 2 * threadIdx.x; o < bytes; o += 2 * TC_THREADS)
+    *reinterpret_cast<uint16_t*>(dst + o) =
+        *reinterpret_cast<const uint16_t*>(src + o);
+}
+
+// Tile `tile`'s input rows into ring stage st (not committed).
+template <int KIND>
+__device__ __forceinline__ void load_tile(const MlpParams& P, const TcPlan& Q,
+                                          long long n, long long tile,
+                                          const void* x, const float* dirs,
+                                          const float* extra,
+                                          unsigned char* st) {
+  const long long row0 = tile * TC_ROWS;
+  const int rows = (int)min((long long)TC_ROWS, n - row0);
+  const void* src[3] = {x, dirs, extra};
+#pragma unroll
+  for (int i = 0; i < (KIND == 0 ? 1 : 3); ++i)
+    if (Q.seg_row[i] > 0)
+      copy_rows(st + Q.seg[i],
+                static_cast<const unsigned char*>(src[i]) + row0 * Q.seg_row[i],
+                rows * Q.seg_row[i]);
+}
+
+// Every layer's weights rounded to bf16 into its kmajor block, zero-padded
+// to rows[l] x k[l]; four columns a thread-step (a float4 where the rows
+// allow it).
+__device__ __forceinline__ void stage_weights(const MlpParams& P,
+                                              const TcPlan& Q,
+                                              unsigned char* smem) {
+  for (int l = 0; l < P.n_layers; ++l) {
+    const int n_in = P.width[l], n_out = P.width[l + 1], K = Q.k[l];
+    const int q = K >> 2, cnt = Q.rows[l] * q;
+    const float* W = P.w[l];
+    const bool vec =
+        (n_in & 3) == 0 && (reinterpret_cast<uintptr_t>(W) & 15) == 0;
+    unsigned char* ws = smem + Q.w_off[l];
+#pragma unroll 4
+    for (int e = threadIdx.x; e < cnt; e += TC_THREADS) {
+      const int j = e / q, i = (e - j * q) << 2;
+      float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      if (j < n_out) {
+        const float* wr = W + (long long)j * n_in + i;
+        if (vec) {
+          if (i < n_in) {
+            const float4 t = __ldg(reinterpret_cast<const float4*>(wr));
+            v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+          }
+        } else {
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            if (i + u < n_in) v[u] = __ldg(wr + u);
+        }
+      }
+      *reinterpret_cast<uint2*>(ws + kmajor(j, i, K)) = pack_bf16x4(v);
+    }
+  }
+}
+
+// The tile's first-layer A (TC_ROWS x k[0], kmajor, bf16) from ring stage
+// st: the input rows (KIND 0), or [feat, SH(dir), codes, zeros] (KIND 1,
+// after the SH pass); rows past `rows` are zeros. Four columns a
+// thread-step, read along the rows.
+template <int KIND>
+__device__ __forceinline__ void build_a(const MlpParams& P, const TcPlan& Q,
+                                        unsigned char* smem,
+                                        const unsigned char* st, int rows) {
+  const int K0 = Q.k[0], q = K0 >> 2;
+  unsigned char* a = smem + Q.a0_off;
+  for (int e = threadIdx.x; e < TC_ROWS * q; e += TC_THREADS) {
+    const int r = e / q, k = (e - r * q) << 2;
+    uint2 packed = make_uint2(0u, 0u);
+    if (r < rows) {
+      if (KIND == 0) {
+        const int n_in = P.width[0];
+        if (P.x_bf16) {
+          const __nv_bfloat16* xr =
+              reinterpret_cast<const __nv_bfloat16*>(st + Q.seg[0]) + r * n_in;
+          if ((n_in & 3) == 0) {
+            if (k < n_in) packed = *reinterpret_cast<const uint2*>(xr + k);
+          } else {
+            float v[4];
+#pragma unroll
+            for (int u = 0; u < 4; ++u)
+              v[u] = k + u < n_in ? __bfloat162float(xr[k + u]) : 0.0f;
+            packed = pack_bf16x4(v);
+          }
+        } else {
+          const float* xr =
+              reinterpret_cast<const float*>(st + Q.seg[0]) + r * n_in;
+          float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          if ((n_in & 3) == 0) {
+            if (k < n_in) {
+              const float4 t = *reinterpret_cast<const float4*>(xr + k);
+              v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+            }
+          } else {
+#pragma unroll
+            for (int u = 0; u < 4; ++u)
+              if (k + u < n_in) v[u] = xr[k + u];
+          }
+          packed = pack_bf16x4(v);
+        }
+      } else {
+        const int nf = P.n_feat, ne = P.n_extra;
+        const float* fr = reinterpret_cast<const float*>(st + Q.seg[0]) + r * nf;
+        const float* sr =
+            reinterpret_cast<const float*>(st + Q.sh_off) + r * SH_STRIDE;
+        const float* cr =
+            P.extra_rows
+                ? reinterpret_cast<const float*>(st + Q.seg[2]) + r * ne
+                : reinterpret_cast<const float*>(smem + Q.codes_off);
+        float v[4];
+        if (((nf | ne) & 3) == 0) {   // the chunk lies in one part, aligned
+          const float* src = k < nf                  ? fr + k
+                             : k < nf + SH_WIDTH      ? sr + (k - nf)
+                             : k < nf + SH_WIDTH + ne ? cr + (k - nf - SH_WIDTH)
+                                                      : nullptr;
+          const float4 t = src ? *reinterpret_cast<const float4*>(src)
+                               : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+        } else {
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int c = k + u;
+            v[u] = c < nf                  ? fr[c]
+                   : c < nf + SH_WIDTH      ? sr[c - nf]
+                   : c < nf + SH_WIDTH + ne ? cr[c - nf - SH_WIDTH]
+                                            : 0.0f;
+          }
+        }
+        packed = pack_bf16x4(v);
+      }
+    }
+    *reinterpret_cast<uint2*>(a + kmajor(r, k, K0)) = packed;
+  }
+}
+
+// mlp_kernel_bf16 / rgb_head_kernel_bf16. KIND 0: the rows of x (f32 or
+// bf16) are the input; KIND 1: the rgb head's row.
+template <int HID, int KIND>
+__device__ __forceinline__ void mlp_tc(const MlpParams& P, const TcPlan& Q,
+                                       long long n, const void* __restrict__ x,
+                                       const float* __restrict__ dirs,
+                                       const float* __restrict__ extra,
+                                       float* __restrict__ out) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int KS = HID / 16, NB = HID / 64;
+  const long long n_tiles = (n + TC_ROWS - 1) / TC_ROWS;
+  const long long step = gridDim.x;
+  unsigned char* ring = smem + Q.ring_off;
+  // the first tiles' loads fly while the weights are staged
+#pragma unroll
+  for (int s = 0; s < TC_STAGES - 1; ++s) {
+    const long long tile = blockIdx.x + s * step;
+    if (tile < n_tiles)
+      load_tile<KIND>(P, Q, n, tile, x, dirs, extra, ring + s * Q.stage);
+    cp_async_commit();
+  }
+  stage_weights(P, Q, smem);
+  if (KIND == 1 && !P.extra_rows)
+    for (int e = threadIdx.x; e < P.n_extra; e += TC_THREADS)
+      reinterpret_cast<float*>(smem + Q.codes_off)[e] = __ldg(extra + e);
+  fence_async_shared();
+  __syncthreads();
+
+  const int L = P.n_layers;
+  const uint64_t da = kmajor_desc(smem + Q.a0_off, Q.k[0]);
+  int it = 0;
+  for (long long tile = blockIdx.x; tile < n_tiles; tile += step, ++it) {
+    cp_async_wait<TC_STAGES - 2>();
+    __syncthreads();          // this tile's stage is in; the last one's
+    {                         // stage and A are free
+      const long long next = tile + (TC_STAGES - 1) * step;
+      if (next < n_tiles)
+        load_tile<KIND>(P, Q, n, next, x, dirs, extra,
+                        ring + ((it + TC_STAGES - 1) % TC_STAGES) * Q.stage);
+      cp_async_commit();
+    }
+    const long long row0 = tile * TC_ROWS;
+    const int rows = (int)min((long long)TC_ROWS, n - row0);
+    unsigned char* st = ring + (it % TC_STAGES) * Q.stage;
+    if (KIND == 1) {          // SH of each row: the two halves of the
+      const int r = threadIdx.x & 63, half = threadIdx.x >> 6;   // block
+      if (r < rows) {         // each write half of it
+        const float* d = reinterpret_cast<const float*>(st + Q.seg[1]) + r * 3;
+        float sh[SH_WIDTH];
+        sh_encode(d[0], d[1], d[2], P.sh_degree, sh);
+        float4* s = reinterpret_cast<float4*>(
+            st + Q.sh_off + 4 * (r * SH_STRIDE + 8 * half));
+        s[0] = half ? make_float4(sh[8], sh[9], sh[10], sh[11])
+                    : make_float4(sh[0], sh[1], sh[2], sh[3]);
+        s[1] = half ? make_float4(sh[12], sh[13], sh[14], sh[15])
+                    : make_float4(sh[4], sh[5], sh[6], sh[7]);
+      }
+      __syncthreads();
+    }
+    build_a<KIND>(P, Q, smem, st, rows);
+    fence_async_shared();     // A, written by the threads, for wgmma
+    __syncthreads();
+
+    if (L == 1) {
+      const uint64_t db = kmajor_desc(smem + Q.w_off[0], Q.k[0]);
+      for (int c = 0; c < P.n_store; c += 16) {
+        float o[8];
+        block_ss16(o, da, db + (uint64_t)2 * Q.k[0] * (c >> 4), Q.k[0] >> 4);
+        store_block(o, out, P.n_store, row0, rows, c);
+      }
+      continue;
+    }
+    float h[HID / 2];
+    uint32_t a[KS][4];
+    layer_ss<NB>(h, da, kmajor_desc(smem + Q.w_off[0], Q.k[0]), Q.k[0] >> 4,
+                 Q.k[0]);
+    to_a<KS>(h, a);
+    for (int l = 1; l + 1 < L; ++l) {
+      layer_rs<KS, NB>(h, a, kmajor_desc(smem + Q.w_off[l], HID));
+      to_a<KS>(h, a);
+    }
+    const uint64_t db = kmajor_desc(smem + Q.w_off[L - 1], HID);
+    for (int c = 0; c < P.n_store; c += 16) {
+      float o[8];
+      block_rs16<KS>(o, a, db + (uint64_t)2 * HID * (c >> 4));
+      store_block(o, out, P.n_store, row0, rows, c);
+    }
+  }
+  cp_async_wait<0>();
+}
+
+template <int HID>
+__global__ void __launch_bounds__(TC_THREADS) mlp_kernel_bf16(
+    MlpParams P, TcPlan Q, long long n, const void* __restrict__ x,
+    float* __restrict__ out) {
+  mlp_tc<HID, 0>(P, Q, n, x, nullptr, nullptr, out);
+}
+
+template <int HID>
+__global__ void __launch_bounds__(TC_THREADS) rgb_head_kernel_bf16(
+    MlpParams P, TcPlan Q, long long n, const float* __restrict__ feat,
+    const float* __restrict__ dirs, const float* __restrict__ extra,
+    float* __restrict__ out) {
+  mlp_tc<HID, 1>(P, Q, n, feat, dirs, extra, out);
 }
 
 int sm_count() {
@@ -433,6 +981,85 @@ int launch_mlp_width(const MlpParams& P, long long n, const void* x,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// The tensor-core launch's shared-memory plan for hidden width HID; the
+// rows of each stage in the order load_tile reads them.
+TcPlan tc_plan(const MlpParams& P, int hid, int kind) {
+  TcPlan Q = {};
+  int off = 0;
+  auto take = [&off](int bytes) {
+    const int o = off;
+    off += (bytes + 127) & ~127;
+    return o;
+  };
+  const int L = P.n_layers;
+  for (int l = 0; l < L; ++l) {
+    Q.k[l] = l == 0 ? pad16(P.width[0]) : hid;
+    Q.rows[l] = l + 1 == L ? pad16(P.n_store) : hid;
+    Q.w_off[l] = take(Q.rows[l] * Q.k[l] * 2);
+  }
+  Q.codes_off = take(kind == 1 ? 4 * P.n_extra : 0);
+  Q.a0_off = take(TC_ROWS * Q.k[0] * 2);
+  const int row_bytes[3] = {
+      kind == 0 ? P.width[0] * (P.x_bf16 ? 2 : 4) : 4 * P.n_feat,
+      kind == 0 ? 0 : 12,
+      kind == 1 && P.extra_rows ? 4 * P.n_extra : 0};
+  int s = 0;
+  for (int i = 0; i < 3; ++i) {
+    Q.seg[i] = s;
+    Q.seg_row[i] = row_bytes[i];
+    s += (TC_ROWS * row_bytes[i] + 15) & ~15;
+  }
+  Q.sh_off = s;
+  if (kind == 1) s += TC_ROWS * SH_STRIDE * 4;
+  Q.stage = (s + 127) & ~127;
+  Q.ring_off = take(TC_STAGES * Q.stage);
+  Q.smem = off;
+  return Q;
+}
+
+template <int HID, int KIND>
+int launch_tc(const MlpParams& P, long long n, const void* x,
+              const float* dirs, const float* extra, float* out,
+              cudaStream_t s) {
+  const TcPlan Q = tc_plan(P, HID, KIND);
+  const void* kernel = KIND == 0
+      ? reinterpret_cast<const void*>(mlp_kernel_bf16<HID>)
+      : reinterpret_cast<const void*>(rgb_head_kernel_bf16<HID>);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Q.smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      TC_THREADS, Q.smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  if (per_sm > TC_BLOCKS_PER_SM) per_sm = TC_BLOCKS_PER_SM;
+  long long blocks = (n + TC_ROWS - 1) / TC_ROWS;
+  const long long cap = (long long)per_sm * sm_count();
+  if (blocks > cap) blocks = cap;
+  if (KIND == 0)
+    mlp_kernel_bf16<HID><<<(int)blocks, TC_THREADS, Q.smem, s>>>(P, Q, n, x,
+                                                                 out);
+  else
+    rgb_head_kernel_bf16<HID><<<(int)blocks, TC_THREADS, Q.smem, s>>>(
+        P, Q, n, static_cast<const float*>(x), dirs, extra, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The tensor-core body at hidden width 64 or 128 (the widest hidden
+// layer; a single-layer MLP has none).
+template <int KIND>
+int launch_tc_width(const MlpParams& P, long long n, const void* x,
+                    const float* dirs, const float* extra, float* out,
+                    cudaStream_t s) {
+  int widest = 0;
+  for (int l = 1; l < P.n_layers; ++l)
+    if (P.width[l] > widest) widest = P.width[l];
+  if (widest <= 64) return launch_tc<64, KIND>(P, n, x, dirs, extra, out, s);
+  if (widest <= 128) return launch_tc<128, KIND>(P, n, x, dirs, extra, out, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 // The shared-memory layout of P's layers (w_off, w_total, act_rows);
 // false for widths the kernels do not take.
 bool layout(MlpParams& P) {
@@ -453,7 +1080,9 @@ bool layout(MlpParams& P) {
 
 // Plain C entry points, loaded with ctypes. Each copies the parameters,
 // launches on the given stream, and returns cudaGetLastError() (0 on
-// success, cudaErrorInvalidValue for shapes the kernels do not take).
+// success, cudaErrorInvalidValue for shapes the kernels do not take, the
+// runtime's error for a launch it refuses). The MLPs take the tensor-core
+// body at the bf16 compute dtype and the CUDA-core body at f32.
 
 extern "C" int nmr_hash_encode(const EncodeParams* p, long long n,
                                const float* table, const float* pos,
@@ -479,8 +1108,10 @@ extern "C" int nmr_mlp(const MlpParams* p, long long n, const void* x,
                        float* out, void* stream) {
   MlpParams P = *p;
   if (!layout(P)) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_mlp_width<0>(P, n, x, nullptr, nullptr, out,
-                             static_cast<cudaStream_t>(stream));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (P.round_bf16)
+    return launch_tc_width<0>(P, n, x, nullptr, nullptr, out, s);
+  return launch_mlp_width<0>(P, n, x, nullptr, nullptr, out, s);
 }
 
 extern "C" int nmr_rgb_head(const MlpParams* p, long long n,
@@ -490,6 +1121,8 @@ extern "C" int nmr_rgb_head(const MlpParams* p, long long n,
   if (!layout(P) || P.sh_degree < 1 || P.sh_degree > 4 ||
       P.n_feat + SH_WIDTH + P.n_extra > P.width[0])
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_mlp_width<1>(P, n, feat, dirs, extra, out,
-                             static_cast<cudaStream_t>(stream));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (P.round_bf16)
+    return launch_tc_width<1>(P, n, feat, dirs, extra, out, s);
+  return launch_mlp_width<1>(P, n, feat, dirs, extra, out, s);
 }

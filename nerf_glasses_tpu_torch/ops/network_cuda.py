@@ -12,6 +12,9 @@ and their plain PyTorch versions.
   (JAX ops/network.py:89 _rgb_head + ops/sh.py:13; plain
   `rgb_head_reference`, on sh.sh_encode and mlp.mlp_apply).
 None was a Pallas kernel: the JAX package leaves the network to XLA.
+At the bf16 compute dtype the two MLP kernels run every layer on the
+tensor cores (wgmma, bf16 operands, f32 sums); at f32 on the CUDA cores
+(f32 fmaf), as the f32 contract needs.
 
 The routing rule (`takes_kernel`, applied by ops/network.NerfNetwork to
 all three): a CPU tensor takes the plain version; a CUDA tensor that
@@ -29,8 +32,9 @@ at f32 and within one bf16 ulp at bf16; the MLP outputs and rgb to 1e-4
 x max(1, |ref|) at f32 compute, and at bf16 compute within 2e-2 absolute
 on all but 1e-5 of the rows and within 8e-2 on every row; no NaN. The
 kernels keep the plain versions' rounding points and sum the 8 corners
-and the MLP products in another order than aten: that is the one source
-of difference.
+and the MLP products in another order than aten (the tensor cores also
+at their own internal precision): that is the one source of
+difference.
 """
 
 from __future__ import annotations
@@ -64,11 +68,11 @@ DTYPES = (torch.float32, torch.bfloat16)
 ENCODE_RTOL, ENCODE_ATOL = 1e-5, 1e-6
 MLP_F32_REL = 1e-4
 MLP_BF16_ATOL = 2e-2
-# At bf16 compute an f32 sum a few ulps from aten's can round a hidden
-# activation to the neighbouring bf16 value. Up to 1e-5 of the rows
-# (none under 100,000 rows; fewer than a 128-row tile at the frames'
-# 347,652) may differ by more than MLP_BF16_ATOL, and none by more than
-# MLP_BF16_CAP. Every held call so far differed by 0.0 (PERF.md section 6).
+# At bf16 compute an f32 sum a few ulps from aten's (the tensor cores sum
+# each k16 step in their own order and internal precision) can round a
+# hidden activation to the neighbouring bf16 value. Up to 1e-5 of the
+# rows (none under 100,000 rows; 3 of the frames' 347,652) may differ by
+# more than MLP_BF16_ATOL, and none by more than MLP_BF16_CAP.
 MLP_BF16_ROW_SHARE = 1e-5
 MLP_BF16_CAP = 4 * MLP_BF16_ATOL
 
@@ -155,10 +159,9 @@ def mlp_reference(x, weights, compute_dtype=torch.bfloat16):
     return mlp_apply(x, weights, compute_dtype=compute_dtype)
 
 
-def rgb_head_reference(feat, dir01, weights, config: NGPConfig,
-                       compute_dtype=torch.bfloat16, extra=None):
-    """[feat (N, density_out), SH(dir01), extra ((E,) or (N, E)), zeros
-    to rgb_in_width] through the rgb MLP -> rgb_raw (N, 3) f32."""
+def rgb_row(feat, dir01, config: NGPConfig, extra=None):
+    """The rgb MLP's input rows (N, rgb_in_width) f32: [feat (N,
+    density_out), SH(dir01), extra ((E,) or (N, E)), zeros]."""
     n = feat.shape[0]
     sh = sh_encode(dir01, config.sh_degree, config.sh_out_padded)
     parts = [feat.float(), sh]
@@ -170,7 +173,13 @@ def rgb_head_reference(feat, dir01, weights, config: NGPConfig,
     if width < config.rgb_in_width:
         parts.append(torch.zeros((n, config.rgb_in_width - width),
                                  device=feat.device))
-    return mlp_apply(torch.cat(parts, dim=-1), weights,
+    return torch.cat(parts, dim=-1)
+
+
+def rgb_head_reference(feat, dir01, weights, config: NGPConfig,
+                       compute_dtype=torch.bfloat16, extra=None):
+    """rgb_row through the rgb MLP -> rgb_raw (N, 3) f32."""
+    return mlp_apply(rgb_row(feat, dir01, config, extra), weights,
                      compute_dtype=compute_dtype)[..., :3]
 
 
@@ -289,7 +298,8 @@ def _mlp_params(name, weights, n_in, dev, compute_dtype, **kw) -> MlpParams:
 def mlp(x, weights, compute_dtype=torch.bfloat16):
     """x (N, n_in) f32 or bf16 -> (N, n_out) f32, as mlp_apply: weights
     (n_out, n_in) f32, ReLU between layers, hidden widths <= 128. On a
-    CUDA tensor one launch of nmr_mlp (none for N = 0)."""
+    CUDA tensor one launch of nmr_mlp (none for N = 0); a shape whose
+    tiles overflow a block's shared memory raises RuntimeError."""
     dev = _device("mlp", x)
     _dtype("mlp", compute_dtype)
     _check("x", x, DTYPES, (None, None), dev)
@@ -396,6 +406,28 @@ def compare_with_plain(kind: str, out_k, out_p, dtype) -> dict:
     return {"rows": rows, "mismatched_rows": bad_rows, "allowed": allowed,
             "max_abs_err": err, "nan": nan,
             "ok": nan == 0 and bad_rows <= allowed and capped}
+
+
+def bf16_step_bound(rows, weights) -> torch.Tensor:
+    """The most each output of mlp_apply at bf16 compute may move when
+    every hidden activation rounds to the neighbouring bf16 value (what
+    another order or precision of the f32 sums does at a rounding
+    midpoint), from the plain version's own activations: each layer's
+    step carried through |W| (ReLU moves nothing further), plus 1e-5 x
+    max(1, |out|) for the last f32 sum. rows (N, K) as the MLP's input
+    (rgb_row for the rgb head) -> (N, n_out) f32. A bf16 step of an
+    activation of 4 or more is 2^-5 or more, past the contract's fixed
+    2e-2 where a weight near 1 carries it to an output; this bound grows
+    with the activations."""
+    h = rows.float().to(torch.bfloat16).float()
+    err = torch.zeros_like(h)
+    for w in weights[:-1]:
+        wb = w.to(torch.bfloat16).float()
+        pre = torch.relu(h @ wb.T)
+        err = err @ wb.abs().T + bf16_ulp(pre)
+        h = pre.to(torch.bfloat16).float()
+    wb = weights[-1].to(torch.bfloat16).float()
+    return err @ wb.abs().T + 1e-5 * torch.clamp((h @ wb.T).abs(), min=1.0)
 
 
 # ---------------------------------------------------------------------------

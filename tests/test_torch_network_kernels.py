@@ -19,6 +19,12 @@ Tolerances:
   order than aten's. The models are float32 numpy code that follows each
   kernel line by line, one thread's work vectorised over threads; the
   kernels' fmaf is an exactly rounded fused multiply-add (`_fma32`).
+  At the bf16 compute dtype the MLP kernels run on the tensor cores
+  (wgmma): `_tc_layers_model` takes each k16 step's 16 products summed
+  exactly and rounded to f32 once into the f32 accumulator, the
+  instruction's order; the hardware's step sum is wider than f32 and
+  truncates, so the model stands for the order, held under the same
+  contract, not for the last bit.
 - the plain versions against JAX: tests/test_torch_network.py's bars,
   1e-5 / 1e-6 for the f32 encode, 1e-4 after an f32 MLP, 2e-2 absolute
   at bf16 (hidden activations rounded to bf16 on both sides; an f32 sum
@@ -125,10 +131,6 @@ def _bf16(x):
     return np.where(np.isnan(x), x, r.view(F32))
 
 
-def _round_c(x, bf16):
-    return _bf16(x) if bf16 else np.asarray(x, F32)
-
-
 def _fma32(a, b, c):
     """fmaf(a, b, c): a * b + c rounded to float32 once. The float64
     product is exact; TwoSum gives the float64 sum's exact error, which
@@ -196,31 +198,58 @@ def _encode_model(table, pos, jc, bf16):
     return out, idx_all, w_all
 
 
-def _layers_model(a, weights, bf16, n_store):
-    """mlp_kernel's layer loop on the rows `a` (N, width[0]), already
-    rounded: each layer's sums as fmaf chains over the zero-padded input
-    in order; ReLU (NaN kept) and the compute dtype between layers; the
-    last layer's first n_store columns in f32."""
+def _layers_model(a, weights, n_store):
+    """mlp_kernel's (the f32 body's) layer loop on the rows `a` (N,
+    width[0]): each layer's sums as fmaf chains over the zero-padded input
+    in order; ReLU (NaN kept) between layers; the last layer's first
+    n_store columns."""
     for k, w in enumerate(weights):
         n_out, n_in = w.shape
         pad = -(-n_in // 16) * 16
         wr = np.zeros((n_out, pad), F32)
-        wr[:, :n_in] = _round_c(w, bf16)
+        wr[:, :n_in] = w
         x = np.zeros((a.shape[0], pad), F32)
         x[:, :n_in] = a
         acc = np.zeros((a.shape[0], n_out), F32)
         for i in range(pad):
             acc = _fma32(x[:, i:i + 1], wr[None, :, i], acc)
         if k + 1 < len(weights):
-            relu = np.where(np.isnan(acc) | (acc > 0), acc, F32(0.0))
-            a = _round_c(relu, bf16)
+            a = np.where(np.isnan(acc) | (acc > 0), acc, F32(0.0))
+        else:
+            return acc[:, :n_store]
+
+
+def _tc_layers_model(a, weights, n_store):
+    """mlp_kernel_bf16's / rgb_head_kernel_bf16's layer chain on the rows
+    `a` (N, width[0]), already rounded to bf16: bf16 weights, each
+    layer's K zero-padded to 16 and taken in k16 steps, a step's 16
+    products summed exactly (float64) and rounded to f32 once, then added
+    to the f32 accumulator; ReLU (NaN kept) and bf16 between layers; the
+    last layer's first n_store columns in f32."""
+    for k, w in enumerate(weights):
+        n_out, n_in = w.shape
+        pad = -(-n_in // 16) * 16
+        wr = np.zeros((n_out, pad), np.float64)
+        wr[:, :n_in] = _bf16(w)
+        x = np.zeros((a.shape[0], pad), np.float64)
+        x[:, :n_in] = a
+        acc = np.zeros((a.shape[0], n_out), F32)
+        with np.errstate(invalid="ignore"):
+            for c in range(0, pad, 16):
+                step = (x[:, c:c + 16] @ wr[:, c:c + 16].T).astype(F32)
+                acc = (acc + step).astype(F32)
+        if k + 1 < len(weights):
+            a = _bf16(np.where(np.isnan(acc) | (acc > 0), acc, F32(0.0)))
         else:
             return acc[:, :n_store]
 
 
 def _mlp_model(x, weights, bf16):
-    """nmr_mlp: the input row rounded to the compute dtype, the layers."""
-    return _layers_model(_round_c(x, bf16), weights, bf16, weights[-1].shape[0])
+    """nmr_mlp: at bf16 the input row rounded to bf16 and the tensor-core
+    chain, at f32 the f32 body's layers."""
+    if bf16:
+        return _tc_layers_model(_bf16(x), weights, weights[-1].shape[0])
+    return _layers_model(x, weights, weights[-1].shape[0])
 
 
 def _sh_model(d, degree):
@@ -260,8 +289,8 @@ def _sh_model(d, degree):
 
 
 def _rgb_head_model(feat, dirs, weights, jc, bf16, extra=None):
-    """nmr_rgb_head: the row [feat, SH(dir), codes, zeros] rounded to the
-    compute dtype, the layers, columns 0-2."""
+    """nmr_rgb_head: the row [feat, SH(dir), codes, zeros], then as
+    _mlp_model (at bf16 rounded, the tensor-core chain), columns 0-2."""
     n = feat.shape[0]
     row = np.zeros((n, jc.rgb_in_width), F32)
     nf = feat.shape[1]
@@ -270,7 +299,9 @@ def _rgb_head_model(feat, dirs, weights, jc, bf16, extra=None):
     if extra is not None:
         row[:, nf + 16:nf + 16 + extra.shape[-1]] = np.broadcast_to(
             extra, (n, extra.shape[-1]))
-    return _layers_model(_round_c(row, bf16), weights, bf16, 3)
+    if bf16:
+        return _tc_layers_model(_bf16(row), weights, 3)
+    return _layers_model(row, weights, 3)
 
 
 def _assert_contract(kind, model, plain, dtype):
@@ -448,6 +479,121 @@ def test_rgb_head_model_edge_counts(n):
     assert plain.shape == (n, 3)
     _assert_contract("rgb", _rgb_head_model(feat, dirs, weights, jc, True,
                                             codes), plain, torch.bfloat16)
+
+
+def _tc_case(kind, hid):
+    """A density MLP (kind "mlp", 32 -> hid -> 16) or an rgb head of input
+    width 32 ("rgb32") or 48 (8 latent dims, "rgb48"; hid -> hid -> 16)."""
+    E = 8 if kind == "rgb48" else 0
+    jc = JCfg(n_extra_learnable_dims=E, log2_hashmap_size=15,
+              density_neurons=hid, rgb_neurons=hid)
+    d_shapes, r_shapes = jc.mlp_shapes()
+    return jc, _mlp_weights(d_shapes if kind == "mlp" else r_shapes,
+                            seed=20 + hid + E)
+
+
+def _tc_inputs(jc, n, seed, scale=50.0):
+    """Density-MLP rows (n, 32), two columns `scale` times the rest (50:
+    hidden sums up to ~100 on some rows), features (n, 16), directions
+    and per-row codes (n, E), made with numpy from a seed."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, jc.n_pos_features)).astype(F32)
+    x[:, :2] *= scale
+    feat = (rng.standard_normal((n, 16)) * 2.0).astype(F32)
+    codes = rng.standard_normal((n, jc.n_extra_learnable_dims)).astype(F32)
+    return x, feat, _dirs(max(n, 3), seed)[:n], codes
+
+
+def _hold_nan_rows(kind, got, want, dtype, nan_rows):
+    """Rows `nan_rows` NaN in every column on both sides; the others under
+    compare_with_plain's contract."""
+    got, want = torch.as_tensor(got), torch.as_tensor(want)
+    assert bool(torch.isnan(got[nan_rows]).all())
+    assert bool(torch.isnan(want[nan_rows]).all())
+    keep = torch.ones(got.shape[0], dtype=torch.bool)
+    keep[nan_rows] = False
+    r = nc.compare_with_plain(kind, got[keep.to(got.device)],
+                              want[keep.to(want.device)], dtype)
+    assert r["ok"], r
+    return r
+
+
+@pytest.mark.parametrize("n", [0, 1, 63, 64, 65, 300])
+@pytest.mark.parametrize("hid", [64, 128])
+@pytest.mark.parametrize("kind", ["mlp", "rgb32", "rgb48"])
+def test_tensor_core_model_matches_plain(kind, hid, n):
+    """The wgmma chain's k16-step sums against aten's f32 product of the
+    rounded operands, at both hidden widths, both rgb input widths, and
+    row counts around the 64-row tile."""
+    jc, weights = _tc_case(kind, hid)
+    x, feat, dirs, codes = _tc_inputs(jc, n, seed=hid + n)
+    tw = [torch.as_tensor(w) for w in weights]
+    if kind == "mlp":
+        for xin in (x, _bf16(x)):        # an f32 and a bf16 encode
+            tx = torch.as_tensor(xin)
+            if xin is not x:
+                tx = tx.to(torch.bfloat16)
+            plain = nc.mlp_reference(tx, tw, torch.bfloat16)
+            assert plain.shape == (n, 16)
+            _assert_contract("mlp", _mlp_model(xin, weights, True), plain,
+                             torch.bfloat16)
+        return
+    extra = codes if kind == "rgb48" else None
+    plain = nc.rgb_head_reference(
+        torch.as_tensor(feat), torch.as_tensor(dirs), tw, _tcfg(jc),
+        torch.bfloat16, None if extra is None else torch.as_tensor(extra))
+    assert plain.shape == (n, 3)
+    model = _rgb_head_model(feat, dirs, weights, jc, True, extra)
+    _assert_contract("rgb", model, plain, torch.bfloat16)
+
+
+@pytest.mark.parametrize("hid", [64, 128])
+def test_tensor_core_model_keeps_nan(hid):
+    """A NaN input stays NaN through ReLU: its row is NaN in every column,
+    as in the plain version; the other rows keep the contract."""
+    for kind in ("mlp", "rgb48"):
+        jc, weights = _tc_case(kind, hid)
+        x, feat, dirs, codes = _tc_inputs(jc, 70, seed=5)
+        x[3, 7] = np.nan
+        feat[3, 5] = np.nan
+        tw = [torch.as_tensor(w) for w in weights]
+        if kind == "mlp":
+            model = _mlp_model(x, weights, True)
+            plain = nc.mlp_reference(torch.as_tensor(x), tw, torch.bfloat16)
+        else:
+            model = _rgb_head_model(feat, dirs, weights, jc, True, codes)
+            plain = nc.rgb_head_reference(
+                torch.as_tensor(feat), torch.as_tensor(dirs), tw, _tcfg(jc),
+                torch.bfloat16, torch.as_tensor(codes))
+        _hold_nan_rows(kind[:3], model, plain, torch.bfloat16, [3])
+
+
+@pytest.mark.parametrize("hid", [64, 128])
+@pytest.mark.parametrize("kind", ["mlp", "rgb48"])
+def test_tensor_core_model_within_one_bf16_step(kind, hid):
+    """At inputs 50x and 200x the encode's scale (hidden sums in the
+    hundreds) the wgmma chain's model stays within bf16_step_bound of the
+    plain version: a sum rounded apart moves an output by at most one
+    bf16 step of each hidden activation carried through |W|."""
+    jc, weights = _tc_case(kind, hid)
+    tw = [torch.as_tensor(w) for w in weights]
+    for scale in (50.0, 200.0):
+        x, feat, dirs, codes = _tc_inputs(jc, 2000, seed=hid, scale=scale)
+        if kind == "mlp":
+            model = torch.as_tensor(_mlp_model(x, weights, True))
+            plain = nc.mlp_reference(torch.as_tensor(x), tw, torch.bfloat16)
+            bound = nc.bf16_step_bound(torch.as_tensor(x), tw)
+        else:
+            feat *= scale / 2.0
+            t = [torch.as_tensor(a) for a in (feat, dirs, codes)]
+            model = torch.as_tensor(
+                _rgb_head_model(feat, dirs, weights, jc, True, codes))
+            plain = nc.rgb_head_reference(t[0], t[1], tw, _tcfg(jc),
+                                          torch.bfloat16, t[2])
+            bound = nc.bf16_step_bound(
+                nc.rgb_row(t[0], t[1], _tcfg(jc), t[2]), tw)[:, :3]
+        assert model.shape == plain.shape == bound.shape
+        assert bool(((model - plain).abs() <= bound).all())
 
 
 # ---------------------------------------------------------------------------
@@ -766,3 +912,112 @@ def test_rgb_head_kernel_matches_plain_on_card(dtype, extra):
         "rgb", nc.rgb_head(feat, dirs, tw, tc, cd, codes),
         nc.rgb_head_reference(feat, dirs, tw, tc, cd, codes), cd)
     assert r["ok"], r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hid", [64, 128])
+def test_tensor_core_kernels_at_large_activations_on_card(hid):
+    """With hidden sums up to ~100 (inputs 50x), a bf16 step of a hidden
+    activation is 0.25-0.5, and the tensor cores' sums round some of them
+    the other way than aten's f32 GEMM: rows then differ by more than the
+    contract's 2e-2 (with a frame's inputs scaled 64x, 0.02-0.06% of its
+    rows on an H100, PERF.md section 6). Every output stays within one
+    bf16 step of every hidden activation of the plain version's
+    (`network_cuda.bf16_step_bound`)."""
+    _needs_card()
+    jc, r_w = _tc_case("rgb32", hid)
+    _, d_w = _tc_case("mlp", hid)
+    tc = _tcfg(jc)
+    dw = [torch.as_tensor(w, device="cuda") for w in d_w]
+    rw = [torch.as_tensor(w, device="cuda") for w in r_w]
+    x, feat, dirs, _ = (torch.as_tensor(a, device="cuda")
+                        for a in _tc_inputs(jc, 20_000, seed=hid))
+    feat = feat * 25.0
+    bf = torch.bfloat16
+    got = nc.mlp(x, dw, bf)
+    bound = nc.bf16_step_bound(x, dw)
+    assert bool(((got - nc.mlp_reference(x, dw, bf)).abs() <= bound).all())
+    got = nc.rgb_head(feat, dirs, rw, tc, bf)
+    bound = nc.bf16_step_bound(nc.rgb_row(feat, dirs, tc), rw)[:, :3]
+    assert bool(((got - nc.rgb_head_reference(feat, dirs, rw, tc, bf)).abs()
+                 <= bound).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra", ["none", "codes", "rows"])
+@pytest.mark.parametrize("hid", [64, 128])
+def test_tensor_core_kernels_match_plain_on_card(hid, extra):
+    """The bf16 MLP kernels (the tensor-core body) at both hidden widths,
+    with no codes, codes given once and per row, on row counts that are
+    not multiples of the 64-row tile; a NaN input row stays NaN. Inputs
+    at the encode's scale (the 50x rows are the case above)."""
+    _needs_card()
+    kind = "rgb32" if extra == "none" else "rgb48"
+    jc, r_w = _tc_case(kind, hid)
+    _, d_w = _tc_case("mlp", hid)
+    tc = _tcfg(jc)
+    dw = [torch.as_tensor(w, device="cuda") for w in d_w]
+    rw = [torch.as_tensor(w, device="cuda") for w in r_w]
+    bf = torch.bfloat16
+    for n in (1, 63, 65, 4099):
+        x, feat, dirs, codes = _tc_inputs(jc, n, seed=n, scale=1.0)
+        if n > 1:
+            x[1, 7] = np.nan
+            feat[1, 5] = np.nan
+        x, feat, dirs = (torch.as_tensor(a, device="cuda")
+                         for a in (x, feat, dirs))
+        codes = {"none": None, "codes": torch.as_tensor(codes[0], device="cuda"),
+                 "rows": torch.as_tensor(codes, device="cuda")}[extra]
+        before = dict(nc.launches)
+        for xin in (x, x.to(bf)):
+            _hold_nan_rows("mlp", nc.mlp(xin, dw, bf),
+                           nc.mlp_reference(xin, dw, bf), bf,
+                           [1] if n > 1 else [])
+        _hold_nan_rows("rgb", nc.rgb_head(feat, dirs, rw, tc, bf, codes),
+                       nc.rgb_head_reference(feat, dirs, rw, tc, bf, codes),
+                       bf, [1] if n > 1 else [])
+        torch.cuda.synchronize()
+        assert nc.launches["mlp"] == before["mlp"] + 2
+        assert nc.launches["rgb_head"] == before["rgb_head"] + 1
+
+
+@pytest.mark.cuda
+def test_kernels_see_weights_changed_in_place_on_card():
+    """Nothing is cached between launches: weights updated in place (as
+    the trainer does while the viewer renders) reach the next launch."""
+    _needs_card()
+    jc, r_w = _tc_case("rgb32", 64)
+    _, d_w = _tc_case("mlp", 64)
+    tc = _tcfg(jc)
+    x, feat, dirs, _ = (torch.as_tensor(a, device="cuda")
+                        for a in _tc_inputs(jc, 300, seed=4))
+    for cd in DTYPES.values():
+        dw = [torch.as_tensor(w, device="cuda") for w in d_w]
+        rw = [torch.as_tensor(w, device="cuda") for w in r_w]
+        first = (nc.mlp(x, dw, cd), nc.rgb_head(feat, dirs, rw, tc, cd))
+        dw[0].mul_(-0.5)
+        rw[1].mul_(-0.5)
+        second = (nc.mlp(x, dw, cd), nc.rgb_head(feat, dirs, rw, tc, cd))
+        for a, b in zip(first, second):
+            assert not torch.equal(a, b)
+        assert nc.compare_with_plain("mlp", second[0],
+                                     nc.mlp_reference(x, dw, cd), cd)["ok"]
+        assert nc.compare_with_plain(
+            "rgb", second[1], nc.rgb_head_reference(feat, dirs, rw, tc, cd),
+            cd)["ok"]
+
+
+@pytest.mark.cuda
+def test_unsupported_shape_raises_on_card():
+    """A shape the wrapper takes but no kernel body can hold (an 8192-wide
+    input row: its tile and ring exceed a block's shared memory) raises;
+    no plain version runs in its place."""
+    _needs_card()
+    x = torch.zeros((64, 8192), device="cuda")
+    ws = [torch.zeros((64, 8192), device="cuda"),
+          torch.zeros((16, 64), device="cuda")]
+    for cd in DTYPES.values():
+        before = dict(nc.launches)
+        with pytest.raises(RuntimeError):
+            nc.mlp(x, ws, cd)
+        assert nc.launches == before
