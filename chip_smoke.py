@@ -10,8 +10,11 @@ checkout of the repository (for example the parent commit unpacked with
 (ops/mesh_cuda.py) and network kernels (ops/network_cuda.py), where it
 has them, are built from its own csrc/, held against the plain versions
 and timed in turns with this tree's: the ray-casts in phases 3 and 7 by
-CUDA events, the density MLP and the rgb head on phase 5c's recorded
-calls by device time. The smoke run itself takes no argument.
+CUDA events, the network kernels it has on phases 4b's, 5c's and 15's
+recorded calls by device time. A variant of a kernel is timed the same
+way: a copy of this tree unpacked under the git-ignored _chipwork/ with
+the variant edited in (for example network.cu's ENCODE_MLP_BLOCKS_PER_SM)
+and given as a DIR. The smoke run itself takes no argument.
 
 Drives the port's main path, the hybrid frame, the way a user calls it:
 NerfMeshRenderer(1280, 720).load_nerf(trained snapshot) + load_mesh(a
@@ -22,10 +25,11 @@ procedural glasses glTF written here) + frame(), with the mesh pass at
   2. card, power limit, torch/CUDA versions; build the mesh ray-cast,
      march and network kernels from nerf_glasses_tpu_torch/csrc, one nvcc
      per source, in parallel (timed); every instance of the MLP kernels'
-     registers, stack and local bytes (`cuobjdump -res-usage` of the
-     loaded library), tensor-core instructions (HGMMA or HMMA) and local
-     loads and stores (LDL, STL) in its SASS (`cuobjdump -sass`): the
-     bf16 instances must hold tensor-core instructions and spill nothing;
+     and of the fused encode + density MLP's registers, stack and local
+     bytes (`cuobjdump -res-usage` of the loaded library), tensor-core
+     instructions (HGMMA or HMMA) and local loads and stores (LDL, STL)
+     in its SASS (`cuobjdump -sass`): the bf16 and fused instances must
+     hold tensor-core instructions and spill nothing;
   3. the tiled kernel against its plain PyTorch version at the main
      path's shapes (2560x1440 rays, tile-padded to 2560x1472, binned
      against the glasses) under mesh_cuda.compare_with_plain's contract
@@ -36,10 +40,18 @@ procedural glasses glTF written here) + frame(), with the mesh pass at
   4. the slice: 1 warm-up + 3 timed frames at 1280x720; the frame is
      finite, the head covers a plausible share, mesh pixels are present
      and the kernel was launched by the frames (its launch count is
-     zeroed just before and read just after), and so were the march and
-     the three network kernels, with no network call on the card taking a
-     plain version (network_cuda.plain_on_card stays 0; phases 8, 17, 20,
-     23 and 24 check the same on their renders, sweep, collide and bakes);
+     zeroed just before and read just after), and so were the march
+     kernels, the fused encode + density MLP and the rgb head, with the
+     standalone encode and MLP launched no time (at the bf16 compute dtype
+     the fused kernel serves every density call) and no network call on
+     the card taking a plain version (network_cuda.plain_on_card stays 0;
+     phases 8, 14, 17, 20, 23 and 24 check the same on their renders,
+     queries, sweep, collide and bakes);
+ 4b. one such frame at the f32 compute dtype: the standalone encode and
+     MLP kernels and the rgb head launched, the fused kernel not; the
+     standalone encode's and MLP's first-epoch calls recorded from the
+     frame and held and timed as in 5c under the f32 contract (the
+     closing line's entries of the two: these launches, these calls);
   5. one frame with the plain ray-cast in the kernel's place: >= 50 dB
      PSNR against the kernel's frame at the same sample index;
  5b. the march kernels (csrc/march.cu) on the first epoch of an exact
@@ -60,17 +72,24 @@ procedural glasses glTF written here) + frame(), with the mesh pass at
      kernels' frame under 10,000 device operations. Phase 4's frames
      launched the advance, samples and composite kernels (counts zeroed
      just before, read just after);
- 5c. the network kernels (csrc/network.cu: hash encode, density MLP, SH +
-     rgb head) on the same frame's first-epoch network call, its inputs
-     recorded from the wrappers' own calls: each against its plain
+ 5c. the network kernels of the bf16 frame (csrc/network.cu: the fused
+     encode + density MLP, SH + rgb head) on the same frame's first-epoch
+     network call, its inputs recorded from the wrappers' own calls; the
+     fused kernel against the standalone encode followed by the bf16
+     density MLP on its inputs bit for bit, beside that pair's device time
+     (a yardstick: no path of the port launches the pair at bf16) and the
+     L2 sectors a (sample, level) each gather requests, counted on the
+     host (network_cuda.encode_gather_sectors); each against its plain
      version under network_cuda.compare_with_plain's contract (encode to
      rtol 1e-5 / atol 1e-6 at f32, one bf16 ulp at bf16; MLP and rgb to
      1e-4 x max(1, |ref|) at f32; at bf16 2e-2 on all but 1e-5 of the
      rows and 8e-2 on every row; no NaN), the mismatch counts printed,
      device time by torch.profiler (L2 flushed before each launch) and by
-     CUDA events beside the plain version's time, the MLPs' layer chain
-     as bf16 torch.matmul + relu calls (a yardstick the port never
-     calls), the MLPs with their inputs scaled 1x, 8x and 64x: rows past
+     CUDA events beside the plain version's time, an MLP's layer chain
+     as torch.matmul + relu calls in its compute dtype (a yardstick the
+     port never calls; the rgb head's here, 4b's f32 MLP's), the fused kernel with its table and the rgb head with its
+     features scaled 1x, 8x and 64x (a power of two: the encode scales
+     exactly, so the density MLP's input rows scale with it): rows past
      the contract's 2e-2 printed, every output within one bf16 step of
      every hidden activation (network_cuda.bf16_step_bound) checked; the
      bound (bytes read and written once over 3.35 TB/s against the
@@ -122,9 +141,9 @@ procedural glasses glTF written here) + frame(), with the mesh pass at
      hash encode's corner offsets cached on the device and, in the same
      call, rebuilt from the host on every level as before; the trainer's
      no-grad density queries in its bf16 encode and compute dtypes (one
-     density-grid refresh, one compaction-gate query) launch the encode
-     and MLP kernels with no plain call on the card, and each recorded
-     call is held against its plain version as in phase 5c;
+     density-grid refresh, one compaction-gate query) launch the fused
+     encode + MLP kernel with no plain call on the card, and each
+     recorded call is held against its plain version as in phase 5c;
  15. the train app's default config (16 levels x 2 features, 2^19-row
      tables, 64-wide MLPs): 16 settle + 32 timed steps, the loss finite
      and falling, peak memory; then on to 128 steps from scratch (the
@@ -832,20 +851,30 @@ def mesh_in_turns(others, fn_name, check_args, plain, time_args, reps):
              lambda fn: cuda_ms(fn, reps))
 
 
-KERNEL_NAME = re.compile(r"\d+((?:mlp|rgb_head)_kernel(?:_bf16)?)ILi(\d+)E")
+KERNEL_NAME = re.compile(
+    r"\d+((?:mlp|rgb_head|encode_mlp)_kernel(?:_bf16)?)ILi(\d+)E(?:Li(\d+)E)?")
 RES_USAGE = re.compile(r"REG:(\d+) STACK:(\d+) SHARED:\d+ LOCAL:(\d+)")
 TENSOR_CORE_OP = re.compile(r"\b(HGMMA|HMMA)\.")
 LOCAL_OP = re.compile(r"\b(LDL|STL)\b")
 
 
+def instance_name(match):
+    """A KERNEL_NAME match -> "kernel<HID>" or "kernel<HID, F>"."""
+    args = [a for a in match.group(2, 3) if a]
+    return f"{match.group(1)}<{', '.join(args)}>"
+
+
 def mlp_kernel_report(module):
-    """Every instance of mlp_kernel and rgb_head_kernel (f32 body) and of
-    mlp_kernel_bf16 and rgb_head_kernel_bf16 (the tensor-core body) in
+    """Every instance of mlp_kernel and rgb_head_kernel (f32 body), of
+    mlp_kernel_bf16 and rgb_head_kernel_bf16 (the tensor-core body) and
+    of encode_mlp_kernel (the fused encode + tensor-core body, one
+    instance a hidden width and feature count) in
     the library `module` loaded, read from it in this run with cuobjdump:
     registers, stack and local bytes (-res-usage), the tensor-core
     instructions (HGMMA, HMMA) and the local-memory loads and stores
     (LDL, STL: spills) in the SASS (-sass) -> {instance: numbers}. Raises
-    where a bf16 instance spills or holds no tensor-core instruction."""
+    where a tensor-core instance spills or holds no tensor-core
+    instruction."""
     cuobjdump = os.path.join(os.path.dirname(cuda_build.nvcc()), "cuobjdump")
     lib = module.load_library()._name
 
@@ -857,7 +886,7 @@ def mlp_kernel_report(module):
     for line in dump("-res-usage"):
         k = KERNEL_NAME.search(line) if "Function" in line else None
         if k:
-            cur = f"{k.group(1)}<{k.group(2)}>"
+            cur = instance_name(k)
         elif "Function" in line:
             cur = None
         elif cur and RES_USAGE.search(line):
@@ -869,7 +898,7 @@ def mlp_kernel_report(module):
     for line in dump("-sass"):
         if "Function :" in line:
             k = KERNEL_NAME.search(line)
-            cur = f"{k.group(1)}<{k.group(2)}>" if k else None
+            cur = instance_name(k) if k else None
         elif cur in out and TENSOR_CORE_OP.search(line):
             out[cur]["tensor_core_ops"] += 1
         elif cur in out and LOCAL_OP.search(line):
@@ -880,12 +909,14 @@ def mlp_kernel_report(module):
               f"{r['tensor_core_ops']} tensor-core instructions "
               f"(HGMMA/HMMA) and {r['local_ops']} local loads and stores "
               f"(LDL/STL) in the SASS")
-    bf16 = {k: r for k, r in out.items() if "_bf16" in k}
-    if len(bf16) != 4 or any(r["stack_bytes"] or r["local_bytes"]
-                             or r["local_ops"] or r["tensor_core_ops"] < 1
-                             for r in bf16.values()):
-        raise AssertionError(f"the bf16 MLP instances must hold tensor-core "
-                             f"instructions and spill nothing: {bf16}")
+    bf16 = {k: r for k, r in out.items()
+            if "_bf16" in k or k.startswith("encode_mlp")}
+    if len(bf16) != 12 or any(r["stack_bytes"] or r["local_bytes"]
+                              or r["local_ops"] or r["tensor_core_ops"] < 1
+                              for r in bf16.values()):
+        raise AssertionError(f"the tensor-core instances (4 bf16 MLP, 8 "
+                             f"fused) must hold tensor-core instructions and "
+                             f"spill nothing: {bf16}")
     return out
 
 
@@ -1270,6 +1301,10 @@ def march_entries(march, launches, frames, mc, others):
 # ---------------------------------------------------------------------------
 
 NETWORK_KERNELS = {        # wrapper -> (kernel, compare kind, what it replaces)
+    "encode_mlp": ("nmr_encode_mlp", "mlp",
+                   "nerf_glasses_tpu/ops/network.py:62 (density_raw -> :44 "
+                   "density_raw_soa: hashgrid.py:105 hash_encode_soa, then "
+                   "mlp.py:17 mlp_apply)"),
     "hash_encode": ("nmr_hash_encode", "encode",
                     "nerf_glasses_tpu/ops/hashgrid.py:143 (hash_encode -> "
                     ":105 hash_encode_soa, :59 corner_indices_and_weights)"),
@@ -1281,7 +1316,12 @@ NETWORK_KERNELS = {        # wrapper -> (kernel, compare kind, what it replaces)
                  "nerf_glasses_tpu/ops/sh.py:13 (sh_encode)"),
 }
 # the position of the dtype the contract reads in each wrapper's arguments
-NETWORK_DTYPE_ARG = {"hash_encode": 3, "mlp": 2, "rgb_head": 4}
+NETWORK_DTYPE_ARG = {"hash_encode": 3, "mlp": 2, "rgb_head": 4,
+                     "encode_mlp": 4}
+# what a bf16 no-grad network call on the card launches, and what it must
+# not: the density half is one launch of the fused kernel
+BF16_NETWORK = ("encode_mlp", "rgb_head")
+PAIR = ("hash_encode", "mlp")
 PSNR_PLAIN_NETWORK_DB = 50.0
 EXACT_FRAME_MAX_OPS = 3000      # the exact 720p frame with the network kernels
 # dense bf16 tensor-core peak of the H100 SXM (data sheet, 700 W): the
@@ -1296,17 +1336,20 @@ def zero_network_counts():
         dict.fromkeys(network_cuda.plain_on_card, 0))
 
 
-def network_launch_check(label, need=tuple(NETWORK_KERNELS)):
+def network_launch_check(label, need=BF16_NETWORK, absent=PAIR):
     """The network kernels' launches since the counts were last zeroed:
-    each kernel of `need` launched and no call took a plain version on
-    the card -> the launches."""
+    each kernel of `need` launched, none of `absent` (at the bf16 compute
+    dtype the fused kernel serves every density call), and no call took a
+    plain version on the card -> the launches."""
     got = dict(network_cuda.launches)
     plain = dict(network_cuda.plain_on_card)
     print(f"{label}: network kernel launches {got}, plain versions on the "
           f"card {plain}")
-    if any(got[k] < 1 for k in need) or any(plain.values()):
-        raise AssertionError(f"{label}: network kernels {need} launched "
-                             f"{got}, plain versions on the card {plain}")
+    if (any(got[k] < 1 for k in need) or any(got[k] for k in absent)
+            or any(plain.values())):
+        raise AssertionError(f"{label}: network kernels {need} (and none of "
+                             f"{absent}) launched {got}, plain versions on "
+                             f"the card {plain}")
     return got
 
 
@@ -1338,9 +1381,18 @@ def network_bound(name, args):
     """A network kernel's least time on these inputs (network_cuda's work
     counts): the encode's operations at the fp32 peak, an MLP's at the
     bf16 tensor-core peak when its operands are bf16, else at the fp32
-    one; bytes over the memory rate."""
+    one, the fused kernel's the sum of its encode's and its MLP's; bytes
+    over the memory rate."""
     if name == "hash_encode":
         return bound_ms(*network_cuda.encode_work(*args))
+    if name == "encode_mlp":
+        table, pos, weights, cfg, cd, ed = args
+        flops, nbytes = network_cuda.encode_mlp_work(*args)
+        e_flops = network_cuda.encode_work(table, pos, cfg, ed)[0]
+        t_ops = (e_flops / FP32_PEAK + (flops - e_flops) / BF16_PEAK) * 1e3
+        t_bytes = nbytes / HBM_RATE * 1e3
+        return (max(t_ops, t_bytes),
+                "operations" if t_ops >= t_bytes else "bytes")
     peak = (BF16_PEAK if args[NETWORK_DTYPE_ARG[name]] == torch.bfloat16
             else FP32_PEAK)
     if name == "mlp":
@@ -1355,7 +1407,7 @@ def library_chain(name, args):
     head's by network_cuda.rgb_row) and its weights cast once -> a
     function, or None for the encode. A yardstick the port never calls:
     bf16 operands go to cuBLAS's bf16 GEMMs, whose results are bf16."""
-    if name == "hash_encode":
+    if name in ("hash_encode", "encode_mlp"):
         return None
     cd = args[NETWORK_DTYPE_ARG[name]]
     if name == "mlp":
@@ -1381,9 +1433,14 @@ def hold_network_calls(calls, label, reps=20, others=()):
     with L2 flushed before each launch, CUDA events around back-to-back
     wrapper calls, the plain version and the MLPs' library_chain by
     events) beside its bound; with `others` (other_checkouts of
-    network_cuda), their density MLP and rgb head held to the same
+    network_cuda), their kernels (those they have) held to the same
     contract and timed in turns with this tree's by device time ->
-    {wrapper: numbers}. Raises on a disagreement."""
+    {wrapper: numbers}. The fused encode_mlp is also held against this
+    tree's hash_encode followed by mlp on its inputs, bit for bit, and
+    beside that pair's device time (the sum of the two kernels' on the
+    same positions, with L2 flushed before each) and the L2 sectors the
+    two gathers request (network_cuda.encode_gather_sectors). Raises on a
+    disagreement."""
     out = {}
     with torch.no_grad():
         for name, args in calls.items():
@@ -1401,7 +1458,8 @@ def hold_network_calls(calls, label, reps=20, others=()):
             chain = library_chain(name, args)
             c_ms = None if chain is None else cuda_ms(chain, reps)
             b_ms, b_by = network_bound(name, args)
-            rows = args[1 if name == "hash_encode" else 0].shape[0]
+            rows = args[1 if name in ("hash_encode", "encode_mlp")
+                        else 0].shape[0]
             print(f"{label} {kernel} ({str(dtype).split('.')[-1]}) on its "
                   f"first call's {rows} samples: {cmp['mismatched_rows']} "
                   f"rows off (allowed {cmp['allowed']}), max |diff| "
@@ -1419,34 +1477,67 @@ def hold_network_calls(calls, label, reps=20, others=()):
                          "plain_ms": p_ms, "library_chain_ms": c_ms,
                          "bound_ms": b_ms, "bound_by": b_by,
                          "rows": rows, "dtype": str(dtype)}
-            if others and name in ("mlp", "rgb_head"):
+            if name == "encode_mlp":
+                out[name].update(fused_vs_pair(args, got, label, reps))
+            if others:
                 def check(what, res, kind=kind, want=want, dtype=dtype):
                     r = network_cuda.compare_with_plain(kind, res, want, dtype)
                     print(f"{label} {what}: {r['mismatched_rows']} rows off, "
                           f"max |diff| {r['max_abs_err']:.3g}")
                     if not r["ok"]:
                         raise AssertionError(f"{what} disagrees: {r}")
-                out[name]["in_turns"] = in_turns(
-                    others, network_cuda, name, check, args,
-                    lambda fn, name=name: kernel_device_ms(name, fn, reps))
+                have = [(d, m) for d, m in others if hasattr(m, name)]
+                if have:
+                    out[name]["in_turns"] = in_turns(
+                        have, network_cuda, name, check, args,
+                        lambda fn, name=name: kernel_device_ms(name, fn, reps))
     return out
+
+
+def fused_vs_pair(args, got, label, reps):
+    """The fused call's output `got` against this tree's hash_encode
+    followed by mlp on the same inputs, bit for bit (raises otherwise);
+    the pair's device time (the two kernels' sum, L2 flushed before each
+    launch) and the L2 sectors a (sample, level) of each gather ->
+    numbers."""
+    table, pos, weights, cfg, cd, ed = args
+    enc = network_cuda.hash_encode(table, pos, cfg, ed)
+    pair = network_cuda.mlp(enc, weights, cd)
+    torch.cuda.synchronize()
+    same = torch.equal(got.view(torch.int32), pair.view(torch.int32))
+    pair_ms = (kernel_device_ms("hash_encode", lambda: network_cuda.hash_encode(
+        table, pos, cfg, ed), reps) + kernel_device_ms(
+            "mlp", lambda: network_cuda.mlp(enc, weights, cd), reps))
+    old, new = network_cuda.encode_gather_sectors(table, pos, cfg)
+    print(f"{label} nmr_encode_mlp vs nmr_hash_encode + nmr_mlp on the same "
+          f"{pos.shape[0]} positions: bit for bit {same}; the pair "
+          f"{pair_ms:.4f} ms device (torch.profiler, the two kernels); L2 "
+          f"sector requests a (sample, level): the standalone gather "
+          f"{old:.3f}, the fused one {new:.3f} (counted from the corner "
+          f"indices)")
+    if not same:
+        raise AssertionError(f"{label}: nmr_encode_mlp is not bit for bit "
+                             f"nmr_hash_encode + nmr_mlp")
+    return {"bit_for_bit_pair": same, "pair_ms": pair_ms,
+            "sectors_standalone": old, "sectors_fused": new}
 
 
 ACTIVATION_SCALES = (1.0, 8.0, 64.0)
 
 
 def scaled_input_probe(calls, label):
-    """On a frame's recorded bf16 calls of the density MLP and the rgb
-    head: the kernel against its plain version with its input rows (the
-    MLP's encode, the head's features) scaled by ACTIVATION_SCALES, so
-    that hidden activations grow as much and a bf16 step of one with
-    them. The contract's counts are printed at each scale (its fixed 2e-2
-    is held on the frames' own calls, not here); every output must stay
-    within network_cuda.bf16_step_bound of the plain one, or this raises
-    -> {wrapper: {"rows_off_by_input_scale": {scale: numbers}}}."""
+    """On a frame's recorded bf16 calls of the fused encode + density MLP
+    and the rgb head: the kernel against its plain version with its input
+    scaled by ACTIVATION_SCALES (the fused kernel's table, which scales
+    its encode exactly, the head's features), so that hidden activations
+    grow as much and a bf16 step of one with them. The contract's counts
+    are printed at each scale (its fixed 2e-2 is held on the frames' own
+    calls, not here); every output must stay within network_cuda.
+    bf16_step_bound of the plain one, or this raises -> {wrapper:
+    {"rows_off_by_input_scale": {scale: numbers}}}."""
     out = {}
     with torch.no_grad():
-        for name in ("mlp", "rgb_head"):
+        for name in ("encode_mlp", "rgb_head"):
             args = calls[name]
             dtype = args[NETWORK_DTYPE_ARG[name]]
             if dtype != torch.bfloat16:
@@ -1454,14 +1545,18 @@ def scaled_input_probe(calls, label):
                                      f"call, got {dtype}")
             wrapper = getattr(network_cuda, name)
             plain = getattr(network_cuda, f"{name}_reference")
+            rows = args[1 if name == "encode_mlp" else 0].shape[0]
             off = {}
             for sc in ACTIVATION_SCALES:
                 a = (args[0] * sc,) + tuple(args[1:])
                 got, want = wrapper(*a), plain(*a)
                 r = network_cuda.compare_with_plain(
                     NETWORK_KERNELS[name][1], got, want, dtype)
-                if name == "mlp":
-                    bound = network_cuda.bf16_step_bound(a[0], a[1])
+                if name == "encode_mlp":
+                    table, pos, weights, cfg, _, ed = a
+                    bound = network_cuda.bf16_step_bound(
+                        network_cuda.hash_encode_reference(table, pos, cfg,
+                                                           ed), weights)
                 else:
                     feat, dirs, weights, cfg = a[:4]
                     extra = a[5] if len(a) > 5 else None
@@ -1477,9 +1572,10 @@ def scaled_input_probe(calls, label):
                         f"{label} {name} at {sc:g}x inputs: outside one "
                         f"bf16 step of every hidden activation ({ratio:.3g} "
                         f"of the bound, NaN {r['nan']})")
-            print(f"{label} {NETWORK_KERNELS[name][0]}: inputs scaled "
-                  + ", ".join(
-                      f"{sc:g}x: {o['mismatched_rows']} of {args[0].shape[0]} "
+            print(f"{label} {NETWORK_KERNELS[name][0]}: "
+                  + ("table" if name == "encode_mlp" else "features")
+                  + " scaled " + ", ".join(
+                      f"{sc:g}x: {o['mismatched_rows']} of {rows} "
                       f"rows past 2e-2 ({o['allowed']} allowed; max |diff| "
                       f"{o['max_abs_err']:.4g}, {o['of_step_bound']:.3g} of "
                       f"the one-step bound)" for sc, o in off.items()))
@@ -1501,7 +1597,7 @@ def network_kernels_phase(renderer, nerf, label, max_ops=None, reps=20,
     renderer.update_model_view_proj()
     calls = first_network_calls(renderer.frame)
     torch.cuda.synchronize()
-    if set(calls) != set(NETWORK_KERNELS):
+    if set(calls) != set(BF16_NETWORK):
         raise AssertionError(f"{label}: the frame called {sorted(calls)} of "
                              f"the network kernels")
     out = hold_network_calls(calls, label, reps, others)
@@ -1519,45 +1615,65 @@ def network_kernels_phase(renderer, nerf, label, max_ops=None, reps=20,
     return out, frames
 
 
-def network_entries(net, launches, mc, ref, train, build):
-    """The closing line's entries of the network kernels: each measured on
-    the exact 720p frame's first epoch (phase 5c) and launched by phase
-    4's frames; the multi-cascade frame's numbers (phases 23, 23b), the
-    reference config's (phase 15) and, for the encode and the MLP, the
-    trainer's bf16 no-grad queries (phase 14) beside them; for the MLPs
+def network_entries(net, net_f32, launches, f32_launches, mc, ref, train,
+                    build):
+    """The closing line's entries of the network kernels, each measured on
+    the frame that launched it: the fused kernel and the rgb head on the
+    exact 720p frame's first epoch (phase 5c) with phase 4's launches, the
+    multi-cascade frame's (phases 23, 23b), the reference config's (phase
+    15) and the trainer's bf16 no-grad queries (phase 14) beside them, for
+    the fused kernel the bf16 pair's time and the gathers' sectors; the
+    standalone encode and MLP on the f32 frame's first epoch with its
+    launches (phase 4b), the only frame that launches them; for the MLPs
     the matmul + relu chain's time, other checkouts' kernels in turns
-    (phase 5c) and each instance's registers, spills and tensor-core
-    instructions (phase 2, mlp_kernel_report)."""
+    and each instance that the entry's calls run: registers, spills and
+    tensor-core instructions (phase 2, mlp_kernel_report)."""
     entries = []
     for name, (kernel, _, replaces) in NETWORK_KERNELS.items():
-        r = net[name]
+        pair = name in PAIR
+        r = (net_f32 if pair else net)[name]
+        runs = f32_launches if pair else launches
         entry = {
             "name": kernel, "route": "cuda",
             "source": "nerf_glasses_tpu_torch/csrc/network.cu",
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": runs[name],
             "max_abs_err": r["cmp"]["max_abs_err"], "ms": r["ms"],
             "event_ms": r["event_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None, "share": r["bound_ms"] / r["ms"],
-            "launches_per_frame": launches[name] / 4,
-            "path": "exact 720p frame, 4 frames (phases 4, 5c)",
+            "launches_per_frame": runs[name] / (1 if pair else 4),
+            "path": ("exact 720p frame at the f32 compute dtype, 1 frame "
+                     "(phase 4b)" if pair else
+                     "exact 720p frame, 4 frames (phases 4, 5c)"),
             "rows": r["rows"], "dtype": r["dtype"],
             "mismatched_rows": r["cmp"]["mismatched_rows"],
-            "multicascade_launches": mc["launches"][name],
-            "multicascade_ms": mc["kernels"][name]["ms"],
-            "multicascade_plain_ms": mc["kernels"][name]["plain_ms"],
-            "multicascade_bound_ms": mc["kernels"][name]["bound_ms"],
-            "reference_config_ms": ref["kernels"][name]["ms"],
-            "reference_config_plain_ms": ref["kernels"][name]["plain_ms"],
-            "reference_config_bound_ms": ref["kernels"][name]["bound_ms"]}
-        if name != "hash_encode":
+            "in_turns": r.get("in_turns"),
+            "instances": {k: v for k, v in build.items()
+                          if k.startswith(f"{name}_kernel")
+                          and (name == "encode_mlp"
+                               or ("_bf16" in k) == (not pair))}}
+        if not pair:
+            entry.update({
+                "multicascade_launches": mc["launches"][name],
+                "multicascade_ms": mc["kernels"][name]["ms"],
+                "multicascade_plain_ms": mc["kernels"][name]["plain_ms"],
+                "multicascade_bound_ms": mc["kernels"][name]["bound_ms"],
+                "reference_config_ms": ref["kernels"][name]["ms"],
+                "reference_config_plain_ms": ref["kernels"][name]["plain_ms"],
+                "reference_config_bound_ms":
+                    ref["kernels"][name]["bound_ms"],
+                "rows_off_by_input_scale": r["rows_off_by_input_scale"]})
+        if name == "encode_mlp":
+            entry.update({k: r[k] for k in (
+                "pair_ms", "bit_for_bit_pair", "sectors_standalone",
+                "sectors_fused")})
+            entry["reference_config_pair_ms"] = ref["kernels"][name]["pair_ms"]
+            entry["multicascade_pair_ms"] = mc["kernels"][name]["pair_ms"]
+        if name in ("mlp", "rgb_head"):
             entry["library_chain_ms"] = r["library_chain_ms"]
+        if name == "rgb_head":
             entry["reference_config_library_chain_ms"] = (
                 ref["kernels"][name]["library_chain_ms"])
-            entry["in_turns"] = r.get("in_turns")
-            entry["rows_off_by_input_scale"] = r["rows_off_by_input_scale"]
-            entry["instances"] = {k: v for k, v in build.items()
-                                  if k.startswith(f"{name}_kernel")}
         for which, held in train.items():
             if name in held:
                 t = held[name]
@@ -1647,7 +1763,7 @@ def training_queries_phase(tr):
         calls = first_network_calls(fn)
         torch.cuda.synchronize()
         network_launch_check(f"the trainer's {which} query",
-                             need=("hash_encode", "mlp"))
+                             need=("encode_mlp",))
         out[which] = hold_network_calls(calls, f"trainer {which}", reps=5)
     return out
 
@@ -1665,11 +1781,11 @@ def capture_phase(dev, lap):
     return ds, hcams, gts
 
 
-def training_phases(dev, tmp, lap, glasses):
+def training_phases(dev, tmp, lap, glasses, net_others=()):
     """Phases 11-16 and the step profile: capture, train, save and render,
-    resume, the reference config (and its frame's network kernels), card
-    against CPU -> (the capture, from-scratch steps/s, the reference
-    config's network numbers)."""
+    resume, the reference config (and its frame's network kernels, with
+    `net_others`' in turns), card against CPU -> (the capture,
+    from-scratch steps/s, the reference config's network numbers)."""
     ds, hcams, gts = capture_phase(dev, lap)
 
     # 12: train from scratch to the loss contract
@@ -1791,7 +1907,7 @@ def training_phases(dev, tmp, lap, glasses):
     if any(getattr(nerf.config, k) != getattr(ref_cfg, k) for k in widths):
         raise AssertionError(f"the snapshot loaded as {nerf.config}")
     ref_kernels, ref_frames = network_kernels_phase(
-        renderer, nerf, "reference config exact 720p")
+        renderer, nerf, "reference config exact 720p", others=net_others)
     ref_net = {"kernels": ref_kernels, "frames": ref_frames}
     del renderer, nerf
     lap(15)
@@ -2758,8 +2874,10 @@ def application_phases(dev, tmp, lap, glasses):
         raise AssertionError("at rest on fewer than three contact vertices")
     if lowest_margin < -2.0:
         raise AssertionError("a vertex sank into the head")
+    # collide and alpha_at query at the bf16 compute dtype (the fused
+    # kernel), collide_distances at f32 (the standalone encode and MLP)
     network_launch_check("collide, collide_distances and alpha_at on the card "
-                         "(phase 20)", need=("hash_encode", "mlp"))
+                         "(phase 20)", need=("encode_mlp",) + PAIR, absent=())
     del crenderer, cnerf, cpu_nerf
     lap(20)
 
@@ -3219,10 +3337,29 @@ def main(tmp, dirs, multicascade_only=False):
         if march_launches[k] < 4:
             raise AssertionError(f"main path launched the march kernel {k} "
                                  f"{march_launches[k]} times")
-    if min(net_launches.values()) < 4:
+    if min(net_launches[k] for k in BF16_NETWORK) < 4:
         raise AssertionError(f"main path launched the network kernels "
                              f"{net_launches} times")
     lap(4)
+
+    # 4b: one such frame at the f32 compute dtype (the parity setting): the
+    # density half takes the standalone encode and MLP kernels
+    saved = dict(nerf.march_overrides)
+    nerf.march_overrides = {**saved, "compute_dtype": "float32"}
+    try:
+        zero_network_counts()
+        f32_calls = first_network_calls(renderer.frame)
+        torch.cuda.synchronize()
+        f32_launches = network_launch_check(
+            f"exact {W}x{H} frame at the f32 compute dtype (phase 4b)",
+            need=PAIR + ("rgb_head",), absent=("encode_mlp",))
+    finally:
+        nerf.march_overrides = saved
+    # and its first-epoch encode and MLP calls, held and timed as in 5c
+    net_f32 = hold_network_calls({k: f32_calls[k] for k in PAIR},
+                                 "exact 720p f32", others=net_others)
+    del f32_calls
+    lap("4b")
 
     # 5: the plain ray-cast in the kernel's place, same sample index
     renderer.update_model_view_proj()
@@ -3438,7 +3575,7 @@ def main(tmp, dirs, multicascade_only=False):
     lap(10)
 
     ds, sps_plain, ref_net, train_net = training_phases(dev, tmp, lap,
-                                                        glasses)
+                                                        glasses, net_others)
     del renderer, nerf
     app_launches = application_phases(dev, tmp, lap, glasses)
     mc_launches, mc_march, mc_net = multicascade_phases(dev, tmp, lap,
@@ -3479,8 +3616,8 @@ def main(tmp, dirs, multicascade_only=False):
                 "flash 720p (phase 8b)": flash_march["flash"],
                 "baked 720p, flash off (phase 8b)": flash_march["baked"],
                 "multi-cascade flash 720p (phase 24)": mc_march["flash"]})
-        + network_entries(net, net_launches, mc_net, ref_net, train_net,
-                          mlp_build),
+        + network_entries(net, net_f32, net_launches, f32_launches, mc_net,
+                          ref_net, train_net, mlp_build),
         "network_frames": network_frames(net_frames, mc_net, ref_net)}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

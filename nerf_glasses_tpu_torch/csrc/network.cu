@@ -22,9 +22,34 @@
 //       mlp_apply (the density MLP of ops/network.py:44-71).
 //   nmr_rgb_head                           ::rgb_head; JAX ops/network.py:
 //       89 _rgb_head + ops/sh.py:13 sh_encode (rgb_from_features, :111).
+//   encode_mlp_kernel (nmr_encode_mlp)     ::encode_mlp; JAX ops/network.py:
+//       62 density_raw -> :44 density_raw_soa (hash_encode_soa, then
+//       mlp_apply): the encode and the density MLP at the bf16 compute
+//       dtype in one launch, every bf16 no-grad density call of the port.
+//       Bound: bytes, the positions and the table rows they touch read
+//       once and the (N, 16) f32 output written once; the (N, L F)
+//       encode, 128 bytes a sample that nmr_hash_encode writes and nmr_mlp
+//       reads back, never leaves the SM. It runs at about a tenth of that
+//       bound; the cause is open (the gathers' L2 request rate, or their
+//       latency at 20 warps an SM: PERF.md section 7). Design: mlp_tc
+//       with the encode as its A build (KIND 2): the tile's 64 positions
+//       come through the cp.async ring, each thread takes one row and
+//       levels t >> 6, + 2, ... (a warp is 32 consecutive samples on one
+//       level, so samples along a ray share rows at the coarse levels),
+//       sums its 8 corners in the standalone kernel's order and stores
+//       the bf16 row into the kmajor A tile; then nmr_mlp's wgmma chain.
+//       Chosen on an H100 over a warp-specialised form (producer
+//       warpgroups filling a ring of A tiles for a consumer warpgroup,
+//       mbarriers, setmaxnreg) and over loading x-neighbours as one
+//       aligned pair: both were slower (PERF.md section 6).
+//       Its output is nmr_hash_encode's then nmr_mlp's, bit for bit: the
+//       same corner sums, the same bf16 A tile, the same wgmma chain.
 //
-// The two MLP kernels at the bf16 compute dtype (the main path's):
-// mlp_kernel_bf16 and rgb_head_kernel_bf16, one body (mlp_tc).
+// The two MLP kernels at the bf16 compute dtype: mlp_kernel_bf16 and
+// rgb_head_kernel_bf16, one body (mlp_tc). The rgb head's is the main
+// path's; no path of the port launches mlp_kernel_bf16 since the fused
+// kernel serves every bf16 density call: it stays as nmr_mlp's bf16 body,
+// the fused kernel's bit-for-bit reference (the cuda tests, chip_smoke.py).
 //   Bound: bytes. The density MLP reads a 128-byte f32 encode row (64 at
 //   a bf16 encode) and writes 64 bytes for 3k multiply-adds; the rgb
 //   head reads 76 bytes and writes 12 for 7k (9k with 8 latent dims). To
@@ -146,72 +171,95 @@ __device__ __forceinline__ void load_row(const float* row, float* v) {
   }
 }
 
+// An encode's level constants in shared memory.
+struct Levels {
+  float scale[MAX_LEVELS];
+  uint32_t res[MAX_LEVELS], res2[MAX_LEVELS], size[MAX_LEVELS];
+  int dense[MAX_LEVELS], pow2[MAX_LEVELS];
+};
+
+// P's levels into S by the block's threads (seen after a __syncthreads).
+__device__ __forceinline__ void load_levels(const EncodeParams& P,
+                                            Levels& S) {
+  for (int l = threadIdx.x; l < P.n_levels; l += blockDim.x) {
+    S.scale[l] = P.scale[l];
+    S.res[l] = P.res[l];
+    S.res2[l] = P.res[l] * P.res[l];          // (res * res) & U32
+    S.size[l] = P.size[l];
+    S.dense[l] = P.dense[l];
+    S.pow2[l] = (P.size[l] & (P.size[l] - 1u)) == 0u;
+  }
+}
+
+// One (sample, level) of the encode, the corner routine of both encode
+// kernels: position (x, y, z) on level l of the table `lvl` -> acc, the F
+// features in f32 (the output rounds them), summed c = 0..7 in the plain
+// version's order and rounding, a row load a corner.
+template <int F, bool BF16>
+__device__ __forceinline__ void encode_point(const Levels& S, int l,
+                                             const float* __restrict__ lvl,
+                                             float x, float y, float z,
+                                             float* acc) {
+  const float scale = S.scale[l];
+  const float p3[3] = {x, y, z};
+  float w[3][2];
+  uint32_t c0[3];
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    const float p = __fadd_rn(__fmul_rn(p3[d], scale), 0.5f);
+    const float g = floorf(p);
+    const float frac = __fsub_rn(p, g);
+    w[d][0] = __fsub_rn(1.0f, frac);
+    w[d][1] = frac;
+    c0[d] = (uint32_t)(int)g;                 // floor -> int32 -> uint32
+  }
+  const uint32_t res = S.res[l], res2 = S.res2[l], size = S.size[l];
+  const bool dense = S.dense[l], pow2 = S.pow2[l];
+#pragma unroll
+  for (int f = 0; f < F; ++f) acc[f] = 0.0f;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const int bx = c & 1, by = (c >> 1) & 1, bz = (c >> 2) & 1;
+    const float wc = __fmul_rn(__fmul_rn(w[0][bx], w[1][by]), w[2][bz]);
+    const uint32_t cx = c0[0] + bx, cy = c0[1] + by, cz = c0[2] + bz;
+    uint32_t idx = dense ? cx + cy * res + cz * res2
+                         : cx ^ (cy * 2654435761u) ^ (cz * 805459861u);
+    idx = pow2 ? idx & (size - 1u) : idx % size;
+    float v[F];
+    load_row<F>(lvl + (long long)idx * F, v);
+    if (BF16) {
+      const float wb = bf16r(wc);
+#pragma unroll
+      for (int f = 0; f < F; ++f)
+        acc[f] = __fadd_rn(acc[f], bf16r(__fmul_rn(bf16r(v[f]), wb)));
+    } else {
+#pragma unroll
+      for (int f = 0; f < F; ++f)
+        acc[f] = __fadd_rn(acc[f], __fmul_rn(v[f], wc));
+    }
+  }
+}
+
 // One thread per (sample, level); i = sample * L + level, so a warp's
 // output rows are contiguous.
 template <int F, bool BF16>
 __global__ void __launch_bounds__(ENCODE_THREADS) hash_encode_kernel(
     EncodeParams P, long long n, const float* __restrict__ table,
     const float* __restrict__ pos, void* __restrict__ out) {
-  __shared__ float s_scale[MAX_LEVELS];
-  __shared__ uint32_t s_res[MAX_LEVELS], s_res2[MAX_LEVELS],
-      s_size[MAX_LEVELS];
-  __shared__ int s_dense[MAX_LEVELS], s_pow2[MAX_LEVELS];
-  const int L = P.n_levels;
-  for (int l = threadIdx.x; l < L; l += blockDim.x) {
-    s_scale[l] = P.scale[l];
-    s_res[l] = P.res[l];
-    s_res2[l] = P.res[l] * P.res[l];          // (res * res) & U32
-    s_size[l] = P.size[l];
-    s_dense[l] = P.dense[l];
-    s_pow2[l] = (P.size[l] & (P.size[l] - 1u)) == 0u;
-  }
+  __shared__ Levels S;
+  load_levels(P, S);
   __syncthreads();
+  const int L = P.n_levels;
   const long long total = n * L;
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        i < total; i += stride) {
     const long long s = i / L;
     const int l = (int)(i - s * L);
-    const float scale = s_scale[l];
-    float w[3][2];
-    uint32_t c0[3];
-#pragma unroll
-    for (int d = 0; d < 3; ++d) {
-      const float p = __fadd_rn(__fmul_rn(__ldg(pos + s * 3 + d), scale),
-                                0.5f);
-      const float g = floorf(p);
-      const float frac = __fsub_rn(p, g);
-      w[d][0] = __fsub_rn(1.0f, frac);
-      w[d][1] = frac;
-      c0[d] = (uint32_t)(int)g;               // floor -> int32 -> uint32
-    }
-    const uint32_t res = s_res[l], res2 = s_res2[l], size = s_size[l];
-    const bool dense = s_dense[l], pow2 = s_pow2[l];
-    const float* lvl = table + (long long)l * P.rows * F;
     float acc[F];
-#pragma unroll
-    for (int f = 0; f < F; ++f) acc[f] = 0.0f;
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int bx = c & 1, by = (c >> 1) & 1, bz = (c >> 2) & 1;
-      const float wc = __fmul_rn(__fmul_rn(w[0][bx], w[1][by]), w[2][bz]);
-      const uint32_t cx = c0[0] + bx, cy = c0[1] + by, cz = c0[2] + bz;
-      uint32_t idx = dense ? cx + cy * res + cz * res2
-                           : cx ^ (cy * 2654435761u) ^ (cz * 805459861u);
-      idx = pow2 ? idx & (size - 1u) : idx % size;
-      float v[F];
-      load_row<F>(lvl + (long long)idx * F, v);
-      if (BF16) {
-        const float wb = bf16r(wc);
-#pragma unroll
-        for (int f = 0; f < F; ++f)
-          acc[f] = __fadd_rn(acc[f], bf16r(__fmul_rn(bf16r(v[f]), wb)));
-      } else {
-#pragma unroll
-        for (int f = 0; f < F; ++f)
-          acc[f] = __fadd_rn(acc[f], __fmul_rn(v[f], wc));
-      }
-    }
+    encode_point<F, BF16>(S, l, table + (long long)l * P.rows * F,
+                          __ldg(pos + s * 3), __ldg(pos + s * 3 + 1),
+                          __ldg(pos + s * 3 + 2), acc);
     const long long o = i * F;                // (s * L + l) * F
     if (BF16) {
       __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(out) + o;
@@ -416,6 +464,11 @@ constexpr int TC_BLOCKS_PER_SM = 4;   // 4 beat 1 and 2 and equal 8 (H100)
 constexpr int SH_STRIDE = SH_WIDTH + 4;   // an f32 SH row in shared memory:
                                           // 16-byte rows, no bank conflict
 
+// nmr_encode_mlp's blocks a multiprocessor (and its registers, through
+// __launch_bounds__, at HID 64): 5 beat 4 at NGPConfig() widths and tie
+// at native_fast (H100; PERF.md section 6).
+constexpr int ENCODE_MLP_BLOCKS_PER_SM = 5;
+
 // The shared-memory plan of one launch, in bytes (tc_plan).
 struct TcPlan {
   int k[MAX_LAYERS];      // layer l's K, zero-padded to 16
@@ -424,8 +477,9 @@ struct TcPlan {
   int codes_off;          // rgb head: codes given once, (E,) f32
   int a0_off;             // the tile's first-layer A, TC_ROWS x k[0] bf16
   int ring_off, stage;    // the ring: TC_STAGES stages of `stage` bytes
-  int seg[3], seg_row[3]; // in a stage: x (feat) | dirs | code rows, and
-                          // their bytes a row (0: no such segment)
+  int seg[3], seg_row[3]; // in a stage: x (feat, or the fused kernel's
+                          // positions) | dirs | code rows, and their bytes
+                          // a row (0: no such segment)
   int sh_off;             // in a stage: the rows' SH, f32, SH_STRIDE
   int smem;
 };
@@ -701,7 +755,7 @@ __device__ __forceinline__ void load_tile(const MlpParams& P, const TcPlan& Q,
   const int rows = (int)min((long long)TC_ROWS, n - row0);
   const void* src[3] = {x, dirs, extra};
 #pragma unroll
-  for (int i = 0; i < (KIND == 0 ? 1 : 3); ++i)
+  for (int i = 0; i < (KIND == 1 ? 3 : 1); ++i)
     if (Q.seg_row[i] > 0)
       copy_rows(st + Q.seg[i],
                 static_cast<const unsigned char*>(src[i]) + row0 * Q.seg_row[i],
@@ -822,14 +876,72 @@ __device__ __forceinline__ void build_a(const MlpParams& P, const TcPlan& Q,
   }
 }
 
-// mlp_kernel_bf16 / rgb_head_kernel_bf16. KIND 0: the rows of x (f32 or
-// bf16) are the input; KIND 1: the rgb head's row.
-template <int HID, int KIND>
+// What the fused kernel's encode reads: the table (L, rows, F) f32, its
+// level constants in shared memory, and the encode dtype.
+struct EncodeSrc {
+  const float* table;
+  const Levels* lv;
+  int n_levels;
+  long long rows;
+  bool bf16;
+};
+
+// F features of a row of the A tile, rounded to bf16 (at dst, in kmajor).
+template <int F>
+__device__ __forceinline__ void store_a(unsigned char* dst, const float* acc) {
+  if constexpr (F == 8) {
+    *reinterpret_cast<uint4*>(dst) =
+        make_uint4(pack_bf16(acc[0], acc[1]), pack_bf16(acc[2], acc[3]),
+                   pack_bf16(acc[4], acc[5]), pack_bf16(acc[6], acc[7]));
+  } else if constexpr (F == 4) {
+    *reinterpret_cast<uint2*>(dst) = pack_bf16x4(acc);
+  } else if constexpr (F == 2) {
+    *reinterpret_cast<uint32_t*>(dst) = pack_bf16(acc[0], acc[1]);
+  } else {
+    *reinterpret_cast<__nv_bfloat16*>(dst) = __float2bfloat16_rn(acc[0]);
+  }
+}
+
+// A tile's first-layer A from the encode (nmr_encode_mlp): thread t
+// takes row t & 63 of the tile, at (x, y, z), and levels t >> 6, + 2,
+// ..., so a warp is 32 consecutive rows on one level (samples along a ray
+// share rows at the coarse levels); level l's F features go to columns
+// l F.. of the row, rounded to bf16 as the density MLP rounds its input
+// rows (the same value whether the f32 or the bf16 encode rounds the
+// sum); rows that are not `live` get zeros. Columns past L F stay as they
+// are (zeroed once a launch).
+template <int F>
+__device__ __forceinline__ void encode_a(const EncodeSrc& E, unsigned char* a,
+                                         int K0, int t, bool live, float x,
+                                         float y, float z) {
+  const int r = t & 63;
+  for (int l = t >> 6; l < E.n_levels; l += TC_THREADS / 64) {
+    float acc[F];
+    if (!live) {
+#pragma unroll
+      for (int f = 0; f < F; ++f) acc[f] = 0.0f;
+    } else {
+      const float* lvl = E.table + (long long)l * E.rows * F;
+      if (E.bf16)
+        encode_point<F, true>(*E.lv, l, lvl, x, y, z, acc);
+      else
+        encode_point<F, false>(*E.lv, l, lvl, x, y, z, acc);
+    }
+    store_a<F>(a + kmajor(r, l * F, K0), acc);
+  }
+}
+
+// mlp_kernel_bf16 / rgb_head_kernel_bf16 / encode_mlp_kernel, one
+// warpgroup a block. KIND 0: the rows of x (f32 or bf16) are the input;
+// KIND 1: the rgb head's row; KIND 2: x holds positions (N, 3) and the
+// input row is their encode (E, F features a level).
+template <int HID, int KIND, int F = 1>
 __device__ __forceinline__ void mlp_tc(const MlpParams& P, const TcPlan& Q,
                                        long long n, const void* __restrict__ x,
                                        const float* __restrict__ dirs,
                                        const float* __restrict__ extra,
-                                       float* __restrict__ out) {
+                                       float* __restrict__ out,
+                                       const EncodeSrc& E = EncodeSrc{}) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int KS = HID / 16, NB = HID / 64;
   const long long n_tiles = (n + TC_ROWS - 1) / TC_ROWS;
@@ -847,6 +959,10 @@ __device__ __forceinline__ void mlp_tc(const MlpParams& P, const TcPlan& Q,
   if (KIND == 1 && !P.extra_rows)
     for (int e = threadIdx.x; e < P.n_extra; e += TC_THREADS)
       reinterpret_cast<float*>(smem + Q.codes_off)[e] = __ldg(extra + e);
+  if (KIND == 2)              // A's padding columns, never written again
+    for (int e = 16 * threadIdx.x; e < TC_ROWS * Q.k[0] * 2;
+         e += 16 * TC_THREADS)
+      *reinterpret_cast<uint4*>(smem + Q.a0_off + e) = make_uint4(0, 0, 0, 0);
   fence_async_shared();
   __syncthreads();
 
@@ -881,7 +997,15 @@ __device__ __forceinline__ void mlp_tc(const MlpParams& P, const TcPlan& Q,
       }
       __syncthreads();
     }
-    build_a<KIND>(P, Q, smem, st, rows);
+    if constexpr (KIND == 2) {
+      const int r = threadIdx.x & 63;
+      const float* p = reinterpret_cast<const float*>(st + Q.seg[0]) + 3 * r;
+      const bool live = r < rows;
+      encode_a<F>(E, smem + Q.a0_off, Q.k[0], threadIdx.x, live,
+                  live ? p[0] : 0.0f, live ? p[1] : 0.0f, live ? p[2] : 0.0f);
+    } else {
+      build_a<KIND>(P, Q, smem, st, rows);
+    }
     fence_async_shared();     // A, written by the threads, for wgmma
     __syncthreads();
 
@@ -926,6 +1050,21 @@ __global__ void __launch_bounds__(TC_THREADS) rgb_head_kernel_bf16(
     const float* __restrict__ dirs, const float* __restrict__ extra,
     float* __restrict__ out) {
   mlp_tc<HID, 1>(P, Q, n, feat, dirs, extra, out);
+}
+
+// nmr_encode_mlp, one warpgroup a block: the encode builds each tile's A
+// from the positions the cp.async ring brought.
+template <int HID, int F>
+__global__ void __launch_bounds__(TC_THREADS,
+                                  HID == 64 ? ENCODE_MLP_BLOCKS_PER_SM : 1)
+    encode_mlp_kernel(EncodeParams EP, MlpParams P, TcPlan Q, long long n,
+                      const float* __restrict__ table,
+                      const float* __restrict__ pos, float* __restrict__ out) {
+  __shared__ Levels lv;
+  load_levels(EP, lv);        // seen after mlp_tc's first __syncthreads
+  mlp_tc<HID, 2, F>(P, Q, n, pos, nullptr, nullptr, out,
+                    EncodeSrc{table, &lv, EP.n_levels, EP.rows,
+                              EP.encode_bf16 != 0});
 }
 
 int sm_count() {
@@ -982,7 +1121,8 @@ int launch_mlp_width(const MlpParams& P, long long n, const void* x,
 }
 
 // The tensor-core launch's shared-memory plan for hidden width HID; the
-// rows of each stage in the order load_tile reads them.
+// rows of each stage in the order load_tile reads them; kind as mlp_tc's
+// KIND (2: a stage holds the tile's positions).
 TcPlan tc_plan(const MlpParams& P, int hid, int kind) {
   TcPlan Q = {};
   int off = 0;
@@ -1000,8 +1140,10 @@ TcPlan tc_plan(const MlpParams& P, int hid, int kind) {
   Q.codes_off = take(kind == 1 ? 4 * P.n_extra : 0);
   Q.a0_off = take(TC_ROWS * Q.k[0] * 2);
   const int row_bytes[3] = {
-      kind == 0 ? P.width[0] * (P.x_bf16 ? 2 : 4) : 4 * P.n_feat,
-      kind == 0 ? 0 : 12,
+      kind == 0   ? P.width[0] * (P.x_bf16 ? 2 : 4)
+      : kind == 2 ? 12
+                  : 4 * P.n_feat,
+      kind == 1 ? 12 : 0,
       kind == 1 && P.extra_rows ? 4 * P.n_extra : 0};
   int s = 0;
   for (int i = 0; i < 3; ++i) {
@@ -1017,47 +1159,80 @@ TcPlan tc_plan(const MlpParams& P, int hid, int kind) {
   return Q;
 }
 
+// Persistent blocks of `threads` over n rows in 64-row tiles: at most
+// max_per_sm a multiprocessor (fewer where shared memory or registers
+// allow fewer), no more blocks than tiles.
+template <typename... Params, typename... Args>
+int launch_tiles(void (*kernel)(Params...), int threads, int smem,
+                 int max_per_sm, long long n, cudaStream_t s, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  if (per_sm > max_per_sm) per_sm = max_per_sm;
+  long long blocks = (n + TC_ROWS - 1) / TC_ROWS;
+  const long long cap = (long long)per_sm * sm_count();
+  if (blocks > cap) blocks = cap;
+  kernel<<<(int)blocks, threads, smem, s>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int HID, int KIND>
 int launch_tc(const MlpParams& P, long long n, const void* x,
               const float* dirs, const float* extra, float* out,
               cudaStream_t s) {
   const TcPlan Q = tc_plan(P, HID, KIND);
-  const void* kernel = KIND == 0
-      ? reinterpret_cast<const void*>(mlp_kernel_bf16<HID>)
-      : reinterpret_cast<const void*>(rgb_head_kernel_bf16<HID>);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Q.smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      TC_THREADS, Q.smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  if (per_sm > TC_BLOCKS_PER_SM) per_sm = TC_BLOCKS_PER_SM;
-  long long blocks = (n + TC_ROWS - 1) / TC_ROWS;
-  const long long cap = (long long)per_sm * sm_count();
-  if (blocks > cap) blocks = cap;
   if (KIND == 0)
-    mlp_kernel_bf16<HID><<<(int)blocks, TC_THREADS, Q.smem, s>>>(P, Q, n, x,
-                                                                 out);
-  else
-    rgb_head_kernel_bf16<HID><<<(int)blocks, TC_THREADS, Q.smem, s>>>(
-        P, Q, n, static_cast<const float*>(x), dirs, extra, out);
-  return static_cast<int>(cudaGetLastError());
+    return launch_tiles(mlp_kernel_bf16<HID>, TC_THREADS, Q.smem,
+                        TC_BLOCKS_PER_SM, n, s, P, Q, n, x, out);
+  return launch_tiles(rgb_head_kernel_bf16<HID>, TC_THREADS, Q.smem,
+                      TC_BLOCKS_PER_SM, n, s, P, Q, n,
+                      static_cast<const float*>(x), dirs, extra, out);
 }
 
-// The tensor-core body at hidden width 64 or 128 (the widest hidden
-// layer; a single-layer MLP has none).
+// The tensor-core instance that takes P: hidden width 64 or 128 (the
+// widest hidden layer; a single-layer MLP has none), 0 for none.
+int hidden_width(const MlpParams& P) {
+  int widest = 0;
+  for (int l = 1; l < P.n_layers; ++l)
+    if (P.width[l] > widest) widest = P.width[l];
+  return widest <= 64 ? 64 : widest <= 128 ? 128 : 0;
+}
+
 template <int KIND>
 int launch_tc_width(const MlpParams& P, long long n, const void* x,
                     const float* dirs, const float* extra, float* out,
                     cudaStream_t s) {
-  int widest = 0;
-  for (int l = 1; l < P.n_layers; ++l)
-    if (P.width[l] > widest) widest = P.width[l];
-  if (widest <= 64) return launch_tc<64, KIND>(P, n, x, dirs, extra, out, s);
-  if (widest <= 128) return launch_tc<128, KIND>(P, n, x, dirs, extra, out, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  switch (hidden_width(P)) {
+    case 64: return launch_tc<64, KIND>(P, n, x, dirs, extra, out, s);
+    case 128: return launch_tc<128, KIND>(P, n, x, dirs, extra, out, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <int HID, int F>
+int launch_encode_mlp(const EncodeParams& E, const MlpParams& P, long long n,
+                      const float* table, const float* pos, float* out,
+                      cudaStream_t s) {
+  const TcPlan Q = tc_plan(P, HID, 2);
+  return launch_tiles(encode_mlp_kernel<HID, F>, TC_THREADS, Q.smem,
+                      ENCODE_MLP_BLOCKS_PER_SM, n, s, E, P, Q, n, table, pos,
+                      out);
+}
+
+template <int F>
+int launch_encode_mlp_width(const EncodeParams& E, const MlpParams& P,
+                            long long n, const float* table,
+                            const float* pos, float* out, cudaStream_t s) {
+  switch (hidden_width(P)) {
+    case 64: return launch_encode_mlp<64, F>(E, P, n, table, pos, out, s);
+    case 128: return launch_encode_mlp<128, F>(E, P, n, table, pos, out, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // The shared-memory layout of P's layers (w_off, w_total, act_rows);
@@ -1125,4 +1300,26 @@ extern "C" int nmr_rgb_head(const MlpParams* p, long long n,
   if (P.round_bf16)
     return launch_tc_width<1>(P, n, feat, dirs, extra, out, s);
   return launch_mlp_width<1>(P, n, feat, dirs, extra, out, s);
+}
+
+// The encode of `pos` over `table` (E) through the density MLP (P, bf16
+// compute dtype, input width L F) in one launch: nmr_hash_encode followed
+// by nmr_mlp at bf16 compute, bit for bit, without the (N, L F)
+// intermediate.
+extern "C" int nmr_encode_mlp(const EncodeParams* e, const MlpParams* p,
+                              long long n, const float* table,
+                              const float* pos, float* out, void* stream) {
+  const EncodeParams E = *e;
+  MlpParams P = *p;
+  if (!layout(P) || !P.round_bf16 || E.n_levels < 1 ||
+      E.n_levels > MAX_LEVELS || P.width[0] != E.n_levels * E.n_features)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (E.n_features) {
+    case 1: return launch_encode_mlp_width<1>(E, P, n, table, pos, out, s);
+    case 2: return launch_encode_mlp_width<2>(E, P, n, table, pos, out, s);
+    case 4: return launch_encode_mlp_width<4>(E, P, n, table, pos, out, s);
+    case 8: return launch_encode_mlp_width<8>(E, P, n, table, pos, out, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

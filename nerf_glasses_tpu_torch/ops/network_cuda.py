@@ -11,26 +11,34 @@ and their plain PyTorch versions.
   [density output, SH(dir), latent codes, zeros] through the rgb MLP
   (JAX ops/network.py:89 _rgb_head + ops/sh.py:13; plain
   `rgb_head_reference`, on sh.sh_encode and mlp.mlp_apply).
+- `encode_mlp` (nmr_encode_mlp) is `hash_encode` followed by `mlp` at
+  the bf16 compute dtype in one launch, the encode producing the density
+  MLP's first A tile in shared memory (JAX ops/network.py:62
+  density_raw -> :44 density_raw_soa; plain `encode_mlp_reference`).
 None was a Pallas kernel: the JAX package leaves the network to XLA.
-At the bf16 compute dtype the two MLP kernels run every layer on the
+At the bf16 compute dtype the MLP kernels run every layer on the
 tensor cores (wgmma, bf16 operands, f32 sums); at f32 on the CUDA cores
 (f32 fmaf), as the f32 contract needs.
 
-The routing rule (`takes_kernel`, applied by ops/network.NerfNetwork to
-all three): a CPU tensor takes the plain version; a CUDA tensor that
-needs no gradient (`not torch.is_grad_enabled()`, or no input and no
-parameter requires grad) takes the kernel; a CUDA call that needs
-gradients (the trainer's forward) takes the plain version and counts in
-`plain_on_card`. The wrappers themselves launch on a CUDA tensor or
-raise, and run the plain version on a CPU tensor; there is no fallback
-from one to the other. Each counts its launches in `launches[name]`.
+The routing rule (`takes_kernel`, applied by ops/network.NerfNetwork):
+a CPU tensor takes the plain version; a CUDA tensor that needs no
+gradient (`not torch.is_grad_enabled()`, or no input and no parameter
+requires grad) takes the kernel; a CUDA call that needs gradients (the
+trainer's forward) takes the plain version and counts in
+`plain_on_card`. NerfNetwork.density_raw asks for `encode_mlp` at the
+bf16 compute dtype and for `hash_encode` and `mlp` at f32. The wrappers
+themselves launch on a CUDA tensor or raise, and run the plain version
+on a CPU tensor; there is no fallback from one to the other. Each
+counts its launches in `launches[name]`.
 The kernels build with nvcc for sm_90a at first use (ops/cuda_build.py),
 never at import.
 
 The contract (`compare_with_plain`): the encode to rtol 1e-5 / atol 1e-6
-at f32 and within one bf16 ulp at bf16; the MLP outputs and rgb to 1e-4
-x max(1, |ref|) at f32 compute, and at bf16 compute within 2e-2 absolute
-on all but 1e-5 of the rows and within 8e-2 on every row; no NaN. The
+at f32 and within one bf16 ulp at bf16; the MLP outputs (encode_mlp's
+too) and rgb to 1e-4 x max(1, |ref|) at f32 compute, and at bf16 compute
+within 2e-2 absolute on all but 1e-5 of the rows and within 8e-2 on
+every row; no NaN. encode_mlp equals hash_encode followed by mlp bit for
+bit (the same corner sums, the same bf16 A tile, the same wgmma chain). The
 kernels keep the plain versions' rounding points and sum the 8 corners
 and the MLP products in another order than aten (the tensor cores also
 at their own internal precision): that is the one source of
@@ -76,7 +84,7 @@ MLP_BF16_ATOL = 2e-2
 MLP_BF16_ROW_SHARE = 1e-5
 MLP_BF16_CAP = 4 * MLP_BF16_ATOL
 
-KERNELS = ("hash_encode", "mlp", "rgb_head")
+KERNELS = ("hash_encode", "mlp", "rgb_head", "encode_mlp")
 # Kernel launches per wrapper (CUDA tensors only), and calls on a CUDA
 # tensor that took the plain version because they need gradients.
 launches = dict.fromkeys(KERNELS, 0)
@@ -122,7 +130,8 @@ def load_library() -> ctypes.CDLL:
     _lib = cuda_build.declare(lib, [
         ("nmr_hash_encode", [p, ll, p, p, p, p], i),
         ("nmr_mlp", [p, ll, p, p, p], i),
-        ("nmr_rgb_head", [p, ll, p, p, p, p, p], i)])
+        ("nmr_rgb_head", [p, ll, p, p, p, p, p], i),
+        ("nmr_encode_mlp", [p, p, ll, p, p, p, p], i)])
     return _lib
 
 
@@ -157,6 +166,15 @@ def hash_encode_reference(table, pos, config: NGPConfig,
 def mlp_reference(x, weights, compute_dtype=torch.bfloat16):
     """(N, n_out) f32 (ops/mlp.mlp_apply)."""
     return mlp_apply(x, weights, compute_dtype=compute_dtype)
+
+
+def encode_mlp_reference(table, pos, weights, config: NGPConfig,
+                         compute_dtype=torch.bfloat16,
+                         encode_dtype=torch.float32):
+    """(N, n_out) f32: mlp_reference(hash_encode_reference(...))."""
+    return mlp_reference(hash_encode_reference(table, pos, config,
+                                               encode_dtype),
+                         weights, compute_dtype)
 
 
 def rgb_row(feat, dir01, config: NGPConfig, extra=None):
@@ -245,25 +263,33 @@ def _encode_params(config: NGPConfig, rows: int, bf16: bool) -> EncodeParams:
     return p
 
 
+def _check_encode(name, table, pos, config, encode_dtype):
+    """table and pos as the encode kernels take them or ValueError ->
+    their device."""
+    dev = _device(name, pos)
+    L, F = config.n_levels, config.n_features_per_level
+    _dtype(name, encode_dtype)
+    _check("pos", pos, (torch.float32,), (None, 3), dev)
+    _check("table", table, (torch.float32,), (L, None, F), dev)
+    sizes = _levels(config)[2]
+    if L > MAX_LEVELS or F not in FEATURES or table.shape[1] < int(sizes.max()):
+        raise ValueError(f"{name}: {L} levels x {F} features over "
+                         f"{table.shape[1]} rows (needs L <= {MAX_LEVELS}, F "
+                         f"in {FEATURES}, rows >= {int(sizes.max())})")
+    if dev.type == "cuda" and table.data_ptr() % 16:
+        raise ValueError(f"{name}: the table must be 16-byte aligned")
+    return dev
+
+
 def hash_encode(table, pos, config: NGPConfig, encode_dtype=torch.float32):
     """table (L, S, F) f32, pos (N, 3) f32 in [0, 1] -> (N, L*F) in
     encode_dtype, level-major. On a CUDA tensor one launch of
     nmr_hash_encode (none for N = 0): L <= 32, F in (1, 2, 4, 8), S at
     least every level's hashmap size, the table 16-byte aligned."""
-    dev = _device("hash_encode", pos)
+    dev = _check_encode("hash_encode", table, pos, config, encode_dtype)
     L, F = config.n_levels, config.n_features_per_level
-    _dtype("hash_encode", encode_dtype)
-    _check("pos", pos, (torch.float32,), (None, 3), dev)
-    _check("table", table, (torch.float32,), (L, None, F), dev)
-    sizes = _levels(config)[2]
-    if L > MAX_LEVELS or F not in FEATURES or table.shape[1] < int(sizes.max()):
-        raise ValueError(f"hash_encode: {L} levels x {F} features over "
-                         f"{table.shape[1]} rows (needs L <= {MAX_LEVELS}, F "
-                         f"in {FEATURES}, rows >= {int(sizes.max())})")
     if dev.type == "cpu":
         return hash_encode_reference(table, pos, config, encode_dtype)
-    if table.data_ptr() % 16:
-        raise ValueError("hash_encode: the table must be 16-byte aligned")
     n = pos.shape[0]
     out = torch.empty((n, L * F), dtype=encode_dtype, device=dev)
     if n:
@@ -312,6 +338,34 @@ def mlp(x, weights, compute_dtype=torch.bfloat16):
     out = torch.empty((n, params.n_store), dtype=torch.float32, device=dev)
     if n:
         _launch("mlp", load_library().nmr_mlp, dev, params, n, x.data_ptr(),
+                out.data_ptr())
+    return out
+
+
+def encode_mlp(table, pos, weights, config: NGPConfig,
+               compute_dtype=torch.bfloat16, encode_dtype=torch.float32):
+    """table (L, S, F) f32, pos (N, 3) f32 in [0, 1], the density MLP's
+    weights (first input width L*F) -> (N, n_out) f32, as
+    encode_mlp_reference: hash_encode in encode_dtype then mlp at the
+    bf16 compute dtype (the f32 compute dtype takes the two wrappers).
+    Takes what hash_encode and mlp take; on a CUDA tensor one launch of
+    nmr_encode_mlp (none for N = 0)."""
+    dev = _check_encode("encode_mlp", table, pos, config, encode_dtype)
+    if _dtype("encode_mlp", compute_dtype) != torch.bfloat16:
+        raise ValueError("encode_mlp: the fused kernel runs the bf16 "
+                         "compute dtype (f32 takes hash_encode and mlp)")
+    params = _mlp_params("encode_mlp", weights, config.n_pos_features, dev,
+                         compute_dtype, n_store=weights[-1].shape[0])
+    if dev.type == "cpu":
+        return encode_mlp_reference(table, pos, weights, config,
+                                    compute_dtype, encode_dtype)
+    n = pos.shape[0]
+    out = torch.empty((n, params.n_store), dtype=torch.float32, device=dev)
+    if n:
+        enc = _encode_params(config, table.shape[1],
+                             encode_dtype == torch.bfloat16)
+        _launch("encode_mlp", load_library().nmr_encode_mlp, dev, enc,
+                ctypes.byref(params), n, table.data_ptr(), pos.data_ptr(),
                 out.data_ptr())
     return out
 
@@ -450,6 +504,60 @@ def encode_work(table, pos, config: NGPConfig, encode_dtype=torch.float32):
         rows += int(torch.unique(idx).numel())
     out_b = n * L * F * (2 if encode_dtype == torch.bfloat16 else 4)
     return n * L * (30 + 16 * F), n * 12 + out_b + rows * F * 4
+
+
+def encode_mlp_work(table, pos, weights, config: NGPConfig,
+                    compute_dtype=torch.bfloat16, encode_dtype=torch.float32):
+    """The fused encode + density MLP's least work on these inputs
+    (encode_mlp's arguments) -> (flops, bytes): encode_work's operations
+    and the MLP's (2 per
+    multiply-add); bytes: pos and the table rows these positions touch
+    read once (encode_work's count without its output), the weights read
+    once, the (N, n_out) f32 output written once. The (N, L*F)
+    intermediate is not moved."""
+    e_flops, e_bytes = encode_work(table, pos, config, encode_dtype)
+    n = pos.shape[0]
+    enc_out = n * config.n_levels * config.n_features_per_level * (
+        2 if encode_dtype == torch.bfloat16 else 4)
+    macs = sum(w.shape[0] * w.shape[1] for w in weights)
+    return (e_flops + 2 * n * macs,
+            e_bytes - enc_out + 4 * macs + 4 * n * weights[-1].shape[0])
+
+
+SECTOR = 32     # bytes: the unit of an L2 request
+
+
+def encode_gather_sectors(table, pos, config: NGPConfig):
+    """The 32-byte L2 sectors the two encode kernels' gathers request a
+    (sample, level) on these inputs, counted from the corner indices as
+    encode_work counts rows -> (nmr_hash_encode's, nmr_encode_mlp's).
+    Each corner is one load a thread; a warp's load requests each
+    distinct sector its 32 lanes touch once. nmr_hash_encode: a warp is
+    32 consecutive items s * L + l (32 / L samples on every level).
+    nmr_encode_mlp: a warp is 32 consecutive samples on one level. The
+    table is taken as 32-byte aligned, as PyTorch allocates it."""
+    L, F = config.n_levels, config.n_features_per_level
+    scales, res, sizes, dense = _levels(config)
+    n, rows = pos.shape[0], table.shape[1]
+    if n == 0:
+        return 0.0, 0.0
+    span = (L * rows * F * 4) // SECTOR + 1
+    s = torch.arange(n, device=pos.device)
+    per_corner = [[] for _ in range(8)]
+    fused = 0
+    for lvl in range(L):
+        idx, _ = corner_indices_and_weights(pos, float(scales[lvl]),
+                                            int(res[lvl]), int(sizes[lvl]),
+                                            bool(dense[lvl]))
+        sec = ((lvl * rows + idx) * (F * 4)) // SECTOR
+        item_warp = ((s * L + lvl) // 32) * span
+        level_warp = (s // 32) * span
+        for c in range(8):
+            per_corner[c].append(item_warp + sec[:, c])
+            fused += int(torch.unique(level_warp + sec[:, c]).numel())
+    standalone = sum(int(torch.unique(torch.cat(k)).numel())
+                     for k in per_corner)
+    return standalone / (n * L), fused / (n * L)
 
 
 def mlp_work(x, weights):

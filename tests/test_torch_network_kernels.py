@@ -1,7 +1,10 @@
 """The network forward's kernels (ops/network_cuda.py, csrc/network.cu):
 a numpy model of each kernel against its plain version, the plain
 versions against the JAX package, the routing rule, the wrappers'
-validation, the contract, and the kernels themselves on the card.
+validation, the contract, and the kernels themselves on the card. The
+fused encode + density MLP (nmr_encode_mlp) is the encode's model
+composed with the tensor-core chain's, its A tile rounded to bf16 as the
+kernel rounds it.
 
 Widths: TEST_CFG (16 levels x 2, 2^15 rows, dense and hashed levels, the
 dense ones of non-power-of-two size), NGPConfig.native_fast() (8 x 4,
@@ -32,8 +35,15 @@ Tolerances:
   encode to 2 bf16 ulps (XLA and aten may order the bf16 sum apart).
 - the kernels against the plain versions (marked `cuda`, skipped without
   a card; `python -m pytest tests/test_torch_network_kernels.py -m cuda`):
-  compare_with_plain's contract.
+  compare_with_plain's contract; the fused kernel against hash_encode
+  followed by mlp on the card bit for bit (the same corner sums, A tile
+  and wgmma chain).
+- encode_mlp_reference against the JAX package's density_raw: 1e-4 at
+  the f32 compute dtype (rtol and atol, tests/test_torch_network.py's
+  bar after an f32 MLP), 2e-2 at bf16.
 """
+
+import functools
 
 import types
 
@@ -302,6 +312,14 @@ def _rgb_head_model(feat, dirs, weights, jc, bf16, extra=None):
     if bf16:
         return _tc_layers_model(_bf16(row), weights, 3)
     return _layers_model(row, weights, 3)
+
+
+def _encode_mlp_model(table, pos, jc, weights, bf16_encode):
+    """nmr_encode_mlp: the encode kernel's per-level corner sums
+    (_encode_model), the A tile's row rounded to bf16 (the f32 sum once,
+    or the bf16 encode's value as it is), then the tensor-core chain."""
+    enc, _, _ = _encode_model(table, pos, jc, bf16_encode)
+    return _tc_layers_model(_bf16(enc), weights, weights[-1].shape[0])
 
 
 def _assert_contract(kind, model, plain, dtype):
@@ -712,22 +730,28 @@ def test_routing_rule():
 def test_kernel_route_plumbing_on_cpu(monkeypatch):
     """With the rule forced to the kernels, NerfNetwork hands the wrappers
     what they take (on CPU tensors they run the plain versions): the same
-    outputs, latent codes included."""
+    outputs, latent codes included. At the bf16 compute dtype the density
+    half asks for the fused encode_mlp, at f32 for hash_encode and mlp."""
     jc, _ = _rgb_case(E=8)
     net = _net(jc)
     pos = torch.as_tensor(_positions(jc, n=48))
     dirs = torch.as_tensor(_dirs(48)).T.contiguous().T      # strided
     codes = torch.arange(8, dtype=torch.float32) / 8.0
-    want = net(pos, dirs, extra=codes)
+    want = {cd: net(pos, dirs, compute_dtype=cd, extra=codes)
+            for cd in DTYPES.values()}
     seen = []
     monkeypatch.setattr(nc, "takes_kernel",
                         lambda name, *t: seen.append(name) or True)
-    got = net(pos, dirs, extra=codes)
-    assert seen == ["hash_encode", "mlp", "rgb_head"]
-    for a, b in zip(got, want):
-        assert torch.equal(a, b)
-    feat = net.density_raw(pos)
-    assert torch.equal(net.rgb_from_features(feat, dirs, extra=codes), got[0])
+    for cd, names in ((torch.bfloat16, ["encode_mlp", "rgb_head"]),
+                      (torch.float32, ["hash_encode", "mlp", "rgb_head"])):
+        seen.clear()
+        got = net(pos, dirs, compute_dtype=cd, extra=codes)
+        assert seen == names
+        for a, b in zip(got, want[cd]):
+            assert torch.equal(a, b)
+        feat = net.density_raw(pos, cd)
+        assert torch.equal(net.rgb_from_features(feat, dirs, cd, extra=codes),
+                           got[0])
 
 
 def test_grad_needing_call_keeps_autograd():
@@ -855,6 +879,235 @@ def test_work_counts():
     ws = [torch.zeros(s) for s in jc.mlp_shapes()[0]]
     x = torch.zeros((10, 32), dtype=torch.bfloat16)
     assert nc.mlp_work(x, ws) == (2 * 10 * 3072, 10 * 64 + 4 * 3072 + 640)
+
+
+# ---------------------------------------------------------------------------
+# The fused encode + density MLP (nmr_encode_mlp)
+# ---------------------------------------------------------------------------
+
+FUSED_CONFIGS = {"native_fast": JCfg.native_fast(), "ngp": JCfg()}
+# the feature counts the main path does not reach, at input widths (5 and
+# 24) that the first layer zero-pads to 16 and 32
+ODD_CONFIGS = {
+    "f1": JCfg(n_levels=5, n_features_per_level=1, log2_hashmap_size=12),
+    "f8": JCfg(n_levels=3, n_features_per_level=8, log2_hashmap_size=12)}
+
+
+@functools.lru_cache(maxsize=None)
+def _fused_table(name):
+    return _table({**FUSED_CONFIGS, **ODD_CONFIGS}[name])
+
+
+def _density_weights(jc, hid, seed=30):
+    """The config's density MLP with its hidden layers hid wide."""
+    d = jc.mlp_shapes()[0]
+    shapes = ([(hid, d[0][1])] + [(hid, hid)] * (len(d) - 2)
+              + [(d[-1][0], hid)])
+    return _mlp_weights(shapes, seed + hid)
+
+
+def _fused_positions(jc, n, seed=0):
+    return _positions(jc, n=max(n, 192), seed=seed)[:n]
+
+
+@pytest.mark.parametrize("n", [1, 63, 65, 4099])
+@pytest.mark.parametrize("encode", list(DTYPES))
+@pytest.mark.parametrize("hid", [64, 128])
+@pytest.mark.parametrize("name", list(FUSED_CONFIGS))
+def test_encode_mlp_model_matches_plain(name, hid, encode, n):
+    """The fused kernel's model (the encode's corner sums, the bf16 A
+    tile, the tensor-core chain) against encode_mlp_reference under the
+    bf16 contract, at native_fast and NGPConfig() widths, both hidden
+    widths, both encode dtypes and row counts around the 64-row tile."""
+    jc = FUSED_CONFIGS[name]
+    table = _fused_table(name)
+    pos = _fused_positions(jc, n, seed=n)
+    weights = _density_weights(jc, hid)
+    plain = nc.encode_mlp_reference(
+        torch.as_tensor(table), torch.as_tensor(pos),
+        [torch.as_tensor(w) for w in weights], _tcfg(jc), torch.bfloat16,
+        DTYPES[encode])
+    assert plain.shape == (n, 16) and plain.dtype == torch.float32
+    model = _encode_mlp_model(table, pos, jc, weights, encode == "bfloat16")
+    _assert_contract("mlp", model, plain, torch.bfloat16)
+
+
+@pytest.mark.parametrize("encode", list(DTYPES))
+@pytest.mark.parametrize("name", list(ODD_CONFIGS))
+def test_encode_mlp_model_other_feature_counts(name, encode):
+    """As above at F = 1 and F = 8, input widths 5 and 24 (zero-padded
+    columns in the A tile), N = 65 and 300."""
+    jc = ODD_CONFIGS[name]
+    table = _fused_table(name)
+    weights = _density_weights(jc, 64)
+    assert weights[0].shape[1] == jc.n_levels * jc.n_features_per_level
+    for n in (65, 300):
+        pos = _fused_positions(jc, n, seed=n)
+        plain = nc.encode_mlp_reference(
+            torch.as_tensor(table), torch.as_tensor(pos),
+            [torch.as_tensor(w) for w in weights], _tcfg(jc), torch.bfloat16,
+            DTYPES[encode])
+        model = _encode_mlp_model(table, pos, jc, weights,
+                                  encode == "bfloat16")
+        _assert_contract("mlp", model, plain, torch.bfloat16)
+
+
+@pytest.mark.parametrize("cd", list(DTYPES))
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_encode_mlp_reference_matches_jax_density_raw(name, cd):
+    """encode_mlp_reference against the JAX package's density_raw on the
+    same parameters and positions: 1e-4 at f32 compute, 2e-2 at bf16;
+    with the bf16 encode at bf16 compute as the trainer runs it."""
+    jc = CONFIGS[name]
+    params = _params(jc, seed=17)
+    net = params_from_jax(params, _tcfg(jc))
+    jp = {"density_mlp": tuple(jnp.asarray(w) for w in params["density_mlp"]),
+          "grid": jnp.asarray(params["grid"])}
+    pos = _positions(jc, n=160, seed=18)
+    tol = 1e-4 if cd == "float32" else 2e-2
+    for enc in ("float32", "bfloat16") if cd == "bfloat16" else ("float32",):
+        want = np.asarray(jnet.density_raw(
+            jp, jnp.asarray(pos), jc, compute_dtype=getattr(jnp, cd),
+            encode_dtype=getattr(jnp, enc)))
+        got = nc.encode_mlp_reference(net.grid, torch.as_tensor(pos),
+                                      net.density_mlp, _tcfg(jc), DTYPES[cd],
+                                      DTYPES[enc])
+        np.testing.assert_allclose(got.numpy(), want, atol=tol, rtol=tol)
+
+
+def test_fused_routing_rule(monkeypatch):
+    """density_raw on a (simulated) card: at bf16 with no gradient the
+    fused encode_mlp, at f32 hash_encode and mlp; with a gradient the
+    plain versions, counted once in plain_on_card["encode_mlp"] at bf16
+    (and in hash_encode's and mlp's at f32), autograd intact. The rule is
+    network_cuda.takes_kernel's own, handed the tensors as they would lie
+    on a CUDA device."""
+    net = _net()
+    pos = torch.as_tensor(_positions(TEST_CFG, n=40))
+    rule = nc.takes_kernel
+    card = torch.device("cuda")
+    routed = []
+
+    def on_card(name, *ts):
+        took = rule(name, *(None if t is None else types.SimpleNamespace(
+            device=card, requires_grad=t.requires_grad) for t in ts))
+        routed.append((name, took))
+        return took
+
+    monkeypatch.setattr(nc, "takes_kernel", on_card)
+    monkeypatch.setattr(nc, "encode_mlp", lambda *a: ("fused", a))
+    want = {cd: nc.encode_mlp_reference(net.grid, pos, net.density_mlp,
+                                        net.config, cd)
+            for cd in DTYPES.values()}
+    got = net.density_raw(pos)
+    assert got[0] == "fused" and routed == [("encode_mlp", True)]
+    grid, p, weights, cfg, cd, ed = got[1]
+    assert grid is net.grid and torch.equal(p, pos) and cd == torch.bfloat16
+    assert ed == torch.float32 and list(weights) == list(net.density_mlp)
+    routed.clear()
+    assert torch.equal(net.density_raw(pos, torch.float32),
+                       want[torch.float32])
+    assert routed == [("hash_encode", True), ("mlp", True)]
+    net.requires_grad_(True)
+    before = dict(nc.plain_on_card)
+    routed.clear()
+    out = net.density_raw(pos)
+    assert routed == [("encode_mlp", False)] and out.requires_grad
+    assert torch.equal(out.detach(), want[torch.bfloat16])
+    assert nc.plain_on_card["encode_mlp"] == before["encode_mlp"] + 1
+    out.sum().backward()
+    assert bool(net.grid.grad.abs().sum() > 0)
+    with torch.no_grad():
+        routed.clear()
+        assert net.density_raw(pos)[0] == "fused"
+        assert routed == [("encode_mlp", True)]
+    assert nc.plain_on_card["encode_mlp"] == before["encode_mlp"] + 1
+
+
+def test_encode_mlp_wrapper_validation():
+    """encode_mlp takes what hash_encode and mlp take, at the bf16 compute
+    dtype; on CPU tensors it runs the plain version."""
+    tc = _tcfg(TEST_CFG)
+    net = _net()
+    grid = net.grid.detach()
+    pos = torch.as_tensor(_positions(TEST_CFG, n=16))
+    ws = [w.detach() for w in net.density_mlp]
+    assert torch.equal(nc.encode_mlp(grid, pos, ws, tc),
+                       nc.encode_mlp_reference(grid, pos, ws, tc))
+    assert nc.encode_mlp(grid, pos[:0], ws, tc).shape == (0, 16)
+    bad = [
+        (grid, pos.double(), ws, tc),                    # dtype
+        (grid, pos[:, :2], ws, tc),                      # shape
+        (grid, pos.T.contiguous().T, ws, tc),            # not contiguous
+        (grid[:, :100], pos, ws, tc),                    # rows < hashmap
+        (grid[:8], pos, ws, tc),                         # levels
+        (grid.to("meta"), pos, ws, tc),                  # table elsewhere
+        (grid, pos, ws[::-1], tc),                       # chain
+        (grid, pos, [torch.zeros((64, 16)), ws[1]], tc),  # input != L*F
+        (grid, pos, [torch.zeros((200, 32)), torch.zeros((16, 200))], tc),
+        (grid, pos, ws * 5, tc),                         # > 8 layers
+        (grid, pos, [ws[0].T.contiguous().T, ws[1]], tc),
+        (torch.zeros((40, 8, 2)), pos, ws,
+         TCfg(n_levels=40, log2_hashmap_size=3)),        # > 32 levels
+        (torch.zeros((2, 64, 3)), pos, [torch.zeros((64, 6)), ws[1]],
+         TCfg(n_levels=2, n_features_per_level=3, log2_hashmap_size=6)),
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            nc.encode_mlp(*args)
+    for cd, ed in ((torch.float32, torch.float32),       # f32 compute
+                   (torch.float16, torch.float32),
+                   (torch.bfloat16, torch.float16)):
+        with pytest.raises(ValueError):
+            nc.encode_mlp(grid, pos, ws, tc, cd, ed)
+
+
+def test_encode_mlp_work_counts():
+    jc = JCfg.native_fast()
+    tc = _tcfg(jc)
+    pos = torch.as_tensor(_positions(jc, n=100))
+    ws = [torch.zeros(s) for s in jc.mlp_shapes()[0]]
+    for ed in DTYPES.values():
+        e_flops, e_bytes = nc.encode_work(torch.zeros(1), pos, tc, ed)
+        flops, nbytes = nc.encode_mlp_work(torch.zeros(1), pos, ws, tc,
+                                           torch.bfloat16, ed)
+        assert flops == e_flops + 2 * 100 * 3072
+        enc_out = 100 * 32 * (2 if ed == torch.bfloat16 else 4)
+        assert nbytes == e_bytes - enc_out + 4 * 3072 + 4 * 100 * 16
+    # no intermediate: pos, the rows touched, weights, the output
+    assert nbytes < 100 * 12 + 100 * 8 * 8 * 4 * 4 + 4 * 3072 + 6400
+
+
+def test_gather_sector_counts():
+    """One sample: either gather requests one sector a corner on each
+    level (8 a (sample, level)). Samples along a ray share corners: the
+    fused kernel's level-major warps request fewer than the standalone's,
+    which span L levels; a count done by hand on two samples agrees."""
+    for jc in (JCfg.native_fast(), TEST_CFG):
+        tc = _tcfg(jc)
+        table = torch.zeros((jc.n_levels, jhash.padded_table_rows(jc),
+                             jc.n_features_per_level))
+        pos = torch.as_tensor(_fused_positions(jc, 2, seed=4))
+        assert nc.encode_gather_sectors(table, pos[:1], tc) == (8.0, 8.0)
+        scales, res, sizes, dense = thash.level_constants(tc)
+        L, F, S = jc.n_levels, jc.n_features_per_level, table.shape[1]
+        secs = []
+        for lvl in range(L):
+            idx, _ = thash.corner_indices_and_weights(
+                pos, float(scales[lvl]), int(res[lvl]), int(sizes[lvl]),
+                bool(dense[lvl]))
+            secs.append(((lvl * S + idx) * F * 4) // 32)
+        # both samples in one warp either way (2 L <= 32 items)
+        want = sum(len({int(secs[lvl][k, c]) for k in (0, 1)})
+                   for lvl in range(L) for c in range(8))
+        assert nc.encode_gather_sectors(table, pos, tc) == (
+            want / (2 * L), want / (2 * L))
+        t = torch.linspace(0.2, 0.8, 4096)[:, None]
+        ray = torch.as_tensor([0.1, 0.2, 0.3]) + t * torch.as_tensor(
+            [0.7, 0.5, 0.6])
+        old, new = nc.encode_gather_sectors(table, ray.contiguous(), tc)
+        assert new < old <= 8.0
+    assert nc.encode_gather_sectors(table, pos[:0], tc) == (0.0, 0.0)
 
 
 # ---------------------------------------------------------------------------
@@ -1021,3 +1274,95 @@ def test_unsupported_shape_raises_on_card():
         with pytest.raises(RuntimeError):
             nc.mlp(x, ws, cd)
         assert nc.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("encode", list(DTYPES))
+@pytest.mark.parametrize("hid", [64, 128])
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_encode_mlp_kernel_on_card(name, hid, encode):
+    """nmr_encode_mlp equals nmr_hash_encode followed by nmr_mlp at the
+    bf16 compute dtype bit for bit, and is within the bf16 contract of its
+    plain version, on N = 1, 63, 65, 4099; one launch a call."""
+    _needs_card()
+    jc = CONFIGS[name]
+    tc = _tcfg(jc)
+    table = torch.as_tensor(_table(jc), device="cuda")
+    ws = [torch.as_tensor(w, device="cuda")
+          for w in _density_weights(jc, hid)]
+    bf, ed = torch.bfloat16, DTYPES[encode]
+    for n in (1, 63, 65, 4099):
+        pos = torch.as_tensor(_fused_positions(jc, n, seed=n), device="cuda")
+        before = dict(nc.launches)
+        got = nc.encode_mlp(table, pos, ws, tc, bf, ed)
+        torch.cuda.synchronize()
+        assert nc.launches["encode_mlp"] == before["encode_mlp"] + 1
+        pair = nc.mlp(nc.hash_encode(table, pos, tc, ed), ws, bf)
+        assert torch.equal(got.view(torch.int32), pair.view(torch.int32))
+        r = nc.compare_with_plain(
+            "mlp", got, nc.encode_mlp_reference(table, pos, ws, tc, bf, ed), bf)
+        assert r["ok"], r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(ODD_CONFIGS))
+def test_encode_mlp_kernel_other_feature_counts_on_card(name):
+    """F = 1 and F = 8 (their own instances), zero-padded input widths:
+    bit for bit the pair, within the contract of the plain version."""
+    _needs_card()
+    jc = ODD_CONFIGS[name]
+    tc = _tcfg(jc)
+    table = torch.as_tensor(_table(jc), device="cuda")
+    ws = [torch.as_tensor(w, device="cuda") for w in _density_weights(jc, 64)]
+    pos = torch.as_tensor(_fused_positions(jc, 4099), device="cuda")
+    for ed in DTYPES.values():
+        got = nc.encode_mlp(table, pos, ws, tc, torch.bfloat16, ed)
+        pair = nc.mlp(nc.hash_encode(table, pos, tc, ed), ws, torch.bfloat16)
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(torch.int32), pair.view(torch.int32))
+        r = nc.compare_with_plain("mlp", got, nc.encode_mlp_reference(
+            table, pos, ws, tc, torch.bfloat16, ed), torch.bfloat16)
+        assert r["ok"], r
+
+
+@pytest.mark.cuda
+def test_encode_mlp_sees_weights_changed_in_place_on_card():
+    _needs_card()
+    jc = JCfg.native_fast()
+    tc = _tcfg(jc)
+    table = torch.as_tensor(_table(jc), device="cuda")
+    pos = torch.as_tensor(_fused_positions(jc, 300), device="cuda")
+    ws = [torch.as_tensor(w, device="cuda") for w in _density_weights(jc, 64)]
+    first = nc.encode_mlp(table, pos, ws, tc)
+    ws[0].mul_(-0.5)
+    table.mul_(2.0)
+    second = nc.encode_mlp(table, pos, ws, tc)
+    assert not torch.equal(first, second)
+    assert nc.compare_with_plain(
+        "mlp", second, nc.encode_mlp_reference(table, pos, ws, tc),
+        torch.bfloat16)["ok"]
+
+
+@pytest.mark.cuda
+def test_encode_mlp_unsupported_shape_raises_on_card():
+    """Shapes the fused kernel does not take raise on the card and launch
+    nothing: a feature count of 3, a 200-wide hidden layer, the f32
+    compute dtype (which takes hash_encode and mlp)."""
+    _needs_card()
+    jc = JCfg.native_fast()
+    tc = _tcfg(jc)
+    table = torch.as_tensor(_table(jc), device="cuda")
+    pos = torch.as_tensor(_fused_positions(jc, 64), device="cuda")
+    ws = [torch.as_tensor(w, device="cuda") for w in _density_weights(jc, 64)]
+    wide = [torch.zeros((200, 32), device="cuda"),
+            torch.zeros((16, 200), device="cuda")]
+    before = dict(nc.launches)
+    for args in ((torch.zeros((2, 64, 3), device="cuda"), pos,
+                  [torch.zeros((64, 6), device="cuda"), ws[1]],
+                  TCfg(n_levels=2, n_features_per_level=3,
+                       log2_hashmap_size=6)),
+                 (table, pos, wide, tc),
+                 (table, pos, ws, tc, torch.float32)):
+        with pytest.raises(ValueError):
+            nc.encode_mlp(*args)
+    assert nc.launches == before
