@@ -7,11 +7,15 @@
 line, and the smoke run proper takes no such flag). Each DIR is another
 checkout of the repository (for example the parent commit unpacked with
 `git archive` into a git-ignored directory): its ray-cast kernels
-(ops/mesh_cuda.py) and network kernels (ops/network_cuda.py), where it
-has them, are built from its own csrc/, held against the plain versions
-and timed in turns with this tree's: the ray-casts in phases 3 and 7 by
-CUDA events, the network kernels it has on phases 4b's, 5c's and 15's
-recorded calls by device time. A variant of a kernel is timed the same
+(ops/mesh_cuda.py), network kernels (ops/network_cuda.py) and march
+kernels (ops/march_cuda.py), where it has them, are built from its own
+csrc/, held against the plain versions and timed in turns with this
+tree's: the ray-casts in phases 3 and 7 by CUDA events, the network
+kernels it has on phases 4b's, 5c's and 15's recorded calls by device
+time, the march kernels on every recorded call of phases 5b, 8b, 23b and
+24 (and 5b's and 23b's other probe routes), each required to equal this
+tree's bit for bit (the fused advance + samples its advance followed by
+its samples). A variant of a kernel is timed the same
 way: a copy of this tree unpacked under the git-ignored _chipwork/ with
 the variant edited in (for example network.cu's ENCODE_MLP_BLOCKS_PER_SM)
 and given as a DIR. The smoke run itself takes no argument.
@@ -29,7 +33,9 @@ procedural glasses glTF written here) + frame(), with the mesh pass at
      bytes (`cuobjdump -res-usage` of the loaded library), tensor-core
      instructions (HGMMA or HMMA) and local loads and stores (LDL, STL)
      in its SASS (`cuobjdump -sass`): the bf16 and fused instances must
-     hold tensor-core instructions and spill nothing;
+     hold tensor-core instructions and spill nothing; every march kernel
+     instance's SASS instructions and those of its probe loop (this
+     tree's and each DIR's);
   3. the tiled kernel against its plain PyTorch version at the main
      path's shapes (2560x1440 rays, tile-padded to 2560x1472, binned
      against the glasses) under mesh_cuda.compare_with_plain's contract
@@ -41,12 +47,15 @@ procedural glasses glTF written here) + frame(), with the mesh pass at
      finite, the head covers a plausible share, mesh pixels are present
      and the kernel was launched by the frames (its launch count is
      zeroed just before and read just after), and so were the march
-     kernels, the fused encode + density MLP and the rgb head, with the
+     kernels (the fused advance + samples once an epoch, the advance and
+     the samples alone no time, the composite), the fused encode + density
+     MLP and the rgb head, with the
      standalone encode and MLP launched no time (at the bf16 compute dtype
      the fused kernel serves every density call) and no network call on
      the card taking a plain version (network_cuda.plain_on_card stays 0;
      phases 8, 14, 17, 20, 23 and 24 check the same on their renders,
-     queries, sweep, collide and bakes);
+     queries, sweep, collide and bakes); then one frame with two rounds an
+     epoch, which launches the samples alone for the second;
  4b. one such frame at the f32 compute dtype: the standalone encode and
      MLP kernels and the rgb head launched, the fused kernel not; the
      standalone encode's and MLP's first-epoch calls recorded from the
@@ -55,9 +64,15 @@ procedural glasses glTF written here) + frame(), with the mesh pass at
   5. one frame with the plain ray-cast in the kernel's place: >= 50 dB
      PSNR against the kernel's frame at the same sample index;
  5b. the march kernels (csrc/march.cu) on the first epoch of an exact
-     720p frame, its inputs recorded from the frame's own calls (and on
-     the same state with options that reach the clearance grid, the
-     per-voxel DDA and the jump grid under cone steps): each
+     720p frame, its inputs recorded from the frame's own calls (the fused
+     advance + samples and the composite; the advance alone and the
+     samples alone on the fused call's inputs; and on the same state with
+     options that reach the clearance grid, the per-voxel DDA and the jump
+     grid under cone steps): the fused call bit for bit the advance
+     followed by the samples, beside that pair's device time; how the
+     walks scale (device time on 1/8, 1/4, 1/2 and all of the rays, the
+     advance at 12, 24 and 48 probes, each ray's probe count from the
+     plain loops: mean, max, mean of the 32-ray warps' maxima); each
      kernel against its plain version under march_cuda.
      compare_with_plain's contract (rays that differ in a flag or a t <=
      max(4, 1e-4 x rays), each within one MAX_CONE_STEPSIZE; composite
@@ -112,11 +127,13 @@ procedural glasses glTF written here) + frame(), with the mesh pass at
      launched), >= 30 dB PSNR against the exact frame of phase 4's
      renderer at the same camera and sample index; one flash frame's
      device operations and busy share under torch.profiler;
- 8b. the march kernels of that flash frame (the 24-probe advance, the
-     composite's surface blend alone) and of one frame of the same
-     Testbed with flash off (baked sigma, sequential rounds: advance,
-     samples, and the composite's two stages as two calls), recorded from
-     the frames' own calls, each against its plain version as in 5b;
+ 8b. the march kernels of that flash frame (the 24-probe advance alone,
+     the composite's surface blend alone; the flash frames launched the
+     advance alone and not the fused walk) and of one frame of the same
+     Testbed with flash off (baked sigma, sequential rounds: the fused
+     advance + samples, and the composite's two stages as two calls),
+     recorded from the frames' own calls, each against its plain version
+     as in 5b;
   9. the single-program hybrid frame (render_hybrid_sharded, n_shards=1)
      with that Testbed's flash options and scene: the untiled kernel
      launched, the frame finite and >= 40 dB from the renderer's flash
@@ -196,8 +213,9 @@ on every ray's path:
      seconds, loss and the occupied cells of each cascade;
  23. the exact hybrid frame of that snapshot with the glasses: 1 warm-up +
      3 timed frames, epochs, the tiled kernel's launches (zeroed just
-     before, read just after: one per frame) and the four march kernels'
-     (the init walk's among them), peak memory; dist_advance is on and
+     before, read just after: one per frame) and the march kernels' (the
+     init walk, the fused advance + samples and the composite launched,
+     the advance and the samples alone not), peak memory; dist_advance is on and
      the scene carries the clearance pyramid;
 23b. phase 5b on that frame: the march kernels on the clearance
      pyramid's route (and the multi-cascade per-voxel DDA with its cone
@@ -285,7 +303,7 @@ by parallel.sharding.run_on_mesh, whose rank bodies are this file's
      max |g| (phase 16's bar), the card's ranks equal.
 Each phase prints its seconds.
 
-Prints one JSON line with the nine kernels' numbers (time, bound and
+Prints one JSON line with the eleven kernels' numbers (time, bound and
 share of it, launches per frame, the plain version's time; no single
 PyTorch call computes a nearest ray-triangle hit, a march loop, a hash
 encode or a bf16-rounded bias-free MLP chain, so library_ms is null; the
@@ -299,6 +317,7 @@ import base64
 import concurrent.futures
 import dataclasses
 import functools
+import gc
 import importlib.util
 import io
 import json
@@ -797,7 +816,8 @@ def cuda_ms(fn, reps):
 
 
 # kernel module of another checkout -> its source in that checkout's csrc/
-OTHER_KERNELS = {"mesh_cuda": "mesh_raycast.cu", "network_cuda": "network.cu"}
+OTHER_KERNELS = {"mesh_cuda": "mesh_raycast.cu", "network_cuda": "network.cu",
+                 "march_cuda": "march.cu"}
 
 
 def other_checkouts(dirs, module):
@@ -924,8 +944,65 @@ def mlp_kernel_report(module):
 # The march kernels (phases 5b and 23b)
 # ---------------------------------------------------------------------------
 
+MARCH_KERNEL_NAME = re.compile(r"\d+([a-z_]+_kernel)I((?:L[ib]\d+E)+)E")
+SASS_OP = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T\d]+\s+)?"
+                     r"([A-Z][A-Z0-9_.]*)([^;]*);")
+LOAD_OP = re.compile(r"^(LDG|LDS|LD)\b")
+
+
+def march_sass_report(module, label="this tree"):
+    """Each march kernel instance in the library `module` loaded, read with
+    cuobjdump -sass: its instructions, and those of its probe loop (the
+    innermost loop, a backward branch's range, that holds a load: the
+    probe's gather; the IEEE division's slow path, a subroutine after the
+    body, not counted), with the MUFU and CALL instructions in that loop
+    -> {instance: numbers}."""
+    cuobjdump = os.path.join(os.path.dirname(cuda_build.nvcc()), "cuobjdump")
+    lib = module.load_library()._name
+    lines = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
+                           text=True, check=True).stdout.splitlines()
+    funcs, cur = {}, None
+    for line in lines:
+        if "Function :" in line:
+            k = MARCH_KERNEL_NAME.search(line)
+            cur = (f"{k.group(1)}<" + ", ".join(
+                re.findall(r"L[ib](\d+)E", k.group(2))) + ">") if k else None
+            if cur:
+                funcs[cur] = []
+        elif cur:
+            m = SASS_OP.search(line)
+            if m:
+                funcs[cur].append((int(m.group(1), 16), m.group(2), m.group(3)))
+    out = {}
+    for name, ops in sorted(funcs.items()):
+        loops = []
+        for addr, op, args in ops:
+            tgt = (re.search(r"0x([0-9a-f]+)", args) if op.startswith("BRA")
+                   else None)
+            if tgt and int(tgt.group(1), 16) <= addr:
+                body = [o for o in ops if int(tgt.group(1), 16) <= o[0] <= addr]
+                if any(LOAD_OP.match(o[1]) for o in body):
+                    loops.append(body)
+        loop = min(loops, key=len) if loops else []
+        out[name] = {"instructions": len(ops), "probe_loop": len(loop),
+                     "probe_loop_mufu": sum(o[1].startswith("MUFU")
+                                            for o in loop),
+                     "probe_loop_calls": sum(o[1].startswith("CALL")
+                                             for o in loop)}
+    print(f"march kernels of {label}, cuobjdump -sass: " + "; ".join(
+        f"{k} {r['instructions']} instructions, probe loop {r['probe_loop']} "
+        f"({r['probe_loop_mufu']} MUFU, {r['probe_loop_calls']} CALL)"
+        for k, r in out.items()))
+    return out
+
 MARCH_KERNELS = {            # wrapper -> (kernel, compare kind, what it replaces)
-    "advance": ("nmr_march_advance", "walk",
+    "advance_samples": ("nmr_march_walk:advance_samples", "advance_samples",
+                        "nerf_glasses_tpu_torch/ops/march_cuda.py::"
+                        "advance_reference then samples_reference "
+                        "(raymarch._advance_pass's loop, then the first "
+                        "round's sequential samples); "
+                        "nerf_glasses_tpu/ops/raymarch.py:730, :782"),
+    "advance": ("nmr_march_walk:advance", "walk",
                 "nerf_glasses_tpu_torch/ops/march_cuda.py::advance_reference "
                 "(raymarch._advance_pass's loop); "
                 "nerf_glasses_tpu/ops/raymarch.py:730"),
@@ -933,7 +1010,7 @@ MARCH_KERNELS = {            # wrapper -> (kernel, compare kind, what it replace
                   "nerf_glasses_tpu_torch/ops/march_cuda.py::"
                   "init_walk_reference (raymarch.init_rays' walk); "
                   "nerf_glasses_tpu/ops/raymarch.py:565"),
-    "samples": ("nmr_march_samples", "samples",
+    "samples": ("nmr_march_walk:samples", "samples",
                 "nerf_glasses_tpu_torch/ops/march_cuda.py::samples_reference "
                 "(raymarch._march_round's sequential samples); "
                 "nerf_glasses_tpu/ops/raymarch.py:782"),
@@ -943,6 +1020,9 @@ MARCH_KERNELS = {            # wrapper -> (kernel, compare kind, what it replace
                   "composite); nerf_glasses_tpu/ops/raymarch.py:873, :1005, "
                   ":1031"),
 }
+# every march kernel takes MarchParams first: its device operations'
+# names hold it (kernel_device_ms), those of this tree and of others
+MARCH_OP = "MarchParams"
 PSNR_PLAIN_MARCH_DB = 60.0
 EXACT_FRAME_MAX_LAUNCHES = 10000
 
@@ -974,7 +1054,7 @@ def first_march_calls(fn):
     def key(name, args):
         if name == "init_walk":
             return name if args[6].init_skip_iters > 0 else None
-        if name == "advance":
+        if name in ("advance", "advance_samples"):
             return name if args[3] > 0 else None
         if name == "composite" and len(args) > 3:
             return COMPOSITE_STAGES.get(args[3], name)
@@ -1020,53 +1100,81 @@ def march_bound(name, args):
         n = o.shape[0]
         per_ray = 33 + 5            # o, d, t, t_surf, alive; t, alive
     else:
+        # in: o, d, t, t_start, t_surf, surf_a, alive 41; out: the
+        # advance's t, alive 5; each slot's pos, dt, valid, ts 21 and
+        # t_end, exited, surf_stopped 6
         st, scene, opts = args[0], args[1], args[2]
         n = st["t"].shape[0]
-        per_ray = 41 + (5 if name == "advance" else
-                        21 * opts.steps_per_round + 6)
+        per_ray = 41 + (5 if name != "samples" else 0) + (
+            21 * opts.steps_per_round + 6 if name != "advance" else 0)
     grid = march_cuda.probe_route(scene, opts)[1]
     return bound_ms(0, n * per_ray + grid.numel() + 60)
 
 
-def other_routes(calls, variants, label):
+def other_routes(calls, variants, label, others=()):
     """The walk and sample kernels on the recorded first-epoch state with
     the options changed to reach the probe routes the frame's own options
     do not take (variants: (route, its name, option changes)), each
-    against its plain version under the contract."""
-    st, scene, opts = calls["advance"][:3]
+    against its plain version under the contract and, with `others`, bit
+    for bit against each other checkout's (the fused call against their
+    advance then samples)."""
+    st, scene, opts, iters = calls["advance_samples"]
     for route, route_name, kw in variants:
         o2 = dataclasses.replace(opts, init_skip_iters=16, **kw)
         if march_cuda.probe_route(scene, o2)[0] != route:
             raise AssertionError(f"options {kw} do not reach route {route}")
-        runs = {"advance": (st, scene, o2, calls["advance"][3]),
+        runs = {"advance_samples": (st, scene, o2, iters),
+                "advance": (st, scene, o2, iters),
                 "init_walk": (st["o"], st["d"], st["t"], st["t_surf"],
                               st["alive"], scene, o2),
                 "samples": (st, scene, o2)}
         for name, args in runs.items():
             kernel, kind, _ = MARCH_KERNELS[name]
+            got = getattr(march_cuda, name)(*args)
             cmp = march_cuda.compare_with_plain(
-                kind, getattr(march_cuda, name)(*args),
-                getattr(march_cuda, f"{name}_reference")(*args))
+                kind, got, getattr(march_cuda, f"{name}_reference")(*args))
+            same = {path: same_bits(other_march_call(m, name, args), got)
+                    for path, m in others}
             print(f"{label}, probe route {route_name} ({kw}): {kernel} "
                   f"{cmp['mismatched_rays']} of {cmp['rays']} rays differ "
                   f"(allowed {cmp['allowed']}), max step "
-                  f"{cmp['max_step_diff']:.3g}")
-            if not cmp["ok"]:
+                  f"{cmp['max_step_diff']:.3g}" + "".join(
+                      f"; bit for bit {path}'s {v}"
+                      for path, v in same.items()))
+            if not (cmp["ok"] and all(same.values())):
                 raise AssertionError(f"{kernel} on route {route} disagrees "
-                                     f"with its plain version: {cmp}")
+                                     f"with its plain version or another "
+                                     f"checkout's: {cmp}, {same}")
+
+
+def pair_call(module, st, scene, opts, iters):
+    """`module`'s advance and then its samples on the advanced rays ->
+    (the advanced state, ((t, alive), samples' outputs))."""
+    t, alive = module.advance(st, scene, opts, iters)
+    adv = {**st, "t": t, "alive": alive}
+    return adv, ((t, alive), module.samples(adv, scene, opts))
+
+
+def other_march_call(module, name, args):
+    """Another checkout's march wrapper `name` on args; the fused call as
+    its advance followed by its samples where it has no fused kernel."""
+    if name != "advance_samples" or hasattr(module, name):
+        return getattr(module, name)(*args)
+    return pair_call(module, *args)[1]
 
 
 L2_FLUSH_BYTES = 128 << 20     # over the H100's 50 MB L2
 
 
-def kernel_device_ms(name, fn, reps):
-    """The device time of one launch of kernel `name` (the device function
-    `{name}_kernel`), each launch
-    after a write of L2_FLUSH_BYTES that leaves its inputs out of L2: the
-    mean over the launches torch.profiler records in reps calls of fn
-    (the wrapper's host work, which CUDA events around back-to-back calls
-    may time instead, left out). The trace may miss a launch or, now and
-    then, come back empty: then it is taken again, up to 3 times."""
+def kernel_device_ms(name, fn, reps, match=None):
+    """The device time of one launch of kernel `name` (the device
+    operations whose name holds `match`, by default `{name}_kernel`), each
+    launch after a write of L2_FLUSH_BYTES that leaves its inputs out of
+    L2: the mean over the launches torch.profiler records in reps calls of
+    fn (the wrapper's host work, which CUDA events around back-to-back
+    calls may time instead, left out). The trace may miss a launch or, now
+    and then, come back empty: then it is taken again, up to 3 times."""
+    match = match or f"{name}_kernel"
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
 
     def run():
@@ -1076,20 +1184,38 @@ def kernel_device_ms(name, fn, reps):
 
     for _ in range(3):
         _, _, ops = device_profile(run, host=False)
-        mine = [(t, c) for op, (t, c) in ops.items() if f"{name}_kernel" in op]
+        mine = [(t, c) for op, (t, c) in ops.items() if match in op]
         count = sum(c for _, c in mine)
         if count:
             return sum(t for t, _ in mine) / count
-    raise AssertionError(f"torch.profiler saw no launch of {name}_kernel in "
+    raise AssertionError(f"torch.profiler saw no launch of {match} in "
                          f"3 x {reps} calls: {list(ops)}")
 
 
-def hold_calls(calls, label, reps=20):
+def same_bits(a, b):
+    """Two outputs (tensors, or tuples or dicts of them) equal bit for bit."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_bits(a[k], b[k]) for k in a)
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(same_bits(x, y) for x, y in zip(a, b))
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return bool(torch.equal(a, b))
+
+
+def hold_calls(calls, label, reps=20, others=()):
     """Each recorded march-kernel call (first_march_calls) against its
     plain version on the same inputs under march_cuda.compare_with_plain's
     contract, timed (device time by torch.profiler, CUDA events around
     back-to-back wrapper calls, the plain version by events) beside its
-    bound -> {key: numbers}. Raises on a disagreement."""
+    bound; the fused call also against this tree's advance then samples,
+    bit for bit, beside that pair's time (march_fused_vs_pair). With
+    `others` (other_checkouts of march_cuda), each call of a wrapper they
+    have equals theirs bit for bit and is timed in turns with it, and the
+    fused call equals their advance then samples -> {key: numbers}.
+    Raises on a disagreement."""
     out = {}
     for key, args in calls.items():
         name = key.split(":")[0]
@@ -1100,7 +1226,7 @@ def hold_calls(calls, label, reps=20):
         torch.cuda.synchronize()
         cmp = march_cuda.compare_with_plain(kind, got, plain(*args))
         ev_ms = cuda_ms(lambda: wrapper(*args), reps)
-        k_ms = kernel_device_ms(name, lambda: wrapper(*args), reps)
+        k_ms = kernel_device_ms(name, lambda: wrapper(*args), reps, MARCH_OP)
         p_ms = cuda_ms(lambda: plain(*args), 2)
         b_ms, b_by = march_bound(name, args)
         n = args[0].shape[0] if torch.is_tensor(args[0]) else args[0]["t"].shape[0]
@@ -1117,16 +1243,140 @@ def hold_calls(calls, label, reps=20):
                                  f"version: {cmp}")
         out[key] = {"cmp": cmp, "ms": k_ms, "event_ms": ev_ms, "plain_ms": p_ms,
                     "bound_ms": b_ms, "bound_by": b_by, "rays": n}
+        if name == "advance_samples":
+            out[key].update(march_fused_vs_pair(args, got, label, reps, others))
+        have = [(d, m) for d, m in others if hasattr(m, name)]
+        if have:
+            def check(which, res, got=got, what=what):
+                same = same_bits(res, got)
+                print(f"{label} {what} of {which}: bit for bit this tree's "
+                      f"{same}")
+                if not same:
+                    raise AssertionError(f"{label}: {what} of {which} differs "
+                                         f"from this tree's")
+            out[key]["in_turns"] = in_turns(
+                have, march_cuda, name, check, args,
+                lambda fn: kernel_device_ms(name, fn, reps, MARCH_OP))
     return out
 
 
-def flash_march_check(renderer, nerf, label, need):
+def march_fused_vs_pair(args, got, label, reps, others=()):
+    """The fused call's output `got` against this tree's advance followed
+    by samples on the advanced rays, and against each other checkout's,
+    bit for bit (raises otherwise); the fused kernel's device time beside
+    the pairs' (the two kernels' sum, L2 flushed before each launch), every
+    version in turns: the others' pairs, this tree's fused kernel and
+    pair, then the reverse -> numbers."""
+    st, scene, opts, iters = args
+    versions = list(others) + [("this tree", march_cuda)]
+    pairs = {path: pair_call(m, *args) for path, m in versions}
+    torch.cuda.synchronize()
+    same = {path: same_bits(out, got) for path, (_, out) in pairs.items()}
+
+    def pair_ms(m, adv):
+        return (kernel_device_ms("advance", lambda: m.advance(
+            st, scene, opts, iters), reps, MARCH_OP) + kernel_device_ms(
+                "samples", lambda: m.samples(adv, scene, opts), reps, MARCH_OP))
+
+    times = {f"{path} pair": [] for path, _ in versions}
+    times["this tree fused"] = []
+    turn = [(f"{p} pair", lambda m=m, p=p: pair_ms(m, pairs[p][0]))
+            for p, m in versions]
+    turn.append(("this tree fused", lambda: kernel_device_ms(
+        "advance_samples", lambda: march_cuda.advance_samples(*args), reps,
+        MARCH_OP)))
+    for which, fn in turn + turn[::-1]:
+        times[which].append(fn())
+    print(f"{label} nmr_march_walk:advance_samples vs advance then samples on "
+          f"the same {st['t'].shape[0]} rays: bit for bit " + ", ".join(
+              f"{p} {v}" for p, v in same.items()) + "; device ms in turns "
+          "(torch.profiler, the pairs the two kernels' sum): " + "; ".join(
+              f"{w} {', '.join(f'{t:.4f}' for t in ts)}"
+              for w, ts in times.items()))
+    if not all(same.values()):
+        raise AssertionError(f"{label}: the fused march kernel is not bit for "
+                             f"bit advance then samples: {same}")
+    return {"bit_for_bit_pair": same, "pair_ms_in_turns": times,
+            "pair_ms": float(np.mean(times["this tree pair"]))}
+
+
+SCALING_BLOCK = 4096           # rays a subset keeps together (32 warps x 4)
+SCALING_FRACTIONS = (8, 4, 2, 1)
+SCALING_ITERS = (12, 24, 48)
+
+
+def probe_stats(counts):
+    """Per-ray probe counts (n,) -> mean, max, and the mean over 32-ray
+    warps (in ray order, as the kernel's threads take them) of the warp's
+    maximum, which is what a SIMT schedule pays."""
+    n = counts.shape[0]
+    pad = torch.zeros((-n) % 32, dtype=counts.dtype, device=counts.device)
+    warp_max = torch.cat([counts, pad]).view(-1, 32).amax(dim=1)
+    return {"mean": float(counts.float().mean()), "max": int(counts.max()),
+            "warp_max_mean": float(warp_max.float().mean())}
+
+
+def march_scaling(calls, label, reps=10):
+    """How the first epoch's walks scale, on the fused call's inputs:
+    device time (torch.profiler, L2 flushed) of the advance, the samples
+    and the fused walk on 1/8, 1/4, 1/2 and all of the rays (every k-th
+    block of SCALING_BLOCK rays), the advance at 12, 24 and 48 probes on
+    all rays, and each ray's probe count, counted by the plain loops on
+    the card: mean, max and the mean of the warps' maxima, for the
+    advance, the samples and the two in one thread -> numbers."""
+    st, scene, opts, iters = calls["advance_samples"]
+    n = st["t"].shape[0]
+    t, alive = march_cuda.advance(st, scene, opts, iters)
+    adv = {**st, "t": t, "alive": alive}
+    by_rays = {}
+    for k in SCALING_FRACTIONS:
+        block = torch.arange(n, device=st["t"].device) // SCALING_BLOCK
+        ids = torch.nonzero(block % k == 0).squeeze(1)
+        sub = {key: v[ids] for key, v in st.items()}
+        sub_adv = {key: v[ids] for key, v in adv.items()}
+        by_rays[f"1/{k}"] = {
+            "rays": int(ids.numel()),
+            "advance_ms": kernel_device_ms(
+                "advance", lambda: march_cuda.advance(sub, scene, opts, iters),
+                reps, MARCH_OP),
+            "samples_ms": kernel_device_ms(
+                "samples", lambda: march_cuda.samples(sub_adv, scene, opts),
+                reps, MARCH_OP),
+            "advance_samples_ms": kernel_device_ms(
+                "advance_samples", lambda: march_cuda.advance_samples(
+                    sub, scene, opts, iters), reps, MARCH_OP)}
+    by_iters = {it: kernel_device_ms(
+        "advance", lambda it=it: march_cuda.advance(st, scene, opts, it), reps,
+        MARCH_OP) for it in SCALING_ITERS}
+    p_adv = torch.zeros(n, dtype=torch.int32, device=st["t"].device)
+    p_smp = torch.zeros_like(p_adv)
+    march_cuda.advance_reference(st, scene, opts, iters, probes=p_adv)
+    march_cuda.samples_reference(adv, scene, opts, probes=p_smp)
+    stats = {"advance": probe_stats(p_adv), "samples": probe_stats(p_smp),
+             "advance_then_samples": probe_stats(p_adv + p_smp)}
+    print(f"{label} march scaling on the first epoch's {n} rays ({iters} "
+          f"advance probes, K = {opts.steps_per_round} slots of <= "
+          f"{opts.skip_iters}): device ms by rays " + "; ".join(
+              f"{f} ({r['rays']}): advance {r['advance_ms']:.4f}, samples "
+              f"{r['samples_ms']:.4f}, fused {r['advance_samples_ms']:.4f}"
+              for f, r in by_rays.items())
+          + "; the advance by probes " + ", ".join(
+              f"{it}: {ms:.4f}" for it, ms in by_iters.items())
+          + "; probes a ray (plain loops on the card) " + "; ".join(
+              f"{k} mean {s['mean']:.2f}, max {s['max']}, warp max mean "
+              f"{s['warp_max_mean']:.2f}" for k, s in stats.items()))
+    return {"by_rays": by_rays, "advance_by_iters": by_iters,
+            "probes": stats}
+
+
+def flash_march_check(renderer, nerf, label, need, others=()):
     """The march kernels of a baked renderer's flash frame, recorded from
     the frame's own calls and held against their plain versions (hold_
-    calls); with need["baked"], those of one frame with flash off too
-    (baked sigma, sequential rounds: the composite's two stages as two
-    calls). need: {"flash": keys, "baked": keys} the frames must have
-    launched -> {"flash": numbers, "baked": numbers}."""
+    calls, `others` in turns); with need["baked"], those of one frame with
+    flash off too (baked sigma, sequential rounds: the fused advance and
+    samples, the composite's two stages as two calls). need: {"flash":
+    keys, "baked": keys}, calls each frame must have made -> {"flash":
+    numbers, "baked": numbers}."""
     out = {}
     saved = nerf.flash
     try:
@@ -1138,14 +1388,20 @@ def flash_march_check(renderer, nerf, label, need):
             calls = first_march_calls(renderer.frame)
             torch.cuda.synchronize()
             path = nerf.last_render_path
-            if path != which or not set(need[which]) <= set(calls):
+            # vector rounds advance alone; sequential ones start an epoch
+            # with the fused call
+            absent = ({"advance_samples", "samples"} if which == "flash"
+                      else {"advance", "samples"})
+            if (path != which or not set(need[which]) <= set(calls)
+                    or absent & set(calls)):
                 raise AssertionError(
                     f"{label} {which} frame (path {path}) made the march "
                     f"calls {sorted(calls)}, expected {need[which]}")
             if which == "flash" and calls["advance"][3] != 24:
                 raise AssertionError(f"{label}: the flash advance took "
                                      f"{calls['advance'][3]} probes, not 24")
-            out[which] = hold_calls(calls, f"{label} {which} frame")
+            out[which] = hold_calls(calls, f"{label} {which} frame",
+                                    others=others)
             del calls
     finally:
         nerf.flash = saved
@@ -1226,20 +1482,38 @@ def plain_vs_kernel_frames(renderer, nerf, label, module, names, what,
     return frames
 
 
-def march_kernels_phase(renderer, nerf, label, variants=(), reps=20):
+def with_pair_calls(calls):
+    """The recorded calls with the advance alone and the samples alone on
+    the fused call's inputs (the samples on the rays the advance left),
+    the calls the frame made before the two were fused."""
+    st, scene, opts, iters = calls["advance_samples"]
+    t, alive = march_cuda.advance(st, scene, opts, iters)
+    return {**calls, "advance": (st, scene, opts, iters),
+            "samples": ({**st, "t": t, "alive": alive}, scene, opts)}
+
+
+def march_kernels_phase(renderer, nerf, label, variants=(), reps=20,
+                        others=()):
     """The march kernels on the first epoch of one of the renderer's exact
-    frames: each against its plain version under march_cuda.
+    frames (and the advance alone and samples alone on the fused call's
+    inputs): each against its plain version under march_cuda.
     compare_with_plain's contract, each timed beside its plain version
-    and its bound (hold_calls), and on the probe routes of `variants`;
-    then a frame with the plain march in the kernels' place (>= 60 dB at
-    the same sample index) and both frames' device operations and wall ms
-    under torch.profiler, and their host clock untraced -> ({wrapper:
-    numbers}, frame numbers)."""
+    and its bound (hold_calls, `others` in turns), and on the probe routes
+    of `variants`; how the walks scale (march_scaling); then a frame with
+    the plain march in the kernels' place (>= 60 dB at the same sample
+    index) and both frames' device operations and wall ms under
+    torch.profiler, and their host clock untraced -> ({wrapper: numbers},
+    frame numbers)."""
     renderer.update_model_view_proj()
     calls = first_march_calls(renderer.frame)
     torch.cuda.synchronize()
-    other_routes(calls, variants, label)
-    out = hold_calls(calls, label, reps)
+    if set(calls) - {"init_walk"} != {"advance_samples", "composite"}:
+        raise AssertionError(f"{label}: the exact frame made the march calls "
+                             f"{sorted(calls)}")
+    other_routes(calls, variants, label, others)
+    calls = with_pair_calls(calls)
+    out = hold_calls(calls, label, reps, others)
+    out["scaling"] = march_scaling(calls, label)
     del calls
 
     frames = plain_vs_kernel_frames(renderer, nerf, label, march_cuda,
@@ -1248,13 +1522,18 @@ def march_kernels_phase(renderer, nerf, label, variants=(), reps=20):
     return out, frames
 
 
-def march_entries(march, launches, frames, mc, others):
-    """The closing line's entries of the march kernels: each measured on
-    the exact 720p frame's first epoch (phase 5b) and launched by phase
-    4's frames; the init walk, which the single-cascade exact frame does
-    not take, on the multi-cascade frame (phases 23, 23b). others: {path:
-    hold_calls' numbers} of the flash and baked frames (phases 8b, 24),
-    listed under each kernel's "other_paths"."""
+def march_entries(march, launches, frames, mc, others, sass):
+    """The closing line's entries of the march kernels, each measured on
+    the exact 720p frame's first epoch (phase 5b: the fused call, and the
+    advance alone and the samples alone on its inputs); the init walk,
+    which the single-cascade exact frame does not take, on the
+    multi-cascade frame (phases 23, 23b). launches: {wrapper: (launches,
+    frames, the path that made them)}: the fused walk and the composite
+    in phase 4's exact frames, the advance alone in phase 8's flash
+    frames, the samples alone in phase 4's frame with two rounds an
+    epoch, the init walk in phase 23's frames. others: {path: hold_calls'
+    numbers} of the flash and baked frames (phases 8b, 24), listed under
+    each kernel's "other_paths"; sass: march_sass_report's instances."""
     entries = []
     for name, (kernel, _, replaces) in MARCH_KERNELS.items():
         held = [{"path": path, "call": key, "rays": r["rays"],
@@ -1266,21 +1545,21 @@ def march_entries(march, launches, frames, mc, others):
         single = name in march
         r = march[name] if single else mc["kernels"][name]
         f = frames if single else mc["frames"]
-        entries.append({
+        count, n_frames, path = launches[name]
+        entry = {
             "name": kernel, "route": "cuda",
             "source": "nerf_glasses_tpu_torch/csrc/march.cu",
-            "replaces": replaces,
-            "launches": launches[name] if single else mc["launches"][name],
-            "launches_per_frame": (launches[name] if single
-                                   else mc["launches"][name]) / 4,
+            "replaces": replaces, "launches": count,
+            "launches_per_frame": count / n_frames, "launch_path": path,
             "max_abs_err": r["cmp"]["max_abs_err"], "ms": r["ms"],
             "event_ms": r["event_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,
             "share": r["bound_ms"] / r["ms"],
-            "path": ("exact 720p frame, 4 frames (phases 4, 5b)" if single else
-                     "multi-cascade exact 720p frame, 4 frames (phases 23, 23b)"),
+            "path": ("exact 720p frame's first epoch (phase 5b)" if single else
+                     "multi-cascade exact 720p frame's first epoch (phase 23b)"),
             "rays": r["rays"], "mismatched_rays": r["cmp"]["mismatched_rays"],
+            "in_turns": r.get("in_turns"),
             "multicascade_launches": mc["launches"][name],
             "multicascade_ms": mc["kernels"][name]["ms"],
             "multicascade_plain_ms": mc["kernels"][name]["plain_ms"],
@@ -1291,7 +1570,16 @@ def march_entries(march, launches, frames, mc, others):
             "plain_march_frame_host_ms": f["plain"]["host_ms"],
             "plain_march_frame_psnr_db": (f["psnr"] if math.isfinite(f["psnr"])
                                           else "inf"),
-            "other_paths": held})
+            "other_paths": held}
+        if name == "advance_samples":
+            entry.update({k: r[k] for k in ("pair_ms", "pair_ms_in_turns",
+                                             "bit_for_bit_pair")})
+            entry["multicascade_pair_ms"] = mc["kernels"][name]["pair_ms"]
+            entry["scaling"] = march["scaling"]
+            entry["multicascade_scaling"] = mc["kernels"]["scaling"]
+            entry["sass"] = {k: v for k, v in sass.items()
+                             if k.startswith("walk_kernel")}
+        entries.append(entry)
     return entries
 
 
@@ -1954,7 +2242,11 @@ def timed_frames(renderer, nerf, n=3):
     synchronize, epochs of each frame, tiled-kernel launches of all n + 1,
     peak device memory). The launch counts (the march and network
     kernels' too, read from march_cuda.launches and network_cuda.launches
-    just after) are zeroed here."""
+    just after) are zeroed here. A Testbed holds itself in a reference
+    cycle, so one that an earlier phase dropped lives on until the cycle
+    collector runs: it runs here, so that the peak counts this renderer's
+    memory and not such garbage."""
+    gc.collect()
     torch.cuda.reset_peak_memory_stats()
     mesh_cuda.launches = 0
     march_cuda.launches.update(dict.fromkeys(march_cuda.launches, 0))
@@ -1972,7 +2264,7 @@ def timed_frames(renderer, nerf, n=3):
     return warm_ms, ms, epochs, mesh_cuda.launches, torch.cuda.max_memory_allocated()
 
 
-def multicascade_phases(dev, tmp, lap, glasses, ds):
+def multicascade_phases(dev, tmp, lap, glasses, ds, march_others=()):
     """Phases 22-26 -> (the tiled kernel's launches in the 4 + 4 timed exact
     and flash hybrid frames, the march-kernel numbers: the exact frames'
     launches per kernel, the plain-march comparison, each kernel's on the
@@ -2038,7 +2330,9 @@ def multicascade_phases(dev, tmp, lap, glasses, ds):
     if surf_px < W * H // 1000 or launches != 4:
         raise AssertionError(f"{surf_px} mesh pixels, {launches} kernel "
                              f"launches in 4 hybrid frames")
-    if min(mc_march_launches.values()) < 4:
+    if (min(mc_march_launches[k] for k in ("init_walk", "advance_samples",
+                                           "composite")) < 4
+            or mc_march_launches["advance"] or mc_march_launches["samples"]):
         raise AssertionError(f"the multi-cascade frames launched the march "
                              f"kernels {mc_march_launches} times")
     img_exact = fresh_frame(renderer)
@@ -2051,7 +2345,7 @@ def multicascade_phases(dev, tmp, lap, glasses, ds):
     # 23b: the march kernels on this frame's first epoch (the clearance
     # pyramid's route), and a frame with the plain march in their place
     mc_march, mc_frames = march_kernels_phase(
-        renderer, nerf, "multi-cascade exact 720p",
+        renderer, nerf, "multi-cascade exact 720p", others=march_others,
         variants=((march_cuda.ROUTE_DDA, "per-voxel DDA, cone steps",
                    {"dist_advance": False}),))
     mc_march_frames = {"launches": mc_march_launches, "frames": mc_frames,
@@ -2109,7 +2403,7 @@ def multicascade_phases(dev, tmp, lap, glasses, ds):
     # the march kernels of the flash frame against their plain versions
     mc_march_frames["flash"] = flash_march_check(
         frenderer, fnerf, "multi-cascade 720p",
-        {"flash": ("advance", "composite:blend")})["flash"]
+        {"flash": ("advance", "composite:blend")}, march_others)["flash"]
     del frenderer, fnerf, sig, feat
     lap(24)
 
@@ -3261,14 +3555,18 @@ def main(tmp, dirs, multicascade_only=False):
     for m in kernel_modules:
         print(m.build_log.strip())
     mlp_build = mlp_kernel_report(network_cuda)
+    march_sass = march_sass_report(march_cuda)
     others = other_checkouts(dirs, "mesh_cuda")
     net_others = other_checkouts(dirs, "network_cuda")
+    march_others = other_checkouts(dirs, "march_cuda")
+    for path, m in march_others:
+        march_sass_report(m, path)
 
     glasses = os.path.join(tmp, "glasses.gltf")
     n_tris = write_glasses_gltf(glasses)
     if multicascade_only:
         ds, _, _ = capture_phase(dev, lap)
-        multicascade_phases(dev, tmp, lap, glasses, ds)
+        multicascade_phases(dev, tmp, lap, glasses, ds, march_others)
         print(f"total {time.perf_counter() - t_start:.1f} s (multi-cascade "
               f"phases only: no result)")
         return
@@ -3333,10 +3631,27 @@ def main(tmp, dirs, multicascade_only=False):
         raise AssertionError(f"only {surf_px} mesh pixels")
     if launches < 4:
         raise AssertionError(f"main path launched the kernel {launches} times")
-    for k in ("advance", "samples", "composite"):
-        if march_launches[k] < 4:
-            raise AssertionError(f"main path launched the march kernel {k} "
-                                 f"{march_launches[k]} times")
+    if (min(march_launches[k] for k in ("advance_samples", "composite")) < 4
+            or march_launches["advance"] or march_launches["samples"]):
+        raise AssertionError(f"main path launched the march kernels "
+                             f"{march_launches} times (the fused walk once an "
+                             f"epoch, the advance and samples alone never)")
+    # and one frame with two rounds an epoch: the second round's samples
+    # alone
+    saved = dict(nerf.march_overrides)
+    nerf.march_overrides = {**saved, "rounds_per_epoch": 2}
+    try:
+        march_cuda.launches.update(dict.fromkeys(march_cuda.launches, 0))
+        renderer.frame()
+        torch.cuda.synchronize()
+        two_rounds = dict(march_cuda.launches)
+    finally:
+        nerf.march_overrides = saved
+    print(f"hybrid {W}x{H} with rounds_per_epoch 2: {nerf.last_march_epochs} "
+          f"epochs, march kernel launches {two_rounds}")
+    if (two_rounds["samples"] < 1 or two_rounds["advance_samples"] < 1
+            or not bool(torch.isfinite(renderer._frame_buffer).all())):
+        raise AssertionError(f"the two-round frame launched {two_rounds}")
     if min(net_launches[k] for k in BF16_NETWORK) < 4:
         raise AssertionError(f"main path launched the network kernels "
                              f"{net_launches} times")
@@ -3385,7 +3700,7 @@ def main(tmp, dirs, multicascade_only=False):
     # 5b: the march kernels on the exact frame's first epoch, and a frame
     # with the plain march in their place
     march, march_frames = march_kernels_phase(
-        renderer, nerf, "exact 720p", variants=(
+        renderer, nerf, "exact 720p", others=march_others, variants=(
             (march_cuda.ROUTE_DIST, "clearance grid", {"dist_advance": True}),
             (march_cuda.ROUTE_DDA, "per-voxel DDA", {"min_mip": 1}),
             (march_cuda.ROUTE_JUMP, "jump grid, cone steps",
@@ -3475,8 +3790,14 @@ def main(tmp, dirs, multicascade_only=False):
           f"{fnerf.last_render_path}, tiled kernel launches {flash_launches}, "
           f"untiled {mesh_cuda.raycast_launches}, march kernel launches "
           f"{march_cuda.launches}")
+    flash_march_launches = dict(march_cuda.launches)
     if fnerf.last_render_path != "flash":
         raise AssertionError(f"render path {fnerf.last_render_path}")
+    if (flash_march_launches["advance"] < 4
+            or flash_march_launches["advance_samples"]):
+        raise AssertionError(f"flash frames launched the march kernels "
+                             f"{flash_march_launches} (vector rounds: the "
+                             f"advance alone)")
     if flash_launches < 4:
         raise AssertionError(f"flash frames launched the tiled kernel "
                              f"{flash_launches} times")
@@ -3502,8 +3823,8 @@ def main(tmp, dirs, multicascade_only=False):
     # sequential rounds, each against its plain version
     flash_march = flash_march_check(frenderer, fnerf, "720p", {
         "flash": ("advance", "composite:blend"),
-        "baked": ("advance", "samples", "composite:blend",
-                  "composite:samples")})
+        "baked": ("advance_samples", "composite:blend",
+                  "composite:samples")}, march_others)
     lap(8)
 
     # 9: the single-program hybrid frame with the same options and scene
@@ -3579,7 +3900,8 @@ def main(tmp, dirs, multicascade_only=False):
     del renderer, nerf
     app_launches = application_phases(dev, tmp, lap, glasses)
     mc_launches, mc_march, mc_net = multicascade_phases(dev, tmp, lap,
-                                                        glasses, ds)
+                                                        glasses, ds,
+                                                        march_others)
     cam_launches, cam_frames = camera_phases(dev, tmp, lap, glasses, ds,
                                              flash_ms, sps_plain)
     mp_launches, mp_calls, mp_ms = mesh_pass_phase(dev, lap, glasses)
@@ -3612,10 +3934,23 @@ def main(tmp, dirs, multicascade_only=False):
         "launches_per_frame": untiled_launches / 4,
         "sharded_launches_per_rank": shard_launches,
         "sharded_frames": SHARD_FRAMES}] + march_entries(
-            march, march_launches, march_frames, mc_march, {
+            march, {
+                "advance_samples": (march_launches["advance_samples"], 4,
+                                    "exact 720p frames (phase 4)"),
+                "composite": (march_launches["composite"], 4,
+                              "exact 720p frames (phase 4)"),
+                "advance": (flash_march_launches["advance"], 4,
+                            "flash 720p frames (phase 8)"),
+                "samples": (two_rounds["samples"], 1,
+                            "exact 720p frame with rounds_per_epoch 2 "
+                            "(phase 4)"),
+                "init_walk": (mc_march["launches"]["init_walk"], 4,
+                              "multi-cascade exact 720p frames (phase 23)")},
+            march_frames, mc_march, {
                 "flash 720p (phase 8b)": flash_march["flash"],
                 "baked 720p, flash off (phase 8b)": flash_march["baked"],
-                "multi-cascade flash 720p (phase 24)": mc_march["flash"]})
+                "multi-cascade flash 720p (phase 24)": mc_march["flash"]},
+            march_sass)
         + network_entries(net, net_f32, net_launches, f32_launches, mc_net,
                           ref_net, train_net, mlp_build),
         "network_frames": network_frames(net_frames, mc_net, ref_net)}))

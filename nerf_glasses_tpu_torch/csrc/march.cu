@@ -5,30 +5,42 @@
 // raymarch.py), because the TPU could not gather from its fast memory
 // inside a kernel (docs/KERNELS.md section 2); the port ran them as
 // eager aten ops, about 15 launches a probe iteration. Here:
-//   advance_kernel    (nmr_march_advance)   ops/march_cuda.py::advance,
-//       the per-epoch advance pass; JAX raymarch.py:730-764;
+//   walk_kernel       (nmr_march_walk)      one body for the epoch's two
+//       walks, three forms a route: the advance pass alone (ops/
+//       march_cuda.py::advance; JAX raymarch.py:730-764), a round's K
+//       samples of <= skip_iters probes alone (::samples; JAX
+//       raymarch.py:782-812), and the advance followed by the first
+//       round's samples in the same thread (::advance_samples);
 //   init_walk_kernel  (nmr_march_init_walk) ::init_walk, init_rays'
 //       bounded walk; JAX raymarch.py:518-565;
-//   samples_kernel    (nmr_march_samples)   ::samples, a round's K
-//       samples of <= skip_iters probes; JAX raymarch.py:782-812;
 //   composite_kernel  (nmr_march_composite) ::composite, the round's
 //       in-march surface blend, K-sample front-to-back loop and final
 //       surface blend; JAX _march_round after the network.
 // A ray leaves its loop as soon as it settles, where the plain version
 // masks it for the remaining iterations.
 //
-// What bounds them: bytes. A thread reads its ray's state once, gathers
-// one uint8 from a 2-6 MiB grid per probe (L2-resident on the card's
-// 50 MB L2) and writes its outputs once; the arithmetic is a few dozen
-// flops a probe. The design keeps the state in registers through the
-// whole loop, so the bytes are the state's, not the iterations'. The
-// samples kernel writes K slots whatever the ray does, as the plain
-// version does. Divergence (rays settle at different iterations) is
-// left as it is in this first version.
+// What bounds the walks: the length of the longest rays' probe chains,
+// not bytes. A thread reads its ray's state once and writes its outputs
+// once (the first, separate advance and samples kernels reached 5-44% of
+// that bound), but each probe is a chain of dependent steps, a gather
+// among them, and the next probe waits for it: 7.4x the rays cost the
+// first advance kernel 1.4x its time, 4x the probe cap 1.7x (PERF.md).
+// So the design shortens the chain and runs fewer of them: the fused
+// form loads the state once and carries the advanced ray straight into
+// its K slots (one launch, one wrapper call and one state read an epoch
+// fewer, and the tail is the longest advance + samples rather than the
+// longest advance plus the longest samples); divisions
+// by powers of two are products by exact reciprocals, per-ray invariants
+// leave the loop, cells are integers, exponents are read from the bits,
+// and a probe that finds its voxel occupied stops there. The samples'
+// slot stores stay coalesced (slot k of ray i at k * n + i). One block
+// of 256 threads a tile of rays, scheduled as blocks finish; a persistent
+// grid, and a bit pyramid of the jump levels with its coarse levels
+// staged in shared memory, were measured and were slower (PERF.md).
 //
 // The probe (probe<ROUTE>) has the four routes of ops/march_cuda.py::
 // _skip_probe, one template instance each, chosen on the host
-// (probe_route): the cascade-0 jump grid + advance_to_next_voxel, the
+// (probe_route): the cascade-0 jump levels + advance_to_next_voxel, the
 // cascade-0 clearance grid (_dist_probe), the per-cascade clearance
 // pyramid (_dist_probe_mips + _ladder_jump), the per-voxel DDA
 // (_occupied + advance_to_next_voxel with its 8-step cone loop).
@@ -36,17 +48,22 @@
 // Numerics: the plain version's float32 operations one by one. The build
 // takes -fmad=false, so no product and sum fuse unless written fmaf; no
 // fast math, so division and 1/x are IEEE, logf and expf the accurate
-// ones aten calls on the card. Python scalars of the plain version arrive
-// as float32 values made on the host (MarchParams). torch semantics
-// spelled out: clamp, minimum, maximum, amin and amax propagate NaN
-// (nmin, nmax, clamp_lo, clamp_hi); nan_to_num maps NaN to 0 and +-inf to
-// +-FLT_MAX; sign(d) + (d == 0); frexp's exponent; 2^k as ldexpf. The
-// render box's 3x3 `local` product is the one place where aten's order is
-// a library's (a GEMM): it is taken as an FMA chain from the first term,
-// exact for the identity. On the card aten divides by a Python scalar as
-// a product with its reciprocal; these kernels divide, as the CPU does,
-// so a quotient within an ulp of an integer under a ceil may differ there
-// (ops/march_cuda.py::compare_with_plain holds the count).
+// ones aten calls on the card, and no result is flushed to zero. A
+// division by 2^k is the product with 2^-k here, which rounds the same
+// real number and so gives the same bits; a division by any other number
+// (dt_min, dt_max, lg, d) stays a division. Python scalars of the plain
+// version arrive as float32 values made on the host (MarchParams). torch
+// semantics spelled out: clamp, minimum, maximum, amin and amax propagate
+// NaN (nmin, nmax, clamp_lo, clamp_hi); nan_to_num maps NaN to 0 and
+// +-inf to +-FLT_MAX; sign(d) + (d == 0); frexp's exponent; 2^k built
+// from its bits. The render box's 3x3 `local` product is the one place
+// where aten's order is a library's (a GEMM): it is taken as an FMA chain
+// from the first term, exact for the identity (whose product is then
+// skipped: the same containment test). On the card aten divides by a
+// Python scalar as a product with its reciprocal; these kernels divide,
+// as the CPU does, so they give the CPU plain version's bits and the card
+// plain version may be a step apart (ops/march_cuda.py::compare_with_plain
+// holds the count).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -55,9 +72,11 @@
 // Layout shared with ops/march_cuda.py::MarchParams.
 struct MarchParams {
   int route;         // ROUTE_JUMP, ROUTE_DIST, ROUTE_DIST_MIPS, ROUTE_DDA
+  int mode;          // walk: WALK_ADVANCE | WALK_SAMPLES
   int max_cascade;
   int min_mip;
-  int iters;         // advance, init walk: probes; samples: skip_iters
+  int iters;         // advance, init walk: probes
+  int skip_iters;    // samples: probes a slot
   int steps;         // samples, composite: K
   int deferred;      // composite: the wn terms
   int stage;         // composite: STAGE_BLEND | STAGE_SAMPLES
@@ -66,8 +85,23 @@ struct MarchParams {
   float t1, t2, t1_end, t2_cap, lg;   // _ladder_jump's constants
   float dtmip_cap;   // MAX_CONE_STEPSIZE - 1e-9
   float tau_den;     // 2 * G * cone_angle
+  float inv_cone;    // 1 / cone where cone is a power of two, else 0
+  float inv_tau_den; // 1 / tau_den likewise
   float sat_alpha;   // 1 - min_transmittance
   long long grid_numel;
+};
+
+// Layout shared with ops/march_cuda.py::WalkArgs: the walk's tensors.
+struct WalkArgs {
+  const float *o, *d, *t, *t_start, *t_surf, *surf_a;
+  const uint8_t *alive, *grid;
+  const float *box_lo, *box_hi, *local;
+  float* t_out;          // advance
+  uint8_t* alive_out;
+  float *pos_k, *dt_k;   // samples
+  uint8_t* valid_k;
+  float *ts_k, *t_end;
+  uint8_t *exited, *stopped;
 };
 
 namespace {
@@ -75,8 +109,10 @@ namespace {
 constexpr int G = 128;
 constexpr float VOX = 1.0f / 128.0f;
 constexpr float F32_MAX = 3.402823466e38f;
-constexpr int THREADS = 128;
+constexpr int THREADS = 128;        // init walk, composite
+constexpr int WALK_THREADS = 256;   // the walk: one block a 256-ray tile
 enum { ROUTE_JUMP = 0, ROUTE_DIST = 1, ROUTE_DIST_MIPS = 2, ROUTE_DDA = 3 };
+enum { WALK_ADVANCE = 1, WALK_SAMPLES = 2 };
 enum { STAGE_BLEND = 1, STAGE_SAMPLES = 2 };
 
 // torch.minimum / maximum / clamp: a NaN operand gives NaN.
@@ -92,32 +128,53 @@ __device__ __forceinline__ float clamp_lo(float x, float lo) {
 __device__ __forceinline__ float clamp_hi(float x, float hi) {
   return x > hi ? hi : x;
 }
-__device__ __forceinline__ float nan_to_num(float x) {
-  if (x != x) return 0.0f;
-  if (x == INFINITY) return F32_MAX;
-  if (x == -INFINITY) return -F32_MAX;
-  return x;
-}
 // occupancy._cell and the probes' nan_to_num(q * G).trunc().clamp(0, G-1)
-__device__ __forceinline__ float cell_of(float q) {
-  return clamp_hi(clamp_lo(truncf(nan_to_num(q * (float)G)), 0.0f),
-                  (float)(G - 1));
+// as an integer: the conversion truncates, saturates and takes NaN to 0,
+// which is what nan_to_num (NaN to 0, +-inf to +-FLT_MAX), trunc and the
+// clamp give
+__device__ __forceinline__ int cell_i(float q) {
+  return min(max(__float2int_rz(q * (float)G), 0), G - 1);
+}
+// 2^e, exact
+__device__ __forceinline__ float pow2i(int e) {
+  return (e >= -126 && e <= 127) ? __int_as_float((e + 127) << 23)
+                                 : ldexpf(1.0f, e);
+}
+// frexp's exponent, read from the bits of a normal number
+__device__ __forceinline__ int frexp_e(float x) {
+  const int field = (__float_as_int(x) >> 23) & 0xff;
+  if (field != 0 && field != 0xff) return field - 126;
+  int e = 0;
+  frexpf(x, &e);
+  return e;
+}
+// x / c for a host constant c, a product where c is a power of two
+__device__ __forceinline__ float div_const(float x, float c, float inv_c) {
+  return inv_c != 0.0f ? x * inv_c : x / c;
 }
 
 struct Box {
   float lo[3], hi[3], m[9];
+  bool identity;     // local == I and finite bounds: q = p in every row
 };
 
 __device__ __forceinline__ Box load_box(const float* lo, const float* hi,
                                         const float* local) {
   Box b;
+  bool finite = true;
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
     b.lo[i] = __ldg(lo + i);
     b.hi[i] = __ldg(hi + i);
+    finite = finite && isfinite(b.lo[i]) && isfinite(b.hi[i]);
   }
+  bool eye = true;
 #pragma unroll
-  for (int i = 0; i < 9; ++i) b.m[i] = __ldg(local + i);
+  for (int i = 0; i < 9; ++i) {
+    b.m[i] = __ldg(local + i);
+    eye = eye && b.m[i] == (i % 4 == 0 ? 1.0f : 0.0f);
+  }
+  b.identity = eye && finite;
   return b;
 }
 
@@ -126,12 +183,15 @@ __device__ __forceinline__ float local_row(const Box& b, int r, const float x[3]
   return fmaf(x[2], b.m[3 * r + 2], fmaf(x[1], b.m[3 * r + 1], x[0] * b.m[3 * r]));
 }
 
-// _contains_local
+// _contains_local. With the identity the FMA chain gives p's own
+// coordinate (a zero's sign aside) when p is finite, and NaN in every row
+// when a coordinate is not, where the coordinate's own row fails the
+// finite bounds as well.
 __device__ __forceinline__ bool contains_local(const Box& b, const float p[3]) {
   bool in = true;
 #pragma unroll
   for (int r = 0; r < 3; ++r) {
-    const float q = local_row(b, r, p);
+    const float q = b.identity ? p[r] : local_row(b, r, p);
     in = in && q >= b.lo[r] && q <= b.hi[r];
   }
   return in;
@@ -162,40 +222,61 @@ __device__ __forceinline__ float calc_dt(float t, const MarchParams& P) {
 __device__ __forceinline__ int mip_from_pos(const float p[3], int max_cascade) {
   const float m = nmax(nmax(fabsf(p[0] - 0.5f), fabsf(p[1] - 0.5f)),
                        fabsf(p[2] - 0.5f));
-  int e = 0;
-  frexpf(m, &e);
-  return min(max(e + 1, 0), max_cascade);
+  return min(max(frexp_e(m) + 1, 0), max_cascade);
 }
 
 __device__ __forceinline__ int mip_from_dt(float dt, const float p[3],
                                            int max_cascade) {
   const int mip = mip_from_pos(p, max_cascade);
   const float x = dt * (float)(2 * G);
-  int e = 0;
-  frexpf(x, &e);
-  return x < 1.0f ? mip : min(max(e, mip), max_cascade);
+  return x < 1.0f ? mip : min(max(frexp_e(x), mip), max_cascade);
 }
 
-// occupancy.distance_to_next_voxel
+// A ray and what its probes reuse: 1 / d, the DDA's half step
+// 0.5 (sign(d) + (d == 0)), the clearance probes' d with 1 for 0.
+struct Ray {
+  float o[3], d[3], idir[3], half_s[3], safe_d[3];
+};
+
+__device__ __forceinline__ Ray load_ray(const float* __restrict__ o,
+                                        const float* __restrict__ d, int i) {
+  Ray r;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    r.o[c] = o[3 * i + c];
+    r.d[c] = d[3 * i + c];
+    r.idir[c] = 1.0f / r.d[c];
+    const float s = (r.d[c] > 0.0f ? 1.0f : (r.d[c] < 0.0f ? -1.0f : 0.0f))
+                    + (r.d[c] == 0.0f ? 1.0f : 0.0f);
+    r.half_s[c] = 0.5f * s;
+    r.safe_d[c] = r.d[c] == 0.0f ? 1.0f : r.d[c];
+  }
+  return r;
+}
+
+__device__ __forceinline__ void at(const Ray& r, float t, float p[3]) {
+#pragma unroll
+  for (int c = 0; c < 3; ++c) p[c] = r.o[c] + r.d[c] * t;
+}
+
+// occupancy.distance_to_next_voxel at res = 2^k (inv_res = 2^-k)
 __device__ __forceinline__ float distance_to_next_voxel(
-    const float p[3], const float d[3], const float idir[3], float res) {
+    const float p[3], const Ray& r, float res, float inv_res) {
   float t = 0.0f;
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
     const float x = res * p[i];
-    const float s = (d[i] > 0.0f ? 1.0f : (d[i] < 0.0f ? -1.0f : 0.0f))
-                    + (d[i] == 0.0f ? 1.0f : 0.0f);
-    const float tt = (floorf((x + 0.5f) + 0.5f * s) - x) * idir[i];
+    const float tt = (floorf((x + 0.5f) + r.half_s[i]) - x) * r.idir[i];
     t = i == 0 ? tt : nmin(t, tt);
   }
-  return clamp_lo(t / res, 0.0f);
+  return clamp_lo(t * inv_res, 0.0f);
 }
 
 // occupancy.advance_to_next_voxel
 __device__ __forceinline__ float advance_to_next_voxel(
-    float t, const MarchParams& P, const float p[3], const float d[3],
-    const float idir[3], float res) {
-  const float t_target = t + distance_to_next_voxel(p, d, idir, res);
+    float t, const MarchParams& P, const float p[3], const Ray& r, float res,
+    float inv_res) {
+  const float t_target = t + distance_to_next_voxel(p, r, res, inv_res);
   if (P.cone == 0.0f) {
     const float n = clamp_lo(ceilf((t_target - t) / P.dt_min), 1.0f);
     return t + n * P.dt_min;
@@ -230,152 +311,172 @@ __device__ float ladder_jump(float t, float target, const MarchParams& P) {
   return nmax(out, t + calc_dt(t, P));
 }
 
-// _skip_probe on one route -> t advanced; *occ the occupancy bit
+// _skip_probe on one route -> whether the voxel is occupied; where it is
+// not, *adv the advanced t.
 template <int ROUTE>
-__device__ float probe(const MarchParams& P, const uint8_t* __restrict__ grid,
-                       const float p[3], float t, const float d[3],
-                       const float idir[3], float dt, bool* occ) {
+__device__ __forceinline__ bool probe(
+    const MarchParams& P, const uint8_t* __restrict__ grid, const float p[3],
+    float t, const Ray& r, float dt, float* adv) {
   if (ROUTE == ROUTE_JUMP || ROUTE == ROUTE_DDA) {
-    float res;
+    int k;                                     // res = 2^(7 - k)
     if (ROUTE == ROUTE_JUMP) {
-      const int c0 = (int)cell_of(p[0]), c1 = (int)cell_of(p[1]),
-                c2 = (int)cell_of(p[2]);
-      const int lv = __ldg(grid + ((c2 * G + c1) * G + c0));
-      *occ = lv == 255;
-      res = ldexpf((float)G, -min(lv, 4));
+      const int lv = __ldg(grid + ((cell_i(p[2]) * G + cell_i(p[1])) * G
+                                   + cell_i(p[0])));
+      if (lv == 255) return true;
+      k = min(lv, 4);
     } else {
       const int mip = max(mip_from_dt(dt, p, P.max_cascade), P.min_mip);
-      const float scale = ldexpf(1.0f, -mip);
-      const long long c0 = (long long)cell_of((p[0] - 0.5f) * scale + 0.5f);
-      const long long c1 = (long long)cell_of((p[1] - 0.5f) * scale + 0.5f);
-      const long long c2 = (long long)cell_of((p[2] - 0.5f) * scale + 0.5f);
+      const float scale = pow2i(-mip);
+      const long long c0 = cell_i((p[0] - 0.5f) * scale + 0.5f);
+      const long long c1 = cell_i((p[1] - 0.5f) * scale + 0.5f);
+      const long long c2 = cell_i((p[2] - 0.5f) * scale + 0.5f);
       long long flat = (((long long)mip * G + c2) * G + c1) * G + c0;
       flat = flat < 0 ? 0 : (flat > P.grid_numel - 1 ? P.grid_numel - 1 : flat);
-      *occ = __ldg(grid + flat) != 0;
-      res = ldexpf((float)G, -mip);
+      if (__ldg(grid + flat) != 0) return true;
+      k = mip;
     }
-    return advance_to_next_voxel(t, P, p, d, idir, res);
+    *adv = advance_to_next_voxel(t, P, p, r, pow2i(7 - k), pow2i(k - 7));
+    return false;
   }
   if (ROUTE == ROUTE_DIST) {
-    float vi[3];
+    int ci[3];
 #pragma unroll
-    for (int i = 0; i < 3; ++i) vi[i] = cell_of(p[i]);
-    const float k = (float)__ldg(grid + (((int)vi[2] * G + (int)vi[1]) * G
-                                         + (int)vi[0]));
-    *occ = k == 0.0f;
+    for (int i = 0; i < 3; ++i) ci[i] = cell_i(p[i]);
+    const int kv = __ldg(grid + ((ci[2] * G + ci[1]) * G + ci[0]));
+    if (kv == 0) return true;
+    const float k = (float)kv;
     float delta = 0.0f;
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
-      const float bound = d[i] > 0.0f ? (vi[i] + k) * VOX
-                                      : (vi[i] - (k - 1.0f)) * VOX;
-      const float tt = d[i] == 0.0f ? 1e9f : (bound - p[i]) / d[i];
+      const float vi = (float)ci[i];
+      const float bound = r.d[i] > 0.0f ? (vi + k) * VOX
+                                        : (vi - (k - 1.0f)) * VOX;
+      const float tt = r.d[i] == 0.0f ? 1e9f : (bound - p[i]) / r.d[i];
       delta = i == 0 ? tt : nmin(delta, tt);
     }
     delta = clamp_lo(delta, 0.0f);
-    return t + clamp_lo(ceilf(delta / P.dt_min), 1.0f) * P.dt_min;
+    *adv = t + clamp_lo(ceilf(delta / P.dt_min), 1.0f) * P.dt_min;
+    return false;
   }
   // ROUTE_DIST_MIPS
   const int mip = max(mip_from_dt(dt, p, P.max_cascade), P.min_mip);
-  const float s = ldexpf(1.0f, mip);
-  float q[3], cell[3];
+  const float s = pow2i(mip), inv_s = pow2i(-mip);
+  float q[3];
+  int ci[3];
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
-    q[i] = (p[i] - 0.5f) / s + 0.5f;
-    cell[i] = cell_of(q[i]);
+    q[i] = (p[i] - 0.5f) * inv_s + 0.5f;
+    ci[i] = cell_i(q[i]);
   }
-  long long flat = (((long long)mip * G + (long long)cell[2]) * G
-                    + (long long)cell[1]) * G + (long long)cell[0];
+  long long flat = (((long long)mip * G + ci[2]) * G + ci[1]) * G + ci[0];
   flat = flat < 0 ? 0 : (flat > P.grid_numel - 1 ? P.grid_numel - 1 : flat);
-  const float k = (float)__ldg(grid + flat);
-  *occ = k == 0.0f;
+  const int kv = __ldg(grid + flat);
+  if (kv == 0) return true;
+  const float k = (float)kv;
   float ball = 0.0f, cube = 0.0f;
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
-    const bool zero = d[i] == 0.0f;
-    const float safe_d = zero ? 1.0f : d[i];
-    const float bound = d[i] > 0.0f ? (cell[i] + k) * VOX
-                                    : (cell[i] - (k - 1.0f)) * VOX;
-    const float tt = zero ? 1e9f : (bound - q[i]) / (safe_d / s);
-    const float cb = d[i] > 0.0f ? 0.5f + 0.5f * s : 0.5f - 0.5f * s;
-    const float tc = zero ? 1e9f : (cb - p[i]) / safe_d;
+    const bool zero = r.d[i] == 0.0f;
+    const float cell = (float)ci[i];
+    const float bound = r.d[i] > 0.0f ? (cell + k) * VOX
+                                      : (cell - (k - 1.0f)) * VOX;
+    const float tt = zero ? 1e9f : (bound - q[i]) / (r.safe_d[i] * inv_s);
+    const float cb = r.d[i] > 0.0f ? 0.5f + 0.5f * s : 0.5f - 0.5f * s;
+    const float tc = zero ? 1e9f : (cb - p[i]) / r.safe_d[i];
     ball = i == 0 ? tt : nmin(ball, tt);
     cube = i == 0 ? tc : nmin(cube, tc);
   }
   float delta = nmin(clamp_lo(ball, 0.0f), clamp_lo(cube, 0.0f) + VOX);
   if (P.cone > 0.0f) {
-    int e = 0;
-    frexpf(dt * (float)(2 * G), &e);
-    const float tau_next = ldexpf(1.0f, max(e, 0)) / P.tau_den;
-    const float tau = dt / P.cone;
+    const int e = frexp_e(dt * (float)(2 * G));
+    const float tau_next = div_const(pow2i(max(e, 0)), P.tau_den,
+                                     P.inv_tau_den);
+    const float tau = div_const(dt, P.cone, P.inv_cone);
     const float dtmip = dt >= P.dtmip_cap ? 1e9f
                                           : clamp_lo(tau_next - tau, 0.0f) + dt;
     delta = nmin(delta, dtmip);
   }
-  return ladder_jump(t, t + delta, P);
+  *adv = ladder_jump(t, t + delta, P);
+  return false;
 }
 
-struct Ray {
-  float o[3], d[3], idir[3];
-};
-
-__device__ __forceinline__ Ray load_ray(const float* __restrict__ o,
-                                        const float* __restrict__ d, int i) {
-  Ray r;
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    r.o[c] = o[3 * i + c];
-    r.d[c] = d[3 * i + c];
-    r.idir[c] = 1.0f / r.d[c];
-  }
-  return r;
-}
-
-__device__ __forceinline__ void at(const Ray& r, float t, float p[3]) {
-#pragma unroll
-  for (int c = 0; c < 3; ++c) p[c] = r.o[c] + r.d[c] * t;
-}
-
-template <int ROUTE>
-__global__ void __launch_bounds__(THREADS) advance_kernel(
-    MarchParams P, int n, const float* __restrict__ o,
-    const float* __restrict__ d, const float* __restrict__ t_in,
-    const float* __restrict__ t_start, const float* __restrict__ t_surf,
-    const float* __restrict__ surf_a, const uint8_t* __restrict__ alive_in,
-    const uint8_t* __restrict__ grid, const float* box_lo,
-    const float* box_hi, const float* local, float* __restrict__ t_out,
-    uint8_t* __restrict__ alive_out) {
-  const int i = blockIdx.x * THREADS + threadIdx.x;
+// The walk: a thread per ray. ADVANCE: the advance pass, writing t and
+// alive; SAMPLES: the round's K slots from there (from the state's t and
+// alive without ADVANCE).
+template <int ROUTE, bool ADVANCE, bool SAMPLES>
+__global__ void __launch_bounds__(WALK_THREADS) walk_kernel(
+    MarchParams P, int n, WalkArgs a) {
+  const int i = blockIdx.x * WALK_THREADS + threadIdx.x;
   if (i >= n) return;
-  float t = t_in[i];
-  bool alive = alive_in[i] != 0;
-  if (alive && P.iters > 0) {
-    const Box b = load_box(box_lo, box_hi, local);
-    const Ray r = load_ray(o, d, i);
-    const float ts = t_surf[i], t0 = t_start[i];
-    const bool surf_live = ts > 0.0f && surf_a[i] > 0.0f;
-    const float t_exit = ray_exit_t(b, r.o, r.d);
-    for (int it = 0; it < P.iters; ++it) {
-      const bool pending = surf_live && t >= ts;
-      const bool inside = t <= t_exit;
-      if (pending || (!inside && surf_live)) {  // park at the surface
-        t = ts;
-        break;
+  const Box b = load_box(a.box_lo, a.box_hi, a.local);
+  const Ray r = load_ray(a.o, a.d, i);
+  const float ts = a.t_surf[i], t0 = a.t_start[i], sa = a.surf_a[i];
+  float t = a.t[i];
+  bool alive = a.alive[i] != 0;
+  if (ADVANCE) {
+    if (alive && P.iters > 0) {
+      const bool surf_live = ts > 0.0f && sa > 0.0f;
+      const float t_exit = ray_exit_t(b, r.o, r.d);
+      for (int it = 0; it < P.iters; ++it) {
+        const bool pending = surf_live && t >= ts;
+        const bool inside = t <= t_exit;
+        if (pending || (!inside && surf_live)) {  // park at the surface
+          t = ts;
+          break;
+        }
+        if (!inside) {                            // a clean exit
+          alive = false;
+          break;
+        }
+        float p[3], adv;
+        at(r, t, p);
+        if (probe<ROUTE>(P, a.grid, p, t, r, calc_dt(t - t0, P), &adv))
+          break;
+        t = adv;
       }
-      if (!inside) {                            // a clean exit
-        alive = false;
-        break;
+    }
+    a.t_out[i] = t;
+    a.alive_out[i] = alive;
+  }
+  if (SAMPLES) {
+    const bool has_surface = ts > 0.0f;
+    const bool surf_full = sa >= 1.0f;
+    bool gen_alive = alive, exited = false, stopped = false;
+    for (int k = 0; k < P.steps; ++k) {
+      int status = gen_alive ? 0 : -1;
+      for (int s = 0; s < P.skip_iters && status == 0; ++s) {
+        float p[3], adv;
+        at(r, t, p);
+        if (has_surface && t > ts && surf_full) {
+          status = 3;                             // an opaque surface stops it
+        } else if (!contains_local(b, p)) {
+          status = 2;                             // left the box
+        } else if (probe<ROUTE>(P, a.grid, p, t, r, calc_dt(t - t0, P),
+                                &adv)) {
+          status = 1;                             // a sample
+        } else {
+          t = adv;
+        }
       }
+      const bool found = status == 1;
+      const float dt = calc_dt(t - t0, P);
+      const long long slot = (long long)k * n + i;
       float p[3];
       at(r, t, p);
-      bool occ;
-      const float adv = probe<ROUTE>(P, grid, p, t, r.d, r.idir,
-                                     calc_dt(t - t0, P), &occ);
-      if (occ) break;
-      t = adv;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) a.pos_k[3 * slot + c] = p[c];
+      a.dt_k[slot] = dt;
+      a.valid_k[slot] = found;
+      a.ts_k[slot] = t;
+      exited = exited || status == 2;
+      stopped = stopped || status == 3;
+      t = found ? t + dt : (status == 3 ? ts : t);
+      gen_alive = gen_alive && (found || status == 0);
     }
+    a.t_end[i] = t;
+    a.exited[i] = exited && alive;
+    a.stopped[i] = stopped && alive;
   }
-  t_out[i] = t;
-  alive_out[i] = alive;
 }
 
 template <int ROUTE>
@@ -400,82 +501,20 @@ __global__ void __launch_bounds__(THREADS) init_walk_kernel(
         t = ts;
         break;
       }
-      float p[3];
+      float p[3], adv;
       at(r, t, p);
       if (!contains_local(b, p)) {              // left the box
         if (has_surface) t = ts;
         else alive = false;
         break;
       }
-      bool occ;
-      const float adv = probe<ROUTE>(P, grid, p, t, r.d, r.idir,
-                                     calc_dt(t, P), &occ);
-      if (occ) break;
+      if (probe<ROUTE>(P, grid, p, t, r, calc_dt(t, P), &adv)) break;
       t = adv;
     }
   }
   t_out[i] = t;
   alive_out[i] = alive;
 }
-
-template <int ROUTE>
-__global__ void __launch_bounds__(THREADS) samples_kernel(
-    MarchParams P, int n, const float* __restrict__ o,
-    const float* __restrict__ d, const float* __restrict__ t_in,
-    const float* __restrict__ t_start, const float* __restrict__ t_surf,
-    const float* __restrict__ surf_a, const uint8_t* __restrict__ alive_in,
-    const uint8_t* __restrict__ grid, const float* box_lo,
-    const float* box_hi, const float* local, float* __restrict__ pos_k,
-    float* __restrict__ dt_k, uint8_t* __restrict__ valid_k,
-    float* __restrict__ ts_k, float* __restrict__ t_end,
-    uint8_t* __restrict__ exited_out, uint8_t* __restrict__ stopped_out) {
-  const int i = blockIdx.x * THREADS + threadIdx.x;
-  if (i >= n) return;
-  const Box b = load_box(box_lo, box_hi, local);
-  const Ray r = load_ray(o, d, i);
-  const float ts = t_surf[i], t0 = t_start[i];
-  const bool has_surface = ts > 0.0f;
-  const bool surf_full = surf_a[i] >= 1.0f;
-  const bool alive = alive_in[i] != 0;
-  float t = t_in[i];
-  bool gen_alive = alive, exited = false, stopped = false;
-  for (int k = 0; k < P.steps; ++k) {
-    int status = gen_alive ? 0 : -1;
-    for (int s = 0; s < P.iters && status == 0; ++s) {
-      float p[3];
-      at(r, t, p);
-      if (has_surface && t > ts && surf_full) {
-        status = 3;                             // an opaque surface stops it
-      } else if (!contains_local(b, p)) {
-        status = 2;                             // left the box
-      } else {
-        bool occ;
-        const float adv = probe<ROUTE>(P, grid, p, t, r.d, r.idir,
-                                       calc_dt(t - t0, P), &occ);
-        if (occ) status = 1;                    // a sample
-        else t = adv;
-      }
-    }
-    const bool found = status == 1;
-    const float dt = calc_dt(t - t0, P);
-    const long long slot = (long long)k * n + i;
-    float p[3];
-    at(r, t, p);
-#pragma unroll
-    for (int c = 0; c < 3; ++c) pos_k[3 * slot + c] = p[c];
-    dt_k[slot] = dt;
-    valid_k[slot] = found;
-    ts_k[slot] = t;
-    exited = exited || status == 2;
-    stopped = stopped || status == 3;
-    t = found ? t + dt : (status == 3 ? ts : t);
-    gen_alive = gen_alive && (found || status == 0);
-  }
-  t_end[i] = t;
-  exited_out[i] = exited && alive;
-  stopped_out[i] = stopped && alive;
-}
-
 __global__ void __launch_bounds__(THREADS) composite_kernel(
     MarchParams P, int n, const float* __restrict__ rgba_in,
     const float* __restrict__ depth_in, const float* __restrict__ max_w_in,
@@ -562,32 +601,42 @@ __global__ void __launch_bounds__(THREADS) composite_kernel(
 
 inline int blocks(int n) { return (n + THREADS - 1) / THREADS; }
 
+template <int ROUTE, bool ADVANCE, bool SAMPLES>
+int launch_walk(const MarchParams& P, int n, const WalkArgs& a,
+                cudaStream_t s) {
+  walk_kernel<ROUTE, ADVANCE, SAMPLES>
+      <<<(n + WALK_THREADS - 1) / WALK_THREADS, WALK_THREADS, 0, s>>>(P, n, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int ROUTE>
+int launch_walk_mode(const MarchParams& P, int n, const WalkArgs& a,
+                     cudaStream_t s) {
+  switch (P.mode) {
+    case WALK_ADVANCE: return launch_walk<ROUTE, true, false>(P, n, a, s);
+    case WALK_SAMPLES: return launch_walk<ROUTE, false, true>(P, n, a, s);
+    case WALK_ADVANCE | WALK_SAMPLES:
+      return launch_walk<ROUTE, true, true>(P, n, a, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 // Plain C entry points, loaded with ctypes. Each copies the parameters,
 // launches one kernel on `stream` and returns cudaGetLastError() (0 on
 // success); none synchronises or allocates. n > 0.
-extern "C" int nmr_march_advance(
-    const MarchParams* p, int n, const float* o, const float* d,
-    const float* t, const float* t_start, const float* t_surf,
-    const float* surf_a, const uint8_t* alive, const uint8_t* grid,
-    const float* box_lo, const float* box_hi, const float* local,
-    float* t_out, uint8_t* alive_out, void* stream) {
+extern "C" int nmr_march_walk(const MarchParams* p, int n, const WalkArgs* a,
+                              void* stream) {
   const MarchParams P = *p;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define NMR_ADVANCE(R)                                                       \
-  advance_kernel<R><<<blocks(n), THREADS, 0, s>>>(                           \
-      P, n, o, d, t, t_start, t_surf, surf_a, alive, grid, box_lo, box_hi,   \
-      local, t_out, alive_out)
   switch (P.route) {
-    case ROUTE_JUMP: NMR_ADVANCE(ROUTE_JUMP); break;
-    case ROUTE_DIST: NMR_ADVANCE(ROUTE_DIST); break;
-    case ROUTE_DIST_MIPS: NMR_ADVANCE(ROUTE_DIST_MIPS); break;
-    case ROUTE_DDA: NMR_ADVANCE(ROUTE_DDA); break;
+    case ROUTE_JUMP: return launch_walk_mode<ROUTE_JUMP>(P, n, *a, s);
+    case ROUTE_DIST: return launch_walk_mode<ROUTE_DIST>(P, n, *a, s);
+    case ROUTE_DIST_MIPS: return launch_walk_mode<ROUTE_DIST_MIPS>(P, n, *a, s);
+    case ROUTE_DDA: return launch_walk_mode<ROUTE_DDA>(P, n, *a, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-#undef NMR_ADVANCE
-  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int nmr_march_init_walk(
@@ -609,30 +658,6 @@ extern "C" int nmr_march_init_walk(
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef NMR_INIT
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int nmr_march_samples(
-    const MarchParams* p, int n, const float* o, const float* d,
-    const float* t, const float* t_start, const float* t_surf,
-    const float* surf_a, const uint8_t* alive, const uint8_t* grid,
-    const float* box_lo, const float* box_hi, const float* local,
-    float* pos_k, float* dt_k, uint8_t* valid_k, float* ts_k, float* t_end,
-    uint8_t* exited, uint8_t* stopped, void* stream) {
-  const MarchParams P = *p;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define NMR_SAMPLES(R)                                                       \
-  samples_kernel<R><<<blocks(n), THREADS, 0, s>>>(                           \
-      P, n, o, d, t, t_start, t_surf, surf_a, alive, grid, box_lo, box_hi,   \
-      local, pos_k, dt_k, valid_k, ts_k, t_end, exited, stopped)
-  switch (P.route) {
-    case ROUTE_JUMP: NMR_SAMPLES(ROUTE_JUMP); break;
-    case ROUTE_DIST: NMR_SAMPLES(ROUTE_DIST); break;
-    case ROUTE_DIST_MIPS: NMR_SAMPLES(ROUTE_DIST_MIPS); break;
-    case ROUTE_DDA: NMR_SAMPLES(ROUTE_DDA); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef NMR_SAMPLES
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,15 +1,20 @@
 """The exact march's per-ray loops: the CUDA kernels, their wrappers and
 their plain PyTorch versions, and the empty-space probes the loops call.
 
-- `advance` (kernel nmr_march_advance) walks rays through empty space to
-  the next occupied voxel, the per-epoch advance pass (raymarch.
-  _advance_pass; the JAX package's `_advance_pass`, a fori_loop inside
-  its one compiled march, nerf_glasses_tpu/ops/raymarch.py:730-764).
+- `advance` walks rays through empty space to the next occupied voxel,
+  the per-epoch advance pass (raymarch._advance_pass; the JAX package's
+  `_advance_pass`, a fori_loop inside its one compiled march,
+  nerf_glasses_tpu/ops/raymarch.py:730-764).
+- `samples` generates a round's K samples, each after at most
+  skip_iters probes (JAX: `_march_round`'s gen_step and skip_body,
+  raymarch.py:782-812).
+- `advance_samples` is the advance followed by the first round's samples
+  on the advanced rays, in one launch: what an epoch of sequential
+  rounds starts with (raymarch.march_frame_impl).
+  The three run one kernel body, nmr_march_walk's walk_kernel, in the
+  form each needs.
 - `init_walk` (nmr_march_init_walk) is init_rays' bounded walk to the
   first occupied voxel (JAX: raymarch.py:518-565).
-- `samples` (nmr_march_samples) generates a round's K samples, each
-  after at most skip_iters probes (JAX: `_march_round`'s gen_step and
-  skip_body, raymarch.py:782-812).
 - `composite` (nmr_march_composite) is the non-vector compositing of
   `_march_round`: the in-march surface blend, the K-sample front-to-back
   loop and the final surface blend; the baked path, whose colour
@@ -35,15 +40,22 @@ the other. Each wrapper counts its launches in `launches[name]`.
 
 Numerics: the kernels repeat the plain version's float32 operations one
 by one (nvcc -fmad=false, no fast math; host-made float32 constants where
-the plain version hands aten a Python scalar), so on the CPU's
-arithmetic they give the plain version's bits. On the card aten divides
-by a Python scalar as a multiplication by its reciprocal, where the
-kernels divide, so a ray whose quotient lands within an ulp of an
-integer under a ceil may take one step more or less there.
-`compare_with_plain` holds a kernel to the contract: rays whose alive,
-valid or status flags or whose t differ number at most max(4, ceil(1e-4
-x rays)), and where they differ the t values lie at most one step
-(MAX_CONE_STEPSIZE) apart; composite outputs agree to 1e-6 absolute.
+the plain version hands aten a Python scalar; a division by a power of
+two taken as the product with its exact reciprocal, which gives the same
+bits), so they give the CPU plain version's bits, and so the JAX
+package's on the CPU but for its fusion and transcendental functions
+(tests/test_torch_march_kernels.py). The card's plain version is the
+side that differs: there aten divides by a Python scalar as a
+multiplication by its reciprocal (a float32 x / 3.0 on the card is x *
+float32(1 / 3), x / torch.tensor(3.0, device=x.device) a true division:
+the `cuda` test test_card_divides_by_a_python_scalar_with_its_reciprocal),
+so a ray whose quotient lands within an ulp of an integer under a ceil
+may take one step more or less there than in the kernels and on the CPU.
+`compare_with_plain` holds a kernel to the contract against the card's
+plain version: rays whose alive, valid or status flags or whose t differ
+number at most max(4, ceil(1e-4 x rays)), and where they differ the t
+values lie at most one step (MAX_CONE_STEPSIZE) apart; composite outputs
+agree to 1e-6 absolute.
 """
 
 from __future__ import annotations
@@ -71,7 +83,7 @@ MISMATCH_MIN = 4
 STEP_TOL = C.MAX_CONE_STEPSIZE
 COMPOSITE_ATOL = 1e-6
 
-KERNELS = ("advance", "init_walk", "samples", "composite")
+KERNELS = ("advance", "init_walk", "samples", "advance_samples", "composite")
 # Kernel launches per wrapper (CUDA tensors only).
 launches = dict.fromkeys(KERNELS, 0)
 
@@ -80,14 +92,16 @@ build_log = ""
 build_seconds = 0.0
 
 ROUTE_JUMP, ROUTE_DIST, ROUTE_DIST_MIPS, ROUTE_DDA = range(4)
+WALK_ADVANCE, WALK_SAMPLES = 1, 2
 STAGE_BLEND, STAGE_SAMPLES = 1, 2
 
 
 class MarchParams(ctypes.Structure):
     """csrc/march.cu's MarchParams: the route and the float32 constants
     the plain version hands aten as Python scalars, made on the host."""
-    _fields_ = [("route", ctypes.c_int), ("max_cascade", ctypes.c_int),
-                ("min_mip", ctypes.c_int), ("iters", ctypes.c_int),
+    _fields_ = [("route", ctypes.c_int), ("mode", ctypes.c_int),
+                ("max_cascade", ctypes.c_int), ("min_mip", ctypes.c_int),
+                ("iters", ctypes.c_int), ("skip_iters", ctypes.c_int),
                 ("steps", ctypes.c_int), ("deferred", ctypes.c_int),
                 ("stage", ctypes.c_int),
                 ("cone", ctypes.c_float), ("dt_min", ctypes.c_float),
@@ -95,8 +109,21 @@ class MarchParams(ctypes.Structure):
                 ("t2", ctypes.c_float), ("t1_end", ctypes.c_float),
                 ("t2_cap", ctypes.c_float), ("lg", ctypes.c_float),
                 ("dtmip_cap", ctypes.c_float), ("tau_den", ctypes.c_float),
+                ("inv_cone", ctypes.c_float), ("inv_tau_den", ctypes.c_float),
                 ("sat_alpha", ctypes.c_float),
                 ("grid_numel", ctypes.c_longlong)]
+
+
+_WALK_TENSORS = ("o", "d", "t", "t_start", "t_surf", "surf_a", "alive",
+                 "grid", "box_lo", "box_hi", "local", "t_out", "alive_out",
+                 "pos_k", "dt_k", "valid_k", "ts_k", "t_end", "exited",
+                 "stopped")
+
+
+class WalkArgs(ctypes.Structure):
+    """csrc/march.cu's WalkArgs: the walk's tensors' device pointers (None
+    for the outputs a form does not write)."""
+    _fields_ = [(k, ctypes.c_void_p) for k in _WALK_TENSORS]
 
 
 def load_library() -> ctypes.CDLL:
@@ -108,13 +135,12 @@ def load_library() -> ctypes.CDLL:
                                                              NVCC_FLAGS)
     p = ctypes.c_void_p
     i = ctypes.c_int
-    # each takes the parameters, the ray count, its tensors' pointers
-    # and the stream
+    # each takes the parameters, the ray count, its tensors' pointers (the
+    # walk: one pointer to a WalkArgs) and the stream
     _lib = cuda_build.declare(lib, [
         (name, [p, i] + [p] * (n_ptrs + 1), i)
-        for name, n_ptrs in (("nmr_march_advance", 13),
+        for name, n_ptrs in (("nmr_march_walk", 1),
                              ("nmr_march_init_walk", 11),
-                             ("nmr_march_samples", 18),
                              ("nmr_march_composite", 22))])
     return _lib
 
@@ -333,10 +359,12 @@ def init_walk_reference(o, d, t, t_surface, alive, scene, opts):
     return t, alive
 
 
-def advance_reference(st, scene, opts, iters: int):
+def advance_reference(st, scene, opts, iters: int, probes=None):
     """The advance pass on a state dict -> (t, alive): iters probes; rays
     exiting the aabb with no pending surface die, rays with a pending
-    surface are parked at t_surface."""
+    surface are parked at t_surface. probes: an (n,) int32 tensor or
+    None; each ray's probe count (the probes its kernel thread makes) is
+    added to it."""
     o, d = st["o"], st["d"]
     idir = 1.0 / d
     t_surface = st["t_surf"]
@@ -354,6 +382,8 @@ def advance_reference(st, scene, opts, iters: int):
         newly_park = active & (surf_pending | (~inside & surf_live))
         newly_exit = active & ~surf_pending & ~inside & ~surf_live
         newly_hit = active & ~surf_pending & inside & occ
+        if probes is not None:
+            probes += active & ~surf_pending & inside
         t = torch.where(newly_park, t_surface, t)
         alive = alive & ~newly_exit
         settled = settled | newly_park | newly_hit | ~alive
@@ -361,10 +391,10 @@ def advance_reference(st, scene, opts, iters: int):
     return t, alive
 
 
-def samples_reference(st, scene, opts):
+def samples_reference(st, scene, opts, probes=None):
     """K sequential steps of <= skip_iters probes -> samples (pos (K, n,
     3), dt (K, n), valid (K, n), t (K, n)), t_end, exited,
-    surf_stopped."""
+    surf_stopped. probes: as advance_reference's."""
     K = opts.steps_per_round
     o, d = st["o"], st["d"]
     idir = 1.0 / d
@@ -386,6 +416,8 @@ def samples_reference(st, scene, opts):
             occ, adv = _skip_probe(scene, pos, t, d, idir, dt, opts)
             new_status = torch.where(surf_stop, 3, torch.where(
                 ~inside, 2, torch.where(occ, 1, 0)))
+            if probes is not None:
+                probes += active & ~surf_stop & inside
             status = torch.where(active, new_status, status)
             t = torch.where(active & (status == 0), adv, t)
         found = status == 1
@@ -401,6 +433,14 @@ def samples_reference(st, scene, opts):
     samples = (torch.stack(pos_k), torch.stack(dt_k), torch.stack(valid_k),
                torch.stack(ts_k))
     return samples, t, exited & alive, surf_stopped & alive
+
+
+def advance_samples_reference(st, scene, opts, iters: int):
+    """The advance pass, then the first round's samples on the advanced
+    rays -> ((t, alive), samples_reference's outputs)."""
+    t, alive = advance_reference(st, scene, opts, iters)
+    return (t, alive), samples_reference({**st, "t": t, "alive": alive},
+                                         scene, opts)
 
 
 def surface_blend_reference(st, rnd, opts):
@@ -475,6 +515,17 @@ def composite_reference(st, rnd, opts, stage: int = STAGE_BLEND | STAGE_SAMPLES)
 # The wrappers
 # ---------------------------------------------------------------------------
 
+def _pow2_reciprocal(x) -> np.float32:
+    """1 / x where x is a power of two with a normal float32 reciprocal
+    (a division by x then rounds as the product with it), else 0."""
+    x = np.float32(x)
+    if not (np.isfinite(x) and x > 0 and np.frexp(x)[0] == 0.5):
+        return np.float32(0)
+    inv = np.float32(1) / x
+    return inv if np.isfinite(inv) and inv >= np.finfo(np.float32).tiny \
+        else np.float32(0)
+
+
 def _params(scene, opts, **kw) -> MarchParams:
     """The kernels' parameters for these options: the probe route and the
     float32 constants the plain version's Python scalars become."""
@@ -484,12 +535,13 @@ def _params(scene, opts, **kw) -> MarchParams:
     dmin, dmax, t1, t2, t1_end, t2_cap, lg = (
         _ladder_constants(cone) if cone > 0.0
         else (f32(C.MIN_CONE_STEPSIZE), f32(C.MAX_CONE_STEPSIZE)) + (f32(0),) * 5)
+    tau_den = f32(2 * C.NERF_GRIDSIZE * cone)
     return MarchParams(
         route=route, max_cascade=opts.config.max_cascade,
         min_mip=opts.min_mip, cone=f32(cone), dt_min=dmin, dt_max=dmax,
         t1=t1, t2=t2, t1_end=t1_end, t2_cap=t2_cap, lg=lg,
-        dtmip_cap=f32(C.MAX_CONE_STEPSIZE - 1e-9),
-        tau_den=f32(2 * C.NERF_GRIDSIZE * cone),
+        dtmip_cap=f32(C.MAX_CONE_STEPSIZE - 1e-9), tau_den=tau_den,
+        inv_cone=_pow2_reciprocal(cone), inv_tau_den=_pow2_reciprocal(tau_den),
         sat_alpha=f32(1.0 - opts.min_transmittance),
         grid_numel=grid.numel(), **kw), grid
 
@@ -552,24 +604,56 @@ def _launch(name, fn, dev, params, n, *ptrs):
 _STATE = ("o", "d", "t", "t_start", "t_surf", "surf_a", "alive")
 
 
+def _walk(name, mode, dev, n, args, scene, opts, iters):
+    """The walk kernel in form `mode` (WALK_ADVANCE, WALK_SAMPLES or both)
+    on the checked state `args` (_STATE's order) on the card, one launch
+    counted under `name` -> {output name: tensor}: t_out, alive_out (n,)
+    with WALK_ADVANCE; with WALK_SAMPLES pos_k (K, n, 3), dt_k, valid_k,
+    ts_k (K, n), t_end, exited, stopped (n,)."""
+    K = opts.steps_per_round
+    params, grid = _params(scene, opts, mode=mode, iters=int(iters),
+                           skip_iters=int(opts.skip_iters), steps=K)
+    f32 = dict(dtype=torch.float32, device=dev)
+    b8 = dict(dtype=torch.bool, device=dev)
+    out = {}
+    if mode & WALK_ADVANCE:
+        out.update(t_out=torch.empty(n, **f32), alive_out=torch.empty(n, **b8))
+    if mode & WALK_SAMPLES:
+        out.update(pos_k=torch.empty((K, n, 3), **f32),
+                   dt_k=torch.empty((K, n), **f32),
+                   valid_k=torch.empty((K, n), **b8),
+                   ts_k=torch.empty((K, n), **f32), t_end=torch.empty(n, **f32),
+                   exited=torch.empty(n, **b8), stopped=torch.empty(n, **b8))
+    if n:
+        tensors = dict(zip(_STATE + ("grid", "box_lo", "box_hi", "local"),
+                           args + _scene_args(scene, grid, dev)))
+        tensors.update(out)
+        walk = WalkArgs(**{k: tensors[k].data_ptr() if k in tensors else None
+                           for k in _WALK_TENSORS})
+        _launch(name, load_library().nmr_march_walk, dev, params, n,
+                ctypes.addressof(walk))
+    return out
+
+
+def _samples_out(out):
+    return ((out["pos_k"], out["dt_k"], out["valid_k"], out["ts_k"]),
+            out["t_end"], out["exited"], out["stopped"])
+
+
 def advance(st, scene, opts, iters: int):
     """The advance pass -> (t, alive), each (n,).
 
     st: o, d (n, 3) f32; t, t_start, t_surf, surf_a (n,) f32; alive (n,)
     bool. iters probes a ray at most; on a CUDA tensor one launch of
-    nmr_march_advance, a thread per ray that leaves its loop when the ray
-    settles."""
+    nmr_march_walk's advance form, a thread per ray that leaves its loop
+    when the ray settles."""
     dev, n, args = _ray_args("advance", st, _STATE)
     if dev.type == "cpu":
         return advance_reference(st, scene, opts, iters)
     if n == 0 or iters <= 0:
         return args[2], args[6]
-    params, grid = _params(scene, opts, iters=int(iters))
-    t = torch.empty(n, dtype=torch.float32, device=dev)
-    alive = torch.empty(n, dtype=torch.bool, device=dev)
-    _launch("advance", load_library().nmr_march_advance, dev, params, n,
-            *_ptrs(*args, *_scene_args(scene, grid, dev), t, alive))
-    return t, alive
+    out = _walk("advance", WALK_ADVANCE, dev, n, args, scene, opts, iters)
+    return out["t_out"], out["alive_out"]
 
 
 def init_walk(o, d, t, t_surface, alive, scene, opts):
@@ -597,21 +681,27 @@ def samples(st, scene, opts):
     """A round's K sequential samples -> ((pos (K, n, 3), dt, valid, ts
     (K, n)), t_end, exited, surf_stopped (n,)), as samples_reference; the
     state as advance takes it. On a CUDA tensor one launch of
-    nmr_march_samples."""
+    nmr_march_walk's samples form."""
     dev, n, args = _ray_args("samples", st, _STATE)
     if dev.type == "cpu":
         return samples_reference(st, scene, opts)
-    K = opts.steps_per_round
-    params, grid = _params(scene, opts, iters=int(opts.skip_iters), steps=K)
-    f32 = dict(dtype=torch.float32, device=dev)
-    b8 = dict(dtype=torch.bool, device=dev)
-    out = (torch.empty((K, n, 3), **f32), torch.empty((K, n), **f32),
-           torch.empty((K, n), **b8), torch.empty((K, n), **f32),
-           torch.empty(n, **f32), torch.empty(n, **b8), torch.empty(n, **b8))
-    if n:
-        _launch("samples", load_library().nmr_march_samples, dev, params, n,
-                *_ptrs(*args, *_scene_args(scene, grid, dev), *out))
-    return out[:4], out[4], out[5], out[6]
+    return _samples_out(_walk("samples", WALK_SAMPLES, dev, n, args, scene,
+                              opts, 0))
+
+
+def advance_samples(st, scene, opts, iters: int):
+    """The advance pass and then the first round's K samples on the
+    advanced rays -> ((t, alive), samples' outputs): advance's result and
+    samples' on {**st, "t": t, "alive": alive}, as
+    advance_samples_reference. On a CUDA tensor one
+    launch of nmr_march_walk's fused form: a thread loads its ray once,
+    advances it and carries it on into its K slots."""
+    dev, n, args = _ray_args("advance_samples", st, _STATE)
+    if dev.type == "cpu":
+        return advance_samples_reference(st, scene, opts, iters)
+    out = _walk("advance_samples", WALK_ADVANCE | WALK_SAMPLES, dev, n, args,
+                scene, opts, max(int(iters), 0))
+    return (out["t_out"], out["alive_out"]), _samples_out(out)
 
 
 def composite(st, rnd, opts, stage: int = STAGE_BLEND | STAGE_SAMPLES):
@@ -659,18 +749,44 @@ def _allowed(n):
     return max(MISMATCH_MIN, math.ceil(MISMATCH_FRACTION * n))
 
 
+def _ray_diffs(kind, out_k, out_p):
+    """-> (rays whose flags differ, rays whose t values differ in any bit,
+    [(t values of out_k, of out_p)] (rows, n), [(value tensors)] compared
+    bit for bit)."""
+    if kind == "walk":
+        (tk, ak), (tp, ap) = out_k, out_p
+        flags_k, flags_p = ak[None], ap[None]
+        ts = [(tk[None], tp[None])]
+        exact = ts
+    elif kind == "samples":
+        (pk, dk, vk, sk), tek, exk, ssk = out_k
+        (pp, dp, vp, sp), tep, exp_, ssp = out_p
+        flags_k = torch.cat([vk, exk[None], ssk[None]])
+        flags_p = torch.cat([vp, exp_[None], ssp[None]])
+        ts = [(torch.cat([sk, tek[None]]), torch.cat([sp, tep[None]]))]
+        exact = [(pk, pp), (dk, dp)] + ts
+    else:
+        raise ValueError(f"compare_with_plain: unknown kind {kind!r}")
+    n = ts[0][1].shape[1]
+    flag_diff = (flags_k != flags_p).any(dim=0)
+    value_diff = torch.zeros_like(flag_diff)
+    for a, b in exact:
+        value_diff |= (a != b).reshape(a.shape[0], n, -1).any(dim=2).any(dim=0)
+    return flag_diff, value_diff, ts, exact
+
+
 def compare_with_plain(kind: str, out_k, out_p) -> dict:
     """A kernel's outputs against its plain version's on the same inputs
     -> counts, worst differences and `ok` under the contract.
 
-    kind "walk" (advance, init_walk: (t, alive)) or "samples"
-    (samples' outputs): rays whose flags (alive; valid, exited,
-    surf_stopped) or whose t values (t; every slot's t, position and dt,
-    t_end) differ in any bit number at most max(4, ceil(1e-4 x rays));
-    where the flags agree, the t values lie at most one MAX_CONE_STEPSIZE
-    apart. kind "composite" (dicts of composite's outputs): the alive
-    masks differ on at most as many rays, every float output within
-    COMPOSITE_ATOL."""
+    kind "walk" (advance, init_walk: (t, alive)), "samples" (samples'
+    outputs) or "advance_samples" (((t, alive), samples' outputs)): rays
+    whose flags (alive; valid, exited, surf_stopped) or whose t values (t;
+    every slot's t, position and dt, t_end) differ in any bit number at
+    most max(4, ceil(1e-4 x rays)); where the flags agree, the t values
+    lie at most one MAX_CONE_STEPSIZE apart. kind "composite" (dicts of
+    composite's outputs): the alive masks differ on at most as many rays,
+    every float output within COMPOSITE_ATOL."""
     if kind == "composite":
         n = out_p["alive"].shape[0]
         flag_diff = out_k["alive"] != out_p["alive"]
@@ -681,35 +797,21 @@ def compare_with_plain(kind: str, out_k, out_p) -> dict:
         return {"rays": n, "mismatched_rays": rays, "flag_mismatches": rays,
                 "allowed": _allowed(n), "max_step_diff": 0.0,
                 "max_abs_err": err, "ok": ok}
-    if kind == "walk":
-        (tk, ak), (tp, ap) = out_k, out_p
-        flags_k, flags_p = ak[None], ap[None]
-        ts_k, ts_p = tk[None], tp[None]
-        exact = [(ts_k, ts_p)]
-    elif kind == "samples":
-        (pk, dk, vk, sk), tek, exk, ssk = out_k
-        (pp, dp, vp, sp), tep, exp_, ssp = out_p
-        flags_k = torch.cat([vk, exk[None], ssk[None]])
-        flags_p = torch.cat([vp, exp_[None], ssp[None]])
-        ts_k = torch.cat([sk, tek[None]])
-        ts_p = torch.cat([sp, tep[None]])
-        exact = [(pk, pp), (dk, dp), (ts_k, ts_p)]
-    else:
-        raise ValueError(f"compare_with_plain: unknown kind {kind!r}")
-    n = ts_p.shape[1]
-    flag_diff = (flags_k != flags_p).any(dim=0)
-    value_diff = torch.zeros_like(flag_diff)
-    for a, b in exact:
-        value_diff |= (a != b).reshape(a.shape[0], n, -1).any(dim=2).any(dim=0)
+    parts = ([("walk", out_k[0], out_p[0]), ("samples", out_k[1], out_p[1])]
+             if kind == "advance_samples" else [(kind, out_k, out_p)])
+    diffs = [_ray_diffs(*part) for part in parts]
+    flag_diff = torch.stack([f for f, _, _, _ in diffs]).any(dim=0)
+    value_diff = torch.stack([v for _, v, _, _ in diffs]).any(dim=0)
+    n = flag_diff.shape[0]
     rays = int((flag_diff | value_diff).sum())
     agree = ~flag_diff
     step = 0.0
     if bool(agree.any()):
-        step = float((ts_k - ts_p)[:, agree].abs().max())
+        step = max(float((a - b)[:, agree].abs().max())
+                   for _, _, ts, _ in diffs for a, b in ts)
     err = max(float((a - b).abs().max()) if a.numel() else 0.0
-              for a, b in exact)
+              for _, _, _, exact in diffs for a, b in exact)
     ok = rays <= _allowed(n) and step <= STEP_TOL
     return {"rays": n, "mismatched_rays": rays,
             "flag_mismatches": int(flag_diff.sum()), "allowed": _allowed(n),
             "max_step_diff": step, "max_abs_err": err, "ok": ok}
-

@@ -8,9 +8,11 @@ generate_next_nerf_network_inputs :564-633, composite_kernel_nerf
 
 `march_frame_impl` runs eagerly: each epoch compacts the alive rays
 (one host read), walks them through empty space on occupancy lookups
-alone (`_advance_pass`), then spends one K-sample round on them
-(`_march_round`). Every ray's result is independent of how rays are
-batched, so the epoch processes all alive rays as one batch where the
+alone, then spends one K-sample round on them (`_march_round`); with
+sequential rounds the walk and the round's samples are one kernel
+launch (march_cuda.advance_samples). Every ray's result is independent
+of how rays are batched, so the epoch processes all alive rays as one
+batch where the
 JAX package used fixed 4096-ray chunks; the network runs only on the
 round's valid samples (an invalid sample composites with weight 0 in
 both packages). The per-ray loops (init_rays' walk, the advance pass, a
@@ -487,9 +489,12 @@ def _exclusive_cumprod(x):
     return torch.cat([torch.ones_like(x[:1]), torch.cumprod(x, 0)[:-1]], 0)
 
 
-def _march_round(st, net: NerfNetwork, scene, opts: MarchOptions):
+def _march_round(st, net: NerfNetwork, scene, opts: MarchOptions,
+                 generated=None):
     """Generate up to K samples per ray, colour them, composite
-    (composite_kernel_nerf semantics); returns the updated state."""
+    (composite_kernel_nerf semantics); returns the updated state.
+    generated: the round's samples where they were made already
+    (march_cuda.advance_samples' second half), else None."""
     cfg = opts.config
     K = opts.steps_per_round
     d = st["d"]
@@ -497,8 +502,10 @@ def _march_round(st, net: NerfNetwork, scene, opts: MarchOptions):
     surface_rgba = st["surf"]
     alive = st["alive"]
 
-    gen = _vector_samples if opts.vector_rounds else march_cuda.samples
-    (pos, dt_k, valid, ts), t_end, exited, surf_stopped = gen(st, scene, opts)
+    if generated is None:
+        gen = _vector_samples if opts.vector_rounds else march_cuda.samples
+        generated = gen(st, scene, opts)
+    (pos, dt_k, valid, ts), t_end, exited, surf_stopped = generated
     valid = valid & alive[None]
     rnd = {"t_end": t_end, "exited": exited, "surf_stopped": surf_stopped}
 
@@ -710,7 +717,9 @@ def march_frame_impl(net: NerfNetwork, scene, o, d, surface_rgba, t_surface,
     per-epoch advance pass performs the identical quantized stepping (and
     the results depend on this choice, as in the reference package).
     Each epoch is one advance pass and rounds_per_epoch rounds; the epoch
-    budget is max_rounds // rounds_per_epoch. t_floor / alive_mask (N,):
+    budget is max_rounds // rounds_per_epoch. With sequential rounds the
+    advance and the first round's samples are one kernel launch
+    (march_cuda.advance_samples). t_floor / alive_mask (N,):
     the flash coarse init (flash_init). The deferred shade runs once at
     the end when the options ask for it."""
     if opts.cone_angle == 0.0 and opts.config.max_cascade == 0:
@@ -726,9 +735,16 @@ def march_frame_impl(net: NerfNetwork, scene, o, d, surface_rgba, t_surface,
         ids = perm[:n_alive]
         sub = {k: st[k][ids] for k in _GATHER}
         sub["alive"] = torch.ones(n_alive, dtype=torch.bool, device=o.device)
-        sub = _advance_pass(sub, scene, opts, opts.advance_iters)
+        generated = None
+        if opts.vector_rounds:
+            sub = _advance_pass(sub, scene, opts, opts.advance_iters)
+        else:
+            (t, alive), generated = march_cuda.advance_samples(
+                sub, scene, opts, opts.advance_iters)
+            sub = {**sub, "t": t, "alive": alive}
         for _ in range(opts.rounds_per_epoch):
-            sub = _march_round(sub, net, scene, opts)
+            sub = _march_round(sub, net, scene, opts, generated)
+            generated = None
         for k in _SCATTER:
             st[k][ids] = sub[k]
         epochs += 1

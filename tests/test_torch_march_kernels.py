@@ -24,12 +24,21 @@ Tolerances:
   are those of float32 MLPs on both sides.
 - the scalar model against the plain versions: equal bit for bit on every
   ray. The model is numpy float32 scalar code that follows each kernel's
-  loop with its early exits, line for line; it takes log and exp from
-  torch (the plain version's own functions on this CPU, as the kernels
-  take the card's logf and expf, which aten calls there).
-- the kernels against the plain versions (marked `cuda`, skipped without
-  a card; run with `python -m pytest tests/test_torch_march_kernels.py -m
-  cuda`): march_cuda.compare_with_plain's contract.
+  loop with its early exits, line for line (the fused walk as the advance
+  and then the samples in one pass, divisions by powers of two as
+  products, cells as integers); it takes log and exp
+  from torch (the plain version's own functions on this CPU, as the
+  kernels take the card's logf and expf, which aten calls there).
+- x / 2^k against x * 2^-k: equal, bit for bit.
+- the kernels on the card (marked `cuda`, skipped without a card): the
+  fused walk bit for bit the advance then the samples, every kernel under
+  march_cuda.compare_with_plain's contract against the card's plain
+  version, and the card's division by a Python scalar against the CPU's.
+  On a machine where another `tests` package shadows this directory, run
+  them as `python -c "import os, sys, types, pytest; m =
+  types.ModuleType('tests'); m.__path__ = [os.path.abspath('tests')];
+  sys.modules['tests'] = m; sys.exit(pytest.main(['tests/
+  test_torch_march_kernels.py', '-m', 'cuda', '-q']))"`.
 """
 
 import dataclasses
@@ -292,16 +301,12 @@ def _hi(x, hi):
     return hi if x > hi else x
 
 
-def _nan_to_num(x):
-    if x != x:
-        return F(0)
-    if x == np.inf:
-        return F32_MAX
-    return -F32_MAX if x == -np.inf else x
-
-
-def _cell(q):
-    return _hi(_lo(np.trunc(_nan_to_num(q * F(128))), F(0)), F(127))
+def _cell_i(q):
+    """cell_i: the saturating integer conversion, NaN to 0."""
+    v = q * F(128)
+    if v != v:
+        return 0
+    return int(min(max(np.trunc(np.float64(v)), 0), 127))
 
 
 def _fma(a, b, c):
@@ -332,9 +337,12 @@ class _P:
 
 
 def _box(scene):
-    return ([F(x) for x in scene["render_min"].numpy()],
-            [F(x) for x in scene["render_max"].numpy()],
-            [F(x) for x in scene["local"].numpy().reshape(-1)])
+    lo = [F(x) for x in scene["render_min"].numpy()]
+    hi = [F(x) for x in scene["render_max"].numpy()]
+    m = [F(x) for x in scene["local"].numpy().reshape(-1)]
+    identity = (m == [F(i % 4 == 0) for i in range(9)]
+                and np.isfinite(lo + hi).all())
+    return lo, hi, m, identity
 
 
 def _local_row(box, r, x):
@@ -345,7 +353,7 @@ def _local_row(box, r, x):
 def _contains(box, p):
     inside = True
     for r in range(3):
-        q = _local_row(box, r, p)
+        q = p[r] if box[3] else _local_row(box, r, p)
         inside = inside and q >= box[0][r] and q <= box[1][r]
     return inside
 
@@ -383,7 +391,9 @@ def _mip_from_dt(dt, p, mcasc):
     return mip if x < F(1) else min(max(_frexp_e(x), mip), mcasc)
 
 
-def _dist_to_next_voxel(p, d, idir, res):
+def _dist_to_next_voxel(p, d, idir, k):
+    """at res = 2^(7 - k): the division by res a product with 2^(k - 7)"""
+    res, inv_res = _ldexp(1, 7 - k), _ldexp(1, k - 7)
     t = F(0)
     for i in range(3):
         x = res * p[i]
@@ -391,11 +401,11 @@ def _dist_to_next_voxel(p, d, idir, res):
             + (F(1) if d[i] == 0 else F(0))
         tt = (np.floor((x + F(0.5)) + F(0.5) * s) - x) * idir[i]
         t = tt if i == 0 else _nmin(t, tt)
-    return _lo(t / res, F(0))
+    return _lo(t * inv_res, F(0))
 
 
-def _advance_to_next_voxel(t, P, p, d, idir, res):
-    t_target = t + _dist_to_next_voxel(p, d, idir, res)
+def _advance_to_next_voxel(t, P, p, d, idir, k):
+    t_target = t + _dist_to_next_voxel(p, d, idir, k)
     if P.cone == 0:
         n = _lo(np.ceil((t_target - t) / P.dt_min), F(1))
         return t + n * P.dt_min
@@ -429,25 +439,29 @@ def _clamp_flat(flat, P):
     return 0 if flat < 0 else min(flat, len(P.grid) - 1)
 
 
+def _div_const(x, c, inv_c):
+    return x * inv_c if inv_c != 0 else x / c
+
+
 def _probe(P, p, t, d, idir, dt):
     """-> (occupied, t advanced): probe<ROUTE>."""
     g, r = P.grid, P.route
     if r in (mc.ROUTE_JUMP, mc.ROUTE_DDA):
         if r == mc.ROUTE_JUMP:
-            c = [int(_cell(x)) for x in p]
+            c = [_cell_i(x) for x in p]
             lv = int(g[(c[2] * 128 + c[1]) * 128 + c[0]])
-            occ, res = lv == 255, _ldexp(128, -min(lv, 4))
+            occ, k = lv == 255, min(lv, 4)
         else:
             mip = max(_mip_from_dt(dt, p, P.max_cascade), P.min_mip)
             scale = _ldexp(1, -mip)
-            c = [int(_cell((x - F(0.5)) * scale + F(0.5))) for x in p]
+            c = [_cell_i((x - F(0.5)) * scale + F(0.5)) for x in p]
             flat = _clamp_flat(((mip * 128 + c[2]) * 128 + c[1]) * 128 + c[0],
                                P)
-            occ, res = g[flat] != 0, _ldexp(128, -mip)
-        return occ, _advance_to_next_voxel(t, P, p, d, idir, res)
+            occ, k = g[flat] != 0, mip
+        return occ, None if occ else _advance_to_next_voxel(t, P, p, d, idir, k)
     vox = F(1 / 128)
     if r == mc.ROUTE_DIST:
-        vi = [_cell(x) for x in p]
+        vi = [F(_cell_i(x)) for x in p]
         k = F(g[(int(vi[2]) * 128 + int(vi[1])) * 128 + int(vi[0])])
         delta = F(0)
         for i in range(3):
@@ -457,9 +471,9 @@ def _probe(P, p, t, d, idir, dt):
         delta = _lo(delta, F(0))
         return k == 0, t + _lo(np.ceil(delta / P.dt_min), F(1)) * P.dt_min
     mip = max(_mip_from_dt(dt, p, P.max_cascade), P.min_mip)
-    s = _ldexp(1, mip)
-    q = [(x - F(0.5)) / s + F(0.5) for x in p]
-    cell = [_cell(x) for x in q]
+    s, inv_s = _ldexp(1, mip), _ldexp(1, -mip)
+    q = [(x - F(0.5)) * inv_s + F(0.5) for x in p]
+    cell = [F(_cell_i(x)) for x in q]
     flat = _clamp_flat(((mip * 128 + int(cell[2])) * 128 + int(cell[1])) * 128
                        + int(cell[0]), P)
     k = F(g[flat])
@@ -468,15 +482,16 @@ def _probe(P, p, t, d, idir, dt):
         zero = d[i] == 0
         safe_d = F(1) if zero else d[i]
         bound = (cell[i] + k) * vox if d[i] > 0 else (cell[i] - (k - F(1))) * vox
-        tt = F(1e9) if zero else (bound - q[i]) / (safe_d / s)
+        tt = F(1e9) if zero else (bound - q[i]) / (safe_d * inv_s)
         cb = F(0.5) + F(0.5) * s if d[i] > 0 else F(0.5) - F(0.5) * s
         tc = F(1e9) if zero else (cb - p[i]) / safe_d
         ball = tt if i == 0 else _nmin(ball, tt)
         cube = tc if i == 0 else _nmin(cube, tc)
     delta = _nmin(_lo(ball, F(0)), _lo(cube, F(0)) + vox)
     if P.cone > 0:
-        tau_next = _ldexp(1, max(_frexp_e(dt * F(256)), 0)) / P.tau_den
-        tau = dt / P.cone
+        tau_next = _div_const(_ldexp(1, max(_frexp_e(dt * F(256)), 0)),
+                              P.tau_den, P.inv_tau_den)
+        tau = _div_const(dt, P.cone, P.inv_cone)
         dtmip = F(1e9) if dt >= P.dtmip_cap else _lo(tau_next - tau, F(0)) + dt
         delta = _nmin(delta, dtmip)
     return k == 0, _ladder(t, t + delta, P)
@@ -563,7 +578,7 @@ def _model_samples(P, box, st):
         gen_alive, exited, stopped = alive, False, False
         for k in range(K):
             status = 0 if gen_alive else -1
-            for _ in range(P.iters):
+            for _ in range(P.skip_iters):
                 if status != 0:
                     break
                 p = _at(o, d, t)
@@ -699,7 +714,7 @@ def _advanced(route, surface):
 def test_model_samples_equal_plain(route, surface):
     st, topts, tscene = _advanced(route, surface)
     want = mc.samples_reference(_torch(st), tscene, topts)
-    params, grid = mc._params(tscene, topts, iters=topts.skip_iters,
+    params, grid = mc._params(tscene, topts, skip_iters=topts.skip_iters,
                               steps=topts.steps_per_round)
     with np.errstate(all="ignore"):
         got = _model_samples(_P(params, grid), _box(tscene), st)
@@ -709,6 +724,54 @@ def test_model_samples_equal_plain(route, surface):
                           want[1:]):
         _bits_equal(g, w.numpy(), name)
     assert want[0][2].any()
+
+
+def _model_advance_samples(P, box, st):
+    """The fused form: each ray's advance, then its K slots from the
+    advanced t and alive."""
+    t, alive = _model_advance(P, box, st)
+    return (t, alive), _model_samples(P, box, {**st, "t": t, "alive": alive})
+
+
+@pytest.mark.parametrize("surface", [False, True], ids=["plain", "surface"])
+@pytest.mark.parametrize("route", list(ROUTES))
+def test_model_fused_walk_equals_plain(route, surface):
+    """The fused kernel's loop (the advance and then the first round's
+    samples in one thread) equals advance_samples' CPU path bit for bit."""
+    st, topts, tscene = _init_state(route, surface)
+    (t, alive), want = mc.advance_samples(_torch(st), tscene, topts, 48)
+    params, grid = mc._params(tscene, topts, iters=48,
+                              skip_iters=topts.skip_iters,
+                              steps=topts.steps_per_round)
+    with np.errstate(all="ignore"):
+        (mt, ma), got = _model_advance_samples(_P(params, grid), _box(tscene),
+                                               st)
+    _bits_equal(mt, t.numpy(), "t")
+    _bits_equal(ma, alive.numpy(), "alive")
+    for name, g, w in zip(("pos", "dt", "valid", "ts"), got[0], want[0]):
+        _bits_equal(g, w.numpy(), name)
+    for name, g, w in zip(("t_end", "exited", "surf_stopped"), got[1:],
+                          want[1:]):
+        _bits_equal(g, w.numpy(), name)
+    assert want[0][2].any() and (t.numpy() != st["t"]).any()
+
+
+@pytest.mark.parametrize("k", range(5))
+def test_division_by_a_power_of_two_is_the_product_with_its_reciprocal(k):
+    """x / 2^k == x * 2^-k bit for bit for float32 x over the normal
+    range (numpy and torch on this CPU): the identity the kernels' probe
+    relies on where it multiplies instead of dividing."""
+    rng = np.random.default_rng(k)
+    bits = rng.integers(0x00800000, 0x7F800000, 200000, dtype=np.int64)
+    x = np.concatenate([bits, bits | 0x80000000]).astype(np.uint32)
+    x = x.view(np.float32)
+    s, inv = F(2.0 ** k), F(2.0 ** -k)
+    assert mc._pow2_reciprocal(s) == inv
+    _bits_equal(x / s, x * inv, "numpy")
+    tx = torch.from_numpy(x)
+    _bits_equal((tx / float(s)).numpy(), (tx * float(inv)).numpy(), "torch")
+    _bits_equal((tx / float(s)).numpy(), x / s, "torch vs numpy")
+    assert mc._pow2_reciprocal(F(3.0)) == 0 and mc._pow2_reciprocal(0.0) == 0
 
 
 def _round_inputs(route, surface, seed=3):
@@ -769,6 +832,13 @@ def test_cpu_tensors_take_the_plain_versions():
                        mc.samples_reference(tst, tscene, topts)[1:])):
         for g, w in zip(got, want):
             assert torch.equal(g, w)
+    (t, alive), fused = mc.advance_samples(tst, tscene, topts, 48)
+    t2, alive2 = mc.advance_reference(tst, tscene, topts, 48)
+    want = mc.samples_reference({**tst, "t": t2, "alive": alive2}, tscene,
+                                topts)
+    assert torch.equal(t, t2) and torch.equal(alive, alive2)
+    assert all(torch.equal(g, w) for g, w in zip(fused[0] + fused[1:],
+                                                  want[0] + want[1:]))
     st, rnd, topts = _round_inputs("jump", True)
     got = mc.composite(_torch(st), _torch(rnd), topts)
     want = mc.composite_reference(_torch(st), _torch(rnd), topts)
@@ -796,6 +866,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
             mc.advance(b, tscene, topts, 4)
         with pytest.raises(ValueError):
             mc.samples(b, tscene, topts)
+        with pytest.raises(ValueError):
+            mc.advance_samples(b, tscene, topts, 4)
     with pytest.raises(ValueError):
         mc.init_walk(tst["o"], tst["d"], tst["t"][:, None], tst["t_surf"],
                      tst["alive"], tscene, topts)
@@ -894,3 +966,74 @@ def test_composite_kernel_matches_plain_on_card(stage, deferred):
                               mc.composite(cst, crnd, topts, stage),
                               mc.composite_reference(cst, crnd, topts, stage))
     assert r["ok"], r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("surface", [False, True], ids=["plain", "surface"])
+@pytest.mark.parametrize("route", list(ROUTES))
+def test_fused_walk_equals_advance_then_samples_on_card(route, surface):
+    """advance_samples in one launch equals advance followed by samples on
+    the advanced rays, bit for bit, and holds under the contract against
+    the plain versions on the card."""
+    _needs_card()
+    st, topts, tscene = _init_state(route, surface)
+    cst, cscene = _card(_torch(st)), _card_scene(tscene)
+    before = dict(mc.launches)
+    (t, alive), got = mc.advance_samples(cst, cscene, topts, 48)
+    torch.cuda.synchronize()
+    assert mc.launches["advance_samples"] == before["advance_samples"] + 1
+    t2, alive2 = mc.advance(cst, cscene, topts, 48)
+    want = mc.samples({**cst, "t": t2, "alive": alive2}, cscene, topts)
+    _bits_equal(t.cpu(), t2.cpu(), "t")
+    _bits_equal(alive.cpu(), alive2.cpu(), "alive")
+    for name, g, w in zip(("pos", "dt", "valid", "ts"), got[0], want[0]):
+        _bits_equal(g.cpu(), w.cpu(), name)
+    for name, g, w in zip(("t_end", "exited", "surf_stopped"), got[1:],
+                          want[1:]):
+        _bits_equal(g.cpu(), w.cpu(), name)
+    t_p, alive_p = mc.advance_reference(cst, cscene, topts, 48)
+    plain = mc.samples_reference({**cst, "t": t_p, "alive": alive_p}, cscene,
+                                 topts)
+    r = mc.compare_with_plain("advance_samples", ((t, alive), got),
+                              ((t_p, alive_p), plain))
+    assert r["ok"], r
+
+
+@pytest.mark.cuda
+def test_card_divides_by_a_python_scalar_with_its_reciprocal():
+    """The march's own quotients (the advance's (t_target - t) / dt_min on
+    the jump-grid route, numerators made on the CPU) divided on the card by
+    a Python float, by a float32 tensor on the card, and on the CPU: the
+    tensor quotient is the CPU's, bit for bit; the Python-scalar quotient
+    is the product with float32(1 / dt_min), and differs from the CPU's on
+    some of them. The march kernels divide: on this route their advance
+    gives the CPU plain version's bits."""
+    _needs_card()
+    st, topts, tscene = _init_state("jump", True)
+    tst = _torch(st)
+    pos = tst["o"] + tst["d"] * tst["t"][:, None]
+    lv = tocc.skip_level_at(tscene["skip"], pos)
+    res = C.NERF_GRIDSIZE * torch.exp2(-torch.clamp(lv, max=4).float())
+    step = tocc.distance_to_next_voxel(pos, tst["d"], 1.0 / tst["d"], res)
+    x = (tst["t"] + step) - tst["t"]
+    s = C.MIN_CONE_STEPSIZE
+    cpu = x / s
+    xc = x.to("cuda")
+    by_scalar = (xc / s).cpu()
+    by_tensor = (xc / torch.tensor(s, dtype=torch.float32, device="cuda")).cpu()
+    by_recip = (xc * (torch.tensor(1.0, device="cuda")
+                      / torch.tensor(s, dtype=torch.float32,
+                                     device="cuda"))).cpu()
+    _bits_equal(by_tensor, cpu, "tensor divisor on the card vs CPU")
+    _bits_equal(by_scalar, by_recip, "Python divisor vs reciprocal product")
+    off = int((by_scalar != cpu).sum())
+    ceil_off = int((torch.ceil(by_scalar) != torch.ceil(cpu)).sum())
+    print(f"{off} of {x.numel()} quotients differ from the CPU's "
+          f"({ceil_off} under the ceil)")
+    assert off > 0
+    cst, cscene = _card(tst), _card_scene(tscene)
+    t_k, alive_k = mc.advance(cst, cscene, topts, 48)
+    t_p, alive_p = mc.advance_reference(tst, tscene, topts, 48)
+    _bits_equal(t_k.cpu(), t_p, "kernel advance vs CPU plain")
+    _bits_equal(alive_k.cpu(), alive_p, "kernel alive vs CPU plain")
+
