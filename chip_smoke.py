@@ -15,7 +15,11 @@ kernels it has on phases 4b's, 5c's and 15's recorded calls by device
 time, the march kernels on every recorded call of phases 5b, 8b, 23b and
 24 (and 5b's and 23b's other probe routes), each required to equal this
 tree's bit for bit (the fused advance + samples its advance followed by
-its samples). A variant of a kernel is timed the same
+its samples); and each DIR that is a whole checkout (with its own
+chip_smoke.py) renders its exact 720p frame with its own package in a
+process of its own, its device operations and busy time printed in
+turns with this tree's (phase 5b). A variant of a kernel is
+timed the same
 way: a copy of this tree unpacked under the git-ignored _chipwork/ with
 the variant edited in (for example network.cu's ENCODE_MLP_BLOCKS_PER_SM)
 and given as a DIR. The smoke run itself takes no argument.
@@ -72,8 +76,12 @@ procedural glasses glTF written here) + frame(), with the mesh pass at
      followed by the samples, beside that pair's device time; how the
      walks scale (device time on 1/8, 1/4, 1/2 and all of the rays, the
      advance at 12, 24 and 48 probes, each ray's probe count from the
-     plain loops: mean, max, mean of the 32-ray warps' maxima); each
-     kernel against its plain version under march_cuda.
+     plain loops: mean, max, mean of the 32-ray warps' maxima); the
+     round's tail from the network's rows to the composite's outputs (the
+     composite call, its row map included; with a DIR whose composite
+     predates the row form, that DIR's former tail, the aten ops that made
+     dense alpha and colour and its kernel, in turns) in device ms and
+     operations; each kernel against its plain version under march_cuda.
      compare_with_plain's contract (rays that differ in a flag or a t <=
      max(4, 1e-4 x rays), each within one MAX_CONE_STEPSIZE; composite
      outputs within 1e-6), the mismatch counts printed, each kernel's
@@ -219,7 +227,9 @@ on every ray's path:
      the scene carries the clearance pyramid;
 23b. phase 5b on that frame: the march kernels on the clearance
      pyramid's route (and the multi-cascade per-voxel DDA with its cone
-     loop) against their plain versions, the plain-march frame >= 60 dB,
+     loop) against their plain versions, the init walk's scaling (device
+     ms on 1/8-1 of its rays and at caps of 4, 8 and 16 probes, probes a
+     ray), the plain-march frame >= 60 dB,
      both frames' device operations and ms; and phase 5c: the network
      kernels on its first epoch, the plain-network frame >= 50 dB;
  24. baked + flash: load_nerf(bake=True, bake_resolution=256) with its
@@ -842,18 +852,21 @@ def other_checkouts(dirs, module):
     return others
 
 
-def in_turns(others, this, fn_name, check, time_args, timer):
+def in_turns(others, this, fn_name, check, time_args, timer, args_of=None):
     """Each other checkout's wrapper `fn_name` checked on time_args by
     check(label, output), then every version timed by timer(fn) in turns:
     the others, this tree, this tree, the others reversed -> {version:
-    [ms, ms]}."""
+    [ms, ms]}. args_of(module): a version's own arguments where they are
+    not time_args (made before any timing)."""
     versions = others + [("this tree", this)]
+    args = {name: (args_of(mod) if args_of else time_args)
+            for name, mod in versions}
     for name, mod in others:
-        check(f"{fn_name} of {name}", getattr(mod, fn_name)(*time_args))
+        check(f"{fn_name} of {name}", getattr(mod, fn_name)(*args[name]))
     times = {name: [] for name, _ in versions}
     for name, mod in versions + versions[::-1]:
-        fn = getattr(mod, fn_name)
-        times[name].append(timer(lambda: fn(*time_args)))
+        fn, a = getattr(mod, fn_name), args[name]
+        times[name].append(timer(lambda: fn(*a)))
     print(f"{fn_name} in turns: " + "; ".join(
         f"{name} {', '.join(f'{t:.4f}' for t in ts)} ms"
         for name, ts in times.items()))
@@ -1006,32 +1019,44 @@ MARCH_KERNELS = {            # wrapper -> (kernel, compare kind, what it replace
                 "nerf_glasses_tpu_torch/ops/march_cuda.py::advance_reference "
                 "(raymarch._advance_pass's loop); "
                 "nerf_glasses_tpu/ops/raymarch.py:730"),
-    "init_walk": ("nmr_march_init_walk", "walk",
+    "init_walk": ("nmr_march_walk:init_walk", "walk",
                   "nerf_glasses_tpu_torch/ops/march_cuda.py::"
                   "init_walk_reference (raymarch.init_rays' walk); "
-                  "nerf_glasses_tpu/ops/raymarch.py:565"),
+                  "nerf_glasses_tpu/ops/raymarch.py:518-565"),
     "samples": ("nmr_march_walk:samples", "samples",
                 "nerf_glasses_tpu_torch/ops/march_cuda.py::samples_reference "
                 "(raymarch._march_round's sequential samples); "
                 "nerf_glasses_tpu/ops/raymarch.py:782"),
-    "composite": ("nmr_march_composite", "composite",
+    "composite": ("nmr_march_composite:rows", "composite",
                   "nerf_glasses_tpu_torch/ops/march_cuda.py::"
-                  "composite_reference (raymarch._march_round's non-vector "
+                  "composite_reference (raymarch._march_round from the "
+                  "network's rows: activations, alpha and the non-vector "
                   "composite); nerf_glasses_tpu/ops/raymarch.py:873, :1005, "
                   ":1031"),
 }
 # every march kernel takes MarchParams first: its device operations'
-# names hold it (kernel_device_ms), those of this tree and of others
+# names hold it (kernel_device_ms), those of this tree and of others; the
+# composite's entry also launches the row map
 MARCH_OP = "MarchParams"
+MARCH_HELPERS = ("row_map_kernel",)
+
+
+def march_ms(name, fn, reps):
+    """kernel_device_ms of a march wrapper: its kernel and its helpers."""
+    return kernel_device_ms(name, fn, reps, MARCH_OP, MARCH_HELPERS)
 PSNR_PLAIN_MARCH_DB = 60.0
 EXACT_FRAME_MAX_LAUNCHES = 10000
 
 
 def _clone_state(x):
     """A wrapper's argument, its ray state and round (the dicts that
-    carry "t" or "t_end") and tensors cloned; the scene and options as
-    they are."""
+    carry "t" or "t_end") and tensors cloned, a strided column (the
+    density rows, column 0 of the density MLP's output) with its stride;
+    the scene and options as they are."""
     if torch.is_tensor(x):
+        if x.dim() == 1 and x.stride(0) > 1:
+            return torch.empty_strided(x.shape, x.stride(), dtype=x.dtype,
+                                       device=x.device).copy_(x)
         return x.clone()
     if isinstance(x, dict) and ("t" in x or "t_end" in x):
         return {k: _clone_state(v) for k, v in x.items()}
@@ -1086,15 +1111,23 @@ def march_bound(name, args):
         st, rnd = args[0], args[1]
         stage = args[3] if len(args) > 3 else march_cuda.STAGE_SAMPLES
         n = st["t"].shape[0]
-        # in: rgba, surf 32; depth, max_weight, wn, surf_a, t, t_surf,
-        # t_end 28; alive, exited, surf_stopped 3; each slot's valid 1,
-        # and alpha, ts 8 and rgb 12 where the slot is valid on a live ray
-        # (none in the blend alone). Out: rgba 16, four floats 16, alive 1.
-        slots = used = 0
+        # what the function needs, not the design's scratch (the row
+        # map). In: rgba, surf 32; depth, max_weight, wn, surf_a, t,
+        # t_surf, t_end 28; alive, exited, surf_stopped 3; each slot's
+        # valid 1 (and colour mask 1 in the baked form); where the slot is
+        # valid on a live ray, its ts 4, and dt 4 and the row's raw
+        # density 4 (network form) or its alpha 4 (baked form); each
+        # row's raw colour 12 and slot 8 (none in the blend alone). Out:
+        # rgba 16, four floats 16, alive 1.
+        slots = used = rows = 0
         if stage & march_cuda.STAGE_SAMPLES:
-            slots = rnd["valid"].numel()
+            slots = rnd["valid"].numel() * (2 if "color" in rnd else 1)
             used = int((rnd["valid"] & st["alive"][None]).sum())
-        return bound_ms(0, n * (63 + 33) + slots + 20 * used)
+            rows = rnd["rgb"].shape[0]
+            per_used = 8 if "alpha" in rnd else 12
+        else:
+            per_used = 0
+        return bound_ms(0, n * (63 + 33) + slots + per_used * used + 20 * rows)
     if name == "init_walk":
         o, scene, opts = args[0], args[5], args[6]
         n = o.shape[0]
@@ -1155,25 +1188,49 @@ def pair_call(module, st, scene, opts, iters):
     return adv, ((t, alive), module.samples(adv, scene, opts))
 
 
+def aten_tail(rnd, opts):
+    """The round in the composite's former form (post-activation alpha (K,
+    n) and rgb (K, n, 3) a slot), made by march_cuda.dense_round: the
+    sequential round's aten ops between the network and the composite
+    before the composite read the network's rows."""
+    alpha, rgb = march_cuda.dense_round(rnd, opts)
+    return {**rnd, "alpha": alpha, "rgb": rgb}
+
+
+def other_march_args(module, name, args):
+    """args as another checkout's march wrapper `name` takes them: a
+    composite that predates the network-row form gets the round's dense
+    alpha and colour from aten_tail."""
+    if name != "composite" or hasattr(module, "dense_round"):
+        return args
+    st, rnd, opts = args[:3]
+    if len(args) > 3 and not args[3] & march_cuda.STAGE_SAMPLES:
+        return args
+    return (st, aten_tail(rnd, opts), opts) + tuple(args[3:])
+
+
 def other_march_call(module, name, args):
-    """Another checkout's march wrapper `name` on args; the fused call as
-    its advance followed by its samples where it has no fused kernel."""
+    """Another checkout's march wrapper `name` on args (other_march_args);
+    the fused call as its advance followed by its samples where it has no
+    fused kernel."""
     if name != "advance_samples" or hasattr(module, name):
-        return getattr(module, name)(*args)
+        return getattr(module, name)(*other_march_args(module, name, args))
     return pair_call(module, *args)[1]
 
 
 L2_FLUSH_BYTES = 128 << 20     # over the H100's 50 MB L2
 
 
-def kernel_device_ms(name, fn, reps, match=None):
+def kernel_device_ms(name, fn, reps, match=None, helpers=()):
     """The device time of one launch of kernel `name` (the device
-    operations whose name holds `match`, by default `{name}_kernel`), each
-    launch after a write of L2_FLUSH_BYTES that leaves its inputs out of
-    L2: the mean over the launches torch.profiler records in reps calls of
-    fn (the wrapper's host work, which CUDA events around back-to-back
-    calls may time instead, left out). The trace may miss a launch or, now
-    and then, come back empty: then it is taken again, up to 3 times."""
+    operations whose name holds `match`, by default `{name}_kernel`, with
+    the time of the helper kernels its entry launches beside it, those
+    whose name holds one of `helpers`), each launch after a write of
+    L2_FLUSH_BYTES that leaves its inputs out of L2: the mean over the
+    launches torch.profiler records in reps calls of fn (the wrapper's
+    host work, which CUDA events around back-to-back calls may time
+    instead, left out). The trace may miss a launch or, now and then, come
+    back empty: then it is taken again, up to 3 times."""
     match = match or f"{name}_kernel"
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
 
@@ -1186,8 +1243,10 @@ def kernel_device_ms(name, fn, reps, match=None):
         _, _, ops = device_profile(run, host=False)
         mine = [(t, c) for op, (t, c) in ops.items() if match in op]
         count = sum(c for _, c in mine)
+        helper_ms = sum(t for op, (t, _) in ops.items()
+                        if any(h in op for h in helpers))
         if count:
-            return sum(t for t, _ in mine) / count
+            return (sum(t for t, _ in mine) + helper_ms) / count
     raise AssertionError(f"torch.profiler saw no launch of {match} in "
                          f"3 x {reps} calls: {list(ops)}")
 
@@ -1226,7 +1285,7 @@ def hold_calls(calls, label, reps=20, others=()):
         torch.cuda.synchronize()
         cmp = march_cuda.compare_with_plain(kind, got, plain(*args))
         ev_ms = cuda_ms(lambda: wrapper(*args), reps)
-        k_ms = kernel_device_ms(name, lambda: wrapper(*args), reps, MARCH_OP)
+        k_ms = march_ms(name, lambda: wrapper(*args), reps)
         p_ms = cuda_ms(lambda: plain(*args), 2)
         b_ms, b_by = march_bound(name, args)
         n = args[0].shape[0] if torch.is_tensor(args[0]) else args[0]["t"].shape[0]
@@ -1256,7 +1315,8 @@ def hold_calls(calls, label, reps=20, others=()):
                                          f"from this tree's")
             out[key]["in_turns"] = in_turns(
                 have, march_cuda, name, check, args,
-                lambda fn: kernel_device_ms(name, fn, reps, MARCH_OP))
+                lambda fn: march_ms(name, fn, reps),
+                lambda m: other_march_args(m, name, args))
     return out
 
 
@@ -1274,17 +1334,16 @@ def march_fused_vs_pair(args, got, label, reps, others=()):
     same = {path: same_bits(out, got) for path, (_, out) in pairs.items()}
 
     def pair_ms(m, adv):
-        return (kernel_device_ms("advance", lambda: m.advance(
-            st, scene, opts, iters), reps, MARCH_OP) + kernel_device_ms(
-                "samples", lambda: m.samples(adv, scene, opts), reps, MARCH_OP))
+        return (march_ms("advance", lambda: m.advance(
+            st, scene, opts, iters), reps) + march_ms(
+                "samples", lambda: m.samples(adv, scene, opts), reps))
 
     times = {f"{path} pair": [] for path, _ in versions}
     times["this tree fused"] = []
     turn = [(f"{p} pair", lambda m=m, p=p: pair_ms(m, pairs[p][0]))
             for p, m in versions]
-    turn.append(("this tree fused", lambda: kernel_device_ms(
-        "advance_samples", lambda: march_cuda.advance_samples(*args), reps,
-        MARCH_OP)))
+    turn.append(("this tree fused", lambda: march_ms(
+        "advance_samples", lambda: march_cuda.advance_samples(*args), reps)))
     for which, fn in turn + turn[::-1]:
         times[which].append(fn())
     print(f"{label} nmr_march_walk:advance_samples vs advance then samples on "
@@ -1336,18 +1395,17 @@ def march_scaling(calls, label, reps=10):
         sub_adv = {key: v[ids] for key, v in adv.items()}
         by_rays[f"1/{k}"] = {
             "rays": int(ids.numel()),
-            "advance_ms": kernel_device_ms(
+            "advance_ms": march_ms(
                 "advance", lambda: march_cuda.advance(sub, scene, opts, iters),
-                reps, MARCH_OP),
-            "samples_ms": kernel_device_ms(
+                reps),
+            "samples_ms": march_ms(
                 "samples", lambda: march_cuda.samples(sub_adv, scene, opts),
-                reps, MARCH_OP),
-            "advance_samples_ms": kernel_device_ms(
+                reps),
+            "advance_samples_ms": march_ms(
                 "advance_samples", lambda: march_cuda.advance_samples(
-                    sub, scene, opts, iters), reps, MARCH_OP)}
-    by_iters = {it: kernel_device_ms(
-        "advance", lambda it=it: march_cuda.advance(st, scene, opts, it), reps,
-        MARCH_OP) for it in SCALING_ITERS}
+                    sub, scene, opts, iters), reps)}
+    by_iters = {it: march_ms(
+        "advance", lambda it=it: march_cuda.advance(st, scene, opts, it), reps) for it in SCALING_ITERS}
     p_adv = torch.zeros(n, dtype=torch.int32, device=st["t"].device)
     p_smp = torch.zeros_like(p_adv)
     march_cuda.advance_reference(st, scene, opts, iters, probes=p_adv)
@@ -1367,6 +1425,146 @@ def march_scaling(calls, label, reps=10):
               f"{s['warp_max_mean']:.2f}" for k, s in stats.items()))
     return {"by_rays": by_rays, "advance_by_iters": by_iters,
             "probes": stats}
+
+
+def flushed_profile(fn, reps=10):
+    """Device time and operations of one call of fn, L2 flushed before
+    each (the flush's own operations left out) -> (ms, operations a call,
+    [(operation, ms, launches a call)] by time)."""
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    flush_ops = set()
+    for _ in range(3):          # the trace now and then comes back empty
+        flush_ops = set(device_profile(flush.zero_, host=False)[2])
+        if flush_ops:
+            break
+
+    def run():
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+
+    ops = {k: v for k, v in device_profile(run, host=False)[2].items()
+           if k not in flush_ops and "FillFunctor<unsigned char>" not in k}
+    top = sorted(ops.items(), key=lambda kv: -kv[1][0])
+    return (sum(t for t, _ in ops.values()) / reps,
+            sum(c for _, c in ops.values()) / reps,
+            [(k.replace("(anonymous namespace)::", "").split("(")[0][-60:],
+              t / reps, c / reps) for k, (t, c) in top])
+
+
+def round_tail(calls, label, others=()):
+    """The recorded composite call as the round runs it, from the
+    network's rows to the composite's outputs (the wrapper's row map and
+    the kernel), beside each other checkout's former tail on the same rows
+    where its composite predates the row form (aten_tail, then its
+    kernel): device ms and device operations a call (flushed_profile), in
+    turns -> numbers."""
+    args = calls["composite"]
+    st, rnd, opts = args[:3]
+    tails = [("this tree", lambda: march_cuda.composite(*args))]
+    tails += [(f"{path} (aten tail + its kernel)",
+               lambda m=m: m.composite(st, aten_tail(rnd, opts), opts))
+              for path, m in others if not hasattr(m, "dense_round")]
+    for _, fn in tails:
+        fn()
+    res = {w: [] for w, _ in tails}
+    for which, fn in tails[::-1] + tails:
+        res[which].append(flushed_profile(fn))
+    print(f"{label} round tail on the first epoch's "
+          f"{st['t'].shape[0]} rays ({rnd['rgb'].shape[0]} rows of "
+          f"{rnd['valid'].numel()} slots), network outputs to composite "
+          f"outputs, device ms and operations a call (torch.profiler, L2 "
+          f"flushed), in turns: " + "; ".join(
+              f"{w} " + ", ".join(f"{ms:.4f} ms {ops:.1f} ops" for ms, ops, _ in r)
+              + " [" + ", ".join(f"{n} {t:.4f} {c:.0f}x" for n, t, c in r[0][2])
+              + "]" for w, r in res.items()))
+    return {w: {"ms": [ms for ms, _, _ in r], "ops": r[0][1]}
+            for w, r in res.items()}
+
+
+FRAME_OPS_CODE = """
+import json, os, sys
+import torch
+sys.path.insert(0, os.getcwd())
+import chip_smoke as cs
+glasses = os.path.join(sys.argv[1], "glasses.gltf")
+cs.write_glasses_gltf(glasses)
+r, nerf = cs.make_renderer(torch.device("cuda"), cs.W, cs.H, glasses)
+for _ in range(3):
+    r.frame()
+res = []
+for _ in range(3):
+    r.update_model_view_proj()
+    r.frame()
+    wall, busy, ops = cs.device_profile(r.frame, host=False)
+    res.append([sum(c for _, c in ops.values()), busy, wall])
+print(json.dumps(res))
+"""
+
+
+def frame_ops_in_turns(tmp, dirs):
+    """The exact 720p frame of each checkout (this tree and each DIR),
+    each rendered by that checkout's own package and chip_smoke.py helpers
+    in a process of its own run from its root, in turns (the others, this
+    tree, this tree, the others reversed): 3 warm-up frames, then 3
+    frames' device operations, device-busy ms and wall ms under
+    torch.profiler -> {checkout: [[ops, busy, wall], ...]}. A DIR with no
+    chip_smoke.py of its own (the kernels' sources alone) is left out."""
+    order = [d for d in dirs
+             if os.path.exists(os.path.join(d, "chip_smoke.py"))] + [ROOT]
+    res = {path: [] for path in order}
+    for k, path in enumerate(order + order[::-1]):
+        work = os.path.join(tmp, f"frame_ops_{k}")
+        os.makedirs(work, exist_ok=True)
+        out = subprocess.run([sys.executable, "-c", FRAME_OPS_CODE, work],
+                             cwd=path, capture_output=True, text=True,
+                             timeout=600)
+        if out.returncode != 0:
+            raise RuntimeError(f"exact frame of {path} failed:\n"
+                               f"{out.stderr[-4000:]}")
+        res[path] += json.loads(out.stdout.strip().splitlines()[-1])
+    print("exact 720p frame by checkout, in turns, each in its own process "
+          "(torch.profiler: device operations, busy ms, wall ms): " + "; ".join(
+              f"{'this tree' if path == ROOT else path} " + ", ".join(
+                  f"{n} ops {b:.3f} / {w:.2f} ms" for n, b, w in r)
+              for path, r in res.items()))
+    return {("this tree" if path == ROOT else path): r
+            for path, r in res.items()}
+
+
+def init_walk_scaling(calls, label, reps=10):
+    """How the recorded init walk scales: device time (torch.profiler, L2
+    flushed) on 1/8, 1/4, 1/2 and all of the rays (every k-th block of
+    SCALING_BLOCK rays) and at a cap of 4, 8 and 16 probes, and each
+    ray's probe count from the plain loop on the card: mean, max and the
+    mean of the warps' maxima -> numbers."""
+    args = calls["init_walk"]
+    n = args[0].shape[0]
+    by_rays = {}
+    for k in SCALING_FRACTIONS:
+        block = torch.arange(n, device=args[0].device) // SCALING_BLOCK
+        ids = torch.nonzero(block % k == 0).squeeze(1)
+        sub = tuple(x[ids] for x in args[:5]) + tuple(args[5:])
+        by_rays[f"1/{k}"] = {"rays": int(ids.numel()), "ms": march_ms(
+            "init_walk", lambda sub=sub: march_cuda.init_walk(*sub), reps)}
+    by_cap = {}
+    for cap in (4, 8, 16):
+        a = tuple(args[:6]) + (dataclasses.replace(args[6],
+                                                   init_skip_iters=cap),)
+        by_cap[cap] = march_ms(
+            "init_walk", lambda a=a: march_cuda.init_walk(*a), reps)
+    probes = torch.zeros(n, dtype=torch.int32, device=args[0].device)
+    march_cuda.init_walk_reference(*args, probes=probes)
+    stats = probe_stats(probes)
+    print(f"{label} init walk scaling on {n} rays (route "
+          f"{march_cuda.probe_route(args[5], args[6])[0]}, "
+          f"{args[6].init_skip_iters} probes): device ms by rays " + "; ".join(
+              f"{f} ({r['rays']}): {r['ms']:.4f}" for f, r in by_rays.items())
+          + "; by probe cap " + ", ".join(f"{c}: {ms:.4f}"
+                                           for c, ms in by_cap.items())
+          + f"; probes a ray (plain loop on the card) mean {stats['mean']:.2f}, "
+          f"max {stats['max']}, warp max mean {stats['warp_max_mean']:.2f}")
+    return {"by_rays": by_rays, "by_cap": by_cap, "probes": stats}
 
 
 def flash_march_check(renderer, nerf, label, need, others=()):
@@ -1514,6 +1712,9 @@ def march_kernels_phase(renderer, nerf, label, variants=(), reps=20,
     calls = with_pair_calls(calls)
     out = hold_calls(calls, label, reps, others)
     out["scaling"] = march_scaling(calls, label)
+    out["round_tail"] = round_tail(calls, label, others)
+    if "init_walk" in calls:
+        out["init_scaling"] = init_walk_scaling(calls, label)
     del calls
 
     frames = plain_vs_kernel_frames(renderer, nerf, label, march_cuda,
@@ -1579,6 +1780,11 @@ def march_entries(march, launches, frames, mc, others, sass):
             entry["multicascade_scaling"] = mc["kernels"]["scaling"]
             entry["sass"] = {k: v for k, v in sass.items()
                              if k.startswith("walk_kernel")}
+        if name == "composite":
+            entry["round_tail"] = march["round_tail"]
+            entry["multicascade_round_tail"] = mc["kernels"]["round_tail"]
+        if name == "init_walk":
+            entry["init_scaling"] = mc["kernels"]["init_scaling"]
         entries.append(entry)
     return entries
 
@@ -3709,6 +3915,8 @@ def main(tmp, dirs, multicascade_only=False):
         raise AssertionError(
             f"the exact 720p frame took {march_frames['kernels']['launches']} "
             f"device operations (aim: under {EXACT_FRAME_MAX_LAUNCHES})")
+    if any(os.path.exists(os.path.join(d, "chip_smoke.py")) for d in dirs):
+        frame_ops_in_turns(tmp, dirs)
     lap("5b")
 
     # 5c: the network kernels on the exact frame's first epoch, and a frame

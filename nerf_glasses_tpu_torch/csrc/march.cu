@@ -5,38 +5,66 @@
 // raymarch.py), because the TPU could not gather from its fast memory
 // inside a kernel (docs/KERNELS.md section 2); the port ran them as
 // eager aten ops, about 15 launches a probe iteration. Here:
-//   walk_kernel       (nmr_march_walk)      one body for the epoch's two
-//       walks, three forms a route: the advance pass alone (ops/
+//   walk_kernel       (nmr_march_walk)      one body for the march's
+//       walks, four forms a route: the advance pass alone (ops/
 //       march_cuda.py::advance; JAX raymarch.py:730-764), a round's K
 //       samples of <= skip_iters probes alone (::samples; JAX
-//       raymarch.py:782-812), and the advance followed by the first
-//       round's samples in the same thread (::advance_samples);
-//   init_walk_kernel  (nmr_march_init_walk) ::init_walk, init_rays'
-//       bounded walk; JAX raymarch.py:518-565;
+//       raymarch.py:782-812), the advance followed by the first round's
+//       samples in the same thread (::advance_samples), and init_rays'
+//       bounded walk (::init_walk; JAX raymarch.py:518-565);
 //   composite_kernel  (nmr_march_composite) ::composite, the round's
 //       in-march surface blend, K-sample front-to-back loop and final
-//       surface blend; JAX _march_round after the network.
+//       surface blend from the network's rows; JAX _march_round after
+//       the network (raymarch.py:873, :1005, :1031).
 // A ray leaves its loop as soon as it settles, where the plain version
 // masks it for the remaining iterations.
 //
-// What bounds the walks: the length of the longest rays' probe chains,
-// not bytes. A thread reads its ray's state once and writes its outputs
-// once (the first, separate advance and samples kernels reached 5-44% of
-// that bound), but each probe is a chain of dependent steps, a gather
-// among them, and the next probe waits for it: 7.4x the rays cost the
-// first advance kernel 1.4x its time, 4x the probe cap 1.7x (PERF.md).
-// So the design shortens the chain and runs fewer of them: the fused
-// form loads the state once and carries the advanced ray straight into
-// its K slots (one launch, one wrapper call and one state read an epoch
-// fewer, and the tail is the longest advance + samples rather than the
-// longest advance plus the longest samples); divisions
+// What bounds the walks: on a frame's first-epoch advance, the length of
+// the longest rays' probe chains, not bytes (7.4x the rays cost the
+// first advance kernel 1.4x its time, 4x the probe cap 1.7x); on the
+// init walk's 921,600 rays of up to 16 probes, the instructions issued
+// (its time follows the rays almost linearly: PERF.md). Each probe is a
+// chain of dependent steps, a gather among them, and the next probe
+// waits for it. So the design shortens the chain and runs fewer of them:
+// the fused form loads the state once and carries the advanced ray
+// straight into its K slots (one launch, one wrapper call and one state
+// read an epoch fewer, and the tail is the longest advance + samples
+// rather than the longest advance plus the longest samples); divisions
 // by powers of two are products by exact reciprocals, per-ray invariants
 // leave the loop, cells are integers, exponents are read from the bits,
 // and a probe that finds its voxel occupied stops there. The samples'
 // slot stores stay coalesced (slot k of ray i at k * n + i). One block
-// of 256 threads a tile of rays, scheduled as blocks finish; a persistent
-// grid, and a bit pyramid of the jump levels with its coarse levels
-// staged in shared memory, were measured and were slower (PERF.md).
+// of 256 threads a tile of rays, scheduled as blocks finish; the init
+// walk's tiles are 128 rays (its 256-thread instance compiled a longer
+// probe loop and ran 1-2% slower). A persistent grid, a bit pyramid of
+// the jump levels staged in shared memory, three exact rewrites of the
+// clearance pyramid's six divisions by d (only the least quotient
+// divided; a product by 1 / d with one or two FMA corrections) and a
+// table of the ladder's expf(nb * lg) were measured and were slower
+// (PERF.md): the IEEE division's and expf's own sequences are short.
+//
+// What bounds the composite: not its bytes (under a third of that bound:
+// the per-ray state, the valid and colour-mask bytes, a used slot's ts,
+// dt and raw density or alpha, each row's colour and slot; the row map
+// is the design's scratch and not counted), but the round around it and
+// the chain of loads a ray runs. The round's
+// network leaves one row a used slot (14.6% of
+// the slots on an exact frame's first epoch); the composite reads those
+// rows where the network left them (the raw density a column of the
+// density MLP's output, the raw colour) and applies the activations and
+// alpha = 1 - exp(-sigma dt) itself, so the round no longer zero-fills
+// dense (K, n) alpha and colour, gathers dt, runs the activations and
+// the alpha chain as aten ops and scatters into the dense tensors (12 of
+// the 13 device operations from the network to the composite's outputs).
+// A slot finds its row in a row map that the entry's first kernel
+// scatters from the rows' slots (row_map_kernel: one small launch where
+// the aten tail was twelve; nothing fills the map, so a row number counts
+// only where the row's slot is the slot that read it); a slot the loop
+// does not use reads its valid byte and nothing else. The baked round keeps its dense alpha
+// (from the baked sigma grid) and gives colour rows for the slots it
+// colours. What is left bounds the kernel by latency: a used slot's
+// loads wait for its row number, so a ray with many used slots runs a
+// longer chain than the former kernel's one load a slot (PERF.md).
 //
 // The probe (probe<ROUTE>) has the four routes of ops/march_cuda.py::
 // _skip_probe, one template instance each, chosen on the host
@@ -51,19 +79,24 @@
 // ones aten calls on the card, and no result is flushed to zero. A
 // division by 2^k is the product with 2^-k here, which rounds the same
 // real number and so gives the same bits; a division by any other number
-// (dt_min, dt_max, lg, d) stays a division. Python scalars of the plain
-// version arrive as float32 values made on the host (MarchParams). torch
-// semantics spelled out: clamp, minimum, maximum, amin and amax propagate
-// NaN (nmin, nmax, clamp_lo, clamp_hi); nan_to_num maps NaN to 0 and
-// +-inf to +-FLT_MAX; sign(d) + (d == 0); frexp's exponent; 2^k built
-// from its bits. The render box's 3x3 `local` product is the one place
-// where aten's order is a library's (a GEMM): it is taken as an FMA chain
-// from the first term, exact for the identity (whose product is then
-// skipped: the same containment test). On the card aten divides by a
-// Python scalar as a product with its reciprocal; these kernels divide,
-// as the CPU does, so they give the CPU plain version's bits and the card
-// plain version may be a step apart (ops/march_cuda.py::compare_with_plain
-// holds the count).
+// (dt_min, dt_max, lg, d) stays a division.
+// The activations are aten's on the card (exp, 1 / (1 + exp(-x)), relu
+// and clamp keeping NaN). Python scalars of the plain version arrive as
+// float32 values made on the host (MarchParams). torch semantics spelled
+// out: clamp, minimum, maximum, amin and amax propagate NaN (nmin, nmax,
+// clamp_lo, clamp_hi); nan_to_num maps NaN to 0 and +-inf to +-FLT_MAX;
+// sign(d) + (d == 0); frexp's exponent; 2^k built from its bits. The
+// render box's 3x3 `local` product is the one place where aten's order
+// is a library's (a GEMM): it is taken as an FMA chain from the first
+// term, exact for the identity (whose product is then skipped: the same
+// containment test). On the card aten divides by a Python scalar as a
+// product with its reciprocal; these kernels divide, as the CPU does, so
+// they give the CPU plain version's bits and the card plain version may
+// be a step apart (ops/march_cuda.py::compare_with_plain holds the
+// count). The composite differs from its plain version in one case: a
+// NaN colour row on a slot the loop does not use (a ray that saturated
+// earlier in the round) leaves the ray's colour alone here and turns it
+// to NaN there.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -80,6 +113,8 @@ struct MarchParams {
   int steps;         // samples, composite: K
   int deferred;      // composite: the wn terms
   int stage;         // composite: STAGE_BLEND | STAGE_SAMPLES
+  int density_act;   // composite: ACT_* of the network's density
+  int rgb_act;       // composite: ACT_* of the network's colour
   float cone;        // cone_angle; 0 = constant dt
   float dt_min, dt_max;
   float t1, t2, t1_end, t2_cap, lg;   // _ladder_jump's constants
@@ -104,16 +139,44 @@ struct WalkArgs {
   uint8_t *exited, *stopped;
 };
 
+// Layout shared with ops/march_cuda.py::CompositeArgs: the composite's
+// tensors. The round's slots are (K, n), slot k of ray i at k * n + i;
+// the network's rows are (M), one a slot of `color` (null: `valid`), row
+// j that of slot slots[j]. `rows` (K * n) is scratch: the entry launch
+// writes each such slot's row there (row_map_kernel) and the composite
+// reads it; a row whose slot lies outside the K * n slots is left out,
+// and a slot with no row has alpha 0 (without a dense alpha) and colour
+// 0. Alpha comes dense (baked sigma) or from the rows' raw density
+// `sigma` (its rows sigma_stride floats apart) and dt.
+struct CompositeArgs {
+  const float *rgba, *depth, *max_w, *wn, *surf_a, *t_round;
+  const uint8_t* alive;
+  const float *surf, *t_surf, *t_end;
+  const uint8_t *exited, *stopped;
+  const uint8_t *valid, *color;
+  const float *ts_k, *dt_k, *alpha, *sigma, *rgb;
+  const long long* slots;
+  int* rows;
+  long long sigma_stride, m;
+  float *rgba_out, *depth_out, *max_w_out, *wn_out, *surf_a_out;
+  uint8_t* alive_out;
+};
+
 namespace {
 
 constexpr int G = 128;
 constexpr float VOX = 1.0f / 128.0f;
 constexpr float F32_MAX = 3.402823466e38f;
-constexpr int THREADS = 128;        // init walk, composite
-constexpr int WALK_THREADS = 256;   // the walk: one block a 256-ray tile
+constexpr int THREADS = 128;        // composite
+constexpr int WALK_THREADS = 256;   // the walks: one block a 256-ray tile
+constexpr int INIT_THREADS = 128;   // the init walk's tile (PERF.md)
 enum { ROUTE_JUMP = 0, ROUTE_DIST = 1, ROUTE_DIST_MIPS = 2, ROUTE_DDA = 3 };
-enum { WALK_ADVANCE = 1, WALK_SAMPLES = 2 };
+enum { WALK_ADVANCE = 1, WALK_SAMPLES = 2, WALK_INIT = 4 };
 enum { STAGE_BLEND = 1, STAGE_SAMPLES = 2 };
+// ops/network.py's activations; ACT_EXP_CLAMPED is the colour's
+// exponential, exp(clamp(x, -10, 10))
+enum { ACT_NONE = 0, ACT_RELU = 1, ACT_LOGISTIC = 2, ACT_EXP = 3,
+       ACT_EXP_CLAMPED = 4 };
 
 // torch.minimum / maximum / clamp: a NaN operand gives NaN.
 __device__ __forceinline__ float nmin(float a, float b) {
@@ -402,12 +465,41 @@ __device__ __forceinline__ bool probe(
 
 // The walk: a thread per ray. ADVANCE: the advance pass, writing t and
 // alive; SAMPLES: the round's K slots from there (from the state's t and
-// alive without ADVANCE).
-template <int ROUTE, bool ADVANCE, bool SAMPLES>
-__global__ void __launch_bounds__(WALK_THREADS) walk_kernel(
-    MarchParams P, int n, WalkArgs a) {
-  const int i = blockIdx.x * WALK_THREADS + threadIdx.x;
+// alive without ADVANCE); INIT (alone): init_rays' bounded walk, dt from
+// the absolute t, which reads neither t_start nor surf_a.
+template <int ROUTE, bool ADVANCE, bool SAMPLES, bool INIT>
+__global__ void __launch_bounds__(INIT ? INIT_THREADS : WALK_THREADS)
+walk_kernel(MarchParams P, int n, WalkArgs a) {
+  const int i = blockIdx.x * (INIT ? INIT_THREADS : WALK_THREADS) + threadIdx.x;
   if (i >= n) return;
+  if (INIT) {
+    float t = a.t[i];
+    bool alive = a.alive[i] != 0;
+    if (alive && P.iters > 0) {
+      const Box b = load_box(a.box_lo, a.box_hi, a.local);
+      const Ray r = load_ray(a.o, a.d, i);
+      const float ts = a.t_surf[i];
+      const bool has_surface = ts > 0.0f;
+      for (int it = 0; it < P.iters; ++it) {
+        if (has_surface && t > ts) {            // past the surface: park
+          t = ts;
+          break;
+        }
+        float p[3], adv;
+        at(r, t, p);
+        if (!contains_local(b, p)) {            // left the box
+          if (has_surface) t = ts;
+          else alive = false;
+          break;
+        }
+        if (probe<ROUTE>(P, a.grid, p, t, r, calc_dt(t, P), &adv)) break;
+        t = adv;
+      }
+    }
+    a.t_out[i] = t;
+    a.alive_out[i] = alive;
+    return;
+  }
   const Box b = load_box(a.box_lo, a.box_hi, a.local);
   const Ray r = load_ray(a.o, a.d, i);
   const float ts = a.t_surf[i], t0 = a.t_start[i], sa = a.surf_a[i];
@@ -479,72 +571,67 @@ __global__ void __launch_bounds__(WALK_THREADS) walk_kernel(
   }
 }
 
-template <int ROUTE>
-__global__ void __launch_bounds__(THREADS) init_walk_kernel(
-    MarchParams P, int n, const float* __restrict__ o,
-    const float* __restrict__ d, const float* __restrict__ t_in,
-    const float* __restrict__ t_surf, const uint8_t* __restrict__ alive_in,
-    const uint8_t* __restrict__ grid, const float* box_lo,
-    const float* box_hi, const float* local, float* __restrict__ t_out,
-    uint8_t* __restrict__ alive_out) {
-  const int i = blockIdx.x * THREADS + threadIdx.x;
-  if (i >= n) return;
-  float t = t_in[i];
-  bool alive = alive_in[i] != 0;
-  if (alive && P.iters > 0) {
-    const Box b = load_box(box_lo, box_hi, local);
-    const Ray r = load_ray(o, d, i);
-    const float ts = t_surf[i];
-    const bool has_surface = ts > 0.0f;
-    for (int it = 0; it < P.iters; ++it) {
-      if (has_surface && t > ts) {              // past the surface: park
-        t = ts;
-        break;
-      }
-      float p[3], adv;
-      at(r, t, p);
-      if (!contains_local(b, p)) {              // left the box
-        if (has_surface) t = ts;
-        else alive = false;
-        break;
-      }
-      if (probe<ROUTE>(P, grid, p, t, r, calc_dt(t, P), &adv)) break;
-      t = adv;
-    }
+// ops/network.py's apply_density_activation / apply_rgb_activation as aten
+// computes them on the card: torch.relu and torch.clamp keep NaN, sigmoid
+// is 1 / (1 + exp(-x))
+__device__ __forceinline__ float activate(float x, int kind) {
+  switch (kind) {
+    case ACT_RELU: return x != x ? x : fmaxf(x, 0.0f);
+    case ACT_LOGISTIC: return 1.0f / (1.0f + expf(-x));
+    case ACT_EXP: return expf(x);
+    case ACT_EXP_CLAMPED:
+      return expf(x != x ? x : fminf(fmaxf(x, -10.0f), 10.0f));
+    default: return x;
   }
-  t_out[i] = t;
-  alive_out[i] = alive;
 }
+
+// The row map: rows[slots[j]] = j, a thread a row; a slot outside the
+// round's `total` slots is left out.
+__global__ void __launch_bounds__(THREADS) row_map_kernel(
+    const long long* __restrict__ slots, long long m, long long total,
+    int* __restrict__ rows) {
+  const long long j = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (j >= m) return;
+  const long long s = slots[j];
+  if (s >= 0 && s < total) rows[s] = (int)j;
+}
+
+// The round's composite, a thread per ray: the in-march surface blend
+// (STAGE_BLEND), then (STAGE_SAMPLES) the front-to-back loop over the K
+// slots and the final surface blend. The slots come in chunks of
+// COMPOSITE_CHUNK: the chunk's valid and colour-mask bytes first, then
+// the row numbers of its valid slots, each step's loads in flight
+// together, then the loop over the chunk. A slot the loop uses (valid,
+// on a ray that is alive and still compositing) reads its alpha (dense,
+// or 1 - exp(-act(sigma) dt) from its row's raw density) and its colour
+// (act(rgb) of its row where it owns one, else 0); one it does not use
+// reads nothing more and adds a weight of 0. The row map is scratch that
+// nothing fills: a row number r counts only where 0 <= r < m and row r's
+// slot is this slot (loaded beside the row's values), so a slot without
+// a row has alpha 0 (without a dense alpha) and colour 0, as in the plain
+// version's dense tensors.
+constexpr int COMPOSITE_CHUNK = 8;
+
 __global__ void __launch_bounds__(THREADS) composite_kernel(
-    MarchParams P, int n, const float* __restrict__ rgba_in,
-    const float* __restrict__ depth_in, const float* __restrict__ max_w_in,
-    const float* __restrict__ wn_in, const float* __restrict__ surf_a_in,
-    const float* __restrict__ t_round, const uint8_t* __restrict__ alive_in,
-    const float* __restrict__ surf, const float* __restrict__ t_surf,
-    const float* __restrict__ t_end, const uint8_t* __restrict__ exited_in,
-    const uint8_t* __restrict__ stopped_in, const float* __restrict__ alpha,
-    const uint8_t* __restrict__ valid, const float* __restrict__ ts_k,
-    const float* __restrict__ rgb, float* __restrict__ rgba_out,
-    float* __restrict__ depth_out, float* __restrict__ max_w_out,
-    float* __restrict__ wn_out, float* __restrict__ surf_a_out,
-    uint8_t* __restrict__ alive_out) {
+    MarchParams P, int n, CompositeArgs a) {
   const int i = blockIdx.x * THREADS + threadIdx.x;
   if (i >= n) return;
   float c[4], sc[4];
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    c[j] = rgba_in[4 * i + j];
-    sc[j] = surf[4 * i + j];
+    c[j] = a.rgba[4 * i + j];
+    sc[j] = a.surf[4 * i + j];
   }
-  float depth = depth_in[i], max_w = max_w_in[i], wn = wn_in[i];
-  float sa = surf_a_in[i];
-  const float ts = t_surf[i];
-  const bool alive = alive_in[i] != 0;
-  const bool exited = exited_in[i] != 0, stopped = stopped_in[i] != 0;
+  float depth = a.depth[i], max_w = a.max_w[i], wn = a.wn[i];
+  float sa = a.surf_a[i];
+  const float ts = a.t_surf[i];
+  const bool alive = a.alive[i] != 0;
+  const bool exited = a.exited[i] != 0, stopped = a.stopped[i] != 0;
   bool comp = alive;
   if (P.stage & STAGE_BLEND) {
     // the in-march surface blend, once before the round's samples
-    const float t_payload = exited ? t_round[i] : (stopped ? ts : t_end[i]);
+    const float t_payload = exited ? a.t_round[i]
+                                   : (stopped ? ts : a.t_end[i]);
     if (comp && ts > 0.0f && t_payload > ts && sa > 0.0f) {
       const float w = sa * (1.0f - c[3]);
 #pragma unroll
@@ -561,24 +648,73 @@ __global__ void __launch_bounds__(THREADS) composite_kernel(
     }
   }
   if (P.stage & STAGE_SAMPLES) {
-    for (int k = 0; k < P.steps; ++k) {
-      const long long slot = (long long)k * n + i;
-      const bool use = comp && valid[slot] != 0 && alive;
-      const float w = use ? alpha[slot] * (1.0f - c[3]) : 0.0f;
+    for (int k0 = 0; k0 < P.steps; k0 += COMPOSITE_CHUNK) {
+      unsigned valid = 0, owns = 0;
+      int row[COMPOSITE_CHUNK];
+      const bool reads = comp && alive;
 #pragma unroll
-      for (int j = 0; j < 3; ++j) c[j] = c[j] + rgb[3 * slot + j] * w;
-      c[3] = c[3] + w;
-      if (P.deferred) wn = wn + w;
-      const bool done = use && c[3] > P.sat_alpha;
-      const bool upd = w > max_w;
-      if (upd) max_w = w;
-      if (upd && use) depth = ts_k[slot];
-      if (done) {
-        const float inv = 1.0f / clamp_lo(c[3], 1e-9f);
+      for (int j = 0; j < COMPOSITE_CHUNK; ++j) {
+        const long long slot = (long long)(k0 + j) * n + i;
+        if (reads && k0 + j < P.steps) {
+          const bool v = a.valid[slot] != 0;
+          valid |= (unsigned)v << j;
+          owns |= (unsigned)(a.color ? a.color[slot] != 0 : v) << j;
+        }
+      }
 #pragma unroll
-        for (int j = 0; j < 4; ++j) c[j] = c[j] * inv;
-        if (P.deferred) wn = wn * inv;
-        comp = false;
+      for (int j = 0; j < COMPOSITE_CHUNK; ++j) {
+        const long long slot = (long long)(k0 + j) * n + i;
+        row[j] = (owns >> j & 1u) && a.m > 0 ? a.rows[slot] : -1;
+      }
+#pragma unroll
+      for (int j = 0; j < COMPOSITE_CHUNK; ++j) {
+        if (k0 + j >= P.steps) break;
+        const long long slot = (long long)(k0 + j) * n + i;
+        const bool use = comp && (valid >> j & 1u) && alive;
+        float w = 0.0f, rgb[3] = {0.0f, 0.0f, 0.0f};
+        if (use) {
+          const long long r = row[j];
+          // the row's slot and values, loaded together
+          long long back = -1;
+          float raw_sigma = 0.0f, dt = 0.0f, raw_rgb[3] = {0.0f, 0.0f, 0.0f};
+          if (r >= 0 && r < a.m) {
+            back = a.slots[r];
+            if (!a.alpha) {
+              raw_sigma = a.sigma[r * a.sigma_stride];
+              dt = a.dt_k[slot];
+            }
+#pragma unroll
+            for (int m = 0; m < 3; ++m) raw_rgb[m] = a.rgb[3 * r + m];
+          }
+          const bool own = back == slot;
+          float alpha = 0.0f;
+          if (a.alpha) {
+            alpha = a.alpha[slot];
+          } else if (own) {
+            const float sigma = activate(raw_sigma, P.density_act);
+            alpha = 1.0f - expf(-sigma * dt);
+          }
+          if (own) {
+#pragma unroll
+            for (int m = 0; m < 3; ++m) rgb[m] = activate(raw_rgb[m], P.rgb_act);
+          }
+          w = alpha * (1.0f - c[3]);
+        }
+#pragma unroll
+        for (int m = 0; m < 3; ++m) c[m] = c[m] + rgb[m] * w;
+        c[3] = c[3] + w;
+        if (P.deferred) wn = wn + w;
+        const bool done = use && c[3] > P.sat_alpha;
+        const bool upd = w > max_w;
+        if (upd) max_w = w;
+        if (upd && use) depth = a.ts_k[slot];
+        if (done) {
+          const float inv = 1.0f / clamp_lo(c[3], 1e-9f);
+#pragma unroll
+          for (int m = 0; m < 4; ++m) c[m] = c[m] * inv;
+          if (P.deferred) wn = wn * inv;
+          comp = false;
+        }
       }
     }
     // the final surface blend of rays that ended
@@ -591,21 +727,22 @@ __global__ void __launch_bounds__(THREADS) composite_kernel(
     comp = comp && !ended;
   }
 #pragma unroll
-  for (int j = 0; j < 4; ++j) rgba_out[4 * i + j] = c[j];
-  depth_out[i] = depth;
-  max_w_out[i] = max_w;
-  wn_out[i] = wn;
-  surf_a_out[i] = sa;
-  alive_out[i] = comp;
+  for (int j = 0; j < 4; ++j) a.rgba_out[4 * i + j] = c[j];
+  a.depth_out[i] = depth;
+  a.max_w_out[i] = max_w;
+  a.wn_out[i] = wn;
+  a.surf_a_out[i] = sa;
+  a.alive_out[i] = comp;
 }
 
 inline int blocks(int n) { return (n + THREADS - 1) / THREADS; }
 
-template <int ROUTE, bool ADVANCE, bool SAMPLES>
+template <int ROUTE, bool ADVANCE, bool SAMPLES, bool INIT = false>
 int launch_walk(const MarchParams& P, int n, const WalkArgs& a,
                 cudaStream_t s) {
-  walk_kernel<ROUTE, ADVANCE, SAMPLES>
-      <<<(n + WALK_THREADS - 1) / WALK_THREADS, WALK_THREADS, 0, s>>>(P, n, a);
+  constexpr int tile = INIT ? INIT_THREADS : WALK_THREADS;
+  walk_kernel<ROUTE, ADVANCE, SAMPLES, INIT>
+      <<<(n + tile - 1) / tile, tile, 0, s>>>(P, n, a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -617,6 +754,7 @@ int launch_walk_mode(const MarchParams& P, int n, const WalkArgs& a,
     case WALK_SAMPLES: return launch_walk<ROUTE, false, true>(P, n, a, s);
     case WALK_ADVANCE | WALK_SAMPLES:
       return launch_walk<ROUTE, true, true>(P, n, a, s);
+    case WALK_INIT: return launch_walk<ROUTE, false, false, true>(P, n, a, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -639,41 +777,18 @@ extern "C" int nmr_march_walk(const MarchParams* p, int n, const WalkArgs* a,
   }
 }
 
-extern "C" int nmr_march_init_walk(
-    const MarchParams* p, int n, const float* o, const float* d,
-    const float* t, const float* t_surf, const uint8_t* alive,
-    const uint8_t* grid, const float* box_lo, const float* box_hi,
-    const float* local, float* t_out, uint8_t* alive_out, void* stream) {
+// The composite: the row map of the network's rows (where there are
+// any), then the composite kernel.
+extern "C" int nmr_march_composite(const MarchParams* p, int n,
+                                   const CompositeArgs* a, void* stream) {
   const MarchParams P = *p;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define NMR_INIT(R)                                                          \
-  init_walk_kernel<R><<<blocks(n), THREADS, 0, s>>>(                         \
-      P, n, o, d, t, t_surf, alive, grid, box_lo, box_hi, local, t_out,      \
-      alive_out)
-  switch (P.route) {
-    case ROUTE_JUMP: NMR_INIT(ROUTE_JUMP); break;
-    case ROUTE_DIST: NMR_INIT(ROUTE_DIST); break;
-    case ROUTE_DIST_MIPS: NMR_INIT(ROUTE_DIST_MIPS); break;
-    case ROUTE_DDA: NMR_INIT(ROUTE_DDA); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  if (a->m > 0) {
+    row_map_kernel<<<(unsigned)((a->m + THREADS - 1) / THREADS), THREADS, 0, s>>>(
+        a->slots, a->m, (long long)P.steps * n, a->rows);
+    const int err = static_cast<int>(cudaGetLastError());
+    if (err != 0) return err;
   }
-#undef NMR_INIT
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int nmr_march_composite(
-    const MarchParams* p, int n, const float* rgba, const float* depth,
-    const float* max_w, const float* wn, const float* surf_a,
-    const float* t_round, const uint8_t* alive, const float* surf,
-    const float* t_surf, const float* t_end, const uint8_t* exited,
-    const uint8_t* stopped, const float* alpha, const uint8_t* valid,
-    const float* ts_k, const float* rgb, float* rgba_out, float* depth_out,
-    float* max_w_out, float* wn_out, float* surf_a_out, uint8_t* alive_out,
-    void* stream) {
-  const MarchParams P = *p;
-  composite_kernel<<<blocks(n), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      P, n, rgba, depth, max_w, wn, surf_a, t_round, alive, surf, t_surf,
-      t_end, exited, stopped, alpha, valid, ts_k, rgb, rgba_out, depth_out,
-      max_w_out, wn_out, surf_a_out, alive_out);
+  composite_kernel<<<blocks(n), THREADS, 0, s>>>(P, n, *a);
   return static_cast<int>(cudaGetLastError());
 }

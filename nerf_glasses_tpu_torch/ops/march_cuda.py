@@ -11,15 +11,18 @@ their plain PyTorch versions, and the empty-space probes the loops call.
 - `advance_samples` is the advance followed by the first round's samples
   on the advanced rays, in one launch: what an epoch of sequential
   rounds starts with (raymarch.march_frame_impl).
-  The three run one kernel body, nmr_march_walk's walk_kernel, in the
+- `init_walk` is init_rays' bounded walk to the first occupied voxel
+  (JAX: raymarch.py:518-565).
+  The four run one kernel body, nmr_march_walk's walk_kernel, in the
   form each needs.
-- `init_walk` (nmr_march_init_walk) is init_rays' bounded walk to the
-  first occupied voxel (JAX: raymarch.py:518-565).
 - `composite` (nmr_march_composite) is the non-vector compositing of
-  `_march_round`: the in-march surface blend, the K-sample front-to-back
+  `_march_round` from the network's rows: the activations and alpha of
+  each used slot, the in-march surface blend, the K-sample front-to-back
   loop and the final surface blend; the baked path, whose colour
   selection reads the blended state, runs the blend (STAGE_BLEND) and the
-  rest (STAGE_SAMPLES) as two calls.
+  rest (STAGE_SAMPLES) as two calls, with a dense alpha from its baked
+  sigma and colour rows for the slots it colours. `dense_round` spreads
+  a round's rows over its (K, n) slots, as the vector rounds need them.
 None of these was a Pallas kernel: the TPU could not gather from its
 fast memory inside a kernel (docs/KERNELS.md section 2), so the JAX
 package left the loops to XLA. A GPU thread runs one ray's loop and
@@ -70,6 +73,8 @@ import torch
 from nerf_glasses_tpu_torch import constants as C
 from nerf_glasses_tpu_torch.ops import cuda_build
 from nerf_glasses_tpu_torch.ops import occupancy as occ_ops
+from nerf_glasses_tpu_torch.ops.network import (apply_density_activation,
+                                                apply_rgb_activation)
 from nerf_glasses_tpu_torch.utils.bbox import contains_aabb, ray_intersect_aabb
 
 _SOURCE = os.path.join(cuda_build.PKG, "csrc", "march.cu")
@@ -92,8 +97,12 @@ build_log = ""
 build_seconds = 0.0
 
 ROUTE_JUMP, ROUTE_DIST, ROUTE_DIST_MIPS, ROUTE_DDA = range(4)
-WALK_ADVANCE, WALK_SAMPLES = 1, 2
+WALK_ADVANCE, WALK_SAMPLES, WALK_INIT = 1, 2, 4
 STAGE_BLEND, STAGE_SAMPLES = 1, 2
+# ops/network.py's activations as the composite kernel takes them; the
+# colour's "exponential" clamps first (apply_rgb_activation)
+ACTIVATIONS = {"none": 0, "relu": 1, "logistic": 2, "exponential": 3}
+ACT_EXP_CLAMPED = 4
 
 
 class MarchParams(ctypes.Structure):
@@ -103,7 +112,8 @@ class MarchParams(ctypes.Structure):
                 ("max_cascade", ctypes.c_int), ("min_mip", ctypes.c_int),
                 ("iters", ctypes.c_int), ("skip_iters", ctypes.c_int),
                 ("steps", ctypes.c_int), ("deferred", ctypes.c_int),
-                ("stage", ctypes.c_int),
+                ("stage", ctypes.c_int), ("density_act", ctypes.c_int),
+                ("rgb_act", ctypes.c_int),
                 ("cone", ctypes.c_float), ("dt_min", ctypes.c_float),
                 ("dt_max", ctypes.c_float), ("t1", ctypes.c_float),
                 ("t2", ctypes.c_float), ("t1_end", ctypes.c_float),
@@ -122,8 +132,23 @@ _WALK_TENSORS = ("o", "d", "t", "t_start", "t_surf", "surf_a", "alive",
 
 class WalkArgs(ctypes.Structure):
     """csrc/march.cu's WalkArgs: the walk's tensors' device pointers (None
-    for the outputs a form does not write)."""
+    for what a form does not read or write)."""
     _fields_ = [(k, ctypes.c_void_p) for k in _WALK_TENSORS]
+
+
+_COMPOSITE_IN = ("rgba", "depth", "max_weight", "wn", "surf_a", "t", "alive",
+                 "surf", "t_surf", "t_end", "exited", "surf_stopped", "valid",
+                 "color", "ts", "dt", "alpha", "sigma", "rgb", "slots", "rows")
+_COMPOSITE_OUT = ("rgba", "depth", "max_weight", "wn", "surf_a", "alive")
+
+
+class CompositeArgs(ctypes.Structure):
+    """csrc/march.cu's CompositeArgs: the composite's tensors' device
+    pointers (None for what a stage or form does not read), the density
+    rows' stride and the number of rows."""
+    _fields_ = ([(k, ctypes.c_void_p) for k in _COMPOSITE_IN]
+                + [("sigma_stride", ctypes.c_longlong), ("m", ctypes.c_longlong)]
+                + [(k + "_out", ctypes.c_void_p) for k in _COMPOSITE_OUT])
 
 
 def load_library() -> ctypes.CDLL:
@@ -135,13 +160,11 @@ def load_library() -> ctypes.CDLL:
                                                              NVCC_FLAGS)
     p = ctypes.c_void_p
     i = ctypes.c_int
-    # each takes the parameters, the ray count, its tensors' pointers (the
-    # walk: one pointer to a WalkArgs) and the stream
+    # each takes the parameters, the ray count, one pointer to its
+    # tensors' pointers (a WalkArgs, a CompositeArgs) and the stream
     _lib = cuda_build.declare(lib, [
-        (name, [p, i] + [p] * (n_ptrs + 1), i)
-        for name, n_ptrs in (("nmr_march_walk", 1),
-                             ("nmr_march_init_walk", 11),
-                             ("nmr_march_composite", 22))])
+        (name, [p, i, p, p], i)
+        for name in ("nmr_march_walk", "nmr_march_composite")])
     return _lib
 
 
@@ -334,11 +357,12 @@ def _skip_probe(scene, pos, t, d, idir, dt, opts):
 # The plain versions of the loops
 # ---------------------------------------------------------------------------
 
-def init_walk_reference(o, d, t, t_surface, alive, scene, opts):
+def init_walk_reference(o, d, t, t_surface, alive, scene, opts,
+                        probes=None):
     """init_rays' bounded walk (opts.init_skip_iters probes) -> (t,
     alive): rays stop at their first occupied voxel, park at t_surface
     once past it, and leave the render aabb (a ray with a surface parks
-    at it, one without dies)."""
+    at it, one without dies). probes: as advance_reference's."""
     has_surface = t_surface > 0.0
     idir = 1.0 / d
     settled = ~alive
@@ -351,6 +375,8 @@ def init_walk_reference(o, d, t, t_surface, alive, scene, opts):
         newly_surface = ~settled & alive & at_surface
         newly_exit = ~settled & alive & ~at_surface & ~inside
         newly_hit = ~settled & alive & ~at_surface & inside & occ
+        if probes is not None:
+            probes += ~settled & alive & ~at_surface & inside
         t = torch.where(newly_surface | (newly_exit & has_surface),
                         t_surface, t)
         alive = alive & ~(newly_exit & ~has_surface)
@@ -469,11 +495,40 @@ def surface_blend_reference(st, rnd, opts):
             "alive": comp_alive & ~sat}
 
 
+def dense_round(rnd, opts):
+    """A round's network rows spread over its (K, n) slots -> (alpha (K,
+    n), rgb (K, n, 3)), 0 where a slot has no row: rnd["rgb"] (M, 3) and,
+    without a dense rnd["alpha"], rnd["sigma"] (M,) are the network's
+    pre-activation outputs, row j that of the flat slot rnd["slots"][j]
+    (torch.nonzero of rnd["color"], by default of rnd["valid"]); alpha is
+    1 - exp(-act(sigma) dt) with rnd["dt"] (K, n). The vector rounds'
+    colour and composite_reference's inputs."""
+    cfg = opts.config
+    valid = rnd["valid"]
+    K, n = valid.shape
+    sel = rnd["slots"]
+    rgb = torch.zeros((K, n, 3), device=valid.device)
+    alpha = rnd.get("alpha")
+    if alpha is None:
+        alpha = torch.zeros((K, n), device=valid.device)
+        if sel.numel():
+            sigma = apply_density_activation(rnd["sigma"],
+                                             cfg.density_activation)
+            alpha.view(-1)[sel] = 1.0 - torch.exp(
+                -sigma * rnd["dt"].reshape(-1)[sel])
+    if sel.numel():
+        rgb.view(-1, 3)[sel] = apply_rgb_activation(rnd["rgb"],
+                                                    cfg.rgb_activation)
+    return alpha, rgb
+
+
 def composite_reference(st, rnd, opts, stage: int = STAGE_BLEND | STAGE_SAMPLES):
     """A round's non-vector compositing -> {"rgba", "depth",
-    "max_weight", "wn", "surf_a", "alive"}. rnd holds the round's
-    samples (alpha, valid, ts (K, n), rgb (K, n, 3)) and its ends (t_end,
-    exited, surf_stopped (n,)). Stage STAGE_BLEND is the in-march surface
+    "max_weight", "wn", "surf_a", "alive"}. rnd holds the round's ends
+    (t_end, exited, surf_stopped (n,)) and, for STAGE_SAMPLES, its slots
+    (valid, ts (K, n)) and the network's rows as dense_round takes them
+    (rgb (M, 3); sigma (M,) with dt (K, n), or a dense alpha (K, n); an
+    optional color mask). Stage STAGE_BLEND is the in-march surface
     blend (surface_blend_reference); STAGE_SAMPLES the front-to-back loop
     over the K samples (composite_kernel_nerf) and the final surface
     blend of rays that ended (testbed.cu:886-897), on a state whose
@@ -487,7 +542,7 @@ def composite_reference(st, rnd, opts, stage: int = STAGE_BLEND | STAGE_SAMPLES)
     rgba, wn, comp_alive = out["rgba"], out["wn"], out["alive"]
     depth, max_w = out["depth"], out["max_weight"]
     valid = rnd["valid"] & st["alive"][None]
-    alpha_k, rgb_s, ts = rnd["alpha"], rnd["rgb"], rnd["ts"]
+    (alpha_k, rgb_s), ts = dense_round(rnd, opts), rnd["ts"]
     for k in range(alpha_k.shape[0]):
         use = comp_alive & valid[k]
         w = torch.where(use, alpha_k[k] * (1.0 - rgba[:, 3]), 0.0)
@@ -585,10 +640,6 @@ def _scene_args(scene, grid, device):
             _arg("local", scene["local"], torch.float32, (3, 3), device)]
 
 
-def _ptrs(*xs):
-    return [None if x is None else x.data_ptr() for x in xs]
-
-
 def _launch(name, fn, dev, params, n, *ptrs):
     """One kernel launch on dev's current stream, under dev: the library
     launches on the CUDA runtime's current device."""
@@ -602,21 +653,23 @@ def _launch(name, fn, dev, params, n, *ptrs):
 
 
 _STATE = ("o", "d", "t", "t_start", "t_surf", "surf_a", "alive")
+_INIT_STATE = ("o", "d", "t", "t_surf", "alive")
 
 
 def _walk(name, mode, dev, n, args, scene, opts, iters):
-    """The walk kernel in form `mode` (WALK_ADVANCE, WALK_SAMPLES or both)
-    on the checked state `args` (_STATE's order) on the card, one launch
-    counted under `name` -> {output name: tensor}: t_out, alive_out (n,)
-    with WALK_ADVANCE; with WALK_SAMPLES pos_k (K, n, 3), dt_k, valid_k,
-    ts_k (K, n), t_end, exited, stopped (n,)."""
+    """The walk kernel in form `mode` (WALK_ADVANCE, WALK_SAMPLES or both;
+    or WALK_INIT) on the checked state `args` (_STATE's order; _INIT_STATE's
+    for WALK_INIT) on the card, one launch counted under `name` ->
+    {output name: tensor}: t_out, alive_out (n,) with WALK_ADVANCE or
+    WALK_INIT; with WALK_SAMPLES pos_k (K, n, 3), dt_k, valid_k, ts_k (K,
+    n), t_end, exited, stopped (n,)."""
     K = opts.steps_per_round
     params, grid = _params(scene, opts, mode=mode, iters=int(iters),
                            skip_iters=int(opts.skip_iters), steps=K)
     f32 = dict(dtype=torch.float32, device=dev)
     b8 = dict(dtype=torch.bool, device=dev)
     out = {}
-    if mode & WALK_ADVANCE:
+    if mode & (WALK_ADVANCE | WALK_INIT):
         out.update(t_out=torch.empty(n, **f32), alive_out=torch.empty(n, **b8))
     if mode & WALK_SAMPLES:
         out.update(pos_k=torch.empty((K, n, 3), **f32),
@@ -625,7 +678,8 @@ def _walk(name, mode, dev, n, args, scene, opts, iters):
                    ts_k=torch.empty((K, n), **f32), t_end=torch.empty(n, **f32),
                    exited=torch.empty(n, **b8), stopped=torch.empty(n, **b8))
     if n:
-        tensors = dict(zip(_STATE + ("grid", "box_lo", "box_hi", "local"),
+        state = _INIT_STATE if mode == WALK_INIT else _STATE
+        tensors = dict(zip(state + ("grid", "box_lo", "box_hi", "local"),
                            args + _scene_args(scene, grid, dev)))
         tensors.update(out)
         walk = WalkArgs(**{k: tensors[k].data_ptr() if k in tensors else None
@@ -660,21 +714,17 @@ def init_walk(o, d, t, t_surface, alive, scene, opts):
     """init_rays' walk -> (t, alive), each (n,): o, d (n, 3) f32; t,
     t_surface (n,) f32; alive (n,) bool; at most opts.init_skip_iters
     probes (dt from the absolute t). On a CUDA tensor one launch of
-    nmr_march_init_walk."""
+    nmr_march_walk's init form."""
     dev, n, args = _ray_args("init_walk", {
         "o": o, "d": d, "t": t, "t_surf": t_surface, "alive": alive},
-        ("o", "d", "t", "t_surf", "alive"))
+        _INIT_STATE)
     if dev.type == "cpu":
         return init_walk_reference(o, d, t, t_surface, alive, scene, opts)
     iters = opts.init_skip_iters
     if n == 0 or iters <= 0:
         return args[2], args[4]
-    params, grid = _params(scene, opts, iters=int(iters))
-    t_out = torch.empty(n, dtype=torch.float32, device=dev)
-    alive_out = torch.empty(n, dtype=torch.bool, device=dev)
-    _launch("init_walk", load_library().nmr_march_init_walk, dev, params, n,
-            *_ptrs(*args, *_scene_args(scene, grid, dev), t_out, alive_out))
-    return t_out, alive_out
+    out = _walk("init_walk", WALK_INIT, dev, n, args, scene, opts, iters)
+    return out["t_out"], out["alive_out"]
 
 
 def samples(st, scene, opts):
@@ -709,26 +759,60 @@ def composite(st, rnd, opts, stage: int = STAGE_BLEND | STAGE_SAMPLES):
     "max_weight", "wn", "surf_a" (n,) f32, "alive" (n,) bool}, as
     composite_reference. st: rgba, surf (n, 4) f32; depth, max_weight,
     wn, surf_a, t, t_surf (n,) f32; alive (n,) bool. rnd: t_end (n,) f32,
-    exited, surf_stopped (n,) bool; with STAGE_SAMPLES also alpha, ts
-    (K, n) f32, valid (K, n) bool, rgb (K, n, 3) f32. On a CUDA tensor one
-    launch of nmr_march_composite."""
+    exited, surf_stopped (n,) bool; with STAGE_SAMPLES also valid (K, n)
+    bool, ts (K, n) f32 and the network's rows: rgb (M, 3) f32, one per
+    set slot of color ((K, n) bool; valid where absent), slots (M,) int64
+    the flat slot of each row (torch.nonzero of that mask), and either
+    sigma (M,) f32 (any stride: the density MLP's column 0) with dt (K,
+    n) f32, or a dense alpha (K, n) f32. On a CUDA tensor one call of
+    nmr_march_composite: the map from slots to rows (one scatter), then
+    the kernel, which applies the activations and alpha itself. Rows
+    that do not match the mask give a defined result there: a row whose
+    slot lies outside the K * n slots is left out (the plain version
+    raises), a slot of the mask with no row has alpha 0 (without a dense
+    alpha) and colour 0, as in the plain version."""
     dev, n, args = _ray_args("composite", st, (
         "rgba", "depth", "max_weight", "wn", "surf_a", "t", "alive", "surf",
         "t_surf"))
-    ends = [_arg(k, rnd[k], dt, (n,), dev) for k, dt in (
-        ("t_end", torch.float32), ("exited", torch.bool),
-        ("surf_stopped", torch.bool))]
+    tensors = dict(zip(_COMPOSITE_IN, args))
+    for k, dt in (("t_end", torch.float32), ("exited", torch.bool),
+                  ("surf_stopped", torch.bool)):
+        tensors[k] = _arg(k, rnd[k], dt, (n,), dev)
     K = 0
-    round_args = [None] * 4
+    sigma_stride = 0
     if stage & STAGE_SAMPLES:
-        K = rnd["alpha"].shape[0]
-        round_args = [_arg(k, rnd[k], dt, shape, dev) for k, dt, shape in (
-            ("alpha", torch.float32, (K, n)), ("valid", torch.bool, (K, n)),
-            ("ts", torch.float32, (K, n)), ("rgb", torch.float32, (K, n, 3)))]
+        K = rnd["valid"].shape[0]
+        for k, dt in (("valid", torch.bool), ("ts", torch.float32)):
+            tensors[k] = _arg(k, rnd[k], dt, (K, n), dev)
+        rgb = rnd["rgb"]
+        m = rgb.shape[0]
+        tensors["rgb"] = _arg("rgb", rgb, torch.float32, (m, 3), dev)
+        tensors["slots"] = _arg("slots", rnd["slots"], torch.int64, (m,), dev)
+        if "color" in rnd:
+            tensors["color"] = _arg("color", rnd["color"], torch.bool, (K, n),
+                                    dev)
+        if "alpha" in rnd:
+            tensors["alpha"] = _arg("alpha", rnd["alpha"], torch.float32,
+                                    (K, n), dev)
+        else:
+            sigma = rnd["sigma"]
+            if (sigma.dim() != 1 or sigma.shape[0] != m
+                    or sigma.dtype != torch.float32 or sigma.device != dev):
+                raise ValueError(f"sigma must be a float32 (M,) = ({m},) "
+                                 f"tensor on {dev}, got {sigma.dtype} "
+                                 f"{tuple(sigma.shape)} on {sigma.device}")
+            tensors["sigma"] = sigma
+            sigma_stride = sigma.stride(0)
+            tensors["dt"] = _arg("dt", rnd["dt"], torch.float32, (K, n), dev)
     if dev.type == "cpu":
         return composite_reference(st, rnd, opts, stage)
+    cfg = opts.config
     params = MarchParams(steps=K, deferred=int(opts.deferred_color),
                          stage=int(stage),
+                         density_act=ACTIVATIONS[cfg.density_activation],
+                         rgb_act=(ACT_EXP_CLAMPED
+                                  if cfg.rgb_activation == "exponential"
+                                  else ACTIVATIONS[cfg.rgb_activation]),
                          sat_alpha=np.float32(1.0 - opts.min_transmittance))
     f32 = dict(dtype=torch.float32, device=dev)
     out = {"rgba": torch.empty((n, 4), **f32),
@@ -736,8 +820,15 @@ def composite(st, rnd, opts, stage: int = STAGE_BLEND | STAGE_SAMPLES):
               for k in ("depth", "max_weight", "wn", "surf_a")},
            "alive": torch.empty(n, dtype=torch.bool, device=dev)}
     if n:
-        _launch("composite", load_library().nmr_march_composite, dev, params, n,
-                *_ptrs(*args, *ends, *round_args, *out.values()))
+        m = tensors["rgb"].shape[0] if K else 0
+        if m:
+            tensors["rows"] = torch.empty(K * n, dtype=torch.int32, device=dev)
+        ptrs = CompositeArgs(
+            **{k: tensors[k].data_ptr() if k in tensors else None
+               for k in _COMPOSITE_IN}, sigma_stride=sigma_stride, m=m,
+            **{k + "_out": v.data_ptr() for k, v in out.items()})
+        _launch("composite", load_library().nmr_march_composite, dev, params,
+                n, ctypes.addressof(ptrs))
     return out
 
 
@@ -786,7 +877,12 @@ def compare_with_plain(kind: str, out_k, out_p) -> dict:
     most max(4, ceil(1e-4 x rays)); where the flags agree, the t values
     lie at most one MAX_CONE_STEPSIZE apart. kind "composite" (dicts of
     composite's outputs): the alive masks differ on at most as many rays,
-    every float output within COMPOSITE_ATOL."""
+    every float output within COMPOSITE_ATOL. The composite kernel
+    departs from composite_reference in one case that this contract does
+    not excuse: a NaN colour row on a slot its loop does not use (the ray
+    saturated before it, or composites no more) leaves the ray's colour
+    alone, where the plain version's 0 weight times NaN turns it to
+    NaN."""
     if kind == "composite":
         n = out_p["alive"].shape[0]
         flag_diff = out_k["alive"] != out_p["alive"]

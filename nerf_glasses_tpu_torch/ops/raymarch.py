@@ -16,10 +16,11 @@ batch where the
 JAX package used fixed 4096-ray chunks; the network runs only on the
 round's valid samples (an invalid sample composites with weight 0 in
 both packages). The per-ray loops (init_rays' walk, the advance pass, a
-round's sequential samples and its non-vector composite) are
-ops/march_cuda.py's: a CUDA kernel each on the card, their plain
-versions on the CPU; the network, the compaction and the vector rounds
-stay PyTorch.
+round's sequential samples and its non-vector composite, which reads
+the network's rows where the network left them and applies the
+activations itself) are ops/march_cuda.py's: a CUDA kernel each on the
+card, their plain versions on the CPU; the network, the compaction and
+the vector rounds stay PyTorch.
 
 Mesh-surface gating, as in the reference: rays with a surface are
 revived at t_surface (testbed.cu:487-493); an opaque surface stops the
@@ -506,8 +507,12 @@ def _march_round(st, net: NerfNetwork, scene, opts: MarchOptions,
         gen = _vector_samples if opts.vector_rounds else march_cuda.samples
         generated = gen(st, scene, opts)
     (pos, dt_k, valid, ts), t_end, exited, surf_stopped = generated
-    valid = valid & alive[None]
-    rnd = {"t_end": t_end, "exited": exited, "surf_stopped": surf_stopped}
+    # the sequential walk's samples are valid on live rays only already;
+    # the vector rounds' are masked here
+    if opts.vector_rounds:
+        valid = valid & alive[None]
+    rnd = {"t_end": t_end, "exited": exited, "surf_stopped": surf_stopped,
+           "valid": valid, "ts": ts}
 
     # --- in-march surface blend, once before the round's samples, for
     # rays whose payload-t has crossed t_surface (testbed.cu:843-857). It
@@ -520,11 +525,11 @@ def _march_round(st, net: NerfNetwork, scene, opts: MarchOptions,
         rgba, wn = blended["rgba"], blended["wn"]
         surf_a, comp_alive = blended["surf_a"], blended["alive"]
 
-    # --- alpha and colour of the (K, n) samples ------------------------
+    # --- the network's rows: colour (and, unbaked, density) of the
+    # samples that need it, in slot order ---------------------------------
     pos01 = (pos - scene["train_min"]) / (scene["train_max"]
                                           - scene["train_min"])
     dir01 = ((d + 1.0) * 0.5)[None].expand(K, n, 3)
-    rgb_s = torch.zeros((K, n, 3), device=d.device)
     multi = cfg.max_cascade > 0
     if opts.use_baked_sigma:
         if multi:
@@ -543,10 +548,13 @@ def _march_round(st, net: NerfNetwork, scene, opts: MarchOptions,
         color = valid & (w_prosp > opts.sig_threshold)
         if opts.deferred_color:
             color = torch.zeros_like(color)   # coloured once per ray later
+        rnd.update(alpha=alpha_k, color=color)
     else:
-        alpha_k = torch.zeros((K, n), device=d.device)
         color = valid
+        rnd["dt"] = dt_k
     sel = torch.nonzero(color.reshape(-1)).squeeze(1)
+    rnd["slots"] = sel
+    rgb_raw, sigma_raw = d.new_empty((0, 3)), d.new_empty((0,))
     if sel.numel():
         p, dr = pos01.reshape(-1, 3)[sel], dir01.reshape(-1, 3)[sel]
         if opts.use_baked_sigma and opts.feat_color and "feat" in scene:
@@ -562,17 +570,13 @@ def _march_round(st, net: NerfNetwork, scene, opts: MarchOptions,
         else:
             rgb_raw, sigma_raw = net(p, dr, compute_dtype=opts.cdtype,
                                      extra=scene.get("extra_dims"))
-            if not opts.use_baked_sigma:
-                sigma = apply_density_activation(sigma_raw,
-                                                 cfg.density_activation)
-                alpha_k.view(-1)[sel] = 1.0 - torch.exp(
-                    -sigma * dt_k.reshape(-1)[sel])
-        rgb_s.view(-1, 3)[sel] = apply_rgb_activation(rgb_raw,
-                                                      cfg.rgb_activation)
+    rnd["rgb"] = rgb_raw
+    if not opts.use_baked_sigma:
+        rnd["sigma"] = sigma_raw
 
     if not opts.vector_rounds:
-        # front-to-back over the K samples, then the final surface blend
-        rnd.update(alpha=alpha_k, rgb=rgb_s, valid=valid, ts=ts)
+        # front-to-back over the K samples, then the final surface blend;
+        # the kernel reads the rows where the network left them
         if blend_first:
             out = march_cuda.composite({**st, **blended}, rnd, opts,
                                        march_cuda.STAGE_SAMPLES)
@@ -580,6 +584,7 @@ def _march_round(st, net: NerfNetwork, scene, opts: MarchOptions,
             out = march_cuda.composite(st, rnd, opts)
         return {**st, "t": t_end, **out}
 
+    alpha_k, rgb_s = march_cuda.dense_round(rnd, opts)
     # closed-form front-to-back compositing of the round's K samples:
     # w_i = alpha_i T0 prod_{j<i}(1 - alpha_j); samples after the first
     # one that pushes alpha past 1 - min_transmittance are blocked

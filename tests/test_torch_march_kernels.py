@@ -57,7 +57,9 @@ from nerf_glasses_tpu_torch import constants as C
 from nerf_glasses_tpu_torch.ops import march_cuda as mc
 from nerf_glasses_tpu_torch.ops import occupancy as tocc
 from nerf_glasses_tpu_torch.ops import raymarch as trm
-from nerf_glasses_tpu_torch.ops.network import params_from_jax
+from nerf_glasses_tpu_torch.ops.network import (apply_density_activation,
+                                                apply_rgb_activation,
+                                                params_from_jax)
 from tests.helpers import make_sphere_density
 from tests.test_multicascade import CFG4, make_cascaded_grid
 from tests.test_torch_march import _np_params, _tcfg
@@ -605,8 +607,34 @@ def _model_samples(P, box, st):
     return (pos_k, dt_k, valid_k, ts_k), t_end, exited_out, stopped_out
 
 
+def _act_rows(x, kind):
+    """activate() on every row at once, with torch's functions over the
+    whole array as the plain version applies them (aten's CPU sigmoid
+    rounds its vector and scalar paths apart)."""
+    x = torch.as_tensor(np.array(x))
+    if kind == mc.ACT_EXP_CLAMPED:
+        return apply_rgb_activation(x, "exponential").numpy()
+    name = {v: k for k, v in mc.ACTIVATIONS.items()}[kind]
+    return apply_density_activation(x, name).numpy()
+
+
 def _model_composite(P, st, rnd):
+    """composite_kernel: a slot the loop uses finds its row in the row
+    map (row_map_kernel's scatter of the rows' slots that lie inside the
+    round) and reads its alpha (dense, or 1 - exp(-sigma dt) from the
+    row's activated density and the slot's dt) and its activated colour;
+    a slot of the mask with no row reads alpha 0 (without a dense alpha)
+    and colour 0; one the loop does not use adds a weight of 0."""
     n = len(st["t"])
+    valid = rnd["valid"]
+    color = rnd.get("color", valid)
+    slots = np.asarray(rnd["slots"], np.int64)
+    inside = (slots >= 0) & (slots < valid.size)
+    rows = np.full(valid.size, -1, np.int64)
+    rows[slots[inside]] = np.nonzero(inside)[0]
+    rgb_rows = _act_rows(rnd["rgb"], P.rgb_act)
+    sigma_rows = (None if "alpha" in rnd
+                  else _act_rows(rnd["sigma"], P.density_act))
     out = {"rgba": np.zeros((n, 4), np.float32),
            **{k: np.zeros(n, np.float32)
               for k in ("depth", "max_weight", "wn", "surf_a")},
@@ -634,10 +662,22 @@ def _model_composite(P, st, rnd):
                     comp = False
         if P.stage & mc.STAGE_SAMPLES:
             for k in range(P.steps):
-                use = comp and bool(rnd["valid"][k, i]) and alive
-                w = F(rnd["alpha"][k, i]) * (F(1) - c[3]) if use else F(0)
-                c = [c[j] + F(rnd["rgb"][k, i, j]) * w for j in range(3)] \
-                    + [c[3] + w]
+                use = comp and bool(valid[k, i]) and alive
+                w, rgb = F(0), [F(0)] * 3
+                if use:
+                    row = int(rows[k * n + i])
+                    owns = bool(color[k, i]) and row >= 0
+                    alpha = F(0)
+                    if "alpha" in rnd:
+                        alpha = F(rnd["alpha"][k, i])
+                    elif owns:
+                        sig = F(sigma_rows[row])
+                        alpha = F(1) - _torch_fn(torch.exp,
+                                                 -sig * F(rnd["dt"][k, i]))
+                    if owns:
+                        rgb = [F(x) for x in rgb_rows[row]]
+                    w = alpha * (F(1) - c[3])
+                c = [c[j] + rgb[j] * w for j in range(3)] + [c[3] + w]
                 if P.deferred:
                     wn = wn + w
                 done = use and c[3] > P.sat_alpha
@@ -700,6 +740,81 @@ def test_model_walks_equal_plain(route, surface):
             "alive": a0.numpy()})
     _bits_equal(mt, t.numpy(), "init walk t")
     _bits_equal(ma, alive.numpy(), "init walk alive")
+
+
+def _odd_rays(n=2048, seed=7):
+    """Rays into the three-cascade scene with zero, tiny (normal, and
+    below 2^-100) and negative direction components, two components
+    equal (a tie between quotients), and surfaces before the box, inside
+    it and behind it -> numpy (o, d, t_surf)."""
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-1.4, 2.4, (n, 3)).astype(np.float32)
+    d = rng.normal(0, 1, (n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    d = d.astype(np.float32)
+    q = n // 8
+    d[:q, 0] = 0.0                                   # a zero component
+    d[q:2 * q, 1] = np.float32(1e-8)                 # tiny, normal
+    d[2 * q:3 * q, 2] = -np.float32(2.0 ** -110)     # below 2^-100
+    d[3 * q:4 * q, 1] = d[3 * q:4 * q, 0]            # a tie
+    d[4 * q:4 * q + 8] = np.eye(3, dtype=np.float32)[[0, 1, 2, 0, 1, 2, 0, 1]]
+    d[4 * q + 8:4 * q + 16] *= -1
+    t_surf = np.zeros(n, np.float32)
+    kind = rng.integers(0, 4, n)                     # none, before, in, behind
+    t_surf[kind == 1] = rng.uniform(0.01, 0.2, (kind == 1).sum())
+    t_surf[kind == 2] = rng.uniform(0.5, 3.0, (kind == 2).sum())
+    t_surf[kind == 3] = rng.uniform(6.0, 9.0, (kind == 3).sum())
+    return o, d, t_surf
+
+
+def test_model_init_walk_equals_plain_on_odd_rays():
+    """The init walk's form of the walk kernel on the clearance pyramid
+    against the plain version bit for bit on rays with zero, tiny and
+    negative direction components and surfaces before, inside and behind
+    the box; and the advance from there."""
+    _, tscene = _scenes(True)
+    _, topts = _options("dist_mips")
+    o, d, t_surf = _odd_rays()
+    to, td, tts = (torch.as_tensor(x) for x in (o, d, t_surf))
+    t0, t_start, a0 = trm.init_rays(
+        tscene, to, td, tts, dataclasses.replace(topts, init_skip_iters=0))
+    t, alive = mc.init_walk_reference(to, td, t0, tts, a0, tscene, topts)
+    params, grid = mc._params(tscene, topts, iters=topts.init_skip_iters)
+    box = _box(tscene)
+    with np.errstate(all="ignore"):
+        mt, ma = _model_init_walk(_P(params, grid), box, {
+            "o": o, "d": d, "t": t0.numpy(), "t_surf": t_surf,
+            "alive": a0.numpy()})
+    _bits_equal(mt, t.numpy(), "init walk t")
+    _bits_equal(ma, alive.numpy(), "init walk alive")
+    assert (t.numpy() != t0.numpy()).sum() > len(t) // 4
+    surf = np.zeros((len(o), 4), np.float32)
+    surf[:, 3] = np.where(t_surf > 0, 1.0, 0.0)
+    st = _state(o, d, surf, t_surf, t.numpy(), t_start.numpy(), alive.numpy())
+    want = mc.advance_reference(_torch(st), tscene, topts, 48)
+    params, grid = mc._params(tscene, topts, iters=48)
+    with np.errstate(all="ignore"):
+        got = _model_advance(_P(params, grid), box, st)
+    _bits_equal(got[0], want[0].numpy(), "advance t")
+    _bits_equal(got[1], want[1].numpy(), "advance alive")
+
+
+def test_network_rows_in_either_order():
+    """The network gives a row the same bits wherever it lies in the
+    batch (its rows are independent): the composite may read the rows in
+    slot order whatever order a caller evaluates them in."""
+    net = params_from_jax(_np_params(init_params(jax.random.PRNGKey(2), JC1)),
+                          _tcfg(JC1))
+    rng = np.random.default_rng(4)
+    p = torch.as_tensor(rng.uniform(0, 1, (4099, 3)).astype(np.float32))
+    dr = torch.as_tensor(rng.uniform(0, 1, (4099, 3)).astype(np.float32))
+    perm = torch.as_tensor(rng.permutation(4099))
+    for cdtype in (torch.float32, torch.bfloat16):
+        rgb, sigma = net(p, dr, compute_dtype=cdtype)
+        rgb_p, sigma_p = net(p[perm], dr[perm], compute_dtype=cdtype)
+        _bits_equal(rgb_p.numpy(), rgb[perm].numpy(), "rgb")
+        _bits_equal(sigma_p.contiguous().numpy(),
+                    sigma[perm].contiguous().numpy(), "sigma")
 
 
 def _advanced(route, surface):
@@ -774,37 +889,57 @@ def test_division_by_a_power_of_two_is_the_product_with_its_reciprocal(k):
     assert mc._pow2_reciprocal(F(3.0)) == 0 and mc._pow2_reciprocal(0.0) == 0
 
 
-def _round_inputs(route, surface, seed=3):
-    """A state after the advance pass and a round's samples, with seeded
-    alpha and colour (some alpha near 1 so that rays saturate) -> numpy
-    (state, round)."""
+def _round_inputs(route, surface, seed=3, form="network"):
+    """A state after the advance pass and a round's samples, with the
+    network's rows seeded (raw density and colour for every valid slot,
+    densities high enough on some slots that rays saturate; the density
+    rows a column of an (M, 16) array, as the density MLP leaves them) or,
+    with form "baked", a dense alpha and colour rows for a random part of
+    the valid slots -> numpy (state, round)."""
     st, topts, tscene = _advanced(route, surface)
     (pos, dt, valid, ts), t_end, exited, stopped = mc.samples_reference(
         _torch(st), tscene, topts)
     rng = np.random.default_rng(seed)
+    valid = (valid & torch.as_tensor(st["alive"])[None]).numpy()
     K, n = valid.shape
-    alpha = rng.uniform(0, 1, (K, n)) ** 3
-    alpha[rng.uniform(size=(K, n)) < 0.05] = 0.999
     rnd = {"t_end": t_end.numpy(), "exited": exited.numpy(),
-           "surf_stopped": stopped.numpy(),
-           "valid": (valid & torch.as_tensor(st["alive"])[None]).numpy(),
-           "ts": ts.numpy(), "alpha": alpha.astype(np.float32),
-           "rgb": rng.uniform(0, 1, (K, n, 3)).astype(np.float32)}
+           "surf_stopped": stopped.numpy(), "valid": valid, "ts": ts.numpy()}
+    if form == "baked":
+        alpha = rng.uniform(0, 1, (K, n)) ** 3
+        alpha[rng.uniform(size=(K, n)) < 0.05] = 0.999
+        rnd["alpha"] = np.where(valid, alpha, 0).astype(np.float32)
+        rnd["color"] = valid & (rng.uniform(size=(K, n)) < 0.6)
+        m = int(rnd["color"].sum())
+    else:
+        m = int(valid.sum())
+        raw = rng.normal(0, 1, (m, 16)).astype(np.float32)
+        raw[:, 0] = rng.uniform(-3, 9, m)
+        raw[rng.uniform(size=m) < 0.05, 0] = 12.0
+        rnd["sigma"], rnd["dt"] = raw[:, 0], dt.numpy()
+    rnd["rgb"] = rng.normal(0, 2, (m, 3)).astype(np.float32)
+    rnd["slots"] = np.nonzero(rnd.get("color", valid).reshape(-1))[0]
     return st, rnd, topts
 
 
-@pytest.mark.parametrize("deferred", [False, True], ids=["colour", "deferred"])
-@pytest.mark.parametrize("stage", ["all", "blend", "samples"])
-@pytest.mark.parametrize("route", ["jump", "dist_mips"])
-def test_model_composite_equals_plain(route, stage, deferred):
-    st, rnd, topts = _round_inputs(route, True)
-    topts = dataclasses.replace(topts, deferred_color=deferred)
-    code = {"all": mc.STAGE_BLEND | mc.STAGE_SAMPLES,
-            "blend": mc.STAGE_BLEND, "samples": mc.STAGE_SAMPLES}[stage]
+def _composite_params(rnd, topts, code):
+    cfg = topts.config
+    return mc.MarchParams(
+        steps=rnd["valid"].shape[0], deferred=topts.deferred_color,
+        stage=code, density_act=mc.ACTIVATIONS[cfg.density_activation],
+        rgb_act=(mc.ACT_EXP_CLAMPED if cfg.rgb_activation == "exponential"
+                 else mc.ACTIVATIONS[cfg.rgb_activation]),
+        sat_alpha=F(1 - topts.min_transmittance))
+
+
+STAGES = {"all": mc.STAGE_BLEND | mc.STAGE_SAMPLES, "blend": mc.STAGE_BLEND,
+          "samples": mc.STAGE_SAMPLES}
+
+
+def _check_model_composite(st, rnd, topts, stage):
+    code = STAGES[stage]
     want = mc.composite_reference(_torch(st), _torch(rnd), topts, code)
-    params = mc.MarchParams(steps=rnd["alpha"].shape[0], deferred=deferred,
-                            stage=code, sat_alpha=F(1 - topts.min_transmittance))
-    P = _P(params, torch.zeros(1, dtype=torch.uint8))
+    P = _P(_composite_params(rnd, topts, code),
+           torch.zeros(1, dtype=torch.uint8))
     got = _model_composite(P, st, rnd)
     for k in ("rgba", "depth", "max_weight", "wn", "surf_a", "alive"):
         _bits_equal(got[k], want[k].numpy(), k)
@@ -814,6 +949,213 @@ def test_model_composite_equals_plain(route, stage, deferred):
     if code & mc.STAGE_SAMPLES:
         assert (~got["alive"] & st["alive"]).any()
         assert (got["depth"] != st["depth"]).any()
+
+
+@pytest.mark.parametrize("deferred", [False, True], ids=["colour", "deferred"])
+@pytest.mark.parametrize("stage", ["all", "blend", "samples"])
+@pytest.mark.parametrize("route", ["jump", "dist_mips"])
+def test_model_composite_equals_plain(route, stage, deferred):
+    """The composite kernel's loop on the network's rows (raw density and
+    colour, activated in the kernel) equals the plain version bit for
+    bit."""
+    st, rnd, topts = _round_inputs(route, True)
+    _check_model_composite(
+        st, rnd, dataclasses.replace(topts, deferred_color=deferred), stage)
+
+
+@pytest.mark.parametrize("deferred", [False, True], ids=["colour", "deferred"])
+@pytest.mark.parametrize("stage", ["all", "blend", "samples"])
+def test_model_composite_baked_form_equals_plain(stage, deferred):
+    """The baked round's form: a dense alpha, colour rows on a part of
+    the valid slots (the colour mask), the rest adding alpha alone."""
+    st, rnd, topts = _round_inputs("dist_mips", True, form="baked")
+    _check_model_composite(
+        st, rnd, dataclasses.replace(topts, deferred_color=deferred), stage)
+
+
+@pytest.mark.parametrize("kinds", [("relu", "exponential"), ("none", "relu"),
+                                   ("logistic", "none")],
+                         ids=["relu-exp", "none-relu", "logistic-none"])
+def test_model_composite_takes_every_activation(kinds):
+    """The kernel's activations of the density and the colour, each kind
+    of ops/network.py, against the plain version's."""
+    st, rnd, topts = _round_inputs("jump", True)
+    cfg = dataclasses.replace(topts.config, density_activation=kinds[0],
+                              rgb_activation=kinds[1])
+    _check_model_composite(st, rnd, dataclasses.replace(topts, config=cfg),
+                           "samples")
+
+
+def _mismatched_rows(rnd, seed=5):
+    """The network form's rows made not to match the valid mask: a tenth
+    of the valid slots lose their row, 50 rows sit on slots outside the
+    mask, the rows shuffled -> (those rows, the same with 4 more rows whose
+    slots lie outside the round: K * n, K * n + 7, 2^40 and -1)."""
+    rng = np.random.default_rng(seed)
+    valid = rnd["valid"]
+    m = len(rnd["slots"])
+    keep = rng.uniform(size=m) >= 0.1
+    extra = rng.choice(np.nonzero(~valid.reshape(-1))[0], 50, replace=False)
+    slots = np.concatenate([rnd["slots"][keep], extra])
+    sigma = np.concatenate([rnd["sigma"][keep],
+                            rng.uniform(-3, 9, 50)]).astype(np.float32)
+    rgb = np.concatenate([rnd["rgb"][keep],
+                          rng.normal(0, 2, (50, 3))]).astype(np.float32)
+    perm = rng.permutation(len(slots))
+    inside = {**rnd, "slots": slots[perm], "sigma": sigma[perm],
+              "rgb": rgb[perm]}
+    outside = np.array([valid.size, valid.size + 7, 2 ** 40, -1])
+    bad = {**inside,
+           "slots": np.concatenate([inside["slots"], outside]),
+           "sigma": np.concatenate([inside["sigma"],
+                                    np.full(4, 5.0, np.float32)]),
+           "rgb": np.concatenate([inside["rgb"],
+                                  np.full((4, 3), 1.0, np.float32)])}
+    return bad, inside
+
+
+def test_model_composite_takes_rows_that_do_not_match_the_mask():
+    """Rows that do not match the valid mask give the kernel a defined
+    result: a valid slot with no row adds nothing (the plain version's
+    zeros), a row on a slot outside the mask is not read, and one whose
+    slot lies outside the round is left out, where the plain version
+    raises."""
+    st, rnd, topts = _round_inputs("jump", True)
+    bad, inside = _mismatched_rows(rnd)
+    code = STAGES["samples"]
+    want = mc.composite_reference(_torch(st), _torch(inside), topts, code)
+    P = _P(_composite_params(rnd, topts, code),
+           torch.zeros(1, dtype=torch.uint8))
+    for rows in (inside, bad):
+        got = _model_composite(P, st, rows)
+        for k in ("rgba", "depth", "max_weight", "wn", "surf_a", "alive"):
+            _bits_equal(got[k], want[k].numpy(), k)
+    assert not all(torch.equal(want[k], v) for k, v in mc.composite_reference(
+        _torch(st), _torch(rnd), topts, code).items())
+    with pytest.raises(IndexError):
+        mc.composite_reference(_torch(st), _torch(
+            {**bad, **{k: v[:-1] for k, v in bad.items()
+                       if k in ("slots", "sigma", "rgb")}}), topts, code)
+
+
+def _nan_on_last_slots(rnd):
+    """rnd with the colour row of each ray's last valid slot set to NaN ->
+    (that round, the rays planted)."""
+    valid = rnd["valid"]
+    K, n = valid.shape
+    planted = valid.any(axis=0)
+    last = K - 1 - np.argmax(valid[::-1], axis=0)
+    slot = last * n + np.arange(n)
+    rows = np.searchsorted(rnd["slots"], slot[planted])
+    rgb = rnd["rgb"].copy()
+    rgb[rows] = np.nan
+    return {**rnd, "rgb": rgb}, planted
+
+
+def test_model_composite_leaves_a_nan_row_on_an_unused_slot_alone():
+    """The kernel's one departure from composite_reference: a NaN colour
+    row on a slot its loop does not use (here the last valid slot of a
+    ray that saturated before it) leaves the ray's colour as it was, where
+    the plain version's 0 weight times NaN turns it to NaN; a NaN row on
+    a slot the loop uses gives NaN in both, and every other ray is bit for
+    bit the plain version's."""
+    st, rnd, topts = _round_inputs("jump", True)
+    code = STAGES["samples"]
+    P = _P(_composite_params(rnd, topts, code),
+           torch.zeros(1, dtype=torch.uint8))
+    clean = _model_composite(P, st, rnd)
+    nan_rnd, planted = _nan_on_last_slots(rnd)
+    got = _model_composite(P, st, nan_rnd)
+    want = mc.composite_reference(_torch(st), _torch(nan_rnd), topts, code)
+    want_rgb = want["rgba"].numpy()[:, :3]
+    assert np.isnan(want_rgb[planted]).all()
+    nan_got = np.isnan(got["rgba"][:, :3]).any(axis=1)
+    spared = planted & ~nan_got
+    assert spared.any() and nan_got.any()
+    _bits_equal(got["rgba"][spared], clean["rgba"][spared], "spared rays")
+    assert np.isnan(got["rgba"][nan_got, :3]).all()
+    _bits_equal(got["rgba"][~planted], want["rgba"].numpy()[~planted],
+                "other rays")
+    for k in ("depth", "max_weight", "wn", "surf_a", "alive"):
+        _bits_equal(got[k], want[k].numpy(), k)
+
+
+def _old_composite_reference(st, rnd, opts, stage):
+    """The composite's plain version before the kernel read the network's
+    rows: dense alpha (K, n) and rgb (K, n, 3), post-activation."""
+    out = {k: st[k] for k in ("rgba", "depth", "max_weight", "wn", "surf_a",
+                              "alive")}
+    if stage & mc.STAGE_BLEND:
+        out.update(mc.surface_blend_reference(st, rnd, opts))
+    if not stage & mc.STAGE_SAMPLES:
+        return out
+    rgba, wn, comp_alive = out["rgba"], out["wn"], out["alive"]
+    depth, max_w = out["depth"], out["max_weight"]
+    valid = rnd["valid"] & st["alive"][None]
+    alpha_k, rgb_s, ts = rnd["alpha"], rnd["rgb"], rnd["ts"]
+    for k in range(alpha_k.shape[0]):
+        use = comp_alive & valid[k]
+        w = torch.where(use, alpha_k[k] * (1.0 - rgba[:, 3]), 0.0)
+        rgba = rgba + torch.cat([rgb_s[k] * w[:, None], w[:, None]], dim=-1)
+        if opts.deferred_color:
+            wn = wn + w
+        done = use & (rgba[:, 3] > 1.0 - opts.min_transmittance)
+        upd = w > max_w
+        max_w = torch.where(upd, w, max_w)
+        depth = torch.where(upd & use, ts[k], depth)
+        inv = torch.where(done, 1.0 / torch.clamp(rgba[:, 3], min=1e-9), 1.0)
+        rgba = rgba * inv[:, None]
+        if opts.deferred_color:
+            wn = wn * inv
+        comp_alive = comp_alive & ~done
+    terminated_early = rnd["exited"] | rnd["surf_stopped"]
+    fin = comp_alive & terminated_early & (out["surf_a"] > 0.0)
+    rgba = torch.where(fin[:, None],
+                       rgba + st["surf"] * (1.0 - rgba[:, 3:4]), rgba)
+    return {**out, "rgba": rgba, "depth": depth, "max_weight": max_w,
+            "wn": wn, "alive": comp_alive & ~terminated_early}
+
+
+def _aten_tail(rnd, opts):
+    """The sequential round's steps between the network and the composite
+    before the kernel read the rows: zero-filled dense alpha and colour,
+    the dt gather, the activations and the alpha chain, two index_puts."""
+    cfg = opts.config
+    valid = rnd["valid"]
+    K, n = valid.shape
+    color = rnd.get("color", valid)
+    sel = torch.nonzero(color.reshape(-1)).squeeze(1)
+    rgb_s = torch.zeros((K, n, 3))
+    if "alpha" in rnd:
+        alpha_k = rnd["alpha"]
+    else:
+        alpha_k = torch.zeros((K, n))
+        sigma = apply_density_activation(rnd["sigma"],
+                                             cfg.density_activation)
+        alpha_k.view(-1)[sel] = 1.0 - torch.exp(
+            -sigma * rnd["dt"].reshape(-1)[sel])
+    rgb_s.view(-1, 3)[sel] = apply_rgb_activation(rnd["rgb"],
+                                                      cfg.rgb_activation)
+    return {**rnd, "alpha": alpha_k, "rgb": rgb_s}
+
+
+@pytest.mark.parametrize("form", ["network", "baked"])
+@pytest.mark.parametrize("deferred", [False, True], ids=["colour", "deferred"])
+@pytest.mark.parametrize("stage", ["all", "blend", "samples"])
+def test_composite_reference_is_the_old_one_after_the_aten_tail(stage,
+                                                                deferred,
+                                                                form):
+    """composite_reference on the network's rows equals, bit for bit, the
+    former plain version on the dense alpha and colour that the round's
+    aten ops made from the same rows."""
+    st, rnd, topts = _round_inputs("dist_mips", True, form=form)
+    topts = dataclasses.replace(topts, deferred_color=deferred)
+    tst, trnd = _torch(st), _torch(rnd)
+    want = _old_composite_reference(tst, _aten_tail(trnd, topts), topts,
+                                    STAGES[stage])
+    got = mc.composite_reference(tst, trnd, topts, STAGES[stage])
+    for k in ("rgba", "depth", "max_weight", "wn", "surf_a", "alive"):
+        _bits_equal(got[k].numpy(), want[k].numpy(), k)
 
 
 # ---------------------------------------------------------------------------
@@ -873,8 +1215,16 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
                      tst["alive"], tscene, topts)
     st, rnd, topts = _round_inputs("jump", False)
     trnd = _torch(rnd)
-    for k, v in (("alpha", trnd["alpha"][:, :-1]), ("valid", trnd["alpha"]),
-                 ("rgb", trnd["rgb"][..., :2]), ("exited", trnd["t_end"])):
+    for k, v in (("dt", trnd["dt"][:, :-1]), ("valid", trnd["dt"]),
+                 ("rgb", trnd["rgb"][..., :2]), ("exited", trnd["t_end"]),
+                 ("sigma", trnd["sigma"][:-1]), ("sigma", trnd["rgb"]),
+                 ("ts", trnd["ts"].double()),
+                 ("slots", trnd["slots"].int())):
+        with pytest.raises(ValueError):
+            mc.composite(_torch(st), {**trnd, k: v}, topts)
+    st, rnd, topts = _round_inputs("jump", False, form="baked")
+    trnd = _torch(rnd)
+    for k, v in (("alpha", trnd["alpha"][:, :-1]), ("color", trnd["alpha"])):
         with pytest.raises(ValueError):
             mc.composite(_torch(st), {**trnd, k: v}, topts)
 
@@ -958,14 +1308,54 @@ def test_walk_and_sample_kernels_match_plain_on_card(route, surface):
 @pytest.mark.parametrize("deferred", [False, True], ids=["colour", "deferred"])
 @pytest.mark.parametrize("stage", [3, 1, 2], ids=["all", "blend", "samples"])
 def test_composite_kernel_matches_plain_on_card(stage, deferred):
+    """The composite on the network's rows (the density rows a column of
+    an (M, 16) tensor, as the density MLP leaves them) and in the baked
+    form, against the plain version on the card."""
     _needs_card()
-    st, rnd, topts = _round_inputs("dist_mips", True)
-    topts = dataclasses.replace(topts, deferred_color=deferred)
-    cst, crnd = _card(_torch(st)), _card(_torch(rnd))
-    r = mc.compare_with_plain("composite",
-                              mc.composite(cst, crnd, topts, stage),
-                              mc.composite_reference(cst, crnd, topts, stage))
+    for form in ("network", "baked"):
+        st, rnd, topts = _round_inputs("dist_mips", True, form=form)
+        topts = dataclasses.replace(topts, deferred_color=deferred)
+        cst, crnd = _card(_torch(st)), _card(_torch(rnd))
+        if form == "network":
+            m = crnd["sigma"].shape[0]
+            wide = torch.zeros((m, 16), device="cuda")
+            wide[:, 0] = crnd["sigma"]
+            crnd["sigma"] = wide[:, 0]
+        before = mc.launches["composite"]
+        got = mc.composite(cst, crnd, topts, stage)
+        torch.cuda.synchronize()
+        assert mc.launches["composite"] == before + 1
+        r = mc.compare_with_plain(
+            "composite", got, mc.composite_reference(cst, crnd, topts, stage))
+        assert r["ok"], (form, r)
+
+
+@pytest.mark.cuda
+def test_composite_kernel_takes_rows_that_do_not_match_the_mask_on_card():
+    """Rows that do not match the valid mask (_mismatched_rows: slots with
+    no row, rows on slots outside the mask, rows whose slots lie outside
+    the round) launch without a fault and give the plain version's result
+    on the rows inside the round, under the contract; and a NaN colour
+    row on a slot the loop does not use leaves the ray's colour as the
+    clean round's."""
+    _needs_card()
+    st, rnd, topts = _round_inputs("jump", True)
+    bad, inside = _mismatched_rows(rnd)
+    cst = _card(_torch(st))
+    code = STAGES["samples"]
+    got = mc.composite(cst, _card(_torch(bad)), topts, code)
+    torch.cuda.synchronize()
+    r = mc.compare_with_plain("composite", got, mc.composite_reference(
+        cst, _card(_torch(inside)), topts, code))
     assert r["ok"], r
+    clean = mc.composite(cst, _card(_torch(rnd)), topts, code)
+    nan_rnd, planted = _nan_on_last_slots(rnd)
+    got = mc.composite(cst, _card(_torch(nan_rnd)), topts, code)
+    torch.cuda.synchronize()
+    nan_got = torch.isnan(got["rgba"][:, :3]).any(dim=1).cpu().numpy()
+    spared = torch.as_tensor(planted & ~nan_got, device="cuda")
+    assert bool(spared.any())
+    assert torch.equal(got["rgba"][spared], clean["rgba"][spared])
 
 
 @pytest.mark.cuda
@@ -997,6 +1387,31 @@ def test_fused_walk_equals_advance_then_samples_on_card(route, surface):
     r = mc.compare_with_plain("advance_samples", ((t, alive), got),
                               ((t_p, alive_p), plain))
     assert r["ok"], r
+
+
+@pytest.mark.cuda
+def test_init_walk_kernel_matches_plain_on_odd_rays_on_card():
+    """The init form of the walk kernel on rays with zero, tiny and
+    negative direction components, on the clearance pyramid and the
+    per-voxel DDA, against the card's plain version under the contract
+    (not the CPU's bits: the pyramid's ladder takes log and exp, whose
+    CPU and card versions round apart)."""
+    _needs_card()
+    _, tscene = _scenes(True)
+    cscene = _card_scene(tscene)
+    o, d, t_surf = (torch.as_tensor(x) for x in _odd_rays())
+    for route in ("dist_mips", "dda"):
+        _, topts = _options(route)
+        t0, _, a0 = trm.init_rays(
+            tscene, o, d, t_surf, dataclasses.replace(topts, init_skip_iters=0))
+        args = [x.to("cuda") for x in (o, d, t0, t_surf, a0)]
+        before = mc.launches["init_walk"]
+        got = mc.init_walk(*args, cscene, topts)
+        torch.cuda.synchronize()
+        assert mc.launches["init_walk"] == before + 1
+        r = mc.compare_with_plain("walk", got, mc.init_walk_reference(
+            *args, cscene, topts))
+        assert r["ok"], (route, r)
 
 
 @pytest.mark.cuda
