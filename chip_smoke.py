@@ -51,15 +51,16 @@ procedural glasses glTF written here) + frame(), with the mesh pass at
      finite, the head covers a plausible share, mesh pixels are present
      and the kernel was launched by the frames (its launch count is
      zeroed just before and read just after), and so were the march
-     kernels (the fused advance + samples once an epoch, the advance and
-     the samples alone no time, the composite), the fused encode + density
-     MLP and the rgb head, with the
+     kernels (the list forms, walk_list and composite_list, once an epoch;
+     the gathered epoch's advance, samples, fused walk and composite no
+     time), the fused encode + density MLP and the rgb head, with the
      standalone encode and MLP launched no time (at the bf16 compute dtype
      the fused kernel serves every density call) and no network call on
      the card taking a plain version (network_cuda.plain_on_card stays 0;
      phases 8, 14, 17, 20, 23 and 24 check the same on their renders,
      queries, sweep, collide and bakes); then one frame with two rounds an
-     epoch, which launches the samples alone for the second;
+     epoch, which launches the list walk's samples form for the second
+     (two list walks and two list composites an epoch);
  4b. one such frame at the f32 compute dtype: the standalone encode and
      MLP kernels and the rgb head launched, the fused kernel not; the
      standalone encode's and MLP's first-epoch calls recorded from the
@@ -68,9 +69,18 @@ procedural glasses glTF written here) + frame(), with the mesh pass at
   5. one frame with the plain ray-cast in the kernel's place: >= 50 dB
      PSNR against the kernel's frame at the same sample index;
  5b. the march kernels (csrc/march.cu) on the first epoch of an exact
-     720p frame, its inputs recorded from the frame's own calls (the fused
-     advance + samples and the composite; the advance alone and the
-     samples alone on the fused call's inputs; and on the same state with
+     720p frame, its inputs recorded from the frame's own calls: the list
+     forms (walk_list, composite_list) against their plain versions under
+     the contract, bit for bit per ray the gathered epoch's kernels on the
+     gathered copy of the same epoch (this tree's, and each DIR's), the
+     composite's next list exactly the rays it left alive, device ms (L2
+     flushed, the arrays they write given back before each call) in turns
+     with the gathered kernels, their bound (ids, the frame's state read
+     through them, the rows, a first row and slot bits an entry:
+     list_bound); then the gathered
+     epoch's kernels on that gathered copy (the fused advance + samples
+     and the composite; the advance alone and the samples alone on the
+     fused call's inputs; and on the same state with
      options that reach the clearance grid, the per-voxel DDA and the jump
      grid under cone steps): the fused call bit for bit the advance
      followed by the samples, beside that pair's device time; how the
@@ -92,9 +102,17 @@ procedural glasses glTF written here) + frame(), with the mesh pass at
      swaps the ray-cast: >= 60 dB from the kernels' frame at the same
      sample index; both frames' device operations and wall ms under
      torch.profiler and their host clock untraced, in this one call; the
-     kernels' frame under 10,000 device operations. Phase 4's frames
-     launched the advance, samples and composite kernels (counts zeroed
-     just before, read just after);
+     kernels' frame under 10,000 device operations; then the list route's
+     report (list_route_report): two frames at one sample index equal bit
+     for bit, one frame's device operations, busy and wall ms, Memcpy
+     DtoH (under 30) and HtoD copies and stream waits, the march's alone
+     on the frame's own inputs (at most 2 host reads an epoch and 1 a
+     frame; at most 5 device operations for each epoch after the first:
+     the list walk, the network's two kernels, the list composite, the
+     host read), no standalone row map, no plain network version on the
+     card; with a DIR that is a whole checkout, the same frame's
+     operations, busy and wall ms, DtoH and stream waits of each checkout
+     in turns (frame_ops_in_turns);
  5c. the network kernels of the bf16 frame (csrc/network.cu: the fused
      encode + density MLP, SH + rgb head) on the same frame's first-epoch
      network call, its inputs recorded from the wrappers' own calls; the
@@ -141,7 +159,9 @@ procedural glasses glTF written here) + frame(), with the mesh pass at
      Testbed with flash off (baked sigma, sequential rounds: the fused
      advance + samples, and the composite's two stages as two calls),
      recorded from the frames' own calls, each against its plain version
-     as in 5b;
+     as in 5b; neither launched a list form (the baked and vector routes
+     keep the gathered epoch); one more flash-off frame with two rounds an
+     epoch launches the samples alone for the second;
   9. the single-program hybrid frame (render_hybrid_sharded, n_shards=1)
      with that Testbed's flash options and scene: the untiled kernel
      launched, the frame finite and >= 40 dB from the renderer's flash
@@ -222,12 +242,15 @@ on every ray's path:
  23. the exact hybrid frame of that snapshot with the glasses: 1 warm-up +
      3 timed frames, epochs, the tiled kernel's launches (zeroed just
      before, read just after: one per frame) and the march kernels' (the
-     init walk, the fused advance + samples and the composite launched,
-     the advance and the samples alone not), peak memory; dist_advance is on and
+     init walk and the list forms launched, the gathered epoch's kernels
+     not), peak memory; dist_advance is on and
      the scene carries the clearance pyramid;
-23b. phase 5b on that frame: the march kernels on the clearance
-     pyramid's route (and the multi-cascade per-voxel DDA with its cone
-     loop) against their plain versions, the init walk's scaling (device
+23b. phase 5b on that frame: the list forms and the march kernels on
+     the clearance pyramid's route (and the multi-cascade per-voxel DDA
+     with its cone loop) against their plain versions, the list route's
+     report (its epochs' operations bounded as in 5b) and, with a
+     whole-checkout DIR,
+     the frame of each checkout in turns; the init walk's scaling (device
      ms on 1/8-1 of its rays and at caps of 4, 8 and 16 probes, probes a
      ray), the plain-march frame >= 60 dB,
      both frames' device operations and ms; and phase 5c: the network
@@ -313,7 +336,7 @@ by parallel.sharding.run_on_mesh, whose rank bodies are this file's
      max |g| (phase 16's bar), the card's ranks equal.
 Each phase prints its seconds.
 
-Prints one JSON line with the eleven kernels' numbers (time, bound and
+Prints one JSON line with the thirteen kernels' numbers (time, bound and
 share of it, launches per frame, the plain version's time; no single
 PyTorch call computes a nearest ray-triangle hit, a march loop, a hash
 encode or a bf16-rounded bias-free MLP chain, so library_ms is null; the
@@ -1033,7 +1056,25 @@ MARCH_KERNELS = {            # wrapper -> (kernel, compare kind, what it replace
                   "network's rows: activations, alpha and the non-vector "
                   "composite); nerf_glasses_tpu/ops/raymarch.py:873, :1005, "
                   ":1031"),
+    "walk_list": ("nmr_march_walk:list", "advance_samples",
+                  "nerf_glasses_tpu_torch/ops/march_cuda.py::"
+                  "walk_list_reference (the exact epoch's gather of the live "
+                  "rays, advance then samples, the network's input rows, "
+                  "the scatter of t and alive); nerf_glasses_tpu/ops/"
+                  "raymarch.py:1212-1238, :730, :782"),
+    "composite_list": ("nmr_march_composite:list", "composite",
+                       "nerf_glasses_tpu_torch/ops/march_cuda.py::"
+                       "composite_list_reference (the exact epoch's "
+                       "composite on the gathered rays, the scatter of the "
+                       "state, the next epoch's compaction); nerf_glasses_"
+                       "tpu/ops/raymarch.py:1212-1238, :873, :1005, :1031"),
 }
+# the exact epoch's list forms (raymarch._march_lists), and what each
+# writes in place in the frame's arrays
+LIST_FORMS = ("walk_list", "composite_list")
+LIST_WRITES = {"walk_list": ("t", "alive"),
+               "composite_list": ("rgba", "depth", "max_weight", "wn",
+                                  "surf_a", "t", "alive")}
 # every march kernel takes MarchParams first: its device operations'
 # names hold it (kernel_device_ms), those of this tree and of others; the
 # composite's entry also launches the row map
@@ -1041,9 +1082,9 @@ MARCH_OP = "MarchParams"
 MARCH_HELPERS = ("row_map_kernel",)
 
 
-def march_ms(name, fn, reps):
+def march_ms(name, fn, reps, prepare=None):
     """kernel_device_ms of a march wrapper: its kernel and its helpers."""
-    return kernel_device_ms(name, fn, reps, MARCH_OP, MARCH_HELPERS)
+    return kernel_device_ms(name, fn, reps, MARCH_OP, MARCH_HELPERS, prepare)
 PSNR_PLAIN_MARCH_DB = 60.0
 EXACT_FRAME_MAX_LAUNCHES = 10000
 
@@ -1072,7 +1113,9 @@ def first_march_calls(fn):
     first call that launches a kernel on the card (a frame's first epoch)
     -> {key: args}. The key is the wrapper's name; a composite call of one
     stage alone (the baked path's) is "composite:blend" or
-    "composite:samples"."""
+    "composite:samples". The arguments are cloned before the call: the
+    list forms' (walk_list's of an epoch's first round) hold the frame's
+    state as the call found it."""
     saved = {k: getattr(march_cuda, k) for k in MARCH_KERNELS}
     got = {}
 
@@ -1081,6 +1124,8 @@ def first_march_calls(fn):
             return name if args[6].init_skip_iters > 0 else None
         if name in ("advance", "advance_samples"):
             return name if args[3] > 0 else None
+        if name == "walk_list":             # an epoch's first round
+            return name if args[5] is not None else None
         if name == "composite" and len(args) > 3:
             return COMPOSITE_STAGES.get(args[3], name)
         return name
@@ -1106,7 +1151,10 @@ def first_march_calls(fn):
 def march_bound(name, args):
     """A march kernel's least time on these inputs: the per-ray state it
     reads and writes once (bytes a ray below) and its probe grid once,
-    over the card's memory rate; its flops are a few dozen a probe."""
+    over the card's memory rate; its flops are a few dozen a probe. The
+    list forms' bytes are list_bound's."""
+    if name.split(":")[0] in LIST_FORMS:
+        return list_bound(name, args)
     if name == "composite":
         st, rnd = args[0], args[1]
         stage = args[3] if len(args) > 3 else march_cuda.STAGE_SAMPLES
@@ -1221,7 +1269,7 @@ def other_march_call(module, name, args):
 L2_FLUSH_BYTES = 128 << 20     # over the H100's 50 MB L2
 
 
-def kernel_device_ms(name, fn, reps, match=None, helpers=()):
+def kernel_device_ms(name, fn, reps, match=None, helpers=(), prepare=None):
     """The device time of one launch of kernel `name` (the device
     operations whose name holds `match`, by default `{name}_kernel`, with
     the time of the helper kernels its entry launches beside it, those
@@ -1230,12 +1278,16 @@ def kernel_device_ms(name, fn, reps, match=None, helpers=()):
     launches torch.profiler records in reps calls of fn (the wrapper's
     host work, which CUDA events around back-to-back calls may time
     instead, left out). The trace may miss a launch or, now and then, come
-    back empty: then it is taken again, up to 3 times."""
+    back empty: then it is taken again, up to 3 times. prepare(), where
+    given, runs before each flush (a call that writes its inputs in place
+    gets them back there)."""
     match = match or f"{name}_kernel"
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
 
     def run():
         for _ in range(reps):
+            if prepare is not None:
+                prepare()
             flush.zero_()
             fn()
 
@@ -1357,6 +1409,302 @@ def march_fused_vs_pair(args, got, label, reps, others=()):
                              f"bit advance then samples: {same}")
     return {"bit_for_bit_pair": same, "pair_ms_in_turns": times,
             "pair_ms": float(np.mean(times["this tree pair"]))}
+
+
+# ---------------------------------------------------------------------------
+# The list forms: the exact epoch on the frame's arrays through its
+# live-ray list (phases 5b, 23b)
+# ---------------------------------------------------------------------------
+
+def gathered_calls(calls):
+    """The recorded first-epoch list-form calls as the gathered epoch's
+    wrappers take the same epoch: advance_samples on the listed rays
+    gathered into a compacted copy (alive True), the samples alone on the
+    rays its advance left (a later round's walk), and the composite on the
+    gathered state the walk left with the network's own rows, each row's
+    slot from the walk's first rows and slot bits -> {"advance_samples": args,
+    "samples": args, "composite": args}."""
+    frame, ids, n, scene, opts, iters = calls["walk_list"][:6]
+    idl = ids[:n].long()
+    sub = {k: frame[k][idl] for k in raymarch._GATHER}
+    sub["alive"] = torch.ones(n, dtype=torch.bool, device=idl.device)
+    cframe, cids, cn, rows, m, rgb, sigma, copts = calls["composite_list"][:8]
+    K = copts.steps_per_round
+    slot_rows = march_cuda.list_slot_rows(rows, cn, K)
+    valid = slot_rows >= 0
+    slots = torch.empty(m, dtype=torch.int64, device=idl.device)
+    slots[slot_rows[valid]] = torch.nonzero(valid.reshape(-1)).squeeze(1)
+    dense = {}
+    for k in ("ts", "dt"):
+        dense[k] = torch.zeros((K, cn), device=idl.device)
+        dense[k][valid] = rows[k][slot_rows[valid]]
+    cidl = cids[:cn].long()
+    st = {k: cframe[k][cidl] for k in raymarch._GATHER + ("alive",)}
+    rnd = {"t_end": rows["t_end"][:cn], "exited": rows["exited"][:cn],
+           "surf_stopped": rows["stopped"][:cn], "valid": valid,
+           "ts": dense["ts"], "dt": dense["dt"], "rgb": rgb, "sigma": sigma,
+           "slots": slots}
+    t, alive = march_cuda.advance(sub, scene, opts, iters)
+    return {"advance_samples": (sub, scene, opts, iters),
+            "samples": ({**sub, "t": t, "alive": alive}, scene, opts),
+            "composite": (st, rnd, copts)}
+
+
+def samples_form_call(calls):
+    """The recorded first-epoch walk_list call in its samples form (a
+    later round's): on the frame as the recorded call's kernel left it
+    (advanced), iters None, fresh rows and count."""
+    work = list_copy("walk_list", calls["walk_list"])
+    march_cuda.walk_list(*work)
+    args = list(work)
+    args[5] = None
+    args[7] = torch.zeros_like(work[7])
+    return tuple(args)
+
+
+def list_copy(name, args):
+    """A recorded list-form call's arguments with what the call writes
+    (the frame's arrays of LIST_WRITES, the walk's rows and row count,
+    the composite's next list and count) cloned; the rest shared."""
+    name = name.split(":")[0]
+    args = list(args)
+    args[0] = {**args[0], **{k: args[0][k].clone() for k in LIST_WRITES[name]}}
+    if name == "walk_list":
+        args[6] = {k: v.clone() for k, v in args[6].items()}
+        args[7] = args[7].clone()
+    elif args[8] is not None:
+        args[8], args[9] = args[8].clone(), args[9].clone()
+    return tuple(args)
+
+
+def list_restore(name, work, args):
+    """work (list_copy of args) given back what a call wrote: the frame's
+    arrays and the counters as args hold them (copies, no allocation)."""
+    name = name.split(":")[0]
+    for k in LIST_WRITES[name]:
+        work[0][k].copy_(args[0][k])
+    if name == "walk_list":
+        work[7].copy_(args[7])
+    elif work[9] is not None:
+        work[9].copy_(args[9])
+
+
+def list_outputs(name, args, module=march_cuda):
+    """A list form's result after a call on args: the walk's spread over
+    its slots as advance_samples gives it (module.list_walk_outputs);
+    the composite's the listed rays' state, t included."""
+    frame, ids, n = args[:3]
+    if name.startswith("walk_list"):
+        return module.list_walk_outputs(frame, ids, n, args[6],
+                                        args[4].steps_per_round)
+    idl = ids[:n].long()
+    return {k: frame[k][idl] for k in ("rgba", "depth", "max_weight", "wn",
+                                       "surf_a", "alive", "t")}
+
+
+def other_list_copy(module, name, args):
+    """list_copy(name, args) for another checkout's list form: where its
+    walk hands the composite a (K, n) slot map of row numbers (its
+    list_buffers' "slot_rows") rather than a first row and slot bits, the
+    rows carry that map too, made from this tree's (composite_list) or
+    room for it (walk_list)."""
+    work = list(list_copy(name, args))
+    K, n = args[4 if name == "walk_list" else 7].steps_per_round, args[2]
+    rows = work[6 if name == "walk_list" else 3]
+    if "slot_rows" in module.list_buffers(1, K, "cpu"):
+        rows = {**rows, "slot_rows": march_cuda.list_slot_rows(
+            rows, n, K).to(torch.int32).reshape(-1)}
+        work[6 if name == "walk_list" else 3] = rows
+    return tuple(work)
+
+
+def gathered_expectation(name, module, gathered):
+    """What the list form `name` must equal bit for bit: `module`'s kernels
+    of the gathered epoch on the gathered copy (other_march_call), the
+    walk's positions made into the network's inputs by aten on the card,
+    as the gathered epoch makes them; the samples form's t and alive the
+    gathered state's, which it leaves as they are."""
+    if name == "walk_list:samples":
+        args = gathered["samples"]
+        (t, alive) = args[0]["t"], args[0]["alive"]
+        (pos, dt, valid, ts), te, ex, sp = other_march_call(module, "samples",
+                                                            args)
+        scene = args[1]
+    elif name == "walk_list":
+        args = gathered["advance_samples"]
+        (t, alive), ((pos, dt, valid, ts), te, ex, sp) = other_march_call(
+            module, "advance_samples", args)
+        scene = args[1]
+    if name.startswith("walk_list"):
+        pos01 = (pos - scene["train_min"]) / (scene["train_max"]
+                                              - scene["train_min"])
+        zero = torch.zeros((), device=t.device)
+        return ((t, alive), ((torch.where(valid[..., None], pos01, zero),
+                              torch.where(valid, dt, zero), valid,
+                              torch.where(valid, ts, zero)), te, ex, sp))
+    args = gathered["composite"]
+    return {**other_march_call(module, "composite", args),
+            "t": args[1]["t_end"]}
+
+
+def list_bound(name, args):
+    """A list form's least time: the bytes it must move once over the
+    card's memory rate. walk_list, a list entry: its id 4; the frame's o,
+    d, t, t_start, t_surf, surf_a read through it 40 (alive 1 more in the
+    samples form); t and alive written back 5 (advance form); t_end,
+    exited, stopped 6; its first row 4 and slot bits ceil(K / 8); a row
+    32 (pos01, dir01, t, dt); the probe grid once. composite_list, an
+    entry: its id 4; the frame's rgba, surf, depth, max_weight, wn,
+    surf_a, t, t_surf, alive 57; t_end, exited, stopped 6; its first row
+    and slot bits; the state written 37 (rgba, depth, max_weight, wn,
+    surf_a, t, alive); a row 24 (raw density, colour, t, dt); a next-list
+    entry 4. The counts are the recorded call's (its rows, its
+    survivors)."""
+    ids, n = args[1], args[2]
+    name = name.split(":")[0]
+    work = list_copy(name, args)
+    getattr(march_cuda, name)(*work)
+    if name == "walk_list":
+        scene, opts, iters = args[3], args[4], args[5]
+        m = int(work[7][0])
+        per = (4 + 40 + (5 if iters is not None else 1) + 6 + 4
+               + march_cuda._mask_bytes(opts.steps_per_round))
+        grid = march_cuda.probe_route(scene, opts)[1]
+        return bound_ms(0, n * per + 32 * m + grid.numel() + 28)
+    m, opts = args[4], args[7]
+    live = int(work[0]["alive"][ids[:n].long()].sum())
+    per = (4 + 57 + 6 + 4 + march_cuda._mask_bytes(opts.steps_per_round)
+           + 37)
+    return bound_ms(0, n * per + 24 * m + 4 * live + 4)
+
+
+def list_event_ms(fn, prepare, reps):
+    """CUDA events around each of reps calls of fn, prepare() before each
+    and outside the events -> mean ms a call."""
+    prepare()
+    fn()
+    total = 0.0
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    for _ in range(reps):
+        prepare()
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        total += a.elapsed_time(b)
+    return total / reps
+
+
+def hold_list_calls(calls, gathered, label, reps=20, others=()):
+    """The recorded list-form calls (walk_list of the first epoch, the
+    same walk in its samples form on the rays it advanced, the epoch's
+    composite_list): each against its plain version under march_cuda.
+    compare_with_plain's contract (the walk's rows spread over its slots,
+    list_walk_outputs; the composite's listed state), bit for bit per ray
+    against the gathered epoch's kernels on the gathered copy (this
+    tree's, and each other checkout's), the composite's next list exactly
+    the rays it left alive; device time (torch.profiler, L2 flushed, the
+    written arrays given back before each call) in turns with the
+    gathered kernels' (others', this tree's) and with each other
+    checkout's own list form where it has one (a variant: bit for bit
+    this tree's per ray), CUDA events, the plain
+    version's time and the bound -> {"walk_list", "walk_list:samples",
+    "composite_list": numbers}. Raises on a disagreement."""
+    out = {}
+    held = {"walk_list": calls["walk_list"],
+            "walk_list:samples": samples_form_call(calls),
+            "composite_list": calls["composite_list"]}
+    for key, args in held.items():
+        name = key.split(":")[0]
+        kernel, kind, _ = MARCH_KERNELS[name]
+        kernel += key[len(name):]
+        gname = {"walk_list": "advance_samples", "walk_list:samples": "samples",
+                 "composite_list": "composite"}[key]
+        wrapper = getattr(march_cuda, name)
+        plain = getattr(march_cuda, f"{name}_reference")
+        work_k, work_p = list_copy(name, args), list_copy(name, args)
+        wrapper(*work_k)
+        plain(*work_p)
+        torch.cuda.synchronize()
+        got = list_outputs(name, work_k)
+        cmp = march_cuda.compare_with_plain(kind, got, list_outputs(name, work_p))
+        same = {"this tree": same_bits(got, gathered_expectation(
+            key, march_cuda, gathered))}
+        same.update({path: same_bits(got, gathered_expectation(
+            key, m, gathered)) for path, m in others})
+        n = args[2]
+        if name == "composite_list":
+            ids = args[1][:n]
+            for which, w in (("kernel", work_k), ("plain", work_p)):
+                nxt = w[8][:int(w[9][0])]
+                left = ids[w[0]["alive"][ids.long()]]
+                if not torch.equal(torch.sort(nxt).values,
+                                   torch.sort(left).values):
+                    raise AssertionError(f"{label}: the {which} composite_list "
+                                         f"listed {nxt.numel()} rays, it left "
+                                         f"{left.numel()} alive")
+        work = list_copy(name, args)
+
+        def prepare(work=work, name=name, args=args):
+            list_restore(name, work, args)
+
+        def run(work=work, wrapper=wrapper):
+            wrapper(*work)
+
+        g_args = gathered[gname]
+        versions = [(f"{path} {gname} (gathered)",
+                     lambda m=m: march_ms(gname, lambda: other_march_call(
+                         m, gname, g_args), reps)) for path, m in others]
+        # another checkout's own list form (a variant of it), on its own
+        # copy of the arguments: bit for bit this tree's per ray
+        for path, m in others:
+            if not hasattr(m, name):
+                continue
+            owork = other_list_copy(m, name, args)
+            getattr(m, name)(*owork)
+            torch.cuda.synchronize()
+            same[f"{path} {key}"] = same_bits(list_outputs(name, owork, m),
+                                              got)
+            versions.append((f"{path} {key}", lambda m=m, owork=owork: march_ms(
+                name, lambda: getattr(m, name)(*owork), reps,
+                lambda: list_restore(name, owork, args))))
+        versions += [(f"this tree {gname} (gathered)",
+                      lambda: march_ms(gname, lambda: getattr(
+                          march_cuda, gname)(*g_args), reps)),
+                     (f"this tree {key}",
+                      lambda: march_ms(name, run, reps, prepare))]
+        times = {w: [] for w, _ in versions}
+        for which, fn in versions + versions[::-1]:
+            times[which].append(fn())
+        k_ms = float(np.mean(times[f"this tree {key}"]))
+        ev_ms = list_event_ms(run, prepare, reps)
+        pwork = list_copy(name, args)
+        p_ms = list_event_ms(lambda: plain(*pwork),
+                             lambda: list_restore(name, pwork, args), 2)
+        b_ms, b_by = march_bound(key, args)
+        print(f"{label} {kernel} on the first epoch's {n}-ray list: "
+              f"{cmp['mismatched_rays']} rays differ from its plain version "
+              f"({cmp['flag_mismatches']} in a flag; allowed "
+              f"{cmp['allowed']}), max |diff| {cmp['max_abs_err']:.3g}; bit "
+              f"for bit the gathered epoch's {gname} on the gathered copy: "
+              + ", ".join(f"{p} {v}" for p, v in same.items())
+              + f"; device ms in turns (torch.profiler, L2 flushed): "
+              + "; ".join(f"{w} {', '.join(f'{t:.4f}' for t in ts)}"
+                          for w, ts in times.items())
+              + f"; events {ev_ms:.4f} ms, plain {p_ms:.2f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}), share of bound {b_ms / k_ms:.1%}")
+        if not (cmp["ok"] and all(same.values())):
+            raise AssertionError(f"{label}: {kernel} disagrees with its plain "
+                                 f"version or the gathered epoch's kernels: "
+                                 f"{cmp}, {same}")
+        out[key] = {"cmp": cmp, "ms": k_ms, "event_ms": ev_ms,
+                    "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                    "rays": n, "bit_for_bit_gathered": same,
+                    "in_turns": times}
+        del work, work_k, work_p, pwork
+    return out
+
 
 
 SCALING_BLOCK = 4096           # rays a subset keeps together (32 warps x 4)
@@ -1485,11 +1833,17 @@ def round_tail(calls, label, others=()):
 FRAME_OPS_CODE = """
 import json, os, sys
 import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.getcwd())
 import chip_smoke as cs
 glasses = os.path.join(sys.argv[1], "glasses.gltf")
 cs.write_glasses_gltf(glasses)
-r, nerf = cs.make_renderer(torch.device("cuda"), cs.W, cs.H, glasses)
+kw = {}
+if len(sys.argv) > 2:
+    kw = {"snapshot": sys.argv[2], "aabb": (float(sys.argv[3]),
+                                            float(sys.argv[4]))}
+r, nerf = cs.make_renderer(torch.device("cuda"), cs.W, cs.H, glasses, **kw)
 for _ in range(3):
     r.frame()
 res = []
@@ -1497,36 +1851,51 @@ for _ in range(3):
     r.update_model_view_proj()
     r.frame()
     wall, busy, ops = cs.device_profile(r.frame, host=False)
-    res.append([sum(c for _, c in ops.values()), busy, wall])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        r.frame()
+        torch.cuda.synchronize()
+    ev = prof.events()
+    dtoh = sum(1 for e in ev if e.device_type == DeviceType.CUDA
+               and "Memcpy DtoH" in e.name)
+    syncs = sum(1 for e in ev if e.name == "cudaStreamSynchronize")
+    res.append([sum(c for _, c in ops.values()), busy, wall, dtoh, syncs])
 print(json.dumps(res))
 """
 
 
-def frame_ops_in_turns(tmp, dirs):
+def frame_ops_in_turns(tmp, dirs, label="exact 720p", scene=()):
     """The exact 720p frame of each checkout (this tree and each DIR),
     each rendered by that checkout's own package and chip_smoke.py helpers
     in a process of its own run from its root, in turns (the others, this
     tree, this tree, the others reversed): 3 warm-up frames, then 3
     frames' device operations, device-busy ms and wall ms under
-    torch.profiler -> {checkout: [[ops, busy, wall], ...]}. A DIR with no
-    chip_smoke.py of its own (the kernels' sources alone) is left out."""
+    torch.profiler, and each frame's Memcpy DtoH copies and
+    cudaStreamSynchronize calls traced once more -> {checkout: [[ops,
+    busy, wall, DtoH, syncs], ...]}. scene: () for the trained head, or
+    (snapshot, aabb low, aabb high). A DIR with no chip_smoke.py of its
+    own (the kernels' sources alone) is left out."""
     order = [d for d in dirs
              if os.path.exists(os.path.join(d, "chip_smoke.py"))] + [ROOT]
     res = {path: [] for path in order}
     for k, path in enumerate(order + order[::-1]):
         work = os.path.join(tmp, f"frame_ops_{k}")
         os.makedirs(work, exist_ok=True)
-        out = subprocess.run([sys.executable, "-c", FRAME_OPS_CODE, work],
+        out = subprocess.run([sys.executable, "-c", FRAME_OPS_CODE, work]
+                             + [str(x) for x in scene],
                              cwd=path, capture_output=True, text=True,
                              timeout=600)
         if out.returncode != 0:
             raise RuntimeError(f"exact frame of {path} failed:\n"
                                f"{out.stderr[-4000:]}")
         res[path] += json.loads(out.stdout.strip().splitlines()[-1])
-    print("exact 720p frame by checkout, in turns, each in its own process "
-          "(torch.profiler: device operations, busy ms, wall ms): " + "; ".join(
+    print(f"{label} frame by checkout, in turns, each in its own process "
+          "(torch.profiler: device operations, busy ms, wall ms; Memcpy "
+          "DtoH, cudaStreamSynchronize): " + "; ".join(
               f"{'this tree' if path == ROOT else path} " + ", ".join(
-                  f"{n} ops {b:.3f} / {w:.2f} ms" for n, b, w in r)
+                  f"{n} ops {b:.3f} / {w:.2f} ms, {h} DtoH, {y} syncs"
+                  for n, b, w, h, y in r)
               for path, r in res.items()))
     return {("this tree" if path == ROOT else path): r
             for path, r in res.items()}
@@ -1574,7 +1943,10 @@ def flash_march_check(renderer, nerf, label, need, others=()):
     flash off too (baked sigma, sequential rounds: the fused advance and
     samples, the composite's two stages as two calls). need: {"flash":
     keys, "baked": keys}, calls each frame must have made -> {"flash":
-    numbers, "baked": numbers}."""
+    numbers, "baked": numbers}; with need["baked"] also "launches": the
+    march kernels' launches of one more baked frame with flash off and two
+    rounds an epoch (the fused walk, the samples alone for the second
+    round, no list form)."""
     out = {}
     saved = nerf.flash
     try:
@@ -1583,13 +1955,18 @@ def flash_march_check(renderer, nerf, label, need, others=()):
                 continue
             nerf.flash = which == "flash"
             renderer.update_model_view_proj()
+            march_cuda.launches.update(dict.fromkeys(march_cuda.launches, 0))
             calls = first_march_calls(renderer.frame)
             torch.cuda.synchronize()
+            if any(march_cuda.launches[k] for k in LIST_FORMS):
+                raise AssertionError(f"{label} {which} frame launched the "
+                                     f"list forms: {march_cuda.launches}")
             path = nerf.last_render_path
             # vector rounds advance alone; sequential ones start an epoch
-            # with the fused call
-            absent = ({"advance_samples", "samples"} if which == "flash"
-                      else {"advance", "samples"})
+            # with the fused call; neither takes the list forms
+            absent = set(LIST_FORMS) | (
+                {"advance_samples", "samples"} if which == "flash"
+                else {"advance", "samples"})
             if (path != which or not set(need[which]) <= set(calls)
                     or absent & set(calls)):
                 raise AssertionError(
@@ -1601,6 +1978,26 @@ def flash_march_check(renderer, nerf, label, need, others=()):
             out[which] = hold_calls(calls, f"{label} {which} frame",
                                     others=others)
             del calls
+        if "baked" in need:
+            nerf.flash = False
+            overrides = dict(nerf.march_overrides)
+            nerf.march_overrides = {**overrides, "rounds_per_epoch": 2}
+            try:
+                march_cuda.launches.update(
+                    dict.fromkeys(march_cuda.launches, 0))
+                renderer.frame()
+                torch.cuda.synchronize()
+                out["launches"] = dict(march_cuda.launches)
+            finally:
+                nerf.march_overrides = overrides
+            print(f"{label} baked frame, flash off, rounds_per_epoch 2: "
+                  f"{nerf.last_march_epochs} epochs, march kernel launches "
+                  f"{out['launches']}")
+            got = out["launches"]
+            if (got["advance_samples"] < 1 or got["samples"] < 1
+                    or any(got[k] for k in LIST_FORMS)):
+                raise AssertionError(f"{label}: the baked two-round frame "
+                                     f"launched {got}")
     finally:
         nerf.flash = saved
         nerf.reset_accumulation()
@@ -1693,11 +2090,14 @@ def with_pair_calls(calls):
 def march_kernels_phase(renderer, nerf, label, variants=(), reps=20,
                         others=()):
     """The march kernels on the first epoch of one of the renderer's exact
-    frames (and the advance alone and samples alone on the fused call's
-    inputs): each against its plain version under march_cuda.
-    compare_with_plain's contract, each timed beside its plain version
-    and its bound (hold_calls, `others` in turns), and on the probe routes
-    of `variants`; how the walks scale (march_scaling); then a frame with
+    frames: the list forms it runs (hold_list_calls), and the gathered
+    epoch's kernels on the gathered copy of the same epoch (gathered_
+    calls: the fused walk, the row-form composite, and the advance alone
+    and samples alone on the fused call's inputs): each against its plain
+    version under march_cuda.compare_with_plain's contract, each timed
+    beside its plain version and its bound (hold_calls, `others` in
+    turns), and on the probe routes of `variants`; how the walks scale
+    (march_scaling); then a frame with
     the plain march in the kernels' place (>= 60 dB at the same sample
     index) and both frames' device operations and wall ms under
     torch.profiler, and their host clock untraced -> ({wrapper: numbers},
@@ -1705,12 +2105,17 @@ def march_kernels_phase(renderer, nerf, label, variants=(), reps=20,
     renderer.update_model_view_proj()
     calls = first_march_calls(renderer.frame)
     torch.cuda.synchronize()
-    if set(calls) - {"init_walk"} != {"advance_samples", "composite"}:
+    if set(calls) - {"init_walk"} != set(LIST_FORMS):
         raise AssertionError(f"{label}: the exact frame made the march calls "
                              f"{sorted(calls)}")
+    gathered = gathered_calls(calls)
+    listed = hold_list_calls(calls, gathered, label, reps, others)
+    calls = {**{k: v for k, v in calls.items() if k not in LIST_FORMS},
+             **{k: gathered[k] for k in ("advance_samples", "composite")}}
     other_routes(calls, variants, label, others)
     calls = with_pair_calls(calls)
     out = hold_calls(calls, label, reps, others)
+    out.update(listed)
     out["scaling"] = march_scaling(calls, label)
     out["round_tail"] = round_tail(calls, label, others)
     if "init_walk" in calls:
@@ -1723,18 +2128,21 @@ def march_kernels_phase(renderer, nerf, label, variants=(), reps=20,
     return out, frames
 
 
-def march_entries(march, launches, frames, mc, others, sass):
+def march_entries(march, launches, frames, mc, others, sass, list_route):
     """The closing line's entries of the march kernels, each measured on
-    the exact 720p frame's first epoch (phase 5b: the fused call, and the
+    the exact 720p frame's first epoch (phase 5b: the list forms, and on
+    the gathered copy of that epoch the fused call, the composite, and the
     advance alone and the samples alone on its inputs); the init walk,
     which the single-cascade exact frame does not take, on the
     multi-cascade frame (phases 23, 23b). launches: {wrapper: (launches,
-    frames, the path that made them)}: the fused walk and the composite
-    in phase 4's exact frames, the advance alone in phase 8's flash
-    frames, the samples alone in phase 4's frame with two rounds an
-    epoch, the init walk in phase 23's frames. others: {path: hold_calls'
+    frames, the path that made them)}: the list forms in phase 4's exact
+    frames, the advance alone and the composite in phase 8's flash frames,
+    the fused walk and the samples alone in phase 8b's baked frame with
+    two rounds an epoch, the init walk in phase 23's frames. others: {path: hold_calls'
     numbers} of the flash and baked frames (phases 8b, 24), listed under
-    each kernel's "other_paths"; sass: march_sass_report's instances."""
+    each kernel's "other_paths"; sass: march_sass_report's instances;
+    list_route: list_route_report's numbers of the exact frame (5b), with
+    the multi-cascade frame's (23b) under the list walk's entry."""
     entries = []
     for name, (kernel, _, replaces) in MARCH_KERNELS.items():
         held = [{"path": path, "call": key, "rays": r["rays"],
@@ -1785,6 +2193,22 @@ def march_entries(march, launches, frames, mc, others, sass):
             entry["multicascade_round_tail"] = mc["kernels"]["round_tail"]
         if name == "init_walk":
             entry["init_scaling"] = mc["kernels"]["init_scaling"]
+        if name in LIST_FORMS:
+            entry["bit_for_bit_gathered"] = r["bit_for_bit_gathered"]
+            entry["multicascade_in_turns"] = mc["kernels"][name]["in_turns"]
+        if name == "walk_list":
+            sf = march["walk_list:samples"]
+            entry["samples_form"] = {
+                "ms": sf["ms"], "event_ms": sf["event_ms"],
+                "plain_ms": sf["plain_ms"], "bound_ms": sf["bound_ms"],
+                "mismatched_rays": sf["cmp"]["mismatched_rays"],
+                "bit_for_bit_gathered": sf["bit_for_bit_gathered"],
+                "in_turns": sf["in_turns"],
+                "multicascade_ms": mc["kernels"]["walk_list:samples"]["ms"],
+                "multicascade_in_turns":
+                    mc["kernels"]["walk_list:samples"]["in_turns"]}
+            entry["list_route"] = list_route
+            entry["multicascade_list_route"] = mc["list_route"]
         entries.append(entry)
     return entries
 
@@ -2197,9 +2621,10 @@ def network_frames(frames, mc, ref):
         "reference_config_frame_psnr_db": db(ref["frames"]["psnr"])}
 
 
-def sync_counts(fn):
-    """torch.profiler over one call of fn -> (host-to-device copies on the
-    device, cudaStreamSynchronize calls on the host)."""
+def transfer_counts(fn):
+    """torch.profiler over one call of fn -> {"HtoD", "DtoH": the copies
+    of each kind on the device, "sync": cudaStreamSynchronize calls on the
+    host}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -2208,9 +2633,114 @@ def sync_counts(fn):
         fn()
         torch.cuda.synchronize()
     events = prof.events()
-    return (sum(1 for e in events if e.device_type == DeviceType.CUDA
-                and "Memcpy HtoD" in e.name),
-            sum(1 for e in events if e.name == "cudaStreamSynchronize"))
+    out = {kind: sum(1 for e in events if e.device_type == DeviceType.CUDA
+                     and f"Memcpy {kind}" in e.name)
+           for kind in ("HtoD", "DtoH")}
+    out["sync"] = sum(1 for e in events if e.name == "cudaStreamSynchronize")
+    return out
+
+
+def sync_counts(fn):
+    """transfer_counts' (host-to-device copies, stream waits)."""
+    c = transfer_counts(fn)
+    return c["HtoD"], c["sync"]
+
+
+EXACT_FRAME_MAX_DTOH = 30         # the exact 720p frame on the list route
+# an epoch of the list route: the list walk, the fused encode + MLP, the
+# rgb head, the list composite and the epoch's one host read; the march
+# adds the last list's empty walk and its read
+LIST_EPOCH_OPS = 5
+LIST_LAST_OPS = 2
+
+
+def list_route_report(renderer, nerf, label, max_dtoh=None):
+    """An exact frame on the list route: two frames at one sample index
+    equal bit for bit; one frame's device operations, busy and wall ms
+    (torch.profiler), none of them a standalone row map, its Memcpy DtoH
+    and HtoD copies and stream waits (transfer_counts); the march alone
+    (raymarch.march_frame_impl on the inputs an earlier frame gave it, its
+    epochs its own): its copies and waits (at most 2 host reads an epoch
+    and 1 a frame), its device
+    operations, and those of its first epoch alone (the same inputs, an
+    epoch budget of 1): each later epoch adds at most LIST_EPOCH_OPS
+    operations, the march's end LIST_LAST_OPS; the network took no plain
+    version on the card. max_dtoh: the frame's DtoH copies must stay
+    under it -> numbers."""
+    images = []
+    for _ in range(2):
+        fresh_frame(renderer)
+        torch.cuda.synchronize()
+        images.append(renderer._frame_buffer.clone())
+    same = same_bits(images[0], images[1])
+    del images
+    saved, got = raymarch.march_frame_impl, {}
+
+    def record(*a, **kw):
+        got.setdefault("args", (a, kw))
+        return saved(*a, **kw)
+
+    raymarch.march_frame_impl = record
+    try:
+        renderer.update_model_view_proj()
+        renderer.frame()
+    finally:
+        raymarch.march_frame_impl = saved
+    zero_network_counts()
+    wall, busy, ops = device_profile(renderer.frame, host=False)
+    n_ops = sum(c for _, c in ops.values())
+    row_maps = sum(c for k, (_, c) in ops.items() if "row_map_kernel" in k)
+    frame = transfer_counts(renderer.frame)
+    plain = dict(network_cuda.plain_on_card)
+    epochs = nerf.last_march_epochs
+    a, kw = got["args"]
+    replay = {}
+
+    def march_alone():
+        replay["epochs"] = raymarch.march_frame_impl(*a, **kw)[1]
+
+    march = transfer_counts(march_alone)
+    march_epochs = replay["epochs"]      # the recorded frame's, not the last
+    one = a[:6] + (dataclasses.replace(
+        a[6], max_rounds=a[6].rounds_per_epoch),) + a[7:]
+    march_ops = sum(c for _, c in device_profile(
+        lambda: raymarch.march_frame_impl(*a, **kw), host=False)[2].values())
+    first_ops = sum(c for _, c in device_profile(
+        lambda: raymarch.march_frame_impl(*one, **kw), host=False)[2].values())
+    later = march_ops - first_ops
+    top = sorted(ops.items(), key=lambda kv: -kv[1][0])[:8]
+    print(f"{label} frame on the list route: two frames bit for bit {same}; "
+          f"{n_ops} device operations, busy {busy:.3f} of {wall:.2f} ms wall "
+          f"(torch.profiler), {epochs} epochs, {row_maps} row-map launches; "
+          f"Memcpy DtoH {frame['DtoH']}, HtoD {frame['HtoD']}, "
+          f"cudaStreamSynchronize {frame['sync']}; the march alone on an "
+          f"earlier frame's inputs ({march_epochs} epochs): DtoH "
+          f"{march['DtoH']}, HtoD {march['HtoD']}, cudaStreamSynchronize "
+          f"{march['sync']}, {march_ops} device operations, its first "
+          f"epoch alone {first_ops}: {later} for the {march_epochs - 1} "
+          f"later epochs and the end; network plain versions on the card "
+          f"{plain}; "
+          f"top device operations: " + "; ".join(
+              f"{n.replace('(anonymous namespace)::', '').split('(')[0][-60:]} "
+              f"{t:.3f} ms {c}x" for n, (t, c) in top))
+    if not same:
+        raise AssertionError(f"{label}: two frames at one sample index differ")
+    if row_maps or any(plain.values()):
+        raise AssertionError(f"{label}: {row_maps} row-map launches, plain "
+                             f"network versions on the card {plain}")
+    if march["DtoH"] > 2 * march_epochs + 1:
+        raise AssertionError(f"{label}: the march read the device "
+                             f"{march['DtoH']} times in {march_epochs} epochs")
+    if later > LIST_EPOCH_OPS * (march_epochs - 1) + LIST_LAST_OPS:
+        raise AssertionError(f"{label}: {later} device operations for "
+                             f"{march_epochs - 1} epochs after the first")
+    if max_dtoh is not None and frame["DtoH"] >= max_dtoh:
+        raise AssertionError(f"{label}: {frame['DtoH']} Memcpy DtoH (aim: "
+                             f"under {max_dtoh})")
+    return {"bit_identical": same, "device_ops": n_ops, "busy_ms": busy,
+            "wall_ms": wall, "epochs": epochs, "frame_transfers": frame,
+            "march_transfers": march, "march_epochs": march_epochs,
+            "march_device_ops": march_ops, "first_epoch_device_ops": first_ops}
 
 
 def step_sync_counts(tr):
@@ -2470,7 +3000,8 @@ def timed_frames(renderer, nerf, n=3):
     return warm_ms, ms, epochs, mesh_cuda.launches, torch.cuda.max_memory_allocated()
 
 
-def multicascade_phases(dev, tmp, lap, glasses, ds, march_others=()):
+def multicascade_phases(dev, tmp, lap, glasses, ds, march_others=(),
+                        dirs=()):
     """Phases 22-26 -> (the tiled kernel's launches in the 4 + 4 timed exact
     and flash hybrid frames, the march-kernel numbers: the exact frames'
     launches per kernel, the plain-march comparison, each kernel's on the
@@ -2536,9 +3067,9 @@ def multicascade_phases(dev, tmp, lap, glasses, ds, march_others=()):
     if surf_px < W * H // 1000 or launches != 4:
         raise AssertionError(f"{surf_px} mesh pixels, {launches} kernel "
                              f"launches in 4 hybrid frames")
-    if (min(mc_march_launches[k] for k in ("init_walk", "advance_samples",
-                                           "composite")) < 4
-            or mc_march_launches["advance"] or mc_march_launches["samples"]):
+    if (min(mc_march_launches[k] for k in ("init_walk",) + LIST_FORMS) < 4
+            or any(mc_march_launches[k] for k in (
+                "advance", "samples", "advance_samples", "composite"))):
         raise AssertionError(f"the multi-cascade frames launched the march "
                              f"kernels {mc_march_launches} times")
     img_exact = fresh_frame(renderer)
@@ -2555,7 +3086,12 @@ def multicascade_phases(dev, tmp, lap, glasses, ds, march_others=()):
         variants=((march_cuda.ROUTE_DDA, "per-voxel DDA, cone steps",
                    {"dist_advance": False}),))
     mc_march_frames = {"launches": mc_march_launches, "frames": mc_frames,
-                       "kernels": mc_march}
+                       "kernels": mc_march,
+                       "list_route": list_route_report(
+                           renderer, nerf, "multi-cascade exact 720p")}
+    if any(os.path.exists(os.path.join(d, "chip_smoke.py")) for d in dirs):
+        mc_march_frames["list_route"]["in_turns"] = frame_ops_in_turns(
+            tmp, dirs, "multi-cascade exact 720p", (snap,) + MC_AABB)
     # and the network kernels on the same first epoch
     mc_net, mc_net_frames = network_kernels_phase(
         renderer, nerf, "multi-cascade exact 720p")
@@ -3772,7 +4308,7 @@ def main(tmp, dirs, multicascade_only=False):
     n_tris = write_glasses_gltf(glasses)
     if multicascade_only:
         ds, _, _ = capture_phase(dev, lap)
-        multicascade_phases(dev, tmp, lap, glasses, ds, march_others)
+        multicascade_phases(dev, tmp, lap, glasses, ds, march_others, dirs)
         print(f"total {time.perf_counter() - t_start:.1f} s (multi-cascade "
               f"phases only: no result)")
         return
@@ -3837,13 +4373,15 @@ def main(tmp, dirs, multicascade_only=False):
         raise AssertionError(f"only {surf_px} mesh pixels")
     if launches < 4:
         raise AssertionError(f"main path launched the kernel {launches} times")
-    if (min(march_launches[k] for k in ("advance_samples", "composite")) < 4
-            or march_launches["advance"] or march_launches["samples"]):
+    gathered_kernels = ("advance", "samples", "advance_samples", "composite")
+    if (min(march_launches[k] for k in LIST_FORMS) < 4
+            or march_launches["composite_list"] > march_launches["walk_list"]
+            or any(march_launches[k] for k in gathered_kernels)):
         raise AssertionError(f"main path launched the march kernels "
-                             f"{march_launches} times (the fused walk once an "
-                             f"epoch, the advance and samples alone never)")
-    # and one frame with two rounds an epoch: the second round's samples
-    # alone
+                             f"{march_launches} times (the list forms once an "
+                             f"epoch, the gathered epoch's kernels never)")
+    # and one frame with two rounds an epoch: the list walk's samples form
+    # for the second round
     saved = dict(nerf.march_overrides)
     nerf.march_overrides = {**saved, "rounds_per_epoch": 2}
     try:
@@ -3853,9 +4391,12 @@ def main(tmp, dirs, multicascade_only=False):
         two_rounds = dict(march_cuda.launches)
     finally:
         nerf.march_overrides = saved
-    print(f"hybrid {W}x{H} with rounds_per_epoch 2: {nerf.last_march_epochs} "
-          f"epochs, march kernel launches {two_rounds}")
-    if (two_rounds["samples"] < 1 or two_rounds["advance_samples"] < 1
+    two_epochs = nerf.last_march_epochs
+    print(f"hybrid {W}x{H} with rounds_per_epoch 2: {two_epochs} epochs, "
+          f"march kernel launches {two_rounds}")
+    if (two_rounds["composite_list"] != 2 * two_epochs
+            or two_rounds["walk_list"] < 2 * two_epochs
+            or any(two_rounds[k] for k in gathered_kernels)
             or not bool(torch.isfinite(renderer._frame_buffer).all())):
         raise AssertionError(f"the two-round frame launched {two_rounds}")
     if min(net_launches[k] for k in BF16_NETWORK) < 4:
@@ -3915,8 +4456,10 @@ def main(tmp, dirs, multicascade_only=False):
         raise AssertionError(
             f"the exact 720p frame took {march_frames['kernels']['launches']} "
             f"device operations (aim: under {EXACT_FRAME_MAX_LAUNCHES})")
+    list_route = list_route_report(renderer, nerf, "exact 720p",
+                                   EXACT_FRAME_MAX_DTOH)
     if any(os.path.exists(os.path.join(d, "chip_smoke.py")) for d in dirs):
-        frame_ops_in_turns(tmp, dirs)
+        list_route["in_turns"] = frame_ops_in_turns(tmp, dirs)
     lap("5b")
 
     # 5c: the network kernels on the exact frame's first epoch, and a frame
@@ -4002,7 +4545,8 @@ def main(tmp, dirs, multicascade_only=False):
     if fnerf.last_render_path != "flash":
         raise AssertionError(f"render path {fnerf.last_render_path}")
     if (flash_march_launches["advance"] < 4
-            or flash_march_launches["advance_samples"]):
+            or flash_march_launches["advance_samples"]
+            or any(flash_march_launches[k] for k in LIST_FORMS)):
         raise AssertionError(f"flash frames launched the march kernels "
                              f"{flash_march_launches} (vector rounds: the "
                              f"advance alone)")
@@ -4033,6 +4577,7 @@ def main(tmp, dirs, multicascade_only=False):
         "flash": ("advance", "composite:blend"),
         "baked": ("advance_samples", "composite:blend",
                   "composite:samples")}, march_others)
+    baked_launches = flash_march["launches"]
     lap(8)
 
     # 9: the single-program hybrid frame with the same options and scene
@@ -4109,7 +4654,7 @@ def main(tmp, dirs, multicascade_only=False):
     app_launches = application_phases(dev, tmp, lap, glasses)
     mc_launches, mc_march, mc_net = multicascade_phases(dev, tmp, lap,
                                                         glasses, ds,
-                                                        march_others)
+                                                        march_others, dirs)
     cam_launches, cam_frames = camera_phases(dev, tmp, lap, glasses, ds,
                                              flash_ms, sps_plain)
     mp_launches, mp_calls, mp_ms = mesh_pass_phase(dev, lap, glasses)
@@ -4143,22 +4688,27 @@ def main(tmp, dirs, multicascade_only=False):
         "sharded_launches_per_rank": shard_launches,
         "sharded_frames": SHARD_FRAMES}] + march_entries(
             march, {
-                "advance_samples": (march_launches["advance_samples"], 4,
-                                    "exact 720p frames (phase 4)"),
-                "composite": (march_launches["composite"], 4,
+                "walk_list": (march_launches["walk_list"], 4,
                               "exact 720p frames (phase 4)"),
+                "composite_list": (march_launches["composite_list"], 4,
+                                   "exact 720p frames (phase 4)"),
+                "advance_samples": (baked_launches["advance_samples"], 1,
+                                    "baked 720p frame, flash off, "
+                                    "rounds_per_epoch 2 (phase 8b)"),
+                "composite": (flash_march_launches["composite"], 4,
+                              "flash 720p frames (phase 8)"),
                 "advance": (flash_march_launches["advance"], 4,
                             "flash 720p frames (phase 8)"),
-                "samples": (two_rounds["samples"], 1,
-                            "exact 720p frame with rounds_per_epoch 2 "
-                            "(phase 4)"),
+                "samples": (baked_launches["samples"], 1,
+                            "baked 720p frame, flash off, rounds_per_epoch 2 "
+                            "(phase 8b)"),
                 "init_walk": (mc_march["launches"]["init_walk"], 4,
                               "multi-cascade exact 720p frames (phase 23)")},
             march_frames, mc_march, {
                 "flash 720p (phase 8b)": flash_march["flash"],
                 "baked 720p, flash off (phase 8b)": flash_march["baked"],
                 "multi-cascade flash 720p (phase 24)": mc_march["flash"]},
-            march_sass)
+            march_sass, list_route)
         + network_entries(net, net_f32, net_launches, f32_launches, mc_net,
                           ref_net, train_net, mlp_build),
         "network_frames": network_frames(net_frames, mc_net, ref_net)}))

@@ -15,7 +15,11 @@
 //   composite_kernel  (nmr_march_composite) ::composite, the round's
 //       in-march surface blend, K-sample front-to-back loop and final
 //       surface blend from the network's rows; JAX _march_round after
-//       the network (raymarch.py:873, :1005, :1031).
+//       the network (raymarch.py:873, :1005, :1031);
+//   the list forms of the two (::walk_list, ::composite_list: the
+//       walk's advance + samples and samples forms, composite_list_kernel)
+//       that the exact epoch of unbaked sequential rounds runs
+//       (raymarch._march_lists), described below.
 // A ray leaves its loop as soon as it settles, where the plain version
 // masks it for the remaining iterations.
 //
@@ -65,6 +69,33 @@
 // colours. What is left bounds the kernel by latency: a used slot's
 // loads wait for its row number, so a ray with many used slots runs a
 // longer chain than the former kernel's one load a slot (PERF.md).
+//
+// The list forms: what an exact epoch reads and writes, not how it
+// walks or blends. The JAX package (raymarch.py:1212-1238) and the port
+// before them gathered eleven state arrays of the live rays into a
+// compacted copy each epoch, built every slot's network input over all
+// K x n slots (28.6 MB written for the 15% of slots used on a 720p
+// frame's first epoch), listed the used slots with a host read and
+// scattered seven arrays back: ~80 device operations and 3-4 host reads
+// an epoch, more device time than the kernels. Here a thread takes ray
+// ids[j] of the epoch's live-ray list and reads and writes the frame's
+// own arrays through it. The walk (WALK_LIST) advances the ray, writes t
+// and alive back, and gives each valid slot a row of the network's
+// input: the rows of a warp are allocated with one atomicAdd on the
+// row count, a lane's rows together and in slot order, so the rows'
+// order is the warps' and not the slots' (the network's kernels give a
+// row the same bits wherever it lies). A list entry hands the composite
+// its first row and a bit a slot (the valid slots): slot k's row is the
+// first row plus the valid slots below k. A valid slot's t waits in the
+// thread's local array until the warp's rows are allocated. The
+// composite finds its slots' rows so, writes the ray's state in place
+// and appends the rays still alive to the next epoch's list: a block
+// scan, one atomicAdd a block, so the next list keeps a block's rays
+// together in the order of this one
+// (the order changes no ray's result). The next epoch's walk reads the
+// list's length from the device (it launches over the previous length):
+// one host read an epoch gives that length and the row count together.
+// The probe and blend arithmetic are the other forms' own, bit for bit.
 //
 // The probe (probe<ROUTE>) has the four routes of ops/march_cuda.py::
 // _skip_probe, one template instance each, chosen on the host
@@ -137,6 +168,18 @@ struct WalkArgs {
   uint8_t* valid_k;
   float *ts_k, *t_end;
   uint8_t *exited, *stopped;
+  // the list form (WALK_LIST): ray ids[j] of the frame's arrays for
+  // j < the list's length (*n_list, or n where it is null); t_out and
+  // alive_out the frame's t and alive; t_end, exited, stopped indexed by
+  // j; the rows' network inputs, t and dt, from row 0 on (*row_count
+  // holds 0 at the launch); entry j's first row and its valid slots'
+  // bits, bits 8b..8b+7 in byte b * length + j
+  const int *ids, *n_list;
+  const float *train_min, *train_max;
+  float *row_pos01, *row_dir01, *row_ts, *row_dt;
+  int *row_first, *row_count;
+  uint8_t* slot_mask;
+  long long row_cap;
 };
 
 // Layout shared with ops/march_cuda.py::CompositeArgs: the composite's
@@ -160,6 +203,18 @@ struct CompositeArgs {
   long long sigma_stride, m;
   float *rgba_out, *depth_out, *max_w_out, *wn_out, *surf_a_out;
   uint8_t* alive_out;
+  // the list form (ids non-null): ray ids[j]'s state read and written in
+  // place in the frame's arrays (the *_out pointers are the inputs'; t
+  // written from t_end); t_end, exited, stopped indexed by j; a slot's row
+  // from the walk's first row and slot bits of entry j, the row's t and
+  // dt beside its network outputs; the rays still alive appended to
+  // next_ids from 0 on (*next_count holds 0 at the launch)
+  const int *ids, *row_first;
+  const uint8_t* slot_mask;
+  const float *row_ts, *row_dt;
+  float* t_out;
+  int *next_ids, *next_count;
+  long long next_cap;
 };
 
 namespace {
@@ -170,8 +225,9 @@ constexpr float F32_MAX = 3.402823466e38f;
 constexpr int THREADS = 128;        // composite
 constexpr int WALK_THREADS = 256;   // the walks: one block a 256-ray tile
 constexpr int INIT_THREADS = 128;   // the init walk's tile (PERF.md)
+constexpr int MAX_LIST_STEPS = 64;  // the list walk's slot bits
 enum { ROUTE_JUMP = 0, ROUTE_DIST = 1, ROUTE_DIST_MIPS = 2, ROUTE_DDA = 3 };
-enum { WALK_ADVANCE = 1, WALK_SAMPLES = 2, WALK_INIT = 4 };
+enum { WALK_ADVANCE = 1, WALK_SAMPLES = 2, WALK_INIT = 4, WALK_LIST = 8 };
 enum { STAGE_BLEND = 1, STAGE_SAMPLES = 2 };
 // ops/network.py's activations; ACT_EXP_CLAMPED is the colour's
 // exponential, exp(clamp(x, -10, 10))
@@ -466,12 +522,24 @@ __device__ __forceinline__ bool probe(
 // The walk: a thread per ray. ADVANCE: the advance pass, writing t and
 // alive; SAMPLES: the round's K slots from there (from the state's t and
 // alive without ADVANCE); INIT (alone): init_rays' bounded walk, dt from
-// the absolute t, which reads neither t_start nor surf_a.
-template <int ROUTE, bool ADVANCE, bool SAMPLES, bool INIT>
+// the absolute t, which reads neither t_start nor surf_a. LIST (with
+// SAMPLES): thread j takes ray ids[j] of the frame's arrays (alive is
+// implied with ADVANCE, read without it), writes t and alive back with
+// ADVANCE, and writes each valid slot's row (its network input, t and
+// dt) where a warp-aggregated counter puts it, and at j its first row,
+// its slot bits and the ray's t_end, exited and stopped. Its threads
+// past the list's length walk nothing but take part in the warp's row
+// allocation.
+template <int ROUTE, bool ADVANCE, bool SAMPLES, bool INIT, bool LIST = false>
 __global__ void __launch_bounds__(INIT ? INIT_THREADS : WALK_THREADS)
 walk_kernel(MarchParams P, int n, WalkArgs a) {
-  const int i = blockIdx.x * (INIT ? INIT_THREADS : WALK_THREADS) + threadIdx.x;
-  if (i >= n) return;
+  const int j = blockIdx.x * (INIT ? INIT_THREADS : WALK_THREADS) + threadIdx.x;
+  if (!LIST && j >= n) return;
+  // the list's length and the thread's ray; a thread past the list reads
+  // ray 0 (the frame has one) and writes nothing
+  const int len = LIST ? (a.n_list ? min(*a.n_list, n) : n) : n;
+  const bool on = !LIST || j < len;
+  const int i = LIST ? (on ? a.ids[j] : 0) : j;
   if (INIT) {
     float t = a.t[i];
     bool alive = a.alive[i] != 0;
@@ -504,7 +572,7 @@ walk_kernel(MarchParams P, int n, WalkArgs a) {
   const Ray r = load_ray(a.o, a.d, i);
   const float ts = a.t_surf[i], t0 = a.t_start[i], sa = a.surf_a[i];
   float t = a.t[i];
-  bool alive = a.alive[i] != 0;
+  bool alive = LIST ? on && (ADVANCE || a.alive[i] != 0) : a.alive[i] != 0;
   if (ADVANCE) {
     if (alive && P.iters > 0) {
       const bool surf_live = ts > 0.0f && sa > 0.0f;
@@ -527,13 +595,19 @@ walk_kernel(MarchParams P, int n, WalkArgs a) {
         t = adv;
       }
     }
-    a.t_out[i] = t;
-    a.alive_out[i] = alive;
+    if (on) {
+      a.t_out[i] = t;
+      a.alive_out[i] = alive;
+    }
   }
   if (SAMPLES) {
     const bool has_surface = ts > 0.0f;
     const bool surf_full = sa >= 1.0f;
     bool gen_alive = alive, exited = false, stopped = false;
+    // LIST: the valid slots' bits and t (K <= MAX_LIST_STEPS)
+    unsigned long long found_mask = 0;
+    float t_found[LIST ? MAX_LIST_STEPS : 1];
+    int n_found = 0;
     for (int k = 0; k < P.steps; ++k) {
       int status = gen_alive ? 0 : -1;
       for (int s = 0; s < P.skip_iters && status == 0; ++s) {
@@ -552,22 +626,78 @@ walk_kernel(MarchParams P, int n, WalkArgs a) {
       }
       const bool found = status == 1;
       const float dt = calc_dt(t - t0, P);
-      const long long slot = (long long)k * n + i;
-      float p[3];
-      at(r, t, p);
+      if (LIST) {
+        if (found) t_found[n_found++] = t;
+        found_mask |= (unsigned long long)found << k;
+      } else {
+        const long long slot = (long long)k * n + i;
+        float p[3];
+        at(r, t, p);
 #pragma unroll
-      for (int c = 0; c < 3; ++c) a.pos_k[3 * slot + c] = p[c];
-      a.dt_k[slot] = dt;
-      a.valid_k[slot] = found;
-      a.ts_k[slot] = t;
+        for (int c = 0; c < 3; ++c) a.pos_k[3 * slot + c] = p[c];
+        a.dt_k[slot] = dt;
+        a.valid_k[slot] = found;
+        a.ts_k[slot] = t;
+      }
       exited = exited || status == 2;
       stopped = stopped || status == 3;
       t = found ? t + dt : (status == 3 ? ts : t);
       gen_alive = gen_alive && (found || status == 0);
     }
-    a.t_end[i] = t;
-    a.exited[i] = exited && alive;
-    a.stopped[i] = stopped && alive;
+    const int out = LIST ? j : i;
+    if (on) {
+      a.t_end[out] = t;
+      a.exited[out] = exited && alive;
+      a.stopped[out] = stopped && alive;
+    }
+    if (LIST) {
+      // the warp's rows: one atomicAdd, a lane's rows in slot order after
+      // the rows of the lanes below it
+      const unsigned lane = threadIdx.x & 31u;
+      int incl = n_found;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, incl, off);
+        if (lane >= (unsigned)off) incl += y;
+      }
+      const int total = __shfl_sync(0xffffffffu, incl, 31);
+      int base = 0;
+      if (lane == 31u && total > 0) base = atomicAdd(a.row_count, total);
+      base = __shfl_sync(0xffffffffu, base, 31);
+      const long long first = (long long)base + incl - n_found;
+      if (on) {
+        a.row_first[j] = (int)first;
+        for (int q = 0; 8 * q < P.steps; ++q)      // slots 8q..8q+7
+          a.slot_mask[(long long)q * len + j] = (uint8_t)(found_mask >> (8 * q));
+      }
+      float lo[3], ext[3], dir01[3];
+      if (n_found) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          // aten's (pos - train_min) / (train_max - train_min) and
+          // (d + 1) * 0.5, each rounded on its own
+          lo[c] = __ldg(a.train_min + c);
+          ext[c] = __fsub_rn(__ldg(a.train_max + c), lo[c]);
+          dir01[c] = __fmul_rn(__fadd_rn(r.d[c], 1.0f), 0.5f);
+        }
+      }
+      // (the room is K x the list's length, all a list can fill from row
+      // 0; the bound keeps a caller's count that did not start at 0 from
+      // writing past it)
+      for (int q = 0; q < n_found && first + q < a.row_cap; ++q) {
+        const long long row = first + q;
+        const float tk = t_found[q];
+        float p[3];
+        at(r, tk, p);
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          a.row_pos01[3 * row + c] = __fdiv_rn(__fsub_rn(p[c], lo[c]), ext[c]);
+          a.row_dir01[3 * row + c] = dir01[c];
+        }
+        a.row_ts[row] = tk;
+        a.row_dt[row] = calc_dt(tk - t0, P);
+      }
+    }
   }
 }
 
@@ -596,6 +726,90 @@ __global__ void __launch_bounds__(THREADS) row_map_kernel(
   if (s >= 0 && s < total) rows[s] = (int)j;
 }
 
+// A ray's compositing state, and the three steps of a round's composite
+// that both forms run: the in-march surface blend, one slot of the
+// front-to-back loop, the final surface blend.
+struct Comp {
+  float c[4], sc[4], depth, max_w, wn, sa;
+  bool comp;           // still compositing
+};
+
+// the in-march surface blend, once before the round's samples
+__device__ __forceinline__ void surface_blend(Comp& s, const MarchParams& P,
+                                              float ts, float t_payload) {
+  if (s.comp && ts > 0.0f && t_payload > ts && s.sa > 0.0f) {
+    const float w = s.sa * (1.0f - s.c[3]);
+#pragma unroll
+    for (int j = 0; j < 3; ++j) s.c[j] = s.c[j] + s.sc[j] * w;
+    s.c[3] = s.c[3] + w;
+    s.sa = 0.0f;
+    if (s.c[3] > 0.99f) {
+      const float inv = 1.0f / clamp_lo(s.c[3], 1e-9f);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s.c[j] = s.c[j] * inv;
+      if (P.deferred) s.wn = s.wn * inv;
+      s.comp = false;
+    }
+  }
+}
+
+// one slot: weight w (0 where the slot is not used) of colour rgb ->
+// whether the slot is the ray's new max-weight sample
+__device__ __forceinline__ bool add_slot(Comp& s, const MarchParams& P,
+                                         bool use, float w,
+                                         const float rgb[3]) {
+#pragma unroll
+  for (int m = 0; m < 3; ++m) s.c[m] = s.c[m] + rgb[m] * w;
+  s.c[3] = s.c[3] + w;
+  if (P.deferred) s.wn = s.wn + w;
+  const bool done = use && s.c[3] > P.sat_alpha;
+  const bool upd = w > s.max_w;
+  if (upd) s.max_w = w;
+  if (done) {
+    const float inv = 1.0f / clamp_lo(s.c[3], 1e-9f);
+#pragma unroll
+    for (int m = 0; m < 4; ++m) s.c[m] = s.c[m] * inv;
+    if (P.deferred) s.wn = s.wn * inv;
+    s.comp = false;
+  }
+  return upd && use;
+}
+
+// the final surface blend of rays that ended
+__device__ __forceinline__ void final_blend(Comp& s, bool ended) {
+  if (s.comp && ended && s.sa > 0.0f) {
+    const float T = 1.0f - s.c[3];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s.c[j] = s.c[j] + s.sc[j] * T;
+  }
+  s.comp = s.comp && !ended;
+}
+
+__device__ __forceinline__ Comp load_comp(const CompositeArgs& a, int i) {
+  Comp s;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    s.c[j] = a.rgba[4 * i + j];
+    s.sc[j] = a.surf[4 * i + j];
+  }
+  s.depth = a.depth[i];
+  s.max_w = a.max_w[i];
+  s.wn = a.wn[i];
+  s.sa = a.surf_a[i];
+  return s;
+}
+
+__device__ __forceinline__ void store_comp(const CompositeArgs& a, int i,
+                                           const Comp& s) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) a.rgba_out[4 * i + j] = s.c[j];
+  a.depth_out[i] = s.depth;
+  a.max_w_out[i] = s.max_w;
+  a.wn_out[i] = s.wn;
+  a.surf_a_out[i] = s.sa;
+  a.alive_out[i] = s.comp;
+}
+
 // The round's composite, a thread per ray: the in-march surface blend
 // (STAGE_BLEND), then (STAGE_SAMPLES) the front-to-back loop over the K
 // slots and the final surface blend. The slots come in chunks of
@@ -616,42 +830,19 @@ __global__ void __launch_bounds__(THREADS) composite_kernel(
     MarchParams P, int n, CompositeArgs a) {
   const int i = blockIdx.x * THREADS + threadIdx.x;
   if (i >= n) return;
-  float c[4], sc[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    c[j] = a.rgba[4 * i + j];
-    sc[j] = a.surf[4 * i + j];
-  }
-  float depth = a.depth[i], max_w = a.max_w[i], wn = a.wn[i];
-  float sa = a.surf_a[i];
+  Comp s = load_comp(a, i);
   const float ts = a.t_surf[i];
   const bool alive = a.alive[i] != 0;
   const bool exited = a.exited[i] != 0, stopped = a.stopped[i] != 0;
-  bool comp = alive;
-  if (P.stage & STAGE_BLEND) {
-    // the in-march surface blend, once before the round's samples
-    const float t_payload = exited ? a.t_round[i]
-                                   : (stopped ? ts : a.t_end[i]);
-    if (comp && ts > 0.0f && t_payload > ts && sa > 0.0f) {
-      const float w = sa * (1.0f - c[3]);
-#pragma unroll
-      for (int j = 0; j < 3; ++j) c[j] = c[j] + sc[j] * w;
-      c[3] = c[3] + w;
-      sa = 0.0f;
-      if (c[3] > 0.99f) {
-        const float inv = 1.0f / clamp_lo(c[3], 1e-9f);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) c[j] = c[j] * inv;
-        if (P.deferred) wn = wn * inv;
-        comp = false;
-      }
-    }
-  }
+  s.comp = alive;
+  if (P.stage & STAGE_BLEND)
+    surface_blend(s, P, ts, exited ? a.t_round[i]
+                                   : (stopped ? ts : a.t_end[i]));
   if (P.stage & STAGE_SAMPLES) {
     for (int k0 = 0; k0 < P.steps; k0 += COMPOSITE_CHUNK) {
       unsigned valid = 0, owns = 0;
       int row[COMPOSITE_CHUNK];
-      const bool reads = comp && alive;
+      const bool reads = s.comp && alive;
 #pragma unroll
       for (int j = 0; j < COMPOSITE_CHUNK; ++j) {
         const long long slot = (long long)(k0 + j) * n + i;
@@ -670,7 +861,7 @@ __global__ void __launch_bounds__(THREADS) composite_kernel(
       for (int j = 0; j < COMPOSITE_CHUNK; ++j) {
         if (k0 + j >= P.steps) break;
         const long long slot = (long long)(k0 + j) * n + i;
-        const bool use = comp && (valid >> j & 1u) && alive;
+        const bool use = s.comp && (valid >> j & 1u) && alive;
         float w = 0.0f, rgb[3] = {0.0f, 0.0f, 0.0f};
         if (use) {
           const long long r = row[j];
@@ -698,50 +889,110 @@ __global__ void __launch_bounds__(THREADS) composite_kernel(
 #pragma unroll
             for (int m = 0; m < 3; ++m) rgb[m] = activate(raw_rgb[m], P.rgb_act);
           }
-          w = alpha * (1.0f - c[3]);
+          w = alpha * (1.0f - s.c[3]);
         }
-#pragma unroll
-        for (int m = 0; m < 3; ++m) c[m] = c[m] + rgb[m] * w;
-        c[3] = c[3] + w;
-        if (P.deferred) wn = wn + w;
-        const bool done = use && c[3] > P.sat_alpha;
-        const bool upd = w > max_w;
-        if (upd) max_w = w;
-        if (upd && use) depth = a.ts_k[slot];
-        if (done) {
-          const float inv = 1.0f / clamp_lo(c[3], 1e-9f);
-#pragma unroll
-          for (int m = 0; m < 4; ++m) c[m] = c[m] * inv;
-          if (P.deferred) wn = wn * inv;
-          comp = false;
-        }
+        if (add_slot(s, P, use, w, rgb)) s.depth = a.ts_k[slot];
       }
     }
-    // the final surface blend of rays that ended
-    const bool ended = exited || stopped;
-    if (comp && ended && sa > 0.0f) {
-      const float T = 1.0f - c[3];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) c[j] = c[j] + sc[j] * T;
-    }
-    comp = comp && !ended;
+    final_blend(s, exited || stopped);
   }
+  store_comp(a, i, s);
+}
+
+// The list form, a thread per entry j of the epoch's list, ray ids[j]:
+// the blend, the K slots and the final blend of composite_kernel on the
+// frame's arrays, in place, with t = t_end; the valid slots, from the
+// walk's slot bits of entry j, take its rows in order from its first
+// row (a slot the loop reaches only after the ray settled reads
+// nothing), the row's raw density, colour, t and dt read together; then
+// the rays still compositing are appended to next_ids (a block scan of
+// the flags, one atomicAdd a block). Entries past the list take part in
+// the scan only.
+__global__ void __launch_bounds__(THREADS) composite_list_kernel(
+    MarchParams P, int n, CompositeArgs a) {
+  const int j = blockIdx.x * THREADS + threadIdx.x;
+  const bool on = j < n;
+  const int i = on ? a.ids[j] : 0;
+  bool keep = false;
+  if (on) {
+    Comp s = load_comp(a, i);
+    const float ts = a.t_surf[i];
+    const bool alive = a.alive[i] != 0;
+    const bool exited = a.exited[j] != 0, stopped = a.stopped[j] != 0;
+    const float t_end = a.t_end[j];
+    s.comp = alive;
+    surface_blend(s, P, ts, exited ? a.t_round[i] : (stopped ? ts : t_end));
+    long long r = a.row_first[j];
+    for (int k0 = 0; k0 < P.steps; k0 += 8) {
+      // the chunk's 8 slot bits; a valid slot takes the next row
+      const unsigned bits = s.comp && alive
+                                ? a.slot_mask[(long long)(k0 >> 3) * n + j] : 0u;
 #pragma unroll
-  for (int j = 0; j < 4; ++j) a.rgba_out[4 * i + j] = c[j];
-  a.depth_out[i] = depth;
-  a.max_w_out[i] = max_w;
-  a.wn_out[i] = wn;
-  a.surf_a_out[i] = sa;
-  a.alive_out[i] = comp;
+      for (int c = 0; c < 8; ++c) {
+        if (k0 + c >= P.steps) break;
+        const bool use = s.comp && (bits >> c & 1u);
+        float w = 0.0f, rgb[3] = {0.0f, 0.0f, 0.0f}, t_slot = 0.0f;
+        if (use) {
+          // (a row past the network's, none where the walk's count
+          // started at 0, has alpha and colour 0)
+          float alpha = 0.0f;
+          if (r < a.m) {
+            const float raw_sigma = a.sigma[r * a.sigma_stride];
+            const float dt = a.row_dt[r];
+            float raw_rgb[3];
+#pragma unroll
+            for (int m = 0; m < 3; ++m) raw_rgb[m] = a.rgb[3 * r + m];
+            t_slot = a.row_ts[r];
+            const float sigma = activate(raw_sigma, P.density_act);
+            alpha = 1.0f - expf(-sigma * dt);
+#pragma unroll
+            for (int m = 0; m < 3; ++m) rgb[m] = activate(raw_rgb[m], P.rgb_act);
+          }
+          ++r;
+          w = alpha * (1.0f - s.c[3]);
+        }
+        if (add_slot(s, P, use, w, rgb)) s.depth = t_slot;
+      }
+    }
+    final_blend(s, exited || stopped);
+    store_comp(a, i, s);
+    a.t_out[i] = t_end;
+    keep = s.comp;
+  }
+  if (!a.next_ids) return;
+  __shared__ int warp_base[THREADS / 32];
+  __shared__ int block_base;
+  const unsigned ballot = __ballot_sync(0xffffffffu, keep);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) warp_base[warp] = __popc(ballot);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int total = 0;
+    for (int w = 0; w < THREADS / 32; ++w) {
+      const int c = warp_base[w];
+      warp_base[w] = total;
+      total += c;
+    }
+    block_base = total > 0 ? atomicAdd(a.next_count, total) : 0;
+  }
+  __syncthreads();
+  if (keep) {
+    const long long at_ = (long long)block_base + warp_base[warp]
+                          + __popc(ballot & ((1u << lane) - 1u));
+    // (the room is the list's length, all a next list can fill from 0;
+    // the bound keeps a count that did not start at 0 from writing past)
+    if (at_ < a.next_cap) a.next_ids[at_] = i;
+  }
 }
 
 inline int blocks(int n) { return (n + THREADS - 1) / THREADS; }
 
-template <int ROUTE, bool ADVANCE, bool SAMPLES, bool INIT = false>
+template <int ROUTE, bool ADVANCE, bool SAMPLES, bool INIT = false,
+          bool LIST = false>
 int launch_walk(const MarchParams& P, int n, const WalkArgs& a,
                 cudaStream_t s) {
   constexpr int tile = INIT ? INIT_THREADS : WALK_THREADS;
-  walk_kernel<ROUTE, ADVANCE, SAMPLES, INIT>
+  walk_kernel<ROUTE, ADVANCE, SAMPLES, INIT, LIST>
       <<<(n + tile - 1) / tile, tile, 0, s>>>(P, n, a);
   return static_cast<int>(cudaGetLastError());
 }
@@ -755,6 +1006,10 @@ int launch_walk_mode(const MarchParams& P, int n, const WalkArgs& a,
     case WALK_ADVANCE | WALK_SAMPLES:
       return launch_walk<ROUTE, true, true>(P, n, a, s);
     case WALK_INIT: return launch_walk<ROUTE, false, false, true>(P, n, a, s);
+    case WALK_LIST | WALK_ADVANCE | WALK_SAMPLES:
+      return launch_walk<ROUTE, true, true, false, true>(P, n, a, s);
+    case WALK_LIST | WALK_SAMPLES:
+      return launch_walk<ROUTE, false, true, false, true>(P, n, a, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -777,12 +1032,17 @@ extern "C" int nmr_march_walk(const MarchParams* p, int n, const WalkArgs* a,
   }
 }
 
-// The composite: the row map of the network's rows (where there are
-// any), then the composite kernel.
+// The composite: the list form's kernel where the arguments carry a
+// list; else the row map of the network's rows (where there are any),
+// then the composite kernel.
 extern "C" int nmr_march_composite(const MarchParams* p, int n,
                                    const CompositeArgs* a, void* stream) {
   const MarchParams P = *p;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (a->ids) {
+    composite_list_kernel<<<blocks(n), THREADS, 0, s>>>(P, n, *a);
+    return static_cast<int>(cudaGetLastError());
+  }
   if (a->m > 0) {
     row_map_kernel<<<(unsigned)((a->m + THREADS - 1) / THREADS), THREADS, 0, s>>>(
         a->slots, a->m, (long long)P.steps * n, a->rows);

@@ -13,7 +13,12 @@ their plain PyTorch versions, and the empty-space probes the loops call.
   rounds starts with (raymarch.march_frame_impl).
 - `init_walk` is init_rays' bounded walk to the first occupied voxel
   (JAX: raymarch.py:518-565).
-  The four run one kernel body, nmr_march_walk's walk_kernel, in the
+- `walk_list` is the exact epoch's walk on the frame's own arrays
+  through the epoch's live-ray list (raymarch._march_lists): the advance
+  and the first round's samples (or a later round's samples) of each
+  listed ray, t and alive written back in place, and each valid slot's
+  network input as a row (`list_buffers`).
+  The five run one kernel body, nmr_march_walk's walk_kernel, in the
   form each needs.
 - `composite` (nmr_march_composite) is the non-vector compositing of
   `_march_round` from the network's rows: the activations and alpha of
@@ -23,6 +28,10 @@ their plain PyTorch versions, and the empty-space probes the loops call.
   rest (STAGE_SAMPLES) as two calls, with a dense alpha from its baked
   sigma and colour rows for the slots it colours. `dense_round` spreads
   a round's rows over its (K, n) slots, as the vector rounds need them.
+- `composite_list` is the same compositing on the listed rays of the
+  frame's arrays, in place, from the rows walk_list made and the
+  network's outputs on them; it lists the rays still alive for the next
+  epoch.
 None of these was a Pallas kernel: the TPU could not gather from its
 fast memory inside a kernel (docs/KERNELS.md section 2), so the JAX
 package left the loops to XLA. A GPU thread runs one ray's loop and
@@ -88,7 +97,8 @@ MISMATCH_MIN = 4
 STEP_TOL = C.MAX_CONE_STEPSIZE
 COMPOSITE_ATOL = 1e-6
 
-KERNELS = ("advance", "init_walk", "samples", "advance_samples", "composite")
+KERNELS = ("advance", "init_walk", "samples", "advance_samples", "composite",
+           "walk_list", "composite_list")
 # Kernel launches per wrapper (CUDA tensors only).
 launches = dict.fromkeys(KERNELS, 0)
 
@@ -97,7 +107,8 @@ build_log = ""
 build_seconds = 0.0
 
 ROUTE_JUMP, ROUTE_DIST, ROUTE_DIST_MIPS, ROUTE_DDA = range(4)
-WALK_ADVANCE, WALK_SAMPLES, WALK_INIT = 1, 2, 4
+WALK_ADVANCE, WALK_SAMPLES, WALK_INIT, WALK_LIST = 1, 2, 4, 8
+MAX_LIST_STEPS = 64            # the list walk's slot mask (csrc/march.cu)
 STAGE_BLEND, STAGE_SAMPLES = 1, 2
 # ops/network.py's activations as the composite kernel takes them; the
 # colour's "exponential" clamps first (apply_rgb_activation)
@@ -127,28 +138,38 @@ class MarchParams(ctypes.Structure):
 _WALK_TENSORS = ("o", "d", "t", "t_start", "t_surf", "surf_a", "alive",
                  "grid", "box_lo", "box_hi", "local", "t_out", "alive_out",
                  "pos_k", "dt_k", "valid_k", "ts_k", "t_end", "exited",
-                 "stopped")
+                 "stopped", "ids", "n_list", "train_min", "train_max",
+                 "row_pos01", "row_dir01", "row_ts", "row_dt", "row_first",
+                 "row_count", "slot_mask")
 
 
 class WalkArgs(ctypes.Structure):
     """csrc/march.cu's WalkArgs: the walk's tensors' device pointers (None
-    for what a form does not read or write)."""
-    _fields_ = [(k, ctypes.c_void_p) for k in _WALK_TENSORS]
+    for what a form does not read or write) and the list form's row
+    capacity."""
+    _fields_ = ([(k, ctypes.c_void_p) for k in _WALK_TENSORS]
+                + [("row_cap", ctypes.c_longlong)])
 
 
 _COMPOSITE_IN = ("rgba", "depth", "max_weight", "wn", "surf_a", "t", "alive",
                  "surf", "t_surf", "t_end", "exited", "surf_stopped", "valid",
                  "color", "ts", "dt", "alpha", "sigma", "rgb", "slots", "rows")
 _COMPOSITE_OUT = ("rgba", "depth", "max_weight", "wn", "surf_a", "alive")
+_COMPOSITE_LIST = ("ids", "row_first", "slot_mask", "row_ts", "row_dt",
+                   "t_out", "next_ids", "next_count")
 
 
 class CompositeArgs(ctypes.Structure):
     """csrc/march.cu's CompositeArgs: the composite's tensors' device
     pointers (None for what a stage or form does not read), the density
-    rows' stride and the number of rows."""
+    rows' stride and the number of rows; the list form's list, first rows
+    and slot bits, rows' t and dt, frame t and next list with its
+    capacity."""
     _fields_ = ([(k, ctypes.c_void_p) for k in _COMPOSITE_IN]
                 + [("sigma_stride", ctypes.c_longlong), ("m", ctypes.c_longlong)]
-                + [(k + "_out", ctypes.c_void_p) for k in _COMPOSITE_OUT])
+                + [(k + "_out", ctypes.c_void_p) for k in _COMPOSITE_OUT]
+                + [(k, ctypes.c_void_p) for k in _COMPOSITE_LIST]
+                + [("next_cap", ctypes.c_longlong)])
 
 
 def load_library() -> ctypes.CDLL:
@@ -567,6 +588,175 @@ def composite_reference(st, rnd, opts, stage: int = STAGE_BLEND | STAGE_SAMPLES)
 
 
 # ---------------------------------------------------------------------------
+# The list forms: the exact epoch on the frame's arrays through its
+# live-ray list
+# ---------------------------------------------------------------------------
+
+def _mask_bytes(steps: int) -> int:
+    return (steps + 7) // 8
+
+
+def list_buffers(n: int, steps: int, device) -> dict:
+    """The buffers the list forms write, sized once for a frame whose
+    first list holds n rays (no later list is longer): the rows of a
+    round, at most steps * n (pos01, dir01 (rows, 3) f32, the network's
+    inputs; ts, dt (rows,) f32), and a list entry's first row (n,) int32,
+    slot bits (ceil(steps / 8) * n,) uint8 (slots 8b..8b+7 of entry j in
+    byte b * length + j; its valid slots take its rows in slot order from
+    its first row), t_end (n,) f32, exited, stopped (n,) bool."""
+    f32 = dict(dtype=torch.float32, device=device)
+    b8 = dict(dtype=torch.bool, device=device)
+    rows = steps * n
+    return {"pos01": torch.empty((rows, 3), **f32),
+            "dir01": torch.empty((rows, 3), **f32),
+            "ts": torch.empty(rows, **f32), "dt": torch.empty(rows, **f32),
+            "first": torch.empty(n, dtype=torch.int32, device=device),
+            "mask": torch.empty(_mask_bytes(steps) * n, dtype=torch.uint8,
+                                device=device),
+            "t_end": torch.empty(n, **f32), "exited": torch.empty(n, **b8),
+            "stopped": torch.empty(n, **b8)}
+
+
+def list_slot_rows(rows, n: int, steps: int):
+    """The row of each slot of a list of n entries from list_buffers'
+    first rows and slot bits -> (steps, n) int64, -1 for a slot with no
+    row."""
+    nb = _mask_bytes(steps)
+    mask = rows["mask"][:nb * n].reshape(nb, 1, n)
+    shift = torch.arange(8, dtype=torch.uint8, device=mask.device)[:, None]
+    valid = ((mask >> shift) & 1).reshape(nb * 8, n)[:steps].bool()
+    below = torch.cumsum(valid, 0) - valid.long()
+    return torch.where(valid, rows["first"][:n].long() + below, -1)
+
+
+def _zero_count(name, count):
+    """The list forms write from row (list entry) 0 on: their counters
+    start at 0."""
+    if int(count[0]) != 0:
+        raise ValueError(f"{name} must hold 0, holds {int(count[0])}")
+
+
+def walk_list_reference(frame, ids, n, scene, opts, iters, rows, count,
+                        n_dev=None):
+    """walk_list's plain version: the listed rays gathered into a
+    compacted copy (alive True with `iters`, the frame's without),
+    advance_samples_reference (samples_reference without `iters`), t and
+    alive scattered back, the valid slots' rows in list order, a ray's in
+    slot order (torch.nonzero), each entry's first row, slot bits and
+    ends written; count (0) becomes the row count."""
+    _zero_count("walk_list: count", count)
+    if n_dev is not None:
+        n = min(int(n_dev[0]), n)
+    K = opts.steps_per_round
+    idl = ids[:n].long()
+    sub = {k: frame[k][idl] for k in _STATE}
+    if iters is not None:
+        sub["alive"] = torch.ones(n, dtype=torch.bool, device=idl.device)
+        (t, alive), gen = advance_samples_reference(sub, scene, opts, iters)
+        frame["t"][idl] = t
+        frame["alive"][idl] = alive
+    else:
+        gen = samples_reference(sub, scene, opts)
+    (pos, dt, valid, ts), t_end, exited, stopped = gen
+    # (entry, slot) pairs of the valid slots, entry-major
+    sel = torch.nonzero(valid.T.reshape(-1)).squeeze(1)
+    j, k = sel // K, sel % K
+    m = sel.numel()
+    rows["pos01"][:m] = ((pos[k, j] - scene["train_min"])
+                         / (scene["train_max"] - scene["train_min"]))
+    rows["dir01"][:m] = ((sub["d"] + 1.0) * 0.5)[j]
+    rows["ts"][:m] = ts[k, j]
+    rows["dt"][:m] = dt[k, j]
+    per = valid.sum(0)
+    rows["first"][:n] = (torch.cumsum(per, 0) - per).to(torch.int32)
+    nb = _mask_bytes(K)
+    bits = torch.zeros((nb * 8, n), dtype=torch.uint8, device=idl.device)
+    bits[:K] = valid.to(torch.uint8)
+    shift = torch.arange(8, dtype=torch.uint8, device=idl.device)[:, None]
+    rows["mask"][:nb * n] = (bits.reshape(nb, 8, n) << shift).sum(
+        1, dtype=torch.uint8).reshape(-1)
+    rows["t_end"][:n] = t_end
+    rows["exited"][:n] = exited
+    rows["stopped"][:n] = stopped
+    count[0] = m
+
+
+_LIST_STATE = ("rgba", "depth", "max_weight", "wn", "surf_a", "t", "alive",
+               "surf", "t_surf")
+
+
+def _rows_like(x, idx):
+    """x's rows idx in a tensor of x's shape and strides."""
+    out = torch.empty_strided(x.shape, x.stride(), dtype=x.dtype,
+                              device=x.device)
+    return out.copy_(x[idx])
+
+
+def composite_list_reference(frame, ids, n, rows, m, rgb, sigma, opts,
+                             next_ids=None, next_count=None):
+    """composite_list's plain version: the listed rays gathered in
+    ascending ray id, their slots' rows (list_slot_rows) as
+    composite_reference takes them, composite_reference, the state
+    scattered back with t = t_end, and the rays still alive written to
+    next_ids in the list's order, next_count (0) their number. The rows
+    go to composite_reference in ascending ray id within a slot, slot
+    after slot, and in the layout the network gave them (the colour a
+    column block of a wider output): aten's CPU activations round their
+    vectorised body and scalar tail apart, so an element's bits may
+    depend on where it lies and on its tensor's strides. With the list
+    ascending the rows lie as the gathered epoch hands them to the
+    composite."""
+    K = opts.steps_per_round
+    if next_ids is not None:
+        _zero_count("composite_list: next_count", next_count)
+    idl = ids[:n].long()
+    order = torch.argsort(idl)
+    ids_s = idl[order]
+    slot_rows = list_slot_rows(rows, n, K)[:, order]
+    valid = slot_rows >= 0
+    sel = torch.nonzero(valid.reshape(-1)).squeeze(1)
+    r = slot_rows.reshape(-1)[sel]
+    dense = {}
+    for k in ("ts", "dt"):
+        dense[k] = torch.zeros((K, n), device=idl.device)
+        dense[k].view(-1)[sel] = rows[k][:m][r]
+    st = {k: frame[k][ids_s] for k in _LIST_STATE}
+    t_end = rows["t_end"][:n][order]
+    rnd = {"t_end": t_end, "exited": rows["exited"][:n][order],
+           "surf_stopped": rows["stopped"][:n][order], "valid": valid,
+           "ts": dense["ts"], "dt": dense["dt"], "rgb": _rows_like(rgb, r),
+           "sigma": _rows_like(sigma, r), "slots": sel}
+    out = composite_reference(st, rnd, opts)
+    frame["t"][ids_s] = t_end
+    for k, v in out.items():
+        frame[k][ids_s] = v
+    if next_ids is not None:
+        live = idl[frame["alive"][idl]]
+        next_ids[:live.numel()] = live.to(torch.int32)
+        next_count[0] = live.numel()
+
+
+def list_walk_outputs(frame, ids, n, rows, steps):
+    """walk_list's result spread over its slots, as advance_samples gives
+    it on the gathered rays -> ((t, alive), ((pos01 (K, n, 3), dt, valid,
+    ts (K, n)), t_end, exited, stopped)), 0 where a slot has no row: what
+    compare_with_plain and the tests hold the list walk to (pos01 where
+    advance_samples gives pos)."""
+    idl = ids[:n].long()
+    slot_rows = list_slot_rows(rows, n, steps)
+    valid = slot_rows >= 0
+    r = slot_rows[valid]
+    dense = {"pos01": torch.zeros((steps, n, 3), device=idl.device)}
+    dense["pos01"][valid] = rows["pos01"][r]
+    for k in ("dt", "ts"):
+        dense[k] = torch.zeros((steps, n), device=idl.device)
+        dense[k][valid] = rows[k][r]
+    return ((frame["t"][idl], frame["alive"][idl]),
+            ((dense["pos01"], dense["dt"], valid, dense["ts"]),
+             rows["t_end"][:n], rows["exited"][:n], rows["stopped"][:n]))
+
+
+# ---------------------------------------------------------------------------
 # The wrappers
 # ---------------------------------------------------------------------------
 
@@ -830,6 +1020,184 @@ def composite(st, rnd, opts, stage: int = STAGE_BLEND | STAGE_SAMPLES):
         _launch("composite", load_library().nmr_march_composite, dev, params,
                 n, ctypes.addressof(ptrs))
     return out
+
+
+def _buffer(name, x, dtype, rows, device, width=None):
+    """x, a contiguous dtype tensor on device with at least `rows` rows
+    (of `width` columns), or ValueError."""
+    shape_ok = (x.dim() == (1 if width is None else 2)
+                and x.shape[0] >= rows
+                and (width is None or x.shape[1] == width))
+    if x.dtype != dtype or x.device != device or not shape_ok \
+            or not x.is_contiguous():
+        want = f"(>= {rows},)" if width is None else f"(>= {rows}, {width})"
+        raise ValueError(f"{name} must be a contiguous {dtype} {want} tensor "
+                         f"on {device}, got {x.dtype} {tuple(x.shape)} on "
+                         f"{x.device}")
+    return x
+
+
+def _counter(name, x, device):
+    """x, one int32 on device, or ValueError."""
+    if (x.dtype != torch.int32 or x.numel() != 1 or x.device != device
+            or not x.is_contiguous()):
+        raise ValueError(f"{name} must be one int32 on {device}, got "
+                         f"{x.dtype} {tuple(x.shape)} on {x.device}")
+    return x
+
+
+def walk_list(frame, ids, n: int, scene, opts, iters, rows, count,
+              n_dev=None):
+    """The exact epoch's walk on the frame's arrays through its live-ray
+    list. frame: o, d (N, 3) f32; t, t_start, t_surf, surf_a (N,) f32;
+    alive (N,) bool. ids: int32, the list (ray ids[j] for j < its
+    length). n: the list's length, or with n_dev (one int32 on the
+    device) an upper bound of the length n_dev holds. iters: the advance
+    and the first round's samples of each listed ray (alive implied, t
+    and alive written back into the frame), or None: a later round's
+    samples (the frame's alive read; t and alive left as they are).
+    rows: list_buffers' (room for steps * n rows and entries); count: one
+    int32 on the device that holds 0: the valid slots' rows are written
+    from row 0 on, a ray's together in slot order from its first row,
+    and count becomes their number; the rays' order is the list's in the
+    plain version (walk_list_reference) and a warp's in the kernel.
+    Returns nothing: read count for the rows. The plain version raises
+    where count does not hold 0; the kernel, which cannot see it without
+    a host read, then writes no row past the buffers. On a CUDA tensor
+    one launch of nmr_march_walk's list form: a thread an entry, its rows
+    allocated with one atomicAdd a warp."""
+    K = opts.steps_per_round
+    dev, N, args = _ray_args("walk_list", frame, _STATE)
+    ids = _buffer("walk_list: ids", ids, torch.int32, n, dev)
+    if not 0 < K <= MAX_LIST_STEPS:
+        raise ValueError(f"walk_list takes 1-{MAX_LIST_STEPS} steps a "
+                         f"round, got {K}")
+    rows = {k: _buffer(f"rows[{k!r}]", rows[k], dt, r, dev, w)
+            for k, dt, r, w in (
+                ("pos01", torch.float32, K * n, 3),
+                ("dir01", torch.float32, K * n, 3),
+                ("ts", torch.float32, K * n, None),
+                ("dt", torch.float32, K * n, None),
+                ("first", torch.int32, n, None),
+                ("mask", torch.uint8, _mask_bytes(K) * n, None),
+                ("t_end", torch.float32, n, None),
+                ("exited", torch.bool, n, None),
+                ("stopped", torch.bool, n, None))}
+    count = _counter("count", count, dev)
+    if n_dev is not None:
+        n_dev = _counter("n_dev", n_dev, dev)
+    if dev.type == "cpu":
+        return walk_list_reference(frame, ids, n, scene, opts, iters, rows,
+                                   count, n_dev)
+    if n == 0 or N == 0:
+        return None
+    mode = WALK_LIST | WALK_SAMPLES | (WALK_ADVANCE if iters is not None
+                                       else 0)
+    params, grid = _params(scene, opts, mode=mode,
+                           iters=max(int(iters or 0), 0),
+                           skip_iters=int(opts.skip_iters), steps=K)
+    tensors = dict(zip(_STATE + ("grid", "box_lo", "box_hi", "local"),
+                       args + _scene_args(scene, grid, dev)))
+    tensors.update(
+        t_out=args[2], alive_out=args[6], ids=ids, n_list=n_dev,
+        train_min=_arg("train_min", scene["train_min"], torch.float32, (3,),
+                       dev),
+        train_max=_arg("train_max", scene["train_max"], torch.float32, (3,),
+                       dev),
+        row_pos01=rows["pos01"], row_dir01=rows["dir01"], row_ts=rows["ts"],
+        row_dt=rows["dt"], row_first=rows["first"], row_count=count,
+        slot_mask=rows["mask"],
+        t_end=rows["t_end"], exited=rows["exited"], stopped=rows["stopped"])
+    if args[2].data_ptr() != frame["t"].data_ptr() or \
+            args[6].data_ptr() != frame["alive"].data_ptr():
+        raise ValueError("walk_list writes t and alive in place: they must "
+                         "be contiguous")
+    cap = min(rows[k].shape[0] for k in ("pos01", "dir01", "ts", "dt"))
+    walk = WalkArgs(**{k: tensors[k].data_ptr() if tensors.get(k) is not None
+                       else None for k in _WALK_TENSORS}, row_cap=cap)
+    _launch("walk_list", load_library().nmr_march_walk, dev, params, n,
+            ctypes.addressof(walk))
+    return None
+
+
+def composite_list(frame, ids, n: int, rows, m: int, rgb, sigma, opts,
+                   next_ids=None, next_count=None):
+    """A round's compositing of the listed rays, in place in the frame's
+    arrays. frame: rgba, surf (N, 4) f32; depth, max_weight, wn, surf_a,
+    t, t_surf (N,) f32; alive (N,) bool; t is set to each ray's t_end.
+    ids: int32, the list's n entries. rows: walk_list's buffers after the
+    round's walk (first rows and slot bits, rows' ts and dt, the entries'
+    t_end, exited, stopped); m: its row count; rgb (m, 3) f32 and sigma
+    (m,) f32 (any stride: the density MLP's column 0): the network's
+    pre-activation outputs on the rows. next_ids (int32, room for n) and
+    next_count (one int32 on the device that holds 0): the rays still
+    alive are written there from 0 on (the plain version in the list's
+    order, the kernel a block's rays together) and next_count becomes
+    their number; or None. Where next_count does not hold 0 the plain
+    version raises and the kernel writes no entry past next_ids. On a
+    CUDA tensor one launch of nmr_march_composite's list form."""
+    K = opts.steps_per_round
+    dev, N, args = _ray_args("composite_list", frame, _LIST_STATE)
+    ids = _buffer("composite_list: ids", ids, torch.int32, n, dev)
+    for k, dt, r in (("first", torch.int32, n),
+                     ("mask", torch.uint8, _mask_bytes(K) * n),
+                     ("ts", torch.float32, m),
+                     ("dt", torch.float32, m), ("t_end", torch.float32, n),
+                     ("exited", torch.bool, n), ("stopped", torch.bool, n)):
+        _buffer(f"rows[{k!r}]", rows[k], dt, r, dev)
+    rgb_rows = _arg("rgb", rgb, torch.float32, (m, 3), dev)
+    if (sigma.dim() != 1 or sigma.shape[0] != m
+            or sigma.dtype != torch.float32 or sigma.device != dev):
+        raise ValueError(f"sigma must be a float32 (M,) = ({m},) tensor on "
+                         f"{dev}, got {sigma.dtype} {tuple(sigma.shape)} on "
+                         f"{sigma.device}")
+    if (next_ids is None) != (next_count is None):
+        raise ValueError("composite_list: next_ids and next_count go together")
+    if next_ids is not None:
+        _buffer("next_ids", next_ids, torch.int32, n, dev)
+        _counter("next_count", next_count, dev)
+    if dev.type == "cpu":
+        return composite_list_reference(frame, ids, n, rows, m, rgb, sigma,
+                                        opts, next_ids, next_count)
+    if any(a.data_ptr() != frame[k].data_ptr()
+           for k, a in zip(_LIST_STATE, args)):
+        raise ValueError("composite_list writes the frame's state in place: "
+                         "it must be contiguous")
+    if n == 0:
+        return None
+    cfg = opts.config
+    params = MarchParams(steps=K, deferred=int(opts.deferred_color),
+                         stage=STAGE_BLEND | STAGE_SAMPLES,
+                         density_act=ACTIVATIONS[cfg.density_activation],
+                         rgb_act=(ACT_EXP_CLAMPED
+                                  if cfg.rgb_activation == "exponential"
+                                  else ACTIVATIONS[cfg.rgb_activation]),
+                         sat_alpha=np.float32(1.0 - opts.min_transmittance))
+    st = dict(zip(_LIST_STATE, args))
+    tensors = {"rgba": st["rgba"], "depth": st["depth"],
+               "max_weight": st["max_weight"], "wn": st["wn"],
+               "surf_a": st["surf_a"], "t": st["t"], "alive": st["alive"],
+               "surf": st["surf"], "t_surf": st["t_surf"],
+               "t_end": rows["t_end"], "exited": rows["exited"],
+               "surf_stopped": rows["stopped"], "rgb": rgb_rows}
+    if m:
+        tensors["sigma"] = sigma
+    ptrs = CompositeArgs(
+        **{k: tensors[k].data_ptr() if k in tensors else None
+           for k in _COMPOSITE_IN},
+        sigma_stride=sigma.stride(0) if m else 0, m=m,
+        **{k + "_out": st[k].data_ptr() for k in _COMPOSITE_OUT},
+        ids=ids.data_ptr(), row_first=rows["first"].data_ptr(),
+        slot_mask=rows["mask"].data_ptr(),
+        row_ts=rows["ts"].data_ptr(), row_dt=rows["dt"].data_ptr(),
+        t_out=st["t"].data_ptr(),
+        next_ids=None if next_ids is None else next_ids.data_ptr(),
+        next_count=None if next_count is None else next_count.data_ptr(),
+        next_cap=0 if next_ids is None else next_ids.shape[0])
+    _launch("composite_list", load_library().nmr_march_composite, dev,
+            params, n, ctypes.addressof(ptrs))
+    return None
+
 
 
 # ---------------------------------------------------------------------------

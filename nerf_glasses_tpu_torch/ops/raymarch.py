@@ -6,21 +6,25 @@ init_rays_with_payload testbed.cu:355-467, advance_pos_nerf :470-537,
 generate_next_nerf_network_inputs :564-633, composite_kernel_nerf
 :784-905, trace loop :1938-2053).
 
-`march_frame_impl` runs eagerly: each epoch compacts the alive rays
-(one host read), walks them through empty space on occupancy lookups
-alone, then spends one K-sample round on them (`_march_round`); with
-sequential rounds the walk and the round's samples are one kernel
-launch (march_cuda.advance_samples). Every ray's result is independent
-of how rays are batched, so the epoch processes all alive rays as one
-batch where the
-JAX package used fixed 4096-ray chunks; the network runs only on the
-round's valid samples (an invalid sample composites with weight 0 in
-both packages). The per-ray loops (init_rays' walk, the advance pass, a
-round's sequential samples and its non-vector composite, which reads
-the network's rows where the network left them and applies the
+`march_frame_impl` runs eagerly: each epoch walks the alive rays
+through empty space on occupancy lookups alone, then spends one K-sample
+round on them. Every ray's result is independent of how rays are
+batched or ordered, so the epoch processes all alive rays as one batch
+where the JAX package used fixed 4096-ray chunks; the network runs only
+on the round's valid samples (an invalid sample composites with weight 0
+in both packages). The exact epoch of sequential rounds (`_march_lists`)
+reads and writes the frame's own arrays through the epoch's live-ray
+list: one walk (march_cuda.walk_list: the advance, the round's samples,
+the network's input rows), the network on the rows, one composite
+(march_cuda.composite_list, which lists the rays still alive for the
+next epoch), and one host read an epoch. The baked and vector rounds
+(`_march_gathered`) gather the alive rays into a compacted copy each
+epoch (one host read, `_march_round`) and scatter it back. The per-ray
+loops (init_rays' walk, the walks, a round's non-vector composite, which
+reads the network's rows where the network left them and applies the
 activations itself) are ops/march_cuda.py's: a CUDA kernel each on the
-card, their plain versions on the CPU; the network, the compaction and
-the vector rounds stay PyTorch.
+card, their plain versions on the CPU; the network, the compaction of
+the gathered route and the vector rounds stay PyTorch.
 
 Mesh-surface gating, as in the reference: rays with a surface are
 revived at t_surface (testbed.cu:487-493); an opaque surface stops the
@@ -722,24 +726,42 @@ def march_frame_impl(net: NerfNetwork, scene, o, d, surface_rgba, t_surface,
     per-epoch advance pass performs the identical quantized stepping (and
     the results depend on this choice, as in the reference package).
     Each epoch is one advance pass and rounds_per_epoch rounds; the epoch
-    budget is max_rounds // rounds_per_epoch. With sequential rounds the
-    advance and the first round's samples are one kernel launch
-    (march_cuda.advance_samples). t_floor / alive_mask (N,):
-    the flash coarse init (flash_init). The deferred shade runs once at
-    the end when the options ask for it."""
+    budget is max_rounds // rounds_per_epoch. Unbaked sequential rounds
+    take _march_lists, baked or vector rounds _march_gathered: the two
+    give the same frame where both apply. t_floor / alive_mask (N,): the
+    flash coarse init (flash_init). The deferred shade runs once at the
+    end when the options ask for it."""
     if opts.cone_angle == 0.0 and opts.config.max_cascade == 0:
         opts = dataclasses.replace(opts, init_skip_iters=0)
     st = _make_state(scene, o, d, surface_rgba, t_surface, opts,
                      sample_index, t_floor, alive_mask)
+    if opts.vector_rounds or opts.use_baked_sigma:
+        epochs = _march_gathered(net, scene, st, opts)
+    else:
+        epochs = _march_lists(net, scene, st, opts)
+    if opts.deferred_color and opts.use_baked_sigma:
+        st = _deferred_shade(st, net, scene, opts)
+    return _finalize(st), epochs
+
+
+def _epoch_budget(opts: MarchOptions) -> int:
+    return max(1, opts.max_rounds // opts.rounds_per_epoch)
+
+
+def _march_gathered(net: NerfNetwork, scene, st, opts: MarchOptions) -> int:
+    """The epochs on a compacted copy of the alive rays, made each epoch
+    (stable_partition_ids: one host read) and scattered back into st ->
+    epochs. With sequential rounds the advance and the first round's
+    samples are one kernel launch (march_cuda.advance_samples)."""
     epochs = 0
-    max_epochs = max(1, opts.max_rounds // opts.rounds_per_epoch)
-    while epochs < max_epochs:
+    device = st["t"].device
+    while epochs < _epoch_budget(opts):
         perm, n_alive = stable_partition_ids(st["alive"])
         if n_alive == 0:
             break
         ids = perm[:n_alive]
         sub = {k: st[k][ids] for k in _GATHER}
-        sub["alive"] = torch.ones(n_alive, dtype=torch.bool, device=o.device)
+        sub["alive"] = torch.ones(n_alive, dtype=torch.bool, device=device)
         generated = None
         if opts.vector_rounds:
             sub = _advance_pass(sub, scene, opts, opts.advance_iters)
@@ -753,9 +775,68 @@ def march_frame_impl(net: NerfNetwork, scene, o, d, surface_rgba, t_surface,
         for k in _SCATTER:
             st[k][ids] = sub[k]
         epochs += 1
-    if opts.deferred_color and opts.use_baked_sigma:
-        st = _deferred_shade(st, net, scene, opts)
-    return _finalize(st), epochs
+    return epochs
+
+
+def _march_lists(net: NerfNetwork, scene, st, opts: MarchOptions) -> int:
+    """The epochs of unbaked sequential rounds on st's own arrays, in
+    place, through each epoch's live-ray list (an int32 list of ray ids)
+    -> epochs. The first list is the alive rays (torch.nonzero: one host
+    read); a round is march_cuda.walk_list (the advance and the samples in
+    its first round, the samples alone in later ones: t and alive written
+    back, the valid slots' network inputs as rows), the network on the
+    rows, and march_cuda.composite_list, whose last round of the epoch
+    lists the rays still alive. An epoch's walk reads that list's length
+    from the device and is launched over the previous length, so one host
+    read after it gives the length (0 ends the march) and the round's row
+    count together; a later round of the epoch reads its row count. The
+    buffers are sized once, for the first list; the counters of every
+    round come zeroed in one tensor."""
+    K = opts.steps_per_round
+    ids = torch.nonzero(st["alive"]).squeeze(1).to(torch.int32)
+    n = ids.numel()
+    if n == 0:
+        return 0
+    # the kernels read the per-ray constants in place: one copy a frame of
+    # any that is not contiguous (a frame's shared origin is an expand)
+    for k in ("o", "d", "surf", "t_surf", "t_start"):
+        st[k] = st[k].contiguous()
+    device = ids.device
+    rounds = opts.rounds_per_epoch
+    budget = _epoch_budget(opts)
+    rows = march_cuda.list_buffers(n, K, device)
+    spare = torch.empty_like(ids)
+    # round g: [list length (written by round g - 1's composite), rows]
+    counts = torch.zeros(2 * budget * rounds + 1, dtype=torch.int32,
+                         device=device)
+    extra = scene.get("extra_dims")
+    g = 0
+    for epoch in range(budget):
+        for r in range(rounds):
+            c = counts[2 * g:2 * g + 2]
+            listed = epoch > 0 and r == 0
+            march_cuda.walk_list(st, ids, n, scene, opts,
+                                 opts.advance_iters if r == 0 else None,
+                                 rows, c[1:], c[:1] if listed else None)
+            if listed:
+                n, m = c.tolist()
+                if n == 0:
+                    return epoch
+            else:
+                m = int(c[1])
+            if m:
+                rgb, sigma = net(rows["pos01"][:m], rows["dir01"][:m],
+                                 compute_dtype=opts.cdtype, extra=extra)
+            else:
+                rgb, sigma = rows["pos01"][:0], rows["ts"][:0]
+            last = r == rounds - 1
+            march_cuda.composite_list(
+                st, ids, n, rows, m, rgb, sigma, opts,
+                spare if last else None,
+                counts[2 * g + 2:2 * g + 3] if last else None)
+            g += 1
+        ids, spare = spare, ids
+    return budget
 
 
 # ---------------------------------------------------------------------------
