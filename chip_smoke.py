@@ -7,8 +7,9 @@
 line, and the smoke run proper takes no such flag). Each DIR is another
 checkout of the repository (for example the parent commit unpacked with
 `git archive` into a git-ignored directory): its ray-cast kernels
-(ops/mesh_cuda.py), network kernels (ops/network_cuda.py) and march
-kernels (ops/march_cuda.py), where it has them, are built from its own
+(ops/mesh_cuda.py), network kernels (ops/network_cuda.py), march
+kernels (ops/march_cuda.py) and frame kernels (ops/frame_cuda.py), where
+it has them, are built from its own
 csrc/, held against the plain versions and timed in turns with this
 tree's: the ray-casts in phases 3 and 7 by CUDA events, the network
 kernels it has on phases 4b's, 5c's and 15's recorded calls by device
@@ -31,8 +32,8 @@ procedural glasses glTF written here) + frame(), with the mesh pass at
 
   1. a CUDA device must be present;
   2. card, power limit, torch/CUDA versions; build the mesh ray-cast,
-     march and network kernels from nerf_glasses_tpu_torch/csrc, one nvcc
-     per source, in parallel (timed); every instance of the MLP kernels'
+     march, network and frame kernels from nerf_glasses_tpu_torch/csrc,
+     one nvcc per source, in parallel (timed); every instance of the MLP kernels'
      and of the fused encode + density MLP's registers, stack and local
      bytes (`cuobjdump -res-usage` of the loaded library), tensor-core
      instructions (HGMMA or HMMA) and local loads and stores (LDL, STL)
@@ -58,7 +59,12 @@ procedural glasses glTF written here) + frame(), with the mesh pass at
      the fused kernel serves every density call) and no network call on
      the card taking a plain version (network_cuda.plain_on_card stays 0;
      phases 8, 14, 17, 20, 23 and 24 check the same on their renders,
-     queries, sweep, collide and bakes); then one frame with two rounds an
+     queries, sweep, collide and bakes), and each frame kernel of
+     csrc/frame.cu (the mesh plan, the surface shade, the ray init, the
+     finalize) launched once a frame with frame_cuda.plain_on_card 0 (no
+     plain version on the card: phases 4b, 8, 9, 17, 23, 24, 27 and 32
+     check the same);
+     then one frame with two rounds an
      epoch, which launches the list walk's samples form for the second
      (two list walks and two list composites an epoch);
  4b. one such frame at the f32 compute dtype: the standalone encode and
@@ -105,14 +111,18 @@ procedural glasses glTF written here) + frame(), with the mesh pass at
      kernels' frame under 10,000 device operations; then the list route's
      report (list_route_report): two frames at one sample index equal bit
      for bit, one frame's device operations, busy and wall ms, Memcpy
-     DtoH (under 30) and HtoD copies and stream waits, the march's alone
-     on the frame's own inputs (at most 2 host reads an epoch and 1 a
-     frame; at most 5 device operations for each epoch after the first:
+     DtoH and HtoD copies (the host's copy calls under 30) and stream
+     waits, the march's alone on the frame's own inputs (at most 2 host
+     copies an epoch and 1 a frame; at most 5 device operations for each
+     epoch after the first:
      the list walk, the network's two kernels, the list composite, the
      host read), no standalone row map, no plain network version on the
      card; with a DIR that is a whole checkout, the same frame's
      operations, busy and wall ms, DtoH and stream waits of each checkout
-     in turns (frame_ops_in_turns);
+     in turns (frame_ops_in_turns), each with its march's operations and
+     DtoH (its epochs function replayed alone) and the frame around the
+     march, and the library kernels (cuBLAS, CUTLASS) one frame launched,
+     each with the aten operation and input shapes behind it;
  5c. the network kernels of the bf16 frame (csrc/network.cu: the fused
      encode + density MLP, SH + rgb head) on the same frame's first-epoch
      network call, its inputs recorded from the wrappers' own calls; the
@@ -139,6 +149,23 @@ procedural glasses glTF written here) + frame(), with the mesh pass at
      the kernels' place, swapped as 5b swaps the march: >= 50 dB from the
      kernels' frame, both frames' device operations, busy and host ms in
      this one call; the kernels' frame under 3,000 device operations;
+  5d. the frame kernels on the exact frame's own calls (recorded from the
+     wrappers): each against its plain version under frame_cuda.
+     compare_with_plain's contract (the mesh plan's counts equal and each
+     list equal up to its count, rays and triangles within 1e-6 x max(1,
+     |x|); the surface's colour within 1e-5 on every pixel and depth
+     equal (on a textured mesh, pixels beyond 1e-5 plus 4x each pixel's
+     own rounding sensitivity at most max(4, 1e-4 covered pixels)); the
+     ray init's flags equal, its first list the alive set, its state
+     within 1e-6 x max(1, |x|), where the init walk runs but for max(4,
+     1e-4 n) rays whose t an ulp of a direction moved a step, within
+     march_cuda.STEP_TOL; the finalized frame within 1e-6, depth equal),
+     its
+     device ms (torch.profiler, L2 flushed) beside its plain version's ms
+     and its bound (bytes read and written once over 3.35 TB/s) and share;
+     each DIR's frame kernels in turns where it has them (a DIR without
+     ops/frame_cuda.py is named and left out); then a frame with the plain
+     versions in their place: >= 50 dB, both frames' device operations;
   6. a small frame (160x90) rendered on the card and on the CPU (the CPU
      takes the plain ray-cast; the CPU port is held against the JAX
      package by tests/test_torch_*.py): >= 40 dB PSNR;
@@ -162,9 +189,13 @@ procedural glasses glTF written here) + frame(), with the mesh pass at
      as in 5b; neither launched a list form (the baked and vector routes
      keep the gathered epoch); one more flash-off frame with two rounds an
      epoch launches the samples alone for the second;
+ 8c. phase 5d's checks of the frame kernels on the flash frame's own
+     calls (the ray init with the coarse floor);
   9. the single-program hybrid frame (render_hybrid_sharded, n_shards=1)
      with that Testbed's flash options and scene: the untiled kernel
-     launched, the frame finite and >= 40 dB from the renderer's flash
+     launched, the ray init and finalize kernels once a frame (the march
+     of march_frame_impl) with no plain frame version on the card, the
+     frame finite and >= 40 dB from the renderer's flash
      frame at the same pixel offset; one frame under torch.profiler
      (device busy, the untiled kernel's share); with jitter off,
      n_shards=4 equals n_shards=1 to 1e-5;
@@ -255,6 +286,9 @@ on every ray's path:
      ray), the plain-march frame >= 60 dB,
      both frames' device operations and ms; and phase 5c: the network
      kernels on its first epoch, the plain-network frame >= 50 dB;
+23c. phase 5d's checks of the frame kernels on that frame's own calls
+     (the ray init's two stages around the init walk: two launches a
+     frame);
  24. baked + flash: load_nerf(bake=True, bake_resolution=256) with its
      fidelity probe ("ok"), bake(256) timed alone, the grids' sizes, 1
      warm-up + 3 timed frames on last_render_path "flash", >= 30 dB
@@ -276,7 +310,9 @@ head at 1280x720 with the mesh pass at 2x and the glasses:
      render_with_rolling_shutter) and pixel-centre snapping: 1 warm-up + 1
      timed frame each, finite, differing from the plain frame of the same
      sample index by more than 1e-3 somewhere, one tiled-kernel launch per
-     frame (zeroed just before, read just after); a load_nerf(bake=True)
+     frame and each frame kernel launched once a frame, the camera's rays
+     handed to the ray init kernel, no plain version on the card (zeroed
+     just before, read just after); a load_nerf(bake=True)
      renderer with depth of field reports "baked (flash disabled: non-plain
      camera)", its frame time beside phase 8's flash frame;
  28. each camera of phase 27 at 160x90 on the card and on the CPU, float32
@@ -319,7 +355,9 @@ by parallel.sharding.run_on_mesh, whose rank bodies are this file's
      renders render_hybrid_sharded at 1280x720 (rank r its band r, jitter
      off, the bands joined by all_reduce), 3 frames: >= 60 dB from phase 9's
      one-process frame (n_shards=1) with depth to 1e-4, one untiled-kernel
-     launch per rank per frame; then render_image_sharded on the exact path
+     launch per rank per frame, the ray init and finalize kernels once per
+     rank per frame with no plain frame version on the card; then
+     render_image_sharded on the exact path
      (NeRF only) against one process's march_frame_impl on all rays: >= 60
      dB; ms per frame per mesh (two ranks on one card say nothing about
      scaling);
@@ -336,10 +374,11 @@ by parallel.sharding.run_on_mesh, whose rank bodies are this file's
      max |g| (phase 16's bar), the card's ranks equal.
 Each phase prints its seconds.
 
-Prints one JSON line with the thirteen kernels' numbers (time, bound and
+Prints one JSON line with the seventeen kernels' numbers (time, bound and
 share of it, launches per frame, the plain version's time; no single
 PyTorch call computes a nearest ray-triangle hit, a march loop, a hash
-encode or a bf16-rounded bias-free MLP chain, so library_ms is null; the
+encode, a bf16-rounded bias-free MLP chain, a tile binning, a PBR shade, a
+ray init or the frame's finish, so library_ms is null; the
 MLPs' matmul + relu chain is library_chain_ms), the card's name and
 power limit, and as its last line {"ok": true, "device": {...}}. Exits
 non-zero on any failure, when no CUDA device is present, and when the
@@ -352,6 +391,7 @@ import dataclasses
 import functools
 import gc
 import importlib.util
+import inspect
 import io
 import json
 import math
@@ -379,8 +419,8 @@ from nerf_glasses_tpu_torch.io.gltf import (GltfMaterial, GltfMesh, GltfNode,
                                             GltfPrimitive, GltfScene)
 from nerf_glasses_tpu_torch.models import floaty
 from nerf_glasses_tpu_torch.models.renderer import NerfMeshRenderer
-from nerf_glasses_tpu_torch.ops import (cuda_build, hashgrid, march_cuda,
-                                        mesh_cuda, network_cuda)
+from nerf_glasses_tpu_torch.ops import (cuda_build, frame_cuda, hashgrid,
+                                        march_cuda, mesh_cuda, network_cuda)
 from nerf_glasses_tpu_torch.ops import occupancy as occ_ops
 from nerf_glasses_tpu_torch.ops import raymarch
 from nerf_glasses_tpu_torch.ops import triangles as tri_ops
@@ -729,6 +769,52 @@ def device_profile(fn, host=True):
     return wall_ms, sum(t for t, _ in by_name.values()), by_name
 
 
+def op_counts(fn):
+    """torch.profiler (host and device) over one call of fn -> {"ops": the
+    operations fn put on the device, counted on the host: its CUDA API
+    calls that launch a kernel (runtime or driver API), copy or fill;
+    "launches": the kernel launches among them; "calls": {API call:
+    count}; "traced": the device operations the device trace kept, which
+    can be fewer (PERF.md section 7); "busy_ms": their time; "wall_ms";
+    "copies": the host's copy calls (every direction, so at least the
+    DtoH copies); "DtoH", "HtoD": the device trace's copies; "sync":
+    cudaStreamSynchronize calls; "by_name": {device operation: (ms,
+    count)}}. Self-contained: frame_ops_in_turns runs it in other
+    checkouts too."""
+    import re
+    import time
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    puts = re.compile(r"^(cudaLaunchKernel|cuLaunchKernel|cudaMemcpy|"
+                      r"cudaMemset|cuMemcpy|cuMemset)")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    calls, by_name = {}, {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            t, c = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, c + 1)
+        elif puts.match(e.name) or e.name == "cudaStreamSynchronize":
+            calls[e.name] = calls.get(e.name, 0) + 1
+    return {"ops": sum(c for k, c in calls.items() if puts.match(k)),
+            "launches": sum(c for k, c in calls.items() if "Launch" in k),
+            "copies": sum(c for k, c in calls.items() if "Memcpy" in k),
+            "calls": calls, "traced": sum(c for _, c in by_name.values()),
+            "busy_ms": sum(t for t, _ in by_name.values()),
+            "wall_ms": wall_ms,
+            "DtoH": sum(c for k, (_, c) in by_name.items()
+                        if "Memcpy DtoH" in k),
+            "HtoD": sum(c for k, (_, c) in by_name.items()
+                        if "Memcpy HtoD" in k),
+            "sync": calls.get("cudaStreamSynchronize", 0), "by_name": by_name}
+
+
 def profile_step(tr):
     """torch.profiler over one training step (not a grid-update step) ->
     (printable table, device operations, device-busy ms, wall ms)."""
@@ -850,7 +936,7 @@ def cuda_ms(fn, reps):
 
 # kernel module of another checkout -> its source in that checkout's csrc/
 OTHER_KERNELS = {"mesh_cuda": "mesh_raycast.cu", "network_cuda": "network.cu",
-                 "march_cuda": "march.cu"}
+                 "march_cuda": "march.cu", "frame_cuda": "frame.cu"}
 
 
 def other_checkouts(dirs, module):
@@ -1278,7 +1364,7 @@ def kernel_device_ms(name, fn, reps, match=None, helpers=(), prepare=None):
     launches torch.profiler records in reps calls of fn (the wrapper's
     host work, which CUDA events around back-to-back calls may time
     instead, left out). The trace may miss a launch or, now and then, come
-    back empty: then it is taken again, up to 3 times. prepare(), where
+    back empty: then it is taken again, up to 6 times. prepare(), where
     given, runs before each flush (a call that writes its inputs in place
     gets them back there)."""
     match = match or f"{name}_kernel"
@@ -1291,7 +1377,7 @@ def kernel_device_ms(name, fn, reps, match=None, helpers=(), prepare=None):
             flush.zero_()
             fn()
 
-    for _ in range(3):
+    for _ in range(6):
         _, _, ops = device_profile(run, host=False)
         mine = [(t, c) for op, (t, c) in ops.items() if match in op]
         count = sum(c for _, c in mine)
@@ -1300,7 +1386,7 @@ def kernel_device_ms(name, fn, reps, match=None, helpers=(), prepare=None):
         if count:
             return (sum(t for t, _ in mine) + helper_ms) / count
     raise AssertionError(f"torch.profiler saw no launch of {match} in "
-                         f"3 x {reps} calls: {list(ops)}")
+                         f"6 x {reps} calls: {list(ops)}")
 
 
 def same_bits(a, b):
@@ -1831,12 +1917,13 @@ def round_tail(calls, label, others=()):
 
 
 FRAME_OPS_CODE = """
-import json, os, sys
+import json, os, re, sys
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.getcwd())
 import chip_smoke as cs
+from nerf_glasses_tpu_torch.ops import raymarch as rm
 glasses = os.path.join(sys.argv[1], "glasses.gltf")
 cs.write_glasses_gltf(glasses)
 kw = {}
@@ -1846,22 +1933,71 @@ if len(sys.argv) > 2:
 r, nerf = cs.make_renderer(torch.device("cuda"), cs.W, cs.H, glasses, **kw)
 for _ in range(3):
     r.frame()
+
+
+def clone(x):
+    if torch.is_tensor(x):
+        return x.clone()
+    if isinstance(x, dict):
+        return {k: clone(v) for k, v in x.items()}
+    if isinstance(x, tuple):
+        return tuple(clone(v) for v in x)
+    return x
+
+
+# the march: the frame's epochs function (_march_lists or _march_gathered,
+# in every checkout), its first call recorded and replayed alone
+rec = {}
+saved = {k: getattr(rm, k) for k in ("_march_lists", "_march_gathered")}
+
+
+def recorder(name):
+    def call(*a, **k):
+        rec.setdefault("call", (name, clone(a), clone(k)))
+        return saved[name](*a, **k)
+    return call
+
+
+for k in saved:
+    setattr(rm, k, recorder(k))
+r.update_model_view_proj()
+r.frame()
+for k, f in saved.items():
+    setattr(rm, k, f)
+name, a, k = rec["call"]
+
+
+def march():
+    a2, k2 = clone(a), clone(k)
+    return lambda: saved[name](*a2, **k2)
+
+
 res = []
 for _ in range(3):
     r.update_model_view_proj()
     r.frame()
-    wall, busy, ops = cs.device_profile(r.frame, host=False)
+    f = op_counts(r.frame)
+    m = op_counts(march())
+    res.append([f["ops"], f["busy_ms"], f["wall_ms"], f["DtoH"], f["sync"],
+                m["ops"], m["DtoH"], f["traced"], m["traced"], f["copies"],
+                m["copies"]])
+# the library kernels (cuBLAS, CUTLASS) of one frame: the aten operation
+# that launched each and its input shapes
+lib = {}
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+             record_shapes=True) as prof:
+    r.frame()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        r.frame()
-        torch.cuda.synchronize()
-    ev = prof.events()
-    dtoh = sum(1 for e in ev if e.device_type == DeviceType.CUDA
-               and "Memcpy DtoH" in e.name)
-    syncs = sum(1 for e in ev if e.name == "cudaStreamSynchronize")
-    res.append([sum(c for _, c in ops.values()), busy, wall, dtoh, syncs])
-print(json.dumps(res))
+pat = re.compile("gemv|gemm|cublas|cutlass|xmma|splitK", re.I)
+for e in prof.events():
+    for kern in getattr(e, "kernels", []):
+        if pat.search(kern.name):
+            key = (kern.name[:70], e.name, str(e.input_shapes))
+            t, c = lib.get(key, (0.0, 0))
+            lib[key] = (t + kern.duration / 1e3, c + 1)
+print(json.dumps({"frames": res, "library": sorted(
+    ([*key, t, c] for key, (t, c) in lib.items()), key=lambda x: -x[3])}))
 """
 
 
@@ -1869,34 +2005,57 @@ def frame_ops_in_turns(tmp, dirs, label="exact 720p", scene=()):
     """The exact 720p frame of each checkout (this tree and each DIR),
     each rendered by that checkout's own package and chip_smoke.py helpers
     in a process of its own run from its root, in turns (the others, this
-    tree, this tree, the others reversed): 3 warm-up frames, then 3
-    frames' device operations, device-busy ms and wall ms under
-    torch.profiler, and each frame's Memcpy DtoH copies and
-    cudaStreamSynchronize calls traced once more -> {checkout: [[ops,
-    busy, wall, DtoH, syncs], ...]}. scene: () for the trained head, or
-    (snapshot, aabb low, aabb high). A DIR with no chip_smoke.py of its
-    own (the kernels' sources alone) is left out."""
+    tree, this tree, the others reversed), 3 warm-up frames, then 3
+    frames under this tree's op_counts: each frame's device operations
+    (counted on the host), device-busy ms, wall ms, Memcpy DtoH copies and
+    cudaStreamSynchronize calls; the march (the frame's _march_lists or
+    _march_gathered call, recorded from a frame and replayed alone): its
+    device operations and DtoH copies, and the frame's less the march's,
+    the frame around the march; beside them the device trace's operation
+    counts and the host's copy calls; one frame's library kernels (cuBLAS,
+    CUTLASS) with the aten operation and input shapes that launched each
+    -> {checkout: {"frames": [[ops, busy, wall, DtoH, syncs, march ops,
+    march DtoH, traced ops, march traced ops, copies, march copies], ...],
+    "library": [...]}}.
+    scene: () for the trained head, or (snapshot, aabb low, aabb high). A
+    DIR with no chip_smoke.py of its own (the kernels' sources alone) is
+    left out."""
     order = [d for d in dirs
              if os.path.exists(os.path.join(d, "chip_smoke.py"))] + [ROOT]
-    res = {path: [] for path in order}
+    res = {path: {"frames": [], "library": None} for path in order}
     for k, path in enumerate(order + order[::-1]):
         work = os.path.join(tmp, f"frame_ops_{k}")
         os.makedirs(work, exist_ok=True)
-        out = subprocess.run([sys.executable, "-c", FRAME_OPS_CODE, work]
+        code = inspect.getsource(op_counts) + FRAME_OPS_CODE
+        out = subprocess.run([sys.executable, "-c", code, work]
                              + [str(x) for x in scene],
                              cwd=path, capture_output=True, text=True,
                              timeout=600)
         if out.returncode != 0:
             raise RuntimeError(f"exact frame of {path} failed:\n"
                                f"{out.stderr[-4000:]}")
-        res[path] += json.loads(out.stdout.strip().splitlines()[-1])
+        got = json.loads(out.stdout.strip().splitlines()[-1])
+        res[path]["frames"] += got["frames"]
+        res[path]["library"] = res[path]["library"] or got["library"]
     print(f"{label} frame by checkout, in turns, each in its own process "
-          "(torch.profiler: device operations, busy ms, wall ms; Memcpy "
-          "DtoH, cudaStreamSynchronize): " + "; ".join(
+          "(torch.profiler: device operations counted on the host, busy ms, "
+          "wall ms; Memcpy DtoH, cudaStreamSynchronize; the march's "
+          "operations and DtoH, and the frame around it; the device trace's "
+          "operations of the frame and the march; the host's copy calls of "
+          "both): " + "; ".join(
               f"{'this tree' if path == ROOT else path} " + ", ".join(
-                  f"{n} ops {b:.3f} / {w:.2f} ms, {h} DtoH, {y} syncs"
-                  for n, b, w, h, y in r)
+                  f"{n} ops {b:.3f} / {w:.2f} ms, {h} DtoH, {y} syncs, march "
+                  f"{mo} ops {md} DtoH, around it {n - mo} ops {h - md} DtoH "
+                  f"(traced {tn} / {tm}, copies {cn} / {cm})"
+                  for n, b, w, h, y, mo, md, tn, tm, cn, cm in r["frames"])
               for path, r in res.items()))
+    for path, r in res.items():
+        print(f"{label} frame of {'this tree' if path == ROOT else path}: "
+              f"library kernels (kernel, the aten operation that launched "
+              f"it, its input shapes, ms, launches): "
+              + ("; ".join(f"{kn} <- {op} {shapes} {t:.4f} ms {c}x"
+                           for kn, op, shapes, t, c in r["library"])
+                 or "none"))
     return {("this tree" if path == ROOT else path): r
             for path, r in res.items()}
 
@@ -2048,11 +2207,13 @@ def plain_vs_kernel_frames(renderer, nerf, label, module, names, what,
                 renderer.frame()
             torch.cuda.synchronize()
             host_ms = (time.perf_counter() - t0) * 1000.0 / 2
-            wall, busy, ops = device_profile(renderer.frame, host=False)
+            c = op_counts(renderer.frame)
         finally:
             restore_wrappers(module, saved)
-        frames[which] = {"host_ms": host_ms, "profiled_ms": wall, "busy_ms": busy,
-                         "launches": sum(c for _, c in ops.values()),
+        ops = c["by_name"]
+        frames[which] = {"host_ms": host_ms, "profiled_ms": c["wall_ms"],
+                         "busy_ms": c["busy_ms"], "launches": c["ops"],
+                         "traced": c["traced"],
                          "epochs": nerf.last_march_epochs}
         f = frames[which]
         ops = {n.replace("(anonymous namespace)::", ""): v
@@ -2062,7 +2223,8 @@ def plain_vs_kernel_frames(renderer, nerf, label, module, names, what,
         print(f"{label} frame with the "
               f"{what + ' kernels' if which == 'kernels' else 'plain ' + what}: "
               f"{f['host_ms']:.1f} ms (host clock, 2 frames), under "
-              f"torch.profiler {f['launches']} device operations, busy "
+              f"torch.profiler {f['launches']} device operations (host API "
+              f"calls; {f['traced']} in the device trace), busy "
               f"{f['busy_ms']:.2f} ms of {f['profiled_ms']:.1f} ms wall "
               f"({f['busy_ms'] / f['profiled_ms']:.1%}), {f['epochs']} epochs; "
               f"top device operations: " + "; ".join(
@@ -2214,6 +2376,230 @@ def march_entries(march, launches, frames, mc, others, sass, list_route):
 
 
 # ---------------------------------------------------------------------------
+# The frame kernels around the march (phases 5d, 8c and 23c; launch checks
+# in phases 4, 8, 17, 23 and 24)
+# ---------------------------------------------------------------------------
+
+FRAME_KERNELS = {     # wrapper -> (kernel, the JAX function it replaces)
+    "mesh_plan": ("nmr_mesh_plan", "nerf_glasses_tpu/ops/triangles.py:603"),
+    "surface_shade": ("nmr_surface_shade",
+                      "nerf_glasses_tpu/ops/triangles.py:254"),
+    "ray_init": ("nmr_ray_init", "nerf_glasses_tpu/ops/raymarch.py:518"),
+    "finalize": ("nmr_frame_finalize", "nerf_glasses_tpu/ops/raymarch.py:1096")}
+ALL_FRAME = tuple(FRAME_KERNELS)
+NERF_FRAME = ("ray_init", "finalize")   # a frame with no mesh
+
+
+def zero_frame_counts():
+    frame_cuda.launches.update(dict.fromkeys(frame_cuda.launches, 0))
+    frame_cuda.plain_on_card.update(dict.fromkeys(frame_cuda.plain_on_card, 0))
+
+
+def first_frame_calls(fn):
+    """Run fn with frame_cuda's wrappers recording their first call ->
+    {wrapper: (args, kwargs)}, the tensors cloned."""
+    saved = {k: getattr(frame_cuda, k) for k in FRAME_KERNELS}
+    got = {}
+
+    def recorder(name):
+        def call(*args, **kw):
+            if name not in got:
+                got[name] = (tuple(_clone_state(a) for a in args),
+                             {k: _clone_state(v) for k, v in kw.items()})
+            return saved[name](*args, **kw)
+        return call
+
+    for k in FRAME_KERNELS:
+        setattr(frame_cuda, k, recorder(k))
+    try:
+        fn()
+    finally:
+        restore_wrappers(frame_cuda, saved)
+    return got
+
+
+def frame_bound(name, args, kw, out):
+    """A frame kernel's least time on this call: the bytes it must move
+    (each input read once, each output written once; a triangle's
+    attributes once per triangle hit) over HBM_RATE against its float
+    operations over FP32_PEAK -> (ms, what bounds it, bytes)."""
+    if name == "mesh_plan":
+        t = args[0].v0.shape[0]
+        n_rays, n_tiles = out["o"].shape[0], out["tile_counts"].shape[0]
+        listed = int(out["tile_counts"].sum())
+        nbytes = 44 * t + 36 * t + 24 * n_rays + 4 * listed + 4 * n_tiles
+        ops = 30 * n_rays + 100 * t + 8 * n_tiles * t
+    elif name == "surface_shade":
+        mesh, plan, hits, _, _, _, width, height, factor = args
+        ntx = plan["ntx"]
+        tri = hits[1]
+        r = torch.arange(tri.shape[0], device=tri.device)
+        tile = r // (128 * 64)
+        p = r % (128 * 64)
+        row = (tile // ntx) * 64 + p // 128
+        col = (tile % ntx) * 128 + p % 128
+        inside = ((row < height // factor * factor)
+                  & (col < width // factor * factor)
+                  & (plan["tile_counts"][tile] > 0))
+        hit = inside & (tri >= 0)
+        n_read, n_hit = int(inside.sum()), int(hit.sum())
+        n_uniq = int(torch.unique(tri[hit]).numel())
+        n_out = (width // factor) * (height // factor)
+        nbytes = (4 * plan["tile_counts"].numel() + 4 * n_read + 24 * n_hit
+                  + 124 * n_uniq + mesh.mat_table.numel() * 4
+                  + mesh.texels.numel() * 4 + 20 * n_out)
+        ops = 400 * n_hit
+    elif name == "ray_init":
+        st, first = out
+        n = st["t"].shape[0]
+        surf = args[7] if len(args) > 7 else kw.get("surface_rgba")
+        coarse = args[9] if len(args) > 9 else kw.get("coarse")
+        nbytes = 65 * n + (8 * n if surf is not None else 20 * n)
+        if coarse is not None:
+            nbytes += 5 * coarse[0].numel()
+        if first is not None:
+            nbytes += 4 * int(first[1]) + 4
+        ops = 60 * n
+    else:
+        n = args[0].shape[0]
+        nbytes = 40 * n
+        ops = 10 * n
+    ms, by = bound_ms(ops, nbytes)
+    return ms, by, nbytes
+
+
+def frame_kernel_ms(name, fn, reps=20, module=frame_cuda):
+    """Device ms of the kernel launches of one call of fn (L2 flushed;
+    kernel_device_ms), and its launches a call (a ray init with an init
+    walk launches the kernel twice), counted by `module`."""
+    before = module.launches[name]
+    fn()
+    per_call = module.launches[name] - before
+    ms = kernel_device_ms(name, fn, reps)
+    return ms * per_call, per_call
+
+
+def hold_frame_calls(calls, label, reps=20, others=()):
+    """Each recorded frame-kernel call against its plain version under
+    frame_cuda.compare_with_plain's contract; its device ms (L2 flushed)
+    beside its plain version's ms (CUDA events) and its bound; each other
+    checkout's kernel of the same name, where it has ops/frame_cuda.py,
+    held to the same contract and timed in turns with this tree's ->
+    {wrapper: numbers}."""
+    out = {}
+    for name, (args, kw) in calls.items():
+        call = (lambda m=frame_cuda, a=args, k=kw:
+                getattr(m, name)(*a, **k))
+        plain = getattr(frame_cuda, f"{name}_reference")
+        out_k = call()
+        torch.cuda.synchronize()
+        out_p = plain(*args, **kw)
+        torch.cuda.synchronize()
+        # a textured mesh's colour also within each pixel's own rounding
+        # sensitivity (frame_cuda.shade_error_scale); the ray init's t
+        # held like its other floats unless the init walk ran
+        scale = (frame_cuda.shade_error_scale(*args, **kw)
+                 if name == "surface_shade" and frame_cuda.textured(args[0])
+                 else None)
+        walk = name == "ray_init" and args[1].init_skip_iters > 0
+        cmp = frame_cuda.compare_with_plain(name, out_k, out_p, scale, walk)
+        ms, per_call = frame_kernel_ms(name, call, reps)
+        p_ms = cuda_ms(lambda: plain(*args, **kw), 3)
+        b_ms, b_by, nbytes = frame_bound(name, args, kw, out_k)
+        turns = None
+        if others:
+            versions = [(path, m) for path, m in others] + [("this tree",
+                                                              frame_cuda)]
+            for path, m in others:
+                c = frame_cuda.compare_with_plain(name, getattr(m, name)(
+                    *args, **kw), out_p, scale, walk)
+                print(f"{label} {name} of {path} vs plain: {c}")
+                if not c["ok"]:
+                    raise AssertionError(f"{label}: {name} of {path} fails "
+                                         f"the contract")
+            turns = {path: [] for path, _ in versions}
+            for path, m in versions + versions[::-1]:
+                turns[path].append(frame_kernel_ms(
+                    name, lambda m=m: getattr(m, name)(*args, **kw), reps,
+                    m)[0])
+        print(f"{label} {FRAME_KERNELS[name][0]} vs plain: {cmp}; device "
+              f"{ms:.4f} ms a call ({per_call:.0f} launches, torch.profiler, "
+              f"L2 flushed), plain {p_ms:.3f} ms (CUDA events); bound "
+              f"{b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.2f} MB), share "
+              f"{b_ms / ms:.1%}" + ("" if turns is None else "; in turns: "
+                                   + "; ".join(f"{p} " + ", ".join(
+                                       f"{t:.4f}" for t in ts) + " ms"
+                                               for p, ts in turns.items())))
+        if not cmp["ok"]:
+            raise AssertionError(f"{label}: {name} disagrees with its plain "
+                                 f"version: {cmp}")
+        out[name] = {"cmp": cmp, "ms": ms, "launches_a_call": per_call,
+                     "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                     "bytes": nbytes, "in_turns": turns}
+        del out_k, out_p
+    return out
+
+
+def frame_kernels_phase(renderer, nerf, label, others=(), dirs=(),
+                        plain_frame=True):
+    """The frame kernels on one of the renderer's frames: each call the
+    frame makes recorded and held against its plain version
+    (hold_frame_calls, each DIR's frame_cuda in turns where it has one);
+    with plain_frame, a frame with the plain versions in the kernels'
+    place (>= PSNR_PLAIN_DB at the same sample index) and both frames'
+    device operations and ms -> {wrapper: numbers, "frames": ...}."""
+    for d in dirs:
+        if not os.path.exists(os.path.join(d, "nerf_glasses_tpu_torch", "ops",
+                                           "frame_cuda.py")):
+            print(f"{d} has no ops/frame_cuda.py: the frame kernels' in-turns "
+                  f"leg is skipped for it")
+    renderer.update_model_view_proj()
+    calls = first_frame_calls(renderer.frame)
+    torch.cuda.synchronize()
+    if set(calls) != set(ALL_FRAME):
+        raise AssertionError(f"{label}: the frame made the frame-kernel calls "
+                             f"{sorted(calls)}")
+    out = hold_frame_calls(calls, label, others=others)
+    del calls
+    if plain_frame:
+        out["frames"] = plain_vs_kernel_frames(
+            renderer, nerf, label, frame_cuda, ALL_FRAME, "frame",
+            PSNR_PLAIN_DB)
+    return out
+
+
+def frame_entries(held, launches, n_frames, flash, mc):
+    """The closing line's entries of the four frame kernels, measured on
+    the exact 720p frame (phase 5d; the ray init's walk form on the
+    multi-cascade frame, phase 23c, under "multicascade_*"), launches
+    those of phase 4's exact frames."""
+    entries = []
+    for name, (kernel, replaces) in FRAME_KERNELS.items():
+        r = held[name]
+        entry = {
+            "name": kernel, "route": "cuda",
+            "source": "nerf_glasses_tpu_torch/csrc/frame.cu",
+            "replaces": replaces, "launches": launches[name],
+            "launches_per_frame": launches[name] / n_frames,
+            "launch_path": f"exact {W}x{H} frames (phase 4)",
+            "max_abs_err": r["cmp"]["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None,
+            "share": r["bound_ms"] / r["ms"], "contract": r["cmp"],
+            "in_turns": r["in_turns"],
+            "flash_ms": flash[name]["ms"] if name in flash else None,
+            "flash_bound_ms": (flash[name]["bound_ms"] if name in flash
+                               else None),
+            "multicascade_ms": mc[name]["ms"] if name in mc else None,
+            "multicascade_bound_ms": (mc[name]["bound_ms"] if name in mc
+                                      else None),
+            "multicascade_launches_a_call": (mc[name]["launches_a_call"]
+                                             if name in mc else None)}
+        entries.append(entry)
+    return entries
+
+
+# ---------------------------------------------------------------------------
 # The network kernels (phases 5c, 14, 15 and 23b; launch checks in phases
 # 4, 8, 14, 17, 20, 23 and 24)
 # ---------------------------------------------------------------------------
@@ -2249,25 +2635,37 @@ REF_CONFIG_STEPS = 128          # the reference config's depth cut (phase 15)
 
 
 def zero_network_counts():
+    """The network kernels' counts, and the frame kernels' with them."""
     network_cuda.launches.update(dict.fromkeys(network_cuda.launches, 0))
     network_cuda.plain_on_card.update(
         dict.fromkeys(network_cuda.plain_on_card, 0))
+    zero_frame_counts()
 
 
-def network_launch_check(label, need=BF16_NETWORK, absent=PAIR):
-    """The network kernels' launches since the counts were last zeroed:
-    each kernel of `need` launched, none of `absent` (at the bf16 compute
-    dtype the fused kernel serves every density call), and no call took a
-    plain version on the card -> the launches."""
+def network_launch_check(label, need=BF16_NETWORK, absent=PAIR,
+                         frame_need=()):
+    """The network and frame kernels' launches since the counts were last
+    zeroed: each network kernel of `need` launched, none of `absent` (at
+    the bf16 compute dtype the fused kernel serves every density call),
+    each frame kernel of `frame_need` launched, and no call of either
+    module took a plain version on the card (every frame since the zeroing
+    came through a plain camera) -> the network kernels' launches."""
     got = dict(network_cuda.launches)
     plain = dict(network_cuda.plain_on_card)
+    frame = dict(frame_cuda.launches)
+    frame_plain = dict(frame_cuda.plain_on_card)
     print(f"{label}: network kernel launches {got}, plain versions on the "
-          f"card {plain}")
+          f"card {plain}; frame kernel launches {frame}, plain versions on "
+          f"the card {frame_plain}")
     if (any(got[k] < 1 for k in need) or any(got[k] for k in absent)
             or any(plain.values())):
         raise AssertionError(f"{label}: network kernels {need} (and none of "
                              f"{absent}) launched {got}, plain versions on "
                              f"the card {plain}")
+    if any(frame[k] < 1 for k in frame_need) or any(frame_plain.values()):
+        raise AssertionError(f"{label}: frame kernels {frame_need} launched "
+                             f"{frame}, plain versions on the card "
+                             f"{frame_plain}")
     return got
 
 
@@ -2621,28 +3019,9 @@ def network_frames(frames, mc, ref):
         "reference_config_frame_psnr_db": db(ref["frames"]["psnr"])}
 
 
-def transfer_counts(fn):
-    """torch.profiler over one call of fn -> {"HtoD", "DtoH": the copies
-    of each kind on the device, "sync": cudaStreamSynchronize calls on the
-    host}."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    events = prof.events()
-    out = {kind: sum(1 for e in events if e.device_type == DeviceType.CUDA
-                     and f"Memcpy {kind}" in e.name)
-           for kind in ("HtoD", "DtoH")}
-    out["sync"] = sum(1 for e in events if e.name == "cudaStreamSynchronize")
-    return out
-
-
 def sync_counts(fn):
-    """transfer_counts' (host-to-device copies, stream waits)."""
-    c = transfer_counts(fn)
+    """op_counts' (host-to-device copies, stream waits)."""
+    c = op_counts(fn)
     return c["HtoD"], c["sync"]
 
 
@@ -2654,18 +3033,54 @@ LIST_EPOCH_OPS = 5
 LIST_LAST_OPS = 2
 
 
+def _deep_clone(x):
+    if torch.is_tensor(x):
+        return x.clone()
+    if isinstance(x, dict):
+        return {k: _deep_clone(v) for k, v in x.items()}
+    if isinstance(x, tuple):
+        return tuple(_deep_clone(v) for v in x)
+    return x
+
+
+def record_epochs_call(renderer):
+    """One frame with raymarch's epochs functions (_march_lists,
+    _march_gathered) recording their first call -> (function, args,
+    kwargs), the state as the call found it."""
+    saved = {k: getattr(raymarch, k) for k in ("_march_lists",
+                                               "_march_gathered")}
+    got = {}
+
+    def recorder(name):
+        def call(*a, **kw):
+            got.setdefault("call", (saved[name], _deep_clone(a),
+                                    _deep_clone(kw)))
+            return saved[name](*a, **kw)
+        return call
+
+    for k in saved:
+        setattr(raymarch, k, recorder(k))
+    try:
+        renderer.update_model_view_proj()
+        renderer.frame()
+    finally:
+        restore_wrappers(raymarch, saved)
+    return got["call"]
+
+
 def list_route_report(renderer, nerf, label, max_dtoh=None):
     """An exact frame on the list route: two frames at one sample index
-    equal bit for bit; one frame's device operations, busy and wall ms
-    (torch.profiler), none of them a standalone row map, its Memcpy DtoH
-    and HtoD copies and stream waits (transfer_counts); the march alone
-    (raymarch.march_frame_impl on the inputs an earlier frame gave it, its
-    epochs its own): its copies and waits (at most 2 host reads an epoch
-    and 1 a frame), its device
-    operations, and those of its first epoch alone (the same inputs, an
-    epoch budget of 1): each later epoch adds at most LIST_EPOCH_OPS
-    operations, the march's end LIST_LAST_OPS; the network took no plain
-    version on the card. max_dtoh: the frame's DtoH copies must stay
+    equal bit for bit; one frame's device operations (op_counts: counted
+    on the host), busy and wall ms, none of them a standalone row map, its
+    Memcpy DtoH and HtoD copies and stream waits; the march alone
+    (raymarch._march_lists on the state and first list an earlier frame
+    gave it, its epochs its own): its copies and waits (at most 2 host
+    reads an epoch and 1 a frame), its device operations, and those of its
+    first epoch alone (the same inputs, an epoch budget of 1): each later
+    epoch adds at most LIST_EPOCH_OPS operations, the march's end
+    LIST_LAST_OPS; the frame around the march (the frame's operations and
+    DtoH less the march's); the network and the frame kernels took no
+    plain version on the card. max_dtoh: the frame's DtoH copies must stay
     under it -> numbers."""
     images = []
     for _ in range(2):
@@ -2674,73 +3089,80 @@ def list_route_report(renderer, nerf, label, max_dtoh=None):
         images.append(renderer._frame_buffer.clone())
     same = same_bits(images[0], images[1])
     del images
-    saved, got = raymarch.march_frame_impl, {}
-
-    def record(*a, **kw):
-        got.setdefault("args", (a, kw))
-        return saved(*a, **kw)
-
-    raymarch.march_frame_impl = record
-    try:
-        renderer.update_model_view_proj()
-        renderer.frame()
-    finally:
-        raymarch.march_frame_impl = saved
+    fn, a, kw = record_epochs_call(renderer)
+    if fn is not raymarch._march_lists:
+        raise AssertionError(f"{label}: the frame's epochs took {fn.__name__}")
     zero_network_counts()
-    wall, busy, ops = device_profile(renderer.frame, host=False)
-    n_ops = sum(c for _, c in ops.values())
+    frame = op_counts(renderer.frame)
+    wall, busy, ops = frame["wall_ms"], frame["busy_ms"], frame["by_name"]
+    n_ops = frame["ops"]
     row_maps = sum(c for k, (_, c) in ops.items() if "row_map_kernel" in k)
-    frame = transfer_counts(renderer.frame)
     plain = dict(network_cuda.plain_on_card)
+    frame_plain = dict(frame_cuda.plain_on_card)
     epochs = nerf.last_march_epochs
-    a, kw = got["args"]
     replay = {}
 
-    def march_alone():
-        replay["epochs"] = raymarch.march_frame_impl(*a, **kw)[1]
+    def march(one_epoch=False):
+        a2, kw2 = _deep_clone(a), _deep_clone(kw)
+        if one_epoch:
+            a2 = a2[:3] + (dataclasses.replace(
+                a2[3], max_rounds=a2[3].rounds_per_epoch),) + a2[4:]
 
-    march = transfer_counts(march_alone)
+        def run():
+            replay["epochs"] = fn(*a2, **kw2)
+        return run
+
+    march_tr = op_counts(march())
     march_epochs = replay["epochs"]      # the recorded frame's, not the last
-    one = a[:6] + (dataclasses.replace(
-        a[6], max_rounds=a[6].rounds_per_epoch),) + a[7:]
-    march_ops = sum(c for _, c in device_profile(
-        lambda: raymarch.march_frame_impl(*a, **kw), host=False)[2].values())
-    first_ops = sum(c for _, c in device_profile(
-        lambda: raymarch.march_frame_impl(*one, **kw), host=False)[2].values())
+    march_ops = march_tr["ops"]
+    first_ops = op_counts(march(True))["ops"]
     later = march_ops - first_ops
     top = sorted(ops.items(), key=lambda kv: -kv[1][0])[:8]
     print(f"{label} frame on the list route: two frames bit for bit {same}; "
-          f"{n_ops} device operations, busy {busy:.3f} of {wall:.2f} ms wall "
-          f"(torch.profiler), {epochs} epochs, {row_maps} row-map launches; "
-          f"Memcpy DtoH {frame['DtoH']}, HtoD {frame['HtoD']}, "
-          f"cudaStreamSynchronize {frame['sync']}; the march alone on an "
-          f"earlier frame's inputs ({march_epochs} epochs): DtoH "
-          f"{march['DtoH']}, HtoD {march['HtoD']}, cudaStreamSynchronize "
-          f"{march['sync']}, {march_ops} device operations, its first "
-          f"epoch alone {first_ops}: {later} for the {march_epochs - 1} "
-          f"later epochs and the end; network plain versions on the card "
-          f"{plain}; "
+          f"{n_ops} device operations (host API calls {frame['calls']}; "
+          f"{frame['traced']} in the device trace), busy {busy:.3f} of "
+          f"{wall:.2f} ms wall (torch.profiler), {epochs} epochs, {row_maps} "
+          f"row-map launches; "
+          f"Memcpy DtoH {frame['DtoH']}, HtoD {frame['HtoD']} (host copy "
+          f"calls {frame['copies']}), cudaStreamSynchronize {frame['sync']}; "
+          f"the march alone on an earlier frame's state and first list "
+          f"({march_epochs} epochs): DtoH {march_tr['DtoH']}, HtoD "
+          f"{march_tr['HtoD']} (host copy calls {march_tr['copies']}), "
+          f"cudaStreamSynchronize {march_tr['sync']}, {march_ops} device "
+          f"operations ({march_tr['traced']} in the device trace), its first "
+          f"epoch alone {first_ops}: {later} for the "
+          f"{march_epochs - 1} later epochs and the end; the frame around the "
+          f"march {n_ops - march_ops} device operations, "
+          f"{frame['DtoH'] - march_tr['DtoH']} DtoH; network plain versions "
+          f"on the card {plain}, frame kernels' {frame_plain}; "
           f"top device operations: " + "; ".join(
               f"{n.replace('(anonymous namespace)::', '').split('(')[0][-60:]} "
               f"{t:.3f} ms {c}x" for n, (t, c) in top))
     if not same:
         raise AssertionError(f"{label}: two frames at one sample index differ")
-    if row_maps or any(plain.values()):
+    if row_maps or any(plain.values()) or any(frame_plain.values()):
         raise AssertionError(f"{label}: {row_maps} row-map launches, plain "
-                             f"network versions on the card {plain}")
-    if march["DtoH"] > 2 * march_epochs + 1:
-        raise AssertionError(f"{label}: the march read the device "
-                             f"{march['DtoH']} times in {march_epochs} epochs")
+                             f"network versions on the card {plain}, frame "
+                             f"kernels' {frame_plain}")
+    # the host's copy calls bound the DtoH copies from above
+    if march_tr["copies"] > 2 * march_epochs + 1:
+        raise AssertionError(f"{label}: the march copied "
+                             f"{march_tr['copies']} times in {march_epochs} "
+                             f"epochs")
     if later > LIST_EPOCH_OPS * (march_epochs - 1) + LIST_LAST_OPS:
         raise AssertionError(f"{label}: {later} device operations for "
                              f"{march_epochs - 1} epochs after the first")
-    if max_dtoh is not None and frame["DtoH"] >= max_dtoh:
-        raise AssertionError(f"{label}: {frame['DtoH']} Memcpy DtoH (aim: "
-                             f"under {max_dtoh})")
+    if max_dtoh is not None and frame["copies"] >= max_dtoh:
+        raise AssertionError(f"{label}: {frame['copies']} copies (DtoH "
+                             f"{frame['DtoH']}; aim: under {max_dtoh})")
+    for c in (frame, march_tr):
+        del c["by_name"]
     return {"bit_identical": same, "device_ops": n_ops, "busy_ms": busy,
             "wall_ms": wall, "epochs": epochs, "frame_transfers": frame,
-            "march_transfers": march, "march_epochs": march_epochs,
-            "march_device_ops": march_ops, "first_epoch_device_ops": first_ops}
+            "march_transfers": march_tr, "march_epochs": march_epochs,
+            "march_device_ops": march_ops, "first_epoch_device_ops": first_ops,
+            "around_march_device_ops": n_ops - march_ops,
+            "around_march_dtoh": frame["DtoH"] - march_tr["DtoH"]}
 
 
 def step_sync_counts(tr):
@@ -3001,6 +3423,7 @@ def timed_frames(renderer, nerf, n=3):
 
 
 def multicascade_phases(dev, tmp, lap, glasses, ds, march_others=(),
+                        frame_others=(),
                         dirs=()):
     """Phases 22-26 -> (the tiled kernel's launches in the 4 + 4 timed exact
     and flash hybrid frames, the march-kernel numbers: the exact frames'
@@ -3045,8 +3468,15 @@ def multicascade_phases(dev, tmp, lap, glasses, ds, march_others=(),
         raise AssertionError("the snapshot did not load as a multi-cascade scene")
     warm_ms, exact_ms, epochs, launches, peak = timed_frames(renderer, nerf)
     mc_march_launches = dict(march_cuda.launches)
+    mc_frame_launches = dict(frame_cuda.launches)
     mc_net_launches = network_launch_check(
-        f"multi-cascade exact {W}x{H} frames (phase 23)")
+        f"multi-cascade exact {W}x{H} frames (phase 23)", frame_need=ALL_FRAME)
+    # the ray init's two stages around the init walk, once each a frame
+    if (mc_frame_launches["ray_init"] != 8
+            or any(mc_frame_launches[k] != 4 for k in ALL_FRAME
+                   if k != "ray_init")):
+        raise AssertionError(f"4 multi-cascade frames launched the frame "
+                             f"kernels {mc_frame_launches} times")
     fb = renderer._frame_buffer
     img = renderer.display_image()
     surf_px = int((nerf._surface_t > 0).sum())
@@ -3073,10 +3503,11 @@ def multicascade_phases(dev, tmp, lap, glasses, ds, march_others=(),
         raise AssertionError(f"the multi-cascade frames launched the march "
                              f"kernels {mc_march_launches} times")
     img_exact = fresh_frame(renderer)
-    wall, busy, ops = device_profile(renderer.frame, host=False)
-    print(f"one multi-cascade exact frame under torch.profiler: "
-          f"{sum(c for _, c in ops.values())} device operations, device busy "
-          f"{busy:.2f} ms of {wall:.2f} ms wall ({busy / wall:.1%})")
+    c = op_counts(renderer.frame)
+    print(f"one multi-cascade exact frame under torch.profiler: {c['ops']} "
+          f"device operations (host API calls; {c['traced']} in the device "
+          f"trace), device busy {c['busy_ms']:.2f} ms of {c['wall_ms']:.2f} "
+          f"ms wall ({c['busy_ms'] / c['wall_ms']:.1%})")
     lap(23)
 
     # 23b: the march kernels on this frame's first epoch (the clearance
@@ -3099,6 +3530,14 @@ def multicascade_phases(dev, tmp, lap, glasses, ds, march_others=(),
                   "kernels": mc_net}
     lap("23b")
 
+    # 23c: the frame kernels on this frame's own calls (the ray init's two
+    # stages around the init walk)
+    mc_march_frames["frame_kernels"] = frame_kernels_phase(
+        renderer, nerf, "multi-cascade exact 720p", others=frame_others,
+        plain_frame=False)
+    mc_march_frames["frame_launches"] = mc_frame_launches
+    lap("23c")
+
     # 24: baked + flash through load_nerf(bake=True)
     zero_network_counts()
     torch.cuda.synchronize()
@@ -3108,7 +3547,8 @@ def multicascade_phases(dev, tmp, lap, glasses, ds, march_others=(),
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
     network_launch_check("multi-cascade load_nerf(bake=True): the bake and "
-                         "the fidelity probe's frames (phase 24)")
+                         "the fidelity probe's frames (phase 24)",
+                         frame_need=NERF_FRAME)
     t0 = time.perf_counter()
     fnerf.bake(MC_BAKE_RES)                  # the same bake, timed alone
     torch.cuda.synchronize()
@@ -3138,10 +3578,11 @@ def multicascade_phases(dev, tmp, lap, glasses, ds, march_others=(),
           f"{p_flash:.2f} dB")
     if not np.isfinite(img_flash).all() or p_flash < PSNR_FLASH_VS_EXACT_DB:
         raise AssertionError("multi-cascade flash frame too far from the exact one")
-    wall, busy, ops = device_profile(frenderer.frame, host=False)
-    print(f"one multi-cascade flash frame under torch.profiler: "
-          f"{sum(c for _, c in ops.values())} device operations, device busy "
-          f"{busy:.2f} ms of {wall:.2f} ms wall ({busy / wall:.1%})")
+    c = op_counts(frenderer.frame)
+    print(f"one multi-cascade flash frame under torch.profiler: {c['ops']} "
+          f"device operations (host API calls; {c['traced']} in the device "
+          f"trace), device busy {c['busy_ms']:.2f} ms of {c['wall_ms']:.2f} "
+          f"ms wall ({c['busy_ms'] / c['wall_ms']:.1%})")
     # the march kernels of the flash frame against their plain versions
     mc_march_frames["flash"] = flash_march_check(
         frenderer, fnerf, "multi-cascade 720p",
@@ -3321,14 +3762,25 @@ def camera_phases(dev, tmp, lap, glasses, ds, flash_ms, sps_plain):
     for name, setup in CAMERAS.items():
         setup(renderer, nerf)
         mesh_cuda.launches = 0
+        zero_frame_counts()
         ms, fb = camera_frame(renderer, nerf)
         n_launch = mesh_cuda.launches
         launches, frames = launches + n_launch, frames + 2
         diff = float((fb - plain).abs().max())
+        frame_plain = dict(frame_cuda.plain_on_card)
         print(f"  {name}: {ms:.1f} ms/frame (host clock to synchronize), "
               f"epochs {nerf.last_march_epochs}, path {nerf.last_render_path}, "
               f"max |frame - plain| {diff:.4f}, tiled kernel launches "
-              f"{n_launch} in 2 frames")
+              f"{n_launch} in 2 frames, frame kernel launches "
+              f"{frame_cuda.launches}, plain versions on the card "
+              f"{frame_plain}")
+        # a camera other than a plain perspective one makes its rays with
+        # aten and hands them to the ray init kernel
+        if (any(frame_cuda.launches[k] != 2 for k in ALL_FRAME)
+                or any(frame_plain.values())):
+            raise AssertionError(f"{name}: 2 frames launched the frame "
+                                 f"kernels {frame_cuda.launches}, plain "
+                                 f"versions on the card {frame_plain}")
         if not bool(torch.isfinite(fb).all()):
             raise AssertionError(f"the {name} frame is not finite")
         if diff <= CAMERA_DIFF:
@@ -3728,7 +4180,8 @@ def application_phases(dev, tmp, lap, glasses):
     torch.cuda.synchronize()
     app_s = time.perf_counter() - t0
     app_launches = mesh_cuda.launches
-    network_launch_check("the application's sweep and orbit frames (phase 17)")
+    network_launch_check("the application's sweep and orbit frames (phase 17)",
+                         frame_need=ALL_FRAME)
     run = app.app_report
     hybrid_frames = app.stats()["frame_count"] - run["sweep_frames"]
     lm_err = max(float(np.abs(a - b).max())
@@ -4097,11 +4550,14 @@ def sharded_frames_rank(mesh, glasses, width, height, bake_kw):
 
     frame()
     mesh_cuda.raycast_launches = 0
+    zero_frame_counts()
     t0 = time.perf_counter()
     for _ in range(SHARD_FRAMES):
         fr, dp = frame()                # numpy: synchronised
     frame_ms = (time.perf_counter() - t0) * 1e3 / SHARD_FRAMES
     launches = mesh_cuda.raycast_launches
+    frame_launches = dict(frame_cuda.launches)
+    frame_plain = dict(frame_cuda.plain_on_card)
     del r, nerf, scene
     er, enerf = make_renderer(dev, width, height, glasses)
     eopts = exact_sharded_options(enerf)
@@ -4113,7 +4569,8 @@ def sharded_frames_rank(mesh, glasses, width, height, bake_kw):
                                       eopts, mesh)
     image_ms = (time.perf_counter() - t0) * 1e3
     return {"frame": fr, "depth": dp, "frame_ms": frame_ms,
-            "launches": launches, "image": img, "image_depth": img_d,
+            "launches": launches, "frame_launches": frame_launches,
+            "frame_plain": frame_plain, "image": img, "image_depth": img_d,
             "image_ms": image_ms}
 
 
@@ -4191,7 +4648,9 @@ def parallel_phases(dev, lap, glasses, ds, ref_frame, sps_plain):
             print(f"{label} rank {rank}: render_hybrid_sharded {W}x{H} "
                   f"{r['frame_ms']:.1f} ms/frame ({SHARD_FRAMES} frames, "
                   f"host clock to numpy), untiled kernel launches "
-                  f"{r['launches']}; vs phase 9's one-process frame "
+                  f"{r['launches']}, frame kernel launches "
+                  f"{r['frame_launches']}, plain versions on the card "
+                  f"{r['frame_plain']}; vs phase 9's one-process frame "
                   f"{p_f:.2f} dB, max |depth diff| {dd:.3g}; "
                   f"render_image_sharded (exact, NeRF only) "
                   f"{r['image_ms']:.1f} ms, vs one process's march "
@@ -4208,6 +4667,12 @@ def parallel_phases(dev, lap, glasses, ds, ref_frame, sps_plain):
             if r["launches"] != SHARD_FRAMES:
                 raise AssertionError(f"{label}: {r['launches']} untiled "
                                      f"launches in {SHARD_FRAMES} frames")
+            if (any(r["frame_launches"][k] != SHARD_FRAMES
+                    for k in NERF_FRAME) or any(r["frame_plain"].values())):
+                raise AssertionError(
+                    f"{label}: each rank's march launched the frame kernels "
+                    f"{r['frame_launches']} in {SHARD_FRAMES} frames, plain "
+                    f"versions on the card {r['frame_plain']}")
     print("two gloo ranks share one card's SMs and stage CUDA tensors "
           "through the host: their times say nothing about scaling")
     lap(32)
@@ -4286,14 +4751,15 @@ def main(tmp, dirs, multicascade_only=False):
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    kernel_modules = (mesh_cuda, march_cuda, network_cuda)
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:   # one nvcc each
+    kernel_modules = (mesh_cuda, march_cuda, network_cuda, frame_cuda)
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:   # one nvcc each
         for build in [pool.submit(m.load_library) for m in kernel_modules]:
             build.result()
     print(f"kernel builds + loads, in parallel: {time.perf_counter() - t0:.2f} s "
           f"(nvcc mesh_raycast.cu {mesh_cuda.build_seconds:.2f} s, march.cu "
           f"{march_cuda.build_seconds:.2f} s, network.cu "
-          f"{network_cuda.build_seconds:.2f} s)")
+          f"{network_cuda.build_seconds:.2f} s, frame.cu "
+          f"{frame_cuda.build_seconds:.2f} s)")
     for m in kernel_modules:
         print(m.build_log.strip())
     mlp_build = mlp_kernel_report(network_cuda)
@@ -4301,6 +4767,7 @@ def main(tmp, dirs, multicascade_only=False):
     others = other_checkouts(dirs, "mesh_cuda")
     net_others = other_checkouts(dirs, "network_cuda")
     march_others = other_checkouts(dirs, "march_cuda")
+    frame_others = other_checkouts(dirs, "frame_cuda")
     for path, m in march_others:
         march_sass_report(m, path)
 
@@ -4308,7 +4775,8 @@ def main(tmp, dirs, multicascade_only=False):
     n_tris = write_glasses_gltf(glasses)
     if multicascade_only:
         ds, _, _ = capture_phase(dev, lap)
-        multicascade_phases(dev, tmp, lap, glasses, ds, march_others, dirs)
+        multicascade_phases(dev, tmp, lap, glasses, ds, march_others,
+                            frame_others, dirs)
         print(f"total {time.perf_counter() - t_start:.1f} s (multi-cascade "
               f"phases only: no result)")
         return
@@ -4354,7 +4822,12 @@ def main(tmp, dirs, multicascade_only=False):
     # 4: the slice
     warm_ms, frame_ms, epochs, launches, peak = timed_frames(renderer, nerf)
     march_launches = dict(march_cuda.launches)
-    net_launches = network_launch_check(f"exact {W}x{H} frames (phase 4)")
+    frame_launches = dict(frame_cuda.launches)
+    net_launches = network_launch_check(f"exact {W}x{H} frames (phase 4)",
+                                        frame_need=ALL_FRAME)
+    if any(frame_launches[k] != 4 for k in ALL_FRAME):
+        raise AssertionError(f"4 exact frames launched the frame kernels "
+                             f"{frame_launches} times (once a frame each)")
     fb = renderer._frame_buffer
     img = renderer.display_image()
     surf_px = int((nerf._surface_t > 0).sum())
@@ -4414,7 +4887,8 @@ def main(tmp, dirs, multicascade_only=False):
         torch.cuda.synchronize()
         f32_launches = network_launch_check(
             f"exact {W}x{H} frame at the f32 compute dtype (phase 4b)",
-            need=PAIR + ("rgb_head",), absent=("encode_mlp",))
+            need=PAIR + ("rgb_head",), absent=("encode_mlp",),
+            frame_need=ALL_FRAME)
     finally:
         nerf.march_overrides = saved
     # and its first-epoch encode and MLP calls, held and timed as in 5c
@@ -4469,6 +4943,12 @@ def main(tmp, dirs, multicascade_only=False):
                                             others=net_others, probe=True)
     lap("5c")
 
+    # 5d: the frame kernels on the exact frame's own calls, and a frame
+    # with their plain versions in their place
+    frame_held = frame_kernels_phase(renderer, nerf, "exact 720p",
+                                     others=frame_others, dirs=dirs)
+    lap("5d")
+
     # 6: a small frame on the card against the CPU
     small = []
     for device in (dev, torch.device("cpu")):
@@ -4518,7 +4998,7 @@ def main(tmp, dirs, multicascade_only=False):
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
     network_launch_check("load_nerf(bake=True): the bake and the fidelity "
-                         "probe's frames (phase 8)")
+                         "probe's frames (phase 8)", frame_need=NERF_FRAME)
     t0 = time.perf_counter()
     fnerf.bake(512, feat_resolution=256)     # the same bake, timed alone
     torch.cuda.synchronize()
@@ -4553,7 +5033,8 @@ def main(tmp, dirs, multicascade_only=False):
     if flash_launches < 4:
         raise AssertionError(f"flash frames launched the tiled kernel "
                              f"{flash_launches} times")
-    network_launch_check(f"flash {W}x{H} frames (phase 8)", need=("rgb_head",))
+    network_launch_check(f"flash {W}x{H} frames (phase 8)", need=("rgb_head",),
+                         frame_need=ALL_FRAME)
     renderer.update_model_view_proj()
     renderer.frame()
     img_exact = renderer.display_image()
@@ -4567,10 +5048,11 @@ def main(tmp, dirs, multicascade_only=False):
     print(f"flash frame vs exact frame (same camera, sample 0): {p_flash:.2f} dB")
     if p_flash < PSNR_FLASH_VS_EXACT_DB:
         raise AssertionError("flash frame too far from the exact frame")
-    wall, busy, ops = device_profile(frenderer.frame, host=False)
-    print(f"one flash frame under torch.profiler: "
-          f"{sum(c for _, c in ops.values())} device operations, device busy "
-          f"{busy:.2f} ms of {wall:.2f} ms wall ({busy / wall:.1%})")
+    c = op_counts(frenderer.frame)
+    print(f"one flash frame under torch.profiler: {c['ops']} device "
+          f"operations (host API calls; {c['traced']} in the device trace), "
+          f"device busy {c['busy_ms']:.2f} ms of {c['wall_ms']:.2f} ms wall "
+          f"({c['busy_ms'] / c['wall_ms']:.1%})")
     # 8b: the march kernels of the flash frame and of a baked frame with
     # sequential rounds, each against its plain version
     flash_march = flash_march_check(frenderer, fnerf, "720p", {
@@ -4578,6 +5060,10 @@ def main(tmp, dirs, multicascade_only=False):
         "baked": ("advance_samples", "composite:blend",
                   "composite:samples")}, march_others)
     baked_launches = flash_march["launches"]
+    # 8c: the frame kernels on the flash frame's own calls (the ray init
+    # with the coarse floor)
+    frame_flash = frame_kernels_phase(frenderer, fnerf, "flash 720p",
+                                      others=frame_others, plain_frame=False)
     lap(8)
 
     # 9: the single-program hybrid frame with the same options and scene
@@ -4596,16 +5082,24 @@ def main(tmp, dirs, multicascade_only=False):
     mesh_cuda.launches = 0
     mesh_cuda.raycast_launches = 0
     sh_frame, sh_depth = sharded(1, opts)       # numpy: synchronised
+    zero_frame_counts()
     t0 = time.perf_counter()
     for _ in range(3):
         sh_frame, sh_depth = sharded(1, opts)
     sharded_ms = (time.perf_counter() - t0) * 1000.0 / 3
+    sh_launches = dict(frame_cuda.launches)
+    sh_plain = dict(frame_cuda.plain_on_card)
     untiled_launches = mesh_cuda.raycast_launches
     p_sh = psnr(sh_frame[..., :3], fb_flash[..., :3].cpu().numpy())
     print(f"single-program frame {W}x{H}, n_shards=1: {sharded_ms:.1f} ms/frame "
           f"(3 frames, to host), untiled kernel launches {untiled_launches}, "
-          f"tiled {mesh_cuda.launches}; vs the renderer's flash frame "
+          f"tiled {mesh_cuda.launches}, frame kernels {sh_launches}, plain "
+          f"versions on the card {sh_plain}; vs the renderer's flash frame "
           f"{p_sh:.2f} dB")
+    if any(sh_launches[k] != 3 for k in NERF_FRAME) or any(sh_plain.values()):
+        raise AssertionError(f"3 single-program frames launched the frame "
+                             f"kernels {sh_launches}, plain versions on the "
+                             f"card {sh_plain}")
     if not (sh_frame.shape == (H, W, 4) and np.isfinite(sh_frame).all()):
         raise AssertionError("single-program frame is not finite")
     if untiled_launches < 4:
@@ -4613,12 +5107,13 @@ def main(tmp, dirs, multicascade_only=False):
                              f"kernel {untiled_launches} times")
     if p_sh < PSNR_SHARDED_DB:
         raise AssertionError("single-program frame disagrees with the renderer")
-    sh_wall, sh_busy, sh_ops = device_profile(lambda: sharded(1, opts))
-    sh_ray = sum(t for n, (t, _) in sh_ops.items() if "raycast_kernel" in n)
-    print(f"one single-program frame under torch.profiler: "
-          f"{sum(c for _, c in sh_ops.values())} device operations, device busy "
-          f"{sh_busy:.2f} ms of {sh_wall:.2f} ms wall, of which the untiled "
-          f"ray-cast {sh_ray:.2f} ms")
+    c = op_counts(lambda: sharded(1, opts))
+    sh_ray = sum(t for n, (t, _) in c["by_name"].items()
+                 if "raycast_kernel" in n)
+    print(f"one single-program frame under torch.profiler: {c['ops']} device "
+          f"operations (host API calls; {c['traced']} in the device trace), "
+          f"device busy {c['busy_ms']:.2f} ms of {c['wall_ms']:.2f} ms wall, "
+          f"of which the untiled ray-cast {sh_ray:.2f} ms")
     nj = dataclasses.replace(opts, jitter=False)
     f1, d1 = sharded(1, nj)
     f4, d4 = sharded(4, nj)
@@ -4654,7 +5149,8 @@ def main(tmp, dirs, multicascade_only=False):
     app_launches = application_phases(dev, tmp, lap, glasses)
     mc_launches, mc_march, mc_net = multicascade_phases(dev, tmp, lap,
                                                         glasses, ds,
-                                                        march_others, dirs)
+                                                        march_others,
+                                                        frame_others, dirs)
     cam_launches, cam_frames = camera_phases(dev, tmp, lap, glasses, ds,
                                              flash_ms, sps_plain)
     mp_launches, mp_calls, mp_ms = mesh_pass_phase(dev, lap, glasses)
@@ -4710,7 +5206,10 @@ def main(tmp, dirs, multicascade_only=False):
                 "multi-cascade flash 720p (phase 24)": mc_march["flash"]},
             march_sass, list_route)
         + network_entries(net, net_f32, net_launches, f32_launches, mc_net,
-                          ref_net, train_net, mlp_build),
+                          ref_net, train_net, mlp_build)
+        + frame_entries(frame_held, frame_launches, 4, frame_flash,
+                        mc_march["frame_kernels"]),
+        "frame_plain_frames": frame_held["frames"],
         "network_frames": network_frames(net_frames, mc_net, ref_net)}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

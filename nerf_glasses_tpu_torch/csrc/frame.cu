@@ -1,0 +1,811 @@
+// The frame around the march for Hopper: four kernels that take the
+// place of the eager aten glue between the mesh ray-cast, the march and
+// the frame buffer (ops/frame_cuda.py holds their wrappers and plain
+// versions). On the TPU, XLA fused this glue into the frame's few
+// programs; run eagerly it was ~320 device operations and 3 host reads of
+// the exact 720p hybrid frame's 482 (PERF.md section 5), none of them
+// long, each a launch the host waits to issue.
+//
+//   mesh_plan_kernel (nmr_mesh_plan) replaces ops/triangles.py's
+//       world_triangles (three batched einsums and gathers), _bin_triangles
+//       (the projection, the bbox tests and a stable argsort over
+//       (n_tiles, T) that front-packs each tile's list) and the ray
+//       generation of tiled_raycast_inputs (the ndc @ cam3.T matmul, the
+//       norm, the tile-major permute, the broadcast origin's copy), all
+//       now ops/frame_cuda.py::mesh_plan_reference (formerly
+//       ops/triangles.py:133, :304 and :335); JAX
+//       nerf_glasses_tpu/ops/triangles.py:603 _bin_triangles and the ray
+//       and triangle set-up of render_mesh_pass_tiled (:383).
+//       What bounds it: the bytes it writes (24 B a ray, 3.8 M rays at
+//       720p x 2, and each tile's candidates). Design: the first n_tiles
+//       blocks bin, one tile a block: each thread takes a triangle, puts
+//       it in world space from the instance transforms (kernel parameters
+//       while they fit), projects its bbox and tests it against the tile;
+//       a ballot and a block scan front-pack the overlapping ids in
+//       ascending order (no sort). Only a row's first count entries are
+//       written: the ray-cast reads no further (the plain version's
+//       argsort also orders the rest). The other blocks write the rays
+//       grid-stride, coalesced.
+//   surface_shade_kernel (nmr_surface_shade) replaces the body of
+//       ops/triangles.py::render_mesh_pass_tiled after the ray-cast:
+//       stable_partition_ids over the tiles with hits (two host reads),
+//       the gathers of those tiles, shade_hits (the TBN, the five texture
+//       slots, GGX, the batched einsums), linear_to_srgb, the FxF
+//       coverage average and depth max, the scatter and the permute back
+//       to row-major, now frame_cuda.py::surface_shade_reference and
+//       shade_hits (formerly triangles.py:387-422 and :202-283); JAX
+//       triangles.py:254 shade_hits, :529 render_mesh_surface, :699
+//       downsample_surface.
+//       What bounds it: the hits' shading (their count, a few per cent of
+//       the rays) and the output it writes (20 B a NeRF pixel). Design: a
+//       thread a NeRF pixel, its F x F supersampled rays read through the
+//       tile-major index; a pixel whose tile has no candidate writes
+//       zeros without reading a hit; materials from one table and one
+//       texel buffer packed at load_mesh; outputs row-major (H, W, 4) and
+//       (H, W), the layout the march takes.
+//   ray_init_kernel (nmr_ray_init) replaces ops/raymarch.py's ray
+//       generation for a plain perspective camera (render_image_device),
+//       init_rays before and after its walk (the aabb entry, the
+//       containment test, the surface takeover, the start-t jitter,
+//       t_start), _make_state's fills and the flash floor rule, and on the
+//       list route the first live-ray list (torch.nonzero), now
+//       frame_cuda.py::ray_init_reference, init_rays and make_state
+//       (formerly raymarch.py:950-1018, :279-303, :418-443 and :796); JAX
+//       raymarch.py:518 init_rays, :690 _make_state, :1472
+//       render_image_device.
+//       What bounds it: the state it writes (~77 B a ray). Design: a
+//       thread a pixel; where init_rays has a walk (several cascades, a
+//       cone angle) the wrapper splits it in two stages around the walk
+//       kernel (STAGE_RAYS before, STAGE_STATE after, each array written
+//       by one of them); else one launch does both in registers. Rays the
+//       caller made (another camera model, a march of given rays:
+//       STAGE_GIVEN) are read in place of the camera's. The
+//       list: a block scan of the alive flags and one atomicAdd a block
+//       (the count zeroed by the entry point), so a block's rays stay
+//       together and in order.
+//   finalize_kernel (nmr_frame_finalize) replaces raymarch.py's _finalize
+//       (the w > 0.001 keep, the alpha > 0.2 depth gate) and _shade_frame
+//       (srgb_to_linear), now frame_cuda.py::finalize_reference (formerly
+//       raymarch.py:672 and :1034); JAX raymarch.py:1096 and :1515.
+//       Bound: its 40 B a pixel; one elementwise pass writing the (H, W,
+//       4) frame and the (H, W) depth.
+//
+// Numerics: the plain versions' float32 operations one by one (built with
+// -fmad=false: no product and sum fuse unless written fmaf). The card's
+// plain version divides by a Python number as the product with its
+// float32 reciprocal (aten's div_true with a CPU scalar); the kernels take
+// the same reciprocals, made on the host. A matrix product of the plain
+// version (the einsums, ndc @ cam3.T) is a library's, whose order is its
+// own: here an FMA chain from the first term (the GEMM's, bit for bit on
+// the card; the batched GEMV of the shade's normal matrices may differ),
+// and a sum or norm over 3 in the order of aten's reduction. So the lists
+// and counts of the mesh plan, the coverage and depth of the surface
+// shade, and the flags of the ray init come out as the plain version's (a
+// bbox edge or a containment test a rounding away from a boundary aside),
+// the floats within a few ulps (ops/frame_cuda.py::compare_with_plain's
+// contract).
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int TILE_W = 128;
+constexpr int TILE_H = 64;
+constexpr int TILE_RAYS = TILE_W * TILE_H;
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr float F32_MAX = 3.402823466e38f;
+
+}  // namespace
+
+constexpr int MAX_INSTANCES = 16;   // instance transforms passed by value
+constexpr int MAT_STRIDE = 12;      // floats a material in the table
+constexpr int TEX_SLOTS = 5;
+
+// Layouts shared with ops/frame_cuda.py (ctypes structures of the same
+// names and order).
+struct PlanParams {
+  float cam[12];        // the packed camera (3, 4), row-major
+  float cam_inv[9];     // inverse of cam[:, :3], row-major
+  float inv_w, inv_h;   // float32 1 / width, 1 / height
+  float width_f, height_f, wp_f;
+  float hp_f;
+  int n_tris, n_inst, ntx, nty, bin_blocks;
+  long long n_rays;
+  float xf[MAX_INSTANCES * 12];   // instance transforms (I, 3, 4)
+};
+
+struct PlanArgs {
+  const float *v0, *e1, *e2;      // (T, 3) object space
+  const long long* inst;          // (T,)
+  const float* xf;                // (I, 3, 4) on the device, or null: P.xf
+  float* tri;                     // (T, 9) world [v0 | e1 | e2]
+  float *o, *d;                   // (n_tiles * 8192, 3) tile-major
+  int* lists;                     // (n_tiles, T): row k's first counts[k]
+  int* counts;                    // (n_tiles,)
+};
+
+struct ShadeParams {
+  float eye[3], light[3];
+  float inv_ff;         // float32 1 / (F * F)
+  int out_w, out_h, factor, ntx, n_inst, n_mat;
+  float nrm[MAX_INSTANCES * 9];   // instance normal matrices (I, 3, 3)
+};
+
+struct ShadeArgs {
+  const float *t, *u, *v;         // the ray-cast's outputs (n_tiles * 8192,)
+  const int* tri;
+  const int* counts;              // (n_tiles,)
+  const float* d;                 // (n_tiles * 8192, 3)
+  const float *n, *tan, *uv;      // (T, 3, 3), (T, 3, 4), (T, 3, 2)
+  const long long *mat_id, *inst_id;
+  const float* nrm;               // (I, 3, 3) on the device, or null: P.nrm
+  const float* mat;               // (M, MAT_STRIDE)
+  const int* tex;                 // (M, TEX_SLOTS, 4): offset, h, w, c
+  const float* texels;
+  float* rgba;                    // (out_h, out_w, 4)
+  float* depth;                   // (out_h, out_w)
+};
+
+// STAGE_GIVEN: the rays are the caller's, in o and d
+enum { STAGE_RAYS = 1, STAGE_STATE = 2, STAGE_GIVEN = 4 };
+
+struct InitParams {
+  float cam[12];
+  float eye[3];         // cam[:, 3] + 0.5
+  float ox, oy;         // sub-pixel offsets
+  float inv_w, inv_h;
+  float cone, dt_min, dt_max;
+  int width, height, stage, jitter, max_cascade;
+  int lowres_f, coarse_w;         // flash floor: factor and coarse width
+  int make_list;
+  unsigned int seed;
+};
+
+struct InitArgs {
+  const float *box_lo, *box_hi;   // the render aabb (3,)
+  const float *surf_in, *t_surf_in;   // (N, 4), (N,), or null: none
+  const float* t_floor;           // (Hl, Wl) or null
+  const uint8_t* alive_img;       // (Hl, Wl)
+  const float* t_walk;            // STAGE_STATE alone: the walk's t, alive
+  const uint8_t* alive_walk;
+  float *o, *d;                   // (N, 3), read with STAGE_GIVEN
+  float *surf, *t_surf;           // written where none is given
+  float* t_pre;                   // STAGE_RAYS alone: t, alive for the walk
+  uint8_t* alive_pre;
+  float *t, *t_start, *rgba, *depth, *max_weight, *wn, *surf_a;
+  uint8_t* alive;
+  int *ids, *n_ids;               // the first live-ray list and its length
+};
+
+struct FinalizeParams {
+  int n, linear;
+  float keep_a, depth_a;          // 0.001, 0.2
+  float lin_cut, inv_1292, add, inv_1055, gamma;
+};
+
+struct FinalizeArgs {
+  const float *rgba_in, *depth_in;
+  float *rgba, *depth;
+};
+
+namespace {
+
+// torch.minimum / maximum / amin / amax: a NaN operand gives NaN.
+__device__ __forceinline__ float nmin(float a, float b) {
+  return (a != a || a < b) ? a : b;
+}
+__device__ __forceinline__ float nmax(float a, float b) {
+  return (a != a || a > b) ? a : b;
+}
+// torch.clamp(x, min=lo) keeping NaN
+__device__ __forceinline__ float clamp_lo(float x, float lo) {
+  return x < lo ? lo : x;
+}
+__device__ __forceinline__ float clamp_hi(float x, float hi) {
+  return x > hi ? hi : x;
+}
+
+// row r of m (3 x k, row-major, stride s) times x: an FMA chain from the
+// first term, the order a GEMM takes its k steps
+__device__ __forceinline__ float row3(const float* m, int s, int r,
+                                      const float x[3]) {
+  return fmaf(m[s * r + 2], x[2], fmaf(m[s * r + 1], x[1], m[s * r] * x[0]));
+}
+
+// A sum over a contiguous dim of 3 as aten's reduction runs it on the
+// card: two threads, the first with elements 0 and 2 in two accumulators,
+// combined, then the second's element 1.
+__device__ __forceinline__ float sum3(float a, float b, float c) {
+  return (a + c) + b;
+}
+
+// vector_norm over 3: the squares summed so, then sqrt
+__device__ __forceinline__ float norm3(const float x[3]) {
+  return sqrtf(sum3(x[0] * x[0], x[1] * x[1], x[2] * x[2]));
+}
+
+// This thread's place among the block's flags that are set and their
+// total (a ballot a warp, the warps' counts scanned by warp 0). Every
+// thread of the block calls it; s holds 2 * WARPS + 1 ints.
+__device__ __forceinline__ int block_scan(bool flag, int* s, int& total) {
+  const unsigned ballot = __ballot_sync(0xffffffffu, flag);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) s[warp] = __popc(ballot);
+  __syncthreads();
+  if (warp == 0) {
+    const int c = lane < WARPS ? s[lane] : 0;
+    int incl = c;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += y;
+    }
+    if (lane < WARPS) s[WARPS + lane] = incl - c;
+    if (lane == 31) s[2 * WARPS] = incl;
+  }
+  __syncthreads();
+  total = s[2 * WARPS];
+  const int pos = s[WARPS + warp] + __popc(ballot & ((1u << lane) - 1u));
+  __syncthreads();
+  return pos;
+}
+
+// ---------------------------------------------------------------------------
+// nmr_mesh_plan
+// ---------------------------------------------------------------------------
+
+// triangle i in world space (world_triangles: rot @ x, + the translation
+// for v0)
+__device__ __forceinline__ void world_tri(const PlanArgs& a, const float* xf,
+                                          int i, float w[9]) {
+  const float* m = xf + 12 * a.inst[i];
+  float x[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float* src = k == 0 ? a.v0 : (k == 1 ? a.e1 : a.e2);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) x[c] = src[3 * i + c];
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+      const float p = row3(m, 4, r, x);
+      w[3 * k + r] = k == 0 ? p + m[4 * r + 3] : p;
+    }
+  }
+}
+
+// _bin_triangles' test of world triangle w against the tile at (tx0,
+// ty0): the projected bbox, padded by a pixel, or the whole screen where a
+// vertex lies at or behind the eye plane
+__device__ __forceinline__ bool overlaps(const PlanParams& P, const float w[9],
+                                         float tx0, float ty0) {
+  bool behind = false;
+  float xmin = 0.0f, xmax = 0.0f, ymin = 0.0f, ymax = 0.0f;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    float q[3], ndc[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const float v = k == 0 ? w[c] : w[c] + w[3 * k + c];
+      q[c] = v - P.cam[4 * c + 3];
+    }
+#pragma unroll
+    for (int r = 0; r < 3; ++r) ndc[r] = row3(P.cam_inv, 3, r, q);
+    const float z = ndc[2];
+    behind = behind || z <= 1e-6f;
+    const float zs = z <= 1e-6f ? 1.0f : z;
+    const float px = (ndc[0] / zs * 0.5f + 0.5f) * P.width_f;
+    const float py = (ndc[1] / zs * 0.5f + 0.5f) * P.height_f;
+    xmin = k == 0 ? px : nmin(xmin, px);
+    xmax = k == 0 ? px : nmax(xmax, px);
+    ymin = k == 0 ? py : nmin(ymin, py);
+    ymax = k == 0 ? py : nmax(ymax, py);
+  }
+  if (behind) {
+    xmin = 0.0f;
+    xmax = P.wp_f;
+    ymin = 0.0f;
+    ymax = P.hp_f;
+  } else {
+    xmin = xmin - 1.0f;
+    xmax = xmax + 1.0f;
+    ymin = ymin - 1.0f;
+    ymax = ymax + 1.0f;
+  }
+  return xmax >= tx0 && xmin <= tx0 + (float)TILE_W && ymax >= ty0 &&
+         ymin <= ty0 + (float)TILE_H;
+}
+
+__global__ void __launch_bounds__(THREADS) mesh_plan_kernel(PlanParams P,
+                                                            PlanArgs a) {
+  if ((int)blockIdx.x >= P.bin_blocks) {
+    // the rays, grid-stride: ray r is pixel (row, col) of tile r / 8192
+    const long long stride = (long long)(gridDim.x - P.bin_blocks) * THREADS;
+    for (long long r = (long long)(blockIdx.x - P.bin_blocks) * THREADS +
+                       threadIdx.x;
+         r < P.n_rays; r += stride) {
+      const int tile = (int)(r / TILE_RAYS), p = (int)(r % TILE_RAYS);
+      const int ty = tile / P.ntx, tx = tile - ty * P.ntx;
+      const float px = (float)(tx * TILE_W + p % TILE_W) + 0.5f;
+      const float py = (float)(ty * TILE_H + p / TILE_W) + 0.5f;
+      const float ndc[3] = {px * P.inv_w * 2.0f - 1.0f,
+                            py * P.inv_h * 2.0f - 1.0f, 1.0f};
+      float d[3];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) d[c] = row3(P.cam, 4, c, ndc);
+      const float len = norm3(d);
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        a.d[3 * r + c] = d[c] / len;
+        a.o[3 * r + c] = P.cam[4 * c + 3];
+      }
+    }
+    return;
+  }
+  // a tile's list: the overlapping ids ascending
+  __shared__ float s_xf[MAX_INSTANCES * 12];
+  __shared__ int s_scan[2 * WARPS + 1];
+  if (a.xf == nullptr) {
+    for (int k = threadIdx.x; k < 12 * P.n_inst; k += THREADS) s_xf[k] = P.xf[k];
+  }
+  __syncthreads();
+  const float* xf = a.xf != nullptr ? a.xf : s_xf;
+  const int tile = blockIdx.x;
+  const int ty = tile / P.ntx, tx = tile - ty * P.ntx;
+  const float tx0 = (float)(tx * TILE_W), ty0 = (float)(ty * TILE_H);
+  int* list = a.lists + (long long)tile * P.n_tris;
+  int count = 0;
+  for (int base = 0, chunk = 0; base < P.n_tris; base += THREADS, ++chunk) {
+    const int i = base + threadIdx.x;
+    bool ov = false;
+    if (i < P.n_tris) {
+      float w[9];
+      world_tri(a, xf, i, w);
+      ov = overlaps(P, w, tx0, ty0);
+      if (chunk % P.bin_blocks == tile) {
+#pragma unroll
+        for (int c = 0; c < 9; ++c) a.tri[9LL * i + c] = w[c];
+      }
+    }
+    int total;
+    const int pos = block_scan(ov, s_scan, total);
+    if (ov) list[count + pos] = i;
+    count += total;
+  }
+  if (threadIdx.x == 0) a.counts[tile] = count;
+}
+
+// ---------------------------------------------------------------------------
+// nmr_surface_shade
+// ---------------------------------------------------------------------------
+
+// torch.sum(a * b, -1)
+__device__ __forceinline__ float dot3(const float a[3], const float b[3]) {
+  return sum3(a[0] * b[0], a[1] * b[1], a[2] * b[2]);
+}
+
+// _normalize: x / clamp(|x|, min=1e-9)
+__device__ __forceinline__ void normalize3(float x[3]) {
+  const float len = nmax(norm3(x), 1e-9f);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) x[c] = x[c] / len;
+}
+
+// torch.remainder(x, 1.0)
+__device__ __forceinline__ float wrap1(float x) {
+  float m = fmodf(x, 1.0f);
+  if (m != 0.0f && m < 0.0f) m += 1.0f;
+  return m;
+}
+
+__device__ __forceinline__ long long pymod(long long x, long long n) {
+  const long long m = x % n;
+  return m < 0 ? m + n : m;
+}
+
+// _sample_texture: bilinear, repeat wrap, texel centres at +0.5; a
+// texture of c < 4 channels broadcasts its last one, as the plain
+// version's products do
+__device__ void sample_texture(const float* texels, const int* te, float uvx,
+                               float uvy, float out[4]) {
+  const int h = te[1], w = te[2], c = te[3];
+  const float* tex = texels + te[0];
+  const float su = wrap1(uvx) * (float)w - 0.5f;
+  const float sv = wrap1(uvy) * (float)h - 0.5f;
+  const float fx0 = floorf(su), fy0 = floorf(sv);
+  const long long x0 = (long long)fx0, y0 = (long long)fy0;
+  const float fx = su - fx0, fy = sv - fy0;
+  const long long xa = pymod(x0, w), xb = pymod(x0 + 1, w);
+  const long long ya = pymod(y0, h), yb = pymod(y0 + 1, h);
+  const float* t00 = tex + (ya * w + xa) * c;
+  const float* t10 = tex + (ya * w + xb) * c;
+  const float* t01 = tex + (yb * w + xa) * c;
+  const float* t11 = tex + (yb * w + xb) * c;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int ch = k < c ? k : c - 1;
+    out[k] = t00[ch] * (1.0f - fx) * (1.0f - fy) + t10[ch] * fx * (1.0f - fy) +
+             t01[ch] * (1.0f - fx) * fy + t11[ch] * fx * fy;
+  }
+}
+
+__device__ __forceinline__ float linear_to_srgb(float x) {
+  return x < 0.0031308f ? 12.92f * x
+                        : 1.055f * powf(nmax(x, 1e-12f), 0.41666f) - 0.055f;
+}
+
+// shade_hits for one hit: PBR metallic-roughness -> linear rgb
+__device__ void shade_hit(const ShadeParams& P, const ShadeArgs& a,
+                          const float* nrm_mats, int tri, float u, float v,
+                          float t, const float d[3], float rgb[3]) {
+  const float w0 = 1.0f - u - v;
+  const float* nv = a.n + 9LL * tri;
+  const float* tv = a.tan + 12LL * tri;
+  const float* uvv = a.uv + 6LL * tri;
+  const float* nm = nrm_mats + 9 * a.inst_id[tri];
+  float n_obj[3], tan4[4], uv[2];
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+    n_obj[c] = w0 * nv[c] + u * nv[3 + c] + v * nv[6 + c];
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+    tan4[c] = w0 * tv[c] + u * tv[4 + c] + v * tv[8 + c];
+#pragma unroll
+  for (int c = 0; c < 2; ++c)
+    uv[c] = w0 * uvv[c] + u * uvv[2 + c] + v * uvv[4 + c];
+  float nrm[3], tan_w[3];
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    nrm[r] = row3(nm, 3, r, n_obj);
+    tan_w[r] = row3(nm, 3, r, tan4);
+  }
+  const long long mid = a.mat_id[tri];
+  const float* mat = a.mat + MAT_STRIDE * mid;
+  float base[4] = {mat[0], mat[1], mat[2], mat[3]};
+  float metallic = mat[4], roughness = mat[5];
+  float emissive[3] = {mat[6], mat[7], mat[8]};
+  const float normal_scale = mat[9], occ_strength = mat[10];
+  float occlusion = 1.0f;
+
+  // TBN (Gram-Schmidt)
+  normalize3(nrm);
+  const float tn = dot3(tan_w, nrm);
+  float tng[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) tng[c] = tan_w[c] - nrm[c] * tn;
+  normalize3(tng);
+  const float btn[3] = {(nrm[1] * tng[2] - nrm[2] * tng[1]) * tan4[3],
+                        (nrm[2] * tng[0] - nrm[0] * tng[2]) * tan4[3],
+                        (nrm[0] * tng[1] - nrm[1] * tng[0]) * tan4[3]};
+  float normal[3] = {nrm[0], nrm[1], nrm[2]};
+
+  const int* tex = a.tex + (long long)TEX_SLOTS * 4 * mid;
+  float s[4];
+  if (tex[0 * 4 + 1] > 0) {             // base colour
+    sample_texture(a.texels, tex, uv[0], uv[1], s);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) base[c] = base[c] * s[c];
+  }
+  if (tex[1 * 4 + 1] > 0) {             // metallic-roughness
+    sample_texture(a.texels, tex + 4, uv[0], uv[1], s);
+    metallic = metallic * s[2];
+    roughness = roughness * s[1];
+  }
+  if (tex[2 * 4 + 1] > 0) {             // emissive
+    sample_texture(a.texels, tex + 8, uv[0], uv[1], s);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) emissive[c] = emissive[c] * s[c];
+  }
+  if (tex[3 * 4 + 1] > 0) {             // normal map
+    sample_texture(a.texels, tex + 12, uv[0], uv[1], s);
+    const float nx = (s[0] * 2.0f - 1.0f) * normal_scale;
+    const float ny = (s[1] * 2.0f - 1.0f) * normal_scale;
+    const float nz = (s[2] * 2.0f - 1.0f) * 1.0f;
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      normal[c] = tng[c] * nx + btn[c] * ny + nrm[c] * nz;
+  }
+  if (tex[4 * 4 + 1] > 0) {             // occlusion
+    sample_texture(a.texels, tex + 16, uv[0], uv[1], s);
+    occlusion = 1.0f + occ_strength * (s[0] - 1.0f);
+  }
+
+  float N[3] = {normal[0], normal[1], normal[2]};
+  normalize3(N);
+  float V[3], L[3], H[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float hit = P.eye[c] + t * d[c];
+    V[c] = P.eye[c] - hit;
+    L[c] = P.light[c] - hit;
+  }
+  normalize3(V);
+  normalize3(L);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) H[c] = V[c] + L[c];
+  normalize3(H);
+  const float dot_nl = dot3(N, L), dot_nv = dot3(N, V);
+  const float dot_nh = clamp_hi(clamp_lo(dot3(N, H), 0.0f), 1.0f);
+  const float dot_lh = clamp_hi(clamp_lo(dot3(L, H), 0.0f), 1.0f);
+  const float alpha = roughness * roughness;
+  const float a2 = alpha * alpha;
+  const float f = (dot_nh * a2 - dot_nh) * dot_nh + 1.0f;
+  const float D = a2 / (f * f);
+  const float lv = clamp_lo(dot_nl, 0.0f) /
+                   sqrtf(a2 + (1.0f - a2) * dot_nv * dot_nv);
+  const float ll = clamp_lo(dot_nv, 0.0f) /
+                   sqrtf(a2 + (1.0f - a2) * dot_nl * dot_nl);
+  const float G = 0.5f / (lv + ll + 1e-4f);
+  const float schlick = powf(1.0f - dot_lh, 5.0f);
+  const bool lit = dot_nv > 0.0f && dot_nl > 0.0f;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float ambient = base[c] * 0.2f * occlusion;
+    const float fd = (1.0f - metallic) * base[c] * clamp_lo(dot_nl, 0.0f);
+    const float f0 = (0.5f * alpha) * (1.0f - metallic) + base[c] * metallic;
+    const float F = f0 + (1.0f - f0) * schlick;
+    const float fr = lit ? fabsf(D * G * F / 3.14159265358979f) : 0.0f;
+    rgb[c] = ambient + fd + fr + emissive[c];
+  }
+}
+
+__global__ void __launch_bounds__(THREADS) surface_shade_kernel(ShadeParams P,
+                                                                ShadeArgs a) {
+  __shared__ float s_nrm[MAX_INSTANCES * 9];
+  if (a.nrm == nullptr) {
+    for (int k = threadIdx.x; k < 9 * P.n_inst; k += THREADS) s_nrm[k] = P.nrm[k];
+  }
+  __syncthreads();
+  const float* nrm_mats = a.nrm != nullptr ? a.nrm : s_nrm;
+  const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (i >= (long long)P.out_w * P.out_h) return;
+  const int ox = (int)(i % P.out_w), oy = (int)(i / P.out_w);
+  const int F = P.factor;
+  const int sx0 = ox * F, sy0 = oy * F;
+  const int tx = sx0 / TILE_W, ty = sy0 / TILE_H;
+  const int tile = ty * P.ntx + tx;
+  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  float depth = 0.0f;
+  if (a.counts[tile] > 0) {
+    const long long tile_base = (long long)tile * TILE_RAYS;
+    for (int fy = 0; fy < F; ++fy) {
+      for (int fx = 0; fx < F; ++fx) {
+        const long long r = tile_base + (sy0 + fy - ty * TILE_H) * TILE_W +
+                            (sx0 + fx - tx * TILE_W);
+        const int id = a.tri[r];
+        if (id < 0) continue;
+        const float t = a.t[r];
+        const float d[3] = {a.d[3 * r], a.d[3 * r + 1], a.d[3 * r + 2]};
+        float rgb[3];
+        shade_hit(P, a, nrm_mats, id, a.u[r], a.v[r], t, d, rgb);
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+          acc[c] += linear_to_srgb(clamp_hi(clamp_lo(rgb[c], 0.0f), 1.0f)) * P.inv_ff;
+        acc[3] += P.inv_ff;
+        depth = nmax(depth, t);
+      }
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < 4; ++c) a.rgba[4 * i + c] = acc[c];
+  a.depth[i] = depth;
+}
+
+// ---------------------------------------------------------------------------
+// nmr_ray_init
+// ---------------------------------------------------------------------------
+
+// _hash_u32 of a uint32 -> [0, 1)
+__device__ __forceinline__ float hash01(uint32_t x) {
+  x = (x ^ (x >> 16)) * 0x7FEB352Du;
+  x = (x ^ (x >> 15)) * 0x846CA68Bu;
+  x = x ^ (x >> 16);
+  return __uint2float_rn(x) * 2.3283064365386963e-10f;   // 2^-32
+}
+
+__device__ __forceinline__ int frexp_e(float x) {
+  const int field = (__float_as_int(x) >> 23) & 0xff;
+  if (field != 0 && field != 0xff) return field - 126;
+  int e = 0;
+  frexpf(x, &e);
+  return e;
+}
+
+// occupancy.mip_from_pos
+__device__ __forceinline__ int mip_from_pos(const float p[3], int max_cascade) {
+  const float m = nmax(nmax(fabsf(p[0] - 0.5f), fabsf(p[1] - 0.5f)),
+                       fabsf(p[2] - 0.5f));
+  return min(max(frexp_e(m) + 1, 0), max_cascade);
+}
+
+__device__ __forceinline__ float calc_dt(float t, const InitParams& P) {
+  if (P.cone == 0.0f) return P.dt_min;
+  return clamp_hi(clamp_lo(t * P.cone, P.dt_min), P.dt_max);
+}
+
+__global__ void __launch_bounds__(THREADS) ray_init_kernel(InitParams P,
+                                                           InitArgs a) {
+  const long long n = (long long)P.width * P.height;
+  const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
+  const bool on = i < n;
+  bool alive = false;
+  if (on) {
+    float o[3], d[3], t;
+    const float t_surf = a.t_surf_in != nullptr ? a.t_surf_in[i] : 0.0f;
+    const bool has_surface = t_surf > 0.0f;
+    if ((P.stage & STAGE_GIVEN) || !(P.stage & STAGE_RAYS)) {
+      // the caller's rays, or those the first stage wrote
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        o[c] = a.o[3 * i + c];
+        d[c] = a.d[3 * i + c];
+      }
+    } else {
+      const int row = (int)(i / P.width), col = (int)(i - (long long)row * P.width);
+      const float uu = ((float)col + P.ox) * P.inv_w;
+      const float vv = ((float)row + P.oy) * P.inv_h;
+      const float dc[3] = {uu * 2.0f - 1.0f, vv * 2.0f - 1.0f, 1.0f};
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        d[c] = row3(P.cam, 4, c, dc);
+        o[c] = P.eye[c];
+      }
+      const float len = norm3(d);
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        d[c] = d[c] / len;
+        a.o[3 * i + c] = o[c];
+        a.d[3 * i + c] = d[c];
+      }
+    }
+    if (P.stage & STAGE_RAYS) {
+      if (a.t_surf_in == nullptr) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) a.surf[4 * i + c] = 0.0f;
+        a.t_surf[i] = 0.0f;
+      }
+      // the render aabb's entry (ray_intersect_aabb), nudged inside
+      float tmin = 0.0f, tmax = 0.0f;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const float inv = 1.0f / d[c];
+        const float t0 = (a.box_lo[c] - o[c]) * inv;
+        const float t1 = (a.box_hi[c] - o[c]) * inv;
+        const float lo = nmin(t0, t1), hi = nmax(t0, t1);
+        tmin = c == 0 ? lo : nmax(tmin, lo);
+        tmax = c == 0 ? hi : nmin(tmax, hi);
+      }
+      if (tmin > tmax) tmin = F32_MAX;
+      t = clamp_lo(tmin, 0.0f) + 1e-6f;
+      bool inside = true;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const float p = o[c] + d[c] * t;
+        inside = inside && p >= a.box_lo[c] && p <= a.box_hi[c];
+      }
+      alive = inside;
+      if (!alive && has_surface) t = t_surf;
+      alive = alive || has_surface;
+      if (P.jitter) {
+        const float j = hash01((uint32_t)i * 786433u + P.seed);
+        t = t + j * calc_dt(t, P);
+      }
+      if (!(P.stage & STAGE_STATE)) {
+        a.t_pre[i] = t;
+        a.alive_pre[i] = alive;
+      }
+    } else {
+      t = a.t_walk[i];
+      alive = a.alive_walk[i] != 0;
+    }
+    if (P.stage & STAGE_STATE) {
+      float p[3];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) p[c] = o[c] + d[c] * t;
+      const float t_start = mip_from_pos(p, P.max_cascade) == 0 ? t : 0.0f;
+      if (a.t_floor != nullptr) {
+        // the flash floor: start at the coarse first-hit floor; a ray the
+        // coarse pass found empty lives on through its surface alone
+        const int row = (int)(i / P.width), col = (int)(i - (long long)row * P.width);
+        const long long cell = (long long)(row / P.lowres_f) * P.coarse_w +
+                               col / P.lowres_f;
+        const bool lit = a.alive_img[cell] != 0;
+        t = nmax(t, lit ? a.t_floor[cell] : (has_surface ? t_surf : t));
+        alive = alive && (lit || has_surface);
+      }
+      const float surf_alpha = a.t_surf_in != nullptr ? a.surf_in[4 * i + 3] : 0.0f;
+      a.t[i] = t;
+      a.alive[i] = alive;
+      a.t_start[i] = t_start;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) a.rgba[4 * i + c] = 0.0f;
+      a.depth[i] = 0.0f;
+      a.max_weight[i] = 0.0f;
+      a.wn[i] = 0.0f;
+      a.surf_a[i] = alive ? surf_alpha : 0.0f;
+    }
+  }
+  if (!(P.stage & STAGE_STATE) || !P.make_list) return;
+  __shared__ int s_scan[2 * WARPS + 1];
+  __shared__ int s_base;
+  int total;
+  const int pos = block_scan(on && alive, s_scan, total);
+  if (threadIdx.x == 0) s_base = total > 0 ? atomicAdd(a.n_ids, total) : 0;
+  __syncthreads();
+  if (on && alive) a.ids[s_base + pos] = (int)i;
+}
+
+// ---------------------------------------------------------------------------
+// nmr_frame_finalize
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(THREADS) finalize_kernel(FinalizeParams P,
+                                                           FinalizeArgs a) {
+  const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (i >= P.n) return;
+  float c[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) c[k] = a.rgba_in[4 * i + k];
+  const bool keep = c[3] > P.keep_a;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) c[k] = keep ? c[k] : 0.0f;
+  a.depth[i] = c[3] > P.depth_a ? a.depth_in[i] : 0.0f;
+  if (!P.linear) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const float x = c[k];
+      c[k] = x <= P.lin_cut ? x * P.inv_1292
+                            : powf(clamp_lo((x + P.add) * P.inv_1055, 0.0f), P.gamma);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) a.rgba[4 * i + k] = c[k];
+}
+
+inline unsigned blocks(long long n) {
+  return (unsigned)((n + THREADS - 1) / THREADS);
+}
+
+}  // namespace
+
+// Plain C entry points, loaded with ctypes. Each copies its parameters,
+// launches one kernel on `stream` (nmr_ray_init, on the list route, zeroes
+// the list's count first) and returns cudaGetLastError() (0 on success);
+// none synchronises or allocates.
+extern "C" int nmr_frame_max_instances() { return MAX_INSTANCES; }
+
+extern "C" int nmr_mesh_plan(const PlanParams* p, const PlanArgs* a,
+                             int ray_blocks, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  mesh_plan_kernel<<<p->bin_blocks + ray_blocks, THREADS, 0, s>>>(*p, *a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int nmr_surface_shade(const ShadeParams* p, const ShadeArgs* a,
+                                 void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  surface_shade_kernel<<<blocks((long long)p->out_w * p->out_h), THREADS, 0, s>>>(
+      *p, *a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int nmr_ray_init(const InitParams* p, const InitArgs* a,
+                            void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((p->stage & STAGE_STATE) && p->make_list) {
+    const cudaError_t err = cudaMemsetAsync(a->n_ids, 0, sizeof(int), s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  ray_init_kernel<<<blocks((long long)p->width * p->height), THREADS, 0, s>>>(
+      *p, *a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int nmr_frame_finalize(const FinalizeParams* p,
+                                  const FinalizeArgs* a, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  finalize_kernel<<<blocks(p->n), THREADS, 0, s>>>(*p, *a);
+  return static_cast<int>(cudaGetLastError());
+}

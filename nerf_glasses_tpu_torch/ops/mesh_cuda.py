@@ -145,7 +145,9 @@ def raycast_tiled_reference(tri_scalars, o, d, tile_lists, tile_counts,
     """Plain PyTorch version of the kernel: each tile's candidates are
     gathered (padded to the largest count and masked) and tested
     `chunk` at a time; the first minimum in list order wins, as in the
-    kernel's strict `<` walk. Only tiles with candidates are computed."""
+    kernel's strict `<` walk. Only tiles with candidates are computed,
+    and no list is read past its count (the mesh plan kernel writes
+    nothing there)."""
     n_tiles = tile_counts.shape[0]
     n = o.shape[0]
     rays = n // n_tiles
@@ -163,9 +165,9 @@ def raycast_tiled_reference(tri_scalars, o, d, tile_lists, tile_counts,
         bt, bi = best_t[busy], best_i[busy]
         bu, bv = best_u[busy], best_v[busy]
         for s in range(0, int(counts.max()), chunk):
-            ids = lists[:, s:s + chunk]                       # (B, C)
-            live = (torch.arange(s, s + ids.shape[1], device=dev)[None]
-                    < counts[:, None])
+            live = (torch.arange(s, min(s + chunk, lists.shape[1]),
+                                 device=dev)[None] < counts[:, None])
+            ids = torch.where(live, lists[:, s:s + chunk], 0)  # (B, C)
             t, u, v, hit = _moller_trumbore(o4, d4, tri_scalars[ids][:, None])
             t = torch.where(hit & live[:, None], t, BIG)      # (B, R, C)
             arg = torch.argmin(t, dim=-1, keepdim=True)

@@ -53,9 +53,9 @@ import torch.distributed as dist
 from nerf_glasses_tpu_torch.ops import mesh_cuda
 from nerf_glasses_tpu_torch.ops import triangles as tri_ops
 from nerf_glasses_tpu_torch.ops.colors import linear_to_srgb
-from nerf_glasses_tpu_torch.ops.raymarch import (_shade_frame, camera_rays,
-                                                 flash_init, march_frame,
-                                                 march_frame_impl, march_rays,
+from nerf_glasses_tpu_torch.ops.raymarch import (camera_rays, flash_init,
+                                                 march_frame, march_frame_impl,
+                                                 march_rays,
                                                  upsample_flash_init)
 from nerf_glasses_tpu_torch.train import trainer as trainer_mod
 
@@ -339,8 +339,9 @@ def make_hybrid_frame_sharded(n_shards: int, tri_mesh: tri_ops.MeshArrays,
         o = (cam[:, 3] + 0.5).expand(d.shape)
         out, _ = march_frame_impl(net, scene, o, d, surf_c.reshape(-1, 4),
                                   surf_t.reshape(-1), opts,
-                                  t_floor=t_floor, alive_mask=alive)
-        return (_shade_frame(out["rgba"].reshape(rows, width, 4), False),
+                                  t_floor=t_floor, alive_mask=alive,
+                                  linear_colors=False)
+        return (out["rgba"].reshape(rows, width, 4),
                 out["depth"].reshape(rows, width))
 
     def full(net, scene, xforms, nrm_mats, cam, light, pix_offset):
