@@ -1996,6 +1996,13 @@ for e in prof.events():
             key = (kern.name[:70], e.name, str(e.input_shapes))
             t, c = lib.get(key, (0.0, 0))
             lib[key] = (t + kern.duration / 1e3, c + 1)
+# one frame at sample 0, its rgba and depth for the comparison across
+# checkouts
+r.update_model_view_proj()
+r.frame()
+torch.cuda.synchronize()
+torch.save({"rgba": r._frame_buffer.cpu(), "depth": r._depth_buffer.cpu()},
+           os.path.join(sys.argv[1], "frame.pt"))
 print(json.dumps({"frames": res, "library": sorted(
     ([*key, t, c] for key, (t, c) in lib.items()), key=lambda x: -x[3])}))
 """
@@ -2013,16 +2020,20 @@ def frame_ops_in_turns(tmp, dirs, label="exact 720p", scene=()):
     device operations and DtoH copies, and the frame's less the march's,
     the frame around the march; beside them the device trace's operation
     counts and the host's copy calls; one frame's library kernels (cuBLAS,
-    CUTLASS) with the aten operation and input shapes that launched each
-    -> {checkout: {"frames": [[ops, busy, wall, DtoH, syncs, march ops,
-    march DtoH, traced ops, march traced ops, copies, march copies], ...],
-    "library": [...]}}.
+    CUTLASS) with the aten operation and input shapes that launched each;
+    and a frame at sample 0, whose rgba and depth must be bit for bit the
+    same in every process of every checkout (raises otherwise) -> {checkout:
+    {"frames": [[ops, busy, wall, DtoH, syncs, march ops, march DtoH,
+    traced ops, march traced ops, copies, march copies], ...], "library":
+    [...], "same_frame": True}}.
     scene: () for the trained head, or (snapshot, aabb low, aabb high). A
     DIR with no chip_smoke.py of its own (the kernels' sources alone) is
     left out."""
     order = [d for d in dirs
              if os.path.exists(os.path.join(d, "chip_smoke.py"))] + [ROOT]
-    res = {path: {"frames": [], "library": None} for path in order}
+    res = {path: {"frames": [], "library": None, "same_frame": True}
+           for path in order}
+    first = None
     for k, path in enumerate(order + order[::-1]):
         work = os.path.join(tmp, f"frame_ops_{k}")
         os.makedirs(work, exist_ok=True)
@@ -2037,6 +2048,9 @@ def frame_ops_in_turns(tmp, dirs, label="exact 720p", scene=()):
         got = json.loads(out.stdout.strip().splitlines()[-1])
         res[path]["frames"] += got["frames"]
         res[path]["library"] = res[path]["library"] or got["library"]
+        frame = torch.load(os.path.join(work, "frame.pt"))
+        first = first or frame
+        res[path]["same_frame"] &= same_bits(frame, first)
     print(f"{label} frame by checkout, in turns, each in its own process "
           "(torch.profiler: device operations counted on the host, busy ms, "
           "wall ms; Memcpy DtoH, cudaStreamSynchronize; the march's "
@@ -2049,6 +2063,12 @@ def frame_ops_in_turns(tmp, dirs, label="exact 720p", scene=()):
                   f"(traced {tn} / {tm}, copies {cn} / {cm})"
                   for n, b, w, h, y, mo, md, tn, tm, cn, cm in r["frames"])
               for path, r in res.items()))
+    same = {("this tree" if path == ROOT else path): r["same_frame"]
+            for path, r in res.items()}
+    print(f"{label} frame at sample 0, rgba and depth bit for bit the first "
+          f"process's in every process of each checkout: {same}")
+    if not all(same.values()):
+        raise AssertionError(f"{label}: the checkouts' frames differ: {same}")
     for path, r in res.items():
         print(f"{label} frame of {'this tree' if path == ROOT else path}: "
               f"library kernels (kernel, the aten operation that launched "
@@ -2424,9 +2444,13 @@ def frame_bound(name, args, kw, out):
     attributes once per triangle hit) over HBM_RATE against its float
     operations over FP32_PEAK -> (ms, what bounds it, bytes)."""
     if name == "mesh_plan":
+        # the rays of the tiles with candidates (what is read of them:
+        # the kernel writes no other), the triangles in and out, the lists
         t = args[0].v0.shape[0]
-        n_rays, n_tiles = out["o"].shape[0], out["tile_counts"].shape[0]
-        listed = int(out["tile_counts"].sum())
+        counts = out["tile_counts"]
+        n_tiles = counts.shape[0]
+        n_rays = int((counts > 0).sum()) * (out["o"].shape[0] // n_tiles)
+        listed = int(counts.sum())
         nbytes = 44 * t + 36 * t + 24 * n_rays + 4 * listed + 4 * n_tiles
         ops = 30 * n_rays + 100 * t + 8 * n_tiles * t
     elif name == "surface_shade":
@@ -2540,6 +2564,54 @@ def hold_frame_calls(calls, label, reps=20, others=()):
     return out
 
 
+def idle_rays_check(calls, label):
+    """The mesh plan kernel writes the rays of the tiles with candidates
+    only: the plain tiled ray-cast and the plain surface shade give the
+    same outputs, bit for bit, on the kernel's plan (its idle tiles' rays
+    undefined) as on the plain plan; where the kernel's busy rays or
+    triangles are not the plain plan's bit for bit, on the plain plan with
+    them in its place -> whether they were (raises on a difference)."""
+    (pargs, pkw), (sargs, skw) = calls["mesh_plan"], calls["surface_shade"]
+    plan_k = frame_cuda.mesh_plan(*pargs, **pkw)
+    plan_p = frame_cuda.mesh_plan_reference(*pargs, **pkw)
+    counts = plan_p["tile_counts"]
+    busy, nt = counts > 0, counts.shape[0]
+
+    def tiles(x):
+        return x.view(nt, -1, 3)
+
+    same = same_bits(plan_k["tri_scalars"], plan_p["tri_scalars"]) and all(
+        same_bits(tiles(plan_k[k])[busy], tiles(plan_p[k])[busy])
+        for k in ("o", "d"))
+    ref = dict(plan_p)
+    if not same:
+        ref["tri_scalars"] = plan_k["tri_scalars"]
+        for k in ("o", "d"):
+            x = tiles(plan_p[k].clone())
+            x[busy] = tiles(plan_k[k])[busy]
+            ref[k] = x.reshape(-1, 3)
+    outs = []
+    for p in (plan_k, ref):
+        hits = mesh_cuda.raycast_tiled_reference(
+            p["tri_scalars"], p["o"], p["d"], p["tile_lists"],
+            p["tile_counts"])
+        a = list(sargs)
+        a[1], a[2] = p, hits
+        outs.append((hits, frame_cuda.surface_shade_reference(*a, **skw)))
+    torch.cuda.synchronize()
+    ok = same_bits(outs[0], outs[1])
+    with_k = "" if same else " with the kernel's busy rays and triangles"
+    print(f"{label} mesh plan: {int(busy.sum())} of {nt} tiles busy, their "
+          f"rays and the triangles bit for bit the plain plan's: {same}; the "
+          f"plain tiled ray-cast and surface shade on the kernel's plan (its "
+          f"idle tiles' rays unwritten) bit for bit on the plain plan{with_k}: "
+          f"{ok}")
+    if not ok:
+        raise AssertionError(f"{label}: the kernel plan's unwritten rays "
+                             f"change the mesh pass")
+    return same
+
+
 def frame_kernels_phase(renderer, nerf, label, others=(), dirs=(),
                         plain_frame=True):
     """The frame kernels on one of the renderer's frames: each call the
@@ -2560,6 +2632,7 @@ def frame_kernels_phase(renderer, nerf, label, others=(), dirs=(),
         raise AssertionError(f"{label}: the frame made the frame-kernel calls "
                              f"{sorted(calls)}")
     out = hold_frame_calls(calls, label, others=others)
+    out["mesh_plan"]["plain_plan_bit_for_bit"] = idle_rays_check(calls, label)
     del calls
     if plain_frame:
         out["frames"] = plain_vs_kernel_frames(
@@ -4489,21 +4562,31 @@ def mesh_pass_phase(dev, lap, glasses):
     out_k = [a.cpu() for a in mesh_cuda.raycast_tiled(
         inp["tri_scalars"], inp["o"], inp["d"], inp["tile_lists"],
         inp["tile_counts"])]
-    out_p = mesh_cuda.raycast_reference(*(inp[k].cpu() for k in
-                                          ("tri_scalars", "o", "d")))
-    cmp = mesh_cuda.compare_with_plain(out_k, out_p)
+    # the untiled plain ray-cast on the rays of the tiles with candidates
+    # (the plan writes no other ray); every other tile's rays miss
+    counts = inp["tile_counts"].cpu()
+    busy = (counts > 0).repeat_interleave(inp["o"].shape[0] // counts.shape[0])
+    out_p = mesh_cuda.raycast_reference(inp["tri_scalars"].cpu(),
+                                        inp["o"].cpu()[busy],
+                                        inp["d"].cpu()[busy])
+    cmp = mesh_cuda.compare_with_plain([a[busy] for a in out_k], out_p)
+    idle_miss = bool((out_k[1][~busy] == -1).all()
+                     and (out_k[0][~busy] == mesh_cuda.BIG).all())
     card_c, card_d = tri_ops.render_mesh_pass(mesh, xf, nm, cam, w, h, light)
     cpu_c, cpu_d = tri_ops.render_mesh_pass(mesh_cpu, xf, nm, cam, w, h, light)
     same = card_c[..., 3] == cpu_c[..., 3]
     flipped = int((~same).sum())
     dc = float(np.abs(card_c - cpu_c)[same].max())
     dd = float(np.abs(card_d - cpu_d)[same].max())
-    print(report(f"render_mesh_pass {w}x{h}, the tiled kernel", cmp))
+    print(report(f"render_mesh_pass {w}x{h}, the tiled kernel on the "
+                 f"{int((counts > 0).sum())} busy tiles", cmp)
+          + f"; the {int((counts == 0).sum())} other tiles all misses: "
+          f"{idle_miss}")
     print(f"render_mesh_pass {w}x{h}, card vs the CPU's plain route: "
           f"{int((cpu_c[..., 3] > 0).sum())} covered pixels, coverage "
           f"flips {flipped} (allowed {cmp['allowed']}), max |colour diff| "
           f"{dc:.3g}, max |depth diff| {dd:.3g} elsewhere")
-    if not (cmp["ok"] and cmp["hits"] > 0):
+    if not (cmp["ok"] and cmp["hits"] > 0 and idle_miss):
         raise AssertionError("render_mesh_pass: the kernel disagrees with "
                              "the plain ray-cast")
     if flipped > cmp["allowed"] or dc > MESH_PASS_ATOL or dd > MESH_PASS_ATOL:

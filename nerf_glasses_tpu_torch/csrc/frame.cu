@@ -16,16 +16,27 @@
 //       ops/triangles.py:133, :304 and :335); JAX
 //       nerf_glasses_tpu/ops/triangles.py:603 _bin_triangles and the ray
 //       and triangle set-up of render_mesh_pass_tiled (:383).
-//       What bounds it: the bytes it writes (24 B a ray, 3.8 M rays at
-//       720p x 2, and each tile's candidates). Design: the first n_tiles
-//       blocks bin, one tile a block: each thread takes a triangle, puts
-//       it in world space from the instance transforms (kernel parameters
-//       while they fit), projects its bbox and tests it against the tile;
-//       a ballot and a block scan front-pack the overlapping ids in
-//       ascending order (no sort). Only a row's first count entries are
-//       written: the ray-cast reads no further (the plain version's
-//       argsort also orders the rest). The other blocks write the rays
-//       grid-stride, coalesced.
+//       What bounds it: the bytes that are read later: the rays of the
+//       tiles that hold a candidate (24 B a ray, 8192 a tile; 24 of the
+//       720p x 2 pass's 460 tiles), the triangles and the candidates.
+//       Design: a block a tile, in clusters of PLAN_CLUSTER blocks. Each
+//       round of PLAN_CLUSTER x 256 triangles, a block's threads put a
+//       triangle each in world space from the instance transforms (kernel
+//       parameters while they fit) and project its padded screen bbox into
+//       shared memory; then each block tests its tile against the round's
+//       boxes, read from the cluster's blocks (distributed shared memory),
+//       so a triangle is projected once a cluster rather than once a tile.
+//       Each thread keeps a bit a box; one block scan of the warps'
+//       counts front-packs the overlapping ids in ascending order (no
+//       sort). Only a row's first count entries are written: the ray-cast
+//       reads no further (the plain version's argsort also orders the
+//       rest). Then, where its count is above 0, the block writes its
+//       tile's 8192 rays, four a thread at a time as three 16 B stores
+//       each of o and d, consecutive threads on consecutive bytes. The
+//       rays of a tile with no candidate are left unwritten, undefined:
+//       the tiled ray-cast writes such a tile's misses without reading its
+//       rays, and the shade reads a ray only for a hit (at 720p x 2 all
+//       the rays are 90 MB, the busy tiles' 4.7 MB: PERF.md).
 //   surface_shade_kernel (nmr_surface_shade) replaces the body of
 //       ops/triangles.py::render_mesh_pass_tiled after the ray-cast:
 //       stable_partition_ids over the tiles with hits (two host reads),
@@ -85,6 +96,7 @@
 // the floats within a few ulps (ops/frame_cuda.py::compare_with_plain's
 // contract).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -96,6 +108,7 @@ constexpr int TILE_H = 64;
 constexpr int TILE_RAYS = TILE_W * TILE_H;
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
+constexpr int PLAN_CLUSTER = 8;     // the plan's blocks that share boxes
 constexpr float F32_MAX = 3.402823466e38f;
 
 }  // namespace
@@ -112,8 +125,7 @@ struct PlanParams {
   float inv_w, inv_h;   // float32 1 / width, 1 / height
   float width_f, height_f, wp_f;
   float hp_f;
-  int n_tris, n_inst, ntx, nty, bin_blocks;
-  long long n_rays;
+  int n_tris, n_inst, ntx, nty, n_tiles;
   float xf[MAX_INSTANCES * 12];   // instance transforms (I, 3, 4)
 };
 
@@ -122,7 +134,8 @@ struct PlanArgs {
   const long long* inst;          // (T,)
   const float* xf;                // (I, 3, 4) on the device, or null: P.xf
   float* tri;                     // (T, 9) world [v0 | e1 | e2]
-  float *o, *d;                   // (n_tiles * 8192, 3) tile-major
+  float *o, *d;                   // (n_tiles * 8192, 3) tile-major; a
+                                  // tile with count 0 left unwritten
   int* lists;                     // (n_tiles, T): row k's first counts[k]
   int* counts;                    // (n_tiles,)
 };
@@ -276,11 +289,11 @@ __device__ __forceinline__ void world_tri(const PlanArgs& a, const float* xf,
   }
 }
 
-// _bin_triangles' test of world triangle w against the tile at (tx0,
-// ty0): the projected bbox, padded by a pixel, or the whole screen where a
-// vertex lies at or behind the eye plane
-__device__ __forceinline__ bool overlaps(const PlanParams& P, const float w[9],
-                                         float tx0, float ty0) {
+// _bin_triangles' screen bbox of world triangle w, padded by a pixel, or
+// the whole screen where a vertex lies at or behind the eye plane ->
+// (xmin, xmax, ymin, ymax)
+__device__ __forceinline__ float4 tri_bbox(const PlanParams& P,
+                                           const float w[9]) {
   bool behind = false;
   float xmin = 0.0f, xmax = 0.0f, ymin = 0.0f, ymax = 0.0f;
 #pragma unroll
@@ -303,31 +316,114 @@ __device__ __forceinline__ bool overlaps(const PlanParams& P, const float w[9],
     ymin = k == 0 ? py : nmin(ymin, py);
     ymax = k == 0 ? py : nmax(ymax, py);
   }
-  if (behind) {
-    xmin = 0.0f;
-    xmax = P.wp_f;
-    ymin = 0.0f;
-    ymax = P.hp_f;
-  } else {
-    xmin = xmin - 1.0f;
-    xmax = xmax + 1.0f;
-    ymin = ymin - 1.0f;
-    ymax = ymax + 1.0f;
-  }
-  return xmax >= tx0 && xmin <= tx0 + (float)TILE_W && ymax >= ty0 &&
-         ymin <= ty0 + (float)TILE_H;
+  if (behind) return make_float4(0.0f, P.wp_f, 0.0f, P.hp_f);
+  return make_float4(xmin - 1.0f, xmax + 1.0f, ymin - 1.0f, ymax + 1.0f);
 }
 
-__global__ void __launch_bounds__(THREADS) mesh_plan_kernel(PlanParams P,
-                                                            PlanArgs a) {
-  if ((int)blockIdx.x >= P.bin_blocks) {
-    // the rays, grid-stride: ray r is pixel (row, col) of tile r / 8192
-    const long long stride = (long long)(gridDim.x - P.bin_blocks) * THREADS;
-    for (long long r = (long long)(blockIdx.x - P.bin_blocks) * THREADS +
-                       threadIdx.x;
-         r < P.n_rays; r += stride) {
-      const int tile = (int)(r / TILE_RAYS), p = (int)(r % TILE_RAYS);
-      const int ty = tile / P.ntx, tx = tile - ty * P.ntx;
+// the bbox test against the tile at (tx0, ty0)
+__device__ __forceinline__ bool overlaps(const float4 b, float tx0, float ty0) {
+  return b.y >= tx0 && b.x <= tx0 + (float)TILE_W && b.w >= ty0 &&
+         b.z <= ty0 + (float)TILE_H;
+}
+
+// A block a tile (blocks past the last tile only help their cluster
+// project): its list (the overlapping ids ascending) and count, then,
+// where the count is above 0, its rays (ray p of the tile is pixel (p /
+// 128, p % 128) of it). Round r's chunk k (triangles (8r + k) * 256 on)
+// is projected by block k of every cluster and written out in world
+// space by cluster r mod the clusters.
+__global__ void __cluster_dims__(PLAN_CLUSTER, 1, 1) __launch_bounds__(THREADS)
+mesh_plan_kernel(PlanParams P, PlanArgs a) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  __shared__ float s_xf[MAX_INSTANCES * 12];
+  __shared__ float4 s_box[THREADS];
+  __shared__ int s_cnt[PLAN_CLUSTER * WARPS];   // a (chunk, warp)'s ids
+  __shared__ int s_total;
+  if (a.xf == nullptr) {
+    for (int k = threadIdx.x; k < 12 * P.n_inst; k += THREADS) s_xf[k] = P.xf[k];
+  }
+  __syncthreads();
+  const float* xf = a.xf != nullptr ? a.xf : s_xf;
+  const int tile = blockIdx.x;
+  const bool has_tile = tile < P.n_tiles;        // uniform in the block
+  const int ty = tile / P.ntx, tx = tile - ty * P.ntx;
+  const float tx0 = (float)(tx * TILE_W), ty0 = (float)(ty * TILE_H);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_clusters = gridDim.x / PLAN_CLUSTER;
+  const int cl = blockIdx.x / PLAN_CLUSTER;
+  int* list = a.lists + (long long)tile * P.n_tris;
+  int count = 0;
+  for (int r = 0, base0 = 0; base0 < P.n_tris;
+       ++r, base0 += PLAN_CLUSTER * THREADS) {
+    // this block's chunk of the round, into its boxes
+    const int i = base0 + rank * THREADS + threadIdx.x;
+    if (i < P.n_tris) {
+      float w[9];
+      world_tri(a, xf, i, w);
+      s_box[threadIdx.x] = tri_bbox(P, w);
+      if (r % n_clusters == cl) {
+#pragma unroll
+        for (int c = 0; c < 9; ++c) a.tri[9LL * i + c] = w[c];
+      }
+    }
+    cluster.sync();
+    // the tile against the round's boxes, chunk c from block c
+    unsigned bits = 0;
+    if (has_tile) {
+#pragma unroll
+      for (int c = 0; c < PLAN_CLUSTER; ++c) {
+        const int id = base0 + c * THREADS + threadIdx.x;
+        const bool ov = id < P.n_tris &&
+            overlaps(cluster.map_shared_rank(s_box, c)[threadIdx.x], tx0, ty0);
+        bits |= (unsigned)ov << c;
+        const unsigned ballot = __ballot_sync(0xffffffffu, ov);
+        if (lane == 0) s_cnt[c * WARPS + warp] = __popc(ballot);
+      }
+    }
+    cluster.sync();       // (no block writes boxes before all are read)
+    if (has_tile) {
+      // the (chunk, warp) counts scanned in id order, two a lane
+      if (warp == 0) {
+        const int v0 = s_cnt[2 * lane], v1 = s_cnt[2 * lane + 1];
+        int incl = v0 + v1;
+#pragma unroll
+        for (int off = 1; off < 32; off <<= 1) {
+          const int y = __shfl_up_sync(0xffffffffu, incl, off);
+          if (lane >= off) incl += y;
+        }
+        s_cnt[2 * lane] = incl - v0 - v1;
+        s_cnt[2 * lane + 1] = incl - v1;
+        if (lane == 31) s_total = incl;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int c = 0; c < PLAN_CLUSTER; ++c) {
+        const bool ov = bits >> c & 1u;
+        const unsigned ballot = __ballot_sync(0xffffffffu, ov);
+        if (ov)
+          list[count + s_cnt[c * WARPS + warp] +
+               __popc(ballot & ((1u << lane) - 1u))] =
+              base0 + c * THREADS + threadIdx.x;
+      }
+      count += s_total;
+    }
+  }
+  if (!has_tile) return;
+  if (threadIdx.x == 0) a.counts[tile] = count;
+  if (count == 0) return;              // (the block's total: uniform)
+  // four rays a thread at a time: 48 B of o and of d, three 16 B stores
+  // each (the tile's rays start 16 B aligned)
+  const long long r0 = (long long)tile * TILE_RAYS;
+  float4* const o4 = reinterpret_cast<float4*>(a.o + 3 * r0);
+  float4* const d4 = reinterpret_cast<float4*>(a.d + 3 * r0);
+  const float e0 = P.cam[3], e1 = P.cam[7], e2 = P.cam[11];
+  for (int g = threadIdx.x; g < TILE_RAYS / 4; g += THREADS) {
+    float v[12];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int p = 4 * g + k;
       const float px = (float)(tx * TILE_W + p % TILE_W) + 0.5f;
       const float py = (float)(ty * TILE_H + p / TILE_W) + 0.5f;
       const float ndc[3] = {px * P.inv_w * 2.0f - 1.0f,
@@ -337,44 +433,15 @@ __global__ void __launch_bounds__(THREADS) mesh_plan_kernel(PlanParams P,
       for (int c = 0; c < 3; ++c) d[c] = row3(P.cam, 4, c, ndc);
       const float len = norm3(d);
 #pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        a.d[3 * r + c] = d[c] / len;
-        a.o[3 * r + c] = P.cam[4 * c + 3];
-      }
+      for (int c = 0; c < 3; ++c) v[3 * k + c] = d[c] / len;
     }
-    return;
+    d4[3 * g] = make_float4(v[0], v[1], v[2], v[3]);
+    d4[3 * g + 1] = make_float4(v[4], v[5], v[6], v[7]);
+    d4[3 * g + 2] = make_float4(v[8], v[9], v[10], v[11]);
+    o4[3 * g] = make_float4(e0, e1, e2, e0);
+    o4[3 * g + 1] = make_float4(e1, e2, e0, e1);
+    o4[3 * g + 2] = make_float4(e2, e0, e1, e2);
   }
-  // a tile's list: the overlapping ids ascending
-  __shared__ float s_xf[MAX_INSTANCES * 12];
-  __shared__ int s_scan[2 * WARPS + 1];
-  if (a.xf == nullptr) {
-    for (int k = threadIdx.x; k < 12 * P.n_inst; k += THREADS) s_xf[k] = P.xf[k];
-  }
-  __syncthreads();
-  const float* xf = a.xf != nullptr ? a.xf : s_xf;
-  const int tile = blockIdx.x;
-  const int ty = tile / P.ntx, tx = tile - ty * P.ntx;
-  const float tx0 = (float)(tx * TILE_W), ty0 = (float)(ty * TILE_H);
-  int* list = a.lists + (long long)tile * P.n_tris;
-  int count = 0;
-  for (int base = 0, chunk = 0; base < P.n_tris; base += THREADS, ++chunk) {
-    const int i = base + threadIdx.x;
-    bool ov = false;
-    if (i < P.n_tris) {
-      float w[9];
-      world_tri(a, xf, i, w);
-      ov = overlaps(P, w, tx0, ty0);
-      if (chunk % P.bin_blocks == tile) {
-#pragma unroll
-        for (int c = 0; c < 9; ++c) a.tri[9LL * i + c] = w[c];
-      }
-    }
-    int total;
-    const int pos = block_scan(ov, s_scan, total);
-    if (ov) list[count + pos] = i;
-    count += total;
-  }
-  if (threadIdx.x == 0) a.counts[tile] = count;
 }
 
 // ---------------------------------------------------------------------------
@@ -777,9 +844,12 @@ inline unsigned blocks(long long n) {
 extern "C" int nmr_frame_max_instances() { return MAX_INSTANCES; }
 
 extern "C" int nmr_mesh_plan(const PlanParams* p, const PlanArgs* a,
-                             int ray_blocks, void* stream) {
+                             void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  mesh_plan_kernel<<<p->bin_blocks + ray_blocks, THREADS, 0, s>>>(*p, *a);
+  // a multiple of the cluster's blocks: the last cluster's spare blocks
+  // project and bin nothing
+  const int grid = (p->n_tiles + PLAN_CLUSTER - 1) / PLAN_CLUSTER * PLAN_CLUSTER;
+  mesh_plan_kernel<<<grid, THREADS, 0, s>>>(*p, *a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -86,10 +86,20 @@
 // order is the warps' and not the slots' (the network's kernels give a
 // row the same bits wherever it lies). A list entry hands the composite
 // its first row and a bit a slot (the valid slots): slot k's row is the
-// first row plus the valid slots below k. A valid slot's t waits in the
-// thread's local array until the warp's rows are allocated. The
-// composite finds its slots' rows so, writes the ray's state in place
-// and appends the rays still alive to the next epoch's list: a block
+// first row plus the valid slots below k. What bounds the list walk is
+// writing those rows, not reading its rays through the list (PERF.md
+// section 7: over an identity list on a dense copy it takes as long, and
+// with no rows written 40% less): so a valid slot's t waits in shared
+// memory (a column a thread), and once the warp's rows are allocated the
+// warp makes them a lane a row, 32 at a time (the row's owner, its
+// lane, found among the warp's prefix sums, its ray from the owner's
+// registers by shuffle), and writes each array of the 32 rows as one
+// contiguous run: consecutive lanes on consecutive words. (Were each
+// lane to write its own rows, a warp's stores at each step would fall a
+// ray's rows apart, and a lane with many rows would hold the others idle
+// through its loop of divisions.) The composite finds its slots' rows
+// so, writes the ray's state in place and appends the rays still alive
+// to the next epoch's list: a block
 // scan, one atomicAdd a block, so the next list keeps a block's rays
 // together in the order of this one
 // (the order changes no ray's result). The next epoch's walk reads the
@@ -226,6 +236,9 @@ constexpr int THREADS = 128;        // composite
 constexpr int WALK_THREADS = 256;   // the walks: one block a 256-ray tile
 constexpr int INIT_THREADS = 128;   // the init walk's tile (PERF.md)
 constexpr int MAX_LIST_STEPS = 64;  // the list walk's slot bits
+// the list walk's staged t: slot q of thread x at q * T_STRIDE + x (the
+// pad puts one owner's slots in different banks)
+constexpr int T_STRIDE = WALK_THREADS + 1;
 enum { ROUTE_JUMP = 0, ROUTE_DIST = 1, ROUTE_DIST_MIPS = 2, ROUTE_DDA = 3 };
 enum { WALK_ADVANCE = 1, WALK_SAMPLES = 2, WALK_INIT = 4, WALK_LIST = 8 };
 enum { STAGE_BLEND = 1, STAGE_SAMPLES = 2 };
@@ -527,9 +540,9 @@ __device__ __forceinline__ bool probe(
 // implied with ADVANCE, read without it), writes t and alive back with
 // ADVANCE, and writes each valid slot's row (its network input, t and
 // dt) where a warp-aggregated counter puts it, and at j its first row,
-// its slot bits and the ray's t_end, exited and stopped. Its threads
-// past the list's length walk nothing but take part in the warp's row
-// allocation.
+// its slot bits and the ray's t_end, exited and stopped; it takes
+// steps * T_STRIDE floats of dynamic shared memory. Its threads past the
+// list's length walk nothing but take part in the warp's rows.
 template <int ROUTE, bool ADVANCE, bool SAMPLES, bool INIT, bool LIST = false>
 __global__ void __launch_bounds__(INIT ? INIT_THREADS : WALK_THREADS)
 walk_kernel(MarchParams P, int n, WalkArgs a) {
@@ -604,9 +617,10 @@ walk_kernel(MarchParams P, int n, WalkArgs a) {
     const bool has_surface = ts > 0.0f;
     const bool surf_full = sa >= 1.0f;
     bool gen_alive = alive, exited = false, stopped = false;
-    // LIST: the valid slots' bits and t (K <= MAX_LIST_STEPS)
+    // LIST: the valid slots' bits, and their t in this thread's column of
+    // s_t (K <= MAX_LIST_STEPS)
+    extern __shared__ float s_t[];
     unsigned long long found_mask = 0;
-    float t_found[LIST ? MAX_LIST_STEPS : 1];
     int n_found = 0;
     for (int k = 0; k < P.steps; ++k) {
       int status = gen_alive ? 0 : -1;
@@ -627,7 +641,7 @@ walk_kernel(MarchParams P, int n, WalkArgs a) {
       const bool found = status == 1;
       const float dt = calc_dt(t - t0, P);
       if (LIST) {
-        if (found) t_found[n_found++] = t;
+        if (found) s_t[n_found++ * T_STRIDE + threadIdx.x] = t;
         found_mask |= (unsigned long long)found << k;
       } else {
         const long long slot = (long long)k * n + i;
@@ -670,32 +684,62 @@ walk_kernel(MarchParams P, int n, WalkArgs a) {
         for (int q = 0; 8 * q < P.steps; ++q)      // slots 8q..8q+7
           a.slot_mask[(long long)q * len + j] = (uint8_t)(found_mask >> (8 * q));
       }
-      float lo[3], ext[3], dir01[3];
-      if (n_found) {
+      if (total == 0) return;
+      float lo[3], ext[3];
 #pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          // aten's (pos - train_min) / (train_max - train_min) and
-          // (d + 1) * 0.5, each rounded on its own
-          lo[c] = __ldg(a.train_min + c);
-          ext[c] = __fsub_rn(__ldg(a.train_max + c), lo[c]);
-          dir01[c] = __fmul_rn(__fadd_rn(r.d[c], 1.0f), 0.5f);
-        }
+      for (int c = 0; c < 3; ++c) {
+        lo[c] = __ldg(a.train_min + c);
+        ext[c] = __fsub_rn(__ldg(a.train_max + c), lo[c]);
       }
-      // (the room is K x the list's length, all a list can fill from row
-      // 0; the bound keeps a caller's count that did not start at 0 from
-      // writing past it)
-      for (int q = 0; q < n_found && first + q < a.row_cap; ++q) {
-        const long long row = first + q;
-        const float tk = t_found[q];
-        float p[3];
-        at(r, tk, p);
+      // the warp's rows [base, base + total), 32 at a time: row c0 + lane
+      // made by this lane, its owner the lane whose rows end past it; ts
+      // and dt stored as made, the positions and directions through
+      // shared memory as contiguous runs. (The room is K x the list's
+      // length, all a list can fill from row 0; the bound keeps a
+      // caller's count that did not start at 0 from writing past it.)
+      __shared__ float s_rows[LIST ? WALK_THREADS / 32 : 1][LIST ? 6 * 32 : 1];
+      float* const s_pos = s_rows[threadIdx.x >> 5];
+      float* const s_dir = s_pos + 3 * 32;
+      const float* const s_tw = s_t + (threadIdx.x & ~31u);
+      const int excl = incl - n_found;
+      for (int c0 = 0; c0 < total; c0 += 32) {
+        const int w = c0 + (int)lane;
+        int owner = 0;
+#pragma unroll
+        for (int step = 16; step > 0; step >>= 1) {
+          const int v = __shfl_sync(0xffffffffu, incl, owner + step - 1);
+          if (v <= w) owner += step;
+        }
+        const int q = w - __shfl_sync(0xffffffffu, excl, owner);
+        float o[3], d[3];
 #pragma unroll
         for (int c = 0; c < 3; ++c) {
-          a.row_pos01[3 * row + c] = __fdiv_rn(__fsub_rn(p[c], lo[c]), ext[c]);
-          a.row_dir01[3 * row + c] = dir01[c];
+          o[c] = __shfl_sync(0xffffffffu, r.o[c], owner);
+          d[c] = __shfl_sync(0xffffffffu, r.d[c], owner);
         }
-        a.row_ts[row] = tk;
-        a.row_dt[row] = calc_dt(tk - t0, P);
+        const float t0w = __shfl_sync(0xffffffffu, t0, owner);
+        const long long row0 = (long long)base + c0;
+        const int len = (int)max(min((long long)min(32, total - c0),
+                                     a.row_cap - row0), 0LL);
+        if ((int)lane < len) {
+          // aten's (pos - train_min) / (train_max - train_min) and (d + 1)
+          // * 0.5, each rounded on its own
+          const float tk = s_tw[q * T_STRIDE + owner];
+#pragma unroll
+          for (int c = 0; c < 3; ++c) {
+            const float p = o[c] + d[c] * tk;
+            s_pos[3 * lane + c] = __fdiv_rn(__fsub_rn(p, lo[c]), ext[c]);
+            s_dir[3 * lane + c] = __fmul_rn(__fadd_rn(d[c], 1.0f), 0.5f);
+          }
+          a.row_ts[row0 + lane] = tk;
+          a.row_dt[row0 + lane] = calc_dt(tk - t0w, P);
+        }
+        __syncwarp();
+        for (int x = (int)lane; x < 3 * len; x += 32) {
+          a.row_pos01[3 * row0 + x] = s_pos[x];
+          a.row_dir01[3 * row0 + x] = s_dir[x];
+        }
+        __syncwarp();
       }
     }
   }
@@ -992,8 +1036,16 @@ template <int ROUTE, bool ADVANCE, bool SAMPLES, bool INIT = false,
 int launch_walk(const MarchParams& P, int n, const WalkArgs& a,
                 cudaStream_t s) {
   constexpr int tile = INIT ? INIT_THREADS : WALK_THREADS;
+  // the list form's staged t: K floats a thread
+  const int smem = LIST ? P.steps * T_STRIDE * (int)sizeof(float) : 0;
+  if (LIST && smem > 32 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        walk_kernel<ROUTE, ADVANCE, SAMPLES, INIT, LIST>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   walk_kernel<ROUTE, ADVANCE, SAMPLES, INIT, LIST>
-      <<<(n + tile - 1) / tile, tile, 0, s>>>(P, n, a);
+      <<<(n + tile - 1) / tile, tile, smem, s>>>(P, n, a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -37,8 +37,9 @@ version on a CUDA tensor (those that hold a kernel against it included):
 no wrapper makes one, so on a frame's path it stays 0.
 
 The contract (`compare_with_plain`): the mesh plan's counts equal and each
-list equal over its count (the kernel writes no further), its rays and
-triangles within PLAN_RTOL x max(1, |x|); the surface colour within
+list equal over its count (the kernel writes no further), its triangles
+and the rays of the tiles whose count is above 0 (the kernel writes no
+other) within PLAN_RTOL x max(1, |x|); the surface colour within
 SHADE_ATOL and its depth equal, on a textured mesh (`shade_error_scale`
 given) within SHADE_ATOL + SHADE_COND x the pixel's own sensitivity to
 float32 rounding (a sharp GGX lobe at a near-zero textured roughness, or
@@ -86,7 +87,6 @@ TEX_SLOTS = ("base_color_texture", "metallic_roughness_texture",
              "emissive_texture", "normal_texture", "occlusion_texture")
 MAX_INSTANCES = 16            # instance transforms passed by value
 MAT_STRIDE = 12               # floats a material in the packed table
-PLAN_RAY_BLOCKS = 2048        # the plan kernel's grid-stride ray blocks
 STAGE_RAYS, STAGE_STATE, STAGE_GIVEN = 1, 2, 4
 
 # The kernel-vs-plain contract (compare_with_plain).
@@ -117,7 +117,7 @@ class PlanParams(ctypes.Structure):
                 ("wp_f", ctypes.c_float), ("hp_f", ctypes.c_float),
                 ("n_tris", ctypes.c_int), ("n_inst", ctypes.c_int),
                 ("ntx", ctypes.c_int), ("nty", ctypes.c_int),
-                ("bin_blocks", ctypes.c_int), ("n_rays", ctypes.c_longlong),
+                ("n_tiles", ctypes.c_int),
                 ("xf", ctypes.c_float * (MAX_INSTANCES * 12))]
 
 
@@ -192,7 +192,7 @@ def load_library() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib = cuda_build.declare(lib, [
         ("nmr_frame_max_instances", [], i),
-        ("nmr_mesh_plan", [p, p, i, p], i),
+        ("nmr_mesh_plan", [p, p, p], i),
         ("nmr_surface_shade", [p, p, p], i),
         ("nmr_ray_init", [p, p, p], i),
         ("nmr_frame_finalize", [p, p, p], i)])
@@ -405,7 +405,12 @@ def mesh_plan(mesh, xforms, camera, width: int, height: int):
     f32 tile-major rays through the pixel centres; tile_lists (n_tiles, T)
     i32, each front-packed with its candidates ascending (the kernel
     writes nothing past them); tile_counts (n_tiles,) i32; the tile grid
-    ntx, nty. On a CUDA tensor one launch of nmr_mesh_plan."""
+    ntx, nty. On a CUDA tensor one launch of nmr_mesh_plan, a block a
+    tile, which writes the rays of the tiles whose count is above 0 only:
+    the rays of a tile with no candidate are undefined, and nothing reads
+    them (the tiled ray-cast gives such a tile's misses without its rays,
+    the surface shade reads a ray only for a hit). The plain version
+    writes every ray."""
     dev = mesh.v0.device
     kernel = _route("mesh_plan", mesh.v0)
     _check_mesh("mesh_plan", mesh, dev)
@@ -432,7 +437,7 @@ def mesh_plan(mesh, xforms, camera, width: int, height: int):
     params = PlanParams(
         inv_w=f(1) / f(width), inv_h=f(1) / f(height), width_f=width,
         height_f=height, wp_f=wp, hp_f=hp, n_tris=n_tris, n_inst=xf.shape[0],
-        ntx=ntx, nty=nty, bin_blocks=n_tiles, n_rays=n_rays)
+        ntx=ntx, nty=nty, n_tiles=n_tiles)
     params.cam[:] = cam.reshape(-1).tolist()
     params.cam_inv[:] = np.linalg.inv(cam[:, :3].astype(np.float64)).astype(
         np.float32).reshape(-1).tolist()
@@ -447,9 +452,8 @@ def mesh_plan(mesh, xforms, camera, width: int, height: int):
                     o=out["o"].data_ptr(), d=out["d"].data_ptr(),
                     lists=out["tile_lists"].data_ptr(),
                     counts=out["tile_counts"].data_ptr())
-    ray_blocks = min(PLAN_RAY_BLOCKS, -(-n_rays // 256))
     _launch("mesh_plan", lib.nmr_mesh_plan, dev, ctypes.byref(params),
-            ctypes.byref(args), ray_blocks)
+            ctypes.byref(args))
     return out
 
 
@@ -1089,13 +1093,23 @@ def compare_with_plain(kind: str, out_k, out_p, scale=None,
                                device=cp.device)[None] < cp[:, None])
         rows = ((out_k["tile_lists"] != out_p["tile_lists"]) & listed).any(1)
         lists = counts and not bool(rows.any())
-        rays = max(_rel_err(out_k[k], out_p[k]) for k in ("o", "d"))
+        # the rays of the tiles with candidates (the kernel writes no other)
+        busy = cp > 0
+
+        def tile_rays(x):
+            return x.reshape(cp.shape[0], -1, 3)[busy]
+
+        rays = max(_rel_err(tile_rays(out_k[k]), tile_rays(out_p[k]))
+                   for k in ("o", "d"))
         tris = _rel_err(out_k["tri_scalars"], out_p["tri_scalars"])
         return {"lists_equal": lists, "counts_equal": counts,
                 "list_rows_differing": int(rows.sum()),
+                "busy_tiles": int(busy.sum()),
                 "max_ray_err": rays, "max_tri_err": tris,
-                "max_abs_err": max(_abs_err(out_k[k], out_p[k])
-                                   for k in ("o", "d", "tri_scalars")),
+                "max_abs_err": max(
+                    [_abs_err(tile_rays(out_k[k]), tile_rays(out_p[k]))
+                     for k in ("o", "d")]
+                    + [_abs_err(out_k["tri_scalars"], out_p["tri_scalars"])]),
                 "ok": lists and rays <= PLAN_RTOL and tris <= PLAN_RTOL}
     if kind == "surface_shade":
         diff = (out_k[0] - out_p[0]).abs()

@@ -1065,7 +1065,8 @@ def walk_list(frame, ids, n: int, scene, opts, iters, rows, count,
     where count does not hold 0; the kernel, which cannot see it without
     a host read, then writes no row past the buffers. On a CUDA tensor
     one launch of nmr_march_walk's list form: a thread an entry, its rows
-    allocated with one atomicAdd a warp."""
+    allocated with one atomicAdd a warp and made by the warp a lane a row,
+    each array of 32 rows written as one contiguous run."""
     K = opts.steps_per_round
     dev, N, args = _ray_args("walk_list", frame, _STATE)
     ids = _buffer("walk_list: ids", ids, torch.int32, n, dev)

@@ -224,6 +224,52 @@ def test_tiled_raycast_reads_each_list_to_its_count(grid_path):
         assert torch.equal(a, b)
 
 
+def _idle_tiles(plan):
+    """(busy, idle) tile masks of a plan: count above 0, or 0."""
+    busy = plan["tile_counts"] > 0
+    return busy, ~busy
+
+
+def _with_idle_rays(plan, fill):
+    """The plan with the rays of its tiles of count 0 replaced: fill(the
+    (idle tiles, 8192, 3) block) gives the new rays."""
+    _, idle = _idle_tiles(plan)
+    out = dict(plan)
+    for k in ("o", "d"):
+        x = plan[k].clone().view(idle.shape[0], -1, 3)
+        x[idle] = fill(k, x[idle])
+        out[k] = x.view(-1, 3)
+    return out
+
+
+def test_idle_tiles_rays_are_read_by_nothing(grid_path):
+    """The mesh plan kernel leaves the rays of a tile with no candidate
+    unwritten: the tiled ray-cast's and the surface shade's plain versions
+    give the same outputs, bit for bit, when every such ray is NaN."""
+    tm, txf, tnm = _mesh(grid_path, True)
+    w, h = 768, 576
+    plan = frame_cuda.mesh_plan(tm, txf, CAM, w, h)
+    busy, idle = _idle_tiles(plan)
+    assert int(busy.sum()) > 0 and int(idle.sum()) > 0
+    poisoned = _with_idle_rays(plan, lambda k, x: torch.full_like(x, np.nan))
+    assert bool(torch.isnan(poisoned["d"]).any())
+    hits = [mesh_cuda.raycast_tiled_reference(
+        p["tri_scalars"], p["o"], p["d"], p["tile_lists"], p["tile_counts"])
+        for p in (plan, poisoned)]
+    assert int((hits[0][1] >= 0).sum()) > 100
+    for a, b in zip(*hits):
+        assert torch.equal(a, b)
+    for factor in (1, 2):
+        got = [frame_cuda.surface_shade_reference(tm, p, hits[0], tnm, LIGHT,
+                                                  CAM, w, h, factor)
+               for p in (plan, poisoned)]
+        for a, b in zip(*got):
+            assert torch.equal(a, b)
+    # the contract holds the kernel to the busy tiles' rays only
+    r = frame_cuda.compare_with_plain("mesh_plan", poisoned, plan)
+    assert r["ok"] and r["busy_tiles"] == int(busy.sum()), r
+
+
 def test_pack_materials_views(grid_path):
     tm, _, _ = _mesh(grid_path, True)
     assert tm.mat_table.shape == (len(tm.materials), frame_cuda.MAT_STRIDE)
@@ -427,6 +473,50 @@ def test_mesh_plan_on_card(grid_path, size):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("factor", [1, 2])
+def test_mesh_pass_on_card_reads_no_idle_ray(grid_path, factor):
+    """The mesh pass on the card (the tiled ray-cast and the surface shade
+    kernels) through the plan kernel's plan, whose idle tiles' rays are
+    unwritten, equals the pass through the same plan with those rays
+    NaN and with them the plain plan's, bit for bit; the plan kernel
+    left no idle tile's ray written; its busy tiles' rays, lists, counts
+    and triangles hold the plain plan's under the contract."""
+    _card()
+    tm, xf, nm = _mesh(grid_path, True, "cuda")
+    w, h = 768, 576
+    n_tiles = (w // 128) * -(-h // 64)
+    n_rays = n_tiles * 128 * 64
+    # the plan's rays come out of the one large block the allocator holds
+    # free: a block of a known pattern, freed just before (o and d take
+    # its two halves; the plan's other outputs are small allocations)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    marker = torch.full((2 * n_rays, 3), -3.5, device="cuda")
+    del marker
+    plan = frame_cuda.mesh_plan(tm, xf, CAM, w, h)
+    ref = frame_cuda.mesh_plan_reference(tm, xf, CAM, w, h)
+    r = frame_cuda.compare_with_plain("mesh_plan", plan, ref)
+    assert r["ok"], r
+    busy, idle = _idle_tiles(plan)
+    assert int(busy.sum()) > 0 and int(idle.sum()) > 0
+    left = [plan[k].view(n_tiles, -1, 3)[idle] for k in ("o", "d")]
+    assert all(bool((x == -3.5).all()) for x in left)
+    poisoned = _with_idle_rays(plan, lambda k, x: torch.full_like(x, np.nan))
+    filled = _with_idle_rays(
+        plan, lambda k, x: ref[k].view(n_tiles, -1, 3)[idle])
+    out = []
+    for p in (plan, poisoned, filled):
+        hits = mesh_cuda.raycast_tiled(p["tri_scalars"], p["o"], p["d"],
+                                       p["tile_lists"], p["tile_counts"])
+        out.append((hits, frame_cuda.surface_shade(tm, p, hits, nm, LIGHT,
+                                                   CAM, w, h, factor)))
+    assert float((out[0][1][1] > 0).float().mean()) > 0.05
+    for other in out[1:]:
+        for a, b in zip(out[0][0] + out[0][1], other[0] + other[1]):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("factor", [1, 2])
 @pytest.mark.parametrize("textured", [False, True], ids=["plain", "textured"])
 def test_surface_shade_on_card(grid_path, textured, factor):
     _card()
@@ -577,11 +667,19 @@ def test_plan_and_shade_contracts():
     lists = torch.stack([torch.randperm(50, generator=g) for _ in range(6)])
     counts = torch.tensor([0, 3, 50, 7, 1, 20], dtype=torch.int32)
     plan = {"tile_lists": lists.int(), "tile_counts": counts,
-            "o": torch.zeros(4, 3), "d": torch.ones(4, 3),
+            "o": torch.zeros(6 * 4, 3), "d": torch.ones(6 * 4, 3),
             "tri_scalars": torch.ones(50, 9)}
     tail = {**plan, "tile_lists": plan["tile_lists"].clone()}
     tail["tile_lists"][1, 3:] = -7
     assert frame_cuda.compare_with_plain("mesh_plan", tail, plan)["ok"]
+    # rays: those of the tiles with candidates (tile 0 has none)
+    idle = {**plan, "d": plan["d"].clone()}
+    idle["d"][:4] = np.nan
+    assert frame_cuda.compare_with_plain("mesh_plan", idle, plan)["ok"]
+    ray = {**plan, "d": plan["d"].clone()}
+    ray["d"][5, 2] += 1e-3
+    r = frame_cuda.compare_with_plain("mesh_plan", ray, plan)
+    assert not r["ok"] and r["max_ray_err"] > 1e-4
     head = {**plan, "tile_lists": plan["tile_lists"].clone()}
     head["tile_lists"][3, 6] = -7
     r = frame_cuda.compare_with_plain("mesh_plan", head, plan)

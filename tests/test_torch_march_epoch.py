@@ -467,6 +467,83 @@ def test_list_walk_kernel_on_card(case, surface):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("steps", [K, 64])
+@pytest.mark.parametrize("form", ["advance", "samples"])
+@pytest.mark.parametrize("case", ["jump", "mips_cone"])
+def test_list_walk_rows_on_card(case, form, steps):
+    """The list walk's kernel on a shuffled list with gaps (every third
+    entry of the shuffled first list left out), in its advance + samples
+    form and its samples form (on the rays the advance form left): against
+    its plain version under the contract; each slot's row (list_slot_rows)
+    bit for bit the gathered epoch's kernel's on the gathered copy, its
+    position and direction aten's; rows 0..m-1 each a slot's once, m the
+    plain version's count; within a warp an entry's rows follow those of
+    the entry before it (the layout the composite reads)."""
+    _needs_card()
+    net, scene, opts, st = _start(case, True, device="cuda",
+                                  steps_per_round=steps)
+    ids = _card_list(st)
+    ids = ids[torch.arange(ids.numel(), device="cuda") % 3 != 2].contiguous()
+    n = ids.numel()
+    iters = opts.advance_iters
+
+    def run(fn, frame, iters):
+        rows = mc.list_buffers(n, steps, "cuda")
+        count = torch.zeros(1, dtype=torch.int32, device="cuda")
+        fn(frame, ids, n, scene, opts, iters, rows, count)
+        torch.cuda.synchronize()
+        return rows, int(count[0])
+
+    start = _copy(st)
+    if form == "samples":
+        run(mc.walk_list, start, iters)
+        iters = None
+    got = []
+    for fn in (mc.walk_list, mc.walk_list_reference):
+        frame = _copy(start)
+        rows, m = run(fn, frame, iters)
+        got.append((mc.list_walk_outputs(frame, ids, n, rows, steps), rows, m))
+    (out_k, rows, m), (out_p, _, m_p) = got
+    kind = "advance_samples" if form == "advance" else "samples"
+    pick = (lambda o: o) if form == "advance" else (lambda o: o[1])
+    r = mc.compare_with_plain(kind, pick(out_k), pick(out_p))
+    assert r["ok"], r
+    idl = ids.long()
+    sub = {k: start[k][idl] for k in trm._GATHER}
+    if form == "advance":
+        sub["alive"] = torch.ones(n, dtype=torch.bool, device="cuda")
+        (t, alive), gen = mc.advance_samples(sub, scene, opts, iters)
+        _bits_equal(out_k[0][0], t, "t")
+        _bits_equal(out_k[0][1], alive, "alive")
+    else:
+        sub["alive"] = start["alive"][idl]
+        gen = mc.samples(sub, scene, opts)
+    (pos, dt, valid, ts), t_end, ex, sp = gen
+    (p01, ldt, lv, lts), lte, lex, lst = out_k[1]
+    want01 = torch.where(valid[..., None], (pos - scene["train_min"]) / (
+        scene["train_max"] - scene["train_min"]), 0.0)
+    for name, g, w in (("valid", lv, valid), ("pos01", p01, want01),
+                       ("dt", ldt, torch.where(valid, dt, 0.0)),
+                       ("ts", lts, torch.where(valid, ts, 0.0)),
+                       ("t_end", lte, t_end), ("exited", lex, ex),
+                       ("stopped", lst, sp)):
+        _bits_equal(g, w, name)
+    slot_rows = mc.list_slot_rows(rows, n, steps)
+    used = slot_rows[slot_rows >= 0]
+    assert m == m_p == used.numel() > 0
+    _bits_equal(torch.sort(used).values, torch.arange(m, device="cuda"),
+                "rows")
+    _bits_equal(rows["dir01"][slot_rows.clamp(min=0)][valid],
+                ((start["d"][idl] + 1.0) * 0.5)[None].expand(steps, n, 3)[valid],
+                "dir01")
+    first = rows["first"][:n].long()
+    per = (slot_rows >= 0).sum(0)
+    j = torch.arange(n - 1, device="cuda")
+    warp = j // 32 == (j + 1) // 32
+    _bits_equal(first[1:][warp], (first[:-1] + per[:-1])[warp], "first rows")
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("deferred", [False, True], ids=["colour", "deferred"])
 @pytest.mark.parametrize("case", ["jump", "mips_cone"])
 def test_list_composite_kernel_on_card(case, deferred):
