@@ -1007,16 +1007,16 @@ def instance_name(match):
 
 
 def mlp_kernel_report(module):
-    """Every instance of mlp_kernel and rgb_head_kernel (f32 body), of
-    mlp_kernel_bf16 and rgb_head_kernel_bf16 (the tensor-core body) and
-    of encode_mlp_kernel (the fused encode + tensor-core body, one
-    instance a hidden width and feature count) in
-    the library `module` loaded, read from it in this run with cuobjdump:
-    registers, stack and local bytes (-res-usage), the tensor-core
-    instructions (HGMMA, HMMA) and the local-memory loads and stores
-    (LDL, STL: spills) in the SASS (-sass) -> {instance: numbers}. Raises
-    where a tensor-core instance spills or holds no tensor-core
-    instruction."""
+    """Every instance of mlp_kernel (the f32 thread-per-sample body) and
+    rgb_head_kernel (the f32 register-tiled body), of mlp_kernel_bf16 and
+    rgb_head_kernel_bf16 (the tensor-core body) and of encode_mlp_kernel
+    (the fused encode + tensor-core body, one instance a hidden width and
+    feature count) in the library `module` loaded, read from it in this
+    run with cuobjdump: registers, stack and local bytes (-res-usage), the
+    tensor-core instructions (HGMMA, HMMA) and the local-memory loads and
+    stores (LDL, STL: spills) in the SASS (-sass) -> {instance: numbers}.
+    Raises where a tensor-core instance spills or holds no tensor-core
+    instruction, or a register-tiled instance spills."""
     cuobjdump = os.path.join(os.path.dirname(cuda_build.nvcc()), "cuobjdump")
     lib = module.load_library()._name
 
@@ -1059,6 +1059,12 @@ def mlp_kernel_report(module):
         raise AssertionError(f"the tensor-core instances (4 bf16 MLP, 8 "
                              f"fused) must hold tensor-core instructions and "
                              f"spill nothing: {bf16}")
+    tiled = {k: r for k, r in out.items()
+             if k.startswith("rgb_head_kernel<")}
+    if len(tiled) != 2 or any(r["stack_bytes"] or r["local_bytes"]
+                              or r["local_ops"] for r in tiled.values()):
+        raise AssertionError(f"the register-tiled f32 instances (HID 64 and "
+                             f"128) must spill nothing: {tiled}")
     return out
 
 
@@ -1395,6 +1401,8 @@ def same_bits(a, b):
         return a.keys() == b.keys() and all(same_bits(a[k], b[k]) for k in a)
     if isinstance(a, (tuple, list)):
         return len(a) == len(b) and all(same_bits(x, y) for x, y in zip(a, b))
+    if not torch.is_tensor(a):
+        return a == b
     if a.dtype != b.dtype or a.shape != b.shape:
         return False
     if a.dtype == torch.float32:
@@ -2407,6 +2415,8 @@ FRAME_KERNELS = {     # wrapper -> (kernel, the JAX function it replaces)
     "ray_init": ("nmr_ray_init", "nerf_glasses_tpu/ops/raymarch.py:518"),
     "finalize": ("nmr_frame_finalize", "nerf_glasses_tpu/ops/raymarch.py:1096")}
 ALL_FRAME = tuple(FRAME_KERNELS)
+# a redesigned kernel whose outputs must be another checkout's bit for bit
+BIT_FOR_BIT_FRAME = ("surface_shade",)
 NERF_FRAME = ("ray_init", "finalize")   # a frame with no mesh
 
 
@@ -2508,8 +2518,9 @@ def hold_frame_calls(calls, label, reps=20, others=()):
     frame_cuda.compare_with_plain's contract; its device ms (L2 flushed)
     beside its plain version's ms (CUDA events) and its bound; each other
     checkout's kernel of the same name, where it has ops/frame_cuda.py,
-    held to the same contract and timed in turns with this tree's ->
-    {wrapper: numbers}."""
+    held to the same contract, compared with this tree's bit for bit (a
+    kernel of BIT_FOR_BIT_FRAME must be) and timed in turns with this
+    tree's -> {wrapper: numbers}."""
     out = {}
     for name, (args, kw) in calls.items():
         call = (lambda m=frame_cuda, a=args, k=kw:
@@ -2530,17 +2541,25 @@ def hold_frame_calls(calls, label, reps=20, others=()):
         ms, per_call = frame_kernel_ms(name, call, reps)
         p_ms = cuda_ms(lambda: plain(*args, **kw), 3)
         b_ms, b_by, nbytes = frame_bound(name, args, kw, out_k)
-        turns = None
+        turns, bits = None, {}
         if others:
             versions = [(path, m) for path, m in others] + [("this tree",
                                                               frame_cuda)]
             for path, m in others:
-                c = frame_cuda.compare_with_plain(name, getattr(m, name)(
-                    *args, **kw), out_p, scale, walk)
+                res = getattr(m, name)(*args, **kw)
+                c = frame_cuda.compare_with_plain(name, res, out_p, scale,
+                                                  walk)
+                torch.cuda.synchronize()
+                c["bit_for_bit_this_tree"] = same_bits(res, out_k)
                 print(f"{label} {name} of {path} vs plain: {c}")
                 if not c["ok"]:
                     raise AssertionError(f"{label}: {name} of {path} fails "
                                          f"the contract")
+                if name in BIT_FOR_BIT_FRAME and not c[
+                        "bit_for_bit_this_tree"]:
+                    raise AssertionError(f"{label}: {name} of {path} is not "
+                                         f"bit for bit this tree's")
+                bits[path] = c["bit_for_bit_this_tree"]
             turns = {path: [] for path, _ in versions}
             for path, m in versions + versions[::-1]:
                 turns[path].append(frame_kernel_ms(
@@ -2559,7 +2578,8 @@ def hold_frame_calls(calls, label, reps=20, others=()):
                                  f"version: {cmp}")
         out[name] = {"cmp": cmp, "ms": ms, "launches_a_call": per_call,
                      "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-                     "bytes": nbytes, "in_turns": turns}
+                     "bytes": nbytes, "in_turns": turns,
+                     "bit_for_bit_others": bits}
         del out_k, out_p
     return out
 
@@ -2660,6 +2680,7 @@ def frame_entries(held, launches, n_frames, flash, mc):
             "bound_by": r["bound_by"], "library_ms": None,
             "share": r["bound_ms"] / r["ms"], "contract": r["cmp"],
             "in_turns": r["in_turns"],
+            "bit_for_bit_others": r["bit_for_bit_others"],
             "flash_ms": flash[name]["ms"] if name in flash else None,
             "flash_bound_ms": (flash[name]["bound_ms"] if name in flash
                                else None),
@@ -2699,6 +2720,11 @@ NETWORK_DTYPE_ARG = {"hash_encode": 3, "mlp": 2, "rgb_head": 4,
 # not: the density half is one launch of the fused kernel
 BF16_NETWORK = ("encode_mlp", "rgb_head")
 PAIR = ("hash_encode", "mlp")
+# what the f32 frame launches (phase 4b)
+F32_NETWORK = PAIR + ("rgb_head",)
+# a redesigned body that must give another checkout's rows bit for bit:
+# wrapper -> the compute dtype of that body
+BIT_FOR_BIT_NETWORK = {"rgb_head": torch.float32}
 PSNR_PLAIN_NETWORK_DB = 50.0
 EXACT_FRAME_MAX_OPS = 3000      # the exact 720p frame with the network kernels
 # dense bf16 tensor-core peak of the H100 SXM (data sheet, 700 W): the
@@ -2869,17 +2895,26 @@ def hold_network_calls(calls, label, reps=20, others=()):
             if name == "encode_mlp":
                 out[name].update(fused_vs_pair(args, got, label, reps))
             if others:
-                def check(what, res, kind=kind, want=want, dtype=dtype):
+                same = {}
+
+                def check(what, res, kind=kind, want=want, dtype=dtype,
+                          got=got, same=same):
                     r = network_cuda.compare_with_plain(kind, res, want, dtype)
+                    same[what] = same_bits(res, got)
                     print(f"{label} {what}: {r['mismatched_rows']} rows off, "
-                          f"max |diff| {r['max_abs_err']:.3g}")
+                          f"max |diff| {r['max_abs_err']:.3g}; bit for bit "
+                          f"this tree's: {same[what]}")
                     if not r["ok"]:
                         raise AssertionError(f"{what} disagrees: {r}")
+                    if BIT_FOR_BIT_NETWORK.get(name) == dtype and not same[what]:
+                        raise AssertionError(f"{label}: {what} is not bit for "
+                                             f"bit this tree's {kernel}")
                 have = [(d, m) for d, m in others if hasattr(m, name)]
                 if have:
                     out[name]["in_turns"] = in_turns(
                         have, network_cuda, name, check, args,
                         lambda fn, name=name: kernel_device_ms(name, fn, reps))
+                    out[name]["bit_for_bit_others"] = same
     return out
 
 
@@ -3013,7 +3048,9 @@ def network_entries(net, net_f32, launches, f32_launches, mc, ref, train,
     15) and the trainer's bf16 no-grad queries (phase 14) beside them, for
     the fused kernel the bf16 pair's time and the gathers' sectors; the
     standalone encode and MLP on the f32 frame's first epoch with its
-    launches (phase 4b), the only frame that launches them; for the MLPs
+    launches (phase 4b), the only frame that launches them, and there the
+    rgb head's f32 body as an entry of its own ("nmr_rgb_head:f32"); for
+    the MLPs
     the matmul + relu chain's time, other checkouts' kernels in turns
     and each instance that the entry's calls run: registers, spills and
     tensor-core instructions (phase 2, mlp_kernel_report)."""
@@ -3063,6 +3100,26 @@ def network_entries(net, net_f32, launches, f32_launches, mc, ref, train,
         if name == "rgb_head":
             entry["reference_config_library_chain_ms"] = (
                 ref["kernels"][name]["library_chain_ms"])
+        if name in BIT_FOR_BIT_NETWORK and not pair:
+            f = net_f32[name]
+            entries.append({
+                "name": f"{kernel}:f32", "route": "cuda",
+                "source": "nerf_glasses_tpu_torch/csrc/network.cu",
+                "replaces": replaces, "launches": f32_launches[name],
+                "max_abs_err": f["cmp"]["max_abs_err"], "ms": f["ms"],
+                "event_ms": f["event_ms"], "plain_ms": f["plain_ms"],
+                "bound_ms": f["bound_ms"], "bound_by": f["bound_by"],
+                "library_ms": None, "share": f["bound_ms"] / f["ms"],
+                "launches_per_frame": f32_launches[name],
+                "path": ("exact 720p frame at the f32 compute dtype, 1 frame "
+                         "(phase 4b)"),
+                "rows": f["rows"], "dtype": f["dtype"],
+                "mismatched_rows": f["cmp"]["mismatched_rows"],
+                "library_chain_ms": f["library_chain_ms"],
+                "in_turns": f.get("in_turns"),
+                "bit_for_bit_others": f.get("bit_for_bit_others"),
+                "instances": {k: v for k, v in build.items()
+                              if k.startswith(f"{name}_kernel<")}})
         for which, held in train.items():
             if name in held:
                 t = held[name]
@@ -4970,12 +5027,13 @@ def main(tmp, dirs, multicascade_only=False):
         torch.cuda.synchronize()
         f32_launches = network_launch_check(
             f"exact {W}x{H} frame at the f32 compute dtype (phase 4b)",
-            need=PAIR + ("rgb_head",), absent=("encode_mlp",),
+            need=F32_NETWORK, absent=("encode_mlp",),
             frame_need=ALL_FRAME)
     finally:
         nerf.march_overrides = saved
-    # and its first-epoch encode and MLP calls, held and timed as in 5c
-    net_f32 = hold_network_calls({k: f32_calls[k] for k in PAIR},
+    # and its first-epoch encode, MLP and rgb head calls, held and timed
+    # as in 5c
+    net_f32 = hold_network_calls({k: f32_calls[k] for k in F32_NETWORK},
                                  "exact 720p f32", others=net_others)
     del f32_calls
     lap("4b")

@@ -47,13 +47,20 @@
 //       shade_hits (formerly triangles.py:387-422 and :202-283); JAX
 //       triangles.py:254 shade_hits, :529 render_mesh_surface, :699
 //       downsample_surface.
-//       What bounds it: the hits' shading (their count, a few per cent of
-//       the rays) and the output it writes (20 B a NeRF pixel). Design: a
-//       thread a NeRF pixel, its F x F supersampled rays read through the
-//       tile-major index; a pixel whose tile has no candidate writes
-//       zeros without reading a hit; materials from one table and one
-//       texel buffer packed at load_mesh; outputs row-major (H, W, 4) and
-//       (H, W), the layout the march takes.
+//       What bounds it: the output it writes (20 B a NeRF pixel) and the
+//       busy tiles' hits it reads; the hits' shading (a few per cent of the
+//       rays, each four powf and up to five texture fetches in a chain)
+//       sets the latency. Design: one launch of persistent blocks; each
+//       lists the busy tiles from the counts (a block scan in shared
+//       memory) and walks work units: first the busy tiles' rays, a thread
+//       a supersampled ray with a pixel's F x F rays in adjacent lanes,
+//       their terms summed by the pixel's first lane from shuffles in the
+//       order of a thread-per-pixel loop over them (fy outer, fx inner),
+//       so a pixel's sums are that loop's bit for bit; then the idle
+//       tiles' pixels, zeros in 16-byte stores.
+//       Materials from one table and one texel buffer packed at load_mesh;
+//       outputs row-major (H, W, 4) and (H, W), the layout the march
+//       takes.
 //   ray_init_kernel (nmr_ray_init) replaces ops/raymarch.py's ray
 //       generation for a plain perspective camera (render_image_device),
 //       init_rays before and after its walk (the aabb entry, the
@@ -143,7 +150,7 @@ struct PlanArgs {
 struct ShadeParams {
   float eye[3], light[3];
   float inv_ff;         // float32 1 / (F * F)
-  int out_w, out_h, factor, ntx, n_inst, n_mat;
+  int out_w, out_h, factor, ntx, n_inst, n_mat, n_tiles;
   float nrm[MAX_INSTANCES * 9];   // instance normal matrices (I, 3, 3)
 };
 
@@ -618,46 +625,155 @@ __device__ void shade_hit(const ShadeParams& P, const ShadeArgs& a,
   }
 }
 
-__global__ void __launch_bounds__(THREADS) surface_shade_kernel(ShadeParams P,
-                                                                ShadeArgs a) {
-  __shared__ float s_nrm[MAX_INSTANCES * 9];
-  if (a.nrm == nullptr) {
-    for (int k = threadIdx.x; k < 9 * P.n_inst; k += THREADS) s_nrm[k] = P.nrm[k];
-  }
-  __syncthreads();
-  const float* nrm_mats = a.nrm != nullptr ? a.nrm : s_nrm;
-  const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (i >= (long long)P.out_w * P.out_h) return;
-  const int ox = (int)(i % P.out_w), oy = (int)(i / P.out_w);
-  const int F = P.factor;
-  const int sx0 = ox * F, sy0 = oy * F;
-  const int tx = sx0 / TILE_W, ty = sy0 / TILE_H;
-  const int tile = ty * P.ntx + tx;
+// The surface shade's work, in units of a block: first each busy tile's
+// rays, units_tile units a tile (shade_unit), then the frame's pixels,
+// FILL_PIXELS a unit (fill_unit).
+constexpr int FILL_PIXELS = 4 * THREADS;
+
+// Whether NeRF pixel p (row-major) lies in a busy tile.
+__device__ __forceinline__ bool busy_pixel(const ShadeParams& P,
+                                           const unsigned char* s_busy,
+                                           unsigned p) {
+  const unsigned oy = p / (unsigned)P.out_w, ox = p - oy * (unsigned)P.out_w;
+  return s_busy[(oy * P.factor / TILE_H) * P.ntx + ox * P.factor / TILE_W];
+}
+
+// One unit of a busy tile: a thread a supersampled ray, a pixel's F x F
+// rays in G = min(F x F, 32) adjacent lanes, each lane taking F x F / G
+// of them in turns. The pixel's first lane adds the terms of its rays in
+// a thread-per-pixel loop's order (fy outer, fx inner, from 0, a miss
+// skipped), taking each from its lane by shuffle: the sums are that
+// loop's bit for bit.
+__device__ __forceinline__ void shade_unit(const ShadeParams& P,
+                                           const ShadeArgs& a,
+                                           const float* nrm_mats, int tile,
+                                           int unit) {
+  const int F = P.factor, FF = F * F;
+  const int G = FF < 32 ? FF : 32;
+  const int tw = TILE_W / F, th = TILE_H / F;
+  const int q = unit * (THREADS / G) + threadIdx.x / G;   // pixel in tile
+  const int j = threadIdx.x & (G - 1);
+  const int lane = threadIdx.x & 31, first = lane & ~(G - 1);
+  const int ty = tile / P.ntx, tx = tile - ty * P.ntx;
+  const int qy = q / tw, qx = q - qy * tw;
+  const int oy = ty * th + qy, ox = tx * tw + qx;
+  const bool on = q < tw * th && ox < P.out_w && oy < P.out_h;
+  const long long tile_base = (long long)tile * TILE_RAYS;
   float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
   float depth = 0.0f;
-  if (a.counts[tile] > 0) {
-    const long long tile_base = (long long)tile * TILE_RAYS;
-    for (int fy = 0; fy < F; ++fy) {
-      for (int fx = 0; fx < F; ++fx) {
-        const long long r = tile_base + (sy0 + fy - ty * TILE_H) * TILE_W +
-                            (sx0 + fx - tx * TILE_W);
-        const int id = a.tri[r];
-        if (id < 0) continue;
-        const float t = a.t[r];
+  for (int i0 = 0; i0 < FF; i0 += G) {
+    const int i = i0 + j, fy = i / F, fx = i - fy * F;
+    float c[3] = {0.0f, 0.0f, 0.0f};
+    float t = 0.0f;
+    bool hit = false;
+    if (on) {
+      const long long r = tile_base + (qy * F + fy) * TILE_W + qx * F + fx;
+      const int id = a.tri[r];
+      if (id >= 0) {
+        hit = true;
+        t = a.t[r];
         const float d[3] = {a.d[3 * r], a.d[3 * r + 1], a.d[3 * r + 2]};
         float rgb[3];
         shade_hit(P, a, nrm_mats, id, a.u[r], a.v[r], t, d, rgb);
 #pragma unroll
-        for (int c = 0; c < 3; ++c)
-          acc[c] += linear_to_srgb(clamp_hi(clamp_lo(rgb[c], 0.0f), 1.0f)) * P.inv_ff;
+        for (int k = 0; k < 3; ++k)
+          c[k] = linear_to_srgb(clamp_hi(clamp_lo(rgb[k], 0.0f), 1.0f)) *
+                 P.inv_ff;
+      }
+    }
+    const unsigned hits = __ballot_sync(0xffffffffu, hit);
+    if (hits == 0u) continue;             // (warp-uniform)
+    for (int k = 0; k < G; ++k) {
+      const float c0 = __shfl_sync(0xffffffffu, c[0], first + k);
+      const float c1 = __shfl_sync(0xffffffffu, c[1], first + k);
+      const float c2 = __shfl_sync(0xffffffffu, c[2], first + k);
+      const float tk = __shfl_sync(0xffffffffu, t, first + k);
+      if (hits >> (first + k) & 1u) {
+        acc[0] += c0;
+        acc[1] += c1;
+        acc[2] += c2;
         acc[3] += P.inv_ff;
-        depth = nmax(depth, t);
+        depth = nmax(depth, tk);
       }
     }
   }
+  if (on && j == 0) {
+    const long long p = (long long)oy * P.out_w + ox;
+    reinterpret_cast<float4*>(a.rgba)[p] =
+        make_float4(acc[0], acc[1], acc[2], acc[3]);
+    a.depth[p] = depth;
+  }
+}
+
+// One unit of the fill: FILL_PIXELS pixels from p0, those of idle tiles
+// written as zeros: a 16-byte store of rgba a pixel (consecutive threads
+// on consecutive pixels), then a 16-byte store of four depths a thread.
+__device__ __forceinline__ void fill_unit(const ShadeParams& P,
+                                          const ShadeArgs& a,
+                                          const unsigned char* s_busy,
+                                          unsigned p0, unsigned n_out) {
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 #pragma unroll
-  for (int c = 0; c < 4; ++c) a.rgba[4 * i + c] = acc[c];
-  a.depth[i] = depth;
+  for (int k = 0; k < 4; ++k) {
+    const unsigned p = p0 + k * THREADS + threadIdx.x;
+    if (p < n_out && !busy_pixel(P, s_busy, p))
+      reinterpret_cast<float4*>(a.rgba)[p] = zero;
+  }
+  const unsigned pd = p0 + 4 * threadIdx.x;
+  bool idle[4], all = true;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    idle[k] = pd + k < n_out && !busy_pixel(P, s_busy, pd + k);
+    all = all && idle[k];
+  }
+  if (all) {
+    reinterpret_cast<float4*>(a.depth)[pd / 4] = zero;
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (idle[k]) a.depth[pd + k] = 0.0f;
+  }
+}
+
+// Persistent blocks, each walking the units from blockIdx.x by the grid:
+// the busy tiles' units first, so their shading starts ahead of the
+// fill. Each block lists the busy tiles itself from the counts (a block
+// scan into dynamic shared memory: n_tiles ints of list, n_tiles flags).
+__global__ void __launch_bounds__(THREADS) surface_shade_kernel(ShadeParams P,
+                                                                ShadeArgs a) {
+  extern __shared__ int s_list[];
+  unsigned char* const s_busy =
+      reinterpret_cast<unsigned char*>(s_list + P.n_tiles);
+  __shared__ float s_nrm[MAX_INSTANCES * 9];
+  __shared__ int s_scan[2 * WARPS + 1];
+  if (a.nrm == nullptr) {
+    for (int k = threadIdx.x; k < 9 * P.n_inst; k += THREADS) s_nrm[k] = P.nrm[k];
+  }
+  int n_busy = 0;
+  for (int t0 = 0; t0 < P.n_tiles; t0 += THREADS) {
+    const int tile = t0 + threadIdx.x;
+    const bool busy = tile < P.n_tiles && a.counts[tile] > 0;
+    int total;
+    const int pos = block_scan(busy, s_scan, total);
+    if (tile < P.n_tiles) s_busy[tile] = busy;
+    if (busy) s_list[n_busy + pos] = tile;
+    n_busy += total;
+  }
+  __syncthreads();
+  const float* nrm_mats = a.nrm != nullptr ? a.nrm : s_nrm;
+  const int FF = P.factor * P.factor;
+  const int px_unit = THREADS / (FF < 32 ? FF : 32);
+  const int units_tile =
+      (TILE_RAYS / FF + px_unit - 1) / px_unit;
+  const long long n_shade = (long long)n_busy * units_tile;
+  const unsigned n_out = (unsigned)P.out_w * (unsigned)P.out_h;
+  const long long n_units = n_shade + (n_out + FILL_PIXELS - 1) / FILL_PIXELS;
+  for (long long u = blockIdx.x; u < n_units; u += gridDim.x) {
+    if (u < n_shade)
+      shade_unit(P, a, nrm_mats, s_list[u / units_tile], (int)(u % units_tile));
+    else
+      fill_unit(P, a, s_busy, (unsigned)(u - n_shade) * FILL_PIXELS, n_out);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -856,8 +972,25 @@ extern "C" int nmr_mesh_plan(const PlanParams* p, const PlanArgs* a,
 extern "C" int nmr_surface_shade(const ShadeParams* p, const ShadeArgs* a,
                                  void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  surface_shade_kernel<<<blocks((long long)p->out_w * p->out_h), THREADS, 0, s>>>(
-      *p, *a);
+  const int smem = 5 * p->n_tiles;
+  cudaError_t err = cudaFuncSetAttribute(
+      surface_shade_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // as many blocks as fit the card at once, no more than units
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, surface_shade_kernel, THREADS, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int FF = p->factor * p->factor;
+  const int px_unit = THREADS / (FF < 32 ? FF : 32);
+  const long long units =
+      (long long)p->n_tiles * ((TILE_RAYS / FF + px_unit - 1) / px_unit) +
+      ((long long)p->out_w * p->out_h + FILL_PIXELS - 1) / FILL_PIXELS;
+  long long grid = (long long)(per_sm > 0 ? per_sm : 1) * (sms > 0 ? sms : 1);
+  if (grid > units) grid = units;
+  surface_shade_kernel<<<(unsigned)grid, THREADS, smem, s>>>(*p, *a);
   return static_cast<int>(cudaGetLastError());
 }
 

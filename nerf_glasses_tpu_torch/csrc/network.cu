@@ -86,14 +86,30 @@
 //   and in their own order: rows may differ from aten's f32 product of
 //   the rounded operands by a bf16 step of a hidden activation
 //   (ops/network_cuda.py::compare_with_plain's bf16 contract).
-// At the f32 compute dtype (the parity runs) mlp_kernel and
-// rgb_head_kernel keep the first design, one thread per sample on the
-// CUDA cores (mlp_rows): a grid-stride loop over 128-sample tiles, the
-// weights in shared memory read as float4 broadcasts, each thread's
-// activations in its own shared-memory column, f32 fmaf. TF32 or bf16
-// operands would break that dtype's 1e-4 contract. HID 64: 141-144
-// registers; HID 128 spills (~150 bytes). The launcher picks the body by
-// compute dtype; each raises what it does not take.
+// At the f32 compute dtype (the parity runs; the f32 frame) both MLPs run
+// on the CUDA cores in f32 fmaf: TF32 or bf16 operands would break that
+// dtype's 1e-4 contract. Bound: operations (the rgb head's 6.3k stored
+// multiply-adds a sample against 88 bytes: 67 TFLOP/s f32 peak).
+//   mlp_kernel keeps the first design, one thread per sample (mlp_rows):
+//   a grid-stride loop over 128-sample tiles, the weights in shared
+//   memory read as float4 broadcasts (one load for 4 fmaf), each thread's
+//   activations in its own shared-memory column. HID 64: 141-144
+//   registers; HID 128 spills (~150 bytes).
+//   rgb_head_kernel is register-tiled (mlp_tiles): persistent blocks of
+//   256 threads, 2 an SM, each an even share of the samples in 256-sample
+//   tiles, the activations in shared memory k-major with the samples
+//   contiguous; a thread computes 4 samples x 16 outputs of a hidden
+//   layer, a 16-byte load of activations and four of weights a k for 64
+//   fmaf, and writes them back over the layer's input after a barrier;
+//   the last layer only the stored columns (3 of the rgb head's 16), two
+//   a thread; the weights and the next tile's inputs arrive by cp.async
+//   while a tile computes. It reaches about half of its operations bound
+//   (PERF.md section 6 row 9). Each output is the same fmaf chain over k
+//   from 0 as mlp_rows', so the rows are its rows bit for bit; the body
+//   takes mlp_kernel's input rows too (input_row, KIND 0), for that
+//   kernel to take it by instantiation.
+// The launcher picks the body by compute dtype; each raises what it does
+// not take.
 //
 // Numerics: the plain versions' rounding points. The build takes
 // -fmad=false; the encode spells its roundings out with __fmul_rn /
@@ -335,17 +351,79 @@ __device__ __forceinline__ void sh_encode(float d0, float d1, float d2,
   }
 }
 
-// The f32 body of both MLP kernels (mlp_kernel, rgb_head_kernel), one
-// thread per sample. KIND 0: the rows of x are the input (f32 or bf16);
-// KIND 1: the rgb head's row [feat, SH(dir), codes, zeros].
-// Shared memory: the weights, layer l as width[l + 1] rows of
-// pad16(width[l]) (zero-padded), then act_rows x blockDim.x activations
-// (thread t's value i at i * blockDim.x + t).
-template <int HID, int KIND>
-__device__ __forceinline__ void mlp_rows(
-    const MlpParams& P, long long n, const void* __restrict__ x,
-    const float* __restrict__ dirs, const float* __restrict__ extra,
-    float* __restrict__ out) {
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The rgb head's input row of sample s into a[i * stride], i <
+// pad16(width[0]): its features fr[0 .. n_feat), SH(d0, d1, d2), its
+// codes, zeros.
+__device__ __forceinline__ void rgb_row(const MlpParams& P, long long s,
+                                        const float* fr, float d0, float d1,
+                                        float d2,
+                                        const float* __restrict__ extra,
+                                        float* a, int stride) {
+  for (int i = 0; i < P.n_feat; ++i) a[i * stride] = fr[i];
+  int w0 = P.n_feat;
+  float sh[SH_WIDTH];
+  sh_encode(d0, d1, d2, P.sh_degree, sh);
+#pragma unroll
+  for (int k = 0; k < SH_WIDTH; ++k) a[(w0 + k) * stride] = sh[k];
+  w0 += SH_WIDTH;
+  const float* er = extra + (P.extra_rows ? s * P.n_extra : 0);
+  for (int e = 0; e < P.n_extra; ++e) a[(w0 + e) * stride] = __ldg(er + e);
+  w0 += P.n_extra;
+  for (int i = w0; i < pad16(P.width[0]); ++i) a[i * stride] = 0.0f;
+}
+
+// The input row of sample s into a[i * stride], i < pad16(width[0]).
+// KIND 0: the row of x (f32 or bf16); KIND 1: the rgb head's row
+// (rgb_row).
+template <int KIND>
+__device__ __forceinline__ void input_row(const MlpParams& P, long long s,
+                                          const void* __restrict__ x,
+                                          const float* __restrict__ dirs,
+                                          const float* __restrict__ extra,
+                                          float* a, int stride) {
+  if (KIND == 1) {
+    rgb_row(P, s, static_cast<const float*>(x) + s * P.n_feat,
+            __ldg(dirs + s * 3), __ldg(dirs + s * 3 + 1),
+            __ldg(dirs + s * 3 + 2), extra, a, stride);
+    return;
+  }
+  const int n_in = P.width[0];
+  if (P.x_bf16) {
+    const __nv_bfloat16* xr = static_cast<const __nv_bfloat16*>(x) + s * n_in;
+    for (int i = 0; i < n_in; ++i) a[i * stride] = __bfloat162float(xr[i]);
+  } else {
+    const float* xr = static_cast<const float*>(x) + s * n_in;
+    for (int i = 0; i < n_in; ++i) a[i * stride] = __ldg(xr + i);
+  }
+  for (int i = n_in; i < pad16(P.width[0]); ++i) a[i * stride] = 0.0f;
+}
+
+// mlp_kernel's f32 body, one thread per sample. Shared memory: the
+// weights, layer l as width[l + 1] rows of pad16(width[l]) (zero-padded),
+// then act_rows x blockDim.x activations (thread t's value i at
+// i * blockDim.x + t).
+template <int HID>
+__device__ __forceinline__ void mlp_rows(const MlpParams& P, long long n,
+                                         const void* __restrict__ x,
+                                         float* __restrict__ out) {
   extern __shared__ float4 smem4[];
   float* s_w = reinterpret_cast<float*>(smem4);
   for (int l = 0; l < P.n_layers; ++l) {
@@ -364,37 +442,7 @@ __device__ __forceinline__ void mlp_rows(
   const long long stride = (long long)gridDim.x * T;
   for (long long s = (long long)blockIdx.x * T + threadIdx.x; s < n;
        s += stride) {
-    // the input row
-    int w0 = 0;
-    if (KIND == 0) {
-      const int n_in = P.width[0];
-      if (P.x_bf16) {
-        const __nv_bfloat16* xr =
-            static_cast<const __nv_bfloat16*>(x) + s * n_in;
-        for (int i = 0; i < n_in; ++i)
-          a[i * T] = __bfloat162float(xr[i]);
-      } else {
-        const float* xr = static_cast<const float*>(x) + s * n_in;
-        for (int i = 0; i < n_in; ++i) a[i * T] = __ldg(xr + i);
-      }
-      w0 = n_in;
-    } else {
-      const float* fr = static_cast<const float*>(x) + s * P.n_feat;
-      for (int i = 0; i < P.n_feat; ++i) a[i * T] = __ldg(fr + i);
-      w0 = P.n_feat;
-      float sh[SH_WIDTH];
-      sh_encode(__ldg(dirs + s * 3), __ldg(dirs + s * 3 + 1),
-                __ldg(dirs + s * 3 + 2), P.sh_degree, sh);
-#pragma unroll
-      for (int k = 0; k < SH_WIDTH; ++k) a[(w0 + k) * T] = sh[k];
-      w0 += SH_WIDTH;
-      const float* er = extra + (P.extra_rows ? s * P.n_extra : 0);
-      for (int e = 0; e < P.n_extra; ++e)
-        a[(w0 + e) * T] = __ldg(er + e);
-      w0 += P.n_extra;
-    }
-    for (int i = w0; i < pad16(P.width[0]); ++i) a[i * T] = 0.0f;
-
+    input_row<0>(P, s, x, nullptr, nullptr, a, T);
     for (int l = 0; l < P.n_layers; ++l) {
       const int in_pad = pad16(P.width[l]);
       const int n_out = P.width[l + 1];
@@ -440,17 +488,233 @@ __device__ __forceinline__ void mlp_rows(
 template <int HID>
 __global__ void __launch_bounds__(MLP_THREADS) mlp_kernel(
     MlpParams P, long long n, const void* __restrict__ x,
-    const float* __restrict__ dirs, const float* __restrict__ extra,
     float* __restrict__ out) {
-  mlp_rows<HID, 0>(P, n, x, dirs, extra, out);
+  mlp_rows<HID>(P, n, x, out);
 }
 
-template <int HID>
-__global__ void __launch_bounds__(MLP_THREADS) rgb_head_kernel(
-    MlpParams P, long long n, const void* __restrict__ x,
+// ---------------------------------------------------------------------------
+// The register-tiled f32 body (rgb_head_kernel)
+// ---------------------------------------------------------------------------
+
+constexpr int RT_THREADS = 256;
+constexpr int RT_BLOCKS_PER_SM = 2;   // at HID 64 (registers allow 2)
+constexpr int RT_R = 4;           // a hidden layer: a thread's samples ...
+constexpr int RT_C = 16;          // ... times its outputs
+constexpr int RT_LANE_TS = 8;     // a warp's sample groups (of 32 lanes)
+constexpr int RT_LAST_C = 2;      // the last layer: a thread's outputs of
+                                  // one sample
+
+// A block's tile of samples at hidden width HID: a hidden layer's
+// RT_R x RT_C items are then one a thread (at 128, 256 samples' 128
+// activation rows would not leave room for the weights).
+__host__ __device__ constexpr int rt_samples(int hid) {
+  return hid <= 64 ? 256 : 128;
+}
+
+// Layer l's weight columns in the register-tiled body: pad16 of a hidden
+// layer's outputs (the next layer's K), the last layer's stored columns
+// rounded up to RT_LAST_C. Its weights lie k-major (k * cols + j) after
+// those of the layers before it.
+__host__ __device__ __forceinline__ int rt_cols(const MlpParams& P, int l) {
+  return l + 1 < P.n_layers
+             ? pad16(P.width[l + 1])
+             : (P.n_store + RT_LAST_C - 1) / RT_LAST_C * RT_LAST_C;
+}
+
+// A hidden layer on a tile of S samples, in place: act[j][s] =
+// relu(sum_k act[k][s] W[k][j]), each an fmaf chain over k = 0 .. K-1
+// from 0 (mlp_rows' order) for the tile's first `valid` samples; the
+// columns from n_out to N written as zeros. A thread computes an item of
+// RT_R samples x RT_C columns: for each k one 16-byte load of its
+// activations and four of its weights for 64 fmaf. A warp holds
+// RT_LANE_TS sample groups x (32 / RT_LANE_TS) column groups; each load
+// is broadcast to the lanes that share it. The sums stay in registers
+// across the barrier after the last read of the layer's input, then
+// overwrite it.
+template <int S>
+__device__ __forceinline__ void rt_hidden(const float* __restrict__ W, int K,
+                                          int N, int n_out, int valid,
+                                          float* act) {
+  const int groups = N / RT_C;
+  const int it = threadIdx.x;             // S / RT_R * groups <= RT_THREADS
+  const int tj = it / RT_LANE_TS % groups;
+  const int ts = it % RT_LANE_TS + RT_LANE_TS * (it / RT_LANE_TS / groups);
+  const bool mine = it < S / RT_R * groups && ts * RT_R < valid;
+  float acc[RT_R][RT_C];
+#pragma unroll
+  for (int r = 0; r < RT_R; ++r)
+#pragma unroll
+    for (int c = 0; c < RT_C; ++c) acc[r][c] = 0.0f;
+  if (mine) {
+    const float* a = act + ts * RT_R;
+    const float* w = W + tj * RT_C;
+#pragma unroll 8
+    for (int k = 0; k < K; ++k) {
+      float xv[RT_R], wv[RT_C];
+#pragma unroll
+      for (int q = 0; q < RT_R; q += 4)
+        *reinterpret_cast<float4*>(xv + q) =
+            *reinterpret_cast<const float4*>(a + k * S + q);
+#pragma unroll
+      for (int q = 0; q < RT_C; q += 4)
+        *reinterpret_cast<float4*>(wv + q) =
+            *reinterpret_cast<const float4*>(w + k * N + q);
+#pragma unroll
+      for (int r = 0; r < RT_R; ++r)
+#pragma unroll
+        for (int c = 0; c < RT_C; ++c)
+          acc[r][c] = fmaf(xv[r], wv[c], acc[r][c]);
+    }
+  }
+  __syncthreads();                        // every read of the input done
+  if (!mine) return;
+#pragma unroll
+  for (int c = 0; c < RT_C; ++c) {
+    const bool live = tj * RT_C + c < n_out;
+#pragma unroll
+    for (int q = 0; q < RT_R; q += 4)
+      *reinterpret_cast<float4*>(act + (tj * RT_C + c) * S + ts * RT_R + q) =
+          make_float4(live ? relu(acc[q][c]) : 0.0f,
+                      live ? relu(acc[q + 1][c]) : 0.0f,
+                      live ? relu(acc[q + 2][c]) : 0.0f,
+                      live ? relu(acc[q + 3][c]) : 0.0f);
+  }
+}
+
+// The last layer on a tile of S samples: a thread a sample and RT_LAST_C
+// columns, only those that are stored; rows = the tile's samples.
+template <int S>
+__device__ __forceinline__ void rt_last(const float* __restrict__ W, int K,
+                                        int N, int n_store,
+                                        const float* __restrict__ in,
+                                        float* __restrict__ out, int rows) {
+  for (int it = threadIdx.x; it < S * (N / RT_LAST_C); it += RT_THREADS) {
+    const int s = it % S, j0 = it / S * RT_LAST_C;
+    if (s >= rows) continue;
+    float acc[RT_LAST_C];
+#pragma unroll
+    for (int c = 0; c < RT_LAST_C; ++c) acc[c] = 0.0f;
+#pragma unroll 4
+    for (int k = 0; k < K; ++k) {
+      const float x = in[k * S + s];
+      const float2 w2 = *reinterpret_cast<const float2*>(W + k * N + j0);
+      acc[0] = fmaf(x, w2.x, acc[0]);
+      acc[1] = fmaf(x, w2.y, acc[1]);
+    }
+#pragma unroll
+    for (int c = 0; c < RT_LAST_C; ++c)
+      if (j0 + c < n_store) out[(long long)s * n_store + j0 + c] = acc[c];
+  }
+}
+
+// The rgb head's inputs of the `valid` samples from s0 into the staging
+// area by cp.async (one commit group): features at a row stride of
+// n_feat + 1 floats (the row build's reads a thread a row then fall in
+// distinct banks), then the directions, 3 a sample.
+__device__ __forceinline__ void rt_stage(const MlpParams& P,
+                                         const float* __restrict__ feat,
+                                         const float* __restrict__ dirs,
+                                         long long s0, int valid,
+                                         float* stage, float* stage_d) {
+  const int nf = P.n_feat;
+  const float* f = feat + s0 * nf;
+  for (int e = threadIdx.x; e < valid * nf; e += RT_THREADS) {
+    const int s = e / nf;
+    cp_async4(stage + s * (nf + 1) + (e - s * nf), f + e);
+  }
+  for (int e = threadIdx.x; e < valid * 3; e += RT_THREADS)
+    cp_async4(stage_d + e, dirs + s0 * 3 + e);
+  cp_async_commit();
+}
+
+// The register-tiled f32 body, bit for bit mlp_rows: persistent blocks,
+// each an even share of the samples in tiles of S = rt_samples(HID).
+// The block's weights go once into shared memory by cp.async, k-major and
+// zero-padded (rt_cols); then one activation buffer of pad16 rows x S,
+// k-major with the samples contiguous. A tile's input rows go into it (a
+// thread a sample; the rgb head's from a staging area that cp.async
+// fills with the next tile's inputs while this tile computes); each
+// hidden layer overwrites it with its outputs (rt_hidden, two barriers a
+// layer: one buffer, where two would leave room for fewer blocks an SM);
+// the last layer writes the stored columns to `out` (rt_last). Layer l's
+// K, columns and weight offset are counted up as l runs (a struct
+// indexed by l would go to local memory).
+template <int KIND, int HID>
+__device__ __forceinline__ void mlp_tiles(
+    const MlpParams& P, long long n, const void* __restrict__ x,
     const float* __restrict__ dirs, const float* __restrict__ extra,
     float* __restrict__ out) {
-  mlp_rows<HID, 1>(P, n, x, dirs, extra, out);
+  constexpr int S = rt_samples(HID);
+  extern __shared__ float4 smem4[];
+  float* s_w = reinterpret_cast<float*>(smem4);
+  int off = 0, rows = 0;
+  for (int l = 0; l < P.n_layers; ++l) {
+    const int n_in = P.width[l], n_out = P.width[l + 1];
+    const int K = pad16(n_in), N = rt_cols(P, l);
+    const float* W = P.w[l];
+    for (int e = threadIdx.x; e < K * N; e += RT_THREADS) {
+      const int k = e / N, j = e - k * N;
+      if (k < n_in && j < n_out)
+        cp_async4(s_w + off + e, W + (long long)j * n_in + k);
+      else
+        s_w[off + e] = 0.0f;
+    }
+    off += K * N;
+    rows = max(rows, K);
+  }
+  cp_async_commit();      // the weights, in flight with the first inputs
+  float* const act = s_w + off;             // off: a multiple of 16 floats
+  float* const stage = act + rows * S;      // KIND 1: S x (n_feat + 1)
+  float* const stage_d = stage + S * (P.n_feat + 1);   // and S x 3
+  const float* feat = static_cast<const float*>(x);
+  // the block's samples: an even share, in tiles (a short last tile does
+  // its share of the work, so the blocks end together)
+  const long long s_begin = n * blockIdx.x / gridDim.x;
+  const long long s_end = n * (blockIdx.x + 1) / gridDim.x;
+  if (KIND == 1 && s_begin < s_end)
+    rt_stage(P, feat, dirs, s_begin, (int)min((long long)S, s_end - s_begin),
+             stage, stage_d);
+  for (long long s0 = s_begin; s0 < s_end; s0 += S) {
+    const int valid = (int)min((long long)S, s_end - s0);
+    cp_async_wait<0>();
+    __syncthreads();      // the staged inputs (the first tile: the weights)
+    for (int t = threadIdx.x; t < S; t += RT_THREADS) {
+      float* a = act + t;
+      if (t >= valid)
+        for (int i = 0; i < pad16(P.width[0]); ++i) a[i * S] = 0.0f;
+      else if (KIND == 1)
+        rgb_row(P, s0 + t, stage + t * (P.n_feat + 1), stage_d[3 * t],
+                stage_d[3 * t + 1], stage_d[3 * t + 2], extra, a, S);
+      else
+        input_row<KIND>(P, s0 + t, x, dirs, extra, a, S);
+    }
+    __syncthreads();
+    if (KIND == 1 && s0 + S < s_end)
+      rt_stage(P, feat, dirs, s0 + S, (int)min((long long)S, s_end - s0 - S),
+               stage, stage_d);
+    int w_off = 0;
+    for (int l = 0; l < P.n_layers; ++l) {
+      const int K = pad16(P.width[l]), N = rt_cols(P, l);
+      if (l + 1 < P.n_layers)
+        rt_hidden<S>(s_w + w_off, K, N, P.width[l + 1], valid, act);
+      else
+        rt_last<S>(s_w + w_off, K, N, P.n_store, act, out + s0 * P.n_store,
+                   valid);
+      w_off += K * N;
+      __syncthreads();
+    }
+  }
+}
+
+// HID: 64 or 128, the widest layer: the tile (rt_samples) and the
+// registers a thread may take (RT_BLOCKS_PER_SM blocks an SM at 64, one
+// at 128, where the weights and activations take most of shared memory).
+template <int HID>
+__global__ void __launch_bounds__(RT_THREADS, HID <= 64 ? RT_BLOCKS_PER_SM : 1)
+    rgb_head_kernel(MlpParams P, long long n, const float* __restrict__ feat,
+                    const float* __restrict__ dirs,
+                    const float* __restrict__ extra, float* __restrict__ out) {
+  mlp_tiles<1, HID>(P, n, feat, dirs, extra, out);
 }
 
 // ---------------------------------------------------------------------------
@@ -701,24 +965,6 @@ __device__ __forceinline__ void store_block(const float* d, float* out,
       }
     }
   }
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem) : "memory");
-}
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(gmem) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // bytes (even) from src to dst (16-byte aligned) as the block's cp.async
@@ -1086,38 +1332,45 @@ int launch_encode(const EncodeParams& P, long long n, const float* table,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int HID, int KIND>
-int launch_mlp(const MlpParams& P, long long n, const void* x,
-               const float* dirs, const float* extra, float* out,
+template <int HID>
+int launch_mlp(const MlpParams& P, long long n, const void* x, float* out,
                cudaStream_t s) {
-  auto kernel = KIND == 0 ? mlp_kernel<HID> : rgb_head_kernel<HID>;
   const size_t smem =
       sizeof(float) * ((size_t)P.w_total + (size_t)P.act_rows * MLP_THREADS);
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      mlp_kernel<HID>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mlp_kernel<HID>,
                                                       MLP_THREADS, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   long long blocks = (n + MLP_THREADS - 1) / MLP_THREADS;
   const long long cap = (long long)per_sm * sm_count();
   if (blocks > cap) blocks = cap;
-  kernel<<<(int)blocks, MLP_THREADS, smem, s>>>(P, n, x, dirs, extra, out);
+  mlp_kernel<HID><<<(int)blocks, MLP_THREADS, smem, s>>>(P, n, x, out);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int KIND>
-int launch_mlp_width(const MlpParams& P, long long n, const void* x,
-                     const float* dirs, const float* extra, float* out,
-                     cudaStream_t s) {
+// The register-tiled launch's shared memory in bytes at hidden width
+// HID: the weights (each layer's pad16 K x rt_cols), the activations (the
+// widest K x rt_samples), the rgb head's staging (rt_samples x (n_feat +
+// 4)).
+int rt_smem(const MlpParams& P, int hid) {
+  int w = 0, rows = 0;
+  for (int l = 0; l < P.n_layers; ++l) {
+    w += pad16(P.width[l]) * rt_cols(P, l);
+    if (pad16(P.width[l]) > rows) rows = pad16(P.width[l]);
+  }
+  return (int)sizeof(float) * (w + (rows + P.n_feat + 4) * rt_samples(hid));
+}
+
+// The f32 instance for P's widest layer (or stored width): 64 or 128.
+int f32_width(const MlpParams& P) {
   int widest = P.n_store;
   for (int l = 1; l <= P.n_layers; ++l)
     if (P.width[l] > widest) widest = P.width[l];
-  if (widest <= 64) return launch_mlp<64, KIND>(P, n, x, dirs, extra, out, s);
-  if (widest <= 128) return launch_mlp<128, KIND>(P, n, x, dirs, extra, out, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return widest <= 64 ? 64 : widest <= 128 ? 128 : 0;
 }
 
 // The tensor-core launch's shared-memory plan for hidden width HID; the
@@ -1159,12 +1412,13 @@ TcPlan tc_plan(const MlpParams& P, int hid, int kind) {
   return Q;
 }
 
-// Persistent blocks of `threads` over n rows in 64-row tiles: at most
-// max_per_sm a multiprocessor (fewer where shared memory or registers
-// allow fewer), no more blocks than tiles.
+// Persistent blocks of `threads` over n rows in tiles of tile_rows: at
+// most max_per_sm a multiprocessor (fewer where shared memory or
+// registers allow fewer), no more blocks than tiles.
 template <typename... Params, typename... Args>
 int launch_tiles(void (*kernel)(Params...), int threads, int smem,
-                 int max_per_sm, long long n, cudaStream_t s, Args... args) {
+                 int max_per_sm, long long n, int tile_rows, cudaStream_t s,
+                 Args... args) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1174,11 +1428,20 @@ int launch_tiles(void (*kernel)(Params...), int threads, int smem,
   if (err != cudaSuccess) return static_cast<int>(err);
   if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   if (per_sm > max_per_sm) per_sm = max_per_sm;
-  long long blocks = (n + TC_ROWS - 1) / TC_ROWS;
+  long long blocks = (n + tile_rows - 1) / tile_rows;
   const long long cap = (long long)per_sm * sm_count();
   if (blocks > cap) blocks = cap;
   kernel<<<(int)blocks, threads, smem, s>>>(args...);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int HID>
+int launch_rgb_head(const MlpParams& P, long long n, const float* feat,
+                    const float* dirs, const float* extra, float* out,
+                    cudaStream_t s) {
+  return launch_tiles(rgb_head_kernel<HID>, RT_THREADS, rt_smem(P, HID),
+                      RT_BLOCKS_PER_SM, n, rt_samples(HID), s, P, n, feat,
+                      dirs, extra, out);
 }
 
 template <int HID, int KIND>
@@ -1188,9 +1451,9 @@ int launch_tc(const MlpParams& P, long long n, const void* x,
   const TcPlan Q = tc_plan(P, HID, KIND);
   if (KIND == 0)
     return launch_tiles(mlp_kernel_bf16<HID>, TC_THREADS, Q.smem,
-                        TC_BLOCKS_PER_SM, n, s, P, Q, n, x, out);
+                        TC_BLOCKS_PER_SM, n, TC_ROWS, s, P, Q, n, x, out);
   return launch_tiles(rgb_head_kernel_bf16<HID>, TC_THREADS, Q.smem,
-                      TC_BLOCKS_PER_SM, n, s, P, Q, n,
+                      TC_BLOCKS_PER_SM, n, TC_ROWS, s, P, Q, n,
                       static_cast<const float*>(x), dirs, extra, out);
 }
 
@@ -1220,8 +1483,8 @@ int launch_encode_mlp(const EncodeParams& E, const MlpParams& P, long long n,
                       cudaStream_t s) {
   const TcPlan Q = tc_plan(P, HID, 2);
   return launch_tiles(encode_mlp_kernel<HID, F>, TC_THREADS, Q.smem,
-                      ENCODE_MLP_BLOCKS_PER_SM, n, s, E, P, Q, n, table, pos,
-                      out);
+                      ENCODE_MLP_BLOCKS_PER_SM, n, TC_ROWS, s, E, P, Q, n,
+                      table, pos, out);
 }
 
 template <int F>
@@ -1286,7 +1549,11 @@ extern "C" int nmr_mlp(const MlpParams* p, long long n, const void* x,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (P.round_bf16)
     return launch_tc_width<0>(P, n, x, nullptr, nullptr, out, s);
-  return launch_mlp_width<0>(P, n, x, nullptr, nullptr, out, s);
+  switch (f32_width(P)) {
+    case 64: return launch_mlp<64>(P, n, x, out, s);
+    case 128: return launch_mlp<128>(P, n, x, out, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 extern "C" int nmr_rgb_head(const MlpParams* p, long long n,
@@ -1299,7 +1566,11 @@ extern "C" int nmr_rgb_head(const MlpParams* p, long long n,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (P.round_bf16)
     return launch_tc_width<1>(P, n, feat, dirs, extra, out, s);
-  return launch_mlp_width<1>(P, n, feat, dirs, extra, out, s);
+  switch (f32_width(P)) {
+    case 64: return launch_rgb_head<64>(P, n, feat, dirs, extra, out, s);
+    case 128: return launch_rgb_head<128>(P, n, feat, dirs, extra, out, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // The encode of `pos` over `table` (E) through the density MLP (P, bf16

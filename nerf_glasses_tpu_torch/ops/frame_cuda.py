@@ -133,7 +133,7 @@ class ShadeParams(ctypes.Structure):
                 ("inv_ff", ctypes.c_float), ("out_w", ctypes.c_int),
                 ("out_h", ctypes.c_int), ("factor", ctypes.c_int),
                 ("ntx", ctypes.c_int), ("n_inst", ctypes.c_int),
-                ("n_mat", ctypes.c_int),
+                ("n_mat", ctypes.c_int), ("n_tiles", ctypes.c_int),
                 ("nrm", ctypes.c_float * (MAX_INSTANCES * 9))]
 
 
@@ -679,8 +679,9 @@ def surface_shade(mesh, plan, hits, nrm_mats, light_pos, camera, width: int,
     hit). plan: mesh_plan's dict for this (width, height); hits: the tiled
     ray-cast's (t, id, u, v) on its rays; nrm_mats (I, 3, 3), light_pos
     (3,) and camera (3, 4) host arrays; factor divides the 128x64 tile.
-    On a CUDA tensor one launch of nmr_surface_shade: a thread a NeRF
-    pixel, its tile skipped where the tile has no candidate."""
+    On a CUDA tensor one launch of nmr_surface_shade: the busy tiles (a
+    count above 0) a thread a supersampled ray, a pixel's rays summed in
+    a thread-per-pixel loop's order; the other pixels zeros."""
     dev = mesh.v0.device
     kernel = _route("surface_shade", mesh.v0)
     if factor <= 0 or TILE_W % factor or TILE_H % factor:
@@ -689,6 +690,9 @@ def surface_shade(mesh, plan, hits, nrm_mats, light_pos, camera, width: int,
     wp, hp, ntx, nty = _tile_grid(width, height)
     n_tiles = ntx * nty
     n_rays = n_tiles * TILE_W * TILE_H
+    if (width // factor) * (height // factor) >= 2 ** 31:
+        raise ValueError(f"surface_shade: {width}x{height} / {factor} is "
+                         "2^31 pixels or more")
     t, tri, u, v = (_arg(f"surface_shade: hits[{k}]", x, dt, (n_rays,), dev)
                     for k, (x, dt) in enumerate(zip(hits, (
                         torch.float32, torch.int32, torch.float32,
@@ -722,7 +726,7 @@ def surface_shade(mesh, plan, hits, nrm_mats, light_pos, camera, width: int,
     depth = torch.empty((out_h, out_w), **f32)
     params = ShadeParams(inv_ff=np.float32(1.0 / float(factor * factor)),
                          out_w=out_w, out_h=out_h, factor=factor, ntx=ntx,
-                         n_inst=nrm.shape[0], n_mat=m)
+                         n_inst=nrm.shape[0], n_mat=m, n_tiles=n_tiles)
     params.eye[:] = cam[:, 3].tolist()
     params.light[:] = light.tolist()
     nrm_dev = None

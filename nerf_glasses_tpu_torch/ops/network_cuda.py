@@ -571,10 +571,12 @@ def mlp_work(x, weights):
 
 
 def rgb_head_work(feat, dir01, weights, extra=None):
-    """-> (flops, bytes): the rgb MLP's multiply-adds (2 each) and ~60 SH
-    flops a sample; feat, dir01, the codes, the weights read once and the
-    (N, 3) f32 output written once."""
-    macs = sum(w.shape[0] * w.shape[1] for w in weights)
+    """-> (flops, bytes): the rgb MLP's multiply-adds (2 each) that reach
+    the output, the last layer's 3 stored columns of its 16, and ~60 SH
+    flops a sample; feat, dir01, the codes, those weights read once and
+    the (N, 3) f32 output written once."""
+    macs = (sum(w.shape[0] * w.shape[1] for w in weights[:-1])
+            + 3 * weights[-1].shape[1])
     n = feat.shape[0]
     codes = 0 if extra is None else extra.numel() * 4
     return (n * (2 * macs + 60),

@@ -229,6 +229,80 @@ def _layers_model(a, weights, n_store):
             return acc[:, :n_store]
 
 
+RT_R, RT_C, RT_LAST_C, RT_LANE_TS = 4, 16, 2, 8
+
+
+def _tiled_layers_model(a, weights, n_store, grid=3, samples=256):
+    """rgb_head_kernel's register-tiled f32 body (mlp_tiles) on the rows
+    `a` (N, width[0]): `grid` blocks, each an even share of the samples in
+    tiles of `samples` (256 at hidden width 64, 128 at 128; a short
+    tile's missing rows zero), activations k-major and zero-padded to
+    pad16; a hidden layer's items, RT_R samples x RT_C columns of
+    pad16(outputs), dealt to the threads as the kernel deals them (a warp:
+    RT_LANE_TS sample groups x 32 / RT_LANE_TS column groups); the last
+    layer a sample and RT_LAST_C columns a thread, the stored ones rounded
+    up. Each output an fmaf chain over k from 0. Checks that every
+    (sample, column) of a layer is computed by exactly one thread and
+    every stored output written once -> the (N, n_store) output."""
+    n = a.shape[0]
+    pad = [-(-w.shape[1] // 16) * 16 for w in weights]
+    out = np.full((n, n_store), np.nan, F32)
+    writes = np.zeros((n, n_store), np.int64)
+    tiles = [(s0, min(samples, n * (b + 1) // grid - s0))
+             for b in range(grid)
+             for s0 in range(n * b // grid, n * (b + 1) // grid, samples)]
+    for s0, rows in tiles:
+        act = np.zeros((pad[0], samples), F32)
+        act[:a.shape[1], :rows] = a[s0:s0 + rows].T
+        for k, w in enumerate(weights):
+            n_out, n_in = w.shape
+            last = k + 1 == len(weights)
+            cols = (-(-n_store // RT_LAST_C) * RT_LAST_C if last
+                    else -(-n_out // 16) * 16)
+            wk = np.zeros((pad[k], cols), F32)        # k-major, zero-padded
+            m = min(n_out, cols)
+            wk[:n_in, :m] = w[:m].T
+            if last:
+                it = np.arange(samples * (cols // RT_LAST_C))
+                samp = (it % samples)[:, None]
+                col = (it // samples * RT_LAST_C)[:, None] + np.arange(
+                    RT_LAST_C)[None]
+            else:
+                groups = cols // RT_C
+                it = np.arange(samples // RT_R * groups)
+                tj = it // RT_LANE_TS % groups
+                ts = it % RT_LANE_TS + RT_LANE_TS * (it // RT_LANE_TS // groups)
+                samp = ts[:, None] * RT_R + np.arange(RT_R)[None]
+                col = tj[:, None] * RT_C + np.arange(RT_C)[None]
+                # a warp's threads: RT_LANE_TS sample groups x the rest
+                # column groups, each (sample group, column group) once
+                for w0 in range(0, it.size, 32):
+                    assert len(set(ts[w0:w0 + 32])) * len(
+                        set(tj[w0:w0 + 32])) == min(32, it.size - w0)
+            # each (sample, column) computed once
+            cover = np.zeros((samples, cols), np.int64)
+            np.add.at(cover, (samp[:, :, None], col[:, None, :]), 1)
+            assert np.all(cover == 1)
+            acc = np.zeros((it.size, samp.shape[1], col.shape[1]), F32)
+            for kk in range(pad[k]):
+                acc = _fma32(act[kk][samp][:, :, None],
+                             wk[kk][col][:, None, :], acc)
+            if last:
+                keep = (samp[:, :, None] < rows) & (col[:, None, :] < n_store)
+                si = np.broadcast_to(samp[:, :, None], acc.shape)[keep]
+                ci = np.broadcast_to(col[:, None, :], acc.shape)[keep]
+                out[s0 + si, ci] = acc[keep]
+                np.add.at(writes, (s0 + si, ci), 1)
+            else:
+                nxt = np.zeros((cols, samples), F32)
+                val = np.where(np.isnan(acc) | (acc > 0), acc, F32(0.0))
+                val = np.where(col[:, None, :] < n_out, val, F32(0.0))
+                nxt[col[:, None, :], samp[:, :, None]] = val
+                act = nxt
+    assert np.all(writes == 1)
+    return out
+
+
 def _tc_layers_model(a, weights, n_store):
     """mlp_kernel_bf16's / rgb_head_kernel_bf16's layer chain on the rows
     `a` (N, width[0]), already rounded to bf16: bf16 weights, each
@@ -298,9 +372,8 @@ def _sh_model(d, degree):
     return sh
 
 
-def _rgb_head_model(feat, dirs, weights, jc, bf16, extra=None):
-    """nmr_rgb_head: the row [feat, SH(dir), codes, zeros], then as
-    _mlp_model (at bf16 rounded, the tensor-core chain), columns 0-2."""
+def _rgb_row(feat, dirs, jc, extra=None):
+    """The rgb head's input row [feat, SH(dir), codes, zeros]."""
     n = feat.shape[0]
     row = np.zeros((n, jc.rgb_in_width), F32)
     nf = feat.shape[1]
@@ -309,9 +382,17 @@ def _rgb_head_model(feat, dirs, weights, jc, bf16, extra=None):
     if extra is not None:
         row[:, nf + 16:nf + 16 + extra.shape[-1]] = np.broadcast_to(
             extra, (n, extra.shape[-1]))
+    return row
+
+
+def _rgb_head_model(feat, dirs, weights, jc, bf16, extra=None):
+    """nmr_rgb_head: the row [feat, SH(dir), codes, zeros], then as
+    _mlp_model (at bf16 rounded, the tensor-core chain; at f32 the
+    register-tiled body, bit for bit the f32 chain), columns 0-2."""
+    row = _rgb_row(feat, dirs, jc, extra)
     if bf16:
         return _tc_layers_model(_bf16(row), weights, 3)
-    return _layers_model(row, weights, 3)
+    return _tiled_layers_model(row, weights, 3)
 
 
 def _encode_mlp_model(table, pos, jc, weights, bf16_encode):
@@ -497,6 +578,46 @@ def test_rgb_head_model_edge_counts(n):
     assert plain.shape == (n, 3)
     _assert_contract("rgb", _rgb_head_model(feat, dirs, weights, jc, True,
                                             codes), plain, torch.bfloat16)
+
+
+@pytest.mark.parametrize("n", [1, 300])
+@pytest.mark.parametrize("hid", [64, 128])
+@pytest.mark.parametrize("kind", ["rgb32", "rgb48", "mlp", "odd"])
+def test_tiled_body_is_the_f32_chain_bit_for_bit(kind, hid, n):
+    """The register-tiled f32 body's work map (_tiled_layers_model: which
+    thread computes which sample and column, each once) on a tail of 44
+    samples after a whole tile, or one sample: bit for bit the
+    thread-per-sample body's fmaf chains (_layers_model), and the plain
+    version under the f32 contract. Kinds: the rgb head at E = 0 and 8,
+    a density MLP (all 16 columns stored: mlp_kernel's shape), and hidden
+    widths and a stored width that are not multiples of RT_C or
+    RT_LAST_C."""
+    jc, weights = _tc_case("mlp" if kind == "odd" else kind, hid)
+    x, feat, dirs, codes = _tc_inputs(jc, n, seed=hid + n + 1)
+    if kind == "odd":
+        rng = np.random.default_rng(hid)
+        weights = [rng.standard_normal(sh).astype(F32) * F32(0.3)
+                   for sh in ((hid - 4, 32), (hid - 12, hid - 4),
+                              (5, hid - 12))]
+    if kind.startswith("rgb"):
+        rows = _rgb_row(feat, dirs, jc, codes if kind == "rgb48" else None)
+        n_store = 3
+    else:
+        rows, n_store = x, weights[-1].shape[0]
+    got = _tiled_layers_model(rows, weights, n_store,
+                              samples=256 if hid <= 64 else 128)
+    want = _layers_model(rows, weights, n_store)
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
+    tw = [torch.as_tensor(w) for w in weights]
+    if kind.startswith("rgb"):
+        plain = nc.rgb_head_reference(
+            torch.as_tensor(feat), torch.as_tensor(dirs), tw, _tcfg(jc),
+            torch.float32,
+            torch.as_tensor(codes) if kind == "rgb48" else None)
+        _assert_contract("rgb", got, plain, torch.float32)
+    else:
+        _assert_contract("mlp", got, nc.mlp_reference(
+            torch.as_tensor(x), tw, torch.float32), torch.float32)
 
 
 def _tc_case(kind, hid):
@@ -879,6 +1000,11 @@ def test_work_counts():
     ws = [torch.zeros(s) for s in jc.mlp_shapes()[0]]
     x = torch.zeros((10, 32), dtype=torch.bfloat16)
     assert nc.mlp_work(x, ws) == (2 * 10 * 3072, 10 * 64 + 4 * 3072 + 640)
+    # the rgb head: its last layer's stored columns only (3 of 16)
+    ws = [torch.zeros(s) for s in jc.mlp_shapes()[1]]
+    macs = 32 * 64 + 64 * 64 + 3 * 64
+    assert nc.rgb_head_work(torch.zeros(10, 16), torch.zeros(10, 3), ws) == (
+        10 * (2 * macs + 60), 10 * (64 + 12 + 12) + 4 * macs)
 
 
 # ---------------------------------------------------------------------------
@@ -1143,14 +1269,20 @@ def test_encode_and_mlp_kernels_match_plain_on_card(name, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [4099, 127])
+@pytest.mark.parametrize("hid", [64, 128])
 @pytest.mark.parametrize("extra", ["none", "codes", "rows"])
 @pytest.mark.parametrize("dtype", list(DTYPES))
-def test_rgb_head_kernel_matches_plain_on_card(dtype, extra):
+def test_rgb_head_kernel_matches_plain_on_card(dtype, extra, hid, n):
+    """At both hidden widths, on a sample count that is no whole number of
+    tiles (32 tiles and 3 samples) and on one short tile; at f32 also bit
+    for bit the register-tiled body's model."""
     _needs_card()
     E = 0 if extra == "none" else 8
-    jc, weights = _rgb_case(E=E)
+    jc = JCfg(n_extra_learnable_dims=E, log2_hashmap_size=15,
+              rgb_neurons=hid)
+    weights = _mlp_weights(jc.mlp_shapes()[1], seed=7 + E + hid)
     tc = _tcfg(jc)
-    n = 4099
     rng = np.random.default_rng(16)
     feat = torch.as_tensor(rng.standard_normal((n, 16)).astype(F32),
                            device="cuda")
@@ -1161,10 +1293,16 @@ def test_rgb_head_kernel_matches_plain_on_card(dtype, extra):
         codes = torch.as_tensor(codes.astype(F32), device="cuda")
     tw = [torch.as_tensor(w, device="cuda") for w in weights]
     cd = DTYPES[dtype]
+    got = nc.rgb_head(feat, dirs, tw, tc, cd, codes)
     r = nc.compare_with_plain(
-        "rgb", nc.rgb_head(feat, dirs, tw, tc, cd, codes),
-        nc.rgb_head_reference(feat, dirs, tw, tc, cd, codes), cd)
+        "rgb", got, nc.rgb_head_reference(feat, dirs, tw, tc, cd, codes), cd)
     assert r["ok"], r
+    if cd == torch.float32:
+        model = _rgb_head_model(feat.cpu().numpy(), dirs.cpu().numpy(),
+                                weights, jc, False,
+                                None if codes is None else codes.cpu().numpy())
+        assert np.array_equal(got.cpu().numpy().view(np.int32),
+                              model.view(np.int32))
 
 
 @pytest.mark.cuda

@@ -1,16 +1,20 @@
-"""Where the port's list walk and mesh plan spend their time on the card
-(PERF.md section 6 rows 11-12, section 7): kernel variants built from
-edited copies of the sources, each timed in turns with the others on the
-exact and multi-cascade 720p frames' own first-epoch calls.
+"""Where the port's kernels spend their time on the card (PERF.md section
+6 rows 9 and 11-13, section 7): kernel variants built from edited copies
+of the sources, each timed in turns with the others on the 720p frames'
+own calls. Two splits:
 
     mkdir -p _chipwork/before
     git archive 82e6be5 nerf_glasses_tpu_torch | tar -x -C _chipwork/before
-    python3 tools/port_cost_split.py _chipwork/before > split.log 2>&1
+    python3 tools/port_cost_split.py walk _chipwork/before > split.log 2>&1
 
-DIR holds the package as it was at commit 82e6be5 (its list walk wrote a
-lane's rows itself, its plan wrote every tile's rays). Under _chipwork/split/
-(git-ignored) the script writes copies of DIR's ops/march_cuda.py and
-csrc/march.cu with one edit each:
+    mkdir -p _chipwork/parent
+    git archive 37ce2e7 nerf_glasses_tpu_torch | tar -x -C _chipwork/parent
+    python3 tools/port_cost_split.py shade _chipwork/parent [DIR ...] > shade.log 2>&1
+
+walk: DIR holds the package as it was at commit 82e6be5 (its list walk
+wrote a lane's rows itself, its plan wrote every tile's rays). Under
+_chipwork/split/ (git-ignored) the script writes copies of DIR's
+ops/march_cuda.py and csrc/march.cu with one edit each:
 - nostore: the list walk writes no row (its first rows, slot bits and
   ends only; the found slots' t then go unused, and their local array
   with them);
@@ -25,8 +29,31 @@ Each list walk runs on the frame's list and on an identity list over the
 gathered copy of the same rays (what the scattered reads cost), bit for
 bit this tree's per slot (list_slot_rows) where the variant writes its
 rows, beside the fused walk on the gathered copy; with
-cuobjdump -res-usage and the LDL/STL count of each LIST instance. Device
-time by torch.profiler with L2 flushed (chip_smoke.kernel_device_ms).
+cuobjdump -res-usage and the LDL/STL count of each LIST instance, and the
+mesh plan's variants on the exact and multi-cascade frames.
+
+shade: DIR holds the package as it was at commit 37ce2e7 (a thread a NeRF
+pixel in the surface shade). Copies of DIR's ops/frame_cuda.py and
+csrc/frame.cu with one edit each:
+- zeros: every pixel written as zeros, the busy ones too (no hit read,
+  nothing shaded), as four 4-byte stores and a depth store;
+- zeros16: zeros with the colour as one 16-byte store;
+- shade_only: the busy tiles' pixels alone, shaded; the others unwritten;
+and of this tree's: nofill (the shading alone, the idle tiles' pixels
+unwritten) and noshade (everything but shade_hit: a hit's colour its t);
+each timed in turns with DIR's kernel, those of any further DIRs (other
+forms of the kernel, each a package with ops/frame_cuda.py and
+csrc/frame.cu) and this tree's on the exact frame's own surface shade
+call (each compared with this tree's bit for bit). Then the f32 bodies on
+the f32 frame's first-epoch calls (chip_smoke.py phase 4b): DIR's and
+this tree's rgb head and density MLP, a copy of this tree's
+csrc/network.cu whose rgb head reads its input rows directly
+(rows_direct: no cp.async staging), and the further DIRs' that have
+ops/network_cuda.py, each beside its bound with the launches a frame
+times the time over the bound, and each rgb_head_kernel instance's
+registers, stack and LDL/STL.
+
+Device time by torch.profiler with L2 flushed (chip_smoke.kernel_device_ms).
 Needs one NVIDIA GPU and nvcc.
 """
 import concurrent.futures
@@ -117,6 +144,34 @@ WALK_EDITS = {
                     (BEFORE_T, BEFORE_T + "\n    __shared__ float s_rows[LIST ? "
                      "WALK_THREADS / 32 : 1][LIST ? 8 * 64 : 1];")],
 }
+# 37ce2e7's surface shade: a thread a NeRF pixel
+SHADE_EDITS = {
+    "zeros": [("  if (a.counts[tile] > 0) {\n", "  if (false) {\n")],
+    "zeros16": [("  if (a.counts[tile] > 0) {\n", "  if (false) {\n"),
+                ("#pragma unroll\n  for (int c = 0; c < 4; ++c) "
+                 "a.rgba[4 * i + c] = acc[c];\n",
+                 "  reinterpret_cast<float4*>(a.rgba)[i] =\n"
+                 "      make_float4(acc[0], acc[1], acc[2], acc[3]);\n")],
+    "shade_only": [("  const int tile = ty * P.ntx + tx;\n  float acc[4]",
+                    "  const int tile = ty * P.ntx + tx;\n"
+                    "  if (a.counts[tile] == 0) return;\n  float acc[4]")],
+}
+# this tree's surface shade: its shading alone, its work without the
+# shading
+TREE_SHADE_EDITS = {
+    "nofill": [("    else\n      fill_unit(P, a, s_busy, (unsigned)(u - n_shade)"
+                " * FILL_PIXELS, n_out);\n", "")],
+    "noshade": [("        shade_hit(P, a, nrm_mats, id, a.u[r], a.v[r], t, d, "
+                 "rgb);\n", "        rgb[0] = rgb[1] = rgb[2] = t;\n")],
+}
+# this tree's register-tiled f32 rgb head with its input rows read
+# directly instead of staged by cp.async
+NET_EDITS = {
+    "rows_direct": [
+        ("  if (KIND == 1 && s_begin < s_end)\n", "  if (false)\n"),
+        ("      else if (KIND == 1)\n", "      else if (false)\n"),
+        ("    if (KIND == 1 && s0 + S < s_end)\n", "    if (false)\n")],
+}
 PLAN_EDITS = {"bins_only": [(
     "  if (count == 0) return;              // (the block's total: uniform)",
     "  return;                             // the lists alone: no ray")]}
@@ -174,6 +229,38 @@ def res_usage(module, label):
         if k.startswith("walk_kernel") and k.endswith(", 1>"):
             print(f"{label} {k}: {reg} registers, {stack} stack, {local} "
                   f"local bytes, {ldst} LDL/STL")
+
+
+def rgb_instances(module, label):
+    """Registers, stack bytes and LDL/STL of each f32 rgb_head_kernel
+    instance in `module`'s library (cuobjdump)."""
+    cuobjdump = os.path.join(os.path.dirname(cuda_build.nvcc()), "cuobjdump")
+    lib = module.load_library()._name
+
+    def dump(flag):
+        return subprocess.run([cuobjdump, flag, lib], capture_output=True,
+                              text=True, check=True).stdout.splitlines()
+
+    def name_of(line):
+        k = cs.KERNEL_NAME.search(line)
+        return (cs.instance_name(k) if k and k.group(1) == "rgb_head_kernel"
+                else None)
+
+    out, cur = {}, None
+    for line in dump("-res-usage"):
+        if "Function" in line:
+            cur = name_of(line)
+        elif cur and cs.RES_USAGE.search(line):
+            out[cur] = list(map(int, cs.RES_USAGE.search(line).groups())) + [0]
+    cur = None
+    for line in dump("-sass"):
+        if "Function :" in line:
+            cur = name_of(line)
+        elif cur in out and cs.LOCAL_OP.search(line):
+            out[cur][3] += 1
+    for k, (reg, stack, local, ldst) in sorted(out.items()):
+        print(f"{label} {k}: {reg} registers, {stack} stack, {local} local "
+              f"bytes, {ldst} LDL/STL")
 
 
 def walk_split(calls, label, others):
@@ -256,33 +343,133 @@ def plan_split(renderer, label, others):
               + f"  mean {np.mean(ts):.4f}")
 
 
-def main(tmp, before):
+def shade_split(renderer, label, others):
+    """The surface shade's versions in turns on the frame's own call, this
+    tree's against the plain version and bit for bit each other's."""
+    renderer.update_model_view_proj()
+    args, kw = cs.first_frame_calls(renderer.frame)["surface_shade"]
+    out_k = frame_cuda.surface_shade(*args, **kw)
+    out_p = frame_cuda.surface_shade_reference(*args, **kw)
+    torch.cuda.synchronize()
+    b_ms, b_by, nbytes = cs.frame_bound("surface_shade", args, kw, out_k)
+    print(f"{label} surface_shade vs plain: "
+          f"{frame_cuda.compare_with_plain('surface_shade', out_k, out_p)}; "
+          f"bound {b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.3f} MB)")
+    for v, m in others:
+        res = m.surface_shade(*args, **kw)
+        torch.cuda.synchronize()
+        print(f"{label} {v}: rgba and depth bit for bit this tree's: "
+              f"{cs.same_bits(res, out_k)}")
+    versions = others + [("this tree", frame_cuda)]
+    times = {v: [] for v, _ in versions}
+    for v, m in (versions + versions[::-1]) * 2:
+        times[v].append(cs.frame_kernel_ms(
+            "surface_shade", lambda m=m: m.surface_shade(*args, **kw), REPS,
+            m)[0])
+    print(f"{label} surface_shade device ms in turns (torch.profiler, L2 "
+          f"flushed):")
+    for v, ts in times.items():
+        print(f"  {v:20s} " + ", ".join(f"{x:.4f}" for x in ts)
+              + f"  mean {np.mean(ts):.4f}")
+
+
+def f32_split(renderer, nerf, label, others):
+    """The f32 frame's first-epoch rgb head and density MLP calls: each
+    version's device time beside the bound, and launches x (time - bound)
+    over the frame; the density MLP of the first of `others` (DIR) only."""
+    saved = dict(nerf.march_overrides)
+    nerf.march_overrides = {**saved, "compute_dtype": "float32"}
+    try:
+        renderer.update_model_view_proj()
+        before = dict(network_cuda.launches)
+        calls = cs.first_network_calls(renderer.frame)
+        torch.cuda.synchronize()
+        runs = {k: network_cuda.launches[k] - before[k] for k in before}
+    finally:
+        nerf.march_overrides = saved
+    with torch.no_grad():
+        for name, mine in (("rgb_head", others), ("mlp", others[:1])):
+            args = calls[name]
+            b_ms, b_by = cs.network_bound(name, args)
+            got = getattr(network_cuda, name)(*args)
+            torch.cuda.synchronize()
+            versions = mine + [("this tree", network_cuda)]
+            for v, m in mine:
+                print(f"{label} f32 {name} of {v} bit for bit this tree's: "
+                      f"{cs.same_bits(getattr(m, name)(*args), got)}")
+            times = {v: [] for v, _ in versions}
+            for v, m in versions + versions[::-1]:
+                times[v].append(cs.kernel_device_ms(
+                    name, lambda m=m: getattr(m, name)(*args), REPS))
+            print(f"{label} f32 {name}: {runs[name]} launches a frame, "
+                  f"{args[0].shape[0]} rows on the first; bound {b_ms:.4f} "
+                  f"ms ({b_by}); device ms in turns (torch.profiler, L2 "
+                  f"flushed):")
+            for v, ts in times.items():
+                print(f"  {v:20s} " + ", ".join(f"{x:.4f}" for x in ts)
+                      + f"  mean {np.mean(ts):.4f}; launches x (ms - bound) "
+                      f"{runs[name] * (np.mean(ts) - b_ms):.3f} ms a frame")
+
+
+def setup(tmp):
+    """The card's name and limit printed, the kernels built -> the device
+    and the glasses' path."""
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the split runs on the GPU only")
-    dev = torch.device("cuda")
-    t0 = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        for f in [pool.submit(m.load_library) for m in
+                  (mesh_cuda, march_cuda, network_cuda, frame_cuda)]:
+            f.result()
+    glasses = os.path.join(tmp, "glasses.gltf")
+    cs.write_glasses_gltf(glasses)
+    return torch.device("cuda"), glasses
+
+
+def main_shade(tmp, before, extra=()):
+    t0 = time.perf_counter()
+    dev, glasses = setup(tmp)
+    src = os.path.join(before, "nerf_glasses_tpu_torch")
+    here = os.path.join(ROOT, "nerf_glasses_tpu_torch")
+    dirs = ([before]
+            + [variant(src, name, "frame_cuda", "frame.cu", edits)
+               for name, edits in SHADE_EDITS.items()]
+            + [variant(here, name, "frame_cuda", "frame.cu", edits)
+               for name, edits in TREE_SHADE_EDITS.items()] + list(extra))
+    others = [(os.path.basename(p), m) for p, m in
+              cs.other_checkouts(dirs, "frame_cuda")]
+    net_dirs = [before] + [variant(here, name, "network_cuda", "network.cu",
+                                   edits)
+                           for name, edits in NET_EDITS.items()] + list(extra)
+    net_others = [(os.path.basename(p), m) for p, m in
+                  cs.other_checkouts(net_dirs, "network_cuda")]
+    for label, m in net_others + [("this tree", network_cuda)]:
+        rgb_instances(m, label)
+    renderer, nerf = cs.make_renderer(dev, cs.W, cs.H, glasses)
+    renderer.frame()
+    shade_split(renderer, "exact 720p", others)
+    f32_split(renderer, nerf, "exact 720p", net_others)
+    print(f"[done: {time.perf_counter() - t0:.1f} s]")
+
+
+def main(tmp, before):
+    t0 = time.perf_counter()
+    dev, glasses = setup(tmp)
     src = os.path.join(before, "nerf_glasses_tpu_torch")
     walk_dirs = [before] + [variant(src, name, "march_cuda", "march.cu", edits)
                           for name, edits in WALK_EDITS.items()]
     plan_dirs = [before] + [variant(os.path.join(ROOT, "nerf_glasses_tpu_torch"),
                                   name, "frame_cuda", "frame.cu", edits)
                           for name, edits in PLAN_EDITS.items()]
-    with concurrent.futures.ThreadPoolExecutor(4) as pool:
-        for f in [pool.submit(m.load_library) for m in
-                  (mesh_cuda, march_cuda, network_cuda, frame_cuda)]:
-            f.result()
     walk_others = [(os.path.basename(p), m) for p, m in
                    cs.other_checkouts(walk_dirs, "march_cuda")]
     plan_others = [(os.path.basename(p), m) for p, m in
                    cs.other_checkouts(plan_dirs, "frame_cuda")]
     for label, m in [("this tree", march_cuda)] + walk_others:
         res_usage(m, label)
-    glasses = os.path.join(tmp, "glasses.gltf")
-    cs.write_glasses_gltf(glasses)
     renderer, _ = cs.make_renderer(dev, cs.W, cs.H, glasses)
     renderer.frame()
     plan_split(renderer, "exact 720p", plan_others)
@@ -312,7 +499,12 @@ def main(tmp, before):
 
 
 if __name__ == "__main__":
-    if len(sys.argv) != 2:
+    if len(sys.argv) < 3 or sys.argv[1] not in ("walk", "shade") or (
+            sys.argv[1] == "walk" and len(sys.argv) != 3):
         sys.exit(__doc__)
     with tempfile.TemporaryDirectory() as d:
-        main(d, os.path.abspath(sys.argv[1]))
+        if sys.argv[1] == "walk":
+            main(d, os.path.abspath(sys.argv[2]))
+        else:
+            main_shade(d, os.path.abspath(sys.argv[2]),
+                       [os.path.abspath(x) for x in sys.argv[3:]])
