@@ -33,12 +33,14 @@ procedural glasses glTF written here) + frame(), with the mesh pass at
   1. a CUDA device must be present;
   2. card, power limit, torch/CUDA versions; build the mesh ray-cast,
      march, network and frame kernels from nerf_glasses_tpu_torch/csrc,
-     one nvcc per source, in parallel (timed); every instance of the MLP kernels'
-     and of the fused encode + density MLP's registers, stack and local
-     bytes (`cuobjdump -res-usage` of the loaded library), tensor-core
-     instructions (HGMMA or HMMA) and local loads and stores (LDL, STL)
-     in its SASS (`cuobjdump -sass`): the bf16 and fused instances must
-     hold tensor-core instructions and spill nothing; every march kernel
+     one nvcc per source, in parallel (timed); every instance of the MLP kernels',
+     the fused encode + density MLP's and the standalone encode's
+     registers, stack and local bytes (`cuobjdump -res-usage` of the
+     loaded library), tensor-core instructions (HGMMA or HMMA) and local
+     loads and stores (LDL, STL) in its SASS (`cuobjdump -sass`): the bf16
+     and fused instances must hold tensor-core instructions and spill
+     nothing, the register-tiled f32 ones (mlp_kernel, rgb_head_kernel)
+     spill nothing; every march kernel
      instance's SASS instructions and those of its probe loop (this
      tree's and each DIR's);
   3. the tiled kernel against its plain PyTorch version at the main
@@ -72,6 +74,10 @@ procedural glasses glTF written here) + frame(), with the mesh pass at
      standalone encode's and MLP's first-epoch calls recorded from the
      frame and held and timed as in 5c under the f32 contract (the
      closing line's entries of the two: these launches, these calls);
+     with a DIR, each of the three bit for bit the DIR's and timed in
+     turns with it, the encode at the bf16 output dtype too, and the
+     frame with the DIR's three kernels in this tree's place bit for bit
+     this tree's frame (rgba and depth);
   5. one frame with the plain ray-cast in the kernel's place: >= 50 dB
      PSNR against the kernel's frame at the same sample index;
  5b. the march kernels (csrc/march.cu) on the first epoch of an exact
@@ -954,10 +960,13 @@ def other_checkouts(dirs, module):
         mod = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(mod)
         mod._SOURCE = os.path.join(pkg, "csrc", OTHER_KERNELS[module])
-        mod.load_library()
+        others.append((path, mod))
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:   # nvcc each
+        for build in [pool.submit(m.load_library) for _, m in others]:
+            build.result()
+    for path, mod in others:
         print(f"{module} kernels of {path}: nvcc {mod.build_seconds:.2f} s, "
               f"flags {' '.join(mod.NVCC_FLAGS)}\n{mod.build_log.strip()}")
-        others.append((path, mod))
     return others
 
 
@@ -994,29 +1003,32 @@ def mesh_in_turns(others, fn_name, check_args, plain, time_args, reps):
 
 
 KERNEL_NAME = re.compile(
-    r"\d+((?:mlp|rgb_head|encode_mlp)_kernel(?:_bf16)?)ILi(\d+)E(?:Li(\d+)E)?")
+    r"\d+((?:mlp|rgb_head|encode_mlp|hash_encode)_kernel(?:_bf16)?)ILi(\d+)E"
+    r"(?:L[ib](\d+)E)?")
 RES_USAGE = re.compile(r"REG:(\d+) STACK:(\d+) SHARED:\d+ LOCAL:(\d+)")
 TENSOR_CORE_OP = re.compile(r"\b(HGMMA|HMMA)\.")
 LOCAL_OP = re.compile(r"\b(LDL|STL)\b")
 
 
 def instance_name(match):
-    """A KERNEL_NAME match -> "kernel<HID>" or "kernel<HID, F>"."""
+    """A KERNEL_NAME match -> "kernel<HID>", "kernel<HID, F>" or
+    "hash_encode_kernel<F, BF16>"."""
     args = [a for a in match.group(2, 3) if a]
     return f"{match.group(1)}<{', '.join(args)}>"
 
 
 def mlp_kernel_report(module):
-    """Every instance of mlp_kernel (the f32 thread-per-sample body) and
-    rgb_head_kernel (the f32 register-tiled body), of mlp_kernel_bf16 and
-    rgb_head_kernel_bf16 (the tensor-core body) and of encode_mlp_kernel
-    (the fused encode + tensor-core body, one instance a hidden width and
-    feature count) in the library `module` loaded, read from it in this
-    run with cuobjdump: registers, stack and local bytes (-res-usage), the
-    tensor-core instructions (HGMMA, HMMA) and the local-memory loads and
-    stores (LDL, STL: spills) in the SASS (-sass) -> {instance: numbers}.
-    Raises where a tensor-core instance spills or holds no tensor-core
-    instruction, or a register-tiled instance spills."""
+    """Every instance of mlp_kernel and rgb_head_kernel (the f32
+    register-tiled body), of mlp_kernel_bf16 and rgb_head_kernel_bf16 (the
+    tensor-core body), of encode_mlp_kernel (the fused encode +
+    tensor-core body, one instance a hidden width and feature count) and
+    of hash_encode_kernel (one a feature count and output dtype) in the
+    library `module` loaded, read from it in this run with cuobjdump:
+    registers, stack and local bytes (-res-usage), the tensor-core
+    instructions (HGMMA, HMMA) and the local-memory loads and stores (LDL,
+    STL: spills) in the SASS (-sass) -> {instance: numbers}. Raises where
+    a tensor-core instance spills or holds no tensor-core instruction, or
+    a register-tiled instance spills."""
     cuobjdump = os.path.join(os.path.dirname(cuda_build.nvcc()), "cuobjdump")
     lib = module.load_library()._name
 
@@ -1060,11 +1072,12 @@ def mlp_kernel_report(module):
                              f"fused) must hold tensor-core instructions and "
                              f"spill nothing: {bf16}")
     tiled = {k: r for k, r in out.items()
-             if k.startswith("rgb_head_kernel<")}
-    if len(tiled) != 2 or any(r["stack_bytes"] or r["local_bytes"]
+             if k.startswith(("rgb_head_kernel<", "mlp_kernel<"))}
+    if len(tiled) != 4 or any(r["stack_bytes"] or r["local_bytes"]
                               or r["local_ops"] for r in tiled.values()):
-        raise AssertionError(f"the register-tiled f32 instances (HID 64 and "
-                             f"128) must spill nothing: {tiled}")
+        raise AssertionError(f"the register-tiled f32 instances (mlp_kernel "
+                             f"and rgb_head_kernel at HID 64 and 128) must "
+                             f"spill nothing: {tiled}")
     return out
 
 
@@ -2723,8 +2736,10 @@ PAIR = ("hash_encode", "mlp")
 # what the f32 frame launches (phase 4b)
 F32_NETWORK = PAIR + ("rgb_head",)
 # a redesigned body that must give another checkout's rows bit for bit:
-# wrapper -> the compute dtype of that body
-BIT_FOR_BIT_NETWORK = {"rgb_head": torch.float32}
+# wrapper -> the dtype that its recorded calls name (the compute dtype of
+# the MLPs' body, the encode's output dtype)
+BIT_FOR_BIT_NETWORK = {"rgb_head": torch.float32, "mlp": torch.float32,
+                       "hash_encode": torch.float32}
 PSNR_PLAIN_NETWORK_DB = 50.0
 EXACT_FRAME_MAX_OPS = 3000      # the exact 720p frame with the network kernels
 # dense bf16 tensor-core peak of the H100 SXM (data sheet, 700 W): the
@@ -2918,6 +2933,72 @@ def hold_network_calls(calls, label, reps=20, others=()):
     return out
 
 
+def bf16_encode_in_turns(args, others, label, reps=20):
+    """The recorded f32 encode call (phase 4b) with the bf16 output dtype:
+    each other checkout's encode bit for bit this tree's (raises
+    otherwise), then every version timed in turns by device time ->
+    {"ms": this tree's mean, "in_turns", "bit_for_bit_others"}."""
+    table, pos, cfg, _ = args
+    b_args = (table, pos, cfg, torch.bfloat16)
+    with torch.no_grad():
+        mine = network_cuda.hash_encode(*b_args)
+        torch.cuda.synchronize()
+        same = {}
+
+        def check(what, res):
+            same[what] = same_bits(res, mine)
+            print(f"{label} bf16 {what}: bit for bit this tree's: "
+                  f"{same[what]}")
+            if not same[what]:
+                raise AssertionError(f"{label}: bf16 {what} is not bit for "
+                                     f"bit this tree's nmr_hash_encode")
+        have = [(d, m) for d, m in others if hasattr(m, "hash_encode")]
+        times = in_turns(have, network_cuda, "hash_encode", check, b_args,
+                         lambda fn: kernel_device_ms("hash_encode", fn, reps))
+    return {"ms": float(np.mean(times["this tree"])), "in_turns": times,
+            "bit_for_bit_others": same}
+
+
+def f32_frame_vs_others(renderer, nerf, others, label):
+    """The frame at the f32 compute dtype from sample 0 with this tree's
+    network kernels, then with each other checkout's in their place (its
+    hash_encode, mlp and rgb_head wrappers in network_cuda's; the rest of
+    the frame this tree's): rgba and depth bit for bit, or this raises ->
+    {DIR: True}."""
+    have = [(d, m) for d, m in others
+            if all(hasattr(m, k) for k in F32_NETWORK)]
+    saved = dict(nerf.march_overrides)
+    nerf.march_overrides = {**saved, "compute_dtype": "float32"}
+
+    def frame():
+        renderer.update_model_view_proj()
+        renderer.frame()
+        torch.cuda.synchronize()
+        return (renderer._frame_buffer.clone(),
+                renderer._depth_buffer.clone())
+
+    out = {}
+    try:
+        mine = frame()
+        for d, m in have:
+            wrappers = {k: getattr(network_cuda, k) for k in F32_NETWORK}
+            for k in F32_NETWORK:
+                setattr(network_cuda, k, getattr(m, k))
+            try:
+                theirs = frame()
+            finally:
+                restore_wrappers(network_cuda, wrappers)
+            out[d] = same_bits(mine, theirs)
+            print(f"{label} frame with the network kernels of {d}: rgba and "
+                  f"depth bit for bit this tree's: {out[d]}")
+    finally:
+        nerf.march_overrides = saved
+    if not all(out.values()):
+        raise AssertionError(f"{label}: the frame is not bit for bit the "
+                             f"other checkouts' {out}")
+    return out
+
+
 def fused_vs_pair(args, got, label, reps):
     """The fused call's output `got` against this tree's hash_encode
     followed by mlp on the same inputs, bit for bit (raises otherwise);
@@ -3074,6 +3155,7 @@ def network_entries(net, net_f32, launches, f32_launches, mc, ref, train,
             "rows": r["rows"], "dtype": r["dtype"],
             "mismatched_rows": r["cmp"]["mismatched_rows"],
             "in_turns": r.get("in_turns"),
+            "bit_for_bit_others": r.get("bit_for_bit_others"),
             "instances": {k: v for k, v in build.items()
                           if k.startswith(f"{name}_kernel")
                           and (name == "encode_mlp"
@@ -3097,6 +3179,11 @@ def network_entries(net, net_f32, launches, f32_launches, mc, ref, train,
             entry["multicascade_pair_ms"] = mc["kernels"][name]["pair_ms"]
         if name in ("mlp", "rgb_head"):
             entry["library_chain_ms"] = r["library_chain_ms"]
+        if name == "hash_encode" and "bf16" in r:
+            entry["bf16_output"] = r["bf16"]
+        if pair and "frame_bit_for_bit_others" in net_f32:
+            entry["f32_frame_bit_for_bit_others"] = (
+                net_f32["frame_bit_for_bit_others"])
         if name == "rgb_head":
             entry["reference_config_library_chain_ms"] = (
                 ref["kernels"][name]["library_chain_ms"])
@@ -5035,6 +5122,11 @@ def main(tmp, dirs, multicascade_only=False):
     # as in 5c
     net_f32 = hold_network_calls({k: f32_calls[k] for k in F32_NETWORK},
                                  "exact 720p f32", others=net_others)
+    if net_others:
+        net_f32["hash_encode"]["bf16"] = bf16_encode_in_turns(
+            f32_calls["hash_encode"], net_others, "exact 720p f32")
+        net_f32["frame_bit_for_bit_others"] = f32_frame_vs_others(
+            renderer, nerf, net_others, "exact 720p f32")
     del f32_calls
     lap("4b")
 

@@ -13,11 +13,21 @@
 //       -> :105 hash_encode_soa -> :59 corner_indices_and_weights.
 //       Bound: bytes. Each (sample, level) gathers 8 table rows of F
 //       floats from a 4 MiB (native_fast) or 64 MiB (16 x 2^19 x 2) table
-//       at hashed, scattered rows, for ~30 + 16F flops. Design: one
-//       thread per (sample, level), the level's constants in shared
-//       memory, rows loaded as one float2 / float4, the 8 corners summed
-//       in registers: the (N, 8, F) intermediate the plain version writes
-//       per level is never written. The coarse levels' rows stay in L2.
+//       at hashed, scattered rows, for ~30 + 16F flops. The gathers'
+//       loads through L1, not device memory, set its time (PERF.md
+//       section 6; tools/port_cost_split.py encode). Design: a block a
+//       tile of up to 64 samples x L levels; the tile's positions once
+//       into shared memory; a warp 32
+//       consecutive samples on one level (samples along a ray share rows
+//       at the coarse levels: fewer L2 sectors a warp's load than a warp
+//       of (sample, level) items), index arithmetic 32-bit; a lane's 8
+//       corner indices first, then its 8 rows loaded as one float2 /
+//       float4 each before the first add, summed in registers (the (N, 8,
+//       F) intermediate the plain version writes per level is never
+//       written); its F features into the tile's rows in shared memory,
+//       which go out whole, contiguous, in 16-byte stores (from
+//       registers, a lane's 16 bytes at a row's stride, they took half
+//       as long again). Small tiles leave L1 the room its hits need.
 //   nmr_mlp                                ::mlp; JAX ops/mlp.py:17
 //       mlp_apply (the density MLP of ops/network.py:44-71).
 //   nmr_rgb_head                           ::rgb_head; JAX ops/network.py:
@@ -88,26 +98,27 @@
 //   (ops/network_cuda.py::compare_with_plain's bf16 contract).
 // At the f32 compute dtype (the parity runs; the f32 frame) both MLPs run
 // on the CUDA cores in f32 fmaf: TF32 or bf16 operands would break that
-// dtype's 1e-4 contract. Bound: operations (the rgb head's 6.3k stored
-// multiply-adds a sample against 88 bytes: 67 TFLOP/s f32 peak).
-//   mlp_kernel keeps the first design, one thread per sample (mlp_rows):
-//   a grid-stride loop over 128-sample tiles, the weights in shared
-//   memory read as float4 broadcasts (one load for 4 fmaf), each thread's
-//   activations in its own shared-memory column. HID 64: 141-144
-//   registers; HID 128 spills (~150 bytes).
-//   rgb_head_kernel is register-tiled (mlp_tiles): persistent blocks of
-//   256 threads, 2 an SM, each an even share of the samples in 256-sample
-//   tiles, the activations in shared memory k-major with the samples
-//   contiguous; a thread computes 4 samples x 16 outputs of a hidden
-//   layer, a 16-byte load of activations and four of weights a k for 64
-//   fmaf, and writes them back over the layer's input after a barrier;
-//   the last layer only the stored columns (3 of the rgb head's 16), two
-//   a thread; the weights and the next tile's inputs arrive by cp.async
-//   while a tile computes. It reaches about half of its operations bound
-//   (PERF.md section 6 row 9). Each output is the same fmaf chain over k
-//   from 0 as mlp_rows', so the rows are its rows bit for bit; the body
-//   takes mlp_kernel's input rows too (input_row, KIND 0), for that
-//   kernel to take it by instantiation.
+// dtype's 1e-4 contract. Bound: operations (the density MLP's 3k
+// multiply-adds a sample against 192 bytes, the rgb head's 6.3k stored
+// ones against 88: 67 TFLOP/s f32 peak). Both are one register-tiled
+// body (mlp_tiles; mlp_kernel its KIND 0, rgb_head_kernel its KIND 1):
+// persistent blocks of 256 threads, 2 an SM at HID 64, each an even
+// share of the samples in 256-sample tiles (128 at HID 128), the
+// activations in shared memory k-major with the samples contiguous; a
+// thread computes 4 samples x 16 outputs of a hidden layer, a 16-byte
+// load of activations and four of weights a k for 64 fmaf, and writes
+// them back over the layer's input after a barrier. The last layer: where
+// every one of its columns is stored and its 4 x 4 items are no more than
+// the threads (the density MLP's 16: all 256 busy; up to 32 at HID 128)
+// the same way, each sample's 4 columns one 16-byte store; else only the
+// stored columns (3 of the rgb head's 16), a sample and two a thread. The weights and the next tile's inputs arrive by cp.async
+// while a tile computes: the density MLP's rows of x (128 bytes at f32,
+// 64 at bf16) in 16-byte pieces, row-major at an odd number of them (36
+// floats for 32), widened from bf16 in the row build; the rgb head's
+// features and directions in 4-byte pieces. Each output is an fmaf chain
+// over k = 0 .. K-1 from 0, the order of a thread-per-sample loop (the
+// first design's): the rows are its rows bit for bit. The head reaches
+// about half of its operations bound (PERF.md section 6 rows 8-9).
 // The launcher picks the body by compute dtype; each raises what it does
 // not take.
 //
@@ -150,9 +161,6 @@ struct EncodeParams {
 struct MlpParams {
   int n_layers;                 // weight matrices
   int width[MAX_LAYERS + 1];    // width[0] inputs; width[l + 1] outputs of l
-  int w_off[MAX_LAYERS];        // set by the launcher (layout): each
-  int w_total;                  // layer's offset in the shared weights,
-  int act_rows;                 // their floats, a thread's activation rows
   int round_bf16;               // compute dtype bf16 (else f32)
   int x_bf16;                   // nmr_mlp: the input rows are bf16
   int n_store;                  // output columns written
@@ -166,7 +174,6 @@ struct MlpParams {
 namespace {
 
 constexpr int ENCODE_THREADS = 256;
-constexpr int MLP_THREADS = 128;
 constexpr int SH_WIDTH = 16;                  // sh_out_padded, degree <= 4
 
 __device__ __forceinline__ float bf16r(float x) {
@@ -210,7 +217,8 @@ __device__ __forceinline__ void load_levels(const EncodeParams& P,
 // One (sample, level) of the encode, the corner routine of both encode
 // kernels: position (x, y, z) on level l of the table `lvl` -> acc, the F
 // features in f32 (the output rounds them), summed c = 0..7 in the plain
-// version's order and rounding, a row load a corner.
+// version's order and rounding. The 8 corner rows are loaded before the
+// first add, so that their loads are in flight together.
 template <int F, bool BF16>
 __device__ __forceinline__ void encode_point(const Levels& S, int l,
                                              const float* __restrict__ lvl,
@@ -230,70 +238,157 @@ __device__ __forceinline__ void encode_point(const Levels& S, int l,
     c0[d] = (uint32_t)(int)g;                 // floor -> int32 -> uint32
   }
   const uint32_t res = S.res[l], res2 = S.res2[l], size = S.size[l];
-  const bool dense = S.dense[l], pow2 = S.pow2[l];
+  // the level's kind as branches, not selects: where a warp's lanes share
+  // the level (both kernels' maps) one path runs, and no modulo where the
+  // size is a power of two
+  uint32_t idx[8];
+  if (S.dense[l]) {
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+      idx[c] = c0[0] + (c & 1) + (c0[1] + ((c >> 1) & 1)) * res +
+               (c0[2] + (c >> 2)) * res2;
+  } else {
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+      idx[c] = (c0[0] + (c & 1)) ^ ((c0[1] + ((c >> 1) & 1)) * 2654435761u) ^
+               ((c0[2] + (c >> 2)) * 805459861u);
+  }
+  if (S.pow2[l]) {
+#pragma unroll
+    for (int c = 0; c < 8; ++c) idx[c] &= size - 1u;
+  } else {
+#pragma unroll
+    for (int c = 0; c < 8; ++c) idx[c] %= size;
+  }
+  float v[8][F];
+#pragma unroll
+  for (int c = 0; c < 8; ++c) load_row<F>(lvl + (long long)idx[c] * F, v[c]);
 #pragma unroll
   for (int f = 0; f < F; ++f) acc[f] = 0.0f;
 #pragma unroll
   for (int c = 0; c < 8; ++c) {
     const int bx = c & 1, by = (c >> 1) & 1, bz = (c >> 2) & 1;
     const float wc = __fmul_rn(__fmul_rn(w[0][bx], w[1][by]), w[2][bz]);
-    const uint32_t cx = c0[0] + bx, cy = c0[1] + by, cz = c0[2] + bz;
-    uint32_t idx = dense ? cx + cy * res + cz * res2
-                         : cx ^ (cy * 2654435761u) ^ (cz * 805459861u);
-    idx = pow2 ? idx & (size - 1u) : idx % size;
-    float v[F];
-    load_row<F>(lvl + (long long)idx * F, v);
     if (BF16) {
       const float wb = bf16r(wc);
 #pragma unroll
       for (int f = 0; f < F; ++f)
-        acc[f] = __fadd_rn(acc[f], bf16r(__fmul_rn(bf16r(v[f]), wb)));
+        acc[f] = __fadd_rn(acc[f], bf16r(__fmul_rn(bf16r(v[c][f]), wb)));
     } else {
 #pragma unroll
       for (int f = 0; f < F; ++f)
-        acc[f] = __fadd_rn(acc[f], __fmul_rn(v[f], wc));
+        acc[f] = __fadd_rn(acc[f], __fmul_rn(v[c][f], wc));
     }
   }
 }
 
-// One thread per (sample, level); i = sample * L + level, so a warp's
-// output rows are contiguous.
+__device__ __forceinline__ uint32_t bf16_bits(float x) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
+
+// F features at dst in the output dtype (f32, or bf16 rounded to nearest
+// even), one store of 4F or 2F bytes (two 16-byte stores for 8 f32); also
+// the fused kernel's bf16 A-tile row (dst in kmajor).
+template <int F, bool BF16>
+__device__ __forceinline__ void store_features(unsigned char* dst,
+                                               const float* acc) {
+  if constexpr (BF16 && F == 1) {
+    *reinterpret_cast<unsigned short*>(dst) = (unsigned short)bf16_bits(acc[0]);
+  } else if constexpr (BF16) {
+    uint32_t w[F / 2];
+#pragma unroll
+    for (int q = 0; q < F / 2; ++q)
+      w[q] = bf16_bits(acc[2 * q]) | bf16_bits(acc[2 * q + 1]) << 16;
+    if constexpr (F == 2) *reinterpret_cast<uint32_t*>(dst) = w[0];
+    if constexpr (F == 4) *reinterpret_cast<uint2*>(dst) = make_uint2(w[0], w[1]);
+    if constexpr (F == 8)
+      *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+  } else if constexpr (F == 1) {
+    *reinterpret_cast<float*>(dst) = acc[0];
+  } else if constexpr (F == 2) {
+    *reinterpret_cast<float2*>(dst) = make_float2(acc[0], acc[1]);
+  } else {
+#pragma unroll
+    for (int q = 0; q < F; q += 4)
+      reinterpret_cast<float4*>(dst)[q / 4] =
+          make_float4(acc[q], acc[q + 1], acc[q + 2], acc[q + 3]);
+  }
+}
+
+// The standalone encode's tiles: at most ENCODE_TILE samples (a multiple
+// of 32), their output rows at most ENCODE_TILE_BYTES of shared memory
+// (64 beat 32, 128 and 256 on an H100, PERF.md section 6: the rest of the
+// SM's 256 KB is L1, which the gathers hit).
+constexpr int ENCODE_TILE = 64;
+constexpr int ENCODE_TILE_BYTES = 24576;
+
+// An output row of `row` bytes in the tile: a row that is a whole number
+// of 16-byte pieces takes one piece more where its count of them is even,
+// so that 8 lanes' 16-byte accesses to 8 rows fall in distinct banks;
+// other rows lie contiguous.
+int encode_stride(int row) {
+  return row % 16 ? row : row + (row / 16 % 2 ? 0 : 16);
+}
+
+// The tile's samples for rows `stride` bytes apart: 64 or 32.
+int encode_tile(int stride) {
+  int t = ENCODE_TILE;
+  while (t > 32 && t * stride > ENCODE_TILE_BYTES) t /= 2;
+  return t;
+}
+
+// A block a tile of `tile` samples (the last one short) x L levels. The
+// tile's positions go once into shared memory; warp w takes items w, w +
+// 8, ...: item it is level it >> gshift and the 32 consecutive samples of
+// group it & (tile / 32 - 1), a lane a sample (samples along a ray share
+// rows at the coarse levels). Each lane's F features go into the tile's
+// row of its sample (`stride` bytes, encode_stride); then the block
+// writes the tile's rows, contiguous in `out`, in 16-byte stores (the
+// bytes past the last whole piece of an unpadded tile in 2-byte stores).
+// Index arithmetic within the tile is 32-bit.
 template <int F, bool BF16>
 __global__ void __launch_bounds__(ENCODE_THREADS) hash_encode_kernel(
-    EncodeParams P, long long n, const float* __restrict__ table,
-    const float* __restrict__ pos, void* __restrict__ out) {
+    EncodeParams P, long long n, int tile, int gshift, int stride,
+    const float* __restrict__ table, const float* __restrict__ pos,
+    void* __restrict__ out) {
   __shared__ Levels S;
+  extern __shared__ float4 smem4[];
+  float* const s_pos = reinterpret_cast<float*>(smem4);
+  unsigned char* const s_out =
+      reinterpret_cast<unsigned char*>(smem4) + ((tile * 12 + 15) & ~15);
   load_levels(P, S);
-  __syncthreads();
   const int L = P.n_levels;
-  const long long total = n * L;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < total; i += stride) {
-    const long long s = i / L;
-    const int l = (int)(i - s * L);
-    float acc[F];
-    encode_point<F, BF16>(S, l, table + (long long)l * P.rows * F,
-                          __ldg(pos + s * 3), __ldg(pos + s * 3 + 1),
-                          __ldg(pos + s * 3 + 2), acc);
-    const long long o = i * F;                // (s * L + l) * F
-    if (BF16) {
-      __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(out) + o;
-#pragma unroll
-      for (int f = 0; f < F; ++f) ob[f] = __float2bfloat16_rn(acc[f]);
-    } else {
-      float* of = static_cast<float*>(out) + o;
-      if constexpr (F == 4) {
-        *reinterpret_cast<float4*>(of) =
-            make_float4(acc[0], acc[1], acc[2], acc[3]);
-      } else if constexpr (F == 2) {
-        *reinterpret_cast<float2*>(of) = make_float2(acc[0], acc[1]);
-      } else {
-#pragma unroll
-        for (int f = 0; f < F; ++f) of[f] = acc[f];
-      }
+  const int row = L * F * (BF16 ? 2 : 4);
+  const long long s0 = (long long)blockIdx.x * tile;
+  const int rows = (int)min((long long)tile, n - s0);
+  const float* p = pos + s0 * 3;
+  for (int e = threadIdx.x; e < rows * 3; e += ENCODE_THREADS)
+    s_pos[e] = __ldg(p + e);
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  for (int it = threadIdx.x >> 5; it < L << gshift;
+       it += ENCODE_THREADS / 32) {
+    const int l = it >> gshift;
+    const int r = ((it & ((1 << gshift) - 1)) << 5) + lane;
+    if (r < rows) {
+      float acc[F];
+      encode_point<F, BF16>(S, l, table + (long long)l * P.rows * F,
+                            s_pos[3 * r], s_pos[3 * r + 1], s_pos[3 * r + 2],
+                            acc);
+      store_features<F, BF16>(s_out + r * stride + l * F * (BF16 ? 2 : 4),
+                              acc);
     }
   }
+  __syncthreads();
+  unsigned char* const o = static_cast<unsigned char*>(out) + s0 * row;
+  const int bytes = rows * row;
+  for (int b = 16 * threadIdx.x; b < (bytes & ~15); b += 16 * ENCODE_THREADS)
+    *reinterpret_cast<uint4*>(o + b) = *reinterpret_cast<const uint4*>(
+        s_out + (stride == row ? b : b / row * stride + b % row));
+  for (int b = (bytes & ~15) + 2 * threadIdx.x; b < bytes;
+       b += 2 * ENCODE_THREADS)
+    *reinterpret_cast<unsigned short*>(o + b) =
+        *reinterpret_cast<const unsigned short*>(s_out + b);
 }
 
 // torch.relu: NaN stays NaN.
@@ -390,110 +485,8 @@ __device__ __forceinline__ void rgb_row(const MlpParams& P, long long s,
   for (int i = w0; i < pad16(P.width[0]); ++i) a[i * stride] = 0.0f;
 }
 
-// The input row of sample s into a[i * stride], i < pad16(width[0]).
-// KIND 0: the row of x (f32 or bf16); KIND 1: the rgb head's row
-// (rgb_row).
-template <int KIND>
-__device__ __forceinline__ void input_row(const MlpParams& P, long long s,
-                                          const void* __restrict__ x,
-                                          const float* __restrict__ dirs,
-                                          const float* __restrict__ extra,
-                                          float* a, int stride) {
-  if (KIND == 1) {
-    rgb_row(P, s, static_cast<const float*>(x) + s * P.n_feat,
-            __ldg(dirs + s * 3), __ldg(dirs + s * 3 + 1),
-            __ldg(dirs + s * 3 + 2), extra, a, stride);
-    return;
-  }
-  const int n_in = P.width[0];
-  if (P.x_bf16) {
-    const __nv_bfloat16* xr = static_cast<const __nv_bfloat16*>(x) + s * n_in;
-    for (int i = 0; i < n_in; ++i) a[i * stride] = __bfloat162float(xr[i]);
-  } else {
-    const float* xr = static_cast<const float*>(x) + s * n_in;
-    for (int i = 0; i < n_in; ++i) a[i * stride] = __ldg(xr + i);
-  }
-  for (int i = n_in; i < pad16(P.width[0]); ++i) a[i * stride] = 0.0f;
-}
-
-// mlp_kernel's f32 body, one thread per sample. Shared memory: the
-// weights, layer l as width[l + 1] rows of pad16(width[l]) (zero-padded),
-// then act_rows x blockDim.x activations (thread t's value i at
-// i * blockDim.x + t).
-template <int HID>
-__device__ __forceinline__ void mlp_rows(const MlpParams& P, long long n,
-                                         const void* __restrict__ x,
-                                         float* __restrict__ out) {
-  extern __shared__ float4 smem4[];
-  float* s_w = reinterpret_cast<float*>(smem4);
-  for (int l = 0; l < P.n_layers; ++l) {
-    const int n_in = P.width[l], in_pad = pad16(n_in);
-    const int cnt = P.width[l + 1] * in_pad;
-    const float* W = P.w[l];
-    for (int e = threadIdx.x; e < cnt; e += blockDim.x) {
-      const int j = e / in_pad, i = e - j * in_pad;
-      s_w[P.w_off[l] + e] =
-          i < n_in ? __ldg(W + (long long)j * n_in + i) : 0.0f;
-    }
-  }
-  __syncthreads();
-  const int T = blockDim.x;
-  float* a = s_w + P.w_total + threadIdx.x;
-  const long long stride = (long long)gridDim.x * T;
-  for (long long s = (long long)blockIdx.x * T + threadIdx.x; s < n;
-       s += stride) {
-    input_row<0>(P, s, x, nullptr, nullptr, a, T);
-    for (int l = 0; l < P.n_layers; ++l) {
-      const int in_pad = pad16(P.width[l]);
-      const int n_out = P.width[l + 1];
-      const float* W = s_w + P.w_off[l];
-      float acc[HID];
-#pragma unroll
-      for (int j = 0; j < HID; ++j) acc[j] = 0.0f;
-      for (int c = 0; c < in_pad; c += 16) {
-        float xin[16];
-#pragma unroll
-        for (int k = 0; k < 16; ++k) xin[k] = a[(c + k) * T];
-#pragma unroll
-        for (int j = 0; j < HID; ++j) {
-          if (j < n_out) {
-            const float4* wr =
-                reinterpret_cast<const float4*>(W + j * in_pad + c);
-#pragma unroll
-            for (int q = 0; q < 4; ++q) {
-              const float4 w4 = wr[q];
-              acc[j] = fmaf(xin[4 * q], w4.x, acc[j]);
-              acc[j] = fmaf(xin[4 * q + 1], w4.y, acc[j]);
-              acc[j] = fmaf(xin[4 * q + 2], w4.z, acc[j]);
-              acc[j] = fmaf(xin[4 * q + 3], w4.w, acc[j]);
-            }
-          }
-        }
-      }
-      if (l + 1 < P.n_layers) {
-#pragma unroll
-        for (int j = 0; j < HID; ++j)
-          if (j < n_out) a[j * T] = relu(acc[j]);
-        for (int j = n_out; j < pad16(n_out); ++j) a[j * T] = 0.0f;
-      } else {
-        float* orow = out + s * P.n_store;
-#pragma unroll
-        for (int j = 0; j < HID; ++j)
-          if (j < P.n_store) orow[j] = acc[j];
-      }
-    }
-  }
-}
-
-template <int HID>
-__global__ void __launch_bounds__(MLP_THREADS) mlp_kernel(
-    MlpParams P, long long n, const void* __restrict__ x,
-    float* __restrict__ out) {
-  mlp_rows<HID>(P, n, x, out);
-}
-
 // ---------------------------------------------------------------------------
-// The register-tiled f32 body (rgb_head_kernel)
+// The register-tiled f32 body (mlp_kernel, rgb_head_kernel)
 // ---------------------------------------------------------------------------
 
 constexpr int RT_THREADS = 256;
@@ -501,8 +494,10 @@ constexpr int RT_BLOCKS_PER_SM = 2;   // at HID 64 (registers allow 2)
 constexpr int RT_R = 4;           // a hidden layer: a thread's samples ...
 constexpr int RT_C = 16;          // ... times its outputs
 constexpr int RT_LANE_TS = 8;     // a warp's sample groups (of 32 lanes)
-constexpr int RT_LAST_C = 2;      // the last layer: a thread's outputs of
-                                  // one sample
+constexpr int RT_LAST_C = 2;      // the last layer, some columns stored: a
+                                  // thread's outputs of one sample
+constexpr int RT_LAST_TC = 4;     // the last layer, every column stored: a
+                                  // thread's outputs of its RT_R samples
 
 // A block's tile of samples at hidden width HID: a hidden layer's
 // RT_R x RT_C items are then one a thread (at 128, 256 samples' 128
@@ -511,69 +506,95 @@ __host__ __device__ constexpr int rt_samples(int hid) {
   return hid <= 64 ? 256 : 128;
 }
 
-// Layer l's weight columns in the register-tiled body: pad16 of a hidden
-// layer's outputs (the next layer's K), the last layer's stored columns
-// rounded up to RT_LAST_C. Its weights lie k-major (k * cols + j) after
-// those of the layers before it.
-__host__ __device__ __forceinline__ int rt_cols(const MlpParams& P, int l) {
-  return l + 1 < P.n_layers
-             ? pad16(P.width[l + 1])
-             : (P.n_store + RT_LAST_C - 1) / RT_LAST_C * RT_LAST_C;
+// mlp_kernel's last layer is register-tiled where it stores every one of
+// its pad16 columns (the density MLP: 16 of 16) and its items, one a
+// thread, fit the block (RT_R samples x RT_LAST_TC columns: 16 columns at
+// HID 64, 32 at 128); else, as the rgb head's always (3 of 16), only the
+// stored columns are computed, a sample a thread (rt_last).
+__host__ __device__ __forceinline__ bool rt_last_tiled(const MlpParams& P,
+                                                       int hid) {
+  return P.n_store == pad16(P.width[P.n_layers]) &&
+         rt_samples(hid) / RT_R * (P.n_store / RT_LAST_TC) <= RT_THREADS;
 }
 
-// A hidden layer on a tile of S samples, in place: act[j][s] =
-// relu(sum_k act[k][s] W[k][j]), each an fmaf chain over k = 0 .. K-1
-// from 0 (mlp_rows' order) for the tile's first `valid` samples; the
-// columns from n_out to N written as zeros. A thread computes an item of
-// RT_R samples x RT_C columns: for each k one 16-byte load of its
-// activations and four of its weights for 64 fmaf. A warp holds
-// RT_LANE_TS sample groups x (32 / RT_LANE_TS) column groups; each load
-// is broadcast to the lanes that share it. The sums stay in registers
-// across the barrier after the last read of the layer's input, then
-// overwrite it.
-template <int S>
-__device__ __forceinline__ void rt_hidden(const float* __restrict__ W, int K,
-                                          int N, int n_out, int valid,
-                                          float* act) {
-  const int groups = N / RT_C;
+// Layer l's weight columns in the register-tiled body: pad16 of a hidden
+// layer's outputs (the next layer's K); the last layer's stored columns,
+// rounded up to RT_LAST_C where it is not tiled. Its weights lie k-major
+// (k * cols + j) after those of the layers before it.
+__host__ __device__ __forceinline__ int rt_cols(const MlpParams& P, int l,
+                                                bool tiled) {
+  return l + 1 < P.n_layers ? pad16(P.width[l + 1])
+         : tiled            ? P.n_store
+                            : (P.n_store + RT_LAST_C - 1) / RT_LAST_C * RT_LAST_C;
+}
+
+// A layer on a tile of S samples: sums[j][s] = sum_k act[k][s] W[k][j],
+// each an fmaf chain over k = 0 .. K-1 from 0 for the tile's first
+// `valid` samples. A thread computes an item of RT_R samples x C columns:
+// for each k one 16-byte load of its activations and C / 4 of its weights
+// for RT_R C fmaf. A warp holds RT_LANE_TS sample groups x (32 /
+// RT_LANE_TS) column groups; each load is broadcast to the lanes that
+// share it. A hidden layer (LAST false) keeps its sums in registers across
+// the barrier after the last read of its input, then overwrites it with
+// relu(sums) (NaN kept), the columns from n_out to N as zeros. The last
+// layer writes its sums to `out` (rows of N floats from the tile's first
+// sample), a 16-byte store for every 4 columns of a sample.
+template <int S, int C, bool LAST>
+__device__ __forceinline__ void rt_layer(const float* __restrict__ W, int K,
+                                         int N, int n_out, int valid,
+                                         float* act, float* __restrict__ out) {
+  const int groups = N / C;
   const int it = threadIdx.x;             // S / RT_R * groups <= RT_THREADS
   const int tj = it / RT_LANE_TS % groups;
   const int ts = it % RT_LANE_TS + RT_LANE_TS * (it / RT_LANE_TS / groups);
   const bool mine = it < S / RT_R * groups && ts * RT_R < valid;
-  float acc[RT_R][RT_C];
+  float acc[RT_R][C];
 #pragma unroll
   for (int r = 0; r < RT_R; ++r)
 #pragma unroll
-    for (int c = 0; c < RT_C; ++c) acc[r][c] = 0.0f;
+    for (int c = 0; c < C; ++c) acc[r][c] = 0.0f;
   if (mine) {
     const float* a = act + ts * RT_R;
-    const float* w = W + tj * RT_C;
+    const float* w = W + tj * C;
 #pragma unroll 8
     for (int k = 0; k < K; ++k) {
-      float xv[RT_R], wv[RT_C];
+      float xv[RT_R], wv[C];
 #pragma unroll
       for (int q = 0; q < RT_R; q += 4)
         *reinterpret_cast<float4*>(xv + q) =
             *reinterpret_cast<const float4*>(a + k * S + q);
 #pragma unroll
-      for (int q = 0; q < RT_C; q += 4)
+      for (int q = 0; q < C; q += 4)
         *reinterpret_cast<float4*>(wv + q) =
             *reinterpret_cast<const float4*>(w + k * N + q);
 #pragma unroll
       for (int r = 0; r < RT_R; ++r)
 #pragma unroll
-        for (int c = 0; c < RT_C; ++c)
+        for (int c = 0; c < C; ++c)
           acc[r][c] = fmaf(xv[r], wv[c], acc[r][c]);
     }
+  }
+  if (LAST) {
+    if (!mine) return;
+#pragma unroll
+    for (int r = 0; r < RT_R; ++r)
+      if (ts * RT_R + r < valid) {
+        float* o = out + (long long)(ts * RT_R + r) * N + tj * C;
+#pragma unroll
+        for (int q = 0; q < C; q += 4)
+          *reinterpret_cast<float4*>(o + q) = make_float4(
+              acc[r][q], acc[r][q + 1], acc[r][q + 2], acc[r][q + 3]);
+      }
+    return;
   }
   __syncthreads();                        // every read of the input done
   if (!mine) return;
 #pragma unroll
-  for (int c = 0; c < RT_C; ++c) {
-    const bool live = tj * RT_C + c < n_out;
+  for (int c = 0; c < C; ++c) {
+    const bool live = tj * C + c < n_out;
 #pragma unroll
     for (int q = 0; q < RT_R; q += 4)
-      *reinterpret_cast<float4*>(act + (tj * RT_C + c) * S + ts * RT_R + q) =
+      *reinterpret_cast<float4*>(act + (tj * C + c) * S + ts * RT_R + q) =
           make_float4(live ? relu(acc[q][c]) : 0.0f,
                       live ? relu(acc[q + 1][c]) : 0.0f,
                       live ? relu(acc[q + 2][c]) : 0.0f,
@@ -581,8 +602,9 @@ __device__ __forceinline__ void rt_hidden(const float* __restrict__ W, int K,
   }
 }
 
-// The last layer on a tile of S samples: a thread a sample and RT_LAST_C
-// columns, only those that are stored; rows = the tile's samples.
+// The last layer on a tile of S samples where only some columns are
+// stored: a thread a sample and RT_LAST_C columns, only those that are
+// stored; rows = the tile's samples.
 template <int S>
 __device__ __forceinline__ void rt_last(const float* __restrict__ W, int K,
                                         int N, int n_store,
@@ -607,38 +629,118 @@ __device__ __forceinline__ void rt_last(const float* __restrict__ W, int K,
   }
 }
 
-// The rgb head's inputs of the `valid` samples from s0 into the staging
-// area by cp.async (one commit group): features at a row stride of
-// n_feat + 1 floats (the row build's reads a thread a row then fall in
-// distinct banks), then the directions, 3 a sample.
+// A staged input row of `row` bytes (mlp_kernel's rows of x) lies at a
+// stride of a whole number of 16-byte pieces, odd, so that the row
+// build's 16-byte reads, a thread a row, fall in distinct banks for each
+// quarter-warp: 128-byte f32 rows at 144 (36 floats), 64-byte bf16 rows
+// at 80.
+__host__ __device__ __forceinline__ int rt_row_stride(int row) {
+  const int pieces = (row + 15) / 16;
+  return 16 * (pieces % 2 ? pieces : pieces + 1);
+}
+
+// The staging area's bytes for a tile of S samples: KIND 0 S rows of x at
+// rt_row_stride; KIND 1 the rgb head's features (n_feat + 1 floats a
+// sample) and directions (3).
+__host__ __device__ __forceinline__ int rt_stage_bytes(const MlpParams& P,
+                                                       int kind, int S) {
+  return kind == 0
+             ? S * rt_row_stride(P.width[0] * (P.x_bf16 ? 2 : 4))
+             : 4 * S * (P.n_feat + 4);
+}
+
+// The inputs of the `valid` samples from s0 into the staging area by
+// cp.async (one commit group). KIND 0: the rows of x, row-major at
+// rt_row_stride, in 16-byte pieces where the rows and x allow, else 4-
+// or (bf16 rows of an odd width) 2-byte pieces, the last by plain loads,
+// seen after the next __syncthreads. KIND 1: the rgb head's features at a
+// row stride of n_feat + 1 floats (the row build's reads a thread a row
+// then fall in distinct banks), then the directions, 3 a sample, at
+// stage_d.
+template <int KIND, int S>
 __device__ __forceinline__ void rt_stage(const MlpParams& P,
-                                         const float* __restrict__ feat,
+                                         const void* __restrict__ x,
                                          const float* __restrict__ dirs,
                                          long long s0, int valid,
-                                         float* stage, float* stage_d) {
-  const int nf = P.n_feat;
-  const float* f = feat + s0 * nf;
-  for (int e = threadIdx.x; e < valid * nf; e += RT_THREADS) {
-    const int s = e / nf;
-    cp_async4(stage + s * (nf + 1) + (e - s * nf), f + e);
+                                         unsigned char* stage,
+                                         float* stage_d) {
+  if (KIND == 0) {
+    const int row = P.width[0] * (P.x_bf16 ? 2 : 4);
+    const int stride = rt_row_stride(row);
+    const unsigned char* src = static_cast<const unsigned char*>(x) + s0 * row;
+    const uintptr_t al = reinterpret_cast<uintptr_t>(x) | row;
+    const int piece = al % 16 == 0 ? 16 : al % 4 == 0 ? 4 : 2;
+    const int per = row / piece;
+    for (int e = threadIdx.x; e < valid * per; e += RT_THREADS) {
+      const int s = e / per, o = (e - s * per) * piece;
+      if (piece == 16)
+        cp_async16(stage + s * stride + o, src + s * row + o);
+      else if (piece == 4)
+        cp_async4(stage + s * stride + o, src + s * row + o);
+      else
+        *reinterpret_cast<unsigned short*>(stage + s * stride + o) =
+            *reinterpret_cast<const unsigned short*>(src + s * row + o);
+    }
+  } else {
+    const int nf = P.n_feat;
+    float* const sf = reinterpret_cast<float*>(stage);
+    const float* f = static_cast<const float*>(x) + s0 * nf;
+    for (int e = threadIdx.x; e < valid * nf; e += RT_THREADS) {
+      const int s = e / nf;
+      cp_async4(sf + s * (nf + 1) + (e - s * nf), f + e);
+    }
+    for (int e = threadIdx.x; e < valid * 3; e += RT_THREADS)
+      cp_async4(stage_d + e, dirs + s0 * 3 + e);
   }
-  for (int e = threadIdx.x; e < valid * 3; e += RT_THREADS)
-    cp_async4(stage_d + e, dirs + s0 * 3 + e);
   cp_async_commit();
 }
 
-// The register-tiled f32 body, bit for bit mlp_rows: persistent blocks,
-// each an even share of the samples in tiles of S = rt_samples(HID).
-// The block's weights go once into shared memory by cp.async, k-major and
-// zero-padded (rt_cols); then one activation buffer of pad16 rows x S,
-// k-major with the samples contiguous. A tile's input rows go into it (a
-// thread a sample; the rgb head's from a staging area that cp.async
-// fills with the next tile's inputs while this tile computes); each
-// hidden layer overwrites it with its outputs (rt_hidden, two barriers a
-// layer: one buffer, where two would leave room for fewer blocks an SM);
-// the last layer writes the stored columns to `out` (rt_last). Layer l's
-// K, columns and weight offset are counted up as l runs (a struct
-// indexed by l would go to local memory).
+// Staged row t of x (KIND 0) into a[i * S], i < pad16(width[0]): 16 bytes
+// a read, bf16 widened to f32, zeros past width[0].
+template <int S>
+__device__ __forceinline__ void staged_row(const MlpParams& P,
+                                           const unsigned char* stage, int t,
+                                           float* a) {
+  const int n_in = P.width[0];
+  const unsigned char* sr =
+      stage + t * rt_row_stride(n_in * (P.x_bf16 ? 2 : 4));
+  if (P.x_bf16) {
+    for (int i = 0; i < pad16(n_in); i += 8) {
+      const uint4 q = i < n_in ? *reinterpret_cast<const uint4*>(sr + 2 * i)
+                               : make_uint4(0u, 0u, 0u, 0u);
+      const uint32_t w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        a[(i + u) * S] = i + u < n_in
+                             ? __uint_as_float(u % 2 ? w[u / 2] & 0xFFFF0000u
+                                                     : w[u / 2] << 16)
+                             : 0.0f;
+    }
+  } else {
+    for (int i = 0; i < pad16(n_in); i += 4) {
+      const float4 q = i < n_in ? *reinterpret_cast<const float4*>(sr + 4 * i)
+                                : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      const float v[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u) a[(i + u) * S] = i + u < n_in ? v[u] : 0.0f;
+    }
+  }
+}
+
+// The register-tiled f32 body: persistent blocks, each an even share of
+// the samples in tiles of S = rt_samples(HID). The block's weights go
+// once into shared memory by cp.async, k-major and zero-padded
+// (rt_cols); then one activation buffer of pad16 rows x S, k-major with
+// the samples contiguous, then the staging area, which cp.async fills with
+// the next tile's inputs while a tile computes (rt_stage). A tile's input
+// rows go into the activations (a thread a sample; KIND 0 the rows of x,
+// KIND 1 the rgb head's rows); each hidden layer overwrites them with its
+// outputs (rt_layer, two barriers a layer: one buffer, where two would
+// leave room for fewer blocks an SM); the last layer writes the stored
+// columns to `out` (rt_layer's last form where it stores them all, else
+// rt_last). Each output is the same fmaf chain over k = 0 .. K-1 from 0 as
+// a thread-per-sample loop's. Layer l's K, columns and weight offset are
+// counted up as l runs (a struct indexed by l would go to local memory).
 template <int KIND, int HID>
 __device__ __forceinline__ void mlp_tiles(
     const MlpParams& P, long long n, const void* __restrict__ x,
@@ -647,10 +749,11 @@ __device__ __forceinline__ void mlp_tiles(
   constexpr int S = rt_samples(HID);
   extern __shared__ float4 smem4[];
   float* s_w = reinterpret_cast<float*>(smem4);
+  const bool tiled = KIND == 0 && rt_last_tiled(P, HID);
   int off = 0, rows = 0;
   for (int l = 0; l < P.n_layers; ++l) {
     const int n_in = P.width[l], n_out = P.width[l + 1];
-    const int K = pad16(n_in), N = rt_cols(P, l);
+    const int K = pad16(n_in), N = rt_cols(P, l, tiled);
     const float* W = P.w[l];
     for (int e = threadIdx.x; e < K * N; e += RT_THREADS) {
       const int k = e / N, j = e - k * N;
@@ -664,16 +767,16 @@ __device__ __forceinline__ void mlp_tiles(
   }
   cp_async_commit();      // the weights, in flight with the first inputs
   float* const act = s_w + off;             // off: a multiple of 16 floats
-  float* const stage = act + rows * S;      // KIND 1: S x (n_feat + 1)
-  float* const stage_d = stage + S * (P.n_feat + 1);   // and S x 3
-  const float* feat = static_cast<const float*>(x);
+  float* const stage_f = act + rows * S;    // KIND 1: S x (n_feat + 1)
+  float* const stage_d = stage_f + S * (P.n_feat + 1);   // and S x 3
+  unsigned char* const stage = reinterpret_cast<unsigned char*>(stage_f);
   // the block's samples: an even share, in tiles (a short last tile does
   // its share of the work, so the blocks end together)
   const long long s_begin = n * blockIdx.x / gridDim.x;
   const long long s_end = n * (blockIdx.x + 1) / gridDim.x;
-  if (KIND == 1 && s_begin < s_end)
-    rt_stage(P, feat, dirs, s_begin, (int)min((long long)S, s_end - s_begin),
-             stage, stage_d);
+  if (s_begin < s_end)
+    rt_stage<KIND, S>(P, x, dirs, s_begin,
+                      (int)min((long long)S, s_end - s_begin), stage, stage_d);
   for (long long s0 = s_begin; s0 < s_end; s0 += S) {
     const int valid = (int)min((long long)S, s_end - s0);
     cp_async_wait<0>();
@@ -683,20 +786,24 @@ __device__ __forceinline__ void mlp_tiles(
       if (t >= valid)
         for (int i = 0; i < pad16(P.width[0]); ++i) a[i * S] = 0.0f;
       else if (KIND == 1)
-        rgb_row(P, s0 + t, stage + t * (P.n_feat + 1), stage_d[3 * t],
+        rgb_row(P, s0 + t, stage_f + t * (P.n_feat + 1), stage_d[3 * t],
                 stage_d[3 * t + 1], stage_d[3 * t + 2], extra, a, S);
       else
-        input_row<KIND>(P, s0 + t, x, dirs, extra, a, S);
+        staged_row<S>(P, stage, t, a);
     }
     __syncthreads();
-    if (KIND == 1 && s0 + S < s_end)
-      rt_stage(P, feat, dirs, s0 + S, (int)min((long long)S, s_end - s0 - S),
-               stage, stage_d);
+    if (s0 + S < s_end)
+      rt_stage<KIND, S>(P, x, dirs, s0 + S,
+                        (int)min((long long)S, s_end - s0 - S), stage, stage_d);
     int w_off = 0;
     for (int l = 0; l < P.n_layers; ++l) {
-      const int K = pad16(P.width[l]), N = rt_cols(P, l);
+      const int K = pad16(P.width[l]), N = rt_cols(P, l, tiled);
       if (l + 1 < P.n_layers)
-        rt_hidden<S>(s_w + w_off, K, N, P.width[l + 1], valid, act);
+        rt_layer<S, RT_C, false>(s_w + w_off, K, N, P.width[l + 1], valid,
+                                 act, nullptr);
+      else if (tiled)
+        rt_layer<S, RT_LAST_TC, true>(s_w + w_off, K, N, N, valid, act,
+                                      out + s0 * N);
       else
         rt_last<S>(s_w + w_off, K, N, P.n_store, act, out + s0 * P.n_store,
                    valid);
@@ -709,6 +816,13 @@ __device__ __forceinline__ void mlp_tiles(
 // HID: 64 or 128, the widest layer: the tile (rt_samples) and the
 // registers a thread may take (RT_BLOCKS_PER_SM blocks an SM at 64, one
 // at 128, where the weights and activations take most of shared memory).
+template <int HID>
+__global__ void __launch_bounds__(RT_THREADS, HID <= 64 ? RT_BLOCKS_PER_SM : 1)
+    mlp_kernel(MlpParams P, long long n, const void* __restrict__ x,
+               float* __restrict__ out) {
+  mlp_tiles<0, HID>(P, n, x, nullptr, nullptr, out);
+}
+
 template <int HID>
 __global__ void __launch_bounds__(RT_THREADS, HID <= 64 ? RT_BLOCKS_PER_SM : 1)
     rgb_head_kernel(MlpParams P, long long n, const float* __restrict__ feat,
@@ -1132,22 +1246,6 @@ struct EncodeSrc {
   bool bf16;
 };
 
-// F features of a row of the A tile, rounded to bf16 (at dst, in kmajor).
-template <int F>
-__device__ __forceinline__ void store_a(unsigned char* dst, const float* acc) {
-  if constexpr (F == 8) {
-    *reinterpret_cast<uint4*>(dst) =
-        make_uint4(pack_bf16(acc[0], acc[1]), pack_bf16(acc[2], acc[3]),
-                   pack_bf16(acc[4], acc[5]), pack_bf16(acc[6], acc[7]));
-  } else if constexpr (F == 4) {
-    *reinterpret_cast<uint2*>(dst) = pack_bf16x4(acc);
-  } else if constexpr (F == 2) {
-    *reinterpret_cast<uint32_t*>(dst) = pack_bf16(acc[0], acc[1]);
-  } else {
-    *reinterpret_cast<__nv_bfloat16*>(dst) = __float2bfloat16_rn(acc[0]);
-  }
-}
-
 // A tile's first-layer A from the encode (nmr_encode_mlp): thread t
 // takes row t & 63 of the tile, at (x, y, z), and levels t >> 6, + 2,
 // ..., so a warp is 32 consecutive rows on one level (samples along a ray
@@ -1173,7 +1271,7 @@ __device__ __forceinline__ void encode_a(const EncodeSrc& E, unsigned char* a,
       else
         encode_point<F, false>(*E.lv, l, lvl, x, y, z, acc);
     }
-    store_a<F>(a + kmajor(r, l * F, K0), acc);
+    store_features<F, true>(a + kmajor(r, l * F, K0), acc);
   }
 }
 
@@ -1323,46 +1421,29 @@ int sm_count() {
 template <int F, bool BF16>
 int launch_encode(const EncodeParams& P, long long n, const float* table,
                   const float* pos, void* out, cudaStream_t s) {
-  const long long total = n * P.n_levels;
-  long long blocks = (total + ENCODE_THREADS - 1) / ENCODE_THREADS;
-  const long long cap = 32LL * sm_count();
-  if (blocks > cap) blocks = cap;
-  hash_encode_kernel<F, BF16><<<(int)blocks, ENCODE_THREADS, 0, s>>>(
-      P, n, table, pos, out);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int HID>
-int launch_mlp(const MlpParams& P, long long n, const void* x, float* out,
-               cudaStream_t s) {
-  const size_t smem =
-      sizeof(float) * ((size_t)P.w_total + (size_t)P.act_rows * MLP_THREADS);
-  cudaError_t err = cudaFuncSetAttribute(
-      mlp_kernel<HID>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mlp_kernel<HID>,
-                                                      MLP_THREADS, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  long long blocks = (n + MLP_THREADS - 1) / MLP_THREADS;
-  const long long cap = (long long)per_sm * sm_count();
-  if (blocks > cap) blocks = cap;
-  mlp_kernel<HID><<<(int)blocks, MLP_THREADS, smem, s>>>(P, n, x, out);
+  const int stride = encode_stride(P.n_levels * F * (BF16 ? 2 : 4));
+  const int tile = encode_tile(stride);
+  const long long blocks = (n + tile - 1) / tile;
+  if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = ((tile * 12 + 15) & ~15) + tile * stride;
+  hash_encode_kernel<F, BF16><<<(int)blocks, ENCODE_THREADS, smem, s>>>(
+      P, n, tile, __builtin_ctz(tile / 32), stride, table, pos, out);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The register-tiled launch's shared memory in bytes at hidden width
-// HID: the weights (each layer's pad16 K x rt_cols), the activations (the
-// widest K x rt_samples), the rgb head's staging (rt_samples x (n_feat +
-// 4)).
-int rt_smem(const MlpParams& P, int hid) {
+// HID, kind as mlp_tiles' KIND: the weights (each layer's pad16 K x
+// rt_cols), the activations (the widest K x rt_samples), the staging area
+// (rt_stage_bytes).
+int rt_smem(const MlpParams& P, int hid, int kind) {
+  const bool tiled = kind == 0 && rt_last_tiled(P, hid);
   int w = 0, rows = 0;
   for (int l = 0; l < P.n_layers; ++l) {
-    w += pad16(P.width[l]) * rt_cols(P, l);
+    w += pad16(P.width[l]) * rt_cols(P, l, tiled);
     if (pad16(P.width[l]) > rows) rows = pad16(P.width[l]);
   }
-  return (int)sizeof(float) * (w + (rows + P.n_feat + 4) * rt_samples(hid));
+  return (int)sizeof(float) * (w + rows * rt_samples(hid)) +
+         rt_stage_bytes(P, kind, rt_samples(hid));
 }
 
 // The f32 instance for P's widest layer (or stored width): 64 or 128.
@@ -1436,10 +1517,17 @@ int launch_tiles(void (*kernel)(Params...), int threads, int smem,
 }
 
 template <int HID>
+int launch_mlp(const MlpParams& P, long long n, const void* x, float* out,
+               cudaStream_t s) {
+  return launch_tiles(mlp_kernel<HID>, RT_THREADS, rt_smem(P, HID, 0),
+                      RT_BLOCKS_PER_SM, n, rt_samples(HID), s, P, n, x, out);
+}
+
+template <int HID>
 int launch_rgb_head(const MlpParams& P, long long n, const float* feat,
                     const float* dirs, const float* extra, float* out,
                     cudaStream_t s) {
-  return launch_tiles(rgb_head_kernel<HID>, RT_THREADS, rt_smem(P, HID),
+  return launch_tiles(rgb_head_kernel<HID>, RT_THREADS, rt_smem(P, HID, 1),
                       RT_BLOCKS_PER_SM, n, rt_samples(HID), s, P, n, feat,
                       dirs, extra, out);
 }
@@ -1498,19 +1586,11 @@ int launch_encode_mlp_width(const EncodeParams& E, const MlpParams& P,
   }
 }
 
-// The shared-memory layout of P's layers (w_off, w_total, act_rows);
-// false for widths the kernels do not take.
-bool layout(MlpParams& P) {
+// False for layer widths the kernels do not take.
+bool valid_widths(const MlpParams& P) {
   if (P.n_layers < 1 || P.n_layers > MAX_LAYERS) return false;
-  int off = 0, rows = 0;
-  for (int l = 0; l < P.n_layers; ++l) {
+  for (int l = 0; l < P.n_layers; ++l)
     if (P.width[l] < 1 || P.width[l + 1] < 1) return false;
-    P.w_off[l] = off;
-    off += P.width[l + 1] * pad16(P.width[l]);
-    if (pad16(P.width[l]) > rows) rows = pad16(P.width[l]);
-  }
-  P.w_total = off;
-  P.act_rows = rows;
   return P.n_store >= 1 && P.n_store <= P.width[P.n_layers];
 }
 
@@ -1544,8 +1624,8 @@ extern "C" int nmr_hash_encode(const EncodeParams* p, long long n,
 
 extern "C" int nmr_mlp(const MlpParams* p, long long n, const void* x,
                        float* out, void* stream) {
-  MlpParams P = *p;
-  if (!layout(P)) return static_cast<int>(cudaErrorInvalidValue);
+  const MlpParams P = *p;
+  if (!valid_widths(P)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (P.round_bf16)
     return launch_tc_width<0>(P, n, x, nullptr, nullptr, out, s);
@@ -1559,8 +1639,8 @@ extern "C" int nmr_mlp(const MlpParams* p, long long n, const void* x,
 extern "C" int nmr_rgb_head(const MlpParams* p, long long n,
                             const float* feat, const float* dirs,
                             const float* extra, float* out, void* stream) {
-  MlpParams P = *p;
-  if (!layout(P) || P.sh_degree < 1 || P.sh_degree > 4 ||
+  const MlpParams P = *p;
+  if (!valid_widths(P) || P.sh_degree < 1 || P.sh_degree > 4 ||
       P.n_feat + SH_WIDTH + P.n_extra > P.width[0])
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1581,8 +1661,8 @@ extern "C" int nmr_encode_mlp(const EncodeParams* e, const MlpParams* p,
                               long long n, const float* table,
                               const float* pos, float* out, void* stream) {
   const EncodeParams E = *e;
-  MlpParams P = *p;
-  if (!layout(P) || !P.round_bf16 || E.n_levels < 1 ||
+  const MlpParams P = *p;
+  if (!valid_widths(P) || !P.round_bf16 || E.n_levels < 1 ||
       E.n_levels > MAX_LEVELS || P.width[0] != E.n_levels * E.n_features)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

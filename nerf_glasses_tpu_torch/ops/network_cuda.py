@@ -106,12 +106,9 @@ class EncodeParams(ctypes.Structure):
 
 
 class MlpParams(ctypes.Structure):
-    """csrc/network.cu's MlpParams (w_off, w_total and act_rows are set
-    by the launcher)."""
+    """csrc/network.cu's MlpParams."""
     _fields_ = [("n_layers", ctypes.c_int),
                 ("width", ctypes.c_int * (MAX_LAYERS + 1)),
-                ("w_off", ctypes.c_int * MAX_LAYERS),
-                ("w_total", ctypes.c_int), ("act_rows", ctypes.c_int),
                 ("round_bf16", ctypes.c_int), ("x_bf16", ctypes.c_int),
                 ("n_store", ctypes.c_int), ("n_feat", ctypes.c_int),
                 ("sh_degree", ctypes.c_int), ("n_extra", ctypes.c_int),

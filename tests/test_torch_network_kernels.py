@@ -158,61 +158,145 @@ def _fma32(a, b, c):
     return np.where(tie, np.where(e > 0.0, above, below), r).astype(F32)
 
 
-def _encode_model(table, pos, jc, bf16):
-    """hash_encode_kernel: a thread per (sample, level) -> (out (N, L*F)
-    float32 holding the output dtype's values, idx (L, N, 8) uint32,
-    weight (L, N, 8) float32)."""
+def _encode_level(table, pos, jc, lvl, bf16):
+    """encode_point on level lvl for each position -> (out (N, F) float32
+    holding the output dtype's values, idx (N, 8) uint32, weight (N, 8)
+    float32)."""
     scales, res, sizes, dense = jhash.level_constants(jc)
+    F = jc.n_features_per_level
+    n = pos.shape[0]
+    scale = F32(scales[lvl])
+    w = [[None, None] for _ in range(3)]
+    c0 = [None] * 3
+    for d in range(3):
+        p = (pos[:, d] * scale).astype(F32) + F32(0.5)
+        g = np.floor(p)
+        frac = p - g
+        w[d][0] = F32(1.0) - frac
+        w[d][1] = frac
+        c0[d] = g.astype(np.int32).astype(np.uint32)
+    r = np.uint32(res[lvl])
+    r2 = np.uint32((int(res[lvl]) * int(res[lvl])) & 0xFFFFFFFF)
+    size = np.uint32(sizes[lvl])
+    pow2 = (int(size) & (int(size) - 1)) == 0
+    acc = np.zeros((n, F), F32)
+    idx_all = np.zeros((n, 8), np.uint32)
+    w_all = np.zeros((n, 8), F32)
+    for c in range(8):
+        bx, by, bz = c & 1, (c >> 1) & 1, (c >> 2) & 1
+        wc = (w[0][bx] * w[1][by]) * w[2][bz]
+        cx = c0[0] + np.uint32(bx)
+        cy = c0[1] + np.uint32(by)
+        cz = c0[2] + np.uint32(bz)
+        with np.errstate(over="ignore"):
+            if dense[lvl]:
+                idx = cx + cy * r + cz * r2
+            else:
+                idx = cx ^ (cy * np.uint32(2654435761)) ^ (
+                    cz * np.uint32(805459861))
+        idx = idx & (size - np.uint32(1)) if pow2 else idx % size
+        v = table[lvl][idx.astype(np.int64)]
+        if bf16:
+            acc = acc + _bf16(_bf16(v) * _bf16(wc)[:, None])
+        else:
+            acc = acc + v * wc[:, None]
+        idx_all[:, c] = idx
+        w_all[:, c] = wc
+    return (_bf16(acc) if bf16 else acc), idx_all, w_all
+
+
+def _encode_model(table, pos, jc, bf16):
+    """encode_point on every (sample, level) -> (out (N, L*F) float32
+    holding the output dtype's values, idx (L, N, 8) uint32, weight (L, N,
+    8) float32)."""
     L, F = jc.n_levels, jc.n_features_per_level
     n = pos.shape[0]
     out = np.zeros((n, L * F), F32)
     idx_all = np.zeros((L, n, 8), np.uint32)
     w_all = np.zeros((L, n, 8), F32)
     for lvl in range(L):
-        scale = F32(scales[lvl])
-        w = [[None, None] for _ in range(3)]
-        c0 = [None] * 3
-        for d in range(3):
-            p = (pos[:, d] * scale).astype(F32) + F32(0.5)
-            g = np.floor(p)
-            frac = p - g
-            w[d][0] = F32(1.0) - frac
-            w[d][1] = frac
-            c0[d] = g.astype(np.int32).astype(np.uint32)
-        r = np.uint32(res[lvl])
-        r2 = np.uint32((int(res[lvl]) * int(res[lvl])) & 0xFFFFFFFF)
-        size = np.uint32(sizes[lvl])
-        pow2 = (int(size) & (int(size) - 1)) == 0
-        acc = np.zeros((n, F), F32)
-        for c in range(8):
-            bx, by, bz = c & 1, (c >> 1) & 1, (c >> 2) & 1
-            wc = (w[0][bx] * w[1][by]) * w[2][bz]
-            cx = c0[0] + np.uint32(bx)
-            cy = c0[1] + np.uint32(by)
-            cz = c0[2] + np.uint32(bz)
-            with np.errstate(over="ignore"):
-                if dense[lvl]:
-                    idx = cx + cy * r + cz * r2
-                else:
-                    idx = cx ^ (cy * np.uint32(2654435761)) ^ (
-                        cz * np.uint32(805459861))
-            idx = idx & (size - np.uint32(1)) if pow2 else idx % size
-            v = table[lvl][idx.astype(np.int64)]
-            if bf16:
-                acc = acc + _bf16(_bf16(v) * _bf16(wc)[:, None])
-            else:
-                acc = acc + v * wc[:, None]
-            idx_all[lvl, :, c] = idx
-            w_all[lvl, :, c] = wc
-        out[:, lvl * F:(lvl + 1) * F] = _bf16(acc) if bf16 else acc
+        out[:, lvl * F:(lvl + 1) * F], idx_all[lvl], w_all[lvl] = (
+            _encode_level(table, pos, jc, lvl, bf16))
     return out, idx_all, w_all
 
 
+ENCODE_THREADS, ENCODE_TILE, ENCODE_TILE_BYTES = 256, 64, 24576
+
+
+def _encode_stride(row):
+    """csrc/network.cu's encode_stride: a row of whole 16-byte pieces one
+    piece longer where their count is even; other rows contiguous."""
+    return row if row % 16 else row + (0 if row // 16 % 2 else 16)
+
+
+def _encode_tile(stride):
+    t = ENCODE_TILE
+    while t > 32 and t * stride > ENCODE_TILE_BYTES:
+        t //= 2
+    return t
+
+
+def _encode_tiled_model(table, pos, jc, bf16):
+    """hash_encode_kernel's work map: blocks of `tile` samples (the
+    launcher's choice), warp w of the block taking items w, w + 8, ...,
+    item it the level it >> gshift and the 32 samples of group it &
+    (tile / 32 - 1), a lane a sample; each lane's features into its
+    sample's row of the tile in shared memory (bytes, `stride` apart);
+    then the tile's rows out in 16-byte pieces (the bytes past the last
+    whole piece of an unpadded tile in 2-byte pieces). Checks that each
+    (sample, level) is computed once and each output byte written once ->
+    (N, L*F) float32 holding the output dtype's values."""
+    L, F = jc.n_levels, jc.n_features_per_level
+    es = 2 if bf16 else 4
+    n = pos.shape[0]
+    row = L * F * es
+    stride = _encode_stride(row)
+    tile = _encode_tile(stride)
+    gshift = (tile // 32).bit_length() - 1
+    out = np.zeros(n * row, np.uint8)
+    writes = np.zeros(n * row, np.int64)
+    done = np.zeros((n, L), np.int64)
+    lanes = np.arange(32)
+    for s0 in range(0, n, tile):
+        rows = min(tile, n - s0)
+        smem = np.zeros(tile * stride, np.uint8)
+        for warp in range(ENCODE_THREADS // 32):
+            for it in range(warp, L << gshift, ENCODE_THREADS // 32):
+                lvl = it >> gshift
+                r = ((it & ((1 << gshift) - 1)) << 5) + lanes
+                r = r[r < rows]
+                if r.size == 0:
+                    continue
+                vals, _, _ = _encode_level(table, pos[s0 + r], jc, lvl, bf16)
+                bits = vals.view(np.uint32)
+                data = ((bits >> 16).astype(np.uint16) if bf16 else bits
+                        ).view(np.uint8).reshape(r.size, F * es)
+                at = (r * stride + lvl * F * es)[:, None] + np.arange(F * es)
+                smem[at] = data
+                done[s0 + r, lvl] += 1
+        nbytes = rows * row
+        b = np.arange(0, nbytes & ~15, 16)
+        src = b if stride == row else b // row * stride + b % row
+        piece = np.arange(16)
+        dst = s0 * row + (b[:, None] + piece)
+        out[dst] = smem[src[:, None] + piece]
+        np.add.at(writes, dst.ravel(), 1)
+        tail = np.arange(nbytes & ~15, nbytes)
+        out[s0 * row + tail] = smem[tail]
+        np.add.at(writes, s0 * row + tail, 1)
+    assert np.all(done == 1) and np.all(writes == 1)
+    if bf16:
+        return (out.view(np.uint16).astype(np.uint32) << 16).view(
+            F32).reshape(n, L * F)
+    return out.view(F32).reshape(n, L * F)
+
+
 def _layers_model(a, weights, n_store):
-    """mlp_kernel's (the f32 body's) layer loop on the rows `a` (N,
-    width[0]): each layer's sums as fmaf chains over the zero-padded input
-    in order; ReLU (NaN kept) between layers; the last layer's first
-    n_store columns."""
+    """The f32 chain that the register-tiled body (mlp_kernel,
+    rgb_head_kernel) computes bit for bit, on the rows `a` (N, width[0]):
+    each layer's sums as fmaf chains over the zero-padded input in order
+    from 0; ReLU (NaN kept) between layers; the last layer's first n_store
+    columns."""
     for k, w in enumerate(weights):
         n_out, n_in = w.shape
         pad = -(-n_in // 16) * 16
@@ -229,25 +313,78 @@ def _layers_model(a, weights, n_store):
             return acc[:, :n_store]
 
 
-RT_R, RT_C, RT_LAST_C, RT_LANE_TS = 4, 16, 2, 8
+RT_R, RT_C, RT_LAST_C, RT_LAST_TC, RT_LANE_TS = 4, 16, 2, 4, 8
 
 
-def _tiled_layers_model(a, weights, n_store, grid=3, samples=256):
-    """rgb_head_kernel's register-tiled f32 body (mlp_tiles) on the rows
-    `a` (N, width[0]): `grid` blocks, each an even share of the samples in
-    tiles of `samples` (256 at hidden width 64, 128 at 128; a short
-    tile's missing rows zero), activations k-major and zero-padded to
-    pad16; a hidden layer's items, RT_R samples x RT_C columns of
-    pad16(outputs), dealt to the threads as the kernel deals them (a warp:
-    RT_LANE_TS sample groups x 32 / RT_LANE_TS column groups); the last
-    layer a sample and RT_LAST_C columns a thread, the stored ones rounded
-    up. Each output an fmaf chain over k from 0. Checks that every
+def _row_stride(row):
+    """csrc/network.cu's rt_row_stride: a staged row of `row` bytes at an
+    odd number of 16-byte pieces."""
+    pieces = -(-row // 16)
+    return 16 * (pieces if pieces % 2 else pieces + 1)
+
+
+def _staged_rows(a, x_bf16):
+    """mlp_kernel's input rows through its staging area: each tile's rows
+    of x copied row-major at _row_stride in 16-, 4- or 2-byte pieces (x
+    taken as 16-byte aligned), then read back a 16-byte chunk at a time
+    and widened to f32 (bf16 rows: the value's bits in the high half).
+    Checks that each byte of x is staged once -> the rows as the row build
+    writes them (a: the rows' values, bf16 ones exactly representable)."""
+    n, n_in = a.shape
+    es = 2 if x_bf16 else 4
+    row = n_in * es
+    stride = _row_stride(row)
+    piece = 16 if row % 16 == 0 else 4 if row % 4 == 0 else 2
+    bits = a.astype(F32).view(np.uint32)
+    src = ((bits >> 16).astype(np.uint16) if x_bf16 else bits).view(
+        np.uint8).reshape(n, row)
+    stage = np.zeros((n, stride), np.uint8)
+    copies = np.zeros((n, row), np.int64)
+    per = row // piece
+    e = np.arange(n * per)
+    s_, o = e // per, (e % per) * piece
+    for k in range(piece):
+        stage[s_, o + k] = src[s_, o + k]
+        np.add.at(copies, (s_, o + k), 1)
+    assert np.all(copies == 1)
+    pad = -(-n_in // 16) * 16
+    out = np.zeros((n, pad), F32)
+    chunk = 16 // es
+    for i in range(0, pad, chunk):
+        if i >= n_in:
+            continue
+        q = stage[:, es * i:es * i + 16]
+        vals = (q.view(np.uint16).astype(np.uint32) << 16).view(F32) \
+            if x_bf16 else q.view(F32)
+        m = min(chunk, n_in - i)
+        out[:, i:i + m] = vals[:, :m]
+    return out
+
+
+def _tiled_layers_model(a, weights, n_store, grid=3, samples=256,
+                        stage=False, x_bf16=False):
+    """mlp_kernel's and rgb_head_kernel's register-tiled f32 body
+    (mlp_tiles) on the rows `a` (N, width[0]): `grid` blocks, each an even
+    share of the samples in tiles of `samples` (256 at hidden width 64,
+    128 at 128; a short tile's missing rows zero), activations k-major and
+    zero-padded to pad16; with `stage` the rows come through mlp_kernel's
+    staging area (_staged_rows; x_bf16: rows of bf16). A hidden layer's
+    items, RT_R samples x RT_C columns of pad16(outputs), are dealt to the
+    threads as the kernel deals them (a warp: RT_LANE_TS sample groups x 32
+    / RT_LANE_TS column groups). The last layer, where it stores all its
+    pad16 columns and its items fit the block (one a thread), the same
+    way with items of RT_R samples x RT_LAST_TC columns; else a sample and
+    RT_LAST_C columns a thread, the stored ones rounded up. Each output an fmaf chain over k from 0. Checks that every
     (sample, column) of a layer is computed by exactly one thread and
     every stored output written once -> the (N, n_store) output."""
     n = a.shape[0]
+    if stage:
+        a = _staged_rows(a, x_bf16)
     pad = [-(-w.shape[1] // 16) * 16 for w in weights]
     out = np.full((n, n_store), np.nan, F32)
     writes = np.zeros((n, n_store), np.int64)
+    tiled_last = (n_store == -(-weights[-1].shape[0] // 16) * 16 and
+                  samples // RT_R * (n_store // RT_LAST_TC) <= 256)
     tiles = [(s0, min(samples, n * (b + 1) // grid - s0))
              for b in range(grid)
              for s0 in range(n * b // grid, n * (b + 1) // grid, samples)]
@@ -257,23 +394,26 @@ def _tiled_layers_model(a, weights, n_store, grid=3, samples=256):
         for k, w in enumerate(weights):
             n_out, n_in = w.shape
             last = k + 1 == len(weights)
-            cols = (-(-n_store // RT_LAST_C) * RT_LAST_C if last
+            cols = (n_store if last and tiled_last
+                    else -(-n_store // RT_LAST_C) * RT_LAST_C if last
                     else -(-n_out // 16) * 16)
             wk = np.zeros((pad[k], cols), F32)        # k-major, zero-padded
             m = min(n_out, cols)
             wk[:n_in, :m] = w[:m].T
-            if last:
+            if last and not tiled_last:
                 it = np.arange(samples * (cols // RT_LAST_C))
                 samp = (it % samples)[:, None]
                 col = (it // samples * RT_LAST_C)[:, None] + np.arange(
                     RT_LAST_C)[None]
             else:
-                groups = cols // RT_C
+                c = RT_LAST_TC if last else RT_C
+                groups = cols // c
                 it = np.arange(samples // RT_R * groups)
+                assert it.size <= 256                 # RT_THREADS
                 tj = it // RT_LANE_TS % groups
                 ts = it % RT_LANE_TS + RT_LANE_TS * (it // RT_LANE_TS // groups)
                 samp = ts[:, None] * RT_R + np.arange(RT_R)[None]
-                col = tj[:, None] * RT_C + np.arange(RT_C)[None]
+                col = tj[:, None] * c + np.arange(c)[None]
                 # a warp's threads: RT_LANE_TS sample groups x the rest
                 # column groups, each (sample group, column group) once
                 for w0 in range(0, it.size, 32):
@@ -328,12 +468,16 @@ def _tc_layers_model(a, weights, n_store):
             return acc[:, :n_store]
 
 
-def _mlp_model(x, weights, bf16):
+def _mlp_model(x, weights, bf16, x_bf16=False):
     """nmr_mlp: at bf16 the input row rounded to bf16 and the tensor-core
-    chain, at f32 the f32 body's layers."""
+    chain; at f32 the register-tiled body (its rows staged, x_bf16: rows
+    of bf16), bit for bit the f32 chain."""
     if bf16:
         return _tc_layers_model(_bf16(x), weights, weights[-1].shape[0])
-    return _layers_model(x, weights, weights[-1].shape[0])
+    hid = max(w.shape[0] for w in weights)
+    return _tiled_layers_model(x, weights, weights[-1].shape[0],
+                               samples=256 if hid <= 64 else 128,
+                               stage=True, x_bf16=x_bf16)
 
 
 def _sh_model(d, degree):
@@ -392,7 +536,9 @@ def _rgb_head_model(feat, dirs, weights, jc, bf16, extra=None):
     row = _rgb_row(feat, dirs, jc, extra)
     if bf16:
         return _tc_layers_model(_bf16(row), weights, 3)
-    return _tiled_layers_model(row, weights, 3)
+    hid = max(w.shape[0] for w in weights)
+    return _tiled_layers_model(row, weights, 3,
+                               samples=256 if hid <= 64 else 128)
 
 
 def _encode_mlp_model(table, pos, jc, weights, bf16_encode):
@@ -448,6 +594,9 @@ def test_encode_model_matches_plain(name, dtype):
                                      DTYPES[dtype])
     assert plain.dtype == DTYPES[dtype] and plain.shape == out.shape
     _assert_contract("encode", out, plain, DTYPES[dtype])
+    # the kernel's work map gives the same rows
+    assert np.array_equal(_encode_tiled_model(table, pos, jc, bf16).view(
+        np.uint32), out.view(np.uint32))
     scales, res, sizes, dense = thash.level_constants(tc)
     if name == "test_cfg":
         assert dense.any() and (~dense).any()
@@ -458,6 +607,45 @@ def test_encode_model_matches_plain(name, dtype):
             bool(dense[lvl]))
         np.testing.assert_array_equal(idx[lvl].astype(np.int64), ti.numpy())
         np.testing.assert_array_equal(wts[lvl], tw.numpy())
+
+
+# (levels, features) of the encode tiling's cases: L = 8 and 16 at F = 2
+# and 4; F = 8 (f32 rows of 512 bytes: 32-sample tiles) and 5 levels x 1
+# (rows of 20 and 10 bytes: an unpadded tile, a bf16 tail in 2-byte stores)
+TILED_LF = {"l8f2": (8, 2), "l8f4": (8, 4), "l16f2": (16, 2), "l16f4": (16, 4),
+            "l16f8": (16, 8), "l5f1": (5, 1)}
+
+
+@functools.lru_cache(maxsize=None)
+def _lf_case(lf):
+    L, F = TILED_LF[lf]
+    jc = JCfg(n_levels=L, n_features_per_level=F, log2_hashmap_size=15)
+    return jc, _table(jc, seed=L + F)
+
+
+@pytest.mark.parametrize("n", [0, 1, 31, 33, 300])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("lf", list(TILED_LF))
+def test_encode_tiling_is_the_encode_bit_for_bit(lf, dtype, n):
+    """The standalone encode's work map (_encode_tiled_model: blocks of
+    whole samples, a warp 32 samples on one level, each (sample, level)
+    computed once, the rows out through the shared tile in 16-byte pieces,
+    each byte once) on tile tails of 0, 1, 31, 33 and 300 samples, at L =
+    8 and 16 and F = 2, 4 and 8 (rows of 32-512 bytes, padded, in tiles of
+    64 and 32 samples) and at 5 levels x 1 (unpadded rows): bit for bit
+    the encode's model, and the plain version under the encode
+    contract."""
+    jc, table = _lf_case(lf)
+    pos = _positions(jc, n=max(n, 192), seed=n)[:n]
+    bf16 = dtype == "bfloat16"
+    got = _encode_tiled_model(table, pos, jc, bf16)
+    want, _, _ = _encode_model(table, pos, jc, bf16)
+    assert got.shape == (n, jc.n_pos_features)
+    assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+    plain = nc.hash_encode_reference(torch.as_tensor(table),
+                                     torch.as_tensor(pos), _tcfg(jc),
+                                     DTYPES[dtype])
+    _assert_contract("encode", got, plain, DTYPES[dtype])
 
 
 @pytest.mark.parametrize("n", [0, 1])
@@ -488,7 +676,8 @@ def test_mlp_model_matches_plain(dtype, n):
             tx = tx.to(torch.bfloat16)
         plain = nc.mlp_reference(tx, tw, DTYPES[dtype])
         assert plain.shape == (n, 16) and plain.dtype == torch.float32
-        _assert_contract("mlp", _mlp_model(xin, weights, bf16), plain,
+        _assert_contract("mlp", _mlp_model(xin, weights, bf16,
+                                           x_bf16=xin is not x), plain,
                          DTYPES[dtype])
 
 
@@ -580,32 +769,45 @@ def test_rgb_head_model_edge_counts(n):
                                             codes), plain, torch.bfloat16)
 
 
-@pytest.mark.parametrize("n", [1, 300])
+@pytest.mark.parametrize("n", [1, 63, 300, "tile+44"])
 @pytest.mark.parametrize("hid", [64, 128])
-@pytest.mark.parametrize("kind", ["rgb32", "rgb48", "mlp", "odd"])
+@pytest.mark.parametrize("kind", ["rgb32", "rgb48", "mlp", "odd", "mlp_bf16",
+                                  "mlp32", "mlp64"])
 def test_tiled_body_is_the_f32_chain_bit_for_bit(kind, hid, n):
     """The register-tiled f32 body's work map (_tiled_layers_model: which
-    thread computes which sample and column, each once) on a tail of 44
-    samples after a whole tile, or one sample: bit for bit the
-    thread-per-sample body's fmaf chains (_layers_model), and the plain
-    version under the f32 contract. Kinds: the rgb head at E = 0 and 8,
-    a density MLP (all 16 columns stored: mlp_kernel's shape), and hidden
-    widths and a stored width that are not multiples of RT_C or
-    RT_LAST_C."""
-    jc, weights = _tc_case("mlp" if kind == "odd" else kind, hid)
+    thread computes which sample and column, each once) on 1, 63 and 300
+    samples over three blocks, and on one block's whole tile and a tail of
+    44 ("tile+44"): bit for bit the fmaf chains (_layers_model), and the
+    plain version under the f32 contract. Kinds: the rgb head at E = 0 and
+    8 (its last layer's 3 stored columns); a density MLP (mlp_kernel's
+    shape: its rows staged, all 16 columns of the last layer stored, so
+    register-tiled) with f32 rows and with bf16 rows ("mlp_bf16", widened
+    to f32 in the row build); density MLPs whose last layer stores 32 and
+    64 columns ("mlp32", "mlp64": tiled only where its items fit the
+    block, 32 columns at hidden width 128, else a sample a thread); and
+    hidden widths and a stored width that
+    are not multiples of RT_C or RT_LAST_C (its rows staged too)."""
+    samples = 256 if hid <= 64 else 128
+    grid, n = (1, samples + 44) if n == "tile+44" else (3, n)
+    jc, weights = _tc_case("mlp" if kind in ("odd", "mlp_bf16") else kind,
+                           hid)
     x, feat, dirs, codes = _tc_inputs(jc, n, seed=hid + n + 1)
     if kind == "odd":
         rng = np.random.default_rng(hid)
         weights = [rng.standard_normal(sh).astype(F32) * F32(0.3)
                    for sh in ((hid - 4, 32), (hid - 12, hid - 4),
                               (5, hid - 12))]
+    x_bf16 = kind == "mlp_bf16"
+    if x_bf16:
+        x = _bf16(x)
     if kind.startswith("rgb"):
         rows = _rgb_row(feat, dirs, jc, codes if kind == "rgb48" else None)
         n_store = 3
     else:
         rows, n_store = x, weights[-1].shape[0]
-    got = _tiled_layers_model(rows, weights, n_store,
-                              samples=256 if hid <= 64 else 128)
+    got = _tiled_layers_model(rows, weights, n_store, grid=grid,
+                              samples=samples,
+                              stage=not kind.startswith("rgb"), x_bf16=x_bf16)
     want = _layers_model(rows, weights, n_store)
     assert np.array_equal(got.view(np.int32), want.view(np.int32))
     tw = [torch.as_tensor(w) for w in weights]
@@ -616,19 +818,23 @@ def test_tiled_body_is_the_f32_chain_bit_for_bit(kind, hid, n):
             torch.as_tensor(codes) if kind == "rgb48" else None)
         _assert_contract("rgb", got, plain, torch.float32)
     else:
+        tx = torch.as_tensor(x)
         _assert_contract("mlp", got, nc.mlp_reference(
-            torch.as_tensor(x), tw, torch.float32), torch.float32)
+            tx.to(torch.bfloat16) if x_bf16 else tx, tw, torch.float32),
+            torch.float32)
 
 
 def _tc_case(kind, hid):
-    """A density MLP (kind "mlp", 32 -> hid -> 16) or an rgb head of input
-    width 32 ("rgb32") or 48 (8 latent dims, "rgb48"; hid -> hid -> 16)."""
+    """A density MLP (kind "mlp", 32 -> hid -> 16; "mlp32" and "mlp64":
+    -> 32 or 64) or an rgb head of input width 32 ("rgb32") or 48 (8
+    latent dims, "rgb48"; hid -> hid -> 16)."""
     E = 8 if kind == "rgb48" else 0
+    out = int(kind[3:]) if kind[3:].isdigit() else 16
     jc = JCfg(n_extra_learnable_dims=E, log2_hashmap_size=15,
-              density_neurons=hid, rgb_neurons=hid)
+              density_neurons=hid, rgb_neurons=hid, density_out=out)
     d_shapes, r_shapes = jc.mlp_shapes()
-    return jc, _mlp_weights(d_shapes if kind == "mlp" else r_shapes,
-                            seed=20 + hid + E)
+    return jc, _mlp_weights(d_shapes if kind.startswith("mlp") else r_shapes,
+                            seed=20 + hid + E + (out if out != 16 else 0))
 
 
 def _tc_inputs(jc, n, seed, scale=50.0):
@@ -1261,11 +1467,83 @@ def test_encode_and_mlp_kernels_match_plain_on_card(name, dtype):
     r = nc.compare_with_plain("encode", enc, nc.hash_encode_reference(
         net.grid, pos, tc, DTYPES[dtype]), DTYPES[dtype])
     assert r["ok"], r
+    want, _, _ = _encode_model(_params(jc)["grid"], _positions(jc, n=4099),
+                               jc, dtype == "bfloat16")
+    assert np.array_equal(enc.float().cpu().numpy().view(np.uint32),
+                          want.view(np.uint32))
+    f32 = nc.mlp(enc, net.density_mlp, torch.float32)
+    chain = _layers_model(enc.float().cpu().numpy(),
+                          [w.cpu().numpy() for w in net.density_mlp], 16)
+    assert np.array_equal(f32.cpu().numpy().view(np.int32),
+                          chain.view(np.int32))
     for cd in DTYPES.values():
         r = nc.compare_with_plain("mlp", nc.mlp(enc, net.density_mlp, cd),
                                   nc.mlp_reference(enc, net.density_mlp, cd),
                                   cd)
         assert r["ok"], r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("lf", list(TILED_LF))
+def test_hash_encode_kernel_is_its_model_on_card(lf, dtype):
+    """nmr_hash_encode on 1, 31, 33 and 4,099 samples (tiles of 64 or 32
+    and their tails) at TILED_LF's widths: bit for bit the
+    encode's model (which its tiled work map matches bit for bit,
+    test_encode_tiling_is_the_encode_bit_for_bit), within the contract of
+    the plain version; one launch a call."""
+    _needs_card()
+    jc, table = _lf_case(lf)
+    tc = _tcfg(jc)
+    tt = torch.as_tensor(table, device="cuda")
+    for n in (1, 31, 33, 4099):
+        pos = _positions(jc, n=max(n, 192), seed=n)[:n]
+        tp = torch.as_tensor(pos, device="cuda")
+        before = nc.launches["hash_encode"]
+        got = nc.hash_encode(tt, tp, tc, DTYPES[dtype])
+        torch.cuda.synchronize()
+        assert nc.launches["hash_encode"] == before + 1
+        want, _, _ = _encode_model(table, pos, jc, dtype == "bfloat16")
+        assert np.array_equal(got.float().cpu().numpy().view(np.uint32),
+                              want.view(np.uint32))
+        r = nc.compare_with_plain("encode", got, nc.hash_encode_reference(
+            tt, tp, tc, DTYPES[dtype]), DTYPES[dtype])
+        assert r["ok"], r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["mlp", "mlp32", "mlp64"])
+@pytest.mark.parametrize("rows", list(DTYPES))
+@pytest.mark.parametrize("hid", [64, 128])
+def test_f32_mlp_kernel_is_the_chain_on_card(hid, rows, kind):
+    """nmr_mlp at the f32 compute dtype (the register-tiled body: rows
+    staged; the last layer's 16 columns tiled, and 32 or 64 stored
+    columns, tiled where its items fit the block) on 1, 63, 257 and 4,099
+    rows of f32 and of bf16, a NaN row kept: bit for bit the f32 chain
+    (_layers_model; its tiled model matches it bit for bit,
+    test_tiled_body_is_the_f32_chain_bit_for_bit), within the f32
+    contract of the plain version; one launch a call."""
+    _needs_card()
+    jc, weights = _tc_case(kind, hid)
+    tw = [torch.as_tensor(w, device="cuda") for w in weights]
+    for n in (1, 63, 257, 4099):
+        x = _tc_inputs(jc, n, seed=n, scale=1.0)[0]
+        if n > 1:
+            x[1, 7] = np.nan
+        if rows == "bfloat16":
+            x = _bf16(x)
+        tx = torch.as_tensor(x, device="cuda").to(DTYPES[rows])
+        before = nc.launches["mlp"]
+        got = nc.mlp(tx, tw, torch.float32)
+        torch.cuda.synchronize()
+        assert nc.launches["mlp"] == before + 1
+        want = _layers_model(x, weights, weights[-1].shape[0])
+        g = got.cpu().numpy()
+        assert np.array_equal(np.isnan(g), np.isnan(want))
+        live = ~np.isnan(want)
+        assert np.array_equal(g[live].view(np.int32), want[live].view(np.int32))
+        _hold_nan_rows("mlp", got, nc.mlp_reference(tx, tw, torch.float32),
+                       torch.float32, [1] if n > 1 else [])
 
 
 @pytest.mark.cuda

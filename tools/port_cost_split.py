@@ -1,7 +1,7 @@
 """Where the port's kernels spend their time on the card (PERF.md section
-6 rows 9 and 11-13, section 7): kernel variants built from edited copies
+6 rows 7-9 and 11-13, section 7): kernel variants built from edited copies
 of the sources, each timed in turns with the others on the 720p frames'
-own calls. Two splits:
+own calls. Three splits:
 
     mkdir -p _chipwork/before
     git archive 82e6be5 nerf_glasses_tpu_torch | tar -x -C _chipwork/before
@@ -10,6 +10,10 @@ own calls. Two splits:
     mkdir -p _chipwork/parent
     git archive 37ce2e7 nerf_glasses_tpu_torch | tar -x -C _chipwork/parent
     python3 tools/port_cost_split.py shade _chipwork/parent [DIR ...] > shade.log 2>&1
+
+    mkdir -p _chipwork/parent
+    git archive 29e255e nerf_glasses_tpu_torch | tar -x -C _chipwork/parent
+    python3 tools/port_cost_split.py encode _chipwork/parent [DIR ...] > encode.log 2>&1
 
 walk: DIR holds the package as it was at commit 82e6be5 (its list walk
 wrote a lane's rows itself, its plan wrote every tile's rays). Under
@@ -46,16 +50,34 @@ forms of the kernel, each a package with ops/frame_cuda.py and
 csrc/frame.cu) and this tree's on the exact frame's own surface shade
 call (each compared with this tree's bit for bit). Then the f32 bodies on
 the f32 frame's first-epoch calls (chip_smoke.py phase 4b): DIR's and
-this tree's rgb head and density MLP, a copy of this tree's
-csrc/network.cu whose rgb head reads its input rows directly
-(rows_direct: no cp.async staging), and the further DIRs' that have
+this tree's rgb head and density MLP, and the further DIRs' that have
 ops/network_cuda.py, each beside its bound with the launches a frame
-times the time over the bound, and each rgb_head_kernel instance's
-registers, stack and LDL/STL.
+times the time over the bound, and each rgb_head_kernel and mlp_kernel
+instance's registers, stack, LDL/STL and SASS instructions, with the
+opcodes whose counts differ from DIR's.
+
+encode: DIR holds the package as it was at commit 29e255e (a thread a
+(sample, level) in the standalone hash encode, i = sample * L + level
+divided by L in 64 bits, the output a thread's F features). Copies of
+DIR's ops/network_cuda.py and csrc/network.cu with one edit each:
+- nostore: no output store (the sums kept live by a store that never
+  runs);
+- nogather: no table load (each corner's row made from its index in
+  registers; the stores kept);
+- idx32: the sample and level from 32-bit arithmetic in place of i / L;
+and of this tree's: tree_nogather (no table load); each timed in turns
+with DIR's kernel, any further DIRs' and this tree's on the f32 frame's
+first-epoch encode call (chip_smoke.py phase 4b), each compared with
+this tree's bit for bit, beside the bound; with, for each version's f32
+and bf16 instance at F = 4, how many of its table loads issue before
+the first instruction that reads one (cuobjdump -sass). Then the f32
+bodies and the encode on that frame's calls as in shade (f32_split),
+against DIR's and any further DIRs'. Every variant builds in parallel.
 
 Device time by torch.profiler with L2 flushed (chip_smoke.kernel_device_ms).
 Needs one NVIDIA GPU and nvcc.
 """
+import collections
 import concurrent.futures
 import dataclasses
 import os
@@ -164,13 +186,32 @@ TREE_SHADE_EDITS = {
     "noshade": [("        shade_hit(P, a, nrm_mats, id, a.u[r], a.v[r], t, d, "
                  "rgb);\n", "        rgb[0] = rgb[1] = rgb[2] = t;\n")],
 }
-# this tree's register-tiled f32 rgb head with its input rows read
-# directly instead of staged by cp.async
-NET_EDITS = {
-    "rows_direct": [
-        ("  if (KIND == 1 && s_begin < s_end)\n", "  if (false)\n"),
-        ("      else if (KIND == 1)\n", "      else if (false)\n"),
-        ("    if (KIND == 1 && s0 + S < s_end)\n", "    if (false)\n")],
+# this tree's standalone encode with no table load (timing only)
+TREE_ENCODE_EDITS = {
+    "tree_nogather": [(
+        "  for (int c = 0; c < 8; ++c) load_row<F>(lvl + (long long)idx[c] * F, v[c]);\n",
+        "  for (int c = 0; c < 8; ++c)   // no load: a row from the index\n"
+        "#pragma unroll\n    for (int f = 0; f < F; ++f)\n"
+        "      v[c][f] = __uint_as_float(0x3f800000u | (idx[c] & 7u));\n")],
+}
+# 29e255e's standalone encode: a thread a (sample, level)
+ENCODE_EDITS = {
+    "nostore": [(
+        "    const long long o = i * F;                // (s * L + l) * F\n",
+        "    if (__fadd_rn(__fadd_rn(acc[0], acc[F > 1 ? 1 : 0]),\n"
+        "                  __fadd_rn(acc[F > 2 ? 2 : 0], acc[F - 1])) !=\n"
+        "        1.5e-38f)\n"
+        "      continue;             // always: the sums live, never stored\n"
+        "    const long long o = i * F;                // (s * L + l) * F\n")],
+    "nogather": [(
+        "    float v[F];\n    load_row<F>(lvl + (long long)idx * F, v);\n",
+        "    float v[F];\n    (void)lvl;\n#pragma unroll\n"
+        "    for (int f = 0; f < F; ++f)     // no load: a row from the index\n"
+        "      v[f] = __uint_as_float(0x3f800000u | (idx & 7u));\n")],
+    "idx32": [(
+        "    const long long s = i / L;\n    const int l = (int)(i - s * L);\n",
+        "    const unsigned s = (unsigned)i / (unsigned)L;\n"
+        "    const int l = (int)((unsigned)i - s * (unsigned)L);\n")],
 }
 PLAN_EDITS = {"bins_only": [(
     "  if (count == 0) return;              // (the block's total: uniform)",
@@ -231,9 +272,10 @@ def res_usage(module, label):
                   f"local bytes, {ldst} LDL/STL")
 
 
-def rgb_instances(module, label):
-    """Registers, stack bytes and LDL/STL of each f32 rgb_head_kernel
-    instance in `module`'s library (cuobjdump)."""
+def f32_instances(module, label):
+    """Registers, stack bytes, LDL/STL and SASS instructions of each f32
+    rgb_head_kernel and mlp_kernel instance in `module`'s library
+    (cuobjdump) -> each instance's count of each SASS opcode."""
     cuobjdump = os.path.join(os.path.dirname(cuda_build.nvcc()), "cuobjdump")
     lib = module.load_library()._name
 
@@ -243,24 +285,115 @@ def rgb_instances(module, label):
 
     def name_of(line):
         k = cs.KERNEL_NAME.search(line)
-        return (cs.instance_name(k) if k and k.group(1) == "rgb_head_kernel"
-                else None)
+        return (cs.instance_name(k) if k and k.group(1) in (
+            "rgb_head_kernel", "mlp_kernel") else None)
 
-    out, cur = {}, None
+    out, ops, cur = {}, {}, None
     for line in dump("-res-usage"):
         if "Function" in line:
             cur = name_of(line)
         elif cur and cs.RES_USAGE.search(line):
             out[cur] = list(map(int, cs.RES_USAGE.search(line).groups())) + [0]
+            ops[cur] = collections.Counter()
     cur = None
     for line in dump("-sass"):
         if "Function :" in line:
             cur = name_of(line)
-        elif cur in out and cs.LOCAL_OP.search(line):
-            out[cur][3] += 1
+        elif cur in out:
+            m = cs.SASS_OP.search(line)
+            if m:
+                ops[cur][m.group(2)] += 1
+            if cs.LOCAL_OP.search(line):
+                out[cur][3] += 1
     for k, (reg, stack, local, ldst) in sorted(out.items()):
         print(f"{label} {k}: {reg} registers, {stack} stack, {local} local "
-              f"bytes, {ldst} LDL/STL")
+              f"bytes, {ldst} LDL/STL, {sum(ops[k].values())} SASS "
+              f"instructions")
+    return ops
+
+
+def sass_diffs(versions):
+    """versions: [(label, f32_instances' counts)], the first the base:
+    for each other version's instance, the opcodes whose counts differ
+    from the base's."""
+    (base_label, base), rest = versions[0], versions[1:]
+    for label, ops in rest:
+        for k in sorted(set(base) & set(ops)):
+            d = {op: ops[k][op] - base[k][op] for op in base[k] | ops[k]
+                 if ops[k][op] != base[k][op]}
+            print(f"{label} {k} SASS against {base_label}'s: "
+                  + (", ".join(f"{op} {n:+d}" for op, n in sorted(d.items()))
+                     or "the same opcodes and counts"))
+
+
+SASS_LOAD = re.compile(r"^LDG\.E(?:\.(64|128))?")
+SASS_REG = re.compile(r"\bR(\d+)\b")
+
+
+def loads_in_flight(module, label):
+    """For hash_encode_kernel<4, f32> and <4, bf16> in `module`'s library
+    (cuobjdump -sass): each run of global loads that issue before the
+    first instruction that reads one of them (their destination
+    registers), the run's length; a gather of 8 corner rows whose loads
+    are all in flight before the first add shows runs of 8 or more."""
+    cuobjdump = os.path.join(os.path.dirname(cuda_build.nvcc()), "cuobjdump")
+    lib = module.load_library()._name
+    lines = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
+                           text=True, check=True).stdout.splitlines()
+    funcs, cur = {}, None
+    for line in lines:
+        if "Function :" in line:
+            k = cs.KERNEL_NAME.search(line)
+            cur = cs.instance_name(k) if k and k.group(1) == (
+                "hash_encode_kernel") and k.group(2) == "4" else None
+            if cur:
+                funcs[cur] = []
+        elif cur:
+            m = cs.SASS_OP.search(line)
+            if m:
+                funcs[cur].append((m.group(2), m.group(3)))
+    for name, ops in sorted(funcs.items()):
+        runs, pending, run = [], set(), 0
+        for op, args in ops:
+            regs = [int(r) for r in SASS_REG.findall(args)]
+            ld = SASS_LOAD.match(op)
+            srcs = regs if op.startswith(("ST", "RED", "ATOM")) else regs[1:]
+            if pending & set(srcs):
+                runs.append(run)
+                pending, run = set(), 0
+            if ld and regs:
+                width = {"64": 2, "128": 4}.get(ld.group(1), 1)
+                pending |= set(range(regs[0], regs[0] + width))
+                run += 1
+        print(f"{label} {name}: {len(ops)} SASS instructions; table and "
+              f"position loads issued before the first use of one, run by "
+              f"run: {runs}")
+
+
+def encode_split(args, label, others):
+    """The standalone encode's versions in turns on the f32 frame's first
+    call, each against this tree's bit for bit, beside the bound."""
+    with torch.no_grad():
+        got = network_cuda.hash_encode(*args)
+        torch.cuda.synchronize()
+        b_ms, b_by = cs.network_bound("hash_encode", args)
+        print(f"{label} hash_encode: {args[1].shape[0]} samples, bound "
+              f"{b_ms:.4f} ms ({b_by}); against the plain version "
+              f"{network_cuda.compare_with_plain('encode', got, network_cuda.hash_encode_reference(*args), args[3])}")
+        for v, m in others:
+            print(f"{label} hash_encode of {v} bit for bit this tree's: "
+                  f"{cs.same_bits(m.hash_encode(*args), got)}")
+        versions = others + [("this tree", network_cuda)]
+        times = {v: [] for v, _ in versions}
+        for v, m in (versions + versions[::-1]) * 2:
+            times[v].append(cs.kernel_device_ms(
+                "hash_encode", lambda m=m: m.hash_encode(*args), REPS))
+    print(f"{label} hash_encode device ms in turns (torch.profiler, L2 "
+          f"flushed):")
+    for v, ts in times.items():
+        print(f"  {v:20s} " + ", ".join(f"{x:.4f}" for x in ts)
+              + f"  mean {np.mean(ts):.4f}, {b_ms / np.mean(ts):.1%} of the "
+              f"bound")
 
 
 def walk_split(calls, label, others):
@@ -373,10 +506,9 @@ def shade_split(renderer, label, others):
               + f"  mean {np.mean(ts):.4f}")
 
 
-def f32_split(renderer, nerf, label, others):
-    """The f32 frame's first-epoch rgb head and density MLP calls: each
-    version's device time beside the bound, and launches x (time - bound)
-    over the frame; the density MLP of the first of `others` (DIR) only."""
+def f32_calls(renderer, nerf):
+    """The f32 frame's first-epoch network calls (chip_smoke.py phase 4b)
+    and the frame's launches of each wrapper."""
     saved = dict(nerf.march_overrides)
     nerf.march_overrides = {**saved, "compute_dtype": "float32"}
     try:
@@ -387,8 +519,18 @@ def f32_split(renderer, nerf, label, others):
         runs = {k: network_cuda.launches[k] - before[k] for k in before}
     finally:
         nerf.march_overrides = saved
+    return calls, runs
+
+
+def f32_split(renderer, nerf, label, others):
+    """The f32 frame's first-epoch rgb head, density MLP and encode calls:
+    each version's device time beside the bound, and launches x (time -
+    bound) over the frame; the encode of the first of `others` (DIR)
+    only."""
+    calls, runs = f32_calls(renderer, nerf)
     with torch.no_grad():
-        for name, mine in (("rgb_head", others), ("mlp", others[:1])):
+        for name, mine in (("rgb_head", others), ("mlp", others),
+                           ("hash_encode", others[:1])):
             args = calls[name]
             b_ms, b_by = cs.network_bound(name, args)
             got = getattr(network_cuda, name)(*args)
@@ -402,7 +544,8 @@ def f32_split(renderer, nerf, label, others):
                 times[v].append(cs.kernel_device_ms(
                     name, lambda m=m: getattr(m, name)(*args), REPS))
             print(f"{label} f32 {name}: {runs[name]} launches a frame, "
-                  f"{args[0].shape[0]} rows on the first; bound {b_ms:.4f} "
+                  f"{args[1 if name == 'hash_encode' else 0].shape[0]} rows "
+                  f"on the first; bound {b_ms:.4f} "
                   f"ms ({b_by}); device ms in turns (torch.profiler, L2 "
                   f"flushed):")
             for v, ts in times.items():
@@ -441,16 +584,40 @@ def main_shade(tmp, before, extra=()):
                for name, edits in TREE_SHADE_EDITS.items()] + list(extra))
     others = [(os.path.basename(p), m) for p, m in
               cs.other_checkouts(dirs, "frame_cuda")]
-    net_dirs = [before] + [variant(here, name, "network_cuda", "network.cu",
-                                   edits)
-                           for name, edits in NET_EDITS.items()] + list(extra)
     net_others = [(os.path.basename(p), m) for p, m in
-                  cs.other_checkouts(net_dirs, "network_cuda")]
-    for label, m in net_others + [("this tree", network_cuda)]:
-        rgb_instances(m, label)
+                  cs.other_checkouts([before] + list(extra), "network_cuda")]
+    sass_diffs([(label, f32_instances(m, label))
+                for label, m in net_others + [("this tree", network_cuda)]])
     renderer, nerf = cs.make_renderer(dev, cs.W, cs.H, glasses)
     renderer.frame()
     shade_split(renderer, "exact 720p", others)
+    f32_split(renderer, nerf, "exact 720p", net_others)
+    print(f"[done: {time.perf_counter() - t0:.1f} s]")
+
+
+def main_encode(tmp, before, extra=()):
+    t0 = time.perf_counter()
+    dev, glasses = setup(tmp)
+    src = os.path.join(before, "nerf_glasses_tpu_torch")
+    here = os.path.join(ROOT, "nerf_glasses_tpu_torch")
+    dirs = ([before] + [variant(src, name, "network_cuda", "network.cu",
+                                edits)
+                        for name, edits in ENCODE_EDITS.items()]
+            + [variant(here, name, "network_cuda", "network.cu", edits)
+               for name, edits in TREE_ENCODE_EDITS.items()]
+            + list(extra))
+    others = [(os.path.basename(p), m) for p, m in
+              cs.other_checkouts(dirs, "network_cuda")]
+    for label, m in others + [("this tree", network_cuda)]:
+        loads_in_flight(m, label)
+    net_others = [o for o in others if o[0] not in ENCODE_EDITS
+                  and o[0] not in TREE_ENCODE_EDITS]
+    sass_diffs([(label, f32_instances(m, label))
+                for label, m in net_others + [("this tree", network_cuda)]])
+    renderer, nerf = cs.make_renderer(dev, cs.W, cs.H, glasses)
+    renderer.frame()
+    encode_split(f32_calls(renderer, nerf)[0]["hash_encode"], "exact 720p f32",
+                 others)
     f32_split(renderer, nerf, "exact 720p", net_others)
     print(f"[done: {time.perf_counter() - t0:.1f} s]")
 
@@ -499,12 +666,15 @@ def main(tmp, before):
 
 
 if __name__ == "__main__":
-    if len(sys.argv) < 3 or sys.argv[1] not in ("walk", "shade") or (
+    if len(sys.argv) < 3 or sys.argv[1] not in ("walk", "shade", "encode") or (
             sys.argv[1] == "walk" and len(sys.argv) != 3):
         sys.exit(__doc__)
     with tempfile.TemporaryDirectory() as d:
         if sys.argv[1] == "walk":
             main(d, os.path.abspath(sys.argv[2]))
+        elif sys.argv[1] == "encode":
+            main_encode(d, os.path.abspath(sys.argv[2]),
+                        [os.path.abspath(x) for x in sys.argv[3:]])
         else:
             main_shade(d, os.path.abspath(sys.argv[2]),
                        [os.path.abspath(x) for x in sys.argv[3:]])
