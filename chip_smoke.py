@@ -19,7 +19,9 @@ tree's bit for bit (the fused advance + samples its advance followed by
 its samples); and each DIR that is a whole checkout (with its own
 chip_smoke.py) renders its exact 720p frame with its own package in a
 process of its own, its device operations and busy time printed in
-turns with this tree's (phase 5b). A variant of a kernel is
+turns with this tree's (phase 5b), and trains the same way (phase 14b:
+to the loss contract, settled steps/s, step profiles). A variant of a
+kernel is
 timed the same
 way: a copy of this tree unpacked under the git-ignored _chipwork/ with
 the variant edited in (for example network.cu's ENCODE_MLP_BLOCKS_PER_SM)
@@ -212,13 +214,22 @@ procedural glasses glTF written here) + frame(), with the mesh pass at
      (the tiled kernel launched);
  12. train from scratch (NGPConfig.native_fast(), 2048 rays x 48 samples,
      seed 3): train_until(0.00175, max_steps=2000) must reach the loss
-     contract; steps, seconds, peak memory and the compaction gate; then a
+     contract; steps, seconds, peak memory and the compaction gate; every
+     step launched the geometry pass (nmr_training_samples) once and the
+     encode's forward and backward (nmr_hash_encode,
+     nmr_hash_encode_backward), and no training forward
+     took the plain encode on the card (plain_on_card's hash_encode and
+     encode_mlp 0 here and in phases 14-16: train_route_check); then a
      fresh trainer's steps/s over 32 steps after 64 settle steps;
  13. save_snapshot, NerfMeshRenderer.load_nerf of that file, the 4 holdout
      views on the exact path over white: >= 28 dB mean PSNR; the
      density_at scan puts the hot cells on the head sphere;
- 14. resume: Trainer.load_snapshot(trained_head_v6), 16 steps, 32 timed;
-     the compaction gate must be open; the keep-set overflow count; one
+ 14. resume: Trainer.load_snapshot(trained_head_v6), 16 steps, 32 timed
+     (the training kernels launched once a step in them); the compaction
+     gate must be open; the keep-set overflow count; one settled step's
+     device operations under torch.profiler with its top operators, and
+     three more under op_counts (the host's API calls, kernel launches,
+     busy and wall ms, plain_on_card); one
      settled step's Memcpy HtoD and cudaStreamSynchronize counts with the
      hash encode's corner offsets cached on the device and, in the same
      call, rebuilt from the host on every level as before; the trainer's
@@ -226,6 +237,23 @@ procedural glasses glTF written here) + frame(), with the mesh pass at
      density-grid refresh, one compaction-gate query) launch the fused
      encode + MLP kernel with no plain call on the card, and each
      recorded call is held against its plain version as in phase 5c;
+14b. the training kernels on the settled trainer's own step, each
+     wrapper's first call recorded from it: the geometry pass against its
+     plain version on the card under march_cuda.compare_training_samples'
+     contract (valid masks apart on at most 0.1% of the (S, B) slots, t
+     and dt to 1e-5 where both are valid) and bit for bit the CPU plain
+     version, the encode's forward at the step's bf16 output under
+     network_cuda.compare_with_plain's "encode" contract (within one bf16
+     ulp of the larger magnitude), the encode's backward under
+     network_cuda.compare_gradients' (table and positions to 1e-5 of
+     their largest magnitudes; once more with the positions' gradient);
+     each kernel's device ms (L2 flushed),
+     events, the plain version's ms, its bound and share, for the
+     backward one index_add_ of the same rows as the yardstick; with a DIR
+     that is a whole checkout, each checkout's training in a process of
+     its own, in turns (training_in_turns): seconds and steps to the loss
+     contract from scratch, settled steps/s, three settled steps'
+     operations, launches, busy and wall ms and plain_on_card;
  15. the train app's default config (16 levels x 2 features, 2^19-row
      tables, 64-wide MLPs): 16 settle + 32 timed steps, the loss finite
      and falling, peak memory; then on to 128 steps from scratch (the
@@ -233,8 +261,10 @@ procedural glasses glTF written here) + frame(), with the mesh pass at
      phase 5c's network-kernel checks on that frame's first epoch and the
      plain-network frame >= 50 dB;
  16. one f32 training step from the same parameters, rays and samples on
-     the card and on the CPU: loss to rtol 1e-5, every gradient array to
-     1e-4 of its max |g| (the card's own march is compared and reported);
+     the card (through nmr_training_samples and the encode's two kernels)
+     and on the CPU: loss to rtol 1e-5, every gradient array to 1e-4 of
+     its max |g| (the card's own march is compared and reported, bit for
+     bit the CPU's or not);
 and a torch.profiler trace of one settled training step (top device
 operators, kernel launches, device-busy share). Then the try-on
 application, through pynmr_torch:
@@ -380,12 +410,14 @@ by parallel.sharding.run_on_mesh, whose rank bodies are this file's
      max |g| (phase 16's bar), the card's ranks equal.
 Each phase prints its seconds.
 
-Prints one JSON line with the seventeen kernels' numbers (time, bound and
-share of it, launches per frame, the plain version's time; no single
-PyTorch call computes a nearest ray-triangle hit, a march loop, a hash
-encode, a bf16-rounded bias-free MLP chain, a tile binning, a PBR shade, a
-ray init or the frame's finish, so library_ms is null; the
-MLPs' matmul + relu chain is library_chain_ms), the card's name and
+Prints one JSON line with the nineteen kernels' numbers (time, bound and
+share of it, launches per frame or step, the plain version's time; no
+single PyTorch call computes a nearest ray-triangle hit, a march loop, a
+hash encode, a bf16-rounded bias-free MLP chain, a tile binning, a PBR
+shade, a ray init, the frame's finish or the training march, so
+library_ms is null; the MLPs' matmul + relu chain is library_chain_ms;
+the encode's backward has index_add_ of its rows as library_ms), the
+training's step profiles (and its checkouts in turns), the card's name and
 power limit, and as its last line {"ok": true, "device": {...}}. Exits
 non-zero on any failure, when no CUDA device is present, and when the
 package is not beside it.
@@ -3431,6 +3463,334 @@ def training_queries_phase(tr):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The training kernels (phases 12-16)
+# ---------------------------------------------------------------------------
+
+TRAIN_KERNELS = {     # wrapper -> (module, kernel, what it replaces)
+    "training_samples": (
+        march_cuda, "nmr_training_samples",
+        "nerf_glasses_tpu/train/trainer.py:476-489 (march_training_samples' "
+        "jax.lax.scan of march_hops hops, then :490-502 the stratified "
+        "samples by inverse CDF); port train/trainer.py::"
+        "march_training_samples' former loop, now "
+        "ops/march_cuda.py::training_samples_reference"),
+    "hash_encode": (
+        network_cuda, "nmr_hash_encode",
+        "nerf_glasses_tpu/ops/hashgrid.py:143 (hash_encode -> :105 "
+        "hash_encode_soa, :59 corner_indices_and_weights), the training "
+        "forward's; port ops/network_cuda.py::hash_encode_reference"),
+    "hash_encode_backward": (
+        network_cuda, "nmr_hash_encode_backward",
+        "nerf_glasses_tpu/ops/hashgrid.py:143 (jax.vjp of hash_encode: :92 "
+        "_take_rows' transpose, the scatter-add into the table); port the "
+        "autograd of ops/hashgrid.py::hash_encode, now "
+        "ops/network_cuda.py::hash_encode_backward_reference"),
+}
+
+
+def zero_train_counts():
+    """The training kernels' counts and the network's plain calls on the
+    card."""
+    march_cuda.launches["training_samples"] = 0
+    zero_network_counts()
+
+
+def train_route_check(label, steps):
+    """Since the counts were last zeroed, `steps` training steps launched
+    the geometry pass once a step and the encode's forward and backward
+    at least once a step, and no training forward took the plain encode
+    on the card (plain_on_card's hash_encode and encode_mlp 0; the MLPs'
+    plain calls are printed) -> {wrapper: launches}."""
+    got = {"training_samples": march_cuda.launches["training_samples"],
+           "hash_encode": network_cuda.launches["hash_encode"],
+           "hash_encode_backward": network_cuda.launches["hash_encode_backward"]}
+    plain = dict(network_cuda.plain_on_card)
+    print(f"{label}: {steps} steps, training kernel launches {got}, network "
+          f"plain versions on the card {plain} (the MLPs' backward is "
+          f"autograd's: their forwards count under mlp and rgb_head)")
+    if (got["training_samples"] != steps
+            or got["hash_encode"] < steps
+            or got["hash_encode_backward"] < steps
+            or plain["hash_encode"] or plain["encode_mlp"]):
+        raise AssertionError(f"{label}: {steps} steps launched the training "
+                             f"kernels {got}, plain encodes on the card {plain}")
+    return got
+
+
+def first_train_calls(fn):
+    """Run fn with the training kernels' wrappers recording the arguments
+    of their first call -> {wrapper: args}, the tensors copied."""
+    saved = {name: getattr(mod, name)
+             for name, (mod, _, _) in TRAIN_KERNELS.items()}
+    got = {}
+
+    def recorder(name):
+        def call(*args):
+            if name not in got:
+                got[name] = tuple(a.detach().clone() if torch.is_tensor(a)
+                                  else a for a in args)
+            return saved[name](*args)
+        return call
+
+    for name, (mod, _, _) in TRAIN_KERNELS.items():
+        setattr(mod, name, recorder(name))
+    try:
+        fn()
+    finally:
+        for name, (mod, _, _) in TRAIN_KERNELS.items():
+            setattr(mod, name, saved[name])
+    return got
+
+
+def float_bits(x):
+    """A float32 tensor's bits, every NaN as one (its sign and payload are
+    the producer's)."""
+    return torch.where(torch.isnan(x), torch.nan, x).view(torch.int32)
+
+
+def training_kernels_phase(tr, reps=20):
+    """Phase 14b: the training kernels on the settled trainer's own step
+    (a step that refreshes no grid): each wrapper's first call recorded
+    from the step, then the kernel against its plain version on the card
+    under its contract (march_cuda.compare_training_samples: valid masks
+    apart on at most 0.1% of the slots, t and dt to 1e-5 where both are
+    valid; network_cuda.compare_gradients: the table's and positions'
+    gradients to 1e-5 of their largest magnitudes; the encode's forward,
+    at the step's encode dtype, network_cuda.compare_with_plain's
+    "encode" contract), the geometry pass also bit for bit the CPU plain
+    version on the same inputs and the encode's backward also with the
+    positions' gradient; device ms (torch.profiler, L2 flushed before
+    each launch), CUDA events, the plain version's ms by events, the
+    bound (march_cuda.training_samples_work, network_cuda.encode_work,
+    network_cuda.encode_backward_work: bytes read and written once over
+    3.35 TB/s against the operations over the fp32 peak) and share; for
+    the encode's backward one index_add_ of the same rows into a zeroed
+    table as the library yardstick (by events; the rows' products not in
+    it) -> {wrapper: numbers}."""
+    if tr.step % tr.opts.grid_update_interval == 0:
+        tr.train(1)
+    calls = first_train_calls(lambda: tr.train(1))
+    torch.cuda.synchronize()
+    out = {}
+    args = calls["training_samples"]
+    got = march_cuda.training_samples(*args)
+    torch.cuda.synchronize()
+    plain = march_cuda.training_samples_reference(*args)
+    cmp = march_cuda.compare_training_samples(got, plain)
+    cpu = march_cuda.training_samples_reference(
+        *[a.cpu() if torch.is_tensor(a) else a for a in args])
+    same_cpu = all(torch.equal(float_bits(got[k].cpu()), float_bits(cpu[k]))
+                   if got[k].dtype == torch.float32
+                   else torch.equal(got[k].cpu(), cpu[k]) for k in cpu)
+    b_ms, b_by = bound_ms(*march_cuda.training_samples_work(
+        args[1], args[3], args[8]))
+    k_ms = kernel_device_ms("training_samples",
+                            lambda: march_cuda.training_samples(*args), reps)
+    ev_ms = cuda_ms(lambda: march_cuda.training_samples(*args), reps)
+    p_ms = cuda_ms(lambda: march_cuda.training_samples_reference(*args), 3)
+    B, S = args[1].shape[0], args[3].shape[0]
+    print(f"training step nmr_training_samples ({B} rays x {args[8]} hops, "
+          f"{S} samples, cone {args[7]}, max_cascade {args[6]}): "
+          f"{cmp['valid']} valid slots of {cmp['slots']}, valid mismatches "
+          f"{cmp['valid_mismatches']} (allowed {cmp['allowed']}), max |dt| "
+          f"{cmp['max_t_err']:.3g} in t, {cmp['max_dt_err']:.3g} in dt "
+          f"against the card's plain version; bit for bit the CPU plain "
+          f"version: {same_cpu}; kernel {k_ms:.4f} ms device "
+          f"(torch.profiler), {ev_ms:.4f} ms by events, plain {p_ms:.3f} ms, "
+          f"bound {b_ms:.5f} ms ({b_by}; the rays, draws and outputs), "
+          f"share of bound {b_ms / k_ms:.2%}")
+    if not (cmp["ok"] and same_cpu):
+        raise AssertionError(f"nmr_training_samples disagrees: {cmp}, bit "
+                             f"for bit the CPU's {same_cpu}")
+    out["training_samples"] = {
+        "cmp": cmp, "ms": k_ms, "event_ms": ev_ms, "plain_ms": p_ms,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "rays": B, "samples": S, "hops": args[8], "bit_for_bit_cpu": same_cpu}
+
+    args = calls["hash_encode"]
+    table, pos, cfg, dtype = args
+    got = network_cuda.hash_encode(*args)
+    torch.cuda.synchronize()
+    plain = network_cuda.hash_encode_reference(*args)
+    cmp = network_cuda.compare_with_plain("encode", got, plain, dtype)
+    b_ms, b_by = bound_ms(*network_cuda.encode_work(*args))
+    k_ms = kernel_device_ms("hash_encode",
+                            lambda: network_cuda.hash_encode(*args), reps)
+    ev_ms = cuda_ms(lambda: network_cuda.hash_encode(*args), reps)
+    p_ms = cuda_ms(lambda: network_cuda.hash_encode_reference(*args), 3)
+    print(f"training step nmr_hash_encode ({pos.shape[0]} samples, "
+          f"{cfg.n_levels} x {cfg.n_features_per_level}, "
+          f"{str(dtype).split('.')[-1]} output): {cmp['mismatched_rows']} "
+          f"rows past the contract (allowed {cmp['allowed']}), max |diff| "
+          f"{cmp['max_abs_err']:.3g}, NaN {cmp['nan']}; kernel {k_ms:.4f} "
+          f"ms device (torch.profiler), {ev_ms:.4f} ms by events, plain "
+          f"{p_ms:.3f} ms, bound {b_ms:.5f} ms ({b_by}), share of bound "
+          f"{b_ms / k_ms:.2%}")
+    if not cmp["ok"]:
+        raise AssertionError(f"nmr_hash_encode on the training step "
+                             f"disagrees: {cmp}")
+    out["hash_encode"] = {
+        "cmp": cmp, "ms": k_ms, "event_ms": ev_ms, "plain_ms": p_ms,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "rows": pos.shape[0], "dtype": str(dtype)}
+
+    args = calls["hash_encode_backward"]
+    table, pos, grad, cfg, dtype, _ = args
+    got = network_cuda.hash_encode_backward(*args)
+    torch.cuda.synchronize()
+    plain = network_cuda.hash_encode_backward_reference(*args)
+    cmp = network_cuda.compare_gradients(got, plain)
+    pos_args = args[:5] + (True,)
+    cmp_pos = network_cuda.compare_gradients(
+        network_cuda.hash_encode_backward(*pos_args),
+        network_cuda.hash_encode_backward_reference(*pos_args))
+    b_ms, b_by = bound_ms(*network_cuda.encode_backward_work(table, pos, cfg,
+                                                             dtype))
+    k_ms = kernel_device_ms("hash_encode_backward",
+                            lambda: network_cuda.hash_encode_backward(*args),
+                            reps)
+    ev_ms = cuda_ms(lambda: network_cuda.hash_encode_backward(*args), reps)
+    p_ms = cuda_ms(lambda: network_cuda.hash_encode_backward_reference(*args),
+                   3)
+    ids, rows = network_cuda.backward_rows(table, pos, grad, cfg, dtype)
+    flat = torch.zeros((table.shape[0] * table.shape[1], table.shape[2]),
+                       device=table.device)
+    lib_ms = cuda_ms(lambda: flat.index_add_(0, ids, rows), reps)
+    print(f"training step nmr_hash_encode_backward ({pos.shape[0]} samples, "
+          f"{cfg.n_levels} x {cfg.n_features_per_level}, "
+          f"{str(dtype).split('.')[-1]}): table gradient max |diff| "
+          f"{cmp['table']['max_abs_err']:.3g} of max |g| "
+          f"{cmp['table']['max_abs']:.3g} ({cmp['table']['rel']:.2e}); with "
+          f"the positions' gradient: table {cmp_pos['table']['rel']:.2e}, "
+          f"positions {cmp_pos['pos']['rel']:.2e}; kernel {k_ms:.4f} ms "
+          f"device (torch.profiler), {ev_ms:.4f} ms by events, plain "
+          f"{p_ms:.3f} ms, one index_add_ of the same {rows.shape[0]} rows "
+          f"{lib_ms:.4f} ms by events, bound {b_ms:.5f} ms ({b_by}), share "
+          f"of bound {b_ms / k_ms:.2%}")
+    if not (cmp["ok"] and cmp_pos["ok"]):
+        raise AssertionError(f"nmr_hash_encode_backward disagrees: {cmp}, "
+                             f"{cmp_pos}")
+    out["hash_encode_backward"] = {
+        "cmp": cmp, "cmp_pos": cmp_pos, "ms": k_ms, "event_ms": ev_ms,
+        "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": lib_ms, "rows": pos.shape[0], "dtype": str(dtype)}
+    return out
+
+
+def step_profile(tr):
+    """One settled training step (not a grid-update step) under op_counts,
+    plain_on_card zeroed before -> [operations (the host's API calls),
+    launches, busy ms, wall ms, traced operations, plain_on_card]."""
+    if tr.step % tr.opts.grid_update_interval == 0:
+        tr.train(1)
+    network_cuda.plain_on_card.update(
+        dict.fromkeys(network_cuda.plain_on_card, 0))
+    c = op_counts(lambda: tr.train(1))
+    return [c["ops"], c["launches"], c["busy_ms"], c["wall_ms"], c["traced"],
+            dict(network_cuda.plain_on_card)]
+
+
+# each checkout's training in a process of its own: from scratch to the
+# loss contract, then the settled trainer's rate and step profiles (this
+# tree's op_counts and step_profile come before it)
+TRAIN_STEP_CODE = """
+import json, os, sys, time
+import torch
+sys.path.insert(0, os.getcwd())
+import chip_smoke as cs
+from nerf_glasses_tpu_torch.config import NGPConfig
+from nerf_glasses_tpu_torch.ops import network_cuda
+from nerf_glasses_tpu_torch.train import trainer as ttr
+dev = torch.device("cuda")
+ds = cs.build_capture(dev)[0]
+opts = ttr.TrainOptions(config=NGPConfig.native_fast())
+tr = ttr.Trainer(ds, opts, seed=3, device=dev)
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+tr.train_until(cs.TARGET_LOSS, max_steps=cs.CONTRACT_MAX_STEPS, log_every=0)
+torch.cuda.synchronize()
+contract = [time.perf_counter() - t0, tr.step, float(tr.state["loss_ema"])]
+tr = ttr.Trainer(ds, opts, seed=3, device=dev)
+tr.load_snapshot(cs.SNAPSHOT)
+tr.train(cs.RATE_SETTLED[0])
+sps = cs.timed_steps(tr, cs.RATE_SETTLED[1])
+steps = [step_profile(tr) for _ in range(3)]
+print(json.dumps({"contract": contract, "sps": sps, "steps": steps}))
+"""
+
+
+def training_in_turns(dirs):
+    """The training of each checkout (this tree and each DIR that is a
+    whole checkout), each by its own package in a process of its own run
+    from its root, in turns (the others, this tree, this tree, the others
+    reversed): seconds and steps to the loss contract from scratch (phase
+    12's run), the settled steps/s (phase 14's), and three settled steps
+    under this tree's op_counts: device operations counted on the host,
+    kernel launches, busy ms, wall ms, the device trace's count and
+    plain_on_card -> {checkout: {"contract": [[s, steps, ema], ...], "sps":
+    [...], "steps": [...]}}."""
+    order = [d for d in dirs
+             if os.path.exists(os.path.join(d, "chip_smoke.py"))] + [ROOT]
+    res = {path: {"contract": [], "sps": [], "steps": []} for path in order}
+    code = (inspect.getsource(op_counts) + inspect.getsource(step_profile)
+            + TRAIN_STEP_CODE)
+    for path in order + order[::-1]:
+        out = subprocess.run([sys.executable, "-c", code], cwd=path,
+                             capture_output=True, text=True, timeout=900)
+        if out.returncode != 0:
+            raise RuntimeError(f"training of {path} failed:\n"
+                               f"{out.stderr[-4000:]}")
+        got = json.loads(out.stdout.strip().splitlines()[-1])
+        res[path]["contract"].append(got["contract"])
+        res[path]["sps"].append(got["sps"])
+        res[path]["steps"] += got["steps"]
+    print("training by checkout, in turns, each in its own process (to the "
+          "loss contract from scratch: s, steps; settled steps/s; settled "
+          "steps under torch.profiler: device operations counted on the "
+          "host, launches, busy ms / wall ms, traced, plain_on_card): "
+          + "; ".join(
+              f"{'this tree' if path == ROOT else path}: contract "
+              + ", ".join(f"{c:.2f} s {n} steps" for c, n, _ in r["contract"])
+              + "; " + ", ".join(f"{x:.2f}" for x in r["sps"]) + " steps/s; "
+              + ", ".join(f"{o} ops {la} launches {b:.2f} / {w:.2f} ms "
+                          f"(traced {tn}) plain {p}"
+                          for o, la, b, w, tn, p in r["steps"])
+              for path, r in res.items()))
+    return {("this tree" if path == ROOT else path): r
+            for path, r in res.items()}
+
+
+def train_entries(held, launches, steps):
+    """The closing line's entries of the training kernels, measured on the
+    settled trainer's own step (phase 14b), with phase 14's launches in
+    its timed steps; the encode's forward as "nmr_hash_encode:train" (its
+    frame's call has the entry "nmr_hash_encode")."""
+    entries = []
+    for name, (_, kernel, replaces) in TRAIN_KERNELS.items():
+        r = held[name]
+        entry = {
+            "name": f"{kernel}:train" if name == "hash_encode" else kernel,
+            "route": "cuda",
+            "source": ("nerf_glasses_tpu_torch/csrc/march.cu"
+                       if name == "training_samples"
+                       else "nerf_glasses_tpu_torch/csrc/network.cu"),
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": r["cmp"].get("max_abs_err",
+                                        r["cmp"].get("table", {}).get(
+                                            "max_abs_err")),
+            "ms": r["ms"], "event_ms": r["event_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "share": r["bound_ms"] / r["ms"],
+            "launches_per_step": launches[name] / steps,
+            "path": (f"settled training steps of trained_head_v6 on the "
+                     f"capture, {steps} steps (phase 14)")}
+        entry.update({k: v for k, v in r.items() if k not in entry})
+        entries.append(entry)
+    return entries
+
+
 def capture_phase(dev, lap):
     """Phase 11: the capture, through the port's tiled mesh pass ->
     (training dataset, holdout cameras, holdout ground truth)."""
@@ -3444,11 +3804,14 @@ def capture_phase(dev, lap):
     return ds, hcams, gts
 
 
-def training_phases(dev, tmp, lap, glasses, net_others=()):
+def training_phases(dev, tmp, lap, glasses, net_others=(), dirs=()):
     """Phases 11-16 and the step profile: capture, train, save and render,
-    resume, the reference config (and its frame's network kernels, with
-    `net_others`' in turns), card against CPU -> (the capture,
-    from-scratch steps/s, the reference config's network numbers)."""
+    resume, the training kernels on a settled step, the reference config
+    (and its frame's network kernels, with `net_others`' in turns), card
+    against CPU; with whole-checkout `dirs`, each checkout's training in
+    turns -> (the capture, from-scratch steps/s, the reference config's
+    network numbers, the trainer's no-grad queries, the training kernels'
+    numbers)."""
     ds, hcams, gts = capture_phase(dev, lap)
 
     # 12: train from scratch to the loss contract
@@ -3456,10 +3819,12 @@ def training_phases(dev, tmp, lap, glasses, net_others=()):
     torch.cuda.reset_peak_memory_stats()
     tr = ttr.Trainer(ds, opts, seed=3, device=dev)
     torch.cuda.synchronize()
+    zero_train_counts()
     t0 = time.perf_counter()
     tr.train_until(TARGET_LOSS, max_steps=CONTRACT_MAX_STEPS, log_every=0)
     torch.cuda.synchronize()
     contract_s = time.perf_counter() - t0
+    train_route_check("train from scratch (phase 12)", tr.step)
     ema = float(tr.state["loss_ema"])
     train_peak = torch.cuda.max_memory_allocated()
     print(f"train from scratch (native_fast, {opts.rays_per_batch} rays x "
@@ -3515,7 +3880,10 @@ def training_phases(dev, tmp, lap, glasses, net_others=()):
     tr_res.load_snapshot(SNAPSHOT)
     step0 = tr_res.step
     tr_res.train(RATE_SETTLED[0])
+    zero_train_counts()
     sps_settled = timed_steps(tr_res, RATE_SETTLED[1])
+    settled_launches = train_route_check(
+        f"settled steps (phase 14, {RATE_SETTLED[1]} timed)", RATE_SETTLED[1])
     print(f"resumed from trained_head_v6 at step {step0}: settled steps/s "
           f"{sps_settled:.2f} ({RATE_SETTLED[0]} + {RATE_SETTLED[1]} timed), "
           f"compaction gate open {tr_res._compact_ready}, keep-set overflow "
@@ -3525,9 +3893,18 @@ def training_phases(dev, tmp, lap, glasses, net_others=()):
         raise AssertionError("the compaction gate is closed on the settled scene")
     table, n_kernels, busy_ms, wall_ms = profile_step(tr_res)
     print(f"profile of one settled step (torch.profiler, CPU + CUDA): "
-          f"{n_kernels} kernel launches, device busy {busy_ms:.2f} ms "
-          f"of {wall_ms:.2f} ms wall ({busy_ms / wall_ms:.1%}); top "
+          f"{n_kernels} device operations traced, device busy {busy_ms:.2f} "
+          f"ms of {wall_ms:.2f} ms wall ({busy_ms / wall_ms:.1%}); top "
           f"device operators:\n{table}")
+    steps = [step_profile(tr_res) for _ in range(3)]
+    print(f"three settled steps under op_counts ({sps_settled:.2f} steps/s): "
+          + "; ".join(f"{o} device operations (host API calls), {la} kernel "
+                      f"launches, busy {b:.2f} ms of {w:.2f} ms wall "
+                      f"({b / w:.1%}), traced {tn}, plain_on_card {pl}"
+                      for o, la, b, w, tn, pl in steps))
+    if any(pl["hash_encode"] or pl["encode_mlp"] for *_, pl in steps):
+        raise AssertionError("a settled step took the plain encode on the "
+                             "card")
     syncs = step_sync_counts(tr_res)
     print("one settled step's host-to-device copies and stream waits "
           "(torch.profiler: Memcpy HtoD, cudaStreamSynchronize): " + "; ".join(
@@ -3537,13 +3914,25 @@ def training_phases(dev, tmp, lap, glasses, net_others=()):
     print(f"density-grid refresh ({tr_res.opts.grid_samples_per_update} "
           f"cells + occupancy rebuild): {grid_ms:.3f} ms (CUDA events)")
     train_net = training_queries_phase(tr_res)
-    del tr_res
     lap(14)
+
+    # 14b: the training kernels on the settled trainer's own step; with
+    # whole-checkout DIRs each checkout's training in turns
+    train_kernels = training_kernels_phase(tr_res)
+    train_kernels["launches"] = settled_launches
+    train_kernels["steps"] = RATE_SETTLED[1]
+    train_kernels["step_profiles"] = steps
+    train_kernels["settled_sps"] = sps_settled
+    del tr_res
+    if any(os.path.exists(os.path.join(d, "chip_smoke.py")) for d in dirs):
+        train_kernels["in_turns"] = training_in_turns(dirs)
+    lap("14b")
 
     # 15: the train app's default config at full width
     ref_cfg = NGPConfig.from_snapshot_config({}, 1)
     torch.cuda.reset_peak_memory_stats()
     tr_ref = ttr.Trainer(ds, ttr.TrainOptions(config=ref_cfg), seed=3, device=dev)
+    zero_train_counts()
     tr_ref.train(16)
     sps_ref = timed_steps(tr_ref, 32)
     ref_peak = torch.cuda.max_memory_allocated()
@@ -3560,6 +3949,8 @@ def training_phases(dev, tmp, lap, glasses, net_others=()):
     # to REF_CONFIG_STEPS from scratch, then its exact 720p frame: the
     # network kernels at 16 levels x 2 and 2^19 rows (the depth cut)
     tr_ref.train(REF_CONFIG_STEPS - tr_ref.step)
+    torch.cuda.synchronize()
+    train_route_check("reference config (phase 15)", tr_ref.step)
     ref_snap = os.path.join(tmp, "reference_config.msgpack")
     tr_ref.save_snapshot(ref_snap)
     print(f"reference config trained {tr_ref.step} steps from scratch, loss "
@@ -3584,25 +3975,35 @@ def training_phases(dev, tmp, lap, glasses, net_others=()):
     data_cpu = ttr.prepare_dataset_arrays(ds, cpu)
     draws = ttr.draw_step(gen, {}, data_cpu, f32opts)
     inp_cpu = step_inputs(data_cpu, draws, f32opts)
+    zero_train_counts()
     inp_dev = step_inputs(tr.data, draws, f32opts)
     valid_diff = int((inp_dev["valid"].cpu() != inp_cpu["valid"]).sum())
     both = inp_dev["valid"].cpu() & inp_cpu["valid"]
     t_diff = float((inp_dev["t"].cpu() - inp_cpu["t"])[both].abs().max())
+    march_same = all(torch.equal(float_bits(inp_dev[k].cpu()),
+                                 float_bits(inp_cpu[k]))
+                     for k in ("t", "dt")) and valid_diff == 0
+    ray_diff = max(float((inp_dev[k].cpu() - inp_cpu[k]).abs().max())
+                   for k in ("o", "d"))
     (lc, gc), (lp, gp) = [
         step_grads(tr.net.detached_copy().to(device).requires_grad_(True),
                    inp_cpu, f32opts) for device in (dev, cpu)]
+    torch.cuda.synchronize()
+    train_route_check("one f32 step on the card (phase 16)", 1)
     loss_rel = abs(float(lc) - float(lp)) / abs(float(lp))
     worst = max(float((gc[k].cpu() - gp[k]).abs().max() / gp[k].abs().max())
                 for k in gp)
     print(f"one f32 step, card vs CPU from the CPU's rays and samples: loss "
           f"{float(lc):.8f} vs {float(lp):.8f} (rel {loss_rel:.2e}), worst "
           f"gradient |diff| / max|g| {worst:.2e} over {len(gp)} arrays; the "
-          f"card's own march vs the CPU's: valid-mask mismatches "
-          f"{valid_diff}, max |t - t_cpu| {t_diff:.2e}")
+          f"card's own rays (max |diff| {ray_diff:.2e} from the CPU's) and "
+          f"march (nmr_training_samples) vs the CPU's: valid-mask "
+          f"mismatches {valid_diff}, max |t - t_cpu| {t_diff:.2e}, t, dt "
+          f"and valid bit for bit {march_same}")
     if not (loss_rel <= 1e-5 and worst <= 1e-4):
         raise AssertionError("card and CPU training steps disagree")
     lap(16)
-    return ds, sps_scratch, ref_net, train_net
+    return ds, sps_scratch, ref_net, train_net, train_kernels
 
 
 # ---------------------------------------------------------------------------
@@ -5376,8 +5777,8 @@ def main(tmp, dirs, multicascade_only=False):
         raise AssertionError("card and CPU flash frames disagree")
     lap(10)
 
-    ds, sps_plain, ref_net, train_net = training_phases(dev, tmp, lap,
-                                                        glasses, net_others)
+    ds, sps_plain, ref_net, train_net, train_kernels = training_phases(
+        dev, tmp, lap, glasses, net_others, dirs)
     del renderer, nerf
     app_launches = application_phases(dev, tmp, lap, glasses)
     mc_launches, mc_march, mc_net = multicascade_phases(dev, tmp, lap,
@@ -5441,7 +5842,11 @@ def main(tmp, dirs, multicascade_only=False):
         + network_entries(net, net_f32, net_launches, f32_launches, mc_net,
                           ref_net, train_net, mlp_build)
         + frame_entries(frame_held, frame_launches, 4, frame_flash,
-                        mc_march["frame_kernels"]),
+                        mc_march["frame_kernels"])
+        + train_entries(train_kernels, train_kernels["launches"],
+                        train_kernels["steps"]),
+        "training": {k: train_kernels[k] for k in (
+            "step_profiles", "settled_sps", "in_turns") if k in train_kernels},
         "frame_plain_frames": frame_held["frames"],
         "network_frames": network_frames(net_frames, mc_net, ref_net)}))
     print(smi)

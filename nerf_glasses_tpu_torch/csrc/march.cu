@@ -20,6 +20,11 @@
 //       walk's advance + samples and samples forms, composite_list_kernel)
 //       that the exact epoch of unbaked sequential rounds runs
 //       (raymarch._march_lists), described below.
+//   training_samples_kernel (nmr_training_samples) ::training_samples,
+//       the trainer's geometry pass (train/trainer.py::
+//       march_training_samples; JAX train/trainer.py:443-513, a
+//       jax.lax.scan of march_hops hops inside the step's one program),
+//       described at the kernel.
 // A ray leaves its loop as soon as it settles, where the plain version
 // masks it for the remaining iterations.
 //
@@ -225,6 +230,17 @@ struct CompositeArgs {
   float* t_out;
   int *next_ids, *next_count;
   long long next_cap;
+};
+
+// Layout shared with ops/march_cuda.py::TrainArgs: the training march's
+// tensors. Slot k of ray i at k * n + i.
+struct TrainArgs {
+  const float *o, *d;              // (n, 3)
+  const float* u;                  // (S, n) uniform draws
+  const uint8_t* occ;              // the occupancy grid, grid_numel bytes
+  const float *aabb_min, *aabb_max;
+  float *t, *dt;                   // (S, n)
+  uint8_t* valid;                  // (S, n)
 };
 
 namespace {
@@ -1029,6 +1045,124 @@ __global__ void __launch_bounds__(THREADS) composite_list_kernel(
   }
 }
 
+// occupancy.occupied_at on the uint8 (8, G, G, G) grid: the cell of p at
+// `mip`, the flat index clamped into the grid
+__device__ __forceinline__ bool occupied_at(const uint8_t* __restrict__ occ,
+                                            long long numel, const float p[3],
+                                            int mip) {
+  const float scale = pow2i(-mip);
+  const long long c0 = cell_i((p[0] - 0.5f) * scale + 0.5f);
+  const long long c1 = cell_i((p[1] - 0.5f) * scale + 0.5f);
+  const long long c2 = cell_i((p[2] - 0.5f) * scale + 0.5f);
+  long long flat = (((long long)mip * G + c2) * G + c1) * G + c0;
+  flat = flat < 0 ? 0 : (flat > numel - 1 ? numel - 1 : flat);
+  return __ldg(occ + flat) != 0;
+}
+
+// The trainer's geometry pass (ops/march_cuda.py::training_samples_reference,
+// formerly train/trainer.py::march_training_samples' body): a thread a ray.
+// Pass 1 hops the ray H = P.iters times through the occupancy grid from its
+// aabb entry, an occupied cell a segment of min(stride, tmax - t), an
+// empty one skipped by advance_to_next_voxel (the 8-step cone loop where
+// cone > 0), and records each hop's start, its inclusive occupied length
+// and the exclusive one in shared memory, hop h of thread x at
+// h * TRAIN_THREADS + x (bank x: no conflicts). Pass 2 places the S =
+// P.steps stratified samples by inverse CDF over that length: torch.
+// searchsorted's right-side binary search over the thread's sums, the
+// index clamped to H - 1; an invalid sample keeps its t (t_start[H-1] + s
+// - cum_ex[H-1]) as the plain version writes it.
+//
+// What bounds it: the chain of H dependent hops of a ray (each a gather
+// from the 16 MiB grid and the voxel advance that waits for it), not
+// bytes: a warp is as slow as its longest hop chain. The design runs the
+// chain once and keeps the whole pass in one launch (the port ran ~70
+// aten operations a hop, ~8,900 a step); the sums stay in shared memory
+// (3 x 4 bytes x H a ray, 24 KB a block at H = 128), so nothing of the
+// (H, B) intermediates the plain version makes is written to device
+// memory. Blocks of 16 rays: 2,048 rays a step are 128 half-full warps,
+// about one an SM, each the longest chain of 16 rays rather than 32
+// (3.6% faster than 32 on the settled step, PERF.md section 6). A dead
+// ray (t >= tmax, or NaN) keeps its t and adds nothing, as the plain
+// version's masks give.
+//
+// Numerics: the plain version's float32 operations one by one; the sums
+// in double, each rounded to float32, as aten's cumsum on the CPU takes
+// them (its accumulator is double there), so the kernel gives the CPU
+// plain version's bits; locc / S and span / H are true divisions, as on
+// the CPU (the card's aten multiplies by the reciprocal, and sums in
+// float32 in a parallel scan: ops/march_cuda.py::compare_training_samples
+// holds the kernel to the card's plain version under a contract).
+constexpr int TRAIN_THREADS = 16;
+
+__global__ void __launch_bounds__(TRAIN_THREADS) training_samples_kernel(
+    MarchParams P, int n, TrainArgs a) {
+  extern __shared__ float train_smem[];
+  const int H = P.iters, S = P.steps;
+  const int x = threadIdx.x;
+  const int i = blockIdx.x * TRAIN_THREADS + x;
+  if (i >= n) return;       // a thread reads and writes its own column alone
+  float* const s_start = train_smem + x;
+  float* const s_cum = s_start + H * TRAIN_THREADS;
+  float* const s_cum_ex = s_cum + H * TRAIN_THREADS;
+  const Ray r = load_ray(a.o, a.d, i);
+  // utils/bbox.ray_intersect_aabb
+  float tmin = 0.0f, tmax = 0.0f;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float ta = (__ldg(a.aabb_min + c) - r.o[c]) * r.idir[c];
+    const float tb = (__ldg(a.aabb_max + c) - r.o[c]) * r.idir[c];
+    const float lo = nmin(ta, tb), hi = nmax(ta, tb);
+    tmin = c == 0 ? lo : nmax(tmin, lo);
+    tmax = c == 0 ? hi : nmin(tmax, hi);
+  }
+  if (tmin > tmax) tmin = tmax = F32_MAX;
+  const float t0 = clamp_lo(tmin, 0.0f) + 1e-6f;
+  const float span = clamp_lo(tmax - t0, 0.0f);
+  const float stride = clamp_lo(span / (float)H, VOX);
+  float t = t0;
+  double cum = 0.0;
+  for (int h = 0; h < H; ++h) {
+    float seg = 0.0f, t_next = t;
+    if (t < tmax) {
+      float p[3];
+      at(r, t, p);
+      const float dt = calc_dt(t, P);
+      const int mip = mip_from_dt(dt, p, P.max_cascade);
+      if (occupied_at(a.occ, P.grid_numel, p, mip)) {
+        seg = nmin(stride, tmax - t);
+        t_next = t + seg;
+      } else {
+        t_next = nmax(advance_to_next_voxel(t, P, p, r, pow2i(7 - mip),
+                                            pow2i(mip - 7)),
+                      t + 1e-6f);
+      }
+    }
+    cum += (double)seg;
+    const float c = (float)cum;
+    s_start[h * TRAIN_THREADS] = t;
+    s_cum[h * TRAIN_THREADS] = c;
+    s_cum_ex[h * TRAIN_THREADS] = c - seg;
+    t = t_next;
+  }
+  const float locc = s_cum[(H - 1) * TRAIN_THREADS];
+  const float dt_eff = locc > 0.0f ? locc / (float)S : 1.0f;
+  for (int k = 0; k < S; ++k) {
+    const long long o = (long long)k * n + i;
+    const float s = ((float)k + __ldg(a.u + o)) * dt_eff;
+    int lo = 0, hi = H;                  // the first hop whose sum is > s
+    while (lo < hi) {
+      const int mid = lo + ((hi - lo) >> 1);
+      if (!(s_cum[mid * TRAIN_THREADS] > s)) lo = mid + 1;
+      else hi = mid;
+    }
+    const int h = min(lo, H - 1) * TRAIN_THREADS;
+    const bool valid = s < locc;
+    a.t[o] = s_start[h] + (s - s_cum_ex[h]);
+    a.dt[o] = valid ? dt_eff : 0.0f;
+    a.valid[o] = valid;
+  }
+}
+
 inline int blocks(int n) { return (n + THREADS - 1) / THREADS; }
 
 template <int ROUTE, bool ADVANCE, bool SAMPLES, bool INIT = false,
@@ -1102,5 +1236,25 @@ extern "C" int nmr_march_composite(const MarchParams* p, int n,
     if (err != 0) return err;
   }
   composite_kernel<<<blocks(n), THREADS, 0, s>>>(P, n, *a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The trainer's geometry pass: training_samples_kernel on n rays, P.iters
+// hops and P.steps samples a ray, 12 * P.iters * TRAIN_THREADS bytes of
+// dynamic shared memory a block (the launch raises the limit past 48 KB).
+extern "C" int nmr_training_samples(const MarchParams* p, int n,
+                                    const TrainArgs* a, void* stream) {
+  const MarchParams P = *p;
+  if (P.iters < 1 || P.steps < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = 3 * P.iters * TRAIN_THREADS * (int)sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        training_samples_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  training_samples_kernel<<<(n + TRAIN_THREADS - 1) / TRAIN_THREADS,
+                            TRAIN_THREADS, smem,
+                            static_cast<cudaStream_t>(stream)>>>(P, n, *a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -214,19 +214,15 @@ __device__ __forceinline__ void load_levels(const EncodeParams& P,
   }
 }
 
-// One (sample, level) of the encode, the corner routine of both encode
-// kernels: position (x, y, z) on level l of the table `lvl` -> acc, the F
-// features in f32 (the output rounds them), summed c = 0..7 in the plain
-// version's order and rounding. The 8 corner rows are loaded before the
-// first add, so that their loads are in flight together.
-template <int F, bool BF16>
-__device__ __forceinline__ void encode_point(const Levels& S, int l,
-                                             const float* __restrict__ lvl,
-                                             float x, float y, float z,
-                                             float* acc) {
+// The index code of every encode kernel, forward and backward: position
+// (x, y, z) on level l -> the rows idx[c] of its 8 corners (bit d of c
+// selects dimension d) and each dimension's weight factors w[d][bit], as
+// hashgrid.corner_indices_and_weights makes them.
+__device__ __forceinline__ void corner_rows(const Levels& S, int l, float x,
+                                            float y, float z, float w[3][2],
+                                            uint32_t idx[8]) {
   const float scale = S.scale[l];
   const float p3[3] = {x, y, z};
-  float w[3][2];
   uint32_t c0[3];
 #pragma unroll
   for (int d = 0; d < 3; ++d) {
@@ -239,9 +235,8 @@ __device__ __forceinline__ void encode_point(const Levels& S, int l,
   }
   const uint32_t res = S.res[l], res2 = S.res2[l], size = S.size[l];
   // the level's kind as branches, not selects: where a warp's lanes share
-  // the level (both kernels' maps) one path runs, and no modulo where the
+  // the level (every kernel's map) one path runs, and no modulo where the
   // size is a power of two
-  uint32_t idx[8];
   if (S.dense[l]) {
 #pragma unroll
     for (int c = 0; c < 8; ++c)
@@ -260,6 +255,21 @@ __device__ __forceinline__ void encode_point(const Levels& S, int l,
 #pragma unroll
     for (int c = 0; c < 8; ++c) idx[c] %= size;
   }
+}
+
+// One (sample, level) of the encode, the corner routine of both forward
+// encode kernels: position (x, y, z) on level l of the table `lvl` -> acc,
+// the F features in f32 (the output rounds them), summed c = 0..7 in the
+// plain version's order and rounding. The 8 corner rows are loaded before
+// the first add, so that their loads are in flight together.
+template <int F, bool BF16>
+__device__ __forceinline__ void encode_point(const Levels& S, int l,
+                                             const float* __restrict__ lvl,
+                                             float x, float y, float z,
+                                             float* acc) {
+  float w[3][2];
+  uint32_t idx[8];
+  corner_rows(S, l, x, y, z, w, idx);
   float v[8][F];
 #pragma unroll
   for (int c = 0; c < 8; ++c) load_row<F>(lvl + (long long)idx[c] * F, v[c]);
@@ -389,6 +399,141 @@ __global__ void __launch_bounds__(ENCODE_THREADS) hash_encode_kernel(
        b += 2 * ENCODE_THREADS)
     *reinterpret_cast<unsigned short*>(o + b) =
         *reinterpret_cast<const unsigned short*>(s_out + b);
+}
+
+// F floats added to the f32 row at `row` with atomic adds: on Hopper one
+// vector atomic for F = 2 and 4 (rows 8 and 16 bytes aligned), each
+// element added on its own as a float atomic would add it.
+template <int F>
+__device__ __forceinline__ void atomic_add_row(float* row, const float* v) {
+#if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 900 && \
+    (__CUDACC_VER_MAJOR__ > 12 ||                       \
+     (__CUDACC_VER_MAJOR__ == 12 && __CUDACC_VER_MINOR__ >= 1))
+  if constexpr (F == 4) {
+    atomicAdd(reinterpret_cast<float4*>(row), make_float4(v[0], v[1], v[2], v[3]));
+  } else if constexpr (F == 2) {
+    atomicAdd(reinterpret_cast<float2*>(row), make_float2(v[0], v[1]));
+  } else
+#endif
+  {
+#pragma unroll
+    for (int f = 0; f < F; ++f) atomicAdd(row + f, v[f]);
+  }
+}
+
+// The encode's backward (ops/network_cuda.py::hash_encode_backward, the
+// backward of HashEncode; plain version hash_encode_backward_reference,
+// the autograd of hashgrid.hash_encode: its row gathers' gradient an
+// index_add_ into the table): for each (sample, level) the 8 corner rows
+// and weights again (corner_rows), and w_c * g added into the level's
+// rows of grad_table with atomic adds; at the bf16 encode dtype g is the
+// bf16 gradient of the bf16 output and each w_c * g is rounded to bf16
+// before the f32 add (the plain version's bf16 product's gradient is a
+// bf16 product). With POS also the positions' gradient, summed over the
+// levels in their order without atomics: the tile's (sample, level)
+// terms wait in shared memory. A level's term is d(weights)/d(frac)
+// (weights = (w_x w_y) w_z, w = frac or 1 - frac a dimension) times the
+// weights' gradient, sum_f g_f v_cf over the corner rows v (the bf16
+// rounding points of the plain version's product and sum where BF16),
+// times the level's scale.
+//
+// What bounds it: the atomic adds, 8 rows of F floats a (sample, level)
+// (with POS also the forward's 8 row loads), at the rows' addresses, the
+// coarse levels' rows shared by many samples of a step. Measured on the
+// settled training step (PERF.md section 6, tools/port_cost_split.py
+// backward): the adds take ~0.24 of its ~0.29 ms where plain 16-byte
+// stores to the same rows took 0.048 and the index and weight work
+// 0.006; float-by-float atomics took 1.23 ms, so F = 4 rows take one
+// 16-byte vector atomic each (F = 2 one 8-byte). A block is a tile of 64
+// samples x L levels and a warp 32 consecutive (sample, level) items,
+// the L levels of a few samples: a warp of 32 samples on one level (the
+// forward's map) sent the whole grid's adds for a coarse level, a few
+// hundred rows, to the same L2 slices at once, and took 0.29 ms to this
+// map's 0.20.
+template <int F, bool BF16, bool POS>
+__global__ void __launch_bounds__(ENCODE_THREADS) hash_encode_backward_kernel(
+    EncodeParams P, long long n, const float* __restrict__ table,
+    const float* __restrict__ pos, const void* __restrict__ grad,
+    float* __restrict__ grad_table, float* __restrict__ grad_pos) {
+  __shared__ Levels S;
+  extern __shared__ float4 smem4[];
+  float* const s_pos = reinterpret_cast<float*>(smem4);
+  float* const s_gp = s_pos + ENCODE_TILE * 3;   // POS: (tile, L, 3)
+  load_levels(P, S);
+  const int L = P.n_levels;
+  const long long s0 = (long long)blockIdx.x * ENCODE_TILE;
+  const int rows = (int)min((long long)ENCODE_TILE, n - s0);
+  const float* p = pos + s0 * 3;
+  for (int e = threadIdx.x; e < rows * 3; e += ENCODE_THREADS)
+    s_pos[e] = __ldg(p + e);
+  __syncthreads();
+  constexpr int GROUPS = ENCODE_TILE / 32;
+  const int lane = threadIdx.x & 31;
+  for (int it = threadIdx.x >> 5; it < L * GROUPS;
+       it += ENCODE_THREADS / 32) {
+    const int l = (it * 32 + lane) % L;
+    const int r = (it * 32 + lane) / L;
+    if (r >= rows) continue;
+    float w[3][2];
+    uint32_t idx[8];
+    corner_rows(S, l, s_pos[3 * r], s_pos[3 * r + 1], s_pos[3 * r + 2], w,
+                idx);
+    const long long go = (s0 + r) * (long long)(L * F) + l * F;
+    float g[F];
+#pragma unroll
+    for (int f = 0; f < F; ++f)
+      g[f] = BF16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(grad)[go + f])
+                  : static_cast<const float*>(grad)[go + f];
+    float* const lvl = grad_table + (long long)l * P.rows * F;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const int bx = c & 1, by = (c >> 1) & 1, bz = (c >> 2) & 1;
+      const float wc = __fmul_rn(__fmul_rn(w[0][bx], w[1][by]), w[2][bz]);
+      const float wb = BF16 ? bf16r(wc) : wc;
+      float v[F];
+#pragma unroll
+      for (int f = 0; f < F; ++f)
+        v[f] = BF16 ? bf16r(__fmul_rn(g[f], wb)) : __fmul_rn(g[f], wb);
+      atomic_add_row<F>(lvl + (long long)idx[c] * F, v);
+    }
+    if (POS) {
+      const float* const tab = table + (long long)l * P.rows * F;
+      float v[8][F];
+#pragma unroll
+      for (int c = 0; c < 8; ++c) load_row<F>(tab + (long long)idx[c] * F, v[c]);
+      float gf[3] = {0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const int b[3] = {c & 1, (c >> 1) & 1, (c >> 2) & 1};
+        float gw = 0.0f;
+#pragma unroll
+        for (int f = 0; f < F; ++f)
+          gw = __fadd_rn(gw, BF16 ? bf16r(__fmul_rn(g[f], bf16r(v[c][f])))
+                                  : __fmul_rn(g[f], v[c][f]));
+        if (BF16) gw = bf16r(gw);
+        // weights = a w_z, a = w_x w_y
+        const float a = __fmul_rn(w[0][b[0]], w[1][b[1]]);
+        const float ga = __fmul_rn(gw, w[2][b[2]]);
+        const float gd[3] = {__fmul_rn(ga, w[1][b[1]]),
+                             __fmul_rn(ga, w[0][b[0]]), __fmul_rn(gw, a)};
+#pragma unroll
+        for (int d = 0; d < 3; ++d)
+          gf[d] = __fadd_rn(gf[d], b[d] ? gd[d] : -gd[d]);
+      }
+#pragma unroll
+      for (int d = 0; d < 3; ++d)
+        s_gp[(r * L + l) * 3 + d] = __fmul_rn(gf[d], S.scale[l]);
+    }
+  }
+  if (POS) {
+    __syncthreads();
+    for (int e = threadIdx.x; e < rows * 3; e += ENCODE_THREADS) {
+      const int r = e / 3, d = e % 3;
+      float acc = 0.0f;
+      for (int l = 0; l < L; ++l) acc = __fadd_rn(acc, s_gp[(r * L + l) * 3 + d]);
+      grad_pos[s0 * 3 + e] = acc;
+    }
+  }
 }
 
 // torch.relu: NaN stays NaN.
@@ -1431,6 +1576,38 @@ int launch_encode(const EncodeParams& P, long long n, const float* table,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int F, bool BF16, bool POS>
+int launch_encode_backward(const EncodeParams& P, long long n,
+                           const float* table, const float* pos,
+                           const void* grad, float* grad_table,
+                           float* grad_pos, cudaStream_t s) {
+  const long long blocks = (n + ENCODE_TILE - 1) / ENCODE_TILE;
+  if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = ENCODE_TILE * 3 * (int)sizeof(float) +
+                   (POS ? ENCODE_TILE * P.n_levels * 3 * (int)sizeof(float) : 0);
+  hash_encode_backward_kernel<F, BF16, POS>
+      <<<(int)blocks, ENCODE_THREADS, smem, s>>>(P, n, table, pos, grad,
+                                                 grad_table, grad_pos);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int F>
+int launch_encode_backward_f(const EncodeParams& P, long long n,
+                             const float* table, const float* pos,
+                             const void* grad, float* grad_table,
+                             float* grad_pos, cudaStream_t s) {
+  const bool bf16 = P.encode_bf16 != 0;
+  if (grad_pos)
+    return bf16 ? launch_encode_backward<F, true, true>(P, n, table, pos, grad,
+                                                        grad_table, grad_pos, s)
+                : launch_encode_backward<F, false, true>(P, n, table, pos, grad,
+                                                         grad_table, grad_pos, s);
+  return bf16 ? launch_encode_backward<F, true, false>(P, n, table, pos, grad,
+                                                       grad_table, nullptr, s)
+              : launch_encode_backward<F, false, false>(P, n, table, pos, grad,
+                                                        grad_table, nullptr, s);
+}
+
 // The register-tiled launch's shared memory in bytes at hidden width
 // HID, kind as mlp_tiles' KIND: the weights (each layer's pad16 K x
 // rt_cols), the activations (the widest K x rt_samples), the staging area
@@ -1620,6 +1797,30 @@ extern "C" int nmr_hash_encode(const EncodeParams* p, long long n,
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef NMR_ENCODE
+}
+
+// The encode's backward: grad (n, L F) in the encode dtype -> grad_table
+// (L, rows, F) f32 added to (the caller zeroes it) and, where grad_pos is
+// not null, grad_pos (n, 3) f32 written.
+extern "C" int nmr_hash_encode_backward(const EncodeParams* p, long long n,
+                                        const float* table, const float* pos,
+                                        const void* grad, float* grad_table,
+                                        float* grad_pos, void* stream) {
+  const EncodeParams P = *p;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (P.n_levels < 1 || P.n_levels > MAX_LEVELS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (P.n_features) {
+    case 1: return launch_encode_backward_f<1>(P, n, table, pos, grad,
+                                               grad_table, grad_pos, s);
+    case 2: return launch_encode_backward_f<2>(P, n, table, pos, grad,
+                                               grad_table, grad_pos, s);
+    case 4: return launch_encode_backward_f<4>(P, n, table, pos, grad,
+                                               grad_table, grad_pos, s);
+    case 8: return launch_encode_backward_f<8>(P, n, table, pos, grad,
+                                               grad_table, grad_pos, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 extern "C" int nmr_mlp(const MlpParams* p, long long n, const void* x,

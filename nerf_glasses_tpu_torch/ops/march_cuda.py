@@ -32,6 +32,13 @@ their plain PyTorch versions, and the empty-space probes the loops call.
   frame's arrays, in place, from the rows walk_list made and the
   network's outputs on them; it lists the rays still alive for the next
   epoch.
+- `training_samples` (nmr_training_samples) is the trainer's geometry
+  pass, its march_hops occupancy hops and its stratified samples placed
+  by inverse CDF over the occupied length, one launch a step
+  (train/trainer.py::march_training_samples; the JAX package's
+  `march_training_samples`, a jax.lax.scan inside its one compiled step,
+  nerf_glasses_tpu/train/trainer.py:443-513). `compare_training_samples`
+  holds it to the card's plain version.
 None of these was a Pallas kernel: the TPU could not gather from its
 fast memory inside a kernel (docs/KERNELS.md section 2), so the JAX
 package left the loops to XLA. A GPU thread runs one ray's loop and
@@ -96,9 +103,16 @@ MISMATCH_FRACTION = 1e-4
 MISMATCH_MIN = 4
 STEP_TOL = C.MAX_CONE_STEPSIZE
 COMPOSITE_ATOL = 1e-6
+# The training samples' contract against the card's plain version
+# (compare_training_samples): the card's aten sums the hops in float32 in
+# a parallel scan and divides by S and H as a product with the
+# reciprocal, the kernel (as the CPU) in double and by true division.
+TRAIN_VALID_FRACTION = 1e-3
+TRAIN_ATOL = 1e-5
+MAX_TRAIN_HOPS = 512        # 12 bytes a hop for each of a block's 16 rays
 
 KERNELS = ("advance", "init_walk", "samples", "advance_samples", "composite",
-           "walk_list", "composite_list")
+           "walk_list", "composite_list", "training_samples")
 # Kernel launches per wrapper (CUDA tensors only).
 launches = dict.fromkeys(KERNELS, 0)
 
@@ -159,6 +173,13 @@ _COMPOSITE_LIST = ("ids", "row_first", "slot_mask", "row_ts", "row_dt",
                    "t_out", "next_ids", "next_count")
 
 
+class TrainArgs(ctypes.Structure):
+    """csrc/march.cu's TrainArgs: the training march's tensors' device
+    pointers."""
+    _fields_ = [(k, ctypes.c_void_p) for k in (
+        "o", "d", "u", "occ", "aabb_min", "aabb_max", "t", "dt", "valid")]
+
+
 class CompositeArgs(ctypes.Structure):
     """csrc/march.cu's CompositeArgs: the composite's tensors' device
     pointers (None for what a stage or form does not read), the density
@@ -185,7 +206,8 @@ def load_library() -> ctypes.CDLL:
     # tensors' pointers (a WalkArgs, a CompositeArgs) and the stream
     _lib = cuda_build.declare(lib, [
         (name, [p, i, p, p], i)
-        for name in ("nmr_march_walk", "nmr_march_composite")])
+        for name in ("nmr_march_walk", "nmr_march_composite",
+                     "nmr_training_samples")])
     return _lib
 
 
@@ -591,6 +613,142 @@ def composite_reference(st, rnd, opts, stage: int = STAGE_BLEND | STAGE_SAMPLES)
 # The list forms: the exact epoch on the frame's arrays through its
 # live-ray list
 # ---------------------------------------------------------------------------
+
+def training_samples_reference(occ, o, d, u, aabb_min, aabb_max,
+                               max_cascade: int, cone_angle: float,
+                               hops: int):
+    """Occupancy-compacted stratified training samples (no gradient).
+    -> dict(t (S, B), dt (S, B), valid (S, B)); `u` (S, B) uniform.
+
+    Pass 1 hops each ray `hops` times through the occupancy grid and
+    records the occupied segments; pass 2 places S stratified samples by
+    inverse CDF over the occupied length, so the budget always covers the
+    ray's whole occupied depth (the JAX package's docstring has the
+    failure a fixed-dt march ran into)."""
+    G = C.NERF_GRIDSIZE
+    B = o.shape[0]
+    S = u.shape[0]
+    H = hops
+    idir = 1.0 / d
+    tmin, tmax = ray_intersect_aabb(o, d, aabb_min, aabb_max)
+    t0 = torch.clamp(tmin, min=0.0) + 1e-6
+    span = torch.clamp(tmax - t0, min=0.0)
+    # fine enough to resolve mip-0 voxels, coarse enough that H hops
+    # cross the whole aabb while it is fully occupied
+    stride = torch.clamp(span / H, min=1.0 / G)
+    t = t0
+    starts, segs = [], []
+    for _ in range(H):
+        alive = t < tmax
+        pos = o + d * t[:, None]
+        dt = occ_ops.calc_dt(t, cone_angle)
+        mip = occ_ops.mip_from_dt(dt, pos, max_cascade)
+        occp = occ_ops.occupied_at(occ, pos, mip) & alive
+        res = torch.bitwise_right_shift(torch.full_like(mip, G), mip).float()
+        t_skip = occ_ops.advance_to_next_voxel(t, cone_angle, pos, d, idir,
+                                               res)
+        seg = torch.where(occp, torch.minimum(stride, tmax - t), 0.0)
+        t_next = torch.where(occp, t + seg, torch.maximum(t_skip, t + 1e-6))
+        starts.append(t)
+        segs.append(seg)
+        t = torch.where(alive, t_next, t)
+    t_start = torch.stack(starts)                     # (H, B)
+    seg = torch.stack(segs)
+    cum = torch.cumsum(seg, 0)                        # inclusive segment ends
+    locc = cum[-1]                                    # occupied length
+    dt_eff = torch.where(locc > 0, locc / S, 1.0)
+    s = (torch.arange(S, device=o.device)[:, None] + u) * dt_eff   # (S, B)
+    h_idx = torch.searchsorted(cum.T.contiguous(), s.T.contiguous(),
+                               right=True).T
+    h_idx = torch.clamp(h_idx, max=H - 1)
+    cum_ex = cum - seg                                # exclusive starts
+    t_s = (torch.gather(t_start, 0, h_idx)
+           + (s - torch.gather(cum_ex, 0, h_idx)))
+    valid = s < locc[None, :]
+    return {"t": t_s, "dt": torch.where(valid, dt_eff[None].expand(S, B), 0.0),
+            "valid": valid}
+
+
+def training_samples(occ, o, d, u, aabb_min, aabb_max, max_cascade: int,
+                     cone_angle: float, hops: int):
+    """The trainer's geometry pass -> dict(t, dt (S, B) f32, valid (S, B)
+    bool), as training_samples_reference: occ the uint8 occupancy grid
+    (its flat index clamped), o, d (B, 3) f32, u (S, B) f32 uniform
+    draws, aabb_min, aabb_max (3,) f32, 1 <= hops <= MAX_TRAIN_HOPS. On a
+    CUDA tensor one launch of nmr_training_samples (none for B = 0): a
+    thread a ray runs the hops, then places its S samples."""
+    dev = o.device
+    if dev.type not in ("cpu", "cuda") or o.dim() != 2:
+        raise ValueError(f"training_samples: o must be a (B, 3) tensor on "
+                         f"the CPU or a CUDA device, got {tuple(o.shape)} on "
+                         f"{dev}")
+    B = o.shape[0]
+    if u.dim() != 2 or u.shape[0] < 1:
+        raise ValueError(f"training_samples: u must be (S, {B}), got "
+                         f"{tuple(u.shape)}")
+    S = u.shape[0]
+    args = [_arg("o", o, torch.float32, (B, 3), dev),
+            _arg("d", d, torch.float32, (B, 3), dev),
+            _arg("u", u, torch.float32, (S, B), dev),
+            _arg("occ", occ, torch.uint8, occ.shape, dev),
+            _arg("aabb_min", aabb_min, torch.float32, (3,), dev),
+            _arg("aabb_max", aabb_max, torch.float32, (3,), dev)]
+    if occ.numel() == 0:
+        raise ValueError("training_samples: the occupancy grid is empty")
+    if not 1 <= hops <= MAX_TRAIN_HOPS:
+        raise ValueError(f"training_samples: {hops} hops (1-{MAX_TRAIN_HOPS})")
+    if not 0 <= max_cascade < C.NERF_CASCADES or not cone_angle >= 0.0:
+        raise ValueError(f"training_samples: max_cascade {max_cascade}, "
+                         f"cone_angle {cone_angle}")
+    if dev.type == "cpu":
+        return training_samples_reference(occ, o, d, u, aabb_min, aabb_max,
+                                          max_cascade, cone_angle, hops)
+    out = {"t": torch.empty((S, B), dtype=torch.float32, device=dev),
+           "dt": torch.empty((S, B), dtype=torch.float32, device=dev),
+           "valid": torch.empty((S, B), dtype=torch.bool, device=dev)}
+    if B:
+        f32 = np.float32
+        params = MarchParams(
+            max_cascade=max_cascade, iters=hops, steps=S, cone=f32(cone_angle),
+            dt_min=f32(C.MIN_CONE_STEPSIZE), dt_max=f32(C.MAX_CONE_STEPSIZE),
+            grid_numel=occ.numel())
+        ta = TrainArgs(*[x.data_ptr() for x in args],
+                       out["t"].data_ptr(), out["dt"].data_ptr(),
+                       out["valid"].data_ptr())
+        _launch("training_samples", load_library().nmr_training_samples, dev,
+                params, B, ctypes.addressof(ta))
+    return out
+
+
+def compare_training_samples(out_k, out_p) -> dict:
+    """training_samples' kernel outputs against its plain version's on the
+    same inputs -> counts, the worst differences and `ok`: the valid masks
+    differ on at most TRAIN_VALID_FRACTION of the (S, B) slots, and where
+    both are valid t and dt agree to TRAIN_ATOL."""
+    vk, vp = out_k["valid"], out_p["valid"]
+    slots = vp.numel()
+    diff = int((vk != vp).sum())
+    both = vk & vp
+    err = {k: float((out_k[k] - out_p[k])[both].abs().max())
+           if bool(both.any()) else 0.0 for k in ("t", "dt")}
+    allowed = math.floor(TRAIN_VALID_FRACTION * slots)
+    return {"slots": slots, "valid_mismatches": diff, "allowed": allowed,
+            "valid": int(vp.sum()), "max_t_err": err["t"],
+            "max_dt_err": err["dt"], "max_abs_err": max(err.values()),
+            "ok": diff <= allowed and max(err.values()) <= TRAIN_ATOL}
+
+
+def training_samples_work(o, u, hops: int) -> tuple:
+    """The geometry pass's least work on these inputs -> (flops, bytes):
+    12 + 2 log2(hops) flops a sample (its arclength, the binary search
+    over the sums, its t); bytes: the rays, the aabb and the draws read
+    once, the three outputs written once (9 bytes a sample). The hops'
+    grid reads and arithmetic depend on each ray's walk and are left out,
+    so this is below the pass's true least work."""
+    B, S = o.shape[0], u.shape[0]
+    return ((12 + 2 * math.ceil(math.log2(hops))) * S * B,
+            B * 24 + S * B * (4 + 9) + 24)
+
 
 def _mask_bytes(steps: int) -> int:
     return (steps + 7) // 8

@@ -18,8 +18,10 @@ trainer's no-grad queries) takes the CUDA kernels of csrc/network.cu:
 at the bf16 compute dtype the density half is one launch of the fused
 encode + MLP kernel (nmr_encode_mlp), at f32 the encode and the MLP
 kernels, one launch each; the rgb head is one launch. A CUDA call that
-needs gradients (the trainer's forward) takes the plain versions, which
-autograd differentiates, and counts in network_cuda.plain_on_card.
+needs gradients (the trainer's forward) takes network_cuda.HashEncode,
+whose forward and backward are the encode kernels nmr_hash_encode and
+nmr_hash_encode_backward, and the plain MLPs, which autograd
+differentiates and which count in network_cuda.plain_on_card.
 There is no fallback: a build or launch failure raises.
 """
 
@@ -72,7 +74,10 @@ class NerfNetwork(nn.Module):
                     encode_dtype=torch.float32) -> torch.Tensor:
         """pos01 (N, 3) in [0, 1] -> density MLP output (N, 16); sigma is
         channel 0 (NerfNetwork::density, nerf_network.cuh:266-282)."""
-        if compute_dtype == torch.bfloat16:
+        if network_cuda.trains_on_card(self.grid, pos01, *self.density_mlp):
+            enc = network_cuda.HashEncode.apply(self.grid, pos01.contiguous(),
+                                                self.config, encode_dtype)
+        elif compute_dtype == torch.bfloat16:
             if network_cuda.takes_kernel("encode_mlp", self.grid, pos01,
                                          *self.density_mlp):
                 return network_cuda.encode_mlp(
@@ -81,7 +86,7 @@ class NerfNetwork(nn.Module):
             return mlp_apply(hash_encode(self.grid, pos01, self.config,
                                          compute_dtype=encode_dtype),
                              self.density_mlp, compute_dtype=compute_dtype)
-        if network_cuda.takes_kernel("hash_encode", self.grid, pos01):
+        elif network_cuda.takes_kernel("hash_encode", self.grid, pos01):
             enc = network_cuda.hash_encode(self.grid, pos01.contiguous(),
                                            self.config, encode_dtype)
         else:

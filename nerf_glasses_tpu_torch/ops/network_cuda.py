@@ -15,6 +15,13 @@ and their plain PyTorch versions.
   the bf16 compute dtype in one launch, the encode producing the density
   MLP's first A tile in shared memory (JAX ops/network.py:62
   density_raw -> :44 density_raw_soa; plain `encode_mlp_reference`).
+- `hash_encode_backward` (nmr_hash_encode_backward) is the encode's
+  gradient: the table's (an atomic scatter-add of w_c * g into the 8
+  corner rows of each (sample, level)) and the positions'; `HashEncode`
+  is the encode as autograd sees it, its forward `hash_encode` and its
+  backward `hash_encode_backward` (JAX: jax.vjp of hashgrid.hash_encode,
+  the gathers' transpose; plain `hash_encode_backward_reference`, the
+  autograd of hashgrid.hash_encode with index_add_).
 None was a Pallas kernel: the JAX package leaves the network to XLA.
 At the bf16 compute dtype the MLP kernels run every layer on the
 tensor cores (wgmma, bf16 operands, f32 sums); at f32 on the CUDA cores
@@ -26,7 +33,10 @@ gradient (`not torch.is_grad_enabled()`, or no input and no parameter
 requires grad) takes the kernel; a CUDA call that needs gradients (the
 trainer's forward) takes the plain version and counts in
 `plain_on_card`. NerfNetwork.density_raw asks for `encode_mlp` at the
-bf16 compute dtype and for `hash_encode` and `mlp` at f32. The wrappers
+bf16 compute dtype and for `hash_encode` and `mlp` at f32; a CUDA call
+of density_raw that needs gradients (`trains_on_card`) takes HashEncode
+(the two encode kernels) and then the plain MLP, which counts in
+plain_on_card["mlp"]. The wrappers
 themselves launch on a CUDA tensor or raise, and run the plain version
 on a CPU tensor; there is no fallback from one to the other. Each
 counts its launches in `launches[name]`.
@@ -42,7 +52,10 @@ bit (the same corner sums, the same bf16 A tile, the same wgmma chain). The
 kernels keep the plain versions' rounding points and sum the 8 corners
 and the MLP products in another order than aten (the tensor cores also
 at their own internal precision): that is the one source of
-difference.
+difference. The backward (`compare_gradients`): the table's gradient
+within 1e-5 of its largest magnitude, the positions' within 1e-5 of
+theirs (the atomic adds sum each row in no fixed order, as the card's
+index_add_ does).
 """
 
 from __future__ import annotations
@@ -84,7 +97,11 @@ MLP_BF16_ATOL = 2e-2
 MLP_BF16_ROW_SHARE = 1e-5
 MLP_BF16_CAP = 4 * MLP_BF16_ATOL
 
-KERNELS = ("hash_encode", "mlp", "rgb_head", "encode_mlp")
+# the backward's contract (compare_gradients)
+GRAD_REL = 1e-5
+
+KERNELS = ("hash_encode", "mlp", "rgb_head", "encode_mlp",
+           "hash_encode_backward")
 # Kernel launches per wrapper (CUDA tensors only), and calls on a CUDA
 # tensor that took the plain version because they need gradients.
 launches = dict.fromkeys(KERNELS, 0)
@@ -128,7 +145,8 @@ def load_library() -> ctypes.CDLL:
         ("nmr_hash_encode", [p, ll, p, p, p, p], i),
         ("nmr_mlp", [p, ll, p, p, p], i),
         ("nmr_rgb_head", [p, ll, p, p, p, p, p], i),
-        ("nmr_encode_mlp", [p, p, ll, p, p, p, p], i)])
+        ("nmr_encode_mlp", [p, p, ll, p, p, p, p], i),
+        ("nmr_hash_encode_backward", [p, ll, p, p, p, p, p, p], i)])
     return _lib
 
 
@@ -143,11 +161,18 @@ def takes_kernel(name: str, *tensors) -> bool:
     plain_on_card[name] and takes the plain version, as CPU tensors do."""
     if tensors[0].device.type != "cuda":
         return False
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in tensors):
+    if trains_on_card(*tensors):
         plain_on_card[name] += 1
         return False
     return True
+
+
+def trains_on_card(*tensors) -> bool:
+    """True where a call on `tensors` (None entries skipped; the first
+    one's device decides) needs gradients on a CUDA tensor: the trainer's
+    forward, whose hash encode takes HashEncode."""
+    return (tensors[0].device.type == "cuda" and torch.is_grad_enabled()
+            and any(t is not None and t.requires_grad for t in tensors))
 
 
 # ---------------------------------------------------------------------------
@@ -158,6 +183,72 @@ def hash_encode_reference(table, pos, config: NGPConfig,
                           encode_dtype=torch.float32):
     """(N, L*F) features in encode_dtype (ops/hashgrid.hash_encode)."""
     return hashgrid.hash_encode(table, pos, config, compute_dtype=encode_dtype)
+
+
+def backward_rows(table, pos, grad, config: NGPConfig,
+                  encode_dtype=torch.float32):
+    """What the table's gradient sums -> (row ids (L*N*8,) into
+    table.view(-1, F), rows (L*N*8, F) f32): each (level, sample,
+    corner)'s w_c * g, a product in encode_dtype as the plain encode's
+    autograd makes it, in that order."""
+    scales, res, sizes, dense = level_constants(config)
+    F = config.n_features_per_level
+    ids, rows = [], []
+    for lvl in range(config.n_levels):
+        idx, w = corner_indices_and_weights(
+            pos, float(scales[lvl]), int(res[lvl]), int(sizes[lvl]),
+            bool(dense[lvl]))
+        g = grad[:, lvl * F:(lvl + 1) * F]                       # (N, F)
+        ids.append(idx.reshape(-1) + lvl * table.shape[1])
+        rows.append((g[:, None, :] * w.to(encode_dtype)[..., None])
+                    .reshape(-1, F).float())
+    return torch.cat(ids), torch.cat(rows)
+
+
+def hash_encode_backward_reference(table, pos, grad, config: NGPConfig,
+                                   encode_dtype=torch.float32,
+                                   need_pos: bool = False):
+    """The gradient of hash_encode_reference's output `grad` (N, L*F) in
+    encode_dtype -> (grad_table (L, S, F) f32, grad_pos (N, 3) f32 or
+    None). The table's as autograd gives it on the plain encode:
+    backward_rows index_add_-ed into the table in their order. The
+    positions': per level d(weights)/d(frac) times the weights' gradient
+    (sum_f g_f v_cf in encode_dtype's rounding), summed over the corners
+    c = 0..7 and then times the level's scale, summed over the levels in
+    order (the kernel's order; autograd sums the same terms in
+    another)."""
+    F = config.n_features_per_level
+    grad_table = torch.zeros_like(table)
+    grad_table.view(-1, F).index_add_(
+        0, *backward_rows(table, pos, grad, config, encode_dtype))
+    if not need_pos:
+        return grad_table, None
+    scales, res, sizes, dense = level_constants(config)
+    bits = hashgrid._corner_offsets(pos.device).bool()             # (8, 3)
+    grad_pos = torch.zeros((pos.shape[0], 3), device=pos.device)
+    for lvl in range(config.n_levels):
+        idx, w = corner_indices_and_weights(
+            pos, float(scales[lvl]), int(res[lvl]), int(sizes[lvl]),
+            bool(dense[lvl]))
+        g = grad[:, lvl * F:(lvl + 1) * F]
+        vals = hashgrid.take_rows(table[lvl], idx).to(encode_dtype)
+        prod = (g[:, None, :] * vals).float()
+        gw = torch.zeros_like(w)
+        for f in range(F):
+            gw = gw + prod[..., f]
+        gw = gw.to(encode_dtype).float()                           # (N, 8)
+        frac = pos * float(scales[lvl]) + 0.5
+        frac = frac - torch.floor(frac)
+        wd = torch.where(bits[None], frac[:, None, :],
+                         1.0 - frac[:, None, :])                   # (N, 8, 3)
+        ga = gw * wd[..., 2]
+        gd = torch.stack([ga * wd[..., 1], ga * wd[..., 0],
+                          gw * (wd[..., 0] * wd[..., 1])], -1)
+        gf = torch.zeros_like(pos)
+        for c in range(8):
+            gf = gf + torch.where(bits[c], gd[:, c], -gd[:, c])
+        grad_pos = grad_pos + gf * float(scales[lvl])
+    return grad_table, grad_pos
 
 
 def mlp_reference(x, weights, compute_dtype=torch.bfloat16):
@@ -295,6 +386,61 @@ def hash_encode(table, pos, config: NGPConfig, encode_dtype=torch.float32):
         _launch("hash_encode", load_library().nmr_hash_encode, dev, params,
                 n, table.data_ptr(), pos.data_ptr(), out.data_ptr())
     return out
+
+
+def hash_encode_backward(table, pos, grad, config: NGPConfig,
+                         encode_dtype=torch.float32, need_pos: bool = False):
+    """The gradient of hash_encode's output `grad` (N, L*F) in
+    encode_dtype -> (grad_table (L, S, F) f32, grad_pos (N, 3) f32 or
+    None), as hash_encode_backward_reference; takes what hash_encode
+    takes. On a CUDA tensor one launch of nmr_hash_encode_backward (none
+    for N = 0) into a zeroed grad_table: its rows are added to with
+    atomic adds, in no fixed order."""
+    dev = _check_encode("hash_encode_backward", table, pos, config,
+                        encode_dtype)
+    L, F = config.n_levels, config.n_features_per_level
+    _check("grad", grad, (encode_dtype,), (pos.shape[0], L * F), dev)
+    if dev.type == "cpu":
+        return hash_encode_backward_reference(table, pos, grad, config,
+                                              encode_dtype, need_pos)
+    n = pos.shape[0]
+    grad_table = torch.zeros_like(table)
+    grad_pos = (torch.empty((n, 3), dtype=torch.float32, device=dev)
+                if need_pos else None)
+    if n:
+        params = _encode_params(config, table.shape[1],
+                                encode_dtype == torch.bfloat16)
+        _launch("hash_encode_backward",
+                load_library().nmr_hash_encode_backward, dev, params, n,
+                table.data_ptr(), pos.data_ptr(), grad.data_ptr(),
+                grad_table.data_ptr(),
+                None if grad_pos is None else grad_pos.data_ptr())
+    return grad_table, grad_pos
+
+
+class HashEncode(torch.autograd.Function):
+    """The hash encode as autograd sees it: HashEncode.apply(table, pos,
+    config, encode_dtype) -> hash_encode's (N, L*F) features; its
+    backward is hash_encode_backward (on CUDA tensors the kernels
+    nmr_hash_encode and nmr_hash_encode_backward, on CPU tensors their
+    plain versions), the positions' gradient only where pos requires
+    grad."""
+
+    @staticmethod
+    def forward(ctx, table, pos, config, encode_dtype):
+        ctx.save_for_backward(table, pos)
+        ctx.config, ctx.encode_dtype = config, encode_dtype
+        return hash_encode(table, pos, config, encode_dtype)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        table, pos = ctx.saved_tensors
+        grad_table, grad_pos = hash_encode_backward(
+            table, pos, grad.contiguous(), ctx.config, ctx.encode_dtype,
+            ctx.needs_input_grad[1])
+        return (grad_table if ctx.needs_input_grad[0] else None, grad_pos,
+                None, None)
 
 
 def _mlp_params(name, weights, n_in, dev, compute_dtype, **kw) -> MlpParams:
@@ -459,6 +605,25 @@ def compare_with_plain(kind: str, out_k, out_p, dtype) -> dict:
             "ok": nan == 0 and bad_rows <= allowed and capped}
 
 
+def compare_gradients(out_k, out_p) -> dict:
+    """hash_encode_backward's outputs (grad_table, grad_pos or None)
+    against its plain version's on the same inputs -> the worst
+    differences, each over the plain gradient's largest magnitude, and
+    `ok`: both within GRAD_REL, no NaN."""
+    res = {"ok": True}
+    for name, k, p in zip(("table", "pos"), out_k, out_p):
+        if p is None:
+            continue
+        scale = float(p.abs().max()) if p.numel() else 0.0
+        err = float((k - p).abs().max()) if p.numel() else 0.0
+        nan = int(torch.isnan(k).sum()) + int(torch.isnan(p).sum())
+        rel = err / scale if scale > 0.0 else err
+        res[name] = {"max_abs_err": err, "max_abs": scale, "rel": rel,
+                     "nan": nan}
+        res["ok"] &= nan == 0 and rel <= GRAD_REL
+    return res
+
+
 def bf16_step_bound(rows, weights) -> torch.Tensor:
     """The most each output of mlp_apply at bf16 compute may move when
     every hidden activation rounds to the neighbouring bf16 value (what
@@ -501,6 +666,26 @@ def encode_work(table, pos, config: NGPConfig, encode_dtype=torch.float32):
         rows += int(torch.unique(idx).numel())
     out_b = n * L * F * (2 if encode_dtype == torch.bfloat16 else 4)
     return n * L * (30 + 16 * F), n * 12 + out_b + rows * F * 4
+
+
+def encode_backward_work(table, pos, config: NGPConfig,
+                         encode_dtype=torch.float32, need_pos=False):
+    """The encode backward's least work on these inputs -> (flops, bytes):
+    per (sample, level) encode_work's ~30 flops of coordinates and
+    weights and 8F products and adds of w_c * g, with the positions'
+    gradient also 16F for the weights' gradient and ~60 for their
+    derivative; bytes: pos and the output's gradient read once, each
+    table row these positions touch written once (counted once however
+    many samples add to it), with the positions' gradient those rows read
+    once and (N, 3) f32 written."""
+    L, F = config.n_levels, config.n_features_per_level
+    _, fwd_bytes = encode_work(table, pos, config, encode_dtype)
+    n = pos.shape[0]
+    out_b = n * L * F * (2 if encode_dtype == torch.bfloat16 else 4)
+    touched = fwd_bytes - n * 12 - out_b
+    flops = n * L * (30 + 16 * F + ((16 * F + 60) if need_pos else 0))
+    return (flops, n * 12 + out_b + touched * (2 if need_pos else 1)
+            + (n * 12 if need_pos else 0))
 
 
 def encode_mlp_work(table, pos, weights, config: NGPConfig,

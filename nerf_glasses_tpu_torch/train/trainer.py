@@ -46,6 +46,7 @@ import torch
 from nerf_glasses_tpu_torch import constants as C
 from nerf_glasses_tpu_torch.config import NGPConfig
 from nerf_glasses_tpu_torch.io.dataset import NerfDataset
+from nerf_glasses_tpu_torch.ops import march_cuda
 from nerf_glasses_tpu_torch.ops import occupancy as occ_ops
 from nerf_glasses_tpu_torch.ops.colors import linear_to_srgb
 from nerf_glasses_tpu_torch.ops.compaction import stable_partition_perm
@@ -53,7 +54,7 @@ from nerf_glasses_tpu_torch.ops.network import (NerfNetwork,
                                                 apply_density_activation,
                                                 apply_rgb_activation,
                                                 init_params)
-from nerf_glasses_tpu_torch.utils.bbox import BoundingBox, ray_intersect_aabb
+from nerf_glasses_tpu_torch.utils.bbox import BoundingBox
 
 G = C.NERF_GRIDSIZE
 
@@ -435,54 +436,20 @@ def _sample_rays(draws, data, n_rays: int,
 def march_training_samples(occ, o, d, u, opts: TrainOptions, aabb_min,
                            aabb_max, max_cascade: int):
     """Occupancy-compacted stratified training samples (no gradient).
-    -> dict(t (S, B), dt (S, B), valid (S, B)); `u` (S, B) uniform.
+    -> dict(t (S, B), dt (S, B), valid (S, B)); `u` (S, B) uniform, S =
+    opts.samples_per_ray.
 
-    Pass 1 hops each ray through the occupancy grid and records the
-    occupied segments; pass 2 places S stratified samples by inverse CDF
-    over the occupied length, so the budget always covers the ray's
-    whole occupied depth (the JAX package's docstring has the failure a
-    fixed-dt march ran into)."""
-    B = o.shape[0]
-    S = opts.samples_per_ray
-    H = opts.march_hops
-    idir = 1.0 / d
-    tmin, tmax = ray_intersect_aabb(o, d, aabb_min, aabb_max)
-    t0 = torch.clamp(tmin, min=0.0) + 1e-6
-    span = torch.clamp(tmax - t0, min=0.0)
-    # fine enough to resolve mip-0 voxels, coarse enough that H hops
-    # cross the whole aabb while it is fully occupied
-    stride = torch.clamp(span / H, min=1.0 / G)
-    t = t0
-    starts, segs = [], []
-    for _ in range(H):
-        alive = t < tmax
-        pos = o + d * t[:, None]
-        dt = occ_ops.calc_dt(t, opts.cone_angle)
-        mip = occ_ops.mip_from_dt(dt, pos, max_cascade)
-        occp = occ_ops.occupied_at(occ, pos, mip) & alive
-        res = torch.bitwise_right_shift(torch.full_like(mip, G), mip).float()
-        t_skip = occ_ops.advance_to_next_voxel(t, opts.cone_angle, pos, d,
-                                               idir, res)
-        seg = torch.where(occp, torch.minimum(stride, tmax - t), 0.0)
-        t_next = torch.where(occp, t + seg, torch.maximum(t_skip, t + 1e-6))
-        starts.append(t)
-        segs.append(seg)
-        t = torch.where(alive, t_next, t)
-    t_start = torch.stack(starts)                     # (H, B)
-    seg = torch.stack(segs)
-    cum = torch.cumsum(seg, 0)                        # inclusive segment ends
-    locc = cum[-1]                                    # occupied length
-    dt_eff = torch.where(locc > 0, locc / S, 1.0)
-    s = (torch.arange(S, device=o.device)[:, None] + u) * dt_eff   # (S, B)
-    h_idx = torch.searchsorted(cum.T.contiguous(), s.T.contiguous(),
-                               right=True).T
-    h_idx = torch.clamp(h_idx, max=H - 1)
-    cum_ex = cum - seg                                # exclusive starts
-    t_s = (torch.gather(t_start, 0, h_idx)
-           + (s - torch.gather(cum_ex, 0, h_idx)))
-    valid = s < locc[None, :]
-    return {"t": t_s, "dt": torch.where(valid, dt_eff[None].expand(S, B), 0.0),
-            "valid": valid}
+    Pass 1 hops each ray opts.march_hops times through the occupancy grid
+    and records the occupied segments; pass 2 places S stratified samples
+    by inverse CDF over the occupied length. On a CUDA tensor one launch
+    of the nmr_training_samples kernel, on a CPU tensor its plain version
+    (ops/march_cuda.py::training_samples_reference)."""
+    if u.shape[0] != opts.samples_per_ray:
+        raise ValueError(f"u holds {u.shape[0]} samples a ray, the options "
+                         f"{opts.samples_per_ray}")
+    return march_cuda.training_samples(occ, o, d, u, aabb_min, aabb_max,
+                                       max_cascade, opts.cone_angle,
+                                       opts.march_hops)
 
 
 def compact_bucket(n_samples: int, fraction: float) -> int:

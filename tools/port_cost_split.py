@@ -1,7 +1,8 @@
 """Where the port's kernels spend their time on the card (PERF.md section
 6 rows 7-9 and 11-13, section 7): kernel variants built from edited copies
 of the sources, each timed in turns with the others on the 720p frames'
-own calls. Three splits:
+own calls (the encode's backward: on the settled trainer's own step).
+Four splits:
 
     mkdir -p _chipwork/before
     git archive 82e6be5 nerf_glasses_tpu_torch | tar -x -C _chipwork/before
@@ -14,6 +15,8 @@ own calls. Three splits:
     mkdir -p _chipwork/parent
     git archive 29e255e nerf_glasses_tpu_torch | tar -x -C _chipwork/parent
     python3 tools/port_cost_split.py encode _chipwork/parent [DIR ...] > encode.log 2>&1
+
+    python3 tools/port_cost_split.py backward [DIR ...] > backward.log 2>&1
 
 walk: DIR holds the package as it was at commit 82e6be5 (its list walk
 wrote a lane's rows itself, its plan wrote every tile's rays). Under
@@ -73,6 +76,17 @@ and bf16 instance at F = 4, how many of its table loads issue before
 the first instruction that reads one (cuobjdump -sass). Then the f32
 bodies and the encode on that frame's calls as in shade (f32_split),
 against DIR's and any further DIRs'. Every variant builds in parallel.
+
+backward: the encode's backward on the settled trainer's own step
+(chip_smoke.py phase 14b's call: trained_head_v6 resumed on the capture,
+16 steps, then one step's first call). Copies of this tree's
+ops/network_cuda.py and csrc/network.cu with one edit each to
+nmr_hash_encode_backward:
+- stores: each row stored, not added (a race: timing only);
+- noadd: no row written at all (the index and weight work alone);
+each timed in turns with this tree's (and any further DIRs' that have
+the wrapper, held to the contract) on the step's call, beside the bound
+and one index_add_ of the same rows.
 
 Device time by torch.profiler with L2 flushed (chip_smoke.kernel_device_ms).
 Needs one NVIDIA GPU and nvcc.
@@ -212,6 +226,15 @@ ENCODE_EDITS = {
         "    const long long s = i / L;\n    const int l = (int)(i - s * L);\n",
         "    const unsigned s = (unsigned)i / (unsigned)L;\n"
         "    const int l = (int)((unsigned)i - s * (unsigned)L);\n")],
+}
+# this tree's encode backward
+BACKWARD_EDITS = {
+    "stores": [("      atomic_add_row<F>(lvl + (long long)idx[c] * F, v);\n",
+                "      for (int f = 0; f < F; ++f)   // a race: timing only\n"
+                "        lvl[(long long)idx[c] * F + f] = v[f];\n")],
+    "noadd": [("      atomic_add_row<F>(lvl + (long long)idx[c] * F, v);\n",
+               "      if (v[0] == 1.5e-38f)   // never: the rows live, unwritten\n"
+               "        atomic_add_row<F>(lvl + (long long)idx[c] * F, v);\n")],
 }
 PLAN_EDITS = {"bins_only": [(
     "  if (count == 0) return;              // (the block's total: uniform)",
@@ -622,6 +645,55 @@ def main_encode(tmp, before, extra=()):
     print(f"[done: {time.perf_counter() - t0:.1f} s]")
 
 
+def settled_step_calls(dev):
+    """chip_smoke.py phase 14b's recorded calls: the capture, trained_head_v6
+    resumed and 16 steps, then one step's first calls -> {wrapper: args}."""
+    ds, _, _ = cs.capture_phase(dev, lambda n: None)
+    tr = cs.ttr.Trainer(ds, cs.ttr.TrainOptions(
+        config=cs.NGPConfig.native_fast()), seed=3, device=dev)
+    tr.load_snapshot(cs.SNAPSHOT)
+    tr.train(cs.RATE_SETTLED[0])
+    if tr.step % tr.opts.grid_update_interval == 0:
+        tr.train(1)
+    return cs.first_train_calls(lambda: tr.train(1))
+
+
+def main_backward(tmp, extra=()):
+    t0 = time.perf_counter()
+    dev, _ = setup(tmp)
+    here = os.path.join(ROOT, "nerf_glasses_tpu_torch")
+    net = [(os.path.basename(p), m) for p, m in cs.other_checkouts(
+        [variant(here, name, "network_cuda", "network.cu", edits)
+         for name, edits in BACKWARD_EDITS.items()] + list(extra),
+        "network_cuda")]
+    args = settled_step_calls(dev)["hash_encode_backward"]
+    table, pos, grad, cfg, dtype, _ = args
+    want = network_cuda.hash_encode_backward_reference(*args)
+    b_ms, b_by = cs.bound_ms(*network_cuda.encode_backward_work(
+        table, pos, cfg, dtype))
+    ids, rows = network_cuda.backward_rows(table, pos, grad, cfg, dtype)
+    flat = torch.zeros((table.shape[0] * table.shape[1], table.shape[2]),
+                       device=dev)
+    lib_ms = cs.cuda_ms(lambda: flat.index_add_(0, ids, rows), REPS)
+    print(f"settled step hash_encode_backward: {pos.shape[0]} samples, "
+          f"{rows.shape[0]} rows added, bound {b_ms:.5f} ms ({b_by}), one "
+          f"index_add_ of the rows {lib_ms:.4f} ms by events")
+
+    def check(label, got):
+        if label.endswith(tuple(f" of {v}" for v in BACKWARD_EDITS)):
+            return
+        r = network_cuda.compare_gradients(got, want)
+        print(f"  {label}: table gradient {r['table']['rel']:.2e} of max |g|")
+        if not r["ok"]:
+            raise AssertionError(f"{label} disagrees: {r}")
+
+    have = [(v, m) for v, m in net if hasattr(m, "hash_encode_backward")]
+    cs.in_turns(have, network_cuda, "hash_encode_backward", check, args,
+                lambda fn: cs.kernel_device_ms("hash_encode_backward", fn,
+                                               REPS))
+    print(f"[done: {time.perf_counter() - t0:.1f} s]")
+
+
 def main(tmp, before):
     t0 = time.perf_counter()
     dev, glasses = setup(tmp)
@@ -666,11 +738,15 @@ def main(tmp, before):
 
 
 if __name__ == "__main__":
-    if len(sys.argv) < 3 or sys.argv[1] not in ("walk", "shade", "encode") or (
-            sys.argv[1] == "walk" and len(sys.argv) != 3):
+    if len(sys.argv) < 2 or sys.argv[1] not in ("walk", "shade", "encode",
+                                                "backward") or (
+            sys.argv[1] == "walk" and len(sys.argv) != 3) or (
+            sys.argv[1] in ("shade", "encode") and len(sys.argv) < 3):
         sys.exit(__doc__)
     with tempfile.TemporaryDirectory() as d:
-        if sys.argv[1] == "walk":
+        if sys.argv[1] == "backward":
+            main_backward(d, [os.path.abspath(x) for x in sys.argv[2:]])
+        elif sys.argv[1] == "walk":
             main(d, os.path.abspath(sys.argv[2]))
         elif sys.argv[1] == "encode":
             main_encode(d, os.path.abspath(sys.argv[2]),
