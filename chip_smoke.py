@@ -810,12 +810,15 @@ def device_profile(fn, host=True):
 def op_counts(fn):
     """torch.profiler (host and device) over one call of fn -> {"ops": the
     operations fn put on the device, counted on the host: its CUDA API
-    calls that launch a kernel (runtime or driver API), copy or fill;
-    "launches": the kernel launches among them; "calls": {API call:
-    count}; "traced": the device operations the device trace kept, which
-    can be fewer (PERF.md section 7); "busy_ms": their time; "wall_ms";
-    "copies": the host's copy calls (every direction, so at least the
-    DtoH copies); "DtoH", "HtoD": the device trace's copies; "sync":
+    calls that launch a kernel (runtime or driver API), copy or fill, and
+    for each replay of a CUDA graph (cudaGraphLaunch) the graph's nodes
+    (the package's raymarch.graph_counts, where it has one); "launches":
+    the kernel launches among them, a replay's kernel nodes included;
+    "graph_launches": the replays; "calls": {API call: count}; "traced":
+    the device operations the device trace kept, which can be fewer
+    (PERF.md section 7); "busy_ms": their time; "wall_ms"; "copies": the
+    host's copy calls (every direction, so at least the DtoH copies);
+    "DtoH", "HtoD": the device trace's copies; "sync":
     cudaStreamSynchronize calls; "by_name": {device operation: (ms,
     count)}}. Self-contained: frame_ops_in_turns runs it in other
     checkouts too."""
@@ -824,6 +827,9 @@ def op_counts(fn):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from nerf_glasses_tpu_torch.ops import raymarch as _rm
+    graphs = getattr(_rm, "graph_counts", {})
+    before = dict(graphs)
     puts = re.compile(r"^(cudaLaunchKernel|cuLaunchKernel|cudaMemcpy|"
                       r"cudaMemset|cuMemcpy|cuMemset)")
     torch.cuda.synchronize()
@@ -838,10 +844,15 @@ def op_counts(fn):
         if e.device_type == DeviceType.CUDA:
             t, c = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, c + 1)
-        elif puts.match(e.name) or e.name == "cudaStreamSynchronize":
+        elif (puts.match(e.name) or e.name in ("cudaStreamSynchronize",
+                                               "cudaGraphLaunch")):
             calls[e.name] = calls.get(e.name, 0) + 1
-    return {"ops": sum(c for k, c in calls.items() if puts.match(k)),
-            "launches": sum(c for k, c in calls.items() if "Launch" in k),
+    nodes, kernels = (graphs.get(k, 0) - before.get(k, 0)
+                      for k in ("nodes", "kernels"))
+    return {"ops": sum(c for k, c in calls.items() if puts.match(k)) + nodes,
+            "launches": sum(c for k, c in calls.items() if "LaunchKernel" in k)
+            + kernels,
+            "graph_launches": calls.get("cudaGraphLaunch", 0),
             "copies": sum(c for k, c in calls.items() if "Memcpy" in k),
             "calls": calls, "traced": sum(c for _, c in by_name.values()),
             "busy_ms": sum(t for t, _ in by_name.values()),
@@ -1255,6 +1266,7 @@ def first_march_calls(fn):
     state as the call found it."""
     saved = {k: getattr(march_cuda, k) for k in MARCH_KERNELS}
     got = {}
+    fresh_list_marches()
 
     def key(name, args):
         if name == "init_walk":
@@ -1270,8 +1282,9 @@ def first_march_calls(fn):
     def recorder(name):
         def call(*args):
             k = key(name, args)
-            if k is not None and k not in got:
-                got[k] = tuple(_clone_state(a) for a in args)
+            if k is not None and k not in got and not capturing():
+                got[k] = live_list_call(name, tuple(_clone_state(a)
+                                                    for a in args))
             return saved[name](*args)
         return call
 
@@ -1283,6 +1296,41 @@ def first_march_calls(fn):
         for k, f in saved.items():
             setattr(march_cuda, k, f)
     return got
+
+
+def capturing() -> bool:
+    """Whether the current stream captures a CUDA graph (a recorder then
+    records nothing: what it would copy would join the graph)."""
+    return (torch.cuda.is_available()
+            and torch.cuda.is_current_stream_capturing())
+
+
+def fresh_list_marches():
+    """Drop the list route's cached marches (raymarch.list_march): the
+    next frame's first block then runs eagerly, its wrappers' calls seen
+    by a recorder, before its graph is captured."""
+    raymarch._LIST_CACHE.clear()
+
+
+# the list forms' position of their device list length (n_dev), and the
+# bound the last recorded call of each was launched over
+LIST_N_DEV = {"walk_list": 8, "composite_list": 10}
+LIST_BOUND = {}
+
+
+def live_list_call(name, args):
+    """A recorded list-form call as the march makes it (launched over the
+    first list's bound, the list's length in device memory) with the
+    bound made the length it found there: the same launch over the live
+    entries, whose outputs (the slot bits' stride included) are then
+    read over that length. The bound is kept in LIST_BOUND."""
+    i = LIST_N_DEV.get(name)
+    if i is None or len(args) <= i or args[i] is None:
+        return args
+    args = list(args)
+    LIST_BOUND[name] = args[2]
+    args[2] = min(int(args[i][0]), args[2])
+    return tuple(args)
 
 
 def march_bound(name, args):
@@ -1568,6 +1616,8 @@ def gathered_calls(calls):
     sub = {k: frame[k][idl] for k in raymarch._GATHER}
     sub["alive"] = torch.ones(n, dtype=torch.bool, device=idl.device)
     cframe, cids, cn, rows, m, rgb, sigma, copts = calls["composite_list"][:8]
+    m = int(m[0])                       # the walk's row count
+    rgb, sigma = rgb[:m], sigma[:m]
     K = copts.steps_per_round
     slot_rows = march_cuda.list_slot_rows(rows, cn, K)
     valid = slot_rows >= 0
@@ -1654,6 +1704,12 @@ def other_list_copy(module, name, args):
         rows = {**rows, "slot_rows": march_cuda.list_slot_rows(
             rows, n, K).to(torch.int32).reshape(-1)}
         work[6 if name == "walk_list" else 3] = rows
+    if name == "composite_list" and "n_dev" not in inspect.signature(
+            module.composite_list).parameters:
+        # a composite that takes the row count from the host, its rows
+        # and the list's length as given
+        m = int(work[4][0])
+        work = work[:4] + [m, work[5][:m], work[6][:m]] + work[7:10]
     return tuple(work)
 
 
@@ -1710,7 +1766,7 @@ def list_bound(name, args):
                + march_cuda._mask_bytes(opts.steps_per_round))
         grid = march_cuda.probe_route(scene, opts)[1]
         return bound_ms(0, n * per + 32 * m + grid.numel() + 28)
-    m, opts = args[4], args[7]
+    m, opts = int(args[4][0]), args[7]
     live = int(work[0]["alive"][ids[:n].long()].sum())
     per = (4 + 57 + 6 + 4 + march_cuda._mask_bytes(opts.steps_per_round)
            + 37)
@@ -1818,6 +1874,14 @@ def hold_list_calls(calls, gathered, label, reps=20, others=()):
             times[which].append(fn())
         k_ms = float(np.mean(times[f"this tree {key}"]))
         ev_ms = list_event_ms(run, prepare, reps)
+        # the same call launched over the bound the march launches it
+        # over (the first list's rows), the length read on the device
+        bound_n = LIST_BOUND.get(name, n)
+        bwork = list(list_copy(name, args))
+        bwork[2] = bound_n
+        bound_call_ms = march_ms(
+            name, lambda: wrapper(*bwork), reps,
+            lambda: list_restore(name, bwork, args))
         pwork = list_copy(name, args)
         p_ms = list_event_ms(lambda: plain(*pwork),
                              lambda: list_restore(name, pwork, args), 2)
@@ -1831,8 +1895,10 @@ def hold_list_calls(calls, gathered, label, reps=20, others=()):
               + f"; device ms in turns (torch.profiler, L2 flushed): "
               + "; ".join(f"{w} {', '.join(f'{t:.4f}' for t in ts)}"
                           for w, ts in times.items())
-              + f"; events {ev_ms:.4f} ms, plain {p_ms:.2f} ms, bound "
-              f"{b_ms:.4f} ms ({b_by}), share of bound {b_ms / k_ms:.1%}")
+              + f"; launched over the march's bound of {bound_n} entries "
+              f"{bound_call_ms:.4f} ms device; events {ev_ms:.4f} ms, plain "
+              f"{p_ms:.2f} ms, bound {b_ms:.4f} ms ({b_by}), share of bound "
+              f"{b_ms / k_ms:.1%}")
         if not (cmp["ok"] and all(same.values())):
             raise AssertionError(f"{label}: {kernel} disagrees with its plain "
                                  f"version or the gathered epoch's kernels: "
@@ -1840,8 +1906,9 @@ def hold_list_calls(calls, gathered, label, reps=20, others=()):
         out[key] = {"cmp": cmp, "ms": k_ms, "event_ms": ev_ms,
                     "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
                     "rays": n, "bit_for_bit_gathered": same,
-                    "in_turns": times}
-        del work, work_k, work_p, pwork
+                    "in_turns": times, "launch_bound": bound_n,
+                    "ms_over_bound": bound_call_ms}
+        del work, work_k, work_p, pwork, bwork
     return out
 
 
@@ -1970,7 +2037,7 @@ def round_tail(calls, label, others=()):
 
 
 FRAME_OPS_CODE = """
-import json, os, re, sys
+import json, os, re, sys, time
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
@@ -1984,8 +2051,7 @@ if len(sys.argv) > 2:
     kw = {"snapshot": sys.argv[2], "aabb": (float(sys.argv[3]),
                                             float(sys.argv[4]))}
 r, nerf = cs.make_renderer(torch.device("cuda"), cs.W, cs.H, glasses, **kw)
-for _ in range(3):
-    r.frame()
+r.frame()
 
 
 def clone(x):
@@ -1998,15 +2064,25 @@ def clone(x):
     return x
 
 
+def restore(x, snap):
+    if torch.is_tensor(x):
+        x.copy_(snap)
+    elif isinstance(x, (dict, tuple)):
+        for key in x if isinstance(x, dict) else range(len(x)):
+            restore(x[key], snap[key])
+
+
 # the march: the frame's epochs function (_march_lists or _march_gathered,
-# in every checkout), its first call recorded and replayed alone
+# in every checkout), its first call recorded and replayed alone on its
+# own arguments, given back in place the values the call found (a cached
+# march's graph reads them where they are)
 rec = {}
 saved = {k: getattr(rm, k) for k in ("_march_lists", "_march_gathered")}
 
 
 def recorder(name):
     def call(*a, **k):
-        rec.setdefault("call", (name, clone(a), clone(k)))
+        rec.setdefault("call", (name, a, k, clone((a, k))))
         return saved[name](*a, **k)
     return call
 
@@ -2017,23 +2093,36 @@ r.update_model_view_proj()
 r.frame()
 for k, f in saved.items():
     setattr(rm, k, f)
-name, a, k = rec["call"]
+name, a, k, snap = rec["call"]
+# warm-up frames after the copies the recording made, so that the timed
+# frames find the allocator's caches as a user's frames do
+for _ in range(3):
+    r.frame()
 
 
 def march():
-    a2, k2 = clone(a), clone(k)
-    return lambda: saved[name](*a2, **k2)
+    restore((a, k), snap)
+    torch.cuda.synchronize()
+    return lambda: saved[name](*a, **k)
 
 
 res = []
+graphs = getattr(rm, "graph_counts", {})
 for _ in range(3):
     r.update_model_view_proj()
-    r.frame()
+    torch.cuda.synchronize()
+    captures = graphs.get("captures", 0)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        r.frame()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / 3
+    captures = graphs.get("captures", 0) - captures
     f = op_counts(r.frame)
     m = op_counts(march())
     res.append([f["ops"], f["busy_ms"], f["wall_ms"], f["DtoH"], f["sync"],
                 m["ops"], m["DtoH"], f["traced"], m["traced"], f["copies"],
-                m["copies"]])
+                m["copies"], host_ms, captures])
 # the library kernels (cuBLAS, CUTLASS) of one frame: the aten operation
 # that launched each and its input shapes
 lib = {}
@@ -2074,11 +2163,15 @@ def frame_ops_in_turns(tmp, dirs, label="exact 720p", scene=()):
     the frame around the march; beside them the device trace's operation
     counts and the host's copy calls; one frame's library kernels (cuBLAS,
     CUTLASS) with the aten operation and input shapes that launched each;
-    and a frame at sample 0, whose rgba and depth must be bit for bit the
-    same in every process of every checkout (raises otherwise) -> {checkout:
-    {"frames": [[ops, busy, wall, DtoH, syncs, march ops, march DtoH,
-    traced ops, march traced ops, copies, march copies], ...], "library":
-    [...], "same_frame": True}}.
+    before each profiled frame the host clock of 3 frames to
+    synchronize (phase 4's measure); and a frame at sample 0, whose rgba
+    and depth must be bit for bit the same in every process of every
+    checkout (raises otherwise) -> {checkout: {"frames": [[ops, busy,
+    wall, DtoH, syncs, march ops, march DtoH, traced ops, march traced
+    ops, copies, march copies, host ms, graphs captured in those host-clock
+    frames], ...], "library": [...],
+    "same_frame": True}}. The march is replayed on its own recorded
+    arguments, given back in place the values they held.
     scene: () for the trained head, or (snapshot, aabb low, aabb high). A
     DIR with no chip_smoke.py of its own (the kernels' sources alone) is
     left out."""
@@ -2105,21 +2198,37 @@ def frame_ops_in_turns(tmp, dirs, label="exact 720p", scene=()):
         first = first or frame
         res[path]["same_frame"] &= same_bits(frame, first)
     print(f"{label} frame by checkout, in turns, each in its own process "
-          "(torch.profiler: device operations counted on the host, busy ms, "
+          "(the host clock of 3 untraced frames to synchronize, ms a frame; "
+          "torch.profiler: device operations counted on the host, busy ms, "
           "wall ms; Memcpy DtoH, cudaStreamSynchronize; the march's "
           "operations and DtoH, and the frame around it; the device trace's "
           "operations of the frame and the march; the host's copy calls of "
           "both): " + "; ".join(
               f"{'this tree' if path == ROOT else path} " + ", ".join(
-                  f"{n} ops {b:.3f} / {w:.2f} ms, {h} DtoH, {y} syncs, march "
-                  f"{mo} ops {md} DtoH, around it {n - mo} ops {h - md} DtoH "
-                  f"(traced {tn} / {tm}, copies {cn} / {cm})"
-                  for n, b, w, h, y, mo, md, tn, tm, cn, cm in r["frames"])
+                  f"host {hm:.2f} ms ({gc} captures), {n} ops {b:.3f} / "
+                  f"{w:.2f} ms, {h} DtoH, {y} syncs, march {mo} ops {md} "
+                  f"DtoH, around it {n - mo} ops {h - md} DtoH (traced {tn} "
+                  f"/ {tm}, copies {cn} / {cm})"
+                  for n, b, w, h, y, mo, md, tn, tm, cn, cm, hm, gc
+                  in r["frames"])
               for path, r in res.items()))
     same = {("this tree" if path == ROOT else path): r["same_frame"]
             for path, r in res.items()}
     print(f"{label} frame at sample 0, rgba and depth bit for bit the first "
           f"process's in every process of each checkout: {same}")
+    mine = [f[11] for f in res[ROOT]["frames"]]
+    for path, r in res.items():
+        if path == ROOT:
+            continue
+        theirs = [f[11] for f in r["frames"]]
+        r["host_clock_lower"] = max(mine) < min(theirs)
+        print(f"{label} host clock, ms a frame (3 frames to synchronize) in "
+              f"turns: this tree {', '.join(f'{x:.2f}' for x in mine)}; "
+              f"{path} {', '.join(f'{x:.2f}' for x in theirs)}; this tree's "
+              f"lower in every turn: {r['host_clock_lower']}")
+        if not r["host_clock_lower"]:
+            raise AssertionError(f"{label}: this tree's host clock {mine} "
+                                 f"is not under {path}'s {theirs}")
     if not all(same.values()):
         raise AssertionError(f"{label}: the checkouts' frames differ: {same}")
     for path, r in res.items():
@@ -2236,18 +2345,61 @@ def flash_march_check(renderer, nerf, label, need, others=()):
     return out
 
 
+def plain_call(module, name):
+    """The plain version of `module`'s wrapper `name` (its `*_reference`)
+    taking what the wrapper takes: a network wrapper's row count and
+    output as its CPU route takes them (the count read on the host, the
+    rows below it computed into the output), the ray init's state
+    buffers (`out`) filled from the plain version's state."""
+    ref = getattr(module, f"{name}_reference")
+    if module is frame_cuda and name == "ray_init":
+        def call(*args, out=None, **kw):
+            st, first = ref(*args, **kw)
+            if out is None:
+                return st, first
+            return frame_cuda._into(out, st, first, args[3] * args[4])
+        return call
+    if module is not network_cuda or name not in NETWORK_ARITY:
+        return ref
+    return counted_call(ref, name)
+
+
+def counted_call(fn, name):
+    """fn, a network function that takes no row count (a plain version,
+    or another checkout's wrapper), taking what this tree's wrapper
+    `name` takes: with a row count (read on the host) and an output, fn
+    on the rows below the count, written into the output."""
+    k = NETWORK_ARITY[name]
+
+    def call(*args):
+        if len(args) <= k or args[k] is None:
+            return fn(*args[:k])
+        return network_cuda._plain_rows(fn, args[k], args[k + 1],
+                                        args[NETWORK_ROW_ARG[name]].shape[0],
+                                        *args[:k])
+    return call
+
+
 def plain_versions(module, names):
-    """Swap `module`'s wrappers `names` for their plain versions (the
-    `*_reference` of each) -> the wrappers, for restore_wrappers."""
+    """Swap `module`'s wrappers `names` for their plain versions
+    (plain_call) and the list route's march for its eager blocks (a
+    graph replays the kernels it captured, and a plain version reads
+    counts on the host, which no graph can hold) -> what was swapped, for
+    restore_wrappers."""
     saved = {k: getattr(module, k) for k in names}
     for k in names:
-        setattr(module, k, getattr(module, f"{k}_reference"))
+        setattr(module, k, plain_call(module, k))
+    saved[raymarch] = raymarch._march_lists
+    raymarch._march_lists = functools.partial(saved[raymarch], graphs=False)
     return saved
 
 
 def restore_wrappers(module, saved):
     for k, f in saved.items():
-        setattr(module, k, f)
+        if k is raymarch:
+            raymarch._march_lists = f
+        else:
+            setattr(module, k, f)
 
 
 def plain_vs_kernel_frames(renderer, nerf, label, module, names, what,
@@ -2479,8 +2631,11 @@ def first_frame_calls(fn):
     def recorder(name):
         def call(*args, **kw):
             if name not in got:
+                # held into outputs of their own, as the plain version and
+                # other checkouts make them (not the list route's state)
                 got[name] = (tuple(_clone_state(a) for a in args),
-                             {k: _clone_state(v) for k, v in kw.items()})
+                             {k: _clone_state(v) for k, v in kw.items()
+                              if k != "out"})
             return saved[name](*args, **kw)
         return call
 
@@ -2815,18 +2970,45 @@ def network_launch_check(label, need=BF16_NETWORK, absent=PAIR,
     return got
 
 
+# each network wrapper's arguments before its row count and output, and
+# the one whose rows the count counts
+NETWORK_ARITY = {"hash_encode": 4, "mlp": 3, "rgb_head": 6, "encode_mlp": 6}
+NETWORK_ROW_ARG = {"hash_encode": 1, "mlp": 0, "rgb_head": 0, "encode_mlp": 1}
+
+
+
+class NetworkCalls(dict):
+    """first_network_calls' result: {wrapper: its first call's arguments,
+    on the rows below its row count where it had one, without the count
+    and the output}; `counted` {wrapper: that call as it was made, its
+    row count in device memory and its output buffer included}."""
+    counted: dict
+
+
 def first_network_calls(fn):
     """Run fn with network_cuda's wrappers recording the arguments of their
-    first call (a frame's first epoch) -> {wrapper: args}, the tensors
+    first call (a frame's first epoch; the list route's cached marches
+    dropped first, so that it runs eagerly) -> NetworkCalls, the tensors
     copied."""
     saved = {k: getattr(network_cuda, k) for k in NETWORK_KERNELS}
-    got = {}
+    got = NetworkCalls()
+    got.counted = {}
+    fresh_list_marches()
+
+    def copy(a):
+        return a.detach().clone() if torch.is_tensor(a) else a
 
     def recorder(name):
         def call(*args):
-            if name not in got:
-                got[name] = tuple(a.detach().clone() if torch.is_tensor(a)
-                                  else a for a in args)
+            if name not in got and not capturing():
+                k = NETWORK_ARITY[name]
+                base = tuple(copy(a) for a in args[:k])
+                if len(args) > k and args[k] is not None:
+                    got.counted[name] = tuple(copy(a) for a in args)
+                    base = network_cuda.rows_below(
+                        base, args[NETWORK_ROW_ARG[name]].shape[0],
+                        int(args[k].reshape(())))
+                got[name] = base
             return saved[name](*args)
         return call
 
@@ -2888,7 +3070,7 @@ def library_chain(name, args):
     return run
 
 
-def hold_network_calls(calls, label, reps=20, others=()):
+def hold_network_calls(calls, label, reps=20, others=(), counted=None):
     """Each recorded network-kernel call (first_network_calls) against its
     plain version on the same inputs under network_cuda.
     compare_with_plain's contract, timed (device time by torch.profiler
@@ -2901,29 +3083,54 @@ def hold_network_calls(calls, label, reps=20, others=()):
     tree's hash_encode followed by mlp on its inputs, bit for bit, and
     beside that pair's device time (the sum of the two kernels' on the
     same positions, with L2 flushed before each) and the L2 sectors the
-    two gathers request (network_cuda.encode_gather_sectors). Raises on a
-    disagreement."""
+    two gathers request (network_cuda.encode_gather_sectors). A call in
+    `counted` (NetworkCalls.counted: as the march made it, its row count
+    in device memory, launched over the bound) is held and timed in that
+    form: its rows below the count under the contract against the plain
+    version on those rows, its output's rows at and above the count as
+    they were. Raises on a disagreement."""
     out = {}
+    counted = counted or {}
     with torch.no_grad():
         for name, args in calls.items():
             kernel, kind, _ = NETWORK_KERNELS[name]
             wrapper = getattr(network_cuda, name)
             plain = getattr(network_cuda, f"{name}_reference")
             dtype = args[NETWORK_DTYPE_ARG[name]]
-            got = wrapper(*args)
+            full = counted.get(name)
+            if full is None:
+                def run(wrapper=wrapper, args=args):
+                    return wrapper(*args)
+                got = run()
+                untouched = None
+            else:
+                def run(wrapper=wrapper, full=full):
+                    return wrapper(*full)
+                m = int(full[NETWORK_ARITY[name]].reshape(()))
+                above = full[-1][m:].clone()
+                got = run()[:m]
+                untouched = same_bits(full[-1][m:], above)
+                del above
             torch.cuda.synchronize()
             want = plain(*args)
             cmp = network_cuda.compare_with_plain(kind, got, want, dtype)
-            ev_ms = cuda_ms(lambda: wrapper(*args), reps)
-            k_ms = kernel_device_ms(name, lambda: wrapper(*args), reps)
+            if untouched is not None:
+                cmp["rows_above_count_untouched"] = untouched
+                cmp["ok"] = cmp["ok"] and untouched
+            ev_ms = cuda_ms(run, reps)
+            k_ms = kernel_device_ms(name, run, reps)
             p_ms = cuda_ms(lambda: plain(*args), 3)
             chain = library_chain(name, args)
             c_ms = None if chain is None else cuda_ms(chain, reps)
             b_ms, b_by = network_bound(name, args)
             rows = args[1 if name in ("hash_encode", "encode_mlp")
                         else 0].shape[0]
+            form = ("" if full is None else
+                    f" (its row count in device memory, launched over "
+                    f"{full[NETWORK_ROW_ARG[name]].shape[0]} rows; the rows "
+                    f"above the count untouched: {untouched})")
             print(f"{label} {kernel} ({str(dtype).split('.')[-1]}) on its "
-                  f"first call's {rows} samples: {cmp['mismatched_rows']} "
+                  f"first call's {rows} samples{form}: {cmp['mismatched_rows']} "
                   f"rows off (allowed {cmp['allowed']}), max |diff| "
                   f"{cmp['max_abs_err']:.3g}, NaN {cmp['nan']}; kernel "
                   f"{k_ms:.4f} ms device (torch.profiler), {ev_ms:.4f} ms by "
@@ -2938,7 +3145,8 @@ def hold_network_calls(calls, label, reps=20, others=()):
             out[name] = {"cmp": cmp, "ms": k_ms, "event_ms": ev_ms,
                          "plain_ms": p_ms, "library_chain_ms": c_ms,
                          "bound_ms": b_ms, "bound_by": b_by,
-                         "rows": rows, "dtype": str(dtype)}
+                         "rows": rows, "dtype": str(dtype),
+                         "count_form": full is not None}
             if name == "encode_mlp":
                 out[name].update(fused_vs_pair(args, got, label, reps))
             if others:
@@ -3013,9 +3221,14 @@ def f32_frame_vs_others(renderer, nerf, others, label):
     try:
         mine = frame()
         for d, m in have:
+            # the other checkout's kernels take no row count: the list
+            # route's blocks run eagerly, each call on its count's rows
             wrappers = {k: getattr(network_cuda, k) for k in F32_NETWORK}
+            wrappers[raymarch] = raymarch._march_lists
+            raymarch._march_lists = functools.partial(wrappers[raymarch],
+                                                      graphs=False)
             for k in F32_NETWORK:
-                setattr(network_cuda, k, getattr(m, k))
+                setattr(network_cuda, k, counted_call(getattr(m, k), k))
             try:
                 theirs = frame()
             finally:
@@ -3137,7 +3350,7 @@ def network_kernels_phase(renderer, nerf, label, max_ops=None, reps=20,
     if set(calls) != set(BF16_NETWORK):
         raise AssertionError(f"{label}: the frame called {sorted(calls)} of "
                              f"the network kernels")
-    out = hold_network_calls(calls, label, reps, others)
+    out = hold_network_calls(calls, label, reps, others, calls.counted)
     if probe:
         for name, numbers in scaled_input_probe(calls, label).items():
             out[name].update(numbers)
@@ -3274,12 +3487,17 @@ def sync_counts(fn):
     return c["HtoD"], c["sync"]
 
 
-EXACT_FRAME_MAX_DTOH = 30         # the exact 720p frame on the list route
-# an epoch of the list route: the list walk, the fused encode + MLP, the
-# rgb head, the list composite and the epoch's one host read; the march
-# adds the last list's empty walk and its read
-LIST_EPOCH_OPS = 5
-LIST_LAST_OPS = 2
+# the exact 720p frame on the list route: its host copies (all DtoH: the
+# march's reads) at most this many; 13 epochs in blocks of
+# raymarch.BLOCK_EPOCHS make 1 + 4 reads, and a margin of 1
+EXACT_FRAME_MAX_DTOH = 6
+MC_FRAME_MAX_DTOH = 6            # the multi-cascade frame's, 16-17 epochs
+# a block of the list route as a graph: its kernel nodes at most
+# LIST_EPOCH_OPS an epoch (the list walk, the fused encode + MLP, the rgb
+# head, the list composite) and LIST_BLOCK_OPS more nodes a block (the
+# counters zeroed, the last list length moved to slot 0: two copies)
+LIST_EPOCH_OPS = 4
+LIST_BLOCK_OPS = 2
 
 
 def _deep_clone(x):
@@ -3292,18 +3510,32 @@ def _deep_clone(x):
     return x
 
 
+def _restore(x, snap):
+    """The tensors of x (nested as _deep_clone nests them) given back
+    snap's values in place: their addresses stay, as a graph needs."""
+    if torch.is_tensor(x):
+        x.copy_(snap)
+    elif isinstance(x, dict):
+        for k in x:
+            _restore(x[k], snap[k])
+    elif isinstance(x, tuple):
+        for a, b in zip(x, snap):
+            _restore(a, b)
+
+
 def record_epochs_call(renderer):
     """One frame with raymarch's epochs functions (_march_lists,
     _march_gathered) recording their first call -> (function, args,
-    kwargs), the state as the call found it."""
+    kwargs, restore): the call's own arguments (on the list route the
+    cached march's state and first list) and restore(), which gives them
+    back in place the values the call found."""
     saved = {k: getattr(raymarch, k) for k in ("_march_lists",
                                                "_march_gathered")}
     got = {}
 
     def recorder(name):
         def call(*a, **kw):
-            got.setdefault("call", (saved[name], _deep_clone(a),
-                                    _deep_clone(kw)))
+            got.setdefault("call", (saved[name], a, kw, _deep_clone((a, kw))))
             return saved[name](*a, **kw)
         return call
 
@@ -3314,23 +3546,29 @@ def record_epochs_call(renderer):
         renderer.frame()
     finally:
         restore_wrappers(raymarch, saved)
-    return got["call"]
+    fn, a, kw, snap = got["call"]
+
+    def restore():
+        _restore((a, kw), snap)
+        torch.cuda.synchronize()
+    return fn, a, kw, restore
 
 
 def list_route_report(renderer, nerf, label, max_dtoh=None):
     """An exact frame on the list route: two frames at one sample index
     equal bit for bit; one frame's device operations (op_counts: counted
-    on the host), busy and wall ms, none of them a standalone row map, its
-    Memcpy DtoH and HtoD copies and stream waits; the march alone
-    (raymarch._march_lists on the state and first list an earlier frame
-    gave it, its epochs its own): its copies and waits (at most 2 host
-    reads an epoch and 1 a frame), its device operations, and those of its
-    first epoch alone (the same inputs, an epoch budget of 1): each later
-    epoch adds at most LIST_EPOCH_OPS operations, the march's end
-    LIST_LAST_OPS; the frame around the march (the frame's operations and
-    DtoH less the march's); the network and the frame kernels took no
-    plain version on the card. max_dtoh: the frame's DtoH copies must stay
-    under it -> numbers."""
+    on the host, a graph replay as its nodes), busy and wall ms, none of
+    them a standalone row map, its Memcpy DtoH and HtoD copies and stream
+    waits; the march alone (raymarch._march_lists on the state and first
+    list an earlier frame gave it, restored in place, its epochs its
+    own): its copies and waits (at most one host read a block of
+    raymarch.BLOCK_EPOCHS epochs and one a frame), its device operations
+    and graph replays; the block's graph (the cached march's): its
+    nodes, at most LIST_EPOCH_OPS kernel nodes an epoch and
+    LIST_BLOCK_OPS more a block; the frame around the march (the
+    frame's operations and DtoH less the march's); the network and the
+    frame kernels took no plain version on the card. max_dtoh: the
+    frame's host copies must stay at or under it -> numbers."""
     images = []
     for _ in range(2):
         fresh_frame(renderer)
@@ -3338,10 +3576,11 @@ def list_route_report(renderer, nerf, label, max_dtoh=None):
         images.append(renderer._frame_buffer.clone())
     same = same_bits(images[0], images[1])
     del images
-    fn, a, kw = record_epochs_call(renderer)
+    fn, a, kw, restore = record_epochs_call(renderer)
     if fn is not raymarch._march_lists:
         raise AssertionError(f"{label}: the frame's epochs took {fn.__name__}")
     zero_network_counts()
+    renderer.update_model_view_proj()     # the recorded frame's sample
     frame = op_counts(renderer.frame)
     wall, busy, ops = frame["wall_ms"], frame["busy_ms"], frame["by_name"]
     n_ops = frame["ops"]
@@ -3351,39 +3590,47 @@ def list_route_report(renderer, nerf, label, max_dtoh=None):
     epochs = nerf.last_march_epochs
     replay = {}
 
-    def march(one_epoch=False):
-        a2, kw2 = _deep_clone(a), _deep_clone(kw)
-        if one_epoch:
-            a2 = a2[:3] + (dataclasses.replace(
-                a2[3], max_rounds=a2[3].rounds_per_epoch),) + a2[4:]
+    def run():
+        replay["epochs"] = fn(*a, **kw)
 
-        def run():
-            replay["epochs"] = fn(*a2, **kw2)
-        return run
-
-    march_tr = op_counts(march())
+    restore()
+    march_tr = op_counts(run)
     march_epochs = replay["epochs"]      # the recorded frame's, not the last
     march_ops = march_tr["ops"]
-    first_ops = op_counts(march(True))["ops"]
-    later = march_ops - first_ops
+    k = raymarch.BLOCK_EPOCHS
+    blocks = -(-march_epochs // k)
+    lm = raymarch.list_march(a[0], a[1], a[3], a[2]["t"].shape[0],
+                             a[2]["t"].device)
+    graph = lm.graphs.get(k)
+    # a block whose list is empty: what the epochs after the list's end
+    # cost on the device (the graph replayed as it is, uncounted)
+    empty_ms = None
+    if graph is not None:
+        lm.ctl[:1].zero_()
+        empty_ms = cuda_ms(graph.graph.replay, 50)
     top = sorted(ops.items(), key=lambda kv: -kv[1][0])[:8]
     print(f"{label} frame on the list route: two frames bit for bit {same}; "
-          f"{n_ops} device operations (host API calls {frame['calls']}; "
-          f"{frame['traced']} in the device trace), busy {busy:.3f} of "
-          f"{wall:.2f} ms wall (torch.profiler), {epochs} epochs, {row_maps} "
-          f"row-map launches; "
+          f"{n_ops} device operations (host API calls {frame['calls']}, "
+          f"{frame['graph_launches']} graph replays; {frame['traced']} in "
+          f"the device trace), busy {busy:.3f} of {wall:.2f} ms wall "
+          f"(torch.profiler), {epochs} epochs, {row_maps} row-map launches; "
           f"Memcpy DtoH {frame['DtoH']}, HtoD {frame['HtoD']} (host copy "
           f"calls {frame['copies']}), cudaStreamSynchronize {frame['sync']}; "
           f"the march alone on an earlier frame's state and first list "
-          f"({march_epochs} epochs): DtoH {march_tr['DtoH']}, HtoD "
-          f"{march_tr['HtoD']} (host copy calls {march_tr['copies']}), "
-          f"cudaStreamSynchronize {march_tr['sync']}, {march_ops} device "
-          f"operations ({march_tr['traced']} in the device trace), its first "
-          f"epoch alone {first_ops}: {later} for the "
-          f"{march_epochs - 1} later epochs and the end; the frame around the "
-          f"march {n_ops - march_ops} device operations, "
-          f"{frame['DtoH'] - march_tr['DtoH']} DtoH; network plain versions "
-          f"on the card {plain}, frame kernels' {frame_plain}; "
+          f"({march_epochs} epochs, {blocks} blocks of {k}): DtoH "
+          f"{march_tr['DtoH']}, HtoD {march_tr['HtoD']} (host copy calls "
+          f"{march_tr['copies']}), cudaStreamSynchronize {march_tr['sync']}, "
+          f"{march_ops} device operations ({march_tr['graph_launches']} graph "
+          f"replays; {march_tr['traced']} in the device trace); the block's "
+          f"graph: " + ("none" if graph is None else
+                        f"{graph.nodes} nodes, {graph.kernels} kernels, "
+                        f"launches {graph.launches}")
+          + ("" if empty_ms is None else
+             f", a block on an empty list {empty_ms:.4f} ms by events "
+             f"({empty_ms / k:.4f} an epoch)")
+          + f"; the frame around the march {n_ops - march_ops} device "
+          f"operations, {frame['DtoH'] - march_tr['DtoH']} DtoH; network "
+          f"plain versions on the card {plain}, frame kernels' {frame_plain}; "
           f"top device operations: " + "; ".join(
               f"{n.replace('(anonymous namespace)::', '').split('(')[0][-60:]} "
               f"{t:.3f} ms {c}x" for n, (t, c) in top))
@@ -3394,22 +3641,30 @@ def list_route_report(renderer, nerf, label, max_dtoh=None):
                              f"network versions on the card {plain}, frame "
                              f"kernels' {frame_plain}")
     # the host's copy calls bound the DtoH copies from above
-    if march_tr["copies"] > 2 * march_epochs + 1:
+    if march_tr["copies"] > blocks + 1:
         raise AssertionError(f"{label}: the march copied "
                              f"{march_tr['copies']} times in {march_epochs} "
-                             f"epochs")
-    if later > LIST_EPOCH_OPS * (march_epochs - 1) + LIST_LAST_OPS:
-        raise AssertionError(f"{label}: {later} device operations for "
-                             f"{march_epochs - 1} epochs after the first")
-    if max_dtoh is not None and frame["copies"] >= max_dtoh:
+                             f"epochs ({blocks} blocks)")
+    if graph is None or march_tr["graph_launches"] != blocks:
+        raise AssertionError(f"{label}: the march replayed "
+                             f"{march_tr['graph_launches']} graphs for "
+                             f"{blocks} blocks")
+    rounds = a[3].rounds_per_epoch
+    if (graph.kernels > LIST_EPOCH_OPS * rounds * k
+            or graph.nodes > graph.kernels + LIST_BLOCK_OPS):
+        raise AssertionError(f"{label}: a block's graph holds {graph.nodes} "
+                             f"nodes, {graph.kernels} kernels")
+    if max_dtoh is not None and frame["copies"] > max_dtoh:
         raise AssertionError(f"{label}: {frame['copies']} copies (DtoH "
-                             f"{frame['DtoH']}; aim: under {max_dtoh})")
+                             f"{frame['DtoH']}; aim: at most {max_dtoh})")
     for c in (frame, march_tr):
         del c["by_name"]
     return {"bit_identical": same, "device_ops": n_ops, "busy_ms": busy,
             "wall_ms": wall, "epochs": epochs, "frame_transfers": frame,
             "march_transfers": march_tr, "march_epochs": march_epochs,
-            "march_device_ops": march_ops, "first_epoch_device_ops": first_ops,
+            "march_device_ops": march_ops, "block_epochs": k,
+            "blocks": blocks, "graph_nodes": graph.nodes,
+            "graph_kernels": graph.kernels, "empty_block_ms": empty_ms,
             "around_march_device_ops": n_ops - march_ops,
             "around_march_dtoh": frame["DtoH"] - march_tr["DtoH"]}
 
@@ -4137,7 +4392,8 @@ def multicascade_phases(dev, tmp, lap, glasses, ds, march_others=(),
     mc_march_frames = {"launches": mc_march_launches, "frames": mc_frames,
                        "kernels": mc_march,
                        "list_route": list_route_report(
-                           renderer, nerf, "multi-cascade exact 720p")}
+                           renderer, nerf, "multi-cascade exact 720p",
+                           MC_FRAME_MAX_DTOH)}
     if any(os.path.exists(os.path.join(d, "chip_smoke.py")) for d in dirs):
         mc_march_frames["list_route"]["in_turns"] = frame_ops_in_turns(
             tmp, dirs, "multi-cascade exact 720p", (snap,) + MC_AABB)
@@ -5460,11 +5716,12 @@ def main(tmp, dirs, multicascade_only=False):
     img = renderer.display_image()
     surf_px = int((nerf._surface_t > 0).sum())
     head_share = float((fb[..., 3] > 0.5).float().mean())
-    print(f"hybrid {W}x{H}: warm-up frame {warm_ms:.1f} ms, {frame_ms:.1f} ms/frame "
+    print(f"hybrid {W}x{H}: warm-up frame {warm_ms:.1f} ms, {frame_ms:.2f} ms/frame "
           f"(3 frames, host clock to synchronize), march epochs {epochs}, "
           f"peak device memory {peak / 2**30:.2f} GiB, head share {head_share:.3f}, "
           f"mesh pixels {surf_px}, kernel launches {launches}, march kernel "
-          f"launches {march_launches}")
+          f"launches {march_launches}, the list route's graphs since import "
+          f"{raymarch.graph_counts}")
     if not (img.shape == (H, W, 4) and np.isfinite(img).all()
             and bool(torch.isfinite(fb).all())):
         raise AssertionError("frame is not finite or has the wrong shape")
@@ -5493,10 +5750,13 @@ def main(tmp, dirs, multicascade_only=False):
     finally:
         nerf.march_overrides = saved
     two_epochs = nerf.last_march_epochs
-    print(f"hybrid {W}x{H} with rounds_per_epoch 2: {two_epochs} epochs, "
-          f"march kernel launches {two_rounds}")
-    if (two_rounds["composite_list"] != 2 * two_epochs
-            or two_rounds["walk_list"] < 2 * two_epochs
+    # the epochs that ran: whole blocks, the last list's empty ones too
+    two_run = -(-two_epochs // raymarch.BLOCK_EPOCHS) * raymarch.BLOCK_EPOCHS
+    print(f"hybrid {W}x{H} with rounds_per_epoch 2: {two_epochs} epochs "
+          f"({two_run} run in blocks of {raymarch.BLOCK_EPOCHS}), march "
+          f"kernel launches {two_rounds}")
+    if (two_rounds["composite_list"] != 2 * two_run
+            or two_rounds["walk_list"] != 2 * two_run
             or any(two_rounds[k] for k in gathered_kernels)
             or not bool(torch.isfinite(renderer._frame_buffer).all())):
         raise AssertionError(f"the two-round frame launched {two_rounds}")
@@ -5522,7 +5782,8 @@ def main(tmp, dirs, multicascade_only=False):
     # and its first-epoch encode, MLP and rgb head calls, held and timed
     # as in 5c
     net_f32 = hold_network_calls({k: f32_calls[k] for k in F32_NETWORK},
-                                 "exact 720p f32", others=net_others)
+                                 "exact 720p f32", others=net_others,
+                                 counted=f32_calls.counted)
     if net_others:
         net_f32["hash_encode"]["bf16"] = bf16_encode_in_turns(
             f32_calls["hash_encode"], net_others, "exact 720p f32")

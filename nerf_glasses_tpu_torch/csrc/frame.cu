@@ -192,7 +192,8 @@ struct InitArgs {
   const float* t_walk;            // STAGE_STATE alone: the walk's t, alive
   const uint8_t* alive_walk;
   float *o, *d;                   // (N, 3), read with STAGE_GIVEN
-  float *surf, *t_surf;           // written where none is given
+  float *surf, *t_surf;           // written where none is given, or
+                                  // copied where they are not surf_in's
   float* t_pre;                   // STAGE_RAYS alone: t, alive for the walk
   uint8_t* alive_pre;
   float *t, *t_start, *rgba, *depth, *max_weight, *wn, *surf_a;
@@ -848,6 +849,10 @@ __global__ void __launch_bounds__(THREADS) ray_init_kernel(InitParams P,
 #pragma unroll
         for (int c = 0; c < 4; ++c) a.surf[4 * i + c] = 0.0f;
         a.t_surf[i] = 0.0f;
+      } else if (a.surf != a.surf_in) {   // the caller's state: a copy
+#pragma unroll
+        for (int c = 0; c < 4; ++c) a.surf[4 * i + c] = a.surf_in[4 * i + c];
+        a.t_surf[i] = t_surf;
       }
       // the render aabb's entry (ray_intersect_aabb), nudged inside
       float tmin = 0.0f, tmax = 0.0f;

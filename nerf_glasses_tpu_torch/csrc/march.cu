@@ -148,6 +148,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <vector>
+
 // Layout shared with ops/march_cuda.py::MarchParams.
 struct MarchParams {
   int route;         // ROUTE_JUMP, ROUTE_DIST, ROUTE_DIST_MIPS, ROUTE_DDA
@@ -220,11 +222,13 @@ struct CompositeArgs {
   uint8_t* alive_out;
   // the list form (ids non-null): ray ids[j]'s state read and written in
   // place in the frame's arrays (the *_out pointers are the inputs'; t
-  // written from t_end); t_end, exited, stopped indexed by j; a slot's row
-  // from the walk's first row and slot bits of entry j, the row's t and
-  // dt beside its network outputs; the rays still alive appended to
-  // next_ids from 0 on (*next_count holds 0 at the launch)
-  const int *ids, *row_first;
+  // written from t_end) for j < the list's length (*n_list, or n where
+  // it is null); t_end, exited, stopped indexed by j; a slot's row from
+  // the walk's first row and slot bits of entry j, the row's t and dt
+  // beside its network outputs, rows below min(*row_count, m) (m where it
+  // is null); the rays still alive appended to next_ids from 0 on
+  // (*next_count holds 0 at the launch)
+  const int *ids, *n_list, *row_count, *row_first;
   const uint8_t* slot_mask;
   const float *row_ts, *row_dt;
   float* t_out;
@@ -567,6 +571,8 @@ walk_kernel(MarchParams P, int n, WalkArgs a) {
   // the list's length and the thread's ray; a thread past the list reads
   // ray 0 (the frame has one) and writes nothing
   const int len = LIST ? (a.n_list ? min(*a.n_list, n) : n) : n;
+  // a block past the list (a launch over a bound, an empty epoch) ends
+  if (LIST && (int)(blockIdx.x * WALK_THREADS) >= len) return;
   const bool on = !LIST || j < len;
   const int i = LIST ? (on ? a.ids[j] : 0) : j;
   if (INIT) {
@@ -966,13 +972,21 @@ __global__ void __launch_bounds__(THREADS) composite_kernel(
 // row (a slot the loop reaches only after the ray settled reads
 // nothing), the row's raw density, colour, t and dt read together; then
 // the rays still compositing are appended to next_ids (a block scan of
-// the flags, one atomicAdd a block). Entries past the list take part in
-// the scan only.
+// the flags, one atomicAdd a block). The list's length and the row count
+// come from the device where the walk left them (a launch over a bound:
+// a block past the list ends at once); entries past the list take part
+// in the scan only.
 __global__ void __launch_bounds__(THREADS) composite_list_kernel(
     MarchParams P, int n, CompositeArgs a) {
   const int j = blockIdx.x * THREADS + threadIdx.x;
-  const bool on = j < n;
-  const int i = on ? a.ids[j] : 0;
+  // the entry's ray read beside the length, not after it (ids holds n
+  // entries; one past the length is read and left unused)
+  const int id = j < n ? a.ids[j] : 0;
+  const int len = a.n_list ? min(*a.n_list, n) : n;
+  if ((int)(blockIdx.x * THREADS) >= len) return;    // uniform: the block
+  const long long rows = a.row_count ? min((long long)*a.row_count, a.m) : a.m;
+  const bool on = j < len;
+  const int i = on ? id : 0;
   bool keep = false;
   if (on) {
     Comp s = load_comp(a, i);
@@ -986,7 +1000,7 @@ __global__ void __launch_bounds__(THREADS) composite_list_kernel(
     for (int k0 = 0; k0 < P.steps; k0 += 8) {
       // the chunk's 8 slot bits; a valid slot takes the next row
       const unsigned bits = s.comp && alive
-                                ? a.slot_mask[(long long)(k0 >> 3) * n + j] : 0u;
+                                ? a.slot_mask[(long long)(k0 >> 3) * len + j] : 0u;
 #pragma unroll
       for (int c = 0; c < 8; ++c) {
         if (k0 + c >= P.steps) break;
@@ -996,7 +1010,7 @@ __global__ void __launch_bounds__(THREADS) composite_list_kernel(
           // (a row past the network's, none where the walk's count
           // started at 0, has alpha and colour 0)
           float alpha = 0.0f;
-          if (r < a.m) {
+          if (r < rows) {
             const float raw_sigma = a.sigma[r * a.sigma_stride];
             const float dt = a.row_dt[r];
             float raw_rgb[3];
@@ -1257,4 +1271,24 @@ extern "C" int nmr_training_samples(const MarchParams* p, int n,
                             TRAIN_THREADS, smem,
                             static_cast<cudaStream_t>(stream)>>>(P, n, *a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The nodes of a CUDA graph (a cudaGraph_t, as torch.cuda.CUDAGraph's
+// raw_cuda_graph gives it: raymarch.ListMarch's blocks) -> their number,
+// or -1 where the runtime cannot list them; *kernels the kernel nodes
+// among them. Host only: it launches nothing.
+extern "C" int nmr_graph_nodes(void* graph, int* kernels) {
+  const cudaGraph_t g = static_cast<cudaGraph_t>(graph);
+  size_t n = 0;
+  if (cudaGraphGetNodes(g, nullptr, &n) != cudaSuccess) return -1;
+  std::vector<cudaGraphNode_t> nodes(n);
+  if (n && cudaGraphGetNodes(g, nodes.data(), &n) != cudaSuccess) return -1;
+  int k = 0;
+  for (size_t i = 0; i < n; ++i) {
+    cudaGraphNodeType type;
+    if (cudaGraphNodeGetType(nodes[i], &type) != cudaSuccess) return -1;
+    k += type == cudaGraphNodeTypeKernel;
+  }
+  *kernels = k;
+  return static_cast<int>(n);
 }

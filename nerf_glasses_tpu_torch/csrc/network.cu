@@ -202,6 +202,15 @@ struct Levels {
 };
 
 // P's levels into S by the block's threads (seen after a __syncthreads).
+// The rows a launch serves: n, the launch's bound, or where the caller
+// gives a row count in device memory (another kernel's, read when the
+// kernel starts) the rows below it. The grid depends on the bound alone,
+// so a captured launch serves whatever count the replay finds.
+__device__ __forceinline__ long long live_rows(long long n,
+                                               const int* count) {
+  return count ? min(n, (long long)max(*count, 0)) : n;
+}
+
 __device__ __forceinline__ void load_levels(const EncodeParams& P,
                                             Levels& S) {
   for (int l = threadIdx.x; l < P.n_levels; l += blockDim.x) {
@@ -355,12 +364,16 @@ int encode_tile(int stride) {
 // row of its sample (`stride` bytes, encode_stride); then the block
 // writes the tile's rows, contiguous in `out`, in 16-byte stores (the
 // bytes past the last whole piece of an unpadded tile in 2-byte stores).
-// Index arithmetic within the tile is 32-bit.
+// Index arithmetic within the tile is 32-bit. A block takes tiles
+// blockIdx.x, + gridDim.x, ...: one each where the grid covers the rows,
+// several where a row count in device memory caps the grid (launch_encode).
 template <int F, bool BF16>
 __global__ void __launch_bounds__(ENCODE_THREADS) hash_encode_kernel(
     EncodeParams P, long long n, int tile, int gshift, int stride,
     const float* __restrict__ table, const float* __restrict__ pos,
-    void* __restrict__ out) {
+    void* __restrict__ out, const int* __restrict__ count) {
+  n = live_rows(n, count);
+  if ((long long)blockIdx.x * tile >= n) return;     // uniform: the block
   __shared__ Levels S;
   extern __shared__ float4 smem4[];
   float* const s_pos = reinterpret_cast<float*>(smem4);
@@ -369,36 +382,39 @@ __global__ void __launch_bounds__(ENCODE_THREADS) hash_encode_kernel(
   load_levels(P, S);
   const int L = P.n_levels;
   const int row = L * F * (BF16 ? 2 : 4);
-  const long long s0 = (long long)blockIdx.x * tile;
-  const int rows = (int)min((long long)tile, n - s0);
-  const float* p = pos + s0 * 3;
-  for (int e = threadIdx.x; e < rows * 3; e += ENCODE_THREADS)
-    s_pos[e] = __ldg(p + e);
-  __syncthreads();
   const int lane = threadIdx.x & 31;
-  for (int it = threadIdx.x >> 5; it < L << gshift;
-       it += ENCODE_THREADS / 32) {
-    const int l = it >> gshift;
-    const int r = ((it & ((1 << gshift) - 1)) << 5) + lane;
-    if (r < rows) {
-      float acc[F];
-      encode_point<F, BF16>(S, l, table + (long long)l * P.rows * F,
-                            s_pos[3 * r], s_pos[3 * r + 1], s_pos[3 * r + 2],
-                            acc);
-      store_features<F, BF16>(s_out + r * stride + l * F * (BF16 ? 2 : 4),
-                              acc);
+  for (long long s0 = (long long)blockIdx.x * tile; s0 < n;
+       s0 += (long long)gridDim.x * tile) {
+    const int rows = (int)min((long long)tile, n - s0);
+    const float* p = pos + s0 * 3;
+    for (int e = threadIdx.x; e < rows * 3; e += ENCODE_THREADS)
+      s_pos[e] = __ldg(p + e);
+    __syncthreads();
+    for (int it = threadIdx.x >> 5; it < L << gshift;
+         it += ENCODE_THREADS / 32) {
+      const int l = it >> gshift;
+      const int r = ((it & ((1 << gshift) - 1)) << 5) + lane;
+      if (r < rows) {
+        float acc[F];
+        encode_point<F, BF16>(S, l, table + (long long)l * P.rows * F,
+                              s_pos[3 * r], s_pos[3 * r + 1],
+                              s_pos[3 * r + 2], acc);
+        store_features<F, BF16>(s_out + r * stride + l * F * (BF16 ? 2 : 4),
+                                acc);
+      }
     }
+    __syncthreads();
+    unsigned char* const o = static_cast<unsigned char*>(out) + s0 * row;
+    const int bytes = rows * row;
+    for (int b = 16 * threadIdx.x; b < (bytes & ~15); b += 16 * ENCODE_THREADS)
+      *reinterpret_cast<uint4*>(o + b) = *reinterpret_cast<const uint4*>(
+          s_out + (stride == row ? b : b / row * stride + b % row));
+    for (int b = (bytes & ~15) + 2 * threadIdx.x; b < bytes;
+         b += 2 * ENCODE_THREADS)
+      *reinterpret_cast<unsigned short*>(o + b) =
+          *reinterpret_cast<const unsigned short*>(s_out + b);
+    __syncthreads();          // the tile's shared memory is free again
   }
-  __syncthreads();
-  unsigned char* const o = static_cast<unsigned char*>(out) + s0 * row;
-  const int bytes = rows * row;
-  for (int b = 16 * threadIdx.x; b < (bytes & ~15); b += 16 * ENCODE_THREADS)
-    *reinterpret_cast<uint4*>(o + b) = *reinterpret_cast<const uint4*>(
-        s_out + (stride == row ? b : b / row * stride + b % row));
-  for (int b = (bytes & ~15) + 2 * threadIdx.x; b < bytes;
-       b += 2 * ENCODE_THREADS)
-    *reinterpret_cast<unsigned short*>(o + b) =
-        *reinterpret_cast<const unsigned short*>(s_out + b);
 }
 
 // F floats added to the f32 row at `row` with atomic adds: on Hopper one
@@ -890,8 +906,15 @@ template <int KIND, int HID>
 __device__ __forceinline__ void mlp_tiles(
     const MlpParams& P, long long n, const void* __restrict__ x,
     const float* __restrict__ dirs, const float* __restrict__ extra,
-    float* __restrict__ out) {
+    float* __restrict__ out, const int* __restrict__ count) {
   constexpr int S = rt_samples(HID);
+  // the block's samples: an even share, in tiles (a short last tile does
+  // its share of the work, so the blocks end together); a block with no
+  // share stages nothing
+  n = live_rows(n, count);
+  const long long s_begin = n * blockIdx.x / gridDim.x;
+  const long long s_end = n * (blockIdx.x + 1) / gridDim.x;
+  if (s_begin >= s_end) return;
   extern __shared__ float4 smem4[];
   float* s_w = reinterpret_cast<float*>(smem4);
   const bool tiled = KIND == 0 && rt_last_tiled(P, HID);
@@ -915,13 +938,8 @@ __device__ __forceinline__ void mlp_tiles(
   float* const stage_f = act + rows * S;    // KIND 1: S x (n_feat + 1)
   float* const stage_d = stage_f + S * (P.n_feat + 1);   // and S x 3
   unsigned char* const stage = reinterpret_cast<unsigned char*>(stage_f);
-  // the block's samples: an even share, in tiles (a short last tile does
-  // its share of the work, so the blocks end together)
-  const long long s_begin = n * blockIdx.x / gridDim.x;
-  const long long s_end = n * (blockIdx.x + 1) / gridDim.x;
-  if (s_begin < s_end)
-    rt_stage<KIND, S>(P, x, dirs, s_begin,
-                      (int)min((long long)S, s_end - s_begin), stage, stage_d);
+  rt_stage<KIND, S>(P, x, dirs, s_begin,
+                    (int)min((long long)S, s_end - s_begin), stage, stage_d);
   for (long long s0 = s_begin; s0 < s_end; s0 += S) {
     const int valid = (int)min((long long)S, s_end - s0);
     cp_async_wait<0>();
@@ -964,16 +982,17 @@ __device__ __forceinline__ void mlp_tiles(
 template <int HID>
 __global__ void __launch_bounds__(RT_THREADS, HID <= 64 ? RT_BLOCKS_PER_SM : 1)
     mlp_kernel(MlpParams P, long long n, const void* __restrict__ x,
-               float* __restrict__ out) {
-  mlp_tiles<0, HID>(P, n, x, nullptr, nullptr, out);
+               float* __restrict__ out, const int* __restrict__ count) {
+  mlp_tiles<0, HID>(P, n, x, nullptr, nullptr, out, count);
 }
 
 template <int HID>
 __global__ void __launch_bounds__(RT_THREADS, HID <= 64 ? RT_BLOCKS_PER_SM : 1)
     rgb_head_kernel(MlpParams P, long long n, const float* __restrict__ feat,
                     const float* __restrict__ dirs,
-                    const float* __restrict__ extra, float* __restrict__ out) {
-  mlp_tiles<1, HID>(P, n, feat, dirs, extra, out);
+                    const float* __restrict__ extra, float* __restrict__ out,
+                    const int* __restrict__ count) {
+  mlp_tiles<1, HID>(P, n, feat, dirs, extra, out, count);
 }
 
 // ---------------------------------------------------------------------------
@@ -1430,11 +1449,14 @@ __device__ __forceinline__ void mlp_tc(const MlpParams& P, const TcPlan& Q,
                                        const float* __restrict__ dirs,
                                        const float* __restrict__ extra,
                                        float* __restrict__ out,
+                                       const int* __restrict__ count,
                                        const EncodeSrc& E = EncodeSrc{}) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int KS = HID / 16, NB = HID / 64;
+  n = live_rows(n, count);
   const long long n_tiles = (n + TC_ROWS - 1) / TC_ROWS;
   const long long step = gridDim.x;
+  if (blockIdx.x >= n_tiles) return;     // a block with no tile stages nothing
   unsigned char* ring = smem + Q.ring_off;
   // the first tiles' loads fly while the weights are staged
 #pragma unroll
@@ -1529,16 +1551,16 @@ __device__ __forceinline__ void mlp_tc(const MlpParams& P, const TcPlan& Q,
 template <int HID>
 __global__ void __launch_bounds__(TC_THREADS) mlp_kernel_bf16(
     MlpParams P, TcPlan Q, long long n, const void* __restrict__ x,
-    float* __restrict__ out) {
-  mlp_tc<HID, 0>(P, Q, n, x, nullptr, nullptr, out);
+    float* __restrict__ out, const int* __restrict__ count) {
+  mlp_tc<HID, 0>(P, Q, n, x, nullptr, nullptr, out, count);
 }
 
 template <int HID>
 __global__ void __launch_bounds__(TC_THREADS) rgb_head_kernel_bf16(
     MlpParams P, TcPlan Q, long long n, const float* __restrict__ feat,
     const float* __restrict__ dirs, const float* __restrict__ extra,
-    float* __restrict__ out) {
-  mlp_tc<HID, 1>(P, Q, n, feat, dirs, extra, out);
+    float* __restrict__ out, const int* __restrict__ count) {
+  mlp_tc<HID, 1>(P, Q, n, feat, dirs, extra, out, count);
 }
 
 // nmr_encode_mlp, one warpgroup a block: the encode builds each tile's A
@@ -1548,10 +1570,11 @@ __global__ void __launch_bounds__(TC_THREADS,
                                   HID == 64 ? ENCODE_MLP_BLOCKS_PER_SM : 1)
     encode_mlp_kernel(EncodeParams EP, MlpParams P, TcPlan Q, long long n,
                       const float* __restrict__ table,
-                      const float* __restrict__ pos, float* __restrict__ out) {
+                      const float* __restrict__ pos, float* __restrict__ out,
+                      const int* __restrict__ count) {
   __shared__ Levels lv;
   load_levels(EP, lv);        // seen after mlp_tc's first __syncthreads
-  mlp_tc<HID, 2, F>(P, Q, n, pos, nullptr, nullptr, out,
+  mlp_tc<HID, 2, F>(P, Q, n, pos, nullptr, nullptr, out, count,
                     EncodeSrc{table, &lv, EP.n_levels, EP.rows,
                               EP.encode_bf16 != 0});
 }
@@ -1565,14 +1588,23 @@ int sm_count() {
 
 template <int F, bool BF16>
 int launch_encode(const EncodeParams& P, long long n, const float* table,
-                  const float* pos, void* out, cudaStream_t s) {
+                  const float* pos, void* out, const int* count,
+                  cudaStream_t s) {
   const int stride = encode_stride(P.n_levels * F * (BF16 ? 2 : 4));
   const int tile = encode_tile(stride);
-  const long long blocks = (n + tile - 1) / tile;
-  if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
+  long long blocks = (n + tile - 1) / tile;
   const int smem = ((tile * 12 + 15) & ~15) + tile * stride;
+  if (count) {                // a grid the card holds at once, whatever
+    int per_sm = 0;           // the count turns out to be
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, hash_encode_kernel<F, BF16>, ENCODE_THREADS, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const long long cap = (long long)(per_sm > 1 ? per_sm : 1) * sm_count();
+    if (blocks > cap) blocks = cap;
+  }
+  if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
   hash_encode_kernel<F, BF16><<<(int)blocks, ENCODE_THREADS, smem, s>>>(
-      P, n, tile, __builtin_ctz(tile / 32), stride, table, pos, out);
+      P, n, tile, __builtin_ctz(tile / 32), stride, table, pos, out, count);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1695,31 +1727,33 @@ int launch_tiles(void (*kernel)(Params...), int threads, int smem,
 
 template <int HID>
 int launch_mlp(const MlpParams& P, long long n, const void* x, float* out,
-               cudaStream_t s) {
+               const int* count, cudaStream_t s) {
   return launch_tiles(mlp_kernel<HID>, RT_THREADS, rt_smem(P, HID, 0),
-                      RT_BLOCKS_PER_SM, n, rt_samples(HID), s, P, n, x, out);
+                      RT_BLOCKS_PER_SM, n, rt_samples(HID), s, P, n, x, out,
+                      count);
 }
 
 template <int HID>
 int launch_rgb_head(const MlpParams& P, long long n, const float* feat,
                     const float* dirs, const float* extra, float* out,
-                    cudaStream_t s) {
+                    const int* count, cudaStream_t s) {
   return launch_tiles(rgb_head_kernel<HID>, RT_THREADS, rt_smem(P, HID, 1),
                       RT_BLOCKS_PER_SM, n, rt_samples(HID), s, P, n, feat,
-                      dirs, extra, out);
+                      dirs, extra, out, count);
 }
 
 template <int HID, int KIND>
 int launch_tc(const MlpParams& P, long long n, const void* x,
               const float* dirs, const float* extra, float* out,
-              cudaStream_t s) {
+              const int* count, cudaStream_t s) {
   const TcPlan Q = tc_plan(P, HID, KIND);
   if (KIND == 0)
     return launch_tiles(mlp_kernel_bf16<HID>, TC_THREADS, Q.smem,
-                        TC_BLOCKS_PER_SM, n, TC_ROWS, s, P, Q, n, x, out);
+                        TC_BLOCKS_PER_SM, n, TC_ROWS, s, P, Q, n, x, out,
+                        count);
   return launch_tiles(rgb_head_kernel_bf16<HID>, TC_THREADS, Q.smem,
                       TC_BLOCKS_PER_SM, n, TC_ROWS, s, P, Q, n,
-                      static_cast<const float*>(x), dirs, extra, out);
+                      static_cast<const float*>(x), dirs, extra, out, count);
 }
 
 // The tensor-core instance that takes P: hidden width 64 or 128 (the
@@ -1734,10 +1768,10 @@ int hidden_width(const MlpParams& P) {
 template <int KIND>
 int launch_tc_width(const MlpParams& P, long long n, const void* x,
                     const float* dirs, const float* extra, float* out,
-                    cudaStream_t s) {
+                    const int* count, cudaStream_t s) {
   switch (hidden_width(P)) {
-    case 64: return launch_tc<64, KIND>(P, n, x, dirs, extra, out, s);
-    case 128: return launch_tc<128, KIND>(P, n, x, dirs, extra, out, s);
+    case 64: return launch_tc<64, KIND>(P, n, x, dirs, extra, out, count, s);
+    case 128: return launch_tc<128, KIND>(P, n, x, dirs, extra, out, count, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1745,20 +1779,23 @@ int launch_tc_width(const MlpParams& P, long long n, const void* x,
 template <int HID, int F>
 int launch_encode_mlp(const EncodeParams& E, const MlpParams& P, long long n,
                       const float* table, const float* pos, float* out,
-                      cudaStream_t s) {
+                      const int* count, cudaStream_t s) {
   const TcPlan Q = tc_plan(P, HID, 2);
   return launch_tiles(encode_mlp_kernel<HID, F>, TC_THREADS, Q.smem,
                       ENCODE_MLP_BLOCKS_PER_SM, n, TC_ROWS, s, E, P, Q, n,
-                      table, pos, out);
+                      table, pos, out, count);
 }
 
 template <int F>
 int launch_encode_mlp_width(const EncodeParams& E, const MlpParams& P,
                             long long n, const float* table,
-                            const float* pos, float* out, cudaStream_t s) {
+                            const float* pos, float* out, const int* count,
+                            cudaStream_t s) {
   switch (hidden_width(P)) {
-    case 64: return launch_encode_mlp<64, F>(E, P, n, table, pos, out, s);
-    case 128: return launch_encode_mlp<128, F>(E, P, n, table, pos, out, s);
+    case 64:
+      return launch_encode_mlp<64, F>(E, P, n, table, pos, out, count, s);
+    case 128:
+      return launch_encode_mlp<128, F>(E, P, n, table, pos, out, count, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1777,18 +1814,22 @@ bool valid_widths(const MlpParams& P) {
 // launches on the given stream, and returns cudaGetLastError() (0 on
 // success, cudaErrorInvalidValue for shapes the kernels do not take, the
 // runtime's error for a launch it refuses). The MLPs take the tensor-core
-// body at the bf16 compute dtype and the CUDA-core body at f32.
+// body at the bf16 compute dtype and the CUDA-core body at f32. The
+// forward's entries take `count`: null, or one int32 in device memory
+// whose value, read when the kernel runs, bounds the rows the launch
+// reads and writes (live_rows); the grid follows n alone.
 
 extern "C" int nmr_hash_encode(const EncodeParams* p, long long n,
                                const float* table, const float* pos,
-                               void* out, void* stream) {
+                               void* out, const int* count, void* stream) {
   const EncodeParams P = *p;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (P.n_levels < 1 || P.n_levels > MAX_LEVELS)
     return static_cast<int>(cudaErrorInvalidValue);
 #define NMR_ENCODE(F)                                                        \
-  return P.encode_bf16 ? launch_encode<F, true>(P, n, table, pos, out, s)    \
-                       : launch_encode<F, false>(P, n, table, pos, out, s)
+  return P.encode_bf16                                                       \
+             ? launch_encode<F, true>(P, n, table, pos, out, count, s)      \
+             : launch_encode<F, false>(P, n, table, pos, out, count, s)
   switch (P.n_features) {
     case 1: NMR_ENCODE(1);
     case 2: NMR_ENCODE(2);
@@ -1824,32 +1865,35 @@ extern "C" int nmr_hash_encode_backward(const EncodeParams* p, long long n,
 }
 
 extern "C" int nmr_mlp(const MlpParams* p, long long n, const void* x,
-                       float* out, void* stream) {
+                       float* out, const int* count, void* stream) {
   const MlpParams P = *p;
   if (!valid_widths(P)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (P.round_bf16)
-    return launch_tc_width<0>(P, n, x, nullptr, nullptr, out, s);
+    return launch_tc_width<0>(P, n, x, nullptr, nullptr, out, count, s);
   switch (f32_width(P)) {
-    case 64: return launch_mlp<64>(P, n, x, out, s);
-    case 128: return launch_mlp<128>(P, n, x, out, s);
+    case 64: return launch_mlp<64>(P, n, x, out, count, s);
+    case 128: return launch_mlp<128>(P, n, x, out, count, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 extern "C" int nmr_rgb_head(const MlpParams* p, long long n,
                             const float* feat, const float* dirs,
-                            const float* extra, float* out, void* stream) {
+                            const float* extra, float* out, const int* count,
+                            void* stream) {
   const MlpParams P = *p;
   if (!valid_widths(P) || P.sh_degree < 1 || P.sh_degree > 4 ||
       P.n_feat + SH_WIDTH + P.n_extra > P.width[0])
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (P.round_bf16)
-    return launch_tc_width<1>(P, n, feat, dirs, extra, out, s);
+    return launch_tc_width<1>(P, n, feat, dirs, extra, out, count, s);
   switch (f32_width(P)) {
-    case 64: return launch_rgb_head<64>(P, n, feat, dirs, extra, out, s);
-    case 128: return launch_rgb_head<128>(P, n, feat, dirs, extra, out, s);
+    case 64:
+      return launch_rgb_head<64>(P, n, feat, dirs, extra, out, count, s);
+    case 128:
+      return launch_rgb_head<128>(P, n, feat, dirs, extra, out, count, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1860,7 +1904,8 @@ extern "C" int nmr_rgb_head(const MlpParams* p, long long n,
 // intermediate.
 extern "C" int nmr_encode_mlp(const EncodeParams* e, const MlpParams* p,
                               long long n, const float* table,
-                              const float* pos, float* out, void* stream) {
+                              const float* pos, float* out, const int* count,
+                              void* stream) {
   const EncodeParams E = *e;
   const MlpParams P = *p;
   if (!valid_widths(P) || !P.round_bf16 || E.n_levels < 1 ||
@@ -1868,10 +1913,18 @@ extern "C" int nmr_encode_mlp(const EncodeParams* e, const MlpParams* p,
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (E.n_features) {
-    case 1: return launch_encode_mlp_width<1>(E, P, n, table, pos, out, s);
-    case 2: return launch_encode_mlp_width<2>(E, P, n, table, pos, out, s);
-    case 4: return launch_encode_mlp_width<4>(E, P, n, table, pos, out, s);
-    case 8: return launch_encode_mlp_width<8>(E, P, n, table, pos, out, s);
+    case 1:
+      return launch_encode_mlp_width<1>(E, P, n, table, pos, out, count,
+                                        s);
+    case 2:
+      return launch_encode_mlp_width<2>(E, P, n, table, pos, out, count,
+                                        s);
+    case 4:
+      return launch_encode_mlp_width<4>(E, P, n, table, pos, out, count,
+                                        s);
+    case 8:
+      return launch_encode_mlp_width<8>(E, P, n, table, pos, out, count,
+                                        s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

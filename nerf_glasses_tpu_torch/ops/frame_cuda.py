@@ -884,9 +884,42 @@ def ray_init_reference(scene, opts, camera, width: int, height: int,
     return st, first
 
 
+STATE_SHAPES = {"o": (3,), "d": (3,), "surf": (4,), "t_surf": (),
+                "t_start": (), "t": (), "rgba": (4,), "depth": (),
+                "max_weight": (), "alive": (), "surf_a": (), "wn": (),
+                "ids": (), "n_ids": None}
+
+
+def state_buffers(n: int, device) -> dict:
+    """Buffers of a frame of n rays that ray_init can write (its `out`):
+    the state's arrays, and the first list "ids" (n,) with its count
+    "n_ids" (1,) int32."""
+    out = {}
+    for k, shape in STATE_SHAPES.items():
+        dtype = (torch.bool if k == "alive" else torch.int32
+                 if k in ("ids", "n_ids") else torch.float32)
+        out[k] = torch.empty((1,) if shape is None else (n,) + shape,
+                             dtype=dtype, device=device)
+    return out
+
+
+def _into(out, st, first, n):
+    """The state and first list a plain version made, copied into out ->
+    (out's state, out's first list or None)."""
+    for k in st:
+        _arg(f"ray_init: out[{k!r}]", out[k], st[k].dtype, st[k].shape,
+             out[k].device).copy_(st[k])
+    if first is None:
+        return {k: out[k] for k in st}, None
+    _arg("ray_init: out['ids']", out["ids"], torch.int32, (n,),
+         out["ids"].device)[:first[0].numel()].copy_(first[0])
+    out["n_ids"].copy_(first[1])
+    return {k: out[k] for k in st}, (out["ids"], out["n_ids"])
+
+
 def ray_init(scene, opts, camera, width: int, height: int, offsets,
              sample_index=0, surface_rgba=None, t_surface=None, coarse=None,
-             make_list=False, rays=None, coarse_factor=None):
+             make_list=False, rays=None, coarse_factor=None, out=None):
     """The march's state of a (width, height) frame -> (state, first):
     state as make_state's dict (o, d (N, 3); surf (N, 4); t_surf, t_start,
     t, depth, max_weight, surf_a, wn (N,) f32; rgba (N, 4); alive (N,)
@@ -904,7 +937,10 @@ def ray_init(scene, opts, camera, width: int, height: int, offsets,
     flash floor, (t_floor, alive) (H/F, W/F) grids as flash_init gives
     them, F = coarse_factor or opts.lowres_factor, or None. On a CUDA
     device one launch of nmr_ray_init, two around march_cuda.init_walk
-    where it has probes."""
+    where it has probes. out: None, or state_buffers' dict of n rays to
+    write the state and first list into (their addresses stay: the list
+    route's cached march); the given rays and surface payloads are then
+    copied into it (the rays by two copies, the payloads by the kernel)."""
     dev = scene["occ"].device
     kernel = _route("ray_init", scene["occ"])
     n = width * height
@@ -929,29 +965,48 @@ def ray_init(scene, opts, camera, width: int, height: int, offsets,
     else:
         cam = _host("ray_init: camera", camera, (3, 4))
     if not kernel:
-        return ray_init_reference(scene, opts, camera, width, height, offsets,
-                                  sample_index, surface_rgba, t_surface,
-                                  coarse, make_list, rays, coarse_factor)
+        st, first = ray_init_reference(scene, opts, camera, width, height,
+                                       offsets, sample_index, surface_rgba,
+                                       t_surface, coarse, make_list, rays,
+                                       coarse_factor)
+        return (st, first) if out is None else _into(out, st, first, n)
     lib = load_library()
     f32 = dict(dtype=torch.float32, device=dev)
     b8 = dict(dtype=torch.bool, device=dev)
     box = [_arg(f"ray_init: scene[{k!r}]", scene[k], torch.float32, (3,), dev)
            for k in ("render_min", "render_max")]
-    o, d = rays if rays is not None else (torch.empty((n, 3), **f32),
-                                          torch.empty((n, 3), **f32))
-    st = {"o": o, "d": d,
-          "surf": (surface_rgba if surface_rgba is not None
-                   else torch.empty((n, 4), **f32)),
-          "t_surf": (t_surface if t_surface is not None
-                     else torch.empty(n, **f32)),
-          "t_start": torch.empty(n, **f32), "t": torch.empty(n, **f32),
-          "rgba": torch.empty((n, 4), **f32), "depth": torch.empty(n, **f32),
-          "max_weight": torch.empty(n, **f32), "alive": torch.empty(n, **b8),
-          "surf_a": torch.empty(n, **f32), "wn": torch.empty(n, **f32)}
-    first = None
-    if make_list:
-        first = (torch.empty(n, dtype=torch.int32, device=dev),
-                 torch.empty(1, dtype=torch.int32, device=dev))
+    if out is not None:
+        st = {k: _arg(f"ray_init: out[{k!r}]", out[k],
+                      torch.bool if k == "alive" else torch.float32,
+                      (n,) + STATE_SHAPES[k], dev)
+              for k in STATE_SHAPES if k not in ("ids", "n_ids")}
+        if rays is not None:
+            st["o"].copy_(rays[0])
+            st["d"].copy_(rays[1])
+        first = None
+        if make_list:
+            first = (_arg("ray_init: out['ids']", out["ids"], torch.int32,
+                          (n,), dev),
+                     _arg("ray_init: out['n_ids']", out["n_ids"], torch.int32,
+                          (1,), dev))
+    else:
+        o, d = rays if rays is not None else (torch.empty((n, 3), **f32),
+                                              torch.empty((n, 3), **f32))
+        st = {"o": o, "d": d,
+              "surf": (surface_rgba if surface_rgba is not None
+                       else torch.empty((n, 4), **f32)),
+              "t_surf": (t_surface if t_surface is not None
+                         else torch.empty(n, **f32)),
+              "t_start": torch.empty(n, **f32), "t": torch.empty(n, **f32),
+              "rgba": torch.empty((n, 4), **f32),
+              "depth": torch.empty(n, **f32),
+              "max_weight": torch.empty(n, **f32),
+              "alive": torch.empty(n, **b8),
+              "surf_a": torch.empty(n, **f32), "wn": torch.empty(n, **f32)}
+        first = None
+        if make_list:
+            first = (torch.empty(n, dtype=torch.int32, device=dev),
+                     torch.empty(1, dtype=torch.int32, device=dev))
     f32n = np.float32
     params = InitParams(
         ox=f32n(offsets[0]), oy=f32n(offsets[1]), inv_w=f32n(1) / f32n(width),

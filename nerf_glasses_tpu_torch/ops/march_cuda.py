@@ -169,8 +169,8 @@ _COMPOSITE_IN = ("rgba", "depth", "max_weight", "wn", "surf_a", "t", "alive",
                  "surf", "t_surf", "t_end", "exited", "surf_stopped", "valid",
                  "color", "ts", "dt", "alpha", "sigma", "rgb", "slots", "rows")
 _COMPOSITE_OUT = ("rgba", "depth", "max_weight", "wn", "surf_a", "alive")
-_COMPOSITE_LIST = ("ids", "row_first", "slot_mask", "row_ts", "row_dt",
-                   "t_out", "next_ids", "next_count")
+_COMPOSITE_LIST = ("ids", "n_list", "row_count", "row_first", "slot_mask",
+                   "row_ts", "row_dt", "t_out", "next_ids", "next_count")
 
 
 class TrainArgs(ctypes.Structure):
@@ -183,9 +183,9 @@ class TrainArgs(ctypes.Structure):
 class CompositeArgs(ctypes.Structure):
     """csrc/march.cu's CompositeArgs: the composite's tensors' device
     pointers (None for what a stage or form does not read), the density
-    rows' stride and the number of rows; the list form's list, first rows
-    and slot bits, rows' t and dt, frame t and next list with its
-    capacity."""
+    rows' stride and the number of rows; the list form's list, its length
+    and row count on the device, first rows and slot bits, rows' t and
+    dt, frame t and next list with its capacity."""
     _fields_ = ([(k, ctypes.c_void_p) for k in _COMPOSITE_IN]
                 + [("sigma_stride", ctypes.c_longlong), ("m", ctypes.c_longlong)]
                 + [(k + "_out", ctypes.c_void_p) for k in _COMPOSITE_OUT]
@@ -207,8 +207,21 @@ def load_library() -> ctypes.CDLL:
     _lib = cuda_build.declare(lib, [
         (name, [p, i, p, p], i)
         for name in ("nmr_march_walk", "nmr_march_composite",
-                     "nmr_training_samples")])
+                     "nmr_training_samples")] + [
+        ("nmr_graph_nodes", [p, p], i)])
     return _lib
+
+
+def graph_nodes(raw_graph: int) -> tuple:
+    """A CUDA graph's nodes (torch.cuda.CUDAGraph(keep_graph=True)'s
+    raw_cuda_graph()) -> (nodes, kernel nodes), by the runtime's own
+    listing (nmr_graph_nodes); RuntimeError where it cannot list them."""
+    kernels = ctypes.c_int(0)
+    nodes = load_library().nmr_graph_nodes(ctypes.c_void_p(raw_graph),
+                                           ctypes.byref(kernels))
+    if nodes < 0:
+        raise RuntimeError("nmr_graph_nodes could not list the graph's nodes")
+    return nodes, kernels.value
 
 
 # ---------------------------------------------------------------------------
@@ -850,9 +863,11 @@ def _rows_like(x, idx):
     return out.copy_(x[idx])
 
 
-def composite_list_reference(frame, ids, n, rows, m, rgb, sigma, opts,
-                             next_ids=None, next_count=None):
-    """composite_list's plain version: the listed rays gathered in
+def composite_list_reference(frame, ids, n, rows, count, rgb, sigma, opts,
+                             next_ids=None, next_count=None, n_dev=None):
+    """composite_list's plain version (the list's length min(n_dev, n)
+    and the row count min(count, rows) read on the host, the rows below
+    it taken): the listed rays gathered in
     ascending ray id, their slots' rows (list_slot_rows) as
     composite_reference takes them, composite_reference, the state
     scattered back with t = t_end, and the rays still alive written to
@@ -867,6 +882,10 @@ def composite_list_reference(frame, ids, n, rows, m, rgb, sigma, opts,
     K = opts.steps_per_round
     if next_ids is not None:
         _zero_count("composite_list: next_count", next_count)
+    if n_dev is not None:
+        n = min(int(n_dev[0]), n)
+    m = min(int(count[0]), rgb.shape[0])
+    rgb, sigma = rgb[:m], sigma[:m]
     idl = ids[:n].long()
     order = torch.argsort(idl)
     ids_s = idl[order]
@@ -1197,6 +1216,8 @@ def _buffer(name, x, dtype, rows, device, width=None):
 
 def _counter(name, x, device):
     """x, one int32 on device, or ValueError."""
+    if not torch.is_tensor(x):
+        raise ValueError(f"{name} must be one int32 on {device}, got {x!r}")
     if (x.dtype != torch.int32 or x.numel() != 1 or x.device != device
             or not x.is_contiguous()):
         raise ValueError(f"{name} must be one int32 on {device}, got "
@@ -1279,25 +1300,38 @@ def walk_list(frame, ids, n: int, scene, opts, iters, rows, count,
     return None
 
 
-def composite_list(frame, ids, n: int, rows, m: int, rgb, sigma, opts,
-                   next_ids=None, next_count=None):
+def composite_list(frame, ids, n: int, rows, count, rgb, sigma, opts,
+                   next_ids=None, next_count=None, n_dev=None):
     """A round's compositing of the listed rays, in place in the frame's
     arrays. frame: rgba, surf (N, 4) f32; depth, max_weight, wn, surf_a,
     t, t_surf (N,) f32; alive (N,) bool; t is set to each ray's t_end.
-    ids: int32, the list's n entries. rows: walk_list's buffers after the
-    round's walk (first rows and slot bits, rows' ts and dt, the entries'
-    t_end, exited, stopped); m: its row count; rgb (m, 3) f32 and sigma
-    (m,) f32 (any stride: the density MLP's column 0): the network's
-    pre-activation outputs on the rows. next_ids (int32, room for n) and
-    next_count (one int32 on the device that holds 0): the rays still
-    alive are written there from 0 on (the plain version in the list's
-    order, the kernel a block's rays together) and next_count becomes
-    their number; or None. Where next_count does not hold 0 the plain
-    version raises and the kernel writes no entry past next_ids. On a
-    CUDA tensor one launch of nmr_march_composite's list form."""
+    ids: int32, the list (ray ids[j] for j < its length). n: the list's
+    length, or with n_dev (one int32 on the device) an upper bound of the
+    length n_dev holds, as walk_list takes them. rows: walk_list's
+    buffers after the round's walk (first rows and slot bits, rows' ts
+    and dt, the entries' t_end, exited, stopped); count: the walk's row
+    count, one int32 on the device (its rows below it are read); rgb (M,
+    3) f32 and sigma (M,) f32 (any stride: the density MLP's column 0):
+    the network's pre-activation outputs on the rows, M >= the count
+    (rows at and above M count as having none). next_ids (int32, room for
+    n) and next_count (one int32 on the device that holds 0): the rays
+    still alive are written there from 0 on (the plain version in the
+    list's order, the kernel a block's rays together) and next_count
+    becomes their number; or None. Where next_count does not hold 0 the
+    plain version raises and the kernel writes no entry past next_ids.
+    No count is read on the host: on a CUDA tensor one launch of
+    nmr_march_composite's list form over n entries (a block past the
+    list's length ends at once)."""
     K = opts.steps_per_round
     dev, N, args = _ray_args("composite_list", frame, _LIST_STATE)
     ids = _buffer("composite_list: ids", ids, torch.int32, n, dev)
+    count = _counter("count", count, dev)
+    if n_dev is not None:
+        n_dev = _counter("n_dev", n_dev, dev)
+    if rgb.dim() != 2 or rgb.shape[1] != 3:
+        raise ValueError(f"rgb must be an (M, 3) tensor, got "
+                         f"{tuple(rgb.shape)}")
+    m = rgb.shape[0]
     for k, dt, r in (("first", torch.int32, n),
                      ("mask", torch.uint8, _mask_bytes(K) * n),
                      ("ts", torch.float32, m),
@@ -1316,8 +1350,9 @@ def composite_list(frame, ids, n: int, rows, m: int, rgb, sigma, opts,
         _buffer("next_ids", next_ids, torch.int32, n, dev)
         _counter("next_count", next_count, dev)
     if dev.type == "cpu":
-        return composite_list_reference(frame, ids, n, rows, m, rgb, sigma,
-                                        opts, next_ids, next_count)
+        return composite_list_reference(frame, ids, n, rows, count, rgb,
+                                        sigma, opts, next_ids, next_count,
+                                        n_dev)
     if any(a.data_ptr() != frame[k].data_ptr()
            for k, a in zip(_LIST_STATE, args)):
         raise ValueError("composite_list writes the frame's state in place: "
@@ -1346,7 +1381,9 @@ def composite_list(frame, ids, n: int, rows, m: int, rgb, sigma, opts,
            for k in _COMPOSITE_IN},
         sigma_stride=sigma.stride(0) if m else 0, m=m,
         **{k + "_out": st[k].data_ptr() for k in _COMPOSITE_OUT},
-        ids=ids.data_ptr(), row_first=rows["first"].data_ptr(),
+        ids=ids.data_ptr(),
+        n_list=None if n_dev is None else n_dev.data_ptr(),
+        row_count=count.data_ptr(), row_first=rows["first"].data_ptr(),
         slot_mask=rows["mask"].data_ptr(),
         row_ts=rows["ts"].data_ptr(), row_dt=rows["dt"].data_ptr(),
         t_out=st["t"].data_ptr(),
@@ -1356,7 +1393,6 @@ def composite_list(frame, ids, n: int, rows, m: int, rgb, sigma, opts,
     _launch("composite_list", load_library().nmr_march_composite, dev,
             params, n, ctypes.addressof(ptrs))
     return None
-
 
 
 # ---------------------------------------------------------------------------

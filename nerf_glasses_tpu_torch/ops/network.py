@@ -70,10 +70,53 @@ class NerfNetwork(nn.Module):
     def rgb_mlp(self) -> Tuple[torch.Tensor, ...]:
         return tuple(getattr(self, f"rgb_{i}") for i in range(self.n_rgb))
 
+    def row_buffers(self, n: int, compute_dtype=torch.bfloat16,
+                    encode_dtype=torch.float32, device=None) -> dict:
+        """Outputs for a forward on n rows (forward's `out`): "density"
+        (n, density_out) f32 and "rgb" (n, 3) f32; at the f32 compute
+        dtype also the encode's "encode" (n, L*F) in encode_dtype. On the
+        CPU "rgb" is the first 3 columns of the rgb MLP's whole output
+        width, the layout its plain version returns: aten's CPU
+        activations round strided and contiguous inputs apart, and the
+        composite applies them to these rows."""
+        device = torch.device(self.grid.device if device is None else device)
+        f32 = dict(dtype=torch.float32, device=device)
+        width = 3 if device.type == "cuda" else self.rgb_mlp[-1].shape[0]
+        out = {"density": torch.empty((n, self.density_mlp[-1].shape[0]),
+                                      **f32),
+               "rgb": torch.empty((n, width), **f32)[:, :3]}
+        if compute_dtype != torch.bfloat16:
+            out["encode"] = torch.empty((n, self.config.n_pos_features),
+                                        dtype=encode_dtype, device=device)
+        return out
+
     def density_raw(self, pos01: torch.Tensor, compute_dtype=torch.bfloat16,
-                    encode_dtype=torch.float32) -> torch.Tensor:
+                    encode_dtype=torch.float32, count=None,
+                    out=None) -> torch.Tensor:
         """pos01 (N, 3) in [0, 1] -> density MLP output (N, 16); sigma is
-        channel 0 (NerfNetwork::density, nerf_network.cuh:266-282)."""
+        channel 0 (NerfNetwork::density, nerf_network.cuh:266-282).
+        count: None, or one int32 on pos01's device: the rows below it
+        alone are computed, into out["density"] (and out["encode"] at the
+        f32 compute dtype; row_buffers), N bounding the count; the rows
+        above it keep what they held. A count takes the wrappers of
+        network_cuda (the kernels on a CUDA tensor, their plain versions
+        on a CPU one) and a call that needs no gradient."""
+        if count is not None:
+            if torch.is_grad_enabled() and any(
+                    t.requires_grad for t in (self.grid, pos01,
+                                              *self.density_mlp)):
+                raise ValueError("density_raw: a row count takes a call "
+                                 "that needs no gradient")
+            pos01, out = pos01.contiguous(), out or {}
+            if compute_dtype == torch.bfloat16:
+                return network_cuda.encode_mlp(
+                    self.grid, pos01, self.density_mlp, self.config,
+                    compute_dtype, encode_dtype, count, out.get("density"))
+            enc = network_cuda.hash_encode(self.grid, pos01, self.config,
+                                           encode_dtype, count,
+                                           out.get("encode"))
+            return network_cuda.mlp(enc, self.density_mlp, compute_dtype,
+                                    count, out.get("density"))
         if network_cuda.trains_on_card(self.grid, pos01, *self.density_mlp):
             enc = network_cuda.HashEncode.apply(self.grid, pos01.contiguous(),
                                                 self.config, encode_dtype)
@@ -98,13 +141,21 @@ class NerfNetwork(nn.Module):
 
     def rgb_from_features(self, feat: torch.Tensor, dir01: torch.Tensor,
                           compute_dtype=torch.bfloat16,
-                          extra: torch.Tensor = None) -> torch.Tensor:
+                          extra: torch.Tensor = None, count=None,
+                          out=None) -> torch.Tensor:
         """[density-MLP output (N, 16), SH(dir), extra dims, pad] ->
         rgb_raw (N, 3): the colour half of NerfNetwork::inference
         (nerf_network.cuh:75-135), also called on features read from a
         baked grid (ops/bake.py). `extra` ((N, E) or (E,)) are the latent
         codes of a config with n_extra_learnable_dims = E (upstream's
-        extra-dims path, testbed.cu:1614-1631); zeros when omitted."""
+        extra-dims path, testbed.cu:1614-1631); zeros when omitted. count
+        and out ((N, 3) f32) as in density_raw."""
+        if count is not None:
+            return network_cuda.rgb_head(
+                feat.float().contiguous(), dir01.float().contiguous(),
+                self.rgb_mlp, self.config, compute_dtype,
+                None if extra is None else extra.float().contiguous(), count,
+                out)
         if network_cuda.takes_kernel("rgb_head", feat, dir01, extra,
                                      *self.rgb_mlp):
             return network_cuda.rgb_head(
@@ -117,12 +168,16 @@ class NerfNetwork(nn.Module):
 
     def forward(self, pos01: torch.Tensor, dir01: torch.Tensor,
                 compute_dtype=torch.bfloat16, encode_dtype=torch.float32,
-                extra: torch.Tensor = None):
+                extra: torch.Tensor = None, count=None, out=None):
         """-> (rgb_raw (N, 3), sigma_raw (N,)), pre-activation f32; `extra`
-        as in rgb_from_features."""
-        d_out = self.density_raw(pos01, compute_dtype, encode_dtype)
-        return (self.rgb_from_features(d_out, dir01, compute_dtype, extra),
-                d_out[..., 0])
+        as in rgb_from_features. count (one int32 on the device) and out
+        (row_buffers' dict) as in density_raw: the rows below the count
+        are computed into out's buffers, which the result views."""
+        d_out = self.density_raw(pos01, compute_dtype, encode_dtype, count,
+                                 out)
+        return (self.rgb_from_features(
+            d_out, dir01, compute_dtype, extra, count,
+            None if out is None else out["rgb"]), d_out[..., 0])
 
     apply_network = forward
 

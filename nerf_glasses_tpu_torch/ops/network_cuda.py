@@ -142,10 +142,10 @@ def load_library() -> ctypes.CDLL:
                                                              NVCC_FLAGS)
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     _lib = cuda_build.declare(lib, [
-        ("nmr_hash_encode", [p, ll, p, p, p, p], i),
-        ("nmr_mlp", [p, ll, p, p, p], i),
-        ("nmr_rgb_head", [p, ll, p, p, p, p, p], i),
-        ("nmr_encode_mlp", [p, p, ll, p, p, p, p], i),
+        ("nmr_hash_encode", [p, ll, p, p, p, p, p], i),
+        ("nmr_mlp", [p, ll, p, p, p, p], i),
+        ("nmr_rgb_head", [p, ll, p, p, p, p, p, p], i),
+        ("nmr_encode_mlp", [p, p, ll, p, p, p, p, p], i),
         ("nmr_hash_encode_backward", [p, ll, p, p, p, p, p, p], i)])
     return _lib
 
@@ -321,6 +321,10 @@ def _dtype(name, dtype):
     return dtype
 
 
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
 def _launch(name, fn, dev, params, *args):
     """One kernel launch on dev's current stream, under dev: the library
     launches on the CUDA runtime's current device."""
@@ -331,6 +335,41 @@ def _launch(name, fn, dev, params, *args):
         raise RuntimeError(f"network kernel {name} launch failed: "
                            f"cudaError_t {err}")
     launches[name] += 1
+
+
+def _rows_out(name, count, out, n, width, dtype, dev):
+    """The output of a call on n rows (a bound where `count` is given):
+    `out` checked ((n, width) dtype on dev, contiguous on the card) or
+    allocated; count checked: None, or one int32 on dev."""
+    if count is not None and (count.dtype != torch.int32 or count.numel() != 1
+                              or count.device != dev):
+        raise ValueError(f"{name}: count must be one int32 on {dev}, got "
+                         f"{count.dtype} {tuple(count.shape)} on {count.device}")
+    if out is None:
+        return torch.empty((n, width), dtype=dtype, device=dev)
+    if dev.type == "cpu" and out.dtype == dtype and tuple(out.shape) == (
+            n, width) and out.device == dev:
+        return out                 # any layout: the plain versions write it
+    return _check(f"{name}: out", out, (dtype,), (n, width), dev)
+
+
+def rows_below(args, n: int, m: int) -> tuple:
+    """args with each (n, ...) 2-d tensor (a row per sample) cut to its
+    first m rows: a call's inputs below a row count."""
+    return tuple(a[:m] if torch.is_tensor(a) and a.dim() == 2
+                 and a.shape[0] == n else a for a in args)
+
+
+def _plain_rows(fn, count, out, n, *args):
+    """fn (a plain version) on the rows below the count (min(count, n),
+    read on the host) into out's rows, the rest of out left as it was, or
+    fn on all rows where no count is given (into out where given) -> out
+    or fn's result."""
+    if count is None and out is None:
+        return fn(*args)
+    m = n if count is None else max(0, min(int(count.reshape(())), n))
+    out[:m] = fn(*rows_below(args, n, m))
+    return out
 
 
 # level_constants once per config: the wrappers run on every frame's
@@ -369,22 +408,29 @@ def _check_encode(name, table, pos, config, encode_dtype):
     return dev
 
 
-def hash_encode(table, pos, config: NGPConfig, encode_dtype=torch.float32):
+def hash_encode(table, pos, config: NGPConfig, encode_dtype=torch.float32,
+                count=None, out=None):
     """table (L, S, F) f32, pos (N, 3) f32 in [0, 1] -> (N, L*F) in
     encode_dtype, level-major. On a CUDA tensor one launch of
     nmr_hash_encode (none for N = 0): L <= 32, F in (1, 2, 4, 8), S at
-    least every level's hashmap size, the table 16-byte aligned."""
+    least every level's hashmap size, the table 16-byte aligned. count:
+    None, or one int32 on the device: only the rows below it are read and
+    written (N then bounds it, and sizes the launch); out: the (N, L*F)
+    output to write, or None for a new one. The rows of out at and above
+    the count are left as they were."""
     dev = _check_encode("hash_encode", table, pos, config, encode_dtype)
     L, F = config.n_levels, config.n_features_per_level
-    if dev.type == "cpu":
-        return hash_encode_reference(table, pos, config, encode_dtype)
     n = pos.shape[0]
-    out = torch.empty((n, L * F), dtype=encode_dtype, device=dev)
+    out = _rows_out("hash_encode", count, out, n, L * F, encode_dtype, dev)
+    if dev.type == "cpu":
+        return _plain_rows(lambda x: hash_encode_reference(
+            table, x, config, encode_dtype), count, out, n, pos)
     if n:
         params = _encode_params(config, table.shape[1],
                                 encode_dtype == torch.bfloat16)
         _launch("hash_encode", load_library().nmr_hash_encode, dev, params,
-                n, table.data_ptr(), pos.data_ptr(), out.data_ptr())
+                n, table.data_ptr(), pos.data_ptr(), out.data_ptr(),
+                _ptr(count))
     return out
 
 
@@ -464,61 +510,68 @@ def _mlp_params(name, weights, n_in, dev, compute_dtype, **kw) -> MlpParams:
     return p
 
 
-def mlp(x, weights, compute_dtype=torch.bfloat16):
+def mlp(x, weights, compute_dtype=torch.bfloat16, count=None, out=None):
     """x (N, n_in) f32 or bf16 -> (N, n_out) f32, as mlp_apply: weights
     (n_out, n_in) f32, ReLU between layers, hidden widths <= 128. On a
     CUDA tensor one launch of nmr_mlp (none for N = 0); a shape whose
-    tiles overflow a block's shared memory raises RuntimeError."""
+    tiles overflow a block's shared memory raises RuntimeError. count and
+    out as in hash_encode."""
     dev = _device("mlp", x)
     _dtype("mlp", compute_dtype)
     _check("x", x, DTYPES, (None, None), dev)
     params = _mlp_params("mlp", weights, x.shape[1], dev, compute_dtype,
                          x_bf16=int(x.dtype == torch.bfloat16),
                          n_store=weights[-1].shape[0])
-    if dev.type == "cpu":
-        return mlp_reference(x, weights, compute_dtype)
     n = x.shape[0]
-    out = torch.empty((n, params.n_store), dtype=torch.float32, device=dev)
+    out = _rows_out("mlp", count, out, n, params.n_store, torch.float32,
+                    dev)
+    if dev.type == "cpu":
+        return _plain_rows(lambda r: mlp_reference(r, weights, compute_dtype),
+                           count, out, n, x)
     if n:
         _launch("mlp", load_library().nmr_mlp, dev, params, n, x.data_ptr(),
-                out.data_ptr())
+                out.data_ptr(), _ptr(count))
     return out
 
 
 def encode_mlp(table, pos, weights, config: NGPConfig,
-               compute_dtype=torch.bfloat16, encode_dtype=torch.float32):
+               compute_dtype=torch.bfloat16, encode_dtype=torch.float32,
+               count=None, out=None):
     """table (L, S, F) f32, pos (N, 3) f32 in [0, 1], the density MLP's
     weights (first input width L*F) -> (N, n_out) f32, as
     encode_mlp_reference: hash_encode in encode_dtype then mlp at the
     bf16 compute dtype (the f32 compute dtype takes the two wrappers).
-    Takes what hash_encode and mlp take; on a CUDA tensor one launch of
-    nmr_encode_mlp (none for N = 0)."""
+    Takes what hash_encode and mlp take, count and out too; on a CUDA
+    tensor one launch of nmr_encode_mlp (none for N = 0)."""
     dev = _check_encode("encode_mlp", table, pos, config, encode_dtype)
     if _dtype("encode_mlp", compute_dtype) != torch.bfloat16:
         raise ValueError("encode_mlp: the fused kernel runs the bf16 "
                          "compute dtype (f32 takes hash_encode and mlp)")
     params = _mlp_params("encode_mlp", weights, config.n_pos_features, dev,
                          compute_dtype, n_store=weights[-1].shape[0])
-    if dev.type == "cpu":
-        return encode_mlp_reference(table, pos, weights, config,
-                                    compute_dtype, encode_dtype)
     n = pos.shape[0]
-    out = torch.empty((n, params.n_store), dtype=torch.float32, device=dev)
+    out = _rows_out("encode_mlp", count, out, n, params.n_store,
+                    torch.float32, dev)
+    if dev.type == "cpu":
+        return _plain_rows(lambda x: encode_mlp_reference(
+            table, x, weights, config, compute_dtype, encode_dtype),
+            count, out, n, pos)
     if n:
         enc = _encode_params(config, table.shape[1],
                              encode_dtype == torch.bfloat16)
         _launch("encode_mlp", load_library().nmr_encode_mlp, dev, enc,
                 ctypes.byref(params), n, table.data_ptr(), pos.data_ptr(),
-                out.data_ptr())
+                out.data_ptr(), _ptr(count))
     return out
 
 
 def rgb_head(feat, dir01, weights, config: NGPConfig,
-             compute_dtype=torch.bfloat16, extra=None):
+             compute_dtype=torch.bfloat16, extra=None, count=None, out=None):
     """feat (N, density_out) f32, dir01 (N, 3) f32 warped to [0, 1],
     extra None or the codes (E,), (1, E) or (N, E) f32 with E =
     n_extra_learnable_dims -> rgb_raw (N, 3) f32, as rgb_head_reference.
-    On a CUDA tensor one launch of nmr_rgb_head (none for N = 0)."""
+    On a CUDA tensor one launch of nmr_rgb_head (none for N = 0). count
+    and out as in hash_encode."""
     dev = _device("rgb_head", feat)
     _dtype("rgb_head", compute_dtype)
     n = feat.shape[0]
@@ -544,14 +597,16 @@ def rgb_head(feat, dir01, weights, config: NGPConfig,
                          compute_dtype, n_store=3, n_feat=feat.shape[1],
                          sh_degree=config.sh_degree,
                          n_extra=0 if extra is None else E, extra_rows=rows)
+    out = _rows_out("rgb_head", count, out, n, 3, torch.float32, dev)
     if dev.type == "cpu":
-        return rgb_head_reference(feat, dir01, weights, config,
-                                  compute_dtype, extra)
-    out = torch.empty((n, 3), dtype=torch.float32, device=dev)
+        return _plain_rows(lambda f, d, e: rgb_head_reference(
+            f, d, weights, config, compute_dtype, e),
+            count, out, n, feat, dir01, extra)
     if n:
         _launch("rgb_head", load_library().nmr_rgb_head, dev, params, n,
                 feat.data_ptr(), dir01.data_ptr(),
-                None if extra is None else extra.data_ptr(), out.data_ptr())
+                None if extra is None else extra.data_ptr(), out.data_ptr(),
+                _ptr(count))
     return out
 
 

@@ -78,7 +78,7 @@ import torch.nn.functional as nnf
 
 from nerf_glasses_tpu_torch import constants as C
 from nerf_glasses_tpu_torch.config import NGPConfig
-from nerf_glasses_tpu_torch.ops import frame_cuda, march_cuda
+from nerf_glasses_tpu_torch.ops import frame_cuda, march_cuda, network_cuda
 from nerf_glasses_tpu_torch.ops import occupancy as occ_ops
 from nerf_glasses_tpu_torch.ops.bake import (sample_baked_sigma,
                                              sample_baked_sigma_mip,
@@ -641,16 +641,17 @@ _SCATTER = ("t", "rgba", "depth", "max_weight", "alive", "surf_a", "wn")
 
 def _rays_state(scene, o, d, surface_rgba, t_surface, opts: MarchOptions,
                 sample_index=0, t_floor=None, alive_mask=None,
-                make_list=False):
+                make_list=False, out=None):
     """The march's state of N given rays (frame_cuda.ray_init on a row of
-    N) -> (state, first)."""
+    N, into `out` where given) -> (state, first)."""
     n = o.shape[0]
     coarse = None
     if t_floor is not None:
         coarse = (t_floor.reshape(1, n), alive_mask.reshape(1, n))
     return frame_cuda.ray_init(scene, opts, None, n, 1, (0.5, 0.5),
                                sample_index, surface_rgba, t_surface, coarse,
-                               make_list, rays=(o, d), coarse_factor=1)
+                               make_list, rays=(o, d), coarse_factor=1,
+                               out=out)
 
 
 def _rays_finish(st, linear_colors: bool):
@@ -680,7 +681,8 @@ def march_frame_impl(net: NerfNetwork, scene, o, d, surface_rgba, t_surface,
     opts = frame_options(opts)
     st, first = _rays_state(scene, o, d, surface_rgba, t_surface, opts,
                             sample_index, t_floor, alive_mask,
-                            list_route(opts))
+                            list_route(opts),
+                            _frame_out(net, scene, opts, o.shape[0]))
     st, epochs = march_state(net, scene, st, opts, first)
     return _rays_finish(st, linear_colors), epochs
 
@@ -747,71 +749,297 @@ def _march_gathered(net: NerfNetwork, scene, st, opts: MarchOptions) -> int:
     return epochs
 
 
+# The list route runs its epochs in blocks of BLOCK_EPOCHS: the host reads
+# the live list's length once a block (with the lengths that entered the
+# block's epochs, in the same copy), and on the card a block is one
+# replay of a CUDA graph. Where the list empties inside a block, its later
+# epochs find it empty and leave the state as it is. The exact 720p frame
+# runs 13 epochs and the multi-cascade one 16-17 (PERF.md section 6): 5
+# and 5-6 host reads at 4, at the cost of at most 3 empty epochs.
+# Even: a block then hands its next list back in the list it started from,
+# so one graph serves every block.
+BLOCK_EPOCHS = 4
+# list marches (buffers and graphs) cached at once, the least recent
+# dropped first
+LIST_MARCHES = 4
+# a first list takes rows for itself and a quarter more, so that a frame
+# whose list grows a little keeps its graphs
+LIST_MARGIN = 4
+
+_LIST_ARRAYS = ("o", "d", "surf", "t_surf", "t_start", "t", "rgba", "depth",
+                "max_weight", "alive", "surf_a", "wn")
+_LIST_OUT = ("t", "rgba", "depth", "max_weight", "alive", "surf_a", "wn")
+# the graphs' totals since import: captures, replays, and the operations
+# (graph nodes) and kernel launches (kernel nodes) the replays put on the
+# device
+graph_counts = {"captures": 0, "replays": 0, "nodes": 0, "kernels": 0}
+
+
+@dataclasses.dataclass
+class BlockGraph:
+    """A block's captured CUDA graph: its nodes, kernel nodes among them,
+    and the wrappers' launches it holds ({module name: {wrapper: n}}),
+    added to their counts at each replay."""
+    graph: object
+    nodes: int
+    kernels: int
+    launches: dict
+
+
+class ListMarch:
+    """The list route's march of frames of n rays: the frame's state and
+    first list (frame_cuda.state_buffers: ray_init writes a frame into
+    them), the spare list, the counters (`ctl`: the list lengths that
+    enter a block's epochs, slot 0 the block's first and, after it, the
+    next block's; then each round's row count), a round's rows for a first
+    list of up to `cap` rays and the network's outputs on them, and on the
+    card the graphs of its blocks by their epoch count. The addresses stay
+    while it lives, as the graphs need; `state` may be a caller's own
+    arrays (the CPU)."""
+
+    def __init__(self, n: int, rounds: int, device, block: int, state=None):
+        self.block, self.rounds = block, rounds
+        self.ctl = torch.zeros(block + 1 + block * rounds, dtype=torch.int32,
+                               device=device)
+        self.zeros = torch.zeros_like(self.ctl[1:])
+        self.state = state or frame_cuda.state_buffers(n, device)
+        self.state["n_ids"] = self.ctl[:1]
+        self.spare = torch.empty(n, dtype=torch.int32, device=device)
+        self.host = torch.empty(block, dtype=torch.int32,
+                                pin_memory=device.type == "cuda")
+        self.cap = 0
+        self.rows = self.net_out = None
+        self.graphs = {}
+
+    def reserve(self, net, opts, n: int, margin: bool):
+        """Rows for a first list of n rays: kept where they hold it, else
+        made anew (with LIST_MARGIN's room where `margin`), the graphs that
+        read the former ones dropped."""
+        if n <= self.cap:
+            return
+        dev = self.ctl.device
+        self.rows = self.net_out = None
+        self.graphs.clear()
+        self.cap = min(self.spare.shape[0],
+                       n + n // LIST_MARGIN if margin else n)
+        K = opts.steps_per_round
+        self.rows = march_cuda.list_buffers(self.cap, K, dev)
+        self.net_out = net.row_buffers(K * self.cap, opts.cdtype,
+                                       device=dev)
+
+    def lengths(self, k: int):
+        """The first k counters (one copy to the host and one wait on the
+        card) -> list of ints."""
+        if self.ctl.device.type != "cuda":
+            return self.ctl[:k].tolist()
+        self.host[:k].copy_(self.ctl[:k], non_blocking=True)
+        torch.cuda.current_stream(self.ctl.device).synchronize()
+        return self.host[:k].tolist()
+
+    def run(self, net, scene, opts: MarchOptions, e: int, cur: int) -> int:
+        """A block of e epochs from list `cur` (0: the state's ids, 1: the
+        spare), every launch over the rows' bound with the counts on the
+        device -> the list the next block starts from. The block zeroes its
+        counters (a copy from zeros: a copy node in a graph, where a fill
+        would be a kernel), chains each epoch's list length into the next
+        epoch's slot and leaves the last in slot 0."""
+        K, R, k = opts.steps_per_round, self.rounds, self.block
+        st, ctl, rows = self.state, self.ctl, self.rows
+        lists = (st["ids"], self.spare)
+        extra = scene.get("extra_dims")
+        ctl[1:].copy_(self.zeros)
+        for j in range(e):
+            ids, nxt = lists[cur], lists[1 - cur]
+            n_dev = ctl[j:j + 1]
+            for r in range(R):
+                c = k + 1 + j * R + r
+                count = ctl[c:c + 1]
+                march_cuda.walk_list(st, ids, self.cap, scene, opts,
+                                     opts.advance_iters if r == 0 else None,
+                                     rows, count, n_dev)
+                rgb, sigma = net(rows["pos01"], rows["dir01"],
+                                 compute_dtype=opts.cdtype, extra=extra,
+                                 count=count, out=self.net_out)
+                last = r == R - 1
+                march_cuda.composite_list(
+                    st, ids, self.cap, rows, count, rgb, sigma, opts,
+                    nxt if last else None, ctl[j + 1:j + 2] if last else None,
+                    n_dev)
+            cur = 1 - cur
+        ctl[:1].copy_(ctl[e:e + 1])
+        return cur
+
+    def capture(self, net, scene, opts: MarchOptions, e: int) -> BlockGraph:
+        """run(e, 0) captured as a CUDA graph (it runs nothing: the
+        wrappers' launch counts are put back) -> the block's graph. A
+        capture that fails raises."""
+        counts = {"march_cuda": march_cuda.launches,
+                  "network_cuda": network_cuda.launches}
+        before = {m: dict(c) for m, c in counts.items()}
+        g = torch.cuda.CUDAGraph(keep_graph=True)
+        # on a side stream that waits for the frame's work, as
+        # torch.cuda.graph captures, without its synchronize and its
+        # emptying of the allocator's caches (a frame after a capture then
+        # allocates from them as before)
+        dev = self.ctl.device
+        main = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(main)
+        try:
+            with torch.cuda.stream(side):
+                g.capture_begin(capture_error_mode="thread_local")
+                try:
+                    self.run(net, scene, opts, e, 0)
+                finally:
+                    g.capture_end()
+        except Exception as err:
+            raise RuntimeError(f"the list march's block of {e} epochs did "
+                               f"not capture as a CUDA graph: {err}") from err
+        finally:
+            main.wait_stream(side)
+            grew = {m: {k: v - before[m][k] for k, v in c.items()
+                        if v != before[m][k]} for m, c in counts.items()}
+            for m, c in counts.items():
+                c.update(before[m])
+        nodes, kernels = march_cuda.graph_nodes(g.raw_cuda_graph())
+        g.instantiate()
+        graph_counts["captures"] += 1
+        return BlockGraph(g, nodes, kernels, grew)
+
+    def replay(self, e: int):
+        """One replay of the block of e epochs, its launches counted."""
+        b = self.graphs[e]
+        b.graph.replay()
+        for m, counts in (("march_cuda", march_cuda.launches),
+                          ("network_cuda", network_cuda.launches)):
+            for k, v in b.launches.get(m, {}).items():
+                counts[k] += v
+        graph_counts["replays"] += 1
+        graph_counts["nodes"] += b.nodes
+        graph_counts["kernels"] += b.kernels
+
+
+_LIST_CACHE: "Dict[tuple, ListMarch]" = {}
+
+
+def _list_key(net: NerfNetwork, scene, opts: MarchOptions, n: int, device,
+              block: int) -> tuple:
+    """What a list march's graphs bake in: the frame size, the options,
+    the network's config, and the address, shape and type of every
+    tensor of the scene and the network that its kernels read."""
+    _, grid = march_cuda.probe_route(scene, opts)
+    tensors = (grid, scene["render_min"], scene["render_max"],
+               scene["local"], scene["train_min"], scene["train_max"],
+               scene.get("extra_dims"), net.grid, *net.density_mlp,
+               *net.rgb_mlp)
+    return (str(device), n, block, opts, net.config, tuple(
+        None if t is None else (t.data_ptr(), tuple(t.shape), t.dtype)
+        for t in tensors))
+
+
+def list_march(net: NerfNetwork, scene, opts: MarchOptions, n: int,
+               device) -> ListMarch:
+    """The card's cached list march for frames of n rays under these
+    options, scene and network (a new one where any differs: a new
+    snapshot, scene or option set captures anew) in blocks of
+    BLOCK_EPOCHS."""
+    block = BLOCK_EPOCHS
+    key = _list_key(net, scene, opts, n, device, block)
+    lm = _LIST_CACHE.pop(key, None)
+    if lm is None:
+        lm = ListMarch(n, opts.rounds_per_epoch, device, block)
+        while len(_LIST_CACHE) >= LIST_MARCHES:
+            _LIST_CACHE.pop(next(iter(_LIST_CACHE)))
+    _LIST_CACHE[key] = lm
+    return lm
+
+
+def _frame_out(net: NerfNetwork, scene, opts: MarchOptions, n: int):
+    """ray_init's `out` for a frame of n rays on the list route on the
+    card (the cached list march's state), else None."""
+    dev = scene["occ"].device
+    if dev.type != "cuda" or not list_route(opts):
+        return None
+    return list_march(net, scene, opts, n, dev).state
+
+
 def _march_lists(net: NerfNetwork, scene, st, opts: MarchOptions,
-                 first=None) -> int:
-    """The epochs of unbaked sequential rounds on st's own arrays, in
-    place, through each epoch's live-ray list (an int32 list of ray ids)
-    -> epochs. The first list is the alive rays: `first`, (ids, count) on
-    the device (frame_cuda.ray_init's), or torch.nonzero; its length is
-    one host read. A round is march_cuda.walk_list (the advance and the samples in
-    its first round, the samples alone in later ones: t and alive written
-    back, the valid slots' network inputs as rows), the network on the
-    rows, and march_cuda.composite_list, whose last round of the epoch
-    lists the rays still alive. An epoch's walk reads that list's length
-    from the device and is launched over the previous length, so one host
-    read after it gives the length (0 ends the march) and the round's row
-    count together; a later round of the epoch reads its row count. The
-    buffers are sized once, for the first list; the counters of every
-    round come zeroed in one tensor."""
-    K = opts.steps_per_round
-    if first is None:
-        ids = torch.nonzero(st["alive"]).squeeze(1).to(torch.int32)
-        n = ids.numel()
+                 first=None, graphs=None) -> int:
+    """The epochs of unbaked sequential rounds on the frame's arrays, in
+    place, through each epoch's live-ray list (int32 ray ids) -> the
+    epochs that found a live ray. The first list is `first`, (ids, count)
+    on the device (frame_cuda.ray_init's), or the alive rays
+    (torch.nonzero). A round is march_cuda.walk_list (the advance and the
+    samples in an epoch's first round, the samples alone in later ones: t
+    and alive written back, the valid slots' network inputs as rows), the
+    network on the rows, and march_cuda.composite_list, whose last round
+    of the epoch lists the rays still alive. Every launch is over the
+    first list's bound with the list length and row count the kernels
+    read on the device: no launch's shape follows a count. The epochs run
+    in blocks of BLOCK_EPOCHS (ListMarch.run); the host reads the first list's
+    length, then once after each block the length the block left and
+    those that entered its epochs (which count the epochs that found a
+    live ray). The epoch budget (_epoch_budget) holds: a last block takes
+    the epochs left. On the card the march is a cached ListMarch
+    (list_march; st copied into its state and back where st is not
+    already its state, as ray_init writes it on the main path) and each
+    block, with `graphs` (the default there), one replay of a CUDA graph
+    captured after the first block of its size ran eagerly (BLOCK_EPOCHS
+    must then be even); on the CPU the blocks run eagerly on st's
+    arrays."""
+    block = BLOCK_EPOCHS
+    dev = st["t"].device
+    n_rays = st["t"].shape[0]
+    card = dev.type == "cuda"
+    graphs = card if graphs is None else graphs
+    if graphs and (not card or block % 2):
+        raise ValueError(f"_march_lists: graphs take the card and an even "
+                         f"block, got {dev} and {block}")
+    if card:
+        lm = list_march(net, scene, opts, n_rays, dev)
     else:
-        n = int(first[1])
-        ids = first[0][:n]
-    if n == 0:
-        return 0
-    # the kernels read the per-ray constants in place: one copy a frame of
-    # any that is not contiguous (a frame's shared origin is an expand)
-    for k in ("o", "d", "surf", "t_surf", "t_start"):
-        st[k] = st[k].contiguous()
-    device = ids.device
-    rounds = opts.rounds_per_epoch
-    budget = _epoch_budget(opts)
-    rows = march_cuda.list_buffers(n, K, device)
-    spare = torch.empty_like(ids)
-    # round g: [list length (written by round g - 1's composite), rows]
-    counts = torch.zeros(2 * budget * rounds + 1, dtype=torch.int32,
-                         device=device)
-    extra = scene.get("extra_dims")
-    g = 0
-    for epoch in range(budget):
-        for r in range(rounds):
-            c = counts[2 * g:2 * g + 2]
-            listed = epoch > 0 and r == 0
-            march_cuda.walk_list(st, ids, n, scene, opts,
-                                 opts.advance_iters if r == 0 else None,
-                                 rows, c[1:], c[:1] if listed else None)
-            if listed:
-                n, m = c.tolist()
-                if n == 0:
-                    return epoch
-            else:
-                m = int(c[1])
-            if m:
-                rgb, sigma = net(rows["pos01"][:m], rows["dir01"][:m],
-                                 compute_dtype=opts.cdtype, extra=extra)
-            else:
-                rgb, sigma = rows["pos01"][:0], rows["ts"][:0]
-            last = r == rounds - 1
-            march_cuda.composite_list(
-                st, ids, n, rows, m, rgb, sigma, opts,
-                spare if last else None,
-                counts[2 * g + 2:2 * g + 3] if last else None)
-            g += 1
-        ids, spare = spare, ids
-    return budget
+        for k in ("o", "d", "surf", "t_surf", "t_start"):
+            st[k] = st[k].contiguous()
+        lm = ListMarch(n_rays, opts.rounds_per_epoch, dev, block,
+                       state={k: st[k] for k in _LIST_ARRAYS})
+    own = lm.state
+    foreign = any(st[k].data_ptr() != own[k].data_ptr() for k in _LIST_ARRAYS)
+    if foreign:
+        for k in _LIST_ARRAYS:
+            own[k].copy_(st[k])
+    if first is None:
+        ids = torch.nonzero(own["alive"]).squeeze(1).to(torch.int32)
+        first = (ids, torch.tensor([ids.numel()], dtype=torch.int32,
+                                   device=dev))
+    if "ids" not in own:            # the CPU: the caller's list itself
+        own["ids"] = first[0]
+    elif first[0].data_ptr() != own["ids"].data_ptr():
+        own["ids"][:first[0].numel()].copy_(first[0])
+    if first[1].data_ptr() != lm.ctl.data_ptr():
+        lm.ctl[:1].copy_(first[1].reshape(1))
+    n = lm.lengths(1)[0]
+    epochs = 0
+    if n:
+        lm.reserve(net, opts, n, card)
+        budget = _epoch_budget(opts)
+        cur = 0
+        while epochs < budget:
+            e = min(block, budget - epochs)
+            if not graphs:
+                cur = lm.run(net, scene, opts, e, cur)
+            elif e in lm.graphs:
+                lm.replay(e)
+            else:               # the block's work, then its graph for later
+                lm.run(net, scene, opts, e, 0)
+                lm.graphs[e] = lm.capture(net, scene, opts, e)
+            seen = lm.lengths(block)
+            epochs += 1 + sum(1 for x in seen[1:e] if x > 0)
+            if seen[0] == 0:
+                break
+    if foreign:
+        for k in _LIST_OUT:
+            st[k].copy_(own[k])
+    return epochs
 
 
 # ---------------------------------------------------------------------------
@@ -941,7 +1169,7 @@ def render_image_device(net: NerfNetwork, scene, camera, width: int,
     st, first = frame_cuda.ray_init(
         scene, opts, camera, width, height, offsets, sample_index,
         surface_rgba, t_surface, coarse, make_list=list_route(opts),
-        rays=rays)
+        rays=rays, out=_frame_out(net, scene, opts, width * height))
     st, epochs = march_state(net, scene, st, opts, first)
     rgba, depth = frame_cuda.finalize(st["rgba"], st["depth"], width, height,
                                       linear_colors)

@@ -579,6 +579,58 @@ def test_ray_init_on_card(case):
     assert r["ok"], r
 
 
+def _ray_init_args(case, device):
+    scale, kw, surf, tsurf, coarse = ray_case(case)
+    cfg = NGPConfig(**CFG, aabb_scale=scale)
+    scene = trm.make_scene(sphere_occupancy(cfg.max_cascade), np.full(3, 0.1),
+                           np.full(3, 0.9), np.eye(3), np.zeros(3),
+                           np.ones(3), device=device)
+    opts = trm.frame_options(trm.MarchOptions(config=cfg, **kw))
+
+    def t(x):
+        return None if x is None else torch.as_tensor(x, device=device)
+    return (scene, opts, RCAM, RW, RH, (0.3, 0.7), 5, t(surf), t(tsurf),
+            None if coarse is None else tuple(t(x) for x in coarse))
+
+
+def _holds_state(out, st, first):
+    """ray_init's result lies in `out`'s buffers."""
+    assert all(st[k].data_ptr() == out[k].data_ptr() for k in st)
+    assert first[0].data_ptr() == out["ids"].data_ptr()
+    assert first[1].data_ptr() == out["n_ids"].data_ptr()
+
+
+def _same_init(got, want):
+    (sg, fg), (sw, fw) = got, want
+    for k in sw:
+        a, b = sg[k], sw[k]
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), k
+    n = int(fw[1])
+    assert int(fg[1]) == n
+    assert torch.equal(torch.sort(fg[0][:n]).values,
+                       torch.sort(fw[0][:n]).values)
+
+
+@pytest.mark.parametrize("given", [False, True], ids=["camera", "rays"])
+@pytest.mark.parametrize("case", ["no_surface", "surface", "walk", "flash"])
+def test_ray_init_writes_into_given_buffers(case, given):
+    """ray_init with `out` (frame_cuda.state_buffers, holding other values
+    first): the state and first list of the call without it, bit for
+    bit, in those buffers; given rays and surface payloads copied in."""
+    args = _ray_init_args(case, "cpu")
+    want = frame_cuda.ray_init(*args, make_list=True)
+    kw = {"rays": (want[0]["o"].clone(), want[0]["d"].clone())} if given \
+        else {}
+    out = frame_cuda.state_buffers(RW * RH, "cpu")
+    for v in out.values():
+        v.fill_(3)
+    got = frame_cuda.ray_init(*args, make_list=True, out=out, **kw)
+    _holds_state(out, *got)
+    _same_init(got, want)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("linear", [False, True], ids=["srgb", "linear"])
 def test_finalize_on_card(linear):
@@ -738,3 +790,28 @@ def test_ray_init_contract_allows_a_few_walked_rays():
     for walk in (True, False):
         r = moved("alive", live[:1], 0, key="alive", walk=walk)
         assert not r["ok"] and r["alive_mismatches"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("given", [False, True], ids=["camera", "rays"])
+@pytest.mark.parametrize("case", ["no_surface", "surface", "walk", "flash"])
+def test_ray_init_into_given_buffers_on_card(case, given):
+    """The ray init kernel writing into given buffers (the list route's
+    cached state; the surface payloads copied by the kernel, given rays
+    by two copies): bit for bit its own state and the same first list
+    without them, the same launches."""
+    _card()
+    args = _ray_init_args(case, "cuda")
+    want = frame_cuda.ray_init(*args, make_list=True)
+    kw = {"rays": (want[0]["o"].clone(), want[0]["d"].clone())} if given \
+        else {}
+    out = frame_cuda.state_buffers(RW * RH, "cuda")
+    for v in out.values():
+        v.fill_(3)
+    before = frame_cuda.launches["ray_init"]
+    got = frame_cuda.ray_init(*args, make_list=True, out=out, **kw)
+    torch.cuda.synchronize()
+    assert frame_cuda.launches["ray_init"] == before + (2 if case == "walk"
+                                                        else 1)
+    _holds_state(out, *got)
+    _same_init(got, want)

@@ -24,8 +24,16 @@ On the card (tests marked `cuda`, skipped here) the list kernels are
 held to march_cuda.compare_with_plain's contract against their plain
 versions, and bit for bit against the kernels of the gathered epoch on
 the gathered copy; the list march equals the gathered march bit for bit.
-This file imports no JAX, so `pytest tests/test_torch_march_epoch.py -m
-cuda` runs on the card as it is.
+The list march runs its epochs in blocks (raymarch.BLOCK_EPOCHS, one
+host read a block): blocks of 1, 2 and 4 epochs and budgets that are no
+multiple of them give the gathered march's arrays bit for bit, and the
+list forms with their lengths and row counts in device memory, launched
+over a longer bound, give the host-length forms' bit for bit. On the card
+a block is a CUDA graph replay: held bit for bit against the same blocks
+run eagerly, across frames through one cached graph, with new captures
+for a new frame size or a longer first list, and a failed capture
+raising. This file imports no JAX, so `pytest
+tests/test_torch_march_epoch.py -m cuda` runs on the card as it is.
 """
 
 import dataclasses
@@ -243,6 +251,99 @@ def test_list_march_stops_at_the_epoch_budget():
     _states_equal(b, a)
 
 
+@pytest.mark.parametrize("budget", [None, 3, 7], ids=["all", "b3", "b7"])
+@pytest.mark.parametrize("block", [1, 2, 4])
+@pytest.mark.parametrize("case", ["jump", "mips_cone"])
+def test_block_loop_equals_gathered_march(case, block, budget, monkeypatch):
+    """The list march in blocks of 1, 2 and 4 epochs (one host read a
+    block) leaves the frame's arrays as the gathered march does, bit for
+    bit, and counts the same epochs: over the whole march (the list
+    empties inside a block), and under epoch budgets of 3 and 7, which
+    are no multiple of 2 or 4 (the last block takes the epochs left)."""
+    kw = {} if budget is None else {"max_rounds": budget}
+    net, scene, opts, st = _start(case, True, **kw)
+    a, b = _copy(st), _copy(st)
+    epochs_a = trm._march_gathered(net, scene, a, opts)
+    monkeypatch.setattr(trm, "BLOCK_EPOCHS", block)
+    epochs_b = trm._march_lists(net, scene, b, opts)
+    assert epochs_a == epochs_b == (budget or epochs_a) and epochs_a > 1
+    _states_equal(b, a)
+    assert bool(b["alive"].any()) == (budget is not None)
+
+
+def test_block_loop_reads_once_a_block(monkeypatch):
+    """The block loop's host reads: the first list's length, then one copy
+    a block of the lengths that entered the block's epochs (BLOCK_EPOCHS
+    of them), however the list empties; a block's counters hold 0 when it
+    starts and its epochs chain their list lengths."""
+    net, scene, opts, st = _start("jump", True)
+    reads = []
+    lengths = trm.ListMarch.lengths
+
+    def spy(self, k):
+        got = lengths(self, k)
+        reads.append(got)
+        return got
+
+    monkeypatch.setattr(trm.ListMarch, "lengths", spy)
+    epochs = trm._march_lists(net, scene, _copy(st), opts)
+    k = trm.BLOCK_EPOCHS
+    assert len(reads) == 1 + -(-epochs // k)
+    assert [len(r) for r in reads] == [1] + [k] * (len(reads) - 1)
+    assert reads[0][0] == int(st["alive"].sum())
+    assert all(r[0] > 0 for r in reads[:-1]) and reads[-1][0] == 0
+    # each block's entering lengths fall, the first the last block's end
+    for prev, r in zip(reads, reads[1:]):
+        assert r[1] <= prev[0]
+    # a block's epochs that found a live ray: its first and those whose
+    # entering length is not 0
+    assert epochs == sum(1 + sum(1 for x in r[1:] if x > 0)
+                         for r in reads[1:])
+
+
+@pytest.mark.parametrize("rounds", [1, 2])
+@pytest.mark.parametrize("case", ["jump", "mips_cone"])
+def test_list_forms_take_the_length_on_the_device(case, rounds):
+    """An epoch whose list lies at the front of a longer buffer, its
+    length in device memory and the launches over the buffer's bound
+    (walk_list and composite_list with n_dev, the network with the row
+    count): the frame's arrays and the next list as the host-n epoch
+    leaves them, bit for bit; an empty list (length 0 on the device)
+    leaves every array as it was and lists nothing."""
+    net, scene, opts, st = _start(case, True, rounds_per_epoch=rounds)
+    ids = _first_list(st)
+    n = ids.numel()
+    ref = _copy(st)
+    nxt_ref = _epoch(net, scene, ref, opts, ids)
+    for length in (n, 0):
+        got = _copy(st)
+        bound = n + 50
+        buf = torch.full((bound,), 7, dtype=torch.int32)
+        buf[:length] = ids[:length]
+        n_dev = torch.tensor([length], dtype=torch.int32)
+        rows = mc.list_buffers(bound, K, "cpu")
+        out = net.row_buffers(K * bound, opts.cdtype)
+        counts = torch.zeros(rounds + 1, dtype=torch.int32)
+        nxt = torch.empty(bound, dtype=torch.int32)
+        for r in range(rounds):
+            c = counts[r:r + 1]
+            mc.walk_list(got, buf, bound, scene, opts,
+                         opts.advance_iters if r == 0 else None, rows, c,
+                         n_dev)
+            rgb, sigma = net(rows["pos01"], rows["dir01"],
+                             compute_dtype=opts.cdtype, count=c, out=out)
+            last = r == rounds - 1
+            mc.composite_list(got, buf, bound, rows, c, rgb, sigma, opts,
+                              nxt if last else None,
+                              counts[-1:] if last else None, n_dev)
+        if length:
+            _states_equal(got, ref)
+            assert torch.equal(nxt[:int(counts[-1])], nxt_ref)
+        else:
+            _states_equal(got, st)
+            assert int(counts[-1]) == 0 and not counts.any()
+
+
 # ---------------------------------------------------------------------------
 # (b) One epoch in any list order and any row order
 # ---------------------------------------------------------------------------
@@ -273,7 +374,7 @@ def _epoch(net, scene, st, opts, ids, row_perm=None):
             inv[p] = torch.arange(m, device=p.device)
             rgb, sigma = mc._rows_like(rgb, inv), mc._rows_like(sigma, inv)
         last = r == opts.rounds_per_epoch - 1
-        mc.composite_list(st, ids, n, rows, m, rgb, sigma, opts,
+        mc.composite_list(st, ids, n, rows, c[1:], rgb, sigma, opts,
                           nxt if last else None,
                           counts[2 * r + 2:2 * r + 3] if last else None)
     return nxt[:int(counts[-1])]
@@ -398,14 +499,20 @@ def test_list_forms_reject_what_the_kernels_do_not_take():
     nxt, cnt = torch.empty_like(ids), torch.zeros(1, dtype=torch.int32)
     for args in ((rgb[:-1], sigma), (rgb, sigma[:-1]), (rgb.double(), sigma)):
         with pytest.raises(ValueError):
-            mc.composite_list(st, ids, n, rows, m, *args, opts, nxt, cnt)
+            mc.composite_list(st, ids, n, rows, count, *args, opts, nxt, cnt)
     with pytest.raises(ValueError):
-        mc.composite_list(st, ids, n, rows, m, rgb, sigma, opts, nxt, None)
+        mc.composite_list(st, ids, n, rows, count, rgb, sigma, opts, nxt, None)
     with pytest.raises(ValueError):
-        mc.composite_list(st, ids, n, rows, m, rgb, sigma, opts, nxt[:-1], cnt)
+        mc.composite_list(st, ids, n, rows, count, rgb, sigma, opts, nxt[:-1],
+                          cnt)
     with pytest.raises(ValueError):             # the next list starts at 0
-        mc.composite_list(st, ids, n, rows, m, rgb, sigma, opts, nxt, cnt + 1)
-    mc.composite_list(st, ids, n, rows, m, rgb, sigma, opts, nxt, cnt)
+        mc.composite_list(st, ids, n, rows, count, rgb, sigma, opts, nxt,
+                          cnt + 1)
+    for bad in (m, count.long(), torch.zeros(2, dtype=torch.int32)):
+        with pytest.raises(ValueError):     # a count on the device
+            mc.composite_list(st, ids, n, rows, bad, rgb, sigma, opts, nxt,
+                              cnt)
+    mc.composite_list(st, ids, n, rows, count, rgb, sigma, opts, nxt, cnt)
     assert int(cnt[0]) == int(st["alive"].sum())
 
 
@@ -567,7 +674,7 @@ def test_list_composite_kernel_on_card(case, deferred):
         frame = _copy(st)
         nxt = torch.empty_like(ids)
         cnt = torch.zeros(1, dtype=torch.int32, device="cuda")
-        fn(frame, ids, n, rows, m, rgb, sigma, opts, nxt, cnt)
+        fn(frame, ids, n, rows, count, rgb, sigma, opts, nxt, cnt)
         torch.cuda.synchronize()
         idl = ids.long()
         live = nxt[:int(cnt[0])]
@@ -617,8 +724,9 @@ def test_list_march_equals_gathered_march_on_card(case, rounds):
     assert epochs_a == epochs_b > 1
     _states_equal(b, a)
     grew = {k: mc.launches[k] - before[k] for k in mc.launches}
-    assert grew["composite_list"] == epochs_b * rounds
-    assert grew["walk_list"] >= epochs_b * rounds
+    k = trm.BLOCK_EPOCHS
+    run = min(-(-epochs_b // k) * k, trm._epoch_budget(opts))
+    assert grew["composite_list"] == grew["walk_list"] == run * rounds
     assert not any(grew[k] for k in ("advance", "samples", "advance_samples",
                                      "composite"))
 
@@ -636,3 +744,136 @@ def test_list_march_takes_more_slots_than_a_byte_on_card(steps):
             == trm._march_lists(net, scene, b, opts))
     torch.cuda.synchronize()
     _states_equal(b, a)
+
+
+# ---------------------------------------------------------------------------
+# (e) The block loop as a CUDA graph on the card
+# ---------------------------------------------------------------------------
+
+def _frame_rays(multi, seed, device="cuda"):
+    o, d, surf, t_surf = (x.to(device) for x in _rays(multi, True, seed))
+    return o, d, surf, t_surf
+
+
+def _eager_frame(net, scene, opts, rays):
+    """The frame's march with the blocks run eagerly on the card (no
+    graph) -> ({"rgba", "depth"}, epochs)."""
+    st, first = trm._rays_state(scene, *rays, opts, make_list=True)
+    epochs = trm._march_lists(net, scene, st, opts, first, graphs=False)
+    return trm._rays_finish(st, True), epochs
+
+
+def _same_frame(a, b):
+    for k in ("rgba", "depth"):
+        _bits_equal(a[k], b[k], k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rounds", [1, 2])
+@pytest.mark.parametrize("case", ["jump", "mips_cone"])
+def test_graph_replay_equals_eager_blocks_on_card(case, rounds):
+    """The list march on the card as graph replays (a first call runs its
+    first block eagerly and captures it; a second call on the same state
+    replays every block) leaves the frame's arrays as the eager block
+    loop does, bit for bit, with the same epochs and the same launches
+    counted; the eager loop launches no graph."""
+    _needs_card()
+    net, scene, opts, st = _start(case, True, device="cuda",
+                                  rounds_per_epoch=rounds,
+                                  compute_dtype="bfloat16")
+    a = _copy(st)
+    counts = dict(trm.graph_counts)
+    epochs_a = trm._march_lists(net, scene, a, opts, graphs=False)
+    assert trm.graph_counts == counts
+    trm._march_lists(net, scene, _copy(st), opts)       # captures
+    b = _copy(st)
+    before, replays = dict(mc.launches), trm.graph_counts["replays"]
+    epochs_b = trm._march_lists(net, scene, b, opts)
+    torch.cuda.synchronize()
+    assert epochs_a == epochs_b > 1
+    _states_equal(b, a)
+    k = trm.BLOCK_EPOCHS
+    blocks = -(-epochs_b // k)
+    assert trm.graph_counts["replays"] == replays + blocks
+    grew = {n: mc.launches[n] - before[n] for n in mc.launches}
+    assert grew["walk_list"] == grew["composite_list"] == blocks * k * rounds
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["jump", "mips_cone"])
+def test_two_frames_through_one_cached_graph_on_card(case):
+    """Two frames in a row through march_frame_impl (ray_init writes each
+    into the cached list march's state; the blocks replay the graph the
+    first frame captured): each bit for bit the same frame with its blocks
+    run eagerly, and the second frame captures nothing."""
+    _needs_card()
+    multi = CASES[case][0]
+    net, scene, opts, _ = _start(case, True, device="cuda",
+                                 compute_dtype="bfloat16")
+    trm._LIST_CACHE.clear()
+    for frame, seed in enumerate((0, 1)):
+        rays = _frame_rays(multi, seed)
+        captures = trm.graph_counts["captures"]
+        got, epochs = trm.march_frame_impl(net, scene, *rays, opts)
+        torch.cuda.synchronize()
+        want, want_epochs = _eager_frame(net, scene, opts, rays)
+        assert epochs == want_epochs > 1
+        _same_frame(got, want)
+        if frame:
+            assert trm.graph_counts["captures"] == captures
+
+
+@pytest.mark.cuda
+def test_new_size_or_longer_first_list_captures_again_on_card():
+    """A frame of another size is another cached march, which captures
+    its own graph; a first list longer than the rows hold (a frame with
+    fewer alive rays first) makes the rows anew and captures again; a
+    shorter one replays. Each frame bit for bit its eager blocks."""
+    _needs_card()
+    net, scene, opts, _ = _start("jump", True, device="cuda",
+                                 compute_dtype="bfloat16")
+    trm._LIST_CACHE.clear()
+    o, d, surf, t_surf = _frame_rays(False, 0)
+    n = o.shape[0]
+    # two thirds of the rays start far off the box, without a surface: a
+    # short first list
+    away, s_away, t_away = o.clone(), surf.clone(), t_surf.clone()
+    away[: n * 2 // 3] = -5.0
+    s_away[: n * 2 // 3] = 0.0
+    t_away[: n * 2 // 3] = 0.0
+    short = (away, d, s_away, t_away)
+    frames = [("short list", short, 1),
+              ("long list", (o, d, surf, t_surf), 1),
+              ("short again", short, 0),
+              ("another size", (o[:500], d[:500], surf[:500], t_surf[:500]),
+               1)]
+    for name, rays, captures in frames:
+        before = trm.graph_counts["captures"]
+        got, epochs = trm.march_frame_impl(net, scene, *rays, opts)
+        torch.cuda.synchronize()
+        want, want_epochs = _eager_frame(net, scene, opts, rays)
+        assert epochs == want_epochs, name
+        _same_frame(got, want)
+        assert trm.graph_counts["captures"] - before == captures, name
+
+
+@pytest.mark.cuda
+def test_failed_capture_raises_on_card(monkeypatch):
+    """A block whose launches cannot be captured (here a wrapper that
+    waits on its stream) raises; nothing falls back to the eager loop."""
+    _needs_card()
+    net, scene, opts, st = _start("jump", True, device="cuda",
+                                  steps_per_round=12)
+    trm._LIST_CACHE.clear()
+    walk = mc.walk_list
+
+    def waits(*a, **kw):
+        torch.cuda.current_stream().synchronize()
+        return walk(*a, **kw)
+
+    monkeypatch.setattr(mc, "walk_list", waits)
+    with pytest.raises(RuntimeError, match="did not capture"):
+        trm._march_lists(net, scene, _copy(st), opts)
+    monkeypatch.setattr(mc, "walk_list", walk)
+    torch.cuda.synchronize()
+    trm._LIST_CACHE.clear()

@@ -236,19 +236,24 @@ def _encode_tile(stride):
     return t
 
 
-def _encode_tiled_model(table, pos, jc, bf16):
+def _encode_tiled_model(table, pos, jc, bf16, count=None, grid=None):
     """hash_encode_kernel's work map: blocks of `tile` samples (the
     launcher's choice), warp w of the block taking items w, w + 8, ...,
     item it the level it >> gshift and the 32 samples of group it &
     (tile / 32 - 1), a lane a sample; each lane's features into its
     sample's row of the tile in shared memory (bytes, `stride` apart);
     then the tile's rows out in 16-byte pieces (the bytes past the last
-    whole piece of an unpadded tile in 2-byte pieces). Checks that each
-    (sample, level) is computed once and each output byte written once ->
-    (N, L*F) float32 holding the output dtype's values."""
+    whole piece of an unpadded tile in 2-byte pieces). With a row count
+    (the kernel's in device memory) the rows below it alone, over `grid`
+    blocks each taking every grid-th tile (the launcher's capped grid).
+    Checks that each (sample, level) below the count is computed once,
+    each of its output bytes written once and no byte of a row at or
+    above it -> (N, L*F) float32 holding the output dtype's values (zero
+    at and above the count)."""
     L, F = jc.n_levels, jc.n_features_per_level
     es = 2 if bf16 else 4
     n = pos.shape[0]
+    live = n if count is None else max(0, min(count, n))
     row = L * F * es
     stride = _encode_stride(row)
     tile = _encode_tile(stride)
@@ -257,8 +262,12 @@ def _encode_tiled_model(table, pos, jc, bf16):
     writes = np.zeros(n * row, np.int64)
     done = np.zeros((n, L), np.int64)
     lanes = np.arange(32)
-    for s0 in range(0, n, tile):
-        rows = min(tile, n - s0)
+    blocks = -(-n // tile) if grid is None else grid
+    starts = [s0 for b in range(blocks)
+              for s0 in range(b * tile, live, blocks * tile)]
+    assert sorted(starts) == list(range(0, live, tile))
+    for s0 in starts:
+        rows = min(tile, live - s0)
         smem = np.zeros(tile * stride, np.uint8)
         for warp in range(ENCODE_THREADS // 32):
             for it in range(warp, L << gshift, ENCODE_THREADS // 32):
@@ -284,7 +293,8 @@ def _encode_tiled_model(table, pos, jc, bf16):
         tail = np.arange(nbytes & ~15, nbytes)
         out[s0 * row + tail] = smem[tail]
         np.add.at(writes, s0 * row + tail, 1)
-    assert np.all(done == 1) and np.all(writes == 1)
+    assert np.all(done[:live] == 1) and np.all(writes[:live * row] == 1)
+    assert not done[live:].any() and not writes[live * row:].any()
     if bf16:
         return (out.view(np.uint16).astype(np.uint32) << 16).view(
             F32).reshape(n, L * F)
@@ -362,7 +372,7 @@ def _staged_rows(a, x_bf16):
 
 
 def _tiled_layers_model(a, weights, n_store, grid=3, samples=256,
-                        stage=False, x_bf16=False):
+                        stage=False, x_bf16=False, count=None):
     """mlp_kernel's and rgb_head_kernel's register-tiled f32 body
     (mlp_tiles) on the rows `a` (N, width[0]): `grid` blocks, each an even
     share of the samples in tiles of `samples` (256 at hidden width 64,
@@ -374,15 +384,18 @@ def _tiled_layers_model(a, weights, n_store, grid=3, samples=256,
     / RT_LANE_TS column groups). The last layer, where it stores all its
     pad16 columns and its items fit the block (one a thread), the same
     way with items of RT_R samples x RT_LAST_TC columns; else a sample and
-    RT_LAST_C columns a thread, the stored ones rounded up. Each output an fmaf chain over k from 0. Checks that every
-    (sample, column) of a layer is computed by exactly one thread and
-    every stored output written once -> the (N, n_store) output."""
-    n = a.shape[0]
+    RT_LAST_C columns a thread, the stored ones rounded up. Each output an fmaf chain over k from 0. With a row count
+    (the kernel's in device memory) the blocks share the rows below it
+    alone. Checks that every (sample, column) of a layer is computed by
+    exactly one thread, every stored output below the count written once
+    and none at or above it -> the (N, n_store) output, NaN where nothing
+    was written."""
+    n = a.shape[0] if count is None else max(0, min(count, a.shape[0]))
     if stage:
         a = _staged_rows(a, x_bf16)
     pad = [-(-w.shape[1] // 16) * 16 for w in weights]
-    out = np.full((n, n_store), np.nan, F32)
-    writes = np.zeros((n, n_store), np.int64)
+    out = np.full((a.shape[0], n_store), np.nan, F32)
+    writes = np.zeros((a.shape[0], n_store), np.int64)
     tiled_last = (n_store == -(-weights[-1].shape[0] // 16) * 16 and
                   samples // RT_R * (n_store // RT_LAST_TC) <= 256)
     tiles = [(s0, min(samples, n * (b + 1) // grid - s0))
@@ -439,7 +452,7 @@ def _tiled_layers_model(a, weights, n_store, grid=3, samples=256,
                 val = np.where(col[:, None, :] < n_out, val, F32(0.0))
                 nxt[col[:, None, :], samp[:, :, None]] = val
                 act = nxt
-    assert np.all(writes == 1)
+    assert np.all(writes[:n] == 1) and not writes[n:].any()
     return out
 
 
@@ -623,7 +636,7 @@ def _lf_case(lf):
     return jc, _table(jc, seed=L + F)
 
 
-@pytest.mark.parametrize("n", [0, 1, 31, 33, 300])
+@pytest.mark.parametrize("n", [0, 1, 31, 33, 300, "count", "count0"])
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("lf", list(TILED_LF))
 def test_encode_tiling_is_the_encode_bit_for_bit(lf, dtype, n):
@@ -634,11 +647,24 @@ def test_encode_tiling_is_the_encode_bit_for_bit(lf, dtype, n):
     8 and 16 and F = 2, 4 and 8 (rows of 32-512 bytes, padded, in tiles of
     64 and 32 samples) and at 5 levels x 1 (unpadded rows): bit for bit
     the encode's model, and the plain version under the encode
-    contract."""
+    contract. "count" and "count0": 300 rows under a row count of 161 and
+    of 0 in device memory over a grid of 2 blocks (the launcher's cap),
+    each taking every second tile: the rows below the count are the
+    encode's model on them bit for bit, no row at or above it is
+    written."""
     jc, table = _lf_case(lf)
-    pos = _positions(jc, n=max(n, 192), seed=n)[:n]
+    count = {"count": 161, "count0": 0}.get(n)
+    if count is not None:
+        pos = _positions(jc, n=300, seed=7)
+        full = _encode_tiled_model(table, pos, jc, dtype == "bfloat16",
+                                   count=count, grid=2)
+        assert not full[count:].any()
+        pos, n = pos[:count], count
+        got = full[:count]
+    else:
+        pos = _positions(jc, n=max(n, 192), seed=n)[:n]
+        got = _encode_tiled_model(table, pos, jc, dtype == "bfloat16")
     bf16 = dtype == "bfloat16"
-    got = _encode_tiled_model(table, pos, jc, bf16)
     want, _, _ = _encode_model(table, pos, jc, bf16)
     assert got.shape == (n, jc.n_pos_features)
     assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
@@ -769,7 +795,7 @@ def test_rgb_head_model_edge_counts(n):
                                             codes), plain, torch.bfloat16)
 
 
-@pytest.mark.parametrize("n", [1, 63, 300, "tile+44"])
+@pytest.mark.parametrize("n", [1, 63, 300, "tile+44", "count", "count0"])
 @pytest.mark.parametrize("hid", [64, 128])
 @pytest.mark.parametrize("kind", ["rgb32", "rgb48", "mlp", "odd", "mlp_bf16",
                                   "mlp32", "mlp64"])
@@ -786,9 +812,14 @@ def test_tiled_body_is_the_f32_chain_bit_for_bit(kind, hid, n):
     64 columns ("mlp32", "mlp64": tiled only where its items fit the
     block, 32 columns at hidden width 128, else a sample a thread); and
     hidden widths and a stored width that
-    are not multiples of RT_C or RT_LAST_C (its rows staged too)."""
+    are not multiples of RT_C or RT_LAST_C (its rows staged too). "count"
+    and "count0": 300 rows under a row count of 117 and of 0 in device
+    memory, the grid sized for the 300: the rows below the count bit for
+    bit the chain, none at or above it written."""
     samples = 256 if hid <= 64 else 128
-    grid, n = (1, samples + 44) if n == "tile+44" else (3, n)
+    count = {"count": 117, "count0": 0}.get(n)
+    grid, n = ((1, samples + 44) if n == "tile+44" else
+               (3, 300) if count is not None else (3, n))
     jc, weights = _tc_case("mlp" if kind in ("odd", "mlp_bf16") else kind,
                            hid)
     x, feat, dirs, codes = _tc_inputs(jc, n, seed=hid + n + 1)
@@ -807,7 +838,13 @@ def test_tiled_body_is_the_f32_chain_bit_for_bit(kind, hid, n):
         rows, n_store = x, weights[-1].shape[0]
     got = _tiled_layers_model(rows, weights, n_store, grid=grid,
                               samples=samples,
-                              stage=not kind.startswith("rgb"), x_bf16=x_bf16)
+                              stage=not kind.startswith("rgb"), x_bf16=x_bf16,
+                              count=count)
+    if count is not None:
+        assert np.isnan(got[count:]).all()
+        got, n = got[:count], count
+        rows, x, feat, dirs, codes = (v[:count] for v in (rows, x, feat, dirs,
+                                                          codes))
     want = _layers_model(rows, weights, n_store)
     assert np.array_equal(got.view(np.int32), want.view(np.int32))
     tw = [torch.as_tensor(w) for w in weights]
@@ -1148,6 +1185,105 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
              torch.zeros((5, 8)))):                      # code rows
         with pytest.raises(ValueError):
             nc.rgb_head(*args)
+
+
+# the count cases of the wrappers: rows, and the row counts held in device
+# memory (0, some, all, more than the rows: clamped to them)
+COUNT_ROWS = 97
+COUNTS = (0, 41, COUNT_ROWS, COUNT_ROWS + 5)
+COUNT_CALLS = ("hash_encode", "hash_encode_bf16", "mlp", "mlp_bf16",
+               "encode_mlp", "rgb_head", "rgb_head_bf16", "rgb_head_codes")
+
+
+def _count_call(name, device):
+    """A wrapper and its arguments on COUNT_ROWS rows -> (call(rows, **kw)
+    taking the first `rows` rows of each per-row input, the output's
+    width and dtype)."""
+    jc, w8 = _rgb_case(E=8)
+    net = params_from_jax(_params(TEST_CFG), _tcfg(TEST_CFG), device=device)
+    tc = net.config
+    pos = torch.as_tensor(_positions(TEST_CFG, n=COUNT_ROWS), device=device)
+    rng = np.random.default_rng(12)
+    x = torch.as_tensor(rng.standard_normal((COUNT_ROWS, 32)).astype(F32),
+                        device=device)
+    feat = torch.as_tensor((rng.standard_normal((COUNT_ROWS, 16)) * 2.0
+                            ).astype(F32), device=device)
+    dirs = torch.as_tensor(_dirs(COUNT_ROWS), device=device)
+    codes = torch.arange(8, dtype=torch.float32, device=device) / 8.0
+    tw8 = [torch.as_tensor(w, device=device) for w in w8]
+    cd = torch.bfloat16 if name.endswith("bf16") else torch.float32
+    L = tc.n_pos_features
+    calls = {
+        "hash_encode": (lambda r, **kw: nc.hash_encode(
+            net.grid, pos[:r], tc, cd, **kw), L, cd),
+        "mlp": (lambda r, **kw: nc.mlp(x[:r], net.density_mlp, cd, **kw),
+                16, torch.float32),
+        "encode_mlp": (lambda r, **kw: nc.encode_mlp(
+            net.grid, pos[:r], net.density_mlp, tc, **kw), 16, torch.float32),
+        "rgb_head": (lambda r, **kw: nc.rgb_head(
+            feat[:r], dirs[:r], net.rgb_mlp, tc, cd, **kw), 3, torch.float32),
+        "rgb_head_codes": (lambda r, **kw: nc.rgb_head(
+            feat[:r], dirs[:r], tw8, _tcfg(jc), torch.bfloat16, codes, **kw),
+            3, torch.float32)}
+    return calls[name.replace("_bf16", "")]
+
+
+@pytest.mark.parametrize("count", COUNTS)
+@pytest.mark.parametrize("name", COUNT_CALLS)
+def test_wrappers_take_a_row_count(name, count):
+    """A wrapper given a row count (one int32 in device memory) and an
+    output: the rows below the count bit for bit the call without one on
+    those rows, the rows at and above it as they were (a sentinel), the
+    output returned is the one given; with no output one is made. On the
+    CPU the plain versions read the count on the host."""
+    call, width, dtype = _count_call(name, "cpu")
+    live = min(count, COUNT_ROWS)
+    want = call(live)
+    out = torch.full((COUNT_ROWS, width), -7.0).to(dtype)
+    c = torch.tensor([count], dtype=torch.int32)
+    got = call(COUNT_ROWS, count=c, out=out)
+    assert got is out
+    assert torch.equal(got[:live], want)
+    assert bool((got[live:] == -7.0).all())
+    made = call(COUNT_ROWS, count=c)
+    assert made.shape == (COUNT_ROWS, width) and made.dtype == dtype
+    assert torch.equal(made[:live], want)
+    for bad in (torch.tensor([count]), torch.zeros(2, dtype=torch.int32)):
+        with pytest.raises(ValueError):
+            call(COUNT_ROWS, count=bad)
+    with pytest.raises(ValueError):
+        call(COUNT_ROWS, count=c, out=out[:-1])
+
+
+@pytest.mark.parametrize("cd", list(DTYPES.values()), ids=list(DTYPES))
+def test_network_forward_takes_a_row_count(cd):
+    """NerfNetwork's forward with a row count and row_buffers' outputs:
+    rgb and sigma below the count bit for bit the forward on those rows,
+    views of the buffers; the buffers' rows at and above it untouched; a
+    call that needs gradients refuses a count."""
+    jc, _ = _rgb_case(E=8)
+    net = _net(jc)
+    n, count = 64, 37
+    pos = torch.as_tensor(_positions(jc, n=n))
+    dirs = torch.as_tensor(_dirs(n))
+    codes = torch.arange(8, dtype=torch.float32) / 8.0
+    rgb_w, sig_w = net(pos[:count], dirs[:count], compute_dtype=cd,
+                       extra=codes)
+    out = net.row_buffers(n, cd)
+    assert ("encode" in out) == (cd == torch.float32)
+    for v in out.values():
+        v.fill_(-3.0)
+    c = torch.tensor([count], dtype=torch.int32)
+    rgb, sig = net(pos, dirs, compute_dtype=cd, extra=codes, count=c, out=out)
+    assert rgb.data_ptr() == out["rgb"].data_ptr()
+    assert sig.data_ptr() == out["density"].data_ptr()
+    assert torch.equal(rgb[:count], rgb_w) and torch.equal(sig[:count], sig_w)
+    assert bool((out["rgb"][count:] == -3.0).all())
+    assert bool((out["density"][count:] == -3.0).all())
+    assert rgb.shape == (n, 3) and sig.shape == (n,)
+    net.requires_grad_(True)
+    with pytest.raises(ValueError):
+        net.density_raw(pos, cd, count=c, out=out)
 
 
 def test_compare_with_plain_counts_under_the_contract():
@@ -1782,3 +1918,39 @@ def test_encode_mlp_unsupported_shape_raises_on_card():
         with pytest.raises(ValueError):
             nc.encode_mlp(*args)
     assert nc.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("count", COUNTS)
+@pytest.mark.parametrize("name", COUNT_CALLS)
+def test_kernels_take_a_row_count_on_card(name, count):
+    """Each kernel launched over COUNT_ROWS rows with a row count in
+    device memory, into an output holding NaN: one launch; the rows below
+    the count bit for bit the kernel's own on all the rows without a count
+    (each row's work does not depend on which block takes it), the rows
+    at and above it still NaN; the count changed on the device after the
+    call and the same call made again serves the new count."""
+    _needs_card()
+    call, width, dtype = _count_call(name, "cuda")
+    live = min(count, COUNT_ROWS)
+    want = call(COUNT_ROWS)
+    out = torch.full((COUNT_ROWS, width), float("nan"), device="cuda").to(
+        dtype)
+    c = torch.tensor([count], dtype=torch.int32, device="cuda")
+    kernel = {"encode_mlp": "encode_mlp", "mlp": "mlp"}.get(
+        name.replace("_bf16", ""), "rgb_head" if "rgb" in name
+        else "hash_encode")
+    before = nc.launches[kernel]
+    got = call(COUNT_ROWS, count=c, out=out)
+    torch.cuda.synchronize()
+    assert got is out and nc.launches[kernel] == before + 1
+    g, w = got.float(), want.float()
+    assert torch.equal(g[:live].view(torch.int32), w[:live].view(torch.int32))
+    assert bool(torch.isnan(g[live:]).all())
+    c.fill_(COUNT_ROWS - 3)
+    call(COUNT_ROWS, count=c, out=out)
+    torch.cuda.synchronize()
+    g = out.float()
+    assert torch.equal(g[:COUNT_ROWS - 3].view(torch.int32),
+                       w[:COUNT_ROWS - 3].view(torch.int32))
+    assert bool(torch.isnan(g[COUNT_ROWS - 3:]).all()) or live > COUNT_ROWS - 3

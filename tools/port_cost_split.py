@@ -2,7 +2,7 @@
 6 rows 7-9 and 11-13, section 7): kernel variants built from edited copies
 of the sources, each timed in turns with the others on the 720p frames'
 own calls (the encode's backward: on the settled trainer's own step).
-Four splits:
+Five splits:
 
     mkdir -p _chipwork/before
     git archive 82e6be5 nerf_glasses_tpu_torch | tar -x -C _chipwork/before
@@ -88,6 +88,23 @@ each timed in turns with this tree's (and any further DIRs' that have
 the wrapper, held to the contract) on the step's call, beside the bound
 and one index_add_ of the same rows.
 
+reads: the exact 720p frame's march (raymarch._march_lists) on the state
+and first list a frame gave it, restored in place before each run, three
+ways in turns: (a) as it is (a host read an epoch); (b) the same
+launches with each epoch's list length and row counts given from a
+recorded run, no host read; (c) (b)'s launches captured once as one
+torch.cuda.CUDAGraph and replayed. Each: the host clock to synchronize,
+device operations, Memcpy DtoH and busy ms (chip_smoke.op_counts, a
+replay counted by its graph's operations), the final state bit for bit
+(a)'s. (a) - (b) bounds what removing the reads gains, (b) - (c) what
+removing the host's per-launch cost gains. Run it on the tree whose
+march reads a count an epoch (a checkout given as DIR is put first on
+sys.path, its chip_smoke.py's helpers used):
+
+    mkdir -p _chipwork/parent
+    git archive 033edea | tar -x -C _chipwork/parent
+    python3 tools/port_cost_split.py reads _chipwork/parent > reads.log 2>&1
+
 Device time by torch.profiler with L2 flushed (chip_smoke.kernel_device_ms).
 Needs one NVIDIA GPU and nvcc.
 """
@@ -103,6 +120,8 @@ import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if sys.argv[1:2] == ["reads"] and len(sys.argv) > 2:
+    ROOT = os.path.abspath(sys.argv[2])     # the checkout whose march runs
 sys.path.insert(0, ROOT)
 
 import numpy as np  # noqa: E402
@@ -737,7 +756,207 @@ def main(tmp, before):
     print(f"[done: {time.perf_counter() - t0:.1f} s]")
 
 
+def recorded_lists(net, scene, st, opts, first):
+    """_march_lists' loop with each read recorded -> [(n, [m of each
+    round])] of the epochs, the last with n = 0 where the list emptied."""
+    K, rounds = opts.steps_per_round, opts.rounds_per_epoch
+    budget = max(1, opts.max_rounds // rounds)
+    n = int(first[1])
+    ids = first[0][:n]
+    rows = march_cuda.list_buffers(n, K, ids.device)
+    spare = torch.empty_like(ids)
+    counts = torch.zeros(2 * budget * rounds + 1, dtype=torch.int32,
+                         device=ids.device)
+    extra = scene.get("extra_dims")
+    rec = []
+    g = 0
+    for epoch in range(budget):
+        ms = []
+        for r in range(rounds):
+            c = counts[2 * g:2 * g + 2]
+            listed = epoch > 0 and r == 0
+            march_cuda.walk_list(st, ids, n, scene, opts,
+                                 opts.advance_iters if r == 0 else None,
+                                 rows, c[1:], c[:1] if listed else None)
+            if listed:
+                n = int(c[0])
+                if n == 0:
+                    rec.append((0, []))
+                    return rec
+            m = int(c[1])
+            ms.append(m)
+            rgb, sigma = net(rows["pos01"][:m], rows["dir01"][:m],
+                             compute_dtype=opts.cdtype, extra=extra)
+            last = r == rounds - 1
+            march_cuda.composite_list(
+                st, ids, n, rows, m, rgb, sigma, opts,
+                spare if last else None,
+                counts[2 * g + 2:2 * g + 3] if last else None)
+            g += 1
+        rec.append((n, ms))
+        ids, spare = spare, ids
+    return rec
+
+
+def given_lists(net, scene, st, opts, first, rec):
+    """The same launches as _march_lists with (n, m) from rec: no host
+    read. The epochs' lists and counters live on the device as before
+    (the walk of a later epoch reads its length there)."""
+    K, rounds = opts.steps_per_round, opts.rounds_per_epoch
+    n = rec[0][0]
+    ids = first[0][:n]
+    dev = ids.device
+    rows = march_cuda.list_buffers(n, K, dev)
+    spare = torch.empty_like(ids)
+    counts = torch.zeros(2 * len(rec) * rounds + 1, dtype=torch.int32,
+                         device=dev)
+    extra = scene.get("extra_dims")
+    g = 0
+    for epoch, (n_e, ms) in enumerate(rec):
+        for r in range(rounds):
+            c = counts[2 * g:2 * g + 2]
+            listed = epoch > 0 and r == 0
+            march_cuda.walk_list(st, ids, n, scene, opts,
+                                 opts.advance_iters if r == 0 else None,
+                                 rows, c[1:], c[:1] if listed else None)
+            if listed:
+                n = n_e
+                if n == 0:
+                    return epoch
+            m = ms[r]
+            rgb, sigma = net(rows["pos01"][:m], rows["dir01"][:m],
+                             compute_dtype=opts.cdtype, extra=extra)
+            last = r == rounds - 1
+            march_cuda.composite_list(
+                st, ids, n, rows, m, rgb, sigma, opts,
+                spare if last else None,
+                counts[2 * g + 2:2 * g + 3] if last else None)
+            g += 1
+        ids, spare = spare, ids
+    return len(rec)
+
+
+def main_reads(tmp, extra=()):
+    t0 = time.perf_counter()
+    dev, glasses = setup(tmp)
+    from nerf_glasses_tpu_torch.ops import raymarch
+    renderer, nerf = cs.make_renderer(dev, cs.W, cs.H, glasses)
+    for _ in range(3):
+        renderer.frame()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(3):
+        renderer.frame()
+    torch.cuda.synchronize()
+    print(f"exact 720p frame, host clock over 3 frames: "
+          f"{(time.perf_counter() - t1) * 1e3 / 3:.2f} ms a frame, "
+          f"{nerf.last_march_epochs} epochs")
+    # the march's call as a frame makes it: the arguments themselves (so a
+    # graph's addresses stay valid) and a copy to restore them from
+    got = {}
+    saved = raymarch._march_lists
+
+    def recorder(*a, **kw):
+        got.setdefault("call", (a, kw, cs._deep_clone(a)))
+        return saved(*a, **kw)
+
+    raymarch._march_lists = recorder
+    try:
+        renderer.update_model_view_proj()
+        renderer.frame()
+    finally:
+        raymarch._march_lists = saved
+    a, kw, snap = got["call"]
+    net, scene, st, opts, first = a
+
+    def restore():
+        for x, y in zip(a, snap):
+            if isinstance(x, dict):
+                for k in x:
+                    x[k].copy_(y[k])
+            elif isinstance(x, tuple):
+                for u, v in zip(x, y):
+                    u.copy_(v)
+        torch.cuda.synchronize()
+
+    restore()
+    rec = recorded_lists(net, scene, st, opts, first)
+    print(f"recorded (n, rows of each round) an epoch: {rec}")
+    restore()
+    want_epochs = saved(*a, **kw)
+    want = cs._deep_clone(st)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    restore()
+    given_lists(*a, rec)                      # warm-up before the capture
+    restore()
+    with torch.cuda.graph(graph):
+        given_lists(*a, rec)
+    nodes, kernels = graph_nodes(graph)
+    graph.instantiate()
+    print(f"the graph of (b): {nodes} nodes, {kernels} of them kernels")
+    runs = {"a: reads": lambda: saved(*a, **kw),
+            "b: given counts": lambda: given_lists(*a, rec),
+            "c: graph": graph.replay}
+    res = collections.defaultdict(list)
+    for name in list(runs) + list(runs)[::-1] + list(runs) + list(runs)[::-1]:
+        fn = runs[name]
+        restore()
+        t1 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t1) * 1e3
+        if not cs.same_bits(st, want):
+            raise AssertionError(f"{name}: the march's state differs from (a)'s")
+        restore()
+        c = cs.op_counts(fn)
+        ops = c["ops"] + (nodes if name == "c: graph" else 0)
+        res[name].append((host, ops, c["DtoH"], c["busy_ms"], c["wall_ms"]))
+    print(f"the march alone ({want_epochs} epochs), in turns; host clock ms "
+          f"to synchronize, device operations (a replay: its graph's "
+          f"{nodes} nodes), Memcpy DtoH, busy ms and wall ms under "
+          f"torch.profiler; every run's state bit for bit (a)'s:")
+    for name, r in res.items():
+        print(f"  {name:16s} " + "; ".join(
+            f"{h:.3f} ms, {o} ops, {d} DtoH, busy {b:.3f} / {w:.2f}"
+            for h, o, d, b, w in r))
+    print(f"[done: {time.perf_counter() - t0:.1f} s]")
+
+
+def graph_nodes(graph) -> tuple:
+    """The operations a torch.cuda.CUDAGraph made with keep_graph=True
+    replays -> (nodes, kernel nodes), by cudaGraphGetNodes and
+    cudaGraphNodeGetType on its raw graph ((-1, -1) where the runtime
+    library cannot be loaded)."""
+    import ctypes
+    rt = None
+    for name in ("libcudart.so.12", "libcudart.so"):
+        try:
+            rt = ctypes.CDLL(name)
+            break
+        except OSError:
+            pass
+    if rt is None:
+        return -1, -1
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if rt.cudaGraphGetNodes(raw, None, ctypes.byref(n)) != 0:
+        return -1, -1
+    nodes = (ctypes.c_void_p * n.value)()
+    if rt.cudaGraphGetNodes(raw, nodes, ctypes.byref(n)) != 0:
+        return -1, -1
+    kernels = 0
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        rt.cudaGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind))
+        kernels += kind.value == 0          # cudaGraphNodeTypeKernel
+    return int(n.value), kernels
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["reads"]:
+        with tempfile.TemporaryDirectory() as d:
+            main_reads(d)
+        sys.exit(0)
     if len(sys.argv) < 2 or sys.argv[1] not in ("walk", "shade", "encode",
                                                 "backward") or (
             sys.argv[1] == "walk" and len(sys.argv) != 3) or (
