@@ -215,28 +215,37 @@ procedural glasses glTF written here) + frame(), with the mesh pass at
  12. train from scratch (NGPConfig.native_fast(), 2048 rays x 48 samples,
      seed 3): train_until(0.00175, max_steps=2000) must reach the loss
      contract; steps, seconds, peak memory and the compaction gate; every
-     step launched the geometry pass (nmr_training_samples) once and the
-     encode's forward and backward (nmr_hash_encode,
-     nmr_hash_encode_backward), and no training forward
-     took the plain encode on the card (plain_on_card's hash_encode and
-     encode_mlp 0 here and in phases 14-16: train_route_check); then a
-     fresh trainer's steps/s over 32 steps after 64 settle steps;
+     step launched the geometry pass (nmr_training_samples) and the Adam
+     update (nmr_adam) once, and the network's forward and backward
+     kernels (nmr_hash_encode, nmr_mlp, nmr_rgb_head and their backwards
+     nmr_hash_encode_backward, nmr_mlp_backward, nmr_rgb_head_backward)
+     at least once, a replayed step counted as its capture held them, at
+     least one step was a graph replay, and no network wrapper took a
+     plain version on the card (plain_on_card 0 for every wrapper here
+     and in phases 14-16: train_route_check); then a fresh trainer's
+     steps/s over 32 steps after 64 settle steps;
  13. save_snapshot, NerfMeshRenderer.load_nerf of that file, the 4 holdout
      views on the exact path over white: >= 28 dB mean PSNR; the
      density_at scan puts the hot cells on the head sphere;
  14. resume: Trainer.load_snapshot(trained_head_v6), 16 steps, 32 timed
-     (the training kernels launched once a step in them); the compaction
+     (the training kernels launched as in phase 12, every timed step a
+     replay of the settled step's CUDA graph); the compaction
      gate must be open; the keep-set overflow count; one settled step's
      device operations under torch.profiler with its top operators, and
-     three more under op_counts (the host's API calls, kernel launches,
-     busy and wall ms, plain_on_card); one
+     three more under op_counts (the host's API calls, a replay counted
+     as its graph's nodes, kernel launches, busy and wall ms,
+     plain_on_card); one eager
      settled step's Memcpy HtoD and cudaStreamSynchronize counts with the
      hash encode's corner offsets cached on the device and, in the same
      call, rebuilt from the host on every level as before; the trainer's
      no-grad density queries in its bf16 encode and compute dtypes (one
      density-grid refresh, one compaction-gate query) launch the fused
      encode + MLP kernel with no plain call on the card, and each
-     recorded call is held against its plain version as in phase 5c;
+     recorded call is held against its plain version as in phase 5c; a
+     replayed step against two eager steps from the same state and
+     draws: its loss, parameters and moments within max(2 x the eager
+     steps' spread, 1e-6 of each array's largest magnitude), the rest of
+     the state printed (replay_vs_eager);
 14b. the training kernels on the settled trainer's own step, each
      wrapper's first call recorded from it: the geometry pass against its
      plain version on the card under march_cuda.compare_training_samples'
@@ -247,9 +256,19 @@ procedural glasses glTF written here) + frame(), with the mesh pass at
      ulp of the larger magnitude), the encode's backward under
      network_cuda.compare_gradients' (table and positions to 1e-5 of
      their largest magnitudes; once more with the positions' gradient);
+     the density MLP's and the rgb head's forwards (nmr_mlp's tensor-core
+     body, nmr_rgb_head) under compare_with_plain's contract and their
+     backwards (nmr_mlp_backward, nmr_rgb_head_backward) under
+     network_cuda.compare_backward's (1e-5 of each array's largest
+     magnitude and one bf16 step of the value, on the rows whose ReLU
+     masks no rounding decides, their count printed); nmr_adam bit for
+     bit its plain version on copies of the step's own tensors;
      each kernel's device ms (L2 flushed),
      events, the plain version's ms, its bound and share, for the
-     backward one index_add_ of the same rows as the yardstick; with a DIR
+     encode's backward one index_add_ of the same rows as the yardstick,
+     for the MLPs the matmul + relu chain (autograd of it forward and
+     backward for the backwards), for Adam one
+     torch.optim.Adam(fused=True) step; with a DIR
      that is a whole checkout, each checkout's training in a process of
      its own, in turns (training_in_turns): seconds and steps to the loss
      contract from scratch, settled steps/s, three settled steps'
@@ -261,8 +280,8 @@ procedural glasses glTF written here) + frame(), with the mesh pass at
      phase 5c's network-kernel checks on that frame's first epoch and the
      plain-network frame >= 50 dB;
  16. one f32 training step from the same parameters, rays and samples on
-     the card (through nmr_training_samples and the encode's two kernels)
-     and on the CPU: loss to rtol 1e-5, every gradient array to 1e-4 of
+     the card (through nmr_training_samples and the network's forward and
+     backward kernels, at f32) and on the CPU: loss to rtol 1e-5, every gradient array to 1e-4 of
      its max |g| (the card's own march is compared and reported, bit for
      bit the CPU's or not);
 and a torch.profiler trace of one settled training step (top device
@@ -410,13 +429,15 @@ by parallel.sharding.run_on_mesh, whose rank bodies are this file's
      max |g| (phase 16's bar), the card's ranks equal.
 Each phase prints its seconds.
 
-Prints one JSON line with the nineteen kernels' numbers (time, bound and
+Prints one JSON line with the twenty-six kernels' numbers (time, bound and
 share of it, launches per frame or step, the plain version's time; no
 single PyTorch call computes a nearest ray-triangle hit, a march loop, a
 hash encode, a bf16-rounded bias-free MLP chain, a tile binning, a PBR
 shade, a ray init, the frame's finish or the training march, so
 library_ms is null; the MLPs' matmul + relu chain is library_chain_ms;
-the encode's backward has index_add_ of its rows as library_ms), the
+the encode's backward has index_add_ of its rows as library_ms, the
+training MLPs the chain (its autograd for the backwards), Adam
+torch.optim.Adam(fused=True)), the
 training's step profiles (and its checkouts in turns), the card's name and
 power limit, and as its last line {"ok": true, "device": {...}}. Exits
 non-zero on any failure, when no CUDA device is present, and when the
@@ -457,8 +478,9 @@ from nerf_glasses_tpu_torch.io.gltf import (GltfMaterial, GltfMesh, GltfNode,
                                             GltfPrimitive, GltfScene)
 from nerf_glasses_tpu_torch.models import floaty
 from nerf_glasses_tpu_torch.models.renderer import NerfMeshRenderer
-from nerf_glasses_tpu_torch.ops import (cuda_build, frame_cuda, hashgrid,
-                                        march_cuda, mesh_cuda, network_cuda)
+from nerf_glasses_tpu_torch.ops import (adam_cuda, cuda_build, frame_cuda,
+                                        hashgrid, march_cuda, mesh_cuda,
+                                        network_cuda)
 from nerf_glasses_tpu_torch.ops import occupancy as occ_ops
 from nerf_glasses_tpu_torch.ops import raymarch
 from nerf_glasses_tpu_torch.ops import triangles as tri_ops
@@ -467,6 +489,7 @@ from nerf_glasses_tpu_torch.ops.network import (NerfNetwork,
                                                 apply_density_activation,
                                                 unpack_params)
 from nerf_glasses_tpu_torch.parallel.sharding import (ShardedTrainer,
+                                                      state_tensors,
                                                       render_hybrid_sharded,
                                                       render_image_sharded,
                                                       replica_mismatches,
@@ -2171,7 +2194,10 @@ def frame_ops_in_turns(tmp, dirs, label="exact 720p", scene=()):
     ops, copies, march copies, host ms, graphs captured in those host-clock
     frames], ...], "library": [...],
     "same_frame": True}}. The march is replayed on its own recorded
-    arguments, given back in place the values they held.
+    arguments, given back in place the values they held. Against a
+    checkout whose frames read the host more often (more DtoH in every
+    frame) this tree's host clock must be the lower in every turn; against
+    one that reads alike it is printed.
     scene: () for the trained head, or (snapshot, aabb low, aabb high). A
     DIR with no chip_smoke.py of its own (the kernels' sources alone) is
     left out."""
@@ -2226,9 +2252,14 @@ def frame_ops_in_turns(tmp, dirs, label="exact 720p", scene=()):
               f"turns: this tree {', '.join(f'{x:.2f}' for x in mine)}; "
               f"{path} {', '.join(f'{x:.2f}' for x in theirs)}; this tree's "
               f"lower in every turn: {r['host_clock_lower']}")
-        if not r["host_clock_lower"]:
+        # the claim held: a march with fewer host reads a frame has the
+        # lower host clock; between checkouts that read alike it is printed
+        fewer = (max(f[3] for f in res[ROOT]["frames"])
+                 < min(f[3] for f in r["frames"]))
+        if fewer and not r["host_clock_lower"]:
             raise AssertionError(f"{label}: this tree's host clock {mine} "
-                                 f"is not under {path}'s {theirs}")
+                                 f"is not under {path}'s {theirs}, which "
+                                 f"reads the host more often")
     if not all(same.values()):
         raise AssertionError(f"{label}: the checkouts' frames differ: {same}")
     for path, r in res.items():
@@ -3670,12 +3701,13 @@ def list_route_report(renderer, nerf, label, max_dtoh=None):
 
 
 def step_sync_counts(tr):
-    """One training step's copies and stream waits with the hash encode's
+    """One eager training step's copies and stream waits with the hash encode's
     corner offsets cached on the device (this tree) and rebuilt from the
     host on every level (as before it), in that order -> {which: (HtoD
     copies, cudaStreamSynchronize)}."""
     out = {}
     cached = hashgrid._corner_offsets
+    tr.graphs = False           # the eager step's copies (a replay has none)
     for which, offsets in (
             ("cached", cached),
             ("per level",
@@ -3687,6 +3719,7 @@ def step_sync_counts(tr):
             out[which] = sync_counts(lambda: tr.train(1))
         finally:
             hashgrid._corner_offsets = cached
+    tr.graphs = True
     return out
 
 
@@ -3741,35 +3774,75 @@ TRAIN_KERNELS = {     # wrapper -> (module, kernel, what it replaces)
         "_take_rows' transpose, the scatter-add into the table); port the "
         "autograd of ops/hashgrid.py::hash_encode, now "
         "ops/network_cuda.py::hash_encode_backward_reference"),
+    "mlp": (
+        network_cuda, "nmr_mlp",
+        "nerf_glasses_tpu/ops/mlp.py:17 (mlp_apply, the density MLP of the "
+        "training forward, ops/network.py:44-71); port ops/mlp.py::"
+        "mlp_apply"),
+    "rgb_head": (
+        network_cuda, "nmr_rgb_head",
+        "nerf_glasses_tpu/ops/network.py:89 (_rgb_head + ops/sh.py:13, the "
+        "training forward's); port ops/network_cuda.py::rgb_head_reference"),
+    "mlp_backward": (
+        network_cuda, "nmr_mlp_backward",
+        "nerf_glasses_tpu/ops/mlp.py:17 (jax.vjp of mlp_apply, the density "
+        "MLP's gradient in the training step); port the autograd of "
+        "ops/mlp.py::mlp_apply, now "
+        "ops/network_cuda.py::mlp_backward_reference"),
+    "rgb_head_backward": (
+        network_cuda, "nmr_rgb_head_backward",
+        "nerf_glasses_tpu/ops/network.py:89 (jax.vjp of _rgb_head, the rgb "
+        "head's gradient in the training step); port the autograd of "
+        "ops/network_cuda.py::rgb_head_reference, now "
+        "ops/network_cuda.py::rgb_head_backward_reference"),
+    "adam": (
+        adam_cuda, "nmr_adam",
+        "nerf_glasses_tpu/train/trainer.py:665 (adam_update); port "
+        "train/trainer.py::adam_update's former aten update, now "
+        "ops/adam_cuda.py::adam_reference"),
 }
+# the network wrappers the trainer's forward and backward launch a step
+TRAIN_NETWORK = ("hash_encode", "mlp", "rgb_head", "hash_encode_backward",
+                 "mlp_backward", "rgb_head_backward")
+_replays_at_zero = [0]
 
 
 def zero_train_counts():
-    """The training kernels' counts and the network's plain calls on the
-    card."""
+    """The training kernels' counts, the network's plain calls on the card
+    and the graph replays' mark."""
     march_cuda.launches["training_samples"] = 0
+    adam_cuda.launches["adam"] = 0
     zero_network_counts()
+    _replays_at_zero[0] = raymarch.graph_counts["replays"]
 
 
-def train_route_check(label, steps):
-    """Since the counts were last zeroed, `steps` training steps launched
-    the geometry pass once a step and the encode's forward and backward
-    at least once a step, and no training forward took the plain encode
-    on the card (plain_on_card's hash_encode and encode_mlp 0; the MLPs'
-    plain calls are printed) -> {wrapper: launches}."""
+def train_route_check(label, steps, adam=True, replays=None):
+    """Since the counts were last zeroed (zero_train_counts), `steps`
+    training steps launched the geometry pass and (with `adam`) nmr_adam
+    once a step, and each network kernel of the training forward and
+    backward (the encode, the density MLP, the rgb head and their three
+    backwards) at least once a step, a replayed step's launches counted
+    as its capture held them; no network wrapper took a plain version on
+    the card (plain_on_card 0 for every wrapper); replays: None, or the
+    least number of graph replays among the steps (the steps that took the
+    settled step's graph) -> {wrapper: launches}."""
     got = {"training_samples": march_cuda.launches["training_samples"],
-           "hash_encode": network_cuda.launches["hash_encode"],
-           "hash_encode_backward": network_cuda.launches["hash_encode_backward"]}
+           "adam": adam_cuda.launches["adam"],
+           **{k: network_cuda.launches[k] for k in TRAIN_NETWORK}}
     plain = dict(network_cuda.plain_on_card)
-    print(f"{label}: {steps} steps, training kernel launches {got}, network "
-          f"plain versions on the card {plain} (the MLPs' backward is "
-          f"autograd's: their forwards count under mlp and rgb_head)")
+    replayed = raymarch.graph_counts["replays"] - _replays_at_zero[0]
+    print(f"{label}: {steps} steps ({replayed} of them graph replays), "
+          f"training kernel launches {got}, network plain versions on the "
+          f"card {plain}")
     if (got["training_samples"] != steps
-            or got["hash_encode"] < steps
-            or got["hash_encode_backward"] < steps
-            or plain["hash_encode"] or plain["encode_mlp"]):
-        raise AssertionError(f"{label}: {steps} steps launched the training "
-                             f"kernels {got}, plain encodes on the card {plain}")
+            or (adam and got["adam"] != steps)
+            or any(got[k] < steps for k in TRAIN_NETWORK)
+            or any(plain.values())
+            or (replays is not None and replayed < replays)):
+        raise AssertionError(f"{label}: {steps} steps ({replayed} replayed, "
+                             f"at least {replays} asked) launched the "
+                             f"training kernels {got}, plain versions on the "
+                             f"card {plain}")
     return got
 
 
@@ -3780,11 +3853,17 @@ def first_train_calls(fn):
              for name, (mod, _, _) in TRAIN_KERNELS.items()}
     got = {}
 
+    def copy(a):
+        if torch.is_tensor(a):
+            return a.detach().clone()
+        if isinstance(a, (list, tuple)):
+            return type(a)(copy(x) for x in a)
+        return a
+
     def recorder(name):
         def call(*args):
             if name not in got:
-                got[name] = tuple(a.detach().clone() if torch.is_tensor(a)
-                                  else a for a in args)
+                got[name] = tuple(copy(a) for a in args)
             return saved[name](*args)
         return call
 
@@ -3825,7 +3904,11 @@ def training_kernels_phase(tr, reps=20):
     it) -> {wrapper: numbers}."""
     if tr.step % tr.opts.grid_update_interval == 0:
         tr.train(1)
-    calls = first_train_calls(lambda: tr.train(1))
+    tr.graphs = False       # a replay calls no wrapper: an eager step's calls
+    try:
+        calls = first_train_calls(lambda: tr.train(1))
+    finally:
+        tr.graphs = True
     torch.cuda.synchronize()
     out = {}
     args = calls["training_samples"]
@@ -3930,7 +4013,239 @@ def training_kernels_phase(tr, reps=20):
         "cmp": cmp, "cmp_pos": cmp_pos, "ms": k_ms, "event_ms": ev_ms,
         "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": lib_ms, "rows": pos.shape[0], "dtype": str(dtype)}
+    out.update(training_mlp_holds(calls, reps))
+    out["adam"] = adam_hold(calls["adam"], reps)
     return out
+
+
+def library_backward_ms(rows, weights, grad, cd, reps=20):
+    """The yardstick of an MLP's backward: autograd of the layer chain as
+    library_chain runs it (one torch.matmul and one relu a layer, operands
+    in the compute dtype, cuBLAS's GEMMs), forward and backward, on these
+    rows and this output gradient, by CUDA events. The port never calls
+    it."""
+    x = rows.detach().to(cd).requires_grad_(True)
+    ws = [w.detach().to(cd).requires_grad_(True) for w in weights]
+    g = grad.to(cd)
+
+    def run():
+        h = x
+        for w in ws[:-1]:
+            h = torch.relu(torch.matmul(h, w.T))
+        torch.autograd.grad(torch.matmul(h, ws[-1].T), [x] + ws, g)
+    return cuda_ms(run, reps)
+
+
+def _rows_kept(keep, n, args):
+    """args with every (n, ...) tensor cut to the rows of `keep`."""
+    return tuple(a[keep] if torch.is_tensor(a) and a.dim() >= 1
+                 and a.shape[0] == n and a.dtype != torch.bool else a
+                 for a in args)
+
+
+def training_mlp_holds(calls, reps):
+    """Phase 14b's MLP kernels on the settled step's own recorded calls:
+    the forwards (nmr_mlp at the bf16 compute dtype: the tensor-core body;
+    nmr_rgb_head) against their plain versions under compare_with_plain,
+    beside the matmul + relu chain (library_chain); the backwards
+    (nmr_mlp_backward, nmr_rgb_head_backward) against theirs under
+    network_cuda.compare_backward on the rows whose ReLU masks no rounding
+    decides (marginal_rows; their count printed), beside autograd of the
+    chain (library_backward_ms); device ms (L2 flushed; the backwards with
+    their reduce launch), events, plain ms, bound (mlp_work,
+    rgb_head_work, mlp_backward_work, rgb_head_backward_work: bf16
+    operands at the tensor cores' peak) and share -> {wrapper:
+    numbers}."""
+    out = {}
+    for name, kind, plain_fn in (
+            ("mlp", "mlp", network_cuda.mlp_reference),
+            ("rgb_head", "rgb", network_cuda.rgb_head_reference)):
+        args = calls[name]
+        cd = args[2] if name == "mlp" else args[4]
+        got = getattr(network_cuda, name)(*args)
+        plain = plain_fn(*args)
+        cmp = network_cuda.compare_with_plain(kind, got, plain, cd)
+        flops, nbytes = (network_cuda.mlp_work(args[0], args[1])
+                         if name == "mlp" else
+                         network_cuda.rgb_head_work(args[0], args[1], args[2],
+                                                    args[5]))
+        b_ms, b_by = bound_ms(flops, nbytes, BF16_PEAK
+                              if cd == torch.bfloat16 else None)
+        fn = functools.partial(getattr(network_cuda, name), *args)
+        k_ms = kernel_device_ms(name, fn, reps)
+        ev_ms = cuda_ms(fn, reps)
+        p_ms = cuda_ms(lambda: plain_fn(*args), 3)
+        chain = library_chain(name, args)
+        lib_ms = cuda_ms(chain, reps)
+        print(f"training step nmr_{name} ({args[0].shape[0]} rows, "
+              f"{str(cd).split('.')[-1]}): {cmp['mismatched_rows']} rows past "
+              f"the contract (allowed {cmp['allowed']}), max |diff| "
+              f"{cmp['max_abs_err']:.3g}; kernel {k_ms:.4f} ms device, "
+              f"{ev_ms:.4f} ms by events, plain {p_ms:.3f} ms, matmul + relu "
+              f"chain {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), share "
+              f"{b_ms / k_ms:.2%}")
+        if not cmp["ok"]:
+            raise AssertionError(f"nmr_{name} on the training step "
+                                 f"disagrees: {cmp}")
+        out[name] = {"cmp": cmp, "ms": k_ms, "event_ms": ev_ms,
+                     "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": lib_ms, "rows": args[0].shape[0],
+                     "dtype": str(cd)}
+
+    for name in ("mlp_backward", "rgb_head_backward"):
+        args = calls[name]
+        if name == "mlp_backward":
+            x, ws, g, cd = args[:4]
+            rows, n = x, x.shape[0]
+            lib_grad = g
+            flops, nbytes, peak = network_cuda.mlp_backward_work(x, ws, cd)
+            plain_fn = network_cuda.mlp_backward_reference
+        else:
+            feat, d, ws, cfg, g, cd, extra = args[:7]
+            rows, n = network_cuda.rgb_row(feat, d, cfg, extra), feat.shape[0]
+            lib_grad = torch.zeros((n, ws[-1].shape[0]), device=g.device)
+            lib_grad[:, :3] = g
+            flops, nbytes, peak = network_cuda.rgb_head_backward_work(
+                feat, d, ws, cd, extra)
+            plain_fn = network_cuda.rgb_head_backward_reference
+        keep = ~network_cuda.marginal_rows(rows, ws, cd)
+        kept = _rows_kept(keep, n, args)
+        got = getattr(network_cuda, name)(*kept)
+        plain = plain_fn(*kept)
+        cmp = network_cuda.compare_backward(got, plain, cd)
+        cmp["marginal_rows"] = int(n - int(keep.sum()))
+        b_ms, b_by = bound_ms(flops, nbytes, peak)
+        fn = functools.partial(getattr(network_cuda, name), *args)
+        k_ms = kernel_device_ms(name, fn, reps, match="mlp_backward_kernel",
+                                helpers=("reduce_partials",))
+        ev_ms = cuda_ms(fn, reps)
+        p_ms = cuda_ms(lambda: plain_fn(*args), 3)
+        lib_ms = library_backward_ms(rows, ws, lib_grad, cd, reps)
+        worst = max(cmp["arrays"], key=lambda a: a["rel"])
+        print(f"training step nmr_{name} ({n} rows, {str(cd).split('.')[-1]}"
+              f", {cmp['marginal_rows']} rows left out whose masks rounding "
+              f"decides): {len(cmp['arrays'])} arrays, worst |diff| / max "
+              f"{worst['rel']:.2e} ({worst['shape']}), values past the "
+              f"contract {sum(a['bad'] for a in cmp['arrays'])}; kernel "
+              f"{k_ms:.4f} ms device (with its reduce), {ev_ms:.4f} ms by "
+              f"events, plain {p_ms:.3f} ms, autograd of the matmul + relu "
+              f"chain {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), share "
+              f"{b_ms / k_ms:.2%}")
+        if not cmp["ok"]:
+            raise AssertionError(f"nmr_{name} disagrees: {cmp}")
+        out[name] = {"cmp": cmp, "ms": k_ms, "event_ms": ev_ms,
+                     "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": lib_ms, "rows": n, "dtype": str(cd)}
+    return out
+
+
+def adam_hold(args, reps):
+    """nmr_adam on the settled step's own recorded call (its parameters,
+    gradients and moments as they were before it) against its plain
+    version on copies, bit for bit; device ms (L2 flushed), events, the
+    plain version's ms, the bound (adam_work: 28 bytes an element over
+    3.35 TB/s) and one torch.optim.Adam(fused=True) step on copies of the
+    same tensors (weight decay off; the same work by another formula) ->
+    numbers."""
+    params, grads, ms, vs, l2s, lr, b1, b2, eps = args
+
+    def copies():
+        return ([t.clone() for t in params], grads, [t.clone() for t in ms],
+                [t.clone() for t in vs])
+
+    k = copies()
+    adam_cuda.adam(*k, l2s, lr, b1, b2, eps)
+    p = copies()
+    adam_cuda.adam_reference(*p, l2s, float(lr), b1, b2, eps)
+    torch.cuda.synchronize()
+    same = all(torch.equal(float_bits(a), float_bits(b))
+               for ka, pa in zip(k, p) for a, b in zip(ka, pa))
+    err = max(float((a - b).abs().max()) for ka, pa in zip(k, p)
+              for a, b in zip(ka, pa))
+    flops, nbytes = adam_cuda.adam_work(params)
+    b_ms, b_by = bound_ms(flops, nbytes)
+    t = copies()
+    k_ms = kernel_device_ms("adam", lambda: adam_cuda.adam(*t, l2s, lr, b1,
+                                                           b2, eps), reps)
+    ev_ms = cuda_ms(lambda: adam_cuda.adam(*t, l2s, lr, b1, b2, eps), reps)
+    p_ms = cuda_ms(lambda: adam_cuda.adam_reference(*t, l2s, float(lr), b1,
+                                                    b2, eps), 3)
+    leaves = [q.clone().requires_grad_(True) for q in params]
+    for q, g in zip(leaves, grads):
+        q.grad = g.clone()
+    fused = torch.optim.Adam(leaves, lr=float(lr), betas=(b1, b2), eps=eps,
+                             fused=True)
+    lib_ms = cuda_ms(fused.step, reps)
+    n = sum(q.numel() for q in params)
+    print(f"training step nmr_adam ({len(params)} parameters, {n} elements): "
+          f"bit for bit the card's plain version {same} (max |diff| "
+          f"{err:.3g}); kernel {k_ms:.4f} ms device, {ev_ms:.4f} ms by events, "
+          f"plain {p_ms:.3f} ms, torch.optim.Adam(fused=True) {lib_ms:.4f} ms, "
+          f"bound {b_ms:.5f} ms ({b_by}), share {b_ms / k_ms:.2%}")
+    if not same:
+        raise AssertionError("nmr_adam is not its plain version bit for bit")
+    return {"cmp": {"ok": same, "max_abs_err": err, "bit_for_bit": same},
+            "ms": k_ms, "event_ms": ev_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib_ms, "elements": n}
+
+
+def replay_vs_eager(tr):
+    """A settled step replayed from its cached graph against the same step
+    run eagerly twice, each from the same state (every state tensor
+    copied back in place), generator state and so draws: per array of
+    the state and for the loss, the two eager steps' spread (the encode
+    backward's atomic adds run in no fixed order) and the replay's
+    difference from the first. The loss, the parameters and the Adam
+    moments must lie within max(2 x the spread, 1e-6 x the array's
+    largest magnitude); the other arrays (the error map, the counters)
+    are printed: in one run of four the replay moved one error-map cell's
+    update while the loss, parameters and moments held (the cause is not
+    verified: a ray at a cell's edge of the inverse-CDF draw, whose aten
+    cumsum on the card may sum apart from run to run) -> numbers."""
+    if tr.step % tr.opts.grid_update_interval == 0:
+        tr.train(1)
+    snap = {n: t.detach().clone() for n, t in state_tensors(tr.state)}
+    gen, step, host = tr.gen.get_state(), tr.state["step"], tr._host_step
+    runs = []
+    for graphs in (False, False, True):
+        with torch.no_grad():
+            for n, t in state_tensors(tr.state):
+                t.copy_(snap[n])
+        tr.gen.set_state(gen)
+        tr.state["step"], tr._host_step = step, host
+        tr.graphs = graphs
+        r0 = tr.replayed_steps
+        tr.train(1)
+        torch.cuda.synchronize()
+        if tr.replayed_steps - r0 != int(graphs):
+            raise AssertionError(f"the {'replayed' if graphs else 'eager'} "
+                                 f"step took the other route")
+        runs.append(({n: t.detach().clone() for n, t in
+                      state_tensors(tr.state)}, tr.loss))
+    tr.graphs = True
+    (e1, l1), (e2, l2), (rp, lr) = runs
+    rows, ok = [], abs(lr - l1) <= max(2 * abs(l1 - l2), 1e-6 * abs(l1))
+    for n, a in e1.items():
+        if not a.dtype.is_floating_point or not a.numel():
+            continue
+        spread = float((a - e2[n]).abs().max())
+        diff = float((rp[n] - a).abs().max())
+        scale = float(a.abs().max())
+        rows.append((n, spread, diff, scale))
+        if n.startswith(("net.", "opt.")):
+            ok &= diff <= max(2 * spread, 1e-6 * scale)
+    worst = sorted(rows, key=lambda r: -r[2] / max(r[3], 1e-30))[:4]
+    print(f"replayed step against two eager steps on the same state and "
+          f"draws: loss {lr:.9g} against {l1:.9g} / {l2:.9g}; arrays "
+          f"(eager spread, replay's diff, max |x|), the largest relative "
+          f"diffs: " + "; ".join(f"{n} {sp:.3g} {d:.3g} {sc:.3g}"
+                                 for n, sp, d, sc in worst)
+          + f"; bit for bit the first eager step: "
+          f"{all(r[2] == 0.0 for r in rows) and lr == l1}")
+    if not ok:
+        raise AssertionError("the replayed step's loss, parameters or "
+                             "moments are outside the eager steps' spread")
+    return {"loss": [l1, l2, lr], "arrays": rows}
 
 
 def step_profile(tr):
@@ -3965,7 +4280,8 @@ torch.cuda.synchronize()
 t0 = time.perf_counter()
 tr.train_until(cs.TARGET_LOSS, max_steps=cs.CONTRACT_MAX_STEPS, log_every=0)
 torch.cuda.synchronize()
-contract = [time.perf_counter() - t0, tr.step, float(tr.state["loss_ema"])]
+contract = [time.perf_counter() - t0, tr.step, float(tr.state["loss_ema"]),
+            getattr(tr, "replayed_steps", 0)]
 tr = ttr.Trainer(ds, opts, seed=3, device=dev)
 tr.load_snapshot(cs.SNAPSHOT)
 tr.train(cs.RATE_SETTLED[0])
@@ -3983,8 +4299,8 @@ def training_in_turns(dirs):
     12's run), the settled steps/s (phase 14's), and three settled steps
     under this tree's op_counts: device operations counted on the host,
     kernel launches, busy ms, wall ms, the device trace's count and
-    plain_on_card -> {checkout: {"contract": [[s, steps, ema], ...], "sps":
-    [...], "steps": [...]}}."""
+    plain_on_card -> {checkout: {"contract": [[s, steps, ema, steps
+    replayed], ...], "sps": [...], "steps": [...]}}."""
     order = [d for d in dirs
              if os.path.exists(os.path.join(d, "chip_smoke.py"))] + [ROOT]
     res = {path: {"contract": [], "sps": [], "steps": []} for path in order}
@@ -4006,7 +4322,8 @@ def training_in_turns(dirs):
           "host, launches, busy ms / wall ms, traced, plain_on_card): "
           + "; ".join(
               f"{'this tree' if path == ROOT else path}: contract "
-              + ", ".join(f"{c:.2f} s {n} steps" for c, n, _ in r["contract"])
+              + ", ".join(f"{c:.2f} s {n} steps ({rp} replayed)"
+                          for c, n, _, rp in r["contract"])
               + "; " + ", ".join(f"{x:.2f}" for x in r["sps"]) + " steps/s; "
               + ", ".join(f"{o} ops {la} launches {b:.2f} / {w:.2f} ms "
                           f"(traced {tn}) plain {p}"
@@ -4019,17 +4336,20 @@ def training_in_turns(dirs):
 def train_entries(held, launches, steps):
     """The closing line's entries of the training kernels, measured on the
     settled trainer's own step (phase 14b), with phase 14's launches in
-    its timed steps; the encode's forward as "nmr_hash_encode:train" (its
-    frame's call has the entry "nmr_hash_encode")."""
+    its timed steps (replays counted as their captures held them); the
+    training forward's encode, density MLP and rgb head as
+    "nmr_hash_encode:train", "nmr_mlp:train" and "nmr_rgb_head:train"
+    (their frames' calls have the entries without the suffix)."""
     entries = []
     for name, (_, kernel, replaces) in TRAIN_KERNELS.items():
         r = held[name]
         entry = {
-            "name": f"{kernel}:train" if name == "hash_encode" else kernel,
+            "name": (f"{kernel}:train" if name in ("hash_encode", "mlp",
+                                                   "rgb_head") else kernel),
             "route": "cuda",
-            "source": ("nerf_glasses_tpu_torch/csrc/march.cu"
-                       if name == "training_samples"
-                       else "nerf_glasses_tpu_torch/csrc/network.cu"),
+            "source": "nerf_glasses_tpu_torch/csrc/" + {
+                "training_samples": "march.cu",
+                "adam": "adam.cu"}.get(name, "network.cu"),
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": r["cmp"].get("max_abs_err",
                                         r["cmp"].get("table", {}).get(
@@ -4079,7 +4399,7 @@ def training_phases(dev, tmp, lap, glasses, net_others=(), dirs=()):
     tr.train_until(TARGET_LOSS, max_steps=CONTRACT_MAX_STEPS, log_every=0)
     torch.cuda.synchronize()
     contract_s = time.perf_counter() - t0
-    train_route_check("train from scratch (phase 12)", tr.step)
+    train_route_check("train from scratch (phase 12)", tr.step, replays=1)
     ema = float(tr.state["loss_ema"])
     train_peak = torch.cuda.max_memory_allocated()
     print(f"train from scratch (native_fast, {opts.rays_per_batch} rays x "
@@ -4138,7 +4458,8 @@ def training_phases(dev, tmp, lap, glasses, net_others=(), dirs=()):
     zero_train_counts()
     sps_settled = timed_steps(tr_res, RATE_SETTLED[1])
     settled_launches = train_route_check(
-        f"settled steps (phase 14, {RATE_SETTLED[1]} timed)", RATE_SETTLED[1])
+        f"settled steps (phase 14, {RATE_SETTLED[1]} timed)", RATE_SETTLED[1],
+        replays=RATE_SETTLED[1])
     print(f"resumed from trained_head_v6 at step {step0}: settled steps/s "
           f"{sps_settled:.2f} ({RATE_SETTLED[0]} + {RATE_SETTLED[1]} timed), "
           f"compaction gate open {tr_res._compact_ready}, keep-set overflow "
@@ -4157,9 +4478,9 @@ def training_phases(dev, tmp, lap, glasses, net_others=(), dirs=()):
                       f"launches, busy {b:.2f} ms of {w:.2f} ms wall "
                       f"({b / w:.1%}), traced {tn}, plain_on_card {pl}"
                       for o, la, b, w, tn, pl in steps))
-    if any(pl["hash_encode"] or pl["encode_mlp"] for *_, pl in steps):
-        raise AssertionError("a settled step took the plain encode on the "
-                             "card")
+    if any(any(pl.values()) for *_, pl in steps):
+        raise AssertionError("a settled step took a plain network version "
+                             "on the card")
     syncs = step_sync_counts(tr_res)
     print("one settled step's host-to-device copies and stream waits "
           "(torch.profiler: Memcpy HtoD, cudaStreamSynchronize): " + "; ".join(
@@ -4169,6 +4490,7 @@ def training_phases(dev, tmp, lap, glasses, net_others=(), dirs=()):
     print(f"density-grid refresh ({tr_res.opts.grid_samples_per_update} "
           f"cells + occupancy rebuild): {grid_ms:.3f} ms (CUDA events)")
     train_net = training_queries_phase(tr_res)
+    replayed = replay_vs_eager(tr_res)
     lap(14)
 
     # 14b: the training kernels on the settled trainer's own step; with
@@ -4178,6 +4500,7 @@ def training_phases(dev, tmp, lap, glasses, net_others=(), dirs=()):
     train_kernels["steps"] = RATE_SETTLED[1]
     train_kernels["step_profiles"] = steps
     train_kernels["settled_sps"] = sps_settled
+    train_kernels["replay_vs_eager"] = replayed
     del tr_res
     if any(os.path.exists(os.path.join(d, "chip_smoke.py")) for d in dirs):
         train_kernels["in_turns"] = training_in_turns(dirs)
@@ -4205,7 +4528,7 @@ def training_phases(dev, tmp, lap, glasses, net_others=(), dirs=()):
     # network kernels at 16 levels x 2 and 2^19 rows (the depth cut)
     tr_ref.train(REF_CONFIG_STEPS - tr_ref.step)
     torch.cuda.synchronize()
-    train_route_check("reference config (phase 15)", tr_ref.step)
+    train_route_check("reference config (phase 15)", tr_ref.step, replays=1)
     ref_snap = os.path.join(tmp, "reference_config.msgpack")
     tr_ref.save_snapshot(ref_snap)
     print(f"reference config trained {tr_ref.step} steps from scratch, loss "
@@ -4244,7 +4567,7 @@ def training_phases(dev, tmp, lap, glasses, net_others=(), dirs=()):
         step_grads(tr.net.detached_copy().to(device).requires_grad_(True),
                    inp_cpu, f32opts) for device in (dev, cpu)]
     torch.cuda.synchronize()
-    train_route_check("one f32 step on the card (phase 16)", 1)
+    train_route_check("one f32 step on the card (phase 16)", 1, adam=False)
     loss_rel = abs(float(lc) - float(lp)) / abs(float(lp))
     worst = max(float((gc[k].cpu() - gp[k]).abs().max() / gp[k].abs().max())
                 for k in gp)
@@ -5635,15 +5958,17 @@ def main(tmp, dirs, multicascade_only=False):
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    kernel_modules = (mesh_cuda, march_cuda, network_cuda, frame_cuda)
-    with concurrent.futures.ThreadPoolExecutor(4) as pool:   # one nvcc each
+    kernel_modules = (mesh_cuda, march_cuda, network_cuda, frame_cuda,
+                      adam_cuda)
+    with concurrent.futures.ThreadPoolExecutor(5) as pool:   # one nvcc each
         for build in [pool.submit(m.load_library) for m in kernel_modules]:
             build.result()
     print(f"kernel builds + loads, in parallel: {time.perf_counter() - t0:.2f} s "
           f"(nvcc mesh_raycast.cu {mesh_cuda.build_seconds:.2f} s, march.cu "
           f"{march_cuda.build_seconds:.2f} s, network.cu "
           f"{network_cuda.build_seconds:.2f} s, frame.cu "
-          f"{frame_cuda.build_seconds:.2f} s)")
+          f"{frame_cuda.build_seconds:.2f} s, adam.cu "
+          f"{adam_cuda.build_seconds:.2f} s)")
     for m in kernel_modules:
         print(m.build_log.strip())
     mlp_build = mlp_kernel_report(network_cuda)

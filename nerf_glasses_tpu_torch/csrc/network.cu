@@ -1,5 +1,6 @@
-// The NeRF network's inference forward for Hopper: the hash-grid encode,
-// the density MLP and the SH + rgb head.
+// The NeRF network for Hopper: the hash-grid encode, the density MLP and
+// the SH + rgb head, forward, and the training step's backwards of all
+// three.
 //
 // None of them replaces a Pallas kernel. The JAX package leaves the
 // network to XLA (its Pallas hash encode, ops/hashgrid_pallas.py, was
@@ -54,12 +55,18 @@
 //       aligned pair: both were slower (PERF.md section 6).
 //       Its output is nmr_hash_encode's then nmr_mlp's, bit for bit: the
 //       same corner sums, the same bf16 A tile, the same wgmma chain.
+//   hash_encode_backward_kernel (nmr_hash_encode_backward)  ::
+//       hash_encode_backward; JAX jax.vjp of hashgrid.py:143 (below).
+//   mlp_backward_kernel (nmr_mlp_backward, nmr_rgb_head_backward)  ::
+//       mlp_backward, rgb_head_backward; JAX jax.vjp of mlp.py:17
+//       mlp_apply and of network.py:89 _rgb_head (below).
 //
 // The two MLP kernels at the bf16 compute dtype: mlp_kernel_bf16 and
-// rgb_head_kernel_bf16, one body (mlp_tc). The rgb head's is the main
-// path's; no path of the port launches mlp_kernel_bf16 since the fused
-// kernel serves every bf16 density call: it stays as nmr_mlp's bf16 body,
-// the fused kernel's bit-for-bit reference (the cuda tests, chip_smoke.py).
+// rgb_head_kernel_bf16, one body (mlp_tc). The rgb head's serves every
+// frame and the training forward; mlp_kernel_bf16 serves the training
+// forward of the density MLP (network_cuda.Mlp: the encode's rows need a
+// gradient, so the fused kernel cannot serve it) and is the fused
+// kernel's bit-for-bit reference (the cuda tests, chip_smoke.py).
 //   Bound: bytes. The density MLP reads a 128-byte f32 encode row (64 at
 //   a bf16 encode) and writes 64 bytes for 3k multiply-adds; the rgb
 //   head reads 76 bytes and writes 12 for 7k (9k with 8 latent dims). To
@@ -605,6 +612,65 @@ __device__ __forceinline__ void sh_encode(float d0, float d1, float d2,
     sh[15] = __fmul_rn(__fmul_rn(x, c9),
                        __fadd_rn(-x2, __fmul_rn(y2, 3.0f)));
   }
+}
+
+// The gradient of sh_encode's output g[0 .. 16) with respect to its
+// direction warped to [0, 1]: each basis function's derivative by x, y
+// and z times its output's gradient, summed (x = 2 d0 - 1: d/dd0 = 2
+// d/dx); the padding features (ONE) have none. The plain version's terms,
+// summed in another order than autograd's.
+__device__ __forceinline__ void sh_backward(float d0, float d1, float d2,
+                                            int degree, const float* g,
+                                            float* gd) {
+  const float x = 2.0f * d0 - 1.0f, y = 2.0f * d1 - 1.0f,
+              z = 2.0f * d2 - 1.0f;
+  float gx = 0.0f, gy = 0.0f, gz = 0.0f;
+  if (degree >= 2) {
+    const float c1 = (float)0.48860251190291987;
+    gy -= c1 * g[1];
+    gz += c1 * g[2];
+    gx -= c1 * g[3];
+  }
+  if (degree >= 3) {
+    const float c4 = (float)1.0925484305920792;
+    const float c6 = (float)0.94617469575755997;
+    const float c8 = (float)0.54627421529603959;
+    gx += c4 * y * g[4];
+    gy += c4 * x * g[4];
+    gy -= c4 * z * g[5];
+    gz -= c4 * y * g[5];
+    gz += 2.0f * c6 * z * g[6];
+    gx -= c4 * z * g[7];
+    gz -= c4 * x * g[7];
+    gx += 2.0f * c8 * x * g[8];
+    gy -= 2.0f * c8 * y * g[8];
+  }
+  if (degree >= 4) {
+    const float c9 = (float)0.59004358992664352;
+    const float c10 = (float)2.8906114426405538;
+    const float c11 = (float)0.45704579946446572;
+    const float c12 = (float)0.3731763325901154;
+    const float c14 = (float)1.4453057213202769;
+    const float x2 = x * x, y2 = y * y, z2 = z * z;
+    gx -= 6.0f * c9 * x * y * g[9];                 // c9 y (y2 - 3 x2)
+    gy += 3.0f * c9 * (y2 - x2) * g[9];
+    gx += c10 * y * z * g[10];                       // c10 x y z
+    gy += c10 * x * z * g[10];
+    gz += c10 * x * y * g[10];
+    gy += c11 * (1.0f - 5.0f * z2) * g[11];          // c11 y (1 - 5 z2)
+    gz -= 10.0f * c11 * y * z * g[11];
+    gz += c12 * (15.0f * z2 - 3.0f) * g[12];         // c12 z (5 z2 - 3)
+    gx += c11 * (1.0f - 5.0f * z2) * g[13];          // c11 x (1 - 5 z2)
+    gz -= 10.0f * c11 * x * z * g[13];
+    gx += 2.0f * c14 * x * z * g[14];                // c14 z (x2 - y2)
+    gy -= 2.0f * c14 * y * z * g[14];
+    gz += c14 * (x2 - y2) * g[14];
+    gx += 3.0f * c9 * (y2 - x2) * g[15];             // c9 x (3 y2 - x2)
+    gy += 6.0f * c9 * x * y * g[15];
+  }
+  gd[0] = 2.0f * gx;
+  gd[1] = 2.0f * gy;
+  gd[2] = 2.0f * gz;
 }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
@@ -1579,6 +1645,315 @@ __global__ void __launch_bounds__(TC_THREADS,
                               EP.encode_bf16 != 0});
 }
 
+// ---------------------------------------------------------------------------
+// The MLPs' backward (mlp_backward_kernel: nmr_mlp_backward,
+// nmr_rgb_head_backward)
+// ---------------------------------------------------------------------------
+//
+// Replaces the XLA backward of the JAX package's training step (jax.vjp of
+// mlp_apply, nerf_glasses_tpu/ops/mlp.py:17, and of _rgb_head,
+// ops/network.py:89; no Pallas kernel), which the port ran as autograd's
+// aten operations (~110 a step). The gradient of the input rows (for the
+// rgb head: of the features, the codes and, through the SH encode, the
+// directions) and of every weight: autograd's of the plain forward, rounding point for
+// rounding point (the backward of each .float() of a bf16 value rounds the
+// gradient to bf16: every weight's, every hidden activation's, the input
+// row's; the ReLU's mask is !(relu(pre) <= 0); sums in f32), summed in
+// another order. At both compute dtypes on the CUDA cores (bf16-rounded
+// operands, exact f32 products, f32 sums). Bound: bytes at the bf16
+// operands' tensor-core peak (the density MLP's ~9k multiply-adds a row
+// against 192 bytes; 32,768 rows: ~0.0019 ms), operations at f32. Its
+// time is the latency of each tile's dependent stages, one block (rgb
+// head) or two (density MLP) an SM: a first design, PERF.md section 6.
+// A tile of BW_ROWS rows a step; a block walks tiles blockIdx.x, +
+// gridDim.x, ... Shared memory holds every layer's weights rounded to
+// the compute dtype (natural [j][k] for the backward, transposed [k][j]
+// for the forward of the hidden layers), the input of every layer for the
+// tile ([k][row], rows contiguous, BW_TS apart), the hidden activations'
+// ReLU masks (a bit an activation), two delta buffers and each layer's
+// weight-gradient sum. A tile: the input rows (the rgb head builds its
+// row from feat, SH(dir) and the codes: rgb_row), the output's gradient,
+// the hidden layers again (tile_mm: an fmaf chain over k from 0, as
+// mlp_tiles computes each output, so the f32 pre-activations are the f32
+// forward's bit for bit), then from the last layer down: the layer's
+// weight gradient added to its sum (tile_dw) and the delta through the
+// layer's weights (tile_mm), rounded, masked, and at the input written
+// out. After its last tile a block writes its sums to `partial`; a second
+// launch (reduce_partials_kernel) sums the blocks' partials in block
+// order and rounds once: no atomics, the same bits on every run.
+
+constexpr int BW_THREADS = 256;
+constexpr int BW_WARPS = BW_THREADS / 32;
+constexpr int BW_ROWS = 64;
+constexpr int BW_TS = BW_ROWS + 1;   // odd: a warp's lanes on 32 rows, or on
+                                     // 32 k of one row, hit 32 banks
+
+// The backward's shared-memory plan, in floats (the masks in uint16 after
+// mask_off): each layer's natural and transposed weights, its input's
+// rows, its weight-gradient sum; the delta buffers; the masks of the
+// hidden layers' outputs. wofs: each layer's first element in the
+// (unpadded, layer after layer) weight gradient.
+struct BwPlan {
+  int kp[MAX_LAYERS + 1];
+  int wn[MAX_LAYERS], wt[MAX_LAYERS], h[MAX_LAYERS], acc[MAX_LAYERS];
+  int wofs[MAX_LAYERS];
+  int mask[MAX_LAYERS];
+  int d[2];
+  int mask_off;
+  int total_w;
+  int smem;
+};
+
+// out(r, n0, acc) for each row r < BW_ROWS and 16-column group n0 < NB
+// (a multiple of 16), acc[i] = sum_{k<K} A[k][r] B[k][n0 + i] as an fmaf
+// chain over k from 0. A: [K][BW_TS]; B: [K][NB], 16-byte aligned. A
+// warp's item is 32 rows (a lane a row) x 16 columns: a k costs one load
+// of A and four broadcast float4 loads of B for 16 fmaf.
+template <class Out>
+__device__ __forceinline__ void tile_mm(const float* A, int K, const float* B,
+                                        int NB, Out out) {
+  constexpr int RG = BW_ROWS / 32;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int items = RG * (NB >> 4);
+  for (int it = warp; it < items; it += BW_WARPS) {
+    const int r = (it % RG) * 32 + lane, n0 = (it / RG) * 16;
+    float acc[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) acc[i] = 0.0f;
+    for (int k = 0; k < K; ++k) {
+      const float a = A[k * BW_TS + r];
+      const float4* b = reinterpret_cast<const float4*>(B + k * NB + n0);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float4 v = b[q];
+        acc[4 * q] = fmaf(a, v.x, acc[4 * q]);
+        acc[4 * q + 1] = fmaf(a, v.y, acc[4 * q + 1]);
+        acc[4 * q + 2] = fmaf(a, v.z, acc[4 * q + 2]);
+        acc[4 * q + 3] = fmaf(a, v.w, acc[4 * q + 3]);
+      }
+    }
+    out(r, n0, acc);
+  }
+}
+
+// sum[j][k] (row stride KP) += sum_{r<BW_ROWS} D[j][r] H[k][r], the
+// tile's part an fmaf chain over r from 0, for j < J and k < KP (both
+// multiples of 16). D: [J][BW_TS], H: [KP][BW_TS]. A warp's item is 32 j
+// x 32 k, a lane 4 j (lane % 8) x 8 k (lane / 8): a row costs 12 loads
+// for 32 fmaf, D's in 8 banks and H's in 4, each address shared by 4 or 8
+// lanes. Each sum entry has one owner: no races.
+__device__ __forceinline__ void tile_dw(const float* D, int J, const float* H,
+                                        int KP, float* sum) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int jg = (J + 31) >> 5, kg = (KP + 31) >> 5;
+  for (int it = warp; it < jg * kg; it += BW_WARPS) {
+    const int j0 = (it % jg) * 32 + (lane & 7) * 4;
+    const int k0 = (it / jg) * 32 + (lane >> 3) * 8;
+    if (j0 >= J || k0 >= KP) continue;
+    float s[4][8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) s[i][c] = 0.0f;
+    for (int r = 0; r < BW_ROWS; ++r) {
+      float d[4], h[8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) d[i] = D[(j0 + i) * BW_TS + r];
+#pragma unroll
+      for (int c = 0; c < 8; ++c) h[c] = H[(k0 + c) * BW_TS + r];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) s[i][c] = fmaf(d[i], h[c], s[i][c]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+        sum[(j0 + i) * KP + k0 + c] = __fadd_rn(sum[(j0 + i) * KP + k0 + c],
+                                                s[i][c]);
+  }
+}
+
+// The backward of mlp_apply (KIND 0: x (n, width[0]) f32 or bf16, its
+// gradient dx in x's dtype) or of the rgb head (KIND 1: x is feat (n,
+// n_feat) f32 with dirs and extra as nmr_rgb_head takes them; dx is the
+// features' gradient (n, n_feat) f32, dextra the codes' (n, n_extra) f32,
+// ddir the directions' (n, 3) f32 from the SH columns' gradient,
+// sh_backward: n_feat a multiple of 16, so that one 16-column group holds
+// the SH columns) from the output's gradient g (n, n_store) f32: the
+// stored columns' gradient, the others' zero. dx, dextra and ddir may be
+// null (not written). Every block writes its weight-
+// gradient sums, layer after layer, to partial[blockIdx.x].
+template <int KIND>
+__global__ void __launch_bounds__(BW_THREADS) mlp_backward_kernel(
+    MlpParams P, BwPlan Q, long long n, const void* __restrict__ x,
+    const float* __restrict__ dirs, const float* __restrict__ extra,
+    const float* __restrict__ g, void* __restrict__ dx,
+    float* __restrict__ dextra, float* __restrict__ ddir,
+    float* __restrict__ partial) {
+  extern __shared__ __align__(16) float sm[];
+  unsigned short* masks = reinterpret_cast<unsigned short*>(sm + Q.mask_off);
+  const int L = P.n_layers;
+  const bool rb = P.round_bf16 != 0;
+  for (int l = 0; l < L; ++l) {
+    const int K = P.width[l], N = P.width[l + 1];
+    const int kp = Q.kp[l], np = Q.kp[l + 1];
+    for (int i = threadIdx.x; i < kp * np; i += BW_THREADS) {
+      const int j = i / kp, k = i % kp;
+      float v = (j < N && k < K) ? __ldg(P.w[l] + (long long)j * K + k) : 0.0f;
+      if (rb) v = bf16r(v);
+      sm[Q.wn[l] + i] = v;
+      if (l + 1 < L) sm[Q.wt[l] + k * np + j] = v;
+      sm[Q.acc[l] + i] = 0.0f;
+    }
+  }
+  const long long tiles = (n + BW_ROWS - 1) / BW_ROWS;
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const long long row0 = t * BW_ROWS;
+    const int rows = (int)min((long long)BW_ROWS, n - row0);
+    float* h0 = sm + Q.h[0];
+    const int kp0 = Q.kp[0];
+    __syncthreads();            // the last tile's reads are done
+    if (KIND == 0) {
+      const int K = P.width[0];
+      for (int i = threadIdx.x; i < kp0 * BW_ROWS; i += BW_THREADS) {
+        const int r = i / kp0, k = i % kp0;
+        float v = 0.0f;
+        if (r < rows && k < K) {
+          const long long e = (row0 + r) * K + k;
+          v = P.x_bf16
+                  ? __bfloat162float(static_cast<const __nv_bfloat16*>(x)[e])
+                  : static_cast<const float*>(x)[e];
+          if (rb) v = bf16r(v);
+        }
+        h0[k * BW_TS + r] = v;
+      }
+    } else {
+      for (int r = threadIdx.x; r < BW_ROWS; r += BW_THREADS) {
+        if (r < rows) {
+          const long long s = row0 + r;
+          rgb_row(P, s, static_cast<const float*>(x) + s * P.n_feat,
+                  dirs[s * 3], dirs[s * 3 + 1], dirs[s * 3 + 2], extra,
+                  h0 + r, BW_TS);
+          if (rb)
+            for (int k = 0; k < kp0; ++k)
+              h0[k * BW_TS + r] = bf16r(h0[k * BW_TS + r]);
+        } else {
+          for (int k = 0; k < kp0; ++k) h0[k * BW_TS + r] = 0.0f;
+        }
+      }
+    }
+    float* D = sm + Q.d[0];
+    float* E = sm + Q.d[1];
+    {
+      const int ns = P.n_store, np = Q.kp[L];
+      for (int i = threadIdx.x; i < np * BW_ROWS; i += BW_THREADS) {
+        const int r = i / np, j = i % np;
+        D[j * BW_TS + r] =
+            (r < rows && j < ns) ? g[(row0 + r) * ns + j] : 0.0f;
+      }
+    }
+    __syncthreads();
+    // the hidden layers again: h = round(relu(pre)), the mask !(relu(pre)
+    // <= 0) (autograd's: a NaN passes the gradient)
+    for (int l = 0; l + 1 < L; ++l) {
+      float* ho = sm + Q.h[l + 1];
+      unsigned short* mk = masks + Q.mask[l + 1];
+      tile_mm(sm + Q.h[l], Q.kp[l], sm + Q.wt[l], Q.kp[l + 1],
+              [&](int r, int n0, const float* acc) {
+                unsigned bits = 0u;
+#pragma unroll
+                for (int i = 0; i < 16; ++i) {
+                  const float y = relu(acc[i]);
+                  bits |= (unsigned)!(y <= 0.0f) << i;
+                  ho[(n0 + i) * BW_TS + r] = rb ? bf16r(y) : y;
+                }
+                mk[(n0 >> 4) * BW_TS + r] = (unsigned short)bits;
+              });
+      __syncthreads();
+    }
+    for (int l = L - 1; l >= 0; --l) {
+      tile_dw(D, Q.kp[l + 1], sm + Q.h[l], Q.kp[l], sm + Q.acc[l]);
+      if (l > 0) {
+        const unsigned short* mk = masks + Q.mask[l];
+        tile_mm(D, Q.kp[l + 1], sm + Q.wn[l], Q.kp[l],
+                [&](int r, int n0, const float* acc) {
+                  const unsigned bits = mk[(n0 >> 4) * BW_TS + r];
+#pragma unroll
+                  for (int i = 0; i < 16; ++i)
+                    E[(n0 + i) * BW_TS + r] =
+                        (bits >> i & 1u) ? (rb ? bf16r(acc[i]) : acc[i])
+                                         : 0.0f;
+                });
+      } else if (dx != nullptr || dextra != nullptr || ddir != nullptr) {
+        tile_mm(D, Q.kp[1], sm + Q.wn[0], kp0,
+                [&](int r, int n0, const float* acc) {
+                  if (r >= rows) return;
+                  const long long s = row0 + r;
+#pragma unroll
+                  for (int i = 0; i < 16; ++i) {
+                    const int k = n0 + i;
+                    if (KIND == 0) {
+                      if (dx == nullptr || k >= P.width[0]) continue;
+                      const long long e = s * P.width[0] + k;
+                      if (P.x_bf16)
+                        static_cast<__nv_bfloat16*>(dx)[e] =
+                            __float2bfloat16_rn(acc[i]);
+                      else
+                        static_cast<float*>(dx)[e] =
+                            rb ? bf16r(acc[i]) : acc[i];
+                    } else {
+                      const float v = rb ? bf16r(acc[i]) : acc[i];
+                      const int e = k - P.n_feat - SH_WIDTH;
+                      if (k < P.n_feat && dx != nullptr)
+                        static_cast<float*>(dx)[s * P.n_feat + k] = v;
+                      else if (e >= 0 && e < P.n_extra && dextra != nullptr)
+                        dextra[s * P.n_extra + e] = v;
+                    }
+                  }
+                  if (KIND == 1 && ddir != nullptr && n0 == P.n_feat) {
+                    float gs[SH_WIDTH], gd[3];
+#pragma unroll
+                    for (int i = 0; i < SH_WIDTH; ++i)
+                      gs[i] = rb ? bf16r(acc[i]) : acc[i];
+                    sh_backward(dirs[s * 3], dirs[s * 3 + 1], dirs[s * 3 + 2],
+                                P.sh_degree, gs, gd);
+                    ddir[s * 3] = gd[0];
+                    ddir[s * 3 + 1] = gd[1];
+                    ddir[s * 3 + 2] = gd[2];
+                  }
+                });
+      }
+      __syncthreads();
+      float* t = D;
+      D = E;
+      E = t;
+    }
+  }
+  __syncthreads();
+  float* out = partial + (long long)blockIdx.x * Q.total_w;
+  for (int l = 0; l < L; ++l) {
+    const int K = P.width[l], N = P.width[l + 1];
+    for (int i = threadIdx.x; i < N * K; i += BW_THREADS)
+      out[Q.wofs[l] + i] = sm[Q.acc[l] + (i / K) * Q.kp[l] + i % K];
+  }
+}
+
+// dw[e] = round(sum over blocks b = 0 .. blocks-1 of partial[b][e]), in
+// that order; rounded to bf16 at the bf16 compute dtype.
+__global__ void reduce_partials_kernel(const float* __restrict__ partial,
+                                       int blocks, int total, int rb,
+                                       float* __restrict__ dw) {
+  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < total;
+       e += gridDim.x * blockDim.x) {
+    float s = 0.0f;
+    for (int b = 0; b < blocks; ++b)
+      s = __fadd_rn(s, partial[(long long)b * total + e]);
+    dw[e] = rb ? bf16r(s) : s;
+  }
+}
+
 int sm_count() {
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
@@ -1808,6 +2183,74 @@ bool valid_widths(const MlpParams& P) {
   return P.n_store >= 1 && P.n_store <= P.width[P.n_layers];
 }
 
+// The backward's plan for P (BwPlan): offsets 16-byte aligned.
+BwPlan bw_plan(const MlpParams& P) {
+  BwPlan Q = {};
+  const int L = P.n_layers;
+  int off = 0, widest = 0, w = 0, mk = 0;
+  auto take = [&off](int floats) {
+    const int o = off;
+    off += (floats + 3) & ~3;
+    return o;
+  };
+  for (int l = 0; l <= L; ++l) {
+    Q.kp[l] = pad16(P.width[l]);
+    if (Q.kp[l] > widest) widest = Q.kp[l];
+  }
+  for (int l = 0; l < L; ++l) {
+    Q.wofs[l] = w;
+    w += P.width[l] * P.width[l + 1];
+    Q.wn[l] = take(Q.kp[l + 1] * Q.kp[l]);
+    Q.wt[l] = l + 1 < L ? take(Q.kp[l] * Q.kp[l + 1]) : 0;
+    Q.h[l] = take(Q.kp[l] * BW_TS);
+    Q.acc[l] = take(Q.kp[l + 1] * Q.kp[l]);
+  }
+  Q.total_w = w;
+  Q.d[0] = take(widest * BW_TS);
+  Q.d[1] = take(widest * BW_TS);
+  Q.mask_off = off;
+  for (int l = 1; l < L; ++l) {
+    Q.mask[l] = mk;
+    mk += (Q.kp[l] >> 4) * BW_TS;
+  }
+  Q.smem = off * (int)sizeof(float) + mk * (int)sizeof(unsigned short);
+  return Q;
+}
+
+// The backward kernel on persistent blocks (at most max_blocks, the
+// caller's partial rows), then the reduce of their partials into dw.
+template <int KIND>
+int launch_backward(const MlpParams& P, long long n, const void* x,
+                    const float* dirs, const float* extra, const float* g,
+                    void* dx, float* dextra, float* ddir, float* partial,
+                    int max_blocks, float* dw, cudaStream_t s) {
+  const BwPlan Q = bw_plan(P);
+  long long blocks = (n + BW_ROWS - 1) / BW_ROWS;
+  if (blocks > 0) {
+    auto kernel = mlp_backward_kernel<KIND>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Q.smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    int per_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        BW_THREADS, Q.smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    const long long cap = (long long)per_sm * sm_count();
+    if (blocks > cap) blocks = cap;
+    if (blocks > max_blocks) blocks = max_blocks;
+    kernel<<<(int)blocks, BW_THREADS, Q.smem, s>>>(P, Q, n, x, dirs, extra,
+                                                   g, dx, dextra, ddir,
+                                                   partial);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int rblocks = (Q.total_w + 255) / 256;
+  reduce_partials_kernel<<<rblocks, 256, 0, s>>>(partial, (int)blocks,
+                                                 Q.total_w, P.round_bf16, dw);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Plain C entry points, loaded with ctypes. Each copies the parameters,
@@ -1927,4 +2370,45 @@ extern "C" int nmr_encode_mlp(const EncodeParams* e, const MlpParams* p,
                                         s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The backward of nmr_mlp (mlp_backward_kernel<0>): x (n, width[0]) f32 or
+// bf16 (x_bf16), g (n, n_store) f32 the output's gradient -> dx (n,
+// width[0]) in x's dtype where not null, and dw, every layer's weight
+// gradient (width[l + 1], width[l]) f32 one after another, summed over
+// the rows without atomics (a partial per block, at most max_blocks rows
+// of partial, summed in block order), rounded once to bf16 at the bf16
+// compute dtype.
+extern "C" int nmr_mlp_backward(const MlpParams* p, long long n,
+                                const void* x, const float* g, void* dx,
+                                float* partial, int max_blocks, float* dw,
+                                void* stream) {
+  const MlpParams P = *p;
+  if (!valid_widths(P) || max_blocks < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_backward<0>(P, n, x, nullptr, nullptr, g, dx, nullptr,
+                            nullptr, partial, max_blocks, dw,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// The backward of nmr_rgb_head (mlp_backward_kernel<1>): feat, dirs and
+// extra as nmr_rgb_head takes them, g (n, 3) f32 -> dfeat (n, n_feat),
+// dextra (n, n_extra) and ddir (n, 3; n_feat a multiple of 16) f32 where
+// not null, dw as nmr_mlp_backward's (the last layer's rows past the 3
+// stored columns zero).
+extern "C" int nmr_rgb_head_backward(const MlpParams* p, long long n,
+                                     const float* feat, const float* dirs,
+                                     const float* extra, const float* g,
+                                     float* dfeat, float* dextra,
+                                     float* ddir, float* partial,
+                                     int max_blocks, float* dw,
+                                     void* stream) {
+  const MlpParams P = *p;
+  if (!valid_widths(P) || max_blocks < 1 || P.sh_degree < 1 ||
+      P.sh_degree > 4 || P.n_feat + SH_WIDTH + P.n_extra > P.width[0] ||
+      (ddir != nullptr && P.n_feat % 16 != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_backward<1>(P, n, feat, dirs, extra, g, dfeat, dextra, ddir,
+                            partial, max_blocks, dw,
+                            static_cast<cudaStream_t>(stream));
 }

@@ -11,18 +11,20 @@ src/ngp/nerf_network.cuh:75-135):
 
 Where the network runs (network_cuda.takes_kernel): a CPU tensor takes
 the plain versions (hashgrid.hash_encode, mlp.mlp_apply,
-network_cuda.rgb_head_reference); a CUDA tensor that needs no gradient
-(`not torch.is_grad_enabled()`, or no input and no parameter requires
-grad: every render, sweep, collide, bake and density query, and the
-trainer's no-grad queries) takes the CUDA kernels of csrc/network.cu:
-at the bf16 compute dtype the density half is one launch of the fused
-encode + MLP kernel (nmr_encode_mlp), at f32 the encode and the MLP
-kernels, one launch each; the rgb head is one launch. A CUDA call that
-needs gradients (the trainer's forward) takes network_cuda.HashEncode,
-whose forward and backward are the encode kernels nmr_hash_encode and
-nmr_hash_encode_backward, and the plain MLPs, which autograd
-differentiates and which count in network_cuda.plain_on_card.
-There is no fallback: a build or launch failure raises.
+network_cuda.rgb_head_reference), which autograd differentiates; a CUDA
+tensor that needs no gradient (`not torch.is_grad_enabled()`, or no
+input and no parameter requires grad: every render, sweep, collide, bake
+and density query, and the trainer's no-grad queries) takes the CUDA
+kernels of csrc/network.cu: at the bf16 compute dtype the density half
+is one launch of the fused encode + MLP kernel (nmr_encode_mlp), at f32
+the encode and the MLP kernels, one launch each; the rgb head is one
+launch. A CUDA call that needs gradients (the trainer's forward,
+network_cuda.trains_on_card) takes the autograd Functions
+network_cuda.HashEncode -> Mlp -> RgbHead: their forwards are the
+kernels nmr_hash_encode, nmr_mlp and nmr_rgb_head, their backwards
+nmr_hash_encode_backward, nmr_mlp_backward and nmr_rgb_head_backward,
+so no plain version runs on the card (network_cuda.plain_on_card stays
+0). There is no fallback: a build or launch failure raises.
 """
 
 from __future__ import annotations
@@ -120,7 +122,9 @@ class NerfNetwork(nn.Module):
         if network_cuda.trains_on_card(self.grid, pos01, *self.density_mlp):
             enc = network_cuda.HashEncode.apply(self.grid, pos01.contiguous(),
                                                 self.config, encode_dtype)
-        elif compute_dtype == torch.bfloat16:
+            return network_cuda.Mlp.apply(enc, compute_dtype,
+                                          *self.density_mlp)
+        if compute_dtype == torch.bfloat16:
             if network_cuda.takes_kernel("encode_mlp", self.grid, pos01,
                                          *self.density_mlp):
                 return network_cuda.encode_mlp(
@@ -156,6 +160,11 @@ class NerfNetwork(nn.Module):
                 self.rgb_mlp, self.config, compute_dtype,
                 None if extra is None else extra.float().contiguous(), count,
                 out)
+        if network_cuda.trains_on_card(feat, dir01, extra, *self.rgb_mlp):
+            return network_cuda.RgbHead.apply(
+                feat.float().contiguous(), dir01.float().contiguous(),
+                None if extra is None else extra.float().contiguous(),
+                self.config, compute_dtype, *self.rgb_mlp)
         if network_cuda.takes_kernel("rgb_head", feat, dir01, extra,
                                      *self.rgb_mlp):
             return network_cuda.rgb_head(

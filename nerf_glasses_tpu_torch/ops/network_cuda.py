@@ -1,5 +1,5 @@
-"""The NeRF network's inference forward: the CUDA kernels, their wrappers
-and their plain PyTorch versions.
+"""The NeRF network's kernels, forward and backward: the CUDA kernels,
+their wrappers and their plain PyTorch versions.
 
 - `hash_encode` (kernel nmr_hash_encode) is the multiresolution hash-grid
   encode, all levels in one launch (the JAX package's hash_encode,
@@ -22,21 +22,30 @@ and their plain PyTorch versions.
   backward `hash_encode_backward` (JAX: jax.vjp of hashgrid.hash_encode,
   the gathers' transpose; plain `hash_encode_backward_reference`, the
   autograd of hashgrid.hash_encode with index_add_).
+- `mlp_backward` (nmr_mlp_backward) and `rgb_head_backward`
+  (nmr_rgb_head_backward) are the MLPs' gradients: the input's (for the
+  rgb head the features', the codes' and through the SH encode the
+  directions') and every weight's, the hidden layers recomputed from the input rows, the weight
+  gradients summed over the rows without atomics (JAX: jax.vjp of
+  mlp_apply and of network._rgb_head; plain `mlp_backward_reference`,
+  `rgb_head_backward_reference`, autograd's of the plain forwards bit
+  for bit). `Mlp` and `RgbHead` are the MLPs as autograd sees them, the
+  forward kernels with these backwards.
 None was a Pallas kernel: the JAX package leaves the network to XLA.
-At the bf16 compute dtype the MLP kernels run every layer on the
+At the bf16 compute dtype the MLP forwards run every layer on the
 tensor cores (wgmma, bf16 operands, f32 sums); at f32 on the CUDA cores
-(f32 fmaf), as the f32 contract needs.
+(f32 fmaf), as the f32 contract needs. The backwards run on the CUDA
+cores at both (bf16-rounded operands, f32 products and sums).
 
 The routing rule (`takes_kernel`, applied by ops/network.NerfNetwork):
 a CPU tensor takes the plain version; a CUDA tensor that needs no
 gradient (`not torch.is_grad_enabled()`, or no input and no parameter
-requires grad) takes the kernel; a CUDA call that needs gradients (the
-trainer's forward) takes the plain version and counts in
-`plain_on_card`. NerfNetwork.density_raw asks for `encode_mlp` at the
-bf16 compute dtype and for `hash_encode` and `mlp` at f32; a CUDA call
-of density_raw that needs gradients (`trains_on_card`) takes HashEncode
-(the two encode kernels) and then the plain MLP, which counts in
-plain_on_card["mlp"]. The wrappers
+requires grad) takes the kernel. NerfNetwork.density_raw asks for
+`encode_mlp` at the bf16 compute dtype and for `hash_encode` and `mlp`
+at f32; a CUDA call that needs gradients (`trains_on_card`: the
+trainer's forward) takes HashEncode, Mlp and RgbHead, whose forwards and
+backwards are kernels, so no plain version runs on the card
+(`plain_on_card`, which counts any that does, stays 0). The wrappers
 themselves launch on a CUDA tensor or raise, and run the plain version
 on a CPU tensor; there is no fallback from one to the other. Each
 counts its launches in `launches[name]`.
@@ -52,10 +61,13 @@ bit (the same corner sums, the same bf16 A tile, the same wgmma chain). The
 kernels keep the plain versions' rounding points and sum the 8 corners
 and the MLP products in another order than aten (the tensor cores also
 at their own internal precision): that is the one source of
-difference. The backward (`compare_gradients`): the table's gradient
-within 1e-5 of its largest magnitude, the positions' within 1e-5 of
-theirs (the atomic adds sum each row in no fixed order, as the card's
-index_add_ does).
+difference. The encode's backward (`compare_gradients`): the table's
+gradient within 1e-5 of its largest magnitude, the positions' within
+1e-5 of theirs (the atomic adds sum each row in no fixed order, as the
+card's index_add_ does). The MLPs' backwards (`compare_backward`): every
+gradient within 1e-5 of its array's largest magnitude, at bf16 compute
+also one bf16 step of the value, on the rows whose ReLU masks no
+rounding decides (`marginal_rows`).
 """
 
 from __future__ import annotations
@@ -101,9 +113,10 @@ MLP_BF16_CAP = 4 * MLP_BF16_ATOL
 GRAD_REL = 1e-5
 
 KERNELS = ("hash_encode", "mlp", "rgb_head", "encode_mlp",
-           "hash_encode_backward")
+           "hash_encode_backward", "mlp_backward", "rgb_head_backward")
 # Kernel launches per wrapper (CUDA tensors only), and calls on a CUDA
-# tensor that took the plain version because they need gradients.
+# tensor that took a plain version (none on any path of the package: a
+# call that needs gradients takes the autograd Functions).
 launches = dict.fromkeys(KERNELS, 0)
 plain_on_card = dict.fromkeys(KERNELS, 0)
 
@@ -146,7 +159,10 @@ def load_library() -> ctypes.CDLL:
         ("nmr_mlp", [p, ll, p, p, p, p], i),
         ("nmr_rgb_head", [p, ll, p, p, p, p, p, p], i),
         ("nmr_encode_mlp", [p, p, ll, p, p, p, p, p], i),
-        ("nmr_hash_encode_backward", [p, ll, p, p, p, p, p, p], i)])
+        ("nmr_hash_encode_backward", [p, ll, p, p, p, p, p, p], i),
+        ("nmr_mlp_backward", [p, ll, p, p, p, p, i, p, p], i),
+        ("nmr_rgb_head_backward", [p, ll, p, p, p, p, p, p, p, p, i, p,
+                                   p], i)])
     return _lib
 
 
@@ -155,10 +171,12 @@ def load_library() -> ctypes.CDLL:
 # ---------------------------------------------------------------------------
 
 def takes_kernel(name: str, *tensors) -> bool:
-    """True where kernel `name` serves a call on `tensors` (None entries
-    skipped; the first one's device decides): a CUDA tensor with no
-    gradient needed. A CUDA call that needs gradients is counted in
-    plain_on_card[name] and takes the plain version, as CPU tensors do."""
+    """True where the no-grad kernel `name` serves a call on `tensors`
+    (None entries skipped; the first one's device decides): a CUDA tensor
+    with no gradient needed. A CUDA call that needs gradients takes the
+    autograd Functions (trains_on_card), which NerfNetwork asks first;
+    one that reaches this rule anyway is counted in plain_on_card[name]
+    and takes the plain version, as CPU tensors do."""
     if tensors[0].device.type != "cuda":
         return False
     if trains_on_card(*tensors):
@@ -170,7 +188,7 @@ def takes_kernel(name: str, *tensors) -> bool:
 def trains_on_card(*tensors) -> bool:
     """True where a call on `tensors` (None entries skipped; the first
     one's device decides) needs gradients on a CUDA tensor: the trainer's
-    forward, whose hash encode takes HashEncode."""
+    forward, which takes HashEncode, Mlp and RgbHead."""
     return (tensors[0].device.type == "cuda" and torch.is_grad_enabled()
             and any(t is not None and t.requires_grad for t in tensors))
 
@@ -287,6 +305,76 @@ def rgb_head_reference(feat, dir01, weights, config: NGPConfig,
     """rgb_row through the rgb MLP -> rgb_raw (N, 3) f32."""
     return mlp_apply(rgb_row(feat, dir01, config, extra), weights,
                      compute_dtype=compute_dtype)[..., :3]
+
+
+def mlp_backward_reference(x, weights, grad, compute_dtype=torch.bfloat16,
+                           need_x: bool = True):
+    """The gradient of mlp_reference(x, weights)'s output `grad` (N,
+    n_out) f32 -> (dx in x's dtype or None, [dW (n_out, n_in) f32 a
+    layer]), autograd's of mlp_apply bit for bit: the hidden layers again,
+    then from the last layer down dW = g^T h rounded to the compute dtype
+    (the backward of w.to(cd).float()), the delta g W rounded to it (of
+    h.to(cd).float()) and masked where the ReLU's output is <= 0; dx the
+    input's delta rounded to the compute dtype and to x's."""
+    cd = compute_dtype
+    h = x.to(cd).float()
+    wb = [w.to(cd).float() for w in weights]
+    hs, ys = [h], []
+    for w in wb[:-1]:
+        y = torch.relu(h @ w.T)
+        ys.append(y)
+        h = y.to(cd).float()
+        hs.append(h)
+    g, dx = grad, None
+    dws = [None] * len(weights)
+    for lvl in reversed(range(len(weights))):
+        dws[lvl] = g.t().mm(hs[lvl]).to(cd).float()
+        if lvl == 0 and not need_x:
+            break
+        dh = g.mm(wb[lvl])
+        if lvl == 0:
+            dx = (dh if cd == torch.float32 and x.dtype == torch.float32
+                  else dh.to(cd).to(x.dtype))
+            break
+        g = torch.where(ys[lvl - 1] <= 0.0, 0.0, dh.to(cd).float())
+    return dx, dws
+
+
+def rgb_head_backward_reference(feat, dir01, weights, config: NGPConfig,
+                                grad, compute_dtype=torch.bfloat16,
+                                extra=None, need_feat: bool = True,
+                                need_extra: bool = False,
+                                need_dir: bool = False):
+    """The gradient of rgb_head_reference's output `grad` (N, 3) f32 ->
+    (d_feat (N, density_out) f32 or None, d_dir (N, 3) f32 or None,
+    d_extra (extra's shape) or None, [dW a layer]), autograd's bit for
+    bit: the 3 stored columns' gradient and zeros for the rest (the last
+    layer's rows 3-15 get none), mlp_backward_reference on the rgb row,
+    the row's gradient cut into the features', the SH columns' (through
+    autograd of sh_encode to the directions, where they need it: the
+    extrinsics or the distortion train) and the codes' (summed over the
+    rows where one code row serves them all)."""
+    row = rgb_row(feat, dir01, config, extra)
+    g = torch.zeros((grad.shape[0], weights[-1].shape[0]), dtype=grad.dtype,
+                    device=grad.device)
+    g[:, :3] = grad
+    drow, dws = mlp_backward_reference(row, weights, g, compute_dtype,
+                                       need_feat or need_extra or need_dir)
+    w0 = feat.shape[1]
+    d_feat = drow[:, :w0] if need_feat else None
+    d_dir = d_extra = None
+    if need_dir:
+        with torch.enable_grad():
+            d = dir01.detach().requires_grad_(True)
+            sh = sh_encode(d, config.sh_degree, config.sh_out_padded)
+            (d_dir,) = torch.autograd.grad(
+                sh, d, drow[:, w0:w0 + config.sh_out_padded])
+    if need_extra:
+        w1 = w0 + config.sh_out_padded
+        d_extra = drow[:, w1:w1 + config.n_extra_learnable_dims]
+        if extra.dim() == 1 or extra.shape[0] != feat.shape[0]:
+            d_extra = d_extra.sum(0, keepdim=True).reshape(extra.shape)
+    return d_feat, d_dir, d_extra, dws
 
 
 # ---------------------------------------------------------------------------
@@ -610,6 +698,164 @@ def rgb_head(feat, dir01, weights, config: NGPConfig,
     return out
 
 
+@functools.lru_cache(maxsize=8)
+def _backward_blocks(index: int) -> int:
+    """The most blocks a backward launch takes (two an SM): the rows of
+    its partial sums."""
+    return 2 * torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _backward_out(weights, dev):
+    """([each layer's weight gradient: an (n_out, n_in) view of one flat
+    f32 buffer, the layers one after another], the launch's partial
+    sums)."""
+    sizes = [w.numel() for w in weights]
+    flat = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
+    views = [v.view(w.shape) for v, w in zip(torch.split(flat, sizes),
+                                              weights)]
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    partial = torch.empty((_backward_blocks(index), flat.numel()),
+                          dtype=torch.float32, device=dev)
+    return views, partial
+
+
+def mlp_backward(x, weights, grad, compute_dtype=torch.bfloat16,
+                 need_x: bool = True):
+    """The gradient of mlp(x, weights)'s output `grad` (N, n_out) f32 ->
+    (dx (N, n_in) in x's dtype or None, [dW (n_out, n_in) f32 a layer]),
+    as mlp_backward_reference; takes what mlp takes. On a CUDA tensor one
+    call of nmr_mlp_backward (the backward kernel and the reduce of its
+    blocks' partial weight gradients: no atomics); on a CPU tensor the
+    plain version."""
+    dev = _device("mlp_backward", x)
+    _dtype("mlp_backward", compute_dtype)
+    _check("x", x, DTYPES, (None, None), dev)
+    params = _mlp_params("mlp_backward", weights, x.shape[1], dev,
+                         compute_dtype, x_bf16=int(x.dtype == torch.bfloat16),
+                         n_store=weights[-1].shape[0])
+    n = x.shape[0]
+    _check("grad", grad, (torch.float32,), (n, params.n_store), dev)
+    if dev.type == "cpu":
+        return mlp_backward_reference(x, weights, grad, compute_dtype, need_x)
+    views, partial = _backward_out(weights, dev)
+    dx = torch.empty_like(x) if need_x else None
+    _launch("mlp_backward", load_library().nmr_mlp_backward, dev, params, n,
+            x.data_ptr(), grad.data_ptr(), _ptr(dx), partial.data_ptr(),
+            partial.shape[0], views[0].data_ptr())
+    return dx, views
+
+
+def rgb_head_backward(feat, dir01, weights, config: NGPConfig, grad,
+                      compute_dtype=torch.bfloat16, extra=None,
+                      need_feat: bool = True, need_extra: bool = False,
+                      need_dir: bool = False):
+    """The gradient of rgb_head's output `grad` (N, 3) f32 -> (d_feat (N,
+    density_out) f32 or None, d_dir (N, 3) f32 or None, d_extra (extra's
+    shape) f32 or None, [dW a layer]), as rgb_head_backward_reference;
+    takes what rgb_head takes. On a CUDA tensor one call of
+    nmr_rgb_head_backward (the SH encode's derivative written out in the
+    kernel for the directions; the codes' gradient a row, summed over the
+    rows by aten where one code row serves them all); on a CPU tensor the
+    plain version."""
+    dev = _device("rgb_head_backward", feat)
+    _dtype("rgb_head_backward", compute_dtype)
+    n = feat.shape[0]
+    _check("feat", feat, (torch.float32,), (None, None), dev)
+    _check("dir01", dir01, (torch.float32,), (n, 3), dev)
+    _check("grad", grad, (torch.float32,), (n, 3), dev)
+    E = config.n_extra_learnable_dims
+    rows = 0
+    if extra is not None:
+        if extra.dim() == 1:
+            _check("extra", extra, (torch.float32,), (E,), dev)
+        else:
+            _check("extra", extra, (torch.float32,), (None, E), dev)
+            rows = int(extra.shape[0] == n and n > 1)
+    elif need_extra:
+        raise ValueError("rgb_head_backward: need_extra without codes")
+    if feat.shape[1] + config.sh_out_padded + E > config.rgb_in_width:
+        raise ValueError(f"rgb_head_backward: {feat.shape[1]} features + SH "
+                         f"+ {E} codes exceed rgb_in_width "
+                         f"{config.rgb_in_width}")
+    params = _mlp_params("rgb_head_backward", weights, config.rgb_in_width,
+                         dev, compute_dtype, n_store=3, n_feat=feat.shape[1],
+                         sh_degree=config.sh_degree,
+                         n_extra=0 if extra is None else E, extra_rows=rows)
+    if need_dir and feat.shape[1] % 16:
+        raise ValueError(f"rgb_head_backward: the directions' gradient "
+                         f"takes features in groups of 16, got "
+                         f"{feat.shape[1]}")
+    if dev.type == "cpu":
+        return rgb_head_backward_reference(feat, dir01, weights, config, grad,
+                                           compute_dtype, extra, need_feat,
+                                           need_extra, need_dir)
+    views, partial = _backward_out(weights, dev)
+    d_feat = torch.empty_like(feat) if need_feat else None
+    d_dir = torch.empty_like(dir01) if need_dir else None
+    d_rows = (torch.empty((n, E), dtype=torch.float32, device=dev)
+              if need_extra else None)
+    _launch("rgb_head_backward", load_library().nmr_rgb_head_backward, dev,
+            params, n, feat.data_ptr(), dir01.data_ptr(), _ptr(extra),
+            grad.data_ptr(), _ptr(d_feat), _ptr(d_rows), _ptr(d_dir),
+            partial.data_ptr(), partial.shape[0], views[0].data_ptr())
+    d_extra = d_rows
+    if need_extra and not rows:
+        d_extra = d_rows.sum(0, keepdim=True).reshape(extra.shape)
+    return d_feat, d_dir, d_extra, views
+
+
+class Mlp(torch.autograd.Function):
+    """The density MLP as autograd sees it: Mlp.apply(x, compute_dtype,
+    *weights) -> mlp's (N, n_out) f32. Its forward is mlp (nmr_mlp: the
+    tensor-core body at bf16, the register-tiled one at f32), which saves
+    the input rows and the weights; its backward is mlp_backward
+    (nmr_mlp_backward recomputes the hidden layers from them). On CPU
+    tensors both are the plain versions."""
+
+    @staticmethod
+    def forward(ctx, x, compute_dtype, *weights):
+        ctx.save_for_backward(x, *weights)
+        ctx.compute_dtype = compute_dtype
+        return mlp(x, weights, compute_dtype)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        x, *weights = ctx.saved_tensors
+        dx, dws = mlp_backward(x, weights, grad.contiguous(),
+                               ctx.compute_dtype, ctx.needs_input_grad[0])
+        return (dx, None, *(d if need else None for d, need in
+                            zip(dws, ctx.needs_input_grad[2:])))
+
+
+class RgbHead(torch.autograd.Function):
+    """The rgb head as autograd sees it: RgbHead.apply(feat, dir01, extra,
+    config, compute_dtype, *weights) -> rgb_head's (N, 3) f32, extra None
+    or the codes. Its forward is rgb_head (nmr_rgb_head), its backward
+    rgb_head_backward (nmr_rgb_head_backward): the features', the weights'
+    and, where they need them, the directions' (the extrinsics or the
+    distortion train) and the codes' gradients. On CPU tensors both are
+    the plain versions."""
+
+    @staticmethod
+    def forward(ctx, feat, dir01, extra, config, compute_dtype, *weights):
+        ctx.save_for_backward(feat, dir01, extra, *weights)
+        ctx.config, ctx.compute_dtype = config, compute_dtype
+        return rgb_head(feat, dir01, weights, config, compute_dtype, extra)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        feat, dir01, extra, *weights = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        d_feat, d_dir, d_extra, dws = rgb_head_backward(
+            feat, dir01, weights, ctx.config, grad.contiguous(),
+            ctx.compute_dtype, extra, need[0], extra is not None and need[2],
+            need[1])
+        return (d_feat, d_dir, d_extra, None, None,
+                *(d if n else None for d, n in zip(dws, need[5:])))
+
+
 # ---------------------------------------------------------------------------
 # The contract
 # ---------------------------------------------------------------------------
@@ -677,6 +923,70 @@ def compare_gradients(out_k, out_p) -> dict:
                      "nan": nan}
         res["ok"] &= nan == 0 and rel <= GRAD_REL
     return res
+
+
+def compare_backward(out_k, out_p, compute_dtype) -> dict:
+    """An MLP backward's outputs (each a tensor, a list of them or None:
+    the input's gradient, the weights') against its plain version's on
+    the same inputs -> per array the worst difference over the plain
+    array's largest magnitude, and `ok`: every value within GRAD_REL of
+    that magnitude (the f32 sums run in another order), at the bf16
+    compute dtype also one bf16 step of the larger of the two values (the
+    sums round to bf16 once, either side of a midpoint); no NaN.
+
+    The kernel's ReLU masks are its own pre-activations': where one of
+    the plain version's is within rounding of zero the two may mask apart
+    and that row's gradient differ by far more; marginal_rows finds those
+    rows, to be left out of both calls before the comparison."""
+    flat_k, flat_p = [], []
+    for k, p in zip(out_k, out_p):
+        if p is None:
+            continue
+        if torch.is_tensor(p):
+            k, p = [k], [p]
+        flat_k += list(k)
+        flat_p += list(p)
+    res = {"ok": True, "arrays": []}
+    for k, p in zip(flat_k, flat_p):
+        k, p = k.float(), p.float()
+        scale = float(p.abs().max()) if p.numel() else 0.0
+        tol = GRAD_REL * scale
+        if compute_dtype == torch.bfloat16:
+            tol = tol + bf16_ulp(torch.maximum(k.abs(), p.abs()))
+        diff = (k - p).abs()
+        nan = int(torch.isnan(k).sum()) + int(torch.isnan(p).sum())
+        err = float(diff.max()) if p.numel() else 0.0
+        bad = int((diff > tol).sum()) if p.numel() else 0
+        res["arrays"].append({"shape": tuple(p.shape), "max_abs_err": err,
+                              "max_abs": scale,
+                              "rel": err / scale if scale > 0 else err,
+                              "bad": bad, "nan": nan})
+        res["ok"] &= nan == 0 and bad == 0
+    res["max_abs_err"] = max((a["max_abs_err"] for a in res["arrays"]),
+                             default=0.0)
+    return res
+
+
+# a pre-activation within this share of the sum of its terms' magnitudes
+# of zero: its sign is the sums' rounding's (compare_backward)
+MARGIN_REL = 1e-5
+
+
+def marginal_rows(rows, weights, compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """(N,) bool: the rows (the MLP's input rows; rgb_row for the rgb
+    head) with a hidden pre-activation of the plain version within
+    MARGIN_REL x sum_k |h_k w_k| of zero, whose ReLU mask the order of the
+    f32 sum decides."""
+    cd = compute_dtype
+    h = rows.to(cd).float()
+    out = torch.zeros(rows.shape[0], dtype=torch.bool, device=rows.device)
+    for w in weights[:-1]:
+        wb = w.to(cd).float()
+        pre = h @ wb.T
+        mag = h.abs() @ wb.abs().T
+        out |= ((pre.abs() <= MARGIN_REL * mag) & (mag > 0)).any(dim=1)
+        h = torch.relu(pre).to(cd).float()
+    return out
 
 
 def bf16_step_bound(rows, weights) -> torch.Tensor:
@@ -818,3 +1128,44 @@ def rgb_head_work(feat, dir01, weights, extra=None):
     codes = 0 if extra is None else extra.numel() * 4
     return (n * (2 * macs + 60),
             n * (feat.shape[1] * 4 + 12 + 12) + 4 * macs + codes)
+
+
+def mlp_backward_work(x, weights, compute_dtype=torch.bfloat16):
+    """The density MLP's backward's least work on these inputs ->
+    (flops, bytes, peak): the hidden layers again, the deltas through
+    every layer and every weight gradient (2 a multiply-add); x and the
+    output's gradient read once, dx written once in x's dtype, the
+    weights read and their gradients written once; the tensor cores'
+    bf16 peak at the bf16 compute dtype (bf16 operands), the f32 peak
+    else."""
+    n = x.shape[0]
+    macs = sum(w.shape[0] * w.shape[1] for w in weights)
+    hidden = sum(w.shape[0] * w.shape[1] for w in weights[:-1])
+    nbytes = (2 * n * x.shape[1] * x.element_size()
+              + 4 * n * weights[-1].shape[0] + 8 * macs)
+    return (2 * n * (hidden + 2 * macs), nbytes,
+            _peak(compute_dtype))
+
+
+def rgb_head_backward_work(feat, dir01, weights, compute_dtype=torch.bfloat16,
+                           extra=None):
+    """The rgb head's backward's least work on these inputs -> (flops,
+    bytes, peak): the hidden layers again, the deltas down to the row and
+    the weight gradients, the last layer's 3 stored columns only (2 a
+    multiply-add), ~60 SH flops a row; feat, dir01, the codes and the (N,
+    3) gradient read once, the features' gradient written once, the
+    weights read and their gradients written once; peak as
+    mlp_backward_work's."""
+    n = feat.shape[0]
+    hidden = sum(w.shape[0] * w.shape[1] for w in weights[:-1])
+    last = 3 * weights[-1].shape[1]
+    macs = sum(w.shape[0] * w.shape[1] for w in weights)
+    codes = 0 if extra is None else extra.numel() * 4
+    return (n * (2 * (hidden + 2 * (hidden + last)) + 60),
+            n * (2 * feat.shape[1] * 4 + 12 + 12) + codes + 8 * macs,
+            _peak(compute_dtype))
+
+
+def _peak(compute_dtype) -> float:
+    """FLOP/s: 989e12 for bf16 operands (the tensor cores), 67e12 f32."""
+    return 989e12 if compute_dtype == torch.bfloat16 else 67e12

@@ -777,13 +777,65 @@ graph_counts = {"captures": 0, "replays": 0, "nodes": 0, "kernels": 0}
 
 @dataclasses.dataclass
 class BlockGraph:
-    """A block's captured CUDA graph: its nodes, kernel nodes among them,
-    and the wrappers' launches it holds ({module name: {wrapper: n}}),
-    added to their counts at each replay."""
+    """A captured CUDA graph (capture_graph): its nodes, kernel nodes among
+    them, and the wrappers' launches it holds ({module name: {wrapper:
+    n}}), added to `modules`' counts at each replay."""
     graph: object
     nodes: int
     kernels: int
     launches: dict
+    modules: tuple = ()
+
+    def replay(self):
+        """One replay on the current stream, its launches counted (the
+        wrappers' counts; graph_counts, which chip_smoke's op_counts
+        reads)."""
+        self.graph.replay()
+        for m in self.modules:
+            for k, v in self.launches.get(_short(m), {}).items():
+                m.launches[k] += v
+        graph_counts["replays"] += 1
+        graph_counts["nodes"] += self.nodes
+        graph_counts["kernels"] += self.kernels
+
+
+def _short(module) -> str:
+    return module.__name__.rsplit(".", 1)[-1]
+
+
+def capture_graph(fn, stream, modules, what: str):
+    """fn() captured as a CUDA graph on `stream`, a side stream that waits
+    for the current one's work, as torch.cuda.graph captures, without its
+    synchronize and its emptying of the allocator's caches (work after a
+    capture then allocates from them as before), in the thread-local mode
+    (another thread's work on the card is not refused) -> (BlockGraph,
+    fn's result, whose tensors each replay writes). It runs nothing: the
+    launch counts of `modules`' wrappers are put back. A capture that
+    fails raises."""
+    before = {m: dict(m.launches) for m in modules}
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    main = torch.cuda.current_stream(stream.device)
+    stream.wait_stream(main)
+    try:
+        with torch.cuda.stream(stream):
+            g.capture_begin(capture_error_mode="thread_local")
+            try:
+                out = fn()
+            finally:
+                g.capture_end()
+    except Exception as err:
+        raise RuntimeError(f"{what} did not capture as a CUDA graph: "
+                           f"{err}") from err
+    finally:
+        main.wait_stream(stream)
+        grew = {_short(m): {k: v - before[m][k] for k, v in m.launches.items()
+                            if v != before[m][k]} for m in modules}
+        for m in modules:
+            m.launches.update(before[m])
+    nodes, kernels = march_cuda.graph_nodes(g.raw_cuda_graph())
+    g.instantiate()
+    graph_counts["captures"] += 1
+    return BlockGraph(g, nodes, kernels, grew, tuple(modules)), out
 
 
 class ListMarch:
@@ -870,53 +922,16 @@ class ListMarch:
         return cur
 
     def capture(self, net, scene, opts: MarchOptions, e: int) -> BlockGraph:
-        """run(e, 0) captured as a CUDA graph (it runs nothing: the
-        wrappers' launch counts are put back) -> the block's graph. A
-        capture that fails raises."""
-        counts = {"march_cuda": march_cuda.launches,
-                  "network_cuda": network_cuda.launches}
-        before = {m: dict(c) for m, c in counts.items()}
-        g = torch.cuda.CUDAGraph(keep_graph=True)
-        # on a side stream that waits for the frame's work, as
-        # torch.cuda.graph captures, without its synchronize and its
-        # emptying of the allocator's caches (a frame after a capture then
-        # allocates from them as before)
-        dev = self.ctl.device
-        main = torch.cuda.current_stream(dev)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(main)
-        try:
-            with torch.cuda.stream(side):
-                g.capture_begin(capture_error_mode="thread_local")
-                try:
-                    self.run(net, scene, opts, e, 0)
-                finally:
-                    g.capture_end()
-        except Exception as err:
-            raise RuntimeError(f"the list march's block of {e} epochs did "
-                               f"not capture as a CUDA graph: {err}") from err
-        finally:
-            main.wait_stream(side)
-            grew = {m: {k: v - before[m][k] for k, v in c.items()
-                        if v != before[m][k]} for m, c in counts.items()}
-            for m, c in counts.items():
-                c.update(before[m])
-        nodes, kernels = march_cuda.graph_nodes(g.raw_cuda_graph())
-        g.instantiate()
-        graph_counts["captures"] += 1
-        return BlockGraph(g, nodes, kernels, grew)
+        """run(e, 0) captured as a CUDA graph (capture_graph: it runs
+        nothing) -> the block's graph. A capture that fails raises."""
+        return capture_graph(
+            lambda: self.run(net, scene, opts, e, 0),
+            torch.cuda.Stream(self.ctl.device), (march_cuda, network_cuda),
+            f"the list march's block of {e} epochs")[0]
 
     def replay(self, e: int):
         """One replay of the block of e epochs, its launches counted."""
-        b = self.graphs[e]
-        b.graph.replay()
-        for m, counts in (("march_cuda", march_cuda.launches),
-                          ("network_cuda", network_cuda.launches)):
-            for k, v in b.launches.get(m, {}).items():
-                counts[k] += v
-        graph_counts["replays"] += 1
-        graph_counts["nodes"] += b.nodes
-        graph_counts["kernels"] += b.kernels
+        self.graphs[e].replay()
 
 
 _LIST_CACHE: "Dict[tuple, ListMarch]" = {}

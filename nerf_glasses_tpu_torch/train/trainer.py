@@ -14,8 +14,12 @@ Port of nerf_glasses_tpu/train/trainer.py, the default TrainOptions path:
   front-to-back composite against a random background or a trainable
   envmap, the tcnn loss menu, depth supervision;
 - the backward pass by autograd (the hash gathers' gradient is an index
-  scatter-add into the table), Adam with tcnn's hyperparameters and
-  ExponentialDecay, l2_reg on the MLP weights only;
+  scatter-add into the table; on the card the network's forward and
+  backward are the hand kernels of ops/network_cuda.py, through its
+  autograd Functions), Adam with tcnn's hyperparameters and
+  ExponentialDecay, l2_reg on the MLP weights only (one launch of the
+  ops/adam_cuda.py kernel on the card, which reads the step's learning
+  rate from device memory);
 - every `grid_update_interval` steps an EMA decay plus scatter-max of
   optical thickness into the density grid, and the occupancy rebuild;
 - the trainable auxiliary models (upstream's per-image AdamOptimizers
@@ -32,7 +36,11 @@ explicit `torch.Generator` (`draw_pixels`, `draw_step`,
 `draw_grid_update`) and a deterministic body that takes the draws as
 tensors, so that the JAX package's own draws can be fed to the bodies.
 The step loop is plain Python with no host read per step: losses stay
-on the device and come back in one fetch per `train` call.
+on the device and come back in one fetch per `train` call. The step
+keeps its state in place (parameters, moments, the density grid and
+occupancy, the error map, the loss EMA), so that on the card
+`Trainer.train` replays a settled step as one captured CUDA graph (the
+rule is in `Trainer.train`'s docstring).
 """
 
 from __future__ import annotations
@@ -46,7 +54,8 @@ import torch
 from nerf_glasses_tpu_torch import constants as C
 from nerf_glasses_tpu_torch.config import NGPConfig
 from nerf_glasses_tpu_torch.io.dataset import NerfDataset
-from nerf_glasses_tpu_torch.ops import march_cuda
+from nerf_glasses_tpu_torch.ops import adam_cuda, march_cuda, network_cuda
+from nerf_glasses_tpu_torch.ops import raymarch
 from nerf_glasses_tpu_torch.ops import occupancy as occ_ops
 from nerf_glasses_tpu_torch.ops.colors import linear_to_srgb
 from nerf_glasses_tpu_torch.ops.compaction import stable_partition_perm
@@ -276,6 +285,35 @@ def draw_step(gen: torch.Generator, state, data, opts: TrainOptions):
     return d
 
 
+def step_draw_buffers(data, opts: TrainOptions, error_map: bool):
+    """Empty tensors of one step's draws (draw_step's keys, shapes and
+    types) on the images' device, for draw_step_into."""
+    B, S = opts.rays_per_batch, opts.samples_per_ray
+    dev = data["images"].device
+    out = {k: torch.empty((B,), dtype=torch.int64, device=dev)
+           for k in ("img", "px", "py")}
+    if error_map:
+        for k in ("u_cdf", "ux", "uy"):
+            out[k] = torch.empty((B,), device=dev)
+    out["u"] = torch.empty((S, B), device=dev)
+    if opts.random_bg:
+        out["bg"] = torch.empty((B, 3), device=dev)
+    return out
+
+
+def draw_step_into(gen: torch.Generator, out, data):
+    """draw_step's draws written in place into `out` (step_draw_buffers),
+    in draw_step's order: `random_` and `uniform_` on the generator give
+    torch.randint's and torch.rand's values -> out."""
+    n_img, h, w = data["images"].shape[:3]
+    for k, hi in (("img", n_img), ("px", w), ("py", h)):
+        out[k].random_(0, hi, generator=gen)
+    for k in ("u_cdf", "ux", "uy", "u", "bg"):
+        if k in out:
+            out[k].uniform_(0.0, 1.0, generator=gen)
+    return out
+
+
 def draw_grid_update(gen: torch.Generator, n: int, n_casc: int, device):
     """The density-grid refresh's draws: cascade (n,), cell (n, 3) and
     jitter (n, 3)."""
@@ -493,8 +531,43 @@ def compact_sample_sel(state, data, img, px, py, samples,
 
 
 def _exclusive_cumprod(x):
-    """(S, B) -> exclusive product over axis 0 (first row ones)."""
-    return torch.cat([torch.ones_like(x[:1]), torch.cumprod(x, 0)[:-1]], 0)
+    """(S, B) -> exclusive product over axis 0 (first row ones). Where x
+    lies on the card and needs a gradient, the product is _Cumprod's."""
+    if x.is_cuda and x.requires_grad and torch.is_grad_enabled():
+        prod = _Cumprod.apply(x)
+    else:
+        prod = torch.cumprod(x, 0)
+    return torch.cat([torch.ones_like(x[:1]), prod[:-1]], 0)
+
+
+class _Cumprod(torch.autograd.Function):
+    """torch.cumprod(x, 0) with a backward that reads nothing back to the
+    host: aten's asks the host whether x holds a zero (a read that a
+    captured CUDA graph cannot hold). The same gradient without the
+    read: in a column with no zero, aten's own formula (the reversed
+    cumulative sum of out * grad over x, the same operations); before a
+    column's first zero z the same; at z, prod_{j<z} x_j times
+    sum_{i>=z} grad_i prod_{z<j<=i} x_j; after z, zero."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.cumprod(x, 0)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        x, out = ctx.saved_tensors
+        simple = (out * grad).flip(0).cumsum(0).flip(0).div(x)
+        seen = (x == 0).cumsum(0)
+        first = (x == 0) & (seen == 1)
+        before = seen == 0
+        tail = torch.cumprod(torch.where(before | first, 1.0, x), 0)
+        at = (torch.where(first, torch.cat([torch.ones_like(out[:1]),
+                                            out[:-1]], 0), 0.0).sum(0)
+              * torch.where(before, 0.0, grad * tail).sum(0))
+        return torch.where(before, simple, torch.where(first, at[None], 0.0))
 
 
 def forward_rays(net: NerfNetwork, samples, o, d, bg, opts: TrainOptions,
@@ -595,23 +668,41 @@ def _adam_corr(step: int, opts: TrainOptions) -> np.float32:
             / (np.float32(1.0) - np.float32(opts.beta1) ** t))
 
 
-def adam_update(net: NerfNetwork, grads, opt, step: int, opts: TrainOptions):
-    """One Adam step on `net`'s parameters in place. The bias correction
-    and the learning rate are f32 host scalars; the hash table takes no
-    l2 regularisation."""
-    b1, b2 = opts.beta1, opts.beta2
-    lr_corr = float(np.float32(_learning_rate(step, opts)
-                               * _adam_corr(step, opts)))
+def adam_lr(step: int, opts: TrainOptions) -> float:
+    """The learning rate times Adam's bias correction at `step`, an f32
+    value (both f32 host scalars)."""
+    return float(np.float32(_learning_rate(step, opts)
+                            * _adam_corr(step, opts)))
+
+
+def lr_tensor(steps, opts: TrainOptions, device) -> torch.Tensor:
+    """adam_lr of each step in `steps` -> (len,) f32 on `device`: on the
+    card one copy from pinned memory, with no wait on the host."""
+    vals = torch.tensor([adam_lr(s, opts) for s in steps],
+                        dtype=torch.float32)
+    if torch.device(device).type != "cuda":
+        return vals.to(device)
+    return vals.pin_memory().to(device, non_blocking=True)
+
+
+def adam_update(net: NerfNetwork, grads, opt, step: int, opts: TrainOptions,
+                lr_corr: torch.Tensor = None):
+    """One Adam step on `net`'s parameters in place
+    (ops/adam_cuda.adam: on the card one launch for all of them, on the
+    CPU its plain version, the former aten update bit for bit). lr_corr:
+    one f32 on the parameters' device holding adam_lr(step, opts), which
+    the kernel reads when it runs; None makes it from `step`. The hash
+    table takes no l2 regularisation."""
+    names, params = zip(*net.named_parameters())
+    if lr_corr is None:
+        lr_corr = lr_tensor([step], opts, params[0].device)
     with torch.no_grad():
-        for name, p in net.named_parameters():
-            g = grads[name]
-            if name != "grid" and opts.l2_reg:
-                g = g + opts.l2_reg * p
-            m = opt["m"][name]
-            v = opt["v"][name]
-            m.copy_(b1 * m + (1 - b1) * g)
-            v.copy_(b2 * v + (1 - b2) * g * g)
-            p.sub_(lr_corr * m / (torch.sqrt(v) + opts.eps))
+        adam_cuda.adam([p.detach() for p in params],
+                       [grads[n] for n in names],
+                       [opt["m"][n] for n in names],
+                       [opt["v"][n] for n in names],
+                       [0.0 if n == "grid" else opts.l2_reg for n in names],
+                       lr_corr, opts.beta1, opts.beta2, opts.eps)
 
 
 def _aux_lr(key: str, opts: TrainOptions) -> float:
@@ -727,12 +818,16 @@ def _mean_over_ranks(mesh, loss, grads, aux_grads):
             dict(zip(keys, out[1 + len(names):])))
 
 
-def _train_step_body(state, data, opts: TrainOptions, draws, mesh=None):
+def _train_step_body(state, data, opts: TrainOptions, draws, mesh=None,
+                     lr_corr: torch.Tensor = None):
     """One training step from its draws (draw_step); updates `state` in
-    place and returns the loss, a 0-d device tensor. The background is
-    the random draw when random_bg and no envmap trains, else white (an
-    envmap step draws it all the same, so the draws match the JAX
-    package's).
+    place and returns the loss, a 0-d device tensor. Every tensor of the
+    state keeps its storage (its values are written in place), so that a
+    captured step reads and writes the same tensors at each replay; only
+    "aux", "aux_opt" and "step" are rebound. lr_corr: adam_update's. The
+    background is the random draw when random_bg and no envmap trains,
+    else white (an envmap step draws it all the same, so the draws match
+    the JAX package's).
 
     With `mesh` (parallel.sharding.Mesh) every rank runs this step on its
     own draws of opts.rays_per_batch rays, from the same replicated
@@ -751,11 +846,11 @@ def _train_step_body(state, data, opts: TrainOptions, draws, mesh=None):
         if mesh is not None:
             loss, grads, aux_grads = _mean_over_ranks(mesh, loss, grads,
                                                       aux_grads)
-        adam_update(state["net"], grads, state["opt"], step, opts)
+        adam_update(state["net"], grads, state["opt"], step, opts, lr_corr)
         state["aux"], state["aux_opt"] = _aux_adam_update(
             state["aux"], aux_grads, state["aux_opt"], step, opts)
-        state["loss_ema"] = (loss if step == 0
-                             else 0.99 * state["loss_ema"] + 0.01 * loss)
+        state["loss_ema"].copy_(loss if step == 0
+                                else 0.99 * state["loss_ema"] + 0.01 * loss)
         if n_keep is not None:
             bucket = compact_bucket(B * opts.samples_per_ray,
                                     opts.compact_keep_fraction)
@@ -773,8 +868,8 @@ def _train_step_body(state, data, opts: TrainOptions, draws, mesh=None):
                 # never apply a raster local to one rank: index_put_'s
                 # accumulation order differs between ranks on the card
                 sum_g, cnt_g = mesh.reduce([sum_g, cnt_g])
-            state["error_map"] = _error_map_apply(state["error_map"], sum_g,
-                                                  cnt_g, opts.error_map_beta)
+            state["error_map"].copy_(_error_map_apply(
+                state["error_map"], sum_g, cnt_g, opts.error_map_beta))
     state["step"] = step + 1
     return loss
 
@@ -788,7 +883,7 @@ def train_step(state, data, opts: TrainOptions, draws, mesh=None):
 def update_density_grid(state, opts: TrainOptions, draws,
                         rebuild_occ: bool = True):
     """The density-grid refresh from its draws (draw_grid_update) ->
-    state, updated in place."""
+    state, its grid and occupancy written in place."""
     _update_density_grid_body(state, opts, draws, rebuild_occ)
     return state
 
@@ -803,8 +898,10 @@ def train_chunk(state, data, opts: TrainOptions, n_steps: int,
     must draw it alike."""
     if update_grid:
         update_density_grid(state, opts, draws_fn("grid", opts), rebuild_occ)
+    lrs = lr_tensor(range(state["step"], state["step"] + n_steps), opts,
+                    data["images"].device)
     losses = [_train_step_body(state, data, opts, draws_fn("step", opts),
-                               mesh) for _ in range(n_steps)]
+                               mesh, lrs[i:i + 1]) for i in range(n_steps)]
     return state, torch.stack(losses)
 
 
@@ -830,14 +927,19 @@ def _update_density_grid_body(state, opts: TrainOptions, draws,
         grid = grid.reshape(-1).scatter_reduce(
             0, flat_idx, sigma * C.MIN_CONE_STEPSIZE, reduce="amax"
         ).reshape(grid.shape)
-        state["density_grid"] = grid
+        state["density_grid"].copy_(grid)
         if rebuild_occ:
-            state["occ"] = occ_ops.build_occupancy(grid, cfg.max_cascade)
+            state["occ"].copy_(occ_ops.build_occupancy(grid, cfg.max_cascade))
 
 
 # ---------------------------------------------------------------------------
 # Trainer
 # ---------------------------------------------------------------------------
+
+# the modules whose wrappers a training step launches; a replay of the
+# settled step adds the launches its capture held to their counts
+_COUNTED = (march_cuda, network_cuda, adam_cuda)
+
 
 class Trainer:
     """Trainer(dataset).train_until(...) -> save_snapshot(path). All
@@ -850,6 +952,8 @@ class Trainer:
     # re-check the adaptive compaction gate at this step cadence (one
     # scalar host read per check)
     compact_check_interval: int = 256
+    # captured steps kept at once, the least recent dropped
+    max_graphs: int = 4
 
     def __init__(self, dataset: NerfDataset, opts: TrainOptions = None,
                  seed: int = 1337, device="cuda"):
@@ -879,6 +983,16 @@ class Trainer:
                             if opts.compact_keep_fraction > 0.0 else opts)
         self._compact_ready = False
         self._last_compact_check = -(1 << 30)
+        # the settled step's graph (train): on where True
+        self.graphs = True
+        # graph_key -> (the captured step, its loss tensor)
+        self._graphs: Dict[tuple, tuple] = {}
+        self._warm_key = None
+        self._static = None         # the graph's draws and lr_corr
+        self._side = None           # the stream graphs warm up and capture on
+        # steps run eagerly and steps replayed since construction
+        self.eager_steps = 0
+        self.replayed_steps = 0
 
     @property
     def step(self) -> int:
@@ -927,18 +1041,112 @@ class Trainer:
         """(chunk_fn, step_fn) for the chunk that starts at `step`, on the
         options of _chunk_opts: chunk_fn(state, data, n_steps,
         update_grid, rebuild_occ, draws_fn) -> (state, losses) and
-        step_fn(state, data, draws_fn) -> (state, loss)."""
+        step_fn(state, data, draws_fn) -> (state, loss), on this
+        trainer's state, data and draws (_chunk)."""
         o = self._chunk_opts(step)
 
         def chunk_fn(state, data, n_steps, update_grid, rebuild_occ,
                      draws_fn):
-            return train_chunk(state, data, o, n_steps, update_grid,
-                               rebuild_occ, draws_fn)
+            return state, self._chunk(o, n_steps, update_grid, rebuild_occ)
 
         def step_fn(state, data, draws_fn):
-            return train_step(state, data, o, draws_fn("step", o))
+            return state, self._chunk(o, 1, False, False)[0]
 
         return chunk_fn, step_fn
+
+    def takes_graph(self) -> bool:
+        """The rule for a replayed step: graphs on, the card, no aux model
+        training, past step 0 (whose loss EMA takes the first loss)."""
+        return (self.graphs and self.device.type == "cuda"
+                and not self.state["aux"] and self.state["step"] > 0)
+
+    def _chunk(self, o: TrainOptions, n: int, update_grid: bool,
+               rebuild_occ: bool) -> torch.Tensor:
+        """The grid refresh when `update_grid`, then n steps on options o,
+        each replayed (_graph_step) where takes_graph() holds, else eager
+        -> losses (n,) on the device. The chunk's learning rates go to the
+        device in one copy."""
+        st = self.state
+        if update_grid:
+            update_density_grid(st, o, self._draws("grid", o), rebuild_occ)
+        lrs = lr_tensor(range(st["step"], st["step"] + n), o, self.device)
+        losses = torch.empty((n,), device=self.device)
+        for i in range(n):
+            if self.takes_graph():
+                loss = self._graph_step(o, lrs[i:i + 1])
+            else:
+                loss = _train_step_body(st, self.data, o,
+                                        self._draws("step", o),
+                                        lr_corr=lrs[i:i + 1])
+                self.eager_steps += 1
+            losses[i].copy_(loss)
+        return losses
+
+    def graph_key(self, o: TrainOptions) -> tuple:
+        """What a captured step bakes in: the options (the compaction gate
+        picks them), the error map's branch (warmup or inverse CDF), and
+        the address, shape and type of every tensor of the state and the
+        data that the step reads or writes."""
+        st = self.state
+        tensors = ([p for _, p in st["net"].named_parameters()]
+                   + [t for k in ("m", "v") for t in st["opt"][k].values()]
+                   + [st[k] for k in ("density_grid", "occ", "aabb_min",
+                                      "aabb_max", "loss_ema", "overflow_steps",
+                                      "overflow_samples", "error_map")
+                      if k in st]
+                   + [self.data[k] for k in sorted(self.data)])
+        past_warmup = "error_map" in st and st["step"] >= o.error_map_warmup
+        return (o, past_warmup, tuple((t.data_ptr(), tuple(t.shape), t.dtype)
+                                      for t in tensors))
+
+    def _graph_step(self, o: TrainOptions, lr: torch.Tensor) -> torch.Tensor:
+        """One step through the graph of its key (graph_key): the draws in
+        place into the graph's buffers and lr_corr copied to its slot, then
+        one replay -> the graph's loss tensor (the next replay overwrites
+        it). A key's first step runs eagerly on the buffers and the
+        capture stream (it warms the kernels and the stream's library
+        handles up); its second is captured (raymarch.capture_graph) and
+        replayed."""
+        st = self.state
+        if self._static is None:
+            self._static = {"draws": step_draw_buffers(self.data, o,
+                                                       "error_map" in st),
+                            "lr": torch.empty((1,), device=self.device)}
+            self._side = torch.cuda.Stream(self.device)
+        draws, slot = self._static["draws"], self._static["lr"]
+        draw_step_into(self.gen, draws, self.data)
+        slot.copy_(lr)
+        key = self.graph_key(o)
+        g = self._graphs.pop(key, None)
+        if g is None and self._warm_key != key:
+            self._warm_key = key
+            main = torch.cuda.current_stream(self.device)
+            self._side.wait_stream(main)
+            with torch.cuda.stream(self._side):
+                loss = _train_step_body(st, self.data, o, draws, lr_corr=slot)
+            main.wait_stream(self._side)
+            self.eager_steps += 1
+            return loss
+        if g is None:
+            # the step body sees a copy of the dict, so that the capture
+            # advances no step count (the tensors are the state's)
+            g = raymarch.capture_graph(
+                lambda: _train_step_body(dict(st), self.data, o, draws,
+                                         lr_corr=slot),
+                self._side, _COUNTED, "the training step")
+        self._graphs[key] = g               # the most recent last
+        while len(self._graphs) > self.max_graphs:
+            self._graphs.pop(next(iter(self._graphs)))
+        graph, loss = g
+        graph.replay()
+        st["step"] += 1
+        self.replayed_steps += 1
+        return loss
+
+    def drop_graphs(self):
+        """Forget the captured steps (their memory is freed)."""
+        self._graphs.clear()
+        self._warm_key = None
 
     def update_density_grid(self, rebuild_occ: bool = True):
         update_density_grid(self.state, self.opts,
@@ -954,7 +1162,21 @@ class Trainer:
         every grid_update_interval-aligned chunk (_fns_for). Losses
         stay on the device and come back in one fetch at the end; a
         `callback(step, loss)` reads each step's loss (one host read per
-        step)."""
+        step).
+
+        On the card a step replays a captured CUDA graph where
+        takes_graph() holds: `graphs` on, no aux model training, past
+        step 0 (data-parallel steps, ShardedTrainer, run eagerly). The
+        graph is cached by graph_key (the options, the error map's branch,
+        the address of every tensor it reads: a new network or grid
+        tensor makes a new graph); a key's first step runs eagerly, its
+        second is captured. A replay reads its draws and the step's
+        lr_corr from buffers of its own, which the host fills first (the
+        draws in place from the trainer's generator, as draw_step draws
+        them; one copy), and each step's loss is copied out of the
+        graph. The grid refresh runs eagerly between replays and writes
+        the grid and the occupancy in place. Every other step runs
+        eagerly on the same kernels. A capture that fails raises."""
         interval = self.opts.grid_update_interval
         losses = []
         remaining = n_steps
@@ -1072,6 +1294,7 @@ class Trainer:
         net = unpack_params(s.params_blob, s.config,
                             self.device).requires_grad_(True)
         st = self.state
+        self.drop_graphs()
         st["net"] = net
         st["opt"] = adam_init(net)
         n_casc = self.opts.config.max_cascade + 1

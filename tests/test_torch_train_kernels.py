@@ -61,7 +61,6 @@ from nerf_glasses_tpu_torch.io.dataset import ImageMetadata, NerfDataset
 from nerf_glasses_tpu_torch.ops import hashgrid as thash
 from nerf_glasses_tpu_torch.ops import march_cuda as mc
 from nerf_glasses_tpu_torch.ops import network_cuda as nc
-from nerf_glasses_tpu_torch.ops.mlp import mlp_apply
 from nerf_glasses_tpu_torch.ops.network import init_params
 from nerf_glasses_tpu_torch.train import trainer as ttr
 
@@ -687,8 +686,9 @@ def test_hash_encode_backward_on_card(cfg, dtype, n, need_pos):
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_training_forward_takes_the_encode_kernels_on_card(dtype):
     """density_raw on a network that trains: HashEncode's two kernels,
-    the plain MLP counted, no plain encode on the card; its gradients
-    under the contract against the plain route's."""
+    then the MLP's (Mlp: nmr_mlp, nmr_mlp_backward), no plain version on
+    the card; the table's gradient under the contract against the plain
+    encode's through the same MLP kernels."""
     _card()
     td = DTYPES[dtype][0]
     cfg = TCfg.native_fast()
@@ -705,9 +705,10 @@ def test_training_forward_takes_the_encode_kernels_on_card(dtype):
     assert nc.launches["hash_encode_backward"] == 1
     assert nc.plain_on_card["hash_encode"] == 0
     assert nc.plain_on_card["encode_mlp"] == 0
-    assert nc.plain_on_card["mlp"] == 1
+    assert nc.plain_on_card["mlp"] == 0
+    assert nc.launches["mlp"] == nc.launches["mlp_backward"] == 1
     ref = thash.hash_encode(net.grid, pos, cfg, compute_dtype=td)
-    want = mlp_apply(ref, net.density_mlp, compute_dtype=torch.bfloat16)
+    want = nc.Mlp.apply(ref, torch.bfloat16, *net.density_mlp)
     (want_g,) = torch.autograd.grad(want[:, 0].sum(), [net.grid])
     assert nc.compare_gradients((grid_g, None), (want_g, None))["ok"]
 
